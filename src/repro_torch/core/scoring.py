@@ -1,0 +1,79 @@
+"""Importance-score post-processing (paper §2, §3.1) for the port.
+
+The final-observation policy ``lookaheadkv`` scores the prompt's keys once,
+at prompt end: the learned lookahead rows run through the stack after the
+prompt and ``ops.lookahead_score`` gives each q head's mean softmax mass
+per key.  Here those masses become eviction-ready scores: GQA mean over
+each kv group's q heads, then a 1-D max-pool (paper kernel 7) over the
+scored region.
+
+The streaming policies of the JAX package (cumulative h2o, observation-
+window snapkv/pyramidkv/tova) come later (ROADMAP A3, A6).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels.ref import NEG_INF
+
+FINAL_OBS = ("lookaheadkv", "gt_oracle")
+
+
+class ScoreState(NamedTuple):
+    """Streaming score accumulator of a chunked prefill.  Final-observation
+    policies accumulate nothing across chunks (their observation pass runs
+    once at prompt end), so their state has no fields set; the cumulative
+    and window fields arrive with those policies."""
+
+    acc: Optional[torch.Tensor] = None
+    cnt: Optional[torch.Tensor] = None
+    qbuf: Optional[torch.Tensor] = None
+
+
+def init_score_state(policy: str) -> ScoreState:
+    if policy in FINAL_OBS:
+        return ScoreState()
+    raise NotImplementedError(
+        f"streaming scores for policy {policy!r} are not ported yet: "
+        "ROADMAP A3 (window policies) / A6 (h2o)")
+
+
+def gqa_reduce(scores: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
+    """(B, H, S) -> (B, KV, S): mean over each kv group's query heads."""
+    B, H, S = scores.shape
+    return scores.reshape(B, num_kv_heads, H // num_kv_heads, S).mean(dim=2)
+
+
+def maxpool1d(scores: torch.Tensor, kernel: int) -> torch.Tensor:
+    """Max-pool along the last axis with 'same' padding (-inf edges)."""
+    if kernel <= 1:
+        return scores
+    pad = kernel // 2
+    x = torch.nn.functional.pad(scores, (pad, pad), value=float("-inf"))
+    n = scores.shape[-1]
+    return torch.stack([x[..., i:i + n] for i in range(kernel)]).amax(dim=0)
+
+
+def finalize_layer_scores(
+    policy: str,
+    n_keys: int,  # buffer depth K
+    n_total: int,  # true prompt length
+    *,
+    obs_masses_l: torch.Tensor,  # (B, H, K) mean observation masses
+    num_kv_heads: int,
+    pool_kernel: int,
+) -> torch.Tensor:
+    """Eviction-ready scores (B, KV, K) of one layer at prompt end: GQA
+    reduce, max-pool over the scored region only (columns past the prompt
+    are -inf, as the monolithic pool's edge padding), then every column
+    at or past ``n_total`` set to ``NEG_INF`` so it ranks last."""
+    if policy not in FINAL_OBS:
+        init_score_state(policy)  # raises, naming the ROADMAP item
+    col = torch.arange(n_keys, device=obs_masses_l.device)
+    s_kv = gqa_reduce(obs_masses_l, num_kv_heads)
+    s_kv = torch.where(col < n_total, s_kv, float("-inf"))
+    s_kv = maxpool1d(s_kv, pool_kernel)
+    return torch.where(col < n_total, s_kv, NEG_INF)

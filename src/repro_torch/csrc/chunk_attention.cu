@@ -1,0 +1,469 @@
+// Chunk attention: C query rows of one prefill chunk (or the 32 lookahead
+// observation rows) at absolute position q_offset attend over a K-deep
+// key/value buffer whose column j holds position j.  Earlier columns are
+// visible, the chunk is causal within itself, later columns are invisible,
+// and an optional sliding window hides keys with q_pos - k_pos >= window.
+//
+// Replaces: src/repro/kernels/chunk_attention.py, chunk_attention_pallas
+// (pallas_call at :138).
+//
+// Layout: q (B, C, H, hd), k/v (B, K, KV, hd) contiguous, fp32 or bf16;
+// out (B, C, H, hd) in q's type.  GQA: query head h reads kv head
+// h / (H / KV).
+//
+// Both paths put one CTA on each (64-row query tile, head, batch).  The TPU
+// grid's sequential key axis becomes a loop inside the CTA over 64-key
+// tiles staged in shared memory, with the online-softmax (m, l, acc)
+// recurrence in registers.  The loop stops at the tile's last visible key,
+// q_offset + row_end - 1 (the causal block pruning of chunk_attention.py:62);
+// with a window it also starts at the first key any row of the tile sees.
+//
+// * bf16 (the serving path): tensor cores through mma.sync m16n8k16 (bf16
+//   in, f32 accumulate), FlashAttention-2 style.  4 warps, 16 query rows
+//   each; a warp keeps its Q rows as A fragments, computes S = Q K^T for
+//   64 keys into f32 fragments, masks and rescales them in registers (the
+//   lane owning an S element knows its row and key), and reuses the S
+//   fragment layout as the A operand of P.V after rounding P to bf16
+//   (m, l and the rescale stay f32).  K/V tiles stream into a
+//   double-buffered shared-memory ring by cp.async (the next tile loads
+//   while this one computes); V's B fragments come from ldmatrix.trans.
+// * fp32 (the float32 configs): 256 threads, 4 lanes per query row, fp32
+//   FMAs on CUDA cores.
+//
+// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16): the larger of
+// 4*hd*H*sum_i(visible keys of row i) operations / 989e12 and the bytes of
+// q, the visible k/v rows and out / 3.35e12.  A 256-row chunk deep in a
+// 4k prompt is operation-bound (~17 us at the data-sheet peaks of an H100
+// SXM at its full 700 W).  What the design leaves on the
+// table: mma.sync instead of wgmma, cp.async instead of TMA, one
+// 4-warp CTA per query tile per head (128 CTAs for a 256-row chunk of
+// llama3-8b, one per SM), so the 4 q heads of a GQA group each re-read
+// their kv head's tiles (from L2).
+#include "common.cuh"
+
+namespace {
+
+constexpr int BQ = 64;       // query rows per CTA
+constexpr int BK = 64;       // keys per shared-memory tile
+constexpr int THREADS = 256; // fp32 path: 4 lanes per query row
+constexpr int NJ = BK / 4;   // fp32 path: logits per lane per tile
+constexpr int MTHREADS = 128;  // bf16 path: 4 warps x 16 query rows
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS)
+chunk_attention_fma(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out, int C,
+                       int H, int K, int KV, int q_offset, int window,
+                       float scale) {
+  extern __shared__ float smem[];
+  float* sQ = smem;                  // BQ x (HD + 1)
+  float* sK = sQ + BQ * (HD + 1);    // BK x (HD + 1)
+  float* sV = sK + BK * (HD + 1);    // BK x HD
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r = tid >> 2;  // query row of this lane within the tile
+  const int c4 = tid & 3;  // lane within the row's group of 4
+
+  const size_t q_row = (size_t)H * HD;
+  const size_t k_row = (size_t)KV * HD;
+  const T* qb = q + (size_t)b * C * q_row + (size_t)h * HD;
+  const T* kb = k + (size_t)b * K * k_row + (size_t)kvh * HD;
+  const T* vb = v + (size_t)b * K * k_row + (size_t)kvh * HD;
+
+  for (int i = tid; i < BQ * HD; i += THREADS) {
+    const int rr = i / HD, d = i % HD;
+    sQ[rr * (HD + 1) + d] =
+        (q0 + rr < C) ? to_f32(qb[(size_t)(q0 + rr) * q_row + d]) : 0.f;
+  }
+
+  const int rows = min(BQ, C - q0);
+  const int k_end = min(K, q_offset + q0 + rows);  // past the last visible key
+  int k_begin = 0;
+  if (window > 0) k_begin = (max(0, q_offset + q0 - window + 1) / BK) * BK;
+  const bool row_ok = q0 + r < C;
+  const int qpos = q_offset + q0 + r;
+
+  float m = NEG_INF, l = 0.f;
+  float acc[HD / 4];
+#pragma unroll
+  for (int i = 0; i < HD / 4; ++i) acc[i] = 0.f;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+    __syncthreads();  // the previous tile's readers are done
+    for (int i = tid; i < BK * HD; i += THREADS) {
+      const int c = i / HD, d = i % HD;
+      float kx = 0.f, vx = 0.f;
+      if (k0 + c < K) {
+        kx = to_f32(kb[(size_t)(k0 + c) * k_row + d]);
+        vx = to_f32(vb[(size_t)(k0 + c) * k_row + d]);
+      }
+      sK[c * (HD + 1) + d] = kx;
+      sV[c * HD + d] = vx;
+    }
+    __syncthreads();
+
+    float s[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[j] = 0.f;
+    for (int d = 0; d < HD; ++d) {
+      const float qd = sQ[r * (HD + 1) + d];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[j] += qd * sK[(c4 + 4 * j) * (HD + 1) + d];
+    }
+    unsigned okbits = 0;
+    float tmax = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int kpos = k0 + c4 + 4 * j;
+      const bool ok = row_ok && kpos < K && kpos <= qpos &&
+                      (window <= 0 || qpos - kpos < window);
+      s[j] = ok ? s[j] * scale : NEG_INF;
+      okbits |= (unsigned)ok << j;
+      tmax = fmaxf(tmax, s[j]);
+    }
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+    const float m_new = fmaxf(m, tmax);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      s[j] = ((okbits >> j) & 1u) ? expf(s[j] - m_new) : 0.f;
+      psum += s[j];
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    const float corr = expf(m - m_new);
+    l = l * corr + psum;
+    m = m_new;
+#pragma unroll
+    for (int i = 0; i < HD / 4; ++i) acc[i] *= corr;
+    // key c's probability lives in lane (row base + c % 4), slot c / 4
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float p = __shfl_sync(0xffffffffu, s[j], (lane & ~3) | cc);
+        const int c = 4 * j + cc;
+#pragma unroll
+        for (int i = 0; i < HD / 4; ++i) acc[i] += p * sV[c * HD + c4 + 4 * i];
+      }
+    }
+  }
+
+  if (row_ok) {
+    const float inv = 1.f / fmaxf(l, L_FLOOR);
+    T* ob = out + ((size_t)b * C + q0 + r) * q_row + (size_t)h * HD;
+#pragma unroll
+    for (int i = 0; i < HD / 4; ++i) ob[c4 + 4 * i] = from_f32<T>(acc[i] * inv);
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy that bypasses registers; with `valid`
+// false it writes zeros and reads nothing (src must still be a valid
+// address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Two 8x8 bf16 matrices, transposed on the way into registers: lane (g, t)
+// receives M[2t][g], M[2t+1][g] of each — the B fragment of P.V straight
+// from row-major V.  Lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(smem_addr(row)));
+}
+
+// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A 16x16 regs: (row g, k 2t..2t+1), (row g+8, k 2t..), (row g, k 8+2t..),
+//                 (row g+8, k 8+2t..)
+//   B 16x8  regs: (k 2t..2t+1, col g), (k 8+2t.., col g)
+//   C 16x8  f32:  (row g, col 2t), (row g, col 2t+1), (row g+8, col 2t),
+//                 (row g+8, col 2t+1)
+template <int HD>
+__global__ void __launch_bounds__(MTHREADS)
+chunk_attention_mma(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ out, int C, int H, int K,
+                    int KV, int q_offset, int window, float scale) {
+  constexpr int LD = HD + 8;  // row stride (halves): conflict-free fragments
+  constexpr int CH = HD / 8;  // 16-byte chunks per row
+  constexpr int NT = BK / 8;  // n8 tiles of S per warp
+  constexpr int TILE = BK * LD;  // halves of one K or V stage
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BQ x LD
+  __nv_bfloat16* sK = sQ + BQ * LD;  // 2 stages x BK x LD
+  __nv_bfloat16* sV = sK + 2 * TILE;  // 2 stages x BK x LD
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t q_row = (size_t)H * HD;
+  const size_t k_row = (size_t)KV * HD;
+  const __nv_bfloat16* qb = q + (size_t)b * C * q_row + (size_t)h * HD;
+  const __nv_bfloat16* kb = k + (size_t)b * K * k_row + (size_t)kvh * HD;
+  const __nv_bfloat16* vb = v + (size_t)b * K * k_row + (size_t)kvh * HD;
+
+  for (int i = tid; i < BQ * CH; i += MTHREADS) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = q0 + r < C;
+    cp_async16(sQ + r * LD + 8 * c,
+               qb + (size_t)(ok ? q0 + r : 0) * q_row + 8 * c, ok);
+  }
+  cp_async_commit();
+
+  // stage one 64-key tile of K and V into `stage` (zeros past K)
+  auto load_tile = [&](int k0, int stage) {
+    __nv_bfloat16* dk = sK + stage * TILE;
+    __nv_bfloat16* dv = sV + stage * TILE;
+#pragma unroll
+    for (int it = 0; it < BK * CH / MTHREADS; ++it) {
+      const int i = tid + it * MTHREADS;
+      const int c = i / CH, ch = i % CH;
+      const bool ok = k0 + c < K;
+      const size_t src = (size_t)(ok ? k0 + c : 0) * k_row + 8 * ch;
+      cp_async16(dk + c * LD + 8 * ch, kb + src, ok);
+      cp_async16(dv + c * LD + 8 * ch, vb + src, ok);
+    }
+    cp_async_commit();
+  };
+
+  const int rows = min(BQ, C - q0);
+  const int k_end = min(K, q_offset + q0 + rows);
+  int k_begin = 0;
+  if (window > 0) k_begin = (max(0, q_offset + q0 - window + 1) / BK) * BK;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  if (n_tiles > 0) {
+    load_tile(k_begin, 0);  // in flight while Q is read
+    cp_async_wait<1>();  // the Q group has landed (the tile may not have)
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  const int wr = warp * 16;  // this warp's first row in the tile
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const __nv_bfloat16* p = sQ + (wr + g) * LD + 16 * kk + 2 * t;
+    qa[kk][0] = ld32(p);
+    qa[kk][1] = ld32(p + 8 * LD);
+    qa[kk][2] = ld32(p + 8);
+    qa[kk][3] = ld32(p + 8 * LD + 8);
+  }
+
+  // the two query rows this lane holds in every C fragment
+  const int r_lo = q0 + wr + g, r_hi = r_lo + 8;
+  const int qp_lo = q_offset + r_lo, qp_hi = q_offset + r_hi;
+  float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
+  float o[HD / 8][4];
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_begin + it * BK;
+    const int stage = it & 1;
+    // double buffering: the next tile streams in while this one computes
+    if (it + 1 < n_tiles) {
+      load_tile(k0 + BK, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile has landed for every thread
+    const __nv_bfloat16* tK = sK + stage * TILE;
+    const __nv_bfloat16* tV = sV + stage * TILE;
+
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const __nv_bfloat16* p = tK + (8 * j + g) * LD + 16 * kk + 2 * t;
+        mma_bf16(s[j], qa[kk], ld32(p), ld32(p + 8));
+      }
+    }
+    unsigned ok_lo = 0, ok_hi = 0;  // bit 2j+i: key 8j+2t+i visible
+    float mx_lo = NEG_INF, mx_hi = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int kp = k0 + 8 * j + 2 * t + i;
+        const bool a = r_lo < C && kp < K && kp <= qp_lo &&
+                       (window <= 0 || qp_lo - kp < window);
+        const bool c = r_hi < C && kp < K && kp <= qp_hi &&
+                       (window <= 0 || qp_hi - kp < window);
+        s[j][i] = a ? s[j][i] * scale : NEG_INF;
+        s[j][2 + i] = c ? s[j][2 + i] * scale : NEG_INF;
+        ok_lo |= (unsigned)a << (2 * j + i);
+        ok_hi |= (unsigned)c << (2 * j + i);
+        mx_lo = fmaxf(mx_lo, s[j][i]);
+        mx_hi = fmaxf(mx_hi, s[j][2 + i]);
+      }
+    }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o2));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o2));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    float ps_lo = 0.f, ps_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        s[j][i] = ((ok_lo >> (2 * j + i)) & 1u) ? expf(s[j][i] - mn_lo) : 0.f;
+        s[j][2 + i] =
+            ((ok_hi >> (2 * j + i)) & 1u) ? expf(s[j][2 + i] - mn_hi) : 0.f;
+        ps_lo += s[j][i];
+        ps_hi += s[j][2 + i];
+      }
+    }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      ps_lo += __shfl_xor_sync(0xffffffffu, ps_lo, o2);
+      ps_hi += __shfl_xor_sync(0xffffffffu, ps_hi, o2);
+    }
+    const float c_lo = expf(m_lo - mn_lo), c_hi = expf(m_hi - mn_hi);
+    l_lo = l_lo * c_lo + ps_lo;
+    l_hi = l_hi * c_hi + ps_hi;
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) {
+      o[dt][0] *= c_lo;
+      o[dt][1] *= c_lo;
+      o[dt][2] *= c_hi;
+      o[dt][3] *= c_hi;
+    }
+    // O += P V: S tiles 2kk and 2kk+1 are exactly P's A fragment of k-step kk
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const __nv_bfloat16* vrow = tV + (16 * kk + (lane & 15)) * LD;
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        uint32_t b0, b1;
+        ldmatrix_x2_trans(b0, b1, vrow + 8 * dt);
+        mma_bf16(o[dt], pa, b0, b1);
+      }
+    }
+    __syncthreads();  // every warp is done with `stage` before its refill
+  }
+
+  const float inv_lo = 1.f / fmaxf(l_lo, L_FLOOR);
+  const float inv_hi = 1.f / fmaxf(l_hi, L_FLOOR);
+  __nv_bfloat16* o_lo = out + ((size_t)b * C + r_lo) * q_row + (size_t)h * HD;
+  __nv_bfloat16* o_hi = o_lo + 8 * q_row;
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) {
+    if (r_lo < C)
+      *reinterpret_cast<uint32_t*>(o_lo + 8 * dt + 2 * t) =
+          pack_bf16(o[dt][0] * inv_lo, o[dt][1] * inv_lo);
+    if (r_hi < C)
+      *reinterpret_cast<uint32_t*>(o_hi + 8 * dt + 2 * t) =
+          pack_bf16(o[dt][2] * inv_hi, o[dt][3] * inv_hi);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int C, int H, int K, int KV, int q_offset,
+                   int window, cudaStream_t stream) {
+  dim3 grid((C + BQ - 1) / BQ, H, B);
+  const float scale = 1.f / sqrtf((float)HD);
+  if constexpr (sizeof(T) == 2) {  // bf16: tensor cores
+    const int smem = (BQ + 4 * BK) * (HD + 8) * 2;
+    auto* kern = chunk_attention_mma<HD>;
+    cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, MTHREADS, smem, stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, C, H, K, KV, q_offset,
+        window, scale);
+  } else {  // fp32: CUDA cores
+    const int smem = (BQ * (HD + 1) + BK * (HD + 1) + BK * HD) * sizeof(float);
+    auto* kern = chunk_attention_fma<T, HD>;
+    cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)out, C, H, K, KV,
+        q_offset, window, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
+                        void* out, int B, int C, int H, int K, int KV,
+                        int q_offset, int window, cudaStream_t stream) {
+  switch (hd) {
+    case 32: return launch<T, 32>(q, k, v, out, B, C, H, K, KV, q_offset, window, stream);
+    case 64: return launch<T, 64>(q, k, v, out, B, C, H, K, KV, q_offset, window, stream);
+    case 128: return launch<T, 128>(q, k, v, out, B, C, H, K, KV, q_offset, window, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// window <= 0 means no window.  Returns cudaGetLastError() after launch.
+extern "C" int chunk_attention(const void* q, const void* k, const void* v,
+                               void* out, int B, int C, int H, int K, int KV,
+                               int hd, int q_offset, int window, int dtype,
+                               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == DTYPE_F32)
+    return dispatch_hd<float>(hd, q, k, v, out, B, C, H, K, KV, q_offset, window, s);
+  if (dtype == DTYPE_BF16)
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, C, H, K, KV, q_offset, window, s);
+  return cudaErrorInvalidValue;
+}

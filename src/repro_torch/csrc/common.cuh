@@ -1,0 +1,43 @@
+// Shared helpers of the port's CUDA kernels (built for sm_90a with nvcc,
+// bound through a plain C interface and loaded with ctypes).
+//
+// Every kernel follows the masking rules of the Pallas kernels it
+// replaces: masked logits are NEG_INF, masked probabilities are exact
+// zeros (where(ok, exp(s - m), 0)), the row normaliser is clamped at
+// 1e-30 so a row with nothing to attend gives exact zeros, the scale is
+// 1/sqrt(hd), and every sum is taken in float32.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define NEG_INF (-1e30f)
+#define L_FLOOR 1e-30f
+
+// dtype codes passed from Python (kernels/build.py: DTYPE_CODES)
+#define DTYPE_F32 0
+#define DTYPE_BF16 1
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Raise the dynamic shared-memory ceiling of a kernel instantiation above
+// the 48 KB default (once per process and instantiation).
+template <typename F>
+static cudaError_t allow_smem(F* kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}

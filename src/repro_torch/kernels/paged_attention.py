@@ -1,0 +1,70 @@
+"""Paged flash-decode on the card (``csrc/paged_attention.cu``).
+
+The Hopper port of the JAX package's ``paged_decode_attention_pallas``
+(both its plain and windowed forms): one query token per sequence over a
+block-table view of the shared KV pool, with per-kv-head validity and an
+optional ``new_pos - pos < window`` predicate.  The kernel reads the
+block table itself.  Plain version: ``ref.paged_decode_attention``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+#: kernel launches since the last reset (``ops.reset_launch_counts``)
+launches = 0
+
+
+def _need(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} "
+                         f"{tuple(shape)} tensor on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, mask_pool: torch.Tensor,
+                           table: torch.Tensor, *,
+                           pos_pool: Optional[torch.Tensor] = None,
+                           new_pos: Optional[torch.Tensor] = None,
+                           window=None) -> torch.Tensor:
+    """q (B, H, hd); pools (N, bs, KV, hd); mask/pos (N, bs, KV); table
+    (B, nb) int32; new_pos (B,) int32 -> (B, H, hd) in q's type."""
+    global launches
+    B, H, hd = q.shape
+    N, bs, KV, _ = k_pool.shape
+    nb = table.shape[1]
+    dev = q.device
+    if not q.is_cuda:
+        raise ValueError("paged_decode_attention kernel takes CUDA tensors")
+    if q.dtype not in build.DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {q.dtype}")
+    if H % KV or not 1 <= H // KV <= 32 or hd not in (32, 64, 128):
+        raise ValueError(f"unsupported heads H={H} KV={KV} hd={hd}")
+    _need(q, "q", q.dtype, (B, H, hd), dev)
+    _need(k_pool, "k_pool", q.dtype, (N, bs, KV, hd), dev)
+    _need(v_pool, "v_pool", q.dtype, (N, bs, KV, hd), dev)
+    _need(mask_pool, "mask_pool", torch.bool, (N, bs, KV), dev)
+    _need(table, "table", torch.int32, (B, nb), dev)
+    win = int(window or 0)
+    if win > 0:
+        if pos_pool is None or new_pos is None:
+            raise ValueError("sliding-window masking needs pos_pool and "
+                             "new_pos")
+        _need(pos_pool, "pos_pool", torch.int32, (N, bs, KV), dev)
+        _need(new_pos, "new_pos", torch.int32, (B,), dev)
+    out = torch.empty_like(q)
+    err = build.library("paged_attention")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        mask_pool.data_ptr(), build.ptr(pos_pool) if win > 0 else None,
+        table.data_ptr(), build.ptr(new_pos) if win > 0 else None,
+        out.data_ptr(), B, H, KV, hd, bs, nb, win,
+        build.DTYPE_CODES[q.dtype], build.stream_ptr())
+    build.check(err, "paged_decode_attention")
+    launches += 1
+    return out

@@ -1,0 +1,170 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Deliberately naive (full score matrices in float32): they define the
+numbers each CUDA kernel is held to on the card (``chip_smoke.py``,
+``tests/test_torch_cuda.py``) and they are what a CPU tensor runs
+(``kernels/ops.py``).  Each mirrors its JAX counterpart in
+``repro/kernels/ref.py`` with the same masking rules.
+
+Shared conventions
+------------------
+q:  (B, Sq, H, hd)       queries
+k:  (B, Sk, KV, hd)      keys   (GQA: H = KV * G, query head h reads kv head h // G)
+v:  (B, Sk, KV, hd)      values
+Masked logits are ``NEG_INF``; positions are absolute.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def check_offset(q_offset: int, C: int, K: int) -> None:
+    """The chunk must fit the buffer: unlike ``dynamic_update_slice``,
+    nothing here clamps the start index silently."""
+    if q_offset < 0 or q_offset + C > K:
+        raise ValueError(f"chunk of {C} rows at q_offset {q_offset} does not "
+                         f"fit a {K}-deep key buffer")
+
+
+def _expand_gqa(x: torch.Tensor, group: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, KV*G, hd) by repeating each kv head."""
+    return torch.repeat_interleave(x, group, dim=2)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window=None,
+    q_pos: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Naive causal (optionally windowed) softmax attention of queries at
+    absolute positions ``q_pos`` (B, Sq) (default: the last Sq of the Sk
+    positions) over keys at positions 0..Sk-1.  Returns (B, Sq, H, hd) in
+    q.dtype."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    dev = q.device
+    if q_pos is None:
+        q_pos = torch.arange(Sk - Sq, Sk, device=dev).expand(B, Sq)
+    k_pos = torch.arange(Sk, device=dev)
+    kf = _expand_gqa(k, H // KV).float()
+    vf = _expand_gqa(v, H // KV).float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(hd)
+    ok = k_pos <= q_pos[:, :, None]  # (B, Sq, Sk)
+    if window is not None:
+        ok &= (q_pos[:, :, None] - k_pos) < window
+    logits = torch.where(ok[:, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
+    return out.to(q.dtype)
+
+
+def chunk_attention(q, k, v, *, q_offset: int, window=None) -> torch.Tensor:
+    """Attention of a C-row chunk at absolute position ``q_offset`` over a
+    K-deep buffer (earlier columns visible, causal inside the chunk, later
+    columns invisible).  Raises unless the chunk fits: q_offset + C <= K."""
+    B, C = q.shape[:2]
+    check_offset(q_offset, C, k.shape[1])
+    q_pos = (q_offset + torch.arange(C, device=q.device)).expand(B, C)
+    return attention(q, k, v, window=window, q_pos=q_pos)
+
+
+def decode_attention(q, k, v, *, kv_mask: torch.Tensor):
+    """One query token (B, H, hd) over (B, Sk, KV, hd) with a per-kv-head
+    mask (B, Sk, KV)."""
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    group = H // KV
+    kf = _expand_gqa(k, group).float()
+    vf = _expand_gqa(v, group).float()
+    logits = torch.einsum("bhd,bkhd->bhk", q.float(), kf) / math.sqrt(hd)
+    ok = torch.repeat_interleave(kv_mask.transpose(1, 2), group, dim=1)
+    logits = torch.where(ok, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhk,bkhd->bhd", probs, vf)
+    return out.to(q.dtype)
+
+
+def lookahead_score(
+    q_obs: torch.Tensor,  # (B, n_obs, H, hd)
+    k: torch.Tensor,  # (B, Sk, KV, hd) — prompt keys then obs keys
+    n_prompt: int,
+    *,
+    kv_mask: Optional[torch.Tensor] = None,  # (B, n_prompt) prompt-key validity
+    window=None,
+    q_offset: Optional[int] = None,  # absolute position of obs row 0
+    row_valid: Optional[torch.Tensor] = None,  # (B, n_obs) real-row mask
+) -> torch.Tensor:
+    """scores[b, h, j] = (1/n_obs) Σ_i softmax_i(q_obs·Kᵀ/√d)[j] over the
+    first ``n_prompt`` keys: (B, H, n_prompt) float32.  Obs rows are causal
+    among themselves; invalid rows contribute zeros, the denominator stays
+    ``n_obs``."""
+    B, n_obs, H, hd = q_obs.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dev = q_obs.device
+    kf = _expand_gqa(k, H // KV).float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q_obs.float(), kf) / math.sqrt(hd)
+    q_pos = (n_prompt if q_offset is None else q_offset) + torch.arange(
+        n_obs, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    ok = k_pos[None, :] <= q_pos[:, None]  # (n_obs, Sk)
+    if window is not None:
+        ok &= (q_pos[:, None] - k_pos[None, :]) < window
+    ok = ok.expand(B, n_obs, Sk)
+    if kv_mask is not None:
+        full = torch.cat([kv_mask, torch.ones((B, Sk - n_prompt),
+                                              dtype=torch.bool, device=dev)],
+                         dim=1)
+        ok = ok & full[:, None, :]
+    logits = torch.where(ok[:, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)  # (B, H, n_obs, Sk)
+    if row_valid is not None:
+        probs = probs * row_valid[:, None, :, None].float()
+    return probs[..., :n_prompt].mean(dim=2)
+
+
+def gather_paged(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Block-table view of a paged pool as the dense cache layout:
+    pool (N, bs, ...) + table (B, nb) -> (B, nb*bs, ...); logical row c of
+    sequence b is ``pool[table[b, c // bs], c % bs]``."""
+    B, nb = table.shape
+    g = pool[table.long()]  # (B, nb, bs, ...)
+    return g.reshape((B, nb * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # (B, H, hd)
+    k_pool: torch.Tensor,  # (N, bs, KV, hd)
+    v_pool: torch.Tensor,
+    mask_pool: torch.Tensor,  # (N, bs, KV) bool
+    table: torch.Tensor,  # (B, nb) int32, 0 = null block
+    *,
+    pos_pool: Optional[torch.Tensor] = None,  # (N, bs, KV) int32
+    new_pos: Optional[torch.Tensor] = None,  # (B,) query positions
+    window=None,
+) -> torch.Tensor:
+    """Gather the whole block-table view and run masked decode attention
+    over it.  A sequence/head with no attendable row is exact zeros (the
+    kernels' ``l -> max(l, 1e-30)`` rule), never NaN."""
+    mask = gather_paged(mask_pool, table)  # (B, S, KV)
+    k = gather_paged(k_pool, table)
+    v = gather_paged(v_pool, table)
+    if window is not None:
+        assert pos_pool is not None and new_pos is not None, \
+            "sliding-window masking needs pos_pool and new_pos"
+        pos = gather_paged(pos_pool, table)
+        mask = mask & ((new_pos[:, None, None] - pos) < window)
+    out = decode_attention(q, k, v, kv_mask=mask)
+    H = q.shape[1]
+    KV = mask_pool.shape[2]
+    alive = torch.repeat_interleave(mask.any(dim=1), H // KV, dim=1)  # (B, H)
+    return torch.where(alive[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                          device=out.device))

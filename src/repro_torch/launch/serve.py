@@ -1,0 +1,154 @@
+"""Serving launcher of the port: LookaheadKV through the paged
+continuous-batching engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --kv-pool-mb 256 --budget 256 --chunk 256 --slots 4 \
+        --prompt-lens 1024,2048,3072,4000 --max-new 32
+
+Weights and lookahead modules are drawn at random from ``--seed`` (fine
+for plumbing and speed; quality needs trained modules, ROADMAP A9).  The
+flags are those of the JAX launcher's continuous paged path; the ones
+whose feature the port does not serve yet raise ``NotImplementedError``
+naming their ROADMAP item.  ``--device cpu`` runs the plain PyTorch
+versions of the kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.common.config import EvictionConfig
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.lookahead import init_lookahead_params
+from repro_torch.models import transformer as tf
+from repro_torch.serving import (ChunkingConfig, ContinuousEngine,
+                                 KVBlockPool, Request, ServingConfig)
+
+# flag -> (value meaning "off", ROADMAP item of the feature)
+_UNPORTED = {
+    "prefix_cache_mb": (0, "prefix cache: ROADMAP A7"),
+    "shared_prefix": (0, "shared-prefix traffic: ROADMAP A7"),
+    "decode_evict": (False, "decode-time eviction: ROADMAP A5"),
+    "mesh_model": (1, "a device mesh: ROADMAP A11"),
+    "lkv_ckpt": ("", "lookahead checkpoints: ROADMAP A9"),
+    "metrics_json": ("", "metrics: ROADMAP A12"),
+    "prom_snapshot": ("", "metrics: ROADMAP A12"),
+    "trace_out": ("", "tracing: ROADMAP A12"),
+}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--policy", default="lookaheadkv")
+    ap.add_argument("--budget", type=int, default=16)
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--n-in", type=int, default=96,
+                    help="prompt lengths are drawn from [n_in/2, n_in]")
+    ap.add_argument("--prompt-lens", default="",
+                    help="comma-separated prompt lengths (overrides "
+                         "--requests/--n-in)")
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--continuous", action="store_true",
+                    help="accepted for the JAX launcher's command lines; "
+                         "the port always serves continuously")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--chunk", type=int, default=32,
+                    help="prefill chunk size")
+    ap.add_argument("--kv-pool-mb", type=float, default=0,
+                    help="paged KV pool size in MB (required: dense slot "
+                         "caches are ROADMAP A4)")
+    ap.add_argument("--kv-block-size", type=int, default=16)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--prefix-cache-mb", type=int, default=0)
+    ap.add_argument("--shared-prefix", type=int, default=0)
+    ap.add_argument("--decode-evict", action="store_true")
+    ap.add_argument("--decode-evict-interval", type=int, default=64)
+    ap.add_argument("--mesh-model", type=int, default=1)
+    ap.add_argument("--lkv-ckpt", default="")
+    ap.add_argument("--metrics-json", default="")
+    ap.add_argument("--prom-snapshot", default="")
+    ap.add_argument("--trace-out", default="")
+    args = ap.parse_args(argv)
+    for name, (off, what) in _UNPORTED.items():
+        if getattr(args, name) != off:
+            raise NotImplementedError(f"--{name.replace('_', '-')}: not "
+                                      f"ported yet: {what}")
+    if not args.kv_pool_mb:
+        raise NotImplementedError("dense slot decode caches: ROADMAP A4 "
+                                  "(pass --kv-pool-mb)")
+    return args
+
+
+def run(argv=None) -> dict:
+    """Build the model and engine from the command line, serve the
+    requests and return {"args", "cfg", "engine", "done", "wall_s"}."""
+    args = parse_args(argv)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    params = tf.init_params(cfg, seed=args.seed, device=args.device)
+    gen = torch.Generator(device=args.device).manual_seed(args.seed + 1)
+    lkv = init_lookahead_params(gen, cfg, params["layers"])
+
+    rng = np.random.default_rng(args.seed)
+    if args.prompt_lens:
+        lens = [int(n) for n in args.prompt_lens.split(",")]
+    else:
+        lens = rng.integers(args.n_in // 2, args.n_in + 1,
+                            args.requests).tolist()
+    reqs = [Request(uid=i,
+                    prompt=rng.integers(0, cfg.vocab_size,
+                                        int(n)).astype(np.int32),
+                    max_new_tokens=args.max_new)
+            for i, n in enumerate(lens)]
+    pool = KVBlockPool(cfg, block_size=args.kv_block_size,
+                       pool_mb=args.kv_pool_mb, device=args.device)
+    sc = ServingConfig(
+        policy=args.policy, evict=EvictionConfig(budget=args.budget),
+        chunking=ChunkingConfig(chunk=args.chunk,
+                                max_context=max(max(lens), args.chunk)),
+        num_slots=args.slots, max_new_tokens=args.max_new, eos_id=-1,
+        kv_pool=pool)
+    eng = ContinuousEngine(params, cfg, sc, lkv_params=lkv,
+                           device=args.device)
+    on_card = torch.device(args.device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"args": args, "cfg": cfg, "engine": eng, "done": done,
+            "wall_s": wall,
+            # peak device bytes while serving (weights included)
+            "peak_bytes": torch.cuda.max_memory_allocated() if on_card
+            else None}
+
+
+def main(argv=None) -> None:
+    res = run(argv)
+    args, eng, done = res["args"], res["engine"], res["done"]
+    print(f"policy={args.policy} budget={args.budget} requests={len(done)} "
+          f"wall={res['wall_s']:.2f}s on {args.device}")
+    for r in sorted(done, key=lambda r: r.uid):
+        print(f"  req {r.uid}: prompt {len(r.prompt)} ttft "
+              f"{r.ttft_s * 1e3:.1f}ms {len(r.out_tokens)} tokens "
+              f"{r.out_tokens[:8]}...")
+    s = eng.pool.stats()
+    c = eng.counts
+    print(f"kv pool: {s['blocks_total']} x {s['block_size']}-row blocks "
+          f"({s['bytes_total'] / 1e6:.2f} MB), high water "
+          f"{s['high_water_blocks']} blocks, peak concurrency "
+          f"{c['max_concurrency']}; decode {c['decode_steps']} steps in "
+          f"{c['decode_s']:.3f}s")
+
+
+if __name__ == "__main__":
+    main()

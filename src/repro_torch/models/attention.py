@@ -1,0 +1,180 @@
+"""Grouped-query attention block: projections with RoPE and lookahead-LoRA
+hooks, the streaming-prefill chunk step, and the paged decode step.
+
+Single-layer params (stacked along L by transformer.py):
+
+    {"wq": (D, H*hd), "wk": (D, KV*hd), "wv": (D, KV*hd), "wo": (H*hd, D),
+     ["bq","bk","bv"]: biases when cfg.attn.qkv_bias}
+
+Where the JAX package returns updated copies of the prompt buffer and of
+the block pool, the port writes them in place (noted at each write).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.common.config import AttentionConfig, ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import check_offset
+from repro_torch.models import rope
+from repro_torch.models.layers import dense_init, linear
+
+
+def init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, *,
+         lead=()) -> dict:
+    a = cfg.attn
+    return {
+        "wq": dense_init(gen, cfg.d_model, a.q_dim, dtype, lead=lead),
+        "wk": dense_init(gen, cfg.d_model, a.kv_dim, dtype, lead=lead),
+        "wv": dense_init(gen, cfg.d_model, a.kv_dim, dtype, lead=lead),
+        "wo": dense_init(gen, a.q_dim, cfg.d_model, dtype, lead=lead),
+    }
+
+
+def _lora_for(lora: Optional[dict], name: str) -> Optional[dict]:
+    return None if lora is None else lora.get(name)
+
+
+def qkv(
+    p: dict,
+    a: AttentionConfig,
+    h: torch.Tensor,  # (B, S, D)
+    positions: torch.Tensor,  # (B, S) absolute positions
+    *,
+    lookahead_mask: Optional[torch.Tensor] = None,  # (B, S, 1)
+    lora: Optional[dict] = None,
+    lora_scale: float = 1.0,
+    rope_tables: Optional[tuple] = None,  # rope.rope_tables(positions, ...)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project + rotate.  Returns q (B,S,H,hd), k/v (B,S,KV,hd).  A caller
+    running many layers at the same positions passes ``rope_tables`` once."""
+    B, S, _ = h.shape
+    lm = lookahead_mask
+    q = linear(h, p["wq"], p.get("bq"), lora=_lora_for(lora, "wq"),
+               lora_mask=lm, lora_scale=lora_scale)
+    k = linear(h, p["wk"], p.get("bk"), lora=_lora_for(lora, "wk"),
+               lora_mask=lm, lora_scale=lora_scale)
+    v = linear(h, p["wv"], p.get("bv"), lora=_lora_for(lora, "wv"),
+               lora_mask=lm, lora_scale=lora_scale)
+    q = q.reshape(B, S, a.num_heads, a.head_dim)
+    k = k.reshape(B, S, a.num_kv_heads, a.head_dim)
+    v = v.reshape(B, S, a.num_kv_heads, a.head_dim)
+    if rope_tables is None:
+        rope_tables = rope.rope_tables(positions, a.head_dim, a.rope_theta)
+    return rope.rotate(q, rope_tables), rope.rotate(k, rope_tables), v
+
+
+def layer_window(a: AttentionConfig, is_global: bool = True) -> Optional[int]:
+    """The attention window of one layer: None (full attention) or an int
+    (sliding window; patterned local:global archs give global layers
+    None)."""
+    if a.global_every > 0 or len(a.global_layers) > 0:
+        return None if is_global else a.sliding_window
+    if a.sliding_window > 0:
+        return a.sliding_window
+    return None
+
+
+def chunk_prefill_attention(
+    p: dict,
+    a: AttentionConfig,
+    h: torch.Tensor,  # (B, C, D) chunk hidden states
+    positions: torch.Tensor,  # (B, C) = q_offset + arange(C)
+    k_buf: torch.Tensor,  # (B, K, KV, hd) prompt keys so far
+    v_buf: torch.Tensor,
+    *,
+    q_offset: int,
+    window: Optional[int] = None,
+    lookahead_mask: Optional[torch.Tensor] = None,
+    lora: Optional[dict] = None,
+    lora_scale: float = 1.0,
+    rope_tables: Optional[tuple] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streaming-prefill attention: project + rotate the chunk, write its
+    K/V into the prompt buffer at ``q_offset`` and attend its queries over
+    the buffer (``ops.chunk_attention``).  Returns (out, rotated q).
+
+    The buffer must be deep enough for the write: ``q_offset + C <= K``
+    raises otherwise (the JAX ``dynamic_update_slice`` would clamp the
+    start silently and corrupt earlier chunks' keys)."""
+    q, k, v = qkv(p, a, h, positions, lookahead_mask=lookahead_mask,
+                  lora=lora, lora_scale=lora_scale, rope_tables=rope_tables)
+    B, C = h.shape[:2]
+    check_offset(q_offset, C, k_buf.shape[1])  # before the write below
+    # in place: the chunk's K/V land in the caller's buffer (JAX returns
+    # an updated copy of the buffer)
+    k_buf[:, q_offset:q_offset + C] = k.to(k_buf.dtype)
+    v_buf[:, q_offset:q_offset + C] = v.to(v_buf.dtype)
+    out = ops.chunk_attention(q, k_buf, v_buf, q_offset=q_offset,
+                              window=window)
+    out = linear(out.reshape(B, C, a.q_dim), p["wo"],
+                 lora=_lora_for(lora, "wo"), lora_mask=lookahead_mask,
+                 lora_scale=lora_scale)
+    return out, q
+
+
+def append_slots(table: torch.Tensor, cursor: torch.Tensor, depth: int,
+                 block_size: int, active: Optional[torch.Tensor] = None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where each slot's next token lands in the pool: (block id, row in the
+    block, write_ok), all (B,).  Inactive or full slots, and a live slot
+    whose append block is missing (table entry 0), are routed to the null
+    block with ``write_ok`` False, so they can neither mark a phantom row
+    valid nor touch a neighbour's blocks.  The same for every layer (the
+    table is shared across layers), so a decode step computes it once."""
+    nb = table.shape[1]
+    write_ok = cursor < depth  # full caches stop appending
+    if active is not None:
+        write_ok &= active
+    jb = torch.clamp(cursor // block_size, 0, nb - 1)
+    off = torch.clamp(cursor - jb * block_size, 0, block_size - 1).long()
+    pb = torch.gather(table, 1, jb[:, None].long())[:, 0]
+    write_ok &= pb != 0
+    pb = torch.where(write_ok, pb, torch.zeros_like(pb)).long()
+    return pb, off, write_ok
+
+
+def decode_attention_step_paged(
+    p: dict,
+    a: AttentionConfig,
+    h1: torch.Tensor,  # (B, 1, D) current token hidden
+    positions: torch.Tensor,  # (B, 1) the token's absolute positions
+    pool: dict,  # this layer's pool: k/v (N, bs, KV, hd), pos/mask (N, bs, KV)
+    *,
+    table: torch.Tensor,  # (B, nb) int32 physical block ids (0 = null)
+    cursor: torch.Tensor,  # (B,) append rows
+    depth: int,  # logical cache depth (capacity + margin)
+    active: Optional[torch.Tensor] = None,  # (B,) live slots
+    window: Optional[int] = None,
+    rope_tables: Optional[tuple] = None,
+    slots: Optional[tuple] = None,  # append_slots(...), shared by layers
+) -> torch.Tensor:
+    """One decode step against the paged cache (``serving/kv_pool.py``).
+
+    Appends the token's K/V at each slot's cursor row ``(table[b, c // bs],
+    c % bs)`` — null-routed where the slot may not write, see
+    ``append_slots`` — then attends straight out of the pool.  Returns
+    (B, 1, D)."""
+    B = h1.shape[0]
+    KV = a.num_kv_heads
+    bs = pool["k"].shape[1]
+    assert depth <= table.shape[1] * bs, \
+        "block table shallower than the logical cache"
+    q, k_new, v_new = qkv(p, a, h1, positions, rope_tables=rope_tables)
+    if slots is None:
+        slots = append_slots(table, cursor, depth, bs, active)
+    pb, off, write_ok = slots
+    # in place: scatter into the shared pool (JAX returns updated copies)
+    pool["k"][pb, off] = k_new[:, 0].to(pool["k"].dtype)
+    pool["v"][pb, off] = v_new[:, 0].to(pool["v"].dtype)
+    pool["pos"][pb, off] = positions.to(torch.int32).expand(B, KV)
+    pool["mask"][pb, off] = write_ok[:, None].expand(B, KV)
+
+    out = ops.paged_decode_attention(
+        q[:, 0], pool["k"], pool["v"], pool["mask"], table,
+        pos_pool=pool["pos"], new_pos=positions[:, 0].to(torch.int32),
+        window=window)
+    return linear(out.reshape(B, 1, a.q_dim), p["wo"])

@@ -17,3 +17,5 @@ def sweep_cases(seed: int, n: int, gen):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips where CUDA is absent)")

@@ -1,0 +1,245 @@
+"""The port's plain kernel versions against the JAX package, on the CPU.
+
+Each plain PyTorch version in ``repro_torch.kernels.ref`` (what a CPU
+tensor runs, and what the CUDA kernels are held to on the card) is
+compared with the JAX oracle in ``repro.kernels.ref`` and with the Pallas
+kernel it ports, run in interpret mode, over the shapes and edge cases of
+``tests/test_kernels.py``, ``test_fused_scores.py`` and
+``test_paged_decode.py``: GQA groups, ragged key depths, windows, masked
+keys and rows, ragged block tables with null blocks, fully masked heads.
+Inputs come from a numpy seed.  Tolerance 1e-5 (float32); a fully masked
+head must come out exact zeros on both sides.
+
+Also the pieces between the kernels that decide kept sets: GQA reduce,
+max-pool and the top-k tie rule (lower index first on equal scores).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import sweep_cases
+from repro.core import eviction as jev
+from repro.core import scoring as jscoring
+from repro.kernels import ref as jref
+from repro.kernels.chunk_attention import chunk_attention_pallas
+from repro.kernels.lookahead_score import lookahead_score_pallas
+from repro.kernels.paged_attention import paged_decode_attention_pallas
+from repro_torch.core import eviction as tev
+from repro_torch.core import scoring as tscoring
+from repro_torch.kernels import ops
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: chunk attention
+# ---------------------------------------------------------------------------
+
+
+def _chunk_case(rng):
+    KV = int(rng.choice([1, 2, 4]))
+    C = int(rng.choice([8, 16, 32]))
+    K = int(rng.choice([64, 96, 80]))  # 80: not a multiple of the tile
+    return dict(B=int(rng.integers(1, 3)), C=C, K=K, KV=KV,
+                H=KV * int(rng.choice([1, 2, 4])), hd=int(rng.choice([16, 32])),
+                off=int(rng.integers(0, K - C + 1)),
+                window=int(rng.choice([0, 0, 24])),
+                seed=int(rng.integers(1 << 30)))
+
+
+@pytest.mark.parametrize("case", sweep_cases(11, 6, _chunk_case))
+def test_chunk_attention_plain_matches_jax(case):
+    rng = np.random.default_rng(case["seed"])
+    B, C, K, H, KV, hd = (case[n] for n in ("B", "C", "K", "H", "KV", "hd"))
+    q = rng.normal(size=(B, C, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, K, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(B, K, KV, hd)).astype(np.float32)
+    off, w = case["off"], case["window"] or None
+    got = ops.chunk_attention(_t(q), _t(k), _t(v), q_offset=off, window=w)
+    q_pos = jnp.broadcast_to(off + jnp.arange(C), (B, C))
+    want = jref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=True, window=w, q_pos=q_pos)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    pallas = chunk_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), jnp.int32(off), window=w,
+                                    block_k=16, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+
+
+def test_chunk_attention_rejects_overflowing_chunk():
+    """The buffer must hold the chunk: no silent clamp of the offset."""
+    q = torch.zeros((1, 8, 2, 16))
+    k = torch.zeros((1, 32, 1, 16))
+    with pytest.raises(ValueError, match="does not fit"):
+        ops.chunk_attention(q, k, k, q_offset=25)
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: lookahead scores
+# ---------------------------------------------------------------------------
+
+
+def _score_case(rng):
+    KV = int(rng.choice([1, 2]))
+    n_obs = int(rng.choice([4, 8, 32]))
+    Sk = int(rng.choice([48, 72, 100]))
+    return dict(B=int(rng.integers(1, 3)), n_obs=n_obs, Sk=Sk, KV=KV,
+                H=KV * int(rng.choice([1, 2, 4])), hd=int(rng.choice([16, 32])),
+                n_prompt=int(rng.choice([Sk - n_obs, Sk])),
+                window=int(rng.choice([0, 0, 20])),
+                masks=bool(rng.integers(2)), seed=int(rng.integers(1 << 30)))
+
+
+@pytest.mark.parametrize("case", sweep_cases(12, 6, _score_case))
+def test_lookahead_score_plain_matches_jax(case):
+    """Traced-offset finalize form (n_prompt = Sk, q_offset < Sk) and the
+    monolithic form (n_prompt = Sk - n_obs), with kv_mask and row_valid
+    (False rows zeroed, denominator n_obs) and windows."""
+    rng = np.random.default_rng(case["seed"])
+    B, n_obs, Sk, H, KV, hd = (case[n] for n in
+                               ("B", "n_obs", "Sk", "H", "KV", "hd"))
+    n_prompt = case["n_prompt"]
+    q = rng.normal(size=(B, n_obs, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, Sk, KV, hd)).astype(np.float32)
+    off = Sk - n_obs - int(rng.integers(0, 10)) if n_prompt == Sk else None
+    kvm = rv = None
+    if case["masks"]:
+        kvm = rng.random((B, n_prompt)) > 0.2
+        rv = rng.random((B, n_obs)) > 0.3
+    w = case["window"] or None
+    got = ops.lookahead_score(
+        _t(q), _t(k), n_prompt, q_offset=off, window=w,
+        kv_mask=None if kvm is None else _t(kvm),
+        row_valid=None if rv is None else _t(rv))
+    jkw = dict(q_offset=off, window=w,
+               kv_mask=None if kvm is None else jnp.asarray(kvm),
+               row_valid=None if rv is None else jnp.asarray(rv))
+    want = jref.lookahead_score(jnp.asarray(q), jnp.asarray(k), n_prompt,
+                                **jkw)
+    assert got.dtype == torch.float32 and got.shape == (B, H, n_prompt)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    pallas = lookahead_score_pallas(jnp.asarray(q), jnp.asarray(k), n_prompt,
+                                    block_k=32, interpret=True, **jkw)
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: paged decode attention
+# ---------------------------------------------------------------------------
+
+
+def _paged_inputs(rng, *, B, KV, G, hd, bs, N, nb):
+    H = KV * G
+    q = rng.normal(size=(B, H, hd)).astype(np.float32)
+    pk = rng.normal(size=(N, bs, KV, hd)).astype(np.float32)
+    pv = rng.normal(size=(N, bs, KV, hd)).astype(np.float32)
+    pm = rng.random((N, bs, KV)) > 0.25
+    pm[0] = False  # the null block
+    pos = rng.integers(0, 64, (N, bs, KV)).astype(np.int32)
+    tbl = rng.integers(1, N, (B, nb)).astype(np.int32)
+    tbl[0, nb // 2:] = 0  # ragged: null tail
+    npos = rng.integers(40, 70, (B,)).astype(np.int32)
+    return q, pk, pv, pm, pos, tbl, npos
+
+
+def _paged_case(rng):
+    return dict(B=int(rng.integers(1, 4)), KV=int(rng.choice([1, 2])),
+                G=int(rng.choice([1, 2, 4])), hd=int(rng.choice([16, 32])),
+                bs=int(rng.choice([4, 8, 16])), nb=int(rng.integers(2, 6)),
+                window=int(rng.choice([0, 0, 16])),
+                seed=int(rng.integers(1 << 30)))
+
+
+@pytest.mark.parametrize("case", sweep_cases(13, 6, _paged_case))
+def test_paged_decode_plain_matches_jax(case):
+    rng = np.random.default_rng(case["seed"])
+    q, pk, pv, pm, pos, tbl, npos = _paged_inputs(
+        rng, B=case["B"], KV=case["KV"], G=case["G"], hd=case["hd"],
+        bs=case["bs"], N=9, nb=case["nb"])
+    w = case["window"] or None
+    kw = {} if w is None else dict(pos_pool=pos, new_pos=npos, window=w)
+    got = ops.paged_decode_attention(
+        _t(q), _t(pk), _t(pv), _t(pm), _t(tbl),
+        **{k: (_t(v) if isinstance(v, np.ndarray) else v)
+           for k, v in kw.items()})
+    jkw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
+           for k, v in kw.items()}
+    args = tuple(jnp.asarray(x) for x in (q, pk, pv, pm, tbl))
+    want = jref.paged_decode_attention(*args, **jkw)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    pallas = paged_decode_attention_pallas(*args, interpret=True, **jkw)
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+
+
+def test_paged_decode_dead_sequences_are_exact_zeros():
+    """An all-null table, a fully masked block run and a window that
+    excludes every row give exact zeros (not NaN), as the Pallas kernel."""
+    rng = np.random.default_rng(3)
+    q, pk, pv, pm, pos, tbl, _ = _paged_inputs(
+        rng, B=3, KV=2, G=2, hd=16, bs=8, N=6, nb=3)
+    pm[5] = False
+    tbl[1] = 0  # between requests: all null
+    tbl[2] = [5, 5, 0]  # allocated but fully masked
+    got = ops.paged_decode_attention(_t(q), _t(pk), _t(pv), _t(pm), _t(tbl))
+    assert torch.all(got[1:] == 0.0)
+    pallas = paged_decode_attention_pallas(
+        *(jnp.asarray(x) for x in (q, pk, pv, pm, tbl)), interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+    npos = np.full((3,), 1000, np.int32)
+    out = ops.paged_decode_attention(_t(q), _t(pk), _t(pv), _t(pm), _t(tbl),
+                                     pos_pool=_t(pos), new_pos=_t(npos),
+                                     window=4)
+    assert torch.all(out == 0.0)
+
+
+def test_paged_decode_depth_slice_changes_nothing():
+    """Rows past the logical depth are masked in the pool, so the port's
+    whole-table walk agrees with the JAX gather oracle sliced to the
+    depth."""
+    rng = np.random.default_rng(4)
+    q, pk, pv, pm, _, tbl, _ = _paged_inputs(
+        rng, B=2, KV=2, G=2, hd=16, bs=4, N=8, nb=4)
+    pm[tbl[:, 3]] = False  # rows 12..15 of every sequence: beyond depth
+    args = (_t(q), _t(pk), _t(pv), _t(pm), _t(tbl))
+    full = ops.paged_decode_attention(*args)
+    sliced = jref.paged_decode_attention(
+        *(jnp.asarray(x) for x in (q, pk, pv, pm, tbl)), depth=12)
+    np.testing.assert_allclose(full, np.asarray(sliced), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# scoring and selection: the kept-set pipeline between the kernels
+# ---------------------------------------------------------------------------
+
+
+def test_gqa_reduce_and_maxpool_match_jax():
+    rng = np.random.default_rng(5)
+    s = rng.random((2, 8, 37)).astype(np.float32)
+    np.testing.assert_allclose(tscoring.gqa_reduce(_t(s), 2),
+                               np.asarray(jscoring.gqa_reduce(
+                                   jnp.asarray(s), 2)), **TOL)
+    for kernel in (1, 3, 7):
+        np.testing.assert_array_equal(
+            tscoring.maxpool1d(_t(s), kernel),
+            np.asarray(jscoring.maxpool1d(jnp.asarray(s), kernel)))
+
+
+@pytest.mark.parametrize("capacity,budget", [(6, 6), (6, 4), (40, 40)])
+def test_select_topk_tie_rule_matches_lax_top_k(capacity, budget):
+    """Max-pool plateaus are exact ties; the port's stable sort must keep
+    the same indices as ``lax.top_k`` (lower index first), in the same
+    position order, including capacity beyond the scores (padding)."""
+    rng = np.random.default_rng(6)
+    raw = rng.integers(0, 4, (2, 3, 30)).astype(np.float32)
+    s = np.asarray(jscoring.maxpool1d(jnp.asarray(raw), 7))  # plateaus
+    ji, jm = jev.select_topk(jnp.asarray(s), capacity,
+                             layer_budget=jnp.int32(budget))
+    ti, tm = tev.select_topk(_t(s), capacity, layer_budget=budget)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
