@@ -10,23 +10,34 @@ kernel's plain version):
    sm_90a into ``build/repro_torch/`` (one nvcc per source, all at once;
    rebuilt when a source's hash changes).
 1. Hold each kernel against its plain PyTorch version on the card, in
-   bfloat16, at the shapes of the main path (llama3-8b: H=32, KV=8,
+   bfloat16, at the shapes of the main paths (llama3-8b: H=32, KV=8,
    hd=128; chunk 256 and the 32-row observation pass over a 4096-deep
-   buffer; paged decode of 4 slots, block size 16, 19 blocks) and on edge
-   cases (K not a multiple of the tile, windows, masked rows and heads,
-   ragged tables with null blocks), within a tolerance that is a fixed
-   fraction of the plain result's largest magnitude.  Time kernel, plain
-   version and, where one PyTorch call computes the same function, that
-   call (library_ms), each call on a cold L2.
-2. Serve 3 requests through the port's engine on the llama3-8b smoke
-   config in float32, once on the card and once on the CPU: the greedy
-   tokens must be identical.
-3. Serve 4 requests (prompts of 1024, 2048, 3072 and 4000 tokens, 32 new
-   tokens each) through ``repro_torch.launch.serve`` at the full width of
-   llama3-8b (random weights and lookahead modules from the seed):
-   policy lookaheadkv, budget 256, chunk 256, 4 slots, block size 16,
-   --kv-pool-mb 256.  Every kernel must have launched in this run.
-4. Profile one more 2048-token request on that engine with torch.profiler:
+   buffer; paged decode of 4 slots, block size 16, 19 blocks; monolithic
+   causal prefill of 4 x 2080 rows and its 32 observation rows; dense
+   decode of 4 sequences over 289 rows with a per-kv-head mask) and on
+   edge cases (lengths not a multiple of the tile, windows, non-causal
+   attention, masked rows and heads, ragged tables with null blocks),
+   within a tolerance that is a fixed fraction of the plain result's
+   largest magnitude: per output row for attention, over the whole
+   result for the scores.  Time kernel,
+   plain version and, where one PyTorch call computes the same function,
+   that call (library_ms), each call on a cold L2.
+2. Serve through the port's three engines on the llama3-8b smoke config in
+   float32, once on the card and once on the CPU: the paged and the dense
+   continuous engine (3 requests each), and the lockstep engine (a batch
+   of 3); greedy tokens and admission kept sets must be identical.
+3. Serve llama3-8b at full width (random weights and lookahead modules
+   from the seed; policy lookaheadkv, budget 256, 32 new tokens) through
+   ``repro_torch.launch.serve`` by each of its routes, with the launch
+   counts set to 0 just before and read just after each:
+   a. paged continuous: prompts of 1024, 2048, 3072 and 4000 tokens, chunk
+      256, 4 slots, block size 16, --kv-pool-mb 256; kernels 1, 3, 4 must
+      launch;
+   b. lockstep: 4 prompts of 2048 tokens; kernels 7, 3, 6 must launch;
+   c. dense-slot continuous: the prompts of (a), chunk 256, 4 slots;
+      kernels 1, 3, 6 must launch.
+4. Profile one more 2048-token request on the paged engine of 3a, and one
+   more lockstep batch on the engine of 3b, with torch.profiler:
    device-busy share, launches, and device time by kernel family.
 
 Output: per-phase lines, then a JSON line of per-kernel numbers, the
@@ -37,6 +48,7 @@ card's name and power limit, and as the last line
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -96,10 +108,33 @@ def max_err(a, b) -> float:
 
 def tolerance(want, rel: float) -> float:
     """Absolute tolerance ``rel`` times the largest magnitude of the plain
-    version's result: the attention outputs of random inputs shrink as
-    1/sqrt(visible keys), so a fixed number would be as large as the
-    outputs at a 4096-deep buffer and let a wrong kernel through."""
+    version's result (the lookahead scores, float32 throughout)."""
     return rel * float(want.float().abs().max())
+
+
+def check_rows(torch, got, want, rel: float, label: str) -> float:
+    """Hold an attention output row by row: each output row (the last axis,
+    one query row of one head) must lie within ``rel`` times that row's own
+    largest plain magnitude.  Outputs of random inputs shrink as
+    1/sqrt(visible keys), so in causal attention a row that sees one key
+    is ~30x a row that sees a thousand, and a tolerance taken from the
+    whole tensor would let a wrong deep row through.  Prints the largest
+    error and the worst row (its index and its error over its tolerance);
+    returns the largest error."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    tol = rel * want.float().abs().amax(-1)
+    # an exactly-zero plain row (a dead head) must come out exactly zero
+    ratio = torch.where(err == 0, torch.zeros_like(err), err / tol)
+    worst = int(ratio.argmax())
+    where = tuple(int(i) for i in torch.unravel_index(
+        torch.tensor(worst), ratio.shape))
+    r = float(ratio.flatten()[worst])
+    print(f"  {label}: max_abs_err {float(err.max()):.3e} (max|plain| "
+          f"{float(want.float().abs().max()):.3e}); worst row {where} "
+          f"at {r:.3f} x its tolerance (2^{round(math.log2(rel))} x the "
+          "row's max|plain|)")
+    check(r <= 1.0, f"{label}: row {where} is {r:.3f} x its tolerance")
+    return float(err.max())
 
 
 # ---------------------------------------------------------------------------
@@ -110,16 +145,20 @@ def tolerance(want, rel: float) -> float:
 def phase_kernels(torch, mods) -> list:
     import torch.nn.functional as F
 
-    ck, lk, pk, ref = (mods[n] for n in ("ck", "lk", "pk", "ref"))
+    ck, lk, pk, fk, dk, ref = (mods[n] for n in ("ck", "lk", "pk", "fk",
+                                                 "dk", "ref"))
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(SEED)
-    # tolerances relative to the largest magnitude of the plain result:
-    # chunk attention feeds its tensor cores P rounded to bf16 (2^-9
-    # relative per term) and rounds the output once: 4 bf16 ulps (2^-5);
-    # paged decode accumulates in float32 on CUDA cores and rounds the
-    # output once: 1 ulp (2^-7); lookahead scores are float32 throughout
-    # (float32 eps 2^-23, logits of a few units through exp): 2^-16
+    # tolerances relative to the largest magnitude of the plain result,
+    # per output row for attention (check_rows): chunk attention feeds its
+    # tensor cores P rounded to bf16 (2^-9 relative per term) and rounds
+    # the output once: 4 bf16 ulps (2^-5); so does monolithic flash
+    # attention, the same tensor-core path; paged and dense decode
+    # accumulate in float32 on CUDA cores and round the output once: 1 ulp
+    # (2^-7); lookahead scores, over the whole result, are float32
+    # throughout (float32 eps 2^-23, logits of a few units through exp):
+    # 2^-16
     REL_CHUNK, REL_PAGED, REL_SCORE = 2 ** -5, 2 ** -7, 2 ** -16
     H, KV, hd = 32, 8, 128
     G = H // KV
@@ -136,10 +175,8 @@ def phase_kernels(torch, mods) -> list:
         got = ck.chunk_attention(q, k, v, q_offset=off, window=window)
         torch.cuda.synchronize()
         want = ref.chunk_attention(q, k, v, q_offset=off, window=window)
-        err, tol = max_err(got, want), tolerance(want, REL_CHUNK)
-        print(f"  chunk_attention {label}: max_abs_err {err:.3e} "
-              f"(tol {tol:.3e} = 2^-5 max|plain|)")
-        check(err <= tol, f"chunk_attention {label}: err {err} > {tol}")
+        err = check_rows(torch, got, want, REL_CHUNK,
+                         f"chunk_attention {label}")
         if not timed:
             return None
         ms = time_ms(torch, lambda: ck.chunk_attention(
@@ -214,6 +251,10 @@ def phase_kernels(torch, mods) -> list:
 
     main3 = score_case(1, 32, 4096, 4096, 4000, None, False,
                        "n_obs=32 Sk=4096 off=4000", timed=True)
+    # the lockstep prefill's call: 32 observation rows after 2048 prompt
+    # rows of each of 4 sequences, scored on the prompt (q_offset None)
+    score_case(4, 32, 2080, 2048, None, None, False,
+               "lockstep: B=4 Sk=2080 n_prompt=2048")
     score_case(2, 32, 1000, 968, None, None, True,
                "kv_mask+row_valid Sk=1000")
     score_case(2, 40, 700, 700, 640, 96, True, "window 96, 2 row tiles")
@@ -245,11 +286,8 @@ def phase_kernels(torch, mods) -> list:
         got = pk.paged_decode_attention(q, kp, vp, mask, table, **kw)
         torch.cuda.synchronize()
         want = ref.paged_decode_attention(q, kp, vp, mask, table, **kw)
-        err, tol = max_err(got, want), tolerance(want, REL_PAGED)
-        print(f"  paged_decode_attention {label}: max_abs_err {err:.3e} "
-              f"(tol {tol:.3e} = 2^-7 max|plain|)")
-        check(err <= tol, f"paged_decode_attention {label}: err {err} > "
-              f"{tol}")
+        err = check_rows(torch, got, want, REL_PAGED,
+                         f"paged_decode_attention {label}")
         if edge:
             check(bool(torch.all(got[2] == 0)),
                   "paged decode: an all-null table must give exact zeros")
@@ -289,6 +327,109 @@ def phase_kernels(torch, mods) -> list:
         name="paged_decode_attention", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:101", **main4))
+
+    # -- kernel 7: monolithic flash attention ---------------------------------
+    def flash_case(B, S, causal, window, label, timed=False):
+        q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+        kw = dict(causal=causal, window=window)
+        got = fk.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = ref.flash_attention(q, k, v, **kw)
+        err = check_rows(torch, got, want, REL_CHUNK,
+                         f"flash_attention {label}")
+        if not timed:
+            return None
+        ms = time_ms(torch, lambda: fk.flash_attention(q, k, v, **kw))
+        plain = time_ms(torch, lambda: ref.flash_attention(q, k, v, **kw),
+                        iters=3)
+        # one library call computing the same function: causal SDPA on
+        # kv heads expanded outside the timed call
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        n_ops = 4 * hd * H * B * S * (S + 1) // 2  # visible (row, key) pairs
+        n_bytes = itemsize * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+        print(f"  flash_attention {label}: {ms:.4f} ms, plain {plain:.4f} "
+              f"ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib)
+
+    main7 = flash_case(4, 2080, True, None, "B=4 S=2080 causal", timed=True)
+    flash_case(1, 1000, True, None, "S=1000 (ragged tile)")
+    flash_case(2, 300, False, None, "S=300 non-causal")
+    flash_case(1, 700, True, 128, "S=700 window 128")
+    results.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/chunk_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:71", **main7))
+
+    # -- kernel 6: dense decode attention -------------------------------------
+    def decode_case(label, kind, timed=False):
+        B, C = 4, 289  # budget 256 + 33 append rows
+        q, k, v = randn(B, H, hd), randn(B, C, KV, hd), randn(B, C, KV, hd)
+        mask = None
+        if kind == "head":
+            # main-path validity: kept rows (a few dropped per head), then
+            # the appends written so far
+            mask = torch.rand((B, C, KV), generator=g, device=dev) > 0.05
+            mask[:, 272:] = False
+        elif kind == "head-edge":
+            mask = torch.rand((B, C, KV), generator=g, device=dev) > 0.3
+            mask[1, :, 5] = False  # a fully masked head
+            mask[2] = False  # a sequence with no valid row
+        elif kind == "row":
+            mask = torch.rand((B, C), generator=g, device=dev) > 0.3
+            mask[2] = False
+        got = dk.decode_attention(q, k, v, kv_mask=mask)
+        torch.cuda.synchronize()
+        want = ref.decode_attention(q, k, v, kv_mask=mask)
+        err = check_rows(torch, got, want, REL_PAGED,
+                         f"decode_attention {label}")
+        if kind in ("head-edge", "row"):
+            check(bool(torch.all(got[2] == 0)),
+                  "decode_attention: a sequence with no valid row must give "
+                  "exact zeros")
+        if kind == "head-edge":
+            check(bool(torch.all(got[1, 5 * G:6 * G] == 0)),
+                  "decode_attention: a fully masked head must give exact "
+                  "zeros")
+        if not timed:
+            return None
+        ms = time_ms(torch, lambda: dk.decode_attention(q, k, v,
+                                                        kv_mask=mask),
+                     iters=50)
+        plain = time_ms(torch, lambda: ref.decode_attention(
+            q, k, v, kv_mask=mask), iters=10)
+        # library yardstick: SDPA with the per-head mask expanded to
+        # (B, H, 1, C) and kv heads expanded, both outside the timed call
+        kd = k.repeat_interleave(G, 2).transpose(1, 2)
+        vd = v.repeat_interleave(G, 2).transpose(1, 2)
+        md = mask.repeat_interleave(G, 2).permute(0, 2, 1)[:, :, None, :]
+        qd = q[:, :, None, :]
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=md), iters=50)
+        rows_valid = int(mask.sum())  # (row, kv head) pairs
+        n_ops = 4 * hd * G * rows_valid
+        n_bytes = (itemsize * (2 * rows_valid * hd + 2 * B * H * hd)
+                   + B * C * KV)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+        print(f"  decode_attention {label}: {ms:.4f} ms, plain {plain:.4f} "
+              f"ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+              f"{rows_valid} valid rows of {B * C * KV})")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib)
+
+    main6 = decode_case("B=4 C=289 per-head mask", "head", timed=True)
+    decode_case("per-head mask, dead head and sequence", "head-edge")
+    decode_case("(B, C) mask, dead sequence", "row")
+    decode_case("no mask", None)
+    results.append(dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:56", **main6))
     return results
 
 
@@ -304,44 +445,65 @@ def phase_engine_parity(torch, mods) -> None:
 
     cfg = dataclasses.replace(mods["configs"].get_smoke_config("llama3-8b"),
                               dtype="float32")
-    tf, sv = mods["tf"], mods["serving"]
+    tf, sv, pol = mods["tf"], mods["serving"], mods["policies"]
     params = tf.init_params(cfg, seed=SEED, device="cpu")
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     lkv = mods["lookahead"].init_lookahead_params(gen, cfg, params["layers"])
+    evict = mods["EvictionConfig"](budget=16)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (70, 23, 45)]
-    out = {}
-    for device in ("cuda", "cpu"):
-        def move(tree):
-            return {k: move(v) if isinstance(v, dict) else v.to(device)
-                    for k, v in tree.items()}
+    batch = rng.integers(0, cfg.vocab_size, (3, 41)).astype(np.int32)
 
+    def move(tree, device):
+        return {k: move(v, device) if isinstance(v, dict) else v.to(device)
+                for k, v in tree.items()}
+
+    def continuous(device, paged):
+        pool = (sv.KVBlockPool(cfg, block_size=16, num_blocks=32,
+                               device=device) if paged else None)
         sc = sv.ServingConfig(
-            evict=mods["EvictionConfig"](budget=16),
-            chunking=sv.ChunkingConfig(chunk=32, max_context=70),
-            num_slots=2, max_new_tokens=8, eos_id=-1,
-            kv_pool=sv.KVBlockPool(cfg, block_size=16, num_blocks=32,
-                                   device=device),
+            evict=evict, chunking=sv.ChunkingConfig(chunk=32, max_context=70),
+            num_slots=2, max_new_tokens=8, eos_id=-1, kv_pool=pool,
             capture_admission=True)
-        eng = sv.ContinuousEngine(move(params), cfg, sc, lkv_params=move(lkv),
-                                  device=device)
+        eng = sv.ContinuousEngine(move(params, device), cfg, sc,
+                                  lkv_params=move(lkv, device), device=device)
         done = eng.run([sv.Request(uid=i, prompt=p, max_new_tokens=8)
                         for i, p in enumerate(prompts)])
-        out[device] = {r.uid: r for r in done}
-    same_kept = 0
-    for uid, r in out["cpu"].items():
-        got = out["cuda"][uid]
-        print(f"  uid {uid}: cuda {got.out_tokens} cpu {r.out_tokens}")
-        check(got.out_tokens == r.out_tokens,
-              f"engine parity: uid {uid} tokens differ between card and CPU")
-        same_kept += int(all(
-            np.array_equal(got.admission_cache[k], r.admission_cache[k])
-            for k in ("mask", "pos")))
-    print(f"  greedy tokens identical for {len(out['cpu'])} requests; "
-          f"admission kept sets identical for {same_kept}")
-    check(same_kept == len(out["cpu"]),
-          "engine parity: admission kept sets differ between card and CPU")
+        return {r.uid: (r.out_tokens, r.admission_cache) for r in done}
+
+    def lockstep(device):
+        p, lk = move(params, device), move(lkv, device)
+        # the kept sets of the batch's prefill, then the engine's tokens
+        res = pol.run_eviction("lookaheadkv", p, cfg,
+                               torch.as_tensor(batch, device=device),
+                               evict=evict, lkv_params=lk, extra_slots=9)
+        eng = sv.ServingEngine(p, cfg, evict=evict, lkv_params=lk,
+                               max_new_tokens=8, eos_id=-1, device=device)
+        done = eng.serve([sv.Request(uid=i, prompt=row, max_new_tokens=8)
+                          for i, row in enumerate(batch)])
+        adm = {k: res.cache["attn"][k].cpu().numpy() for k in ("mask", "pos")}
+        return {r.uid: (r.out_tokens, {k: v[:, r.uid:r.uid + 1]
+                                       for k, v in adm.items()})
+                for r in done}
+
+    for label, run in (("paged continuous", lambda d: continuous(d, True)),
+                       ("dense-slot continuous",
+                        lambda d: continuous(d, False)),
+                       ("lockstep", lockstep)):
+        out = {device: run(device) for device in ("cuda", "cpu")}
+        same_kept = 0
+        for uid, (toks, adm) in out["cpu"].items():
+            got_toks, got_adm = out["cuda"][uid]
+            print(f"  {label} uid {uid}: cuda {got_toks} cpu {toks}")
+            check(got_toks == toks, f"engine parity ({label}): uid {uid} "
+                  "tokens differ between card and CPU")
+            same_kept += int(all(np.array_equal(got_adm[k], adm[k])
+                                 for k in ("mask", "pos")))
+        print(f"  {label}: greedy tokens identical for {len(out['cpu'])} "
+              f"requests; admission kept sets identical for {same_kept}")
+        check(same_kept == len(out["cpu"]), f"engine parity ({label}): "
+              "admission kept sets differ between card and CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -349,44 +511,77 @@ def phase_engine_parity(torch, mods) -> None:
 # ---------------------------------------------------------------------------
 
 
-def phase_serve(torch, mods) -> dict:
+LENS = (1024, 2048, 3072, 4000)
+COMMON = ["--arch", "llama3-8b", "--seed", str(SEED), "--policy",
+          "lookaheadkv", "--budget", "256", "--max-new", "32", "--device",
+          "cuda"]
+# route -> (extra launcher arguments, kernels its run must launch)
+ROUTES = {
+    "paged continuous": (
+        ["--continuous", "--chunk", "256", "--slots", "4",
+         "--kv-block-size", "16", "--kv-pool-mb", "256",
+         "--prompt-lens", ",".join(map(str, LENS))],
+        ("chunk_attention", "lookahead_score", "paged_decode_attention")),
+    "lockstep": (
+        ["--requests", "4", "--n-in", "2048"],
+        ("flash_attention", "lookahead_score", "decode_attention")),
+    "dense-slot continuous": (
+        ["--continuous", "--chunk", "256", "--slots", "4",
+         "--prompt-lens", ",".join(map(str, LENS))],
+        ("chunk_attention", "lookahead_score", "decode_attention")),
+}
+
+
+def phase_serve(torch, mods, route: str) -> tuple:
+    """Serve one route of the launcher at full width; the launch counts are
+    set to 0 just before the run and read just after it."""
     ops = mods["ops"]
-    lens = (1024, 2048, 3072, 4000)
-    argv = ["--arch", "llama3-8b", "--seed", str(SEED), "--policy",
-            "lookaheadkv", "--budget", "256", "--chunk", "256", "--slots",
-            "4", "--kv-block-size", "16", "--kv-pool-mb", "256",
-            "--prompt-lens", ",".join(map(str, lens)), "--max-new", "32",
-            "--device", "cuda"]
+    extra, need = ROUTES[route]
     ops.reset_launch_counts()
-    res = mods["serve"].run(argv)
+    res = mods["serve"].run(COMMON + extra)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     eng, done = res["engine"], res["done"]
-    check(len(done) == len(lens), "serve: not every request finished")
+    check(len(done) == 4, f"{route}: not every request finished")
     for r in sorted(done, key=lambda r: r.uid):
-        check(len(r.out_tokens) == 32, f"serve: uid {r.uid} emitted "
+        check(len(r.out_tokens) == 32, f"{route}: uid {r.uid} emitted "
               f"{len(r.out_tokens)} tokens")
         check(all(0 <= t < res["cfg"].vocab_size for t in r.out_tokens),
-              f"serve: uid {r.uid} emitted a token outside the vocab")
+              f"{route}: uid {r.uid} emitted a token outside the vocab")
         print(f"  uid {r.uid}: prompt {len(r.prompt)} ttft "
               f"{r.ttft_s * 1e3:.1f} ms, first tokens {r.out_tokens[:6]}")
-    c = eng.counts
     dec_tokens = sum(len(r.out_tokens) - 1 for r in done)
-    print(f"  wall {res['wall_s']:.2f} s; prefill {c['prefill_chunks']} "
-          f"chunks in {c['prefill_s']:.2f} s "
-          f"({c['prefill_s'] / c['prefill_chunks'] * 1e3:.1f} ms/chunk); "
-          f"decode {c['decode_steps']} steps ({dec_tokens} tokens) in "
-          f"{c['decode_s']:.2f} s "
-          f"({c['decode_s'] / c['decode_steps'] * 1e3:.1f} ms/step) = "
-          f"{dec_tokens / c['decode_s']:.1f} tokens/s; peak concurrency "
-          f"{c['max_concurrency']}")
+    if route == "lockstep":
+        # one batch: prefill ends at the first-token logits (TTFT), then
+        # 32 decode steps for the whole batch (the last one's token unused)
+        ttft = done[0].ttft_s
+        dec_s = res["wall_s"] - ttft
+        print(f"  wall {res['wall_s']:.2f} s; prefill (= TTFT) "
+              f"{ttft * 1e3:.1f} ms for 4 x 2048 tokens; decode "
+              f"{eng.max_new_tokens} steps of the batch in {dec_s:.2f} s "
+              f"({dec_s / eng.max_new_tokens * 1e3:.1f} ms/step) = "
+              f"{dec_tokens / dec_s:.1f} tokens/s")
+    else:
+        c = eng.counts
+        print(f"  wall {res['wall_s']:.2f} s; prefill {c['prefill_chunks']} "
+              f"chunks in {c['prefill_s']:.2f} s "
+              f"({c['prefill_s'] / c['prefill_chunks'] * 1e3:.1f} "
+              f"ms/chunk); decode {c['decode_steps']} steps "
+              f"({dec_tokens} tokens) in {c['decode_s']:.2f} s "
+              f"({c['decode_s'] / c['decode_steps'] * 1e3:.1f} ms/step) = "
+              f"{dec_tokens / c['decode_s']:.1f} tokens/s; peak concurrency "
+              f"{c['max_concurrency']}")
+    kv = (f"kv pool high water {eng.pool.stats()['high_water_blocks']} of "
+          f"{eng.pool.usable_blocks} blocks"
+          if getattr(eng, "pool", None) is not None else
+          f"decode KV {eng.kv_device_bytes() / 2**20:.1f} MiB"
+          if route != "lockstep" else
+          f"decode KV {eng.kv_device_bytes(4) / 2**20:.1f} MiB")
     print(f"  peak torch.cuda.max_memory_allocated while serving "
-          f"{res['peak_bytes'] / 2**30:.2f} GiB; kv pool "
-          f"high water {eng.pool.stats()['high_water_blocks']} of "
-          f"{eng.pool.usable_blocks} blocks")
+          f"{res['peak_bytes'] / 2**30:.2f} GiB; {kv}")
     print(f"  kernel launches in this run: {counts}")
-    for name, n in counts.items():
-        check(n > 0, f"serve: kernel {name} was never launched")
+    for name in need:
+        check(counts[name] > 0, f"{route}: kernel {name} was never launched")
     return counts, res
 
 
@@ -395,18 +590,66 @@ def phase_serve(torch, mods) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_profile(torch, mods, res) -> None:
-    """Profile one 2048-token request with 16 new tokens on the phase-3
-    engine: device-busy share of the host wall time, kernel launches per
-    prefill chunk and per decode step, and the kernels by device time."""
-    import numpy as np
+def phase_profile(torch, label: str, serve_once, n_passes) -> None:
+    """Profile one serve (``serve_once()`` returns its host wall seconds and
+    ends in a device sync): device-busy share of the host wall time with
+    the profiler off, kernel launches per forward pass (``n_passes()``
+    after the run), and the kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    eng, cfg = res["engine"], res["cfg"]
-    rng = np.random.default_rng(SEED + 7)
-    prompt = rng.integers(0, cfg.vocab_size, 2048).astype(np.int32)
+    wall = serve_once()  # host clock, profiler off
+    passes = n_passes()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_prof = serve_once()
+    # chunk and flash attention share their tile code (chunk_attention.cu)
+    # but not their kernels' names (attention_mma<chunk_attention_tag, ...>)
+    families = (("chunk_attention", "chunk_attention (kernel 1)"),
+                ("flash_attention", "flash_attention (kernel 7)"),
+                ("obs_", "lookahead_score"),
+                ("paged_decode", "paged_decode_attention"),
+                ("decode_kernel", "decode_attention"),
+                ("gemm", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"),
+                ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"))
+    kernels, other = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        name = next((lab for key, lab in families if key in e.name.lower()),
+                    "other")
+        n, tot = kernels.get(name, (0, 0.0))
+        kernels[name] = (n + 1, tot + us)
+        if name == "other":
+            n, tot = other.get(e.name, (0, 0.0))
+            other[e.name] = (n + 1, tot + us)
+    busy_ms = sum(us for _, us in kernels.values()) / 1e3
+    n_launch = sum(n for n, _ in kernels.values())
+    print(f"  {label}: wall {wall * 1e3:.1f} ms with the profiler off "
+          f"({wall_prof * 1e3:.1f} ms on), {passes} forward passes")
+    if n_launch == 0:
+        print("  device time not measured: the profiler saw no CUDA kernels")
+        return
+    print(f"  device busy {busy_ms:.1f} ms = {busy_ms / (wall * 1e3):.1%} of "
+          f"the profiler-off wall; {n_launch} kernel launches "
+          f"({n_launch / max(passes, 1):.0f} per forward pass)")
+    for name, (n, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1]):
+        print(f"    {name}: {us / 1e3:.2f} ms in {n} launches "
+              f"({us / 1e3 / busy_ms:.1%} of device time)")
+    for name, (n, us) in sorted(other.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"      other: {name[:90]}: {us / 1e3:.2f} ms in {n}")
 
-    def serve_one():
+
+def profile_paged(torch, mods, res) -> None:
+    """One more 2048-token request with 16 new tokens on the paged
+    engine."""
+    import numpy as np
+
+    eng, cfg = res["engine"], res["cfg"]
+    prompt = np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, 2048).astype(np.int32)
+
+    def serve_once():
         req = mods["serving"].Request(uid=100, prompt=prompt,
                                       max_new_tokens=16)
         torch.cuda.synchronize()
@@ -415,74 +658,64 @@ def phase_profile(torch, mods, res) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    wall = serve_one()  # host clock, profiler off
-    c = dict(eng.counts)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall_prof = serve_one()
-    families = (("chunk_attention", "chunk_attention"),
-                ("obs_", "lookahead_score"),
-                ("paged_decode", "paged_decode_attention"),
-                ("gemm", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"),
-                ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"))
-    kernels, other = {}, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        label = next((lab for key, lab in families if key in e.name.lower()),
-                     "other")
-        n, tot = kernels.get(label, (0, 0.0))
-        kernels[label] = (n + 1, tot + us)
-        if label == "other":
-            n, tot = other.get(e.name, (0, 0.0))
-            other[e.name] = (n + 1, tot + us)
-    busy_ms = sum(us for _, us in kernels.values()) / 1e3
-    n_launch = sum(n for n, _ in kernels.values())
-    print(f"  wall {wall * 1e3:.1f} ms with the profiler off "
-          f"({wall_prof * 1e3:.1f} ms on) for {c['prefill_chunks']} prefill "
-          f"chunks ({c['prefill_s'] * 1e3:.1f} ms) + {c['decode_steps']} "
-          f"decode steps ({c['decode_s'] * 1e3:.1f} ms)")
-    if n_launch == 0:
-        print("  device time not measured: the profiler saw no CUDA kernels")
-        return
-    print(f"  device busy {busy_ms:.1f} ms = {busy_ms / (wall * 1e3):.1%} of "
-          f"the profiler-off wall; {n_launch} kernel launches "
-          f"({n_launch / max(c['prefill_chunks'] + c['decode_steps'], 1):.0f}"
-          " per forward pass)")
-    for name, (n, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1]):
-        print(f"    {name}: {us / 1e3:.2f} ms in {n} launches "
-              f"({us / 1e3 / busy_ms:.1%} of device time)")
-    for name, (n, us) in sorted(other.items(), key=lambda kv: -kv[1][1])[:8]:
-        print(f"      other: {name[:90]}: {us / 1e3:.2f} ms in {n}")
+    def n_passes():
+        c = eng.counts
+        print(f"  prefill {c['prefill_chunks']} chunks "
+              f"({c['prefill_s'] * 1e3:.1f} ms), decode {c['decode_steps']} "
+              f"steps ({c['decode_s'] * 1e3:.1f} ms)")
+        return c["prefill_chunks"] + c["decode_steps"]
+
+    phase_profile(torch, "paged continuous, one 2048-token request",
+                  serve_once, n_passes)
 
 
-def main() -> None:
-    import torch
+def profile_lockstep(torch, mods, res) -> None:
+    """One more lockstep batch (4 x 2048 tokens, 32 new) on the engine."""
+    import numpy as np
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this script needs a card")
+    eng, cfg = res["engine"], res["cfg"]
+    prompts = np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, (4, 2048)).astype(np.int32)
+
+    def serve_once():
+        reqs = [mods["serving"].Request(uid=i, prompt=p, max_new_tokens=32)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    phase_profile(torch, "lockstep, one batch of 4 x 2048 tokens",
+                  serve_once, lambda: 1 + eng.max_new_tokens)
+
+
+def load_modules(torch) -> dict:
+    """The port's modules this script drives (from ``src/`` beside it)."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch import serving
     from repro_torch.common.config import EvictionConfig
-    from repro_torch.core import lookahead
+    from repro_torch.core import lookahead, policies
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import chunk_attention as ck
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import lookahead_score as lk
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
 
-    mods = dict(configs=configs, serving=serving, lookahead=lookahead,
-                EvictionConfig=EvictionConfig, ops=ops, ref=ref, ck=ck,
-                lk=lk, pk=pk, serve=serve, tf=tf)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
-    t_all = time.perf_counter()
+    return dict(configs=configs, serving=serving, lookahead=lookahead,
+                policies=policies, EvictionConfig=EvictionConfig, ops=ops,
+                build=build, ref=ref, ck=ck, lk=lk, pk=pk, fk=fk, dk=dk,
+                serve=serve, tf=tf)
 
-    print(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on {kind}")
+
+def phase_build(mods) -> None:
+    build = mods["build"]
     print(f"phase 0: build ({build.BUILD_DIR})", flush=True)
     t0 = time.perf_counter()
     report = build.build(verbose=True)
@@ -494,22 +727,49 @@ def main() -> None:
           f"({len(report)} compiled, {len(build.SOURCES) - len(report)} "
           "cached)", flush=True)
 
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    mods = load_modules(torch)
+    kind = torch.cuda.get_device_name(0)
+    t_all = time.perf_counter()
+
+    print(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on {kind}")
+    phase_build(mods)
+
     print("phase 1: kernels against their plain versions (bfloat16)",
           flush=True)
     kernels = phase_kernels(torch, mods)
 
-    print("phase 2: engine on the card vs on the CPU (llama3-8b smoke, "
+    print("phase 2: engines on the card vs on the CPU (llama3-8b smoke, "
           "float32)", flush=True)
     phase_engine_parity(torch, mods)
 
-    print("phase 3: serve llama3-8b at full width", flush=True)
-    counts, res = phase_serve(torch, mods)
-
-    print("phase 4: where the time goes (one 2048-token request, "
-          "torch.profiler)", flush=True)
-    phase_profile(torch, mods, res)
+    counts = {}
+    for i, route in enumerate(ROUTES):
+        print(f"phase 3{'abc'[i]}: serve llama3-8b at full width, {route}",
+              flush=True)
+        counts[route], res = phase_serve(torch, mods, route)
+        if route == "paged continuous":
+            print("phase 4a: where the time goes (torch.profiler)",
+                  flush=True)
+            profile_paged(torch, mods, res)
+        elif route == "lockstep":
+            print("phase 4b: where the time goes (torch.profiler)",
+                  flush=True)
+            profile_lockstep(torch, mods, res)
+        del res  # free this route's weights before the next one's
+        torch.cuda.empty_cache()
+    # launches on the main path: kernels 1, 3, 4 from the paged route,
+    # kernels 7 and 6 from the lockstep route
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        route = ("lockstep" if k["name"] in ("flash_attention",
+                                             "decode_attention")
+                 else "paged continuous")
+        k["launches"] = counts[route][k["name"]]
     print(f"total {time.perf_counter() - t_all:.1f} s")
 
     smi = subprocess.run(

@@ -42,3 +42,18 @@ def init_lookahead_params(gen: torch.Generator, cfg: ModelConfig,
         return out
 
     return {"emb": emb, "lora": build(layer_params)}
+
+
+def append_lookahead(h: torch.Tensor, lkv_params: dict
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Concatenate the learned lookahead rows after the embedded prompt
+    (B, S, D).  Returns (h' (B, S + n, D), lookahead_mask (B, S + n, 1)),
+    the mask 1 on the lookahead rows (where the selective LoRA applies)."""
+    B, S, D = h.shape
+    emb = lkv_params["emb"].to(h.dtype)  # (n, D)
+    n = emb.shape[0]
+    h2 = torch.cat([h, emb[None].expand(B, n, D)], dim=1)
+    mask = torch.cat([torch.zeros((B, S, 1), dtype=h.dtype, device=h.device),
+                      torch.ones((B, n, 1), dtype=h.dtype, device=h.device)],
+                     dim=1)
+    return h2, mask

@@ -3,9 +3,10 @@
 The final-observation policy ``lookaheadkv`` scores the prompt's keys once,
 at prompt end: the learned lookahead rows run through the stack after the
 prompt and ``ops.lookahead_score`` gives each q head's mean softmax mass
-per key.  Here those masses become eviction-ready scores: GQA mean over
-each kv group's q heads, then a 1-D max-pool (paper kernel 7) over the
-scored region.
+per key (``observation_scores`` in the monolithic prefill, the chunked
+observation pass in the streaming one).  Here those masses become
+eviction-ready scores: GQA mean over each kv group's q heads, then a 1-D
+max-pool (paper kernel 7) over the scored region.
 
 The streaming policies of the JAX package (cumulative h2o, observation-
 window snapkv/pyramidkv/tova) come later (ROADMAP A3, A6).
@@ -17,6 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 
 FINAL_OBS = ("lookaheadkv", "gt_oracle")
@@ -41,6 +43,21 @@ def init_score_state(policy: str) -> ScoreState:
         "ROADMAP A3 (window policies) / A6 (h2o)")
 
 
+def observation_scores(
+    q_obs: torch.Tensor,  # (B, n_obs, H, hd)
+    k_full: torch.Tensor,  # (B, n_prompt + n_obs, KV, hd)
+    n_prompt: int,
+    *,
+    window=None,
+) -> torch.Tensor:
+    """Per-q-head scores (B, H, n_prompt), float32: softmax rows include
+    the observation keys (Algorithm 2 slices after the softmax).  The
+    observation rows follow the prompt (no ``q_offset``), and every key is
+    valid (the padded prompts' key mask arrives with bucket-padded prefill,
+    ROADMAP A3)."""
+    return ops.lookahead_score(q_obs, k_full, n_prompt, window=window)
+
+
 def gqa_reduce(scores: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
     """(B, H, S) -> (B, KV, S): mean over each kv group's query heads."""
     B, H, S = scores.shape
@@ -55,6 +72,13 @@ def maxpool1d(scores: torch.Tensor, kernel: int) -> torch.Tensor:
     x = torch.nn.functional.pad(scores, (pad, pad), value=float("-inf"))
     n = scores.shape[-1]
     return torch.stack([x[..., i:i + n] for i in range(kernel)]).amax(dim=0)
+
+
+def postprocess(scores_per_qhead: torch.Tensor, num_kv_heads: int,
+                pool_kernel: int) -> torch.Tensor:
+    """Eviction-time pipeline of the monolithic prefill: GQA reduce, then
+    max-pool.  (B, H, S) -> (B, KV, S)."""
+    return maxpool1d(gqa_reduce(scores_per_qhead, num_kv_heads), pool_kernel)
 
 
 def finalize_layer_scores(

@@ -5,7 +5,16 @@
 // and an optional sliding window hides keys with q_pos - k_pos >= window.
 //
 // Replaces: src/repro/kernels/chunk_attention.py, chunk_attention_pallas
-// (pallas_call at :138).
+// (pallas_call at :138), through the entry chunk_attention; and
+// src/repro/kernels/flash_attention.py, flash_attention_pallas
+// (pallas_call at :99), through the entry flash_attention: monolithic
+// self-attention of a whole sequence (Sq == Sk), which is the causal chunk
+// with q_offset = 0 and C = K, or with CAUSAL false every key visible
+// (the window still applies).  One tensor-core path serves both; each
+// entry instantiates the kernels with a tag type of its own name
+// (attention_mma<chunk_attention_tag, ...> against
+// attention_mma<flash_attention_tag, ...>), so a profile reads the two
+// apart.
 //
 // Layout: q (B, C, H, hd), k/v (B, K, KV, hd) contiguous, fp32 or bf16;
 // out (B, C, H, hd) in q's type.  GQA: query head h reads kv head
@@ -15,8 +24,11 @@
 // grid's sequential key axis becomes a loop inside the CTA over 64-key
 // tiles staged in shared memory, with the online-softmax (m, l, acc)
 // recurrence in registers.  The loop stops at the tile's last visible key,
-// q_offset + row_end - 1 (the causal block pruning of chunk_attention.py:62);
-// with a window it also starts at the first key any row of the tile sees.
+// q_offset + row_end - 1 (the causal block pruning of chunk_attention.py:62;
+// the Pallas flash kernel sweeps the masked upper triangle instead); with a
+// window it also starts at the first key any row of the tile sees.  Query
+// tiles are numbered from the last one down, so the tiles with the longest
+// key loops of a causal sequence start first and the short ones fill in.
 //
 // * bf16 (the serving path): tensor cores through mma.sync m16n8k16 (bf16
 //   in, f32 accumulate), FlashAttention-2 style.  4 warps, 16 query rows
@@ -34,7 +46,8 @@
 // 4*hd*H*sum_i(visible keys of row i) operations / 989e12 and the bytes of
 // q, the visible k/v rows and out / 3.35e12.  A 256-row chunk deep in a
 // 4k prompt is operation-bound (~17 us at the data-sheet peaks of an H100
-// SXM at its full 700 W).  What the design leaves on the
+// SXM at its full 700 W), and so is a monolithic 4 x 2080-row causal
+// prefill of llama3-8b (~0.14 ms).  What the design leaves on the
 // table: mma.sync instead of wgmma, cp.async instead of TMA, one
 // 4-warp CTA per query tile per head (128 CTAs for a 256-row chunk of
 // llama3-8b, one per SM), so the 4 q heads of a GQA group each re-read
@@ -49,18 +62,26 @@ constexpr int THREADS = 256; // fp32 path: 4 lanes per query row
 constexpr int NJ = BK / 4;   // fp32 path: logits per lane per tile
 constexpr int MTHREADS = 128;  // bf16 path: 4 warps x 16 query rows
 
-template <typename T, int HD>
+// Query tile of this CTA: the last tile first (see the header).
+__device__ __forceinline__ int tile_row0() {
+  return (gridDim.x - 1 - blockIdx.x) * BQ;
+}
+
+// the entry a kernel instantiation belongs to: it names the kernel
+struct chunk_attention_tag {};
+struct flash_attention_tag {};
+
+template <typename Entry, typename T, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
-chunk_attention_fma(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int C,
-                       int H, int K, int KV, int q_offset, int window,
-                       float scale) {
+attention_fma(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ out, int C, int H,
+              int K, int KV, int q_offset, int window, float scale) {
   extern __shared__ float smem[];
   float* sQ = smem;                  // BQ x (HD + 1)
   float* sK = sQ + BQ * (HD + 1);    // BK x (HD + 1)
   float* sV = sK + BK * (HD + 1);    // BK x HD
 
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = tile_row0();
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
@@ -82,7 +103,8 @@ chunk_attention_fma(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int rows = min(BQ, C - q0);
-  const int k_end = min(K, q_offset + q0 + rows);  // past the last visible key
+  // past the last visible key
+  const int k_end = CAUSAL ? min(K, q_offset + q0 + rows) : K;
   int k_begin = 0;
   if (window > 0) k_begin = (max(0, q_offset + q0 - window + 1) / BK) * BK;
   const bool row_ok = q0 + r < C;
@@ -120,7 +142,7 @@ chunk_attention_fma(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int kpos = k0 + c4 + 4 * j;
-      const bool ok = row_ok && kpos < K && kpos <= qpos &&
+      const bool ok = row_ok && kpos < K && (!CAUSAL || kpos <= qpos) &&
                       (window <= 0 || qpos - kpos < window);
       s[j] = ok ? s[j] * scale : NEG_INF;
       okbits |= (unsigned)ok << j;
@@ -220,13 +242,13 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
 //   B 16x8  regs: (k 2t..2t+1, col g), (k 8+2t.., col g)
 //   C 16x8  f32:  (row g, col 2t), (row g, col 2t+1), (row g+8, col 2t),
 //                 (row g+8, col 2t+1)
-template <int HD>
+template <typename Entry, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(MTHREADS)
-chunk_attention_mma(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ out, int C, int H, int K,
-                    int KV, int q_offset, int window, float scale) {
+attention_mma(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              __nv_bfloat16* __restrict__ out, int C, int H, int K, int KV,
+              int q_offset, int window, float scale) {
   constexpr int LD = HD + 8;  // row stride (halves): conflict-free fragments
   constexpr int CH = HD / 8;  // 16-byte chunks per row
   constexpr int NT = BK / 8;  // n8 tiles of S per warp
@@ -236,7 +258,7 @@ chunk_attention_mma(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* sK = sQ + BQ * LD;  // 2 stages x BK x LD
   __nv_bfloat16* sV = sK + 2 * TILE;  // 2 stages x BK x LD
 
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = tile_row0();
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
@@ -273,7 +295,7 @@ chunk_attention_mma(const __nv_bfloat16* __restrict__ q,
   };
 
   const int rows = min(BQ, C - q0);
-  const int k_end = min(K, q_offset + q0 + rows);
+  const int k_end = CAUSAL ? min(K, q_offset + q0 + rows) : K;
   int k_begin = 0;
   if (window > 0) k_begin = (max(0, q_offset + q0 - window + 1) / BK) * BK;
   const int n_tiles = (k_end - k_begin + BK - 1) / BK;
@@ -334,9 +356,9 @@ chunk_attention_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int kp = k0 + 8 * j + 2 * t + i;
-        const bool a = r_lo < C && kp < K && kp <= qp_lo &&
+        const bool a = r_lo < C && kp < K && (!CAUSAL || kp <= qp_lo) &&
                        (window <= 0 || qp_lo - kp < window);
-        const bool c = r_hi < C && kp < K && kp <= qp_hi &&
+        const bool c = r_hi < C && kp < K && (!CAUSAL || kp <= qp_hi) &&
                        (window <= 0 || qp_hi - kp < window);
         s[j][i] = a ? s[j][i] * scale : NEG_INF;
         s[j][2 + i] = c ? s[j][2 + i] * scale : NEG_INF;
@@ -414,7 +436,7 @@ chunk_attention_mma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename T, int HD>
+template <typename Entry, typename T, int HD, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int C, int H, int K, int KV, int q_offset,
                    int window, cudaStream_t stream) {
@@ -422,7 +444,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const float scale = 1.f / sqrtf((float)HD);
   if constexpr (sizeof(T) == 2) {  // bf16: tensor cores
     const int smem = (BQ + 4 * BK) * (HD + 8) * 2;
-    auto* kern = chunk_attention_mma<HD>;
+    auto* kern = attention_mma<Entry, HD, CAUSAL>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
     kern<<<grid, MTHREADS, smem, stream>>>(
@@ -431,7 +453,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
         window, scale);
   } else {  // fp32: CUDA cores
     const int smem = (BQ * (HD + 1) + BK * (HD + 1) + BK * HD) * sizeof(float);
-    auto* kern = chunk_attention_fma<T, HD>;
+    auto* kern = attention_fma<Entry, T, HD, CAUSAL>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
     kern<<<grid, THREADS, smem, stream>>>(
@@ -441,16 +463,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename Entry, typename T, bool CAUSAL>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         void* out, int B, int C, int H, int K, int KV,
                         int q_offset, int window, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, out, B, C, H, K, KV, q_offset, window, stream);
-    case 64: return launch<T, 64>(q, k, v, out, B, C, H, K, KV, q_offset, window, stream);
-    case 128: return launch<T, 128>(q, k, v, out, B, C, H, K, KV, q_offset, window, stream);
+    case 32: return launch<Entry, T, 32, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, stream);
+    case 64: return launch<Entry, T, 64, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, stream);
+    case 128: return launch<Entry, T, 128, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename Entry, bool CAUSAL>
+cudaError_t dispatch(int dtype, int hd, const void* q, const void* k,
+                     const void* v, void* out, int B, int C, int H, int K,
+                     int KV, int q_offset, int window, cudaStream_t s) {
+  if (dtype == DTYPE_F32)
+    return dispatch_hd<Entry, float, CAUSAL>(hd, q, k, v, out, B, C, H, K, KV, q_offset, window, s);
+  if (dtype == DTYPE_BF16)
+    return dispatch_hd<Entry, __nv_bfloat16, CAUSAL>(hd, q, k, v, out, B, C, H, K, KV, q_offset, window, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -460,10 +493,22 @@ extern "C" int chunk_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int C, int H, int K, int KV,
                                int hd, int q_offset, int window, int dtype,
                                void* stream) {
+  return dispatch<chunk_attention_tag, true>(dtype, hd, q, k, v, out, B, C,
+                                             H, K, KV, q_offset, window,
+                                             (cudaStream_t)stream);
+}
+
+// Self-attention of a whole sequence: q (B, S, H, hd), k/v (B, S, KV, hd).
+// causal != 0: row i sees keys 0..i; causal == 0: every key.  window <= 0
+// means no window.  Returns cudaGetLastError() after launch.
+extern "C" int flash_attention(const void* q, const void* k, const void* v,
+                               void* out, int B, int S, int H, int KV, int hd,
+                               int causal, int window, int dtype,
+                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DTYPE_F32)
-    return dispatch_hd<float>(hd, q, k, v, out, B, C, H, K, KV, q_offset, window, s);
-  if (dtype == DTYPE_BF16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, C, H, K, KV, q_offset, window, s);
-  return cudaErrorInvalidValue;
+  if (causal)
+    return dispatch<flash_attention_tag, true>(dtype, hd, q, k, v, out, B, S,
+                                               H, S, KV, 0, window, s);
+  return dispatch<flash_attention_tag, false>(dtype, hd, q, k, v, out, B,
+                                                S, H, S, KV, 0, window, s);
 }

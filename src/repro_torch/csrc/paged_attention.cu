@@ -13,16 +13,13 @@
 // bool; pos_pool (N, bs, KV) int32; table (B, nb) int32; new_pos (B,) int32;
 // out (B, H, hd) in q's type.  fp32 or bf16 payload.
 //
-// Design: one CTA per (kv head, sequence) with one warp per query head of
-// the GQA group, so each K/V row is read from device memory once for the
-// whole group.  TPU scalar prefetch has no counterpart: the CTA reads
-// table[b, i] itself while it stages a 64-row tile (any block size: the
-// tile walks logical rows, each row finds its block).  A row's validity
-// (mask, window) is decided first and only valid rows' K/V bytes are read,
-// so null blocks, ragged tails and dead rows cost their mask byte only.
-// Each lane then scores two rows against the warp's query (fp32 dot over
-// hd from shared memory), the warp runs the online-softmax recurrence and
-// accumulates P.V with each lane owning hd/32 output dims.
+// Design: one CTA per (kv head, sequence), the shared tile routine of
+// decode_tiles.cuh (one warp per query head of the GQA group, only valid
+// rows' K/V bytes read).  TPU scalar prefetch has no counterpart: the
+// CTA's row map reads table[b, c / bs] itself while it stages a 64-row
+// tile (any block size: the tile walks logical rows, each row finds its
+// block), so null blocks, ragged tails and dead rows cost their mask byte
+// only.
 //
 // Bound on the H100: bandwidth, the K and V bytes of the valid rows plus
 // the mask bytes of every table row, q and out, over 3.35 TB/s.  What this
@@ -30,11 +27,26 @@
 // a quarter of the SMs) each walking its rows in order with loads and math
 // alternating (no split-K over the rows, no cp.async/TMA pipelining, no
 // tensor cores), so it is latency-bound well above that bound.
-#include "common.cuh"
+#include "decode_tiles.cuh"
 
 namespace {
 
-constexpr int TR = 64;  // logical rows per tile
+// Logical row c of one sequence -> its pool row, -1 when masked (or
+// outside the window).
+struct PagedRows {
+  const int32_t* table;  // this sequence's block-table row
+  const uint8_t* mask_pool;
+  const int32_t* pos_pool;
+  int bs, KV, kvh, window, qpos;
+
+  __device__ int row(int c) const {
+    const int r = table[c / bs] * bs + c % bs;
+    const size_t slot = (size_t)r * KV + kvh;
+    bool ok = mask_pool[slot] != 0;
+    if (ok && window > 0) ok = qpos - pos_pool[slot] < window;
+    return ok ? r : -1;
+  }
+};
 
 template <typename T, int HD>
 __global__ void paged_decode_kernel(
@@ -43,122 +55,14 @@ __global__ void paged_decode_kernel(
     const int32_t* __restrict__ pos_pool, const int32_t* __restrict__ table,
     const int32_t* __restrict__ new_pos, T* __restrict__ out, int H, int KV,
     int bs, int nb, int window, float scale) {
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int PER_ROW = HD / VEC;
-  constexpr int NV = TR * PER_ROW;  // 16-byte vectors per K (or V) tile
-  constexpr int UNROLL = 4;
   extern __shared__ float smem[];
-  const int G = H / KV;
-  float* sK = smem;                 // TR x (HD + 1)
-  float* sV = sK + TR * (HD + 1);   // TR x HD
-  float* sQ = sV + TR * HD;         // G x HD
-  float* sP = sQ + G * HD;          // G x TR
-  int* sRow = (int*)(sP + G * TR);  // TR: pool row index, -1 when masked
-
   const int kvh = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int g = tid >> 5, lane = tid & 31;
-  const int h = kvh * G + g;
-  const int rows = nb * bs;
-  const int32_t* tb = table + (size_t)b * nb;
-  const int qpos = new_pos ? new_pos[b] : 0;
-
-  for (int i = tid; i < G * HD; i += nthreads)
-    sQ[i] = to_f32(q[((size_t)b * H + kvh * G) * HD + i]);
-
-  float m = NEG_INF, l = 0.f;
-  float acc[HD / 32];
-#pragma unroll
-  for (int i = 0; i < HD / 32; ++i) acc[i] = 0.f;
-
-  for (int i0 = 0; i0 < rows; i0 += TR) {
-    __syncthreads();  // previous tile's readers are done
-    for (int j = tid; j < TR; j += nthreads) {
-      int prow = -1;
-      const int c = i0 + j;
-      if (c < rows) {
-        const int pb = tb[c / bs];
-        const size_t slot = ((size_t)pb * bs + c % bs) * KV + kvh;
-        bool ok = mask_pool[slot] != 0;
-        if (ok && window > 0) ok = qpos - pos_pool[slot] < window;
-        if (ok) prow = pb * bs + c % bs;
-      }
-      sRow[j] = prow;
-    }
-    __syncthreads();
-    // 16-byte loads of the valid rows, UNROLL per thread in flight at once
-    for (int base = tid; base < NV; base += UNROLL * nthreads) {
-      uint4 kr[UNROLL], vr[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int i = base + u * nthreads;
-        const int prow = i < NV ? sRow[i / PER_ROW] : -1;
-        kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
-        if (prow >= 0) {
-          const size_t o = ((size_t)prow * KV + kvh) * HD + (i % PER_ROW) * VEC;
-          kr[u] = *reinterpret_cast<const uint4*>(k_pool + o);
-          vr[u] = *reinterpret_cast<const uint4*>(v_pool + o);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int i = base + u * nthreads;
-        if (i >= NV) continue;
-        const int j = i / PER_ROW, d0 = (i % PER_ROW) * VEC;
-        const T* ke = reinterpret_cast<const T*>(&kr[u]);
-        const T* ve = reinterpret_cast<const T*>(&vr[u]);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          sK[j * (HD + 1) + d0 + e] = to_f32(ke[e]);
-          sV[j * HD + d0 + e] = to_f32(ve[e]);
-        }
-      }
-    }
-    __syncthreads();
-
-    // lane scores rows lane and lane + 32 for this warp's query head
-    float s[2];
-    bool ok[2];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int j = lane + 32 * t;
-      float dot = 0.f;
-      for (int d = 0; d < HD; ++d) dot += sQ[g * HD + d] * sK[j * (HD + 1) + d];
-      ok[t] = sRow[j] >= 0;
-      s[t] = ok[t] ? dot * scale : NEG_INF;
-    }
-    float tmax = fmaxf(s[0], s[1]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-    const float m_new = fmaxf(m, tmax);
-    float psum = 0.f;
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const float p = ok[t] ? expf(s[t] - m_new) : 0.f;
-      sP[g * TR + lane + 32 * t] = p;
-      psum += p;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      psum += __shfl_xor_sync(0xffffffffu, psum, o);
-    const float corr = expf(m - m_new);
-    l = l * corr + psum;
-    m = m_new;
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < HD / 32; ++i) acc[i] *= corr;
-    for (int j = 0; j < TR; ++j) {
-      const float p = sP[g * TR + j];
-#pragma unroll
-      for (int i = 0; i < HD / 32; ++i) acc[i] += p * sV[j * HD + lane + 32 * i];
-    }
-  }
-
-  const float inv = 1.f / fmaxf(l, L_FLOOR);
-  T* ob = out + ((size_t)b * H + h) * HD;
-#pragma unroll
-  for (int i = 0; i < HD / 32; ++i) ob[lane + 32 * i] = from_f32<T>(acc[i] * inv);
+  const int G = H / KV;
+  const PagedRows rows{table + (size_t)b * nb, mask_pool, pos_pool, bs, KV,
+                       kvh, window, new_pos ? new_pos[b] : 0};
+  const size_t head0 = ((size_t)b * H + kvh * G) * HD;
+  decode_tiles::attend<T, HD>(q + head0, k_pool, v_pool, out + head0, KV, kvh,
+                              G, nb * bs, rows, scale, smem);
 }
 
 template <typename T, int HD>
@@ -169,8 +73,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    cudaStream_t st) {
   const int G = H / KV;
   if (G < 1 || G > 32) return cudaErrorInvalidValue;
-  const int smem = (TR * (HD + 1) + TR * HD + G * HD + G * TR) * sizeof(float)
-                   + TR * sizeof(int);
+  const int smem = decode_tiles::smem_bytes<HD>(G);
   auto* kern = paged_decode_kernel<T, HD>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;

@@ -8,8 +8,10 @@ takes seconds):
          -Xcompiler -fPIC -o build/repro_torch/lib<name>-<hash>.so <name>.cu
 
 Libraries land in ``build/repro_torch/`` at the repository root, named by
-a hash of the source, the shared header and the flags, so a changed
-source rebuilds and an unchanged one is reused.  Nothing here runs at
+a hash of the source, the shared headers and the flags, so a changed
+source rebuilds and an unchanged one is reused.  A library may hold
+several entry points (``chunk_attention.cu`` holds chunk attention and
+monolithic flash attention).  Nothing here runs at
 import time: a wrapper asks for its library on its first launch, and
 ``build()`` compiles several sources at once, one ``nvcc`` process each.
 """
@@ -28,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("chunk_attention", "lookahead_score", "paged_attention")
+SOURCES = ("chunk_attention", "lookahead_score", "paged_attention",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # dtype codes of csrc/common.cuh
@@ -39,12 +42,16 @@ _I = ctypes.c_int
 # C signatures of the extern "C" entry points (all return cudaError_t)
 SIGNATURES = {
     "chunk_attention": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "lookahead_score": [_P] * 7 + [_I] * 11 + [_P],
     "paged_decode_attention": [_P] * 8 + [_I] * 8 + [_P],
+    "decode_attention": [_P] * 5 + [_I] * 7 + [_P],
 }
+# the entry point a source's library offers by default
 _ENTRY = {"chunk_attention": "chunk_attention",
           "lookahead_score": "lookahead_score",
-          "paged_attention": "paged_decode_attention"}
+          "paged_attention": "paged_decode_attention",
+          "decode_attention": "decode_attention"}
 
 _libs: dict = {}
 
@@ -62,8 +69,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256()
-    for part in ((CSRC / f"{name}.cu").read_bytes(),
-                 (CSRC / "common.cuh").read_bytes(),
+    headers = [p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))]
+    for part in ((CSRC / f"{name}.cu").read_bytes(), *headers,
                  " ".join(NVCC_FLAGS).encode()):
         h.update(part)
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -102,17 +109,18 @@ def build(names=SOURCES, *, verbose: bool = False) -> dict:
     return report
 
 
-def library(name: str):
-    """The loaded library of source ``name``, built on first use."""
-    lib = _libs.get(name)
-    if lib is None:
+def library(name: str, entry: str | None = None):
+    """Entry point ``entry`` (default: the source's own) of the library
+    built from source ``name``, built and loaded on first use."""
+    entry = entry or _ENTRY[name]
+    fn = _libs.get((name, entry))
+    if fn is None:
         build((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        fn = getattr(lib, _ENTRY[name])
-        fn.argtypes = SIGNATURES[_ENTRY[name]]
+        fn = getattr(ctypes.CDLL(str(_target(name))), entry)
+        fn.argtypes = SIGNATURES[entry]
         fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return getattr(lib, _ENTRY[name])
+        _libs[(name, entry)] = fn
+    return fn
 
 
 def check(err: int, what: str) -> None:

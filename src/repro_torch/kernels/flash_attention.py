@@ -1,0 +1,49 @@
+"""Monolithic flash attention on the card (``csrc/chunk_attention.cu``,
+entry ``flash_attention``).
+
+The Hopper port of the JAX package's ``flash_attention_pallas``: GQA
+self-attention of a whole sequence (Sq == Sk), causal or, with
+``causal=False``, over every key, with an optional sliding window.  The
+causal form is the chunk-attention kernel with ``q_offset = 0`` and the
+chunk spanning the buffer, so both share one tensor-core path; this
+wrapper has its own entry point and launch counter.  Any S: the ragged
+last tile is masked (the Pallas kernel asserts block multiples).  Plain
+version: ``ref.flash_attention``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+#: kernel launches since the last reset (``ops.reset_launch_counts``)
+launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """q (B, S, H, hd), k/v (B, S, KV, hd) on the card -> (B, S, H, hd)."""
+    global launches
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention kernel takes CUDA tensors")
+    if q.dtype not in build.DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"unsupported dtypes {q.dtype}/{k.dtype}/{v.dtype}")
+    if k.shape != (B, S, KV, hd) or v.shape != k.shape or H % KV:
+        raise ValueError(f"shape mismatch q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} (Sq == Sk)")
+    if hd not in (32, 64, 128):
+        raise ValueError(f"head_dim {hd} not built (32, 64, 128)")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention kernel takes contiguous tensors")
+    out = torch.empty_like(q)
+    err = build.library("chunk_attention", "flash_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        KV, hd, int(bool(causal)), int(window or 0),
+        build.DTYPE_CODES[q.dtype], build.stream_ptr())
+    build.check(err, "flash_attention")
+    launches += 1
+    return out

@@ -13,6 +13,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import chunk_attention as _ck
+from repro_torch.kernels import decode_attention as _dk
+from repro_torch.kernels import flash_attention as _fk
 from repro_torch.kernels import lookahead_score as _lk
 from repro_torch.kernels import paged_attention as _pk
 from repro_torch.kernels import ref
@@ -21,6 +23,8 @@ KERNEL_MODULES = {
     "chunk_attention": _ck,
     "lookahead_score": _lk,
     "paged_decode_attention": _pk,
+    "flash_attention": _fk,
+    "decode_attention": _dk,
 }
 
 
@@ -40,6 +44,31 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for mod in KERNEL_MODULES.values():
         mod.launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """Self-attention of a whole sequence: q (B, S, H, hd), k/v (B, S, KV,
+    hd), causal or (``causal=False``) over every key.  There is no key
+    mask: that and Sq != Sk are the bucket-padded prefill of the JAX
+    package's ``BucketedEngine``, which the port does not serve yet; Sq !=
+    Sk raises on every device."""
+    if q.shape[1] != k.shape[1]:
+        raise NotImplementedError(
+            "flash_attention with Sq != Sk (bucket-padded prefill, "
+            "BucketedEngine): not ported yet: ROADMAP A3")
+    if _on_card(q):
+        return _fk.flash_attention(q, k, v, causal=causal, window=window)
+    return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One query token per sequence (B, H, hd) over a dense (B, C, KV, hd)
+    cache, mask None, (B, C) or per kv head (B, C, KV)."""
+    if _on_card(q):
+        return _dk.decode_attention(q, k, v, kv_mask=kv_mask)
+    return ref.decode_attention(q, k, v, kv_mask=kv_mask)
 
 
 def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -42,11 +42,12 @@ def attention(
     k: torch.Tensor,
     v: torch.Tensor,
     *,
+    causal: bool = True,
     window=None,
     q_pos: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Naive causal (optionally windowed) softmax attention of queries at
-    absolute positions ``q_pos`` (B, Sq) (default: the last Sq of the Sk
+    """Naive (optionally causal and windowed) softmax attention of queries
+    at absolute positions ``q_pos`` (B, Sq) (default: the last Sq of the Sk
     positions) over keys at positions 0..Sk-1.  Returns (B, Sq, H, hd) in
     q.dtype."""
     B, Sq, H, hd = q.shape
@@ -58,13 +59,27 @@ def attention(
     kf = _expand_gqa(k, H // KV).float()
     vf = _expand_gqa(v, H // KV).float()
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(hd)
-    ok = k_pos <= q_pos[:, :, None]  # (B, Sq, Sk)
+    ok = torch.ones((B, Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        ok &= k_pos <= q_pos[:, :, None]
     if window is not None:
         ok &= (q_pos[:, :, None] - k_pos) < window
     logits = torch.where(ok[:, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
     return out.to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window=None) -> torch.Tensor:
+    """Self-attention of a whole sequence (Sq == Sk): causal, or with
+    ``causal=False`` a full softmax over every key; an optional window
+    hides keys with ``q_pos - k_pos >= window``.  Every row sees at least
+    its own key, so no row is empty."""
+    if q.shape[1] != k.shape[1]:
+        raise ValueError(f"flash_attention needs Sq == Sk, got {q.shape[1]} "
+                         f"and {k.shape[1]}")
+    return attention(q, k, v, causal=causal, window=window)
 
 
 def chunk_attention(q, k, v, *, q_offset: int, window=None) -> torch.Tensor:
@@ -77,19 +92,31 @@ def chunk_attention(q, k, v, *, q_offset: int, window=None) -> torch.Tensor:
     return attention(q, k, v, window=window, q_pos=q_pos)
 
 
-def decode_attention(q, k, v, *, kv_mask: torch.Tensor):
-    """One query token (B, H, hd) over (B, Sk, KV, hd) with a per-kv-head
-    mask (B, Sk, KV)."""
+def decode_attention(q, k, v, *,
+                     kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One query token (B, H, hd) over (B, Sk, KV, hd), with no mask, a
+    per-row mask (B, Sk) or a per-kv-head mask (B, Sk, KV).  A (sequence,
+    kv head) with no valid row is exact zeros (the kernels' ``l -> max(l,
+    1e-30)`` rule), never NaN and never the mean of V."""
     B, H, hd = q.shape
-    KV = k.shape[2]
+    Sk, KV = k.shape[1], k.shape[2]
     group = H // KV
     kf = _expand_gqa(k, group).float()
     vf = _expand_gqa(v, group).float()
     logits = torch.einsum("bhd,bkhd->bhk", q.float(), kf) / math.sqrt(hd)
-    ok = torch.repeat_interleave(kv_mask.transpose(1, 2), group, dim=1)
+    if kv_mask is None:
+        return torch.einsum("bhk,bkhd->bhd", torch.softmax(logits, dim=-1),
+                            vf).to(q.dtype)
+    if kv_mask.dim() == 2:
+        ok = kv_mask[:, None, :].expand(B, H, Sk)
+    else:  # (B, Sk, KV) -> (B, H, Sk)
+        ok = torch.repeat_interleave(kv_mask.transpose(1, 2), group, dim=1)
     logits = torch.where(ok, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhk,bkhd->bhd", probs, vf)
+    alive = ok.any(dim=-1)  # (B, H)
+    out = torch.where(alive[..., None], out,
+                      torch.zeros((), dtype=out.dtype, device=out.device))
     return out.to(q.dtype)
 
 
@@ -162,9 +189,4 @@ def paged_decode_attention(
             "sliding-window masking needs pos_pool and new_pos"
         pos = gather_paged(pos_pool, table)
         mask = mask & ((new_pos[:, None, None] - pos) < window)
-    out = decode_attention(q, k, v, kv_mask=mask)
-    H = q.shape[1]
-    KV = mask_pool.shape[2]
-    alive = torch.repeat_interleave(mask.any(dim=1), H // KV, dim=1)  # (B, H)
-    return torch.where(alive[..., None], out, torch.zeros((), dtype=out.dtype,
-                                                          device=out.device))
+    return decode_attention(q, k, v, kv_mask=mask)

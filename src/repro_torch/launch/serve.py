@@ -1,16 +1,23 @@
-"""Serving launcher of the port: LookaheadKV through the paged
-continuous-batching engine.
+"""Serving launcher of the port: LookaheadKV through the engine the JAX
+launcher picks for the same command line.
 
+    # lockstep (ServingEngine): --requests prompts of --n-in tokens each
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
-        --kv-pool-mb 256 --budget 256 --chunk 256 --slots 4 \
+        --budget 256 --requests 4 --n-in 2048 --max-new 32
+    # continuous batching over dense slot caches (no --kv-pool-mb)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --continuous --budget 256 --chunk 256 --slots 4 \
+        --prompt-lens 1024,2048,3072,4000 --max-new 32
+    # continuous batching over the paged KV pool
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --continuous --kv-pool-mb 256 --budget 256 --chunk 256 --slots 4 \
         --prompt-lens 1024,2048,3072,4000 --max-new 32
 
 Weights and lookahead modules are drawn at random from ``--seed`` (fine
 for plumbing and speed; quality needs trained modules, ROADMAP A9).  The
-flags are those of the JAX launcher's continuous paged path; the ones
-whose feature the port does not serve yet raise ``NotImplementedError``
-naming their ROADMAP item.  ``--device cpu`` runs the plain PyTorch
-versions of the kernels.
+flags are those of the JAX launcher; the ones whose feature the port does
+not serve yet raise ``NotImplementedError`` naming their ROADMAP item.
+``--device cpu`` runs the plain PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.lookahead import init_lookahead_params
 from repro_torch.models import transformer as tf
 from repro_torch.serving import (ChunkingConfig, ContinuousEngine,
-                                 KVBlockPool, Request, ServingConfig)
+                                 KVBlockPool, Request, ServingConfig,
+                                 ServingEngine)
 
 # flag -> (value meaning "off", ROADMAP item of the feature)
 _UNPORTED = {
@@ -49,21 +57,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--budget", type=int, default=16)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--n-in", type=int, default=96,
-                    help="prompt lengths are drawn from [n_in/2, n_in]")
+                    help="lockstep: every prompt's length; continuous: "
+                         "prompt lengths are drawn from [n_in/2, n_in]")
     ap.add_argument("--prompt-lens", default="",
-                    help="comma-separated prompt lengths (overrides "
-                         "--requests/--n-in)")
+                    help="continuous: comma-separated prompt lengths "
+                         "(overrides --requests/--n-in)")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--continuous", action="store_true",
-                    help="accepted for the JAX launcher's command lines; "
-                         "the port always serves continuously")
+                    help="serve through the chunked ContinuousEngine "
+                         "(default: the lockstep ServingEngine)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--chunk", type=int, default=32,
                     help="prefill chunk size")
     ap.add_argument("--kv-pool-mb", type=float, default=0,
-                    help="paged KV pool size in MB (required: dense slot "
-                         "caches are ROADMAP A4)")
+                    help="continuous: paged KV pool size in MB (0: dense "
+                         "slot caches)")
     ap.add_argument("--kv-block-size", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--prefix-cache-mb", type=int, default=0)
@@ -80,15 +89,39 @@ def parse_args(argv=None) -> argparse.Namespace:
         if getattr(args, name) != off:
             raise NotImplementedError(f"--{name.replace('_', '-')}: not "
                                       f"ported yet: {what}")
-    if not args.kv_pool_mb:
-        raise NotImplementedError("dense slot decode caches: ROADMAP A4 "
-                                  "(pass --kv-pool-mb)")
+    if args.prompt_lens and not args.continuous:
+        raise ValueError("--prompt-lens needs --continuous: a lockstep "
+                         "batch shares one prompt length (--n-in)")
     return args
+
+
+def build_engine(args, cfg, params, lkv):
+    """The engine the JAX launcher builds for these arguments: lockstep
+    ``ServingEngine`` without ``--continuous``, else ``ContinuousEngine``
+    over the paged pool (``--kv-pool-mb``) or over dense slot caches."""
+    evict = EvictionConfig(budget=args.budget)
+    if not args.continuous:
+        return ServingEngine(params, cfg, policy=args.policy, evict=evict,
+                             lkv_params=lkv, max_new_tokens=args.max_new,
+                             eos_id=-1, device=args.device)
+    pool = None
+    if args.kv_pool_mb:
+        pool = KVBlockPool(cfg, block_size=args.kv_block_size,
+                           pool_mb=args.kv_pool_mb, device=args.device)
+    sc = ServingConfig(
+        policy=args.policy, evict=evict,
+        chunking=ChunkingConfig(chunk=args.chunk,
+                                max_context=max(args.n_in, args.chunk)),
+        num_slots=args.slots, max_new_tokens=args.max_new, eos_id=-1,
+        kv_pool=pool)
+    return ContinuousEngine(params, cfg, sc, lkv_params=lkv,
+                            device=args.device)
 
 
 def run(argv=None) -> dict:
     """Build the model and engine from the command line, serve the
-    requests and return {"args", "cfg", "engine", "done", "wall_s"}."""
+    requests and return {"args", "cfg", "engine", "done", "wall_s",
+    "peak_bytes"}."""
     args = parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = tf.init_params(cfg, seed=args.seed, device=args.device)
@@ -96,7 +129,9 @@ def run(argv=None) -> dict:
     lkv = init_lookahead_params(gen, cfg, params["layers"])
 
     rng = np.random.default_rng(args.seed)
-    if args.prompt_lens:
+    if not args.continuous:
+        lens = [args.n_in] * args.requests
+    elif args.prompt_lens:
         lens = [int(n) for n in args.prompt_lens.split(",")]
     else:
         lens = rng.integers(args.n_in // 2, args.n_in + 1,
@@ -106,22 +141,14 @@ def run(argv=None) -> dict:
                                         int(n)).astype(np.int32),
                     max_new_tokens=args.max_new)
             for i, n in enumerate(lens)]
-    pool = KVBlockPool(cfg, block_size=args.kv_block_size,
-                       pool_mb=args.kv_pool_mb, device=args.device)
-    sc = ServingConfig(
-        policy=args.policy, evict=EvictionConfig(budget=args.budget),
-        chunking=ChunkingConfig(chunk=args.chunk,
-                                max_context=max(max(lens), args.chunk)),
-        num_slots=args.slots, max_new_tokens=args.max_new, eos_id=-1,
-        kv_pool=pool)
-    eng = ContinuousEngine(params, cfg, sc, lkv_params=lkv,
-                           device=args.device)
+    eng = build_engine(args, cfg, params, lkv)
     on_card = torch.device(args.device).type == "cuda"
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    done = eng.run(reqs)
+    done = eng.serve(reqs) if isinstance(eng, ServingEngine) \
+        else eng.run(reqs)
     if on_card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -135,19 +162,28 @@ def run(argv=None) -> dict:
 def main(argv=None) -> None:
     res = run(argv)
     args, eng, done = res["args"], res["engine"], res["done"]
-    print(f"policy={args.policy} budget={args.budget} requests={len(done)} "
-          f"wall={res['wall_s']:.2f}s on {args.device}")
+    cb = eng.cache_bytes(args.n_in)
+    print(f"{type(eng).__name__}"
+          f"{' (paged)' if getattr(eng, 'pool', None) is not None else ''}: "
+          f"policy={args.policy} budget={args.budget} "
+          f"requests={len(done)} ttft={done[0].ttft_s * 1e3:.1f}ms "
+          f"wall={res['wall_s']:.2f}s cache_ratio={cb['ratio']:.1f}x "
+          f"({cb['full'] / 1e3:.0f}KB -> {cb['evicted'] / 1e3:.0f}KB per "
+          f"req) on {args.device}")
     for r in sorted(done, key=lambda r: r.uid):
         print(f"  req {r.uid}: prompt {len(r.prompt)} ttft "
               f"{r.ttft_s * 1e3:.1f}ms {len(r.out_tokens)} tokens "
               f"{r.out_tokens[:8]}...")
-    s = eng.pool.stats()
+    if isinstance(eng, ServingEngine):
+        return
     c = eng.counts
-    print(f"kv pool: {s['blocks_total']} x {s['block_size']}-row blocks "
-          f"({s['bytes_total'] / 1e6:.2f} MB), high water "
-          f"{s['high_water_blocks']} blocks, peak concurrency "
-          f"{c['max_concurrency']}; decode {c['decode_steps']} steps in "
-          f"{c['decode_s']:.3f}s")
+    print(f"peak concurrency {c['max_concurrency']}; decode "
+          f"{c['decode_steps']} steps in {c['decode_s']:.3f}s")
+    if eng.pool is not None:
+        s = eng.pool.stats()
+        print(f"kv pool: {s['blocks_total']} x {s['block_size']}-row blocks "
+              f"({s['bytes_total'] / 1e6:.2f} MB), high water "
+              f"{s['high_water_blocks']} blocks")
 
 
 if __name__ == "__main__":

@@ -1,13 +1,15 @@
 """Grouped-query attention block: projections with RoPE and lookahead-LoRA
-hooks, the streaming-prefill chunk step, and the paged decode step.
+hooks, the monolithic and the streaming prefill attention, and the decode
+steps over a dense cache and over the paged pool.
 
 Single-layer params (stacked along L by transformer.py):
 
     {"wq": (D, H*hd), "wk": (D, KV*hd), "wv": (D, KV*hd), "wo": (H*hd, D),
      ["bq","bk","bv"]: biases when cfg.attn.qkv_bias}
 
-Where the JAX package returns updated copies of the prompt buffer and of
-the block pool, the port writes them in place (noted at each write).
+Where the JAX package returns updated copies of the prompt buffer, the
+dense decode cache and the block pool, the port writes them in place
+(noted at each write).
 """
 
 from __future__ import annotations
@@ -78,6 +80,31 @@ def layer_window(a: AttentionConfig, is_global: bool = True) -> Optional[int]:
     return None
 
 
+def prefill_attention(
+    p: dict,
+    a: AttentionConfig,
+    h: torch.Tensor,  # (B, S, D)
+    positions: torch.Tensor,  # (B, S) absolute positions
+    *,
+    window: Optional[int] = None,
+    lookahead_mask: Optional[torch.Tensor] = None,
+    lora: Optional[dict] = None,
+    lora_scale: float = 1.0,
+    rope_tables: Optional[tuple] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Causal self-attention of the whole sequence (``ops.flash_attention``,
+    optional sliding window).  Returns (out (B, S, D), q, k, v); the
+    caller scores and evicts from q and k."""
+    q, k, v = qkv(p, a, h, positions, lookahead_mask=lookahead_mask,
+                  lora=lora, lora_scale=lora_scale, rope_tables=rope_tables)
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    B, S = h.shape[:2]
+    out = linear(out.reshape(B, S, a.q_dim), p["wo"],
+                 lora=_lora_for(lora, "wo"), lora_mask=lookahead_mask,
+                 lora_scale=lora_scale)
+    return out, q, k, v
+
+
 def chunk_prefill_attention(
     p: dict,
     a: AttentionConfig,
@@ -114,6 +141,73 @@ def chunk_prefill_attention(
                  lora=_lora_for(lora, "wo"), lora_mask=lookahead_mask,
                  lora_scale=lora_scale)
     return out, q
+
+
+def dense_append_rows(cursor, capacity: int, batch: int, device,
+                      active: Optional[torch.Tensor] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where each sequence's next token lands in a dense cache of
+    ``capacity`` rows: (row (B,) int64, write_ok (B,) bool), the same for
+    every layer, so a decode step computes it once.
+
+    * Scalar cursor (lockstep: one int for the batch): every sequence
+      writes row ``min(cursor, capacity - 1)`` — the start-index clamp of
+      the JAX step's ``dynamic_update_slice``, so a full cache overwrites
+      its last row.
+    * Per-slot cursors (B,) (continuous batching): a slot writes row
+      ``cursor`` while ``cursor < capacity``; a full slot writes nothing.
+
+    ``active`` (B,) additionally gates the write: the port writes the live
+    cache in place, so an inactive slot must not write at all (JAX writes
+    every slot and rolls inactive ones back with ``select_cache_slots``)."""
+    if isinstance(cursor, torch.Tensor) and cursor.dim() == 1:
+        row = torch.clamp(cursor, 0, capacity - 1).long()
+        write_ok = cursor < capacity
+    else:
+        row = torch.full((batch,), min(int(cursor), capacity - 1),
+                         dtype=torch.long, device=device)
+        write_ok = torch.ones((batch,), dtype=torch.bool, device=device)
+    if active is not None:
+        write_ok = write_ok & active
+    return row, write_ok
+
+
+def decode_attention_step(
+    p: dict,
+    a: AttentionConfig,
+    h1: torch.Tensor,  # (B, 1, D) current token hidden
+    positions: torch.Tensor,  # (B, 1) the token's absolute positions
+    cache: dict,  # this layer's cache: k/v (B, C, KV, hd), pos/mask (B, C, KV)
+    *,
+    rows: tuple,  # dense_append_rows(...), shared by the layers
+    window: Optional[int] = None,
+    rope_tables: Optional[tuple] = None,
+) -> torch.Tensor:
+    """One decode step against a dense cache: append the token's K/V at
+    each sequence's row (``dense_append_rows``), then attend over the cache
+    with its per-kv-head mask (``ops.decode_attention``; a window is folded
+    into that mask).  The cache is written in place, only where
+    ``write_ok``.  Returns (B, 1, D)."""
+    B = h1.shape[0]
+    KV = a.num_kv_heads
+    q, k_new, v_new = qkv(p, a, h1, positions, rope_tables=rope_tables)
+    row, write_ok = rows
+    b = torch.arange(B, device=h1.device)
+    ok = write_ok[:, None]
+    new_pos = positions.to(torch.int32).expand(B, KV)
+    # in place: write-gated row update (JAX returns an updated copy)
+    for name, new in (("k", k_new[:, 0]), ("v", v_new[:, 0]),
+                      ("pos", new_pos), ("mask", ok.expand(B, KV))):
+        buf = cache[name]
+        old = buf[b, row]
+        gate = ok if new.dim() == 2 else ok[..., None]
+        buf[b, row] = torch.where(gate, new.to(buf.dtype), old)
+    att_mask = cache["mask"]
+    if window is not None:
+        att_mask = att_mask & ((positions[:, :, None] - cache["pos"]) < window)
+    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
+                               kv_mask=att_mask)
+    return linear(out.reshape(B, 1, a.q_dim), p["wo"])
 
 
 def append_slots(table: torch.Tensor, cursor: torch.Tensor, depth: int,

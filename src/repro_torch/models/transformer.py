@@ -1,7 +1,9 @@
-"""Decoder stack of the port: parameters, embedding, the streaming prefill
-(``prefill_chunk`` / ``prefill_finalize``) and the paged decode step.
+"""Decoder stack of the port: parameters, embedding, the monolithic
+prefill (``prefill``), the streaming prefill (``prefill_chunk`` /
+``prefill_finalize``), the dense decode cache and its slot surgery, and
+the decode step over a dense cache or the paged pool.
 
-Slice 1 covers the attention-only llama family and the paper's
+The port covers the attention-only llama family and the paper's
 ``lookaheadkv`` policy.  Per-layer parameters are stacked along a leading
 L axis (the JAX package's tree layout); the depth is a Python loop over
 layer slices, which are views of the stacked tensors.
@@ -12,7 +14,7 @@ Block: h += attn(rms_norm(h, ln1));  h += mlp(rms_norm(h, ln2))
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -20,7 +22,7 @@ import torch
 from repro_torch.common.config import EvictionConfig, ModelConfig
 from repro_torch.core import eviction as ev
 from repro_torch.core import scoring
-from repro_torch.core.lookahead import lora_scale
+from repro_torch.core.lookahead import append_lookahead, lora_scale
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
@@ -130,6 +132,123 @@ def _ffn_residual(h, lp, cfg: ModelConfig, *, lora_l=None, lora_mask=None,
     mlp_lora = None if lora_l is None else lora_l.get("mlp")
     return h + mlp_mod.apply(lp["mlp"], cfg, u, lora=mlp_lora,
                              lora_mask=lora_mask, lora_scale=ls)
+
+
+# ---------------------------------------------------------------------------
+# Monolithic prefill
+# ---------------------------------------------------------------------------
+
+
+class PrefillResult(NamedTuple):
+    logits: Optional[torch.Tensor]  # (B, V) last-real-row logits, or (B, S, V)
+    cache: Optional[dict]  # decode cache, or None without a policy
+    scores: Optional[torch.Tensor]  # captured scores (ROADMAP A9): None
+    aux: torch.Tensor  # MoE load-balance loss: 0 for the dense archs
+
+
+def prefill(
+    params: dict,
+    cfg: ModelConfig,
+    inputs: torch.Tensor,  # (B, S) int tokens
+    *,
+    lkv_params: Optional[dict] = None,
+    policy: Optional[str] = None,  # eviction policy; None => no cache
+    evict: Optional[EvictionConfig] = None,
+    extra_slots: int = 0,  # empty tail rows for decode appends
+    capture_scores: bool = False,
+    gt_boundary: Optional[int] = None,
+    mrope_positions: Optional[torch.Tensor] = None,
+    encoder_embeds: Optional[torch.Tensor] = None,
+    want_logits: str = "last",  # "last" | "all" | "none"
+    prompt_lens: Optional[torch.Tensor] = None,
+) -> PrefillResult:
+    """The whole prompt in one forward pass (``ops.flash_attention``).
+
+    With ``policy="lookaheadkv"`` the learned lookahead rows (and their
+    selective LoRA) are appended after the prompt; each layer, right after
+    its forward pass, scores the prompt keys from the lookahead queries
+    (``observation_scores``), pools the scores and evicts its K/V to the
+    budget, so only one layer's full K/V is alive at a time.  The decode
+    cache is {"attn": {k, v (L, B, cap, KV, hd), pos, mask (L, B, cap,
+    KV)}, "cursor": capacity (int), "next_pos": (B, 1)} with ``cap =
+    capacity + extra_slots``.  With ``policy=None`` there is no cache."""
+    _check_arch(cfg)
+    unported = [
+        (policy not in (None, "lookaheadkv"),
+         f"policy {policy!r}: ROADMAP A3 (other policies)"),
+        (prompt_lens is not None,
+         "bucket-padded prefill (prompt_lens, BucketedEngine): ROADMAP A3"),
+        (gt_boundary is not None, "the gt_oracle pass: ROADMAP A3"),
+        (capture_scores, "score capture for training: ROADMAP A9"),
+        (mrope_positions is not None or encoder_embeds is not None,
+         "M-RoPE and encoder inputs: ROADMAP A10"),
+        (want_logits not in ("last", "all", "none"),
+         f"want_logits {want_logits!r}"),
+    ]
+    for bad, what in unported:
+        if bad:
+            raise NotImplementedError(f"not ported yet: {what}")
+    a = cfg.attn
+    lk = cfg.lookahead
+    evict = evict or EvictionConfig()
+    use_lookahead = policy == "lookaheadkv"
+    h = embed(params, cfg, inputs)
+    B, n_real = h.shape[:2]
+    lmask = None
+    if use_lookahead:
+        if lkv_params is None:
+            raise ValueError("lookaheadkv needs lookahead modules "
+                             "(lkv_params)")
+        h, lmask = append_lookahead(h, lkv_params)
+    S = h.shape[1]
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    tables = rope_tables(positions, a.head_dim, a.rope_theta)
+    do_evict = policy is not None
+    if do_evict:
+        budgets, _ = _policy_budget_schedule(cfg, policy, evict.budget,
+                                             evict.pyramid_beta)
+        capacity = decode_cache_capacity(cfg, policy, evict,
+                                         n_keys_max=n_real)
+    ls = lora_scale(cfg) if use_lookahead else 1.0
+    lora_tree = lkv_params.get("lora") if use_lookahead else None
+    layers = []
+    for layer, window in enumerate(_windows(cfg)):
+        lp = layer_slice(params["layers"], layer)
+        lora_l = layer_slice(lora_tree, layer)
+        u = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        out, q, k, v = attn_mod.prefill_attention(
+            lp["attn"], a, u, positions, window=window, lookahead_mask=lmask,
+            lora=None if lora_l is None else lora_l.get("attn"),
+            lora_scale=ls, rope_tables=tables)
+        h = _ffn_residual(h + out, lp, cfg, lora_l=lora_l, lora_mask=lmask,
+                          ls=ls)
+        if do_evict:
+            # the observation rows' queries over every key, scored on the
+            # first n_real; the kernel takes contiguous rows
+            s_qh = scoring.observation_scores(
+                q[:, n_real:].contiguous(), k, n_real, window=window)
+            s_kv = scoring.postprocess(s_qh, a.num_kv_heads,
+                                       lk.pool_kernel if lk else 7)
+            layers.append(ev.evict_layer(
+                s_kv, k[:, :n_real], v[:, :n_real], capacity,
+                layer_budget=budgets[layer], extra_slots=extra_slots))
+        del q, k, v  # only one layer's full K/V is alive at a time
+    cache = None
+    if do_evict:
+        cache = {
+            "attn": {f: torch.stack([getattr(e, f) for e in layers])
+                     for f in ev.EvictedKV._fields},
+            "cursor": capacity,
+            "next_pos": torch.full((B, 1), n_real, dtype=torch.int32,
+                                   device=h.device),
+        }
+    logits = None
+    if want_logits == "last":
+        logits = unembed(params, cfg, h[:, n_real - 1])
+    elif want_logits == "all":
+        logits = unembed(params, cfg, h[:, :n_real])
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return PrefillResult(logits=logits, cache=cache, scores=None, aux=aux)
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +420,116 @@ def prefill_finalize(
 
 
 # ---------------------------------------------------------------------------
-# Paged decode
+# Dense decode caches and their slot surgery
+# ---------------------------------------------------------------------------
+#
+# Post-eviction decode caches have the same shape whatever the prompt
+# length: (capacity + margin) rows.  The continuous engine exploits that: a
+# freshly prefilled request's cache goes into any free slot of the live
+# slot-batched cache without reshaping anything.  Where the JAX package
+# returns updated copies, ``insert_request_cache`` writes the live cache in
+# place.
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
+                      per_slot_cursor: bool = False, device="cuda") -> dict:
+    """Fresh, empty dense decode cache: k/v (L, batch, capacity, KV, hd)
+    zeros, pos (L, batch, capacity, KV) = row index, mask false, cursors
+    and positions 0.  ``per_slot_cursor`` gives every batch row (serving
+    slot) its own append cursor, a (batch,) tensor; otherwise the cursor is
+    one int for the batch (lockstep)."""
+    _check_arch(cfg)
+    a = cfg.attn
+    L, KV = cfg.num_layers, a.num_kv_heads
+    shape = (L, batch, capacity, KV)
+    rows = torch.arange(capacity, dtype=torch.int32, device=device)
+    k = torch.zeros(shape + (a.head_dim,), dtype=torch_dtype(cfg),
+                    device=device)
+    return {
+        "attn": {
+            "k": k,
+            "v": torch.zeros_like(k),
+            "pos": rows[None, None, :, None].expand(shape).clone(),
+            "mask": torch.zeros(shape, dtype=torch.bool, device=device),
+        },
+        "cursor": (torch.zeros((batch,), dtype=torch.int32, device=device)
+                   if per_slot_cursor else 0),
+        "next_pos": torch.zeros((batch, 1), dtype=torch.int32,
+                                device=device),
+    }
+
+
+def pad_cache_capacity(cache: dict, capacity: int) -> dict:
+    """Right-pad the attention row axis to ``capacity`` (mask False): small
+    prompts clamp the kept capacity below the budget, so their caches are
+    shallower than the live cache."""
+    attn = cache["attn"]
+    C = attn["k"].shape[2]
+    if C == capacity:
+        return cache
+    if C > capacity:
+        raise ValueError(f"cache deeper ({C}) than live capacity "
+                         f"({capacity})")
+    out = dict(cache)
+    out["attn"] = {
+        name: torch.nn.functional.pad(
+            leaf, (0, 0) * (leaf.dim() - 3) + (0, capacity - C))
+        for name, leaf in attn.items()}
+    return out
+
+
+def insert_request_cache(live: dict, req: dict, slot: int) -> dict:
+    """Write a batch-1 request cache (a prefill's) into slot ``slot`` of the
+    live slot-batched cache, in place: its rows (capacity-padded first),
+    its position, and its scalar cursor into the live per-slot cursors.
+    Returns ``live``."""
+    req = pad_cache_capacity(req, live["attn"]["k"].shape[2])
+    for name, leaf in live["attn"].items():
+        leaf[:, slot] = req["attn"][name][:, 0].to(leaf.dtype)
+    live["next_pos"][slot] = req["next_pos"][0]
+    if "cursor" in live:
+        live["cursor"][slot] = int(req["cursor"])
+    return live
+
+
+def extract_request_cache(live: dict, slot: int) -> dict:
+    """Copy slot ``slot`` back out as a batch-1 request cache: the inverse
+    of ``insert_request_cache`` up to capacity padding."""
+    out = {"attn": {name: leaf[:, slot:slot + 1].clone()
+                    for name, leaf in live["attn"].items()},
+           "next_pos": live["next_pos"][slot:slot + 1].clone()}
+    cur = live.get("cursor")
+    if cur is not None:
+        out["cursor"] = (cur[slot:slot + 1].clone()
+                         if isinstance(cur, torch.Tensor) and cur.dim()
+                         else cur)
+    return out
+
+
+def select_cache_slots(active: torch.Tensor, new_cache: dict,
+                       old_cache: dict) -> dict:
+    """Per-slot select between two decode caches of the same structure:
+    slot b takes ``new_cache`` where ``active[b]``, else ``old_cache``.  A
+    scalar (lockstep) cursor comes from ``new_cache``.  (The port's own
+    decode step gates its in-place writes by ``active`` instead, which
+    gives the same cache; this is the JAX package's out-of-place form.)"""
+    def sel(new, old, axis):
+        if not isinstance(old, torch.Tensor) or old.dim() == 0:
+            return new
+        shape = [1] * new.dim()
+        shape[axis] = active.shape[0]
+        return torch.where(active.reshape(shape), new, old)
+
+    out = {"attn": {name: sel(leaf, old_cache["attn"][name], 1)
+                    for name, leaf in new_cache["attn"].items()}}
+    for name in ("cursor", "next_pos"):
+        if name in new_cache:
+            out[name] = sel(new_cache[name], old_cache[name], 0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Decode
 # ---------------------------------------------------------------------------
 
 
@@ -312,41 +540,66 @@ def decode_step(
     cache: dict,
     *,
     active: Optional[torch.Tensor] = None,  # (B,) live slots
-    paged_depth: int,
+    paged_depth: Optional[int] = None,
 ) -> tuple[torch.Tensor, dict]:
-    """One decode step against a paged cache.  ``cache`` holds the shared
+    """One decode step.  Returns (logits (B, V) float32, new cache).
+
+    A dense cache holds ``cache["attn"]`` (k/v (L, B, C, KV, hd), pos/mask
+    (L, B, C, KV)), the cursor (an int for the batch, or (B,) per-slot
+    cursors) and the positions (B, 1).  A paged cache holds the shared
     pool (``"pool"``: k/v (L, N, bs, KV, hd), pos/mask (L, N, bs, KV)),
-    the block table (``cache["attn"]["table"]``, (B, nb) int32), the
-    per-slot append cursors (B,) and positions (B, 1).  Appends go into
-    the pool in place; the cursor and position advance only for active
-    slots (a retired slot's state cannot be rolled back in a shared pool,
-    so it is gated here).  Returns (logits (B, V) float32, new cache)."""
-    if "pool" not in cache:
-        raise NotImplementedError("dense slot decode caches: ROADMAP A4")
+    the block table (``cache["attn"]["table"]``, (B, nb) int32), per-slot
+    cursors (B,) and positions, and needs ``paged_depth``.
+
+    Both write their cache in place, gated by ``active``: an inactive
+    slot writes nothing and its cursor and position do not advance, so a
+    retired slot stays bit for bit unchanged (the JAX package gates the
+    shared pool the same way and rolls a dense cache back with
+    ``select_cache_slots``)."""
     a = cfg.attn
     h = embed(params, cfg, token)
+    B = h.shape[0]
     positions = cache["next_pos"]
     cursor = cache["cursor"]
-    table = cache["attn"]["table"]
-    pool = cache["pool"]
     tables = rope_tables(positions, a.head_dim, a.rope_theta)
-    slots = attn_mod.append_slots(table, cursor, paged_depth,
-                                  pool["k"].shape[2], active)
+    paged = "pool" in cache
+    if paged:
+        if paged_depth is None:
+            raise ValueError("paged decode needs paged_depth")
+        table = cache["attn"]["table"]
+        pool = cache["pool"]
+        slots = attn_mod.append_slots(table, cursor, paged_depth,
+                                      pool["k"].shape[2], active)
+        depth = paged_depth
+    else:
+        depth = cache["attn"]["k"].shape[2]
+        rows = attn_mod.dense_append_rows(cursor, depth, B, h.device, active)
     for layer, window in enumerate(_windows(cfg)):
         lp = layer_slice(params["layers"], layer)
         u = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        out = attn_mod.decode_attention_step_paged(
-            lp["attn"], a, u, positions, layer_slice(pool, layer),
-            table=table, cursor=cursor, depth=paged_depth, active=active,
-            window=window, rope_tables=tables, slots=slots)
+        if paged:
+            out = attn_mod.decode_attention_step_paged(
+                lp["attn"], a, u, positions, layer_slice(pool, layer),
+                table=table, cursor=cursor, depth=paged_depth,
+                active=active, window=window, rope_tables=tables,
+                slots=slots)
+        else:
+            out = attn_mod.decode_attention_step(
+                lp["attn"], a, u, positions,
+                layer_slice(cache["attn"], layer), rows=rows, window=window,
+                rope_tables=tables)
         h = _ffn_residual(h + out, lp, cfg)
     logits = unembed(params, cfg, h[:, 0])
-    adv_c = torch.clamp(cursor + 1, max=paged_depth)
-    adv_p = positions + 1
-    if active is not None:
-        adv_c = torch.where(active, adv_c, cursor)
-        adv_p = torch.where(active[:, None], adv_p, positions)
     new_cache = dict(cache)
+    adv_p = positions + 1
+    if isinstance(cursor, torch.Tensor) and cursor.dim() == 1:
+        adv_c = torch.clamp(cursor + 1, max=depth)
+        if active is not None:
+            adv_c = torch.where(active, adv_c, cursor)
+    else:  # the lockstep batch shares one cursor
+        adv_c = min(int(cursor) + 1, depth)
+    if active is not None:
+        adv_p = torch.where(active[:, None], adv_p, positions)
     new_cache["cursor"] = adv_c
     new_cache["next_pos"] = adv_p
     return logits, new_cache

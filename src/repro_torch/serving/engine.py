@@ -1,30 +1,42 @@
-"""Chunked continuous-batching engine of the port, on the paged KV pool.
+"""Serving engines of the port: the chunked continuous-batching engine
+(on the paged KV pool or on dense slot caches) and the lockstep engine.
 
 ``ContinuousEngine`` streams each prompt in fixed-size chunks and
 interleaves them with a slot-batched greedy decode loop under a
 token-budget step (vLLM-style mixed steps):
 
     arrivals ──> FCFS queue ──> chunked prefill ──> finalize ──> decode slots
-                                (prefill_chunk)     (lookahead     (paged pool,
-                                                     pass, score,   block tables)
-                                                     evict)
+                                (prefill_chunk)     (lookahead     (paged pool
+                                                     pass, score,   or dense
+                                                     evict)         slot cache)
 
 Every iteration runs one decode chunk for the live slots and as many
 prefill chunks of the in-flight prompt as the leftover budget covers, so
 no live slot waits longer than one step behind a prompt of any length.
 At prompt end the lookahead observation pass scores the prompt's keys and
-each layer keeps its top ``budget`` rows per kv head; those rows are
-written into freshly allocated pool blocks and decode appends grow the
-slot block by block.  Admission is gated by free blocks, and every
-admission reserves its worst-case append blocks, so a running request is
-never starved (no preemption is ever needed).
+each layer keeps its top ``budget`` rows per kv head.  Every request's
+evicted cache has the same shape, ``capacity + margin`` rows, whatever its
+prompt length, so it lands in a slot without reshaping anything:
 
-This is the JAX package's ``ContinuousEngine`` restricted to its paged
-path with ``reserve_appends=True``, policy ``lookaheadkv`` and greedy
-decode.  Every other setting raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.  PyTorch runs eagerly, so there is no
-compile cache; on the card the three attention kernels run through
-``kernels/ops.py``.
+* paged (``config.kv_pool`` set): the kept rows are written into freshly
+  allocated pool blocks and decode appends grow the slot block by block.
+  Admission is gated by free blocks, and every admission reserves its
+  worst-case append blocks, so a running request is never starved (no
+  preemption is ever needed).
+* dense (``config.kv_pool`` None): one live (L, slots, capacity + margin,
+  KV, hd) cache; admission writes the request's cache into a free slot
+  (``transformer.insert_request_cache``) and decode appends at per-slot
+  cursors.
+
+This is the JAX package's ``ContinuousEngine`` with
+``reserve_appends=True``, policy ``lookaheadkv`` and greedy decode.  Every
+other setting raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.  PyTorch runs eagerly, so there is no compile cache; on the
+card the attention kernels run through ``kernels/ops.py``.
+
+``ServingEngine`` is the JAX package's lockstep engine (deprecated there,
+kept as the paper-shaped baseline): one batch of same-length prompts,
+monolithic prefill with eviction, then greedy decode of the whole batch.
 """
 
 from __future__ import annotations
@@ -35,22 +47,115 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import EvictionConfig, ModelConfig
 from repro_torch.core import policies
 from repro_torch.models import transformer as tf
-from repro_torch.serving.config import ServingConfig
-from repro_torch.serving.scheduler import Request, SlotScheduler, plan_step
+from repro_torch.serving.config import DecodeEvictionConfig, ServingConfig
+from repro_torch.serving.scheduler import (Request, RequestState,
+                                           SlotScheduler, plan_step)
 
-__all__ = ["ContinuousEngine", "Request", "ServingConfig"]
+__all__ = ["ContinuousEngine", "Request", "ServingConfig", "ServingEngine",
+           "cache_bytes"]
+
+
+def cache_bytes(cfg: ModelConfig, capacity: int, n_in: int) -> dict:
+    """Analytic cache footprint per request: the full prompt's K/V against
+    the evicted cache's (bf16 K and V of every layer; the paper's
+    headline)."""
+    per_tok = cfg.num_layers * cfg.attn.kv_dim * 2 * 2
+    return {"full": n_in * per_tok, "evicted": capacity * per_tok,
+            "ratio": n_in / max(capacity, 1)}
+
+
+def _kv_row_bytes(cfg: ModelConfig) -> int:
+    """K+V bytes of one cache row over every layer, in the model's type."""
+    return 2 * cfg.num_layers * cfg.attn.kv_dim * tf.torch_dtype(cfg).itemsize
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServingEngine:
+    """Lockstep batch engine: every request of a batch shares one prompt
+    length, and prefill and decode run back to back for the whole batch.
+
+    ``serve`` runs ``policies.run_eviction`` (the monolithic prefill with
+    the lookahead rows, scoring and eviction, kernels 7 and 3 on the card)
+    and then ``policies.greedy_decode`` over the evicted dense cache
+    (kernel 6), ``max_new_tokens`` steps with one shared cursor."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, *,
+                 policy: str = "lookaheadkv",
+                 evict: Optional[EvictionConfig] = None,
+                 lkv_params: Optional[dict] = None,
+                 max_new_tokens: int = 64, eos_id: int = 0, device="cuda"):
+        if policy != "lookaheadkv":
+            raise NotImplementedError(
+                f"not ported yet: policy {policy!r}: ROADMAP A3 (other "
+                "policies)")
+        if lkv_params is None:
+            raise ValueError("lookaheadkv serving needs lookahead modules "
+                             "(lkv_params)")
+        self.params, self.cfg, self.lkv_params = params, cfg, lkv_params
+        self.policy = policy
+        self.evict = evict if evict is not None else EvictionConfig()
+        self.max_new_tokens = max_new_tokens
+        self.eos_id = eos_id
+        self.device = torch.device(device)
+        self.decode_margin = DecodeEvictionConfig().margin_rows(
+            max_new_tokens)
+
+    def serve(self, requests: list[Request]) -> list[Request]:
+        """Serve one batch of same-length requests.  ``ttft_s`` is
+        batch-level by construction (all requests prefill together): the
+        host clock from the call to the prefill's logits on the device."""
+        if not requests:
+            raise ValueError("empty batch")
+        n_in = len(requests[0].prompt)
+        if any(len(r.prompt) != n_in for r in requests):
+            raise ValueError("batch requests by prompt length")
+        tokens = torch.as_tensor(np.stack([r.prompt for r in requests]),
+                                 device=self.device)
+        t0 = time.perf_counter()
+        res = policies.run_eviction(
+            self.policy, self.params, self.cfg, tokens, evict=self.evict,
+            lkv_params=self.lkv_params, extra_slots=self.decode_margin)
+        _sync(self.device)  # the first-token logits are on the device
+        ttft = time.perf_counter() - t0
+        first = torch.argmax(res.logits, dim=-1)[:, None].to(torch.int32)
+        toks, _ = policies.greedy_decode(self.params, self.cfg, first,
+                                         res.cache, self.max_new_tokens)
+        toks = toks.cpu().numpy()  # (B, max_new_tokens)
+        for i, r in enumerate(requests):
+            seq = toks[i].tolist()
+            if self.eos_id in seq:
+                seq = seq[: seq.index(self.eos_id) + 1]
+            r.out_tokens = seq
+            r.ttft_s = ttft
+            r.first_token_s = ttft
+            r.done = True
+            r.state = RequestState.DONE
+        return requests
+
+    def cache_bytes(self, n_in: int) -> dict:
+        return cache_bytes(self.cfg, self.evict.budget + self.decode_margin,
+                           n_in)
+
+    def kv_device_bytes(self, batch: int = 1) -> int:
+        """K+V bytes of one served batch's decode cache (the lockstep
+        engine holds no slot cache between batches)."""
+        return batch * (self.evict.budget + self.decode_margin) \
+            * _kv_row_bytes(self.cfg)
 
 
 def _reject_unported(config: ServingConfig) -> None:
-    """Raise for every setting slice 1 does not serve, naming its ROADMAP
+    """Raise for every setting the port does not serve, naming its ROADMAP
     item, instead of serving it differently from the JAX engine."""
     unported = [
         (config.policy != "lookaheadkv",
          f"policy {config.policy!r}: ROADMAP A3 (other policies)"),
-        (config.kv_pool is None, "dense slot decode caches: ROADMAP A4"),
         (config.decode_evict.enabled, "decode-time eviction: ROADMAP A5"),
         (not config.reserve_appends,
          "optimistic admission with preemption: ROADMAP A5"),
@@ -80,11 +185,12 @@ class _InflightPrefill:
 
 
 class ContinuousEngine:
-    """Chunked continuous-batching engine over a ``KVBlockPool``.
+    """Chunked continuous-batching engine over a ``KVBlockPool``
+    (``config.kv_pool``) or over dense slot caches (no pool).
 
     ``params`` and ``lkv_params`` are dicts of tensors on ``device``
     (``transformer.init_params``, ``core.lookahead.init_lookahead_params``
-    or ``bridge.to_torch``); the pool in ``config.kv_pool`` lives there
+    or ``bridge.to_torch``); the pool, when there is one, lives there
     too.  ``run(requests)`` serves them to completion.
     """
 
@@ -101,7 +207,7 @@ class ContinuousEngine:
                              "(lkv_params)")
         self.device = torch.device(device)
         pool = config.kv_pool
-        if pool.device != self.device:
+        if pool is not None and pool.device != self.device:
             raise ValueError(f"kv pool on {pool.device}, engine on "
                              f"{self.device}")
         self.config = config
@@ -127,8 +233,17 @@ class ContinuousEngine:
         self._base_cap = self._rung(max(config.chunking.max_context,
                                         self.capacity))
         self.pool = pool
-        self._paged_depth = self.capacity + self.decode_margin
-        self._nb_max = pool.blocks_for(self._paged_depth)
+        # rows of every slot's decode cache: kept rows, then appends
+        self._depth = self.capacity + self.decode_margin
+        S = self.num_slots
+        self._tok = torch.zeros((S, 1), dtype=torch.int32, device=self.device)
+        #: the live dense slot cache of a run without a pool
+        self._live: Optional[dict] = None
+        #: per-run counters (prefill/decode chunks and steps, seconds)
+        self.counts: dict = {}
+        if pool is None:
+            return
+        self._nb_max = pool.blocks_for(self._depth)
         if pool.usable_blocks < self._nb_max + 1:
             raise ValueError("pool cannot hold even one request's worst-case "
                              "cache; raise --kv-pool-mb or shrink "
@@ -136,7 +251,6 @@ class ContinuousEngine:
         # host mirrors of the block tables / cursors / positions: the
         # allocator needs them synchronously, and the device advance rule
         # is deterministic (active slots move `steps` per decode chunk)
-        S = self.num_slots
         self._table_h = np.zeros((S, self._nb_max), np.int32)
         self._table_dev = self._to_dev(self._table_h)
         self._cursor_h = np.zeros(S, np.int32)
@@ -146,10 +260,7 @@ class ContinuousEngine:
         bs = pool.block_size
         # block indices only decode appends can touch: [capacity, depth)
         self._append_jbs = list(range(self.capacity // bs,
-                                      (self._paged_depth - 1) // bs + 1))
-        self._tok = torch.zeros((S, 1), dtype=torch.int32, device=self.device)
-        #: per-run counters (prefill/decode chunks and steps, seconds)
-        self.counts: dict = {}
+                                      (self._depth - 1) // bs + 1))
 
     def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.array(arr), device=self.device)
@@ -170,12 +281,37 @@ class ContinuousEngine:
                                            self.chunk)
         return max(self._rung(need), self._base_cap)
 
+    def cache_bytes(self, n_in: int) -> dict:
+        """Analytic full-vs-evicted footprint of one request, plus the pool's
+        stats when paged; once traffic has been served, ``evicted`` is the
+        measured peak per-request pool footprint."""
+        out = cache_bytes(self.cfg, self._depth, n_in)
+        if self.pool is not None:
+            s = self.pool.stats()
+            out["pool"] = s
+            peak = self.counts.get("max_concurrency", 0)
+            if peak:
+                out["evicted"] = max(s["bytes_high_water"],
+                                     s["block_bytes"]) // peak
+                out["ratio"] = out["full"] / max(out["evicted"], 1)
+        return out
+
+    def kv_device_bytes(self) -> int:
+        """Device bytes the decode KV reserves: the whole pool when paged,
+        the dense ``num_slots x (capacity + margin)`` slot cache otherwise
+        (K+V payload)."""
+        if self.pool is not None:
+            return self.pool.stats()["bytes_total"]
+        return self.num_slots * self._depth * _kv_row_bytes(self.cfg)
+
     # -- serving loop --------------------------------------------------------
     def run(self, requests: list[Request]) -> list[Request]:
         """Serve ``requests`` to completion; returns them in finish order.
         ``arrival_s`` offsets count on the wall clock from the call."""
-        sched = SlotScheduler(self.num_slots,
-                              admission_gate=self._admission_gate)
+        paged = self.pool is not None
+        sched = SlotScheduler(
+            self.num_slots,
+            admission_gate=self._admission_gate if paged else None)
         for r in requests:
             if r.max_new_tokens > self.max_new_tokens:
                 raise ValueError("request exceeds the engine's "
@@ -189,6 +325,10 @@ class ContinuousEngine:
         active = np.zeros(self.num_slots, bool)
         remaining = np.zeros(self.num_slots, np.int64)
         last_emit = np.zeros(self.num_slots, np.float64)
+        if not paged:
+            self._live = tf.init_decode_cache(
+                self.cfg, self.num_slots, self._depth, per_slot_cursor=True,
+                device=self.device)
         t0 = time.perf_counter()
         try:
             self._run_loop(sched, active, remaining, last_emit, t0)
@@ -229,7 +369,7 @@ class ContinuousEngine:
             elif pf is None:
                 now2 = time.perf_counter() - t0
                 if sched.has_arrived(now2):
-                    if not sched.running and \
+                    if self.pool is not None and not sched.running and \
                             not self._admission_gate(sched._queue[0]):
                         raise RuntimeError(
                             "kv pool too small for the queue head; raise "
@@ -251,25 +391,34 @@ class ContinuousEngine:
 
     def _decode(self, sched, active, remaining, last_emit, t0) -> None:
         steps = self._pick_chunk(remaining, active)
-        # grow every live slot's append blocks before the chunk runs
-        self._ensure_append_blocks(active, steps)
-        dispatched = active.copy()
+        paged = self.pool is not None
+        if paged:
+            # grow every live slot's append blocks before the chunk runs
+            self._ensure_append_blocks(active, steps)
+            dispatched = active.copy()
+            cache = {"attn": {"table": self._table_dev},
+                     "pool": self.pool.tree(),
+                     "cursor": self._to_dev(self._cursor_h),
+                     "next_pos": self._to_dev(self._npos_h[:, None])}
+        else:
+            cache = self._live  # written in place, gated by `active`
         t_dec = time.perf_counter()
-        cache = {"attn": {"table": self._table_dev}, "pool": self.pool.tree(),
-                 "cursor": self._to_dev(self._cursor_h),
-                 "next_pos": self._to_dev(self._npos_h[:, None])}
-        self._tok, _, toks = policies.decode_chunk(
+        self._tok, cache, toks = policies.decode_chunk(
             self.params, self.cfg, self._tok, cache, steps,
-            active=self._to_dev(active), paged_depth=self._paged_depth)
+            active=self._to_dev(active),
+            paged_depth=self._depth if paged else None)
         toks_np = toks.cpu().numpy()  # device sync: the tokens landed
         self.counts["decode_s"] += time.perf_counter() - t_dec
         self.counts["decode_chunks"] += 1
         self.counts["decode_steps"] += steps
-        # mirror the device advance rule: slots active at dispatch move
-        # `steps`, cursors clamp at the paged depth
-        self._cursor_h[dispatched] = np.minimum(
-            self._cursor_h[dispatched] + steps, self._paged_depth)
-        self._npos_h[dispatched] += steps
+        if paged:
+            # mirror the device advance rule: slots active at dispatch move
+            # `steps`, cursors clamp at the depth
+            self._cursor_h[dispatched] = np.minimum(
+                self._cursor_h[dispatched] + steps, self._depth)
+            self._npos_h[dispatched] += steps
+        else:
+            self._live = cache
         self._collect(toks_np, steps, sched, active, remaining, last_emit, t0)
 
     def _collect(self, toks, steps, sched, active, remaining, last_emit, t0):
@@ -320,7 +469,11 @@ class ContinuousEngine:
         if self.capture_admission:
             r.admission_cache = {key: cache["attn"][key].cpu().numpy()
                                  for key in ("mask", "pos")}
-        slot = self._paged_place(sched, r, cache)
+        if self.pool is None:
+            slot = sched.place(r)
+            tf.insert_request_cache(self._live, cache, slot)
+        else:
+            slot = self._paged_place(sched, r, cache)
         first = int(torch.argmax(pf.logits[0]))
         self._tok[slot, 0] = first
         r.out_tokens = [first]
@@ -392,7 +545,7 @@ class ContinuousEngine:
         changed = False
         for slot in np.nonzero(active)[0].tolist():
             cur = int(self._cursor_h[slot])
-            last = min(cur + steps - 1, self._paged_depth - 1)
+            last = min(cur + steps - 1, self._depth - 1)
             for jb in range(cur // bs, last // bs + 1):
                 if self._table_h[slot, jb] != 0:
                     continue
@@ -410,10 +563,13 @@ class ContinuousEngine:
             self._table_dev = self._to_dev(self._table_h)
 
     def _free_slot_blocks(self, slot: int) -> None:
-        """Return a retired slot's blocks and unredeemed reservation.  The
-        device table row stays stale until the next admission overwrites
-        it — harmless: the slot is inactive, its reads are discarded and
-        its writes are null-routed."""
+        """Return a retired slot's blocks and unredeemed reservation (a
+        dense slot has nothing to free).  The device table row stays stale
+        until the next admission overwrites it — harmless: the slot is
+        inactive, its reads are discarded and its writes are
+        null-routed."""
+        if self.pool is None:
+            return
         ids = self._slot_blocks[slot]
         if ids:
             self.pool.free(ids)

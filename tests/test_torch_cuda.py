@@ -6,12 +6,15 @@ the fixture, never at import).  Run them on a card with
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances: float32 inputs 1e-4 (another summation order).  Of
-bfloat16 inputs, a fraction of the plain result's largest magnitude
-(outputs of random inputs shrink as 1/sqrt(visible keys), so a fixed
-number would let a wrong kernel through at a deep buffer): chunk
-attention 2^-5 (its tensor cores take P rounded to bfloat16, and the
-output is rounded once), paged decode 2^-7 (float32 on CUDA cores, one
-rounding of the output); lookahead scores, float32 throughout, 2^-16.
+bfloat16 attention outputs, each output row (one query row of one head)
+within a fraction of that row's own largest plain magnitude (outputs of
+random inputs shrink as 1/sqrt(visible keys), so in causal attention a
+row that sees one key is ~30x one that sees a thousand, and a tolerance
+taken from the whole tensor would let a wrong deep row through): chunk
+and monolithic flash attention 2^-5 (their tensor cores take P rounded
+to bfloat16, and the output is rounded once), paged and dense decode
+2^-7 (float32 on CUDA cores, one rounding of the output); lookahead
+scores, float32 throughout, 2^-16 of the largest score.
 """
 
 import numpy as np
@@ -19,7 +22,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import chunk_attention as ck
+from repro_torch.kernels import decode_attention as dk
+from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import lookahead_score as lk
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pk
 from repro_torch.kernels import ref
 
@@ -34,10 +40,19 @@ def dev():
     return torch.device("cuda")
 
 
-def _tol(dtype, want, rel):
-    if dtype == torch.bfloat16:
-        return dict(atol=rel * float(want.float().abs().max()), rtol=0)
-    return dict(atol=1e-4, rtol=1e-4)
+def _assert_rows_close(got, want, dtype, rel):
+    """float32: 1e-4.  bfloat16: every output row (last axis) within
+    ``rel`` times that row's own largest plain magnitude."""
+    if dtype != torch.bfloat16:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        return
+    err = (got.float() - want.float()).abs().amax(-1)
+    tol = rel * want.float().abs().amax(-1)
+    bad = err > tol
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} of {bad.numel()} rows out of tolerance; first "
+        f"at {tuple(int(i) for i in bad.nonzero()[0])}: err "
+        f"{float(err[bad][0]):.3e} > {float(tol[bad][0]):.3e}")
 
 
 def _randn(gen, shape, dtype, dev):
@@ -60,13 +75,13 @@ def test_chunk_attention_matches_plain(dev, dtype, B, C, K, H, KV, hd, off,
     got = ck.chunk_attention(q, k, v, q_offset=off, window=window)
     torch.cuda.synchronize()
     want = ref.chunk_attention(q, k, v, q_offset=off, window=window)
-    torch.testing.assert_close(got.float(), want.float(),
-                               **_tol(dtype, want, 2 ** -5))
+    _assert_rows_close(got, want, dtype, 2 ** -5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,n_obs,Sk,H,KV,hd,n_prompt,off,window,masks", [
     (1, 32, 4096, 32, 8, 128, 4096, 4000, None, False),  # finalize form
+    (4, 32, 2080, 32, 8, 128, 2048, None, None, False),  # lockstep prefill
     (2, 8, 300, 4, 2, 32, 292, None, None, True),  # monolithic form
     (2, 40, 250, 4, 2, 64, 250, 200, 30, True),  # two row tiles, window
 ])
@@ -114,9 +129,59 @@ def test_paged_decode_matches_plain(dev, dtype, window):
     torch.cuda.synchronize()
     want = ref.paged_decode_attention(q, kp, vp, mask, table, pos_pool=pos,
                                       new_pos=new_pos, window=window)
-    torch.testing.assert_close(got.float(), want.float(),
-                               **_tol(dtype, want, 2 ** -7))
+    _assert_rows_close(got, want, dtype, 2 ** -7)
     assert torch.all(got[2:] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", [
+    (4, 2080, 32, 8, 128, True, None),  # lockstep prefill of llama3-8b
+    (2, 333, 8, 2, 64, True, None),  # S not a multiple of the tile
+    (2, 300, 4, 2, 32, False, None),  # every key visible
+    (1, 257, 8, 2, 64, True, 48),  # sliding window
+    (1, 200, 4, 1, 128, False, 40),  # window without the causal mask
+])
+def test_flash_attention_matches_plain(dev, dtype, B, S, H, KV, hd, causal,
+                                       window):
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = _randn(g, (B, S, H, hd), dtype, dev)
+    k = _randn(g, (B, S, KV, hd), dtype, dev)
+    v = _randn(g, (B, S, KV, hd), dtype, dev)
+    got = fk.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    _assert_rows_close(got, want, dtype, 2 ** -5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,mask_kind", [
+    (289, 3),  # dense decode of llama3-8b: budget 256 + 33 append rows
+    (289, 2),
+    (100, 0),
+    (70, 3),
+])
+def test_decode_attention_matches_plain(dev, dtype, C, mask_kind):
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, H, KV, hd = 4, 32, 8, 128
+    q = _randn(g, (B, H, hd), dtype, dev)
+    k = _randn(g, (B, C, KV, hd), dtype, dev)
+    v = _randn(g, (B, C, KV, hd), dtype, dev)
+    mask = None
+    if mask_kind == 3:
+        mask = torch.rand((B, C, KV), generator=g, device=dev) > 0.3
+        mask[1, :, 5] = False  # a fully masked head -> exact zeros
+        mask[2] = False  # a sequence with no valid row -> exact zeros
+    elif mask_kind == 2:
+        mask = torch.rand((B, C), generator=g, device=dev) > 0.3
+        mask[2] = False
+    got = dk.decode_attention(q, k, v, kv_mask=mask)
+    torch.cuda.synchronize()
+    want = ref.decode_attention(q, k, v, kv_mask=mask)
+    _assert_rows_close(got, want, dtype, 2 ** -7)
+    if mask is not None:
+        assert torch.all(got[2] == 0)
+    if mask_kind == 3:
+        assert torch.all(got[1, 5 * 4:6 * 4] == 0)
 
 
 def test_wrappers_count_launches(dev):
@@ -129,3 +194,13 @@ def test_wrappers_count_launches(dev):
     with pytest.raises(ValueError, match="does not fit"):
         ck.chunk_attention(q, k, k, q_offset=60)
     assert ck.launches == before + 1
+    counts = ops.launch_counts()
+    fk.flash_attention(k, k, k, causal=False)
+    dk.decode_attention(q[:, 0], k, k, kv_mask=torch.ones(
+        (1, 64, 2), dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError, match="kv_mask"):
+        dk.decode_attention(q[:, 0], k, k, kv_mask=torch.ones((1, 64, 3),
+                                                               device=dev))
+    after = ops.launch_counts()
+    assert after["flash_attention"] == counts["flash_attention"] + 1
+    assert after["decode_attention"] == counts["decode_attention"] + 1

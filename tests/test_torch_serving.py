@@ -1,6 +1,6 @@
 """The port's serving stack on the CPU: the block-pool allocator, the
 paged continuous-batching engine end to end against the JAX package's
-paged ``ContinuousEngine``, and the settings slice 1 refuses.
+paged ``ContinuousEngine``, and the settings the port refuses.
 
 End to end: the same float32 smoke model (JAX parameters bridged) serves
 the same mixed-length trace — prompts shorter than the budget, not
@@ -195,13 +195,13 @@ def test_engine_matches_jax_paged_engine():
 
 
 # ---------------------------------------------------------------------------
-# what slice 1 refuses, and the launcher
+# what the port refuses, and the launcher
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("change,item", [
     (dict(policy="snapkv"), "A3"),
-    (dict(kv_pool=None), "A4"),
+    (dict(harvest=object()), "A9"),
     (dict(decode_evict=DecodeEvictionConfig(enabled=True)), "A5"),
     (dict(reserve_appends=False), "A5"),
     (dict(prefix_cache=object()), "A7"),
@@ -219,7 +219,8 @@ def test_engine_refuses_unported_settings(change, item):
 
 def test_serve_launcher_on_cpu(capsys):
     serve.main(["--arch", "tiny-llama", "--smoke", "--device", "cpu",
-                "--kv-pool-mb", "1", "--budget", "16", "--chunk", "32",
+                "--continuous", "--kv-pool-mb", "1", "--budget", "16",
+                "--chunk", "32",
                 "--prompt-lens", "40,70,9", "--max-new", "4"])
     out = capsys.readouterr().out
     assert "requests=3" in out and out.count("4 tokens") == 3
