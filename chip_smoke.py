@@ -12,33 +12,48 @@ kernel's plain version):
 1. Hold each kernel against its plain PyTorch version on the card, in
    bfloat16, at the shapes of the main paths (llama3-8b: H=32, KV=8,
    hd=128; chunk 256 and the 32-row observation pass over a 4096-deep
-   buffer; paged decode of 4 slots, block size 16, 19 blocks; monolithic
-   causal prefill of 4 x 2080 rows and its 32 observation rows; dense
-   decode of 4 sequences over 289 rows with a per-kv-head mask) and on
-   edge cases (lengths not a multiple of the tile, windows, non-causal
-   attention, masked rows and heads, ragged tables with null blocks),
-   within a tolerance that is a fixed fraction of the plain result's
-   largest magnitude: per output row for attention, over the whole
-   result for the scores.  Time kernel,
+   buffer; paged decode of 4 slots, block size 16, 19 blocks; paged
+   decode with row masses over 20 blocks (capacity 256 + interval 64);
+   monolithic causal prefill of 4 x 2080 rows and its 32 observation
+   rows; dense decode of 4 sequences over 289 rows with a per-kv-head
+   mask) and on edge cases (lengths not a multiple of the tile, windows,
+   non-causal attention, masked rows and heads, ragged tables with null
+   blocks, GQA groups of 1 and 8), within a tolerance that is a fixed
+   fraction of the plain result's largest magnitude: per output row for
+   attention and for the row masses, over the whole result for the
+   scores.  Kernel 5's output must be bitwise kernel 4's.  Time kernel,
    plain version and, where one PyTorch call computes the same function,
    that call (library_ms), each call on a cold L2.
-2. Serve through the port's three engines on the llama3-8b smoke config in
+2. Serve through the port's engines on the llama3-8b smoke config in
    float32, once on the card and once on the CPU: the paged and the dense
-   continuous engine (3 requests each), and the lockstep engine (a batch
-   of 3); greedy tokens and admission kept sets must be identical.
+   continuous engine (3 requests each), the lockstep engine (a batch of
+   3), the paged engine with decode-time eviction (interval 8: sweeps
+   fire), the paged engine with optimistic admission on a pool too small
+   to grow every slot (preemptions happen), and the dense engine with
+   decode-time eviction; greedy tokens, admission and retirement kept
+   sets, and the counts of sweeps, reclaimed blocks and preemptions must
+   be identical.
 3. Serve llama3-8b at full width (random weights and lookahead modules
-   from the seed; policy lookaheadkv, budget 256, 32 new tokens) through
+   from the seed; policy lookaheadkv, budget 256) through
    ``repro_torch.launch.serve`` by each of its routes, with the launch
    counts set to 0 just before and read just after each:
    a. paged continuous: prompts of 1024, 2048, 3072 and 4000 tokens, chunk
-      256, 4 slots, block size 16, --kv-pool-mb 256; kernels 1, 3, 4 must
+      256, 4 slots, block size 16, --kv-pool-mb 256, 32 new tokens;
+      kernels 1, 3, 4 must launch, kernel 5 not;
+   b. lockstep: 4 prompts of 2048 tokens, 32 new; kernels 7, 3, 6 must
       launch;
-   b. lockstep: 4 prompts of 2048 tokens; kernels 7, 3, 6 must launch;
-   c. dense-slot continuous: the prompts of (a), chunk 256, 4 slots;
-      kernels 1, 3, 6 must launch.
-4. Profile one more 2048-token request on the paged engine of 3a, and one
-   more lockstep batch on the engine of 3b, with torch.profiler:
-   device-busy share, launches, and device time by kernel family.
+   c. dense-slot continuous: the prompts of (a), chunk 256, 4 slots, 32
+      new; kernels 1, 3, 6 must launch;
+   d. paged decode-evict: (a) with --decode-evict --decode-evict-interval
+      64 and 192 new tokens; kernels 1, 3, 5 must launch and kernel 4
+      not, with >= 8 sweeps, blocks reclaimed mid-generation and
+      requests overlapping (max concurrency >= 2).
+4. Where the time goes, with torch.profiler: (a) one more 2048-token
+   request on the engine of 3a, then one decode chunk alone; (b) one
+   more lockstep batch on the engine of 3b; (c) on the engine of 3d,
+   one decode chunk with three live slots and one sweep, each alone,
+   and the score update timed: device-busy share, launches (per decode
+   step against 4a's), and device time by kernel family.
 
 Output: per-phase lines, then a JSON line of per-kernel numbers, the
 card's name and power limit, and as the last line
@@ -47,6 +62,7 @@ card's name and power limit, and as the last line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -328,6 +344,91 @@ def phase_kernels(torch, mods) -> list:
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:101", **main4))
 
+    # -- kernel 5: paged decode with row masses -------------------------------
+    def masses_case(label, *, Hq=H, window=None, edge=False, timed=False):
+        """Kernel 5 at the decode-eviction route's shape (4 slots, a window
+        of capacity 256 + interval 64 = 20 blocks of 16): ``out`` must be
+        bitwise kernel 4's on the same inputs; each (b, h) row of masses
+        within 2^-16 of that row's largest plain mass (both sides take
+        float32 dot products over hd and exp of logits of a few units, so
+        they differ by a few float32 ulps, ~1e-6 relative, per entry);
+        exact zeros on dead rows; live rows sum to 1 within 1e-4."""
+        B, bs, nb, N = 4, 16, 20, 129
+        q = randn(B, Hq, hd)
+        kp, vp = randn(N, bs, KV, hd), randn(N, bs, KV, hd)
+        pos = torch.randint(0, 4300, (N, bs, KV), generator=g, device=dev,
+                            dtype=torch.int32)
+        mask = torch.rand((N, bs, KV), generator=g, device=dev) > 0.05
+        mask[0] = False  # the null block
+        perm = torch.randperm(N - 1, generator=g, device=dev) + 1
+        table = perm[:B * nb].reshape(B, nb).to(torch.int32)
+        if edge:
+            table[1, 7:] = 0  # ragged with null blocks
+            table[0, 3] = 0  # a gap
+            table[2] = 0  # a slot between requests: all zero
+            mask[table[3].long(), :, 5] = False  # kv head 5 fully masked
+        new_pos = torch.full((B,), 4200, dtype=torch.int32, device=dev)
+        kw = dict(pos_pool=pos, new_pos=new_pos, window=window)
+        got, m_got = pk.paged_decode_masses(q, kp, vp, mask, table, **kw)
+        plain4 = pk.paged_decode_attention(q, kp, vp, mask, table, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain4), f"paged_decode_masses {label}: out "
+              "is not bitwise kernel 4's")
+        want = ref.paged_decode_attention(q, kp, vp, mask, table, **kw)
+        check_rows(torch, got, want, REL_PAGED,
+                   f"paged_decode_masses {label} out")
+        m_want = ref.paged_decode_masses(q, kp, mask, table, **kw)
+        err = check_rows(torch, m_got, m_want, REL_SCORE,
+                         f"paged_decode_masses {label} masses")
+        Gq = Hq // KV
+        dead = torch.repeat_interleave(
+            ~ref.gather_paged(mask, table).transpose(1, 2), Gq, dim=1)
+        if window is not None:
+            far = (new_pos[:, None, None]
+                   - ref.gather_paged(pos, table)) >= window
+            dead |= torch.repeat_interleave(far.transpose(1, 2), Gq, dim=1)
+        check(bool(torch.all(m_got[dead] == 0)),
+              f"paged_decode_masses {label}: a dead row has mass")
+        sums = m_got.sum(-1)
+        alive = ~dead.all(-1)
+        check(bool(torch.all((sums[alive] - 1).abs() <= 1e-4))
+              and bool(torch.all(sums[~alive] == 0)),
+              f"paged_decode_masses {label}: live rows must sum to 1, "
+              "dead (sequence, head)s to 0")
+        print(f"  paged_decode_masses {label}: out bitwise kernel 4's; "
+              f"{int(alive.sum())} live and {int((~alive).sum())} empty "
+              f"(sequence, head)s; largest |sum - 1| "
+              f"{float((sums[alive] - 1).abs().max()):.2e}")
+        if not timed:
+            return None
+        ms = time_ms(torch, lambda: pk.paged_decode_masses(
+            q, kp, vp, mask, table, **kw), iters=50)
+        plain = time_ms(torch, lambda: (
+            ref.paged_decode_attention(q, kp, vp, mask, table, **kw),
+            ref.paged_decode_masses(q, kp, mask, table, **kw)), iters=10)
+        S = nb * bs
+        rows_valid = int(ref.gather_paged(mask, table).sum())
+        n_ops = 4 * hd * Gq * rows_valid
+        n_bytes = (itemsize * (2 * rows_valid * hd + 2 * B * Hq * hd)
+                   + B * S * KV + 4 * B * nb + 4 * B * Hq * S)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+        print(f"  paged_decode_masses {label}: {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {rows_valid} "
+              f"valid rows of {B * S * KV}); no single library call "
+              "returns the row masses")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None)
+
+    main5 = masses_case("B=4 bs=16 nb=20", timed=True)
+    masses_case("ragged, gap, null slot, masked head", edge=True)
+    masses_case("window 96", window=96, edge=True)
+    masses_case("G=1 (H=8)", Hq=8, edge=True)
+    masses_case("G=8 (H=64)", Hq=64, edge=True)
+    results.append(dict(
+        name="paged_decode_masses", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:266", **main5))
+
     # -- kernel 7: monolithic flash attention ---------------------------------
     def flash_case(B, S, causal, window, label, timed=False):
         q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
@@ -438,7 +539,9 @@ def phase_kernels(torch, mods) -> list:
 # ---------------------------------------------------------------------------
 
 
-def phase_engine_parity(torch, mods) -> None:
+def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
+    """Each engine on ``devices[0]`` (the card) against ``devices[1]``
+    (the CPU)."""
     import dataclasses
 
     import numpy as np
@@ -453,24 +556,45 @@ def phase_engine_parity(torch, mods) -> None:
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (70, 23, 45)]
+    burst = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+             for n in (40, 27, 33, 45, 29, 36)]
     batch = rng.integers(0, cfg.vocab_size, (3, 41)).astype(np.int32)
 
     def move(tree, device):
         return {k: move(v, device) if isinstance(v, dict) else v.to(device)
                 for k, v in tree.items()}
 
-    def continuous(device, paged):
-        pool = (sv.KVBlockPool(cfg, block_size=16, num_blocks=32,
-                               device=device) if paged else None)
+    def kept(mask, pos):  # (L, rows, KV) -> {(layer, head): positions}
+        return {(lyr, h): frozenset(pos[lyr, mask[lyr, :, h], h].tolist())
+                for lyr in range(mask.shape[0]) for h in range(mask.shape[2])}
+
+    def continuous(device, *, pool_blocks=None, block_size=16, reqs=prompts,
+                   max_new=8, ev=evict, chunking=None, slots=2, **config):
+        pool = (sv.KVBlockPool(cfg, block_size=block_size,
+                               num_blocks=pool_blocks, device=device)
+                if pool_blocks else None)
         sc = sv.ServingConfig(
-            evict=evict, chunking=sv.ChunkingConfig(chunk=32, max_context=70),
-            num_slots=2, max_new_tokens=8, eos_id=-1, kv_pool=pool,
-            capture_admission=True)
+            evict=ev, chunking=chunking or sv.ChunkingConfig(
+                chunk=32, max_context=70),
+            num_slots=slots, max_new_tokens=max_new, eos_id=-1,
+            kv_pool=pool, capture_admission=True, **config)
         eng = sv.ContinuousEngine(move(params, device), cfg, sc,
                                   lkv_params=move(lkv, device), device=device)
-        done = eng.run([sv.Request(uid=i, prompt=p, max_new_tokens=8)
-                        for i, p in enumerate(prompts)])
-        return {r.uid: (r.out_tokens, r.admission_cache) for r in done}
+        done = eng.run([sv.Request(uid=i, prompt=p, max_new_tokens=max_new)
+                        for i, p in enumerate(reqs)])
+        out = {}
+        for r in done:
+            a = r.admission_cache
+            sets = {"admission": kept(a["mask"][:, 0], a["pos"][:, 0])}
+            if r.retirement_cache is not None:
+                rc = r.retirement_cache
+                sets["retirement"] = kept(rc["mask"], rc["pos"])
+            out[r.uid] = (r.out_tokens, sets)
+        counts = {k: eng.counts[k] for k in ("decode_evict_sweeps",
+                                              "preemptions")}
+        if pool is not None:
+            counts["blocks_reclaimed_decode"] = pool.blocks_reclaimed_decode
+        return out, counts
 
     def lockstep(device):
         p, lk = move(params, device), move(lkv, device)
@@ -483,27 +607,55 @@ def phase_engine_parity(torch, mods) -> None:
         done = eng.serve([sv.Request(uid=i, prompt=row, max_new_tokens=8)
                           for i, row in enumerate(batch)])
         adm = {k: res.cache["attn"][k].cpu().numpy() for k in ("mask", "pos")}
-        return {r.uid: (r.out_tokens, {k: v[:, r.uid:r.uid + 1]
-                                       for k, v in adm.items()})
-                for r in done}
+        return {r.uid: (r.out_tokens, {"admission": kept(
+            adm["mask"][:, r.uid], adm["pos"][:, r.uid])})
+            for r in done}, {}
 
-    for label, run in (("paged continuous", lambda d: continuous(d, True)),
-                       ("dense-slot continuous",
-                        lambda d: continuous(d, False)),
-                       ("lockstep", lockstep)):
-        out = {device: run(device) for device in ("cuda", "cpu")}
-        same_kept = 0
-        for uid, (toks, adm) in out["cpu"].items():
-            got_toks, got_adm = out["cuda"][uid]
+    evict_cfg = sv.DecodeEvictionConfig(enabled=True, interval=8)
+    runs = (
+        ("paged continuous", lambda d: continuous(d, pool_blocks=32)),
+        ("dense-slot continuous", continuous),
+        ("lockstep", lockstep),
+        # (a) sweeps fire: interval 8 over a 16-row capacity, 4-row blocks
+        ("paged decode-evict", lambda d: continuous(
+            d, pool_blocks=64, block_size=4, max_new=24,
+            decode_evict=evict_cfg)),
+        # (b) optimistic admission on a pool too small to grow every slot:
+        # depth 8 + 9 = 17 rows, 5 blocks of 4, 7 blocks for 3 slots
+        ("paged optimistic admission", lambda d: continuous(
+            d, pool_blocks=7, block_size=4, reqs=burst,
+            ev=mods["EvictionConfig"](budget=8), reserve_appends=False,
+            chunking=sv.ChunkingConfig(chunk=16, max_context=45,
+                                       decode_chunk=1), slots=3)),
+        # (c) dense slot caches with per-step eviction (8 margin rows)
+        ("dense-slot decode-evict", lambda d: continuous(
+            d, max_new=24, decode_evict=True)),
+    )
+    for label, run in runs:
+        (got, got_counts), (want, want_counts) = (run(d) for d in devices)
+        same = {}
+        for uid, (toks, sets) in want.items():
+            got_toks, got_sets = got[uid]
             print(f"  {label} uid {uid}: cuda {got_toks} cpu {toks}")
             check(got_toks == toks, f"engine parity ({label}): uid {uid} "
                   "tokens differ between card and CPU")
-            same_kept += int(all(np.array_equal(got_adm[k], adm[k])
-                                 for k in ("mask", "pos")))
-        print(f"  {label}: greedy tokens identical for {len(out['cpu'])} "
-              f"requests; admission kept sets identical for {same_kept}")
-        check(same_kept == len(out["cpu"]), f"engine parity ({label}): "
-              "admission kept sets differ between card and CPU")
+            for name, val in sets.items():
+                same[name] = same.get(name, 0) + int(got_sets[name] == val)
+        print(f"  {label}: greedy tokens identical for {len(want)} "
+              f"requests; kept sets identical: {same}; counts card "
+              f"{got_counts} cpu {want_counts}")
+        check(all(n == len(want) for n in same.values()),
+              f"engine parity ({label}): kept sets differ between card and "
+              "CPU")
+        check(got_counts == want_counts, f"engine parity ({label}): counts "
+              "differ between card and CPU")
+        if label == "paged decode-evict":
+            check(want_counts["decode_evict_sweeps"] > 0
+                  and want_counts["blocks_reclaimed_decode"] > 0,
+                  f"{label}: no sweep fired or no block was reclaimed")
+        if label == "paged optimistic admission":
+            check(want_counts["preemptions"] > 0,
+                  f"{label}: the pool never ran dry (no preemption)")
 
 
 # ---------------------------------------------------------------------------
@@ -515,20 +667,30 @@ LENS = (1024, 2048, 3072, 4000)
 COMMON = ["--arch", "llama3-8b", "--seed", str(SEED), "--policy",
           "lookaheadkv", "--budget", "256", "--max-new", "32", "--device",
           "cuda"]
-# route -> (extra launcher arguments, kernels its run must launch)
+PAGED = ["--continuous", "--chunk", "256", "--slots", "4",
+         "--kv-block-size", "16", "--kv-pool-mb", "256",
+         "--prompt-lens", ",".join(map(str, LENS))]
+# route -> (extra launcher arguments, new tokens per request, kernels its
+# run must launch, kernels it must not launch)
 ROUTES = {
     "paged continuous": (
-        ["--continuous", "--chunk", "256", "--slots", "4",
-         "--kv-block-size", "16", "--kv-pool-mb", "256",
-         "--prompt-lens", ",".join(map(str, LENS))],
-        ("chunk_attention", "lookahead_score", "paged_decode_attention")),
+        PAGED, 32,
+        ("chunk_attention", "lookahead_score", "paged_decode_attention"),
+        ("paged_decode_masses",)),
     "lockstep": (
-        ["--requests", "4", "--n-in", "2048"],
-        ("flash_attention", "lookahead_score", "decode_attention")),
+        ["--requests", "4", "--n-in", "2048"], 32,
+        ("flash_attention", "lookahead_score", "decode_attention"), ()),
     "dense-slot continuous": (
         ["--continuous", "--chunk", "256", "--slots", "4",
-         "--prompt-lens", ",".join(map(str, LENS))],
-        ("chunk_attention", "lookahead_score", "decode_attention")),
+         "--prompt-lens", ",".join(map(str, LENS))], 32,
+        ("chunk_attention", "lookahead_score", "decode_attention"), ()),
+    # 192 new tokens: two sweeps per request (at 64 and 128 appended rows),
+    # and requests overlap (a request decodes while the next prefills)
+    "paged decode-evict": (
+        PAGED + ["--decode-evict", "--decode-evict-interval", "64",
+                 "--max-new", "192"], 192,
+        ("chunk_attention", "lookahead_score", "paged_decode_masses"),
+        ("paged_decode_attention",)),
 }
 
 
@@ -536,7 +698,7 @@ def phase_serve(torch, mods, route: str) -> tuple:
     """Serve one route of the launcher at full width; the launch counts are
     set to 0 just before the run and read just after it."""
     ops = mods["ops"]
-    extra, need = ROUTES[route]
+    extra, new_tokens, need, forbid = ROUTES[route]
     ops.reset_launch_counts()
     res = mods["serve"].run(COMMON + extra)
     torch.cuda.synchronize()
@@ -544,8 +706,8 @@ def phase_serve(torch, mods, route: str) -> tuple:
     eng, done = res["engine"], res["done"]
     check(len(done) == 4, f"{route}: not every request finished")
     for r in sorted(done, key=lambda r: r.uid):
-        check(len(r.out_tokens) == 32, f"{route}: uid {r.uid} emitted "
-              f"{len(r.out_tokens)} tokens")
+        check(len(r.out_tokens) == new_tokens, f"{route}: uid {r.uid} "
+              f"emitted {len(r.out_tokens)} tokens")
         check(all(0 <= t < res["cfg"].vocab_size for t in r.out_tokens),
               f"{route}: uid {r.uid} emitted a token outside the vocab")
         print(f"  uid {r.uid}: prompt {len(r.prompt)} ttft "
@@ -566,13 +728,16 @@ def phase_serve(torch, mods, route: str) -> tuple:
         print(f"  wall {res['wall_s']:.2f} s; prefill {c['prefill_chunks']} "
               f"chunks in {c['prefill_s']:.2f} s "
               f"({c['prefill_s'] / c['prefill_chunks'] * 1e3:.1f} "
-              f"ms/chunk); decode {c['decode_steps']} steps "
-              f"({dec_tokens} tokens) in {c['decode_s']:.2f} s "
+              f"ms/chunk); decode {c['decode_steps']} steps in "
+              f"{c['decode_chunks']} chunks ({dec_tokens} tokens) in "
+              f"{c['decode_s']:.2f} s "
               f"({c['decode_s'] / c['decode_steps'] * 1e3:.1f} ms/step) = "
               f"{dec_tokens / c['decode_s']:.1f} tokens/s; peak concurrency "
-              f"{c['max_concurrency']}")
+              f"{c['max_concurrency']}; {c['preemptions']} preemptions, "
+              f"{c['decode_evict_sweeps']} decode-eviction sweeps")
     kv = (f"kv pool high water {eng.pool.stats()['high_water_blocks']} of "
-          f"{eng.pool.usable_blocks} blocks"
+          f"{eng.pool.usable_blocks} blocks, "
+          f"{eng.pool.blocks_reclaimed_decode} reclaimed mid-generation"
           if getattr(eng, "pool", None) is not None else
           f"decode KV {eng.kv_device_bytes() / 2**20:.1f} MiB"
           if route != "lockstep" else
@@ -582,6 +747,17 @@ def phase_serve(torch, mods, route: str) -> tuple:
     print(f"  kernel launches in this run: {counts}")
     for name in need:
         check(counts[name] > 0, f"{route}: kernel {name} was never launched")
+    for name in forbid:
+        check(counts[name] == 0, f"{route}: kernel {name} was launched "
+              f"{counts[name]} times")
+    if route == "paged decode-evict":
+        c = eng.counts
+        check(c["decode_evict_sweeps"] >= 8, f"{route}: "
+              f"{c['decode_evict_sweeps']} sweeps, expected >= 8")
+        check(eng.pool.blocks_reclaimed_decode > 0,
+              f"{route}: no block was reclaimed mid-generation")
+        check(c["max_concurrency"] >= 2, f"{route}: requests never "
+              "overlapped (max concurrency 1)")
     return counts, res
 
 
@@ -590,23 +766,15 @@ def phase_serve(torch, mods, route: str) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def phase_profile(torch, label: str, serve_once, n_passes) -> None:
-    """Profile one serve (``serve_once()`` returns its host wall seconds and
-    ends in a device sync): device-busy share of the host wall time with
-    the profiler off, kernel launches per forward pass (``n_passes()``
-    after the run), and the kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    wall = serve_once()  # host clock, profiler off
-    passes = n_passes()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall_prof = serve_once()
+def kernel_families(torch, prof) -> tuple:
+    """Device kernels of a profile by family: ({family: (launches, us)},
+    {kernel name: (launches, us)} of the kernels in no family)."""
     # chunk and flash attention share their tile code (chunk_attention.cu)
     # but not their kernels' names (attention_mma<chunk_attention_tag, ...>)
     families = (("chunk_attention", "chunk_attention (kernel 1)"),
                 ("flash_attention", "flash_attention (kernel 7)"),
                 ("obs_", "lookahead_score"),
+                ("paged_masses", "paged_decode_masses (kernel 5)"),
                 ("paged_decode", "paged_decode_attention"),
                 ("decode_kernel", "decode_attention"),
                 ("gemm", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"),
@@ -623,6 +791,77 @@ def phase_profile(torch, label: str, serve_once, n_passes) -> None:
         if name == "other":
             n, tot = other.get(e.name, (0, 0.0))
             other[e.name] = (n + 1, tot + us)
+    return kernels, other
+
+
+@contextlib.contextmanager
+def profiled_call(torch, module, name: str, nth: int = 1):
+    """Run the ``nth`` call of ``module.name`` (a function the engine
+    looks up there at call time) alone under torch.profiler, between two
+    device syncs.  Yields a dict that then holds ``prof``, the call's host
+    ``wall_s`` (profiler on) and its ``args``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    orig = getattr(module, name)
+    box = {"calls": 0}
+
+    def wrapped(*args, **kw):
+        box["calls"] += 1
+        if box["calls"] != nth:
+            return orig(*args, **kw)
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        torch.cuda.synchronize()
+        box["wall_s"] = time.perf_counter() - t0
+        prof.stop()
+        box.update(prof=prof, args=(args, kw))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield box
+    finally:
+        setattr(module, name, orig)
+
+
+def decode_window(torch, box, label: str):
+    """Print one profiled decode chunk (``profiled_call`` on
+    ``policies.decode_chunk``); returns (launches per decode step,
+    kernels by family)."""
+    check("prof" in box, f"{label}: the profiled decode chunk never ran")
+    args, kw = box["args"]
+    steps, slots = args[4], int(kw["active"].sum())
+    kernels, _ = kernel_families(torch, box["prof"])
+    busy = sum(us for _, us in kernels.values()) / 1e3
+    n = sum(k for k, _ in kernels.values())
+    wall = box["wall_s"] * 1e3
+    print(f"  {label}: one decode chunk of {steps} steps, {slots} live "
+          f"slots: wall {wall:.1f} ms (profiler on), device busy "
+          f"{busy:.2f} ms = {busy / wall:.1%}; {n} kernel launches = "
+          f"{n / steps:.0f} per decode step")
+    for name, (k, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1]):
+        print(f"    {name}: {us / 1e3:.3f} ms in {k} launches "
+              f"({us / k:.1f} us each)")
+    return n / steps, kernels
+
+
+def phase_profile(torch, label: str, serve_once, n_passes) -> None:
+    """Profile one serve (``serve_once()`` returns its host wall seconds and
+    ends in a device sync): device-busy share of the host wall time with
+    the profiler off, kernel launches per forward pass (``n_passes()``
+    after the run), and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wall = serve_once()  # host clock, profiler off
+    passes = n_passes()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_prof = serve_once()
+    kernels, other = kernel_families(torch, prof)
     busy_ms = sum(us for _, us in kernels.values()) / 1e3
     n_launch = sum(n for n, _ in kernels.values())
     print(f"  {label}: wall {wall * 1e3:.1f} ms with the profiler off "
@@ -640,9 +879,10 @@ def phase_profile(torch, label: str, serve_once, n_passes) -> None:
         print(f"      other: {name[:90]}: {us / 1e3:.2f} ms in {n}")
 
 
-def profile_paged(torch, mods, res) -> None:
+def profile_paged(torch, mods, res) -> float:
     """One more 2048-token request with 16 new tokens on the paged
-    engine."""
+    engine, then one decode chunk of a 300-token request alone; returns
+    that chunk's launches per decode step."""
     import numpy as np
 
     eng, cfg = res["engine"], res["cfg"]
@@ -667,6 +907,146 @@ def profile_paged(torch, mods, res) -> None:
 
     phase_profile(torch, "paged continuous, one 2048-token request",
                   serve_once, n_passes)
+    # one decode chunk alone: the step of every paged route decodes all
+    # slots, live or not, so its launches do not depend on the live count
+    req = mods["serving"].Request(uid=101, prompt=prompt[:300],
+                                  max_new_tokens=24)
+    with profiled_call(torch, mods["policies"], "decode_chunk",
+                       nth=2) as box:
+        eng.run([req])
+    per_step, _ = decode_window(torch, box, "paged continuous")
+    return per_step
+
+
+def profile_evict(torch, mods, res, base_per_step) -> None:
+    """Phase 4c on the decode-eviction engine of 3d.  Three more requests
+    (300, 260 and 280 prompt tokens, 100 new), profiler off, through a
+    twin engine without decode eviction (same weights, its own 256 MB
+    pool) and through the 3d engine in turns, for the end-to-end cost of
+    eviction on one trace, and through the twin one request at a time
+    (does a step cost more with more live slots?); then through the 3d
+    engine again with its eighth decode chunk (all three live) and its
+    first sweep each run alone under the profiler; then one decode step
+    of the 4-slot batch with and without the score leaf, and the score
+    update of one layer, timed at the route's shape."""
+    import numpy as np
+
+    eng, cfg, sv = res["engine"], res["cfg"], mods["serving"]
+    rng = np.random.default_rng(SEED + 9)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (300, 260, 280)]
+
+    def serve(engine, together=True):
+        """Serve the three requests at once (or one run each): host wall,
+        decode ms/step, steps and chunks."""
+        reqs = [sv.Request(uid=200 + i, prompt=p, max_new_tokens=100)
+                for i, p in enumerate(prompts)]
+        wall = dec_s = 0.0
+        steps = chunks = 0
+        for batch in ([reqs] if together else [[r] for r in reqs]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.run(batch)
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            c = engine.counts
+            dec_s += c["decode_s"]
+            steps += c["decode_steps"]
+            chunks += c["decode_chunks"]
+        return wall, dec_s / steps, steps, chunks
+
+    twin = sv.ContinuousEngine(
+        eng.params, cfg, eng.config.replace(
+            decode_evict=sv.DecodeEvictionConfig(),
+            kv_pool=sv.KVBlockPool(cfg, block_size=eng.pool.block_size,
+                                   pool_mb=256, device="cuda")),
+        lkv_params=eng.lkv_params, device="cuda")
+    # in turns (without, with, with, without), then the twin serving the
+    # requests one at a time (one live slot, as in 3a)
+    for label, engine, together in (
+            ("without eviction", twin, True), ("with eviction", eng, True),
+            ("with eviction", eng, True), ("without eviction", twin, True),
+            ("without eviction, one request at a time", twin, False)):
+        wall, per, steps, chunks = serve(engine, together)
+        print(f"  3 requests x 100 new tokens {label}: wall {wall:.2f} s; "
+              f"decode {steps} steps in {chunks} chunks, "
+              f"{per * 1e3:.1f} ms/step")
+    del twin
+    with profiled_call(torch, mods["policies"], "decode_chunk",
+                       nth=8) as dec, \
+            profiled_call(torch, mods["engine"], "paged_sweep") as sw:
+        serve(eng)
+    per_step, kernels = decode_window(torch, dec, "paged decode-evict")
+    print(f"  launches per decode step: {per_step:.0f} against "
+          f"{base_per_step:.0f} on the paged route without eviction "
+          f"(+{per_step - base_per_step:.0f}, "
+          f"{(per_step - base_per_step) / cfg.num_layers:.1f} per layer)")
+    n5, us5 = kernels.get("paged_decode_masses (kernel 5)", (0, 0.0))
+    check(n5 > 0, "4c: kernel 5 did not run in the profiled decode chunk")
+    print(f"  kernel 5 in the engine: {us5 / n5:.1f} us per launch")
+    check("prof" in sw, "4c: no sweep ran")
+    sk, _ = kernel_families(torch, sw["prof"])
+    sweep_us = sum(us for _, us in sk.values())
+    print(f"  one sweep (paged_sweep, 32 layers): device {sweep_us / 1e3:.3f}"
+          f" ms in {sum(k for k, _ in sk.values())} launches, wall "
+          f"{sw['wall_s'] * 1e3:.1f} ms (profiler on)")
+    # the score update of one layer at the route's shape: the GQA mean of
+    # kernel 5's masses, gated by the slots that wrote, added in place
+    scoring = mods["scoring"]
+    a = cfg.attn
+    S, depth = eng.num_slots, eng._depth
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    masses = torch.rand((S, a.num_heads, depth), generator=g, device="cuda")
+    score = torch.zeros((S, depth, a.num_kv_heads), device="cuda")
+    ok = torch.ones((S,), dtype=torch.bool, device="cuda")
+    upd = time_ms(torch, lambda: score.add_(scoring.decode_mass_update(
+        masses, a.num_kv_heads, active=ok)), iters=50)
+    print(f"  score update: {upd * 1e3:.1f} us per layer, "
+          f"{upd * cfg.num_layers:.3f} ms per decode step")
+    # one decode step of the 4-slot batch over 20 full blocks, with and
+    # without the score leaf: host ms per step while the steps are only
+    # enqueued, and with a device sync after every step
+    tf = mods["tf"]
+    nb = eng.pool.blocks_for(depth)
+    pool = sv.KVBlockPool(cfg, block_size=eng.pool.block_size,
+                          num_blocks=S * nb, device="cuda")
+    pool.mask[:, 1:] = True  # every row valid; block 0 stays null
+    table = torch.arange(1, S * nb + 1, dtype=torch.int32,
+                         device="cuda").reshape(S, nb)
+    tok = torch.zeros((S, 1), dtype=torch.int32, device="cuda")
+    act = torch.ones((S,), dtype=torch.bool, device="cuda")
+    score_all = torch.zeros((cfg.num_layers, S, depth, a.num_kv_heads),
+                            device="cuda")
+
+    def time_steps(scored: bool, sync_each: bool, n: int = 12) -> float:
+        tree = dict(pool.tree(), score=score_all) if scored \
+            else pool.tree()
+        cache = {"attn": {"table": table}, "pool": tree,
+                 "cursor": torch.full((S,), depth - 20, dtype=torch.int32,
+                                      device="cuda"),
+                 "next_pos": torch.full((S, 1), 4000, dtype=torch.int32,
+                                        device="cuda")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tf.decode_step(eng.params, cfg, tok, cache, active=act,
+                           paged_depth=depth)
+            if sync_each:
+                torch.cuda.synchronize()
+        t_host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t_host / n * 1e3
+
+    time_steps(True, False, 2)  # warm
+    for sync_each in (False, True):
+        t = {False: [], True: []}
+        for scored in (False, True, True, False):
+            t[scored].append(time_steps(scored, sync_each))
+        how = "synced after each" if sync_each else "enqueue only"
+        print(f"  decode step, 4 slots x {depth} rows ({how}): "
+              f"{sum(t[False]) / 2:.2f} ms without the score leaf, "
+              f"{sum(t[True]) / 2:.2f} ms with it "
+              f"(runs {t[False]} / {t[True]})")
 
 
 def profile_lockstep(torch, mods, res) -> None:
@@ -696,7 +1076,7 @@ def load_modules(torch) -> dict:
     from repro_torch import configs
     from repro_torch import serving
     from repro_torch.common.config import EvictionConfig
-    from repro_torch.core import lookahead, policies
+    from repro_torch.core import lookahead, policies, scoring
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import chunk_attention as ck
     from repro_torch.kernels import decode_attention as dk
@@ -705,11 +1085,13 @@ def load_modules(torch) -> dict:
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
+    from repro_torch.serving import engine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dict(configs=configs, serving=serving, lookahead=lookahead,
-                policies=policies, EvictionConfig=EvictionConfig, ops=ops,
+                policies=policies, scoring=scoring, engine=engine,
+                EvictionConfig=EvictionConfig, ops=ops,
                 build=build, ref=ref, ck=ck, lk=lk, pk=pk, fk=fk, dk=dk,
                 serve=serve, tf=tf)
 
@@ -748,26 +1130,33 @@ def main() -> None:
           "float32)", flush=True)
     phase_engine_parity(torch, mods)
 
-    counts = {}
+    counts, base_per_step = {}, None
     for i, route in enumerate(ROUTES):
-        print(f"phase 3{'abc'[i]}: serve llama3-8b at full width, {route}",
+        print(f"phase 3{'abcd'[i]}: serve llama3-8b at full width, {route}",
               flush=True)
         counts[route], res = phase_serve(torch, mods, route)
         if route == "paged continuous":
             print("phase 4a: where the time goes (torch.profiler)",
                   flush=True)
-            profile_paged(torch, mods, res)
+            base_per_step = profile_paged(torch, mods, res)
         elif route == "lockstep":
             print("phase 4b: where the time goes (torch.profiler)",
                   flush=True)
             profile_lockstep(torch, mods, res)
+        elif route == "paged decode-evict":
+            print("phase 4c: where the time goes (torch.profiler)",
+                  flush=True)
+            profile_evict(torch, mods, res, base_per_step)
         del res  # free this route's weights before the next one's
         torch.cuda.empty_cache()
     # launches on the main path: kernels 1, 3, 4 from the paged route,
-    # kernels 7 and 6 from the lockstep route
+    # kernels 7 and 6 from the lockstep route, kernel 5 from the
+    # decode-eviction route
     for k in kernels:
         route = ("lockstep" if k["name"] in ("flash_attention",
                                              "decode_attention")
+                 else "paged decode-evict"
+                 if k["name"] == "paged_decode_masses"
                  else "paged continuous")
         k["launches"] = counts[route][k["name"]]
     print(f"total {time.perf_counter() - t_all:.1f} s")

@@ -73,7 +73,10 @@ def decode_chunk(params: dict, cfg: ModelConfig, token: torch.Tensor,
                  ) -> tuple[torch.Tensor, dict, torch.Tensor]:
     """``steps`` greedy decode steps after ``token``.  Returns (last token
     (B, 1), cache, new tokens (B, steps)); the input token is not among
-    the emitted ones."""
+    the emitted ones.  A decode-eviction ``score`` leaf (in the dense
+    ``cache["attn"]`` or the paged ``cache["pool"]``) rides the cache
+    through every step like its other leaves; the attention steps add to
+    it in place."""
     toks = []
     for _ in range(steps):
         token, cache = decode_one(params, cfg, token, cache, active=active,

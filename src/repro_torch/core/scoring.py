@@ -8,6 +8,9 @@ observation pass in the streaming one).  Here those masses become
 eviction-ready scores: GQA mean over each kv group's q heads, then a 1-D
 max-pool (paper kernel 7) over the scored region.
 
+Decode-time eviction adds each decode step's masses (kernel 5) to a
+cumulative per-row score (``decode_mass_update``).
+
 The streaming policies of the JAX package (cumulative h2o, observation-
 window snapkv/pyramidkv/tova) come later (ROADMAP A3, A6).
 """
@@ -62,6 +65,23 @@ def gqa_reduce(scores: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
     """(B, H, S) -> (B, KV, S): mean over each kv group's query heads."""
     B, H, S = scores.shape
     return scores.reshape(B, num_kv_heads, H // num_kv_heads, S).mean(dim=2)
+
+
+def decode_mass_update(
+    masses: torch.Tensor,  # (B, H, D) decode token's normalised masses
+    num_kv_heads: int,
+    active: Optional[torch.Tensor] = None,  # (B,) slots that wrote a row
+) -> torch.Tensor:
+    """One decode step's increment to the cumulative (H2O) decode-eviction
+    scores: (B, D, KV) float32.  The GQA mean of the per-q-head masses of
+    ``ops.paged_decode_attention(score_masses=True)``, in the cache's
+    (row, kv head) layout, as the dense evicting step accumulates them;
+    slots that are not ``active`` get zeros, so their scores stay as they
+    are."""
+    add = gqa_reduce(masses, num_kv_heads).transpose(1, 2)  # (B, D, KV)
+    if active is not None:
+        add = torch.where(active[:, None, None], add, 0.0)
+    return add
 
 
 def maxpool1d(scores: torch.Tensor, kernel: int) -> torch.Tensor:

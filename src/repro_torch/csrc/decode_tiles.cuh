@@ -13,6 +13,15 @@
 // memory), the warp runs the online-softmax recurrence and accumulates
 // P.V with each lane owning hd/32 output dimensions.  A (sequence, kv
 // head) with no attendable row writes exact zeros (common.cuh).
+//
+// With MASSES (the paged decode-masses kernel) each lane also stores its
+// two rows' scaled logits (-inf where masked) into its query head's row of
+// a float32 mass buffer in global memory while the tiles stream, and after
+// the loop rescales them in place to exp(s - m) / max(l, 1e-30) with the
+// final (m, l): K is read once.  A lane rescales only the entries it
+// stored (rows lane + 32 t of every tile), so no barrier is needed.  The
+// flag adds those stores and the rescale and nothing else: the attention
+// arithmetic, and so `out`, is the MASSES = false code's.
 #pragma once
 
 #include "common.cuh"
@@ -31,15 +40,18 @@ inline int smem_bytes(int G) {
 // `rows.row(c)` gives, for logical row c in [0, n_rows), the row index r
 // of the K/V arrays, laid out (rows, KV, HD), or -1 when the row may not
 // be attended.  q points at the group's first query head (G x HD values),
-// out at the group's first output head.  Launch with 32 * G threads and
-// smem_bytes<HD>(G) bytes of dynamic shared memory at `smem`.
-template <typename T, int HD, typename Rows>
+// out at the group's first output head, and with MASSES `mass` at the
+// group's first query head's row of n_rows floats (G rows, back to back).
+// Launch with 32 * G threads and smem_bytes<HD>(G) bytes of dynamic shared
+// memory at `smem`.
+template <typename T, int HD, typename Rows, bool MASSES = false>
 __device__ __forceinline__ void attend(const T* __restrict__ q,
                                        const T* __restrict__ k,
                                        const T* __restrict__ v,
                                        T* __restrict__ out, int KV, int kvh,
                                        int G, int n_rows, const Rows& rows,
-                                       float scale, float* smem) {
+                                       float scale, float* smem,
+                                       float* __restrict__ mass = nullptr) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int PER_ROW = HD / VEC;
   constexpr int NV = TR * PER_ROW;  // 16-byte vectors per K (or V) tile
@@ -107,6 +119,9 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
       for (int d = 0; d < HD; ++d) dot += sQ[g * HD + d] * sK[j * (HD + 1) + d];
       ok[t] = sRow[j] >= 0;
       s[t] = ok[t] ? dot * scale : NEG_INF;
+      if (MASSES && i0 + j < n_rows)  // -inf where masked: exp gives 0
+        mass[g * n_rows + i0 + j] = ok[t] ? s[t]
+                                          : __int_as_float(0xff800000);
     }
     float tmax = fmaxf(s[0], s[1]);
 #pragma unroll
@@ -140,6 +155,13 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < HD / 32; ++i)
     out[g * HD + lane + 32 * i] = from_f32<T>(acc[i] * inv);
+  if (MASSES) {
+    // exp(-inf - m) is exactly 0: masked rows and empty heads stay zero
+    for (int c = lane; c < n_rows; c += 32) {
+      float* p = mass + g * n_rows + c;
+      *p = expf(*p - m) * inv;
+    }
+  }
 }
 
 }  // namespace decode_tiles

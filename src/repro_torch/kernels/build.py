@@ -11,7 +11,8 @@ Libraries land in ``build/repro_torch/`` at the repository root, named by
 a hash of the source, the shared headers and the flags, so a changed
 source rebuilds and an unchanged one is reused.  A library may hold
 several entry points (``chunk_attention.cu`` holds chunk attention and
-monolithic flash attention).  Nothing here runs at
+monolithic flash attention, ``paged_attention.cu`` paged decode and paged
+decode with row masses).  Nothing here runs at
 import time: a wrapper asks for its library on its first launch, and
 ``build()`` compiles several sources at once, one ``nvcc`` process each.
 """
@@ -45,6 +46,7 @@ SIGNATURES = {
     "flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "lookahead_score": [_P] * 7 + [_I] * 11 + [_P],
     "paged_decode_attention": [_P] * 8 + [_I] * 8 + [_P],
+    "paged_decode_masses": [_P] * 9 + [_I] * 8 + [_P],
     "decode_attention": [_P] * 5 + [_I] * 7 + [_P],
 }
 # the entry point a source's library offers by default

@@ -19,12 +19,14 @@ from repro_torch.kernels import lookahead_score as _lk
 from repro_torch.kernels import paged_attention as _pk
 from repro_torch.kernels import ref
 
-KERNEL_MODULES = {
-    "chunk_attention": _ck,
-    "lookahead_score": _lk,
-    "paged_decode_attention": _pk,
-    "flash_attention": _fk,
-    "decode_attention": _dk,
+#: kernel name -> (wrapper module, its launch-counter attribute)
+KERNEL_COUNTERS = {
+    "chunk_attention": (_ck, "launches"),
+    "lookahead_score": (_lk, "launches"),
+    "paged_decode_attention": (_pk, "launches"),
+    "paged_decode_masses": (_pk, "mass_launches"),
+    "flash_attention": (_fk, "launches"),
+    "decode_attention": (_dk, "launches"),
 }
 
 
@@ -38,12 +40,13 @@ def _on_card(t: torch.Tensor) -> bool:
 
 def launch_counts() -> dict:
     """{kernel name: launches since the last reset}."""
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in KERNEL_COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod, attr in KERNEL_COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -100,14 +103,31 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            table: torch.Tensor, *,
                            pos_pool: Optional[torch.Tensor] = None,
                            new_pos: Optional[torch.Tensor] = None,
-                           window=None) -> torch.Tensor:
+                           window=None, depth: Optional[int] = None,
+                           score_masses: bool = False):
     """Decode attention of one token per sequence over the paged pool;
     both routes walk the whole block table (rows past a sequence's logical
-    depth are masked in the pool)."""
+    depth are masked in the pool).
+
+    With ``score_masses`` the result is ``(out, masses)``: ``masses[b, h,
+    j]`` is the query's normalised softmax mass on logical row ``j``,
+    float32, exact zeros on masked rows, ``depth`` columns when ``depth``
+    is given (else ``nb * bs``); the decode-time eviction scores.  ``out``
+    is the ``score_masses=False`` result on both routes: kernel 5's is
+    bitwise kernel 4's, and the plain route reuses the unscored
+    attention.  ``depth`` changes nothing else: the engine masks every row
+    past it."""
+    kw = dict(pos_pool=pos_pool, new_pos=new_pos, window=window)
     if _on_card(q):
-        return _pk.paged_decode_attention(q, k_pool, v_pool, mask_pool, table,
-                                          pos_pool=pos_pool, new_pos=new_pos,
-                                          window=window)
-    return ref.paged_decode_attention(q, k_pool, v_pool, mask_pool, table,
-                                      pos_pool=pos_pool, new_pos=new_pos,
-                                      window=window)
+        if not score_masses:
+            return _pk.paged_decode_attention(q, k_pool, v_pool, mask_pool,
+                                              table, **kw)
+        out, masses = _pk.paged_decode_masses(q, k_pool, v_pool, mask_pool,
+                                              table, **kw)
+        return out, (masses if depth is None else masses[..., :depth])
+    out = ref.paged_decode_attention(q, k_pool, v_pool, mask_pool, table,
+                                     **kw)
+    if not score_masses:
+        return out
+    return out, ref.paged_decode_masses(q, k_pool, mask_pool, table,
+                                        depth=depth, **kw)

@@ -1,10 +1,14 @@
 """Paged flash-decode on the card (``csrc/paged_attention.cu``).
 
-The Hopper port of the JAX package's ``paged_decode_attention_pallas``
-(both its plain and windowed forms): one query token per sequence over a
+The Hopper ports of the JAX package's ``paged_decode_attention_pallas``
+(kernel 4) and ``paged_decode_masses_pallas`` (kernel 5), both in their
+plain and windowed forms: one query token per sequence over a
 block-table view of the shared KV pool, with per-kv-head validity and an
-optional ``new_pos - pos < window`` predicate.  The kernel reads the
-block table itself.  Plain version: ``ref.paged_decode_attention``.
+optional ``new_pos - pos < window`` predicate.  The kernels read the
+block table themselves.  Kernel 5 also returns every table row's
+normalised softmax mass per query head (the decode-time eviction
+scores); its ``out`` is bitwise kernel 4's.  Plain versions:
+``ref.paged_decode_attention`` and ``ref.paged_decode_masses``.
 """
 
 from __future__ import annotations
@@ -15,8 +19,10 @@ import torch
 
 from repro_torch.kernels import build
 
-#: kernel launches since the last reset (``ops.reset_launch_counts``)
+#: launches of kernel 4 (``paged_decode_attention``) and kernel 5
+#: (``paged_decode_masses``) since the last reset (``ops.reset_launch_counts``)
 launches = 0
+mass_launches = 0
 
 
 def _need(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -27,21 +33,16 @@ def _need(t: torch.Tensor, name: str, dtype, shape, device) -> None:
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
-                           v_pool: torch.Tensor, mask_pool: torch.Tensor,
-                           table: torch.Tensor, *,
-                           pos_pool: Optional[torch.Tensor] = None,
-                           new_pos: Optional[torch.Tensor] = None,
-                           window=None) -> torch.Tensor:
-    """q (B, H, hd); pools (N, bs, KV, hd); mask/pos (N, bs, KV); table
-    (B, nb) int32; new_pos (B,) int32 -> (B, H, hd) in q's type."""
-    global launches
+def _check(q, k_pool, v_pool, mask_pool, table, pos_pool, new_pos,
+           window) -> int:
+    """Validate the shared arguments of both kernels; returns the window
+    (0: none)."""
     B, H, hd = q.shape
     N, bs, KV, _ = k_pool.shape
     nb = table.shape[1]
     dev = q.device
     if not q.is_cuda:
-        raise ValueError("paged_decode_attention kernel takes CUDA tensors")
+        raise ValueError("paged decode kernels take CUDA tensors")
     if q.dtype not in build.DTYPE_CODES:
         raise ValueError(f"unsupported dtype {q.dtype}")
     if H % KV or not 1 <= H // KV <= 32 or hd not in (32, 64, 128):
@@ -58,13 +59,62 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                              "new_pos")
         _need(pos_pool, "pos_pool", torch.int32, (N, bs, KV), dev)
         _need(new_pos, "new_pos", torch.int32, (B,), dev)
+    return win
+
+
+def _args(q, k_pool, v_pool, mask_pool, table, pos_pool, new_pos, win):
+    return (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            mask_pool.data_ptr(), build.ptr(pos_pool) if win > 0 else None,
+            table.data_ptr(), build.ptr(new_pos) if win > 0 else None)
+
+
+def _dims(q, k_pool, table, win):
+    B, H, hd = q.shape
+    _, bs, KV, _ = k_pool.shape
+    return (B, H, KV, hd, bs, table.shape[1], win,
+            build.DTYPE_CODES[q.dtype], build.stream_ptr())
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, mask_pool: torch.Tensor,
+                           table: torch.Tensor, *,
+                           pos_pool: Optional[torch.Tensor] = None,
+                           new_pos: Optional[torch.Tensor] = None,
+                           window=None) -> torch.Tensor:
+    """Kernel 4.  q (B, H, hd); pools (N, bs, KV, hd); mask/pos (N, bs,
+    KV); table (B, nb) int32; new_pos (B,) int32 -> (B, H, hd) in q's
+    type."""
+    global launches
+    win = _check(q, k_pool, v_pool, mask_pool, table, pos_pool, new_pos,
+                 window)
     out = torch.empty_like(q)
     err = build.library("paged_attention")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        mask_pool.data_ptr(), build.ptr(pos_pool) if win > 0 else None,
-        table.data_ptr(), build.ptr(new_pos) if win > 0 else None,
-        out.data_ptr(), B, H, KV, hd, bs, nb, win,
-        build.DTYPE_CODES[q.dtype], build.stream_ptr())
+        *_args(q, k_pool, v_pool, mask_pool, table, pos_pool, new_pos, win),
+        out.data_ptr(), *_dims(q, k_pool, table, win))
     build.check(err, "paged_decode_attention")
     launches += 1
     return out
+
+
+def paged_decode_masses(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, mask_pool: torch.Tensor,
+                        table: torch.Tensor, *,
+                        pos_pool: Optional[torch.Tensor] = None,
+                        new_pos: Optional[torch.Tensor] = None,
+                        window=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 5.  The arguments of kernel 4 -> (out (B, H, hd) in q's type,
+    bitwise kernel 4's; masses (B, H, nb * bs) float32, exact zeros on
+    masked rows and on a (sequence, kv head) with no attendable row)."""
+    global mass_launches
+    win = _check(q, k_pool, v_pool, mask_pool, table, pos_pool, new_pos,
+                 window)
+    B, H, _ = q.shape
+    out = torch.empty_like(q)
+    masses = torch.empty((B, H, table.shape[1] * k_pool.shape[1]),
+                         dtype=torch.float32, device=q.device)
+    err = build.library("paged_attention", "paged_decode_masses")(
+        *_args(q, k_pool, v_pool, mask_pool, table, pos_pool, new_pos, win),
+        out.data_ptr(), masses.data_ptr(), *_dims(q, k_pool, table, win))
+    build.check(err, "paged_decode_masses")
+    mass_launches += 1
+    return out, masses

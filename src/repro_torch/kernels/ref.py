@@ -190,3 +190,42 @@ def paged_decode_attention(
         pos = gather_paged(pos_pool, table)
         mask = mask & ((new_pos[:, None, None] - pos) < window)
     return decode_attention(q, k, v, kv_mask=mask)
+
+
+def paged_decode_masses(
+    q: torch.Tensor,  # (B, H, hd)
+    k_pool: torch.Tensor,  # (N, bs, KV, hd)
+    mask_pool: torch.Tensor,  # (N, bs, KV) bool
+    table: torch.Tensor,  # (B, nb) int32, 0 = null block
+    *,
+    pos_pool: Optional[torch.Tensor] = None,  # (N, bs, KV) int32
+    new_pos: Optional[torch.Tensor] = None,  # (B,) query positions
+    window=None,
+    depth: Optional[int] = None,
+) -> torch.Tensor:
+    """The decode token's normalised softmax mass on every logical cache
+    row: (B, H, S) float32, S = nb * bs (or ``depth``, which also limits
+    the softmax to the first ``depth`` rows).  Masked rows are exact zeros
+    and a (sequence, head) with no attendable row is all zero (the
+    kernels' ``l -> max(l, 1e-30)`` rule), so summing masses over steps
+    gives the dense evicting step's score recurrence."""
+    mask = gather_paged(mask_pool, table)  # (B, S, KV)
+    k = gather_paged(k_pool, table)
+    if depth is not None:
+        k, mask = k[:, :depth], mask[:, :depth]
+    if window is not None:
+        assert pos_pool is not None and new_pos is not None, \
+            "sliding-window masking needs pos_pool and new_pos"
+        pos = gather_paged(pos_pool, table)
+        if depth is not None:
+            pos = pos[:, :depth]
+        mask = mask & ((new_pos[:, None, None] - pos) < window)
+    B, H, hd = q.shape
+    group = H // k.shape[2]
+    kf = _expand_gqa(k, group).float()
+    logits = torch.einsum("bhd,bkhd->bhk", q.float(), kf) / math.sqrt(hd)
+    ok = torch.repeat_interleave(mask.transpose(1, 2), group, dim=1)
+    logits = torch.where(ok, logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(logits - m), 0.0)
+    return p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)

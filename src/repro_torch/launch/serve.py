@@ -12,12 +12,19 @@ launcher picks for the same command line.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --continuous --kv-pool-mb 256 --budget 256 --chunk 256 --slots 4 \
         --prompt-lens 1024,2048,3072,4000 --max-new 32
+    # ... with decode-time eviction: sweeps every 64 rows of growth
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --continuous --kv-pool-mb 256 --decode-evict \
+        --decode-evict-interval 64 --budget 256 --chunk 256 --slots 4 \
+        --prompt-lens 1024,2048,3072,4000 --max-new 192
 
 Weights and lookahead modules are drawn at random from ``--seed`` (fine
 for plumbing and speed; quality needs trained modules, ROADMAP A9).  The
 flags are those of the JAX launcher; the ones whose feature the port does
 not serve yet raise ``NotImplementedError`` naming their ROADMAP item.
-``--device cpu`` runs the plain PyTorch versions of the kernels.
+As in the JAX launcher, ``--decode-evict`` acts on the continuous routes
+only (the lockstep route does not take it).  ``--device cpu`` runs the
+plain PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
@@ -33,14 +40,13 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.lookahead import init_lookahead_params
 from repro_torch.models import transformer as tf
 from repro_torch.serving import (ChunkingConfig, ContinuousEngine,
-                                 KVBlockPool, Request, ServingConfig,
-                                 ServingEngine)
+                                 DecodeEvictionConfig, KVBlockPool, Request,
+                                 ServingConfig, ServingEngine)
 
 # flag -> (value meaning "off", ROADMAP item of the feature)
 _UNPORTED = {
     "prefix_cache_mb": (0, "prefix cache: ROADMAP A7"),
     "shared_prefix": (0, "shared-prefix traffic: ROADMAP A7"),
-    "decode_evict": (False, "decode-time eviction: ROADMAP A5"),
     "mesh_model": (1, "a device mesh: ROADMAP A11"),
     "lkv_ckpt": ("", "lookahead checkpoints: ROADMAP A9"),
     "metrics_json": ("", "metrics: ROADMAP A12"),
@@ -77,8 +83,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--prefix-cache-mb", type=int, default=0)
     ap.add_argument("--shared-prefix", type=int, default=0)
-    ap.add_argument("--decode-evict", action="store_true")
-    ap.add_argument("--decode-evict-interval", type=int, default=64)
+    ap.add_argument("--decode-evict", action="store_true",
+                    help="continuous: decoding-stage eviction; with "
+                         "--kv-pool-mb sweeps re-evict each cache to the "
+                         "budget every --decode-evict-interval rows, "
+                         "freeing blocks mid-generation; dense slot caches "
+                         "keep a small fixed margin and evict per step")
+    ap.add_argument("--decode-evict-interval", type=int, default=64,
+                    help="rows of decode growth between eviction sweeps "
+                         "(paged pool)")
     ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--lkv-ckpt", default="")
     ap.add_argument("--metrics-json", default="")
@@ -97,8 +110,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build_engine(args, cfg, params, lkv):
     """The engine the JAX launcher builds for these arguments: lockstep
-    ``ServingEngine`` without ``--continuous``, else ``ContinuousEngine``
-    over the paged pool (``--kv-pool-mb``) or over dense slot caches."""
+    ``ServingEngine`` without ``--continuous`` (which, as in JAX, does not
+    take ``--decode-evict``), else ``ContinuousEngine`` over the paged
+    pool (``--kv-pool-mb``) or over dense slot caches."""
     evict = EvictionConfig(budget=args.budget)
     if not args.continuous:
         return ServingEngine(params, cfg, policy=args.policy, evict=evict,
@@ -112,6 +126,8 @@ def build_engine(args, cfg, params, lkv):
         policy=args.policy, evict=evict,
         chunking=ChunkingConfig(chunk=args.chunk,
                                 max_context=max(args.n_in, args.chunk)),
+        decode_evict=DecodeEvictionConfig(
+            enabled=args.decode_evict, interval=args.decode_evict_interval),
         num_slots=args.slots, max_new_tokens=args.max_new, eos_id=-1,
         kv_pool=pool)
     return ContinuousEngine(params, cfg, sc, lkv_params=lkv,
@@ -183,7 +199,12 @@ def main(argv=None) -> None:
         s = eng.pool.stats()
         print(f"kv pool: {s['blocks_total']} x {s['block_size']}-row blocks "
               f"({s['bytes_total'] / 1e6:.2f} MB), high water "
-              f"{s['high_water_blocks']} blocks")
+              f"{s['high_water_blocks']} blocks, peak concurrency "
+              f"{c['max_concurrency']}, {c['preemptions']} preemptions")
+        if eng.decode_evict.enabled:
+            print(f"decode eviction: {c['decode_evict_sweeps']} sweeps "
+                  f"reclaimed {s['blocks_reclaimed_decode']} blocks "
+                  f"mid-generation")
 
 
 if __name__ == "__main__":

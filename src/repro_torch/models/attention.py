@@ -14,13 +14,15 @@ dense decode cache and the block pool, the port writes them in place
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.common.config import AttentionConfig, ModelConfig
+from repro_torch.core.scoring import decode_mass_update
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import check_offset
+from repro_torch.kernels.ref import NEG_INF, check_offset
 from repro_torch.models import rope
 from repro_torch.models.layers import dense_init, linear
 
@@ -251,7 +253,14 @@ def decode_attention_step_paged(
     Appends the token's K/V at each slot's cursor row ``(table[b, c // bs],
     c % bs)`` — null-routed where the slot may not write, see
     ``append_slots`` — then attends straight out of the pool.  Returns
-    (B, 1, D)."""
+    (B, 1, D).
+
+    Decode-time eviction rides an optional ``"score"`` leaf of the pool
+    slice ((B, depth, KV) cumulative masses): then the attention goes
+    through kernel 5 (``score_masses=True``), whose row masses of the
+    cache after the append are added to the score in place, only where
+    ``write_ok`` (``core.scoring.decode_mass_update``).  The output is the
+    unscored one bit for bit."""
     B = h1.shape[0]
     KV = a.num_kv_heads
     bs = pool["k"].shape[1]
@@ -267,8 +276,88 @@ def decode_attention_step_paged(
     pool["pos"][pb, off] = positions.to(torch.int32).expand(B, KV)
     pool["mask"][pb, off] = write_ok[:, None].expand(B, KV)
 
-    out = ops.paged_decode_attention(
-        q[:, 0], pool["k"], pool["v"], pool["mask"], table,
-        pos_pool=pool["pos"], new_pos=positions[:, 0].to(torch.int32),
-        window=window)
+    kw = dict(pos_pool=pool["pos"], new_pos=positions[:, 0].to(torch.int32),
+              window=window)
+    score = pool.get("score")
+    if score is None:
+        out = ops.paged_decode_attention(q[:, 0], pool["k"], pool["v"],
+                                         pool["mask"], table, **kw)
+    else:
+        out, masses = ops.paged_decode_attention(
+            q[:, 0], pool["k"], pool["v"], pool["mask"], table, depth=depth,
+            score_masses=True, **kw)
+        score += decode_mass_update(masses, KV, active=write_ok)  # in place
+    return linear(out.reshape(B, 1, a.q_dim), p["wo"])
+
+
+def decode_attention_step_evicting(
+    p: dict,
+    a: AttentionConfig,
+    h1: torch.Tensor,  # (B, 1, D) current token hidden
+    positions: torch.Tensor,  # (B, 1) the token's absolute positions
+    cache: dict,  # this layer's cache: k/v, pos/mask and score (B, C, KV)
+    *,
+    cursor,  # int (lockstep) or (B,) per-slot cursors
+    active: Optional[torch.Tensor] = None,  # (B,) live slots
+    window: Optional[int] = None,
+    rope_tables: Optional[tuple] = None,
+) -> torch.Tensor:
+    """Decoding-stage eviction over a dense cache (beyond-paper: the paper
+    names decode eviction as future work).  The cache's ``score`` holds
+    each row's cumulative attention mass per kv head (H2O heavy hitters).
+    The step adds the new query's GQA-mean softmax masses over the cache
+    *before* the append (plain torch, as the JAX step), then writes the
+    token at the cursor while capacity remains, else over the valid row
+    of lowest score (``argmin``: the first on ties, as ``jnp.argmin``),
+    per kv head; that row's score restarts at its mass this step.  Then it
+    attends over the updated cache (``ops.decode_attention``).
+
+    The cache is written in place, gated by ``active``: an inactive
+    slot's k, v, pos, mask and score stay bit for bit as they were (JAX
+    writes a one-hot blend of the whole cache and rolls inactive slots
+    back with ``select_cache_slots``).  Returns (B, 1, D)."""
+    B = h1.shape[0]
+    KV, hd = a.num_kv_heads, a.head_dim
+    C = cache["k"].shape[1]
+    G = a.num_heads // KV
+    dev = h1.device
+    q, k_new, v_new = qkv(p, a, h1, positions, rope_tables=rope_tables)
+
+    # the new query's masses over the cache as it stands: (B, KV, C)
+    qg = q[:, 0].reshape(B, KV, G, hd).float()
+    logits = torch.einsum("bkgd,bckd->bkgc", qg,
+                          cache["k"].float()) / math.sqrt(hd)
+    mask_bkc = cache["mask"].transpose(1, 2)
+    logits = torch.where(mask_bkc[:, :, None], logits, NEG_INF)
+    add = torch.softmax(logits, dim=-1).mean(dim=2).transpose(1, 2)
+    score = cache["score"] + torch.where(cache["mask"], add, 0.0)
+
+    if isinstance(cursor, torch.Tensor) and cursor.dim() == 1:
+        cur = cursor[:, None].long()  # (B, 1) against (B, KV)
+    else:
+        cur = torch.full((B, 1), int(cursor), dtype=torch.long, device=dev)
+    victim = torch.argmin(
+        torch.where(cache["mask"], score, float("inf")), dim=1)  # (B, KV)
+    row = torch.where(cur >= C, victim, torch.clamp(cur, max=C - 1))
+    b = torch.arange(B, device=dev)[:, None].expand(B, KV)
+    h = torch.arange(KV, device=dev)[None, :].expand(B, KV)
+    gate = (torch.ones((B, 1), dtype=torch.bool, device=dev)
+            if active is None else active[:, None])
+    # a fresh row restarts its tally at this step's mass
+    score[b, row, h] = add[b, row, h]
+    # in place, only where `gate` (JAX: one-hot blend, then rollback)
+    cache["score"].copy_(torch.where(gate[..., None], score, cache["score"]))
+    new_pos = positions.to(torch.int32).expand(B, KV)
+    for name, new in (("k", k_new[:, 0]), ("v", v_new[:, 0]),
+                      ("pos", new_pos),
+                      ("mask", torch.ones_like(gate).expand(B, KV))):
+        buf = cache[name]
+        g = gate if new.dim() == 2 else gate[..., None]
+        buf[b, row, h] = torch.where(g, new.to(buf.dtype), buf[b, row, h])
+    att_mask = cache["mask"]
+    if window is not None:
+        att_mask = att_mask & ((positions[:, :, None] - cache["pos"])
+                               < window)
+    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
+                               kv_mask=att_mask)
     return linear(out.reshape(B, 1, a.q_dim), p["wo"])

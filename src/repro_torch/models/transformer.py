@@ -459,6 +459,18 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
     }
 
 
+def add_decode_eviction_scores(cache: dict) -> dict:
+    """Arm a dense decode cache for decoding-stage eviction
+    (``attention.decode_attention_step_evicting``): a ``score`` leaf
+    (L, B, C, KV) float32 where valid kept rows start at 1.0 (they already
+    won prefill eviction) and every other row at 0.  Returns a new dict
+    sharing the other leaves."""
+    out = dict(cache)
+    out["attn"] = dict(cache["attn"],
+                       score=cache["attn"]["mask"].to(torch.float32))
+    return out
+
+
 def pad_cache_capacity(cache: dict, capacity: int) -> dict:
     """Right-pad the attention row axis to ``capacity`` (mask False): small
     prompts clamp the kept capacity below the budget, so their caches are
@@ -480,8 +492,9 @@ def pad_cache_capacity(cache: dict, capacity: int) -> dict:
 
 def insert_request_cache(live: dict, req: dict, slot: int) -> dict:
     """Write a batch-1 request cache (a prefill's) into slot ``slot`` of the
-    live slot-batched cache, in place: its rows (capacity-padded first),
-    its position, and its scalar cursor into the live per-slot cursors.
+    live slot-batched cache, in place: its rows (capacity-padded first;
+    every leaf of ``attn``, the decode-eviction ``score`` too), its
+    position, and its scalar cursor into the live per-slot cursors.
     Returns ``live``."""
     req = pad_cache_capacity(req, live["attn"]["k"].shape[2])
     for name, leaf in live["attn"].items():
@@ -546,10 +559,13 @@ def decode_step(
 
     A dense cache holds ``cache["attn"]`` (k/v (L, B, C, KV, hd), pos/mask
     (L, B, C, KV)), the cursor (an int for the batch, or (B,) per-slot
-    cursors) and the positions (B, 1).  A paged cache holds the shared
-    pool (``"pool"``: k/v (L, N, bs, KV, hd), pos/mask (L, N, bs, KV)),
-    the block table (``cache["attn"]["table"]``, (B, nb) int32), per-slot
-    cursors (B,) and positions, and needs ``paged_depth``.
+    cursors) and the positions (B, 1); with a ``score`` leaf (L, B, C, KV)
+    (``add_decode_eviction_scores``) every layer takes the evicting step.
+    A paged cache holds the shared pool (``"pool"``: k/v (L, N, bs, KV,
+    hd), pos/mask (L, N, bs, KV), and under decode-time eviction the
+    engine's ``score`` (L, B, depth, KV)), the block table
+    (``cache["attn"]["table"]``, (B, nb) int32), per-slot cursors (B,) and
+    positions, and needs ``paged_depth``.
 
     Both write their cache in place, gated by ``active``: an inactive
     slot writes nothing and its cursor and position do not advance, so a
@@ -573,7 +589,10 @@ def decode_step(
         depth = paged_depth
     else:
         depth = cache["attn"]["k"].shape[2]
-        rows = attn_mod.dense_append_rows(cursor, depth, B, h.device, active)
+        evicting = "score" in cache["attn"]
+        if not evicting:
+            rows = attn_mod.dense_append_rows(cursor, depth, B, h.device,
+                                              active)
     for layer, window in enumerate(_windows(cfg)):
         lp = layer_slice(params["layers"], layer)
         u = rms_norm(h, lp["ln1"], cfg.norm_eps)
@@ -583,6 +602,11 @@ def decode_step(
                 table=table, cursor=cursor, depth=paged_depth,
                 active=active, window=window, rope_tables=tables,
                 slots=slots)
+        elif evicting:
+            out = attn_mod.decode_attention_step_evicting(
+                lp["attn"], a, u, positions,
+                layer_slice(cache["attn"], layer), cursor=cursor,
+                active=active, window=window, rope_tables=tables)
         else:
             out = attn_mod.decode_attention_step(
                 lp["attn"], a, u, positions,

@@ -24,14 +24,49 @@ __all__ = ["ChunkingConfig", "DecodeEvictionConfig", "ServingConfig"]
 
 @dataclass(frozen=True)
 class DecodeEvictionConfig:
-    """Decoding-stage eviction (beyond-paper; ROADMAP A5).  Disabled, the
-    decode cache holds ``max_new_tokens + 1`` append rows."""
+    """Decoding-stage eviction (beyond-paper), one schema for all engines.
+
+    ``enabled=False`` keeps the decode cache at ``max_new_tokens + 1``
+    append rows, so a generation can never overrun it.  Enabled:
+
+    * dense engines: the cache keeps only ``margin`` append rows; once
+      full, each new token overwrites the row of lowest cumulative
+      attention mass, per kv head, in the step itself
+      (``attention.decode_attention_step_evicting``);
+    * paged ``ContinuousEngine``: the cache grows block by block, and
+      once a slot has grown by ``interval`` rows a sweep re-evicts it down
+      to ``capacity`` under the masses kernel 5 streams, compacts the kept
+      rows into the head of its block run and frees the tail blocks back
+      to the ``KVBlockPool`` (``engine.paged_sweep``).  Reclaim comes in
+      whole blocks, so an interval below the block size frees nothing.
+    """
 
     enabled: bool = False
-    interval: int = 64
-    margin: int = 8
+    interval: int = 64  # paged: rows of decode growth between sweeps
+    margin: int = 8  # dense: append rows kept beyond the eviction capacity
+
+    def __post_init__(self):
+        if self.interval < 1:
+            raise ValueError("sweep interval must be >= 1 row")
+        if self.margin < 1:
+            raise ValueError("decode margin must be >= 1 row")
+
+    @classmethod
+    def coerce(cls, value) -> "DecodeEvictionConfig":
+        """Accept the ``decode_evict`` spellings of the engines' keyword:
+        a bool, None (disabled) or a config."""
+        if isinstance(value, cls):
+            return value
+        if value is None:
+            return cls()
+        if not isinstance(value, bool):
+            raise TypeError(f"decode_evict must be a bool or "
+                            f"DecodeEvictionConfig, got "
+                            f"{type(value).__name__}")
+        return cls(enabled=value)
 
     def margin_rows(self, max_new_tokens: int) -> int:
+        """Dense-cache append rows beyond the eviction capacity."""
         return self.margin if self.enabled else max_new_tokens + 1
 
 
@@ -72,6 +107,9 @@ class ServingConfig:
     trace: Any = None
     drift: Any = None
     sync_timers: Optional[bool] = None
+
+    def __post_init__(self):
+        self.decode_evict = DecodeEvictionConfig.coerce(self.decode_evict)
 
     def replace(self, **changes) -> "ServingConfig":
         return dataclasses.replace(self, **changes)

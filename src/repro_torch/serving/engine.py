@@ -20,19 +20,32 @@ prompt length, so it lands in a slot without reshaping anything:
 
 * paged (``config.kv_pool`` set): the kept rows are written into freshly
   allocated pool blocks and decode appends grow the slot block by block.
-  Admission is gated by free blocks, and every admission reserves its
-  worst-case append blocks, so a running request is never starved (no
-  preemption is ever needed).
+  Admission is gated by free blocks.  With ``reserve_appends`` (the
+  default) every admission reserves its worst-case append blocks, so a
+  running request is never starved; without it admission is optimistic
+  (one append block), and when the pool runs dry the latest admission is
+  preempted to the queue head and re-served from scratch (greedy decode
+  gives it the same tokens).
 * dense (``config.kv_pool`` None): one live (L, slots, capacity + margin,
   KV, hd) cache; admission writes the request's cache into a free slot
   (``transformer.insert_request_cache``) and decode appends at per-slot
   cursors.
 
-This is the JAX package's ``ContinuousEngine`` with
-``reserve_appends=True``, policy ``lookaheadkv`` and greedy decode.  Every
-other setting raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.  PyTorch runs eagerly, so there is no compile cache; on the
-card the attention kernels run through ``kernels/ops.py``.
+Decode-time eviction (``config.decode_evict``): on the paged pool every
+decode step runs kernel 5, which also returns each row's softmax mass;
+the engine sums them into a per-slot (L, slots, depth, KV) score, and
+once a slot's cursor reaches ``capacity + interval`` a sweep
+(``paged_sweep``) keeps its ``capacity`` heaviest rows per (layer, kv
+head), compacts them into its head blocks and frees the tail blocks
+mid-generation.  On the dense caches the step itself overwrites the
+lightest row once the ``margin`` rows are full
+(``attention.decode_attention_step_evicting``).
+
+This is the JAX package's ``ContinuousEngine`` with policy
+``lookaheadkv`` and greedy decode.  Every other setting raises
+``NotImplementedError`` naming the ROADMAP item that brings it.  PyTorch
+runs eagerly, so there is no compile cache; on the card the attention
+kernels run through ``kernels/ops.py``.
 
 ``ServingEngine`` is the JAX package's lockstep engine (deprecated there,
 kept as the paper-shaped baseline): one batch of same-length prompts,
@@ -49,13 +62,15 @@ import torch
 
 from repro_torch.common.config import EvictionConfig, ModelConfig
 from repro_torch.core import policies
+from repro_torch.core.eviction import select_topk
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import transformer as tf
 from repro_torch.serving.config import DecodeEvictionConfig, ServingConfig
 from repro_torch.serving.scheduler import (Request, RequestState,
                                            SlotScheduler, plan_step)
 
 __all__ = ["ContinuousEngine", "Request", "ServingConfig", "ServingEngine",
-           "cache_bytes"]
+           "cache_bytes", "paged_sweep"]
 
 
 def cache_bytes(cfg: ModelConfig, capacity: int, n_in: int) -> dict:
@@ -77,6 +92,79 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _policy_unported(policy: str) -> Optional[str]:
+    """What a policy other than ``lookaheadkv`` waits for, or None."""
+    if policy == "lookaheadkv":
+        return None
+    if policy == "h2o":
+        return "policy 'h2o' (fused chunk masses, kernel 2): ROADMAP A6"
+    return f"policy {policy!r}: ROADMAP A3 (other policies)"
+
+
+def paged_sweep(pool: dict, score: torch.Tensor, table: torch.Tensor,
+                slot: int, *, capacity: int, depth: int, block_size: int,
+                nb_keep: int) -> None:
+    """Evict-and-compact one slot's paged decode cache, in place.
+
+    The device half of a decode-eviction sweep: gather the slot's dense
+    ``[0, depth)`` view through its block table (a copy, taken before any
+    write, since the compacted rows land in the same blocks), keep the
+    ``capacity`` rows of highest cumulative mass per (layer, kv head) with
+    the stable ``select_topk`` (ties to the lower row, as
+    ``jax.lax.top_k``), write them in temporal order into the first
+    ``nb_keep`` blocks of the run and zero the rest of those blocks.  The
+    host then frees the tail blocks and resets the slot's cursor to
+    ``capacity``.
+
+    ``pool`` holds k/v (L, N, bs, KV, hd) and pos/mask (L, N, bs, KV);
+    ``score`` is the engine's (L, slots, depth, KV) cumulative mass
+    buffer: kept rows carry their tallies, evicted and padded rows restart
+    at zero.  Every block covering ``[0, depth)`` must be real (non-null):
+    the host fills table gaps first."""
+    bs = block_size
+    nb = -(-depth // bs)  # blocks covering logical rows [0, depth)
+    row = table[slot, :nb].long()  # physical block ids
+
+    def dense(leaf):  # (L, N, bs, ...) -> (L, depth, ...), a copy
+        g = leaf[:, row]
+        return g.reshape((g.shape[0], nb * bs) + tuple(g.shape[3:]))[:, :depth]
+
+    k, v = dense(pool["k"]), dense(pool["v"])  # (L, depth, KV, hd)
+    pos, mask = dense(pool["pos"]), dense(pool["mask"])  # (L, depth, KV)
+    sc = score[:, slot]  # (L, depth, KV)
+    # top-capacity rows per (layer, kv head); invalid rows win only where
+    # too few rows are valid, and then stay masked
+    sel = torch.where(mask, sc, NEG_INF).transpose(1, 2)  # (L, KV, depth)
+    idx, selmask = select_topk(sel, capacity)  # (L, KV, cap), row order
+
+    def take(x):  # (L, depth, KV[, hd]) -> (L, cap, KV[, hd])
+        xt = x.transpose(1, 2)
+        ix = idx if xt.dim() == 3 else \
+            idx[..., None].expand(idx.shape + (xt.shape[-1],))
+        return torch.gather(xt, 2, ix).transpose(1, 2)
+
+    kept = take(mask) & selmask.transpose(1, 2)  # (L, cap, KV)
+    k = torch.where(kept[..., None], take(k), 0)
+    v = torch.where(kept[..., None], take(v), 0)
+    pos = torch.where(kept, take(pos), 0)
+    sc_keep = torch.where(kept, take(sc), 0.0)
+
+    def pad(x, rows):  # (L, cap, ...) -> (L, rows, ...), zeros after
+        out = torch.zeros((x.shape[0], rows) + tuple(x.shape[2:]),
+                          dtype=x.dtype, device=x.device)
+        out[:, :x.shape[1]] = x
+        return out
+
+    def blk(x):  # (L, cap, ...) -> (L, nb_keep, bs, ...)
+        x = pad(x, nb_keep * bs)
+        return x.reshape((x.shape[0], nb_keep, bs) + tuple(x.shape[2:]))
+
+    keep_ids = row[:nb_keep]
+    for name, new in (("k", k), ("v", v), ("pos", pos), ("mask", kept)):
+        pool[name][:, keep_ids] = blk(new)  # in place
+    score[:, slot] = pad(sc_keep, depth)
+
+
 class ServingEngine:
     """Lockstep batch engine: every request of a batch shares one prompt
     length, and prefill and decode run back to back for the whole batch.
@@ -84,17 +172,20 @@ class ServingEngine:
     ``serve`` runs ``policies.run_eviction`` (the monolithic prefill with
     the lookahead rows, scoring and eviction, kernels 7 and 3 on the card)
     and then ``policies.greedy_decode`` over the evicted dense cache
-    (kernel 6), ``max_new_tokens`` steps with one shared cursor."""
+    (kernel 6), ``max_new_tokens`` steps with one shared cursor.  With
+    ``decode_evict`` (a bool or a ``DecodeEvictionConfig``) the cache keeps
+    only ``margin`` append rows and each step evicts once they are full
+    (``attention.decode_attention_step_evicting``)."""
 
     def __init__(self, params: dict, cfg: ModelConfig, *,
                  policy: str = "lookaheadkv",
                  evict: Optional[EvictionConfig] = None,
                  lkv_params: Optional[dict] = None,
-                 max_new_tokens: int = 64, eos_id: int = 0, device="cuda"):
-        if policy != "lookaheadkv":
-            raise NotImplementedError(
-                f"not ported yet: policy {policy!r}: ROADMAP A3 (other "
-                "policies)")
+                 max_new_tokens: int = 64, eos_id: int = 0,
+                 decode_evict=False, device="cuda"):
+        unported = _policy_unported(policy)
+        if unported:
+            raise NotImplementedError(f"not ported yet: {unported}")
         if lkv_params is None:
             raise ValueError("lookaheadkv serving needs lookahead modules "
                              "(lkv_params)")
@@ -104,8 +195,8 @@ class ServingEngine:
         self.max_new_tokens = max_new_tokens
         self.eos_id = eos_id
         self.device = torch.device(device)
-        self.decode_margin = DecodeEvictionConfig().margin_rows(
-            max_new_tokens)
+        self.decode_evict = DecodeEvictionConfig.coerce(decode_evict)
+        self.decode_margin = self.decode_evict.margin_rows(max_new_tokens)
 
     def serve(self, requests: list[Request]) -> list[Request]:
         """Serve one batch of same-length requests.  ``ttft_s`` is
@@ -124,9 +215,12 @@ class ServingEngine:
             lkv_params=self.lkv_params, extra_slots=self.decode_margin)
         _sync(self.device)  # the first-token logits are on the device
         ttft = time.perf_counter() - t0
+        cache = res.cache
+        if self.decode_evict.enabled:
+            cache = tf.add_decode_eviction_scores(cache)
         first = torch.argmax(res.logits, dim=-1)[:, None].to(torch.int32)
         toks, _ = policies.greedy_decode(self.params, self.cfg, first,
-                                         res.cache, self.max_new_tokens)
+                                         cache, self.max_new_tokens)
         toks = toks.cpu().numpy()  # (B, max_new_tokens)
         for i, r in enumerate(requests):
             seq = toks[i].tolist()
@@ -154,11 +248,7 @@ def _reject_unported(config: ServingConfig) -> None:
     """Raise for every setting the port does not serve, naming its ROADMAP
     item, instead of serving it differently from the JAX engine."""
     unported = [
-        (config.policy != "lookaheadkv",
-         f"policy {config.policy!r}: ROADMAP A3 (other policies)"),
-        (config.decode_evict.enabled, "decode-time eviction: ROADMAP A5"),
-        (not config.reserve_appends,
-         "optimistic admission with preemption: ROADMAP A5"),
+        (config.policy != "lookaheadkv", _policy_unported(config.policy)),
         (config.prefix_cache is not None, "prefix cache: ROADMAP A7"),
         (config.sampling is not None, "sampling: ROADMAP A8"),
         (config.harvest is not None or config.lkv_checkpoint is not None,
@@ -219,8 +309,17 @@ class ContinuousEngine:
         self.max_new_tokens = config.max_new_tokens
         self.eos_id = config.eos_id
         self.capture_admission = config.capture_admission
-        self.decode_margin = config.decode_evict.margin_rows(
-            config.max_new_tokens)
+        self.decode_evict = config.decode_evict
+        self.reserve_appends = config.reserve_appends
+        # one margin rule for all engines: a dense cache keeps
+        # ``margin_rows`` append rows beyond the eviction capacity; the
+        # paged pool under decode eviction keeps ``interval`` rows, the
+        # growth window between sweeps
+        if pool is not None and self.decode_evict.enabled:
+            self.decode_margin = self.decode_evict.interval
+        else:
+            self.decode_margin = self.decode_evict.margin_rows(
+                config.max_new_tokens)
         self._chunks = tuple(c for c in self._CHUNK_SIZES
                              if c <= config.chunking.decode_chunk)
         self.token_budget = config.chunking.token_budget or (
@@ -239,10 +338,17 @@ class ContinuousEngine:
         self._tok = torch.zeros((S, 1), dtype=torch.int32, device=self.device)
         #: the live dense slot cache of a run without a pool
         self._live: Optional[dict] = None
-        #: per-run counters (prefill/decode chunks and steps, seconds)
+        #: decode-eviction scores on the pool: (L, slots, depth, KV) f32
+        self._score: Optional[torch.Tensor] = None
+        #: per-run counters (prefill/decode chunks and steps, seconds,
+        #: preemptions, sweeps, bounced admissions)
         self.counts: dict = {}
         if pool is None:
             return
+        if self.decode_evict.enabled:
+            self._score = torch.zeros(
+                (cfg.num_layers, S, self._depth, cfg.attn.num_kv_heads),
+                dtype=torch.float32, device=self.device)
         self._nb_max = pool.blocks_for(self._depth)
         if pool.usable_blocks < self._nb_max + 1:
             raise ValueError("pool cannot hold even one request's worst-case "
@@ -257,6 +363,9 @@ class ContinuousEngine:
         self._npos_h = np.zeros(S, np.int32)
         self._slot_blocks: dict[int, list[int]] = {s: [] for s in range(S)}
         self._slot_reserved = np.zeros(S, np.int64)
+        # admission order of the live slots: preemption takes the latest
+        self._admit_seq = np.full(S, -1, np.int64)
+        self._admit_counter = 0
         bs = pool.block_size
         # block indices only decode appends can touch: [capacity, depth)
         self._append_jbs = list(range(self.capacity // bs,
@@ -321,14 +430,20 @@ class ContinuousEngine:
             sched.submit(r)
         self.counts = {"prefill_chunks": 0, "prefill_s": 0.0,
                        "decode_chunks": 0, "decode_steps": 0,
-                       "decode_s": 0.0, "max_concurrency": 0}
+                       "decode_s": 0.0, "max_concurrency": 0,
+                       "preemptions": 0, "decode_evict_sweeps": 0,
+                       "admission_blocked": 0}
         active = np.zeros(self.num_slots, bool)
         remaining = np.zeros(self.num_slots, np.int64)
         last_emit = np.zeros(self.num_slots, np.float64)
+        if self._score is not None:
+            self._score.zero_()  # clean tallies across runs
         if not paged:
             self._live = tf.init_decode_cache(
                 self.cfg, self.num_slots, self._depth, per_slot_cursor=True,
                 device=self.device)
+            if self.decode_evict.enabled:
+                self._live = tf.add_decode_eviction_scores(self._live)
         t0 = time.perf_counter()
         try:
             self._run_loop(sched, active, remaining, last_emit, t0)
@@ -390,14 +505,29 @@ class ContinuousEngine:
         return max(c for c in self._chunks if c <= room)
 
     def _decode(self, sched, active, remaining, last_emit, t0) -> None:
+        """One decode chunk of the live slots.  On the pool, in the JAX
+        engine's order: the decode-eviction sweep first, then the chunk
+        capped so that no cursor passes the depth mid-chunk (the sweep is
+        checked only between chunks), then the append blocks grown, with
+        preemption when the pool is dry."""
         steps = self._pick_chunk(remaining, active)
         paged = self.pool is not None
         if paged:
-            # grow every live slot's append blocks before the chunk runs
-            self._ensure_append_blocks(active, steps)
+            if self._score is not None:
+                self._decode_evict_sweep(sched, active, remaining, last_emit)
+                if not active.any():
+                    return
+                room = int(np.min((self._depth - self._cursor_h)[active]))
+                steps = max(c for c in self._chunks if c <= max(room, 1))
+            self._ensure_append_blocks(sched, active, remaining, last_emit,
+                                       steps)
+            if not active.any():
+                return  # every live slot was preempted
             dispatched = active.copy()
-            cache = {"attn": {"table": self._table_dev},
-                     "pool": self.pool.tree(),
+            pool = self.pool.tree()
+            if self._score is not None:
+                pool["score"] = self._score  # summed into in place
+            cache = {"attn": {"table": self._table_dev}, "pool": pool,
                      "cursor": self._to_dev(self._cursor_h),
                      "next_pos": self._to_dev(self._npos_h[:, None])}
         else:
@@ -438,6 +568,7 @@ class ContinuousEngine:
             if finished or remaining[slot] <= 0:
                 sched.retire(r, now=now)
                 active[slot] = False
+                self._on_retire(slot, r)
                 self._free_slot_blocks(slot)
 
     # -- prefill and admission ------------------------------------------------
@@ -466,23 +597,41 @@ class ContinuousEngine:
             self.params, self.cfg, pf.state, pf.n, policy=self.policy,
             evict=self.evict, lkv_params=self.lkv_params,
             extra_slots=self.decode_margin)
+        if self.decode_evict.enabled:
+            cache = tf.add_decode_eviction_scores(cache)
         if self.capture_admission:
-            r.admission_cache = {key: cache["attn"][key].cpu().numpy()
-                                 for key in ("mask", "pos")}
+            r.admission_cache = {key: val.cpu().numpy()
+                                 for key, val in cache["attn"].items()
+                                 if key in ("mask", "pos", "score")}
         if self.pool is None:
             slot = sched.place(r)
             tf.insert_request_cache(self._live, cache, slot)
         else:
             slot = self._paged_place(sched, r, cache)
+            if slot is None:
+                # running slots' appends ate the gate's headroom while this
+                # request prefilled: back to the queue head, re-prefilled
+                # when blocks free (FCFS order and tokens unchanged)
+                self.counts["admission_blocked"] += 1
+                sched.push_front(r)
+                return
         first = int(torch.argmax(pf.logits[0]))
         self._tok[slot, 0] = first
         r.out_tokens = [first]
         now = time.perf_counter() - t0
-        r.first_token_s = now
-        r.ttft_s = now - r.enqueue_s
+        if r.first_token_s is None:
+            # a re-admitted (preempted) request keeps its first stamps: the
+            # client had its first token then, and the replay is identical
+            r.first_token_s = now
+            r.ttft_s = now - r.enqueue_s
+        if r.preempt_emit_s is not None:
+            # the client-visible stall spans preemption to this re-emit
+            r.max_gap_s = max(r.max_gap_s, now - r.preempt_emit_s)
+            r.preempt_emit_s = None
         last_emit[slot] = now
         if first == self.eos_id or r.max_new_tokens <= 1:
             sched.retire(r, now=now)
+            self._on_retire(slot, r)
             self._free_slot_blocks(slot)
         else:
             active[slot] = True
@@ -494,73 +643,205 @@ class ContinuousEngine:
     # table: kept rows at [0, capacity), appends from `capacity`, with gaps
     # and not-yet-grown tails backed by the null block.  Admission writes
     # only the blocks that cover kept rows; append blocks grow one at a
-    # time ahead of each decode chunk, redeemed from the slot's reservation.
+    # time ahead of each decode chunk, redeemed from the slot's reservation
+    # or, under optimistic admission, taken from the free list.
 
     def _request_blocks(self, n_prompt: int) -> tuple[int, int]:
         """(worst-case kept-data blocks, append blocks beyond them) for a
-        prompt of ``n_prompt`` tokens — the admission cost model."""
+        prompt of ``n_prompt`` tokens — the admission cost model.  Under
+        decode-time eviction the slot's window is ``capacity + interval``
+        rows, and sweeps materialise every block of it (gap blocks too),
+        so the append promise is the whole window minus the data blocks."""
         data = self.pool.blocks_for(min(n_prompt, self.capacity))
+        if self._score is not None:
+            return data, self._nb_max - data
         appends = sum(1 for jb in self._append_jbs if jb >= data)
         return data, appends
 
     def _admission_gate(self, req: Request) -> bool:
         """The FCFS head admits only when the pool can cover its
-        worst-case kept rows plus its whole future decode growth."""
+        worst-case kept rows plus, under ``reserve_appends``, its whole
+        future decode growth; optimistic admission asks one append
+        block."""
         data, appends = self._request_blocks(len(req.prompt))
-        return self.pool.available_blocks() >= data + appends
+        need = data + (appends if self.reserve_appends else 1)
+        return self.pool.available_blocks() >= need
 
-    def _paged_place(self, sched, r: Request, cache: dict) -> int:
+    def _paged_place(self, sched, r: Request, cache: dict) -> Optional[int]:
         """Write the admitted cache's kept rows into freshly allocated
-        blocks, reserve its append blocks and point a slot's table at them.
-        Returns the slot.  Both allocations are covered by the admission
-        gate's check: the kept rows never exceed ``min(n_prompt,
-        capacity)``, and while this request prefilled, running slots could
-        only draw on their own reservations, which available blocks
-        already exclude."""
+        blocks, reserve its append blocks (under ``reserve_appends``) and
+        point a slot's table at them.  Returns the slot, or None when the
+        pool cannot cover the kept rows (or the promise) right now."""
         mask = cache["attn"]["mask"]  # (L, 1, C, KV)
         rows = torch.arange(mask.shape[2], device=mask.device)[:, None]
         used = int(torch.where(mask, rows, 0).max()) + 1
         ids = self.pool.alloc(self.pool.blocks_for(used))
-        outstanding = sum(1 for jb in self._append_jbs
-                          if ids is not None and jb >= len(ids))
-        if ids is None or not self.pool.reserve(outstanding):
-            raise RuntimeError("kv pool could not place an admitted request "
-                               "the admission gate let through")
+        if ids is None:
+            return None
+        if self._score is not None:
+            # sweeps compact through every block of [0, depth), so gap
+            # blocks below the append window count toward the promise too
+            outstanding = self._nb_max - len(ids)
+        else:
+            outstanding = sum(1 for jb in self._append_jbs
+                              if jb >= len(ids))
+        if self.reserve_appends and not self.pool.reserve(outstanding):
+            self.pool.free(ids)  # the promise cannot be kept: no admission
+            return None
         self.pool.write_cache(cache["attn"], ids)
         slot = sched.place(r)
-        self._slot_reserved[slot] = outstanding
+        self._slot_reserved[slot] = outstanding if self.reserve_appends \
+            else 0
+        self._admit_seq[slot] = self._admit_counter
+        self._admit_counter += 1
         self._slot_blocks[slot] = [int(b) for b in ids]
         self._table_h[slot] = 0
         self._table_h[slot, :len(ids)] = ids
         self._table_dev = self._to_dev(self._table_h)
-        self._cursor_h[slot] = self.capacity  # appends start after the kept rows
+        self._cursor_h[slot] = self.capacity  # appends follow the kept rows
         self._npos_h[slot] = int(cache["next_pos"][0, 0])
+        if self._score is not None:
+            # the slot's tallies start as add_decode_eviction_scores seeds
+            # them: valid kept rows at 1.0
+            sc = cache["attn"]["score"]  # (L, 1, depth, KV)
+            if sc.shape[2] != self._depth:
+                raise RuntimeError("admitted cache depth does not match the "
+                                   "paged window")
+            self._score[:, slot] = sc[:, 0]
         return slot
 
-    def _ensure_append_blocks(self, active, steps: int) -> None:
+    def _grow(self, slot: int, jb: int, sched, active, remaining,
+              last_emit) -> bool:
+        """Back table entry ``jb`` of ``slot`` with a fresh block: redeemed
+        from the slot's reservation (which cannot fail: reserved blocks
+        stay on the free list), else taken from the free list, preempting
+        the latest admission while it is dry.  Returns False when ``slot``
+        itself was preempted."""
+        if self._slot_reserved[slot] > 0:
+            ids = self.pool.alloc(1, from_reserved=True)
+            self._slot_reserved[slot] -= 1
+        else:
+            ids = self.pool.alloc(1)
+        while ids is None:
+            victim = self._latest_admitted_active(active)
+            if victim is None:
+                raise RuntimeError("kv pool exhausted with no live slot")
+            self._preempt(victim, sched, active, remaining, last_emit)
+            if not active[slot]:
+                return False  # this slot was its own latest admission
+            ids = self.pool.alloc(1)
+        # a reallocated block may carry its previous owner's validity rows:
+        # invalidate before the table exposes it (the sweep gathers through
+        # the table before its scatter overwrites them)
+        self.pool.zero_mask(ids)
+        self._table_h[slot, jb] = int(ids[0])
+        self._slot_blocks[slot].append(int(ids[0]))
+        return True
+
+    def _ensure_append_blocks(self, sched, active, remaining, last_emit,
+                              steps: int) -> None:
         """Allocate the append blocks every live slot needs for the next
-        ``steps`` tokens, from its admission-time reservation (which cannot
-        fail: reserved blocks stay on the free list)."""
+        ``steps`` tokens.  When the pool runs dry the latest admission is
+        preempted to the queue (latest first keeps FCFS finish order)
+        until the remaining slots fit; the pool sizing check guarantees a
+        lone request always fits."""
         bs = self.pool.block_size
         changed = False
         for slot in np.nonzero(active)[0].tolist():
+            if not active[slot]:
+                continue  # preempted by an earlier slot's growth
             cur = int(self._cursor_h[slot])
             last = min(cur + steps - 1, self._depth - 1)
             for jb in range(cur // bs, last // bs + 1):
                 if self._table_h[slot, jb] != 0:
                     continue
-                assert self._slot_reserved[slot] > 0, \
-                    "append block outside the slot's reservation"
-                ids = self.pool.alloc(1, from_reserved=True)
-                self._slot_reserved[slot] -= 1
-                # a reallocated block may carry its previous owner's
-                # validity rows: invalidate before the table exposes it
-                self.pool.zero_mask(ids)
-                self._table_h[slot, jb] = int(ids[0])
-                self._slot_blocks[slot].append(int(ids[0]))
-                changed = True
+                changed = True  # a block was taken, or slots preempted
+                if not self._grow(slot, jb, sched, active, remaining,
+                                  last_emit):
+                    break
         if changed:
             self._table_dev = self._to_dev(self._table_h)
+
+    def _decode_evict_sweep(self, sched, active, remaining,
+                            last_emit) -> None:
+        """Evict-and-compact every live slot whose cursor reached the
+        depth: back the table's gaps below the window with real blocks
+        (the compaction writes through them), run ``paged_sweep``, free
+        the tail blocks back to the pool mid-generation (and re-promise
+        them under ``reserve_appends``) and reset the cursor to
+        ``capacity``."""
+        nb = self.pool.blocks_for(self._depth)
+        nb_keep = self.pool.blocks_for(self.capacity)
+        for slot in np.nonzero(active)[0].tolist():
+            if not active[slot]:
+                continue  # preempted by an earlier slot's gap fill
+            if int(self._cursor_h[slot]) < self._depth:
+                continue
+            gaps = [jb for jb in range(nb) if self._table_h[slot, jb] == 0]
+            if not all(self._grow(slot, jb, sched, active, remaining,
+                                  last_emit) for jb in gaps):
+                continue  # this slot was preempted
+            self._table_dev = self._to_dev(self._table_h)
+            paged_sweep(self.pool.tree(), self._score, self._table_dev, slot,
+                        capacity=self.capacity, depth=self._depth,
+                        block_size=self.pool.block_size, nb_keep=nb_keep)
+            freed = [int(self._table_h[slot, jb]) for jb in
+                     range(nb_keep, nb)]
+            self.pool.free_run(freed)
+            fs = set(freed)
+            self._slot_blocks[slot] = [
+                b for b in self._slot_blocks[slot] if b not in fs]
+            self._table_h[slot, nb_keep:nb] = 0
+            if self.reserve_appends:
+                if not self.pool.reserve(len(freed)):
+                    raise RuntimeError("freed blocks could not be "
+                                       "re-promised")
+                self._slot_reserved[slot] += len(freed)
+            self._cursor_h[slot] = self.capacity
+            self._table_dev = self._to_dev(self._table_h)
+            self.counts["decode_evict_sweeps"] += 1
+
+    def _on_retire(self, slot: int, req: Request) -> None:
+        """Under ``capture_admission`` on the pool, stash the retiring
+        request's final kept set (pos and mask of its ``[0, depth)`` view,
+        clipped at the emitted-token horizon: a decode chunk may run past
+        a finishing request, and those rows are not part of its cache)."""
+        if not (self.capture_admission and self.pool is not None):
+            return
+        L, bs = self.cfg.num_layers, self.pool.block_size
+        row = torch.as_tensor(self._table_h[slot], dtype=torch.long,
+                              device=self.device)
+
+        def dense(leaf):  # (L, N, bs, KV) -> (L, depth, KV)
+            return leaf[:, row].reshape(L, len(row) * bs, -1)[:, :self._depth]
+
+        pos = dense(self.pool.pos)
+        horizon = len(req.prompt) + max(len(req.out_tokens) - 1, 0)
+        mask = dense(self.pool.mask) & (pos < horizon)
+        req.retirement_cache = {"pos": pos.cpu().numpy(),
+                                "mask": mask.cpu().numpy()}
+
+    def _latest_admitted_active(self, active) -> Optional[int]:
+        live = np.nonzero(active)[0]
+        if len(live) == 0:
+            return None
+        return int(live[np.argmax(self._admit_seq[live])])
+
+    def _preempt(self, slot: int, sched, active, remaining,
+                 last_emit) -> None:
+        """Preempt-to-queue: abandon a running slot's decode state, free
+        its blocks and push its request back to the queue head for a
+        re-serve from scratch (greedy decode gives the same tokens).  Its
+        first-token stamps stay; the stall shows in ``max_gap_s``."""
+        r = sched.running[slot]
+        sched.requeue(r)
+        r.out_tokens = []  # rebuilt, identical, by the re-serve
+        r.preempt_emit_s = last_emit[slot]  # the stall starts here
+        r.admission_cache = None
+        self._free_slot_blocks(slot)
+        active[slot] = False
+        remaining[slot] = 0
+        self.counts["preemptions"] += 1
 
     def _free_slot_blocks(self, slot: int) -> None:
         """Return a retired slot's blocks and unredeemed reservation (a

@@ -82,6 +82,8 @@ class KVBlockPool:
         # admitted request can always grow to its cap
         self.reserved = 0
         self.high_water = 0  # peak blocks in use over the pool's lifetime
+        # tail blocks that decode-eviction sweeps returned mid-generation
+        self.blocks_reclaimed_decode = 0
 
     # -- geometry ---------------------------------------------------------
     @property
@@ -145,6 +147,15 @@ class KVBlockPool:
             if self._refs[b] == 0:
                 self._free.append(int(b))
 
+    def free_run(self, ids) -> None:
+        """Return a *partial* block run of a live request: the tail blocks
+        a decode-eviction sweep compacted away mid-generation.  ``free``,
+        counted apart as ``blocks_reclaimed_decode`` so eviction-driven
+        reclaim is told from retirement frees."""
+        ids = np.asarray(ids, np.int32)
+        self.free(ids)
+        self.blocks_reclaimed_decode += len(ids)
+
     # -- device views -----------------------------------------------------
     def tree(self) -> dict:
         """The pool tensors as the dict the paged decode step writes into
@@ -205,4 +216,5 @@ class KVBlockPool:
             "bytes_used": used * self.block_bytes,
             "bytes_high_water": self.high_water * self.block_bytes,
             "metadata_bytes": (self.pos.numel() * 4 + self.mask.numel()),
+            "blocks_reclaimed_decode": self.blocks_reclaimed_decode,
         }

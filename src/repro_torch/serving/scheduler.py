@@ -5,6 +5,9 @@ a FCFS arrival queue, a fixed set of decode slots, and the per-request
 state machine
 
     QUEUED ──admit──> PREFILL ──place──> DECODE ──retire──> DONE
+       ▲                  │                  │
+       └── push_front ────┘                  │  (pool dry at admission)
+       └── requeue ──────────────────────────┘  (preempted to the queue)
 
 The port's copy of the JAX package's ``serving/scheduler.py`` (no
 tensors, no framework).  ``ContinuousEngine`` (engine.py) drives it with
@@ -85,9 +88,15 @@ class Request:
     finish_s: Optional[float] = None
     tpot_s: float = 0.0  # mean seconds per output token after the first
     max_gap_s: float = 0.0  # worst stall between consecutive token emissions
+    # wall time of the last token emitted before a preemption, so the
+    # client-visible stall (preempt -> re-admission re-emit) still lands
+    # in ``max_gap_s`` even though the request changes slots
+    preempt_emit_s: Optional[float] = None
     admission_cache: Optional[dict] = None  # mask/pos of the admitted cache
     # (engine's ``capture_admission`` debug flag; the parity tests compare
     # kept sets through this)
+    retirement_cache: Optional[dict] = None  # mask/pos at retirement: the
+    # paged engine's final kept set (same flag; None on the dense engine)
 
     @property
     def eviction_seed(self) -> int:
@@ -115,6 +124,7 @@ class SlotScheduler:
         self._free: list[int] = list(range(num_slots - 1, -1, -1))
         self.running: dict[int, Request] = {}
         self.finished: list[Request] = []
+        self.preemptions = 0
 
     # -- intake ---------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -156,6 +166,31 @@ class SlotScheduler:
         req = self._queue.pop(0)
         req.state = RequestState.PREFILL
         return req
+
+    def push_front(self, req: Request) -> None:
+        """Return an un-placed request (admission found the pool dry after
+        its prefill) to the queue head; it re-prefills when blocks free."""
+        req.state = RequestState.QUEUED
+        self._queue.insert(0, req)
+
+    def requeue(self, req: Request) -> int:
+        """Preempt-to-queue (paged KV, pool dry): move a *running* request
+        back to the head of the arrival queue.  Its slot frees, its decode
+        state is abandoned (the engine released the blocks), and it
+        re-prefills from scratch when blocks are available; greedy decode
+        is deterministic, so the re-served tokens are identical.  Returns
+        the freed slot."""
+        slot = req.slot
+        if slot is None or self.running.get(slot) is not req:
+            raise ValueError(f"request {req.uid} is not running")
+        del self.running[slot]
+        self._free.append(slot)
+        req.slot = None
+        req.state = RequestState.QUEUED
+        req.done = False
+        self.preemptions += 1
+        self._queue.insert(0, req)
+        return slot
 
     def place(self, req: Request) -> int:
         slot = self._free.pop()

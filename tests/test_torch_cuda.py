@@ -14,7 +14,11 @@ taken from the whole tensor would let a wrong deep row through): chunk
 and monolithic flash attention 2^-5 (their tensor cores take P rounded
 to bfloat16, and the output is rounded once), paged and dense decode
 2^-7 (float32 on CUDA cores, one rounding of the output); lookahead
-scores, float32 throughout, 2^-16 of the largest score.
+scores, float32 throughout, 2^-16 of the largest score.  Paged decode
+masses (kernel 5): its ``out`` bitwise kernel 4's, and each (sequence,
+head) row of masses within 2^-16 of that row's largest plain mass (both
+sides take float32 dot products and exponentials, a few float32 ulps
+apart).
 """
 
 import numpy as np
@@ -134,6 +138,51 @@ def test_paged_decode_matches_plain(dev, dtype, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,hd,window", [
+    (32, 8, 128, None),  # llama3-8b, the decode-eviction route
+    (32, 8, 128, 40),
+    (8, 8, 64, None),  # G = 1
+    (16, 2, 32, 25),  # G = 8
+])
+def test_paged_decode_masses_matches_plain(dev, dtype, H, KV, hd, window):
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, bs, N, nb = 4, 16, 96, 20
+    q = _randn(g, (B, H, hd), dtype, dev)
+    kp = _randn(g, (N, bs, KV, hd), dtype, dev)
+    vp = _randn(g, (N, bs, KV, hd), dtype, dev)
+    mask = torch.rand((N, bs, KV), generator=g, device=dev) > 0.2
+    mask[0] = False  # the null block
+    pos = torch.randint(0, 320, (N, bs, KV), generator=g, device=dev,
+                        dtype=torch.int32)
+    rng = np.random.default_rng(6)
+    table = torch.as_tensor(rng.permutation(np.arange(1, N))[:B * nb]
+                            .reshape(B, nb).astype(np.int32), device=dev)
+    table[1, 9:] = 0  # ragged: null tail
+    table[0, 4] = 0  # a gap
+    table[2] = 0  # between requests: all null -> zero out and masses
+    mask[table[3].long(), :, KV - 1] = False  # a fully masked kv head
+    new_pos = torch.full((B,), 320, dtype=torch.int32, device=dev)
+    kw = dict(pos_pool=pos, new_pos=new_pos, window=window)
+    out, masses = pk.paged_decode_masses(q, kp, vp, mask, table, **kw)
+    plain4 = pk.paged_decode_attention(q, kp, vp, mask, table, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain4), "out must be bitwise kernel 4's"
+    _assert_rows_close(out, ref.paged_decode_attention(
+        q, kp, vp, mask, table, **kw), dtype, 2 ** -7)
+    want = ref.paged_decode_masses(q, kp, mask, table, **kw)
+    err = (masses - want).abs().amax(-1)
+    tol = 2 ** -16 * want.abs().amax(-1)
+    assert bool(torch.all(err <= tol)), float((err - tol).max())
+    assert torch.all(masses[2] == 0)
+    assert torch.all(masses[3, (KV - 1) * (H // KV):] == 0)
+    assert torch.all(masses[want == 0] == 0), "dead rows must be exact zeros"
+    sums = masses.sum(-1)
+    live = want.sum(-1) > 0
+    torch.testing.assert_close(sums[live], torch.ones_like(sums[live]),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,KV,hd,causal,window", [
     (4, 2080, 32, 8, 128, True, None),  # lockstep prefill of llama3-8b
     (2, 333, 8, 2, 64, True, None),  # S not a multiple of the tile
@@ -201,6 +250,15 @@ def test_wrappers_count_launches(dev):
     with pytest.raises(ValueError, match="kv_mask"):
         dk.decode_attention(q[:, 0], k, k, kv_mask=torch.ones((1, 64, 3),
                                                                device=dev))
+    table = torch.ones((1, 4), dtype=torch.int32, device=dev)
+    pool = k[0].reshape(4, 16, 2, 32)
+    pmask = torch.ones((4, 16, 2), dtype=torch.bool, device=dev)
+    pk.paged_decode_masses(q[:, 0], pool, pool, pmask, table)
+    ops.paged_decode_attention(q[:, 0], pool, pool, pmask, table, depth=40,
+                               score_masses=True)
     after = ops.launch_counts()
     assert after["flash_attention"] == counts["flash_attention"] + 1
     assert after["decode_attention"] == counts["decode_attention"] + 1
+    assert after["paged_decode_masses"] == counts["paged_decode_masses"] + 2
+    assert after["paged_decode_attention"] == \
+        counts["paged_decode_attention"]

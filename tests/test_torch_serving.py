@@ -31,8 +31,7 @@ from repro_torch.common.config import EvictionConfig
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import serve
 from repro_torch.serving import (ChunkingConfig, ContinuousEngine,
-                                 DecodeEvictionConfig, KVBlockPool, Request,
-                                 ServingConfig)
+                                 KVBlockPool, Request, ServingConfig)
 
 
 def _cfg():
@@ -202,8 +201,8 @@ def test_engine_matches_jax_paged_engine():
 @pytest.mark.parametrize("change,item", [
     (dict(policy="snapkv"), "A3"),
     (dict(harvest=object()), "A9"),
-    (dict(decode_evict=DecodeEvictionConfig(enabled=True)), "A5"),
-    (dict(reserve_appends=False), "A5"),
+    (dict(policy="h2o"), "A6"),
+    (dict(lkv_checkpoint="lookahead.npz"), "A9"),
     (dict(prefix_cache=object()), "A7"),
     (dict(sampling=object()), "A8"),
     (dict(mesh=object()), "A11"),
