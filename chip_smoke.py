@@ -12,7 +12,10 @@ kernel's plain version):
 1. Hold each kernel against its plain PyTorch version on the card, in
    bfloat16, at the shapes of the main paths (llama3-8b: H=32, KV=8,
    hd=128; chunk 256 and the 32-row observation pass over a 4096-deep
-   buffer; paged decode of 4 slots, block size 16, 19 blocks; paged
+   buffer; the h2o chunk with column masses, C = 256 at 3840 of 4096
+   with n_total 4000, also in float32; kernel 3 at the window finalize
+   (32 rows at 3968, n_prompt 4096) and at monolithic h2o (2048 rows at
+   offset 0); paged decode of 4 slots, block size 16, 19 blocks; paged
    decode with row masses over 20 blocks (capacity 256 + interval 64);
    monolithic causal prefill of 4 x 2080 rows and its 32 observation
    rows; dense decode of 4 sequences over 289 rows with a per-kv-head
@@ -21,7 +24,9 @@ kernel's plain version):
    blocks, GQA groups of 1 and 8), within a tolerance that is a fixed
    fraction of the plain result's largest magnitude: per output row for
    attention and for the row masses, over the whole result for the
-   scores.  Kernel 5's output must be bitwise kernel 4's.  Time kernel,
+   scores.  Kernel 5's output must be bitwise kernel 4's, kernel 2's
+   kernel 1's, and kernel 2's column masses must sum to the counted
+   rows.  Time kernel,
    plain version and, where one PyTorch call computes the same function,
    that call (library_ms), each call on a cold L2.
 2. Serve through the port's engines on the llama3-8b smoke config in
@@ -29,14 +34,18 @@ kernel's plain version):
    continuous engine (3 requests each), the lockstep engine (a batch of
    3), the paged engine with decode-time eviction (interval 8: sweeps
    fire), the paged engine with optimistic admission on a pool too small
-   to grow every slot (preemptions happen), and the dense engine with
-   decode-time eviction; greedy tokens, admission and retirement kept
-   sets, and the counts of sweeps, reclaimed blocks and preemptions must
-   be identical.
+   to grow every slot (preemptions happen), the dense engine with
+   decode-time eviction, the paged engine under h2o, snapkv, pyramidkv,
+   tova, streaming_llm, random (seeded requests) and lookaheadkv with
+   adaptive head budgets, the dense engine under h2o, and the lockstep
+   engine under h2o, snapkv and full; greedy tokens, admission and
+   retirement kept sets, and the counts of sweeps, reclaimed blocks and
+   preemptions must be identical.
 3. Serve llama3-8b at full width (random weights and lookahead modules
-   from the seed; policy lookaheadkv, budget 256) through
+   from the seed; policy lookaheadkv unless named, budget 256) through
    ``repro_torch.launch.serve`` by each of its routes, with the launch
-   counts set to 0 just before and read just after each:
+   counts set to 0 just before and read just after each (e runs just
+   before a and f just before c, with no profiler phase between them):
    a. paged continuous: prompts of 1024, 2048, 3072 and 4000 tokens, chunk
       256, 4 slots, block size 16, --kv-pool-mb 256, 32 new tokens;
       kernels 1, 3, 4 must launch, kernel 5 not;
@@ -47,7 +56,13 @@ kernel's plain version):
    d. paged decode-evict: (a) with --decode-evict --decode-evict-interval
       64 and 192 new tokens; kernels 1, 3, 5 must launch and kernel 4
       not, with >= 8 sweeps, blocks reclaimed mid-generation and
-      requests overlapping (max concurrency >= 2).
+      requests overlapping (max concurrency >= 2);
+   e. paged continuous h2o: (a) with --policy h2o; kernels 2 (once per
+      layer of every prefill chunk) and 4 must launch, kernels 1, 3, 5
+      not; prefill ms per chunk beside (a)'s;
+   f. dense-slot continuous pyramidkv: (c) with --policy pyramidkv
+      (capacity 342, per-layer budgets printed); kernels 1, 3, 6 must
+      launch, kernel 2 not.
 4. Where the time goes, with torch.profiler: (a) one more 2048-token
    request on the engine of 3a, then one decode chunk alone; (b) one
    more lockstep batch on the engine of 3b; (c) on the engine of 3d,
@@ -229,9 +244,84 @@ def phase_kernels(torch, mods) -> list:
         source="src/repro_torch/csrc/chunk_attention.cu",
         replaces="src/repro/kernels/chunk_attention.py:95", **main1))
 
+    # -- kernel 2: chunk attention with column masses (h2o) -------------------
+    def masses_chunk_case(B, C, K, off, n_total, window, label, *, Hq=H,
+                          dtype=bf16, timed=False):
+        """Kernel 2 against kernel 1 and its plain version: ``out`` bitwise
+        kernel 1's on the same inputs; each (b, h) row of masses within
+        2^-16 of that row's largest plain mass (both sides take float32
+        logits and exponentials, a few float32 ulps apart, and sum them
+        over rows in other orders); exact zeros where the plain masses
+        are; every row summing to the number of counted rows within
+        1e-4 of it."""
+        mk = (lambda *shape: torch.randn(shape, generator=g,
+                                         device=dev).to(dtype))
+        q, k, v = mk(B, C, Hq, hd), mk(B, K, KV, hd), mk(B, K, KV, hd)
+        kw = dict(q_offset=off, window=window)
+        got, m_got = ck.chunk_attention_masses(q, k, v, n_total=n_total,
+                                               **kw)
+        plain1 = ck.chunk_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain1), f"chunk_attention_masses {label}: "
+              "out is not bitwise kernel 1's")
+        rv = (off + torch.arange(C, device=dev) < n_total).expand(B, C)
+        m_want = ref.chunk_column_masses(q, k, row_valid=rv, **kw)
+        err = check_rows(torch, m_got, m_want, REL_SCORE,
+                         f"chunk_attention_masses {label} masses")
+        check(bool(torch.all(m_got[m_want == 0] == 0)),
+              f"chunk_attention_masses {label}: an unseen key has mass")
+        n_rows = float(rv[0].sum())
+        dev_sum = float((m_got.sum(-1) - n_rows).abs().max())
+        print(f"  chunk_attention_masses {label}: out bitwise kernel 1's; "
+              f"{int(n_rows)} counted rows, largest |row sum - rows| "
+              f"{dev_sum:.2e} (tolerance {1e-4 * n_rows:.2e})")
+        check(dev_sum <= 1e-4 * n_rows, f"chunk_attention_masses {label}: "
+              "a row of masses does not sum to the counted rows")
+        if not timed:
+            return None
+        ms = time_ms(torch, lambda: ck.chunk_attention_masses(
+            q, k, v, n_total=n_total, **kw))
+        plain = time_ms(torch, lambda: (
+            ref.chunk_attention(q, k, v, **kw),
+            ref.chunk_column_masses(q, k, row_valid=rv, **kw)), iters=5)
+        # the out half only: no library call returns the column masses
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+        qpos = off + torch.arange(C, device=dev)
+        mask = torch.arange(K, device=dev)[None, :] <= qpos[:, None]
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask))
+        vis = torch.clamp(qpos + 1, max=K).sum().item()
+        n_ops = 4 * hd * Hq * B * vis  # Q.K^T and P.V once each
+        n_bytes = (itemsize * (2 * B * C * Hq * hd
+                               + 2 * B * min(K, off + C) * KV * hd)
+                   + 4 * B * Hq * K)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+        print(f"  chunk_attention_masses {label}: {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, sdpa (out half) {lib:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib)
+
+    main2 = masses_chunk_case(1, 256, 4096, 3840, 4000, None,
+                              "C=256 K=4096 off=3840 n_total=4000",
+                              timed=True)
+    masses_chunk_case(1, 256, 4096, 0, 4000, None, "first chunk off=0")
+    masses_chunk_case(2, 100, 1000, 700, 790, None, "K=1000 (ragged tile)")
+    masses_chunk_case(1, 256, 1000, 500, 1000, 96, "window 96")
+    masses_chunk_case(1, 64, 300, 200, 260, None, "G=1 (H=8)", Hq=8)
+    masses_chunk_case(1, 64, 300, 200, 264, None, "G=8 (H=64)", Hq=64)
+    masses_chunk_case(1, 256, 1000, 700, 900, None, "float32",
+                      dtype=torch.float32)
+    results.append(dict(
+        name="chunk_attention_masses", route="cuda",
+        source="src/repro_torch/csrc/chunk_attention.cu",
+        replaces="src/repro/kernels/chunk_attention.py:216", **main2))
+
     # -- kernel 3: lookahead scores --------------------------------------------
     def score_case(B, n_obs, Sk, n_prompt, off, window, masks, label,
-                   timed=False):
+                   timed=False, timed_kernel=False):
         q, k = randn(B, n_obs, H, hd), randn(B, Sk, KV, hd)
         kvm = rv = None
         if masks:
@@ -249,6 +339,10 @@ def phase_kernels(torch, mods) -> list:
         if masks:
             check(bool(torch.all(got[-1] == 0)),
                   "lookahead_score: invalid rows must give exact zeros")
+        if timed_kernel:
+            ms = time_ms(torch, lambda: lk.lookahead_score(q, k, n_prompt,
+                                                           **kw), iters=5)
+            print(f"  lookahead_score {label}: {ms:.4f} ms")
         if not timed:
             return None
         ms = time_ms(torch, lambda: lk.lookahead_score(q, k, n_prompt, **kw))
@@ -273,6 +367,14 @@ def phase_kernels(torch, mods) -> list:
                "lockstep: B=4 Sk=2080 n_prompt=2048")
     score_case(2, 32, 1000, 968, None, None, True,
                "kv_mask+row_valid Sk=1000")
+    # the window policies' finalize: the rolled 32 queries at n_total - 32
+    # over the whole 4096-deep buffer (n_prompt = K)
+    score_case(1, 32, 4096, 4096, 4000 - 32, None, False,
+               "window finalize: 32 rows at 3968, n_prompt=K=4096",
+               timed_kernel=True)
+    # monolithic h2o: every prompt row at q_offset 0, causal among itself
+    score_case(1, 2048, 2048, 2048, 0, None, False,
+               "monolithic h2o: 2048 rows at offset 0", timed_kernel=True)
     score_case(2, 40, 700, 700, 640, 96, True, "window 96, 2 row tiles")
     results.append(dict(
         name="lookahead_score", route="cuda",
@@ -569,18 +671,23 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
                 for lyr in range(mask.shape[0]) for h in range(mask.shape[2])}
 
     def continuous(device, *, pool_blocks=None, block_size=16, reqs=prompts,
-                   max_new=8, ev=evict, chunking=None, slots=2, **config):
+                   max_new=8, ev=evict, chunking=None, slots=2,
+                   policy="lookaheadkv", **config):
         pool = (sv.KVBlockPool(cfg, block_size=block_size,
                                num_blocks=pool_blocks, device=device)
                 if pool_blocks else None)
         sc = sv.ServingConfig(
-            evict=ev, chunking=chunking or sv.ChunkingConfig(
+            policy=policy, evict=ev, chunking=chunking or sv.ChunkingConfig(
                 chunk=32, max_context=70),
             num_slots=slots, max_new_tokens=max_new, eos_id=-1,
             kv_pool=pool, capture_admission=True, **config)
-        eng = sv.ContinuousEngine(move(params, device), cfg, sc,
-                                  lkv_params=move(lkv, device), device=device)
-        done = eng.run([sv.Request(uid=i, prompt=p, max_new_tokens=max_new)
+        eng = sv.ContinuousEngine(
+            move(params, device), cfg, sc,
+            lkv_params=move(lkv, device) if policy == "lookaheadkv" else None,
+            device=device)
+        # per-request seeds: the random policy draws from them
+        done = eng.run([sv.Request(uid=i, prompt=p, max_new_tokens=max_new,
+                                   seed=1000 + 17 * i)
                         for i, p in enumerate(reqs)])
         out = {}
         for r in done:
@@ -596,16 +703,22 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
             counts["blocks_reclaimed_decode"] = pool.blocks_reclaimed_decode
         return out, counts
 
-    def lockstep(device):
-        p, lk = move(params, device), move(lkv, device)
+    def lockstep(device, policy="lookaheadkv"):
+        p = move(params, device)
+        lk = move(lkv, device) if policy == "lookaheadkv" else None
+        reqs = [sv.Request(uid=i, prompt=row, max_new_tokens=8,
+                           seed=2000 + i) for i, row in enumerate(batch)]
         # the kept sets of the batch's prefill, then the engine's tokens
-        res = pol.run_eviction("lookaheadkv", p, cfg,
+        seeds = torch.as_tensor([r.eviction_seed for r in reqs],
+                                dtype=torch.int32, device=device)
+        res = pol.run_eviction(policy, p, cfg,
                                torch.as_tensor(batch, device=device),
-                               evict=evict, lkv_params=lk, extra_slots=9)
-        eng = sv.ServingEngine(p, cfg, evict=evict, lkv_params=lk,
-                               max_new_tokens=8, eos_id=-1, device=device)
-        done = eng.serve([sv.Request(uid=i, prompt=row, max_new_tokens=8)
-                          for i, row in enumerate(batch)])
+                               evict=evict, lkv_params=lk, extra_slots=9,
+                               seeds=seeds)
+        eng = sv.ServingEngine(p, cfg, policy=policy, evict=evict,
+                               lkv_params=lk, max_new_tokens=8, eos_id=-1,
+                               device=device)
+        done = eng.serve(reqs)
         adm = {k: res.cache["attn"][k].cpu().numpy() for k in ("mask", "pos")}
         return {r.uid: (r.out_tokens, {"admission": kept(
             adm["mask"][:, r.uid], adm["pos"][:, r.uid])})
@@ -630,6 +743,18 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
         # (c) dense slot caches with per-step eviction (8 margin rows)
         ("dense-slot decode-evict", lambda d: continuous(
             d, max_new=24, decode_evict=True)),
+        # every other single-pass policy the engines take: h2o runs kernel
+        # 2 on the card, the window policies kernel 3 at finalize
+        *((f"paged continuous {pol_}", lambda d, pol_=pol_: continuous(
+            d, pool_blocks=32, policy=pol_))
+          for pol_ in ("h2o", "snapkv", "pyramidkv", "tova",
+                       "streaming_llm", "random")),
+        ("paged continuous lookaheadkv adaptive", lambda d: continuous(
+            d, pool_blocks=48, ev=mods["EvictionConfig"](
+                budget=16, head_alloc="adaptive"))),
+        ("dense-slot continuous h2o", lambda d: continuous(d, policy="h2o")),
+        *((f"lockstep {pol_}", lambda d, pol_=pol_: lockstep(d, pol_))
+          for pol_ in ("h2o", "snapkv", "full")),
     )
     for label, run in runs:
         (got, got_counts), (want, want_counts) = (run(d) for d in devices)
@@ -691,6 +816,19 @@ ROUTES = {
                  "--max-new", "192"], 192,
         ("chunk_attention", "lookahead_score", "paged_decode_masses"),
         ("paged_decode_attention",)),
+    # 3a's trace under h2o: every prefill chunk runs kernel 2 (the column
+    # masses) instead of kernel 1, and there is no observation pass
+    "paged continuous h2o": (
+        PAGED + ["--policy", "h2o"], 32,
+        ("chunk_attention_masses", "paged_decode_attention"),
+        ("chunk_attention", "lookahead_score", "paged_decode_masses")),
+    # 3c's trace under pyramidkv: per-layer budgets, capacity 342; the
+    # window finalize scores through kernel 3
+    "dense-slot continuous pyramidkv": (
+        ["--continuous", "--chunk", "256", "--slots", "4",
+         "--prompt-lens", ",".join(map(str, LENS)), "--policy", "pyramidkv"],
+        32, ("chunk_attention", "lookahead_score", "decode_attention"),
+        ("chunk_attention_masses",)),
 }
 
 
@@ -750,6 +888,24 @@ def phase_serve(torch, mods, route: str) -> tuple:
     for name in forbid:
         check(counts[name] == 0, f"{route}: kernel {name} was launched "
               f"{counts[name]} times")
+    if route == "paged continuous h2o":
+        # one kernel-2 launch per layer of every prefill chunk
+        want = eng.counts["prefill_chunks"] * res["cfg"].num_layers
+        print(f"  kernel 2 launches {counts['chunk_attention_masses']} = "
+              f"{eng.counts['prefill_chunks']} chunks x "
+              f"{res['cfg'].num_layers} layers: "
+              f"{counts['chunk_attention_masses'] == want}")
+        check(counts["chunk_attention_masses"] == want,
+              f"{route}: kernel 2 launched {counts['chunk_attention_masses']}"
+              f" times, expected {want}")
+    if route == "dense-slot continuous pyramidkv":
+        cfg = res["cfg"]
+        budgets, cap = mods["tf"]._policy_budget_schedule(
+            cfg, "pyramidkv", 256, eng.evict.pyramid_beta)
+        print(f"  capacity {eng.capacity} (2*beta/(beta+1)*256 + 1 at beta "
+              f"{eng.evict.pyramid_beta}); layer budgets {budgets}")
+        check(eng.capacity == cap == 342, f"{route}: capacity "
+              f"{eng.capacity}, expected 342")
     if route == "paged decode-evict":
         c = eng.counts
         check(c["decode_evict_sweeps"] >= 8, f"{route}: "
@@ -771,7 +927,9 @@ def kernel_families(torch, prof) -> tuple:
     {kernel name: (launches, us)} of the kernels in no family)."""
     # chunk and flash attention share their tile code (chunk_attention.cu)
     # but not their kernels' names (attention_mma<chunk_attention_tag, ...>)
-    families = (("chunk_attention", "chunk_attention (kernel 1)"),
+    families = (("chunk_masses", "chunk_attention_masses (kernel 2)"),
+                ("column_masses", "chunk_attention_masses (kernel 2)"),
+                ("chunk_attention", "chunk_attention (kernel 1)"),
                 ("flash_attention", "flash_attention (kernel 7)"),
                 ("obs_", "lookahead_score"),
                 ("paged_masses", "paged_decode_masses (kernel 5)"),
@@ -1130,11 +1288,29 @@ def main() -> None:
           "float32)", flush=True)
     phase_engine_parity(torch, mods)
 
-    counts, base_per_step = {}, None
-    for i, route in enumerate(ROUTES):
-        print(f"phase 3{'abcd'[i]}: serve llama3-8b at full width, {route}",
-              flush=True)
+    # each other policy's cell runs just before the lookaheadkv cell of
+    # its route, so that no profiler phase comes between the two that are
+    # compared (host times drift within a call)
+    letters = dict(zip(ROUTES, "abcdef"))
+    pairs = (("paged continuous h2o", "paged continuous"),
+             ("dense-slot continuous pyramidkv", "dense-slot continuous"))
+    order = ("paged continuous h2o", "paged continuous", "lockstep",
+             "dense-slot continuous pyramidkv", "dense-slot continuous",
+             "paged decode-evict")
+    counts, base_per_step, chunk_ms = {}, None, {}
+    for route in order:
+        print(f"phase 3{letters[route]}: serve llama3-8b at full width, "
+              f"{route}", flush=True)
         counts[route], res = phase_serve(torch, mods, route)
+        c = getattr(res["engine"], "counts", {})
+        if c.get("prefill_chunks"):
+            chunk_ms[route] = c["prefill_s"] / c["prefill_chunks"] * 1e3
+        for new, base in pairs:
+            if route == base:
+                print(f"  prefill ms per 256-row chunk: {new} "
+                      f"{chunk_ms[new]:.1f} (3{letters[new]}) against "
+                      f"{chunk_ms[base]:.1f} for lookaheadkv "
+                      f"(3{letters[base]}), run one after the other")
         if route == "paged continuous":
             print("phase 4a: where the time goes (torch.profiler)",
                   flush=True)
@@ -1151,14 +1327,14 @@ def main() -> None:
         torch.cuda.empty_cache()
     # launches on the main path: kernels 1, 3, 4 from the paged route,
     # kernels 7 and 6 from the lockstep route, kernel 5 from the
-    # decode-eviction route
+    # decode-eviction route, kernel 2 from the h2o route
+    route_of = {"flash_attention": "lockstep",
+                "decode_attention": "lockstep",
+                "paged_decode_masses": "paged decode-evict",
+                "chunk_attention_masses": "paged continuous h2o"}
     for k in kernels:
-        route = ("lockstep" if k["name"] in ("flash_attention",
-                                             "decode_attention")
-                 else "paged decode-evict"
-                 if k["name"] == "paged_decode_masses"
-                 else "paged continuous")
-        k["launches"] = counts[route][k["name"]]
+        k["launches"] = counts[route_of.get(k["name"],
+                                            "paged continuous")][k["name"]]
     print(f"total {time.perf_counter() - t_all:.1f} s")
 
     smi = subprocess.run(

@@ -1,10 +1,12 @@
-"""Policy orchestration of the port: prefill + eviction (``run_eviction``),
-greedy decode (``greedy_decode`` for the lockstep engine, ``decode_chunk``
-for the continuous one) and the chunked prefill's buffer sizing.
+"""Policy orchestration of the port: prefill + eviction (``run_eviction``
+monolithic, ``run_eviction_chunked`` streamed), greedy decode
+(``greedy_decode`` for the lockstep engine, ``decode_chunk`` for the
+continuous one) and the chunked prefill's buffer sizing.
 
-The port serves the paper's ``lookaheadkv`` policy with greedy decode;
-the other single-pass policies are ROADMAP A3, the draft-based baselines
-(LAQ, SpecKV) come with them, and sampling is A8.
+Every single-pass policy of the JAX package is served, with greedy
+decode.  The draft-based baselines (LAQ, SpecKV: a draft, then a
+rescoring prefill over the prompt and the draft) are ROADMAP A3b, and
+sampling is A8.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.common.config import EvictionConfig, ModelConfig
+from repro_torch.core.scoring import (  # noqa: F401  (re-exported)
+    ALL_POLICIES, MULTI_PASS, SINGLE_PASS)
 from repro_torch.models import transformer as tf
 
 
@@ -25,14 +29,16 @@ class EvictionResult(NamedTuple):
 def run_eviction(policy: str, params: dict, cfg: ModelConfig,
                  tokens: torch.Tensor, *, evict: EvictionConfig,
                  lkv_params: Optional[dict] = None,
-                 extra_slots: int = 0) -> EvictionResult:
-    """Prefill + evict under ``policy``: the next-token logits and the
-    budgeted decode cache (``transformer.prefill``)."""
-    if policy != "lookaheadkv":
-        raise NotImplementedError(
-            f"policy {policy!r} is not ported yet: ROADMAP A3")
-    res = tf.prefill(params, cfg, tokens, policy=policy, evict=evict,
-                     lkv_params=lkv_params, extra_slots=extra_slots)
+                 extra_slots: int = 0,
+                 seeds: Optional[torch.Tensor] = None) -> EvictionResult:
+    """Prefill + evict under a single-pass ``policy``: the next-token
+    logits and the budgeted decode cache (``transformer.prefill``).
+    ``lkv_params`` is read by ``lookaheadkv`` only, ``seeds`` (B,) by
+    ``random`` only.  The draft-based policies raise (ROADMAP A3b)."""
+    res = tf.prefill(
+        params, cfg, tokens, policy=policy, evict=evict,
+        lkv_params=lkv_params if policy == "lookaheadkv" else None,
+        extra_slots=extra_slots, seeds=seeds)
     return EvictionResult(logits=res.logits, cache=res.cache)
 
 
@@ -88,9 +94,49 @@ def decode_chunk(params: dict, cfg: ModelConfig, token: torch.Tensor,
 def chunk_capacity_for(cfg: ModelConfig, policy: str, n_prompt: int,
                        chunk: int, *, n_obs: int = 0) -> int:
     """KV-buffer depth for a chunked prefill of ``n_prompt`` tokens: the
-    prompt plus the policy's appended observation rows, rounded up to whole
-    chunks."""
+    prompt plus the policy's appended observation rows (lookaheadkv's
+    learned rows, or gt_oracle's ``n_obs`` response rows), rounded up to
+    whole chunks."""
     if policy == "lookaheadkv":
         n_obs = cfg.lookahead.n_lookahead if cfg.lookahead else 0
     need = n_prompt + n_obs
     return -(-need // chunk) * chunk
+
+
+def run_eviction_chunked(
+    policy: str,
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # (B, n_in) tokens, every row the same length
+    *,
+    chunk: int,
+    evict: EvictionConfig,
+    lkv_params: Optional[dict] = None,
+    extra_slots: int = 0,
+    gt_boundary: Optional[int] = None,  # gt_oracle: X|Y boundary in tokens
+    seeds: Optional[torch.Tensor] = None,
+) -> EvictionResult:
+    """Streamed prefill + evict: the prompt in fixed ``chunk`` blocks
+    with online scores, one eviction at prompt end; the same kept cache
+    and next-token logits as ``run_eviction`` for every single-pass
+    policy (the serving engine drives the same two steps itself, to
+    interleave decode between chunks)."""
+    n_tokens = tokens.shape[1]
+    n = gt_boundary if gt_boundary is not None else n_tokens
+    obs_tokens = tokens[:, n:] if gt_boundary is not None else None
+    capacity = chunk_capacity_for(cfg, policy, n, chunk, n_obs=n_tokens - n)
+    B = tokens.shape[0]
+    state = tf.init_chunk_state(cfg, policy, B, capacity,
+                                device=tokens.device)
+    logits = None
+    for s in range(0, n, chunk):
+        blk = tokens[:, s:s + chunk]
+        if blk.shape[1] < chunk:  # partial final chunk: pad rows are inert
+            blk = torch.nn.functional.pad(blk, (0, chunk - blk.shape[1]))
+        state, logits = tf.prefill_chunk(params, cfg, state, blk, n,
+                                         policy=policy)
+    cache = tf.prefill_finalize(
+        params, cfg, state, n, policy=policy, evict=evict,
+        lkv_params=lkv_params if policy == "lookaheadkv" else None,
+        obs_tokens=obs_tokens, extra_slots=extra_slots, seeds=seeds)
+    return EvictionResult(logits=logits, cache=cache)

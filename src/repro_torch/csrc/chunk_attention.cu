@@ -16,6 +16,31 @@
 // attention_mma<flash_attention_tag, ...>), so a profile reads the two
 // apart.
 //
+// Also replaces src/repro/kernels/chunk_attention.py,
+// chunk_attention_masses_pallas (pallas_call at :289), through the entry
+// chunk_attention_masses: the chunk's attention output, bitwise the entry
+// chunk_attention's, plus masses[b, h, j] = sum over the rows i with
+// q_offset + i < n_total of row i's softmax mass on key j (B, H, K)
+// float32, the h2o eviction score of one prefill chunk.  The Pallas kernel
+// runs its key axis twice in one sequential grid (the attention recurrence,
+// then a second sweep over the keys once (m, l) are final); a chunk's rows
+// span several CTAs here, so a column sum is a reduction across CTAs, and
+// the entry makes two launches with no atomics (the masses are
+// deterministic):
+//   (a) the attention kernels with STATS set (tag chunk_masses_tag): the
+//       same body, which only adds a store of each row's final (m, l) to a
+//       (B, H, C) float32 scratch, so out stays bitwise kernel 1's;
+//   (b) column_masses_*: one CTA per (64-key tile, head, batch) recomputes
+//       the tile's logits for the chunk's rows that can see it, exactly as
+//       (a) forms them (the same operands, the same tensor-core fragments
+//       or FMA order, the same scale), takes exp(s - m) / l, zeroes rows at
+//       or past n_total and sums over rows.  A tile no counted row can see
+//       (past the chunk's last visible key, or before the window of every
+//       row) writes zeros without reading K.
+// (b) is bound like (a)'s Q.K^T half: operations, 2*hd*H*sum_i(visible
+// keys of row i) over the bf16 peak; it adds the masses' writes (B*H*K*4
+// bytes) to (a)'s bytes.
+//
 // Layout: q (B, C, H, hd), k/v (B, K, KV, hd) contiguous, fp32 or bf16;
 // out (B, C, H, hd) in q's type.  GQA: query head h reads kv head
 // h / (H / KV).
@@ -70,12 +95,24 @@ __device__ __forceinline__ int tile_row0() {
 // the entry a kernel instantiation belongs to: it names the kernel
 struct chunk_attention_tag {};
 struct flash_attention_tag {};
+struct chunk_masses_tag {};
 
-template <typename Entry, typename T, int HD, bool CAUSAL>
+// Store one row's final online-softmax statistics for the column-masses
+// pass: (m, l) of row `row` of head h of batch b in a (B, H, C) scratch.
+__device__ __forceinline__ void store_stats(float* m_out, float* l_out,
+                                            int b, int h, int H, int C,
+                                            int row, float m, float l) {
+  const size_t o = ((size_t)b * H + h) * C + row;
+  m_out[o] = m;
+  l_out[o] = l;
+}
+
+template <typename Entry, typename T, int HD, bool CAUSAL, bool STATS>
 __global__ void __launch_bounds__(THREADS)
 attention_fma(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out, int C, int H,
-              int K, int KV, int q_offset, int window, float scale) {
+              const T* __restrict__ v, T* __restrict__ out,
+              float* __restrict__ m_out, float* __restrict__ l_out, int C,
+              int H, int K, int KV, int q_offset, int window, float scale) {
   extern __shared__ float smem[];
   float* sQ = smem;                  // BQ x (HD + 1)
   float* sK = sQ + BQ * (HD + 1);    // BK x (HD + 1)
@@ -182,6 +219,9 @@ attention_fma(const T* __restrict__ q, const T* __restrict__ k,
     T* ob = out + ((size_t)b * C + q0 + r) * q_row + (size_t)h * HD;
 #pragma unroll
     for (int i = 0; i < HD / 4; ++i) ob[c4 + 4 * i] = from_f32<T>(acc[i] * inv);
+    if constexpr (STATS) {
+      if (c4 == 0) store_stats(m_out, l_out, b, h, H, C, q0 + r, m, l);
+    }
   }
 }
 
@@ -242,12 +282,13 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
 //   B 16x8  regs: (k 2t..2t+1, col g), (k 8+2t.., col g)
 //   C 16x8  f32:  (row g, col 2t), (row g, col 2t+1), (row g+8, col 2t),
 //                 (row g+8, col 2t+1)
-template <typename Entry, int HD, bool CAUSAL>
+template <typename Entry, int HD, bool CAUSAL, bool STATS>
 __global__ void __launch_bounds__(MTHREADS)
 attention_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ out, int C, int H, int K, int KV,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
+              float* __restrict__ l_out, int C, int H, int K, int KV,
               int q_offset, int window, float scale) {
   constexpr int LD = HD + 8;  // row stride (halves): conflict-free fragments
   constexpr int CH = HD / 8;  // 16-byte chunks per row
@@ -434,33 +475,339 @@ attention_mma(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<uint32_t*>(o_hi + 8 * dt + 2 * t) =
           pack_bf16(o[dt][2] * inv_hi, o[dt][3] * inv_hi);
   }
+  if constexpr (STATS) {
+    // the four lanes of a row hold the same (m, l) after the shuffles
+    if (t == 0 && r_lo < C) store_stats(m_out, l_out, b, h, H, C, r_lo, m_lo, l_lo);
+    if (t == 0 && r_hi < C) store_stats(m_out, l_out, b, h, H, C, r_hi, m_hi, l_hi);
+  }
 }
 
-template <typename Entry, typename T, int HD, bool CAUSAL>
+// Rows of the chunk whose softmax mass on key tile [k0, k0 + BK) counts:
+// [*r_begin, *r_end).  A row counts while q_offset + row < n_total; it sees
+// the tile from row k0 - q_offset on (causal) and, with a window, only up
+// to row k0 + BK - 2 + window - q_offset.
+__device__ __forceinline__ void counted_rows(int k0, int C, int q_offset,
+                                             int n_total, int window,
+                                             int* r_begin, int* r_end) {
+  *r_begin = max(0, k0 - q_offset);
+  int end = min(C, n_total - q_offset);
+  if (window > 0) end = min(end, k0 + BK - 1 + window - q_offset);
+  *r_end = end;
+}
+
+// Column masses on CUDA cores (the float32 configs).  One CTA per (64-key
+// tile, head, batch), 256 threads laid out as attention_fma's (4 lanes per
+// query row, keys c4 + 4j of the tile); the logits are attention_fma's dot
+// products in the same order.
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS)
+column_masses_fma(const T* __restrict__ q, const T* __restrict__ k,
+                  const float* __restrict__ m_in,
+                  const float* __restrict__ l_in, float* __restrict__ masses,
+                  int C, int H, int K, int KV, int q_offset, int n_total,
+                  int window, float scale) {
+  extern __shared__ float smem[];
+  float* sK = smem;                  // BK x (HD + 1)
+  float* sQ = sK + BK * (HD + 1);    // BQ x (HD + 1)
+  float* sRed = sQ + BQ * (HD + 1);  // 8 warps x BK
+  const int k0 = blockIdx.x * BK;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int r = tid >> 2, c4 = tid & 3;
+  float* mb = masses + ((size_t)b * H + h) * K;
+  int r_begin, r_end;
+  counted_rows(k0, C, q_offset, n_total, window, &r_begin, &r_end);
+  if (r_begin >= r_end) {  // no counted row sees this tile: exact zeros
+    for (int c = tid; c < BK; c += THREADS)
+      if (k0 + c < K) mb[k0 + c] = 0.f;
+    return;
+  }
+  const size_t q_row = (size_t)H * HD;
+  const size_t k_row = (size_t)KV * HD;
+  const T* qb = q + (size_t)b * C * q_row + (size_t)h * HD;
+  const T* kb = k + (size_t)b * K * k_row + (size_t)kvh * HD;
+  const float* ms = m_in + ((size_t)b * H + h) * C;
+  const float* ls = l_in + ((size_t)b * H + h) * C;
+  for (int i = tid; i < BK * HD; i += THREADS) {
+    const int c = i / HD, d = i % HD;
+    sK[c * (HD + 1) + d] =
+        (k0 + c < K) ? to_f32(kb[(size_t)(k0 + c) * k_row + d]) : 0.f;
+  }
+  float col[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) col[j] = 0.f;
+  for (int q0 = (r_begin / BQ) * BQ; q0 < r_end; q0 += BQ) {
+    __syncthreads();  // sK staged / the previous row tile's readers done
+    for (int i = tid; i < BQ * HD; i += THREADS) {
+      const int rr = i / HD, d = i % HD;
+      sQ[rr * (HD + 1) + d] =
+          (q0 + rr < C) ? to_f32(qb[(size_t)(q0 + rr) * q_row + d]) : 0.f;
+    }
+    __syncthreads();
+    const int row = q0 + r;
+    if (row < r_begin || row >= r_end) continue;
+    const float m = ms[row];
+    const float inv_l = 1.f / fmaxf(ls[row], L_FLOOR);
+    const int qpos = q_offset + row;
+    float s[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[j] = 0.f;
+    for (int d = 0; d < HD; ++d) {
+      const float qd = sQ[r * (HD + 1) + d];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[j] += qd * sK[(c4 + 4 * j) * (HD + 1) + d];
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int kpos = k0 + c4 + 4 * j;
+      const bool ok = kpos < K && kpos <= qpos &&
+                      (window <= 0 || qpos - kpos < window);
+      const float x = ok ? s[j] * scale : NEG_INF;
+      col[j] += ok ? expf(x - m) * inv_l : 0.f;
+    }
+  }
+  // sum over the 8 rows of each warp (lanes with the same c4), then warps
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1)
+      col[j] += __shfl_xor_sync(0xffffffffu, col[j], o);
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) sRed[warp * BK + lane + 4 * j] = col[j];
+  }
+  __syncthreads();
+  if (tid < BK && k0 + tid < K) {
+    float tot = 0.f;
+    for (int w = 0; w < THREADS / 32; ++w) tot += sRed[w * BK + tid];
+    mb[k0 + tid] = tot;
+  }
+}
+
+// Column masses on tensor cores (bf16).  One CTA per (64-key tile, head,
+// batch), 4 warps of 16 query rows; the key tile stays in shared memory
+// while 64-row tiles of Q stream through a cp.async ring, and each warp
+// forms S = Q K^T with attention_mma's fragments in its k-step order.
+template <int HD>
+__global__ void __launch_bounds__(MTHREADS)
+column_masses_mma(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const float* __restrict__ m_in,
+                  const float* __restrict__ l_in, float* __restrict__ masses,
+                  int C, int H, int K, int KV, int q_offset, int n_total,
+                  int window, float scale) {
+  constexpr int LD = HD + 8;
+  constexpr int CH = HD / 8;
+  constexpr int NT = BK / 8;
+  constexpr int QT = BQ * LD;  // halves of one Q stage
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BK x LD
+  __nv_bfloat16* sQ = sK + BK * LD;  // 2 stages x BQ x LD
+  __shared__ float sRed[MTHREADS / 32][BK];
+
+  const int k0 = blockIdx.x * BK;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* mb = masses + ((size_t)b * H + h) * K;
+  int r_begin, r_end;
+  counted_rows(k0, C, q_offset, n_total, window, &r_begin, &r_end);
+  if (r_begin >= r_end) {  // no counted row sees this tile: exact zeros
+    for (int c = tid; c < BK; c += MTHREADS)
+      if (k0 + c < K) mb[k0 + c] = 0.f;
+    return;
+  }
+  const size_t q_row = (size_t)H * HD;
+  const size_t k_row = (size_t)KV * HD;
+  const __nv_bfloat16* qb = q + (size_t)b * C * q_row + (size_t)h * HD;
+  const __nv_bfloat16* kb = k + (size_t)b * K * k_row + (size_t)kvh * HD;
+  const float* ms = m_in + ((size_t)b * H + h) * C;
+  const float* ls = l_in + ((size_t)b * H + h) * C;
+
+#pragma unroll
+  for (int it = 0; it < BK * CH / MTHREADS; ++it) {
+    const int i = tid + it * MTHREADS;
+    const int c = i / CH, ch = i % CH;
+    const bool ok = k0 + c < K;
+    cp_async16(sK + c * LD + 8 * ch,
+               kb + (size_t)(ok ? k0 + c : 0) * k_row + 8 * ch, ok);
+  }
+  auto load_q = [&](int q0, int stage) {
+    __nv_bfloat16* dq = sQ + stage * QT;
+#pragma unroll
+    for (int it = 0; it < BQ * CH / MTHREADS; ++it) {
+      const int i = tid + it * MTHREADS;
+      const int rr = i / CH, ch = i % CH;
+      const bool ok = q0 + rr < C;
+      cp_async16(dq + rr * LD + 8 * ch,
+                 qb + (size_t)(ok ? q0 + rr : 0) * q_row + 8 * ch, ok);
+    }
+    cp_async_commit();
+  };
+  const int first = (r_begin / BQ) * BQ;
+  const int n_tiles = (r_end - first + BQ - 1) / BQ;
+  load_q(first, 0);  // one group with the K tile
+
+  float col[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) col[j][0] = col[j][1] = 0.f;
+  const int wr = warp * 16;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = first + it * BQ;
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {
+      load_q(q0 + BQ, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this Q tile (and the K tile) landed for every thread
+    const __nv_bfloat16* tQ = sQ + stage * QT;
+    uint32_t qa[HD / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const __nv_bfloat16* p = tQ + (wr + g) * LD + 16 * kk + 2 * t;
+      qa[kk][0] = ld32(p);
+      qa[kk][1] = ld32(p + 8 * LD);
+      qa[kk][2] = ld32(p + 8);
+      qa[kk][3] = ld32(p + 8 * LD + 8);
+    }
+    const int r_lo = q0 + wr + g, r_hi = r_lo + 8;
+    const bool v_lo = r_lo >= r_begin && r_lo < r_end;
+    const bool v_hi = r_hi >= r_begin && r_hi < r_end;
+    const float m_lo = v_lo ? ms[r_lo] : 0.f, m_hi = v_hi ? ms[r_hi] : 0.f;
+    const float il_lo = v_lo ? 1.f / fmaxf(ls[r_lo], L_FLOOR) : 0.f;
+    const float il_hi = v_hi ? 1.f / fmaxf(ls[r_hi], L_FLOOR) : 0.f;
+    const int qp_lo = q_offset + r_lo, qp_hi = q_offset + r_hi;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const __nv_bfloat16* p = sK + (8 * j + g) * LD + 16 * kk + 2 * t;
+        mma_bf16(s, qa[kk], ld32(p), ld32(p + 8));
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int kp = k0 + 8 * j + 2 * t + i;
+        const bool a = v_lo && kp < K && kp <= qp_lo &&
+                       (window <= 0 || qp_lo - kp < window);
+        const bool c = v_hi && kp < K && kp <= qp_hi &&
+                       (window <= 0 || qp_hi - kp < window);
+        const float x_lo = a ? s[i] * scale : NEG_INF;
+        const float x_hi = c ? s[2 + i] * scale : NEG_INF;
+        col[j][i] += (a ? expf(x_lo - m_lo) * il_lo : 0.f) +
+                     (c ? expf(x_hi - m_hi) * il_hi : 0.f);
+      }
+    }
+    __syncthreads();  // every warp is done with `stage` before its refill
+  }
+  // sum over the 8 row groups g of the warp, then over the warps
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        col[j][i] += __shfl_xor_sync(0xffffffffu, col[j][i], o);
+    }
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      sRed[warp][8 * j + 2 * t] = col[j][0];
+      sRed[warp][8 * j + 2 * t + 1] = col[j][1];
+    }
+  }
+  __syncthreads();
+  if (tid < BK && k0 + tid < K) {
+    float tot = 0.f;
+#pragma unroll
+    for (int w = 0; w < MTHREADS / 32; ++w) tot += sRed[w][tid];
+    mb[k0 + tid] = tot;
+  }
+}
+
+template <typename Entry, typename T, int HD, bool CAUSAL, bool STATS = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int C, int H, int K, int KV, int q_offset,
-                   int window, cudaStream_t stream) {
+                   int window, cudaStream_t stream, float* m_out = nullptr,
+                   float* l_out = nullptr) {
   dim3 grid((C + BQ - 1) / BQ, H, B);
   const float scale = 1.f / sqrtf((float)HD);
   if constexpr (sizeof(T) == 2) {  // bf16: tensor cores
     const int smem = (BQ + 4 * BK) * (HD + 8) * 2;
-    auto* kern = attention_mma<Entry, HD, CAUSAL>;
+    auto* kern = attention_mma<Entry, HD, CAUSAL, STATS>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
     kern<<<grid, MTHREADS, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, C, H, K, KV, q_offset,
-        window, scale);
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, m_out, l_out, C, H, K,
+        KV, q_offset, window, scale);
   } else {  // fp32: CUDA cores
     const int smem = (BQ * (HD + 1) + BK * (HD + 1) + BK * HD) * sizeof(float);
-    auto* kern = attention_fma<Entry, T, HD, CAUSAL>;
+    auto* kern = attention_fma<Entry, T, HD, CAUSAL, STATS>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
     kern<<<grid, THREADS, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)out, C, H, K, KV,
-        q_offset, window, scale);
+        (const T*)q, (const T*)k, (const T*)v, (T*)out, m_out, l_out, C, H,
+        K, KV, q_offset, window, scale);
   }
   return cudaGetLastError();
+}
+
+// Kernel 2: (a) the chunk attention with its row statistics, then (b) the
+// column masses from them, on one stream.
+template <typename T, int HD>
+cudaError_t launch_masses(const void* q, const void* k, const void* v,
+                          void* out, float* m_buf, float* l_buf,
+                          float* masses, int B, int C, int H, int K, int KV,
+                          int q_offset, int n_total, int window,
+                          cudaStream_t stream) {
+  cudaError_t err = launch<chunk_masses_tag, T, HD, true, true>(
+      q, k, v, out, B, C, H, K, KV, q_offset, window, stream, m_buf, l_buf);
+  if (err != cudaSuccess) return err;
+  dim3 grid((K + BK - 1) / BK, H, B);
+  const float scale = 1.f / sqrtf((float)HD);
+  if constexpr (sizeof(T) == 2) {
+    const int smem = (BK + 2 * BQ) * (HD + 8) * 2;
+    auto* kern = column_masses_mma<HD>;
+    err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, MTHREADS, smem, stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, m_buf, l_buf,
+        masses, C, H, K, KV, q_offset, n_total, window, scale);
+  } else {
+    const int smem =
+        ((BK + BQ) * (HD + 1) + (THREADS / 32) * BK) * sizeof(float);
+    auto* kern = column_masses_fma<T, HD>;
+    err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, m_buf, l_buf, masses, C, H, K, KV,
+        q_offset, n_total, window, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_masses(int hd, const void* q, const void* k,
+                            const void* v, void* out, float* m_buf,
+                            float* l_buf, float* masses, int B, int C, int H,
+                            int K, int KV, int q_offset, int n_total,
+                            int window, cudaStream_t s) {
+  switch (hd) {
+    case 32: return launch_masses<T, 32>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
+    case 64: return launch_masses<T, 64>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
+    case 128: return launch_masses<T, 128>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename Entry, typename T, bool CAUSAL>
@@ -511,4 +858,25 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                                H, S, KV, 0, window, s);
   return dispatch<flash_attention_tag, false>(dtype, hd, q, k, v, out, B,
                                                 S, H, S, KV, 0, window, s);
+}
+
+// Chunk attention plus the column masses of the rows below n_total (h2o):
+// out as the entry chunk_attention, masses (B, H, K) float32; m_buf and
+// l_buf are (B, H, C) float32 scratch.  window <= 0 means no window.
+// Returns cudaGetLastError() after the second launch.
+extern "C" int chunk_attention_masses(const void* q, const void* k,
+                                      const void* v, void* out, void* m_buf,
+                                      void* l_buf, void* masses, int B,
+                                      int C, int H, int K, int KV, int hd,
+                                      int q_offset, int n_total, int window,
+                                      int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  float* m = (float*)m_buf;
+  float* l = (float*)l_buf;
+  float* ms = (float*)masses;
+  if (dtype == DTYPE_F32)
+    return dispatch_masses<float>(hd, q, k, v, out, m, l, ms, B, C, H, K, KV, q_offset, n_total, window, s);
+  if (dtype == DTYPE_BF16)
+    return dispatch_masses<__nv_bfloat16>(hd, q, k, v, out, m, l, ms, B, C, H, K, KV, q_offset, n_total, window, s);
+  return cudaErrorInvalidValue;
 }

@@ -10,11 +10,12 @@ takes seconds):
 Libraries land in ``build/repro_torch/`` at the repository root, named by
 a hash of the source, the shared headers and the flags, so a changed
 source rebuilds and an unchanged one is reused.  A library may hold
-several entry points (``chunk_attention.cu`` holds chunk attention and
-monolithic flash attention, ``paged_attention.cu`` paged decode and paged
-decode with row masses).  Nothing here runs at
-import time: a wrapper asks for its library on its first launch, and
-``build()`` compiles several sources at once, one ``nvcc`` process each.
+several entry points (``chunk_attention.cu`` holds chunk attention, chunk
+attention with column masses and monolithic flash attention,
+``paged_attention.cu`` paged decode and paged decode with row masses).
+Nothing here runs at import time: a wrapper asks for its library on its
+first launch, and ``build()`` compiles several sources at once, one
+``nvcc`` process each.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ _I = ctypes.c_int
 # C signatures of the extern "C" entry points (all return cudaError_t)
 SIGNATURES = {
     "chunk_attention": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "chunk_attention_masses": [_P] * 7 + [_I] * 10 + [_P],
     "flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "lookahead_score": [_P] * 7 + [_I] * 11 + [_P],
     "paged_decode_attention": [_P] * 8 + [_I] * 8 + [_P],

@@ -22,6 +22,7 @@ from repro_torch.kernels import ref
 #: kernel name -> (wrapper module, its launch-counter attribute)
 KERNEL_COUNTERS = {
     "chunk_attention": (_ck, "launches"),
+    "chunk_attention_masses": (_ck, "masses_launches"),
     "lookahead_score": (_lk, "launches"),
     "paged_decode_attention": (_pk, "launches"),
     "paged_decode_masses": (_pk, "mass_launches"),
@@ -75,12 +76,36 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    q_offset: int, window=None) -> torch.Tensor:
+                    q_offset: int, window=None, score_masses: bool = False,
+                    n_total: Optional[int] = None):
     """Attention of one chunk (B, C, H, hd) at ``q_offset`` over the
-    (B, K, KV, hd) buffer; both routes raise unless q_offset + C <= K."""
+    (B, K, KV, hd) buffer; both routes raise unless q_offset + C <= K.
+
+    With ``score_masses`` the result is ``(out, masses)``: ``masses[b, h,
+    j]`` is the summed softmax mass of column ``j`` over the chunk's rows
+    at positions below ``n_total`` (every row when None), float32 (B, H,
+    K), exact zeros where no such row sees the key; the h2o score of the
+    chunk.  ``out`` is the ``score_masses=False`` result on both routes:
+    kernel 2's is bitwise kernel 1's, and the plain route reuses the
+    unscored attention."""
     if _on_card(q):
-        return _ck.chunk_attention(q, k, v, q_offset=q_offset, window=window)
-    return ref.chunk_attention(q, k, v, q_offset=q_offset, window=window)
+        if not score_masses:
+            return _ck.chunk_attention(q, k, v, q_offset=q_offset,
+                                       window=window)
+        return _ck.chunk_attention_masses(
+            q, k, v, q_offset=q_offset,
+            n_total=q_offset + q.shape[1] if n_total is None else n_total,
+            window=window)
+    out = ref.chunk_attention(q, k, v, q_offset=q_offset, window=window)
+    if not score_masses:
+        return out
+    B, C = q.shape[:2]
+    row_valid = None
+    if n_total is not None:
+        row_valid = (q_offset + torch.arange(C, device=q.device)
+                     < n_total).expand(B, C)
+    return out, ref.chunk_column_masses(q, k, q_offset=q_offset,
+                                        window=window, row_valid=row_valid)
 
 
 def lookahead_score(q_obs: torch.Tensor, k: torch.Tensor, n_prompt: int, *,

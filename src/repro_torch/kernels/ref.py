@@ -158,6 +158,38 @@ def lookahead_score(
     return probs[..., :n_prompt].mean(dim=2)
 
 
+def chunk_column_masses(
+    q: torch.Tensor,  # (B, C, H, hd) rotary-encoded chunk queries
+    k: torch.Tensor,  # (B, K, KV, hd) key buffer; column j holds position j
+    *,
+    q_offset: int,  # absolute position of q row 0
+    window=None,
+    row_valid: Optional[torch.Tensor] = None,  # (B, C) real-row mask
+) -> torch.Tensor:
+    """Summed softmax column masses of the chunk's rows: (B, H, K) float32,
+    ``masses[b, h, j] = Σ_i softmax_i[j]`` over the rows ``row_valid``
+    keeps (all rows when None).  The row softmax is the chunk attention's
+    (causal on absolute positions, optional window, ``NEG_INF`` masking);
+    a column no kept row can see is an exact zero, so the h2o accumulator
+    summed over chunks matches the monolithic scores up to summation
+    order.  The plain version of kernel 2's second output."""
+    B, C, H, hd = q.shape
+    K, KV = k.shape[1], k.shape[2]
+    dev = q.device
+    kf = _expand_gqa(k, H // KV).float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(hd)
+    q_pos = q_offset + torch.arange(C, device=dev)
+    k_pos = torch.arange(K, device=dev)
+    ok = k_pos[None, :] <= q_pos[:, None]  # (C, K)
+    if window is not None:
+        ok &= (q_pos[:, None] - k_pos[None, :]) < window
+    logits = torch.where(ok[None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)  # (B, H, C, K)
+    if row_valid is not None:
+        probs = probs * row_valid[:, None, :, None].float()
+    return probs.sum(dim=2)
+
+
 def gather_paged(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Block-table view of a paged pool as the dense cache layout:
     pool (N, bs, ...) + table (B, nb) -> (B, nb*bs, ...); logical row c of

@@ -1,5 +1,6 @@
-"""Serving launcher of the port: LookaheadKV through the engine the JAX
-launcher picks for the same command line.
+"""Serving launcher of the port: KV-cache eviction under any single-pass
+policy (LookaheadKV by default) through the engine the JAX launcher picks
+for the same command line.
 
     # lockstep (ServingEngine): --requests prompts of --n-in tokens each
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
@@ -17,11 +18,19 @@ launcher picks for the same command line.
         --continuous --kv-pool-mb 256 --decode-evict \
         --decode-evict-interval 64 --budget 256 --chunk 256 --slots 4 \
         --prompt-lens 1024,2048,3072,4000 --max-new 192
+    # another policy: h2o, snapkv, pyramidkv, tova, streaming_llm, random
+    # on every route, full on the lockstep route
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --continuous --kv-pool-mb 256 --policy h2o --budget 256 \
+        --chunk 256 --slots 4 --prompt-lens 1024,2048,3072,4000 --max-new 32
 
-Weights and lookahead modules are drawn at random from ``--seed`` (fine
-for plumbing and speed; quality needs trained modules, ROADMAP A9).  The
-flags are those of the JAX launcher; the ones whose feature the port does
-not serve yet raise ``NotImplementedError`` naming their ROADMAP item.
+Weights (and, for ``lookaheadkv`` only, lookahead modules) are drawn at
+random from ``--seed`` (fine for plumbing and speed; quality needs trained
+modules, ROADMAP A9).  The flags are those of the JAX launcher; the ones
+whose feature the port does not serve yet raise ``NotImplementedError``
+naming their ROADMAP item: the draft-based policies ``laq``/``speckv`` on
+every route, and ``--continuous`` with ``full``, which the JAX launcher
+serves through its ``BucketedEngine`` (ROADMAP A3b).
 As in the JAX launcher, ``--decode-evict`` acts on the continuous routes
 only (the lockstep route does not take it).  ``--device cpu`` runs the
 plain PyTorch versions of the kernels.
@@ -141,8 +150,10 @@ def run(argv=None) -> dict:
     args = parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = tf.init_params(cfg, seed=args.seed, device=args.device)
-    gen = torch.Generator(device=args.device).manual_seed(args.seed + 1)
-    lkv = init_lookahead_params(gen, cfg, params["layers"])
+    lkv = None
+    if args.policy == "lookaheadkv":
+        gen = torch.Generator(device=args.device).manual_seed(args.seed + 1)
+        lkv = init_lookahead_params(gen, cfg, params["layers"])
 
     rng = np.random.default_rng(args.seed)
     if not args.continuous:

@@ -117,14 +117,19 @@ def chunk_prefill_attention(
     *,
     q_offset: int,
     window: Optional[int] = None,
+    score_masses: bool = False,  # h2o: the chunk's column masses too
+    n_total: Optional[int] = None,  # true prompt length (masks pad rows)
     lookahead_mask: Optional[torch.Tensor] = None,
     lora: Optional[dict] = None,
     lora_scale: float = 1.0,
     rope_tables: Optional[tuple] = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Streaming-prefill attention: project + rotate the chunk, write its
     K/V into the prompt buffer at ``q_offset`` and attend its queries over
-    the buffer (``ops.chunk_attention``).  Returns (out, rotated q).
+    the buffer (``ops.chunk_attention``).  Returns (out, rotated q,
+    masses): with ``score_masses`` the chunk's summed softmax column
+    masses (B, H, K) over its rows below ``n_total`` (kernel 2 on the
+    card), the h2o score of the chunk; None otherwise.
 
     The buffer must be deep enough for the write: ``q_offset + C <= K``
     raises otherwise (the JAX ``dynamic_update_slice`` would clamp the
@@ -137,12 +142,18 @@ def chunk_prefill_attention(
     # an updated copy of the buffer)
     k_buf[:, q_offset:q_offset + C] = k.to(k_buf.dtype)
     v_buf[:, q_offset:q_offset + C] = v.to(v_buf.dtype)
-    out = ops.chunk_attention(q, k_buf, v_buf, q_offset=q_offset,
-                              window=window)
+    masses = None
+    if score_masses:
+        out, masses = ops.chunk_attention(
+            q, k_buf, v_buf, q_offset=q_offset, window=window,
+            score_masses=True, n_total=n_total)
+    else:
+        out = ops.chunk_attention(q, k_buf, v_buf, q_offset=q_offset,
+                                  window=window)
     out = linear(out.reshape(B, C, a.q_dim), p["wo"],
                  lora=_lora_for(lora, "wo"), lora_mask=lookahead_mask,
                  lora_scale=lora_scale)
-    return out, q
+    return out, q, masses
 
 
 def dense_append_rows(cursor, capacity: int, batch: int, device,

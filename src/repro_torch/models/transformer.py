@@ -3,10 +3,13 @@ prefill (``prefill``), the streaming prefill (``prefill_chunk`` /
 ``prefill_finalize``), the dense decode cache and its slot surgery, and
 the decode step over a dense cache or the paged pool.
 
-The port covers the attention-only llama family and the paper's
-``lookaheadkv`` policy.  Per-layer parameters are stacked along a leading
-L axis (the JAX package's tree layout); the depth is a Python loop over
-layer slices, which are views of the stacked tensors.
+The port covers the attention-only llama family and every single-pass
+eviction policy of the JAX package (``lookaheadkv``, ``gt_oracle``, the
+window policies ``snapkv``/``pyramidkv``/``tova``, ``h2o`` and the
+position policies ``streaming_llm``/``random``/``full``), with uniform,
+pyramid or Ada-KV adaptive budgets.  Per-layer parameters are stacked
+along a leading L axis (the JAX package's tree layout); the depth is a
+Python loop over layer slices, which are views of the stacked tensors.
 
 Block: h += attn(rms_norm(h, ln1));  h += mlp(rms_norm(h, ln2))
 """
@@ -24,6 +27,7 @@ from repro_torch.core import eviction as ev
 from repro_torch.core import scoring
 from repro_torch.core.lookahead import append_lookahead, lora_scale
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import layer_window
@@ -98,6 +102,17 @@ def is_global_flags(cfg: ModelConfig) -> Optional[np.ndarray]:
     return None
 
 
+def check_policy(policy: Optional[str]) -> None:
+    """Raise for a policy the prefill functions do not serve: the
+    draft-based ones (not ported) and unknown names."""
+    if policy in scoring.MULTI_PASS:
+        raise NotImplementedError(
+            f"not ported yet: policy {policy!r} (draft-based, several "
+            "passes): ROADMAP A3b")
+    if policy not in (None,) + scoring.SINGLE_PASS:
+        raise ValueError(f"unknown policy {policy!r}")
+
+
 def _windows(cfg: ModelConfig) -> list:
     flags = is_global_flags(cfg)
     return [layer_window(cfg.attn, True if flags is None else bool(flags[i]))
@@ -156,29 +171,36 @@ def prefill(
     evict: Optional[EvictionConfig] = None,
     extra_slots: int = 0,  # empty tail rows for decode appends
     capture_scores: bool = False,
-    gt_boundary: Optional[int] = None,
+    gt_boundary: Optional[int] = None,  # gt_oracle: X|Y boundary in inputs
     mrope_positions: Optional[torch.Tensor] = None,
     encoder_embeds: Optional[torch.Tensor] = None,
     want_logits: str = "last",  # "last" | "all" | "none"
     prompt_lens: Optional[torch.Tensor] = None,
+    seeds: Optional[torch.Tensor] = None,  # (B,) request seeds (random)
 ) -> PrefillResult:
-    """The whole prompt in one forward pass (``ops.flash_attention``).
+    """The whole prompt in one forward pass (``ops.flash_attention``);
+    each layer, right after its pass, scores the prompt keys, pools the
+    scores and evicts its K/V to the budget, so only one layer's full K/V
+    is alive at a time.
 
-    With ``policy="lookaheadkv"`` the learned lookahead rows (and their
-    selective LoRA) are appended after the prompt; each layer, right after
-    its forward pass, scores the prompt keys from the lookahead queries
-    (``observation_scores``), pools the scores and evicts its K/V to the
-    budget, so only one layer's full K/V is alive at a time.  The decode
-    cache is {"attn": {k, v (L, B, cap, KV, hd), pos, mask (L, B, cap,
-    KV)}, "cursor": capacity (int), "next_pos": (B, 1)} with ``cap =
-    capacity + extra_slots``.  With ``policy=None`` there is no cache."""
+    Per policy: ``lookaheadkv`` appends the learned lookahead rows (and
+    their selective LoRA) and scores from them; ``gt_oracle`` scores from
+    the response rows ``inputs[:, gt_boundary:]`` (logits and positions
+    then stop at ``gt_boundary``); ``snapkv``/``pyramidkv`` score from the
+    last ``window_size`` prompt rows, ``tova`` from the last row, and both
+    force-keep those rows; ``h2o`` scores from every row (kernel 3 with
+    ``q_offset=0``); ``streaming_llm``, ``random`` (``seeds``: one per
+    row) and ``full`` use ``eviction.position_scores``.  ``pyramidkv``
+    takes per-layer budgets, ``evict.head_alloc="adaptive"`` per-head
+    budgets.  The decode cache is {"attn": {k, v (L, B, cap, KV, hd),
+    pos, mask (L, B, cap, KV)}, "cursor": capacity (int), "next_pos":
+    (B, 1)} with ``cap = capacity + extra_slots``.  With ``policy=None``
+    there is no cache."""
     _check_arch(cfg)
+    check_policy(policy)
     unported = [
-        (policy not in (None, "lookaheadkv"),
-         f"policy {policy!r}: ROADMAP A3 (other policies)"),
         (prompt_lens is not None,
-         "bucket-padded prefill (prompt_lens, BucketedEngine): ROADMAP A3"),
-        (gt_boundary is not None, "the gt_oracle pass: ROADMAP A3"),
+         "bucket-padded prefill (prompt_lens, BucketedEngine): ROADMAP A3b"),
         (capture_scores, "score capture for training: ROADMAP A9"),
         (mrope_positions is not None or encoder_embeds is not None,
          "M-RoPE and encoder inputs: ROADMAP A10"),
@@ -188,6 +210,8 @@ def prefill(
     for bad, what in unported:
         if bad:
             raise NotImplementedError(f"not ported yet: {what}")
+    if policy == "gt_oracle" and gt_boundary is None:
+        raise ValueError("gt_oracle needs gt_boundary")
     a = cfg.attn
     lk = cfg.lookahead
     evict = evict or EvictionConfig()
@@ -201,16 +225,34 @@ def prefill(
                              "(lkv_params)")
         h, lmask = append_lookahead(h, lkv_params)
     S = h.shape[1]
-    positions = torch.arange(S, device=h.device).expand(B, S)
+    dev = h.device
+    positions = torch.arange(S, device=dev).expand(B, S)
     tables = rope_tables(positions, a.head_dim, a.rope_theta)
+    # score geometry: the observation rows are [boundary, S); eviction
+    # keeps rows of the first n_keys
+    window_size = lk.window_size if lk else 32
+    boundary = {"lookaheadkv": n_real, "gt_oracle": gt_boundary,
+                "snapkv": S - window_size, "pyramidkv": S - window_size,
+                "tova": S - 1}.get(policy, S)
+    if boundary < 0:
+        raise ValueError(f"{policy}: a prompt of {S} tokens is shorter "
+                         f"than its {window_size}-row observation window")
+    n_keys = boundary if policy in scoring.FINAL_OBS else n_real
     do_evict = policy is not None
     if do_evict:
-        budgets, _ = _policy_budget_schedule(cfg, policy, evict.budget,
-                                             evict.pyramid_beta)
+        adaptive = evict.head_alloc == "adaptive" and policy != "full"
+        budgets, _ = _policy_budget_schedule(
+            cfg, policy, evict.budget if policy != "full" else n_keys,
+            evict.pyramid_beta)
         capacity = decode_cache_capacity(cfg, policy, evict,
-                                         n_keys_max=n_real)
+                                         n_keys_max=n_keys)
+        if policy in scoring.POSITION_POLICIES:
+            pos_scores = ev.position_scores(
+                policy, n_keys, B, a.num_kv_heads, sink=evict.sink,
+                seeds=seeds, device=dev)
     ls = lora_scale(cfg) if use_lookahead else 1.0
     lora_tree = lkv_params.get("lora") if use_lookahead else None
+    pool_kernel = lk.pool_kernel if lk else 7
     layers = []
     for layer, window in enumerate(_windows(cfg)):
         lp = layer_slice(params["layers"], layer)
@@ -223,32 +265,62 @@ def prefill(
         h = _ffn_residual(h + out, lp, cfg, lora_l=lora_l, lora_mask=lmask,
                           ls=ls)
         if do_evict:
-            # the observation rows' queries over every key, scored on the
-            # first n_real; the kernel takes contiguous rows
-            s_qh = scoring.observation_scores(
-                q[:, n_real:].contiguous(), k, n_real, window=window)
-            s_kv = scoring.postprocess(s_qh, a.num_kv_heads,
-                                       lk.pool_kernel if lk else 7)
+            if policy in scoring.OBS_POLICIES:
+                s_kv = scoring.postprocess(
+                    _observation_scores(policy, q, k, boundary, n_keys,
+                                        window),
+                    a.num_kv_heads, pool_kernel)
+                if policy in scoring.STREAMING_WINDOW:
+                    # scored keys cover [0, boundary): the window's
+                    # columns are zero-padded and force-kept
+                    s_kv = torch.nn.functional.pad(
+                        s_kv, (0, n_keys - s_kv.shape[-1]))
+                    s_kv = ev.keep_window(s_kv, S - boundary)
+            else:
+                s_kv = pos_scores
+            hb = (ev.adaptive_head_budgets(s_kv, evict.budget, capacity)
+                  if adaptive else None)
             layers.append(ev.evict_layer(
-                s_kv, k[:, :n_real], v[:, :n_real], capacity,
-                layer_budget=budgets[layer], extra_slots=extra_slots))
+                s_kv, k[:, :n_keys], v[:, :n_keys], capacity,
+                layer_budget=None if adaptive else budgets[layer],
+                head_budgets=hb, extra_slots=extra_slots))
         del q, k, v  # only one layer's full K/V is alive at a time
+    # gt_oracle: the "current" position is the X|Y boundary, not the end
+    # of the response rows
+    n_pos = gt_boundary if gt_boundary is not None else n_real
     cache = None
     if do_evict:
         cache = {
             "attn": {f: torch.stack([getattr(e, f) for e in layers])
                      for f in ev.EvictedKV._fields},
             "cursor": capacity,
-            "next_pos": torch.full((B, 1), n_real, dtype=torch.int32,
-                                   device=h.device),
+            "next_pos": torch.full((B, 1), n_pos, dtype=torch.int32,
+                                   device=dev),
         }
     logits = None
     if want_logits == "last":
-        logits = unembed(params, cfg, h[:, n_real - 1])
+        logits = unembed(params, cfg, h[:, n_pos - 1])
     elif want_logits == "all":
         logits = unembed(params, cfg, h[:, :n_real])
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     return PrefillResult(logits=logits, cache=cache, scores=None, aux=aux)
+
+
+def _observation_scores(policy: str, q: torch.Tensor, k: torch.Tensor,
+                        boundary: int, n_keys: int, window) -> torch.Tensor:
+    """One layer's per-q-head scores (B, H, n_scored) in the monolithic
+    prefill: h2o scores every row at ``q_offset=0`` over the ``n_keys``
+    prompt keys; the others score the rows ``[boundary, S)`` over every
+    key, on the first ``boundary`` (none when the window is the whole
+    prompt).  The kernel takes contiguous rows."""
+    if policy == "h2o":
+        return scoring.observation_scores(q.contiguous(), k, n_keys,
+                                          window=window, q_offset=0)
+    if boundary == 0:
+        B, _, H, _ = q.shape
+        return torch.zeros((B, H, 0), dtype=torch.float32, device=q.device)
+    return scoring.observation_scores(q[:, boundary:].contiguous(), k,
+                                      boundary, window=window)
 
 
 # ---------------------------------------------------------------------------
@@ -271,13 +343,19 @@ class ChunkState:
 def init_chunk_state(cfg: ModelConfig, policy: str, batch: int,
                      capacity: int, *, device="cuda") -> ChunkState:
     """Fresh state with a ``capacity``-deep KV buffer, which must hold the
-    prompt plus the appended observation rows."""
+    prompt plus the appended observation rows, and the policy's zero
+    ``ScoreState``."""
     _check_arch(cfg)
+    check_policy(policy)
     a = cfg.attn
+    lk = cfg.lookahead
     shape = (cfg.num_layers, batch, capacity, a.num_kv_heads, a.head_dim)
     k = torch.zeros(shape, dtype=torch_dtype(cfg), device=device)
-    return ChunkState(k=k, v=torch.zeros_like(k),
-                      score=scoring.init_score_state(policy), pos=0)
+    score = scoring.init_score_state(
+        policy, cfg.num_layers, batch, a.num_heads, a.head_dim, capacity,
+        window_size=lk.window_size if lk else 32, dtype=torch_dtype(cfg),
+        device=device)
+    return ChunkState(k=k, v=torch.zeros_like(k), score=score, pos=0)
 
 
 def prefill_chunk(
@@ -289,55 +367,81 @@ def prefill_chunk(
     *,
     policy: str,
 ) -> tuple[ChunkState, torch.Tensor]:
-    """Process one chunk starting at ``state.pos``.  Returns (state',
+    """Process one chunk starting at ``state.pos``: its K/V land in the
+    buffer and its scores in the state (in place).  Returns (state',
     logits (B, V) of the chunk's last real row).  Pad rows of a partial
     final chunk are inert: causal masking hides their keys from every real
-    row and finalize masks their columns out of the cache."""
-    scoring.init_score_state(policy)  # only final-observation policies
+    row, they carry no score (h2o's masses count only rows below
+    ``n_total``; the query window rolls in only real rows) and finalize
+    masks their columns out of the cache.  Only h2o asks the attention
+    for column masses (kernel 2 on the card; kernel 1 otherwise)."""
     a = cfg.attn
     h = embed(params, cfg, tokens)
     B, C = h.shape[:2]
     s = state.pos
     positions = (s + torch.arange(C, device=h.device)).expand(B, C)
     tables = rope_tables(positions, a.head_dim, a.rope_theta)
+    score = state.score
+    want_masses = policy in scoring.STREAMING_CUMULATIVE
     for layer, window in enumerate(_windows(cfg)):
         lp = layer_slice(params["layers"], layer)
         u = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        out, _ = attn_mod.chunk_prefill_attention(
+        out, q, masses = attn_mod.chunk_prefill_attention(
             lp["attn"], a, u, positions, state.k[layer], state.v[layer],
-            q_offset=s, window=window, rope_tables=tables)
+            q_offset=s, window=window, score_masses=want_masses,
+            n_total=n_total, rope_tables=tables)
         h = _ffn_residual(h + out, lp, cfg)
+        scoring.update_layer_scores(
+            policy, None if score.acc is None else score.acc[layer],
+            None if score.qbuf is None else score.qbuf[layer], q,
+            masses_l=masses, q_offset=s, n_total=n_total)
+    if score.acc is not None:
+        score = score._replace(cnt=score.cnt + min(max(n_total - s, 0), C))
     row = min(max(n_total - 1 - s, 0), C - 1)
     logits = unembed(params, cfg, h[:, row])
-    return ChunkState(k=state.k, v=state.v, score=state.score,
-                      pos=s + C), logits
+    return ChunkState(k=state.k, v=state.v, score=score, pos=s + C), logits
 
 
 def _chunk_observation_pass(params: dict, cfg: ModelConfig, state: ChunkState,
-                            n_total: int, *, lkv_params: dict
+                            n_total: int, *, policy: str,
+                            lkv_params: Optional[dict] = None,
+                            obs_tokens: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
-    """The lookahead observation pass: the learned lookahead rows (with
-    their selective LoRA) run through the stack at positions ``n_total +
-    arange(n_obs)`` against the materialised prompt KV, appending their
-    keys after the prompt so each row's softmax includes the observation
-    keys as in monolithic prefill.  Returns obs masses (L, B, H, K): the
-    mean over observation rows of each q head's softmax mass per key."""
+    """The final-observation pass of lookaheadkv (the learned lookahead
+    rows, with their selective LoRA) or gt_oracle (the response rows
+    ``obs_tokens``): the rows run through the stack at positions
+    ``n_total + arange(n_obs)`` against the materialised prompt KV,
+    appending their keys after the prompt so each row's softmax includes
+    the observation keys as in monolithic prefill.  Returns obs masses
+    (L, B, H, K): the mean over observation rows of each q head's softmax
+    mass per key."""
     a = cfg.attn
     L, B, K = state.k.shape[:3]
-    emb = lkv_params["emb"].to(torch_dtype(cfg))
-    n_obs = emb.shape[0]
-    h = emb[None].expand(B, n_obs, emb.shape[1])
-    ls = lora_scale(cfg)
-    lmask = torch.ones((B, n_obs, 1), dtype=h.dtype, device=h.device)
+    if policy == "lookaheadkv":
+        if lkv_params is None:
+            raise ValueError("lookaheadkv needs lookahead modules "
+                             "(lkv_params)")
+        emb = lkv_params["emb"].to(torch_dtype(cfg))
+        n_obs = emb.shape[0]
+        h = emb[None].expand(B, n_obs, emb.shape[1])
+        lora_tree, ls = lkv_params.get("lora"), lora_scale(cfg)
+        lmask = torch.ones((B, n_obs, 1), dtype=h.dtype, device=h.device)
+    else:  # gt_oracle: the response rows are the observation window
+        if obs_tokens is None:
+            raise ValueError("gt_oracle needs the response rows "
+                             "(obs_tokens)")
+        h = embed(params, cfg, obs_tokens)
+        n_obs = h.shape[1]
+        lora_tree, ls, lmask = None, 1.0, None
     positions = (n_total + torch.arange(n_obs, device=h.device)).expand(
         B, n_obs)
     tables = rope_tables(positions, a.head_dim, a.rope_theta)
     masses = []
     for layer, window in enumerate(_windows(cfg)):
         lp = layer_slice(params["layers"], layer)
-        lora_l = layer_slice(lkv_params.get("lora"), layer)
+        lora_l = layer_slice(lora_tree, layer)
         u = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        out, q = attn_mod.chunk_prefill_attention(
+        out, q, _ = attn_mod.chunk_prefill_attention(
             lp["attn"], a, u, positions, state.k[layer], state.v[layer],
             q_offset=n_total, window=window, lookahead_mask=lmask,
             lora=None if lora_l is None else lora_l.get("attn"),
@@ -351,20 +455,27 @@ def _chunk_observation_pass(params: dict, cfg: ModelConfig, state: ChunkState,
 
 def _policy_budget_schedule(cfg: ModelConfig, policy: str, budget: int,
                             beta: float) -> tuple[list, int]:
+    """(per-layer budgets, kept-slot capacity): PyramidKV's funnel, whose
+    first layer keeps up to ``int(2β/(β+1)·budget) + 1`` rows, or
+    ``budget`` on every layer."""
     if policy == "pyramidkv":
-        raise NotImplementedError("pyramidkv budgets: ROADMAP A3")
+        return (ev.pyramid_budgets(cfg.num_layers, budget, beta),
+                int(2.0 * beta / (beta + 1.0) * budget) + 1)
     return ev.uniform_budgets(cfg.num_layers, budget), budget
 
 
 def decode_cache_capacity(cfg: ModelConfig, policy: str,
                           evict: EvictionConfig, *, n_keys_max: int) -> int:
     """Kept-slot capacity of the decode cache a prefill under ``policy``
-    produces for prompts up to ``n_keys_max`` tokens."""
-    if evict.head_alloc == "adaptive" and policy != "full":
-        raise NotImplementedError("adaptive head budgets: ROADMAP A3")
+    produces for prompts up to ``n_keys_max`` tokens: the budget (the
+    prompt for ``full``), PyramidKV's first-layer capacity, or with
+    adaptive head budgets ``int(budget * adaptive_ceiling)``; the serving
+    engines size their slots and pool blocks with it."""
     _, capacity = _policy_budget_schedule(
         cfg, policy, evict.budget if policy != "full" else n_keys_max,
         evict.pyramid_beta)
+    if evict.head_alloc == "adaptive" and policy != "full":
+        capacity = int(evict.budget * evict.adaptive_ceiling)
     return min(capacity, n_keys_max)
 
 
@@ -377,38 +488,61 @@ def prefill_finalize(
     policy: str,
     evict: Optional[EvictionConfig] = None,
     lkv_params: Optional[dict] = None,
+    obs_tokens: Optional[torch.Tensor] = None,  # (B, n_obs) gt_oracle only
     extra_slots: int = 0,
+    seeds: Optional[torch.Tensor] = None,  # (B,) request seeds (random)
 ) -> dict:
-    """Close a streaming prefill: run the observation pass, turn its masses
-    into eviction scores and evict every layer once over the materialised
-    buffer.  Returns the decode cache {"attn": {k, v (L, B, cap, KV, hd),
-    pos, mask (L, B, cap, KV)}, "cursor": capacity, "next_pos": (B, 1)}
-    with ``cap = capacity + extra_slots``."""
-    if policy != "lookaheadkv":
-        raise NotImplementedError(
-            f"policy {policy!r} is not ported yet: ROADMAP A3")
-    if lkv_params is None:
-        raise ValueError("lookaheadkv needs lookahead modules (lkv_params)")
+    """Close a streaming prefill: run the deferred observation pass (for
+    lookaheadkv and gt_oracle), turn the ``ScoreState`` into eviction
+    scores (position policies: ``position_scores`` over the K-deep
+    buffer) and evict every layer once over the materialised buffer.
+    Returns the decode cache {"attn": {k, v (L, B, cap, KV, hd), pos, mask
+    (L, B, cap, KV)}, "cursor": capacity, "next_pos": (B, 1)} with ``cap
+    = capacity + extra_slots``: the kept slots of the monolithic
+    ``prefill``, with surplus slots masked invalid."""
+    check_policy(policy)
     a = cfg.attn
     lk = cfg.lookahead
     evict = evict or EvictionConfig()
     L, B, K = state.k.shape[:3]
-    obs = _chunk_observation_pass(params, cfg, state, n_total,
-                                  lkv_params=lkv_params)
-    budgets, _ = _policy_budget_schedule(cfg, policy, evict.budget,
-                                         evict.pyramid_beta)
-    capacity = decode_cache_capacity(cfg, policy, evict, n_keys_max=K)
     dev = state.k.device
+    obs = None
+    if policy in scoring.FINAL_OBS:
+        obs = _chunk_observation_pass(params, cfg, state, n_total,
+                                      policy=policy, lkv_params=lkv_params,
+                                      obs_tokens=obs_tokens)
+    budgets, _ = _policy_budget_schedule(
+        cfg, policy, evict.budget if policy != "full" else K,
+        evict.pyramid_beta)
+    capacity = decode_cache_capacity(cfg, policy, evict, n_keys_max=K)
+    adaptive = evict.head_alloc == "adaptive" and policy != "full"
     key_mask = (torch.arange(K, device=dev) < n_total).expand(B, K)
+    if policy in scoring.POSITION_POLICIES:
+        pos_scores = torch.where(
+            key_mask[:, None, :],
+            ev.position_scores(policy, K, B, a.num_kv_heads, sink=evict.sink,
+                               seeds=seeds, device=dev), NEG_INF)
+    sc = state.score
     layers = []
-    for layer in range(L):
-        s_kv = scoring.finalize_layer_scores(
-            policy, K, n_total, obs_masses_l=obs[layer],
-            num_kv_heads=a.num_kv_heads, pool_kernel=lk.pool_kernel)
+    for layer, window in enumerate(_windows(cfg)):
+        if policy in scoring.OBS_POLICIES:
+            s_kv = scoring.finalize_layer_scores(
+                policy, state.k[layer], n_total,
+                acc_l=None if sc.acc is None else sc.acc[layer], cnt=sc.cnt,
+                qbuf_l=None if sc.qbuf is None else sc.qbuf[layer],
+                obs_masses_l=None if obs is None else obs[layer],
+                num_kv_heads=a.num_kv_heads,
+                pool_kernel=lk.pool_kernel if lk else 7,
+                window_size=lk.window_size if lk else 32, window=window)
+        else:
+            s_kv = pos_scores
+        hb = (ev.adaptive_head_budgets(torch.clamp(s_kv, min=0.0),
+                                       evict.budget, capacity)
+              if adaptive else None)
         layers.append(ev.evict_layer(
             s_kv, state.k[layer], state.v[layer], capacity,
-            layer_budget=budgets[layer], extra_slots=extra_slots,
-            key_mask=key_mask))
+            layer_budget=None if adaptive else budgets[layer],
+            head_budgets=hb, extra_slots=extra_slots, key_mask=key_mask))
     attn = {f: torch.stack([getattr(e, f) for e in layers])
             for f in ev.EvictedKV._fields}
     return {

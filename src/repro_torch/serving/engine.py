@@ -13,10 +13,14 @@ token-budget step (vLLM-style mixed steps):
 Every iteration runs one decode chunk for the live slots and as many
 prefill chunks of the in-flight prompt as the leftover budget covers, so
 no live slot waits longer than one step behind a prompt of any length.
-At prompt end the lookahead observation pass scores the prompt's keys and
-each layer keeps its top ``budget`` rows per kv head.  Every request's
-evicted cache has the same shape, ``capacity + margin`` rows, whatever its
-prompt length, so it lands in a slot without reshaping anything:
+Each chunk streams the policy's scores (h2o: the chunk attention's
+column masses; snapkv/pyramidkv/tova: a rolled window of queries), and at
+prompt end finalize scores the prompt's keys (lookaheadkv: the lookahead
+observation pass) and each layer keeps its top rows per kv head.  Every
+request's evicted cache has the same shape, ``capacity + margin`` rows
+(``transformer.decode_cache_capacity``: the budget, PyramidKV's first
+layer, or the adaptive ceiling), whatever its prompt length, so it lands
+in a slot without reshaping anything:
 
 * paged (``config.kv_pool`` set): the kept rows are written into freshly
   allocated pool blocks and decode appends grow the slot block by block.
@@ -41,15 +45,18 @@ mid-generation.  On the dense caches the step itself overwrites the
 lightest row once the ``margin`` rows are full
 (``attention.decode_attention_step_evicting``).
 
-This is the JAX package's ``ContinuousEngine`` with policy
-``lookaheadkv`` and greedy decode.  Every other setting raises
-``NotImplementedError`` naming the ROADMAP item that brings it.  PyTorch
-runs eagerly, so there is no compile cache; on the card the attention
-kernels run through ``kernels/ops.py``.
+This is the JAX package's ``ContinuousEngine`` with greedy decode,
+under every single-pass policy it takes (not ``gt_oracle``, which needs
+the response, nor ``full``, whose caches are not shape-uniform).  Every
+other setting raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.  PyTorch runs eagerly, so there is no compile cache; on the
+card the attention kernels run through ``kernels/ops.py``.
 
 ``ServingEngine`` is the JAX package's lockstep engine (deprecated there,
 kept as the paper-shaped baseline): one batch of same-length prompts,
-monolithic prefill with eviction, then greedy decode of the whole batch.
+monolithic prefill with eviction, then greedy decode of the whole batch;
+it takes every single-pass policy but ``gt_oracle``.  ``random`` draws
+per request from ``Request.eviction_seed`` on both engines.
 """
 
 from __future__ import annotations
@@ -92,13 +99,29 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _policy_unported(policy: str) -> Optional[str]:
-    """What a policy other than ``lookaheadkv`` waits for, or None."""
-    if policy == "lookaheadkv":
-        return None
-    if policy == "h2o":
-        return "policy 'h2o' (fused chunk masses, kernel 2): ROADMAP A6"
-    return f"policy {policy!r}: ROADMAP A3 (other policies)"
+def _check_policy(policy: str, *, streaming: bool) -> None:
+    """Raise for a policy the engine does not serve: the draft-based ones
+    (``transformer.check_policy``); ``gt_oracle``, which scores from the
+    true response a server does not have; and on the chunked engine
+    ``full``, whose caches are as deep as each prompt (the JAX launcher
+    sends it to ``BucketedEngine``, not ported)."""
+    tf.check_policy(policy)
+    if policy is None:
+        raise ValueError("an engine needs an eviction policy")
+    if policy == "gt_oracle":
+        raise ValueError("policy 'gt_oracle' scores from the true response "
+                         "rows, which a server does not have")
+    if streaming and policy == "full":
+        raise NotImplementedError(
+            "not ported yet: policy 'full' keeps whole prompts, so its "
+            "caches are not shape-uniform; the JAX launcher serves it "
+            "through BucketedEngine: ROADMAP A3b")
+
+
+def _seeds(reqs, device) -> torch.Tensor:
+    """(B,) int32 per-request eviction seeds (the ``random`` policy)."""
+    return torch.as_tensor([r.eviction_seed for r in reqs],
+                           dtype=torch.int32, device=device)
 
 
 def paged_sweep(pool: dict, score: torch.Tensor, table: torch.Tensor,
@@ -170,7 +193,7 @@ class ServingEngine:
     length, and prefill and decode run back to back for the whole batch.
 
     ``serve`` runs ``policies.run_eviction`` (the monolithic prefill with
-    the lookahead rows, scoring and eviction, kernels 7 and 3 on the card)
+    scoring and eviction under ``policy``, kernels 7 and 3 on the card)
     and then ``policies.greedy_decode`` over the evicted dense cache
     (kernel 6), ``max_new_tokens`` steps with one shared cursor.  With
     ``decode_evict`` (a bool or a ``DecodeEvictionConfig``) the cache keeps
@@ -183,10 +206,8 @@ class ServingEngine:
                  lkv_params: Optional[dict] = None,
                  max_new_tokens: int = 64, eos_id: int = 0,
                  decode_evict=False, device="cuda"):
-        unported = _policy_unported(policy)
-        if unported:
-            raise NotImplementedError(f"not ported yet: {unported}")
-        if lkv_params is None:
+        _check_policy(policy, streaming=False)
+        if policy == "lookaheadkv" and lkv_params is None:
             raise ValueError("lookaheadkv serving needs lookahead modules "
                              "(lkv_params)")
         self.params, self.cfg, self.lkv_params = params, cfg, lkv_params
@@ -212,7 +233,8 @@ class ServingEngine:
         t0 = time.perf_counter()
         res = policies.run_eviction(
             self.policy, self.params, self.cfg, tokens, evict=self.evict,
-            lkv_params=self.lkv_params, extra_slots=self.decode_margin)
+            lkv_params=self.lkv_params, extra_slots=self.decode_margin,
+            seeds=_seeds(requests, self.device))
         _sync(self.device)  # the first-token logits are on the device
         ttft = time.perf_counter() - t0
         cache = res.cache
@@ -247,8 +269,8 @@ class ServingEngine:
 def _reject_unported(config: ServingConfig) -> None:
     """Raise for every setting the port does not serve, naming its ROADMAP
     item, instead of serving it differently from the JAX engine."""
+    _check_policy(config.policy, streaming=True)
     unported = [
-        (config.policy != "lookaheadkv", _policy_unported(config.policy)),
         (config.prefix_cache is not None, "prefix cache: ROADMAP A7"),
         (config.sampling is not None, "sampling: ROADMAP A8"),
         (config.harvest is not None or config.lkv_checkpoint is not None,
@@ -292,7 +314,7 @@ class ContinuousEngine:
                  lkv_params: Optional[dict] = None, device="cuda"):
         config = config or ServingConfig()
         _reject_unported(config)
-        if lkv_params is None:
+        if config.policy == "lookaheadkv" and lkv_params is None:
             raise ValueError("lookaheadkv serving needs lookahead modules "
                              "(lkv_params)")
         self.device = torch.device(device)
@@ -596,7 +618,7 @@ class ContinuousEngine:
         cache = tf.prefill_finalize(
             self.params, self.cfg, pf.state, pf.n, policy=self.policy,
             evict=self.evict, lkv_params=self.lkv_params,
-            extra_slots=self.decode_margin)
+            extra_slots=self.decode_margin, seeds=_seeds([r], self.device))
         if self.decode_evict.enabled:
             cache = tf.add_decode_eviction_scores(cache)
         if self.capture_admission:

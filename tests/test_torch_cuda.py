@@ -18,7 +18,12 @@ scores, float32 throughout, 2^-16 of the largest score.  Paged decode
 masses (kernel 5): its ``out`` bitwise kernel 4's, and each (sequence,
 head) row of masses within 2^-16 of that row's largest plain mass (both
 sides take float32 dot products and exponentials, a few float32 ulps
-apart).
+apart).  Chunk attention with column masses (kernel 2): its ``out``
+bitwise kernel 1's, each (sequence, head) row of masses within 2^-16 of
+that row's largest plain mass (the same float32 logits and exponentials,
+summed over the rows in another order), exact zeros where the plain
+masses are, and every row of masses summing to the number of counted
+rows within 1e-4 of it.
 """
 
 import numpy as np
@@ -83,11 +88,48 @@ def test_chunk_attention_matches_plain(dev, dtype, B, C, K, H, KV, hd, off,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,K,H,KV,hd,off,n_total,window", [
+    (1, 256, 4096, 32, 8, 128, 3840, 4000, None),  # h2o chunk; 96 pad rows
+    (1, 256, 4096, 32, 8, 128, 0, 4000, None),  # first chunk: tiles pruned
+    (2, 100, 1000, 8, 2, 64, 700, 790, None),  # K not a multiple of 64
+    (1, 256, 1000, 32, 8, 128, 500, 1000, 96),  # window 96
+    (1, 64, 300, 4, 4, 32, 200, 260, None),  # G = 1
+    (1, 64, 300, 64, 8, 128, 200, 264, None),  # G = 8
+])
+def test_chunk_attention_masses_matches_plain(dev, dtype, B, C, K, H, KV,
+                                              hd, off, n_total, window):
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = _randn(g, (B, C, H, hd), dtype, dev)
+    k = _randn(g, (B, K, KV, hd), dtype, dev)
+    v = _randn(g, (B, K, KV, hd), dtype, dev)
+    out, masses = ck.chunk_attention_masses(q, k, v, q_offset=off,
+                                            n_total=n_total, window=window)
+    plain1 = ck.chunk_attention(q, k, v, q_offset=off, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain1), "out must be bitwise kernel 1's"
+    _assert_rows_close(out, ref.chunk_attention(q, k, v, q_offset=off,
+                                                window=window), dtype,
+                       2 ** -5)
+    rv = (off + torch.arange(C, device=dev) < n_total).expand(B, C)
+    want = ref.chunk_column_masses(q, k, q_offset=off, window=window,
+                                   row_valid=rv)
+    err = (masses - want).abs().amax(-1)
+    tol = 2 ** -16 * want.abs().amax(-1)
+    assert bool(torch.all(err <= tol)), float((err - tol).max())
+    assert torch.all(masses[want == 0] == 0), "unseen keys: exact zeros"
+    n_rows = float(rv[0].sum())
+    torch.testing.assert_close(masses.sum(-1), torch.full_like(
+        masses[..., 0], n_rows), atol=1e-4 * n_rows, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,n_obs,Sk,H,KV,hd,n_prompt,off,window,masks", [
     (1, 32, 4096, 32, 8, 128, 4096, 4000, None, False),  # finalize form
     (4, 32, 2080, 32, 8, 128, 2048, None, None, False),  # lockstep prefill
     (2, 8, 300, 4, 2, 32, 292, None, None, True),  # monolithic form
     (2, 40, 250, 4, 2, 64, 250, 200, 30, True),  # two row tiles, window
+    (1, 32, 4096, 32, 8, 128, 4096, 3968, None, False),  # window finalize
+    (1, 2048, 2048, 32, 8, 128, 2048, 0, None, False),  # monolithic h2o
 ])
 def test_lookahead_score_matches_plain(dev, dtype, B, n_obs, Sk, H, KV, hd,
                                        n_prompt, off, window, masks):
@@ -253,10 +295,14 @@ def test_wrappers_count_launches(dev):
     table = torch.ones((1, 4), dtype=torch.int32, device=dev)
     pool = k[0].reshape(4, 16, 2, 32)
     pmask = torch.ones((4, 16, 2), dtype=torch.bool, device=dev)
+    ck.chunk_attention_masses(q, k, k, q_offset=10, n_total=15)
     pk.paged_decode_masses(q[:, 0], pool, pool, pmask, table)
     ops.paged_decode_attention(q[:, 0], pool, pool, pmask, table, depth=40,
                                score_masses=True)
     after = ops.launch_counts()
+    assert after["chunk_attention_masses"] == \
+        counts["chunk_attention_masses"] + 1
+    assert after["chunk_attention"] == counts["chunk_attention"]
     assert after["flash_attention"] == counts["flash_attention"] + 1
     assert after["decode_attention"] == counts["decode_attention"] + 1
     assert after["paged_decode_masses"] == counts["paged_decode_masses"] + 2

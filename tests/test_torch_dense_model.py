@@ -110,9 +110,8 @@ def test_prefill_without_policy_all_logits_match_jax(model):
 
 def test_prefill_refuses_unported_options(model):
     tok = torch.zeros((1, 8), dtype=torch.int32)
-    for kw, item in ((dict(policy="snapkv"), "A3"),
-                     (dict(prompt_lens=torch.ones(1)), "A3"),
-                     (dict(gt_boundary=4), "A3"),
+    for kw, item in ((dict(policy="laq"), "A3b"),
+                     (dict(prompt_lens=torch.ones(1)), "A3b"),
                      (dict(capture_scores=True), "A9")):
         with pytest.raises(NotImplementedError, match=item):
             ttf.prefill(model["tp"], model["tcfg"], tok, **kw)

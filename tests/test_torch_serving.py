@@ -199,9 +199,9 @@ def test_engine_matches_jax_paged_engine():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(policy="snapkv"), "A3"),
+    (dict(policy="laq"), "A3b"),
     (dict(harvest=object()), "A9"),
-    (dict(policy="h2o"), "A6"),
+    (dict(policy="speckv"), "A3b"),
     (dict(lkv_checkpoint="lookahead.npz"), "A9"),
     (dict(prefix_cache=object()), "A7"),
     (dict(sampling=object()), "A8"),
