@@ -26,7 +26,15 @@ kernel's plain version):
    attention and for the row masses, over the whole result for the
    scores.  Kernel 5's output must be bitwise kernel 4's, kernel 2's
    kernel 1's, and kernel 2's column masses must sum to the counted
-   rows.  Time kernel,
+   rows.  Kernels 3, 6 and 7 also at hymba-1.5b's attention shape (25 q /
+   5 kv heads of 64, window 1024 on its local layers, none on its global
+   ones).  Kernel 8 (the SSD scan, float32 arithmetic) at hymba-1.5b's
+   prefill (B 4 x S 2048, 50 heads of 64, d_state 16, chunk 128, bf16)
+   and its 32-row lookahead segment carrying the prompt's state, at
+   mamba2-130m's (24 heads, d_state 128), and on edge cases (ragged S,
+   S < chunk, S = 1, odd head counts, float32 inputs, initial states,
+   chunks 16, 32 and 256), each row of y and the final state within
+   2^-12 of the plain magnitude.  Time kernel,
    plain version and, where one PyTorch call computes the same function,
    that call (library_ms), each call on a cold L2.
 2. Serve through the port's engines on the llama3-8b smoke config in
@@ -40,7 +48,9 @@ kernel's plain version):
    adaptive head budgets, the dense engine under h2o, and the lockstep
    engine under h2o, snapkv and full; greedy tokens, admission and
    retirement kept sets, and the counts of sweeps, reclaimed blocks and
-   preemptions must be identical.
+   preemptions must be identical.  Then the SSM archs: hymba-smoke's
+   lockstep engine under lookaheadkv and h2o, and mamba2-smoke's prefill
+   and 8 decode steps; greedy tokens identical, kernel 8 launched.
 3. Serve llama3-8b at full width (random weights and lookahead modules
    from the seed; policy lookaheadkv unless named, budget 256) through
    ``repro_torch.launch.serve`` by each of its routes, with the launch
@@ -62,13 +72,23 @@ kernel's plain version):
       not; prefill ms per chunk beside (a)'s;
    f. dense-slot continuous pyramidkv: (c) with --policy pyramidkv
       (capacity 342, per-layer budgets printed); kernels 1, 3, 6 must
-      launch, kernel 2 not.
+      launch, kernel 2 not;
+   g. hymba-1.5b lockstep (its only route): (b)'s shape; kernels 8, 7, 3
+      and 6 must launch exactly 64, 32, 32 and 1,024 times (kernel 8 twice
+      per layer: the prompt, then the lookahead rows), kernels 1, 2, 4, 5
+      not;
+   h. mamba2-130m through the model functions (no engine serves an
+      attention-free arch): prefill(want_ssm_cache=True) of 4 x 2048
+      tokens and 32 greedy decode steps; kernel 8 once per layer (24), no
+      attention kernel.
 4. Where the time goes, with torch.profiler: (a) one more 2048-token
    request on the engine of 3a, then one decode chunk alone; (b) one
    more lockstep batch on the engine of 3b; (c) on the engine of 3d,
    one decode chunk with three live slots and one sweep, each alone,
-   and the score update timed: device-busy share, launches (per decode
-   step against 4a's), and device time by kernel family.
+   and the score update timed; (d) one more lockstep batch on the engine
+   of 3g: device-busy share, launches (per decode step against 4a's, or
+   per forward pass), and device time by kernel family (kernel 8's share
+   in 4d).
 
 Output: per-phase lines, then a JSON line of per-kernel numbers, the
 card's name and power limit, and as the last line
@@ -176,8 +196,8 @@ def check_rows(torch, got, want, rel: float, label: str) -> float:
 def phase_kernels(torch, mods) -> list:
     import torch.nn.functional as F
 
-    ck, lk, pk, fk, dk, ref = (mods[n] for n in ("ck", "lk", "pk", "fk",
-                                                 "dk", "ref"))
+    ck, lk, pk, fk, dk, sk, ref = (mods[n] for n in ("ck", "lk", "pk", "fk",
+                                                     "dk", "sk", "ref"))
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -192,6 +212,7 @@ def phase_kernels(torch, mods) -> list:
     # 2^-16
     REL_CHUNK, REL_PAGED, REL_SCORE = 2 ** -5, 2 ** -7, 2 ** -16
     H, KV, hd = 32, 8, 128
+    HYMBA_HEADS = (25, 5, 64)  # hymba-1.5b's attention: q heads, kv, hd
     G = H // KV
     itemsize = 2
 
@@ -321,8 +342,9 @@ def phase_kernels(torch, mods) -> list:
 
     # -- kernel 3: lookahead scores --------------------------------------------
     def score_case(B, n_obs, Sk, n_prompt, off, window, masks, label,
-                   timed=False, timed_kernel=False):
-        q, k = randn(B, n_obs, H, hd), randn(B, Sk, KV, hd)
+                   timed=False, timed_kernel=False, heads=(H, KV, hd)):
+        Hs, KVs, hds = heads
+        q, k = randn(B, n_obs, Hs, hds), randn(B, Sk, KVs, hds)
         kvm = rv = None
         if masks:
             kvm = torch.rand((B, n_prompt), generator=g, device=dev) > 0.2
@@ -349,10 +371,11 @@ def phase_kernels(torch, mods) -> list:
         plain = time_ms(torch, lambda: ref.lookahead_score(q, k, n_prompt,
                                                            **kw), iters=5)
         vis_keys = min(Sk, off + n_obs)
-        n_ops = 2 * hd * H * B * sum(min(Sk, off + i + 1)
-                                     for i in range(n_obs))
-        n_bytes = (itemsize * (B * n_obs * H * hd + B * vis_keys * KV * hd)
-                   + 4 * B * H * n_prompt)
+        n_ops = 2 * hds * Hs * B * sum(min(Sk, off + i + 1)
+                                       for i in range(n_obs))
+        n_bytes = (itemsize * (B * n_obs * Hs * hds
+                               + B * vis_keys * KVs * hds)
+                   + 4 * B * Hs * n_prompt)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
         print(f"  lookahead_score {label}: {ms:.4f} ms, plain {plain:.4f} "
               f"ms, bound {b_ms:.4f} ms ({b_by})")
@@ -376,6 +399,13 @@ def phase_kernels(torch, mods) -> list:
     score_case(1, 2048, 2048, 2048, 0, None, False,
                "monolithic h2o: 2048 rows at offset 0", timed_kernel=True)
     score_case(2, 40, 700, 700, 640, 96, True, "window 96, 2 row tiles")
+    # hymba-1.5b's lockstep scoring (25 q / 5 kv heads of 64): 32 lookahead
+    # rows after 2048 prompt rows, window 1024 on its local layers
+    score_case(4, 32, 2080, 2048, None, 1024, False,
+               "hymba local layer: B=4 Sk=2080 window 1024",
+               timed_kernel=True, heads=HYMBA_HEADS)
+    score_case(4, 32, 2080, 2048, None, None, False,
+               "hymba global layer: B=4 Sk=2080", heads=HYMBA_HEADS)
     results.append(dict(
         name="lookahead_score", route="cuda",
         source="src/repro_torch/csrc/lookahead_score.cu",
@@ -532,14 +562,21 @@ def phase_kernels(torch, mods) -> list:
         replaces="src/repro/kernels/paged_attention.py:266", **main5))
 
     # -- kernel 7: monolithic flash attention ---------------------------------
-    def flash_case(B, S, causal, window, label, timed=False):
-        q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+    def flash_case(B, S, causal, window, label, timed=False,
+                   timed_kernel=False, heads=(H, KV, hd)):
+        Hs, KVs, hds = heads
+        q, k, v = (randn(B, S, Hs, hds), randn(B, S, KVs, hds),
+                   randn(B, S, KVs, hds))
         kw = dict(causal=causal, window=window)
         got = fk.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         want = ref.flash_attention(q, k, v, **kw)
         err = check_rows(torch, got, want, REL_CHUNK,
                          f"flash_attention {label}")
+        if timed_kernel:
+            ms = time_ms(torch, lambda: fk.flash_attention(q, k, v, **kw),
+                         iters=5)
+            print(f"  flash_attention {label}: {ms:.4f} ms")
         if not timed:
             return None
         ms = time_ms(torch, lambda: fk.flash_attention(q, k, v, **kw))
@@ -564,21 +601,32 @@ def phase_kernels(torch, mods) -> list:
     flash_case(1, 1000, True, None, "S=1000 (ragged tile)")
     flash_case(2, 300, False, None, "S=300 non-causal")
     flash_case(1, 700, True, 128, "S=700 window 128")
+    flash_case(4, 2080, True, 1024, "hymba local layer: B=4 S=2080 window "
+               "1024", timed_kernel=True, heads=HYMBA_HEADS)
+    flash_case(4, 2080, True, None, "hymba global layer: B=4 S=2080",
+               timed_kernel=True, heads=HYMBA_HEADS)
     results.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/chunk_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:71", **main7))
 
     # -- kernel 6: dense decode attention -------------------------------------
-    def decode_case(label, kind, timed=False):
+    def decode_case(label, kind, timed=False, timed_kernel=False,
+                    heads=(H, KV, hd), window=None):
         B, C = 4, 289  # budget 256 + 33 append rows
-        q, k, v = randn(B, H, hd), randn(B, C, KV, hd), randn(B, C, KV, hd)
+        Hs, KVs, hds = heads
+        q, k, v = (randn(B, Hs, hds), randn(B, C, KVs, hds),
+                   randn(B, C, KVs, hds))
         mask = None
         if kind == "head":
             # main-path validity: kept rows (a few dropped per head), then
             # the appends written so far
-            mask = torch.rand((B, C, KV), generator=g, device=dev) > 0.05
+            mask = torch.rand((B, C, KVs), generator=g, device=dev) > 0.05
             mask[:, 272:] = False
+            if window is not None:  # the decode step folds it in
+                pos = torch.randint(0, 2080, (B, C, KVs), generator=g,
+                                    device=dev)
+                mask &= (2080 - pos) < window
         elif kind == "head-edge":
             mask = torch.rand((B, C, KV), generator=g, device=dev) > 0.3
             mask[1, :, 5] = False  # a fully masked head
@@ -599,6 +647,11 @@ def phase_kernels(torch, mods) -> list:
             check(bool(torch.all(got[1, 5 * G:6 * G] == 0)),
                   "decode_attention: a fully masked head must give exact "
                   "zeros")
+        if timed_kernel:
+            ms = time_ms(torch, lambda: dk.decode_attention(q, k, v,
+                                                            kv_mask=mask),
+                         iters=50)
+            print(f"  decode_attention {label}: {ms:.4f} ms")
         if not timed:
             return None
         ms = time_ms(torch, lambda: dk.decode_attention(q, k, v,
@@ -629,10 +682,104 @@ def phase_kernels(torch, mods) -> list:
     decode_case("per-head mask, dead head and sequence", "head-edge")
     decode_case("(B, C) mask, dead sequence", "row")
     decode_case("no mask", None)
+    decode_case("hymba local layer: 25/5 heads of 64, window 1024", "head",
+                timed_kernel=True, heads=HYMBA_HEADS, window=1024)
+    decode_case("hymba global layer: 25/5 heads of 64", "head",
+                heads=HYMBA_HEADS)
     results.append(dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:56", **main6))
+
+    # -- kernel 8: the Mamba-2 SSD chunked scan -------------------------------
+    def ssd_case(B, S, nh, hd, ds, chunk, label, *, dtype=bf16, state=None,
+                 views=True, timed=False):
+        """Kernel 8 against ``ref.ssd_scan_chunked`` on model-like inputs:
+        x, B and C views of one conv output (rows strided, as the Mamba-2
+        block passes them) unless ``views`` is False, dt = softplus(N - 2)
+        (the block's dt_bias shifts it down), A in -[1, 16] (a_init_range),
+        ``state`` None, "random" or a state tensor to carry in.  Each row of
+        y (one row of one head) must lie within 2^-12 of that row's largest
+        plain magnitude and the final state within 2^-12 of its largest
+        plain magnitude: float32 arithmetic on both sides, but the prefix
+        sums of the log-decays take other orders, and exp(L_t - L_s) of two
+        large L inherits their ~1e-5 absolute difference.  Returns (the
+        kernel's final state, timings or None)."""
+        def mk(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+        if views:
+            xbc = mk(B, S, nh * hd + 2 * ds)
+            x, Bm, Cm = torch.split(xbc, [nh * hd, ds, ds], dim=-1)
+            x = x.unflatten(-1, (nh, hd))
+            Bm, Cm = Bm.unflatten(-1, (1, ds)), Cm.unflatten(-1, (1, ds))
+        else:
+            x, Bm, Cm = mk(B, S, nh, hd), mk(B, S, 1, ds), mk(B, S, 1, ds)
+        dt = F.softplus(torch.randn((B, S, nh), generator=g, device=dev)
+                        - 2.0)
+        A = -(1.0 + 15.0 * torch.rand((nh,), generator=g, device=dev))
+        h0 = (torch.randn((B, nh, hd, ds), generator=g, device=dev)
+              if isinstance(state, str) else state)
+        kw = dict(chunk=chunk, initial_state=h0)
+        got_y, got_h = sk.ssd_scan(x, dt, A, Bm, Cm, **kw)
+        torch.cuda.synchronize()
+        want_y, want_h = ref.ssd_scan_chunked(x, dt, A, Bm, Cm, **kw)
+        err = check_rows(torch, got_y, want_y, REL_SSD, f"ssd_scan {label} y")
+        h_err, h_tol = max_err(got_h, want_h), tolerance(want_h, REL_SSD)
+        print(f"  ssd_scan {label} state: max_abs_err {h_err:.3e} (tol "
+              f"{h_tol:.3e} = 2^-12 max|plain|)")
+        check(h_err <= h_tol, f"ssd_scan {label}: state err {h_err} > "
+              f"{h_tol}")
+        if not timed:
+            return got_h, None
+        ms = time_ms(torch, lambda: sk.ssd_scan(x, dt, A, Bm, Cm, **kw))
+        plain = time_ms(torch, lambda: ref.ssd_scan_chunked(
+            x, dt, A, Bm, Cm, **kw), iters=3)
+        # bytes: each input read once, each output written once; operations
+        # (float32): per chunk of nv rows with P = nv (nv + 1) / 2 causal
+        # pairs, C.B^T once per (sequence, chunk) (shared by the heads), and
+        # per head the pair weights, the quadratic form, the carried-state
+        # term and the state update
+        isz = x.element_size()
+        n_bytes = (isz * (B * S * nh * hd + 2 * B * S * ds)
+                   + 4 * (B * S * nh + nh + B * S * nh * hd)
+                   + 4 * B * nh * hd * ds * (2 if h0 is not None else 1))
+        n_ops = 0
+        for c0 in range(0, S, chunk):
+            nv = min(chunk, S - c0)
+            pairs = nv * (nv + 1) // 2
+            n_ops += B * (2 * pairs * ds
+                          + nh * (pairs * (1 + 2 * hd) + 4 * nv * hd * ds))
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
+        print(f"  ssd_scan {label}: {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+              f"{n_ops / 1e9:.2f} GFLOP float32); no single library call "
+              "computes the scan")
+        return got_h, dict(max_abs_err=max(err, h_err), ms=ms, plain_ms=plain,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    REL_SSD = 2 ** -12
+    # hymba-1.5b's lockstep prefill (bf16): the 2048-row prompt, then the
+    # 32 lookahead rows chained on its final state (a ragged chunk)
+    h_prompt, main8 = ssd_case(4, 2048, 50, 64, 16, 128,
+                               "hymba prompt B=4 S=2048 nh=50 ds=16",
+                               timed=True)
+    ssd_case(4, 32, 50, 64, 16, 128, "hymba lookahead segment S=32 carried",
+             state=h_prompt)
+    ssd_case(4, 2048, 24, 64, 128, 128, "mamba2 B=4 S=2048 nh=24 ds=128",
+             timed=True)
+    ssd_case(2, 1000, 50, 64, 16, 128, "ragged S=1000", state="random")
+    ssd_case(2, 50, 24, 64, 128, 128, "S=50 < chunk", state="random")
+    ssd_case(4, 1, 50, 64, 16, 128, "S=1", state="random")
+    ssd_case(1, 300, 7, 32, 8, 32, "odd nh=7, chunk 32 (smoke)")
+    ssd_case(2, 500, 24, 64, 128, 128, "float32 inputs", dtype=torch.float32,
+             state="random", views=False)
+    ssd_case(1, 700, 5, 64, 16, 256, "chunk 256", state="random")
+    ssd_case(2, 96, 8, 16, 8, 16, "hd=16 chunk 16", views=False)
+    results.append(dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:75", **main8))
     return results
 
 
@@ -662,10 +809,6 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
              for n in (40, 27, 33, 45, 29, 36)]
     batch = rng.integers(0, cfg.vocab_size, (3, 41)).astype(np.int32)
 
-    def move(tree, device):
-        return {k: move(v, device) if isinstance(v, dict) else v.to(device)
-                for k, v in tree.items()}
-
     def kept(mask, pos):  # (L, rows, KV) -> {(layer, head): positions}
         return {(lyr, h): frozenset(pos[lyr, mask[lyr, :, h], h].tolist())
                 for lyr in range(mask.shape[0]) for h in range(mask.shape[2])}
@@ -682,8 +825,9 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
             num_slots=slots, max_new_tokens=max_new, eos_id=-1,
             kv_pool=pool, capture_admission=True, **config)
         eng = sv.ContinuousEngine(
-            move(params, device), cfg, sc,
-            lkv_params=move(lkv, device) if policy == "lookaheadkv" else None,
+            _move(params, device), cfg, sc,
+            lkv_params=(_move(lkv, device) if policy == "lookaheadkv"
+                        else None),
             device=device)
         # per-request seeds: the random policy draws from them
         done = eng.run([sv.Request(uid=i, prompt=p, max_new_tokens=max_new,
@@ -704,8 +848,8 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
         return out, counts
 
     def lockstep(device, policy="lookaheadkv"):
-        p = move(params, device)
-        lk = move(lkv, device) if policy == "lookaheadkv" else None
+        p = _move(params, device)
+        lk = _move(lkv, device) if policy == "lookaheadkv" else None
         reqs = [sv.Request(uid=i, prompt=row, max_new_tokens=8,
                            seed=2000 + i) for i, row in enumerate(batch)]
         # the kept sets of the batch's prefill, then the engine's tokens
@@ -783,6 +927,69 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
                   f"{label}: the pool never ran dry (no preemption)")
 
 
+def phase_ssm_parity(torch, mods, devices=("cuda", "cpu")) -> None:
+    """The SSM archs on ``devices[0]`` (the card) against ``devices[1]``
+    (the CPU), float32 smoke configs: the hybrid hymba-smoke through the
+    lockstep engine under lookaheadkv and h2o (3 prompts of 45 tokens, 8
+    new), and the attention-free mamba2-smoke through ``prefill(
+    want_ssm_cache=True)`` and 8 greedy decode steps; greedy tokens must be
+    identical, and kernel 8 must launch on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    tf, sv, pol, ops = mods["tf"], mods["serving"], mods["policies"], \
+        mods["ops"]
+    get = mods["configs"].get_smoke_config
+    hcfg = dataclasses.replace(get("hymba-1.5b"), dtype="float32")
+    mcfg = dataclasses.replace(get("mamba2-130m"), dtype="float32")
+    hp = tf.init_params(hcfg, seed=SEED, device="cpu")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    hl = mods["lookahead"].init_lookahead_params(gen, hcfg, hp["layers"])
+    mp = tf.init_params(mcfg, seed=SEED, device="cpu")
+    rng = np.random.default_rng(SEED + 3)
+    hbatch = rng.integers(0, hcfg.vocab_size, (3, 45)).astype(np.int32)
+    mbatch = rng.integers(0, mcfg.vocab_size, (3, 45)).astype(np.int32)
+
+    def hymba(device, policy):
+        eng = sv.ServingEngine(
+            _move(hp, device), hcfg, policy=policy,
+            evict=mods["EvictionConfig"](budget=16),
+            lkv_params=(_move(hl, device) if policy == "lookaheadkv"
+                        else None),
+            max_new_tokens=8, eos_id=-1, device=device)
+        done = eng.serve([sv.Request(uid=i, prompt=row, max_new_tokens=8)
+                          for i, row in enumerate(hbatch)])
+        return [r.out_tokens for r in done]
+
+    def mamba(device):
+        p = _move(mp, device)
+        res = tf.prefill(p, mcfg, torch.as_tensor(mbatch, device=device),
+                         want_ssm_cache=True)
+        first = torch.argmax(res.logits, dim=-1)[:, None].to(torch.int32)
+        toks, _ = pol.greedy_decode(p, mcfg, first, res.cache, 8)
+        return toks.cpu().tolist()
+
+    for label, run in (("hymba-smoke lockstep lookaheadkv",
+                        lambda d: hymba(d, "lookaheadkv")),
+                       ("hymba-smoke lockstep h2o", lambda d: hymba(d, "h2o")),
+                       ("mamba2-smoke prefill + decode", mamba)):
+        ops.reset_launch_counts()
+        got = run(devices[0])
+        n8 = ops.launch_counts()["ssd_scan"]
+        want = run(devices[1])
+        print(f"  {label}: cuda {got} cpu {want}; kernel 8 launched {n8} "
+              "times on the card")
+        check(got == want, f"ssm parity ({label}): tokens differ between "
+              "card and CPU")
+        check(n8 > 0, f"ssm parity ({label}): kernel 8 never launched")
+
+
+def _move(tree, device):
+    return {k: _move(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: full-width serve
 # ---------------------------------------------------------------------------
@@ -829,6 +1036,15 @@ ROUTES = {
          "--prompt-lens", ",".join(map(str, LENS)), "--policy", "pyramidkv"],
         32, ("chunk_attention", "lookahead_score", "decode_attention"),
         ("chunk_attention_masses",)),
+    # the hybrid hymba-1.5b (its only route): 3b's shape; every layer's SSM
+    # runs kernel 8 twice (the prompt, then the lookahead rows chained on
+    # its state)
+    "hybrid lockstep": (
+        ["--arch", "hymba-1.5b", "--requests", "4", "--n-in", "2048"], 32,
+        ("flash_attention", "lookahead_score", "decode_attention",
+         "ssd_scan"),
+        ("chunk_attention", "chunk_attention_masses",
+         "paged_decode_attention", "paged_decode_masses")),
 }
 
 
@@ -851,7 +1067,7 @@ def phase_serve(torch, mods, route: str) -> tuple:
         print(f"  uid {r.uid}: prompt {len(r.prompt)} ttft "
               f"{r.ttft_s * 1e3:.1f} ms, first tokens {r.out_tokens[:6]}")
     dec_tokens = sum(len(r.out_tokens) - 1 for r in done)
-    if route == "lockstep":
+    if "lockstep" in route:
         # one batch: prefill ends at the first-token logits (TTFT), then
         # 32 decode steps for the whole batch (the last one's token unused)
         ttft = done[0].ttft_s
@@ -878,7 +1094,7 @@ def phase_serve(torch, mods, route: str) -> tuple:
           f"{eng.pool.blocks_reclaimed_decode} reclaimed mid-generation"
           if getattr(eng, "pool", None) is not None else
           f"decode KV {eng.kv_device_bytes() / 2**20:.1f} MiB"
-          if route != "lockstep" else
+          if "lockstep" not in route else
           f"decode KV {eng.kv_device_bytes(4) / 2**20:.1f} MiB")
     print(f"  peak torch.cuda.max_memory_allocated while serving "
           f"{res['peak_bytes'] / 2**30:.2f} GiB; {kv}")
@@ -906,6 +1122,15 @@ def phase_serve(torch, mods, route: str) -> tuple:
               f"{eng.evict.pyramid_beta}); layer budgets {budgets}")
         check(eng.capacity == cap == 342, f"{route}: capacity "
               f"{eng.capacity}, expected 342")
+    if route == "hybrid lockstep":
+        # per layer: kernel 8 for the prompt and for the lookahead rows,
+        # kernels 7 and 3 once; kernel 6 once per layer per decode step
+        L, steps = res["cfg"].num_layers, eng.max_new_tokens
+        want = {"ssd_scan": 2 * L, "flash_attention": L,
+                "lookahead_score": L, "decode_attention": steps * L}
+        got = {k: counts[k] for k in want}
+        print(f"  launches {got}, predicted {want}: {got == want}")
+        check(got == want, f"{route}: launches {got}, expected {want}")
     if route == "paged decode-evict":
         c = eng.counts
         check(c["decode_evict_sweeps"] >= 8, f"{route}: "
@@ -915,6 +1140,60 @@ def phase_serve(torch, mods, route: str) -> tuple:
         check(c["max_concurrency"] >= 2, f"{route}: requests never "
               "overlapped (max concurrency 1)")
     return counts, res
+
+
+def phase_mamba(torch, mods) -> dict:
+    """mamba2-130m at full width (24 layers, d 768, 24 SSM heads of 64, d_state
+    128, bf16; random weights from the seed) through the model functions
+    (no engine serves an attention-free arch): ``prefill(want_ssm_cache=
+    True)`` of 4 x 2048 tokens, then 32 steps of ``greedy_decode``.  The
+    launch counts are set to 0 just before and read just after: kernel 8
+    once per layer, no attention kernel.  Returns the counts."""
+    import numpy as np
+
+    tf, pol, ops = mods["tf"], mods["policies"], mods["ops"]
+    cfg = mods["configs"].get_config("mamba2-130m")
+    params = tf.init_params(cfg, seed=SEED, device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (4, 2048)).astype(np.int32), device="cuda")
+    steps = 32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = tf.prefill(params, cfg, tokens, want_ssm_cache=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    first = torch.argmax(res.logits, dim=-1)[:, None].to(torch.int32)
+    toks, cache = pol.greedy_decode(params, cfg, first, res.cache, steps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(toks.shape) == (4, steps), f"3h: tokens {tuple(toks.shape)}")
+    check(bool(torch.isfinite(res.logits[:, :cfg.vocab_size]).all()),
+          "3h: non-finite prefill logits")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "3h: a token outside the vocab")
+    check(bool(torch.isfinite(cache["ssm"]["state"]).all()),
+          "3h: non-finite SSM state")
+    check(set(cache) == {"ssm", "next_pos"}, f"3h: cache keys {set(cache)}")
+    pre, dec = t1 - t0, t2 - t1
+    dec_tokens = 4 * (steps - 1)
+    print(f"  prefill 4 x 2048 tokens {pre * 1e3:.1f} ms; decode {steps} "
+          f"steps in {dec:.2f} s ({dec / steps * 1e3:.1f} ms/step) = "
+          f"{dec_tokens / dec:.1f} tokens/s; peak "
+          f"torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; first "
+          f"tokens {toks[:, :6].tolist()}")
+    print(f"  kernel launches in this run: {counts}")
+    want = cfg.num_layers
+    check(counts["ssd_scan"] == want, f"3h: kernel 8 launched "
+          f"{counts['ssd_scan']} times, expected {want}")
+    check(all(n == 0 for k, n in counts.items() if k != "ssd_scan"),
+          "3h: an attention kernel was launched")
+    print(f"  kernel 8 launches {counts['ssd_scan']} = {want} layers; no "
+          "attention kernel")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -935,6 +1214,7 @@ def kernel_families(torch, prof) -> tuple:
                 ("paged_masses", "paged_decode_masses (kernel 5)"),
                 ("paged_decode", "paged_decode_attention"),
                 ("decode_kernel", "decode_attention"),
+                ("ssd_scan", "ssd_scan (kernel 8)"),
                 ("gemm", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"),
                 ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"))
     kernels, other = {}, {}
@@ -1208,7 +1488,8 @@ def profile_evict(torch, mods, res, base_per_step) -> None:
 
 
 def profile_lockstep(torch, mods, res) -> None:
-    """One more lockstep batch (4 x 2048 tokens, 32 new) on the engine."""
+    """One more lockstep batch (4 x 2048 tokens, 32 new) on the engine of
+    3b (llama3-8b) or of 3g (hymba-1.5b)."""
     import numpy as np
 
     eng, cfg = res["engine"], res["cfg"]
@@ -1224,8 +1505,8 @@ def profile_lockstep(torch, mods, res) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    phase_profile(torch, "lockstep, one batch of 4 x 2048 tokens",
-                  serve_once, lambda: 1 + eng.max_new_tokens)
+    phase_profile(torch, f"{cfg.name} lockstep, one batch of 4 x 2048 "
+                  "tokens", serve_once, lambda: 1 + eng.max_new_tokens)
 
 
 def load_modules(torch) -> dict:
@@ -1241,6 +1522,7 @@ def load_modules(torch) -> dict:
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import lookahead_score as lk
     from repro_torch.kernels import paged_attention as pk
+    from repro_torch.kernels import ssd_scan as sk
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
     from repro_torch.serving import engine
@@ -1251,7 +1533,7 @@ def load_modules(torch) -> dict:
                 policies=policies, scoring=scoring, engine=engine,
                 EvictionConfig=EvictionConfig, ops=ops,
                 build=build, ref=ref, ck=ck, lk=lk, pk=pk, fk=fk, dk=dk,
-                serve=serve, tf=tf)
+                sk=sk, serve=serve, tf=tf)
 
 
 def phase_build(mods) -> None:
@@ -1277,30 +1559,36 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     t_all = time.perf_counter()
 
+    def header(text: str) -> None:  # a phase's title and the time so far
+        print(f"{text} [{time.perf_counter() - t_all:.0f} s]", flush=True)
+
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on {kind}")
     phase_build(mods)
 
-    print("phase 1: kernels against their plain versions (bfloat16)",
-          flush=True)
+    header("phase 1: kernels against their plain versions (bfloat16)")
     kernels = phase_kernels(torch, mods)
 
-    print("phase 2: engines on the card vs on the CPU (llama3-8b smoke, "
-          "float32)", flush=True)
+    header("phase 2: engines on the card vs on the CPU (llama3-8b smoke, "
+           "float32)")
     phase_engine_parity(torch, mods)
+    header("phase 2: the SSM archs on the card vs on the CPU (hymba-smoke, "
+           "mamba2-smoke, float32)")
+    phase_ssm_parity(torch, mods)
 
     # each other policy's cell runs just before the lookaheadkv cell of
     # its route, so that no profiler phase comes between the two that are
     # compared (host times drift within a call)
-    letters = dict(zip(ROUTES, "abcdef"))
+    letters = dict(zip(ROUTES, "abcdefg"))
     pairs = (("paged continuous h2o", "paged continuous"),
              ("dense-slot continuous pyramidkv", "dense-slot continuous"))
     order = ("paged continuous h2o", "paged continuous", "lockstep",
              "dense-slot continuous pyramidkv", "dense-slot continuous",
-             "paged decode-evict")
+             "paged decode-evict", "hybrid lockstep")
     counts, base_per_step, chunk_ms = {}, None, {}
     for route in order:
-        print(f"phase 3{letters[route]}: serve llama3-8b at full width, "
-              f"{route}", flush=True)
+        arch = "hymba-1.5b" if route == "hybrid lockstep" else "llama3-8b"
+        header(f"phase 3{letters[route]}: serve {arch} at full width, "
+               f"{route}")
         counts[route], res = phase_serve(torch, mods, route)
         c = getattr(res["engine"], "counts", {})
         if c.get("prefill_chunks"):
@@ -1312,26 +1600,30 @@ def main() -> None:
                       f"{chunk_ms[base]:.1f} for lookaheadkv "
                       f"(3{letters[base]}), run one after the other")
         if route == "paged continuous":
-            print("phase 4a: where the time goes (torch.profiler)",
-                  flush=True)
+            header("phase 4a: where the time goes (torch.profiler)")
             base_per_step = profile_paged(torch, mods, res)
         elif route == "lockstep":
-            print("phase 4b: where the time goes (torch.profiler)",
-                  flush=True)
+            header("phase 4b: where the time goes (torch.profiler)")
             profile_lockstep(torch, mods, res)
         elif route == "paged decode-evict":
-            print("phase 4c: where the time goes (torch.profiler)",
-                  flush=True)
+            header("phase 4c: where the time goes (torch.profiler)")
             profile_evict(torch, mods, res, base_per_step)
+        elif route == "hybrid lockstep":
+            header("phase 4d: where the time goes (torch.profiler)")
+            profile_lockstep(torch, mods, res)
         del res  # free this route's weights before the next one's
         torch.cuda.empty_cache()
+    header("phase 3h: mamba2-130m at full width, prefill and decode")
+    counts["mamba2"] = phase_mamba(torch, mods)
     # launches on the main path: kernels 1, 3, 4 from the paged route,
     # kernels 7 and 6 from the lockstep route, kernel 5 from the
-    # decode-eviction route, kernel 2 from the h2o route
+    # decode-eviction route, kernel 2 from the h2o route, kernel 8 from
+    # the hybrid lockstep route
     route_of = {"flash_attention": "lockstep",
                 "decode_attention": "lockstep",
                 "paged_decode_masses": "paged decode-evict",
-                "chunk_attention_masses": "paged continuous h2o"}
+                "chunk_attention_masses": "paged continuous h2o",
+                "ssd_scan": "hybrid lockstep"}
     for k in kernels:
         k["launches"] = counts[route_of.get(k["name"],
                                             "paged continuous")][k["name"]]

@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_config(arch_id)`` /
 ``get_smoke_config(arch_id)``.
 
-Slice 1 serves the paper's llama family only.  Every other architecture
-of the JAX package's registry raises ``KeyError`` naming the ROADMAP item
+The port serves the paper's llama family and the SSM archs (the hybrid
+hymba-1.5b, the attention-free mamba2-130m).  Every other architecture of
+the JAX package's registry raises ``KeyError`` naming the ROADMAP item
 that brings it to the port.
 """
 
@@ -15,6 +16,8 @@ from repro_torch.common.config import ModelConfig
 _MODULES = {
     "llama3-8b": "llama3_8b",
     "tiny-llama": "tiny_llama",
+    "hymba-1.5b": "hymba_1_5b",
+    "mamba2-130m": "mamba2_130m",
 }
 
 # arch id -> ROADMAP item that ports it
@@ -27,8 +30,6 @@ _LATER = {
     "phi3.5-moe-42b-a6.6b": "ROADMAP A10 (MoE archs)",
     "qwen2-vl-72b": "ROADMAP A10 (VLM and audio archs)",
     "whisper-small": "ROADMAP A10 (VLM and audio archs)",
-    "mamba2-130m": "ROADMAP A10 (SSM archs, kernel 8 ssd_scan)",
-    "hymba-1.5b": "ROADMAP A10 (SSM archs, kernel 8 ssd_scan)",
 }
 
 

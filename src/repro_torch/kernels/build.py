@@ -33,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("chunk_attention", "lookahead_score", "paged_attention",
-           "decode_attention")
+           "decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # dtype codes of csrc/common.cuh
@@ -50,12 +50,14 @@ SIGNATURES = {
     "paged_decode_attention": [_P] * 8 + [_I] * 8 + [_P],
     "paged_decode_masses": [_P] * 9 + [_I] * 8 + [_P],
     "decode_attention": [_P] * 5 + [_I] * 7 + [_P],
+    "ssd_scan": [_P] * 8 + [_I] * 10 + [_P],
 }
 # the entry point a source's library offers by default
 _ENTRY = {"chunk_attention": "chunk_attention",
           "lookahead_score": "lookahead_score",
           "paged_attention": "paged_decode_attention",
-          "decode_attention": "decode_attention"}
+          "decode_attention": "decode_attention",
+          "ssd_scan": "ssd_scan"}
 
 _libs: dict = {}
 

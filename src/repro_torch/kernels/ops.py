@@ -18,6 +18,7 @@ from repro_torch.kernels import flash_attention as _fk
 from repro_torch.kernels import lookahead_score as _lk
 from repro_torch.kernels import paged_attention as _pk
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _sk
 
 #: kernel name -> (wrapper module, its launch-counter attribute)
 KERNEL_COUNTERS = {
@@ -28,6 +29,7 @@ KERNEL_COUNTERS = {
     "paged_decode_masses": (_pk, "mass_launches"),
     "flash_attention": (_fk, "launches"),
     "decode_attention": (_dk, "launches"),
+    "ssd_scan": (_sk, "launches"),
 }
 
 
@@ -156,3 +158,38 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return out
     return out, ref.paged_decode_masses(q, k_pool, mask_pool, table,
                                         depth=depth, **kw)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
+             initial_state: Optional[torch.Tensor] = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-2 SSD chunked scan: x (B, S, nh, hd), dt (B, S, nh), A
+    (nh,), Bm/Cm (B, S, 1, ds), initial_state (B, nh, hd, ds) or None ->
+    (y (B, S, nh, hd), final state (B, nh, hd, ds)), both float32.  Any S
+    (a ragged last chunk is exact) and any nh, on both routes."""
+    if _on_card(x):
+        return _sk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                            initial_state=initial_state)
+    return ref.ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=chunk,
+                                initial_state=initial_state)
+
+
+def ssd_step(x_t: torch.Tensor, dt_t: torch.Tensor, A: torch.Tensor,
+             B_t: torch.Tensor, C_t: torch.Tensor, state: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode token of the SSD recurrence: x_t (B, nh, hd), dt_t (B,
+    nh), A (nh,), B_t/C_t (B, G, ds), state (B, nh, hd, ds) float32 ->
+    (y_t (B, nh, hd) in x_t's type, new state float32).  Plain PyTorch on
+    every device (the JAX package's is plain jnp too): a few elementwise
+    launches per layer, no scan."""
+    nh = x_t.shape[1]
+    G = B_t.shape[1]
+    Bf = torch.repeat_interleave(B_t, nh // G, dim=1).float()
+    Cf = torch.repeat_interleave(C_t, nh // G, dim=1).float()
+    x32, dt32 = x_t.float(), dt_t.float()
+    decay = torch.exp(A.float()[None] * dt32)  # (B, nh)
+    state = state * decay[..., None, None] + (
+        (dt32[..., None] * x32)[..., None] * Bf[..., None, :])
+    y = torch.einsum("bnhs,bns->bnh", state, Cf)
+    return y.to(x_t.dtype), state

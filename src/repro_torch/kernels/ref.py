@@ -261,3 +261,97 @@ def paged_decode_masses(
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(logits - m), 0.0)
     return p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD scan (ngroups = 1 in every config: B/C shared by the heads)
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (B, S, nh, hd) pre-discretisation inputs
+    dt: torch.Tensor,  # (B, S, nh) softplus'd timesteps
+    A: torch.Tensor,  # (nh,) negative decay rates
+    Bm: torch.Tensor,  # (B, S, G, ds)
+    Cm: torch.Tensor,  # (B, S, G, ds)
+    *,
+    initial_state: Optional[torch.Tensor] = None,  # (B, nh, hd, ds)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential recurrence (the oracle; tests only):
+
+        h_t = exp(A dt_t) h_{t-1} + dt_t x_t ⊗ B_t,   y_t = h_t · C_t
+
+    Returns (y (B, S, nh, hd), final state (B, nh, hd, ds)), float32."""
+    B, S, nh, hd = x.shape
+    G, ds = Bm.shape[2], Bm.shape[3]
+    Bf = torch.repeat_interleave(Bm, nh // G, dim=2).float()
+    Cf = torch.repeat_interleave(Cm, nh // G, dim=2).float()
+    x, dt, A = x.float(), dt.float(), A.float()
+    h = (torch.zeros((B, nh, hd, ds), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(S):
+        decay = torch.exp(A[None] * dt[:, t])  # (B, nh)
+        h = h * decay[..., None, None] + (
+            (dt[:, t, :, None] * x[:, t])[..., None] * Bf[:, t, :, None, :])
+        ys.append(torch.einsum("bnhs,bns->bnh", h, Cf[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def _decay(x: torch.Tensor) -> torch.Tensor:
+    """exp of a log-decay clipped to [-60, 0], as every SSD exponent is."""
+    return torch.exp(torch.clamp(x, -60.0, 0.0))
+
+
+def ssd_scan_chunked(
+    x: torch.Tensor,  # (B, S, nh, hd)
+    dt: torch.Tensor,  # (B, S, nh)
+    A: torch.Tensor,  # (nh,)
+    Bm: torch.Tensor,  # (B, S, G, ds)
+    Cm: torch.Tensor,  # (B, S, G, ds)
+    *,
+    chunk: int,
+    initial_state: Optional[torch.Tensor] = None,  # (B, nh, hd, ds)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked state-space-duality scan (the JAX package's
+    ``ops.ssd_scan_chunked_jnp``): within a chunk of ``chunk`` rows a
+    masked quadratic form, y_t = sum_{s<=t} (C_t.B_s) exp(L_t - L_s) dt_s
+    x_s + (C_t.h) exp(L_t) with L = cumsum(A dt); between chunks the
+    state h <- exp(L_Q) h + sum_s exp(L_Q - L_s) dt_s x_s ⊗ B_s.  Every
+    exponent is clipped to [-60, 0].  A ragged tail is zero-padded to
+    whole chunks: pad rows have dt = 0, so they leave the state unchanged
+    and the padding is exact.  Returns (y (B, S, nh, hd), final state (B,
+    nh, hd, ds)), float32."""
+    B, S, nh, hd = x.shape
+    G, ds = Bm.shape[2], Bm.shape[3]
+    pad = (-S) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, 0, 0, pad))
+    nc = x.shape[1] // chunk
+    x, dt, A = x.float(), dt.float(), A.float()
+    Bf = torch.repeat_interleave(Bm, nh // G, dim=2).float()
+    Cf = torch.repeat_interleave(Cm, nh // G, dim=2).float()
+    a = A[None, None, :] * dt  # (B, Sp, nh) log-decays, <= 0
+    h = (torch.zeros((B, nh, hd, ds), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
+    idx = torch.arange(chunk, device=x.device)
+    causal = (idx[:, None] >= idx[None, :]).float()  # (t, s): s <= t
+    ys = []
+    for c in range(nc):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        xc, dtc, bc, cc = x[:, rows], dt[:, rows], Bf[:, rows], Cf[:, rows]
+        L = torch.cumsum(a[:, rows], dim=1)  # (B, Q, nh)
+        cb = torch.einsum("btnd,bsnd->bnts", cc, bc)  # (B, nh, Q, Q)
+        decay = _decay(L[:, :, None, :] - L[:, None, :, :])  # (B, t, s, nh)
+        w = cb * decay.permute(0, 3, 1, 2) * causal
+        y_intra = torch.einsum("bnts,bsn,bsnh->btnh", w, dtc, xc)
+        y_inter = torch.einsum("btnd,bnhd,btn->btnh", cc, h, _decay(L))
+        Lq = L[:, -1]  # (B, nh)
+        rem = _decay(Lq[:, None, :] - L)  # (B, Q, nh)
+        dstate = torch.einsum("bsn,bsn,bsnh,bsnd->bnhd", rem, dtc, xc, bc)
+        h = h * _decay(Lq)[..., None, None] + dstate
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1)[:, :S], h

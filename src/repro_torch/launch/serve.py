@@ -23,6 +23,9 @@ for the same command line.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --continuous --kv-pool-mb 256 --policy h2o --budget 256 \
         --chunk 256 --slots 4 --prompt-lens 1024,2048,3072,4000 --max-new 32
+    # the hybrid hymba-1.5b (attention and Mamba-2 heads): lockstep only
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+        --budget 256 --requests 4 --n-in 2048 --max-new 32
 
 Weights (and, for ``lookaheadkv`` only, lookahead modules) are drawn at
 random from ``--seed`` (fine for plumbing and speed; quality needs trained
@@ -32,8 +35,12 @@ naming their ROADMAP item: the draft-based policies ``laq``/``speckv`` on
 every route, and ``--continuous`` with ``full``, which the JAX launcher
 serves through its ``BucketedEngine`` (ROADMAP A3b).
 As in the JAX launcher, ``--decode-evict`` acts on the continuous routes
-only (the lockstep route does not take it).  ``--device cpu`` runs the
-plain PyTorch versions of the kernels.
+only (the lockstep route does not take it), and the SSM archs have no
+continuous route: ``--continuous`` raises for hymba-1.5b, and the
+attention-free mamba2-130m, which has no KV cache to evict, raises on
+every route (its path is ``transformer.prefill(want_ssm_cache=True)`` and
+``decode_step``).  ``--device cpu`` runs the plain PyTorch versions of
+the kernels.
 """
 
 from __future__ import annotations
@@ -149,6 +156,12 @@ def run(argv=None) -> dict:
     "peak_bytes"}."""
     args = parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if not cfg.uses_attention:
+        raise ValueError(
+            f"{cfg.name} has no attention KV cache, so no eviction policy "
+            "and no lookahead module applies and no engine serves it; run "
+            "it through transformer.prefill(want_ssm_cache=True) and "
+            "decode_step")
     params = tf.init_params(cfg, seed=args.seed, device=args.device)
     lkv = None
     if args.policy == "lookaheadkv":

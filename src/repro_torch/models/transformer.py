@@ -3,15 +3,24 @@ prefill (``prefill``), the streaming prefill (``prefill_chunk`` /
 ``prefill_finalize``), the dense decode cache and its slot surgery, and
 the decode step over a dense cache or the paged pool.
 
-The port covers the attention-only llama family and every single-pass
+The port covers the attention-only llama family, the SSM archs (the
+attention-free mamba2 and the hybrid hymba) and every single-pass
 eviction policy of the JAX package (``lookaheadkv``, ``gt_oracle``, the
 window policies ``snapkv``/``pyramidkv``/``tova``, ``h2o`` and the
 position policies ``streaming_llm``/``random``/``full``), with uniform,
-pyramid or Ada-KV adaptive budgets.  Per-layer parameters are stacked
-along a leading L axis (the JAX package's tree layout); the depth is a
-Python loop over layer slices, which are views of the stacked tensors.
+pyramid or Ada-KV adaptive budgets.  Eviction applies to the attention
+KV; the SSM's recurrent state is constant-size.  The streaming prefill
+and the paged and slot-batched caches serve attention-only archs
+(``chunkable``), as in the JAX package.  Per-layer parameters are
+stacked along a leading L axis (the JAX package's tree layout); the
+depth is a Python loop over layer slices, which are views of the
+stacked tensors.
 
-Block: h += attn(rms_norm(h, ln1));  h += mlp(rms_norm(h, ln2))
+Block, by arch type:
+    dense  : h += attn(u);              h += mlp(rms_norm(h, ln2))
+    ssm    : h += ssd(u)                (no MLP when d_ff == 0)
+    hybrid : h += (attn(u) + ssd(u)) / 2;  h += mlp(rms_norm(h, ln2))
+with u = rms_norm(h, ln1).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import layer_window
 from repro_torch.models.layers import dense_init, embed_init, rms_norm
 from repro_torch.models.rope import rope_tables
@@ -43,12 +53,21 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _check_arch(cfg: ModelConfig) -> None:
     a = cfg.attn
-    if (a is None or cfg.moe is not None or cfg.ssm is not None
-            or cfg.encoder is not None or cfg.embeds_in or a.mrope
-            or cfg.d_ff <= 0):
+    if (cfg.moe is not None or cfg.encoder is not None or cfg.embeds_in
+            or (a is not None and a.mrope)
+            or not (cfg.uses_ssm or (a is not None and cfg.d_ff > 0))):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention-only dense decoders; "
-            "other archs are ROADMAP A10")
+            f"{cfg.name}: the port serves dense decoders and the SSM archs "
+            "(ssm, hybrid); other archs are ROADMAP A10")
+
+
+def chunkable(cfg: ModelConfig) -> bool:
+    """Whether the streaming prefill (and so the continuous engine) serves
+    ``cfg``: attention-only decoders, as in the JAX package."""
+    a = cfg.attn
+    return (cfg.uses_attention and not cfg.uses_ssm
+            and not cfg.is_encoder_decoder and not a.mrope
+            and not cfg.embeds_in)
 
 
 # ---------------------------------------------------------------------------
@@ -65,12 +84,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     gen = torch.Generator(device=device).manual_seed(seed)
     L, d = cfg.num_layers, cfg.d_model
     dev = gen.device
-    layers = {
-        "ln1": torch.zeros((L, d), dtype=dtype, device=dev),
-        "attn": attn_mod.init(gen, cfg, dtype, lead=(L,)),
-        "ln2": torch.zeros((L, d), dtype=dtype, device=dev),
-        "mlp": mlp_mod.init(gen, cfg, dtype, lead=(L,)),
-    }
+    layers = {"ln1": torch.zeros((L, d), dtype=dtype, device=dev)}
+    if cfg.uses_attention:
+        layers["attn"] = attn_mod.init(gen, cfg, dtype, lead=(L,))
+    if cfg.uses_ssm:
+        layers["ssm"] = ssm_mod.init(gen, cfg, dtype, lead=(L,))
+    if cfg.d_ff > 0:
+        layers["ln2"] = torch.zeros((L, d), dtype=dtype, device=dev)
+        layers["mlp"] = mlp_mod.init(gen, cfg, dtype, lead=(L,))
     params = {
         "embed": embed_init(gen, cfg.padded_vocab, d, dtype),
         "layers": layers,
@@ -90,8 +111,11 @@ def layer_slice(tree: Optional[dict], layer: int) -> Optional[dict]:
 
 
 def is_global_flags(cfg: ModelConfig) -> Optional[np.ndarray]:
-    """Per-layer bool array for local:global patterns, or None if uniform."""
+    """Per-layer bool array for local:global patterns, or None if uniform
+    (or without attention)."""
     a = cfg.attn
+    if a is None:
+        return None
     if a.global_layers:
         f = np.zeros(cfg.num_layers, bool)
         f[list(a.global_layers)] = True
@@ -114,6 +138,9 @@ def check_policy(policy: Optional[str]) -> None:
 
 
 def _windows(cfg: ModelConfig) -> list:
+    """Each layer's attention window (None: full, or no attention)."""
+    if cfg.attn is None:
+        return [None] * cfg.num_layers
     flags = is_global_flags(cfg)
     return [layer_window(cfg.attn, True if flags is None else bool(flags[i]))
             for i in range(cfg.num_layers)]
@@ -143,6 +170,8 @@ def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 def _ffn_residual(h, lp, cfg: ModelConfig, *, lora_l=None, lora_mask=None,
                   ls: float = 1.0):
+    if cfg.d_ff <= 0:  # mamba2: Mamba-2 blocks only
+        return h
     u = rms_norm(h, lp["ln2"], cfg.norm_eps)
     mlp_lora = None if lora_l is None else lora_l.get("mlp")
     return h + mlp_mod.apply(lp["mlp"], cfg, u, lora=mlp_lora,
@@ -175,6 +204,7 @@ def prefill(
     mrope_positions: Optional[torch.Tensor] = None,
     encoder_embeds: Optional[torch.Tensor] = None,
     want_logits: str = "last",  # "last" | "all" | "none"
+    want_ssm_cache: bool = False,  # the SSM's decode cache, even unevicted
     prompt_lens: Optional[torch.Tensor] = None,
     seeds: Optional[torch.Tensor] = None,  # (B,) request seeds (random)
 ) -> PrefillResult:
@@ -195,7 +225,16 @@ def prefill(
     budgets.  The decode cache is {"attn": {k, v (L, B, cap, KV, hd),
     pos, mask (L, B, cap, KV)}, "cursor": capacity (int), "next_pos":
     (B, 1)} with ``cap = capacity + extra_slots``.  With ``policy=None``
-    there is no cache."""
+    there is no cache.
+
+    SSM archs: each layer's SSM runs the prompt, then the observation rows
+    (the lookahead rows, or the response rows after ``gt_boundary``) as a
+    chained second segment, so its cached state is the prompt's; hybrid
+    blocks average the attention and SSM outputs.  The cache then also
+    holds "ssm": {conv (L, B, cw - 1, conv_dim), state (L, B, nh, hd, ds)
+    float32}, whenever a policy evicts or ``want_ssm_cache`` is set.
+    Without attention (mamba2) nothing is evicted: the cache has no
+    "attn" and no "cursor"."""
     _check_arch(cfg)
     check_policy(policy)
     unported = [
@@ -227,19 +266,23 @@ def prefill(
     S = h.shape[1]
     dev = h.device
     positions = torch.arange(S, device=dev).expand(B, S)
-    tables = rope_tables(positions, a.head_dim, a.rope_theta)
-    # score geometry: the observation rows are [boundary, S); eviction
-    # keeps rows of the first n_keys
-    window_size = lk.window_size if lk else 32
-    boundary = {"lookaheadkv": n_real, "gt_oracle": gt_boundary,
-                "snapkv": S - window_size, "pyramidkv": S - window_size,
-                "tova": S - 1}.get(policy, S)
-    if boundary < 0:
-        raise ValueError(f"{policy}: a prompt of {S} tokens is shorter "
-                         f"than its {window_size}-row observation window")
-    n_keys = boundary if policy in scoring.FINAL_OBS else n_real
-    do_evict = policy is not None
+    tables = (rope_tables(positions, a.head_dim, a.rope_theta)
+              if cfg.uses_attention else None)
+    do_evict = policy is not None and cfg.uses_attention
+    # hybrid archs need their recurrent state whenever a cache is built
+    want_ssm_cache = want_ssm_cache or (do_evict and cfg.uses_ssm)
     if do_evict:
+        # score geometry: the observation rows are [boundary, S); eviction
+        # keeps rows of the first n_keys
+        window_size = lk.window_size if lk else 32
+        boundary = {"lookaheadkv": n_real, "gt_oracle": gt_boundary,
+                    "snapkv": S - window_size, "pyramidkv": S - window_size,
+                    "tova": S - 1}.get(policy, S)
+        if boundary < 0:
+            raise ValueError(f"{policy}: a prompt of {S} tokens is shorter "
+                             f"than its {window_size}-row observation "
+                             "window")
+        n_keys = boundary if policy in scoring.FINAL_OBS else n_real
         adaptive = evict.head_alloc == "adaptive" and policy != "full"
         budgets, _ = _policy_budget_schedule(
             cfg, policy, evict.budget if policy != "full" else n_keys,
@@ -250,19 +293,35 @@ def prefill(
             pos_scores = ev.position_scores(
                 policy, n_keys, B, a.num_kv_heads, sink=evict.sink,
                 seeds=seeds, device=dev)
+    # the SSM runs the observation rows (lookahead rows, a response suffix)
+    # as a second segment chained after the prompt, whose state is cached
+    ssm_split = n_real if use_lookahead else gt_boundary
+    if ssm_split is not None and ssm_split >= S:
+        ssm_split = None
     ls = lora_scale(cfg) if use_lookahead else 1.0
     lora_tree = lkv_params.get("lora") if use_lookahead else None
     pool_kernel = lk.pool_kernel if lk else 7
-    layers = []
+    layers, ssm_caches = [], []
     for layer, window in enumerate(_windows(cfg)):
         lp = layer_slice(params["layers"], layer)
         lora_l = layer_slice(lora_tree, layer)
         u = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        out, q, k, v = attn_mod.prefill_attention(
-            lp["attn"], a, u, positions, window=window, lookahead_mask=lmask,
-            lora=None if lora_l is None else lora_l.get("attn"),
-            lora_scale=ls, rope_tables=tables)
-        h = _ffn_residual(h + out, lp, cfg, lora_l=lora_l, lora_mask=lmask,
+        delta = None
+        if cfg.uses_attention:
+            delta, q, k, v = attn_mod.prefill_attention(
+                lp["attn"], a, u, positions, window=window,
+                lookahead_mask=lmask,
+                lora=None if lora_l is None else lora_l.get("attn"),
+                lora_scale=ls, rope_tables=tables)
+        if cfg.uses_ssm:
+            s_out, ssm_cache = _ssm_prefill(lp["ssm"], cfg, u, ssm_split,
+                                            lora_l=lora_l, ls=ls)
+            delta = s_out if delta is None else delta + s_out
+            if want_ssm_cache:
+                ssm_caches.append(ssm_cache)
+        if cfg.hybrid:
+            delta = delta * 0.5
+        h = _ffn_residual(h + delta, lp, cfg, lora_l=lora_l, lora_mask=lmask,
                           ls=ls)
         if do_evict:
             if policy in scoring.OBS_POLICIES:
@@ -284,19 +343,22 @@ def prefill(
                 s_kv, k[:, :n_keys], v[:, :n_keys], capacity,
                 layer_budget=None if adaptive else budgets[layer],
                 head_budgets=hb, extra_slots=extra_slots))
-        del q, k, v  # only one layer's full K/V is alive at a time
+        q = k = v = None  # only one layer's full K/V is alive at a time
     # gt_oracle: the "current" position is the X|Y boundary, not the end
     # of the response rows
     n_pos = gt_boundary if gt_boundary is not None else n_real
     cache = None
-    if do_evict:
-        cache = {
-            "attn": {f: torch.stack([getattr(e, f) for e in layers])
-                     for f in ev.EvictedKV._fields},
-            "cursor": capacity,
-            "next_pos": torch.full((B, 1), n_pos, dtype=torch.int32,
-                                   device=dev),
-        }
+    if do_evict or (want_ssm_cache and cfg.uses_ssm):
+        cache = {}
+        if do_evict:
+            cache["attn"] = {f: torch.stack([getattr(e, f) for e in layers])
+                             for f in ev.EvictedKV._fields}
+            cache["cursor"] = capacity
+        if ssm_caches:
+            cache["ssm"] = {f: torch.stack([c[f] for c in ssm_caches])
+                            for f in ("conv", "state")}
+        cache["next_pos"] = torch.full((B, 1), n_pos, dtype=torch.int32,
+                                       device=dev)
     logits = None
     if want_logits == "last":
         logits = unembed(params, cfg, h[:, n_pos - 1])
@@ -304,6 +366,27 @@ def prefill(
         logits = unembed(params, cfg, h[:, :n_real])
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     return PrefillResult(logits=logits, cache=cache, scores=None, aux=aux)
+
+
+def _ssm_prefill(p: dict, cfg: ModelConfig, u: torch.Tensor,
+                 split: Optional[int], *, lora_l: Optional[dict],
+                 ls: float) -> tuple[torch.Tensor, dict]:
+    """One layer's SSM over the whole sequence, or over the prompt
+    ``[:split]`` and then the observation rows chained after it (the
+    prompt's conv tail and state carried in, the lookahead LoRA on them).
+    Returns (out (B, S, D), the prompt's cache {"conv", "state"})."""
+    if split is None:
+        return ssm_mod.apply(p, cfg, u)
+    out1, cache = ssm_mod.apply(p, cfg, u[:, :split])
+    B, S = u.shape[:2]
+    out2, _ = ssm_mod.apply(
+        p, cfg, u[:, split:],
+        lora=None if lora_l is None else lora_l.get("ssm"),
+        lora_mask=torch.ones((B, S - split, 1), dtype=u.dtype,
+                             device=u.device),
+        lora_scale=ls, initial_state=cache["state"],
+        conv_tail=cache["conv"])
+    return torch.cat([out1, out2], dim=1), cache
 
 
 def _observation_scores(policy: str, q: torch.Tensor, k: torch.Tensor,
@@ -344,9 +427,13 @@ def init_chunk_state(cfg: ModelConfig, policy: str, batch: int,
                      capacity: int, *, device="cuda") -> ChunkState:
     """Fresh state with a ``capacity``-deep KV buffer, which must hold the
     prompt plus the appended observation rows, and the policy's zero
-    ``ScoreState``."""
+    ``ScoreState``.  Attention-only archs (``chunkable``)."""
     _check_arch(cfg)
     check_policy(policy)
+    if not chunkable(cfg):
+        raise ValueError(f"{cfg.name}: chunked prefill serves "
+                         "attention-only decoder archs (the SSM and hybrid "
+                         "archs prefill monolithically)")
     a = cfg.attn
     lk = cfg.lookahead
     shape = (cfg.num_layers, batch, capacity, a.num_kv_heads, a.head_dim)
@@ -571,26 +658,33 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
     zeros, pos (L, batch, capacity, KV) = row index, mask false, cursors
     and positions 0.  ``per_slot_cursor`` gives every batch row (serving
     slot) its own append cursor, a (batch,) tensor; otherwise the cursor is
-    one int for the batch (lockstep)."""
+    one int for the batch (lockstep).  SSM archs add "ssm": {conv (L,
+    batch, cw - 1, conv_dim), state (L, batch, nh, hd, ds) float32} zeros;
+    without attention there is no "attn" and no cursor."""
     _check_arch(cfg)
     a = cfg.attn
-    L, KV = cfg.num_layers, a.num_kv_heads
-    shape = (L, batch, capacity, KV)
-    rows = torch.arange(capacity, dtype=torch.int32, device=device)
-    k = torch.zeros(shape + (a.head_dim,), dtype=torch_dtype(cfg),
-                    device=device)
-    return {
-        "attn": {
+    L = cfg.num_layers
+    cache = {}
+    if cfg.uses_attention:
+        shape = (L, batch, capacity, a.num_kv_heads)
+        rows = torch.arange(capacity, dtype=torch.int32, device=device)
+        k = torch.zeros(shape + (a.head_dim,), dtype=torch_dtype(cfg),
+                        device=device)
+        cache["attn"] = {
             "k": k,
             "v": torch.zeros_like(k),
             "pos": rows[None, None, :, None].expand(shape).clone(),
             "mask": torch.zeros(shape, dtype=torch.bool, device=device),
-        },
-        "cursor": (torch.zeros((batch,), dtype=torch.int32, device=device)
-                   if per_slot_cursor else 0),
-        "next_pos": torch.zeros((batch, 1), dtype=torch.int32,
-                                device=device),
-    }
+        }
+        cache["cursor"] = (torch.zeros((batch,), dtype=torch.int32,
+                                       device=device)
+                           if per_slot_cursor else 0)
+    if cfg.uses_ssm:
+        cache["ssm"] = ssm_mod.init_cache(cfg, batch, torch_dtype(cfg),
+                                          lead=(L,), device=device)
+    cache["next_pos"] = torch.zeros((batch, 1), dtype=torch.int32,
+                                    device=device)
+    return cache
 
 
 def add_decode_eviction_scores(cache: dict) -> dict:
@@ -705,15 +799,23 @@ def decode_step(
     slot writes nothing and its cursor and position do not advance, so a
     retired slot stays bit for bit unchanged (the JAX package gates the
     shared pool the same way and rolls a dense cache back with
-    ``select_cache_slots``)."""
+    ``select_cache_slots``).
+
+    SSM archs carry ``cache["ssm"]`` (conv, state), which the recurrent
+    step rewrites in place for every row: they are served by the lockstep
+    engine only, which decodes the whole batch.  A cache without
+    attention leaves (mamba2, or a hybrid prefilled without a policy)
+    runs no attention, as in the JAX package."""
     a = cfg.attn
     h = embed(params, cfg, token)
     B = h.shape[0]
     positions = cache["next_pos"]
-    cursor = cache["cursor"]
-    tables = rope_tables(positions, a.head_dim, a.rope_theta)
     paged = "pool" in cache
-    if paged:
+    attend = cfg.uses_attention and (paged or "attn" in cache)
+    if attend:
+        cursor = cache["cursor"]
+        tables = rope_tables(positions, a.head_dim, a.rope_theta)
+    if attend and paged:
         if paged_depth is None:
             raise ValueError("paged decode needs paged_depth")
         table = cache["attn"]["table"]
@@ -721,7 +823,7 @@ def decode_step(
         slots = attn_mod.append_slots(table, cursor, paged_depth,
                                       pool["k"].shape[2], active)
         depth = paged_depth
-    else:
+    elif attend:
         depth = cache["attn"]["k"].shape[2]
         evicting = "score" in cache["attn"]
         if not evicting:
@@ -730,34 +832,53 @@ def decode_step(
     for layer, window in enumerate(_windows(cfg)):
         lp = layer_slice(params["layers"], layer)
         u = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        if paged:
-            out = attn_mod.decode_attention_step_paged(
+        delta = None
+        if attend and paged:
+            delta = attn_mod.decode_attention_step_paged(
                 lp["attn"], a, u, positions, layer_slice(pool, layer),
                 table=table, cursor=cursor, depth=paged_depth,
                 active=active, window=window, rope_tables=tables,
                 slots=slots)
-        elif evicting:
-            out = attn_mod.decode_attention_step_evicting(
+        elif attend and evicting:
+            delta = attn_mod.decode_attention_step_evicting(
                 lp["attn"], a, u, positions,
                 layer_slice(cache["attn"], layer), cursor=cursor,
                 active=active, window=window, rope_tables=tables)
-        else:
-            out = attn_mod.decode_attention_step(
+        elif attend:
+            delta = attn_mod.decode_attention_step(
                 lp["attn"], a, u, positions,
                 layer_slice(cache["attn"], layer), rows=rows, window=window,
                 rope_tables=tables)
-        h = _ffn_residual(h + out, lp, cfg)
+        if cfg.uses_ssm:
+            s_out = _ssm_decode(lp["ssm"], cfg, u,
+                                layer_slice(cache["ssm"], layer))
+            delta = s_out if delta is None else delta + s_out
+        if cfg.hybrid:
+            delta = delta * 0.5
+        h = _ffn_residual(h + delta, lp, cfg)
     logits = unembed(params, cfg, h[:, 0])
     new_cache = dict(cache)
     adv_p = positions + 1
+    if active is not None:
+        adv_p = torch.where(active[:, None], adv_p, positions)
+    new_cache["next_pos"] = adv_p
+    if not attend:
+        return logits, new_cache
     if isinstance(cursor, torch.Tensor) and cursor.dim() == 1:
         adv_c = torch.clamp(cursor + 1, max=depth)
         if active is not None:
             adv_c = torch.where(active, adv_c, cursor)
     else:  # the lockstep batch shares one cursor
         adv_c = min(int(cursor) + 1, depth)
-    if active is not None:
-        adv_p = torch.where(active[:, None], adv_p, positions)
     new_cache["cursor"] = adv_c
-    new_cache["next_pos"] = adv_p
     return logits, new_cache
+
+
+def _ssm_decode(p: dict, cfg: ModelConfig, u: torch.Tensor,
+                cache_l: dict) -> torch.Tensor:
+    """One layer's recurrent SSM step; writes the new conv tail and state
+    into the layer's cache views in place.  Returns its output (B, 1, D)."""
+    out, new = ssm_mod.step(p, cfg, u, cache_l)
+    for name, leaf in cache_l.items():
+        leaf.copy_(new[name])
+    return out

@@ -55,7 +55,11 @@ card the attention kernels run through ``kernels/ops.py``.
 ``ServingEngine`` is the JAX package's lockstep engine (deprecated there,
 kept as the paper-shaped baseline): one batch of same-length prompts,
 monolithic prefill with eviction, then greedy decode of the whole batch;
-it takes every single-pass policy but ``gt_oracle``.  ``random`` draws
+it takes every single-pass policy but ``gt_oracle``.  It is the one
+engine of the hybrid arch (hymba: the SSM's conv tail and state ride the
+decode cache beside the evicted attention KV); ``ContinuousEngine``
+refuses the SSM archs, as the JAX one does, and neither serves the
+attention-free mamba2 (no KV to evict).  ``random`` draws
 per request from ``Request.eviction_seed`` on both engines.
 """
 
@@ -193,7 +197,8 @@ class ServingEngine:
     length, and prefill and decode run back to back for the whole batch.
 
     ``serve`` runs ``policies.run_eviction`` (the monolithic prefill with
-    scoring and eviction under ``policy``, kernels 7 and 3 on the card)
+    scoring and eviction under ``policy``, kernels 7 and 3 on the card,
+    and kernel 8 for a hybrid arch's SSM)
     and then ``policies.greedy_decode`` over the evicted dense cache
     (kernel 6), ``max_new_tokens`` steps with one shared cursor.  With
     ``decode_evict`` (a bool or a ``DecodeEvictionConfig``) the cache keeps
@@ -207,6 +212,11 @@ class ServingEngine:
                  max_new_tokens: int = 64, eos_id: int = 0,
                  decode_evict=False, device="cuda"):
         _check_policy(policy, streaming=False)
+        if not cfg.uses_attention:
+            raise ValueError(
+                f"{cfg.name} has no attention KV cache, so no eviction "
+                "policy applies: run it through transformer.prefill("
+                "want_ssm_cache=True) and decode_step")
         if policy == "lookaheadkv" and lkv_params is None:
             raise ValueError("lookaheadkv serving needs lookahead modules "
                              "(lkv_params)")
@@ -314,6 +324,11 @@ class ContinuousEngine:
                  lkv_params: Optional[dict] = None, device="cuda"):
         config = config or ServingConfig()
         _reject_unported(config)
+        if not tf.chunkable(cfg):
+            raise ValueError(f"{cfg.name}: chunked continuous batching "
+                             "serves attention-only decoder archs; serve "
+                             "the SSM and hybrid archs through the lockstep "
+                             "ServingEngine")
         if config.policy == "lookaheadkv" and lkv_params is None:
             raise ValueError("lookaheadkv serving needs lookahead modules "
                              "(lkv_params)")

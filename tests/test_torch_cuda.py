@@ -23,7 +23,12 @@ bitwise kernel 1's, each (sequence, head) row of masses within 2^-16 of
 that row's largest plain mass (the same float32 logits and exponentials,
 summed over the rows in another order), exact zeros where the plain
 masses are, and every row of masses summing to the number of counted
-rows within 1e-4 of it.
+rows within 1e-4 of it.  The SSD scan (kernel 8), float32 throughout on
+both sides: each output row of y (one row of one head) within 2^-12 of
+that row's largest plain magnitude, the final state within 2^-12 of its
+largest plain magnitude (the two prefix sums of the log-decays take
+other orders, and near-diagonal decays exp(L_t - L_s) of large L inherit
+their ~1e-5 absolute difference; 2^-12 leaves a margin of ~25x).
 """
 
 import numpy as np
@@ -37,6 +42,9 @@ from repro_torch.kernels import lookahead_score as lk
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pk
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as sk
+
+from conftest import sweep_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -130,6 +138,8 @@ def test_chunk_attention_masses_matches_plain(dev, dtype, B, C, K, H, KV,
     (2, 40, 250, 4, 2, 64, 250, 200, 30, True),  # two row tiles, window
     (1, 32, 4096, 32, 8, 128, 4096, 3968, None, False),  # window finalize
     (1, 2048, 2048, 32, 8, 128, 2048, 0, None, False),  # monolithic h2o
+    (4, 32, 2080, 25, 5, 64, 2048, None, 1024, False),  # hymba local layer
+    (4, 32, 2080, 25, 5, 64, 2048, None, None, False),  # hymba global layer
 ])
 def test_lookahead_score_matches_plain(dev, dtype, B, n_obs, Sk, H, KV, hd,
                                        n_prompt, off, window, masks):
@@ -231,6 +241,8 @@ def test_paged_decode_masses_matches_plain(dev, dtype, H, KV, hd, window):
     (2, 300, 4, 2, 32, False, None),  # every key visible
     (1, 257, 8, 2, 64, True, 48),  # sliding window
     (1, 200, 4, 1, 128, False, 40),  # window without the causal mask
+    (4, 2080, 25, 5, 64, True, 1024),  # hymba-1.5b's local layers
+    (4, 2080, 25, 5, 64, True, None),  # hymba-1.5b's global layers
 ])
 def test_flash_attention_matches_plain(dev, dtype, B, S, H, KV, hd, causal,
                                        window):
@@ -275,6 +287,136 @@ def test_decode_attention_matches_plain(dev, dtype, C, mask_kind):
         assert torch.all(got[1, 5 * 4:6 * 4] == 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 1024])
+def test_decode_attention_at_hymba_shape(dev, dtype, window):
+    """hymba-1.5b's lockstep decode: 4 x 289 rows, 25 q / 5 kv heads of
+    64, the per-kv-head mask with the sliding window folded in (local
+    layers) or not (global layers)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, C, H, KV, hd = 4, 289, 25, 5, 64
+    q = _randn(g, (B, H, hd), dtype, dev)
+    k = _randn(g, (B, C, KV, hd), dtype, dev)
+    v = _randn(g, (B, C, KV, hd), dtype, dev)
+    mask = torch.rand((B, C, KV), generator=g, device=dev) > 0.05
+    mask[:, 272:] = False  # appends not written yet
+    if window is not None:
+        pos = torch.randint(0, 2100, (B, C, KV), generator=g, device=dev)
+        mask &= (2080 - pos) < window
+    got = dk.decode_attention(q, k, v, kv_mask=mask)
+    torch.cuda.synchronize()
+    _assert_rows_close(got, ref.decode_attention(q, k, v, kv_mask=mask),
+                       dtype, 2 ** -7)
+
+
+def _ssd_case(rng):
+    """The JAX package's sweep (tests/test_kernels.py): whole chunks."""
+    hd = int(rng.choice([16, 32]))
+    nh = int(rng.choice([2, 4, 8]))
+    ds = int(rng.choice([8, 16]))
+    chunk = int(rng.choice([16, 32]))
+    nc = int(rng.integers(1, 5))
+    return (int(rng.integers(1, 3)), chunk * nc, nh, hd, ds, chunk)
+
+
+def _ssd_inputs(g, B, S, nh, hd, ds, dtype, dev):
+    x = _randn(g, (B, S, nh, hd), dtype, dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, nh), generator=g, device=dev))
+    A = -torch.exp(torch.randn((nh,), generator=g, device=dev) * 0.5)
+    Bm = _randn(g, (B, S, 1, ds), dtype, dev)
+    Cm = _randn(g, (B, S, 1, ds), dtype, dev)
+    h0 = torch.randn((B, nh, hd, ds), generator=g, device=dev)
+    return x, dt, A, Bm, Cm, h0
+
+
+def _assert_ssd_close(got, want):
+    (gy, gh), (wy, wh) = got, want
+    assert gy.dtype == gh.dtype == torch.float32
+    err = (gy - wy).abs().amax(-1)
+    tol = 2 ** -12 * wy.abs().amax(-1)
+    bad = err > tol
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} of {bad.numel()} y rows out of tolerance; first "
+        f"at {tuple(int(i) for i in bad.nonzero()[0])}")
+    assert float((gh - wh).abs().max()) <= 2 ** -12 * float(wh.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sweep_cases(7, 8, _ssd_case) + [
+    (2, 45, 5, 16, 8, 16),  # ragged tail, odd head count
+    (1, 7, 3, 32, 16, 32),  # S < chunk
+    (2, 1, 5, 32, 8, 32),  # one row
+    (1, 300, 7, 64, 16, 256),  # chunk 256, ragged
+    (2, 130, 50, 64, 16, 128),  # hymba-1.5b's 50 heads, ragged
+    (1, 200, 3, 64, 128, 64),  # mamba2's d_state
+    (1, 96, 4, 32, 32, 32),
+    (1, 80, 2, 16, 64, 16),
+])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_scan_matches_plain(dev, dtype, case, with_state):
+    B, S, nh, hd, ds, chunk = case
+    g = torch.Generator(device=dev).manual_seed(8)
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(g, B, S, nh, hd, ds, dtype, dev)
+    h0 = h0 if with_state else None
+    got = sk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    _assert_ssd_close(got, ref.ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=chunk,
+                                                initial_state=h0))
+
+
+@pytest.mark.parametrize("B,S,nh,hd,ds,chunk", [
+    (4, 2048, 50, 64, 16, 128),  # hymba-1.5b's prompt segment
+    (4, 32, 50, 64, 16, 128),  # ... and its lookahead segment
+    (4, 2048, 24, 64, 128, 128),  # mamba2-130m
+])
+def test_ssd_scan_at_model_shapes_on_strided_views(dev, B, S, nh, hd, ds,
+                                                  chunk):
+    """The model's call: x, B and C are views of one conv output (rows
+    strided by conv_dim), bf16; the second hymba segment carries a
+    state."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    xbc = _randn(g, (B, S, nh * hd + 2 * ds), torch.bfloat16, dev)
+    x, Bm, Cm = torch.split(xbc, [nh * hd, ds, ds], dim=-1)
+    x = x.unflatten(-1, (nh, hd))
+    Bm, Cm = Bm.unflatten(-1, (1, ds)), Cm.unflatten(-1, (1, ds))
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, nh), generator=g, device=dev) - 2.0)
+    A = -(1.0 + 15.0 * torch.rand((nh,), generator=g, device=dev))
+    h0 = torch.randn((B, nh, hd, ds), generator=g, device=dev) \
+        if S < chunk else None
+    assert not x.is_contiguous()
+    got = sk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    _assert_ssd_close(got, ref.ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=chunk,
+                                                initial_state=h0))
+
+
+def test_ssd_scan_refuses_what_it_does_not_take(dev):
+    g = torch.Generator(device=dev).manual_seed(10)
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(g, 1, 40, 2, 32, 16, torch.float32,
+                                      dev)
+    before = sk.launches
+    for kw, what in ((dict(x=x[..., :24].contiguous()), "head_dim"),
+                     (dict(chunk=512), "chunk"),
+                     (dict(dt=dt.to(torch.bfloat16)), "float32"),
+                     (dict(Bm=Bm.to(torch.bfloat16)), "dtypes"),
+                     (dict(Cm=torch.stack([Cm, Cm], -1)[..., 0]),
+                      "contiguous rows")):
+        args = dict(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, chunk=32)
+        args.update(kw)
+        with pytest.raises(ValueError, match=what):
+            sk.ssd_scan(args.pop("x"), args.pop("dt"), args.pop("A"),
+                        args.pop("Bm"), args.pop("Cm"), **args)
+    # two sequences whose rows interleave: no batch stride of S rows
+    x2 = _randn(g, (40, 2, 2, 32), torch.float32, dev).transpose(0, 1)
+    bc2 = _randn(g, (2, 40, 1, 16), torch.float32, dev)
+    with pytest.raises(ValueError, match="batch stride"):
+        sk.ssd_scan(x2, torch.rand((2, 40, 2), device=dev), A, bc2, bc2,
+                    chunk=32)
+    assert sk.launches == before
+
+
 def test_wrappers_count_launches(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     q = _randn(g, (1, 8, 4, 32), torch.float32, dev)
@@ -308,3 +450,9 @@ def test_wrappers_count_launches(dev):
     assert after["paged_decode_masses"] == counts["paged_decode_masses"] + 2
     assert after["paged_decode_attention"] == \
         counts["paged_decode_attention"]
+    x = _randn(g, (1, 40, 2, 32), torch.float32, dev)
+    dt = torch.rand((1, 40, 2), generator=g, device=dev)
+    A = -torch.ones((2,), device=dev)
+    bc = _randn(g, (1, 40, 1, 16), torch.float32, dev)
+    ops.ssd_scan(x, dt, A, bc, bc, chunk=32)
+    assert ops.launch_counts()["ssd_scan"] == after["ssd_scan"] + 1

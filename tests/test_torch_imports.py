@@ -58,7 +58,8 @@ def test_port_sources_name_no_jax_import():
                                      "from repro import")), f"{f}: {s}"
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "tiny-llama"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "tiny-llama", "hymba-1.5b",
+                                  "mamba2-130m"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_copy_equals_jax_config(arch, smoke):
     get_j = jconfigs.get_smoke_config if smoke else jconfigs.get_config
@@ -82,6 +83,6 @@ def test_config_dataclasses_have_the_same_fields():
 
 def test_unported_arch_names_its_roadmap_item():
     with pytest.raises(KeyError, match="ROADMAP A10"):
-        tconfigs.get_config("mamba2-130m")
+        tconfigs.get_config("gemma3-1b")
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_config("no-such-arch")
