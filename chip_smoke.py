@@ -8,7 +8,9 @@ kernel's plain version):
 
 0. Build the CUDA kernels from ``src/repro_torch/csrc/`` with nvcc for
    sm_90a into ``build/repro_torch/`` (one nvcc per source, all at once;
-   rebuilt when a source's hash changes).
+   rebuilt when a source's hash changes), and check with ``cuobjdump
+   -sass`` that each instantiation of kernel 7's Hopper tile
+   (``attention_sm90.cuh``) holds HGMMA (wgmma) and UTMALDG (TMA loads).
 1. Hold each kernel against its plain PyTorch version on the card, in
    bfloat16, at the shapes of the main paths (llama3-8b: H=32, KV=8,
    hd=128; chunk 256 and the 32-row observation pass over a 4096-deep
@@ -28,15 +30,18 @@ kernel's plain version):
    kernel 1's, and kernel 2's column masses must sum to the counted
    rows.  Kernels 3, 6 and 7 also at hymba-1.5b's attention shape (25 q /
    5 kv heads of 64, window 1024 on its local layers, none on its global
-   ones).  Kernel 8 (the SSD scan, float32 arithmetic) at hymba-1.5b's
-   prefill (B 4 x S 2048, 50 heads of 64, d_state 16, chunk 128, bf16)
-   and its 32-row lookahead segment carrying the prompt's state, at
-   mamba2-130m's (24 heads, d_state 128), and on edge cases (ragged S,
-   S < chunk, S = 1, odd head counts, float32 inputs, initial states,
-   chunks 16, 32 and 256), each row of y and the final state within
-   2^-12 of the plain magnitude.  Time kernel,
-   plain version and, where one PyTorch call computes the same function,
-   that call (library_ms), each call on a cold L2.
+   ones; kernel 7 timed there too, against SDPA with ``is_causal`` and
+   with an explicit window mask); kernel 7 at the edges of its 128-row,
+   128-key tile (S of 1, 64, 127, 128, 129; windows of 1, 64, 100, 128,
+   1024; GQA ratios 1 and 5; B = 3).  Kernel 8 (the SSD scan, float32
+   arithmetic) at hymba-1.5b's prefill (B 4 x S 2048, 50 heads of 64,
+   d_state 16, chunk 128, bf16) and its 32-row lookahead segment
+   carrying the prompt's state, at mamba2-130m's (24 heads, d_state
+   128), and on edge cases (ragged S, S < chunk, S = 1, odd head
+   counts, float32 inputs, initial states, chunks 16, 32 and 256), each
+   row of y and the final state within 2^-12 of the plain magnitude.
+   Time kernel, plain version and, where one PyTorch call computes the
+   same function, that call (library_ms), each call on a cold L2.
 2. Serve through the port's engines on the llama3-8b smoke config in
    float32, once on the card and once on the CPU: the paged and the dense
    continuous engine (3 requests each), the lockstep engine (a batch of
@@ -59,8 +64,8 @@ kernel's plain version):
    a. paged continuous: prompts of 1024, 2048, 3072 and 4000 tokens, chunk
       256, 4 slots, block size 16, --kv-pool-mb 256, 32 new tokens;
       kernels 1, 3, 4 must launch, kernel 5 not;
-   b. lockstep: 4 prompts of 2048 tokens, 32 new; kernels 7, 3, 6 must
-      launch;
+   b. lockstep: 4 prompts of 2048 tokens, 32 new; kernels 7 (exactly
+      once per layer, 32), 3, 6 must launch;
    c. dense-slot continuous: the prompts of (a), chunk 256, 4 slots, 32
       new; kernels 1, 3, 6 must launch;
    d. paged decode-evict: (a) with --decode-evict --decode-evict-interval
@@ -562,8 +567,11 @@ def phase_kernels(torch, mods) -> list:
         replaces="src/repro/kernels/paged_attention.py:266", **main5))
 
     # -- kernel 7: monolithic flash attention ---------------------------------
+    # bf16 at hd 64 and 128 runs the wgmma + TMA tile (attention_sm90.cuh):
+    # its edges are 128-row query tiles of two 64-row warpgroups and
+    # 128-key K/V tiles
     def flash_case(B, S, causal, window, label, timed=False,
-                   timed_kernel=False, heads=(H, KV, hd)):
+                   heads=(H, KV, hd)):
         Hs, KVs, hds = heads
         q, k, v = (randn(B, S, Hs, hds), randn(B, S, KVs, hds),
                    randn(B, S, KVs, hds))
@@ -573,24 +581,31 @@ def phase_kernels(torch, mods) -> list:
         want = ref.flash_attention(q, k, v, **kw)
         err = check_rows(torch, got, want, REL_CHUNK,
                          f"flash_attention {label}")
-        if timed_kernel:
-            ms = time_ms(torch, lambda: fk.flash_attention(q, k, v, **kw),
-                         iters=5)
-            print(f"  flash_attention {label}: {ms:.4f} ms")
         if not timed:
             return None
         ms = time_ms(torch, lambda: fk.flash_attention(q, k, v, **kw))
         plain = time_ms(torch, lambda: ref.flash_attention(q, k, v, **kw),
                         iters=3)
-        # one library call computing the same function: causal SDPA on
-        # kv heads expanded outside the timed call
+        # one library call computing the same function: SDPA on kv heads
+        # expanded outside the timed call, causal by is_causal, a window by
+        # an explicit boolean mask built outside
         qt = q.transpose(1, 2)
-        kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
-        vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
-        n_ops = 4 * hd * H * B * S * (S + 1) // 2  # visible (row, key) pairs
-        n_bytes = itemsize * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+        kt = k.repeat_interleave(Hs // KVs, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(Hs // KVs, dim=2).transpose(1, 2)
+        pos = torch.arange(S, device=dev)
+        d = pos[:, None] - pos[None, :]  # query position - key position
+        vis = torch.ones_like(d, dtype=torch.bool)
+        if causal:
+            vis &= d >= 0
+        if window:
+            vis &= d < window
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=vis))
+        else:
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))
+        n_ops = 4 * hds * Hs * B * int(vis.sum())  # visible (row, key) pairs
+        n_bytes = itemsize * (2 * B * S * Hs * hds + 2 * B * S * KVs * hds)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
         print(f"  flash_attention {label}: {ms:.4f} ms, plain {plain:.4f} "
               f"ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -602,12 +617,28 @@ def phase_kernels(torch, mods) -> list:
     flash_case(2, 300, False, None, "S=300 non-causal")
     flash_case(1, 700, True, 128, "S=700 window 128")
     flash_case(4, 2080, True, 1024, "hymba local layer: B=4 S=2080 window "
-               "1024", timed_kernel=True, heads=HYMBA_HEADS)
+               "1024", timed=True, heads=HYMBA_HEADS)
     flash_case(4, 2080, True, None, "hymba global layer: B=4 S=2080",
-               timed_kernel=True, heads=HYMBA_HEADS)
+               timed=True, heads=HYMBA_HEADS)
+    # the tile's edges: rows (1, one warpgroup, a tile -1/0/+1), windows
+    # inside and across key tiles, GQA ratios 1 and 5, B = 3
+    small = (8, 2, hd)
+    for S in (1, 64, 127, 128, 129):
+        flash_case(1, S, True, None, f"S={S}", heads=small)
+    flash_case(1, 129, True, None, "S=129 hd 64", heads=(8, 2, 64))
+    for w in (1, 64, 100, 128):
+        flash_case(1, 700, True, w, f"S=700 window {w} hd 64",
+                   heads=(8, 2, 64))
+    flash_case(1, 700, True, 100, "S=700 window 100", heads=small)
+    flash_case(2, 1500, True, 1024, "S=1500 window 1024", heads=small)
+    flash_case(1, 300, True, None, "GQA 1", heads=(4, 4, hd))
+    flash_case(1, 333, True, None, "GQA 5 hd 64", heads=(10, 2, 64))
+    flash_case(1, 333, False, 100, "non-causal window 100 hd 64",
+               heads=(8, 2, 64))
+    flash_case(3, 260, True, None, "B=3", heads=small)
     results.append(dict(
         name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/chunk_attention.cu",
+        source="src/repro_torch/csrc/attention_sm90.cuh",
         replaces="src/repro/kernels/flash_attention.py:71", **main7))
 
     # -- kernel 6: dense decode attention -------------------------------------
@@ -1122,6 +1153,13 @@ def phase_serve(torch, mods, route: str) -> tuple:
               f"{eng.evict.pyramid_beta}); layer budgets {budgets}")
         check(eng.capacity == cap == 342, f"{route}: capacity "
               f"{eng.capacity}, expected 342")
+    if route == "lockstep":
+        # kernel 7 once per layer: the prompt's self-attention
+        L = res["cfg"].num_layers
+        print(f"  kernel 7 launches {counts['flash_attention']}, predicted "
+              f"{L}")
+        check(counts["flash_attention"] == L, f"{route}: kernel 7 launched "
+              f"{counts['flash_attention']} times, expected {L}")
     if route == "hybrid lockstep":
         # per layer: kernel 8 for the prompt and for the lookahead rows,
         # kernels 7 and 3 once; kernel 6 once per layer per decode step
@@ -1548,6 +1586,22 @@ def phase_build(mods) -> None:
     print(f"  build {time.perf_counter() - t0:.1f} s "
           f"({len(report)} compiled, {len(build.SOURCES) - len(report)} "
           "cached)", flush=True)
+    # kernel 7's bf16 tile (attention_sm90.cuh) must run on wgmma and TMA:
+    # HGMMA and UTMALDG in the SASS of each of its instantiations
+    lib = build._target("chunk_attention")
+    sass = subprocess.run(
+        [str(Path(build.nvcc_path()).with_name("cuobjdump")), "-sass",
+         str(lib)], capture_output=True, text=True, timeout=120)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
+    funcs = sass.stdout.split("Function : ")[1:]
+    tiles = [f for f in funcs if f.startswith("_ZN4sm90")]
+    for f in tiles:
+        hg, tma = f.count("HGMMA"), f.count("UTMALDG")
+        print(f"  {f.split(chr(10))[0][:100]}...: {hg} HGMMA, {tma} UTMALDG")
+        check(hg > 0 and tma > 0, "kernel 7's Hopper tile has no HGMMA or "
+              "no UTMALDG in its SASS")
+    check(len(tiles) == 4, f"{len(tiles)} instantiations of the Hopper "
+          "tile in the SASS, expected 4 (hd 64/128, causal or not)")
 
 
 def main() -> None:

@@ -10,10 +10,11 @@
 // (pallas_call at :99), through the entry flash_attention: monolithic
 // self-attention of a whole sequence (Sq == Sk), which is the causal chunk
 // with q_offset = 0 and C = K, or with CAUSAL false every key visible
-// (the window still applies).  One tensor-core path serves both; each
-// entry instantiates the kernels with a tag type of its own name
-// (attention_mma<chunk_attention_tag, ...> against
-// attention_mma<flash_attention_tag, ...>), so a profile reads the two
+// (the window still applies).  Its bf16 path at head dims 64 and 128 is
+// the wgmma + TMA tile of attention_sm90.cuh; float32 and hd 32 take this
+// file's kernels.  Each entry instantiates the kernels with a tag type of
+// its own name (attention_mma<chunk_attention_tag, ...> against
+// attention_sm90<flash_attention_tag, ...>), so a profile reads the two
 // apart.
 //
 // Also replaces src/repro/kernels/chunk_attention.py,
@@ -71,12 +72,12 @@
 // 4*hd*H*sum_i(visible keys of row i) operations / 989e12 and the bytes of
 // q, the visible k/v rows and out / 3.35e12.  A 256-row chunk deep in a
 // 4k prompt is operation-bound (~17 us at the data-sheet peaks of an H100
-// SXM at its full 700 W), and so is a monolithic 4 x 2080-row causal
-// prefill of llama3-8b (~0.14 ms).  What the design leaves on the
-// table: mma.sync instead of wgmma, cp.async instead of TMA, one
-// 4-warp CTA per query tile per head (128 CTAs for a 256-row chunk of
-// llama3-8b, one per SM), so the 4 q heads of a GQA group each re-read
-// their kv head's tiles (from L2).
+// SXM at its full 700 W).  What the design leaves on the table: mma.sync
+// instead of wgmma, cp.async instead of TMA, one 4-warp CTA per query
+// tile per head (128 CTAs for a 256-row chunk of llama3-8b, one per SM),
+// so the 4 q heads of a GQA group each re-read their kv head's tiles (from
+// L2).
+#include "attention_sm90.cuh"
 #include "common.cuh"
 
 namespace {
@@ -822,6 +823,24 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
   }
 }
 
+// Kernel 7: bf16 at hd 64 and 128 on the Hopper tile, everything else on
+// this file's kernels.
+template <bool CAUSAL>
+cudaError_t dispatch_flash(int dtype, int hd, const void* q, const void* k,
+                           const void* v, void* out, int B, int S, int H,
+                           int KV, int window, cudaStream_t s) {
+  using tag = flash_attention_tag;
+  if (dtype == DTYPE_F32)
+    return dispatch_hd<tag, float, CAUSAL>(hd, q, k, v, out, B, S, H, S, KV, 0, window, s);
+  if (dtype != DTYPE_BF16) return cudaErrorInvalidValue;
+  switch (hd) {
+    case 32: return launch<tag, __nv_bfloat16, 32, CAUSAL>(q, k, v, out, B, S, H, S, KV, 0, window, s);
+    case 64: return sm90::launch<tag, 64, CAUSAL>(q, k, v, out, B, S, H, S, KV, 0, window, s);
+    case 128: return sm90::launch<tag, 128, CAUSAL>(q, k, v, out, B, S, H, S, KV, 0, window, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename Entry, bool CAUSAL>
 cudaError_t dispatch(int dtype, int hd, const void* q, const void* k,
                      const void* v, void* out, int B, int C, int H, int K,
@@ -854,10 +873,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (causal)
-    return dispatch<flash_attention_tag, true>(dtype, hd, q, k, v, out, B, S,
-                                               H, S, KV, 0, window, s);
-  return dispatch<flash_attention_tag, false>(dtype, hd, q, k, v, out, B,
-                                                S, H, S, KV, 0, window, s);
+    return dispatch_flash<true>(dtype, hd, q, k, v, out, B, S, H, KV, window, s);
+  return dispatch_flash<false>(dtype, hd, q, k, v, out, B, S, H, KV, window, s);
 }
 
 // Chunk attention plus the column masses of the rows below n_total (h2o):

@@ -3,12 +3,15 @@ entry ``flash_attention``).
 
 The Hopper port of the JAX package's ``flash_attention_pallas``: GQA
 self-attention of a whole sequence (Sq == Sk), causal or, with
-``causal=False``, over every key, with an optional sliding window.  The
-causal form is the chunk-attention kernel with ``q_offset = 0`` and the
-chunk spanning the buffer, so both share one tensor-core path; this
-wrapper has its own entry point and launch counter.  Any S: the ragged
-last tile is masked (the Pallas kernel asserts block multiples).  Plain
-version: ``ref.flash_attention``.
+``causal=False``, over every key, with an optional sliding window: the
+chunk attention with ``q_offset = 0`` and the chunk spanning the buffer.
+bfloat16 at head dims 64 and 128 (the served models) runs the wgmma + TMA
+tile of ``csrc/attention_sm90.cuh`` (128-row query tiles of two consumer
+warpgroups, a producer warpgroup feeding a three-stage TMA ring of 128-key
+K/V tiles); float32 and head dim 32 run the chunk-attention kernels of
+``csrc/chunk_attention.cu``.  This wrapper has its own entry point and
+launch counter.  Any S: the ragged last tile is masked (the Pallas kernel
+asserts block multiples).  Plain version: ``ref.flash_attention``.
 """
 
 from __future__ import annotations

@@ -62,7 +62,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.shape[1] != k.shape[1]:
         raise NotImplementedError(
             "flash_attention with Sq != Sk (bucket-padded prefill, "
-            "BucketedEngine): not ported yet: ROADMAP A3")
+            "BucketedEngine): not ported yet: ROADMAP A3b")
     if _on_card(q):
         return _fk.flash_attention(q, k, v, causal=causal, window=window)
     return ref.flash_attention(q, k, v, causal=causal, window=window)

@@ -243,6 +243,24 @@ def test_paged_decode_masses_matches_plain(dev, dtype, H, KV, hd, window):
     (1, 200, 4, 1, 128, False, 40),  # window without the causal mask
     (4, 2080, 25, 5, 64, True, 1024),  # hymba-1.5b's local layers
     (4, 2080, 25, 5, 64, True, None),  # hymba-1.5b's global layers
+    # the edges of the Hopper tile (bf16, hd 64 and 128): 128-row query
+    # tiles of two 64-row warpgroups, 128-key K/V tiles
+    (1, 1, 8, 2, 128, True, None),  # one row
+    (1, 64, 8, 2, 128, True, None),  # one warpgroup's rows exactly
+    (1, 127, 8, 2, 64, True, None),  # one row short of a tile
+    (1, 128, 8, 2, 128, True, None),  # one tile exactly
+    (1, 129, 8, 2, 64, True, None),  # one row past a tile
+    (1, 2080, 8, 2, 128, True, None),  # the served length, a ragged tail
+    (1, 700, 8, 2, 128, True, 1),  # each row sees only itself
+    (1, 700, 8, 2, 64, True, 64),  # a window inside one key tile
+    (1, 700, 8, 2, 128, True, 100),  # a window that straddles key tiles
+    (1, 700, 8, 2, 64, True, 128),  # a window of exactly one key tile
+    (2, 1500, 8, 2, 128, True, 1024),  # hymba's window at llama's head dim
+    (1, 300, 4, 4, 128, True, None),  # GQA ratio 1
+    (1, 333, 10, 2, 64, True, None),  # GQA ratio 5
+    (2, 300, 8, 2, 128, False, None),  # every key visible, ragged tail
+    (1, 333, 8, 2, 64, False, 100),  # window without the causal mask
+    (3, 260, 8, 2, 128, True, None),  # B = 3
 ])
 def test_flash_attention_matches_plain(dev, dtype, B, S, H, KV, hd, causal,
                                        window):
@@ -254,6 +272,24 @@ def test_flash_attention_matches_plain(dev, dtype, B, S, H, KV, hd, causal,
     torch.cuda.synchronize()
     want = ref.flash_attention(q, k, v, causal=causal, window=window)
     _assert_rows_close(got, want, dtype, 2 ** -5)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_sm90_counts_one_launch(dev, hd):
+    """The bf16 tile at hd 64 and 128 is one launch per call."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = _randn(g, (2, 200, 8, hd), torch.bfloat16, dev)
+    k = _randn(g, (2, 200, 2, hd), torch.bfloat16, dev)
+    v = _randn(g, (2, 200, 2, hd), torch.bfloat16, dev)
+    before = ops.launch_counts()
+    ops.flash_attention(q, k, v)
+    assert fk.launches == before["flash_attention"] + 1
+    ops.flash_attention(q, k, v, causal=False, window=64)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 2
+    assert {n: c for n, c in after.items() if n != "flash_attention"} == \
+        {n: c for n, c in before.items() if n != "flash_attention"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

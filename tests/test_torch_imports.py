@@ -2,8 +2,8 @@
 
 The port imports ``torch`` and numpy, never ``jax`` and nothing of the
 JAX package ``repro`` (not even its stdlib-only config modules): a fresh
-interpreter that imports every module of ``repro_torch`` and
-``chip_smoke`` must end with neither in ``sys.modules``.  The port keeps
+interpreter that imports every module of ``repro_torch``, ``chip_smoke``
+and ``chip_ab`` must end with neither in ``sys.modules``.  The port keeps
 its own copy of the configs instead, which must equal the JAX package's
 field by field.
 """
@@ -29,6 +29,7 @@ import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+import chip_ab
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("MODULES", len([n for n in sys.modules if n.startswith("repro_torch")]))
@@ -49,7 +50,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
 def test_port_sources_name_no_jax_import():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
