@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Time kernel 7 (monolithic flash attention) of several checkouts in
-turns, on one NVIDIA card, in one call:
+"""Time the attention kernels of several checkouts in turns, on one
+NVIDIA card, in one call:
 
     python3 chip_ab.py build/parent . . build/parent
 
 Each argument is the root of a checkout of this repository (for the
 parent, a ``git archive`` unpacked into a directory that ``.gitignore``
 lists). Each runs in a process of its own, so each builds and loads its
-own kernels (into ``<root>/build/repro_torch/``), and times its
-``flash_attention`` wrapper at kernel 7's main-path shapes: llama3-8b's
-lockstep prefill (B 4, S 2080, 32 q / 8 kv heads of 128, causal) and
-hymba-1.5b's (25 q / 5 kv heads of 64, window 1024 and global), on the
-same inputs (seed 0), each call on a cold L2 (``chip_smoke.time_ms`` of
-this checkout). Give the checkouts in turns (parent, change, change,
-parent): two calls may land on two cards. Prints one line per checkout
-and shape, then the card's name and power limit.
+own kernels (into ``<root>/build/repro_torch/``), and times its wrappers
+at their main-path shapes, bf16: kernel 1 (``chunk_attention``) on
+llama3-8b's deepest prefill chunk (C 256 at offset 3840 of a 4096-deep
+buffer, 32 q / 8 kv heads of 128) and its 32-row observation pass (at
+4000); kernel 2 (``chunk_attention_masses``) on that chunk with n_total
+4000; kernel 7 (``flash_attention``) on llama3-8b's lockstep prefill (B 4,
+S 2080, causal) and hymba-1.5b's (25 q / 5 kv heads of 64, window 1024
+and global). The same inputs (seed 0) in every checkout, each call on a
+cold L2 (``chip_smoke.time_ms`` of this checkout). Give the checkouts in
+turns (parent, change, change, parent): two calls may land on two cards.
+Prints one line per checkout and shape, then the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -24,6 +28,11 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+CHUNK_SHAPES = (  # C, K, q_offset, n_total (kernel 2) or None, label
+    (256, 4096, 3840, None, "kernel 1, C 256 at 3840 of 4096"),
+    (32, 4096, 4000, None, "kernel 1, observation pass C 32 at 4000"),
+    (256, 4096, 3840, 4000, "kernel 2, C 256 at 3840, n_total 4000"),
+)
 SHAPES = (  # B, S, H, KV, hd, window, label
     (4, 2080, 32, 8, 128, None, "llama3-8b causal"),
     (4, 2080, 25, 5, 64, 1024, "hymba-1.5b window 1024"),
@@ -38,10 +47,25 @@ def time_checkout(root: str) -> None:
     import chip_smoke
 
     sys.path.insert(0, str(Path(root).resolve() / "src"))
+    from repro_torch.kernels import chunk_attention as ck
     from repro_torch.kernels import flash_attention as fk
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    for C, K, off, n_total, label in CHUNK_SHAPES:
+        q, k, v = (torch.randn(shape, generator=g, device=dev)
+                   .to(torch.bfloat16)
+                   for shape in ((1, C, 32, 128), (1, K, 8, 128),
+                                 (1, K, 8, 128)))
+        if n_total is None:
+            fn = (lambda q=q, k=k, v=v, off=off:
+                  ck.chunk_attention(q, k, v, q_offset=off))
+        else:
+            fn = (lambda q=q, k=k, v=v, off=off, n=n_total:
+                  ck.chunk_attention_masses(q, k, v, q_offset=off,
+                                            n_total=n))
+        print(f"{root}: {label}: {chip_smoke.time_ms(torch, fn):.4f} ms",
+              flush=True)
     for B, S, H, KV, hd, window, label in SHAPES:
         q, k, v = (torch.randn(shape, generator=g, device=dev)
                    .to(torch.bfloat16)

@@ -9,8 +9,11 @@ kernel's plain version):
 0. Build the CUDA kernels from ``src/repro_torch/csrc/`` with nvcc for
    sm_90a into ``build/repro_torch/`` (one nvcc per source, all at once;
    rebuilt when a source's hash changes), and check with ``cuobjdump
-   -sass`` that each instantiation of kernel 7's Hopper tile
-   (``attention_sm90.cuh``) holds HGMMA (wgmma) and UTMALDG (TMA loads).
+   -sass`` that each instantiation of the Hopper tile
+   (``attention_sm90.cuh``: kernel 7's four, kernel 1's and kernel 2's
+   first launch at hd 64 and 128, kernel 2's ``column_masses_sm90``)
+   holds HGMMA (wgmma) and UTMALDG (TMA loads), and with nvcc's
+   ``-Xptxas -v`` that none spills; print their registers.
 1. Hold each kernel against its plain PyTorch version on the card, in
    bfloat16, at the shapes of the main paths (llama3-8b: H=32, KV=8,
    hd=128; chunk 256 and the 32-row observation pass over a 4096-deep
@@ -23,7 +26,9 @@ kernel's plain version):
    rows; dense decode of 4 sequences over 289 rows with a per-kv-head
    mask) and on edge cases (lengths not a multiple of the tile, windows,
    non-causal attention, masked rows and heads, ragged tables with null
-   blocks, GQA groups of 1 and 8), within a tolerance that is a fixed
+   blocks, GQA groups of 1 and 8; kernels 1 and 2 at the edges of the
+   Hopper tile, ``CHUNK_EDGES`` and ``MASSES_EDGES``, and kernel 1 also
+   timed at the observation pass), within a tolerance that is a fixed
    fraction of the plain result's largest magnitude: per output row for
    attention and for the row masses, over the whole result for the
    scores.  Kernel 5's output must be bitwise kernel 4's, kernel 2's
@@ -105,6 +110,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -117,6 +123,51 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 SEED = 0
+
+# Phase 1's edge cases of kernels 1 and 2 on the Hopper tile (bf16 at hd
+# 64 and 128: 128-row query tiles of two 64-row warpgroups, 128-key tiles
+# aligned to position 0): chunks of 1 row up to a tile + 1 and two tiles,
+# offsets on and off the 128 grid (the causal diagonal inside a key tile),
+# buffers shorter than a tile or with a ragged tail, windows that start
+# inside a key tile, GQA ratios 1, 4, 5 and 8, B = 3.
+# (B, C, K, q_offset, window, label, (H, KV, hd))
+CHUNK_EDGES = (
+    (1, 1, 100, 0, None, "C=1 K=100 off=0", (8, 2, 128)),
+    (1, 1, 4096, 4095, None, "C=1 at the last key of 4096", (8, 2, 64)),
+    (1, 32, 1000, 100, None, "C=32 off=100 K=1000", (8, 2, 128)),
+    (1, 64, 100, 0, None, "C=64 K=100 (under one key tile)", (8, 2, 64)),
+    (1, 127, 1000, 100, None, "C=127 off=100 K=1000", (8, 2, 64)),
+    (1, 128, 4096, 3840, None, "C=128 off=3840", (8, 2, 128)),
+    (1, 129, 1000, 100, None, "C=129 off=100 K=1000", (8, 2, 128)),
+    (1, 256, 1000, 100, None, "C=256 off=100 K=1000", (8, 2, 64)),
+    (1, 256, 4096, 3840, 1, "window 1", (8, 2, 128)),
+    (1, 256, 4096, 3840, 64, "window 64", (8, 2, 64)),
+    (1, 256, 1000, 100, 100, "window 100 off=100", (8, 2, 128)),
+    (1, 129, 1000, 100, 128, "window 128 off=100", (8, 2, 64)),
+    (1, 256, 4096, 3840, 1024, "window 1024", (8, 2, 128)),
+    (1, 100, 1000, 700, None, "GQA 1", (4, 4, 128)),
+    (1, 100, 1000, 700, None, "GQA 5", (10, 2, 64)),
+    (1, 100, 1000, 700, None, "GQA 8", (16, 2, 128)),
+    (3, 129, 1000, 100, None, "B=3", (8, 2, 128)),
+)
+# (B, C, K, q_offset, n_total, window, label, dtype, (H, KV, hd))
+MASSES_EDGES = (
+    (1, 256, 4096, 3840, 3900, None, "n_total mid key tile", "bfloat16",
+     (8, 2, 128)),
+    (1, 64, 300, 200, 150, None, "n_total <= q_offset: no row counts",
+     "bfloat16", (8, 2, 64)),
+    (1, 100, 1000, 700, 1000, None, "n_total past the chunk", "bfloat16",
+     (8, 2, 128)),
+    (1, 1, 100, 0, 1, None, "C=1 K=100", "bfloat16", (8, 2, 64)),
+    (1, 129, 1000, 100, 229, None, "C=129 off=100", "bfloat16", (8, 2, 128)),
+    (1, 256, 1000, 100, 300, 100, "window 100", "bfloat16", (8, 2, 64)),
+    (1, 256, 4096, 3840, 4000, 1, "window 1", "bfloat16", (8, 2, 128)),
+    (1, 256, 4096, 3840, 4000, 1024, "window 1024", "bfloat16", (8, 2, 128)),
+    (1, 100, 1000, 700, 790, None, "GQA 5", "bfloat16", (10, 2, 64)),
+    (3, 129, 1000, 100, 200, None, "B=3", "bfloat16", (8, 2, 128)),
+    (1, 129, 1000, 100, 200, 100, "float32 window 100", "float32",
+     (8, 2, 64)),
+)
 
 
 def fail(msg: str) -> None:
@@ -227,8 +278,14 @@ def phase_kernels(torch, mods) -> list:
     results = []
 
     # -- kernel 1: chunk attention ------------------------------------------
-    def chunk_case(B, C, K, off, window, label, timed=False):
-        q, k, v = randn(B, C, H, hd), randn(B, K, KV, hd), randn(B, K, KV, hd)
+    # bf16 at hd 64 and 128 runs the wgmma + TMA tile (attention_sm90.cuh)
+    # at a general q_offset: 128-row query tiles, 128-key tiles aligned to
+    # position 0, the causal diagonal at q_offset + row
+    def chunk_case(B, C, K, off, window, label, timed=False,
+                   heads=(H, KV, hd)):
+        Hs, KVs, hds = heads
+        q, k, v = (randn(B, C, Hs, hds), randn(B, K, KVs, hds),
+                   randn(B, K, KVs, hds))
         got = ck.chunk_attention(q, k, v, q_offset=off, window=window)
         torch.cuda.synchronize()
         want = ref.chunk_attention(q, k, v, q_offset=off, window=window)
@@ -243,17 +300,17 @@ def phase_kernels(torch, mods) -> list:
         # one library call computing the same function: SDPA with an
         # explicit mask (kv heads expanded and the mask built outside)
         qt = q.transpose(1, 2)
-        kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
-        vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+        kt = k.repeat_interleave(Hs // KVs, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(Hs // KVs, dim=2).transpose(1, 2)
         qpos = off + torch.arange(C, device=dev)
         kpos = torch.arange(K, device=dev)
         mask = kpos[None, :] <= qpos[:, None]
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask))
         vis = torch.clamp(qpos + 1, max=K).sum().item()
-        n_ops = 4 * hd * H * B * vis
-        n_bytes = itemsize * (2 * B * C * H * hd
-                              + 2 * B * min(K, off + C) * KV * hd)
+        n_ops = 4 * hds * Hs * B * vis
+        n_bytes = itemsize * (2 * B * C * Hs * hds
+                              + 2 * B * min(K, off + C) * KVs * hds)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
         print(f"  chunk_attention {label}: {ms:.4f} ms, plain {plain:.4f} "
               f"ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -262,9 +319,11 @@ def phase_kernels(torch, mods) -> list:
 
     main1 = chunk_case(1, 256, 4096, 3840, None, "C=256 K=4096 off=3840",
                        timed=True)
-    chunk_case(1, 32, 4096, 4000, None, "obs pass C=32 off=4000")
+    chunk_case(1, 32, 4096, 4000, None, "obs pass C=32 off=4000", timed=True)
     chunk_case(1, 256, 1000, 700, None, "K=1000 (ragged tile)")
     chunk_case(2, 64, 700, 500, 128, "window 128")
+    for args in CHUNK_EDGES:
+        chunk_case(*args[:5], "edge " + args[5], heads=args[6])
     results.append(dict(
         name="chunk_attention", route="cuda",
         source="src/repro_torch/csrc/chunk_attention.cu",
@@ -272,7 +331,7 @@ def phase_kernels(torch, mods) -> list:
 
     # -- kernel 2: chunk attention with column masses (h2o) -------------------
     def masses_chunk_case(B, C, K, off, n_total, window, label, *, Hq=H,
-                          dtype=bf16, timed=False):
+                          dtype=bf16, timed=False, kv_hd=(KV, hd)):
         """Kernel 2 against kernel 1 and its plain version: ``out`` bitwise
         kernel 1's on the same inputs; each (b, h) row of masses within
         2^-16 of that row's largest plain mass (both sides take float32
@@ -280,9 +339,10 @@ def phase_kernels(torch, mods) -> list:
         over rows in other orders); exact zeros where the plain masses
         are; every row summing to the number of counted rows within
         1e-4 of it."""
+        KVs, hds = kv_hd
         mk = (lambda *shape: torch.randn(shape, generator=g,
                                          device=dev).to(dtype))
-        q, k, v = mk(B, C, Hq, hd), mk(B, K, KV, hd), mk(B, K, KV, hd)
+        q, k, v = mk(B, C, Hq, hds), mk(B, K, KVs, hds), mk(B, K, KVs, hds)
         kw = dict(q_offset=off, window=window)
         got, m_got = ck.chunk_attention_masses(q, k, v, n_total=n_total,
                                                **kw)
@@ -312,16 +372,16 @@ def phase_kernels(torch, mods) -> list:
             ref.chunk_column_masses(q, k, row_valid=rv, **kw)), iters=5)
         # the out half only: no library call returns the column masses
         qt = q.transpose(1, 2)
-        kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
-        vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+        kt = k.repeat_interleave(Hq // KVs, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(Hq // KVs, dim=2).transpose(1, 2)
         qpos = off + torch.arange(C, device=dev)
         mask = torch.arange(K, device=dev)[None, :] <= qpos[:, None]
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask))
         vis = torch.clamp(qpos + 1, max=K).sum().item()
-        n_ops = 4 * hd * Hq * B * vis  # Q.K^T and P.V once each
-        n_bytes = (itemsize * (2 * B * C * Hq * hd
-                               + 2 * B * min(K, off + C) * KV * hd)
+        n_ops = 4 * hds * Hq * B * vis  # Q.K^T and P.V once each
+        n_bytes = (itemsize * (2 * B * C * Hq * hds
+                               + 2 * B * min(K, off + C) * KVs * hds)
                    + 4 * B * Hq * K)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
         print(f"  chunk_attention_masses {label}: {ms:.4f} ms, plain "
@@ -340,6 +400,11 @@ def phase_kernels(torch, mods) -> list:
     masses_chunk_case(1, 64, 300, 200, 264, None, "G=8 (H=64)", Hq=64)
     masses_chunk_case(1, 256, 1000, 700, 900, None, "float32",
                       dtype=torch.float32)
+    for args in MASSES_EDGES:
+        (Hs, KVs, hds) = args[8]
+        masses_chunk_case(*args[:6], "edge " + args[6],
+                          dtype=getattr(torch, args[7]), Hq=Hs,
+                          kv_hd=(KVs, hds))
     results.append(dict(
         name="chunk_attention_masses", route="cuda",
         source="src/repro_torch/csrc/chunk_attention.cu",
@@ -1586,22 +1651,63 @@ def phase_build(mods) -> None:
     print(f"  build {time.perf_counter() - t0:.1f} s "
           f"({len(report)} compiled, {len(build.SOURCES) - len(report)} "
           "cached)", flush=True)
-    # kernel 7's bf16 tile (attention_sm90.cuh) must run on wgmma and TMA:
-    # HGMMA and UTMALDG in the SASS of each of its instantiations
+    # the Hopper tile (attention_sm90.cuh) must run on wgmma and TMA: HGMMA
+    # and UTMALDG in the SASS of each of its instantiations (kernel 7's
+    # four, kernel 1's and kernel 2's first launch at hd 64 and 128, and
+    # kernel 2's column_masses_sm90), with no spills
     lib = build._target("chunk_attention")
     sass = subprocess.run(
         [str(Path(build.nvcc_path()).with_name("cuobjdump")), "-sass",
          str(lib)], capture_output=True, text=True, timeout=120)
     check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
     funcs = sass.stdout.split("Function : ")[1:]
-    tiles = [f for f in funcs if f.startswith("_ZN4sm90")]
-    for f in tiles:
+    tiles = {f.split(chr(10))[0].strip(): f for f in funcs
+             if f.startswith("_ZN4sm90")}
+    ptxas = ptxas_report(report["chunk_attention"][1]
+                         if "chunk_attention" in report else "")
+    for name, f in sorted(tiles.items()):
         hg, tma = f.count("HGMMA"), f.count("UTMALDG")
-        print(f"  {f.split(chr(10))[0][:100]}...: {hg} HGMMA, {tma} UTMALDG")
-        check(hg > 0 and tma > 0, "kernel 7's Hopper tile has no HGMMA or "
-              "no UTMALDG in its SASS")
-    check(len(tiles) == 4, f"{len(tiles)} instantiations of the Hopper "
-          "tile in the SASS, expected 4 (hd 64/128, causal or not)")
+        regs, spills = ptxas.get(name, (None, None))
+        print(f"  {demangle(name)}: {hg} HGMMA, {tma} UTMALDG; {regs} "
+              f"registers, {spills} bytes spilled")
+        check(hg > 0 and tma > 0, f"{demangle(name)} has no HGMMA or no "
+              "UTMALDG in its SASS")
+        check(not spills, f"{demangle(name)} spills registers")
+    wanted = {"flash_attention_tag": 4, "chunk_attention_tag": 2,
+              "chunk_masses_tag": 2, "column_masses_sm90": 2}
+    for part, n in wanted.items():
+        got = sum(part in name for name in tiles)
+        check(got == n, f"{got} instantiations of the Hopper tile name "
+              f"{part} in the SASS, expected {n}")
+    check(len(tiles) == sum(wanted.values()), f"{len(tiles)} Hopper tile "
+          f"instantiations in the SASS, expected {sum(wanted.values())}")
+
+
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel name: (registers, spilled bytes stored + loaded)}
+    from the ``-Xptxas -v`` output of one nvcc run."""
+    out, name, spill = {}, None, 0
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name, spill = ln.split("'")[1], 0
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                      r"bytes spill loads", ln)):
+            spill = int(m[1]) + int(m[2])
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            out[name] = (int(m[1]), spill)
+            name = None
+    return out
+
+
+def demangle(name: str) -> str:
+    """A Hopper tile instantiation's kernel and template arguments."""
+    m = re.search(r"(flash_attention_tag|chunk_attention_tag|"
+                  r"chunk_masses_tag)ELi(\d+)ELb(\d)ELb(\d)", name)
+    if m:
+        return (f"attention_sm90<{m[1]}, hd {m[2]}, causal {m[3]}, "
+                f"stats {m[4]}>")
+    m = re.search(r"column_masses_sm90ILi(\d+)E", name)
+    return f"column_masses_sm90<hd {m[1]}>" if m else name
 
 
 def main() -> None:

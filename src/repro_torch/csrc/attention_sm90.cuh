@@ -2,13 +2,19 @@
 // mbarrier ring for K/V.  bf16 in, f32 accumulate, bf16 out; head dims 64
 // and 128.
 //
-// Computes what attention_mma of chunk_attention.cu computes: C query rows
-// at absolute positions q_offset.. attend over a K-deep key/value buffer
-// whose column j holds position j; earlier columns are visible, the rows
-// are causal among themselves (CAUSAL), and an optional window hides keys
-// with q_pos - k_pos >= window.  The entry flash_attention runs it with
-// q_offset 0 and C == K (monolithic self-attention: the port of
-// src/repro/kernels/flash_attention.py, flash_attention_pallas).
+// Computes C query rows at absolute positions q_offset.. attending over a
+// K-deep key/value buffer whose column j holds position j; earlier columns
+// are visible, the rows are causal among themselves (CAUSAL), and an
+// optional window hides keys with q_pos - k_pos >= window.  Three entries
+// of chunk_attention.cu run it at bf16 with head dims 64 and 128:
+// * chunk_attention (kernel 1, the port of chunk_attention_pallas of
+//   src/repro/kernels/chunk_attention.py): a prefill chunk or the 32-row
+//   observation pass at q_offset over the buffer;
+// * flash_attention (kernel 7, flash_attention_pallas of
+//   src/repro/kernels/flash_attention.py): q_offset 0 and C == K;
+// * chunk_attention_masses (kernel 2, chunk_attention_masses_pallas): the
+//   tile with STATS, which adds only a store of each row's final (m, l),
+//   so its out is bitwise kernel 1's, then column_masses_sm90 below.
 //
 // Layout: q (B, C, H, hd), k/v (B, K, KV, hd) contiguous bf16, out (B, C,
 // H, hd).  GQA: query head h reads kv head h / (H / KV).
@@ -37,14 +43,33 @@
 //   accumulator layout is the A-fragment layout of the next product: pack
 //   adjacent pairs to bf16x2) and B = V read as MN-major from shared
 //   memory (V is key-major with hd contiguous: transpose flag 1).
-// * Epilogue: O / max(l, L_FLOOR) to bf16, rows < C only.
+// * Epilogue: O / max(l, L_FLOOR) to bf16, rows < C only.  With STATS,
+//   lane t == 0 of each row also stores the row's raw logit max m (not
+//   scaled) and l in this tile's units: l = sum_j exp2(s_j * scale_log2 -
+//   m * scale_log2), the product m * scale_log2 rounded once to float.
 //
 // Bound on the H100 (989 TFLOP/s bf16): operations, 4*hd*H*sum_i(visible
-// keys of row i), ~0.14 ms for llama3-8b's 4 x 2080-row causal prefill.
+// keys of row i), ~0.14 ms for llama3-8b's 4 x 2080-row causal prefill,
+// ~0.017 ms for its 256-row chunk at offset 3840 of a 4096-deep buffer.
 // What it leaves: the softmax of a tile does not overlap its own
 // warpgroup's products (no ping-pong between the two warpgroups, no next
 // S issued before this P.V), a warpgroup computes whole 128-key tiles on
-// the causal diagonal, and the output is stored from registers.
+// the causal diagonal, and the output is stored from registers.  A short
+// chunk fills little of the card: a 256-row chunk of one sequence is 2 x H
+// CTAs (64 for llama3-8b on 132 SMs), the 32-row observation pass H CTAs
+// with one warpgroup idle; the key range is not split across CTAs.
+//
+// column_masses_sm90 (kernel 2's second launch): one CTA per (128-key
+// tile, q head, batch) loads its K tile once and streams the 128-row Q
+// tiles of the counted rows through a 2-stage TMA ring.  The Q and K tiles
+// sit where the attention tile's do (Q tiles 128-aligned from row 0, key
+// tiles 128-aligned from position 0, the same swizzled halves), and S
+// comes from the same wgmma calls in the same k-step order, so each logit
+// is bitwise the one the attention tile's softmax saw; p = exp2(s *
+// scale_log2 - m * scale_log2) / max(l, L_FLOOR) is then at most ~1.
+// Column sums go over the lane's two rows and its Q tiles in registers,
+// then the 8 row lanes by shuffles, then the 8 warps through shared memory,
+// each in a fixed order: no atomics, deterministic masses.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (no libcuda link: see below)
@@ -59,7 +84,13 @@ constexpr int BN = 128;       // keys per K/V tile
 constexpr int CONSUMERS = 256;  // two warpgroups: the products and softmax
 constexpr int THREADS = CONSUMERS + 128;  // a third warpgroup loads
 constexpr int STAGES = 3;     // K/V ring depth
+constexpr int QSTAGES = 2;    // Q ring depth of column_masses_sm90
 constexpr int HALF = BM * 128;  // bytes of one 64-column half of a tile
+
+// softmax scale times log2(e), the same float in both launches of kernel 2
+inline float log2e_scale(int hd) {
+  return 1.4426950408889634f / sqrtf((float)hd);
+}
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -281,12 +312,13 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk,
 // same for 16 columns: (row g, cols 2t..), (g + 8, 2t..), (g, 8 + 2t..),
 // (g + 8, 8 + 2t..), so the S registers 8kk..8kk+7, packed in pairs, are
 // P's A fragment of k-step kk.
-template <typename Entry, int HD, bool CAUSAL>
+template <typename Entry, int HD, bool CAUSAL, bool STATS>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_sm90(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
-               __nv_bfloat16* __restrict__ out, int C, int H, int K, int KV,
+               __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
+               float* __restrict__ l_out, int C, int H, int K, int KV,
                int q_offset, int window, float scale_log2) {
   static_assert(HD == 64 || HD == 128, "head dims 64 and 128");
   constexpr int TILE = (HD / 64) * HALF;  // bytes of one Q, K or V tile
@@ -470,6 +502,17 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o2);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o2);
   }
+  if constexpr (STATS) {  // (B, H, C) scratch for column_masses_sm90
+    const size_t st = ((size_t)b * H + h) * C;
+    if (t == 0 && r_lo < C) {
+      m_out[st + r_lo] = m_lo;
+      l_out[st + r_lo] = l_lo;
+    }
+    if (t == 0 && r_hi < C) {
+      m_out[st + r_hi] = m_hi;
+      l_out[st + r_hi] = l_hi;
+    }
+  }
   const float i_lo = 1.f / fmaxf(l_lo, L_FLOOR);
   const float i_hi = 1.f / fmaxf(l_hi, L_FLOOR);
   const size_t row = (size_t)H * HD;
@@ -536,11 +579,13 @@ static cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int hd,
 }
 
 // q (B, C, H, HD), k/v (B, K, KV, HD) bf16 -> out (B, C, H, HD); window <= 0
-// means no window.  Returns the first error (map encoding or launch).
-template <typename Entry, int HD, bool CAUSAL>
+// means no window; with STATS each row's (m, l) into the (B, H, C) float32
+// m_out, l_out.  Returns the first error (map encoding or launch).
+template <typename Entry, int HD, bool CAUSAL, bool STATS = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int C, int H, int K, int KV, int q_offset,
-                   int window, cudaStream_t stream) {
+                   int window, cudaStream_t stream, float* m_out = nullptr,
+                   float* l_out = nullptr) {
   CUtensorMap tq, tk, tv;
   cudaError_t err = tensor_map(&tq, q, HD, H, C, B);
   if (err == cudaSuccess) err = tensor_map(&tk, k, HD, KV, K, B);
@@ -548,13 +593,208 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   // the alignment pad, Q, STAGES x (K, V)
   const int smem = 1024 + (1 + 2 * STAGES) * (HD / 64) * HALF;
-  auto* kern = attention_sm90<Entry, HD, CAUSAL>;
+  auto* kern = attention_sm90<Entry, HD, CAUSAL, STATS>;
   err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((C + BM - 1) / BM, H, B);
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
-  kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv, (__nv_bfloat16*)out, C, H,
-                                        K, KV, q_offset, window, scale_log2);
+  kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv, (__nv_bfloat16*)out,
+                                        m_out, l_out, C, H, K, KV, q_offset,
+                                        window, log2e_scale(HD));
+  return cudaGetLastError();
+}
+
+// Rows of the chunk whose softmax mass on the key tile [k0, k0 + BN)
+// counts: [*r_begin, *r_end).  A row counts while q_offset + row <
+// n_total; it sees the tile from row k0 - q_offset on (causal) and, with a
+// window, only up to row k0 + BN - 2 + window - q_offset.
+__device__ __forceinline__ void counted_rows(int k0, int C, int q_offset,
+                                             int n_total, int window,
+                                             int* r_begin, int* r_end) {
+  *r_begin = max(0, k0 - q_offset);
+  int end = min(C, n_total - q_offset);
+  if (window > 0) end = min(end, k0 + BN - 1 + window - q_offset);
+  *r_end = end;
+}
+
+// Kernel 2's second launch: masses[b, h, j] for the keys j of tile
+// blockIdx.x, summed over the counted rows, from the (m, l) that
+// attention_sm90 with STATS stored.  256 threads (two warpgroups of 64
+// rows); thread 0 issues the loads: the K tile once, the Q tiles through a
+// QSTAGES ring that it refills once all 256 threads have left a stage.
+template <int HD>
+__global__ void __launch_bounds__(CONSUMERS)
+column_masses_sm90(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const float* __restrict__ m_in,
+                   const float* __restrict__ l_in,
+                   float* __restrict__ masses, int C, int H, int K, int KV,
+                   int q_offset, int n_total, int window, float scale_log2) {
+  static_assert(HD == 64 || HD == 128, "head dims 64 and 128");
+  constexpr int TILE = (HD / 64) * HALF;
+  extern __shared__ unsigned char smem_raw[];
+  // k, full[QSTAGES], empty[QSTAGES]
+  __shared__ __align__(8) uint64_t bars[1 + 2 * QSTAGES];
+  __shared__ float red[CONSUMERS / 32][BN];  // per-warp column sums
+  // the K tile, then Q stage s at sK + (1 + s) TILE
+  const uint32_t sK = (saddr(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar_k = saddr(&bars[0]);
+  auto sQ = [=](int s) { return sK + (1 + s) * TILE; };
+  auto full = [=](int s) { return bar_k + 8 * (1 + s); };
+  auto empty = [=](int s) { return bar_k + 8 * (1 + QSTAGES + s); };
+
+  const int k0 = blockIdx.x * BN;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* mb = masses + ((size_t)b * H + h) * K;
+  int r_begin, r_end;
+  counted_rows(k0, C, q_offset, n_total, window, &r_begin, &r_end);
+  if (r_begin >= r_end) {  // no counted row sees this tile: exact zeros
+    if (tid < BN && k0 + tid < K) mb[k0 + tid] = 0.f;
+    return;
+  }
+  // Q tiles where the attention tile has them: 128-aligned from row 0
+  const int first = (r_begin / BM) * BM;
+  const int n_qt = (r_end - first + BM - 1) / BM;
+  const CUtensorMap* pq = &tq;
+  auto load_q = [=](int s, int q0) {
+    mbar_expect_tx(full(s), TILE);
+#pragma unroll
+    for (int hf = 0; hf < HD / 64; ++hf)
+      tma_load(sQ(s) + hf * HALF, pq, full(s), 64 * hf, h, q0, b);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_k, 1);
+#pragma unroll
+    for (int s = 0; s < QSTAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_k, TILE);
+#pragma unroll
+    for (int hf = 0; hf < HD / 64; ++hf)
+      tma_load(sK + hf * HALF, &tk, bar_k, 64 * hf, kvh, k0, b);
+    for (int s = 0; s < QSTAGES && s < n_qt; ++s) load_q(s, first + s * BM);
+  }
+
+  const float* ms = m_in + ((size_t)b * H + h) * C;
+  const float* ls = l_in + ((size_t)b * H + h) * C;
+  // col[2j + i]: key 8j + 2t + i of the tile, over this lane's rows
+  float col[BN / 4];
+#pragma unroll
+  for (int i = 0; i < BN / 4; ++i) col[i] = 0.f;
+  mbar_wait(bar_k, 0);
+  int s = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < n_qt; ++it) {
+    const int q0 = first + it * BM;
+    mbar_wait(full(s), phase);
+    // does any counted row fall in this warpgroup's 64 (uniform per
+    // warpgroup, as wgmma needs)?
+    const int w0 = q0 + 64 * wg;
+    if (w0 < r_end && w0 + 64 > r_begin) {
+      float sc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+      const uint64_t dq = desc_sw128(sQ(s) + wg * 64 * 128, 16, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {  // attention_sm90's k-steps
+        const uint32_t off = (kk >> 2) * HALF + (kk & 3) * 32;
+        wgmma_ss_n128(sc, dq + (off >> 4), desc_sw128(sK + off, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      const int r_lo = w0 + 16 * warp + g, r_hi = r_lo + 8;
+      const bool v_lo = r_lo >= r_begin && r_lo < r_end;
+      const bool v_hi = r_hi >= r_begin && r_hi < r_end;
+      // the attention tile's m * scale_log2 and 1 / max(l, L_FLOOR)
+      const float ms_lo = v_lo ? ms[r_lo] * scale_log2 : 0.f;
+      const float ms_hi = v_hi ? ms[r_hi] * scale_log2 : 0.f;
+      const float il_lo = v_lo ? 1.f / fmaxf(ls[r_lo], L_FLOOR) : 0.f;
+      const float il_hi = v_hi ? 1.f / fmaxf(ls[r_hi], L_FLOOR) : 0.f;
+      const int qp_lo = q_offset + r_lo, qp_hi = q_offset + r_hi;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + 8 * j + 2 * t + (e & 1);
+          const bool lo = e < 2;
+          const int qp = lo ? qp_lo : qp_hi;
+          const bool ok = (lo ? v_lo : v_hi) && kp < K && kp <= qp &&
+                          (window <= 0 || qp - kp < window);
+          const float p =
+              ex2(fmaf(sc[4 * j + e], scale_log2, lo ? -ms_lo : -ms_hi)) *
+              (lo ? il_lo : il_hi);
+          col[2 * j + (e & 1)] += ok ? p : 0.f;
+        }
+      }
+    }
+    mbar_arrive(empty(s));  // this thread is done with stage s
+    if (tid == 0 && it + QSTAGES < n_qt) {
+      mbar_wait(empty(s), phase);  // all 256 are: refill it
+      load_q(s, q0 + QSTAGES * BM);
+    }
+    __syncwarp();
+    if (++s == QSTAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  // over the 8 row lanes g of each warp, then the 8 warps in order
+#pragma unroll
+  for (int i = 0; i < BN / 4; ++i) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1)
+      col[i] += __shfl_xor_sync(0xffffffffu, col[i], o);
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      red[tid >> 5][8 * j + 2 * t] = col[2 * j];
+      red[tid >> 5][8 * j + 2 * t + 1] = col[2 * j + 1];
+    }
+  }
+  __syncthreads();
+  if (tid < BN && k0 + tid < K) {
+    float tot = 0.f;
+#pragma unroll
+    for (int w = 0; w < CONSUMERS / 32; ++w) tot += red[w][tid];
+    mb[k0 + tid] = tot;
+  }
+}
+
+// Kernel 2's column masses from the (B, H, C) m_in, l_in that
+// launch<..., STATS = true> stored: masses (B, H, K) float32 over the rows
+// with q_offset + row < n_total.
+template <int HD>
+cudaError_t launch_column_masses(const void* q, const void* k,
+                                 const float* m_in, const float* l_in,
+                                 float* masses, int B, int C, int H, int K,
+                                 int KV, int q_offset, int n_total,
+                                 int window, cudaStream_t stream) {
+  CUtensorMap tq, tk;
+  cudaError_t err = tensor_map(&tq, q, HD, H, C, B);
+  if (err == cudaSuccess) err = tensor_map(&tk, k, HD, KV, K, B);
+  if (err != cudaSuccess) return err;
+  // the alignment pad, K, QSTAGES x Q
+  const int smem = 1024 + (1 + QSTAGES) * (HD / 64) * HALF;
+  auto* kern = column_masses_sm90<HD>;
+  err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((K + BN - 1) / BN, H, B);
+  kern<<<grid, CONSUMERS, smem, stream>>>(tq, tk, m_in, l_in, masses, C, H,
+                                          K, KV, q_offset, n_total, window,
+                                          log2e_scale(HD));
   return cudaGetLastError();
 }
 

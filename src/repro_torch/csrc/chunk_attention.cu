@@ -10,12 +10,7 @@
 // (pallas_call at :99), through the entry flash_attention: monolithic
 // self-attention of a whole sequence (Sq == Sk), which is the causal chunk
 // with q_offset = 0 and C = K, or with CAUSAL false every key visible
-// (the window still applies).  Its bf16 path at head dims 64 and 128 is
-// the wgmma + TMA tile of attention_sm90.cuh; float32 and hd 32 take this
-// file's kernels.  Each entry instantiates the kernels with a tag type of
-// its own name (attention_mma<chunk_attention_tag, ...> against
-// attention_sm90<flash_attention_tag, ...>), so a profile reads the two
-// apart.
+// (the window still applies).
 //
 // Also replaces src/repro/kernels/chunk_attention.py,
 // chunk_attention_masses_pallas (pallas_call at :289), through the entry
@@ -28,16 +23,17 @@
 // span several CTAs here, so a column sum is a reduction across CTAs, and
 // the entry makes two launches with no atomics (the masses are
 // deterministic):
-//   (a) the attention kernels with STATS set (tag chunk_masses_tag): the
+//   (a) the attention kernel with STATS set (tag chunk_masses_tag): the
 //       same body, which only adds a store of each row's final (m, l) to a
 //       (B, H, C) float32 scratch, so out stays bitwise kernel 1's;
-//   (b) column_masses_*: one CTA per (64-key tile, head, batch) recomputes
-//       the tile's logits for the chunk's rows that can see it, exactly as
-//       (a) forms them (the same operands, the same tensor-core fragments
-//       or FMA order, the same scale), takes exp(s - m) / l, zeroes rows at
-//       or past n_total and sums over rows.  A tile no counted row can see
-//       (past the chunk's last visible key, or before the window of every
-//       row) writes zeros without reading K.
+//   (b) a column-masses kernel: one CTA per (key tile, head, batch)
+//       recomputes the tile's logits for the chunk's rows that can see it,
+//       exactly as (a) forms them (the same operands in the same tile
+//       positions, the same tensor-core instructions or FMA order, the
+//       same scale), takes exp(s - m) / l, zeroes rows at or past n_total
+//       and sums over rows.  A tile no counted row can see (past the
+//       chunk's last visible key, or before the window of every row)
+//       writes zeros without reading K.
 // (b) is bound like (a)'s Q.K^T half: operations, 2*hd*H*sum_i(visible
 // keys of row i) over the bf16 peak; it adds the masses' writes (B*H*K*4
 // bytes) to (a)'s bytes.
@@ -46,37 +42,37 @@
 // out (B, C, H, hd) in q's type.  GQA: query head h reads kv head
 // h / (H / KV).
 //
-// Both paths put one CTA on each (64-row query tile, head, batch).  The TPU
-// grid's sequential key axis becomes a loop inside the CTA over 64-key
-// tiles staged in shared memory, with the online-softmax (m, l, acc)
-// recurrence in registers.  The loop stops at the tile's last visible key,
-// q_offset + row_end - 1 (the causal block pruning of chunk_attention.py:62;
-// the Pallas flash kernel sweeps the masked upper triangle instead); with a
-// window it also starts at the first key any row of the tile sees.  Query
+// Each entry instantiates the kernels with a tag type of its own name
+// (attention_sm90<chunk_attention_tag, ...> against
+// attention_sm90<flash_attention_tag, ...>), so a profile reads them apart.
+//
+// * bf16 at head dims 64 and 128 (the serving path of every entry): the
+//   Hopper tile of attention_sm90.cuh, wgmma for both products and a TMA +
+//   mbarrier ring on 128-row query tiles and 128-key K/V tiles; kernel 2's
+//   (b) is its column_masses_sm90.  Those shapes reach nothing else.
+// * bf16 at head dim 32: this file's mma.sync tiles (attention_mma,
+//   column_masses_mma): 4 warps of 16 query rows, 64-key tiles through a
+//   double-buffered cp.async ring, FlashAttention-2 style: a warp keeps its
+//   Q rows as A fragments, masks and rescales S in registers, and reuses
+//   the S fragment layout as P's A operand after rounding P to bf16 (m, l
+//   and the rescale stay f32); V's B fragments come from ldmatrix.trans.
+// * fp32 (the float32 configs): this file's CUDA-core kernels
+//   (attention_fma, column_masses_fma), 256 threads, 4 lanes per query row.
+// The tiles of this file put one CTA on each (64-row query tile, head,
+// batch).  The TPU grid's sequential key axis becomes a loop inside the
+// CTA over key tiles, with the online-softmax (m, l, acc) recurrence in
+// registers; the loop stops at the tile's last visible key, q_offset +
+// row_end - 1 (the causal block pruning of chunk_attention.py:62), and
+// with a window starts at the first key any row of the tile sees.  Query
 // tiles are numbered from the last one down, so the tiles with the longest
 // key loops of a causal sequence start first and the short ones fill in.
-//
-// * bf16 (the serving path): tensor cores through mma.sync m16n8k16 (bf16
-//   in, f32 accumulate), FlashAttention-2 style.  4 warps, 16 query rows
-//   each; a warp keeps its Q rows as A fragments, computes S = Q K^T for
-//   64 keys into f32 fragments, masks and rescales them in registers (the
-//   lane owning an S element knows its row and key), and reuses the S
-//   fragment layout as the A operand of P.V after rounding P to bf16
-//   (m, l and the rescale stay f32).  K/V tiles stream into a
-//   double-buffered shared-memory ring by cp.async (the next tile loads
-//   while this one computes); V's B fragments come from ldmatrix.trans.
-// * fp32 (the float32 configs): 256 threads, 4 lanes per query row, fp32
-//   FMAs on CUDA cores.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16): the larger of
 // 4*hd*H*sum_i(visible keys of row i) operations / 989e12 and the bytes of
 // q, the visible k/v rows and out / 3.35e12.  A 256-row chunk deep in a
 // 4k prompt is operation-bound (~17 us at the data-sheet peaks of an H100
-// SXM at its full 700 W).  What the design leaves on the table: mma.sync
-// instead of wgmma, cp.async instead of TMA, one 4-warp CTA per query
-// tile per head (128 CTAs for a 256-row chunk of llama3-8b, one per SM),
-// so the 4 q heads of a GQA group each re-read their kv head's tiles (from
-// L2).
+// SXM at its full 700 W).  What the Hopper tile leaves is listed in
+// attention_sm90.cuh's header.
 #include "attention_sm90.cuh"
 #include "common.cuh"
 
@@ -797,59 +793,59 @@ cudaError_t launch_masses(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_masses(int hd, const void* q, const void* k,
+// Kernel 2: bf16 at hd 64 and 128 on the Hopper tile (attention_sm90 with
+// STATS, then column_masses_sm90), everything else on this file's kernels.
+cudaError_t dispatch_masses(int dtype, int hd, const void* q, const void* k,
                             const void* v, void* out, float* m_buf,
                             float* l_buf, float* masses, int B, int C, int H,
                             int K, int KV, int q_offset, int n_total,
                             int window, cudaStream_t s) {
-  switch (hd) {
-    case 32: return launch_masses<T, 32>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
-    case 64: return launch_masses<T, 64>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
-    case 128: return launch_masses<T, 128>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
-    default: return cudaErrorInvalidValue;
+  using tag = chunk_masses_tag;
+  cudaError_t err;
+  if (dtype == DTYPE_F32) {
+    switch (hd) {
+      case 32: return launch_masses<float, 32>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
+      case 64: return launch_masses<float, 64>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
+      case 128: return launch_masses<float, 128>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
-}
-
-template <typename Entry, typename T, bool CAUSAL>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        void* out, int B, int C, int H, int K, int KV,
-                        int q_offset, int window, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch<Entry, T, 32, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, stream);
-    case 64: return launch<Entry, T, 64, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, stream);
-    case 128: return launch<Entry, T, 128, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// Kernel 7: bf16 at hd 64 and 128 on the Hopper tile, everything else on
-// this file's kernels.
-template <bool CAUSAL>
-cudaError_t dispatch_flash(int dtype, int hd, const void* q, const void* k,
-                           const void* v, void* out, int B, int S, int H,
-                           int KV, int window, cudaStream_t s) {
-  using tag = flash_attention_tag;
-  if (dtype == DTYPE_F32)
-    return dispatch_hd<tag, float, CAUSAL>(hd, q, k, v, out, B, S, H, S, KV, 0, window, s);
   if (dtype != DTYPE_BF16) return cudaErrorInvalidValue;
   switch (hd) {
-    case 32: return launch<tag, __nv_bfloat16, 32, CAUSAL>(q, k, v, out, B, S, H, S, KV, 0, window, s);
-    case 64: return sm90::launch<tag, 64, CAUSAL>(q, k, v, out, B, S, H, S, KV, 0, window, s);
-    case 128: return sm90::launch<tag, 128, CAUSAL>(q, k, v, out, B, S, H, S, KV, 0, window, s);
+    case 32: return launch_masses<__nv_bfloat16, 32>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
+    case 64:
+      err = sm90::launch<tag, 64, true, true>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, m_buf, l_buf);
+      if (err != cudaSuccess) return err;
+      return sm90::launch_column_masses<64>(q, k, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
+    case 128:
+      err = sm90::launch<tag, 128, true, true>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, m_buf, l_buf);
+      if (err != cudaSuccess) return err;
+      return sm90::launch_column_masses<128>(q, k, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// Kernels 1 and 7: bf16 at hd 64 and 128 on the Hopper tile, everything
+// else on this file's kernels.
 template <typename Entry, bool CAUSAL>
 cudaError_t dispatch(int dtype, int hd, const void* q, const void* k,
                      const void* v, void* out, int B, int C, int H, int K,
                      int KV, int q_offset, int window, cudaStream_t s) {
-  if (dtype == DTYPE_F32)
-    return dispatch_hd<Entry, float, CAUSAL>(hd, q, k, v, out, B, C, H, K, KV, q_offset, window, s);
-  if (dtype == DTYPE_BF16)
-    return dispatch_hd<Entry, __nv_bfloat16, CAUSAL>(hd, q, k, v, out, B, C, H, K, KV, q_offset, window, s);
-  return cudaErrorInvalidValue;
+  if (dtype == DTYPE_F32) {
+    switch (hd) {
+      case 32: return launch<Entry, float, 32, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s);
+      case 64: return launch<Entry, float, 64, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s);
+      case 128: return launch<Entry, float, 128, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (dtype != DTYPE_BF16) return cudaErrorInvalidValue;
+  switch (hd) {
+    case 32: return launch<Entry, __nv_bfloat16, 32, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s);
+    case 64: return sm90::launch<Entry, 64, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s);
+    case 128: return sm90::launch<Entry, 128, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -872,9 +868,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int causal, int window, int dtype,
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  using tag = flash_attention_tag;
   if (causal)
-    return dispatch_flash<true>(dtype, hd, q, k, v, out, B, S, H, KV, window, s);
-  return dispatch_flash<false>(dtype, hd, q, k, v, out, B, S, H, KV, window, s);
+    return dispatch<tag, true>(dtype, hd, q, k, v, out, B, S, H, S, KV, 0, window, s);
+  return dispatch<tag, false>(dtype, hd, q, k, v, out, B, S, H, S, KV, 0, window, s);
 }
 
 // Chunk attention plus the column masses of the rows below n_total (h2o):
@@ -887,13 +884,7 @@ extern "C" int chunk_attention_masses(const void* q, const void* k,
                                       int C, int H, int K, int KV, int hd,
                                       int q_offset, int n_total, int window,
                                       int dtype, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  float* m = (float*)m_buf;
-  float* l = (float*)l_buf;
-  float* ms = (float*)masses;
-  if (dtype == DTYPE_F32)
-    return dispatch_masses<float>(hd, q, k, v, out, m, l, ms, B, C, H, K, KV, q_offset, n_total, window, s);
-  if (dtype == DTYPE_BF16)
-    return dispatch_masses<__nv_bfloat16>(hd, q, k, v, out, m, l, ms, B, C, H, K, KV, q_offset, n_total, window, s);
-  return cudaErrorInvalidValue;
+  return dispatch_masses(dtype, hd, q, k, v, out, (float*)m_buf,
+                         (float*)l_buf, (float*)masses, B, C, H, K, KV,
+                         q_offset, n_total, window, (cudaStream_t)stream);
 }

@@ -11,6 +11,11 @@ invisible, optional sliding window).  It serves both the prefill chunks
 h2o chunk): the same attention, bitwise, plus the summed softmax column
 masses of the rows below ``n_total``.  Plain version: ``ref.chunk_attention``
 and ``ref.chunk_column_masses``.
+
+bfloat16 at head dims 64 and 128 (the served models) runs the wgmma + TMA
+tile of ``csrc/attention_sm90.cuh`` for both (kernel 2: the tile storing
+each row's (m, l), then its ``column_masses_sm90`` over 128-key tiles);
+float32 and head dim 32 run the kernels of ``csrc/chunk_attention.cu``.
 """
 
 from __future__ import annotations

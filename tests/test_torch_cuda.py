@@ -82,6 +82,26 @@ def _randn(gen, shape, dtype, dev):
     (1, 32, 4096, 32, 8, 128, 4000, None),  # the observation pass
     (2, 50, 333, 4, 2, 32, 100, None),  # K not a multiple of the tile
     (1, 64, 300, 8, 2, 64, 200, 48),  # sliding window
+    # the edges of the Hopper tile (bf16, hd 64 and 128): 128-row query
+    # tiles of two 64-row warpgroups, 128-key tiles aligned to position 0,
+    # the causal diagonal at q_offset + row
+    (1, 1, 100, 8, 2, 128, 0, None),  # one row, a buffer under one tile
+    (1, 1, 4096, 8, 2, 64, 4095, None),  # one row at the last key
+    (1, 32, 1000, 8, 2, 128, 100, None),  # one warpgroup live, off the grid
+    (1, 64, 100, 8, 2, 64, 0, None),  # one warpgroup's rows exactly
+    (1, 127, 1000, 8, 2, 64, 100, None),  # one row short of a tile
+    (1, 128, 4096, 8, 2, 128, 3840, None),  # a tile, diagonal on the grid
+    (1, 129, 1000, 8, 2, 128, 100, None),  # one row past a tile
+    (1, 256, 1000, 8, 2, 64, 100, None),  # two tiles, a ragged key tail
+    (1, 256, 4096, 8, 2, 128, 3840, 1),  # each row sees only itself
+    (1, 256, 4096, 8, 2, 64, 3840, 64),  # a window inside one key tile
+    (1, 256, 1000, 8, 2, 128, 100, 100),  # a window across key tiles
+    (1, 129, 1000, 8, 2, 64, 100, 128),  # a window of one key tile
+    (1, 256, 4096, 8, 2, 128, 3840, 1024),  # hymba's window
+    (1, 100, 1000, 4, 4, 128, 700, None),  # GQA ratio 1
+    (1, 100, 1000, 10, 2, 64, 700, None),  # GQA ratio 5
+    (1, 100, 1000, 16, 2, 128, 700, None),  # GQA ratio 8
+    (3, 129, 1000, 8, 2, 128, 100, None),  # B = 3
 ])
 def test_chunk_attention_matches_plain(dev, dtype, B, C, K, H, KV, hd, off,
                                        window):
@@ -103,6 +123,20 @@ def test_chunk_attention_matches_plain(dev, dtype, B, C, K, H, KV, hd, off,
     (1, 256, 1000, 32, 8, 128, 500, 1000, 96),  # window 96
     (1, 64, 300, 4, 4, 32, 200, 260, None),  # G = 1
     (1, 64, 300, 64, 8, 128, 200, 264, None),  # G = 8
+    # the edges of the Hopper tile (bf16, hd 64 and 128): column masses
+    # over 128-key tiles, Q tiles 128-aligned from row 0
+    (1, 256, 4096, 8, 2, 128, 3840, 3900, None),  # n_total mid key tile
+    (1, 64, 300, 8, 2, 64, 200, 150, None),  # n_total <= q_offset: zeros
+    (1, 100, 1000, 8, 2, 128, 700, 1000, None),  # n_total past the chunk
+    (1, 1, 100, 8, 2, 64, 0, 1, None),  # one row, a buffer under one tile
+    (1, 32, 4096, 8, 2, 128, 4000, 4032, None),  # one warpgroup live
+    (1, 129, 1000, 8, 2, 128, 100, 229, None),  # one row past a tile
+    (1, 127, 1000, 8, 2, 64, 100, 227, 64),  # a window inside a key tile
+    (1, 256, 1000, 8, 2, 64, 100, 300, 100),  # a window across key tiles
+    (1, 256, 4096, 8, 2, 128, 3840, 4000, 1),  # each row sees itself
+    (1, 256, 4096, 8, 2, 128, 3840, 4000, 1024),  # hymba's window
+    (1, 100, 1000, 10, 2, 64, 700, 790, None),  # GQA ratio 5
+    (3, 129, 1000, 8, 2, 128, 100, 200, None),  # B = 3
 ])
 def test_chunk_attention_masses_matches_plain(dev, dtype, B, C, K, H, KV,
                                               hd, off, n_total, window):
@@ -128,6 +162,26 @@ def test_chunk_attention_masses_matches_plain(dev, dtype, B, C, K, H, KV,
     n_rows = float(rv[0].sum())
     torch.testing.assert_close(masses.sum(-1), torch.full_like(
         masses[..., 0], n_rows), atol=1e-4 * n_rows, rtol=0)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_chunk_attention_sm90_counts_one_launch(dev, hd):
+    """Kernel 1 on the bf16 tile at hd 64 and 128 counts one launch per
+    call, kernel 2 one per call (its two launches inside the wrapper)."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    q = _randn(g, (1, 129, 8, hd), torch.bfloat16, dev)
+    k = _randn(g, (1, 1000, 2, hd), torch.bfloat16, dev)
+    v = _randn(g, (1, 1000, 2, hd), torch.bfloat16, dev)
+    before = ops.launch_counts()
+    ops.chunk_attention(q, k, v, q_offset=100)
+    assert ck.launches == before["chunk_attention"] + 1
+    ops.chunk_attention(q, k, v, q_offset=100, window=64, score_masses=True,
+                        n_total=200)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    changed = {"chunk_attention": 1, "chunk_attention_masses": 1}
+    assert {n: after[n] - before[n] for n in after} == \
+        {n: changed.get(n, 0) for n in after}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

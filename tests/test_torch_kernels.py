@@ -72,6 +72,34 @@ def test_chunk_attention_plain_matches_jax(case):
     np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
 
 
+@pytest.mark.parametrize("B,C,K,H,KV,hd,off,window", [
+    (1, 1, 200, 2, 1, 16, 150, None),  # one row; K, q_offset off 128
+    (1, 129, 300, 4, 2, 32, 100, None),  # a 128-row tile + 1
+    (2, 40, 330, 4, 2, 16, 200, 100),  # a window starting across 128
+    (1, 64, 160, 4, 1, 32, 96, 64),  # the diagonal inside a key tile
+])
+def test_chunk_attention_plain_matches_pallas_at_tile_edges(B, C, K, H, KV,
+                                                           hd, off, window):
+    """The shapes that stress the card's 128-row, 128-key tiles: the plain
+    version the card is held to against the Pallas kernel (interpret
+    mode, its own key blocks) and the JAX oracle."""
+    rng = np.random.default_rng(C * 1000 + K)
+    q = rng.normal(size=(B, C, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, K, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(B, K, KV, hd)).astype(np.float32)
+    got = ops.chunk_attention(_t(q), _t(k), _t(v), q_offset=off,
+                              window=window)
+    q_pos = jnp.broadcast_to(off + jnp.arange(C), (B, C))
+    want = jref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=True, window=window, q_pos=q_pos)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    pallas = chunk_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), jnp.int32(off),
+                                    window=window, block_k=128,
+                                    interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+
+
 def test_chunk_attention_rejects_overflowing_chunk():
     """The buffer must hold the chunk: no silent clamp of the offset."""
     q = torch.zeros((1, 8, 2, 16))

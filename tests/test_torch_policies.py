@@ -101,6 +101,41 @@ def test_column_masses_match_pallas(C, off, n_total):
         (1, 4), float(min(C, max(n_total - off, 0)))), atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("B,C,K,H,KV,hd,off,n_total,window", [
+    (1, 1, 200, 2, 1, 16, 150, 151, None),  # one row; K, q_offset off 128
+    (1, 129, 300, 4, 2, 32, 100, 200, None),  # 128 + 1 rows, n_total cuts
+    (2, 40, 330, 4, 2, 16, 200, 230, 100),  # a window starting across 128
+    (1, 32, 200, 4, 2, 16, 150, 140, None),  # n_total <= q_offset: zeros
+])
+def test_column_masses_match_pallas_at_tile_edges(B, C, K, H, KV, hd, off,
+                                                  n_total, window):
+    """The shapes that stress the card's 128-key column-mass tiles: the
+    plain masses the card is held to against the Pallas kernel (interpret
+    mode, its own key blocks) and the JAX oracle."""
+    rng = np.random.default_rng(C * 1000 + K)
+    q, k, v = _qkv(rng, B, C, K, H, KV, hd)
+    out, masses = ops.chunk_attention(_t(q), _t(k), _t(v), q_offset=off,
+                                      window=window, score_masses=True,
+                                      n_total=n_total)
+    assert torch.equal(out, ops.chunk_attention(
+        _t(q), _t(k), _t(v), q_offset=off, window=window))
+    jout, jm = chunk_attention_masses_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(off),
+        jnp.int32(n_total), window=window, block_k=128, interpret=True)
+    np.testing.assert_allclose(out, np.asarray(jout), **TOL)
+    np.testing.assert_allclose(masses, np.asarray(jm), **TOL)
+    rv = jnp.broadcast_to((off + jnp.arange(C))[None] < n_total, (B, C))
+    want = jref.chunk_column_masses(jnp.asarray(q), jnp.asarray(k),
+                                    q_offset=off, window=window,
+                                    row_valid=rv)
+    np.testing.assert_allclose(masses, np.asarray(want), **TOL)
+    n_rows = float(min(C, max(n_total - off, 0)))
+    torch.testing.assert_close(masses.sum(-1), torch.full(
+        (B, H), n_rows), atol=1e-4 * max(n_rows, 1.0), rtol=0)
+    if n_rows == 0:
+        assert torch.all(masses == 0)
+
+
 def test_column_masses_windowed_match_pallas():
     rng = np.random.default_rng(7)
     q, k, v = _qkv(rng, 2, 32, 96, 6, 2, 16)
