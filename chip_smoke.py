@@ -129,7 +129,8 @@ SEED = 0
 # aligned to position 0): chunks of 1 row up to a tile + 1 and two tiles,
 # offsets on and off the 128 grid (the causal diagonal inside a key tile),
 # buffers shorter than a tile or with a ragged tail, windows that start
-# inside a key tile, GQA ratios 1, 4, 5 and 8, B = 3.
+# inside a key tile, GQA ratios 1, 4, 5 and 8, B = 3, and key ranges split
+# over CTAs (``key_splits``), one split with no key tile.
 # (B, C, K, q_offset, window, label, (H, KV, hd))
 CHUNK_EDGES = (
     (1, 1, 100, 0, None, "C=1 K=100 off=0", (8, 2, 128)),
@@ -149,6 +150,7 @@ CHUNK_EDGES = (
     (1, 100, 1000, 700, None, "GQA 5", (10, 2, 64)),
     (1, 100, 1000, 700, None, "GQA 8", (16, 2, 128)),
     (3, 129, 1000, 100, None, "B=3", (8, 2, 128)),
+    (1, 1024, 1024, 0, None, "2 key splits, one empty", (8, 2, 64)),
 )
 # (B, C, K, q_offset, n_total, window, label, dtype, (H, KV, hd))
 MASSES_EDGES = (
@@ -167,6 +169,8 @@ MASSES_EDGES = (
     (3, 129, 1000, 100, 200, None, "B=3", "bfloat16", (8, 2, 128)),
     (1, 129, 1000, 100, 200, 100, "float32 window 100", "float32",
      (8, 2, 64)),
+    (1, 1024, 1024, 0, 1000, None, "a key split left empty", "bfloat16",
+     (8, 2, 128)),
 )
 
 
@@ -312,8 +316,12 @@ def phase_kernels(torch, mods) -> list:
         n_bytes = itemsize * (2 * B * C * Hs * hds
                               + 2 * B * min(K, off + C) * KVs * hds)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+        splits = ck.key_splits(
+            B, C, Hs, K, hds, q.dtype, q_offset=off, window=window,
+            sms=torch.cuda.get_device_properties(0).multi_processor_count)
         print(f"  chunk_attention {label}: {ms:.4f} ms, plain {plain:.4f} "
-              f"ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+              f"ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"{splits} key split(s)")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib)
 
@@ -1654,7 +1662,8 @@ def phase_build(mods) -> None:
     # the Hopper tile (attention_sm90.cuh) must run on wgmma and TMA: HGMMA
     # and UTMALDG in the SASS of each of its instantiations (kernel 7's
     # four, kernel 1's and kernel 2's first launch at hd 64 and 128, and
-    # kernel 2's column_masses_sm90), with no spills
+    # kernel 2's column_masses_sm90), with no spills (nor in the merge of a
+    # split key range, combine_splits, which loads and stores plainly)
     lib = build._target("chunk_attention")
     sass = subprocess.run(
         [str(Path(build.nvcc_path()).with_name("cuobjdump")), "-sass",
@@ -1662,9 +1671,14 @@ def phase_build(mods) -> None:
     check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
     funcs = sass.stdout.split("Function : ")[1:]
     tiles = {f.split(chr(10))[0].strip(): f for f in funcs
-             if f.startswith("_ZN4sm90")}
+             if f.startswith("_ZN4sm90") and "combine_splits" not in f[:80]}
     ptxas = ptxas_report(report["chunk_attention"][1]
                          if "chunk_attention" in report else "")
+    for name, (regs, spills) in sorted(ptxas.items()):
+        if "combine_splits" in name:  # the merge of a split key range
+            print(f"  {demangle(name)}: {regs} registers, {spills} bytes "
+                  "spilled")
+            check(not spills, f"{demangle(name)} spills registers")
     for name, f in sorted(tiles.items()):
         hg, tma = f.count("HGMMA"), f.count("UTMALDG")
         regs, spills = ptxas.get(name, (None, None))
@@ -1702,12 +1716,12 @@ def ptxas_report(log: str) -> dict:
 def demangle(name: str) -> str:
     """A Hopper tile instantiation's kernel and template arguments."""
     m = re.search(r"(flash_attention_tag|chunk_attention_tag|"
-                  r"chunk_masses_tag)ELi(\d+)ELb(\d)ELb(\d)", name)
+                  r"chunk_masses_tag)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)", name)
     if m:
         return (f"attention_sm90<{m[1]}, hd {m[2]}, causal {m[3]}, "
-                f"stats {m[4]}>")
-    m = re.search(r"column_masses_sm90ILi(\d+)E", name)
-    return f"column_masses_sm90<hd {m[1]}>" if m else name
+                f"stats {m[4]}, split {m[5]}>")
+    m = re.search(r"(column_masses_sm90|combine_splits)ILi(\d+)E", name)
+    return f"{m[1]}<hd {m[2]}>" if m else name
 
 
 def main() -> None:

@@ -54,10 +54,17 @@
 // What it leaves: the softmax of a tile does not overlap its own
 // warpgroup's products (no ping-pong between the two warpgroups, no next
 // S issued before this P.V), a warpgroup computes whole 128-key tiles on
-// the causal diagonal, and the output is stored from registers.  A short
-// chunk fills little of the card: a 256-row chunk of one sequence is 2 x H
-// CTAs (64 for llama3-8b on 132 SMs), the 32-row observation pass H CTAs
-// with one warpgroup idle; the key range is not split across CTAs.
+// the causal diagonal, and the output is stored from registers.
+//
+// Key splits.  A short chunk makes few CTAs: a 256-row chunk of one
+// sequence is 2 x H (64 for llama3-8b on 132 SMs), the 32-row observation
+// pass H with one warpgroup idle.  With n_split > 1 (the caller picks it,
+// kernels/chunk_attention.py: key_splits) each query tile's key tiles are
+// shared out, balanced, over n_split CTAs (grid.x = tiles x n_split); each
+// stores its unnormalised float32 (o, m, l) and combine_splits merges them
+// in split order, so the result does not depend on which CTA ran first.
+// Kernels 1 and 2 take the same split, so kernel 2's out stays bitwise
+// kernel 1's, and kernel 2's (m, l) are the merged ones.
 //
 // column_masses_sm90 (kernel 2's second launch): one CTA per (128-key
 // tile, q head, batch) loads its K tile once and streams the 128-row Q
@@ -312,16 +319,20 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk,
 // same for 16 columns: (row g, cols 2t..), (g + 8, 2t..), (g, 8 + 2t..),
 // (g + 8, 8 + 2t..), so the S registers 8kk..8kk+7, packed in pairs, are
 // P's A fragment of k-step kk.
-template <typename Entry, int HD, bool CAUSAL, bool STATS>
+template <typename Entry, int HD, bool CAUSAL, bool STATS, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_sm90(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
-               float* __restrict__ l_out, int C, int H, int K, int KV,
-               int q_offset, int window, float scale_log2) {
+               float* __restrict__ l_out, float* __restrict__ o_part,
+               float* __restrict__ m_part, float* __restrict__ l_part,
+               int n_split_arg, int C, int H, int K, int KV, int q_offset,
+               int window, float scale_log2) {
   static_assert(HD == 64 || HD == 128, "head dims 64 and 128");
   constexpr int TILE = (HD / 64) * HALF;  // bytes of one Q, K or V tile
+  // an instantiation without SPLIT (kernel 7's) compiles the split away
+  const int n_split = SPLIT ? n_split_arg : 1;
   constexpr int NO = HD / 2;              // O registers per thread
   extern __shared__ unsigned char smem_raw[];
   // q, full[STAGES], empty[STAGES]
@@ -334,7 +345,10 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
   auto full = [=](int s) { return bar_q + 8 * (1 + s); };
   auto empty = [=](int s) { return bar_q + 8 * (1 + STAGES + s); };
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // the last tile first
+  // query tile (the last one first) and this CTA's split of its key range
+  const int n_qt = gridDim.x / n_split;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x / n_split) * BM;
+  const int split = blockIdx.x % n_split;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x;
@@ -346,7 +360,11 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
   const int k_end = CAUSAL ? min(K, q_offset + q0 + rows) : K;
   int k_begin = 0;
   if (window > 0) k_begin = (max(0, q_offset + q0 - window + 1) / BN) * BN;
-  const int n_tiles = (k_end - k_begin + BN - 1) / BN;
+  // this split's key tiles: it0.. of the query tile's n_all, balanced;
+  // a split may get none (it stores m = -inf, l = 0, o = 0)
+  const int n_all = (k_end - k_begin + BN - 1) / BN;
+  const int it0 = split * n_all / n_split;
+  const int n_tiles = (split + 1) * n_all / n_split - it0;
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
@@ -371,7 +389,8 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
       for (int it = 0; it < n_tiles; ++it) {
         // the consumers are done with this slot's previous tile
         if (it >= STAGES) mbar_wait(empty(s), phase ^ 1);
-        load_kv<HD>(&tk, &tv, sK(s), full(s), kvh, k_begin + it * BN, b);
+        load_kv<HD>(&tk, &tv, sK(s), full(s), kvh,
+                    k_begin + (it0 + it) * BN, b);
         if (++s == STAGES) {
           s = 0;
           phase ^= 1;
@@ -397,7 +416,7 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
   int s = 0;
   uint32_t phase = 0;
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = k_begin + it * BN;
+    const int k0 = k_begin + (it0 + it) * BN;
     mbar_wait(full(s), phase);
     // does any row of this warpgroup see a key of this tile?
     const bool vis = wg_live && (!CAUSAL || k0 <= wr0 + 63) &&
@@ -502,6 +521,28 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o2);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o2);
   }
+  if (n_split > 1) {  // this split's unnormalised (o, m, l) for the combine
+    const size_t w_lo = (((size_t)split * gridDim.z + b) * H + h) * C + r_lo;
+    if (t == 0 && r_lo < C) {
+      m_part[w_lo] = m_lo;
+      l_part[w_lo] = l_lo;
+    }
+    if (t == 0 && r_hi < C) {
+      m_part[w_lo + 8] = m_hi;
+      l_part[w_lo + 8] = l_hi;
+    }
+    float* p_lo = o_part + w_lo * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      if (r_lo < C)
+        *reinterpret_cast<float2*>(p_lo + 8 * j + 2 * t) =
+            make_float2(o[4 * j], o[4 * j + 1]);
+      if (r_hi < C)
+        *reinterpret_cast<float2*>(p_lo + 8 * HD + 8 * j + 2 * t) =
+            make_float2(o[4 * j + 2], o[4 * j + 3]);
+    }
+    return;
+  }
   if constexpr (STATS) {  // (B, H, C) scratch for column_masses_sm90
     const size_t st = ((size_t)b * H + h) * C;
     if (t == 0 && r_lo < C) {
@@ -578,14 +619,64 @@ static cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int hd,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Merge the n_split partial (o, m, l) of each (b, h, row) in split order
+// (deterministic): out = sum_s o_s c_s / max(sum_s l_s c_s, L_FLOOR) with
+// c_s = exp2(m_s * scale_log2 - m * scale_log2), m = max_s m_s; with m_out,
+// also the merged (m, l) in the tile's units.  One warp per row of a head,
+// HD / 32 columns per lane.
+template <int HD>
+__global__ void __launch_bounds__(256)
+combine_splits(const float* __restrict__ o_part,
+               const float* __restrict__ m_part,
+               const float* __restrict__ l_part,
+               __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
+               float* __restrict__ l_out, int B, int C, int H, int n_split,
+               float scale_log2) {
+  constexpr int V = HD / 32;
+  const size_t plane = (size_t)B * H * C;
+  const size_t w = (size_t)blockIdx.x * 8 + (threadIdx.x >> 5);  // (b, h, row)
+  if (w >= plane) return;
+  const int lane = threadIdx.x & 31;
+  float m = -INFINITY;
+  for (int s = 0; s < n_split; ++s) m = fmaxf(m, m_part[s * plane + w]);
+  const float ms = m == -INFINITY ? 0.f : m * scale_log2;
+  float l = 0.f, o[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) o[i] = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float c = ex2(m_part[s * plane + w] * scale_log2 - ms);
+    l += l_part[s * plane + w] * c;
+    const float* src = o_part + (s * plane + w) * HD + V * lane;
+#pragma unroll
+    for (int i = 0; i < V; ++i) o[i] += src[i] * c;
+  }
+  const int row = (int)(w % C), h = (int)(w / C % H), b = (int)(w / C / H);
+  const float inv = 1.f / fmaxf(l, L_FLOOR);
+  __nv_bfloat16* dst = out + (((size_t)b * C + row) * H + h) * HD + V * lane;
+#pragma unroll
+  for (int i = 0; i < V; i += 2)
+    *reinterpret_cast<uint32_t*>(dst + i) = pack2(o[i] * inv, o[i + 1] * inv);
+  if (m_out != nullptr && lane == 0) {
+    m_out[w] = m;
+    l_out[w] = l;
+  }
+}
+
 // q (B, C, H, HD), k/v (B, K, KV, HD) bf16 -> out (B, C, H, HD); window <= 0
 // means no window; with STATS each row's (m, l) into the (B, H, C) float32
-// m_out, l_out.  Returns the first error (map encoding or launch).
-template <typename Entry, int HD, bool CAUSAL, bool STATS = false>
+// m_out, l_out.  With SPLIT, n_split > 1 runs each query tile's key range
+// on n_split CTAs that store float32 partials into o_part (n_split, B, H,
+// C, HD) and m_part, l_part (n_split, B, H, C), then merges them
+// (combine_splits).
+// Returns the first error (map encoding or launch).
+template <typename Entry, int HD, bool CAUSAL, bool STATS = false,
+          bool SPLIT = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int C, int H, int K, int KV, int q_offset,
                    int window, cudaStream_t stream, float* m_out = nullptr,
-                   float* l_out = nullptr) {
+                   float* l_out = nullptr, int n_split = 1,
+                   float* o_part = nullptr, float* m_part = nullptr,
+                   float* l_part = nullptr) {
   CUtensorMap tq, tk, tv;
   cudaError_t err = tensor_map(&tq, q, HD, H, C, B);
   if (err == cudaSuccess) err = tensor_map(&tk, k, HD, KV, K, B);
@@ -593,13 +684,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   // the alignment pad, Q, STAGES x (K, V)
   const int smem = 1024 + (1 + 2 * STAGES) * (HD / 64) * HALF;
-  auto* kern = attention_sm90<Entry, HD, CAUSAL, STATS>;
+  auto* kern = attention_sm90<Entry, HD, CAUSAL, STATS, SPLIT>;
   err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((C + BM - 1) / BM, H, B);
-  kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv, (__nv_bfloat16*)out,
-                                        m_out, l_out, C, H, K, KV, q_offset,
-                                        window, log2e_scale(HD));
+  if (n_split < 1 || (n_split > 1 && (!SPLIT || o_part == nullptr)))
+    return cudaErrorInvalidValue;
+  dim3 grid((C + BM - 1) / BM * n_split, H, B);
+  kern<<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, m_out, l_out, o_part, m_part, l_part,
+      n_split, C, H, K, KV, q_offset, window, log2e_scale(HD));
+  if (n_split == 1) return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t rows = (size_t)B * H * C;
+  combine_splits<HD><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      o_part, m_part, l_part, (__nv_bfloat16*)out, STATS ? m_out : nullptr,
+      l_out, B, C, H, n_split, log2e_scale(HD));
   return cudaGetLastError();
 }
 

@@ -793,14 +793,27 @@ cudaError_t launch_masses(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The Hopper tile's partials when a query tile's key range is split over
+// n_split CTAs (n_split 1: none): o (n_split, B, H, C, hd), m and l
+// (n_split, B, H, C) float32, allocated by the caller.
+struct Split {
+  int n;
+  float* o;
+  float* m;
+  float* l;
+};
+
 // Kernel 2: bf16 at hd 64 and 128 on the Hopper tile (attention_sm90 with
-// STATS, then column_masses_sm90), everything else on this file's kernels.
+// STATS, its split combine if any, then column_masses_sm90), everything
+// else on this file's kernels (which take no split).
 cudaError_t dispatch_masses(int dtype, int hd, const void* q, const void* k,
                             const void* v, void* out, float* m_buf,
                             float* l_buf, float* masses, int B, int C, int H,
                             int K, int KV, int q_offset, int n_total,
-                            int window, cudaStream_t s) {
+                            int window, Split sp, cudaStream_t s) {
   using tag = chunk_masses_tag;
+  const bool sm90 = dtype == DTYPE_BF16 && (hd == 64 || hd == 128);
+  if (sp.n != 1 && !sm90) return cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == DTYPE_F32) {
     switch (hd) {
@@ -814,11 +827,11 @@ cudaError_t dispatch_masses(int dtype, int hd, const void* q, const void* k,
   switch (hd) {
     case 32: return launch_masses<__nv_bfloat16, 32>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
     case 64:
-      err = sm90::launch<tag, 64, true, true>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, m_buf, l_buf);
+      err = sm90::launch<tag, 64, true, true, true>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, m_buf, l_buf, sp.n, sp.o, sp.m, sp.l);
       if (err != cudaSuccess) return err;
       return sm90::launch_column_masses<64>(q, k, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
     case 128:
-      err = sm90::launch<tag, 128, true, true>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, m_buf, l_buf);
+      err = sm90::launch<tag, 128, true, true, true>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, m_buf, l_buf, sp.n, sp.o, sp.m, sp.l);
       if (err != cudaSuccess) return err;
       return sm90::launch_column_masses<128>(q, k, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
     default: return cudaErrorInvalidValue;
@@ -826,11 +839,15 @@ cudaError_t dispatch_masses(int dtype, int hd, const void* q, const void* k,
 }
 
 // Kernels 1 and 7: bf16 at hd 64 and 128 on the Hopper tile, everything
-// else on this file's kernels.
-template <typename Entry, bool CAUSAL>
+// else on this file's kernels (which take no split).  Kernel 7 (SPLIT
+// false) fills the card with query tiles and never splits.
+template <typename Entry, bool CAUSAL, bool SPLIT>
 cudaError_t dispatch(int dtype, int hd, const void* q, const void* k,
                      const void* v, void* out, int B, int C, int H, int K,
-                     int KV, int q_offset, int window, cudaStream_t s) {
+                     int KV, int q_offset, int window, Split sp,
+                     cudaStream_t s) {
+  const bool sm90 = dtype == DTYPE_BF16 && (hd == 64 || hd == 128);
+  if (sp.n != 1 && !(sm90 && SPLIT)) return cudaErrorInvalidValue;
   if (dtype == DTYPE_F32) {
     switch (hd) {
       case 32: return launch<Entry, float, 32, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s);
@@ -842,22 +859,27 @@ cudaError_t dispatch(int dtype, int hd, const void* q, const void* k,
   if (dtype != DTYPE_BF16) return cudaErrorInvalidValue;
   switch (hd) {
     case 32: return launch<Entry, __nv_bfloat16, 32, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s);
-    case 64: return sm90::launch<Entry, 64, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s);
-    case 128: return sm90::launch<Entry, 128, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s);
+    case 64: return sm90::launch<Entry, 64, CAUSAL, false, SPLIT>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, sp.n, sp.o, sp.m, sp.l);
+    case 128: return sm90::launch<Entry, 128, CAUSAL, false, SPLIT>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, sp.n, sp.o, sp.m, sp.l);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// window <= 0 means no window.  Returns cudaGetLastError() after launch.
+// window <= 0 means no window.  n_split > 1 (bf16 at hd 64 and 128 only)
+// splits each query tile's key range over n_split CTAs, with the float32
+// scratch of Split.  Returns cudaGetLastError() after the last launch.
 extern "C" int chunk_attention(const void* q, const void* k, const void* v,
-                               void* out, int B, int C, int H, int K, int KV,
-                               int hd, int q_offset, int window, int dtype,
-                               void* stream) {
-  return dispatch<chunk_attention_tag, true>(dtype, hd, q, k, v, out, B, C,
-                                             H, K, KV, q_offset, window,
-                                             (cudaStream_t)stream);
+                               void* out, void* o_part, void* m_part,
+                               void* l_part, int B, int C, int H, int K,
+                               int KV, int hd, int q_offset, int window,
+                               int n_split, int dtype, void* stream) {
+  const Split sp{n_split, (float*)o_part, (float*)m_part, (float*)l_part};
+  return dispatch<chunk_attention_tag, true, true>(dtype, hd, q, k, v, out,
+                                                   B, C, H, K, KV, q_offset,
+                                                   window, sp,
+                                                   (cudaStream_t)stream);
 }
 
 // Self-attention of a whole sequence: q (B, S, H, hd), k/v (B, S, KV, hd).
@@ -869,22 +891,26 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   using tag = flash_attention_tag;
+  const Split one{1, nullptr, nullptr, nullptr};
   if (causal)
-    return dispatch<tag, true>(dtype, hd, q, k, v, out, B, S, H, S, KV, 0, window, s);
-  return dispatch<tag, false>(dtype, hd, q, k, v, out, B, S, H, S, KV, 0, window, s);
+    return dispatch<tag, true, false>(dtype, hd, q, k, v, out, B, S, H, S, KV, 0, window, one, s);
+  return dispatch<tag, false, false>(dtype, hd, q, k, v, out, B, S, H, S, KV, 0, window, one, s);
 }
 
 // Chunk attention plus the column masses of the rows below n_total (h2o):
-// out as the entry chunk_attention, masses (B, H, K) float32; m_buf and
-// l_buf are (B, H, C) float32 scratch.  window <= 0 means no window.
-// Returns cudaGetLastError() after the second launch.
+// out as the entry chunk_attention (the same split), masses (B, H, K)
+// float32; m_buf and l_buf are (B, H, C) float32 scratch.  window <= 0
+// means no window.  Returns cudaGetLastError() after the last launch.
 extern "C" int chunk_attention_masses(const void* q, const void* k,
                                       const void* v, void* out, void* m_buf,
-                                      void* l_buf, void* masses, int B,
-                                      int C, int H, int K, int KV, int hd,
-                                      int q_offset, int n_total, int window,
+                                      void* l_buf, void* masses,
+                                      void* o_part, void* m_part,
+                                      void* l_part, int B, int C, int H,
+                                      int K, int KV, int hd, int q_offset,
+                                      int n_total, int window, int n_split,
                                       int dtype, void* stream) {
+  const Split sp{n_split, (float*)o_part, (float*)m_part, (float*)l_part};
   return dispatch_masses(dtype, hd, q, k, v, out, (float*)m_buf,
                          (float*)l_buf, (float*)masses, B, C, H, K, KV,
-                         q_offset, n_total, window, (cudaStream_t)stream);
+                         q_offset, n_total, window, sp, (cudaStream_t)stream);
 }

@@ -43,8 +43,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the extern "C" entry points (all return cudaError_t)
 SIGNATURES = {
-    "chunk_attention": [_P, _P, _P, _P] + [_I] * 9 + [_P],
-    "chunk_attention_masses": [_P] * 7 + [_I] * 10 + [_P],
+    "chunk_attention": [_P] * 7 + [_I] * 10 + [_P],
+    "chunk_attention_masses": [_P] * 10 + [_I] * 11 + [_P],
     "flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "lookahead_score": [_P] * 7 + [_I] * 11 + [_P],
     "paged_decode_attention": [_P] * 8 + [_I] * 8 + [_P],

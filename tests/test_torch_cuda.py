@@ -102,6 +102,7 @@ def _randn(gen, shape, dtype, dev):
     (1, 100, 1000, 10, 2, 64, 700, None),  # GQA ratio 5
     (1, 100, 1000, 16, 2, 128, 700, None),  # GQA ratio 8
     (3, 129, 1000, 8, 2, 128, 100, None),  # B = 3
+    (1, 1024, 1024, 8, 2, 64, 0, None),  # 2 key splits, one of them empty
 ])
 def test_chunk_attention_matches_plain(dev, dtype, B, C, K, H, KV, hd, off,
                                        window):
@@ -137,6 +138,7 @@ def test_chunk_attention_matches_plain(dev, dtype, B, C, K, H, KV, hd, off,
     (1, 256, 4096, 8, 2, 128, 3840, 4000, 1024),  # hymba's window
     (1, 100, 1000, 10, 2, 64, 700, 790, None),  # GQA ratio 5
     (3, 129, 1000, 8, 2, 128, 100, 200, None),  # B = 3
+    (1, 1024, 1024, 8, 2, 128, 0, 1000, None),  # a key split left empty
 ])
 def test_chunk_attention_masses_matches_plain(dev, dtype, B, C, K, H, KV,
                                               hd, off, n_total, window):
@@ -167,19 +169,25 @@ def test_chunk_attention_masses_matches_plain(dev, dtype, B, C, K, H, KV,
 @pytest.mark.parametrize("hd", [64, 128])
 def test_chunk_attention_sm90_counts_one_launch(dev, hd):
     """Kernel 1 on the bf16 tile at hd 64 and 128 counts one launch per
-    call, kernel 2 one per call (its two launches inside the wrapper)."""
+    call, kernel 2 one per call, whatever launches the call makes inside
+    (the combine of a split key range, kernel 2's column masses)."""
     g = torch.Generator(device=dev).manual_seed(10)
-    q = _randn(g, (1, 129, 8, hd), torch.bfloat16, dev)
+    q = _randn(g, (1, 32, 8, hd), torch.bfloat16, dev)
     k = _randn(g, (1, 1000, 2, hd), torch.bfloat16, dev)
     v = _randn(g, (1, 1000, 2, hd), torch.bfloat16, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ck.key_splits(1, 32, 8, 1000, hd, q.dtype, q_offset=900,
+                         window=None, sms=sms) == 2
     before = ops.launch_counts()
-    ops.chunk_attention(q, k, v, q_offset=100)
+    ops.chunk_attention(q, k, v, q_offset=900)
     assert ck.launches == before["chunk_attention"] + 1
-    ops.chunk_attention(q, k, v, q_offset=100, window=64, score_masses=True,
-                        n_total=200)
+    ops.chunk_attention(q, k, v, q_offset=900, score_masses=True,
+                        n_total=920)
+    ops.chunk_attention(q, k, v, q_offset=900, window=64, score_masses=True,
+                        n_total=920)
     torch.cuda.synchronize()
     after = ops.launch_counts()
-    changed = {"chunk_attention": 1, "chunk_attention_masses": 1}
+    changed = {"chunk_attention": 1, "chunk_attention_masses": 2}
     assert {n: after[n] - before[n] for n in after} == \
         {n: changed.get(n, 0) for n in after}
 

@@ -28,6 +28,7 @@ from repro.kernels.lookahead_score import lookahead_score_pallas
 from repro.kernels.paged_attention import paged_decode_attention_pallas
 from repro_torch.core import eviction as tev
 from repro_torch.core import scoring as tscoring
+from repro_torch.kernels import chunk_attention as _ck
 from repro_torch.kernels import ops
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -98,6 +99,22 @@ def test_chunk_attention_plain_matches_pallas_at_tile_edges(B, C, K, H, KV,
                                     window=window, block_k=128,
                                     interpret=True)
     np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+
+
+@pytest.mark.parametrize("B,C,H,K,hd,dtype,off,window,want", [
+    (1, 256, 32, 4096, 128, torch.bfloat16, 3840, None, 2),  # 64 CTAs
+    (1, 32, 32, 4096, 128, torch.bfloat16, 4000, None, 4),  # obs pass
+    (1, 256, 32, 4096, 128, torch.bfloat16, 0, None, 1),  # 2 key tiles
+    (1, 256, 32, 4096, 128, torch.float32, 3840, None, 1),  # no Hopper tile
+    (1, 256, 32, 4096, 32, torch.bfloat16, 3840, None, 1),  # hd 32 neither
+    (4, 2080, 32, 2080, 128, torch.bfloat16, 0, None, 1),  # fills the card
+    (1, 256, 32, 4096, 128, torch.bfloat16, 3840, 100, 1),  # 3 key tiles
+    (1, 32, 8, 1000, 64, torch.bfloat16, 900, None, 2),  # 8 key tiles
+])
+def test_key_splits(B, C, H, K, hd, dtype, off, window, want):
+    """How many CTAs share a query tile's key range on a 132-SM card."""
+    assert _ck.key_splits(B, C, H, K, hd, dtype, q_offset=off,
+                          window=window, sms=132) == want
 
 
 def test_chunk_attention_rejects_overflowing_chunk():
