@@ -703,19 +703,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// Rows of the chunk whose softmax mass on the key tile [k0, k0 + BN)
-// counts: [*r_begin, *r_end).  A row counts while q_offset + row <
-// n_total; it sees the tile from row k0 - q_offset on (causal) and, with a
-// window, only up to row k0 + BN - 2 + window - q_offset.
-__device__ __forceinline__ void counted_rows(int k0, int C, int q_offset,
-                                             int n_total, int window,
-                                             int* r_begin, int* r_end) {
-  *r_begin = max(0, k0 - q_offset);
-  int end = min(C, n_total - q_offset);
-  if (window > 0) end = min(end, k0 + BN - 1 + window - q_offset);
-  *r_end = end;
-}
-
 // Kernel 2's second launch: masses[b, h, j] for the keys j of tile
 // blockIdx.x, summed over the counted rows, from the (m, l) that
 // attention_sm90 with STATS stored.  256 threads (two warpgroups of 64
@@ -750,7 +737,7 @@ column_masses_sm90(const __grid_constant__ CUtensorMap tq,
   const int g = lane >> 2, t = lane & 3;
   float* mb = masses + ((size_t)b * H + h) * K;
   int r_begin, r_end;
-  counted_rows(k0, C, q_offset, n_total, window, &r_begin, &r_end);
+  counted_rows(k0, BN, C, q_offset, n_total, window, &r_begin, &r_end);
   if (r_begin >= r_end) {  // no counted row sees this tile: exact zeros
     if (tid < BN && k0 + tid < K) mb[k0 + tid] = 0.f;
     return;

@@ -479,19 +479,6 @@ attention_mma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// Rows of the chunk whose softmax mass on key tile [k0, k0 + BK) counts:
-// [*r_begin, *r_end).  A row counts while q_offset + row < n_total; it sees
-// the tile from row k0 - q_offset on (causal) and, with a window, only up
-// to row k0 + BK - 2 + window - q_offset.
-__device__ __forceinline__ void counted_rows(int k0, int C, int q_offset,
-                                             int n_total, int window,
-                                             int* r_begin, int* r_end) {
-  *r_begin = max(0, k0 - q_offset);
-  int end = min(C, n_total - q_offset);
-  if (window > 0) end = min(end, k0 + BK - 1 + window - q_offset);
-  *r_end = end;
-}
-
 // Column masses on CUDA cores (the float32 configs).  One CTA per (64-key
 // tile, head, batch), 256 threads laid out as attention_fma's (4 lanes per
 // query row, keys c4 + 4j of the tile); the logits are attention_fma's dot
@@ -515,7 +502,7 @@ column_masses_fma(const T* __restrict__ q, const T* __restrict__ k,
   const int r = tid >> 2, c4 = tid & 3;
   float* mb = masses + ((size_t)b * H + h) * K;
   int r_begin, r_end;
-  counted_rows(k0, C, q_offset, n_total, window, &r_begin, &r_end);
+  counted_rows(k0, BK, C, q_offset, n_total, window, &r_begin, &r_end);
   if (r_begin >= r_end) {  // no counted row sees this tile: exact zeros
     for (int c = tid; c < BK; c += THREADS)
       if (k0 + c < K) mb[k0 + c] = 0.f;
@@ -614,7 +601,7 @@ column_masses_mma(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2, t = lane & 3;
   float* mb = masses + ((size_t)b * H + h) * K;
   int r_begin, r_end;
-  counted_rows(k0, C, q_offset, n_total, window, &r_begin, &r_end);
+  counted_rows(k0, BK, C, q_offset, n_total, window, &r_begin, &r_end);
   if (r_begin >= r_end) {  // no counted row sees this tile: exact zeros
     for (int c = tid; c < BK; c += MTHREADS)
       if (k0 + c < K) mb[k0 + c] = 0.f;

@@ -33,6 +33,21 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// Kernel 2's column masses: the rows of a chunk whose softmax mass on the
+// key tile [k0, k0 + tile) counts, [*r_begin, *r_end).  A row counts while
+// q_offset + row < n_total; it sees the tile from row k0 - q_offset on
+// (causal) and, with a window, only up to row k0 + tile - 2 + window -
+// q_offset.
+__device__ __forceinline__ void counted_rows(int k0, int tile, int C,
+                                             int q_offset, int n_total,
+                                             int window, int* r_begin,
+                                             int* r_end) {
+  *r_begin = max(0, k0 - q_offset);
+  int end = min(C, n_total - q_offset);
+  if (window > 0) end = min(end, k0 + tile - 1 + window - q_offset);
+  *r_end = end;
+}
+
 // Raise the dynamic shared-memory ceiling of a kernel instantiation above
 // the 48 KB default (once per process and instantiation).
 template <typename F>

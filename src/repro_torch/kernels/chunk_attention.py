@@ -83,18 +83,14 @@ def key_splits(B: int, C: int, H: int, K: int, hd: int, dtype, *,
                       n_tiles // MIN_TILES_PER_SPLIT))
 
 
-_sms: dict = {}
-
-
 def _split_scratch(q, k, q_offset, window):
     """(n_split, o_part, m_part, l_part) for one call: float32 partials
     (n_split, B, H, C, hd) and (n_split, B, H, C), or Nones for 1."""
     B, C, H, hd = q.shape
     dev = q.device
-    if dev not in _sms:
-        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n = key_splits(B, C, H, k.shape[1], hd, q.dtype, q_offset=q_offset,
-                   window=window, sms=_sms[dev])
+                   window=window, sms=sms)
     if n == 1:
         return 1, None, None, None
     o = torch.empty((n, B, H, C, hd), dtype=torch.float32, device=dev)
