@@ -19,6 +19,15 @@ cold L2 (``chip_smoke.time_ms`` of this checkout). Give the checkouts in
 turns (parent, change, change, parent): two calls may land on two cards.
 Prints one line per checkout and shape, then the card's name and power
 limit.
+
+    python3 chip_ab.py --splits .
+
+times one checkout's kernels 1 and 2 at every 256-row chunk offset of
+llama3-8b's chunked prefill of a 4000-token prompt (0 to 3840 of a
+4096-deep buffer; kernel 2 with n_total 4000) and kernel 1's observation
+pass (C 32 at n_total 1024, 2048, 3072 and 4000), with each query tile's
+key range split over 1, 2, 3 and 4 CTAs (``key_splits`` replaced for the
+sweep) and with the split ``key_splits`` picks; one line per shape.
 """
 
 from __future__ import annotations
@@ -76,6 +85,57 @@ def time_checkout(root: str) -> None:
         print(f"{root}: kernel 7, {label}: {ms:.4f} ms", flush=True)
 
 
+def time_splits(root: str) -> None:
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    from repro_torch.kernels import chunk_attention as ck
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rule = ck.key_splits
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    K = 4096
+    k, v = (torch.randn((1, K, 8, 128), generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    shapes = [(256, off, None) for off in range(0, 4000, 256)]
+    shapes += [(256, off, 4000) for off in range(0, 4000, 256)]
+    shapes += [(32, n, None) for n in (1024, 2048, 3072, 4000)]
+    for C, off, n_total in shapes:
+        q = torch.randn((1, C, 32, 128), generator=g, device=dev).to(
+            torch.bfloat16)
+        if n_total is None:
+            fn = lambda: ck.chunk_attention(q, k, v, q_offset=off)
+        else:
+            fn = lambda: ck.chunk_attention_masses(q, k, v, q_offset=off,
+                                                   n_total=n_total)
+        picked = rule(1, C, 32, K, 128, torch.bfloat16, q_offset=off,
+                      window=None, sms=sms)
+        times = []
+        for n in (1, 2, 3, 4):
+            ck.key_splits = lambda *a, n=n, **kw: n
+            try:
+                times.append(chip_smoke.time_ms(torch, fn))
+            finally:
+                ck.key_splits = rule
+        name = "kernel 1" if n_total is None else "kernel 2"
+        print(f"{root}: {name}, C {C} at {off}: "
+              + " / ".join(f"{t:.4f}" for t in times)
+              + f" ms with 1 / 2 / 3 / 4 splits; key_splits picks {picked}",
+              flush=True)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip()
+
+
 def main() -> None:
     import torch
 
@@ -84,14 +144,15 @@ def main() -> None:
     if len(sys.argv) > 2 and sys.argv[1] == "--one":
         time_checkout(sys.argv[2])
         return
+    if len(sys.argv) > 2 and sys.argv[1] == "--splits":
+        time_splits(sys.argv[2])
+        print(card())
+        return
     if len(sys.argv) < 2:
         raise SystemExit(__doc__)
     for root in sys.argv[1:]:
         subprocess.run([sys.executable, __file__, "--one", root], check=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip())
+    print(card())
 
 
 if __name__ == "__main__":

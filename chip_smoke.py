@@ -13,7 +13,10 @@ kernel's plain version):
    (``attention_sm90.cuh``: kernel 7's four, kernel 1's and kernel 2's
    first launch at hd 64 and 128, kernel 2's ``column_masses_sm90``)
    holds HGMMA (wgmma) and UTMALDG (TMA loads), and with nvcc's
-   ``-Xptxas -v`` that none spills; print their registers.
+   ``-Xptxas -v`` that none of them, nor kernels 1's and 2's merges of a
+   split key range (``combine_splits``), spills; print their registers
+   (a ``chunk_attention`` library left by an earlier run is built again
+   for that report).
 1. Hold each kernel against its plain PyTorch version on the card, in
    bfloat16, at the shapes of the main paths (llama3-8b: H=32, KV=8,
    hd=128; chunk 256 and the 32-row observation pass over a 4096-deep
@@ -334,7 +337,7 @@ def phase_kernels(torch, mods) -> list:
         chunk_case(*args[:5], "edge " + args[5], heads=args[6])
     results.append(dict(
         name="chunk_attention", route="cuda",
-        source="src/repro_torch/csrc/chunk_attention.cu",
+        source="src/repro_torch/csrc/attention_sm90.cuh",
         replaces="src/repro/kernels/chunk_attention.py:95", **main1))
 
     # -- kernel 2: chunk attention with column masses (h2o) -------------------
@@ -415,7 +418,7 @@ def phase_kernels(torch, mods) -> list:
                           kv_hd=(KVs, hds))
     results.append(dict(
         name="chunk_attention_masses", route="cuda",
-        source="src/repro_torch/csrc/chunk_attention.cu",
+        source="src/repro_torch/csrc/attention_sm90.cuh",
         replaces="src/repro/kernels/chunk_attention.py:216", **main2))
 
     # -- kernel 3: lookahead scores --------------------------------------------
@@ -1662,39 +1665,51 @@ def phase_build(mods) -> None:
     # the Hopper tile (attention_sm90.cuh) must run on wgmma and TMA: HGMMA
     # and UTMALDG in the SASS of each of its instantiations (kernel 7's
     # four, kernel 1's and kernel 2's first launch at hd 64 and 128, and
-    # kernel 2's column_masses_sm90), with no spills (nor in the merge of a
-    # split key range, combine_splits, which loads and stores plainly)
+    # kernel 2's column_masses_sm90), and neither they nor the merges of a
+    # split key range (combine_splits, kernel 1's and kernel 2's at hd 64
+    # and 128, plain loads and stores) may spill.  The spills come from
+    # this build's -Xptxas -v: a library built by an earlier run is built
+    # again, so the check always reads the code it holds.
     lib = build._target("chunk_attention")
+    if "chunk_attention" not in report:
+        lib.unlink()
+        report.update(build.build(("chunk_attention",), verbose=True))
+        print(f"  chunk_attention: rebuilt for its register report, nvcc "
+              f"{report['chunk_attention'][0]:.1f} s", flush=True)
     sass = subprocess.run(
         [str(Path(build.nvcc_path()).with_name("cuobjdump")), "-sass",
          str(lib)], capture_output=True, text=True, timeout=120)
     check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
-    funcs = sass.stdout.split("Function : ")[1:]
-    tiles = {f.split(chr(10))[0].strip(): f for f in funcs
-             if f.startswith("_ZN4sm90") and "combine_splits" not in f[:80]}
-    ptxas = ptxas_report(report["chunk_attention"][1]
-                         if "chunk_attention" in report else "")
-    for name, (regs, spills) in sorted(ptxas.items()):
-        if "combine_splits" in name:  # the merge of a split key range
-            print(f"  {demangle(name)}: {regs} registers, {spills} bytes "
-                  "spilled")
-            check(not spills, f"{demangle(name)} spills registers")
-    for name, f in sorted(tiles.items()):
-        hg, tma = f.count("HGMMA"), f.count("UTMALDG")
-        regs, spills = ptxas.get(name, (None, None))
-        print(f"  {demangle(name)}: {hg} HGMMA, {tma} UTMALDG; {regs} "
-              f"registers, {spills} bytes spilled")
-        check(hg > 0 and tma > 0, f"{demangle(name)} has no HGMMA or no "
-              "UTMALDG in its SASS")
+    funcs = {f.split(chr(10))[0].strip(): f
+             for f in sass.stdout.split("Function : ")[1:]
+             if f.startswith("_ZN4sm90")}
+    merges = {name for name in funcs if "combine_splits" in name[:40]}
+    tiles = {name: f for name, f in funcs.items() if name not in merges}
+    ptxas = ptxas_report(report["chunk_attention"][1])
+    for name in sorted(funcs):
+        check(name in ptxas, f"{demangle(name)}: no -Xptxas -v entry")
+        regs, spills = ptxas[name]
+        what = ""
+        if name in tiles:
+            hg, tma = funcs[name].count("HGMMA"), funcs[name].count("UTMALDG")
+            check(hg > 0 and tma > 0, f"{demangle(name)} has no HGMMA or no "
+                  "UTMALDG in its SASS")
+            what = f"{hg} HGMMA, {tma} UTMALDG; "
+        print(f"  {demangle(name)}: {what}{regs} registers, {spills} bytes "
+              "spilled")
         check(not spills, f"{demangle(name)} spills registers")
-    wanted = {"flash_attention_tag": 4, "chunk_attention_tag": 2,
-              "chunk_masses_tag": 2, "column_masses_sm90": 2}
-    for part, n in wanted.items():
-        got = sum(part in name for name in tiles)
-        check(got == n, f"{got} instantiations of the Hopper tile name "
-              f"{part} in the SASS, expected {n}")
-    check(len(tiles) == sum(wanted.values()), f"{len(tiles)} Hopper tile "
-          f"instantiations in the SASS, expected {sum(wanted.values())}")
+    for group, wanted in ((tiles, {"flash_attention_tag": 4,
+                                   "chunk_attention_tag": 2,
+                                   "chunk_masses_tag": 2,
+                                   "column_masses_sm90": 2}),
+                          (merges, {"chunk_attention_tag": 2,
+                                    "chunk_masses_tag": 2})):
+        for part, n in wanted.items():
+            got = sum(part in name for name in group)
+            check(got == n, f"{got} instantiations of the Hopper tile name "
+                  f"{part} in the SASS, expected {n}")
+        check(len(group) == sum(wanted.values()), f"{len(group)} Hopper "
+              f"instantiations in the SASS, expected {sum(wanted.values())}")
 
 
 def ptxas_report(log: str) -> dict:
@@ -1720,8 +1735,12 @@ def demangle(name: str) -> str:
     if m:
         return (f"attention_sm90<{m[1]}, hd {m[2]}, causal {m[3]}, "
                 f"stats {m[4]}, split {m[5]}>")
-    m = re.search(r"(column_masses_sm90|combine_splits)ILi(\d+)E", name)
-    return f"{m[1]}<hd {m[2]}>" if m else name
+    m = re.search(r"combine_splitsI.*?(chunk_attention_tag|"
+                  r"chunk_masses_tag)E?Li(\d+)E", name)
+    if m:
+        return f"combine_splits<{m[1]}, hd {m[2]}>"
+    m = re.search(r"column_masses_sm90ILi(\d+)E", name)
+    return f"column_masses_sm90<hd {m[1]}>" if m else name
 
 
 def main() -> None:

@@ -623,8 +623,9 @@ static cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int hd,
 // (deterministic): out = sum_s o_s c_s / max(sum_s l_s c_s, L_FLOOR) with
 // c_s = exp2(m_s * scale_log2 - m * scale_log2), m = max_s m_s; with m_out,
 // also the merged (m, l) in the tile's units.  One warp per row of a head,
-// HD / 32 columns per lane.
-template <int HD>
+// HD / 32 columns per lane.  Entry is the calling entry's tag, so a
+// profile counts the merge with the kernel it finishes.
+template <typename Entry, int HD>
 __global__ void __launch_bounds__(256)
 combine_splits(const float* __restrict__ o_part,
                const float* __restrict__ m_part,
@@ -693,13 +694,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   kern<<<grid, THREADS, smem, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)out, m_out, l_out, o_part, m_part, l_part,
       n_split, C, H, K, KV, q_offset, window, log2e_scale(HD));
-  if (n_split == 1) return cudaGetLastError();
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t rows = (size_t)B * H * C;
-  combine_splits<HD><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      o_part, m_part, l_part, (__nv_bfloat16*)out, STATS ? m_out : nullptr,
-      l_out, B, C, H, n_split, log2e_scale(HD));
+  if constexpr (SPLIT) {  // kernel 7 never splits: no merge instantiated
+    if (n_split == 1) return cudaGetLastError();
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const size_t rows = (size_t)B * H * C;
+    combine_splits<Entry, HD><<<(unsigned)((rows + 7) / 8), 256, 0,
+                                stream>>>(
+        o_part, m_part, l_part, (__nv_bfloat16*)out, STATS ? m_out : nullptr,
+        l_out, B, C, H, n_split, log2e_scale(HD));
+  }
   return cudaGetLastError();
 }
 
