@@ -44,7 +44,9 @@
 //
 // Each entry instantiates the kernels with a tag type of its own name
 // (attention_sm90<chunk_attention_tag, ...> against
-// attention_sm90<flash_attention_tag, ...>), so a profile reads them apart.
+// attention_sm90<flash_attention_tag, ...>, and the merge of a split key
+// range, combine_splits<chunk_attention_tag, ...>), so a profile reads
+// them apart.
 //
 // * bf16 at head dims 64 and 128 (the serving path of every entry): the
 //   Hopper tile of attention_sm90.cuh, wgmma for both products and a TMA +

@@ -93,9 +93,11 @@ def _split_scratch(q, k, q_offset, window):
                    window=window, sms=sms)
     if n == 1:
         return 1, None, None, None
-    o = torch.empty((n, B, H, C, hd), dtype=torch.float32, device=dev)
-    ml = torch.empty((2, n, B, H, C), dtype=torch.float32, device=dev)
-    return n, o, ml[0], ml[1]
+    rows = n * B * H * C
+    buf = torch.empty(rows * (hd + 2), dtype=torch.float32, device=dev)
+    return (n, buf[:rows * hd].view(n, B, H, C, hd),
+            buf[rows * hd:rows * (hd + 1)].view(n, B, H, C),
+            buf[rows * (hd + 1):].view(n, B, H, C))
 
 
 def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
