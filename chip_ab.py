@@ -14,8 +14,11 @@ buffer, 32 q / 8 kv heads of 128) and its 32-row observation pass (at
 4000); kernel 2 (``chunk_attention_masses``) on that chunk with n_total
 4000; kernel 7 (``flash_attention``) on llama3-8b's lockstep prefill (B 4,
 S 2080, causal) and hymba-1.5b's (25 q / 5 kv heads of 64, window 1024
-and global). The same inputs (seed 0) in every checkout, each call on a
-cold L2 (``chip_smoke.time_ms`` of this checkout). Give the checkouts in
+and global); kernels 4 (``paged_decode_attention``, 19 blocks of 16) and
+5 (``paged_decode_masses``, 20 blocks) at phase 1's paged decode shape
+(4 slots, 32 q / 8 kv heads of 128), with all slots live and with one
+live slot of four. The same inputs (seed 0) in every checkout, each call
+on a cold L2 (``chip_smoke.time_ms`` of this checkout). Give the checkouts in
 turns (parent, change, change, parent): two calls may land on two cards.
 Prints one line per checkout and shape, then the card's name and power
 limit.
@@ -27,7 +30,11 @@ llama3-8b's chunked prefill of a 4000-token prompt (0 to 3840 of a
 4096-deep buffer; kernel 2 with n_total 4000) and kernel 1's observation
 pass (C 32 at n_total 1024, 2048, 3072 and 4000), with each query tile's
 key range split over 1, 2, 3 and 4 CTAs (``key_splits`` replaced for the
-sweep) and with the split ``key_splits`` picks; one line per shape.
+sweep) and with the split ``key_splits`` picks; then kernels 4 and 5 at
+phase 1's paged decode shape over 4, 8, 19, 20 and 32 blocks of 16, all
+slots live and one live slot of four, with each (sequence, kv head)'s
+rows split over 1, 2, 4 and 8 CTAs of a cluster (``row_splits``
+replaced) and the split ``row_splits`` picks; one line per shape.
 """
 
 from __future__ import annotations
@@ -49,6 +56,29 @@ SHAPES = (  # B, S, H, KV, hd, window, label
 )
 
 
+PAGED = (4, 32, 8, 128, 16)  # slots, q heads, kv heads, hd, block size
+
+
+def paged_inputs(torch, g, nb: int, one_live: bool):
+    """Phase 1's paged decode inputs (``chip_smoke.phase_kernels``): a
+    pool of 129 blocks, 90% of its rows live, a table of ``nb`` distinct
+    blocks per slot; with ``one_live`` slots 1-3 are between requests
+    (null tables)."""
+    B, H, KV, hd, bs = PAGED
+    dev = torch.device("cuda")
+    N = 129
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(torch.bfloat16)
+    kp, vp = (torch.randn((N, bs, KV, hd), generator=g, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    mask = torch.rand((N, bs, KV), generator=g, device=dev) > 0.1
+    mask[0] = False  # the null block
+    perm = torch.randperm(N - 1, generator=g, device=dev) + 1
+    table = perm[:B * nb].reshape(B, nb).to(torch.int32)
+    if one_live:
+        table[1:] = 0
+    return q, kp, vp, mask, table
+
+
 def time_checkout(root: str) -> None:
     import torch
 
@@ -58,6 +88,7 @@ def time_checkout(root: str) -> None:
     sys.path.insert(0, str(Path(root).resolve() / "src"))
     from repro_torch.kernels import chunk_attention as ck
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_attention as pk
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -83,6 +114,13 @@ def time_checkout(root: str) -> None:
         ms = chip_smoke.time_ms(
             torch, lambda: fk.flash_attention(q, k, v, window=window))
         print(f"{root}: kernel 7, {label}: {ms:.4f} ms", flush=True)
+    for nb, one_live in ((19, False), (19, True), (20, False), (20, True)):
+        args = paged_inputs(torch, g, nb, one_live)
+        fn = pk.paged_decode_attention if nb == 19 else pk.paged_decode_masses
+        live = "one live slot" if one_live else "all slots live"
+        ms = chip_smoke.time_ms(torch, lambda: fn(*args), iters=50)
+        print(f"{root}: kernel {4 if nb == 19 else 5}, {nb} blocks of 16, "
+              f"{live}: {ms:.4f} ms", flush=True)
 
 
 def time_splits(root: str) -> None:
@@ -126,6 +164,37 @@ def time_splits(root: str) -> None:
               + " / ".join(f"{t:.4f}" for t in times)
               + f" ms with 1 / 2 / 3 / 4 splits; key_splits picks {picked}",
               flush=True)
+    time_row_splits(root, torch, chip_smoke)
+
+
+def time_row_splits(root: str, torch, chip_smoke) -> None:
+    """Kernels 4 and 5 with 1, 2, 4 and 8 CTAs per (sequence, kv head)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as pk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rule = pk.row_splits
+    B, _, KV, _, bs = PAGED
+    for nb in (4, 8, 19, 20, 32):
+        picked = rule(B, KV, nb, bs, build.sm_count(dev))
+        for one_live in (False, True):
+            args = paged_inputs(torch, g, nb, one_live)
+            for name, fn in (("kernel 4", pk.paged_decode_attention),
+                             ("kernel 5", pk.paged_decode_masses)):
+                times = []
+                for n in (1, 2, 4, 8):
+                    pk.row_splits = lambda *a, n=n, **kw: n
+                    try:
+                        times.append(chip_smoke.time_ms(
+                            torch, lambda: fn(*args), iters=50))
+                    finally:
+                        pk.row_splits = rule
+                live = "one live slot" if one_live else "all slots live"
+                print(f"{root}: {name}, {nb} blocks of 16, {live}: "
+                      + " / ".join(f"{t:.4f}" for t in times)
+                      + " ms with 1 / 2 / 4 / 8 splits; row_splits picks "
+                      f"{picked}", flush=True)
 
 
 def card() -> str:

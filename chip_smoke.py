@@ -176,6 +176,40 @@ MASSES_EDGES = (
      (8, 2, 128)),
 )
 
+# Phase 1's edge cases of kernels 4 and 5 (``csrc/decode_split.cuh``: each
+# (sequence, kv head)'s rows split over the CTAs of one cluster), each run
+# at 1, 2, 4 and 8 forced splits and at ``row_splits``' pick, 4 slots over
+# a pool of 129 blocks: layouts "ragged" (a null tail, a gap, a slot
+# between requests, a fully masked kv head), "one live" (three null
+# tables), "dead split" (blocks 10-19 null in one slot and 0-9 masked in
+# another: whole ranks see no live row); fewer blocks than splits; G of
+# 1, 4, 8 and 16; hd 32, 64 and 128; a window; a block size of 7; float32.
+# (label, (H, KV, hd), bs, nb, window, layout, dtype)
+PAGED_EDGES = (
+    ("ragged, gap, null slot, masked head", (32, 8, 128), 16, 20, None,
+     "ragged", "bfloat16"),
+    ("window 96", (32, 8, 128), 16, 20, 96, "ragged", "bfloat16"),
+    ("one live slot of four", (32, 8, 128), 16, 20, None, "one live",
+     "bfloat16"),
+    ("a split's blocks all null or masked", (32, 8, 128), 16, 20, None,
+     "dead split", "bfloat16"),
+    ("nb 3: fewer blocks than splits", (32, 8, 128), 16, 3, None, "ragged",
+     "bfloat16"),
+    ("G=1 (H=8) hd 64", (8, 8, 64), 16, 20, None, "ragged", "bfloat16"),
+    ("G=8 (H=64)", (64, 8, 128), 16, 20, None, "ragged", "bfloat16"),
+    ("G=16 (32 / 2 heads of 64)", (32, 2, 64), 16, 20, 96, "ragged",
+     "bfloat16"),
+    ("hd 32", (32, 8, 32), 16, 20, 96, "ragged", "bfloat16"),
+    ("block size 7", (32, 8, 128), 7, 20, None, "ragged", "bfloat16"),
+    ("float32", (32, 8, 128), 16, 20, 96, "ragged", "float32"),
+)
+#: split counts forced on kernels 4 and 5 in phase 1 (None: the rule's)
+PAGED_SPLITS = (None, 1, 2, 4, 8)
+#: PR 18's phase-1 times (ms; NVIDIA H100 80GB HBM3, 700 W) of the decode
+#: kernels, printed beside this run's
+PR18_MS = {"paged_decode_attention": 0.0346, "paged_decode_masses": 0.0361,
+           "decode_attention": 0.0328}
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -492,8 +526,56 @@ def phase_kernels(torch, mods) -> list:
         source="src/repro_torch/csrc/lookahead_score.cu",
         replaces="src/repro/kernels/lookahead_score.py:87", **main3))
 
-    # -- kernel 4: paged decode --------------------------------------------------
-    def paged_case(label, window, timed=False, edge=False):
+    # -- kernels 4 and 5: paged decode, rows split over a cluster -----------
+    @contextlib.contextmanager
+    def forced_splits(n):
+        """Kernels 4 and 5 at ``n`` CTAs per (sequence, kv head) (None:
+        ``row_splits``' pick), as the card tests force them."""
+        rule = pk.row_splits
+        if n is not None:
+            pk.row_splits = lambda *a, **kw: n
+        try:
+            yield
+        finally:
+            pk.row_splits = rule
+
+    def splits_label(n, B, KV, nb, bs):
+        if n is not None:
+            return f"{n} splits"
+        return (f"row_splits' {pk.row_splits(B, KV, nb, bs, sms)} "
+                "splits")
+
+    def one_cluster_launch(fn, part, grid):
+        """``fn`` makes exactly one CUDA launch, of a kernel named
+        ``part``, on the grid (n_split, KV, B) when the trace records it."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        check(len(names) == 1 and part in names[0],
+              f"{part}: one call launched {names}, expected one {part}")
+        trace = mods["build"].BUILD_DIR / "paged_trace.json"
+        prof.export_chrome_trace(str(trace))
+        grids = [ev.get("args", {}).get("grid")
+                 for ev in json.loads(trace.read_text())["traceEvents"]
+                 if part in ev.get("name", "")
+                 and ev.get("cat") == "kernel"]
+        trace.unlink()
+        if grids and grids[0] is not None:
+            check(list(grids[0]) == list(grid), f"{part}: grid {grids[0]}, "
+                  f"expected {grid}")
+            print(f"  {part}: one launch, grid {tuple(grids[0])}")
+        else:
+            print(f"  {part}: one launch (the trace records no grid; "
+                  f"row_splits gives {grid})")
+
+    sms = mods["build"].sm_count(dev)
+
+    def paged_case(label, window, timed=False, edge=False, one_live=False,
+                   splits=None):
         B, bs, nb, N = 4, 16, 19, 129
         q = randn(B, H, hd)
         kp, vp = randn(N, bs, KV, hd), randn(N, bs, KV, hd)
@@ -510,9 +592,13 @@ def phase_kernels(torch, mods) -> list:
             table[1, 9:] = 0  # ragged with null blocks
             table[2] = 0  # a slot between requests: exact zeros
             mask[table[3].long(), :, 5] = False  # kv head 5 fully masked
+        if one_live:
+            table[1:] = 0  # three slots between requests
         new_pos = torch.full((B,), 4032, dtype=torch.int32, device=dev)
         kw = dict(pos_pool=pos, new_pos=new_pos, window=window)
-        got = pk.paged_decode_attention(q, kp, vp, mask, table, **kw)
+        label = f"{label}, {splits_label(splits, B, KV, nb, bs)}"
+        with forced_splits(splits):
+            got = pk.paged_decode_attention(q, kp, vp, mask, table, **kw)
         torch.cuda.synchronize()
         want = ref.paged_decode_attention(q, kp, vp, mask, table, **kw)
         err = check_rows(torch, got, want, REL_PAGED,
@@ -522,10 +608,17 @@ def phase_kernels(torch, mods) -> list:
                   "paged decode: an all-null table must give exact zeros")
             check(bool(torch.all(got[3, 5 * G:6 * G] == 0)),
                   "paged decode: a fully masked head must give exact zeros")
+        if one_live:
+            check(bool(torch.all(got[1:] == 0)),
+                  "paged decode: null tables must give exact zeros")
         if not timed:
             return None
-        ms = time_ms(torch, lambda: pk.paged_decode_attention(
-            q, kp, vp, mask, table, **kw), iters=50)
+        call = lambda: pk.paged_decode_attention(q, kp, vp, mask, table,
+                                                 **kw)
+        if not one_live:
+            one_cluster_launch(call, "paged_decode", (pk.row_splits(
+                B, KV, nb, bs, sms), KV, B))
+        ms = time_ms(torch, call, iters=50)
         plain = time_ms(torch, lambda: ref.paged_decode_attention(
             q, kp, vp, mask, table, **kw), iters=10)
         # library yardstick: SDPA on the gathered dense view (the gather is
@@ -543,47 +636,65 @@ def phase_kernels(torch, mods) -> list:
         n_bytes = (itemsize * (2 * rows_valid * hd + 2 * B * H * hd)
                    + B * S * KV + 4 * B * nb)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        print(f"  paged_decode_attention {label}: {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}, {rows_valid} valid rows of {B * S * KV})")
+        print(f"  paged_decode_attention {label}: {ms:.4f} ms (PR 18: "
+              f"{PR18_MS['paged_decode_attention']:.4f} all slots live), "
+              f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} "
+              f"ms ({b_by}, {rows_valid} valid rows of {B * S * KV})")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib)
 
     main4 = paged_case("B=4 bs=16 nb=19", None, timed=True)
-    paged_case("ragged, null slot, masked head", None, edge=True)
-    paged_case("window 64", 64, edge=True)
+    paged_case("B=4 bs=16 nb=19, one live slot", None, timed=True,
+               one_live=True)
+    for n in PAGED_SPLITS:
+        paged_case("ragged, null slot, masked head", None, edge=True,
+                   splits=n)
+        paged_case("window 64", 64, edge=True, splits=n)
     results.append(dict(
         name="paged_decode_attention", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:101", **main4))
 
-    # -- kernel 5: paged decode with row masses -------------------------------
-    def masses_case(label, *, Hq=H, window=None, edge=False, timed=False):
-        """Kernel 5 at the decode-eviction route's shape (4 slots, a window
-        of capacity 256 + interval 64 = 20 blocks of 16): ``out`` must be
-        bitwise kernel 4's on the same inputs; each (b, h) row of masses
-        within 2^-16 of that row's largest plain mass (both sides take
-        float32 dot products over hd and exp of logits of a few units, so
-        they differ by a few float32 ulps, ~1e-6 relative, per entry);
-        exact zeros on dead rows; live rows sum to 1 within 1e-4."""
-        B, bs, nb, N = 4, 16, 20, 129
-        q = randn(B, Hq, hd)
-        kp, vp = randn(N, bs, KV, hd), randn(N, bs, KV, hd)
-        pos = torch.randint(0, 4300, (N, bs, KV), generator=g, device=dev,
+    def masses_case(label, *, heads=(H, KV, hd), bs=16, nb=20, window=None,
+                    layout=None, dtype="bfloat16", splits=None, timed=False):
+        """Kernels 5 and 4 on one input at the decode-eviction route's
+        shape (4 slots, a window of capacity 256 + interval 64 = 20 blocks
+        of 16) or an edge of ``PAGED_EDGES``: kernel 5's ``out`` must be
+        bitwise kernel 4's at the same split; out within 2^-7 per row of
+        the plain version, exact zeros on a (sequence, head) with no live
+        row; each (b, h) row of masses within 2^-16 of that row's largest
+        plain mass (both sides take float32 dot products over hd and
+        exponentials of logits of a few units, so they differ by a few
+        float32 ulps, ~1e-6 relative, per entry); exact zeros on dead
+        rows; live rows sum to 1 within 1e-4."""
+        Hq, KVq, hdq = heads
+        B, N = 4, 129
+        dt = getattr(torch, dtype)
+        q, kp, vp = (torch.randn(shape, generator=g, device=dev).to(dt)
+                     for shape in ((B, Hq, hdq), (N, bs, KVq, hdq),
+                                   (N, bs, KVq, hdq)))
+        pos = torch.randint(0, 4300, (N, bs, KVq), generator=g, device=dev,
                             dtype=torch.int32)
-        mask = torch.rand((N, bs, KV), generator=g, device=dev) > 0.05
+        mask = torch.rand((N, bs, KVq), generator=g, device=dev) > 0.05
         mask[0] = False  # the null block
         perm = torch.randperm(N - 1, generator=g, device=dev) + 1
         table = perm[:B * nb].reshape(B, nb).to(torch.int32)
-        if edge:
+        if layout == "ragged":
             table[1, 7:] = 0  # ragged with null blocks
-            table[0, 3] = 0  # a gap
+            table[0, min(3, nb - 1)] = 0  # a gap
             table[2] = 0  # a slot between requests: all zero
-            mask[table[3].long(), :, 5] = False  # kv head 5 fully masked
+            mask[table[3].long(), :, min(5, KVq - 1)] = False  # a dead head
+        elif layout == "one live":
+            table[1:] = 0
+        elif layout == "dead split":
+            table[0, 10:] = 0
+            mask[table[1, :10].long()] = False
         new_pos = torch.full((B,), 4200, dtype=torch.int32, device=dev)
         kw = dict(pos_pool=pos, new_pos=new_pos, window=window)
-        got, m_got = pk.paged_decode_masses(q, kp, vp, mask, table, **kw)
-        plain4 = pk.paged_decode_attention(q, kp, vp, mask, table, **kw)
+        label = f"{label}, {splits_label(splits, B, KVq, nb, bs)}"
+        with forced_splits(splits):
+            got, m_got = pk.paged_decode_masses(q, kp, vp, mask, table, **kw)
+            plain4 = pk.paged_decode_attention(q, kp, vp, mask, table, **kw)
         torch.cuda.synchronize()
         check(torch.equal(got, plain4), f"paged_decode_masses {label}: out "
               "is not bitwise kernel 4's")
@@ -593,7 +704,7 @@ def phase_kernels(torch, mods) -> list:
         m_want = ref.paged_decode_masses(q, kp, mask, table, **kw)
         err = check_rows(torch, m_got, m_want, REL_SCORE,
                          f"paged_decode_masses {label} masses")
-        Gq = Hq // KV
+        Gq = Hq // KVq
         dead = torch.repeat_interleave(
             ~ref.gather_paged(mask, table).transpose(1, 2), Gq, dim=1)
         if window is not None:
@@ -608,35 +719,44 @@ def phase_kernels(torch, mods) -> list:
               and bool(torch.all(sums[~alive] == 0)),
               f"paged_decode_masses {label}: live rows must sum to 1, "
               "dead (sequence, head)s to 0")
+        check(bool(torch.all(got[~alive] == 0)), f"paged_decode_masses "
+              f"{label}: a (sequence, head) with no live row must give "
+              "exact zeros")
         print(f"  paged_decode_masses {label}: out bitwise kernel 4's; "
               f"{int(alive.sum())} live and {int((~alive).sum())} empty "
               f"(sequence, head)s; largest |sum - 1| "
               f"{float((sums[alive] - 1).abs().max()):.2e}")
         if not timed:
             return None
-        ms = time_ms(torch, lambda: pk.paged_decode_masses(
-            q, kp, vp, mask, table, **kw), iters=50)
+        call = lambda: pk.paged_decode_masses(q, kp, vp, mask, table, **kw)
+        if layout is None:
+            one_cluster_launch(call, "paged_masses", (pk.row_splits(
+                B, KVq, nb, bs, sms), KVq, B))
+        ms = time_ms(torch, call, iters=50)
         plain = time_ms(torch, lambda: (
             ref.paged_decode_attention(q, kp, vp, mask, table, **kw),
             ref.paged_decode_masses(q, kp, mask, table, **kw)), iters=10)
         S = nb * bs
         rows_valid = int(ref.gather_paged(mask, table).sum())
-        n_ops = 4 * hd * Gq * rows_valid
-        n_bytes = (itemsize * (2 * rows_valid * hd + 2 * B * Hq * hd)
-                   + B * S * KV + 4 * B * nb + 4 * B * Hq * S)
+        n_ops = 4 * hdq * Gq * rows_valid
+        n_bytes = (itemsize * (2 * rows_valid * hdq + 2 * B * Hq * hdq)
+                   + B * S * KVq + 4 * B * nb + 4 * B * Hq * S)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        print(f"  paged_decode_masses {label}: {ms:.4f} ms, plain "
+        print(f"  paged_decode_masses {label}: {ms:.4f} ms (PR 18: "
+              f"{PR18_MS['paged_decode_masses']:.4f} all slots live), plain "
               f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {rows_valid} "
-              f"valid rows of {B * S * KV}); no single library call "
+              f"valid rows of {B * S * KVq}); no single library call "
               "returns the row masses")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None)
 
     main5 = masses_case("B=4 bs=16 nb=20", timed=True)
-    masses_case("ragged, gap, null slot, masked head", edge=True)
-    masses_case("window 96", window=96, edge=True)
-    masses_case("G=1 (H=8)", Hq=8, edge=True)
-    masses_case("G=8 (H=64)", Hq=64, edge=True)
+    masses_case("B=4 bs=16 nb=20, one live slot", layout="one live",
+                timed=True)
+    for label, heads, bs, nb, window, layout, dtype in PAGED_EDGES:
+        for n in PAGED_SPLITS:
+            masses_case(label, heads=heads, bs=bs, nb=nb, window=window,
+                        layout=layout, dtype=dtype, splits=n)
     results.append(dict(
         name="paged_decode_masses", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
@@ -779,9 +899,11 @@ def phase_kernels(torch, mods) -> list:
         n_bytes = (itemsize * (2 * rows_valid * hd + 2 * B * H * hd)
                    + B * C * KV)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        print(f"  decode_attention {label}: {ms:.4f} ms, plain {plain:.4f} "
-              f"ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-              f"{rows_valid} valid rows of {B * C * KV})")
+        pr18 = PR18_MS["decode_attention"]
+        print(f"  decode_attention {label}: {ms:.4f} ms (PR 18: {pr18:.4f}, "
+              f"{ms / pr18 - 1:+.1%}; its code is unchanged), plain "
+              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}, {rows_valid} valid rows of {B * C * KV})")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib)
 
@@ -1710,6 +1832,30 @@ def phase_build(mods) -> None:
                   f"{part} in the SASS, expected {n}")
         check(len(group) == sum(wanted.values()), f"{len(group)} Hopper "
               f"instantiations in the SASS, expected {sum(wanted.values())}")
+    # kernels 4 and 5 (decode_split.cuh): each of their 36 instantiations
+    # (2 kernels x 2 types x hd 32 / 64 / 128 x 1 / 4 / 8 heads per pass)
+    # must have a -Xptxas -v entry and spill nothing; a library built by an
+    # earlier run is built again for the report
+    if "paged_attention" not in report:
+        build._target("paged_attention").unlink()
+        report.update(build.build(("paged_attention",), verbose=True))
+        print(f"  paged_attention: rebuilt for its register report, nvcc "
+              f"{report['paged_attention'][0]:.1f} s", flush=True)
+    ptxas = ptxas_report(report["paged_attention"][1])
+    wanted = {f"{kern}<{t}, hd {d}, {gp} heads per pass>"
+              for kern in ("paged_decode_kernel", "paged_masses_kernel")
+              for t in ("float", "bf16") for d in (32, 64, 128)
+              for gp in (1, 4, 8)}
+    found = {demangle(name): name for name in ptxas
+             if "paged_decode_kernel" in name
+             or "paged_masses_kernel" in name}
+    check(set(found) == wanted, "paged kernels without a -Xptxas -v entry: "
+          f"{sorted(wanted - set(found))}; unexpected: "
+          f"{sorted(set(found) - wanted)}")
+    for label in sorted(found):
+        regs, spills = ptxas[found[label]]
+        print(f"  {label}: {regs} registers, {spills} bytes spilled")
+        check(not spills, f"{label} spills registers")
 
 
 def ptxas_report(log: str) -> dict:
@@ -1729,7 +1875,8 @@ def ptxas_report(log: str) -> dict:
 
 
 def demangle(name: str) -> str:
-    """A Hopper tile instantiation's kernel and template arguments."""
+    """A Hopper tile or paged decode instantiation's kernel and template
+    arguments."""
     m = re.search(r"(flash_attention_tag|chunk_attention_tag|"
                   r"chunk_masses_tag)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)", name)
     if m:
@@ -1739,6 +1886,11 @@ def demangle(name: str) -> str:
                   r"chunk_masses_tag)E?Li(\d+)E", name)
     if m:
         return f"combine_splits<{m[1]}, hd {m[2]}>"
+    m = re.search(r"(paged_decode_kernel|paged_masses_kernel)I"
+                  r"(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+    if m:
+        t = "float" if m[2] == "f" else "bf16"
+        return f"{m[1]}<{t}, hd {m[3]}, {m[4]} heads per pass>"
     m = re.search(r"column_masses_sm90ILi(\d+)E", name)
     return f"column_masses_sm90<hd {m[1]}>" if m else name
 

@@ -16,112 +16,153 @@
 //   masses (B, H, nb * bs) float32, exact zeros on masked rows (the
 //   decode-time eviction scores).  The Pallas kernel re-streams K in a
 //   second grid phase; here each lane stores its rows' logits while the
-//   tiles stream and rescales them once (m, l) are final (decode_tiles.cuh,
-//   MASSES), so K is read once.  Its kernel has a name of its own
+//   rows stream and rescales them once the cluster's (m, l) are final
+//   (decode_split.cuh, MASSES), so K is read once.  Its kernel has a name of its own
 //   (paged_masses_kernel), so a profile tells it from paged_decode_kernel.
 //
 // Layout: q (B, H, hd); k_pool/v_pool (N, bs, KV, hd); mask_pool (N, bs, KV)
 // bool; pos_pool (N, bs, KV) int32; table (B, nb) int32; new_pos (B,) int32;
 // out (B, H, hd) in q's type.  fp32 or bf16 payload.
 //
-// Design: one CTA per (kv head, sequence), the shared tile routine of
-// decode_tiles.cuh (one warp per query head of the GQA group, only valid
-// rows' K/V bytes read).  TPU scalar prefetch has no counterpart: the
-// CTA's row map reads table[b, c / bs] itself while it stages a 64-row
-// tile (any block size: the tile walks logical rows, each row finds its
-// block), so null blocks, ragged tails and dead rows cost their mask byte
-// only.
+// Design (decode_split.cuh): a thread-block cluster of n_split CTAs per
+// (sequence, kv head), grid (n_split, KV, B), one launch.  CTA rank s
+// takes blocks [nb * s / n_split, nb * (s + 1) / n_split) of the table
+// (a rank with none contributes nothing); its four warps split that row
+// range, each lane resolving rows through the table and the mask itself
+// (TPU scalar prefetch has no counterpart) two and one 32-row batches
+// ahead, and the K/V vectors of the next steps stay in flight in
+// registers while the current rows are scored against all G query heads
+// held in registers.  The CTAs merge in rank order through distributed
+// shared memory.  n_split comes from the caller
+// (kernels/paged_attention.py: row_splits, from the shapes and the SM
+// count); a cluster launch the card refuses returns its error, with no
+// fallback to one CTA per (sequence, kv head).
 //
 // Bound on the H100: bandwidth, the K and V bytes of the valid rows plus
 // the mask bytes of every table row, q and out (and the masses), over
-// 3.35 TB/s.  What this
-// design leaves on the table: only B*KV CTAs (32 at 4 sequences of llama3-8b,
-// a quarter of the SMs) each walking its rows in order with loads and math
-// alternating (no split-K over the rows, no cp.async/TMA pipelining, no
-// tensor cores), so it is latency-bound well above that bound.
-#include "decode_tiles.cuh"
+// 3.35 TB/s, ~1.3 us for 4 sequences of llama3-8b at 19 blocks of 16.
+// What this design leaves on the table: a call moves a few MB, so it is
+// latency-bound: the launch, three dependent round trips to memory before
+// the first row is scored (table entry, mask byte, K/V), and two cluster
+// barriers.  One live slot of four still fills only KV * n_split = 64
+// CTAs; the row loop uses CUDA cores, not tensor cores (a decode token's
+// G = 4 query rows would fill a tensor-core tile a sixteenth), and kernel
+// 5's mass rescale reads its logits back from L2.
+#include "decode_split.cuh"
 
 namespace {
 
-// Logical row c of one sequence -> its pool row, -1 when masked (or
-// outside the window).
+// Logical row c of one sequence -> its pool row (the block table), then
+// its mask byte and position (decode_split.cuh's row-map interface).
 struct PagedRows {
   const int32_t* table;  // this sequence's block-table row
   const uint8_t* mask_pool;
   const int32_t* pos_pool;
   int bs, KV, kvh, window, qpos;
 
-  __device__ int row(int c) const {
-    const int r = table[c / bs] * bs + c % bs;
+  __device__ int where(int c) const {
+    return __ldg(table + c / bs) * bs + c % bs;
+  }
+  __device__ int2 probe(int r) const {
     const size_t slot = (size_t)r * KV + kvh;
-    bool ok = mask_pool[slot] != 0;
-    if (ok && window > 0) ok = qpos - pos_pool[slot] < window;
-    return ok ? r : -1;
+    return make_int2(__ldg(mask_pool + slot),
+                     window > 0 ? __ldg(pos_pool + slot) : 0);
+  }
+  __device__ bool alive(int2 w) const {
+    return w.x != 0 && (window <= 0 || qpos - w.y < window);
   }
 };
 
-template <typename T, int HD>
-__global__ void paged_decode_kernel(
+// Grid (n_split, KV, B) in clusters of (n_split, 1, 1).
+template <typename T, int HD, int GP, bool MASSES>
+__device__ __forceinline__ void paged_body(
+    const T* q, const T* k_pool, const T* v_pool, const uint8_t* mask_pool,
+    const int32_t* pos_pool, const int32_t* table, const int32_t* new_pos,
+    T* out, float* masses, int H, int KV, int bs, int nb, int window,
+    float scale) {
+  const int kvh = blockIdx.y, b = blockIdx.z, G = H / KV;
+  const int s = decode_split::cluster_rank();
+  const int n_split = decode_split::cluster_size();
+  const int blk0 = nb * s / n_split, blk1 = nb * (s + 1) / n_split;
+  const PagedRows rows{table + (size_t)b * nb, mask_pool, pos_pool, bs, KV,
+                       kvh, window, window > 0 ? new_pos[b] : 0};
+  const size_t head0 = (size_t)b * H + kvh * G;
+  decode_split::attend<T, HD, GP, MASSES>(
+      q + head0 * HD, k_pool, v_pool, out + head0 * HD,
+      MASSES ? masses + head0 * nb * bs : nullptr, KV, kvh, G, nb * bs,
+      blk0 * bs, blk1 * bs, rows, scale);
+}
+
+template <typename T, int HD, int GP>
+__global__ void __launch_bounds__(decode_split::THREADS) paged_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const uint8_t* __restrict__ mask_pool,
     const int32_t* __restrict__ pos_pool, const int32_t* __restrict__ table,
     const int32_t* __restrict__ new_pos, T* __restrict__ out, int H, int KV,
     int bs, int nb, int window, float scale) {
-  extern __shared__ float smem[];
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int G = H / KV;
-  const PagedRows rows{table + (size_t)b * nb, mask_pool, pos_pool, bs, KV,
-                       kvh, window, new_pos ? new_pos[b] : 0};
-  const size_t head0 = ((size_t)b * H + kvh * G) * HD;
-  decode_tiles::attend<T, HD>(q + head0, k_pool, v_pool, out + head0, KV, kvh,
-                              G, nb * bs, rows, scale, smem);
+  paged_body<T, HD, GP, false>(q, k_pool, v_pool, mask_pool, pos_pool, table,
+                               new_pos, out, nullptr, H, KV, bs, nb, window,
+                               scale);
 }
 
-template <typename T, int HD>
-__global__ void paged_masses_kernel(
+template <typename T, int HD, int GP>
+__global__ void __launch_bounds__(decode_split::THREADS) paged_masses_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const uint8_t* __restrict__ mask_pool,
     const int32_t* __restrict__ pos_pool, const int32_t* __restrict__ table,
     const int32_t* __restrict__ new_pos, T* __restrict__ out,
     float* __restrict__ masses, int H, int KV, int bs, int nb, int window,
     float scale) {
-  extern __shared__ float smem[];
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int G = H / KV;
-  const PagedRows rows{table + (size_t)b * nb, mask_pool, pos_pool, bs, KV,
-                       kvh, window, new_pos ? new_pos[b] : 0};
-  const size_t head0 = (size_t)b * H + kvh * G;
-  decode_tiles::attend<T, HD, PagedRows, true>(
-      q + head0 * HD, k_pool, v_pool, out + head0 * HD, KV, kvh, G, nb * bs,
-      rows, scale, smem, masses + head0 * nb * bs);
+  paged_body<T, HD, GP, true>(q, k_pool, v_pool, mask_pool, pos_pool, table,
+                              new_pos, out, masses, H, KV, bs, nb, window,
+                              scale);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int GP>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const uint8_t* mask_pool, const int32_t* pos_pool,
                    const int32_t* table, const int32_t* new_pos, void* out,
                    float* masses, int B, int H, int KV, int bs, int nb,
-                   int window, cudaStream_t st) {
-  const int G = H / KV;
-  if (G < 1 || G > 32) return cudaErrorInvalidValue;
-  const int smem = decode_tiles::smem_bytes<HD>(G);
-  const dim3 grid(KV, B);
+                   int window, int n_split, cudaStream_t st) {
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = n_split;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, KV, B);
+  cfg.blockDim = dim3(decode_split::THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
   const float scale = 1.f / sqrtf((float)HD);
   cudaError_t err;
-  if (masses == nullptr) {
-    auto* kern = paged_decode_kernel<T, HD>;
-    if ((err = allow_smem(kern, smem)) != cudaSuccess) return err;
-    kern<<<grid, 32 * G, smem, st>>>(
-        (const T*)q, (const T*)k_pool, (const T*)v_pool, mask_pool, pos_pool,
-        table, new_pos, (T*)out, H, KV, bs, nb, window, scale);
-  } else {
-    auto* kern = paged_masses_kernel<T, HD>;
-    if ((err = allow_smem(kern, smem)) != cudaSuccess) return err;
-    kern<<<grid, 32 * G, smem, st>>>(
-        (const T*)q, (const T*)k_pool, (const T*)v_pool, mask_pool, pos_pool,
-        table, new_pos, (T*)out, masses, H, KV, bs, nb, window, scale);
+  if (masses == nullptr)
+    err = cudaLaunchKernelEx(&cfg, paged_decode_kernel<T, HD, GP>, (const T*)q,
+                             (const T*)k_pool, (const T*)v_pool, mask_pool,
+                             pos_pool, table, new_pos, (T*)out, H, KV, bs, nb,
+                             window, scale);
+  else
+    err = cudaLaunchKernelEx(&cfg, paged_masses_kernel<T, HD, GP>, (const T*)q,
+                             (const T*)k_pool, (const T*)v_pool, mask_pool,
+                             pos_pool, table, new_pos, (T*)out, masses, H, KV,
+                             bs, nb, window, scale);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t dispatch_gp(const void* q, const void* k_pool, const void* v_pool,
+                        const uint8_t* mask_pool, const int32_t* pos_pool,
+                        const int32_t* table, const int32_t* new_pos,
+                        void* out, float* masses, int B, int H, int KV,
+                        int bs, int nb, int window, int n_split,
+                        cudaStream_t st) {
+  switch (decode_split::heads_per_pass(H / KV)) {
+    case 1: return launch<T, HD, 1>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
+    case 4: return launch<T, HD, 4>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
+    default: return launch<T, HD, 8>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
   }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -130,11 +171,11 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k_pool,
                         const int32_t* pos_pool, const int32_t* table,
                         const int32_t* new_pos, void* out, float* masses,
                         int B, int H, int KV, int bs, int nb, int window,
-                        cudaStream_t st) {
+                        int n_split, cudaStream_t st) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, st);
-    case 64: return launch<T, 64>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, st);
-    case 128: return launch<T, 128>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, st);
+    case 32: return dispatch_gp<T, 32>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
+    case 64: return dispatch_gp<T, 64>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
+    case 128: return dispatch_gp<T, 128>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -143,29 +184,34 @@ cudaError_t dispatch(const void* q, const void* k_pool, const void* v_pool,
                      const void* mask_pool, const void* pos_pool,
                      const void* table, const void* new_pos, void* out,
                      void* masses, int B, int H, int KV, int hd, int bs,
-                     int nb, int window, int dtype, cudaStream_t st) {
+                     int nb, int window, int n_split, int dtype,
+                     cudaStream_t st) {
+  if (KV < 1 || H % KV || H / KV > 32 || nb < 1 || bs < 1 || n_split < 1 ||
+      n_split > decode_split::MAX_SPLITS)
+    return cudaErrorInvalidValue;
   const uint8_t* mp = (const uint8_t*)mask_pool;
   const int32_t* pp = (const int32_t*)pos_pool;
   const int32_t* tb = (const int32_t*)table;
   const int32_t* np = (const int32_t*)new_pos;
   float* ms = (float*)masses;
   if (dtype == DTYPE_F32)
-    return dispatch_hd<float>(hd, q, k_pool, v_pool, mp, pp, tb, np, out, ms, B, H, KV, bs, nb, window, st);
+    return dispatch_hd<float>(hd, q, k_pool, v_pool, mp, pp, tb, np, out, ms, B, H, KV, bs, nb, window, n_split, st);
   if (dtype == DTYPE_BF16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k_pool, v_pool, mp, pp, tb, np, out, ms, B, H, KV, bs, nb, window, st);
+    return dispatch_hd<__nv_bfloat16>(hd, q, k_pool, v_pool, mp, pp, tb, np, out, ms, B, H, KV, bs, nb, window, n_split, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // window <= 0 means no window (pos_pool and new_pos may then be null).
+// n_split: CTAs per (sequence, kv head), 1 to 8, one cluster.
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* mask_pool, const void* pos_pool, const void* table,
     const void* new_pos, void* out, int B, int H, int KV, int hd, int bs,
-    int nb, int window, int dtype, void* stream) {
+    int nb, int window, int n_split, int dtype, void* stream) {
   return dispatch(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out,
-                  nullptr, B, H, KV, hd, bs, nb, window, dtype,
+                  nullptr, B, H, KV, hd, bs, nb, window, n_split, dtype,
                   (cudaStream_t)stream);
 }
 
@@ -174,9 +220,10 @@ extern "C" int paged_decode_masses(
     const void* q, const void* k_pool, const void* v_pool,
     const void* mask_pool, const void* pos_pool, const void* table,
     const void* new_pos, void* out, void* masses, int B, int H, int KV,
-    int hd, int bs, int nb, int window, int dtype, void* stream) {
+    int hd, int bs, int nb, int window, int n_split, int dtype,
+    void* stream) {
   if (masses == nullptr) return cudaErrorInvalidValue;
   return dispatch(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out,
-                  masses, B, H, KV, hd, bs, nb, window, dtype,
+                  masses, B, H, KV, hd, bs, nb, window, n_split, dtype,
                   (cudaStream_t)stream);
 }

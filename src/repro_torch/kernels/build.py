@@ -21,6 +21,7 @@ first launch, and ``build()`` compiles several sources at once, one
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -47,8 +48,8 @@ SIGNATURES = {
     "chunk_attention_masses": [_P] * 10 + [_I] * 11 + [_P],
     "flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "lookahead_score": [_P] * 7 + [_I] * 11 + [_P],
-    "paged_decode_attention": [_P] * 8 + [_I] * 8 + [_P],
-    "paged_decode_masses": [_P] * 9 + [_I] * 8 + [_P],
+    "paged_decode_attention": [_P] * 8 + [_I] * 9 + [_P],
+    "paged_decode_masses": [_P] * 9 + [_I] * 9 + [_P],
     "decode_attention": [_P] * 5 + [_I] * 7 + [_P],
     "ssd_scan": [_P] * 8 + [_I] * 10 + [_P],
 }
@@ -133,6 +134,18 @@ def check(err: int, what: str) -> None:
     """Raise when a launch reported a CUDA error (cudaGetLastError)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card ``device`` names, asked of the
+    driver once per card (the split rules read it on every call)."""
+    index = device.index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr() -> int:

@@ -88,9 +88,8 @@ def _split_scratch(q, k, q_offset, window):
     (n_split, B, H, C, hd) and (n_split, B, H, C), or Nones for 1."""
     B, C, H, hd = q.shape
     dev = q.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n = key_splits(B, C, H, k.shape[1], hd, q.dtype, q_offset=q_offset,
-                   window=window, sms=sms)
+                   window=window, sms=build.sm_count(dev))
     if n == 1:
         return 1, None, None, None
     rows = n * B * H * C

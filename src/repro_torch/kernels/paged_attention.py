@@ -9,6 +9,13 @@ block table themselves.  Kernel 5 also returns every table row's
 normalised softmax mass per query head (the decode-time eviction
 scores); its ``out`` is bitwise kernel 4's.  Plain versions:
 ``ref.paged_decode_attention`` and ``ref.paged_decode_masses``.
+
+Both kernels split each (sequence, kv head)'s rows over the CTAs of one
+thread-block cluster (``csrc/decode_split.cuh``): ``row_splits`` picks how
+many from the shapes and the card's SM count, the CTAs merge in rank
+order through distributed shared memory in the same launch, so results
+are deterministic, and the two kernels split alike, so kernel 5's ``out``
+stays bitwise kernel 4's.
 """
 
 from __future__ import annotations
@@ -23,6 +30,27 @@ from repro_torch.kernels import build
 #: (``paged_decode_masses``) since the last reset (``ops.reset_launch_counts``)
 launches = 0
 mass_launches = 0
+
+#: CTAs of one cluster that share a (sequence, kv head)'s rows: at most
+#: the portable cluster size ...
+MAX_SPLITS = 8
+#: ... each taking at least this many rows (one round of K/V loads of its
+#: 4 warps at bf16 hd 128: 4 steps of 2 rows each) ...
+MIN_ROWS_PER_SPLIT = 32
+#: ... and no more CTAs in all than this many per SM (one wave of the
+#: 128-thread CTAs)
+CTAS_PER_SM = 4
+
+
+def row_splits(B: int, KV: int, nb: int, bs: int, sms: int) -> int:
+    """CTAs per (sequence, kv head) of kernels 4 and 5: as many as give
+    each at least ``MIN_ROWS_PER_SPLIT`` of the table's ``nb * bs`` rows
+    (and at least one block), at most ``MAX_SPLITS``, and no more than
+    fit ``CTAS_PER_SM`` CTAs on each of the ``sms`` SMs.  Sized per
+    sequence, not from ``B * KV`` alone: a decode step with one live slot
+    of four still spreads that slot's rows over ``KV`` clusters."""
+    return max(1, min(MAX_SPLITS, nb, nb * bs // MIN_ROWS_PER_SPLIT,
+                      CTAS_PER_SM * sms // (B * KV)))
 
 
 def _need(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -71,8 +99,10 @@ def _args(q, k_pool, v_pool, mask_pool, table, pos_pool, new_pos, win):
 def _dims(q, k_pool, table, win):
     B, H, hd = q.shape
     _, bs, KV, _ = k_pool.shape
-    return (B, H, KV, hd, bs, table.shape[1], win,
-            build.DTYPE_CODES[q.dtype], build.stream_ptr())
+    nb = table.shape[1]
+    n = row_splits(B, KV, nb, bs, build.sm_count(q.device))
+    return (B, H, KV, hd, bs, nb, win, n, build.DTYPE_CODES[q.dtype],
+            build.stream_ptr())
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,

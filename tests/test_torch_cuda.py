@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import chunk_attention as ck
 from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_attention as fk
@@ -222,9 +223,22 @@ def test_lookahead_score_matches_plain(dev, dtype, B, n_obs, Sk, H, KV, hd,
     torch.testing.assert_close(got, want, atol=atol, rtol=1e-4)
 
 
+#: split counts forced on kernels 4 and 5 (None: ``row_splits``'s pick)
+PAGED_SPLITS = [None, 1, 2, 4, 8]
+
+
+def _force_splits(monkeypatch, n):
+    """Replace kernels 4 and 5's split rule by a constant ``n`` (None keeps
+    the rule)."""
+    if n is not None:
+        monkeypatch.setattr(pk, "row_splits", lambda *a, **kw: n)
+
+
+@pytest.mark.parametrize("splits", PAGED_SPLITS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [None, 40])
-def test_paged_decode_matches_plain(dev, dtype, window):
+def test_paged_decode_matches_plain(dev, dtype, window, splits, monkeypatch):
+    _force_splits(monkeypatch, splits)
     g = torch.Generator(device=dev).manual_seed(2)
     B, H, KV, hd, bs, N, nb = 4, 32, 8, 128, 16, 96, 19
     q = _randn(g, (B, H, hd), dtype, dev)
@@ -251,16 +265,30 @@ def test_paged_decode_matches_plain(dev, dtype, window):
     assert torch.all(got[2:] == 0)
 
 
+@pytest.mark.parametrize("splits", PAGED_SPLITS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,KV,hd,window", [
-    (32, 8, 128, None),  # llama3-8b, the decode-eviction route
-    (32, 8, 128, 40),
-    (8, 8, 64, None),  # G = 1
-    (16, 2, 32, 25),  # G = 8
+@pytest.mark.parametrize("H,KV,hd,window,bs,nb,layout", [
+    (32, 8, 128, None, 16, 20, "ragged"),  # llama3-8b, decode eviction
+    (32, 8, 128, 40, 16, 20, "ragged"),
+    (8, 8, 64, None, 16, 20, "ragged"),  # G = 1
+    (16, 2, 32, 25, 16, 20, "ragged"),  # G = 8
+    (32, 2, 64, None, 16, 20, "ragged"),  # G = 16: two passes of 8 heads
+    (64, 2, 128, 40, 16, 20, "ragged"),  # G = 32: four passes
+    (32, 8, 128, None, 16, 20, "one live slot"),
+    (32, 8, 128, None, 16, 20, "a split all null or masked"),
+    (32, 8, 64, None, 16, 3, "ragged"),  # fewer blocks than splits
+    (32, 8, 128, 40, 7, 20, "ragged"),  # a block size other than 16
 ])
-def test_paged_decode_masses_matches_plain(dev, dtype, H, KV, hd, window):
+def test_paged_decode_masses_matches_plain(dev, dtype, H, KV, hd, window,
+                                           bs, nb, layout, splits,
+                                           monkeypatch):
+    """Kernels 4 and 5 on one input, at each forced split: kernel 5's out
+    bitwise kernel 4's, out within tolerance of the plain version and
+    exact zeros on a (sequence, head) with no live row, masses within
+    2^-16 per row, exact zeros on dead rows, live rows summing to 1."""
+    _force_splits(monkeypatch, splits)
     g = torch.Generator(device=dev).manual_seed(6)
-    B, bs, N, nb = 4, 16, 96, 20
+    B, N = 4, 96
     q = _randn(g, (B, H, hd), dtype, dev)
     kp = _randn(g, (N, bs, KV, hd), dtype, dev)
     vp = _randn(g, (N, bs, KV, hd), dtype, dev)
@@ -271,10 +299,18 @@ def test_paged_decode_masses_matches_plain(dev, dtype, H, KV, hd, window):
     rng = np.random.default_rng(6)
     table = torch.as_tensor(rng.permutation(np.arange(1, N))[:B * nb]
                             .reshape(B, nb).astype(np.int32), device=dev)
-    table[1, 9:] = 0  # ragged: null tail
-    table[0, 4] = 0  # a gap
-    table[2] = 0  # between requests: all null -> zero out and masses
-    mask[table[3].long(), :, KV - 1] = False  # a fully masked kv head
+    if layout == "ragged":
+        table[1, 9:] = 0  # ragged: null tail
+        table[0, min(4, nb - 1)] = 0  # a gap
+        table[2] = 0  # between requests: all null -> zero out and masses
+        mask[table[3].long(), :, KV - 1] = False  # a fully masked kv head
+    elif layout == "one live slot":
+        table[1:] = 0  # three slots between requests
+    else:
+        # blocks 10-19 null in sequence 0 and 0-9 masked in sequence 1:
+        # whole ranks of 2, 4 and 8 splits see no live row
+        table[0, 10:] = 0
+        mask[table[1, :10].long()] = False
     new_pos = torch.full((B,), 320, dtype=torch.int32, device=dev)
     kw = dict(pos_pool=pos, new_pos=new_pos, window=window)
     out, masses = pk.paged_decode_masses(q, kp, vp, mask, table, **kw)
@@ -287,13 +323,55 @@ def test_paged_decode_masses_matches_plain(dev, dtype, H, KV, hd, window):
     err = (masses - want).abs().amax(-1)
     tol = 2 ** -16 * want.abs().amax(-1)
     assert bool(torch.all(err <= tol)), float((err - tol).max())
-    assert torch.all(masses[2] == 0)
-    assert torch.all(masses[3, (KV - 1) * (H // KV):] == 0)
+    if layout == "ragged":
+        assert torch.all(masses[2] == 0)
+        assert torch.all(masses[3, (KV - 1) * (H // KV):] == 0)
+    elif layout == "one live slot":
+        assert torch.all(masses[1:] == 0) and torch.all(out[1:] == 0)
     assert torch.all(masses[want == 0] == 0), "dead rows must be exact zeros"
     sums = masses.sum(-1)
     live = want.sum(-1) > 0
+    assert torch.all(out[~live] == 0), "a head with no live row: zeros"
     torch.testing.assert_close(sums[live], torch.ones_like(sums[live]),
                                atol=1e-4, rtol=0)
+
+
+def test_paged_decode_is_one_cluster_launch(dev):
+    """Kernels 4 and 5 each make one launch per call at the main path's
+    shape, where the rule splits each (sequence, kv head)'s rows over
+    more than one CTA; a split count the card cannot launch raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, H, KV, hd, bs, N, nb = 4, 32, 8, 128, 16, 96, 19
+    q = _randn(g, (B, H, hd), torch.bfloat16, dev)
+    kp = _randn(g, (N, bs, KV, hd), torch.bfloat16, dev)
+    mask = torch.ones((N, bs, KV), dtype=torch.bool, device=dev)
+    table = torch.arange(1, B * nb + 1, dtype=torch.int32,
+                         device=dev).reshape(B, nb)
+    assert pk.row_splits(B, KV, nb, bs, build.sm_count(dev)) > 1
+    pk.paged_decode_masses(q, kp, kp, mask, table)  # built and warm
+    before = ops.launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pk.paged_decode_attention(q, kp, kp, mask, table)
+        pk.paged_decode_masses(q, kp, kp, mask, table)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("paged_decode" in n for n in names) == 1, names
+    assert sum("paged_masses" in n for n in names) == 1, names
+    after = ops.launch_counts()
+    assert after["paged_decode_attention"] == \
+        before["paged_decode_attention"] + 1
+    assert after["paged_decode_masses"] == before["paged_decode_masses"] + 1
+    old = pk.row_splits
+    try:
+        pk.row_splits = lambda *a, **kw: 9  # past the portable cluster
+        with pytest.raises(RuntimeError, match="paged_decode_attention"):
+            pk.paged_decode_attention(q, kp, kp, mask, table)
+    finally:
+        pk.row_splits = old
+    assert pk.launches == after["paged_decode_attention"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -30,6 +30,7 @@ from repro_torch.core import eviction as tev
 from repro_torch.core import scoring as tscoring
 from repro_torch.kernels import chunk_attention as _ck
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as _pk
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -115,6 +116,24 @@ def test_key_splits(B, C, H, K, hd, dtype, off, window, want):
     """How many CTAs share a query tile's key range on a 132-SM card."""
     assert _ck.key_splits(B, C, H, K, hd, dtype, q_offset=off,
                           window=window, sms=132) == want
+
+
+@pytest.mark.parametrize("B,KV,nb,bs,want", [
+    (4, 8, 19, 16, 8),  # kernel 4's main path: 304 rows, 32 clusters
+    (4, 8, 20, 16, 8),  # kernel 5's (capacity 256 + interval 64)
+    (4, 8, 1, 16, 1),  # one block: nothing to split
+    (4, 8, 2, 16, 1),  # 32 rows: one CTA's round of loads
+    (4, 8, 4, 16, 2),
+    (4, 8, 8, 16, 4),
+    (4, 32, 19, 16, 4),  # G = 1 at 32 heads: 128 clusters
+    (64, 8, 19, 16, 1),  # 512 clusters already fill the card
+    (4, 8, 3, 5, 1),  # an odd block size, 15 rows
+    (4, 8, 2, 64, 2),  # no more splits than blocks
+])
+def test_row_splits(B, KV, nb, bs, want):
+    """How many CTAs of one cluster share a (sequence, kv head)'s rows in
+    kernels 4 and 5 on a 132-SM card."""
+    assert _pk.row_splits(B, KV, nb, bs, 132) == want
 
 
 def test_chunk_attention_rejects_overflowing_chunk():
