@@ -35,6 +35,16 @@ phase 1's paged decode shape over 4, 8, 19, 20 and 32 blocks of 16, all
 slots live and one live slot of four, with each (sequence, kv head)'s
 rows split over 1, 2, 4 and 8 CTAs of a cluster (``row_splits``
 replaced) and the split ``row_splits`` picks; one line per shape.
+
+    python3 chip_ab.py --marks .
+
+times a one-element ``add_`` (the floor of every time taken this way),
+then builds a copy of kernels 4 and 5 with a clock64 mark at each phase
+of ``csrc/decode_split.cuh`` (into ``<root>/build/marks/``; the copy is
+never loaded by the port) and prints, for phase 1's paged shapes at
+``row_splits``' split with live and with null tables, the event time,
+the time before the first CTA starts and the mean per-CTA time of each
+phase.
 """
 
 from __future__ import annotations
@@ -197,6 +207,117 @@ def time_row_splits(root: str, torch, chip_smoke) -> None:
                       f"{picked}", flush=True)
 
 
+#: (anchor in csrc/decode_split.cuh, mark inserted before (False) or
+#: after (True) it, mark index); a mark is thread 0's clock64 once the
+#: values before it are ready
+MARKS = (
+    ("  const int n_split = cluster_size(), rank = cluster_rank();\n", True,
+     0),
+    ("    int rid = resolve(a_cur, p_cur);\n", True, 1),
+    ("    cp_async_wait<0>();\n\n", True, 2),
+    ("    // push this warp's partial", False, 3),
+    ("    const int parts = n_split * WARPS;", False, 4),
+    ("    if (MASSES) {\n      // exp2(s - m) / l of the rows", False, 5),
+    ("    // another pass pushes", False, 6),
+)
+PHASES = ("table and mask round trips", "row loop", "slot merge",
+          "push and cluster barrier", "final merge and out",
+          "masses", "end")
+
+
+def time_marks(root: str) -> None:
+    """Where the time of kernels 4 and 5 goes inside their CTAs."""
+    import ctypes
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    src = Path(root).resolve() / "src"
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as pk
+
+    x = torch.zeros(1, device="cuda")
+    floor = chip_smoke.time_ms(torch, lambda: x.add_(1), iters=50)
+    print(f"{root}: one-element add_ (the floor): {floor:.4f} ms", flush=True)
+    csrc = src / "repro_torch" / "csrc"
+    out = Path(root).resolve() / "build" / "marks"
+    out.mkdir(parents=True, exist_ok=True)
+    h = (csrc / "decode_split.cuh").read_text()
+    head = ("__device__ long long g_marks[16384][8], g_gt[16384][2];\n"
+            "__device__ __forceinline__ int mark_cta() { return blockIdx.x + "
+            "gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z); }\n")
+    h = h.replace('#include "common.cuh"\n', '#include "common.cuh"\n' + head)
+    for anchor, after, i in MARKS:
+        check = {1: "rid != 0x7fffffff && ", 2: "m[0] != 1.f && ",
+                 3: "m[0] != 1.f && "}.get(i, "")
+        mark = (f"    if ({check}threadIdx.x == 0) g_marks[mark_cta()][{i}] = "
+                "clock64();\n")
+        if i == 0:
+            mark += ("    if (threadIdx.x == 0) asm volatile(\"mov.u64 %0, "
+                     "%%globaltimer;\" : \"=l\"(g_gt[mark_cta()][0]));\n")
+        if h.count(anchor) != 1:
+            raise SystemExit(f"chip_ab --marks: anchor {anchor!r} not found "
+                             "once in decode_split.cuh")
+        h = h.replace(anchor, anchor + mark if after else mark + anchor)
+    end = "  }\n}\n\n}  // namespace decode_split"
+    h = h.replace(end, "    if (threadIdx.x == 0) { g_marks[mark_cta()][7] = "
+                  "clock64(); asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
+                  "\"=l\"(g_gt[mark_cta()][1])); }\n" + end)
+    (out / "decode_split.cuh").write_text(h)
+    (out / "common.cuh").write_text((csrc / "common.cuh").read_text())
+    (out / "paged_marks.cu").write_text(
+        (csrc / "paged_attention.cu").read_text()
+        + '\nextern "C" int read_marks(void* m, void* g) {\n'
+        "  cudaMemcpyFromSymbol(m, g_marks, sizeof(g_marks));\n"
+        "  return cudaMemcpyFromSymbol(g, g_gt, sizeof(g_gt));\n}\n")
+    lib = out / "libpaged_marks.so"
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
+                    str(out / "paged_marks.cu")], check=True)
+    dll = ctypes.CDLL(str(lib))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, H, KV, hd, bs = PAGED
+    marks = torch.zeros((16384, 8), dtype=torch.int64)
+    gt = torch.zeros((16384, 2), dtype=torch.int64)
+    for entry, nb in (("paged_decode_attention", 19),
+                      ("paged_decode_masses", 20)):
+        fn = getattr(dll, entry)
+        fn.argtypes = build.SIGNATURES[entry]
+        n = pk.row_splits(B, KV, nb, bs, build.sm_count(dev))
+        for null in (False, True):
+            q, kp, vp, mask, table = paged_inputs(torch, g, nb, False)
+            if null:
+                table.zero_()
+            o = torch.empty_like(q)
+            ms = torch.empty((B, H, nb * bs), device=dev)
+            extra = [ms.data_ptr()] if entry == "paged_decode_masses" else []
+            call = lambda: fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                              mask.data_ptr(), None, table.data_ptr(), None,
+                              o.data_ptr(), *extra, B, H, KV, hd, bs, nb, 0,
+                              n, build.DTYPE_CODES[q.dtype],
+                              build.stream_ptr())
+            t = chip_smoke.time_ms(torch, call, iters=30)  # the last: cold
+            torch.cuda.synchronize()
+            dll.read_marks(ctypes.c_void_p(marks.data_ptr()),
+                           ctypes.c_void_p(gt.data_ptr()))
+            ctas = n * KV * B
+            mk, gg = marks[:ctas].double(), gt[:ctas].double()
+            clk_ns = float(((mk[:, 7] - mk[:, 0]) / (gg[:, 1] - gg[:, 0]))
+                           .median())
+            phase = (mk[:, 1:] - mk[:, :-1]) / clk_ns / 1e3  # us
+            span = float(gg[:, 1].max() - gg[:, 0].min()) / 1e3
+            tables = "null tables" if null else "live tables"
+            print(f"{root}: {entry}, {nb} blocks, {n} splits, {tables}: "
+                  f"{t * 1e3:.2f} us, of which {t * 1e3 - span:.2f} before "
+                  f"the first CTA starts; per CTA "
+                  + "; ".join(f"{name} {float(phase[:, i].mean()):.2f}"
+                              for i, name in enumerate(PHASES))
+                  + " us", flush=True)
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -212,6 +333,10 @@ def main() -> None:
         raise SystemExit("chip_ab: needs an NVIDIA card")
     if len(sys.argv) > 2 and sys.argv[1] == "--one":
         time_checkout(sys.argv[2])
+        return
+    if len(sys.argv) > 2 and sys.argv[1] == "--marks":
+        time_marks(sys.argv[2])
+        print(card())
         return
     if len(sys.argv) > 2 and sys.argv[1] == "--splits":
         time_splits(sys.argv[2])

@@ -16,7 +16,10 @@ kernel's plain version):
    ``-Xptxas -v`` that none of them, nor kernels 1's and 2's merges of a
    split key range (``combine_splits``), spills; print their registers
    (a ``chunk_attention`` library left by an earlier run is built again
-   for that report).
+   for that report); likewise each of the 36 instantiations of kernels 4
+   and 5 (``decode_split.cuh``: 2 kernels x float32 / bf16 x hd 32, 64,
+   128 x 1, 4, 8 query heads per pass) must have a ``-Xptxas -v`` entry
+   and spill nothing.
 1. Hold each kernel against its plain PyTorch version on the card, in
    bfloat16, at the shapes of the main paths (llama3-8b: H=32, KV=8,
    hd=128; chunk 256 and the 32-row observation pass over a 4096-deep
@@ -24,14 +27,19 @@ kernel's plain version):
    with n_total 4000, also in float32; kernel 3 at the window finalize
    (32 rows at 3968, n_prompt 4096) and at monolithic h2o (2048 rows at
    offset 0); paged decode of 4 slots, block size 16, 19 blocks; paged
-   decode with row masses over 20 blocks (capacity 256 + interval 64);
+   decode with row masses over 20 blocks (capacity 256 + interval 64),
+   both timed with all slots live and with one live slot of four, each
+   one launch on the grid (n_split, KV, B) that ``row_splits`` gives (read
+   from the profiler's trace), and both at 1, 2, 4 and 8 forced splits
+   and the rule's pick on the edges of ``PAGED_EDGES``;
    monolithic causal prefill of 4 x 2080 rows and its 32 observation
    rows; dense decode of 4 sequences over 289 rows with a per-kv-head
    mask) and on edge cases (lengths not a multiple of the tile, windows,
    non-causal attention, masked rows and heads, ragged tables with null
    blocks, GQA groups of 1 and 8; kernels 1 and 2 at the edges of the
    Hopper tile, ``CHUNK_EDGES`` and ``MASSES_EDGES``, and kernel 1 also
-   timed at the observation pass), within a tolerance that is a fixed
+   timed at the observation pass; kernel 6's time printed beside PR
+   18's), within a tolerance that is a fixed
    fraction of the plain result's largest magnitude: per output row for
    attention and for the row masses, over the whole result for the
    scores.  Kernel 5's output must be bitwise kernel 4's, kernel 2's
@@ -550,7 +558,8 @@ def phase_kernels(torch, mods) -> list:
         ``part``, on the grid (n_split, KV, B) when the trace records it."""
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()

@@ -15,10 +15,11 @@
 //   plus every table row's normalised softmax mass per query head,
 //   masses (B, H, nb * bs) float32, exact zeros on masked rows (the
 //   decode-time eviction scores).  The Pallas kernel re-streams K in a
-//   second grid phase; here each lane stores its rows' logits while the
-//   rows stream and rescales them once the cluster's (m, l) are final
-//   (decode_split.cuh, MASSES), so K is read once.  Its kernel has a name of its own
-//   (paged_masses_kernel), so a profile tells it from paged_decode_kernel.
+//   second grid phase; here the rows' logits wait in shared memory while
+//   the rows stream and are rescaled once the cluster's (m, l) are final
+//   (decode_split.cuh, MASSES), so K is read once.  Its kernel has a name
+//   of its own (paged_masses_kernel), so a profile tells it from
+//   paged_decode_kernel.
 //
 // Layout: q (B, H, hd); k_pool/v_pool (N, bs, KV, hd); mask_pool (N, bs, KV)
 // bool; pos_pool (N, bs, KV) int32; table (B, nb) int32; new_pos (B,) int32;
@@ -28,26 +29,27 @@
 // (sequence, kv head), grid (n_split, KV, B), one launch.  CTA rank s
 // takes blocks [nb * s / n_split, nb * (s + 1) / n_split) of the table
 // (a rank with none contributes nothing); its four warps split that row
-// range, each lane resolving rows through the table and the mask itself
-// (TPU scalar prefetch has no counterpart) two and one 32-row batches
-// ahead, and the K/V vectors of the next steps stay in flight in
-// registers while the current rows are scored against all G query heads
-// held in registers.  The CTAs merge in rank order through distributed
-// shared memory.  n_split comes from the caller
-// (kernels/paged_attention.py: row_splits, from the shapes and the SM
-// count); a cluster launch the card refuses returns its error, with no
-// fallback to one CTA per (sequence, kv head).
+// range, each lane reading the block table itself (TPU scalar prefetch
+// has no counterpart) two 32-row batches ahead.  A row's K/V copy
+// (cp.async into a per-lane shared-memory ring, up to 8 steps ahead)
+// needs only its table entry, so it flies beside the row's mask load; a
+// null block's rows are not read, a masked row's are read with its block
+// and zeroed.  All G query heads are scored from registers.  The CTAs
+// merge in rank order through distributed shared memory.  n_split comes
+// from the caller (kernels/paged_attention.py: row_splits, from the
+// shapes and the SM count); a cluster launch the card refuses returns its
+// error, with no fallback to one CTA per (sequence, kv head).
 //
 // Bound on the H100: bandwidth, the K and V bytes of the valid rows plus
 // the mask bytes of every table row, q and out (and the masses), over
 // 3.35 TB/s, ~1.3 us for 4 sequences of llama3-8b at 19 blocks of 16.
 // What this design leaves on the table: a call moves a few MB, so it is
-// latency-bound: the launch, three dependent round trips to memory before
-// the first row is scored (table entry, mask byte, K/V), and two cluster
-// barriers.  One live slot of four still fills only KV * n_split = 64
-// CTAs; the row loop uses CUDA cores, not tensor cores (a decode token's
-// G = 4 query rows would fill a tensor-core tile a sixteenth), and kernel
-// 5's mass rescale reads its logits back from L2.
+// latency-bound: the launch, two dependent round trips to memory before
+// the first row is scored (table entry, then mask byte and K/V), the row
+// steps of each warp (dot products reduced by shuffles on CUDA cores, not
+// tensor cores: a decode token's G = 4 query rows would fill a
+// tensor-core tile a sixteenth), and two cluster barriers.  One live slot
+// of four still fills only KV * n_split = 64 CTAs.
 #include "decode_split.cuh"
 
 namespace {
@@ -63,6 +65,8 @@ struct PagedRows {
   __device__ int where(int c) const {
     return __ldg(table + c / bs) * bs + c % bs;
   }
+  // the null block (0) holds no data: its mask is permanently false
+  __device__ bool stored(int r) const { return r >= bs; }
   __device__ int2 probe(int r) const {
     const size_t slot = (size_t)r * KV + kvh;
     return make_int2(__ldg(mask_pool + slot),
@@ -80,6 +84,7 @@ __device__ __forceinline__ void paged_body(
     const int32_t* pos_pool, const int32_t* table, const int32_t* new_pos,
     T* out, float* masses, int H, int KV, int bs, int nb, int window,
     float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int kvh = blockIdx.y, b = blockIdx.z, G = H / KV;
   const int s = decode_split::cluster_rank();
   const int n_split = decode_split::cluster_size();
@@ -90,11 +95,11 @@ __device__ __forceinline__ void paged_body(
   decode_split::attend<T, HD, GP, MASSES>(
       q + head0 * HD, k_pool, v_pool, out + head0 * HD,
       MASSES ? masses + head0 * nb * bs : nullptr, KV, kvh, G, nb * bs,
-      blk0 * bs, blk1 * bs, rows, scale);
+      blk0 * bs, blk1 * bs, rows, scale, smem);
 }
 
 template <typename T, int HD, int GP>
-__global__ void __launch_bounds__(decode_split::THREADS) paged_decode_kernel(
+__global__ void __launch_bounds__(decode_split::THREADS, 1) paged_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const uint8_t* __restrict__ mask_pool,
     const int32_t* __restrict__ pos_pool, const int32_t* __restrict__ table,
@@ -106,7 +111,7 @@ __global__ void __launch_bounds__(decode_split::THREADS) paged_decode_kernel(
 }
 
 template <typename T, int HD, int GP>
-__global__ void __launch_bounds__(decode_split::THREADS) paged_masses_kernel(
+__global__ void __launch_bounds__(decode_split::THREADS, 1) paged_masses_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const uint8_t* __restrict__ mask_pool,
     const int32_t* __restrict__ pos_pool, const int32_t* __restrict__ table,
@@ -132,22 +137,29 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_split, KV, B);
   cfg.blockDim = dim3(decode_split::THREADS);
-  cfg.dynamicSmemBytes = 0;
   cfg.stream = st;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
   const float scale = 1.f / sqrtf((float)HD);
   cudaError_t err;
-  if (masses == nullptr)
-    err = cudaLaunchKernelEx(&cfg, paged_decode_kernel<T, HD, GP>, (const T*)q,
-                             (const T*)k_pool, (const T*)v_pool, mask_pool,
-                             pos_pool, table, new_pos, (T*)out, H, KV, bs, nb,
-                             window, scale);
-  else
-    err = cudaLaunchKernelEx(&cfg, paged_masses_kernel<T, HD, GP>, (const T*)q,
-                             (const T*)k_pool, (const T*)v_pool, mask_pool,
-                             pos_pool, table, new_pos, (T*)out, masses, H, KV,
-                             bs, nb, window, scale);
+  if (masses == nullptr) {
+    auto* kern = paged_decode_kernel<T, HD, GP>;
+    cfg.dynamicSmemBytes = decode_split::Shape<T, HD, GP, false>::BYTES;
+    static const cudaError_t allowed = allow_smem(kern, cfg.dynamicSmemBytes);
+    if (allowed != cudaSuccess) return allowed;
+    err = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k_pool,
+                             (const T*)v_pool, mask_pool, pos_pool, table,
+                             new_pos, (T*)out, H, KV, bs, nb, window, scale);
+  } else {
+    auto* kern = paged_masses_kernel<T, HD, GP>;
+    cfg.dynamicSmemBytes = decode_split::Shape<T, HD, GP, true>::BYTES;
+    static const cudaError_t allowed = allow_smem(kern, cfg.dynamicSmemBytes);
+    if (allowed != cudaSuccess) return allowed;
+    err = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k_pool,
+                             (const T*)v_pool, mask_pool, pos_pool, table,
+                             new_pos, (T*)out, masses, H, KV, bs, nb, window,
+                             scale);
+  }
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 

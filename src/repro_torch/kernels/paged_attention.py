@@ -32,14 +32,15 @@ launches = 0
 mass_launches = 0
 
 #: CTAs of one cluster that share a (sequence, kv head)'s rows: at most
-#: the portable cluster size ...
-MAX_SPLITS = 8
-#: ... each taking at least this many rows (one round of K/V loads of its
-#: 4 warps at bf16 hd 128: 4 steps of 2 rows each) ...
+#: 4 (the card takes up to 8, the portable cluster size, but 8 lost to 4
+#: at every table size ``chip_ab.py --splits`` timed) ...
+MAX_SPLITS = 4
+#: ... each taking at least this many rows (4 warps of 4 steps of 2 rows
+#: at bf16 hd 128: one round of K/V copies) ...
 MIN_ROWS_PER_SPLIT = 32
-#: ... and no more CTAs in all than this many per SM (one wave of the
-#: 128-thread CTAs)
-CTAS_PER_SM = 4
+#: ... and no more CTAs in all than this many per SM (two 128-thread CTAs
+#: of kernel 5's ~200 registers; kernel 4 fits three): one wave
+CTAS_PER_SM = 2
 
 
 def row_splits(B: int, KV: int, nb: int, bs: int, sms: int) -> int:

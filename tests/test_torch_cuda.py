@@ -352,7 +352,8 @@ def test_paged_decode_is_one_cluster_launch(dev):
     assert pk.row_splits(B, KV, nb, bs, build.sm_count(dev)) > 1
     pk.paged_decode_masses(q, kp, kp, mask, table)  # built and warm
     before = ops.launch_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         pk.paged_decode_attention(q, kp, kp, mask, table)
         pk.paged_decode_masses(q, kp, kp, mask, table)
         torch.cuda.synchronize()

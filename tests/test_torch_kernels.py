@@ -119,13 +119,13 @@ def test_key_splits(B, C, H, K, hd, dtype, off, window, want):
 
 
 @pytest.mark.parametrize("B,KV,nb,bs,want", [
-    (4, 8, 19, 16, 8),  # kernel 4's main path: 304 rows, 32 clusters
-    (4, 8, 20, 16, 8),  # kernel 5's (capacity 256 + interval 64)
+    (4, 8, 19, 16, 4),  # kernel 4's main path: 304 rows, 32 clusters
+    (4, 8, 20, 16, 4),  # kernel 5's (capacity 256 + interval 64)
     (4, 8, 1, 16, 1),  # one block: nothing to split
-    (4, 8, 2, 16, 1),  # 32 rows: one CTA's round of loads
+    (4, 8, 2, 16, 1),  # 32 rows: one CTA's round of copies
     (4, 8, 4, 16, 2),
     (4, 8, 8, 16, 4),
-    (4, 32, 19, 16, 4),  # G = 1 at 32 heads: 128 clusters
+    (4, 32, 19, 16, 2),  # G = 1 at 32 heads: 128 clusters
     (64, 8, 19, 16, 1),  # 512 clusters already fill the card
     (4, 8, 3, 5, 1),  # an odd block size, 15 rows
     (4, 8, 2, 64, 2),  # no more splits than blocks
