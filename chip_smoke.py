@@ -16,10 +16,9 @@ kernel's plain version):
    ``-Xptxas -v`` that none of them, nor kernels 1's and 2's merges of a
    split key range (``combine_splits``), spills; print their registers
    (a ``chunk_attention`` library left by an earlier run is built again
-   for that report); likewise each of the 36 instantiations of kernels 4
+   for that report); likewise each of the 12 instantiations of kernels 4
    and 5 (``decode_split.cuh``: 2 kernels x float32 / bf16 x hd 32, 64,
-   128 x 1, 4, 8 query heads per pass) must have a ``-Xptxas -v`` entry
-   and spill nothing.
+   128) must have a ``-Xptxas -v`` entry and spill nothing.
 1. Hold each kernel against its plain PyTorch version on the card, in
    bfloat16, at the shapes of the main paths (llama3-8b: H=32, KV=8,
    hd=128; chunk 256 and the 32-row observation pass over a 4096-deep
@@ -1841,20 +1840,19 @@ def phase_build(mods) -> None:
                   f"{part} in the SASS, expected {n}")
         check(len(group) == sum(wanted.values()), f"{len(group)} Hopper "
               f"instantiations in the SASS, expected {sum(wanted.values())}")
-    # kernels 4 and 5 (decode_split.cuh): each of their 36 instantiations
-    # (2 kernels x 2 types x hd 32 / 64 / 128 x 1 / 4 / 8 heads per pass)
-    # must have a -Xptxas -v entry and spill nothing; a library built by an
-    # earlier run is built again for the report
+    # kernels 4 and 5 (decode_split.cuh): each of their 12 instantiations
+    # (2 kernels x 2 types x hd 32 / 64 / 128) must have a -Xptxas -v entry
+    # and spill nothing; a library built by an earlier run is built again
+    # for the report
     if "paged_attention" not in report:
         build._target("paged_attention").unlink()
         report.update(build.build(("paged_attention",), verbose=True))
         print(f"  paged_attention: rebuilt for its register report, nvcc "
               f"{report['paged_attention'][0]:.1f} s", flush=True)
     ptxas = ptxas_report(report["paged_attention"][1])
-    wanted = {f"{kern}<{t}, hd {d}, {gp} heads per pass>"
+    wanted = {f"{kern}<{t}, hd {d}>"
               for kern in ("paged_decode_kernel", "paged_masses_kernel")
-              for t in ("float", "bf16") for d in (32, 64, 128)
-              for gp in (1, 4, 8)}
+              for t in ("float", "bf16") for d in (32, 64, 128)}
     found = {demangle(name): name for name in ptxas
              if "paged_decode_kernel" in name
              or "paged_masses_kernel" in name}
@@ -1896,10 +1894,10 @@ def demangle(name: str) -> str:
     if m:
         return f"combine_splits<{m[1]}, hd {m[2]}>"
     m = re.search(r"(paged_decode_kernel|paged_masses_kernel)I"
-                  r"(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+                  r"(f|13__nv_bfloat16)Li(\d+)EE", name)
     if m:
         t = "float" if m[2] == "f" else "bf16"
-        return f"{m[1]}<{t}, hd {m[3]}, {m[4]} heads per pass>"
+        return f"{m[1]}<{t}, hd {m[3]}>"
     m = re.search(r"column_masses_sm90ILi(\d+)E", name)
     return f"column_masses_sm90<hd {m[1]}>" if m else name
 

@@ -12,7 +12,9 @@
 // Every lane keeps its slice of the group's query heads in registers and
 // its own online-softmax state (m, l, acc) per head, so a K/V row read
 // once serves all G heads; a dot product is reduced with xor shuffles
-// within the row's lanes.  G > 8 runs in passes of 8 heads.
+// within the row's lanes.  The heads run in passes of GP = 4 (the group
+// of every model the paged route serves: G = 2, 3 or 4); a larger G
+// takes more passes over the rows, a smaller one scores padded heads.
 //
 // Latency, not bytes, bounds the call (a few MB at most), so the row loop
 // keeps memory requests in flight and never waits on a barrier: each lane
@@ -60,6 +62,7 @@ namespace decode_split {
 
 constexpr int WARPS = 4;  // warps per CTA
 constexpr int THREADS = 32 * WARPS;
+constexpr int GP = 4;  // query heads per pass
 constexpr int MAX_SPLITS = 8;  // CTAs per cluster (the portable limit)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -103,15 +106,11 @@ __device__ __forceinline__ P* map_rank(P* p, int rank) {
   return reinterpret_cast<P*>(out);
 }
 
-// Query heads per pass for a group of G: 1, 4 or 8 (G > 8 takes passes).
-inline int heads_per_pass(int G) { return G == 1 ? 1 : G <= 4 ? 4 : 8; }
-
-// 16 bytes global -> shared, asynchronously; zeros (no read) when !live.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool live) {
+// 16 bytes global -> shared, asynchronously.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(live ? 16 : 0)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -162,7 +161,7 @@ __device__ __forceinline__ void merge(bool first, float& m, float& l,
 
 // Shapes and the dynamic shared memory of one instantiation (host and
 // device).
-template <typename T, int HD, int GP, bool MASSES>
+template <typename T, int HD, bool MASSES>
 struct Shape {
   static constexpr int VEC = 16 / sizeof(T);  // values per 16-byte load
   static constexpr int LPR = HD / VEC;        // lanes per row
@@ -170,10 +169,9 @@ struct Shape {
   static constexpr int SPB = 32 / RPS;        // steps per 32-row batch
   // ring stages, at most one batch of steps (a copy is then issued at
   // most NST + CH - 1 steps ahead, within the next batch of row ids), and
-  // the steps scored together: at least two chunks to the ring, and 2
-  // where 8 heads' queries and accumulators fill the registers
+  // the steps scored together, at least two chunks to the ring
   static constexpr int NST = SPB < 8 ? SPB : 8;
-  static constexpr int CH = GP > 4 || NST < 8 ? 2 : 4;
+  static constexpr int CH = NST < 8 ? 2 : 4;
   // with MASSES, the logits of a warp's first LCAP steps wait in shared
   // memory for the final (m, l); later steps' wait in the masses
   static constexpr int LCAP = 16;
@@ -208,10 +206,10 @@ struct Shape {
 // group's first output head, and with MASSES `mass` at the group's first
 // query head's row of n_rows floats (G rows back to back).  [c0, c1) is
 // this CTA's range of logical rows.  Launch THREADS threads per CTA in
-// clusters of (n_split, 1, 1) with Shape<...>::BYTES of dynamic shared
-// memory at `smem`; every CTA of a cluster must pass the same q, out,
-// mass and G.
-template <typename T, int HD, int GP, bool MASSES, typename Rows>
+// clusters of (n_split, 1, 1) with Shape<T, HD, MASSES>::BYTES of
+// dynamic shared memory at `smem`; every CTA of a cluster must pass the
+// same q, out, mass and G.
+template <typename T, int HD, bool MASSES, typename Rows>
 __device__ __forceinline__ void attend(const T* __restrict__ q,
                                        const T* __restrict__ k,
                                        const T* __restrict__ v,
@@ -220,7 +218,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
                                        int kvh, int G, int n_rows, int c0,
                                        int c1, const Rows& rows, float scale,
                                        unsigned char* smem) {
-  using S = Shape<T, HD, GP, MASSES>;
+  using S = Shape<T, HD, MASSES>;
   constexpr int VEC = S::VEC, LPR = S::LPR, RPS = S::RPS, SPB = S::SPB;
   constexpr int CH = S::CH, NST = S::NST, LCAP = S::LCAP, PARTS = S::PARTS;
   float* r_acc = reinterpret_cast<float*>(smem + S::ACC_B);
@@ -295,8 +293,8 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
       if (t < steps && r >= 0 && rows.stored(r)) {
         const size_t o = ((size_t)r * KV + kvh) * HD + d0;
         uint4* st = ring + (t % NST) * 64;
-        cp_async16(st, k + o, true);
-        cp_async16(st + 32, v + o, true);
+        cp_async16(st, k + o);
+        cp_async16(st + 32, v + o);
       }
       cp_async_commit();
     };
@@ -305,7 +303,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
     for (int t = 0; t < NST; ++t) fetch(t);
     int rid = resolve(a_cur, p_cur);
     for (int t0 = 0; t0 < steps; t0 += CH) {
-      if (t0 > 0 && t0 % SPB == 0) {  // the next batch: rotate the pipeline
+      if (t0 > 0 && t0 % SPB == 0) {  // the next batch: rotate the rows
         ++batch;
         a_cur = a_nxt;
         p_cur = p_nxt;
@@ -338,7 +336,8 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
         for (int u = 0; u < CH; ++u) {
 #pragma unroll
           for (int h = 0; h < GP; ++h)
-            sc[u][h] = __fadd_rn(sc[u][h], __shfl_xor_sync(FULL, sc[u][h], o));
+            sc[u][h] =
+                __fadd_rn(sc[u][h], __shfl_xor_sync(FULL, sc[u][h], o));
         }
       }
 #pragma unroll
@@ -351,18 +350,10 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
         if (t0 < LCAP) {  // the row's first lane, all heads at once
           if (sub == 0) {
 #pragma unroll
-            for (int u = 0; u < CH; ++u) {
-              float* d = s_lg + ((warp * LCAP + t0 + u) * RPS + slot) * GP;
-              if constexpr (GP % 4 == 0) {
-#pragma unroll
-                for (int h = 0; h < GP; h += 4)
-                  *reinterpret_cast<float4*>(d + h) = make_float4(
-                      sc[u][h], sc[u][h + 1], sc[u][h + 2], sc[u][h + 3]);
-              } else {
-#pragma unroll
-                for (int h = 0; h < GP; ++h) d[h] = sc[u][h];
-              }
-            }
+            for (int u = 0; u < CH; ++u)
+              *reinterpret_cast<float4*>(
+                  s_lg + ((warp * LCAP + t0 + u) * RPS + slot) * GP) =
+                  make_float4(sc[u][0], sc[u][1], sc[u][2], sc[u][3]);
           }
         } else {
 #pragma unroll

@@ -78,7 +78,7 @@ struct PagedRows {
 };
 
 // Grid (n_split, KV, B) in clusters of (n_split, 1, 1).
-template <typename T, int HD, int GP, bool MASSES>
+template <typename T, int HD, bool MASSES>
 __device__ __forceinline__ void paged_body(
     const T* q, const T* k_pool, const T* v_pool, const uint8_t* mask_pool,
     const int32_t* pos_pool, const int32_t* table, const int32_t* new_pos,
@@ -92,25 +92,25 @@ __device__ __forceinline__ void paged_body(
   const PagedRows rows{table + (size_t)b * nb, mask_pool, pos_pool, bs, KV,
                        kvh, window, window > 0 ? new_pos[b] : 0};
   const size_t head0 = (size_t)b * H + kvh * G;
-  decode_split::attend<T, HD, GP, MASSES>(
+  decode_split::attend<T, HD, MASSES>(
       q + head0 * HD, k_pool, v_pool, out + head0 * HD,
       MASSES ? masses + head0 * nb * bs : nullptr, KV, kvh, G, nb * bs,
       blk0 * bs, blk1 * bs, rows, scale, smem);
 }
 
-template <typename T, int HD, int GP>
+template <typename T, int HD>
 __global__ void __launch_bounds__(decode_split::THREADS, 1) paged_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const uint8_t* __restrict__ mask_pool,
     const int32_t* __restrict__ pos_pool, const int32_t* __restrict__ table,
     const int32_t* __restrict__ new_pos, T* __restrict__ out, int H, int KV,
     int bs, int nb, int window, float scale) {
-  paged_body<T, HD, GP, false>(q, k_pool, v_pool, mask_pool, pos_pool, table,
+  paged_body<T, HD, false>(q, k_pool, v_pool, mask_pool, pos_pool, table,
                                new_pos, out, nullptr, H, KV, bs, nb, window,
                                scale);
 }
 
-template <typename T, int HD, int GP>
+template <typename T, int HD>
 __global__ void __launch_bounds__(decode_split::THREADS, 1) paged_masses_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const uint8_t* __restrict__ mask_pool,
@@ -118,12 +118,12 @@ __global__ void __launch_bounds__(decode_split::THREADS, 1) paged_masses_kernel(
     const int32_t* __restrict__ new_pos, T* __restrict__ out,
     float* __restrict__ masses, int H, int KV, int bs, int nb, int window,
     float scale) {
-  paged_body<T, HD, GP, true>(q, k_pool, v_pool, mask_pool, pos_pool, table,
+  paged_body<T, HD, true>(q, k_pool, v_pool, mask_pool, pos_pool, table,
                               new_pos, out, masses, H, KV, bs, nb, window,
                               scale);
 }
 
-template <typename T, int HD, int GP>
+template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const uint8_t* mask_pool, const int32_t* pos_pool,
                    const int32_t* table, const int32_t* new_pos, void* out,
@@ -143,16 +143,16 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   const float scale = 1.f / sqrtf((float)HD);
   cudaError_t err;
   if (masses == nullptr) {
-    auto* kern = paged_decode_kernel<T, HD, GP>;
-    cfg.dynamicSmemBytes = decode_split::Shape<T, HD, GP, false>::BYTES;
+    auto* kern = paged_decode_kernel<T, HD>;
+    cfg.dynamicSmemBytes = decode_split::Shape<T, HD, false>::BYTES;
     static const cudaError_t allowed = allow_smem(kern, cfg.dynamicSmemBytes);
     if (allowed != cudaSuccess) return allowed;
     err = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k_pool,
                              (const T*)v_pool, mask_pool, pos_pool, table,
                              new_pos, (T*)out, H, KV, bs, nb, window, scale);
   } else {
-    auto* kern = paged_masses_kernel<T, HD, GP>;
-    cfg.dynamicSmemBytes = decode_split::Shape<T, HD, GP, true>::BYTES;
+    auto* kern = paged_masses_kernel<T, HD>;
+    cfg.dynamicSmemBytes = decode_split::Shape<T, HD, true>::BYTES;
     static const cudaError_t allowed = allow_smem(kern, cfg.dynamicSmemBytes);
     if (allowed != cudaSuccess) return allowed;
     err = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k_pool,
@@ -163,20 +163,6 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t dispatch_gp(const void* q, const void* k_pool, const void* v_pool,
-                        const uint8_t* mask_pool, const int32_t* pos_pool,
-                        const int32_t* table, const int32_t* new_pos,
-                        void* out, float* masses, int B, int H, int KV,
-                        int bs, int nb, int window, int n_split,
-                        cudaStream_t st) {
-  switch (decode_split::heads_per_pass(H / KV)) {
-    case 1: return launch<T, HD, 1>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
-    case 4: return launch<T, HD, 4>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
-    default: return launch<T, HD, 8>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
-  }
-}
-
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k_pool,
                         const void* v_pool, const uint8_t* mask_pool,
@@ -185,9 +171,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k_pool,
                         int B, int H, int KV, int bs, int nb, int window,
                         int n_split, cudaStream_t st) {
   switch (hd) {
-    case 32: return dispatch_gp<T, 32>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
-    case 64: return dispatch_gp<T, 64>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
-    case 128: return dispatch_gp<T, 128>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
+    case 32: return launch<T, 32>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
+    case 64: return launch<T, 64>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
+    case 128: return launch<T, 128>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -39,7 +39,7 @@ MAX_SPLITS = 4
 #: at bf16 hd 128: one round of K/V copies) ...
 MIN_ROWS_PER_SPLIT = 32
 #: ... and no more CTAs in all than this many per SM (two 128-thread CTAs
-#: of kernel 5's ~200 registers; kernel 4 fits three): one wave
+#: of ~175 registers fit one): one wave
 CTAS_PER_SM = 2
 
 

@@ -272,8 +272,8 @@ def test_paged_decode_matches_plain(dev, dtype, window, splits, monkeypatch):
     (32, 8, 128, 40, 16, 20, "ragged"),
     (8, 8, 64, None, 16, 20, "ragged"),  # G = 1
     (16, 2, 32, 25, 16, 20, "ragged"),  # G = 8
-    (32, 2, 64, None, 16, 20, "ragged"),  # G = 16: two passes of 8 heads
-    (64, 2, 128, 40, 16, 20, "ragged"),  # G = 32: four passes
+    (32, 2, 64, None, 16, 20, "ragged"),  # G = 16: four passes of 4 heads
+    (64, 2, 128, 40, 16, 20, "ragged"),  # G = 32: eight passes
     (32, 8, 128, None, 16, 20, "one live slot"),
     (32, 8, 128, None, 16, 20, "a split all null or masked"),
     (32, 8, 64, None, 16, 3, "ragged"),  # fewer blocks than splits
@@ -336,7 +336,7 @@ def test_paged_decode_masses_matches_plain(dev, dtype, H, KV, hd, window,
                                atol=1e-4, rtol=0)
 
 
-def test_paged_decode_is_one_cluster_launch(dev):
+def test_paged_decode_is_one_cluster_launch(dev, monkeypatch):
     """Kernels 4 and 5 each make one launch per call at the main path's
     shape, where the rule splits each (sequence, kv head)'s rows over
     more than one CTA; a split count the card cannot launch raises."""
@@ -365,13 +365,9 @@ def test_paged_decode_is_one_cluster_launch(dev):
     assert after["paged_decode_attention"] == \
         before["paged_decode_attention"] + 1
     assert after["paged_decode_masses"] == before["paged_decode_masses"] + 1
-    old = pk.row_splits
-    try:
-        pk.row_splits = lambda *a, **kw: 9  # past the portable cluster
-        with pytest.raises(RuntimeError, match="paged_decode_attention"):
-            pk.paged_decode_attention(q, kp, kp, mask, table)
-    finally:
-        pk.row_splits = old
+    _force_splits(monkeypatch, 9)  # past the portable cluster size
+    with pytest.raises(RuntimeError, match="paged_decode_attention"):
+        pk.paged_decode_attention(q, kp, kp, mask, table)
     assert pk.launches == after["paged_decode_attention"]
 
 
