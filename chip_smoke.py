@@ -37,8 +37,8 @@ kernel's plain version):
    non-causal attention, masked rows and heads, ragged tables with null
    blocks, GQA groups of 1 and 8; kernels 1 and 2 at the edges of the
    Hopper tile, ``CHUNK_EDGES`` and ``MASSES_EDGES``, and kernel 1 also
-   timed at the observation pass; kernel 6's time printed beside PR
-   18's), within a tolerance that is a fixed
+   timed at the observation pass; kernel 6's time printed beside its
+   recorded one), within a tolerance that is a fixed
    fraction of the plain result's largest magnitude: per output row for
    attention and for the row masses, over the whole result for the
    scores.  Kernel 5's output must be bitwise kernel 4's, kernel 2's
@@ -212,9 +212,10 @@ PAGED_EDGES = (
 )
 #: split counts forced on kernels 4 and 5 in phase 1 (None: the rule's)
 PAGED_SPLITS = (None, 1, 2, 4, 8)
-#: PR 18's phase-1 times (ms; NVIDIA H100 80GB HBM3, 700 W) of the decode
-#: kernels, printed beside this run's
-PR18_MS = {"paged_decode_attention": 0.0346, "paged_decode_masses": 0.0361,
+#: the decode kernels' phase-1 times on the tile routine decode_tiles.cuh
+#: (ms; NVIDIA H100 80GB HBM3, 700 W; kernel 6 still runs it), printed
+#: beside this run's
+TILE_ROUTINE_MS = {"paged_decode_attention": 0.0346, "paged_decode_masses": 0.0361,
            "decode_attention": 0.0328}
 
 
@@ -644,8 +645,9 @@ def phase_kernels(torch, mods) -> list:
         n_bytes = (itemsize * (2 * rows_valid * hd + 2 * B * H * hd)
                    + B * S * KV + 4 * B * nb)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        print(f"  paged_decode_attention {label}: {ms:.4f} ms (PR 18: "
-              f"{PR18_MS['paged_decode_attention']:.4f} all slots live), "
+        print(f"  paged_decode_attention {label}: {ms:.4f} ms (tile "
+              f"routine: {TILE_ROUTINE_MS['paged_decode_attention']:.4f} all "
+              "slots live), "
               f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} "
               f"ms ({b_by}, {rows_valid} valid rows of {B * S * KV})")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -750,8 +752,9 @@ def phase_kernels(torch, mods) -> list:
         n_bytes = (itemsize * (2 * rows_valid * hdq + 2 * B * Hq * hdq)
                    + B * S * KVq + 4 * B * nb + 4 * B * Hq * S)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        print(f"  paged_decode_masses {label}: {ms:.4f} ms (PR 18: "
-              f"{PR18_MS['paged_decode_masses']:.4f} all slots live), plain "
+        print(f"  paged_decode_masses {label}: {ms:.4f} ms (tile routine: "
+              f"{TILE_ROUTINE_MS['paged_decode_masses']:.4f} all slots live), "
+              "plain "
               f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {rows_valid} "
               f"valid rows of {B * S * KVq}); no single library call "
               "returns the row masses")
@@ -907,9 +910,10 @@ def phase_kernels(torch, mods) -> list:
         n_bytes = (itemsize * (2 * rows_valid * hd + 2 * B * H * hd)
                    + B * C * KV)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        pr18 = PR18_MS["decode_attention"]
-        print(f"  decode_attention {label}: {ms:.4f} ms (PR 18: {pr18:.4f}, "
-              f"{ms / pr18 - 1:+.1%}; its code is unchanged), plain "
+        before = TILE_ROUTINE_MS["decode_attention"]
+        print(f"  decode_attention {label}: {ms:.4f} ms (recorded: "
+              f"{before:.4f}, {ms / before - 1:+.1%}; its code is unchanged), "
+              "plain "
               f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}, {rows_valid} valid rows of {B * C * KV})")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,

@@ -24,7 +24,7 @@
 // each lane copies its K/V vectors with cp.async into its own 16-byte
 // slots of a shared-memory ring of NST (up to 8) steps, refilled a chunk
 // of CH (2 or 4) steps at a time, so no other thread waits on them.  A
-// row's copy needs only its place, so it is issued beside its validity
+// row's copy needs only its place, so it starts beside its validity
 // load, not after it: two dependent round trips (table, then mask and K/V
 // together) before the first row is scored.  Rows with no storage (null
 // blocks) cost their validity load only; masked rows of allocated blocks
@@ -167,8 +167,8 @@ struct Shape {
   static constexpr int LPR = HD / VEC;        // lanes per row
   static constexpr int RPS = 32 / LPR;        // rows per warp step
   static constexpr int SPB = 32 / RPS;        // steps per 32-row batch
-  // ring stages, at most one batch of steps (a copy is then issued at
-  // most NST + CH - 1 steps ahead, within the next batch of row ids), and
+  // ring stages, at most one batch of steps (a copy then starts at most
+  // NST + CH - 1 steps ahead, within the next batch of row ids), and
   // the steps scored together, at least two chunks to the ring
   static constexpr int NST = SPB < 8 ? SPB : 8;
   static constexpr int CH = NST < 8 ? 2 : 4;

@@ -137,8 +137,8 @@ def check(err: int, what: str) -> None:
 
 
 def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of the card ``device`` names, asked of the
-    driver once per card (the split rules read it on every call)."""
+    """Streaming multiprocessors of the card ``device`` names, queried once
+    per card (the split rules read it on every call)."""
     index = device.index
     return _sm_count(torch.cuda.current_device() if index is None else index)
 
