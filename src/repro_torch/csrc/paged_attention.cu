@@ -48,8 +48,9 @@
 // the first row is scored (table entry, then mask byte and K/V), the row
 // steps of each warp (dot products reduced by shuffles on CUDA cores, not
 // tensor cores: a decode token's G = 4 query rows would fill a
-// tensor-core tile a sixteenth), and two cluster barriers.  One live slot
-// of four still fills only KV * n_split = 64 CTAs.
+// tensor-core tile a sixteenth), and the cluster barrier before the
+// merge.  One live slot of four fills only KV * n_split = 32 CTAs at 4
+// splits (8 splits lost: their 256 CTAs take a second wave).
 #include "decode_split.cuh"
 
 namespace {
