@@ -17,7 +17,12 @@ S 2080, causal) and hymba-1.5b's (25 q / 5 kv heads of 64, window 1024
 and global); kernels 4 (``paged_decode_attention``, 19 blocks of 16) and
 5 (``paged_decode_masses``, 20 blocks) at phase 1's paged decode shape
 (4 slots, 32 q / 8 kv heads of 128), with all slots live and with one
-live slot of four. The same inputs (seed 0) in every checkout, each call
+live slot of four; kernel 6 (``decode_attention``) at phase 1's dense
+decode shape (4 sequences x 289 rows, per-kv-head mask) and hymba-1.5b's
+local layer; kernel 3 (``lookahead_score``) at llama3-8b's finalize (32
+rows at 4000 of 4096), the lockstep prefill's call (4 x 32 rows after
+2048), monolithic h2o (2048 rows at 0) and hymba-1.5b's local layer.
+The same inputs (seed 0) in every checkout, each call
 on a cold L2 (``chip_smoke.time_ms`` of this checkout). Give the checkouts in
 turns (parent, change, change, parent): two calls may land on two cards.
 Prints one line per checkout and shape, then the card's name and power
@@ -34,7 +39,11 @@ sweep) and with the split ``key_splits`` picks; then kernels 4 and 5 at
 phase 1's paged decode shape over 4, 8, 19, 20 and 32 blocks of 16, all
 slots live and one live slot of four, with each (sequence, kv head)'s
 rows split over 1, 2, 4 and 8 CTAs of a cluster (``row_splits``
-replaced) and the split ``row_splits`` picks; one line per shape.
+replaced) and the split ``row_splits`` picks; kernel 6 likewise at C 64,
+128, 289, 512 and 1024 rows (``decode_attention.row_splits``); kernel 3
+at llama3-8b's finalize and the lockstep prefill's call with 1, 2, 4, 8,
+12 and 16 key splits (``lookahead_score.key_splits``); one line per
+shape, the rule's pick marked with a *.
 
     python3 chip_ab.py --marks .
 
@@ -67,6 +76,44 @@ SHAPES = (  # B, S, H, KV, hd, window, label
 
 
 PAGED = (4, 32, 8, 128, 16)  # slots, q heads, kv heads, hd, block size
+DENSE = (  # B, C, H, KV, hd, window, label
+    (4, 289, 32, 8, 128, None, "llama3-8b, 4 x 289 rows"),
+    (4, 289, 25, 5, 64, 1024, "hymba-1.5b local layer, 4 x 289 rows"),
+)
+SCORES = (  # B, n_obs, Sk, n_prompt, q_offset, H, KV, hd, window, label
+    (1, 32, 4096, 4096, 4000, 32, 8, 128, None,
+     "llama3-8b finalize, 32 rows at 4000 of 4096"),
+    (4, 32, 2080, 2048, None, 32, 8, 128, None,
+     "llama3-8b lockstep, 4 x 32 rows after 2048"),
+    (1, 2048, 2048, 2048, 0, 32, 8, 128, None,
+     "llama3-8b monolithic h2o, 2048 rows at 0"),
+    (4, 32, 2080, 2048, None, 25, 5, 64, 1024,
+     "hymba-1.5b local layer, 4 x 32 rows after 2048"),
+)
+
+
+def dense_inputs(torch, g, B, C, H, KV, hd, window):
+    """Phase 1's dense decode inputs (``chip_smoke.phase_kernels``): kept
+    rows with a few dropped per kv head, no appends past row 272, and the
+    window folded into the mask."""
+    dev = torch.device("cuda")
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((B, C, KV, hd), generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    mask = torch.rand((B, C, KV), generator=g, device=dev) > 0.05
+    mask[:, 272:] = False
+    if window is not None:
+        pos = torch.randint(0, 2080, (B, C, KV), generator=g, device=dev)
+        mask &= (2080 - pos) < window
+    return q, k, v, mask
+
+
+def score_inputs(torch, g, B, n_obs, Sk, H, KV, hd):
+    dev = torch.device("cuda")
+    return (torch.randn((B, n_obs, H, hd), generator=g, device=dev)
+            .to(torch.bfloat16),
+            torch.randn((B, Sk, KV, hd), generator=g, device=dev)
+            .to(torch.bfloat16))
 
 
 def paged_inputs(torch, g, nb: int, one_live: bool):
@@ -97,7 +144,9 @@ def time_checkout(root: str) -> None:
 
     sys.path.insert(0, str(Path(root).resolve() / "src"))
     from repro_torch.kernels import chunk_attention as ck
+    from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import lookahead_score as lk
     from repro_torch.kernels import paged_attention as pk
 
     dev = torch.device("cuda")
@@ -131,6 +180,18 @@ def time_checkout(root: str) -> None:
         ms = chip_smoke.time_ms(torch, lambda: fn(*args), iters=50)
         print(f"{root}: kernel {4 if nb == 19 else 5}, {nb} blocks of 16, "
               f"{live}: {ms:.4f} ms", flush=True)
+    for B, C, H, KV, hd, window, label in DENSE:
+        q, k, v, mask = dense_inputs(torch, g, B, C, H, KV, hd, window)
+        ms = chip_smoke.time_ms(
+            torch, lambda: dk.decode_attention(q, k, v, kv_mask=mask),
+            iters=50)
+        print(f"{root}: kernel 6, {label}: {ms:.4f} ms", flush=True)
+    for B, n_obs, Sk, n_prompt, off, H, KV, hd, window, label in SCORES:
+        q, k = score_inputs(torch, g, B, n_obs, Sk, H, KV, hd)
+        ms = chip_smoke.time_ms(torch, lambda: lk.lookahead_score(
+            q, k, n_prompt, q_offset=off, window=window),
+            iters=5 if n_obs > 32 else 20)
+        print(f"{root}: kernel 3, {label}: {ms:.4f} ms", flush=True)
 
 
 def time_splits(root: str) -> None:
@@ -175,6 +236,69 @@ def time_splits(root: str) -> None:
               + f" ms with 1 / 2 / 3 / 4 splits; key_splits picks {picked}",
               flush=True)
     time_row_splits(root, torch, chip_smoke)
+    time_dense_splits(root, torch, chip_smoke)
+    time_key_splits(root, torch, chip_smoke)
+
+
+def swept(times, counts, picked) -> str:
+    """'t1 / t2* / ...' with the rule's pick marked."""
+    return " / ".join(f"{t:.4f}" + ("*" if n == picked else "")
+                      for t, n in zip(times, counts))
+
+
+def time_dense_splits(root: str, torch, chip_smoke) -> None:
+    """Kernel 6 with 1, 2, 4 and 8 CTAs per (sequence, kv head)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as dk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rule = dk.row_splits
+    B, _, H, KV, hd, _, _ = DENSE[0]
+    counts = (1, 2, 4, 8)
+    for C in (64, 128, 289, 512, 1024):
+        picked = rule(B, KV, C, build.sm_count(dev))
+        q, k, v, mask = dense_inputs(torch, g, B, C, H, KV, hd, None)
+        times = []
+        for n in counts:
+            dk.row_splits = lambda *a, n=n, **kw: n
+            try:
+                times.append(chip_smoke.time_ms(
+                    torch, lambda: dk.decode_attention(q, k, v,
+                                                       kv_mask=mask),
+                    iters=50))
+            finally:
+                dk.row_splits = rule
+        print(f"{root}: kernel 6, 4 x {C} rows: {swept(times, counts, picked)}"
+              f" ms with 1 / 2 / 4 / 8 splits; row_splits picks {picked}",
+              flush=True)
+
+
+def time_key_splits(root: str, torch, chip_smoke) -> None:
+    """Kernel 3 with 1 to 16 key splits in launch (a)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import lookahead_score as lk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rule = lk.key_splits
+    counts = (1, 2, 4, 8, 12, 16)
+    for B, n_obs, Sk, n_prompt, off, H, KV, hd, window, label in SCORES[:2]:
+        q, k = score_inputs(torch, g, B, n_obs, Sk, H, KV, hd)
+        visible = min(Sk, (n_prompt if off is None else off) + n_obs)
+        picked = rule(B, n_obs, H, KV, visible, build.sm_count(dev))
+        times = []
+        for n in counts:
+            lk.key_splits = lambda *a, n=n, **kw: n
+            try:
+                times.append(chip_smoke.time_ms(torch, lambda: (
+                    lk.lookahead_score(q, k, n_prompt, q_offset=off,
+                                       window=window))))
+            finally:
+                lk.key_splits = rule
+        print(f"{root}: kernel 3, {label}: {swept(times, counts, picked)} ms "
+              "with 1 / 2 / 4 / 8 / 12 / 16 key splits; key_splits picks "
+              f"{picked}", flush=True)
 
 
 def time_row_splits(root: str, torch, chip_smoke) -> None:

@@ -210,13 +210,33 @@ PAGED_EDGES = (
     ("block size 7", (32, 8, 128), 7, 20, None, "ragged", "bfloat16"),
     ("float32", (32, 8, 128), 16, 20, 96, "ragged", "float32"),
 )
-#: split counts forced on kernels 4 and 5 in phase 1 (None: the rule's)
+#: split counts forced on kernels 4, 5 and 6 in phase 1 (None: the rule's)
 PAGED_SPLITS = (None, 1, 2, 4, 8)
-#: the decode kernels' phase-1 times on the tile routine decode_tiles.cuh
-#: (ms; NVIDIA H100 80GB HBM3, 700 W; kernel 6 still runs it), printed
-#: beside this run's
-TILE_ROUTINE_MS = {"paged_decode_attention": 0.0346, "paged_decode_masses": 0.0361,
-           "decode_attention": 0.0328}
+#: phase-1 times before this run's code (ms; NVIDIA H100 80GB HBM3, 700 W),
+#: printed beside this run's: kernels 6 and 3 on their earlier designs
+#: (PERF.md's kernel table: kernel 6's tile routine of PR 12, kernel 3's
+#: scalar-FMA kernels of PR 11, PR 19's final run at hymba's shapes), the
+#: others as PR 19's final run read them
+RECORDED_MS = {
+    "chunk_attention": 0.0449, "chunk_attention obs pass": 0.0238,
+    "chunk_attention_masses": 0.0818,
+    "lookahead_score": 0.1971, "lookahead_score window finalize": 0.1971,
+    "lookahead_score monolithic h2o": 4.1156,
+    "lookahead_score hymba local": 0.1280,
+    "paged_decode_attention": 0.0147,
+    "paged_decode_attention one live": 0.0133,
+    "paged_decode_masses": 0.0166, "paged_decode_masses one live": 0.0152,
+    "flash_attention": 0.3514, "flash_attention hymba local": 0.1883,
+    "flash_attention hymba global": 0.2297,
+    "decode_attention": 0.0328, "decode_attention hymba local": 0.0208,
+    "ssd_scan": 0.6453, "ssd_scan mamba2": 1.2862,
+}
+
+
+def versus(key: str, ms: float) -> str:
+    """This run's time beside the recorded one."""
+    rec = RECORDED_MS[key]
+    return f"{ms:.4f} ms (recorded {rec:.4f}, {ms / rec - 1:+.1%})"
 
 
 def fail(msg: str) -> None:
@@ -330,7 +350,7 @@ def phase_kernels(torch, mods) -> list:
     # bf16 at hd 64 and 128 runs the wgmma + TMA tile (attention_sm90.cuh)
     # at a general q_offset: 128-row query tiles, 128-key tiles aligned to
     # position 0, the causal diagonal at q_offset + row
-    def chunk_case(B, C, K, off, window, label, timed=False,
+    def chunk_case(B, C, K, off, window, label, timed=None,
                    heads=(H, KV, hd)):
         Hs, KVs, hds = heads
         q, k, v = (randn(B, C, Hs, hds), randn(B, K, KVs, hds),
@@ -364,15 +384,16 @@ def phase_kernels(torch, mods) -> list:
         splits = ck.key_splits(
             B, C, Hs, K, hds, q.dtype, q_offset=off, window=window,
             sms=torch.cuda.get_device_properties(0).multi_processor_count)
-        print(f"  chunk_attention {label}: {ms:.4f} ms, plain {plain:.4f} "
-              f"ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-              f"{splits} key split(s)")
+        print(f"  chunk_attention {label}: {versus(timed, ms)}, plain "
+              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); {splits} key split(s)")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib)
 
     main1 = chunk_case(1, 256, 4096, 3840, None, "C=256 K=4096 off=3840",
-                       timed=True)
-    chunk_case(1, 32, 4096, 4000, None, "obs pass C=32 off=4000", timed=True)
+                       timed="chunk_attention")
+    chunk_case(1, 32, 4096, 4000, None, "obs pass C=32 off=4000",
+               timed="chunk_attention obs pass")
     chunk_case(1, 256, 1000, 700, None, "K=1000 (ragged tile)")
     chunk_case(2, 64, 700, 500, 128, "window 128")
     for args in CHUNK_EDGES:
@@ -437,9 +458,10 @@ def phase_kernels(torch, mods) -> list:
                                + 2 * B * min(K, off + C) * KVs * hds)
                    + 4 * B * Hq * K)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        print(f"  chunk_attention_masses {label}: {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, sdpa (out half) {lib:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})")
+        print(f"  chunk_attention_masses {label}: "
+              f"{versus('chunk_attention_masses', ms)}, plain {plain:.4f} "
+              f"ms, sdpa (out half) {lib:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib)
 
@@ -463,11 +485,54 @@ def phase_kernels(torch, mods) -> list:
         source="src/repro_torch/csrc/attention_sm90.cuh",
         replaces="src/repro/kernels/chunk_attention.py:216", **main2))
 
-    # -- kernel 3: lookahead scores --------------------------------------------
+    # -- launches read from the profiler's trace -----------------------------
+    def traced_launches(fn):
+        """[(kernel name, grid or None)] of the CUDA launches ``fn`` makes,
+        in order, from the profiler's trace."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        trace = mods["build"].BUILD_DIR / "launch_trace.json"
+        prof.export_chrome_trace(str(trace))
+        out = [(ev.get("name", ""), ev.get("args", {}).get("grid"))
+               for ev in json.loads(trace.read_text())["traceEvents"]
+               if ev.get("cat") == "kernel"]
+        trace.unlink()
+        return out
+
+    def check_launches(fn, parts, grids):
+        """``fn`` makes exactly one CUDA launch of a kernel named
+        ``parts[i]`` on the grid ``grids[i]`` for each i, in order (the
+        grids where the trace records them)."""
+        got = traced_launches(fn)
+        names = [n for n, _ in got]
+        check(len(got) == len(parts)
+              and all(p in n for p, n in zip(parts, names)),
+              f"one call launched {names}, expected {list(parts)}")
+        for (name, grid), part, want in zip(got, parts, grids):
+            if grid is None:
+                print(f"  {part}: one launch (the trace records no grid; "
+                      f"expected {tuple(want)})")
+                continue
+            check(list(grid) == list(want), f"{part}: grid {grid}, "
+                  f"expected {want}")
+            print(f"  {part}: one launch, grid {tuple(grid)}")
+
+    sms = mods["build"].sm_count(dev)
+
+    # -- kernel 3: lookahead scores ------------------------------------------
+    # bf16 runs the tensor-core kernels (each kv head's G query heads
+    # packed, 16-row fragments, 8 to a row block; 64-key tiles), float32
+    # the FMA kernels
     def score_case(B, n_obs, Sk, n_prompt, off, window, masks, label,
-                   timed=False, timed_kernel=False, heads=(H, KV, hd)):
+                   timed=None, timed_kernel=None, heads=(H, KV, hd),
+                   dtype=bf16):
         Hs, KVs, hds = heads
-        q, k = randn(B, n_obs, Hs, hds), randn(B, Sk, KVs, hds)
+        q = torch.randn((B, n_obs, Hs, hds), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, Sk, KVs, hds), generator=g, device=dev).to(dtype)
         kvm = rv = None
         if masks:
             kvm = torch.rand((B, n_prompt), generator=g, device=dev) > 0.2
@@ -478,19 +543,27 @@ def phase_kernels(torch, mods) -> list:
         torch.cuda.synchronize()
         want = ref.lookahead_score(q, k, n_prompt, **kw)
         err, tol = max_err(got, want), tolerance(want, REL_SCORE)
+        n_split = lk.key_splits(B, n_obs, Hs, KVs, min(
+            Sk, (n_prompt if off is None else off) + n_obs), sms)
         print(f"  lookahead_score {label}: max_abs_err {err:.3e} "
-              f"(tol {tol:.3e} = 2^-16 max|plain|)")
+              f"(tol {tol:.3e} = 2^-16 max|plain|); {n_split} key "
+              "split(s)")
         check(err <= tol, f"lookahead_score {label}: err {err} > {tol}")
         if masks:
             check(bool(torch.all(got[-1] == 0)),
                   "lookahead_score: invalid rows must give exact zeros")
+        call = lambda: lk.lookahead_score(q, k, n_prompt, **kw)
         if timed_kernel:
-            ms = time_ms(torch, lambda: lk.lookahead_score(q, k, n_prompt,
-                                                           **kw), iters=5)
-            print(f"  lookahead_score {label}: {ms:.4f} ms")
+            ms = time_ms(torch, call, iters=5)
+            print(f"  lookahead_score {label}: {versus(timed_kernel, ms)}")
         if not timed:
             return None
-        ms = time_ms(torch, lambda: lk.lookahead_score(q, k, n_prompt, **kw))
+        # one count, two launches: the tensor-core kernels on their grids
+        n_rb = lk.row_blocks(n_obs, Hs // KVs)
+        check_launches(call, ("obs_row_stats_mma", "obs_column_means_mma"),
+                       ((n_split * n_rb, KVs, B),
+                        (-(-n_prompt // 64), KVs, B)))
+        ms = time_ms(torch, call)
         plain = time_ms(torch, lambda: ref.lookahead_score(q, k, n_prompt,
                                                            **kw), iters=5)
         vis_keys = min(Sk, off + n_obs)
@@ -500,13 +573,13 @@ def phase_kernels(torch, mods) -> list:
                                + B * vis_keys * KVs * hds)
                    + 4 * B * Hs * n_prompt)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        print(f"  lookahead_score {label}: {ms:.4f} ms, plain {plain:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by})")
+        print(f"  lookahead_score {label}: {versus(timed, ms)}, plain "
+              f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None)
 
     main3 = score_case(1, 32, 4096, 4096, 4000, None, False,
-                       "n_obs=32 Sk=4096 off=4000", timed=True)
+                       "n_obs=32 Sk=4096 off=4000", timed="lookahead_score")
     # the lockstep prefill's call: 32 observation rows after 2048 prompt
     # rows of each of 4 sequences, scored on the prompt (q_offset None)
     score_case(4, 32, 2080, 2048, None, None, False,
@@ -517,18 +590,35 @@ def phase_kernels(torch, mods) -> list:
     # over the whole 4096-deep buffer (n_prompt = K)
     score_case(1, 32, 4096, 4096, 4000 - 32, None, False,
                "window finalize: 32 rows at 3968, n_prompt=K=4096",
-               timed_kernel=True)
+               timed_kernel="lookahead_score window finalize")
     # monolithic h2o: every prompt row at q_offset 0, causal among itself
     score_case(1, 2048, 2048, 2048, 0, None, False,
-               "monolithic h2o: 2048 rows at offset 0", timed_kernel=True)
+               "monolithic h2o: 2048 rows at offset 0",
+               timed_kernel="lookahead_score monolithic h2o")
     score_case(2, 40, 700, 700, 640, 96, True, "window 96, 2 row tiles")
     # hymba-1.5b's lockstep scoring (25 q / 5 kv heads of 64): 32 lookahead
     # rows after 2048 prompt rows, window 1024 on its local layers
     score_case(4, 32, 2080, 2048, None, 1024, False,
                "hymba local layer: B=4 Sk=2080 window 1024",
-               timed_kernel=True, heads=HYMBA_HEADS)
+               timed_kernel="lookahead_score hymba local", heads=HYMBA_HEADS)
     score_case(4, 32, 2080, 2048, None, None, False,
                "hymba global layer: B=4 Sk=2080", heads=HYMBA_HEADS)
+    # the tile's edges: rows padded to 16 (n_obs 17, 40), G 5 at hd 64, a
+    # window ending inside a key tile, a ragged key tail, a last key split
+    # shorter than a tile, every row of a sequence invalid, float32
+    score_case(1, 17, 500, 483, None, None, False, "n_obs 17",
+               heads=(8, 2, 128))
+    score_case(1, 40, 1000, 1000, 960, None, False, "n_obs 40")
+    score_case(2, 17, 300, 300, 283, None, True, "G 5 hd 64, masks",
+               heads=(10, 2, 64))
+    score_case(1, 32, 1000, 1000, 900, 100, False, "window 100 mid-tile",
+               heads=(8, 2, 128))
+    score_case(1, 32, 1000, 968, None, None, False, "Sk 1000",
+               heads=(8, 2, 64))
+    score_case(1, 32, 4096, 4096, 3850, None, False,
+               "last key split under a tile")
+    score_case(2, 32, 1000, 968, None, 200, True, "float32, masks, window",
+               dtype=torch.float32)
     results.append(dict(
         name="lookahead_score", route="cuda",
         source="src/repro_torch/csrc/lookahead_score.cu",
@@ -536,16 +626,17 @@ def phase_kernels(torch, mods) -> list:
 
     # -- kernels 4 and 5: paged decode, rows split over a cluster -----------
     @contextlib.contextmanager
-    def forced_splits(n):
-        """Kernels 4 and 5 at ``n`` CTAs per (sequence, kv head) (None:
-        ``row_splits``' pick), as the card tests force them."""
-        rule = pk.row_splits
+    def forced_splits(n, mod=pk):
+        """Kernels 4 and 5 (``mod`` pk) or 6 (dk) at ``n`` CTAs per
+        (sequence, kv head) (None: ``row_splits``' pick), as the card tests
+        force them."""
+        rule = mod.row_splits
         if n is not None:
-            pk.row_splits = lambda *a, **kw: n
+            mod.row_splits = lambda *a, **kw: n
         try:
             yield
         finally:
-            pk.row_splits = rule
+            mod.row_splits = rule
 
     def splits_label(n, B, KV, nb, bs):
         if n is not None:
@@ -556,32 +647,8 @@ def phase_kernels(torch, mods) -> list:
     def one_cluster_launch(fn, part, grid):
         """``fn`` makes exactly one CUDA launch, of a kernel named
         ``part``, on the grid (n_split, KV, B) when the trace records it."""
-        from torch.profiler import ProfilerActivity, profile
+        check_launches(fn, (part,), (grid,))
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        check(len(names) == 1 and part in names[0],
-              f"{part}: one call launched {names}, expected one {part}")
-        trace = mods["build"].BUILD_DIR / "paged_trace.json"
-        prof.export_chrome_trace(str(trace))
-        grids = [ev.get("args", {}).get("grid")
-                 for ev in json.loads(trace.read_text())["traceEvents"]
-                 if part in ev.get("name", "")
-                 and ev.get("cat") == "kernel"]
-        trace.unlink()
-        if grids and grids[0] is not None:
-            check(list(grids[0]) == list(grid), f"{part}: grid {grids[0]}, "
-                  f"expected {grid}")
-            print(f"  {part}: one launch, grid {tuple(grids[0])}")
-        else:
-            print(f"  {part}: one launch (the trace records no grid; "
-                  f"row_splits gives {grid})")
-
-    sms = mods["build"].sm_count(dev)
 
     def paged_case(label, window, timed=False, edge=False, one_live=False,
                    splits=None):
@@ -645,9 +712,8 @@ def phase_kernels(torch, mods) -> list:
         n_bytes = (itemsize * (2 * rows_valid * hd + 2 * B * H * hd)
                    + B * S * KV + 4 * B * nb)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        print(f"  paged_decode_attention {label}: {ms:.4f} ms (tile "
-              f"routine: {TILE_ROUTINE_MS['paged_decode_attention']:.4f} all "
-              "slots live), "
+        key = "paged_decode_attention" + (" one live" if one_live else "")
+        print(f"  paged_decode_attention {label}: {versus(key, ms)}, "
               f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} "
               f"ms ({b_by}, {rows_valid} valid rows of {B * S * KV})")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -752,9 +818,8 @@ def phase_kernels(torch, mods) -> list:
         n_bytes = (itemsize * (2 * rows_valid * hdq + 2 * B * Hq * hdq)
                    + B * S * KVq + 4 * B * nb + 4 * B * Hq * S)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        print(f"  paged_decode_masses {label}: {ms:.4f} ms (tile routine: "
-              f"{TILE_ROUTINE_MS['paged_decode_masses']:.4f} all slots live), "
-              "plain "
+        key = "paged_decode_masses" + (" one live" if layout else "")
+        print(f"  paged_decode_masses {label}: {versus(key, ms)}, plain "
               f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {rows_valid} "
               f"valid rows of {B * S * KVq}); no single library call "
               "returns the row masses")
@@ -777,7 +842,7 @@ def phase_kernels(torch, mods) -> list:
     # bf16 at hd 64 and 128 runs the wgmma + TMA tile (attention_sm90.cuh):
     # its edges are 128-row query tiles of two 64-row warpgroups and
     # 128-key K/V tiles
-    def flash_case(B, S, causal, window, label, timed=False,
+    def flash_case(B, S, causal, window, label, timed=None,
                    heads=(H, KV, hd)):
         Hs, KVs, hds = heads
         q, k, v = (randn(B, S, Hs, hds), randn(B, S, KVs, hds),
@@ -814,19 +879,22 @@ def phase_kernels(torch, mods) -> list:
         n_ops = 4 * hds * Hs * B * int(vis.sum())  # visible (row, key) pairs
         n_bytes = itemsize * (2 * B * S * Hs * hds + 2 * B * S * KVs * hds)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        print(f"  flash_attention {label}: {ms:.4f} ms, plain {plain:.4f} "
-              f"ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        print(f"  flash_attention {label}: {versus(timed, ms)}, plain "
+              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib)
 
-    main7 = flash_case(4, 2080, True, None, "B=4 S=2080 causal", timed=True)
+    main7 = flash_case(4, 2080, True, None, "B=4 S=2080 causal",
+                       timed="flash_attention")
     flash_case(1, 1000, True, None, "S=1000 (ragged tile)")
     flash_case(2, 300, False, None, "S=300 non-causal")
     flash_case(1, 700, True, 128, "S=700 window 128")
     flash_case(4, 2080, True, 1024, "hymba local layer: B=4 S=2080 window "
-               "1024", timed=True, heads=HYMBA_HEADS)
+               "1024", timed="flash_attention hymba local",
+               heads=HYMBA_HEADS)
     flash_case(4, 2080, True, None, "hymba global layer: B=4 S=2080",
-               timed=True, heads=HYMBA_HEADS)
+               timed="flash_attention hymba global", heads=HYMBA_HEADS)
     # the tile's edges: rows (1, one warpgroup, a tile -1/0/+1), windows
     # inside and across key tiles, GQA ratios 1 and 5, B = 3
     small = (8, 2, hd)
@@ -848,14 +916,18 @@ def phase_kernels(torch, mods) -> list:
         source="src/repro_torch/csrc/attention_sm90.cuh",
         replaces="src/repro/kernels/flash_attention.py:71", **main7))
 
-    # -- kernel 6: dense decode attention -------------------------------------
-    def decode_case(label, kind, timed=False, timed_kernel=False,
-                    heads=(H, KV, hd), window=None):
-        B, C = 4, 289  # budget 256 + 33 append rows
+    # -- kernel 6: dense decode attention, rows split over a cluster ---------
+    def decode_case(label, kind, timed=False, timed_kernel=None,
+                    heads=(H, KV, hd), window=None, C=289, splits=None,
+                    dtype=bf16):
+        B = 4  # C: budget 256 + 33 append rows
         Hs, KVs, hds = heads
-        q, k, v = (randn(B, Hs, hds), randn(B, C, KVs, hds),
-                   randn(B, C, KVs, hds))
+        Gs = Hs // KVs
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((B, Hs, hds), (B, C, KVs, hds),
+                                 (B, C, KVs, hds)))
         mask = None
+        dead = min(5, KVs - 1)
         if kind == "head":
             # main-path validity: kept rows (a few dropped per head), then
             # the appends written so far
@@ -866,13 +938,18 @@ def phase_kernels(torch, mods) -> list:
                                     device=dev)
                 mask &= (2080 - pos) < window
         elif kind == "head-edge":
-            mask = torch.rand((B, C, KV), generator=g, device=dev) > 0.3
-            mask[1, :, 5] = False  # a fully masked head
+            mask = torch.rand((B, C, KVs), generator=g, device=dev) > 0.3
+            mask[1, :, dead] = False  # a fully masked head
             mask[2] = False  # a sequence with no valid row
         elif kind == "row":
             mask = torch.rand((B, C), generator=g, device=dev) > 0.3
             mask[2] = False
-        got = dk.decode_attention(q, k, v, kv_mask=mask)
+        n_rule = dk.row_splits(B, KVs, C, sms)
+        label = (f"{label}, {splits} splits" if splits is not None
+                 else f"{label}, row_splits' {n_rule} splits")
+        call = lambda: dk.decode_attention(q, k, v, kv_mask=mask)
+        with forced_splits(splits, dk):
+            got = call()
         torch.cuda.synchronize()
         want = ref.decode_attention(q, k, v, kv_mask=mask)
         err = check_rows(torch, got, want, REL_PAGED,
@@ -882,51 +959,63 @@ def phase_kernels(torch, mods) -> list:
                   "decode_attention: a sequence with no valid row must give "
                   "exact zeros")
         if kind == "head-edge":
-            check(bool(torch.all(got[1, 5 * G:6 * G] == 0)),
+            check(bool(torch.all(got[1, dead * Gs:(dead + 1) * Gs] == 0)),
                   "decode_attention: a fully masked head must give exact "
                   "zeros")
         if timed_kernel:
-            ms = time_ms(torch, lambda: dk.decode_attention(q, k, v,
-                                                            kv_mask=mask),
-                         iters=50)
-            print(f"  decode_attention {label}: {ms:.4f} ms")
+            ms = time_ms(torch, call, iters=50)
+            print(f"  decode_attention {label}: {versus(timed_kernel, ms)}")
         if not timed:
             return None
-        ms = time_ms(torch, lambda: dk.decode_attention(q, k, v,
-                                                        kv_mask=mask),
-                     iters=50)
+        one_cluster_launch(call, "decode_kernel", (n_rule, KVs, B))
+        ms = time_ms(torch, call, iters=50)
         plain = time_ms(torch, lambda: ref.decode_attention(
             q, k, v, kv_mask=mask), iters=10)
         # library yardstick: SDPA with the per-head mask expanded to
         # (B, H, 1, C) and kv heads expanded, both outside the timed call
-        kd = k.repeat_interleave(G, 2).transpose(1, 2)
-        vd = v.repeat_interleave(G, 2).transpose(1, 2)
-        md = mask.repeat_interleave(G, 2).permute(0, 2, 1)[:, :, None, :]
+        kd = k.repeat_interleave(Gs, 2).transpose(1, 2)
+        vd = v.repeat_interleave(Gs, 2).transpose(1, 2)
+        md = mask.repeat_interleave(Gs, 2).permute(0, 2, 1)[:, :, None, :]
         qd = q[:, :, None, :]
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=md), iters=50)
         rows_valid = int(mask.sum())  # (row, kv head) pairs
-        n_ops = 4 * hd * G * rows_valid
-        n_bytes = (itemsize * (2 * rows_valid * hd + 2 * B * H * hd)
-                   + B * C * KV)
+        n_ops = 4 * hds * Gs * rows_valid
+        n_bytes = (itemsize * (2 * rows_valid * hds + 2 * B * Hs * hds)
+                   + B * C * KVs)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        before = TILE_ROUTINE_MS["decode_attention"]
-        print(f"  decode_attention {label}: {ms:.4f} ms (recorded: "
-              f"{before:.4f}, {ms / before - 1:+.1%}; its code is unchanged), "
-              "plain "
-              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}, {rows_valid} valid rows of {B * C * KV})")
+        print(f"  decode_attention {label}: {versus('decode_attention', ms)}"
+              f", plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}, {rows_valid} valid rows of "
+              f"{B * C * KVs})")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib)
 
     main6 = decode_case("B=4 C=289 per-head mask", "head", timed=True)
-    decode_case("per-head mask, dead head and sequence", "head-edge")
-    decode_case("(B, C) mask, dead sequence", "row")
-    decode_case("no mask", None)
     decode_case("hymba local layer: 25/5 heads of 64, window 1024", "head",
-                timed_kernel=True, heads=HYMBA_HEADS, window=1024)
+                timed_kernel="decode_attention hymba local",
+                heads=HYMBA_HEADS, window=1024)
     decode_case("hymba global layer: 25/5 heads of 64", "head",
                 heads=HYMBA_HEADS)
+    # every mask kind and the routine's edges at 1, 2, 4 and 8 forced
+    # splits and at the rule's pick: dead heads and sequences, fewer rows
+    # than splits, one row, G 1 / 5 / 8 / 16, hd 32 and 64, float32
+    for n in PAGED_SPLITS:
+        decode_case("per-head mask, dead head and sequence", "head-edge",
+                    splits=n)
+        decode_case("(B, C) mask, dead sequence", "row", splits=n)
+        decode_case("no mask", None, splits=n)
+        decode_case("C=3", "head-edge", C=3, splits=n)
+        decode_case("C=1 (B, C) mask", "row", C=1, splits=n)
+        decode_case("G 1 hd 64", "head-edge", heads=(8, 8, 64), C=200,
+                    splits=n)
+        decode_case("G 5 hd 64", "head-edge", heads=(10, 2, 64), C=200,
+                    splits=n)
+        decode_case("G 8", "row", heads=(64, 8, 128), C=200, splits=n)
+        decode_case("G 16 hd 32", "head-edge", heads=(32, 2, 32), C=150,
+                    splits=n)
+        decode_case("float32", "head-edge", C=150, splits=n,
+                    dtype=torch.float32)
     results.append(dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/csrc/decode_attention.cu",
@@ -934,7 +1023,7 @@ def phase_kernels(torch, mods) -> list:
 
     # -- kernel 8: the Mamba-2 SSD chunked scan -------------------------------
     def ssd_case(B, S, nh, hd, ds, chunk, label, *, dtype=bf16, state=None,
-                 views=True, timed=False):
+                 views=True, timed=None):
         """Kernel 8 against ``ref.ssd_scan_chunked`` on model-like inputs:
         x, B and C views of one conv output (rows strided, as the Mamba-2
         block passes them) unless ``views`` is False, dt = softplus(N - 2)
@@ -992,7 +1081,8 @@ def phase_kernels(torch, mods) -> list:
             n_ops += B * (2 * pairs * ds
                           + nh * (pairs * (1 + 2 * hd) + 4 * nv * hd * ds))
         b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
-        print(f"  ssd_scan {label}: {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        print(f"  ssd_scan {label}: {versus(timed, ms)}, plain {plain:.4f} "
+              "ms, bound "
               f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
               f"{n_ops / 1e9:.2f} GFLOP float32); no single library call "
               "computes the scan")
@@ -1004,11 +1094,11 @@ def phase_kernels(torch, mods) -> list:
     # 32 lookahead rows chained on its final state (a ragged chunk)
     h_prompt, main8 = ssd_case(4, 2048, 50, 64, 16, 128,
                                "hymba prompt B=4 S=2048 nh=50 ds=16",
-                               timed=True)
+                               timed="ssd_scan")
     ssd_case(4, 32, 50, 64, 16, 128, "hymba lookahead segment S=32 carried",
              state=h_prompt)
     ssd_case(4, 2048, 24, 64, 128, 128, "mamba2 B=4 S=2048 nh=24 ds=128",
-             timed=True)
+             timed="ssd_scan mamba2")
     ssd_case(2, 1000, 50, 64, 16, 128, "ragged S=1000", state="random")
     ssd_case(2, 50, 24, 64, 128, 128, "S=50 < chunk", state="random")
     ssd_case(4, 1, 50, 64, 16, 128, "S=1", state="random")
@@ -1844,29 +1934,35 @@ def phase_build(mods) -> None:
                   f"{part} in the SASS, expected {n}")
         check(len(group) == sum(wanted.values()), f"{len(group)} Hopper "
               f"instantiations in the SASS, expected {sum(wanted.values())}")
-    # kernels 4 and 5 (decode_split.cuh): each of their 12 instantiations
-    # (2 kernels x 2 types x hd 32 / 64 / 128) must have a -Xptxas -v entry
-    # and spill nothing; a library built by an earlier run is built again
-    # for the report
-    if "paged_attention" not in report:
-        build._target("paged_attention").unlink()
-        report.update(build.build(("paged_attention",), verbose=True))
-        print(f"  paged_attention: rebuilt for its register report, nvcc "
-              f"{report['paged_attention'][0]:.1f} s", flush=True)
-    ptxas = ptxas_report(report["paged_attention"][1])
-    wanted = {f"{kern}<{t}, hd {d}>"
-              for kern in ("paged_decode_kernel", "paged_masses_kernel")
-              for t in ("float", "bf16") for d in (32, 64, 128)}
-    found = {demangle(name): name for name in ptxas
-             if "paged_decode_kernel" in name
-             or "paged_masses_kernel" in name}
-    check(set(found) == wanted, "paged kernels without a -Xptxas -v entry: "
-          f"{sorted(wanted - set(found))}; unexpected: "
-          f"{sorted(set(found) - wanted)}")
-    for label in sorted(found):
-        regs, spills = ptxas[found[label]]
-        print(f"  {label}: {regs} registers, {spills} bytes spilled")
-        check(not spills, f"{label} spills registers")
+    # kernels 4 and 5 (decode_split.cuh; 2 kernels x 2 types x hd 32 / 64 /
+    # 128), kernel 6 on the same routine (2 types x 3 hd) and kernel 3's
+    # tensor-core kernels (launches (a) and (b), bf16, 3 hd): each
+    # instantiation must have a -Xptxas -v entry and spill nothing; a
+    # library built by an earlier run is built again for the report
+    hds = (32, 64, 128)
+    for source, wanted in (
+            ("paged_attention", {f"{kern}<{t}, hd {d}>" for kern in (
+                "paged_decode_kernel", "paged_masses_kernel")
+                for t in ("float", "bf16") for d in hds}),
+            ("decode_attention", {f"decode_kernel<{t}, hd {d}>"
+                                  for t in ("float", "bf16") for d in hds}),
+            ("lookahead_score", {f"{kern}<hd {d}>" for kern in (
+                "obs_row_stats_mma", "obs_column_means_mma")
+                for d in hds})):
+        if source not in report:
+            build._target(source).unlink()
+            report.update(build.build((source,), verbose=True))
+            print(f"  {source}: rebuilt for its register report, nvcc "
+                  f"{report[source][0]:.1f} s", flush=True)
+        ptxas = ptxas_report(report[source][1])
+        found = {demangle(name): name for name in ptxas
+                 if demangle(name) in wanted}
+        check(set(found) == wanted, f"{source}: kernels without a -Xptxas "
+              f"-v entry: {sorted(wanted - set(found))}")
+        for label in sorted(found):
+            regs, spills = ptxas[found[label]]
+            print(f"  {label}: {regs} registers, {spills} bytes spilled")
+            check(not spills, f"{label} spills registers")
 
 
 def ptxas_report(log: str) -> dict:
@@ -1886,8 +1982,8 @@ def ptxas_report(log: str) -> dict:
 
 
 def demangle(name: str) -> str:
-    """A Hopper tile or paged decode instantiation's kernel and template
-    arguments."""
+    """A Hopper tile, decode or lookahead-score instantiation's kernel and
+    template arguments."""
     m = re.search(r"(flash_attention_tag|chunk_attention_tag|"
                   r"chunk_masses_tag)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)", name)
     if m:
@@ -1897,11 +1993,14 @@ def demangle(name: str) -> str:
                   r"chunk_masses_tag)E?Li(\d+)E", name)
     if m:
         return f"combine_splits<{m[1]}, hd {m[2]}>"
-    m = re.search(r"(paged_decode_kernel|paged_masses_kernel)I"
-                  r"(f|13__nv_bfloat16)Li(\d+)EE", name)
+    m = re.search(r"(paged_decode_kernel|paged_masses_kernel|decode_kernel)"
+                  r"I(f|13__nv_bfloat16)Li(\d+)EE", name)
     if m:
         t = "float" if m[2] == "f" else "bf16"
         return f"{m[1]}<{t}, hd {m[3]}>"
+    m = re.search(r"(obs_row_stats_mma|obs_column_means_mma)ILi(\d+)E", name)
+    if m:
+        return f"{m[1]}<hd {m[2]}>"
     m = re.search(r"column_masses_sm90ILi(\d+)E", name)
     return f"column_masses_sm90<hd {m[1]}>" if m else name
 

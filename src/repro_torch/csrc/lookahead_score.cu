@@ -14,25 +14,53 @@
 // The TPU kernel runs its key axis twice inside one sequential grid (phase
 // 0 accumulates each row's (m, l), phase 1 re-streams the keys and emits
 // column means).  A GPU grid has no order between blocks, so here the one
-// TPU kernel becomes two launches on the same stream:
-//   1. obs_row_stats: one CTA per (key split, 32-row tile, head, batch)
-//      streams its share of the visible keys and writes each row's partial
-//      (m, l) to a float32 scratch (B, H, n_split, n_obs);
-//   2. obs_column_means: one CTA per (64-key tile, head, batch) merges the
-//      partials into each row's final (m, l) (m = max m_s, l = sum l_s
-//      exp(m_s - m)), recomputes its tile's logits for every row, turns
-//      them into exp(s - m) / l and sums them over rows.  Tiles past the
-//      last visible key (q_offset + n_obs - 1) write exact zeros.
-// Layout: q_obs (B, n_obs, H, hd), k (B, Sk, KV, hd) contiguous, fp32/bf16.
+// TPU kernel becomes two launches on the same stream: (a) row statistics,
+// each CTA streaming a share (a key split) of the keys its rows see and
+// writing each row's partial (m, l) to a float32 scratch (B, H, n_split,
+// n_obs); (b) column means, one CTA per 64-key tile merging the partials
+// into each row's final (m, l) in split order, recomputing its tile's
+// logits, and summing exp(s - m) / l over the rows.  Tiles past the last
+// visible key (q_offset + n_obs - 1) write exact zeros without reading K.
+// Layout: q_obs (B, n_obs, H, hd), k (B, Sk, KV, hd) contiguous.
+//
+// bf16 (namespace tc): tensor cores, the GQA group packed into one tile.
+// A CTA takes all G query heads of one kv head over a block of
+// observation rows: each head's rows are padded to 16, and a row block is
+// 8 such 16-row fragments in (row fragment, head) order (llama3-8b's 4
+// heads x 32 rows are one block of 128 packed rows), so each K tile in
+// shared memory serves the whole group.  S = Q K^T runs on mma.sync
+// m16n8k16 (bf16 operands from ldmatrix on padded rows, float32
+// accumulators), 4 warps of two fragments each, K tiles through a 3-stage
+// cp.async ring in (a); logits are in base 2 (scale * log2 e folded in,
+// exp2f), the softmax arithmetic float32.  Launch (a): grid (n_split x row
+// blocks, KV, B), the online (m, l) of each packed row in registers,
+// reduced over a fragment's quad by shuffles.  Launch (b): grid (key
+// tiles, KV, B); K staged once; per row block (a 2-stage cp.async ring of
+// the packed Q rows and the raw partials) the partials merged once per
+// row into (m, 1 / max(l, 1e-30)), the logits recomputed by the same MMA
+// calls in the same order as (a), and the weights summed over each head's
+// rows: within a fragment by shuffles, across fragments and row blocks
+// through shared memory in a fixed order (deterministic, no atomics).
+//
+// float32 (namespace fp32): a tensor-core product of float32 inputs would
+// round them to TF32, far outside the 2^-16 tolerance, so float32 keeps
+// scalar FMAs over operands widened in shared memory: one CTA per (row
+// tile of 32, head), the (m, l) scratch in natural units.
 //
 // Bound on the H100: bandwidth, the bytes of q_obs, the visible key rows
-// (each read once) and the output over 3.35 TB/s; the 2*hd*H*n_obs*keys
-// operations are far below the bf16 peak.  What this design leaves on the
-// table: the keys are read twice (once per launch), the logits are computed
-// twice, no tensor cores, no TMA.
+// (each read once) and the output over 3.35 TB/s (~2.7 us at llama3-8b's
+// 32 rows over 4096 keys).  The bf16 MMAs (~1 GFLOP a launch there) take
+// well under that, so a call is bound by its two launches and the round
+// trips inside them (the first K tile, the partials in (b)).  What this
+// design leaves on the table: K is read twice and the logits computed
+// twice, once per launch; a thread-block cluster holding a kv head's key
+// splits could merge the (m, l) through distributed shared memory and
+// emit the column means in one launch, reading K once.
 #include "common.cuh"
 
 namespace {
+
+namespace fp32 {
 
 constexpr int RQ = 32;        // observation rows per tile
 constexpr int BK = 64;        // keys per tile
@@ -234,66 +262,590 @@ obs_column_means(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const uint8_t* kv_mask,
-                   const uint8_t* row_valid, float* m_buf, float* l_buf,
-                   float* out, int B, int n_obs, int H, int Sk, int KV,
-                   int n_prompt, int q_offset, int window, int n_split,
-                   cudaStream_t st) {
+
+}  // namespace fp32
+
+namespace tc {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int BK = 64;             // keys per tile
+constexpr int NF = BK / 8;         // n8 fragments of S per tile
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int FPW = 2;             // 16-row fragments per warp
+constexpr int MAXF = WARPS * FPW;  // fragments per row block
+constexpr int ROWS = 16 * MAXF;    // packed rows per row block
+constexpr int NST = 3;             // K ring stages of launch (a)
+constexpr int MAX_SPLITS = 16;     // kernels/lookahead_score.py: MAX_SPLITS
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(THREADS == ROWS, "launch (b) merges one packed row a thread");
+
+template <int HD>
+struct Shape {
+  static constexpr int LD = HD + 8;   // halves per shared row (conflict-free
+                                      // ldmatrix: rows 16 bytes apart in banks)
+  static constexpr int KS = HD / 16;  // k-steps of the product
+  static constexpr int CH = HD / 8;   // 16-byte chunks per row
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with `valid` false it writes zeros and reads
+// nothing (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices; lanes 8i .. 8i + 7 give matrix i's row addresses.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a . b, m16n8k16, bf16 operands, float32 accumulators.  Fragments
+// (g = lane / 4, t = lane % 4): A (row g, k 2t..2t+1), (row g+8, k 2t..),
+// (row g, k 8+2t..), (row g+8, k 8+2t..); B (k 2t..2t+1, col g), (k 8+2t..,
+// col g); D (row g, col 2t), (row g, col 2t+1), (row g+8, col 2t),
+// (row g+8, col 2t+1).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Row block rb of one kv head's packed rows: fragments [f0, f1) of the
+// (row fragment j, head g) order, fragment f = 16 rows from 16 (f / G) of
+// query head kvh * G + f % G, rows past n_obs padding; its observation
+// rows span [row_lo, row_hi).
+struct Block {
+  int f0, f1, row_lo, row_hi;
+};
+
+__device__ __forceinline__ Block row_block(int rb, int G, int n_obs) {
+  Block blk;
+  blk.f0 = rb * MAXF;
+  blk.f1 = min((n_obs + 15) / 16 * G, blk.f0 + MAXF);
+  blk.row_lo = blk.f0 / G * 16;
+  blk.row_hi = min(n_obs, ((blk.f1 - 1) / G + 1) * 16);
+  return blk;
+}
+
+// The block's packed query rows into sQ (zeros where padding).
+template <int HD>
+__device__ __forceinline__ void stage_q(bf16* sQ, const bf16* q,
+                                        const Block& blk, int b, int n_obs,
+                                        int H, int G, int kvh) {
+  using S = Shape<HD>;
+  for (int i = threadIdx.x; i < ROWS * S::CH; i += THREADS) {
+    const int p = i / S::CH, c = i % S::CH;
+    const int f = blk.f0 + p / 16, row = f / G * 16 + p % 16;
+    const bool ok = f < blk.f1 && row < n_obs;
+    const bf16* src =
+        ok ? q + (((size_t)b * n_obs + row) * H + kvh * G + f % G) * HD + c * 8
+           : q;
+    cp_async16(sQ + p * S::LD + c * 8, src, ok);
+  }
+}
+
+// Keys [k0, k0 + BK) of kv head kvh into sK (zeros at or past Sk).
+template <int HD>
+__device__ __forceinline__ void stage_k(bf16* sK, const bf16* k, int b,
+                                        int k0, int Sk, int KV, int kvh) {
+  using S = Shape<HD>;
+  for (int i = threadIdx.x; i < BK * S::CH; i += THREADS) {
+    const int r = i / S::CH, c = i % S::CH;
+    const bool ok = k0 + r < Sk;
+    const bf16* src =
+        ok ? k + (((size_t)b * Sk + k0 + r) * KV + kvh) * HD + c * 8 : k;
+    cp_async16(sK + r * S::LD + c * 8, src, ok);
+  }
+}
+
+// This warp's FPW A fragments (every k-step) from sQ.
+template <int HD>
+__device__ __forceinline__ void load_q(uint32_t (&qa)[FPW][HD / 16][4],
+                                       const bf16* sQ) {
+  using S = Shape<HD>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int f = 0; f < FPW; ++f) {
+    const bf16* row = sQ + ((warp * FPW + f) * 16 + (lane & 7) +
+                            ((lane >> 3) & 1) * 8) * S::LD + (lane >> 4) * 8;
+#pragma unroll
+    for (int ks = 0; ks < S::KS; ++ks) ldsm_x4(qa[f][ks], row + ks * 16);
+  }
+}
+
+// S = Q K^T of this warp's fragments over the BK keys of sK: s[f][n][e] is
+// (packed row 16 (warp FPW + f) + lane / 4 + 8 (e / 2), key 8 n + 2 (lane
+// % 4) + e % 2).  Both launches call this, so each logit is the same MMAs
+// (k-steps in order, from zero) in each.
+template <int HD>
+__device__ __forceinline__ void logits(const uint32_t (&qa)[FPW][HD / 16][4],
+                                       const bf16* sK,
+                                       float (&s)[FPW][NF][4]) {
+  using S = Shape<HD>;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int f = 0; f < FPW; ++f)
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[f][n][e] = 0.f;
+  const bf16* row = sK + ((lane & 7) + (lane >> 4) * 8) * S::LD +
+                    ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int ks = 0; ks < S::KS; ++ks) {
+#pragma unroll
+    for (int np = 0; np < NF / 2; ++np) {  // keys 16 np .. 16 np + 15
+      uint32_t bk[4];
+      ldsm_x4(bk, row + np * 16 * S::LD + ks * 16);
+#pragma unroll
+      for (int f = 0; f < FPW; ++f) {
+        mma_bf16(s[f][2 * np], qa[f][ks], bk[0], bk[1]);
+        mma_bf16(s[f][2 * np + 1], qa[f][ks], bk[2], bk[3]);
+      }
+    }
+  }
+}
+
+// Bit 2 n + e: key k0 + 8 n + 2 (lane % 4) + e exists and passes kv_mask
+// (which covers keys < n_prompt only).
+__device__ __forceinline__ unsigned key_bits(int k0, int Sk, int n_prompt,
+                                             const uint8_t* kvm) {
+  const int t = threadIdx.x & 3;
+  unsigned bits = 0;
+#pragma unroll
+  for (int n = 0; n < NF; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int kpos = k0 + 8 * n + 2 * t + e;
+      const bool ok = kpos < Sk && (kvm == nullptr || kpos >= n_prompt ||
+                                    kvm[kpos] != 0);
+      bits |= (unsigned)ok << (2 * n + e);
+    }
+  return bits;
+}
+
+// Row qpos sees key kpos (causal, window).
+__device__ __forceinline__ bool sees(int kpos, int qpos, int window) {
+  return kpos <= qpos && (window <= 0 || qpos - kpos < window);
+}
+
+// Launch (a).  Grid (n_split x row blocks, KV, B), THREADS threads.
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+obs_row_stats_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const uint8_t* __restrict__ kv_mask,
+                  float* __restrict__ m_out, float* __restrict__ l_out,
+                  int n_obs, int H, int Sk, int KV, int n_prompt,
+                  int q_offset, int window, int n_split, float qscale) {
+  using S = Shape<HD>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);  // ROWS x LD
+  bf16* sK = sQ + ROWS * S::LD;               // NST x BK x LD
+  const int G = H / KV, split = blockIdx.x % n_split;
+  const Block blk = row_block(blockIdx.x / n_split, G, n_obs);
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const uint8_t* kvm = kv_mask ? kv_mask + (size_t)b * n_prompt : nullptr;
+
+  // this split's share of the key tiles the block's rows see
+  const int k_end = min(Sk, q_offset + blk.row_hi);
+  int k_begin =
+      window > 0 ? max(0, q_offset + blk.row_lo - window + 1) / BK * BK : 0;
+  const int per = ((max(k_end - k_begin, 0) + BK - 1) / BK + n_split - 1) /
+                  n_split;
+  k_begin += split * per * BK;
+  const int n_t = min(per, max(0, (k_end - k_begin + BK - 1) / BK));
+
+  // this thread's rows: fragment f, half e2
+  int qpos[FPW][2], row[FPW][2], head[FPW];
+  bool real[FPW][2];
+  float m[FPW][2], l[FPW][2];
+#pragma unroll
+  for (int f = 0; f < FPW; ++f) {
+    const int fi = blk.f0 + warp * FPW + f;
+    head[f] = kvh * G + fi % G;
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      row[f][e2] = fi / G * 16 + gid + 8 * e2;
+      real[f][e2] = fi < blk.f1 && row[f][e2] < n_obs;
+      qpos[f][e2] = q_offset + row[f][e2];
+      m[f][e2] = NEG_INF;
+      l[f][e2] = 0.f;
+    }
+  }
+
+  if (n_t > 0) {
+    stage_q<HD>(sQ, q, blk, b, n_obs, H, G, kvh);
+#pragma unroll
+    for (int t = 0; t < NST - 1; ++t) {  // the Q rows ride with tile 0
+      if (t < n_t)
+        stage_k<HD>(sK + t * BK * S::LD, k, b, k_begin + t * BK, Sk, KV, kvh);
+      cp_async_commit();
+    }
+    uint32_t qa[FPW][S::KS][4];
+    for (int t = 0; t < n_t; ++t) {
+      cp_async_wait<NST - 2>();  // tile t (and the Q rows) landed
+      __syncthreads();           // ... for every thread; tile t - 1 is read
+      if (t == 0) load_q<HD>(qa, sQ);
+      const int tn = t + NST - 1;  // refill the stage tile t - 1 held
+      if (tn < n_t)
+        stage_k<HD>(sK + (tn % NST) * BK * S::LD, k, b, k_begin + tn * BK,
+                    Sk, KV, kvh);
+      cp_async_commit();
+      const int k0 = k_begin + t * BK;
+      const unsigned kb = key_bits(k0, Sk, n_prompt, kvm);
+      float s[FPW][NF][4];
+      logits<HD>(qa, sK + (t % NST) * BK * S::LD, s);
+#pragma unroll
+      for (int f = 0; f < FPW; ++f) {
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          unsigned ok = 0;
+          float tmax = NEG_INF;
+#pragma unroll
+          for (int n = 0; n < NF; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const bool v = real[f][e2] && ((kb >> (2 * n + e)) & 1u) &&
+                             sees(k0 + 8 * n + 2 * tig + e, qpos[f][e2],
+                                  window);
+              const float x =
+                  v ? __fmul_rn(s[f][n][2 * e2 + e], qscale) : NEG_INF;
+              s[f][n][2 * e2 + e] = x;
+              ok |= (unsigned)v << (2 * n + e);
+              tmax = fmaxf(tmax, x);
+            }
+          tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, 1));
+          tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, 2));
+          const float m_new = fmaxf(m[f][e2], tmax);
+          float psum = 0.f;
+#pragma unroll
+          for (int n = 0; n < NF; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              psum += ((ok >> (2 * n + e)) & 1u)
+                          ? exp2f(__fsub_rn(s[f][n][2 * e2 + e], m_new))
+                          : 0.f;
+          psum += __shfl_xor_sync(FULL, psum, 1);
+          psum += __shfl_xor_sync(FULL, psum, 2);
+          l[f][e2] = l[f][e2] * exp2f(__fsub_rn(m[f][e2], m_new)) + psum;
+          m[f][e2] = m_new;
+        }
+      }
+    }
+    cp_async_wait<0>();
+  }
+  if (tig == 0) {
+#pragma unroll
+    for (int f = 0; f < FPW; ++f)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2)
+        if (real[f][e2]) {
+          const size_t o =
+              ((size_t)(b * H + head[f]) * n_split + split) * n_obs +
+              row[f][e2];
+          m_out[o] = m[f][e2];
+          l_out[o] = l[f][e2];
+        }
+  }
+}
+
+// Launch (b).  Grid (key tiles, KV, B), THREADS threads; qstages 1 or 2
+// (2: the next row block's Q rows and partials load while this one is
+// scored).  Dynamic shared memory: the K tile, qstages x (packed Q rows,
+// raw partials), each row's final (m, 1 / l), the fragments' column sums,
+// the heads' column sums.
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+obs_column_means_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const uint8_t* __restrict__ kv_mask,
+                     const uint8_t* __restrict__ row_valid,
+                     const float* __restrict__ m_in,
+                     const float* __restrict__ l_in, float* __restrict__ out,
+                     int n_obs, int H, int Sk, int KV, int n_prompt,
+                     int q_offset, int window, int n_split, int qstages,
+                     float qscale) {
+  using S = Shape<HD>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);  // BK x LD
+  bf16* sQ = sK + BK * S::LD;                 // qstages x ROWS x LD
+  // raw partials: qstages x n_split x (m row, l row) x ROWS
+  float* sP = reinterpret_cast<float*>(sQ + qstages * ROWS * S::LD);
+  float* s_m = sP + qstages * n_split * 2 * ROWS;  // ROWS
+  float* s_inv = s_m + ROWS;                       // ROWS
+  float* s_red = s_inv + ROWS;                     // MAXF x BK
+  float* s_col = s_red + MAXF * BK;                // G x BK
+  const int G = H / KV, k0 = blockIdx.x * BK;
+  const int kvh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, gid = lane >> 2, tig = lane & 3;
+  float* ob = out + ((size_t)b * H + kvh * G) * n_prompt;
+
+  // the row blocks with a row that may see a key of this tile (a run)
+  const int n_rb = ((n_obs + 15) / 16 * G + MAXF - 1) / MAXF;
+  int rb_lo = n_rb, rb_hi = 0;
+  for (int rb = 0; rb < n_rb; ++rb) {
+    const Block blk = row_block(rb, G, n_obs);
+    if (q_offset + blk.row_hi - 1 >= k0 &&
+        (window <= 0 || q_offset + blk.row_lo - (k0 + BK - 1) < window)) {
+      rb_lo = min(rb_lo, rb);
+      rb_hi = rb + 1;
+    }
+  }
+  if (rb_lo >= rb_hi) {  // no row sees this tile: exact zeros, K unread
+    for (int i = tid; i < G * BK; i += THREADS)
+      if (k0 + i % BK < n_prompt) ob[(size_t)(i / BK) * n_prompt + k0 + i % BK] = 0.f;
+    return;
+  }
+  for (int i = tid; i < G * BK; i += THREADS) s_col[i] = 0.f;
+
+  // row block rb's packed Q rows and raw partials into ring slot `slot`
+  auto stage_rows = [&](int rb, int slot) {
+    const Block blk = row_block(rb, G, n_obs);
+    stage_q<HD>(sQ + slot * ROWS * S::LD, q, blk, b, n_obs, H, G, kvh);
+    float* P = sP + slot * n_split * 2 * ROWS;
+    for (int i = tid; i < n_split * ROWS; i += THREADS) {
+      const int sp = i / ROWS, p = i % ROWS;
+      const int f = blk.f0 + p / 16, row = f / G * 16 + p % 16;
+      if (f < blk.f1 && row < n_obs) {
+        const size_t o =
+            ((size_t)(b * H + kvh * G + f % G) * n_split + sp) * n_obs + row;
+        cp_async4(P + 2 * sp * ROWS + p, m_in + o);
+        cp_async4(P + (2 * sp + 1) * ROWS + p, l_in + o);
+      }
+    }
+  };
+
+  stage_k<HD>(sK, k, b, k0, Sk, KV, kvh);
+  stage_rows(rb_lo, 0);
+  cp_async_commit();
+  const unsigned kb = key_bits(k0, Sk, n_prompt,
+                               kv_mask ? kv_mask + (size_t)b * n_prompt
+                                       : nullptr);
+  for (int rb = rb_lo; rb < rb_hi; ++rb) {
+    const int slot = qstages == 2 ? (rb - rb_lo) & 1 : 0;
+    const Block blk = row_block(rb, G, n_obs);
+    if (qstages == 2) {
+      if (rb + 1 < rb_hi) stage_rows(rb + 1, slot ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    // this thread's packed row: its final (m, 1 / l) from the partials in
+    // split order; 1 / l = 0 marks a padded or invalid row
+    const int p = tid, fp = blk.f0 + p / 16, rp = fp / G * 16 + p % 16;
+    const bool live =
+        fp < blk.f1 && rp < n_obs &&
+        (row_valid == nullptr || row_valid[(size_t)b * n_obs + rp] != 0);
+    __syncthreads();  // this block's rows landed for every thread
+    {
+      const float* P = sP + slot * n_split * 2 * ROWS + p;
+      float mr = NEG_INF, lr = 0.f;
+      if (live) {
+        for (int sp = 0; sp < n_split; ++sp) mr = fmaxf(mr, P[2 * sp * ROWS]);
+        for (int sp = 0; sp < n_split; ++sp)
+          lr = __fmaf_rn(P[(2 * sp + 1) * ROWS],
+                         exp2f(__fsub_rn(P[2 * sp * ROWS], mr)), lr);
+      }
+      s_m[p] = mr;
+      s_inv[p] = live ? 1.f / fmaxf(lr, L_FLOOR) : 0.f;
+    }
+    __syncthreads();
+    uint32_t qa[FPW][S::KS][4];
+    load_q<HD>(qa, sQ + slot * ROWS * S::LD);
+    float s[FPW][NF][4];
+    logits<HD>(qa, sK, s);
+#pragma unroll
+    for (int f = 0; f < FPW; ++f) {
+      const int fi = blk.f0 + warp * FPW + f;
+      float col[NF][2];
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int pr = (warp * FPW + f) * 16 + gid + 8 * e2;
+        const int qpos = q_offset + fi / G * 16 + gid + 8 * e2;
+        const float mr = s_m[pr], inv = s_inv[pr];
+#pragma unroll
+        for (int n = 0; n < NF; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool v = inv != 0.f && ((kb >> (2 * n + e)) & 1u) &&
+                           sees(k0 + 8 * n + 2 * tig + e, qpos, window);
+            const float w =
+                v ? exp2f(__fsub_rn(__fmul_rn(s[f][n][2 * e2 + e], qscale),
+                                    mr)) * inv
+                  : 0.f;
+            col[n][e] = e2 == 0 ? w : col[n][e] + w;
+          }
+      }
+#pragma unroll
+      for (int n = 0; n < NF; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1)
+            col[n][e] += __shfl_xor_sync(FULL, col[n][e], o);
+      if (gid == 0) {
+#pragma unroll
+        for (int n = 0; n < NF; ++n)
+          *reinterpret_cast<float2*>(
+              s_red + (warp * FPW + f) * BK + 8 * n + 2 * tig) =
+              make_float2(col[n][0], col[n][1]);
+      }
+    }
+    __syncthreads();  // the fragments' sums are in; this slot is read
+    if (qstages == 1 && rb + 1 < rb_hi) {
+      stage_rows(rb + 1, 0);
+      cp_async_commit();
+    }
+    if (tid < BK) {  // each head's column sums, fragments in order
+      for (int x = 0; x < MAXF && blk.f0 + x < blk.f1; ++x)
+        s_col[(blk.f0 + x) % G * BK + tid] += s_red[x * BK + tid];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < G * BK; i += THREADS)
+    if (k0 + i % BK < n_prompt)
+      ob[(size_t)(i / BK) * n_prompt + k0 + i % BK] = s_col[i] / (float)n_obs;
+}
+
+}  // namespace tc
+
+template <int HD>
+cudaError_t launch_fma(const float* q, const float* k,
+                       const uint8_t* kv_mask, const uint8_t* row_valid,
+                       float* m_buf, float* l_buf, float* out, int B,
+                       int n_obs, int H, int Sk, int KV, int n_prompt,
+                       int q_offset, int window, int n_split,
+                       cudaStream_t st) {
+  using namespace fp32;
   const float scale = 1.f / sqrtf((float)HD);
   const int smem1 = (RQ + BK) * (HD + 1) * sizeof(float);
   const int smem2 = smem1 + RQ * (BK + 1) * sizeof(float);
-  auto* k1 = obs_row_stats<T, HD>;
-  auto* k2 = obs_column_means<T, HD>;
+  auto* k1 = obs_row_stats<float, HD>;
+  auto* k2 = obs_column_means<float, HD>;
   cudaError_t err = allow_smem(k1, smem1);
   if (err == cudaSuccess) err = allow_smem(k2, smem2);
   if (err != cudaSuccess) return err;
   dim3 g1(n_split * ((n_obs + RQ - 1) / RQ), H, B);
-  k1<<<g1, THREADS, smem1, st>>>((const T*)q, (const T*)k, kv_mask, m_buf,
-                                 l_buf, n_obs, H, Sk, KV, n_prompt, q_offset,
-                                 window, n_split, scale);
+  k1<<<g1, THREADS, smem1, st>>>(q, k, kv_mask, m_buf, l_buf, n_obs, H, Sk,
+                                 KV, n_prompt, q_offset, window, n_split,
+                                 scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 g2((n_prompt + BK - 1) / BK, H, B);
-  k2<<<g2, THREADS, smem2, st>>>((const T*)q, (const T*)k, kv_mask,
-                                 row_valid, m_buf, l_buf, out, n_obs, H, Sk,
-                                 KV, n_prompt, q_offset, window, n_split,
-                                 scale);
+  k2<<<g2, THREADS, smem2, st>>>(q, k, kv_mask, row_valid, m_buf, l_buf, out,
+                                 n_obs, H, Sk, KV, n_prompt, q_offset, window,
+                                 n_split, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k,
-                        const uint8_t* kv_mask, const uint8_t* row_valid,
-                        float* m_buf, float* l_buf, float* out, int B,
-                        int n_obs, int H, int Sk, int KV, int n_prompt,
-                        int q_offset, int window, int n_split,
-                        cudaStream_t st) {
-  switch (hd) {
-    case 32: return launch<T, 32>(q, k, kv_mask, row_valid, m_buf, l_buf, out, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, st);
-    case 64: return launch<T, 64>(q, k, kv_mask, row_valid, m_buf, l_buf, out, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, st);
-    case 128: return launch<T, 128>(q, k, kv_mask, row_valid, m_buf, l_buf, out, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, st);
-    default: return cudaErrorInvalidValue;
+template <int HD>
+cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                       const uint8_t* kv_mask, const uint8_t* row_valid,
+                       float* m_buf, float* l_buf, float* out, int B,
+                       int n_obs, int H, int Sk, int KV, int n_prompt,
+                       int q_offset, int window, int n_split,
+                       cudaStream_t st) {
+  using namespace tc;
+  using S = Shape<HD>;
+  if (n_split > MAX_SPLITS) return cudaErrorInvalidValue;
+  const int G = H / KV;
+  const int n_rb = ((n_obs + 15) / 16 * G + MAXF - 1) / MAXF;
+  const int qstages = n_rb > 1 ? 2 : 1;
+  const float qscale = 1.f / sqrtf((float)HD) * LOG2E;
+  constexpr int smem1 = (ROWS + NST * BK) * S::LD * 2;
+  const int smem2 = (BK + qstages * ROWS) * S::LD * 2 +
+                    (qstages * n_split * 2 * ROWS + 2 * ROWS + MAXF * BK +
+                     G * BK) * 4;
+  auto* k1 = obs_row_stats_mma<HD>;
+  auto* k2 = obs_column_means_mma<HD>;
+  static const cudaError_t allowed1 = allow_smem(k1, smem1);
+  if (allowed1 != cudaSuccess) return allowed1;
+  static int allowed2 = 0;  // the largest ceiling set so far
+  if (smem2 > allowed2) {
+    const cudaError_t err = allow_smem(k2, smem2);
+    if (err != cudaSuccess) return err;
+    allowed2 = smem2;
   }
+  k1<<<dim3(n_split * n_rb, KV, B), THREADS, smem1, st>>>(
+      q, k, kv_mask, m_buf, l_buf, n_obs, H, Sk, KV, n_prompt, q_offset,
+      window, n_split, qscale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k2<<<dim3((n_prompt + BK - 1) / BK, KV, B), THREADS, smem2, st>>>(
+      q, k, kv_mask, row_valid, m_buf, l_buf, out, n_obs, H, Sk, KV,
+      n_prompt, q_offset, window, n_split, qstages, qscale);
+  return cudaGetLastError();
+}
+
+// float32 on the FMA kernels, bf16 on the tensor-core kernels.
+template <int HD>
+cudaError_t dispatch(int dtype, const void* q, const void* k,
+                     const uint8_t* kv_mask, const uint8_t* row_valid,
+                     float* m_buf, float* l_buf, float* out, int B, int n_obs,
+                     int H, int Sk, int KV, int n_prompt, int q_offset,
+                     int window, int n_split, cudaStream_t st) {
+  if (dtype == DTYPE_F32)
+    return launch_fma<HD>((const float*)q, (const float*)k, kv_mask,
+                          row_valid, m_buf, l_buf, out, B, n_obs, H, Sk, KV,
+                          n_prompt, q_offset, window, n_split, st);
+  if (dtype == DTYPE_BF16)
+    return launch_mma<HD>((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                          kv_mask, row_valid, m_buf, l_buf, out, B, n_obs, H,
+                          Sk, KV, n_prompt, q_offset, window, n_split, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // kv_mask / row_valid may be null (all keys / rows valid); window <= 0
 // means no window.  m_buf / l_buf are (B, H, n_split, n_obs) float32
-// scratch; n_split >= 1 key splits share pass 1.
+// scratch; n_split >= 1 key splits share launch (a) (at most 16 in bf16).
 extern "C" int lookahead_score(const void* q, const void* k,
                                const void* kv_mask, const void* row_valid,
                                void* m_buf, void* l_buf, void* out, int B,
                                int n_obs, int H, int Sk, int KV, int hd,
                                int n_prompt, int q_offset, int window,
                                int n_split, int dtype, void* stream) {
+  if (KV < 1 || H % KV || n_obs < 1 || n_split < 1)
+    return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* km = (const uint8_t*)kv_mask;
   const uint8_t* rv = (const uint8_t*)row_valid;
-  if (dtype == DTYPE_F32)
-    return dispatch_hd<float>(hd, q, k, km, rv, (float*)m_buf, (float*)l_buf, (float*)out, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, st);
-  if (dtype == DTYPE_BF16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, km, rv, (float*)m_buf, (float*)l_buf, (float*)out, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, st);
-  return cudaErrorInvalidValue;
+  float *mb = (float*)m_buf, *lb = (float*)l_buf, *o = (float*)out;
+  switch (hd) {
+    case 32: return dispatch<32>(dtype, q, k, km, rv, mb, lb, o, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, st);
+    case 64: return dispatch<64>(dtype, q, k, km, rv, mb, lb, o, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, st);
+    case 128: return dispatch<128>(dtype, q, k, km, rv, mb, lb, o, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, st);
+    default: return cudaErrorInvalidValue;
+  }
 }

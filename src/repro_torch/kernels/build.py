@@ -50,7 +50,7 @@ SIGNATURES = {
     "lookahead_score": [_P] * 7 + [_I] * 11 + [_P],
     "paged_decode_attention": [_P] * 8 + [_I] * 9 + [_P],
     "paged_decode_masses": [_P] * 9 + [_I] * 9 + [_P],
-    "decode_attention": [_P] * 5 + [_I] * 7 + [_P],
+    "decode_attention": [_P] * 5 + [_I] * 8 + [_P],
     "ssd_scan": [_P] * 8 + [_I] * 10 + [_P],
 }
 # the entry point a source's library offers by default

@@ -6,6 +6,12 @@ mask, a (B, C) mask or the per-kv-head (B, C, KV) mask of the evicted
 decode caches (the Pallas kernel takes only the first two, so the JAX
 decode step runs its jnp reference there).  A (sequence, kv head) with no
 valid row gives exact zeros.  Plain version: ``ref.decode_attention``.
+
+The kernel splits each (sequence, kv head)'s rows over the CTAs of one
+thread-block cluster (``csrc/decode_split.cuh``, the routine of the paged
+kernels 4 and 5): ``row_splits`` picks how many from the shapes and the
+card's SM count; the CTAs merge in rank order in the same launch, so
+results are deterministic.
 """
 
 from __future__ import annotations
@@ -14,10 +20,18 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, paged_attention
 
 #: kernel launches since the last reset (``ops.reset_launch_counts``)
 launches = 0
+
+
+def row_splits(B: int, KV: int, C: int, sms: int) -> int:
+    """CTAs per (sequence, kv head): the paged kernels' rule
+    (``paged_attention.row_splits``) with each row a block of one, so at
+    least ``MIN_ROWS_PER_SPLIT`` rows per CTA, at most ``MAX_SPLITS``
+    CTAs, and one wave of CTAs on the ``sms`` SMs."""
+    return paged_attention.row_splits(B, KV, C, 1, sms)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -53,8 +67,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     err = build.library("decode_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), build.ptr(kv_mask),
-        out.data_ptr(), B, H, KV, C, hd, kind, build.DTYPE_CODES[q.dtype],
-        build.stream_ptr())
+        out.data_ptr(), B, H, KV, C, hd, kind,
+        row_splits(B, KV, C, build.sm_count(q.device)),
+        build.DTYPE_CODES[q.dtype], build.stream_ptr())
     build.check(err, "decode_attention")
     launches += 1
     return out

@@ -5,7 +5,10 @@ scores[b, h, j] = (1/n_obs) Σ_i softmax_i(q_obs·Kᵀ/√d)[j] for the first
 ``n_prompt`` keys, float32.  The TPU kernel's two phases become two
 launches on the current stream (row statistics, split over key ranges,
 then column means); the wrapper sizes the split and owns the (B, H,
-n_split, n_obs) float32 scratch.  Plain version: ``ref.lookahead_score``.
+n_split, n_obs) float32 scratch.  bf16 runs on tensor cores with each kv
+head's group of query heads packed into one tile (16-row fragments, 8 to
+a row block); float32 on scalar FMAs.  Plain version:
+``ref.lookahead_score``.
 """
 
 from __future__ import annotations
@@ -20,15 +23,36 @@ from repro_torch.kernels import build
 launches = 0
 
 _TILE = 64  # keys per tile (csrc/lookahead_score.cu: BK)
-_TILES_PER_SPLIT = 8  # visible key tiles one pass-1 CTA streams
-_MAX_SPLIT = 16
+#: 16-row fragments of one kv head's packed query rows per row block
+#: (csrc/lookahead_score.cu: MAXF)
+_FRAGMENTS = 8
+#: key splits of launch (a): at most this many (the bf16 kernel's limit) ...
+MAX_SPLITS = 16
+#: ... each streaming at least this many key tiles ...
+MIN_TILES_PER_SPLIT = 4
+#: ... and no more CTAs in all than this many per SM (two 128-thread CTAs
+#: of ~85 KB of shared memory fit one): one wave
+CTAS_PER_SM = 2
 
 
-def key_splits(n_visible: int) -> int:
-    """Pass-1 key splits: about ``_TILES_PER_SPLIT`` tiles per CTA, so a
-    long prompt spreads over many CTAs instead of one per (row tile, head)."""
+def row_blocks(n_obs: int, group: int) -> int:
+    """Launch (a)'s row blocks per (sequence, kv head): each query head's
+    ``n_obs`` rows padded to 16, ``_FRAGMENTS`` 16-row fragments a block."""
+    return -(-(-(-n_obs // 16) * group) // _FRAGMENTS)
+
+
+def key_splits(B: int, n_obs: int, H: int, KV: int, n_visible: int,
+               sms: int) -> int:
+    """Key splits of launch (a): as many as give each at least
+    ``MIN_TILES_PER_SPLIT`` of the ``n_visible`` keys' tiles, at most
+    ``MAX_SPLITS``, and no more than fit ``CTAS_PER_SM`` CTAs of all
+    (sequence, kv head, row block)s on each of the ``sms`` SMs: at
+    llama3-8b's finalize (B 1, 8 kv heads, 4032 visible keys) 16 splits
+    of ~4 tiles, 128 CTAs."""
     tiles = -(-max(n_visible, 1) // _TILE)
-    return max(1, min(_MAX_SPLIT, -(-tiles // _TILES_PER_SPLIT)))
+    ctas = B * KV * row_blocks(n_obs, H // KV)
+    return max(1, min(MAX_SPLITS, -(-tiles // MIN_TILES_PER_SPLIT),
+                      CTAS_PER_SM * sms // ctas))
 
 
 def _mask_arg(m: Optional[torch.Tensor], shape, device) -> Optional[int]:
@@ -65,7 +89,8 @@ def lookahead_score(q_obs: torch.Tensor, k: torch.Tensor, n_prompt: int, *,
     rv = _mask_arg(row_valid, (B, n_obs), q_obs.device)
     dev = q_obs.device
     off = n_prompt if q_offset is None else int(q_offset)
-    n_split = key_splits(min(Sk, off + n_obs))
+    n_split = key_splits(B, n_obs, H, KV, min(Sk, off + n_obs),
+                         build.sm_count(dev))
     m_buf = torch.empty((B, H, n_split, n_obs), dtype=torch.float32,
                         device=dev)
     l_buf = torch.empty_like(m_buf)

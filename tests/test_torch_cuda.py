@@ -203,6 +203,15 @@ def test_chunk_attention_sm90_counts_one_launch(dev, hd):
     (1, 2048, 2048, 32, 8, 128, 2048, 0, None, False),  # monolithic h2o
     (4, 32, 2080, 25, 5, 64, 2048, None, 1024, False),  # hymba local layer
     (4, 32, 2080, 25, 5, 64, 2048, None, None, False),  # hymba global layer
+    # the edges of the bf16 tensor-core tile: each head's rows padded to
+    # 16, 8 such fragments of the G heads to a row block, 64-key tiles
+    (1, 17, 500, 8, 2, 128, 483, None, None, False),  # n_obs 17
+    (1, 40, 1000, 32, 8, 128, 1000, 960, None, False),  # n_obs 40
+    (2, 17, 300, 10, 2, 64, 300, 283, None, True),  # G 5 at hd 64
+    (1, 32, 1000, 8, 2, 128, 1000, 900, 100, False),  # window ends mid-tile
+    (1, 32, 1000, 8, 2, 64, 968, None, None, False),  # Sk 1000: a ragged tile
+    (1, 32, 4096, 32, 8, 128, 4096, 3850, None, False),  # last split < a tile
+    (2, 20, 400, 8, 2, 32, 380, None, None, "dead"),  # every row invalid
 ])
 def test_lookahead_score_matches_plain(dev, dtype, B, n_obs, Sk, H, KV, hd,
                                        n_prompt, off, window, masks):
@@ -214,6 +223,8 @@ def test_lookahead_score_matches_plain(dev, dtype, B, n_obs, Sk, H, KV, hd,
         kvm = torch.rand((B, n_prompt), generator=g, device=dev) > 0.2
         rv = torch.rand((B, n_obs), generator=g, device=dev) > 0.3
         rv[0, 0] = False
+        if masks == "dead":
+            rv[-1] = False  # a sequence with no valid row
     got = lk.lookahead_score(q, k, n_prompt, kv_mask=kvm, window=window,
                              q_offset=off, row_valid=rv)
     torch.cuda.synchronize()
@@ -221,6 +232,34 @@ def test_lookahead_score_matches_plain(dev, dtype, B, n_obs, Sk, H, KV, hd,
                                q_offset=off, row_valid=rv)
     atol = min(1e-5, 2 ** -16 * float(want.abs().max()))
     torch.testing.assert_close(got, want, atol=atol, rtol=1e-4)
+    if masks == "dead":
+        assert torch.all(got[-1] == 0)
+
+
+def test_lookahead_score_is_two_launches(dev):
+    """One wrapper call is one count and two CUDA launches: the tensor-core
+    kernels in bf16 (main-path shape: 16 key splits), the FMA kernels in
+    float32."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    B, n_obs, Sk, H, KV, hd = 1, 32, 4096, 32, 8, 128
+    assert lk.key_splits(B, n_obs, H, KV, 4032, build.sm_count(dev)) > 1
+    for dtype, part in ((torch.bfloat16, "_mma"), (torch.float32, "")):
+        q = _randn(g, (B, n_obs, H, hd), dtype, dev)
+        k = _randn(g, (B, Sk, KV, hd), dtype, dev)
+        lk.lookahead_score(q, k, Sk, q_offset=4000)  # built and warm
+        before = lk.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lk.lookahead_score(q, k, Sk, q_offset=4000)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 2, names
+        assert f"obs_row_stats{part}" in names[0], names
+        assert f"obs_column_means{part}" in names[1], names
+        assert lk.launches == before + 1
 
 
 #: split counts forced on kernels 4 and 5 (None: ``row_splits``'s pick)
@@ -429,23 +468,49 @@ def test_flash_attention_sm90_counts_one_launch(dev, hd):
         {n: c for n, c in before.items() if n != "flash_attention"}
 
 
+#: split counts forced on kernel 6 (None: ``row_splits``' pick)
+DENSE_SPLITS = [None, 1, 2, 4, 8]
+
+
+def _force_dense_splits(monkeypatch, n):
+    """Replace kernel 6's split rule by a constant ``n`` (None keeps the
+    rule)."""
+    if n is not None:
+        monkeypatch.setattr(dk, "row_splits", lambda *a, **kw: n)
+
+
+@pytest.mark.parametrize("splits", DENSE_SPLITS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,mask_kind", [
-    (289, 3),  # dense decode of llama3-8b: budget 256 + 33 append rows
-    (289, 2),
-    (100, 0),
-    (70, 3),
+@pytest.mark.parametrize("C,mask_kind,heads", [
+    # dense decode of llama3-8b: budget 256 + 33 append rows
+    (289, 3, (32, 8, 128)),
+    (289, 2, (32, 8, 128)),
+    (100, 0, (32, 8, 128)),
+    (70, 3, (32, 8, 128)),
+    (3, 3, (32, 8, 128)),  # fewer rows than splits
+    (1, 2, (32, 8, 128)),  # one row
+    (1, 0, (32, 8, 128)),
+    (200, 3, (8, 8, 64)),  # G 1
+    (200, 3, (10, 2, 64)),  # G 5: a pass of 4 heads, then one of 1
+    (200, 2, (64, 8, 128)),  # G 8
+    (150, 3, (32, 2, 32)),  # G 16 at hd 32
+    (150, 0, (64, 2, 64)),  # G 32
 ])
-def test_decode_attention_matches_plain(dev, dtype, C, mask_kind):
+def test_decode_attention_matches_plain(dev, dtype, C, mask_kind, heads,
+                                        splits, monkeypatch):
+    _force_dense_splits(monkeypatch, splits)
     g = torch.Generator(device=dev).manual_seed(5)
-    B, H, KV, hd = 4, 32, 8, 128
+    B = 4
+    H, KV, hd = heads
+    G = H // KV
     q = _randn(g, (B, H, hd), dtype, dev)
     k = _randn(g, (B, C, KV, hd), dtype, dev)
     v = _randn(g, (B, C, KV, hd), dtype, dev)
     mask = None
+    dead = min(5, KV - 1)
     if mask_kind == 3:
         mask = torch.rand((B, C, KV), generator=g, device=dev) > 0.3
-        mask[1, :, 5] = False  # a fully masked head -> exact zeros
+        mask[1, :, dead] = False  # a fully masked head -> exact zeros
         mask[2] = False  # a sequence with no valid row -> exact zeros
     elif mask_kind == 2:
         mask = torch.rand((B, C), generator=g, device=dev) > 0.3
@@ -457,15 +522,18 @@ def test_decode_attention_matches_plain(dev, dtype, C, mask_kind):
     if mask is not None:
         assert torch.all(got[2] == 0)
     if mask_kind == 3:
-        assert torch.all(got[1, 5 * 4:6 * 4] == 0)
+        assert torch.all(got[1, dead * G:(dead + 1) * G] == 0)
 
 
+@pytest.mark.parametrize("splits", DENSE_SPLITS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [None, 1024])
-def test_decode_attention_at_hymba_shape(dev, dtype, window):
+def test_decode_attention_at_hymba_shape(dev, dtype, window, splits,
+                                         monkeypatch):
     """hymba-1.5b's lockstep decode: 4 x 289 rows, 25 q / 5 kv heads of
     64, the per-kv-head mask with the sliding window folded in (local
     layers) or not (global layers)."""
+    _force_dense_splits(monkeypatch, splits)
     g = torch.Generator(device=dev).manual_seed(7)
     B, C, H, KV, hd = 4, 289, 25, 5, 64
     q = _randn(g, (B, H, hd), dtype, dev)
@@ -480,6 +548,34 @@ def test_decode_attention_at_hymba_shape(dev, dtype, window):
     torch.cuda.synchronize()
     _assert_rows_close(got, ref.decode_attention(q, k, v, kv_mask=mask),
                        dtype, 2 ** -7)
+
+
+def test_decode_attention_is_one_cluster_launch(dev, monkeypatch):
+    """Kernel 6 makes one launch per call at the main path's shape, where
+    the rule splits each (sequence, kv head)'s rows over more than one
+    CTA; a split count the card cannot launch raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    B, C, H, KV, hd = 4, 289, 32, 8, 128
+    q = _randn(g, (B, H, hd), torch.bfloat16, dev)
+    k = _randn(g, (B, C, KV, hd), torch.bfloat16, dev)
+    mask = torch.ones((B, C, KV), dtype=torch.bool, device=dev)
+    assert dk.row_splits(B, KV, C, build.sm_count(dev)) > 1
+    dk.decode_attention(q, k, k, kv_mask=mask)  # built and warm
+    before = dk.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dk.decode_attention(q, k, k, kv_mask=mask)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "decode_kernel" in names[0], names
+    assert dk.launches == before + 1
+    _force_dense_splits(monkeypatch, 9)  # past the portable cluster size
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        dk.decode_attention(q, k, k, kv_mask=mask)
+    assert dk.launches == before + 1
 
 
 def _ssd_case(rng):

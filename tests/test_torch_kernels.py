@@ -29,6 +29,8 @@ from repro.kernels.paged_attention import paged_decode_attention_pallas
 from repro_torch.core import eviction as tev
 from repro_torch.core import scoring as tscoring
 from repro_torch.kernels import chunk_attention as _ck
+from repro_torch.kernels import decode_attention as _dk
+from repro_torch.kernels import lookahead_score as _lk
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as _pk
 
@@ -136,6 +138,35 @@ def test_row_splits(B, KV, nb, bs, want):
     assert _pk.row_splits(B, KV, nb, bs, 132) == want
 
 
+@pytest.mark.parametrize("B,C,KV,want", [
+    (4, 289, 8, 4),  # kernel 6's main path: 289 rows, 32 clusters
+    (4, 289, 5, 4),  # hymba-1.5b's 5 kv heads
+    (4, 64, 8, 2),  # 32 rows a CTA
+    (1, 1, 8, 1),  # one row: nothing to split
+    (4, 31, 8, 1),  # under one CTA's 32 rows
+    (64, 289, 8, 1),  # 512 clusters already fill the card
+])
+def test_dense_row_splits(B, C, KV, want):
+    """How many CTAs of one cluster share a (sequence, kv head)'s rows in
+    kernel 6 on a 132-SM card: the paged rule with rows as blocks of one."""
+    assert _dk.row_splits(B, KV, C, 132) == want
+
+
+@pytest.mark.parametrize("B,n_obs,H,KV,n_visible,blocks,want", [
+    (1, 32, 32, 8, 4032, 1, 16),  # llama3-8b's finalize: 63 key tiles
+    (4, 32, 32, 8, 2080, 1, 8),  # the lockstep prefill's call
+    (1, 2048, 32, 8, 2048, 64, 1),  # monolithic h2o: 512 CTAs already
+    (1, 32, 32, 8, 40, 1, 1),  # a one-tile prompt
+    (4, 32, 25, 5, 2080, 2, 6),  # hymba-1.5b: G 5 takes two row blocks
+    (1, 17, 8, 2, 500, 1, 2),  # n_obs 17: each head padded to 32 rows
+])
+def test_lookahead_key_splits(B, n_obs, H, KV, n_visible, blocks, want):
+    """Kernel 3's launch (a) on a 132-SM card: row blocks of 8 16-row
+    fragments of the packed GQA group, and the key splits of each."""
+    assert _lk.row_blocks(n_obs, H // KV) == blocks
+    assert _lk.key_splits(B, n_obs, H, KV, n_visible, 132) == want
+
+
 def test_chunk_attention_rejects_overflowing_chunk():
     """The buffer must hold the chunk: no silent clamp of the offset."""
     q = torch.zeros((1, 8, 2, 16))
@@ -160,7 +191,16 @@ def _score_case(rng):
                 masks=bool(rng.integers(2)), seed=int(rng.integers(1 << 30)))
 
 
-@pytest.mark.parametrize("case", sweep_cases(12, 6, _score_case))
+@pytest.mark.parametrize("case", sweep_cases(12, 6, _score_case) + [
+    # the edges of the card's bf16 tile (rows padded to 16 per head, the
+    # GQA group packed): n_obs 17 and 40, a group of 5
+    dict(B=1, n_obs=17, Sk=72, KV=2, H=10, hd=16, n_prompt=55, window=0,
+         masks=True, seed=101),
+    dict(B=2, n_obs=17, Sk=100, KV=1, H=5, hd=32, n_prompt=100, window=20,
+         masks=False, seed=102),
+    dict(B=1, n_obs=40, Sk=100, KV=2, H=8, hd=32, n_prompt=100, window=0,
+         masks=True, seed=103),
+])
 def test_lookahead_score_plain_matches_jax(case):
     """Traced-offset finalize form (n_prompt = Sk, q_offset < Sk) and the
     monolithic form (n_prompt = Sk - n_obs), with kv_mask and row_valid
