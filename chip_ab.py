@@ -42,8 +42,10 @@ rows split over 1, 2, 4 and 8 CTAs of a cluster (``row_splits``
 replaced) and the split ``row_splits`` picks; kernel 6 likewise at C 64,
 128, 289, 512 and 1024 rows (``decode_attention.row_splits``); kernel 3
 at llama3-8b's finalize and the lockstep prefill's call with 1, 2, 4, 8,
-12 and 16 key splits (``lookahead_score.key_splits``); one line per
-shape, the rule's pick marked with a *.
+16, 24 and 32 key splits in launch (a) (``lookahead_score.key_splits``)
+and 1, 2, 4 and 8 key tiles per CTA of launch (b)
+(``lookahead_score.column_tiles``); one line per shape, the rule's pick
+marked with a *.
 
     python3 chip_ab.py --marks .
 
@@ -281,24 +283,29 @@ def time_key_splits(root: str, torch, chip_smoke) -> None:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    rule = lk.key_splits
-    counts = (1, 2, 4, 8, 12, 16)
+    sms = build.sm_count(dev)
     for B, n_obs, Sk, n_prompt, off, H, KV, hd, window, label in SCORES[:2]:
         q, k = score_inputs(torch, g, B, n_obs, Sk, H, KV, hd)
         visible = min(Sk, (n_prompt if off is None else off) + n_obs)
-        picked = rule(B, n_obs, H, KV, visible, build.sm_count(dev))
-        times = []
-        for n in counts:
-            lk.key_splits = lambda *a, n=n, **kw: n
-            try:
-                times.append(chip_smoke.time_ms(torch, lambda: (
-                    lk.lookahead_score(q, k, n_prompt, q_offset=off,
-                                       window=window))))
-            finally:
-                lk.key_splits = rule
-        print(f"{root}: kernel 3, {label}: {swept(times, counts, picked)} ms "
-              "with 1 / 2 / 4 / 8 / 12 / 16 key splits; key_splits picks "
-              f"{picked}", flush=True)
+        call = lambda: lk.lookahead_score(q, k, n_prompt, q_offset=off,
+                                          window=window)
+        for rule_name, counts, picked in (
+                ("key_splits", (1, 2, 4, 8, 16, 24, 32),
+                 lk.key_splits(B, n_obs, H, KV, visible, sms)),
+                ("column_tiles", (1, 2, 4, 8),
+                 lk.column_tiles(B, KV, n_prompt, sms))):
+            rule = getattr(lk, rule_name)
+            times = []
+            for n in counts:
+                setattr(lk, rule_name, lambda *a, n=n, **kw: n)
+                try:
+                    times.append(chip_smoke.time_ms(torch, call))
+                finally:
+                    setattr(lk, rule_name, rule)
+            print(f"{root}: kernel 3, {label}: {swept(times, counts, picked)}"
+                  f" ms with {' / '.join(map(str, counts))} "
+                  f"{'key splits' if rule_name == 'key_splits' else 'key tiles per launch (b) CTA'}"
+                  f"; {rule_name} picks {picked}", flush=True)
 
 
 def time_row_splits(root: str, torch, chip_smoke) -> None:

@@ -18,7 +18,9 @@ kernel's plain version):
    (a ``chunk_attention`` library left by an earlier run is built again
    for that report); likewise each of the 12 instantiations of kernels 4
    and 5 (``decode_split.cuh``: 2 kernels x float32 / bf16 x hd 32, 64,
-   128) must have a ``-Xptxas -v`` entry and spill nothing.
+   128), the 6 of kernel 6 on the same routine (float32 / bf16 x 3 hd)
+   and the 6 of kernel 3's tensor-core kernels (launches (a) and (b),
+   bf16, 3 hd) must have a ``-Xptxas -v`` entry and spill nothing.
 1. Hold each kernel against its plain PyTorch version on the card, in
    bfloat16, at the shapes of the main paths (llama3-8b: H=32, KV=8,
    hd=128; chunk 256 and the 32-row observation pass over a 4096-deep
@@ -33,12 +35,21 @@ kernel's plain version):
    and the rule's pick on the edges of ``PAGED_EDGES``;
    monolithic causal prefill of 4 x 2080 rows and its 32 observation
    rows; dense decode of 4 sequences over 289 rows with a per-kv-head
-   mask) and on edge cases (lengths not a multiple of the tile, windows,
-   non-causal attention, masked rows and heads, ragged tables with null
-   blocks, GQA groups of 1 and 8; kernels 1 and 2 at the edges of the
-   Hopper tile, ``CHUNK_EDGES`` and ``MASSES_EDGES``, and kernel 1 also
-   timed at the observation pass; kernel 6's time printed beside its
-   recorded one), within a tolerance that is a fixed
+   mask, one launch on the grid (n_split, KV, B) that
+   ``decode_attention.row_splits`` gives; kernel 3's bf16 main call two
+   launches, of ``obs_row_stats_mma`` and ``obs_column_means_mma``, on the
+   grids ``key_splits`` and ``column_tiles`` give) and on edge cases
+   (lengths not a multiple of the tile, windows, non-causal attention,
+   masked rows and heads, ragged tables with null blocks, GQA groups of 1
+   and 8; kernels 1 and 2 at the edges of the Hopper tile,
+   ``CHUNK_EDGES`` and ``MASSES_EDGES``, and kernel 1 also timed at the
+   observation pass; kernel 3 at the edges of its tile: 17 and 40 rows, G
+   5, a window ending inside a key tile, a ragged key tail, a key split
+   under a tile, float32; kernel 6 under every mask kind with dead heads
+   and sequences, 3 and 1 rows, G 1, 5, 8 and 16, hd 32 and 64 and
+   float32, each at 1, 2, 4 and 8 forced splits and the rule's pick;
+   every timed kernel printed beside its recorded time,
+   ``RECORDED_MS``), within a tolerance that is a fixed
    fraction of the plain result's largest magnitude: per output row for
    attention and for the row masses, over the whole result for the
    scores.  Kernel 5's output must be bitwise kernel 4's, kernel 2's
@@ -560,9 +571,10 @@ def phase_kernels(torch, mods) -> list:
             return None
         # one count, two launches: the tensor-core kernels on their grids
         n_rb = lk.row_blocks(n_obs, Hs // KVs)
+        t_per = lk.column_tiles(B, KVs, n_prompt, sms)
         check_launches(call, ("obs_row_stats_mma", "obs_column_means_mma"),
                        ((n_split * n_rb, KVs, B),
-                        (-(-n_prompt // 64), KVs, B)))
+                        (-(-n_prompt // (64 * t_per)), KVs, B)))
         ms = time_ms(torch, call)
         plain = time_ms(torch, lambda: ref.lookahead_score(q, k, n_prompt,
                                                            **kw), iters=5)
@@ -644,11 +656,6 @@ def phase_kernels(torch, mods) -> list:
         return (f"row_splits' {pk.row_splits(B, KV, nb, bs, sms)} "
                 "splits")
 
-    def one_cluster_launch(fn, part, grid):
-        """``fn`` makes exactly one CUDA launch, of a kernel named
-        ``part``, on the grid (n_split, KV, B) when the trace records it."""
-        check_launches(fn, (part,), (grid,))
-
 
     def paged_case(label, window, timed=False, edge=False, one_live=False,
                    splits=None):
@@ -692,8 +699,8 @@ def phase_kernels(torch, mods) -> list:
         call = lambda: pk.paged_decode_attention(q, kp, vp, mask, table,
                                                  **kw)
         if not one_live:
-            one_cluster_launch(call, "paged_decode", (pk.row_splits(
-                B, KV, nb, bs, sms), KV, B))
+            check_launches(call, ("paged_decode",), ((pk.row_splits(
+                B, KV, nb, bs, sms), KV, B),))
         ms = time_ms(torch, call, iters=50)
         plain = time_ms(torch, lambda: ref.paged_decode_attention(
             q, kp, vp, mask, table, **kw), iters=10)
@@ -806,8 +813,8 @@ def phase_kernels(torch, mods) -> list:
             return None
         call = lambda: pk.paged_decode_masses(q, kp, vp, mask, table, **kw)
         if layout is None:
-            one_cluster_launch(call, "paged_masses", (pk.row_splits(
-                B, KVq, nb, bs, sms), KVq, B))
+            check_launches(call, ("paged_masses",), ((pk.row_splits(
+                B, KVq, nb, bs, sms), KVq, B),))
         ms = time_ms(torch, call, iters=50)
         plain = time_ms(torch, lambda: (
             ref.paged_decode_attention(q, kp, vp, mask, table, **kw),
@@ -967,7 +974,7 @@ def phase_kernels(torch, mods) -> list:
             print(f"  decode_attention {label}: {versus(timed_kernel, ms)}")
         if not timed:
             return None
-        one_cluster_launch(call, "decode_kernel", (n_rule, KVs, B))
+        check_launches(call, ("decode_kernel",), ((n_rule, KVs, B),))
         ms = time_ms(torch, call, iters=50)
         plain = time_ms(torch, lambda: ref.decode_attention(
             q, k, v, kv_mask=mask), iters=10)

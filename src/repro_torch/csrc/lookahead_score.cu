@@ -32,7 +32,10 @@
 // m16n8k16 (bf16 operands from ldmatrix on padded rows, float32
 // accumulators), 4 warps of two fragments each, K tiles through a 3-stage
 // cp.async ring in (a); logits are in base 2 (scale * log2 e folded in,
-// exp2f), the softmax arithmetic float32.  Launch (a): grid (n_split x row
+// ex2.approx), the softmax arithmetic float32.  Only the tiles on a
+// boundary (the causal diagonal, a window's edge, the ragged key tail, a
+// kv_mask) test each (row, key); the others, all but one of llama3-8b's
+// 63 at the finalize, take every pair unmasked.  Launch (a): grid (n_split x row
 // blocks, KV, B), the online (m, l) of each packed row in registers,
 // reduced over a fragment's quad by shuffles.  Launch (b): grid (key
 // tiles, KV, B); K staged once; per row block (a 2-stage cp.async ring of
@@ -41,6 +44,9 @@
 // calls in the same order as (a), and the weights summed over each head's
 // rows: within a fragment by shuffles, across fragments and row blocks
 // through shared memory in a fixed order (deterministic, no atomics).
+// (b) is a programmatic dependent launch: it starts while (a) runs,
+// stages its K tiles and Q rows, and waits for (a) only before it reads
+// the partials.
 //
 // float32 (namespace fp32): a tensor-core product of float32 inputs would
 // round them to TF32, far outside the 2^-16 tolerance, so float32 keeps
@@ -277,10 +283,17 @@ constexpr int FPW = 2;             // 16-row fragments per warp
 constexpr int MAXF = WARPS * FPW;  // fragments per row block
 constexpr int ROWS = 16 * MAXF;    // packed rows per row block
 constexpr int NST = 3;             // K ring stages of launch (a)
-constexpr int MAX_SPLITS = 16;     // kernels/lookahead_score.py: MAX_SPLITS
+constexpr int MAX_SMEM = 232448;   // dynamic shared memory a CTA may take
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
-static_assert(THREADS == ROWS, "launch (b) merges one packed row a thread");
+static_assert(THREADS >= ROWS, "launch (b) merges one packed row a thread");
+
+// 2^x on the special-function unit, results below 2^-126 flushed to zero.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 template <int HD>
 struct Shape {
@@ -314,6 +327,18 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Programmatic dependent launch: the launch after this one on the stream
+// (made with the programmatic-serialization attribute) may start once
+// every CTA of this grid has run this ...
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+// ... and waits here until this grid's predecessor has finished and its
+// stores are visible.
+__device__ __forceinline__ void wait_for_predecessor() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // Four 8x8 bf16 matrices; lanes 8i .. 8i + 7 give matrix i's row addresses.
@@ -457,6 +482,101 @@ __device__ __forceinline__ bool sees(int kpos, int qpos, int window) {
   return kpos <= qpos && (window <= 0 || qpos - kpos < window);
 }
 
+// Every row of [row_lo, row_hi) sees every key of [k0, k0 + BK): the tile
+// needs no mask (the common case: all but the causal diagonal's tiles).
+__device__ __forceinline__ bool open_tile(int k0, int row_lo, int row_hi,
+                                          int q_offset, int window, int Sk,
+                                          int n_prompt, bool kv_masked) {
+  return k0 + BK - 1 <= q_offset + row_lo && k0 + BK <= Sk &&
+         (window <= 0 || q_offset + row_hi - 1 - k0 < window) &&
+         (!kv_masked || k0 >= n_prompt);
+}
+
+// One tile's logits into this thread's rows' online (m, l), in base 2.
+// MASKED: a key a row does not see (or a padded row) scores nothing;
+// otherwise every (row, key) counts, padded rows too (they are never
+// stored).
+template <bool MASKED>
+__device__ __forceinline__ void row_update(float (&s)[FPW][NF][4],
+                                           float (&m)[FPW][2],
+                                           float (&l)[FPW][2],
+                                           const bool (&real)[FPW][2],
+                                           const int (&qpos)[FPW][2], int k0,
+                                           unsigned kb, int window,
+                                           float qscale) {
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int f = 0; f < FPW; ++f) {
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      unsigned ok = ~0u;
+      float tmax = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < NF; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = __fmul_rn(s[f][n][2 * e2 + e], qscale);
+          if (MASKED) {
+            const bool v = real[f][e2] && ((kb >> (2 * n + e)) & 1u) &&
+                           sees(k0 + 8 * n + 2 * tig + e, qpos[f][e2],
+                                window);
+            x = v ? x : NEG_INF;
+            ok = v ? ok : ok & ~(1u << (2 * n + e));
+          }
+          s[f][n][2 * e2 + e] = x;
+          tmax = fmaxf(tmax, x);
+        }
+      tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, 2));
+      const float m_new = fmaxf(m[f][e2], tmax);
+      float psum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NF; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = ex2(__fsub_rn(s[f][n][2 * e2 + e], m_new));
+          psum += ((ok >> (2 * n + e)) & 1u) ? p : 0.f;
+        }
+      psum += __shfl_xor_sync(FULL, psum, 1);
+      psum += __shfl_xor_sync(FULL, psum, 2);
+      l[f][e2] = l[f][e2] * ex2(__fsub_rn(m[f][e2], m_new)) + psum;
+      m[f][e2] = m_new;
+    }
+  }
+}
+
+// Each key column's weight exp2(s - m) / l summed over this thread's two
+// rows of one fragment (1 / l = 0: an invalid or padded row adds exactly
+// zero).  MASKED: a key a row does not see adds nothing; otherwise every
+// row sees every key (an open tile).
+template <bool MASKED>
+__device__ __forceinline__ void column_weights(const float (&s)[NF][4],
+                                               float (&col)[NF][2],
+                                               const float (&mr)[2],
+                                               const float (&inv)[2],
+                                               const int (&qpos)[2], int k0,
+                                               unsigned kb, int window,
+                                               float qscale) {
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float w = __fmul_rn(
+            ex2(__fsub_rn(__fmul_rn(s[n][2 * e2 + e], qscale), mr[e2])),
+            inv[e2]);
+        if (MASKED) {
+          const bool v = inv[e2] != 0.f && ((kb >> (2 * n + e)) & 1u) &&
+                         sees(k0 + 8 * n + 2 * tig + e, qpos[e2], window);
+          w = v ? w : 0.f;
+        }
+        col[n][e] = e2 == 0 ? w : col[n][e] + w;
+      }
+  }
+}
+
 // Launch (a).  Grid (n_split x row blocks, KV, B), THREADS threads.
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
@@ -475,6 +595,7 @@ obs_row_stats_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const uint8_t* kvm = kv_mask ? kv_mask + (size_t)b * n_prompt : nullptr;
+  launch_dependents();  // launch (b) may start and stage its K and Q
 
   // this split's share of the key tiles the block's rows see
   const int k_end = min(Sk, q_offset + blk.row_hi);
@@ -522,45 +643,14 @@ obs_row_stats_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     Sk, KV, kvh);
       cp_async_commit();
       const int k0 = k_begin + t * BK;
-      const unsigned kb = key_bits(k0, Sk, n_prompt, kvm);
       float s[FPW][NF][4];
       logits<HD>(qa, sK + (t % NST) * BK * S::LD, s);
-#pragma unroll
-      for (int f = 0; f < FPW; ++f) {
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          unsigned ok = 0;
-          float tmax = NEG_INF;
-#pragma unroll
-          for (int n = 0; n < NF; ++n)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const bool v = real[f][e2] && ((kb >> (2 * n + e)) & 1u) &&
-                             sees(k0 + 8 * n + 2 * tig + e, qpos[f][e2],
-                                  window);
-              const float x =
-                  v ? __fmul_rn(s[f][n][2 * e2 + e], qscale) : NEG_INF;
-              s[f][n][2 * e2 + e] = x;
-              ok |= (unsigned)v << (2 * n + e);
-              tmax = fmaxf(tmax, x);
-            }
-          tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, 1));
-          tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, 2));
-          const float m_new = fmaxf(m[f][e2], tmax);
-          float psum = 0.f;
-#pragma unroll
-          for (int n = 0; n < NF; ++n)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              psum += ((ok >> (2 * n + e)) & 1u)
-                          ? exp2f(__fsub_rn(s[f][n][2 * e2 + e], m_new))
-                          : 0.f;
-          psum += __shfl_xor_sync(FULL, psum, 1);
-          psum += __shfl_xor_sync(FULL, psum, 2);
-          l[f][e2] = l[f][e2] * exp2f(__fsub_rn(m[f][e2], m_new)) + psum;
-          m[f][e2] = m_new;
-        }
-      }
+      if (open_tile(k0, blk.row_lo, blk.row_hi, q_offset, window, Sk,
+                    n_prompt, kvm != nullptr))
+        row_update<false>(s, m, l, real, qpos, k0, 0u, window, qscale);
+      else
+        row_update<true>(s, m, l, real, qpos, k0,
+                         key_bits(k0, Sk, n_prompt, kvm), window, qscale);
     }
     cp_async_wait<0>();
   }
@@ -579,11 +669,13 @@ obs_row_stats_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// Launch (b).  Grid (key tiles, KV, B), THREADS threads; qstages 1 or 2
-// (2: the next row block's Q rows and partials load while this one is
-// scored).  Dynamic shared memory: the K tile, qstages x (packed Q rows,
-// raw partials), each row's final (m, 1 / l), the fragments' column sums,
-// the heads' column sums.
+// Launch (b).  Grid (key ranges of t_per tiles, KV, B), THREADS threads;
+// qstages 1 (one row block) or 2 (the next row block's Q rows and
+// partials load while this one is scored).  A CTA walks (row block, key
+// tile) steps, row blocks outer, through a 2-stage ring of K tiles.
+// Dynamic shared memory: the K ring, qstages x (packed Q rows, raw
+// partials), each row's final (m, 1 / l), the fragments' column sums, the
+// heads' column sums over the range.
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 obs_column_means_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -592,120 +684,132 @@ obs_column_means_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ m_in,
                      const float* __restrict__ l_in, float* __restrict__ out,
                      int n_obs, int H, int Sk, int KV, int n_prompt,
-                     int q_offset, int window, int n_split, int qstages,
-                     float qscale) {
+                     int q_offset, int window, int n_split, int t_per,
+                     int qstages, float qscale) {
   using S = Shape<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);  // BK x LD
-  bf16* sQ = sK + BK * S::LD;                 // qstages x ROWS x LD
+  bf16* sK = reinterpret_cast<bf16*>(smem);  // 2 x BK x LD
+  bf16* sQ = sK + 2 * BK * S::LD;             // qstages x ROWS x LD
   // raw partials: qstages x n_split x (m row, l row) x ROWS
   float* sP = reinterpret_cast<float*>(sQ + qstages * ROWS * S::LD);
   float* s_m = sP + qstages * n_split * 2 * ROWS;  // ROWS
   float* s_inv = s_m + ROWS;                       // ROWS
   float* s_red = s_inv + ROWS;                     // MAXF x BK
-  float* s_col = s_red + MAXF * BK;                // G x BK
-  const int G = H / KV, k0 = blockIdx.x * BK;
-  const int kvh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  float* s_col = s_red + MAXF * BK;                // G x t_per x BK
+  const int G = H / KV, kvh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, gid = lane >> 2, tig = lane & 3;
-  float* ob = out + ((size_t)b * H + kvh * G) * n_prompt;
-
-  // the row blocks with a row that may see a key of this tile (a run)
+  const int k_lo = blockIdx.x * t_per * BK;
+  const int n_cols = min(t_per * BK, n_prompt - k_lo);  // this CTA's keys
+  // the tiles some row may see (none past q_offset + n_obs - 1) ...
+  const int nt = max(0, min((n_cols + BK - 1) / BK,
+                            (q_offset + n_obs - k_lo + BK - 1) / BK));
+  const int k_hi = k_lo + nt * BK;
+  // ... and the row blocks with a row that may see one of them (a run)
   const int n_rb = ((n_obs + 15) / 16 * G + MAXF - 1) / MAXF;
   int rb_lo = n_rb, rb_hi = 0;
-  for (int rb = 0; rb < n_rb; ++rb) {
+  for (int rb = 0; rb < n_rb && nt > 0; ++rb) {
     const Block blk = row_block(rb, G, n_obs);
-    if (q_offset + blk.row_hi - 1 >= k0 &&
-        (window <= 0 || q_offset + blk.row_lo - (k0 + BK - 1) < window)) {
+    if (q_offset + blk.row_hi - 1 >= k_lo &&
+        (window <= 0 || q_offset + blk.row_lo - (k_hi - 1) < window)) {
       rb_lo = min(rb_lo, rb);
       rb_hi = rb + 1;
     }
   }
-  if (rb_lo >= rb_hi) {  // no row sees this tile: exact zeros, K unread
-    for (int i = tid; i < G * BK; i += THREADS)
-      if (k0 + i % BK < n_prompt) ob[(size_t)(i / BK) * n_prompt + k0 + i % BK] = 0.f;
-    return;
-  }
-  for (int i = tid; i < G * BK; i += THREADS) s_col[i] = 0.f;
+  for (int i = tid; i < G * t_per * BK; i += THREADS) s_col[i] = 0.f;
 
-  // row block rb's packed Q rows and raw partials into ring slot `slot`
+  // row block rb's packed Q rows and this thread's row's raw partials
+  // (the partials once launch (a) is done: this launch may start early)
   auto stage_rows = [&](int rb, int slot) {
     const Block blk = row_block(rb, G, n_obs);
     stage_q<HD>(sQ + slot * ROWS * S::LD, q, blk, b, n_obs, H, G, kvh);
-    float* P = sP + slot * n_split * 2 * ROWS;
-    for (int i = tid; i < n_split * ROWS; i += THREADS) {
-      const int sp = i / ROWS, p = i % ROWS;
-      const int f = blk.f0 + p / 16, row = f / G * 16 + p % 16;
-      if (f < blk.f1 && row < n_obs) {
-        const size_t o =
-            ((size_t)(b * H + kvh * G + f % G) * n_split + sp) * n_obs + row;
-        cp_async4(P + 2 * sp * ROWS + p, m_in + o);
-        cp_async4(P + (2 * sp + 1) * ROWS + p, l_in + o);
+    const int f = blk.f0 + tid / 16, row = f / G * 16 + tid % 16;
+    wait_for_predecessor();  // launch (a)'s partials are stored
+    if (tid < ROWS && f < blk.f1 && row < n_obs) {
+      const float* mo =
+          m_in + ((size_t)(b * H + kvh * G + f % G) * n_split) * n_obs + row;
+      const float* lo = l_in + (mo - m_in);
+      float* P = sP + slot * n_split * 2 * ROWS + tid;
+      for (int sp = 0; sp < n_split; ++sp) {
+        cp_async4(P + 2 * sp * ROWS, mo + (size_t)sp * n_obs);
+        cp_async4(P + (2 * sp + 1) * ROWS, lo + (size_t)sp * n_obs);
       }
     }
   };
+  // step j: row block rb_lo + j / nt against tile j % nt, in K slot j % 2
+  // (one tile: slot 0, staged once for every row block)
+  const int steps = (rb_hi - rb_lo) * nt;
+  auto kslot = [&](int j) { return nt == 1 ? 0 : j & 1; };
+  auto stage_step = [&](int j) {
+    if (j < steps) {
+      const int t = j % nt, rb = rb_lo + j / nt;
+      if (nt > 1 || j == 0)
+        stage_k<HD>(sK + kslot(j) * BK * S::LD, k, b, k_lo + t * BK, Sk, KV,
+                    kvh);
+      if (t == 0) stage_rows(rb, qstages == 2 ? (rb - rb_lo) & 1 : 0);
+    }
+    cp_async_commit();
+  };
 
-  stage_k<HD>(sK, k, b, k0, Sk, KV, kvh);
-  stage_rows(rb_lo, 0);
-  cp_async_commit();
-  const unsigned kb = key_bits(k0, Sk, n_prompt,
-                               kv_mask ? kv_mask + (size_t)b * n_prompt
-                                       : nullptr);
-  for (int rb = rb_lo; rb < rb_hi; ++rb) {
+  const uint8_t* kvm = kv_mask ? kv_mask + (size_t)b * n_prompt : nullptr;
+  stage_step(0);
+  for (int j = 0; j < steps; ++j) {
+    const int t = j % nt, rb = rb_lo + j / nt, k0 = k_lo + t * BK;
     const int slot = qstages == 2 ? (rb - rb_lo) & 1 : 0;
     const Block blk = row_block(rb, G, n_obs);
-    if (qstages == 2) {
-      if (rb + 1 < rb_hi) stage_rows(rb + 1, slot ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    // this thread's packed row: its final (m, 1 / l) from the partials in
-    // split order; 1 / l = 0 marks a padded or invalid row
-    const int p = tid, fp = blk.f0 + p / 16, rp = fp / G * 16 + p % 16;
-    const bool live =
-        fp < blk.f1 && rp < n_obs &&
-        (row_valid == nullptr || row_valid[(size_t)b * n_obs + rp] != 0);
-    __syncthreads();  // this block's rows landed for every thread
-    {
-      const float* P = sP + slot * n_split * 2 * ROWS + p;
+    // the next step's K tile (and row block) while this one is scored:
+    // its slots were last read by step j - 1 (or row block rb - 1; with
+    // one Q slot there is one row block)
+    stage_step(j + 1);
+    cp_async_wait<1>();
+    if (t == 0) {
+      // this thread's packed row: its final (m, 1 / l) from the partials
+      // in split order; a padded or invalid row gets (+1e30, 0), so its
+      // weights exp2(s - m) / l are exactly zero
+      const int fp = blk.f0 + tid / 16, rp = fp / G * 16 + tid % 16;
+      const bool live =
+          tid < ROWS && fp < blk.f1 && rp < n_obs &&
+          (row_valid == nullptr || row_valid[(size_t)b * n_obs + rp] != 0);
+      __syncthreads();  // the row block landed for every thread
+      const float* P = sP + slot * n_split * 2 * ROWS + tid;
       float mr = NEG_INF, lr = 0.f;
       if (live) {
         for (int sp = 0; sp < n_split; ++sp) mr = fmaxf(mr, P[2 * sp * ROWS]);
         for (int sp = 0; sp < n_split; ++sp)
           lr = __fmaf_rn(P[(2 * sp + 1) * ROWS],
-                         exp2f(__fsub_rn(P[2 * sp * ROWS], mr)), lr);
+                         ex2(__fsub_rn(P[2 * sp * ROWS], mr)), lr);
       }
-      s_m[p] = mr;
-      s_inv[p] = live ? 1.f / fmaxf(lr, L_FLOOR) : 0.f;
+      if (tid < ROWS) {
+        s_m[tid] = live ? mr : -NEG_INF;
+        s_inv[tid] = live ? 1.f / fmaxf(lr, L_FLOOR) : 0.f;
+      }
     }
-    __syncthreads();
+    __syncthreads();  // tile j and the rows' (m, 1 / l) ready
     uint32_t qa[FPW][S::KS][4];
     load_q<HD>(qa, sQ + slot * ROWS * S::LD);
     float s[FPW][NF][4];
-    logits<HD>(qa, sK, s);
+    logits<HD>(qa, sK + kslot(j) * BK * S::LD, s);
+    const bool open = open_tile(k0, blk.row_lo, blk.row_hi, q_offset,
+                                window, Sk, n_prompt, kvm != nullptr);
+    const unsigned kb = open ? 0u : key_bits(k0, Sk, n_prompt, kvm);
 #pragma unroll
     for (int f = 0; f < FPW; ++f) {
       const int fi = blk.f0 + warp * FPW + f;
-      float col[NF][2];
+      float mr[2], inv[2];
+      int qpos[2];
 #pragma unroll
       for (int e2 = 0; e2 < 2; ++e2) {
         const int pr = (warp * FPW + f) * 16 + gid + 8 * e2;
-        const int qpos = q_offset + fi / G * 16 + gid + 8 * e2;
-        const float mr = s_m[pr], inv = s_inv[pr];
-#pragma unroll
-        for (int n = 0; n < NF; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const bool v = inv != 0.f && ((kb >> (2 * n + e)) & 1u) &&
-                           sees(k0 + 8 * n + 2 * tig + e, qpos, window);
-            const float w =
-                v ? exp2f(__fsub_rn(__fmul_rn(s[f][n][2 * e2 + e], qscale),
-                                    mr)) * inv
-                  : 0.f;
-            col[n][e] = e2 == 0 ? w : col[n][e] + w;
-          }
+        mr[e2] = s_m[pr];
+        inv[e2] = s_inv[pr];
+        qpos[e2] = q_offset + fi / G * 16 + gid + 8 * e2;
       }
+      float col[NF][2];
+      if (open)
+        column_weights<false>(s[f], col, mr, inv, qpos, k0, 0u, window,
+                              qscale);
+      else
+        column_weights<true>(s[f], col, mr, inv, qpos, k0, kb, window,
+                             qscale);
 #pragma unroll
       for (int n = 0; n < NF; ++n)
 #pragma unroll
@@ -721,20 +825,20 @@ obs_column_means_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               make_float2(col[n][0], col[n][1]);
       }
     }
-    __syncthreads();  // the fragments' sums are in; this slot is read
-    if (qstages == 1 && rb + 1 < rb_hi) {
-      stage_rows(rb + 1, 0);
-      cp_async_commit();
-    }
+    __syncthreads();  // the fragments' sums are in; tile j is read
     if (tid < BK) {  // each head's column sums, fragments in order
       for (int x = 0; x < MAXF && blk.f0 + x < blk.f1; ++x)
-        s_col[(blk.f0 + x) % G * BK + tid] += s_red[x * BK + tid];
+        s_col[((blk.f0 + x) % G * t_per + t) * BK + tid] +=
+            s_red[x * BK + tid];
     }
   }
   __syncthreads();
-  for (int i = tid; i < G * BK; i += THREADS)
-    if (k0 + i % BK < n_prompt)
-      ob[(size_t)(i / BK) * n_prompt + k0 + i % BK] = s_col[i] / (float)n_obs;
+  // every key of the range: the sums (exact zeros where no row sees it)
+  for (int i = tid; i < G * n_cols; i += THREADS) {
+    const int g = i / n_cols, c = i % n_cols;
+    out[((size_t)b * H + kvh * G + g) * n_prompt + k_lo + c] =
+        s_col[g * t_per * BK + c] / (float)n_obs;
+  }
 }
 
 }  // namespace tc
@@ -773,23 +877,24 @@ cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                        const uint8_t* kv_mask, const uint8_t* row_valid,
                        float* m_buf, float* l_buf, float* out, int B,
                        int n_obs, int H, int Sk, int KV, int n_prompt,
-                       int q_offset, int window, int n_split,
+                       int q_offset, int window, int n_split, int t_per,
                        cudaStream_t st) {
   using namespace tc;
   using S = Shape<HD>;
-  if (n_split > MAX_SPLITS) return cudaErrorInvalidValue;
+  if (t_per < 1) return cudaErrorInvalidValue;
   const int G = H / KV;
   const int n_rb = ((n_obs + 15) / 16 * G + MAXF - 1) / MAXF;
   const int qstages = n_rb > 1 ? 2 : 1;
   const float qscale = 1.f / sqrtf((float)HD) * LOG2E;
   constexpr int smem1 = (ROWS + NST * BK) * S::LD * 2;
-  const int smem2 = (BK + qstages * ROWS) * S::LD * 2 +
+  const int smem2 = (2 * BK + qstages * ROWS) * S::LD * 2 +
                     (qstages * n_split * 2 * ROWS + 2 * ROWS + MAXF * BK +
-                     G * BK) * 4;
+                     G * t_per * BK) * 4;
   auto* k1 = obs_row_stats_mma<HD>;
   auto* k2 = obs_column_means_mma<HD>;
   static const cudaError_t allowed1 = allow_smem(k1, smem1);
   if (allowed1 != cudaSuccess) return allowed1;
+  if (smem2 > MAX_SMEM) return cudaErrorInvalidValue;
   static int allowed2 = 0;  // the largest ceiling set so far
   if (smem2 > allowed2) {
     const cudaError_t err = allow_smem(k2, smem2);
@@ -801,10 +906,23 @@ cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
       window, n_split, qscale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  k2<<<dim3((n_prompt + BK - 1) / BK, KV, B), THREADS, smem2, st>>>(
-      q, k, kv_mask, row_valid, m_buf, l_buf, out, n_obs, H, Sk, KV,
-      n_prompt, q_offset, window, n_split, qstages, qscale);
-  return cudaGetLastError();
+  // launch (b) may start while (a) runs (programmatic dependent launch):
+  // its K tiles and Q rows load beside (a)'s tail
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((n_prompt + BK - 1) / BK + t_per - 1) / t_per, KV, B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem2;
+  cfg.stream = st;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, k2, q, k, kv_mask, row_valid,
+                           (const float*)m_buf, (const float*)l_buf, out,
+                           n_obs, H, Sk, KV, n_prompt, q_offset, window,
+                           n_split, t_per, qstages, qscale);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // float32 on the FMA kernels, bf16 on the tensor-core kernels.
@@ -813,7 +931,7 @@ cudaError_t dispatch(int dtype, const void* q, const void* k,
                      const uint8_t* kv_mask, const uint8_t* row_valid,
                      float* m_buf, float* l_buf, float* out, int B, int n_obs,
                      int H, int Sk, int KV, int n_prompt, int q_offset,
-                     int window, int n_split, cudaStream_t st) {
+                     int window, int n_split, int t_per, cudaStream_t st) {
   if (dtype == DTYPE_F32)
     return launch_fma<HD>((const float*)q, (const float*)k, kv_mask,
                           row_valid, m_buf, l_buf, out, B, n_obs, H, Sk, KV,
@@ -821,7 +939,8 @@ cudaError_t dispatch(int dtype, const void* q, const void* k,
   if (dtype == DTYPE_BF16)
     return launch_mma<HD>((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
                           kv_mask, row_valid, m_buf, l_buf, out, B, n_obs, H,
-                          Sk, KV, n_prompt, q_offset, window, n_split, st);
+                          Sk, KV, n_prompt, q_offset, window, n_split, t_per,
+                          st);
   return cudaErrorInvalidValue;
 }
 
@@ -829,13 +948,16 @@ cudaError_t dispatch(int dtype, const void* q, const void* k,
 
 // kv_mask / row_valid may be null (all keys / rows valid); window <= 0
 // means no window.  m_buf / l_buf are (B, H, n_split, n_obs) float32
-// scratch; n_split >= 1 key splits share launch (a) (at most 16 in bf16).
+// scratch; n_split >= 1 key splits share launch (a); in bf16 each CTA of
+// launch (b) takes t_per >= 1 key tiles (float32: one), and its shared
+// memory, which grows with n_split, t_per and H / KV, must fit a CTA.
 extern "C" int lookahead_score(const void* q, const void* k,
                                const void* kv_mask, const void* row_valid,
                                void* m_buf, void* l_buf, void* out, int B,
                                int n_obs, int H, int Sk, int KV, int hd,
                                int n_prompt, int q_offset, int window,
-                               int n_split, int dtype, void* stream) {
+                               int n_split, int t_per, int dtype,
+                               void* stream) {
   if (KV < 1 || H % KV || n_obs < 1 || n_split < 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -843,9 +965,9 @@ extern "C" int lookahead_score(const void* q, const void* k,
   const uint8_t* rv = (const uint8_t*)row_valid;
   float *mb = (float*)m_buf, *lb = (float*)l_buf, *o = (float*)out;
   switch (hd) {
-    case 32: return dispatch<32>(dtype, q, k, km, rv, mb, lb, o, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, st);
-    case 64: return dispatch<64>(dtype, q, k, km, rv, mb, lb, o, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, st);
-    case 128: return dispatch<128>(dtype, q, k, km, rv, mb, lb, o, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, st);
+    case 32: return dispatch<32>(dtype, q, k, km, rv, mb, lb, o, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, t_per, st);
+    case 64: return dispatch<64>(dtype, q, k, km, rv, mb, lb, o, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, t_per, st);
+    case 128: return dispatch<128>(dtype, q, k, km, rv, mb, lb, o, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, t_per, st);
     default: return cudaErrorInvalidValue;
   }
 }

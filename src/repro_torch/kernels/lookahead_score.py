@@ -26,12 +26,12 @@ _TILE = 64  # keys per tile (csrc/lookahead_score.cu: BK)
 #: 16-row fragments of one kv head's packed query rows per row block
 #: (csrc/lookahead_score.cu: MAXF)
 _FRAGMENTS = 8
-#: key splits of launch (a): at most this many (the bf16 kernel's limit) ...
+#: key splits of launch (a): at most this many ...
 MAX_SPLITS = 16
 #: ... each streaming at least this many key tiles ...
 MIN_TILES_PER_SPLIT = 4
 #: ... and no more CTAs in all than this many per SM (two 128-thread CTAs
-#: of ~85 KB of shared memory fit one): one wave
+#: of up to ~110 KB of shared memory fit one): one wave (launch (b) too)
 CTAS_PER_SM = 2
 
 
@@ -53,6 +53,16 @@ def key_splits(B: int, n_obs: int, H: int, KV: int, n_visible: int,
     ctas = B * KV * row_blocks(n_obs, H // KV)
     return max(1, min(MAX_SPLITS, -(-tiles // MIN_TILES_PER_SPLIT),
                       CTAS_PER_SM * sms // ctas))
+
+
+def column_tiles(B: int, KV: int, n_prompt: int, sms: int) -> int:
+    """Key tiles each CTA of launch (b) takes (bf16): the fewest that keep
+    its CTAs (key ranges x kv heads x sequences) within ``CTAS_PER_SM``
+    per SM, so the packed Q rows and the row partials are staged once per
+    range rather than once per tile: 2 at llama3-8b's finalize (256
+    CTAs)."""
+    tiles = -(-n_prompt // _TILE)
+    return max(1, -(-tiles * B * KV // (CTAS_PER_SM * sms)))
 
 
 def _mask_arg(m: Optional[torch.Tensor], shape, device) -> Optional[int]:
@@ -89,8 +99,8 @@ def lookahead_score(q_obs: torch.Tensor, k: torch.Tensor, n_prompt: int, *,
     rv = _mask_arg(row_valid, (B, n_obs), q_obs.device)
     dev = q_obs.device
     off = n_prompt if q_offset is None else int(q_offset)
-    n_split = key_splits(B, n_obs, H, KV, min(Sk, off + n_obs),
-                         build.sm_count(dev))
+    sms = build.sm_count(dev)
+    n_split = key_splits(B, n_obs, H, KV, min(Sk, off + n_obs), sms)
     m_buf = torch.empty((B, H, n_split, n_obs), dtype=torch.float32,
                         device=dev)
     l_buf = torch.empty_like(m_buf)
@@ -98,7 +108,8 @@ def lookahead_score(q_obs: torch.Tensor, k: torch.Tensor, n_prompt: int, *,
     err = build.library("lookahead_score")(
         q_obs.data_ptr(), k.data_ptr(), km, rv, m_buf.data_ptr(),
         l_buf.data_ptr(), out.data_ptr(), B, n_obs, H, Sk, KV, hd, n_prompt,
-        off, int(window or 0), n_split, build.DTYPE_CODES[q_obs.dtype],
+        off, int(window or 0), n_split, column_tiles(B, KV, n_prompt, sms),
+        build.DTYPE_CODES[q_obs.dtype],
         build.stream_ptr())
     build.check(err, "lookahead_score")
     launches += 1

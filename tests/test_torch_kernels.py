@@ -152,19 +152,24 @@ def test_dense_row_splits(B, C, KV, want):
     assert _dk.row_splits(B, KV, C, 132) == want
 
 
-@pytest.mark.parametrize("B,n_obs,H,KV,n_visible,blocks,want", [
-    (1, 32, 32, 8, 4032, 1, 16),  # llama3-8b's finalize: 63 key tiles
-    (4, 32, 32, 8, 2080, 1, 8),  # the lockstep prefill's call
-    (1, 2048, 32, 8, 2048, 64, 1),  # monolithic h2o: 512 CTAs already
-    (1, 32, 32, 8, 40, 1, 1),  # a one-tile prompt
-    (4, 32, 25, 5, 2080, 2, 6),  # hymba-1.5b: G 5 takes two row blocks
-    (1, 17, 8, 2, 500, 1, 2),  # n_obs 17: each head padded to 32 rows
-])
-def test_lookahead_key_splits(B, n_obs, H, KV, n_visible, blocks, want):
-    """Kernel 3's launch (a) on a 132-SM card: row blocks of 8 16-row
-    fragments of the packed GQA group, and the key splits of each."""
+@pytest.mark.parametrize(
+    "B,n_obs,H,KV,n_visible,n_prompt,blocks,splits,tiles", [
+        # llama3-8b's finalize: 63 key tiles seen, 64 scored
+        (1, 32, 32, 8, 4032, 4096, 1, 16, 2),
+        (4, 32, 32, 8, 2080, 2048, 1, 8, 4),  # the lockstep prefill's call
+        (1, 2048, 32, 8, 2048, 2048, 64, 1, 1),  # monolithic h2o
+        (1, 32, 32, 8, 40, 8, 1, 1, 1),  # a one-tile prompt
+        (4, 32, 25, 5, 2080, 2048, 2, 6, 3),  # hymba-1.5b: two row blocks
+        (1, 17, 8, 2, 500, 483, 1, 2, 1),  # n_obs 17: heads padded to 32
+    ])
+def test_lookahead_key_splits(B, n_obs, H, KV, n_visible, n_prompt, blocks,
+                              splits, tiles):
+    """Kernel 3 on a 132-SM card: launch (a)'s row blocks of 8 16-row
+    fragments of the packed GQA group and the key splits of each, and
+    the key tiles each CTA of launch (b) takes."""
     assert _lk.row_blocks(n_obs, H // KV) == blocks
-    assert _lk.key_splits(B, n_obs, H, KV, n_visible, 132) == want
+    assert _lk.key_splits(B, n_obs, H, KV, n_visible, 132) == splits
+    assert _lk.column_tiles(B, KV, n_prompt, 132) == tiles
 
 
 def test_chunk_attention_rejects_overflowing_chunk():
