@@ -223,11 +223,10 @@ PAGED_EDGES = (
 )
 #: split counts forced on kernels 4, 5 and 6 in phase 1 (None: the rule's)
 PAGED_SPLITS = (None, 1, 2, 4, 8)
-#: phase-1 times before this run's code (ms; NVIDIA H100 80GB HBM3, 700 W),
+#: phase-1 times recorded in PERF.md (ms; NVIDIA H100 80GB HBM3, 700 W),
 #: printed beside this run's: kernels 6 and 3 on their earlier designs
-#: (PERF.md's kernel table: kernel 6's tile routine of PR 12, kernel 3's
-#: scalar-FMA kernels of PR 11, PR 19's final run at hymba's shapes), the
-#: others as PR 19's final run read them
+#: (kernel 6's tile routine, kernel 3's scalar-FMA kernels), the others
+#: as the last full run before them read them
 RECORDED_MS = {
     "chunk_attention": 0.0449, "chunk_attention obs pass": 0.0238,
     "chunk_attention_masses": 0.0818,
