@@ -56,17 +56,6 @@ never loaded by the port) and prints, for phase 1's paged shapes at
 ``row_splits``' split with live and with null tables, the event time,
 the time before the first CTA starts and the mean per-CTA time of each
 phase.
-
-    python3 chip_ab.py --ablate .
-
-builds copies of kernel 3's ``csrc/lookahead_score.cu`` with one piece
-taken out each (into ``<root>/build/ablate/``; the copies are never
-loaded by the port): launch (b), launch (a), the per-(row, key) masks
-of boundary tiles (every tile taken as open), the MMAs, the
-exponentials; and times each beside the whole at llama3-8b's finalize
-shape (32 rows at 4000 of 4096, bf16) with the rules' splits and with
-one key split (launch (a)'s time per key tile). A copy without a piece
-computes wrong scores: it only times.
 """
 
 from __future__ import annotations
@@ -304,7 +293,9 @@ def time_key_splits(root: str, torch, chip_smoke) -> None:
                 ("key_splits", (1, 2, 4, 8, 16, 24, 32),
                  lk.key_splits(B, n_obs, H, KV, visible, sms)),
                 ("column_tiles", (1, 2, 4, 8),
-                 lk.column_tiles(B, KV, n_prompt, sms))):
+                 lk.column_tiles(B, n_obs, H, KV, hd, n_prompt,
+                                 lk.key_splits(B, n_obs, H, KV, visible,
+                                               sms), sms))):
             rule = getattr(lk, rule_name)
             times = []
             for n in counts:
@@ -460,91 +451,6 @@ def time_marks(root: str) -> None:
                   + " us", flush=True)
 
 
-#: kernel 3's ablations: (label, [(anchor in csrc/lookahead_score.cu,
-#: replacement)]); an anchor must appear exactly once
-ABLATIONS = (
-    ("whole", ()),
-    ("without launch (b)", (
-        ("  err = cudaLaunchKernelEx(&cfg, k2,",
-         "  if (0) err = cudaLaunchKernelEx(&cfg, k2,"),)),
-    ("without launch (a)", (
-        ("  k1<<<dim3(n_split * n_rb, KV, B), THREADS, smem1, st>>>(",
-         "  if (0) k1<<<dim3(n_split * n_rb, KV, B), THREADS, smem1, st>>>("),)),
-    ("every tile open (no masks)", (
-        ("                                          int n_prompt, bool "
-         "kv_masked) {\n",
-         "                                          int n_prompt, bool "
-         "kv_masked) {\n  if (row_lo >= 0) return true;\n"),)),
-    ("without the MMAs", (
-        ("  for (int ks = 0; ks < S::KS; ++ks) {",
-         "  for (int ks = 0; ks < 0; ++ks) {"),)),
-    ("without the exponentials", (
-        ('  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
-         "  y = x;"),)),
-)
-
-
-def time_ablations(root: str) -> None:
-    """Kernel 3 with one piece taken out at a time."""
-    import ctypes
-
-    import torch
-
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke
-
-    src = Path(root).resolve() / "src"
-    sys.path.insert(0, str(src))
-    from repro_torch.kernels import build
-    from repro_torch.kernels import lookahead_score as lk
-
-    csrc = src / "repro_torch" / "csrc"
-    text = (csrc / "lookahead_score.cu").read_text()
-    out = Path(root).resolve() / "build" / "ablate"
-    procs = []
-    for i, (label, edits) in enumerate(ABLATIONS):
-        t = text
-        for anchor, repl in edits:
-            if t.count(anchor) != 1:
-                raise SystemExit(f"chip_ab --ablate: anchor {anchor!r} not "
-                                 "found once in lookahead_score.cu")
-            t = t.replace(anchor, repl)
-        d = out / str(i)
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "common.cuh").write_text((csrc / "common.cuh").read_text())
-        (d / "lk.cu").write_text(t)
-        procs.append(subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(d / "liblk.so"),
-             str(d / "lk.cu")]))
-    for p in procs:
-        if p.wait() != 0:
-            raise SystemExit("chip_ab --ablate: a copy did not build")
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    B, n_obs, Sk, n_prompt, off, H, KV, hd, _, label = SCORES[0]
-    q, k = score_inputs(torch, g, B, n_obs, Sk, H, KV, hd)
-    sms = build.sm_count(dev)
-    rule = lk.key_splits(B, n_obs, H, KV, min(Sk, off + n_obs), sms)
-    t_per = lk.column_tiles(B, KV, n_prompt, sms)
-    o = torch.empty((B, H, n_prompt), device=dev)
-    for i, (name, _) in enumerate(ABLATIONS):
-        fn = getattr(ctypes.CDLL(str(out / str(i) / "liblk.so")),
-                     "lookahead_score")
-        fn.argtypes = build.SIGNATURES["lookahead_score"]
-        times = []
-        for n in (rule, 1):
-            m = torch.zeros((B, H, n, n_obs), device=dev)
-            ell = torch.ones_like(m)
-            call = lambda: fn(q.data_ptr(), k.data_ptr(), None, None,
-                              m.data_ptr(), ell.data_ptr(), o.data_ptr(), B,
-                              n_obs, H, Sk, KV, hd, n_prompt, off, 0, n,
-                              t_per, build.DTYPE_CODES[q.dtype],
-                              build.stream_ptr())
-            times.append(chip_smoke.time_ms(torch, call))
-        print(f"{root}: kernel 3, {label}, {name}: {times[0]:.4f} ms with "
-              f"{rule} key splits, {times[1]:.4f} ms with 1", flush=True)
-
-
 def card() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -563,10 +469,6 @@ def main() -> None:
         return
     if len(sys.argv) > 2 and sys.argv[1] == "--marks":
         time_marks(sys.argv[2])
-        print(card())
-        return
-    if len(sys.argv) > 2 and sys.argv[1] == "--ablate":
-        time_ablations(sys.argv[2])
         print(card())
         return
     if len(sys.argv) > 2 and sys.argv[1] == "--splits":

@@ -106,22 +106,6 @@ __device__ __forceinline__ P* map_rank(P* p, int rank) {
   return reinterpret_cast<P*>(out);
 }
 
-// 16 bytes global -> shared, asynchronously.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void widen(const uint4& raw, float (&x)[4]) {
   x[0] = __uint_as_float(raw.x);
   x[1] = __uint_as_float(raw.y);

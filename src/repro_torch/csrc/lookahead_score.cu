@@ -303,32 +303,6 @@ struct Shape {
   static constexpr int CH = HD / 8;   // 16-byte chunks per row
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; with `valid` false it writes zeros and reads
-// nothing (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Programmatic dependent launch: the launch after this one on the stream
 // (made with the programmatic-serialization attribute) may start once
 // every CTA of this grid has run this ...
@@ -339,28 +313,6 @@ __device__ __forceinline__ void launch_dependents() {
 // stores are visible.
 __device__ __forceinline__ void wait_for_predecessor() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-// Four 8x8 bf16 matrices; lanes 8i .. 8i + 7 give matrix i's row addresses.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a . b, m16n8k16, bf16 operands, float32 accumulators.  Fragments
-// (g = lane / 4, t = lane % 4): A (row g, k 2t..2t+1), (row g+8, k 2t..),
-// (row g, k 8+2t..), (row g+8, k 8+2t..); B (k 2t..2t+1, col g), (k 8+2t..,
-// col g); D (row g, col 2t), (row g, col 2t+1), (row g+8, col 2t),
-// (row g+8, col 2t+1).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Row block rb of one kv head's packed rows: fragments [f0, f1) of the

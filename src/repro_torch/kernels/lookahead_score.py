@@ -33,6 +33,9 @@ MIN_TILES_PER_SPLIT = 4
 #: ... and no more CTAs in all than this many per SM (two 128-thread CTAs
 #: of up to ~110 KB of shared memory fit one): one wave (launch (b) too)
 CTAS_PER_SM = 2
+#: dynamic shared memory a CTA may take on the H100, 227 KB
+#: (csrc/lookahead_score.cu: MAX_SMEM)
+MAX_SMEM = 232448
 
 
 def row_blocks(n_obs: int, group: int) -> int:
@@ -55,14 +58,35 @@ def key_splits(B: int, n_obs: int, H: int, KV: int, n_visible: int,
                       CTAS_PER_SM * sms // ctas))
 
 
-def column_tiles(B: int, KV: int, n_prompt: int, sms: int) -> int:
+def column_smem(n_obs: int, G: int, hd: int, n_split: int,
+                t_per: int) -> int:
+    """Bytes of dynamic shared memory a CTA of launch (b) takes (bf16;
+    csrc/lookahead_score.cu: launch_mma): the 2-tile K ring and
+    ``qstages`` (two when there is more than one row block) x (packed Q
+    rows, raw partials) in bf16 and float32, then each row's (m, 1 / l),
+    the fragments' column sums and the G heads' column sums over
+    ``t_per`` tiles."""
+    rows = 16 * _FRAGMENTS
+    qstages = 2 if row_blocks(n_obs, G) > 1 else 1
+    return ((2 * _TILE + qstages * rows) * (hd + 8) * 2
+            + (qstages * n_split * 2 * rows + 2 * rows + _FRAGMENTS * _TILE
+               + G * t_per * _TILE) * 4)
+
+
+def column_tiles(B: int, n_obs: int, H: int, KV: int, hd: int,
+                 n_prompt: int, n_split: int, sms: int) -> int:
     """Key tiles each CTA of launch (b) takes (bf16): the fewest that keep
     its CTAs (key ranges x kv heads x sequences) within ``CTAS_PER_SM``
     per SM, so the packed Q rows and the row partials are staged once per
     range rather than once per tile: 2 at llama3-8b's finalize (256
-    CTAs)."""
+    CTAs).  No more than fit a CTA's shared memory (``column_smem``,
+    ``MAX_SMEM``): beyond that launch (b) takes more than one wave (154
+    tiles a CTA at llama3-8b's G 4 and hd 128 with 2 key splits)."""
     tiles = -(-n_prompt // _TILE)
-    return max(1, -(-tiles * B * KV // (CTAS_PER_SM * sms)))
+    G = H // KV
+    fit = (MAX_SMEM - column_smem(n_obs, G, hd, n_split, 0)) // (
+        G * _TILE * 4)
+    return max(1, min(fit, -(-tiles * B * KV // (CTAS_PER_SM * sms))))
 
 
 def _mask_arg(m: Optional[torch.Tensor], shape, device) -> Optional[int]:
@@ -108,7 +132,8 @@ def lookahead_score(q_obs: torch.Tensor, k: torch.Tensor, n_prompt: int, *,
     err = build.library("lookahead_score")(
         q_obs.data_ptr(), k.data_ptr(), km, rv, m_buf.data_ptr(),
         l_buf.data_ptr(), out.data_ptr(), B, n_obs, H, Sk, KV, hd, n_prompt,
-        off, int(window or 0), n_split, column_tiles(B, KV, n_prompt, sms),
+        off, int(window or 0), n_split,
+        column_tiles(B, n_obs, H, KV, hd, n_prompt, n_split, sms),
         build.DTYPE_CODES[q_obs.dtype],
         build.stream_ptr())
     build.check(err, "lookahead_score")

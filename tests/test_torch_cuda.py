@@ -212,6 +212,8 @@ def test_chunk_attention_sm90_counts_one_launch(dev, hd):
     (1, 32, 1000, 8, 2, 64, 968, None, None, False),  # Sk 1000: a ragged tile
     (1, 32, 4096, 32, 8, 128, 4096, 3850, None, False),  # last split < a tile
     (2, 20, 400, 8, 2, 32, 380, None, None, "dead"),  # every row invalid
+    # 16 x 32k prompts: launch (b)'s key ranges capped by shared memory
+    (16, 32, 32800, 32, 8, 128, 32768, None, None, False),
 ])
 def test_lookahead_score_matches_plain(dev, dtype, B, n_obs, Sk, H, KV, hd,
                                        n_prompt, off, window, masks):

@@ -153,23 +153,29 @@ def test_dense_row_splits(B, C, KV, want):
 
 
 @pytest.mark.parametrize(
-    "B,n_obs,H,KV,n_visible,n_prompt,blocks,splits,tiles", [
+    "B,n_obs,H,KV,hd,n_visible,n_prompt,blocks,splits,tiles", [
         # llama3-8b's finalize: 63 key tiles seen, 64 scored
-        (1, 32, 32, 8, 4032, 4096, 1, 16, 2),
-        (4, 32, 32, 8, 2080, 2048, 1, 8, 4),  # the lockstep prefill's call
-        (1, 2048, 32, 8, 2048, 2048, 64, 1, 1),  # monolithic h2o
-        (1, 32, 32, 8, 40, 8, 1, 1, 1),  # a one-tile prompt
-        (4, 32, 25, 5, 2080, 2048, 2, 6, 3),  # hymba-1.5b: two row blocks
-        (1, 17, 8, 2, 500, 483, 1, 2, 1),  # n_obs 17: heads padded to 32
+        (1, 32, 32, 8, 128, 4032, 4096, 1, 16, 2),
+        (4, 32, 32, 8, 128, 2080, 2048, 1, 8, 4),  # the lockstep call
+        (1, 2048, 32, 8, 128, 2048, 2048, 64, 1, 1),  # monolithic h2o
+        (1, 32, 32, 8, 128, 40, 8, 1, 1, 1),  # a one-tile prompt
+        (4, 32, 25, 5, 64, 2080, 2048, 2, 6, 3),  # hymba-1.5b: 2 row blocks
+        (1, 17, 8, 2, 128, 500, 483, 1, 2, 1),  # n_obs 17: heads padded
+        # 16 x 32k prompts: launch (b)'s key ranges capped by shared memory
+        (16, 32, 32, 8, 128, 32800, 32768, 1, 2, 154),
     ])
-def test_lookahead_key_splits(B, n_obs, H, KV, n_visible, n_prompt, blocks,
-                              splits, tiles):
+def test_lookahead_key_splits(B, n_obs, H, KV, hd, n_visible, n_prompt,
+                              blocks, splits, tiles):
     """Kernel 3 on a 132-SM card: launch (a)'s row blocks of 8 16-row
     fragments of the packed GQA group and the key splits of each, and
-    the key tiles each CTA of launch (b) takes."""
+    the key tiles each CTA of launch (b) takes, within a CTA's shared
+    memory."""
     assert _lk.row_blocks(n_obs, H // KV) == blocks
     assert _lk.key_splits(B, n_obs, H, KV, n_visible, 132) == splits
-    assert _lk.column_tiles(B, KV, n_prompt, 132) == tiles
+    assert _lk.column_tiles(B, n_obs, H, KV, hd, n_prompt, splits,
+                            132) == tiles
+    assert _lk.column_smem(n_obs, H // KV, hd, splits, tiles) \
+        <= _lk.MAX_SMEM
 
 
 def test_chunk_attention_rejects_overflowing_chunk():
