@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the attention kernels of several checkouts in turns, on one
-NVIDIA card, in one call:
+"""Time the kernels of several checkouts in turns, on one NVIDIA card, in
+one call:
 
     python3 chip_ab.py build/parent . . build/parent
 
@@ -21,7 +21,11 @@ live slot of four; kernel 6 (``decode_attention``) at phase 1's dense
 decode shape (4 sequences x 289 rows, per-kv-head mask) and hymba-1.5b's
 local layer; kernel 3 (``lookahead_score``) at llama3-8b's finalize (32
 rows at 4000 of 4096), the lockstep prefill's call (4 x 32 rows after
-2048), monolithic h2o (2048 rows at 0) and hymba-1.5b's local layer.
+2048), monolithic h2o (2048 rows at 0) and hymba-1.5b's local layer;
+kernel 8 (``ssd_scan``) at hymba-1.5b's lockstep prefill (B 4 x S 2048,
+50 heads of 64, d_state 16, chunk 128), its 32-row lookahead segment on a
+carried state, and mamba2-130m's prefill (24 heads, d_state 128), x, B
+and C strided views of one conv output as the Mamba-2 block passes them.
 The same inputs (seed 0) in every checkout, each call
 on a cold L2 (``chip_smoke.time_ms`` of this checkout). Give the checkouts in
 turns (parent, change, change, parent): two calls may land on two cards.
@@ -44,8 +48,9 @@ replaced) and the split ``row_splits`` picks; kernel 6 likewise at C 64,
 at llama3-8b's finalize and the lockstep prefill's call with 1, 2, 4, 8,
 16, 24 and 32 key splits in launch (a) (``lookahead_score.key_splits``)
 and 1, 2, 4 and 8 key tiles per CTA of launch (b)
-(``lookahead_score.column_tiles``); one line per shape, the rule's pick
-marked with a *.
+(``lookahead_score.column_tiles``); kernel 8 at its three shapes with 1,
+2, 4 and 8 heads per CTA of launches (a) and (c) (``ssd_scan.head_block``);
+one line per shape, the rule's pick marked with a *.
 
     python3 chip_ab.py --marks .
 
@@ -92,6 +97,29 @@ SCORES = (  # B, n_obs, Sk, n_prompt, q_offset, H, KV, hd, window, label
     (4, 32, 2080, 2048, None, 25, 5, 64, 1024,
      "hymba-1.5b local layer, 4 x 32 rows after 2048"),
 )
+
+SSD = (  # B, S, nh, hd, ds, chunk, carried state, label
+    (4, 2048, 50, 64, 16, 128, False, "hymba-1.5b prompt, 4 x 2048"),
+    (4, 32, 50, 64, 16, 128, True, "hymba-1.5b lookahead segment, 4 x 32"),
+    (4, 2048, 24, 64, 128, 128, False, "mamba2-130m prefill, 4 x 2048"),
+)
+
+
+def ssd_inputs(torch, g, B, S, nh, hd, ds, carried):
+    """Phase 1's kernel-8 inputs (``chip_smoke.phase_kernels``): x, B and C
+    views of one bf16 conv output, dt = softplus(N - 2), A in -[1, 16],
+    a random incoming state where the segment carries one."""
+    dev = torch.device("cuda")
+    xbc = torch.randn((B, S, nh * hd + 2 * ds), generator=g,
+                      device=dev).to(torch.bfloat16)
+    x, Bm, Cm = torch.split(xbc, [nh * hd, ds, ds], dim=-1)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, nh), generator=g, device=dev) - 2.0)
+    A = -(1.0 + 15.0 * torch.rand((nh,), generator=g, device=dev))
+    h0 = (torch.randn((B, nh, hd, ds), generator=g, device=dev)
+          if carried else None)
+    return (x.unflatten(-1, (nh, hd)), dt, A, Bm.unflatten(-1, (1, ds)),
+            Cm.unflatten(-1, (1, ds)), h0)
 
 
 def dense_inputs(torch, g, B, C, H, KV, hd, window):
@@ -150,6 +178,7 @@ def time_checkout(root: str) -> None:
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import lookahead_score as lk
     from repro_torch.kernels import paged_attention as pk
+    from repro_torch.kernels import ssd_scan as sk
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -194,6 +223,12 @@ def time_checkout(root: str) -> None:
             q, k, n_prompt, q_offset=off, window=window),
             iters=5 if n_obs > 32 else 20)
         print(f"{root}: kernel 3, {label}: {ms:.4f} ms", flush=True)
+    for B, S, nh, hd, ds, chunk, carried, label in SSD:
+        x, dt, A, Bm, Cm, h0 = ssd_inputs(torch, g, B, S, nh, hd, ds,
+                                          carried)
+        ms = chip_smoke.time_ms(torch, lambda: sk.ssd_scan(
+            x, dt, A, Bm, Cm, chunk=chunk, initial_state=h0))
+        print(f"{root}: kernel 8, {label}: {ms:.4f} ms", flush=True)
 
 
 def time_splits(root: str) -> None:
@@ -240,6 +275,7 @@ def time_splits(root: str) -> None:
     time_row_splits(root, torch, chip_smoke)
     time_dense_splits(root, torch, chip_smoke)
     time_key_splits(root, torch, chip_smoke)
+    time_head_blocks(root, torch, chip_smoke)
 
 
 def swept(times, counts, picked) -> str:
@@ -308,6 +344,32 @@ def time_key_splits(root: str, torch, chip_smoke) -> None:
                   f" ms with {' / '.join(map(str, counts))} "
                   f"{'key splits' if rule_name == 'key_splits' else 'key tiles per launch (b) CTA'}"
                   f"; {rule_name} picks {picked}", flush=True)
+
+
+def time_head_blocks(root: str, torch, chip_smoke) -> None:
+    """Kernel 8 with 1, 2, 4 and 8 heads per CTA of launches (a) and (c)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssd_scan as sk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rule = sk.head_block
+    counts = (1, 2, 4, 8)
+    for B, S, nh, hd, ds, chunk, carried, label in SSD:
+        picked = rule(B, S, nh, chunk, build.sm_count(dev))
+        x, dt, A, Bm, Cm, h0 = ssd_inputs(torch, g, B, S, nh, hd, ds,
+                                          carried)
+        times = []
+        for n in counts:
+            sk.head_block = lambda *a, n=n, **kw: n
+            try:
+                times.append(chip_smoke.time_ms(torch, lambda: sk.ssd_scan(
+                    x, dt, A, Bm, Cm, chunk=chunk, initial_state=h0)))
+            finally:
+                sk.head_block = rule
+        print(f"{root}: kernel 8, {label}: {swept(times, counts, picked)} ms "
+              f"with 1 / 2 / 4 / 8 heads per CTA; head_block picks {picked}",
+              flush=True)
 
 
 def time_row_splits(root: str, torch, chip_smoke) -> None:

@@ -59,13 +59,17 @@ kernel's plain version):
    ones; kernel 7 timed there too, against SDPA with ``is_causal`` and
    with an explicit window mask); kernel 7 at the edges of its 128-row,
    128-key tile (S of 1, 64, 127, 128, 129; windows of 1, 64, 100, 128,
-   1024; GQA ratios 1 and 5; B = 3).  Kernel 8 (the SSD scan, float32
-   arithmetic) at hymba-1.5b's prefill (B 4 x S 2048, 50 heads of 64,
-   d_state 16, chunk 128, bf16) and its 32-row lookahead segment
-   carrying the prompt's state, at mamba2-130m's (24 heads, d_state
-   128), and on edge cases (ragged S, S < chunk, S = 1, odd head
-   counts, float32 inputs, initial states, chunks 16, 32 and 256), each
-   row of y and the final state within 2^-12 of the plain magnitude.
+   1024; GQA ratios 1 and 5; B = 3).  Kernel 8 (the SSD scan: chunk
+   states, state pass, chunk scan; bf16 on tensor cores) at hymba-1.5b's
+   prefill (B 4 x S 2048, 50 heads of 64, d_state 16, chunk 128, bf16;
+   a ragged last head block) and its 32-row lookahead segment carrying
+   the prompt's state, at mamba2-130m's (24 heads, d_state 128), and on
+   edge cases (13 heads in blocks of 4, S 4096 through the state pass,
+   ragged S, S < chunk, S = 1, chunk 1, d_state 8, odd head counts,
+   float32 inputs, initial states, chunks 16, 32 and 256, chunk 256 at
+   d_state 128), each row of y and the final state within 2^-12 of the
+   plain magnitude, three launches a call on the grids ``grids`` gives
+   (the two timed shapes, the lookahead segment, 13 heads, float32).
    Time kernel, plain version and, where one PyTorch call computes the
    same function, that call (library_ms), each call on a cold L2.
 2. Serve through the port's engines on the llama3-8b smoke config in
@@ -119,7 +123,12 @@ kernel's plain version):
    and the score update timed; (d) one more lockstep batch on the engine
    of 3g: device-busy share, launches (per decode step against 4a's, or
    per forward pass), and device time by kernel family (kernel 8's share
-   in 4d).
+   in 4d).  The launch counters are set to 0 just before each profiled
+   piece of work and read just after: every family of the port's kernels
+   in the trace must hold the counted calls times the wrapper's CUDA
+   launches per call (kernels 2 and 3 two, kernel 8 three, the others
+   one; a merge of split keys apart); on a mismatch (a trace that lost
+   events) the work is profiled again once, then the phase fails.
 
 Output: per-phase lines, then a JSON line of per-kernel numbers, the
 card's name and power limit, and as the last line
@@ -225,7 +234,8 @@ PAGED_EDGES = (
 PAGED_SPLITS = (None, 1, 2, 4, 8)
 #: phase-1 times recorded in PERF.md (ms; NVIDIA H100 80GB HBM3, 700 W),
 #: printed beside this run's: kernels 6 and 3 on their earlier designs
-#: (kernel 6's tile routine, kernel 3's scalar-FMA kernels), the others
+#: (kernel 6's tile routine, kernel 3's scalar-FMA kernels) and kernel 8
+#: on its first (one CTA per (head, sequence), float32 FMA), the others
 #: as the last full run before them read them
 RECORDED_MS = {
     "chunk_attention": 0.0449, "chunk_attention obs pass": 0.0238,
@@ -1030,8 +1040,10 @@ def phase_kernels(torch, mods) -> list:
         replaces="src/repro/kernels/decode_attention.py:56", **main6))
 
     # -- kernel 8: the Mamba-2 SSD chunked scan -------------------------------
+    # three launches a call: chunk states, the state pass, the chunk scan
+    # (bf16 on tensor cores, float32 on CUDA cores)
     def ssd_case(B, S, nh, hd, ds, chunk, label, *, dtype=bf16, state=None,
-                 views=True, timed=None):
+                 views=True, timed=None, launches=False):
         """Kernel 8 against ``ref.ssd_scan_chunked`` on model-like inputs:
         x, B and C views of one conv output (rows strided, as the Mamba-2
         block passes them) unless ``views`` is False, dt = softplus(N - 2)
@@ -1039,10 +1051,13 @@ def phase_kernels(torch, mods) -> list:
         ``state`` None, "random" or a state tensor to carry in.  Each row of
         y (one row of one head) must lie within 2^-12 of that row's largest
         plain magnitude and the final state within 2^-12 of its largest
-        plain magnitude: float32 arithmetic on both sides, but the prefix
-        sums of the log-decays take other orders, and exp(L_t - L_s) of two
-        large L inherits their ~1e-5 absolute difference.  Returns (the
-        kernel's final state, timings or None)."""
+        plain magnitude: in bf16 every float32 operand of a tensor-core
+        product enters as bf16 hi + lo (~2^-17 of it), and the prefix sums
+        of the log-decays take other orders, so exp(L_t - L_s) of two large
+        L inherits their ~1e-5 absolute difference.  With ``launches`` (and
+        when timed) one call must be three launches on the grids
+        ``sk.grids`` gives.  Returns (the kernel's final state, timings or
+        None)."""
         def mk(*shape):
             return torch.randn(shape, generator=g, device=dev).to(dtype)
 
@@ -1068,16 +1083,23 @@ def phase_kernels(torch, mods) -> list:
               f"{h_tol:.3e} = 2^-12 max|plain|)")
         check(h_err <= h_tol, f"ssd_scan {label}: state err {h_err} > "
               f"{h_tol}")
+        call = lambda: sk.ssd_scan(x, dt, A, Bm, Cm, **kw)
+        if launches or timed:
+            part = "mma" if dtype == bf16 else "fma"
+            check_launches(call, (f"ssd_chunk_states_{part}",
+                                  "ssd_state_pass", f"ssd_chunk_scan_{part}"),
+                           sk.grids(B, S, nh, hd, ds, chunk, dtype, sms))
         if not timed:
             return got_h, None
-        ms = time_ms(torch, lambda: sk.ssd_scan(x, dt, A, Bm, Cm, **kw))
+        ms = time_ms(torch, call)
         plain = time_ms(torch, lambda: ref.ssd_scan_chunked(
             x, dt, A, Bm, Cm, **kw), iters=3)
-        # bytes: each input read once, each output written once; operations
-        # (float32): per chunk of nv rows with P = nv (nv + 1) / 2 causal
-        # pairs, C.B^T once per (sequence, chunk) (shared by the heads), and
-        # per head the pair weights, the quadratic form, the carried-state
-        # term and the state update
+        # bytes: each input read once, each output written once; operations:
+        # per chunk of nv rows with P = nv (nv + 1) / 2 causal pairs, C.B^T
+        # once per (sequence, chunk) (shared by the heads), and per head the
+        # pair weights, the quadratic form, the carried-state term and the
+        # state update.  bf16 inputs take them on tensor cores, where the
+        # bytes bound the time; the float32 CUDA-core time is printed beside
         isz = x.element_size()
         n_bytes = (isz * (B * S * nh * hd + 2 * B * S * ds)
                    + 4 * (B * S * nh + nh + B * S * nh * hd)
@@ -1088,32 +1110,41 @@ def phase_kernels(torch, mods) -> list:
             pairs = nv * (nv + 1) // 2
             n_ops += B * (2 * pairs * ds
                           + nh * (pairs * (1 + 2 * hd) + 4 * nv * hd * ds))
-        b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
+        b_ms, b_by = bound_ms(n_bytes, n_ops, str(dtype).split(".")[-1])
+        f32_ms = n_ops / PEAK_FLOPS["float32"] * 1e3
         print(f"  ssd_scan {label}: {versus(timed, ms)}, plain {plain:.4f} "
-              "ms, bound "
-              f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-              f"{n_ops / 1e9:.2f} GFLOP float32); no single library call "
-              "computes the scan")
+              f"ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB; "
+              f"{n_ops / 1e9:.2f} GFLOP, {f32_ms:.4f} ms on float32 CUDA "
+              "cores); no single library call computes the scan")
         return got_h, dict(max_abs_err=max(err, h_err), ms=ms, plain_ms=plain,
                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     REL_SSD = 2 ** -12
     # hymba-1.5b's lockstep prefill (bf16): the 2048-row prompt, then the
-    # 32 lookahead rows chained on its final state (a ragged chunk)
+    # 32 lookahead rows chained on its final state (a ragged chunk); its 50
+    # heads leave a ragged last head block
     h_prompt, main8 = ssd_case(4, 2048, 50, 64, 16, 128,
                                "hymba prompt B=4 S=2048 nh=50 ds=16",
                                timed="ssd_scan")
     ssd_case(4, 32, 50, 64, 16, 128, "hymba lookahead segment S=32 carried",
-             state=h_prompt)
+             state=h_prompt, launches=True)
     ssd_case(4, 2048, 24, 64, 128, 128, "mamba2 B=4 S=2048 nh=24 ds=128",
              timed="ssd_scan mamba2")
+    ssd_case(8, 2048, 13, 64, 64, 128, "nh=13 in head blocks of 4",
+             state="random", launches=True)
+    ssd_case(2, 4096, 24, 64, 128, 128, "S=4096: 32 chunks through the "
+             "state pass", state="random")
     ssd_case(2, 1000, 50, 64, 16, 128, "ragged S=1000", state="random")
     ssd_case(2, 50, 24, 64, 128, 128, "S=50 < chunk", state="random")
     ssd_case(4, 1, 50, 64, 16, 128, "S=1", state="random")
-    ssd_case(1, 300, 7, 32, 8, 32, "odd nh=7, chunk 32 (smoke)")
+    ssd_case(2, 64, 8, 64, 16, 1, "chunk 1", state="random")
+    ssd_case(1, 300, 7, 32, 8, 32, "odd nh=7, chunk 32, ds 8 (smoke)")
+    ssd_case(2, 500, 10, 64, 8, 128, "ds 8 at hd 64", state="random")
     ssd_case(2, 500, 24, 64, 128, 128, "float32 inputs", dtype=torch.float32,
-             state="random", views=False)
+             state="random", views=False, launches=True)
     ssd_case(1, 700, 5, 64, 16, 256, "chunk 256", state="random")
+    ssd_case(1, 600, 6, 64, 128, 256, "chunk 256 ds 128 (one buffer)",
+             state="random")
     ssd_case(2, 96, 8, 16, 8, 16, "hd=16 chunk 16", views=False)
     results.append(dict(
         name="ssd_scan", route="cuda",
@@ -1547,29 +1578,50 @@ def phase_mamba(torch, mods) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# kernel name part -> family; chunk and flash attention share their tile
+# code (chunk_attention.cu) but not their kernels' names
+# (attention_mma<chunk_attention_tag, ...>), and the merges of a split key
+# range carry their entry's tag
+FAMILIES = (("chunk_masses", "chunk_attention_masses (kernel 2)"),
+            ("column_masses", "chunk_attention_masses (kernel 2)"),
+            ("chunk_attention", "chunk_attention (kernel 1)"),
+            ("flash_attention", "flash_attention (kernel 7)"),
+            ("obs_", "lookahead_score"),
+            ("paged_masses", "paged_decode_masses (kernel 5)"),
+            ("paged_decode", "paged_decode_attention"),
+            ("decode_kernel", "decode_attention"),
+            ("ssd_", "ssd_scan (kernel 8)"),
+            ("gemm", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"),
+            ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"))
+#: each wrapper's family and its CUDA launches per counted call (phase 1's
+#: check_launches), the merge of a split key range (kernels 1 and 2's
+#: combine_splits, at most one a call) aside
+TRACED = {
+    "chunk_attention": ("chunk_attention (kernel 1)", 1),
+    "chunk_attention_masses": ("chunk_attention_masses (kernel 2)", 2),
+    "lookahead_score": ("lookahead_score", 2),
+    "paged_decode_attention": ("paged_decode_attention", 1),
+    "paged_decode_masses": ("paged_decode_masses (kernel 5)", 1),
+    "flash_attention": ("flash_attention (kernel 7)", 1),
+    "decode_attention": ("decode_attention", 1),
+    "ssd_scan": ("ssd_scan (kernel 8)", 3),
+}
+
+
+def family(name: str) -> str:
+    return next((lab for key, lab in FAMILIES if key in name.lower()),
+                "other")
+
+
 def kernel_families(torch, prof) -> tuple:
     """Device kernels of a profile by family: ({family: (launches, us)},
     {kernel name: (launches, us)} of the kernels in no family)."""
-    # chunk and flash attention share their tile code (chunk_attention.cu)
-    # but not their kernels' names (attention_mma<chunk_attention_tag, ...>)
-    families = (("chunk_masses", "chunk_attention_masses (kernel 2)"),
-                ("column_masses", "chunk_attention_masses (kernel 2)"),
-                ("chunk_attention", "chunk_attention (kernel 1)"),
-                ("flash_attention", "flash_attention (kernel 7)"),
-                ("obs_", "lookahead_score"),
-                ("paged_masses", "paged_decode_masses (kernel 5)"),
-                ("paged_decode", "paged_decode_attention"),
-                ("decode_kernel", "decode_attention"),
-                ("ssd_scan", "ssd_scan (kernel 8)"),
-                ("gemm", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"),
-                ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"))
     kernels, other = {}, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = e.time_range.elapsed_us()
-        name = next((lab for key, lab in families if key in e.name.lower()),
-                    "other")
+        name = family(e.name)
         n, tot = kernels.get(name, (0, 0.0))
         kernels[name] = (n + 1, tot + us)
         if name == "other":
@@ -1578,12 +1630,60 @@ def kernel_families(torch, prof) -> tuple:
     return kernels, other
 
 
+def trace_mismatches(torch, prof, counts: dict) -> list:
+    """The port's kernel families whose launches in the trace differ from
+    the launch counters (``counts``, read just around the profiled work)
+    times each wrapper's CUDA launches per call; a family's merges of a
+    split key range count apart, at most one per call.  A trace that lost
+    events shows here."""
+    kernels, _ = kernel_families(torch, prof)
+    merges = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and "combine_splits" in e.name):
+            merges[family(e.name)] = merges.get(family(e.name), 0) + 1
+    want, calls = {}, {}
+    for name, (fam, per) in TRACED.items():
+        want[fam] = want.get(fam, 0) + counts[name] * per
+        calls[fam] = calls.get(fam, 0) + counts[name]
+    bad = []
+    for fam in sorted(want):
+        got = kernels.get(fam, (0, 0.0))[0] - merges.get(fam, 0)
+        if got != want[fam] or merges.get(fam, 0) > calls[fam]:
+            bad.append(f"{fam}: {got} launches (+{merges.get(fam, 0)} "
+                       f"merges) in the trace, counters say {want[fam]}")
+    return bad
+
+
+def checked_trace(torch, label: str, take):
+    """``take()`` profiles some work with the launch counters set to 0 just
+    before it and read just after, and returns [(profile, counts), ...];
+    each profile's families must agree with its counts
+    (``trace_mismatches``).  On a mismatch the work is profiled once more,
+    then the phase fails.  Returns the agreeing profiles."""
+    for attempt in (1, 2):
+        taken = take()
+        bad = [b for prof, counts in taken
+               for b in trace_mismatches(torch, prof, counts)]
+        if not bad:
+            n = sum(sum(counts[k] * per for k, (_, per) in TRACED.items())
+                    for _, counts in taken)
+            print(f"  {label}: the trace holds every counted launch of the "
+                  f"port's kernels ({n})")
+            return [prof for prof, _ in taken]
+        print(f"  {label}: the trace disagrees with the launch counters: "
+              + "; ".join(bad)
+              + ("; profiling it again" if attempt == 1 else ""))
+    fail(f"{label}: the trace disagreed with the launch counters twice")
+
+
 @contextlib.contextmanager
-def profiled_call(torch, module, name: str, nth: int = 1):
+def profiled_call(torch, ops, module, name: str, nth: int = 1):
     """Run the ``nth`` call of ``module.name`` (a function the engine
     looks up there at call time) alone under torch.profiler, between two
-    device syncs.  Yields a dict that then holds ``prof``, the call's host
-    ``wall_s`` (profiler on) and its ``args``."""
+    device syncs, with the launch counters set to 0 just before it.
+    Yields a dict that then holds ``prof``, the call's host ``wall_s``
+    (profiler on), its ``args`` and the launch ``counts`` of the call."""
     from torch.profiler import ProfilerActivity, profile
 
     orig = getattr(module, name)
@@ -1596,13 +1696,14 @@ def profiled_call(torch, module, name: str, nth: int = 1):
         torch.cuda.synchronize()
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
+        ops.reset_launch_counts()
         prof.start()
         t0 = time.perf_counter()
         out = orig(*args, **kw)
         torch.cuda.synchronize()
         box["wall_s"] = time.perf_counter() - t0
         prof.stop()
-        box.update(prof=prof, args=(args, kw))
+        box.update(prof=prof, args=(args, kw), counts=ops.launch_counts())
         return out
 
     setattr(module, name, wrapped)
@@ -1616,7 +1717,6 @@ def decode_window(torch, box, label: str):
     """Print one profiled decode chunk (``profiled_call`` on
     ``policies.decode_chunk``); returns (launches per decode step,
     kernels by family)."""
-    check("prof" in box, f"{label}: the profiled decode chunk never ran")
     args, kw = box["args"]
     steps, slots = args[4], int(kw["active"].sum())
     kernels, _ = kernel_families(torch, box["prof"])
@@ -1633,18 +1733,27 @@ def decode_window(torch, box, label: str):
     return n / steps, kernels
 
 
-def phase_profile(torch, label: str, serve_once, n_passes) -> None:
+def phase_profile(torch, ops, label: str, serve_once, n_passes) -> None:
     """Profile one serve (``serve_once()`` returns its host wall seconds and
     ends in a device sync): device-busy share of the host wall time with
     the profiler off, kernel launches per forward pass (``n_passes()``
-    after the run), and the kernels by device time."""
+    after the run), and the kernels by device time; the trace is checked
+    against the launch counters (``checked_trace``)."""
     from torch.profiler import ProfilerActivity, profile
 
     wall = serve_once()  # host clock, profiler off
     passes = n_passes()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall_prof = serve_once()
+    walls = []
+
+    def take():
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            walls.append(serve_once())
+        return [(prof, ops.launch_counts())]
+
+    prof, = checked_trace(torch, label, take)
+    wall_prof = walls[-1]
     kernels, other = kernel_families(torch, prof)
     busy_ms = sum(us for _, us in kernels.values()) / 1e3
     n_launch = sum(n for n, _ in kernels.values())
@@ -1689,16 +1798,24 @@ def profile_paged(torch, mods, res) -> float:
               f"steps ({c['decode_s'] * 1e3:.1f} ms)")
         return c["prefill_chunks"] + c["decode_steps"]
 
-    phase_profile(torch, "paged continuous, one 2048-token request",
-                  serve_once, n_passes)
+    phase_profile(torch, mods["ops"], "paged continuous, one 2048-token "
+                  "request", serve_once, n_passes)
     # one decode chunk alone: the step of every paged route decodes all
     # slots, live or not, so its launches do not depend on the live count
-    req = mods["serving"].Request(uid=101, prompt=prompt[:300],
-                                  max_new_tokens=24)
-    with profiled_call(torch, mods["policies"], "decode_chunk",
-                       nth=2) as box:
-        eng.run([req])
-    per_step, _ = decode_window(torch, box, "paged continuous")
+    boxes = []
+
+    def take():
+        req = mods["serving"].Request(uid=101, prompt=prompt[:300],
+                                      max_new_tokens=24)
+        with profiled_call(torch, mods["ops"], mods["policies"],
+                           "decode_chunk", nth=2) as box:
+            eng.run([req])
+        check("prof" in box, "4a: the profiled decode chunk never ran")
+        boxes.append(box)
+        return [(box["prof"], box["counts"])]
+
+    checked_trace(torch, "paged continuous, one decode chunk", take)
+    per_step, _ = decode_window(torch, boxes[-1], "paged continuous")
     return per_step
 
 
@@ -1756,10 +1873,22 @@ def profile_evict(torch, mods, res, base_per_step) -> None:
               f"decode {steps} steps in {chunks} chunks, "
               f"{per * 1e3:.1f} ms/step")
     del twin
-    with profiled_call(torch, mods["policies"], "decode_chunk",
-                       nth=8) as dec, \
-            profiled_call(torch, mods["engine"], "paged_sweep") as sw:
-        serve(eng)
+    boxes = []
+
+    def take():
+        with profiled_call(torch, mods["ops"], mods["policies"],
+                           "decode_chunk", nth=8) as dec, \
+                profiled_call(torch, mods["ops"], mods["engine"],
+                              "paged_sweep") as sw:
+            serve(eng)
+        check("prof" in dec, "4c: the profiled decode chunk never ran")
+        check("prof" in sw, "4c: no sweep ran")
+        boxes.append((dec, sw))
+        return [(dec["prof"], dec["counts"]), (sw["prof"], sw["counts"])]
+
+    checked_trace(torch, "paged decode-evict, a decode chunk and a sweep",
+                  take)
+    dec, sw = boxes[-1]
     per_step, kernels = decode_window(torch, dec, "paged decode-evict")
     print(f"  launches per decode step: {per_step:.0f} against "
           f"{base_per_step:.0f} on the paged route without eviction "
@@ -1768,7 +1897,6 @@ def profile_evict(torch, mods, res, base_per_step) -> None:
     n5, us5 = kernels.get("paged_decode_masses (kernel 5)", (0, 0.0))
     check(n5 > 0, "4c: kernel 5 did not run in the profiled decode chunk")
     print(f"  kernel 5 in the engine: {us5 / n5:.1f} us per launch")
-    check("prof" in sw, "4c: no sweep ran")
     sk, _ = kernel_families(torch, sw["prof"])
     sweep_us = sum(us for _, us in sk.values())
     print(f"  one sweep (paged_sweep, 32 layers): device {sweep_us / 1e3:.3f}"
@@ -1851,8 +1979,9 @@ def profile_lockstep(torch, mods, res) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    phase_profile(torch, f"{cfg.name} lockstep, one batch of 4 x 2048 "
-                  "tokens", serve_once, lambda: 1 + eng.max_new_tokens)
+    phase_profile(torch, mods["ops"], f"{cfg.name} lockstep, one batch of "
+                  "4 x 2048 tokens", serve_once,
+                  lambda: 1 + eng.max_new_tokens)
 
 
 def load_modules(torch) -> dict:
@@ -1943,8 +2072,9 @@ def phase_build(mods) -> None:
         check(len(group) == sum(wanted.values()), f"{len(group)} Hopper "
               f"instantiations in the SASS, expected {sum(wanted.values())}")
     # kernels 4 and 5 (decode_split.cuh; 2 kernels x 2 types x hd 32 / 64 /
-    # 128), kernel 6 on the same routine (2 types x 3 hd) and kernel 3's
-    # tensor-core kernels (launches (a) and (b), bf16, 3 hd): every
+    # 128), kernel 6 on the same routine (2 types x 3 hd), kernel 3's
+    # tensor-core kernels (launches (a) and (b), bf16, 3 hd) and kernel 8's
+    # (launches (a) and (c), bf16, 3 hd x 5 d_state): every
     # instantiation of these kernels' names in the source's -Xptxas -v
     # report must be one of these, each of these must be there, and none
     # may spill; a library built by an earlier run is built again for the
@@ -1962,7 +2092,11 @@ def phase_build(mods) -> None:
             ("lookahead_score", ("obs_row_stats_mma", "obs_column_means_mma"),
              {f"{kern}<hd {d}>" for kern in (
                  "obs_row_stats_mma", "obs_column_means_mma")
-              for d in hds})):
+              for d in hds}),
+            ("ssd_scan", ("ssd_chunk_states_mma", "ssd_chunk_scan_mma"),
+             {f"{kern}<hd {d}, ds {n}>" for kern in (
+                 "ssd_chunk_states_mma", "ssd_chunk_scan_mma")
+              for d in (16, 32, 64) for n in (8, 16, 32, 64, 128)})):
         if source not in report:
             build._target(source).unlink()
             report.update(build.build((source,), verbose=True))
@@ -1997,8 +2131,8 @@ def ptxas_report(log: str) -> dict:
 
 
 def demangle(name: str) -> str:
-    """A Hopper tile, decode or lookahead-score instantiation's kernel and
-    template arguments."""
+    """A Hopper tile, decode, lookahead-score or SSD-scan instantiation's
+    kernel and template arguments."""
     m = re.search(r"(flash_attention_tag|chunk_attention_tag|"
                   r"chunk_masses_tag)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)", name)
     if m:
@@ -2016,6 +2150,10 @@ def demangle(name: str) -> str:
     m = re.search(r"(obs_row_stats_mma|obs_column_means_mma)ILi(\d+)E", name)
     if m:
         return f"{m[1]}<hd {m[2]}>"
+    m = re.search(r"(ssd_chunk_states_mma|ssd_chunk_scan_mma)ILi(\d+)ELi"
+                  r"(\d+)E", name)
+    if m:
+        return f"{m[1]}<hd {m[2]}, ds {m[3]}>"
     m = re.search(r"column_masses_sm90ILi(\d+)E", name)
     return f"column_masses_sm90<hd {m[1]}>" if m else name
 

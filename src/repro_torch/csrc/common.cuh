@@ -117,6 +117,30 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Four 8x8 bf16 matrices, transposed on the way into registers: lanes
+// 8i .. 8i + 7 give matrix i's row addresses, lane (g, t) receives
+// M_i[2t][g], M_i[2t+1][g] of each.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Programmatic dependent launch: the launch after this one on the stream
+// (made with the programmatic-serialization attribute) may start once
+// every CTA of this grid has run this ...
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+// ... and waits here until this grid's predecessor has finished and its
+// stores are visible (at once when it was launched without the attribute).
+__device__ __forceinline__ void wait_for_predecessor() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // Raise the dynamic shared-memory ceiling of a kernel instantiation above
 // the 48 KB default (once per process and instantiation).
 template <typename F>

@@ -303,18 +303,6 @@ struct Shape {
   static constexpr int CH = HD / 8;   // 16-byte chunks per row
 };
 
-// Programmatic dependent launch: the launch after this one on the stream
-// (made with the programmatic-serialization attribute) may start once
-// every CTA of this grid has run this ...
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-// ... and waits here until this grid's predecessor has finished and its
-// stores are visible.
-__device__ __forceinline__ void wait_for_predecessor() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
 // Row block rb of one kv head's packed rows: fragments [f0, f1) of the
 // (row fragment j, head g) order, fragment f = 16 rows from 16 (f / G) of
 // query head kvh * G + f % G, rows past n_obs padding; its observation

@@ -9,328 +9,994 @@
 //
 // B and C have one group, shared by every head.  A ragged last chunk
 // behaves as the plain version's zero padding (pad rows have dt = 0, so
-// they add nothing and leave the state unchanged): the kernel runs only
-// the chunk's real rows and takes L_Q at its last real row.
+// they add nothing and leave the state unchanged): L_Q is taken at the
+// chunk's last real row.
 //
 // Replaces: src/repro/kernels/ssd_scan.py:75, ssd_scan_pallas (pallas_call
-// at :99), which asserts S % chunk == 0 and nh % block_nh == 0 (block_nh
-// 8); hymba-1.5b's 50 heads and lookaheadkv's 32-row observation segment
-// fail those on a TPU.  This kernel takes any S >= 1, any nh and any
-// chunk of 1..256 rows.
+// at :99), which runs the chunk axis in order on one core and keeps the
+// state in VMEM.  That kernel asserts S % chunk == 0 and nh % block_nh ==
+// 0; this one takes any S >= 1, any nh and any chunk of 1..256 rows.
 //
 // Layout: x (B, S, nh, hd) with row stride x_row between consecutive (b,
 // s) and batch stride S * x_row; B/C (B, S, 1, ds) with row strides b_row /
 // c_row (the model passes views of its conv output); dt (B, S, nh) f32;
 // A (nh,) f32; initial state (B, nh, hd, ds) f32 or null (zeros).  Outputs
-// y (B, S, nh, hd) f32 and the final state (B, nh, hd, ds) f32.  x/B/C are
-// bf16 or f32; all arithmetic is f32 (as in the Pallas kernel).
+// y (B, S, nh, hd) f32 and the final state (B, nh, hd, ds) f32.  Scratch:
+// the chunk states (B, nc, nh, hd, ds) f32 and L_Q (B, nc, nh) f32, both
+// written in full by launch (a), so the wrapper needs no memset.
 //
-// Design: the TPU grid's sequential chunk axis becomes a loop inside one
-// CTA per (head, batch), so the state never leaves shared memory between
-// chunks.  Per chunk: the log-decays' prefix sum (a warp-shuffle block
-// scan), u = dt x staged once in shared memory, then per 64-row t-tile
-// the carried-state term from the C tile and the state, and per causal
-// 64-row s-tile the weights (C_t.B_s) exp(L_t - L_s) into shared memory
-// and their product with u, each thread a 4-row register micro-tile; at
-// the chunk's end each thread updates its own register micro-tile of the
-// state from the B tiles.  Shared memory row strides are padded by one
-// float against bank conflicts.
+// Design: Mamba-2's own GPU split, three launches on the stream, (b) and
+// (c) programmatic dependent launches:
+//   (a) chunk states, grid (chunks, head blocks, B): per head the prefix
+//       sum L, L_Q and dh_c = sum_s exp(L_Q - L_s) dt_s x_s (x) B_s into
+//       chunk slot c of the scratch;
+//   (b) state pass, one thread per 4 state elements: h from h0 (or 0);
+//       for c = 0..nc-1 slot c becomes the state entering chunk c, then
+//       h <- exp(L_Q,c) h + dh_c; the last h is the final state;
+//   (c) chunk scan, grid (chunks, head blocks, B): y from the chunk's own
+//       rows and the state entering it.
+// Every chunk is a CTA of its own, so the chunks run side by side
+// (3,200 CTAs of one head at hymba-1.5b's prefill, 200 before) and only
+// the state pass walks them in order, 4 elements a thread.
 //
-// Bound on the H100: bandwidth.  Each input is read once and each output
-// written once: x (bf16), y (f32) and the states dominate (hymba-1.5b's
-// lockstep prefill, B 4 x S 2048 x 50 heads x 64: ~160 MB, ~0.048 ms);
-// the ~2 S Q (ds + hd) nh B operations of the quadratic form are below
-// the byte time on tensor cores but not on float32 CUDA cores.  What this
-// design leaves on the table: float32 CUDA cores only (no tensor cores),
-// C.B^T recomputed by every head (it is shared, ngroups = 1), B and C tiles
-// re-read from L2 per (t, s) tile pair, one CTA per (head, batch) (96 CTAs
-// at mamba2-130m's shape, under one wave), no overlap of loads with math.
+// bf16 inputs (the served models) take mma.sync m16n8k16 for every product,
+// float32 accumulators, 8 warps:
+//   - (a): dh_c^T = (x_s exp(L_Q - L_s) dt_s)^T . B, an (hd x chunk) by
+//     (chunk x ds) product; the scaled x is float32, so it enters as two
+//     bf16 operands, hi = bf16(v) and lo = bf16(v - hi), and the two
+//     products are summed (residual ~2^-17 of v); B is exact in bf16.
+//   - (c): C.B^T once per CTA for all its heads (B and C are shared), 16
+//     rows by 16 columns a unit, the causal blocks only, kept in shared
+//     memory in fragment order; then per head W = C.B^T o exp(L_t - L_s)
+//     o causal with dt_s folded in, built from those fragments in
+//     registers, split hi/lo, times x (exact); the carried term C . h^T
+//     with the incoming state split hi/lo, each row scaled by exp(L_t).
+//     A warp takes one 16-row slab from the top of the 128-row tile and
+//     the one mirrored from the bottom (causal work 1 + 8, 2 + 7, ...) and
+//     half of the head dim, so its eight warps are busy alike; per head x
+//     and the incoming state go through two cp.async buffers.
+//   d_state 8 pads the k depth of C.B^T and C.h^T to 16 with zeros.
+// float32 inputs (the smoke configs) keep CUDA-core FMA arithmetic in the
+// same three launches, one head per CTA: a tensor-core product of float32
+// inputs would round them.
+//
+// Bound on the H100: bytes.  One pass over x, B, C, dt, y and the states
+// is ~160 MB at hymba-1.5b's lockstep prefill (B 4 x S 2048 x 50 heads of
+// 64, d_state 16: ~0.048 ms) and ~84 MB at mamba2-130m's (24 heads,
+// d_state 128: ~0.025 ms); on tensor cores the operations take a few us.
+// This design moves more: x and B are read by (a) and (c), and the chunk
+// states are written by (a), read and written by (b) and read by (c):
+// ~265 MB at hymba's shape, ~312 MB at mamba2's, 201 MB of it chunk
+// states (d_state 128), more than the 50 MB L2 holds.  A one-launch form
+// that chains the states from chunk CTA to chunk CTA (L2 flags or
+// distributed shared memory) would keep them on chip.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int TILE = 64;        // rows of a t- or s-tile inside a chunk
-constexpr int MAX_CHUNK = 256;  // one row of the prefix sum per thread
-constexpr int WP = TILE + 1;    // row stride of the weight tile
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_CHUNK = 256;
+constexpr int MAX_SMEM = 232448;  // 227 KB, a CTA's dynamic shared memory
 
 __device__ __forceinline__ float decay(float x) {
   return expf(fminf(fmaxf(x, -60.f), 0.f));
 }
 
-// Shared memory of one CTA, in floats.
-__host__ __device__ constexpr int smem_floats(int hd, int ds, int chunk) {
-  return hd * (ds + 1)          // state h
-         + chunk * (hd + 1)     // u = dt x of the chunk
-         + 2 * TILE * (ds + 1)  // C rows of the t-tile, B rows of the s-tile
-         + TILE * WP            // weights of the (t, s) pairs
-         + 3 * chunk            // L, dt, exp(L_Q - L_s)
-         + THREADS / 32;        // warp totals of the prefix sum
+__host__ __device__ constexpr int r16(int n) { return (n + 15) / 16 * 16; }
+
+// ---------------------------------------------------------------------------
+// launch (b): the state pass
+// ---------------------------------------------------------------------------
+
+// states (B, nc, nh, hd * ds): chunk c's dh_c in, the state entering chunk
+// c out; lq (B, nc, nh).  Thread i carries elements 4i .. 4i + 3 of the
+// (B, nh, hd * ds) state, loading 8 chunks' dh and L_Q ahead.
+__global__ void __launch_bounds__(THREADS)
+    ssd_state_pass(float* __restrict__ states, const float* __restrict__ lq,
+                   const float* __restrict__ h0, float* __restrict__ hout,
+                   int B, int nc, int nh, int hdds) {
+  launch_dependents();  // launch (c) may start and stage its C.B^T
+  wait_for_predecessor();
+  const int per = hdds / 4;
+  const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= (size_t)B * nh * per) return;
+  const int e = (int)(i % per);
+  const int bn = (int)(i / per), b = bn / nh, n = bn % nh;
+  float4 h = h0 != nullptr ? reinterpret_cast<const float4*>(h0)[i]
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4* st = reinterpret_cast<float4*>(states);
+  constexpr int AHEAD = 8;
+  for (int c0 = 0; c0 < nc; c0 += AHEAD) {
+    float4 d[AHEAD];
+    float q[AHEAD];
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) {
+      if (c0 + u < nc) {
+        const size_t slot = ((size_t)b * nc + c0 + u) * nh + n;
+        d[u] = st[slot * per + e];
+        q[u] = lq[slot];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) {
+      if (c0 + u < nc) {
+        const size_t slot = ((size_t)b * nc + c0 + u) * nh + n;
+        st[slot * per + e] = h;
+        const float r = decay(q[u]);
+        h = make_float4(r * h.x + d[u].x, r * h.y + d[u].y, r * h.z + d[u].z,
+                        r * h.w + d[u].w);
+      }
+    }
+  }
+  reinterpret_cast<float4*>(hout)[i] = h;
 }
 
-// Stage rows [0, n) of a (rows, ds) slab with row stride `stride` as f32
-// into dst (row stride ds + 1); rows n..TILE-1 become zeros.
-template <typename T, int DS>
-__device__ __forceinline__ void stage_tile(float* dst, const T* src,
-                                           size_t stride, int n) {
-  for (int e = threadIdx.x; e < TILE * DS; e += THREADS) {
-    const int s = e / DS, d = e % DS;
-    dst[s * (DS + 1) + d] = s < n ? to_f32(src[(size_t)s * stride + d]) : 0.f;
+// ---------------------------------------------------------------------------
+// float32 inputs: launches (a) and (c) on CUDA cores, one CTA per (chunk,
+// head, sequence)
+// ---------------------------------------------------------------------------
+namespace fp32 {
+
+constexpr int TILE = 64;        // rows of a t- or s-tile inside a chunk
+constexpr int WP = TILE + 1;    // row stride of the weight tile
+
+// Shared memory of one CTA, in floats: (a) u, a B tile, L, dt, exp(L_Q -
+// L_s) and the prefix sum's warp totals; (c) also the state, a C tile and
+// the weights.
+__host__ __device__ constexpr int states_floats(int hd, int ds, int chunk) {
+  return chunk * (hd + 1) + TILE * (ds + 1) + 3 * chunk + WARPS;
+}
+__host__ __device__ constexpr int scan_floats(int hd, int ds, int chunk) {
+  return hd * (ds + 1) + chunk * (hd + 1) + 2 * TILE * (ds + 1) + TILE * WP +
+         2 * chunk + WARPS;
+}
+
+// The chunk's log-decays a_s = A dt_s and their inclusive prefix sum L
+// (one row a thread), dt into sdt.  Ends in a barrier.
+__device__ __forceinline__ void prefix_sum(const float* dt, float a_n,
+                                           size_t row0, int nh, int n, int nv,
+                                           float* L, float* sdt,
+                                           float* wsum) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  float dtv = 0.f;
+  if (tid < nv) dtv = dt[(row0 + tid) * nh + n];
+  float v = a_n * dtv;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += t;
+  }
+  if (lane == 31) wsum[warp] = v;
+  __syncthreads();
+  for (int i = 0; i < warp; ++i) v += wsum[i];
+  if (tid < nv) {
+    L[tid] = v;
+    sdt[tid] = dtv;
+  }
+  __syncthreads();
+}
+
+// u = dt x for the chunk's rows (row stride HD + 1)
+template <int HD>
+__device__ __forceinline__ void stage_u(float* u, const float* x,
+                                        const float* sdt, size_t row0,
+                                        int x_row, int n, int nv) {
+  for (int e = threadIdx.x; e < nv * HD; e += THREADS) {
+    const int s = e / HD, p = e % HD;
+    u[s * (HD + 1) + p] = sdt[s] * x[(row0 + s) * x_row + (size_t)n * HD + p];
   }
 }
 
-template <typename T, int HD, int DS>
+// Rows [0, n) of a (rows, ds) slab with row stride `stride` into dst (row
+// stride DS + 1); rows n..TILE-1 become zeros.
+template <int DS>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           size_t stride, int n) {
+  for (int e = threadIdx.x; e < TILE * DS; e += THREADS) {
+    const int s = e / DS, d = e % DS;
+    dst[s * (DS + 1) + d] = s < n ? src[(size_t)s * stride + d] : 0.f;
+  }
+}
+
+// (a): dh_c of one head, each thread a micro-tile of the (hd, ds) state.
+template <int HD, int DS>
 __global__ void __launch_bounds__(THREADS)
-    ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ A, const T* __restrict__ Bm,
-                    const T* __restrict__ Cm, const float* __restrict__ h0,
-                    float* __restrict__ y, float* __restrict__ hout, int S,
-                    int nh, int chunk, int x_row, int b_row, int c_row) {
+    ssd_chunk_states_fma(const float* __restrict__ x,
+                         const float* __restrict__ dt,
+                         const float* __restrict__ A,
+                         const float* __restrict__ Bm,
+                         float* __restrict__ states, float* __restrict__ lq,
+                         int S, int nh, int chunk, int x_row, int b_row) {
   constexpr int DSP = DS + 1, HDP = HD + 1;
-  constexpr int CJ = HD / 16;  // y columns per thread (16 x 16 layout)
   // state micro-tile: DX threads along ds, PY along hd
   constexpr int DX = DS < 16 ? DS : 16;
   constexpr int PY = (THREADS / DX) < HD ? THREADS / DX : HD;
   constexpr int SI = HD / PY, SJ = DS / DX;
-  static_assert(HD % 16 == 0 && HD % PY == 0 && DS % DX == 0, "tile shape");
+  static_assert(HD % PY == 0 && DS % DX == 0, "tile shape");
 
-  extern __shared__ float smem[];
-  float* h = smem;                    // HD x DSP
-  float* u = h + HD * DSP;            // chunk x HDP
-  float* ct = u + chunk * HDP;        // TILE x DSP
-  float* bt = ct + TILE * DSP;        // TILE x DSP
-  float* w = bt + TILE * DSP;         // TILE x WP
-  float* L = w + TILE * WP;           // chunk
-  float* sdt = L + chunk;             // chunk
-  float* rem = sdt + chunk;           // chunk
-  float* wsum = rem + chunk;          // THREADS / 32
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* u = reinterpret_cast<float*>(smem_raw);  // chunk x HDP
+  float* bt = u + chunk * HDP;                      // TILE x DSP
+  float* L = bt + TILE * DSP;                       // chunk
+  float* sdt = L + chunk;                           // chunk
+  float* rem = sdt + chunk;                         // chunk
+  float* wsum = rem + chunk;                        // WARPS
 
-  const int n = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int ty = tid / 16, tx = tid % 16;
+  launch_dependents();
+  const int c = blockIdx.x, n = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int nc = gridDim.x, nv = min(chunk, S - c * chunk);
   const int sx = tid % DX, sy = tid / DX;
-  const bool s_owner = sy < PY;  // threads holding a state micro-tile
-  const float a_n = A[n];
-  const size_t head_state = ((size_t)b * nh + n) * HD * DS;
+  const size_t row0 = (size_t)b * S + (size_t)c * chunk;
+  prefix_sum(dt, A[n], row0, nh, n, nv, L, sdt, wsum);
+  const float l_last = L[nv - 1];
+  if (tid < nv) rem[tid] = decay(l_last - L[tid]);
+  stage_u<HD>(u, x, sdt, row0, x_row, n, nv);
 
-  for (int e = tid; e < HD * DS; e += THREADS) {
-    const int p = e / DS, d = e % DS;
-    h[p * DSP + d] = h0 != nullptr ? h0[head_state + e] : 0.f;
+  float dst[SI][SJ];
+#pragma unroll
+  for (int i = 0; i < SI; ++i)
+#pragma unroll
+    for (int j = 0; j < SJ; ++j) dst[i][j] = 0.f;
+  for (int s0 = 0; s0 < nv; s0 += TILE) {
+    const int ns = min(TILE, nv - s0);
+    __syncthreads();  // u and rem written; the last tile is done with bt
+    stage_tile<DS>(bt, Bm + (row0 + s0) * b_row, b_row, ns);
+    __syncthreads();
+    if (sy < PY) {
+      for (int s = 0; s < ns; ++s) {
+        const float r = rem[s0 + s];
+        float uv[SI], bv[SJ];
+#pragma unroll
+        for (int i = 0; i < SI; ++i)
+          uv[i] = r * u[(s0 + s) * HDP + sy + PY * i];
+#pragma unroll
+        for (int j = 0; j < SJ; ++j) bv[j] = bt[s * DSP + sx + DX * j];
+#pragma unroll
+        for (int i = 0; i < SI; ++i)
+#pragma unroll
+          for (int j = 0; j < SJ; ++j) dst[i][j] += uv[i] * bv[j];
+      }
+    }
   }
-
-  for (int c0 = 0; c0 < S; c0 += chunk) {
-    const int nv = min(chunk, S - c0);  // real rows of this chunk
-    const size_t row0 = (size_t)b * S + c0;
-    __syncthreads();  // the last chunk is done with L, u and the state
-
-    // (1) log-decays a_s = A dt_s and their inclusive prefix sum L
-    float dtv = 0.f;
-    if (tid < nv) dtv = dt[(row0 + tid) * nh + n];
-    float v = a_n * dtv;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float t = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += t;
-    }
-    if (lane == 31) wsum[warp] = v;
-    __syncthreads();
-    for (int i = 0; i < warp; ++i) v += wsum[i];
-    if (tid < nv) {
-      L[tid] = v;
-      sdt[tid] = dtv;
-    }
-    __syncthreads();
-    const float l_last = L[nv - 1];
-    if (tid < nv) rem[tid] = decay(l_last - L[tid]);
-    // (2) u = dt x for the chunk's rows
-    for (int e = tid; e < nv * HD; e += THREADS) {
-      const int s = e / HD, p = e % HD;
-      u[s * HDP + p] =
-          sdt[s] * to_f32(x[(row0 + s) * x_row + (size_t)n * HD + p]);
-    }
-
-    // (3) y, one 64-row t-tile at a time
-    for (int t0 = 0; t0 < nv; t0 += TILE) {
-      const int nt = min(TILE, nv - t0);
-      __syncthreads();  // u and rem written; the last tile is done with ct
-      stage_tile<T, DS>(ct, Cm + (row0 + t0) * c_row, c_row, nt);
-      __syncthreads();
-      float acc[4][CJ];
-      // the carried state: (C_t . h) exp(L_t)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < DS; ++d) {
-        float cv[4], hv[CJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = ct[(ty + 16 * i) * DSP + d];
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) hv[j] = h[(tx + 16 * j) * DSP + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < CJ; ++j) acc[i][j] += cv[i] * hv[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-        const float e = t < nt ? decay(L[t0 + t]) : 0.f;
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) acc[i][j] *= e;
-      }
-      // the quadratic form over the causal s-tiles s0 <= t0
-      for (int s0 = 0; s0 <= t0; s0 += TILE) {
-        const int ns = min(TILE, nv - s0);
-        __syncthreads();  // the last s-tile is done with bt and w
-        stage_tile<T, DS>(bt, Bm + (row0 + s0) * b_row, b_row, ns);
-        __syncthreads();
-        float wv[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wv[i][j] = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < DS; ++d) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) cv[i] = ct[(ty + 16 * i) * DSP + d];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = bt[(tx + 16 * j) * DSP + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) wv[i][j] += cv[i] * bv[j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int ti = ty + 16 * i, sj = tx + 16 * j;
-            const int t = t0 + ti, s = s0 + sj;
-            w[ti * WP + sj] = (ti < nt && sj < ns && s <= t)
-                                  ? wv[i][j] * decay(L[t] - L[s])
-                                  : 0.f;
-          }
-        __syncthreads();
-        const int s_end = min(ns, t0 + nt - s0);  // no s past the last t
-        for (int s = 0; s < s_end; ++s) {
-          float uv[CJ];
-#pragma unroll
-          for (int j = 0; j < CJ; ++j) uv[j] = u[(s0 + s) * HDP + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float wt = w[(ty + 16 * i) * WP + s];
-#pragma unroll
-            for (int j = 0; j < CJ; ++j) acc[i][j] += wt * uv[j];
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-        if (t < nt) {
-          float* yrow = y + ((row0 + t0 + t) * nh + n) * HD;
-#pragma unroll
-          for (int j = 0; j < CJ; ++j) yrow[tx + 16 * j] = acc[i][j];
-        }
-      }
-    }
-
-    // (4) h <- exp(L_Q) h + sum_s exp(L_Q - L_s) u_s (x) B_s
-    float dst[SI][SJ];
+  const size_t slot = ((size_t)b * nc + c) * nh + n;
+  if (sy < PY) {
+    float* out = states + slot * HD * DS;
 #pragma unroll
     for (int i = 0; i < SI; ++i)
 #pragma unroll
-      for (int j = 0; j < SJ; ++j) dst[i][j] = 0.f;
-    for (int s0 = 0; s0 < nv; s0 += TILE) {
+      for (int j = 0; j < SJ; ++j)
+        out[(sy + PY * i) * DS + sx + DX * j] = dst[i][j];
+  }
+  if (tid == 0) lq[slot] = l_last;
+}
+
+// (c): y of one head over one chunk, from the state entering it.  Per
+// 64-row t-tile the carried-state term from the C tile and the state, and
+// per causal 64-row s-tile the weights (C_t.B_s) exp(L_t - L_s) into
+// shared memory and their product with u, each thread a 4-row register
+// micro-tile.  Shared memory row strides are padded by one float against
+// bank conflicts.
+template <int HD, int DS>
+__global__ void __launch_bounds__(THREADS)
+    ssd_chunk_scan_fma(const float* __restrict__ x,
+                       const float* __restrict__ dt,
+                       const float* __restrict__ A,
+                       const float* __restrict__ Bm,
+                       const float* __restrict__ Cm,
+                       const float* __restrict__ states,
+                       float* __restrict__ y, int S, int nh, int chunk,
+                       int x_row, int b_row, int c_row) {
+  constexpr int DSP = DS + 1, HDP = HD + 1;
+  constexpr int CJ = HD / 16;  // y columns per thread (16 x 16 layout)
+  static_assert(HD % 16 == 0, "tile shape");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* h = reinterpret_cast<float*>(smem_raw);  // HD x DSP
+  float* u = h + HD * DSP;                          // chunk x HDP
+  float* ct = u + chunk * HDP;                      // TILE x DSP
+  float* bt = ct + TILE * DSP;                      // TILE x DSP
+  float* w = bt + TILE * DSP;                       // TILE x WP
+  float* L = w + TILE * WP;                         // chunk
+  float* sdt = L + chunk;                           // chunk
+  float* wsum = sdt + chunk;                        // WARPS
+
+  const int c = blockIdx.x, n = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int nc = gridDim.x, nv = min(chunk, S - c * chunk);
+  const int ty = tid / 16, tx = tid % 16;
+  const size_t row0 = (size_t)b * S + (size_t)c * chunk;
+  prefix_sum(dt, A[n], row0, nh, n, nv, L, sdt, wsum);
+  stage_u<HD>(u, x, sdt, row0, x_row, n, nv);
+  wait_for_predecessor();  // the state pass has written slot c
+  const float* hin = states + (((size_t)b * nc + c) * nh + n) * HD * DS;
+  for (int e = tid; e < HD * DS; e += THREADS)
+    h[(e / DS) * DSP + e % DS] = hin[e];
+
+  for (int t0 = 0; t0 < nv; t0 += TILE) {
+    const int nt = min(TILE, nv - t0);
+    __syncthreads();  // u and h written; the last tile is done with ct
+    stage_tile<DS>(ct, Cm + (row0 + t0) * c_row, c_row, nt);
+    __syncthreads();
+    float acc[4][CJ];
+    // the carried state: (C_t . h) exp(L_t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DS; ++d) {
+      float cv[4], hv[CJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cv[i] = ct[(ty + 16 * i) * DSP + d];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) hv[j] = h[(tx + 16 * j) * DSP + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) acc[i][j] += cv[i] * hv[j];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = ty + 16 * i;
+      const float e = t < nt ? decay(L[t0 + t]) : 0.f;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) acc[i][j] *= e;
+    }
+    // the quadratic form over the causal s-tiles s0 <= t0
+    for (int s0 = 0; s0 <= t0; s0 += TILE) {
       const int ns = min(TILE, nv - s0);
-      __syncthreads();  // y is done with bt (and with h)
-      stage_tile<T, DS>(bt, Bm + (row0 + s0) * b_row, b_row, ns);
+      __syncthreads();  // the last s-tile is done with bt and w
+      stage_tile<DS>(bt, Bm + (row0 + s0) * b_row, b_row, ns);
       __syncthreads();
-      if (s_owner) {
-        for (int s = 0; s < ns; ++s) {
-          const float r = rem[s0 + s];
-          float uv[SI], bv[SJ];
+      float wv[4][4];
 #pragma unroll
-          for (int i = 0; i < SI; ++i)
-            uv[i] = r * u[(s0 + s) * HDP + sy + PY * i];
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < SJ; ++j) bv[j] = bt[s * DSP + sx + DX * j];
+        for (int j = 0; j < 4; ++j) wv[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < DS; ++d) {
+        float cv[4], bv[4];
 #pragma unroll
-          for (int i = 0; i < SI; ++i)
+        for (int i = 0; i < 4; ++i) cv[i] = ct[(ty + 16 * i) * DSP + d];
 #pragma unroll
-            for (int j = 0; j < SJ; ++j) dst[i][j] += uv[i] * bv[j];
+        for (int j = 0; j < 4; ++j) bv[j] = bt[(tx + 16 * j) * DSP + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) wv[i][j] += cv[i] * bv[j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int ti = ty + 16 * i, sj = tx + 16 * j;
+          const int t = t0 + ti, s = s0 + sj;
+          w[ti * WP + sj] = (ti < nt && sj < ns && s <= t)
+                                ? wv[i][j] * decay(L[t] - L[s])
+                                : 0.f;
+        }
+      __syncthreads();
+      const int s_end = min(ns, t0 + nt - s0);  // no s past the last t
+      for (int s = 0; s < s_end; ++s) {
+        float uv[CJ];
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) uv[j] = u[(s0 + s) * HDP + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float wt = w[(ty + 16 * i) * WP + s];
+#pragma unroll
+          for (int j = 0; j < CJ; ++j) acc[i][j] += wt * uv[j];
         }
       }
     }
-    if (s_owner) {
-      const float eq = decay(l_last);
 #pragma unroll
-      for (int i = 0; i < SI; ++i)
+    for (int i = 0; i < 4; ++i) {
+      const int t = ty + 16 * i;
+      if (t < nt) {
+        float* yrow = y + ((row0 + t0 + t) * nh + n) * HD;
 #pragma unroll
-        for (int j = 0; j < SJ; ++j) {
-          float* hp = h + (sy + PY * i) * DSP + sx + DX * j;
-          *hp = *hp * eq + dst[i][j];
-        }
+        for (int j = 0; j < CJ; ++j) yrow[tx + 16 * j] = acc[i][j];
+      }
+    }
+  }
+}
+
+}  // namespace fp32
+
+// ---------------------------------------------------------------------------
+// bf16 inputs: launches (a) and (c) on tensor cores, a block of heads per CTA
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TT = 128;  // rows of a t-tile of launch (c): 8 slabs of 16
+
+template <int HD, int DS>
+struct Shape {
+  static constexpr int DSK = DS < 16 ? 16 : DS;  // k depth of C.B^T, C.h^T
+  static constexpr int CP = DSK + 8;  // bf16 row pitch of B and C tiles
+  static constexpr int XP = HD + 8;   // bf16 row pitch of x tiles
+  static constexpr int HP = DSK + 8;  // float row pitch of the state tile
+  // (rows 16 bytes apart in banks: conflict-free ldmatrix and float2 loads)
+};
+
+// Launch (a)'s shared memory: B rows, L and the weights of the block's
+// heads, nbuf x tiles.
+template <int HD, int DS>
+__host__ __device__ constexpr int states_bytes(int chunk, int heads,
+                                               int nbuf) {
+  using S = Shape<HD, DS>;
+  return r16(chunk) * (S::CP * 2 + 2 * heads * 4 + nbuf * S::XP * 2);
+}
+
+// n8 tiles of C.B^T launch (c) keeps for its largest t-tile: slab i (rows
+// 16i .. 16i + 15 of the chunk) keeps columns 0 .. 16i + 15, 2i + 2 tiles,
+// at tile offset i (i + 1) - a (a + 1) in the t-tile whose first slab is a.
+__host__ __device__ constexpr int cb_tiles(int chunk) {
+  int best = 0;
+  const int n_sl = (chunk + 15) / 16;
+  for (int a = 0; a < n_sl; a += TT / 16) {
+    const int e = n_sl < a + TT / 16 ? n_sl : a + TT / 16;
+    best = best > e * (e + 1) - a * (a + 1) ? best : e * (e + 1) - a * (a + 1);
+  }
+  return best;
+}
+
+// Launch (c)'s shared memory: the C tile, C.B^T, L and dt of the block's
+// heads, then a region that first holds the B rows and then nbuf x (x
+// tile, state tile).
+template <int HD, int DS>
+__host__ __device__ constexpr int scan_buffer_bytes(int chunk) {
+  using S = Shape<HD, DS>;
+  return r16(chunk) * S::XP * 2 + HD * S::HP * 4;
+}
+template <int HD, int DS>
+__host__ __device__ constexpr int scan_bytes(int chunk, int heads, int nbuf) {
+  using S = Shape<HD, DS>;
+  const int b_rows = r16(chunk) * S::CP * 2;
+  const int bufs = nbuf * scan_buffer_bytes<HD, DS>(chunk);
+  return TT * S::CP * 2 + cb_tiles(chunk) * 128 * 4 + 2 * heads * r16(chunk) * 4 +
+         (b_rows > bufs ? b_rows : bufs);
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two k-adjacent float32 values as two bf16 operands: hi = bf16(v), lo =
+// bf16(v - hi); hi + lo is v to ~2^-17 of v.
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+}
+
+// The bf16 pair in `v` times (r.x, r.y), split hi/lo.
+__device__ __forceinline__ void scale_split(uint32_t v, float2 r,
+                                            uint32_t& hi, uint32_t& lo) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+  split2(f.x * r.x, f.y * r.y, hi, lo);
+}
+
+// Rows [0, n) of a (rows, W) bf16 slab with row stride `stride` (elements)
+// into dst (row pitch P); rows n .. n_pad - 1 and columns W .. WZ - 1 of
+// rows 0 .. n_pad - 1 become zeros.  16-byte cp.async when `vec` (source
+// and stride 16-byte aligned; the caller commits and waits), else element
+// by element.
+template <int W, int WZ, int P>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           size_t stride, int n, int n_pad,
+                                           bool vec) {
+  constexpr int V = W / 8;  // 16-byte vectors per row
+  if (vec) {
+    for (int e = threadIdx.x; e < n_pad * V; e += THREADS) {
+      const int r = e / V, v = e % V;
+      const bool ok = r < n;
+      cp_async16(dst + r * P + v * 8, src + (size_t)(ok ? r : 0) * stride + v * 8,
+                 ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n_pad * W; e += THREADS) {
+      const int r = e / W, c = e % W;
+      dst[r * P + c] = r < n ? src[(size_t)r * stride + c]
+                             : __float2bfloat16(0.f);
+    }
+  }
+  if (WZ > W) {
+    for (int e = threadIdx.x; e < n_pad * (WZ - W); e += THREADS)
+      dst[(e / (WZ - W)) * P + W + e % (WZ - W)] = __float2bfloat16(0.f);
+  }
+}
+
+// dt of the block's nbh heads for the chunk's rows into sdt[j * q16 + r]
+// (zeros past nv up to q16), then one warp per head writes the inclusive
+// prefix sum of A dt into L[j * q16 + r] (past nv it stays at its last
+// real value).  Ends in a barrier.
+__device__ __forceinline__ void chunk_decays(const float* dt, const float* A,
+                                             size_t row0, int nh, int n0,
+                                             int nbh, int nv, int q16,
+                                             float* sdt, float* L) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  for (int e = tid; e < nbh * q16; e += THREADS) {
+    const int r = e / nbh, j = e % nbh;
+    sdt[j * q16 + r] = r < nv ? dt[(row0 + r) * nh + n0 + j] : 0.f;
+  }
+  __syncthreads();
+  for (int j = warp; j < nbh; j += WARPS) {
+    const float a = A[n0 + j];
+    float carry = 0.f;
+    for (int r0 = 0; r0 < q16; r0 += 32) {
+      const int r = r0 + lane;
+      float v = r < q16 ? a * sdt[j * q16 + r] : 0.f;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float t = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += t;
+      }
+      v += carry;
+      if (r < q16) L[j * q16 + r] = v;
+      carry = __shfl_sync(0xffffffffu, v, 31);
     }
   }
   __syncthreads();
-  for (int e = tid; e < HD * DS; e += THREADS) {
-    const int p = e / DS, d = e % DS;
-    hout[head_state + e] = h[p * DSP + d];
+}
+
+// (a): dh_c of each head of the block.  Warp w takes the 16 hd rows mi = w
+// % (HD / 16) and a run of the ds columns' n8 tiles; k runs over the
+// chunk's rows, 16 at a time.
+template <int HD, int DS>
+__global__ void __launch_bounds__(THREADS)
+    ssd_chunk_states_mma(const bf16* __restrict__ x,
+                         const float* __restrict__ dt,
+                         const float* __restrict__ A,
+                         const bf16* __restrict__ Bm,
+                         float* __restrict__ states, float* __restrict__ lq,
+                         int S, int nh, int chunk, int x_row, int b_row,
+                         int heads, int nbuf, int vec) {
+  using Sh = Shape<HD, DS>;
+  constexpr int CP = Sh::CP, XP = Sh::XP;
+  constexpr int MT = HD / 16, NT = DS / 8;
+  constexpr int GROUPS = WARPS / MT;                // warps sharing an mi
+  constexpr int NTW = (NT + GROUPS - 1) / GROUPS;   // n8 tiles a warp
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  launch_dependents();  // the state pass may be scheduled
+  const int c = blockIdx.x, n0 = blockIdx.y * heads, b = blockIdx.z;
+  const int nc = gridDim.x, tid = threadIdx.x, lane = tid % 32;
+  const int warp = tid / 32, g = lane / 4, t4 = lane % 4;
+  const int nbh = min(heads, nh - n0);
+  const int nv = min(chunk, S - c * chunk), n16 = r16(nv), q16 = r16(chunk);
+  const size_t row0 = (size_t)b * S + (size_t)c * chunk;
+  bf16* Bs = reinterpret_cast<bf16*>(smem_raw);              // q16 x CP
+  float* L = reinterpret_cast<float*>(Bs + q16 * CP);        // heads x q16
+  float* R = L + heads * q16;  // heads x q16: dt, then exp(L_Q - L_s) dt_s
+  bf16* Xs = reinterpret_cast<bf16*>(R + heads * q16);       // nbuf x q16 x XP
+  const bf16* xb = x + row0 * x_row + (size_t)n0 * HD;
+
+  stage_rows<DS, DS, CP>(Bs, Bm + row0 * b_row, b_row, nv, n16, vec);
+  stage_rows<HD, HD, XP>(Xs, xb, x_row, nv, n16, vec);
+  cp_async_commit();
+  chunk_decays(dt, A, row0, nh, n0, nbh, nv, q16, R, L);
+  for (int j = warp; j < nbh; j += WARPS) {
+    const float l_last = L[j * q16 + nv - 1];
+    for (int r = lane; r < n16; r += 32)
+      R[j * q16 + r] *= decay(l_last - L[j * q16 + r]);
+    if (lane == 0) lq[((size_t)b * nc + c) * nh + n0 + j] = l_last;
+  }
+
+  const int mi = warp % MT, nt0 = (warp / MT) * NTW;
+  for (int j = 0; j < nbh; ++j) {
+    const int buf = nbuf == 2 ? j & 1 : 0;
+    if (nbuf == 2 && j + 1 < nbh) {
+      stage_rows<HD, HD, XP>(Xs + (buf ^ 1) * q16 * XP, xb + (j + 1) * HD,
+                             x_row, nv, n16, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // x of head j (and, first, B and the weights) in
+    const bf16* xs = Xs + buf * q16 * XP;
+    const float* r = R + j * q16;
+    float acc[NTW][4];
+#pragma unroll
+    for (int i = 0; i < NTW; ++i)
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    for (int k0 = 0; k0 < n16; k0 += 16) {
+      // A = (x_s exp(L_Q - L_s) dt_s)^T: rows hd, k the chunk's rows
+      uint32_t a[4], ahi[4], alo[4];
+      ldsm_x4_trans(a, xs + (k0 + lane % 8 + 8 * (lane / 16)) * XP + mi * 16 +
+                           8 * ((lane / 8) % 2));
+      const float2 r0 = *reinterpret_cast<const float2*>(r + k0 + 2 * t4);
+      const float2 r1 = *reinterpret_cast<const float2*>(r + k0 + 8 + 2 * t4);
+      scale_split(a[0], r0, ahi[0], alo[0]);
+      scale_split(a[1], r0, ahi[1], alo[1]);
+      scale_split(a[2], r1, ahi[2], alo[2]);
+      scale_split(a[3], r1, ahi[3], alo[3]);
+#pragma unroll
+      for (int i = 0; i < NTW; ++i) {
+        if (nt0 + i < NT) {
+          uint32_t b0, b1;
+          ldmatrix_x2_trans(b0, b1,
+                            Bs + (k0 + lane % 16) * CP + (nt0 + i) * 8);
+          mma_bf16(acc[i], ahi, b0, b1);
+          mma_bf16(acc[i], alo, b0, b1);
+        }
+      }
+    }
+    float* out = states + (((size_t)b * nc + c) * nh + n0 + j) * HD * DS;
+#pragma unroll
+    for (int i = 0; i < NTW; ++i) {
+      if (nt0 + i < NT) {
+        const int p = mi * 16 + g, d = (nt0 + i) * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(out + p * DS + d) =
+            make_float2(acc[i][0], acc[i][1]);
+        *reinterpret_cast<float2*>(out + (p + 8) * DS + d) =
+            make_float2(acc[i][2], acc[i][3]);
+      }
+    }
+    __syncthreads();  // the buffer of head j is free
+    if (nbuf == 1 && j + 1 < nbh) {
+      stage_rows<HD, HD, XP>(Xs, xb + (j + 1) * HD, x_row, nv, n16, vec);
+      cp_async_commit();
+    }
   }
 }
 
-template <typename T, int HD, int DS>
-cudaError_t launch(const void* x, const float* dt, const float* A,
-                   const void* Bm, const void* Cm, const float* h0, float* y,
-                   float* hout, int B, int S, int nh, int chunk, int x_row,
-                   int b_row, int c_row, cudaStream_t st) {
-  if (chunk < 1 || chunk > MAX_CHUNK || S < 1 || B < 1 || nh < 1)
-    return cudaErrorInvalidValue;
-  const int bytes = smem_floats(HD, DS, chunk) * (int)sizeof(float);
-  auto* kern = ssd_scan_kernel<T, HD, DS>;
-  cudaError_t err = allow_smem(kern, bytes);
+// (c): y of each head of the block over one chunk.
+template <int HD, int DS>
+__global__ void __launch_bounds__(THREADS)
+    ssd_chunk_scan_mma(const bf16* __restrict__ x,
+                       const float* __restrict__ dt,
+                       const float* __restrict__ A,
+                       const bf16* __restrict__ Bm,
+                       const bf16* __restrict__ Cm,
+                       const float* __restrict__ states,
+                       float* __restrict__ y, int S, int nh, int chunk,
+                       int x_row, int b_row, int c_row, int heads, int nbuf,
+                       int vec) {
+  using Sh = Shape<HD, DS>;
+  constexpr int DSK = Sh::DSK, CP = Sh::CP, XP = Sh::XP, HP = Sh::HP;
+  constexpr int NTH = HD / 16;  // n8 tiles of half the head dim
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int c = blockIdx.x, n0 = blockIdx.y * heads, b = blockIdx.z;
+  const int nc = gridDim.x, tid = threadIdx.x, lane = tid % 32;
+  const int warp = tid / 32, g = lane / 4, t4 = lane % 4;
+  const int nbh = min(heads, nh - n0);
+  const int nv = min(chunk, S - c * chunk), q16 = r16(chunk);
+  const size_t row0 = (size_t)b * S + (size_t)c * chunk;
+  bf16* Cs = reinterpret_cast<bf16*>(smem_raw);            // TT x CP
+  float* CB = reinterpret_cast<float*>(Cs + TT * CP);       // tiles x 128
+  float* L = CB + cb_tiles(chunk) * 128;                    // heads x q16
+  float* DT = L + heads * q16;                              // heads x q16
+  unsigned char* U = reinterpret_cast<unsigned char*>(DT + heads * q16);
+  bf16* Bs = reinterpret_cast<bf16*>(U);                    // q16 x CP
+  const int buf_bytes = scan_buffer_bytes<HD, DS>(chunk);
+  auto xs_of = [&](int buf) {
+    return reinterpret_cast<bf16*>(U + buf * buf_bytes);
+  };
+  auto hs_of = [&](int buf) {
+    return reinterpret_cast<float*>(U + buf * buf_bytes + q16 * XP * 2);
+  };
+  const bf16* xb = x + row0 * x_row + (size_t)n0 * HD;
+  const float* hb = states + (((size_t)b * nc + c) * nh + n0) * HD * DS;
+
+  // x rows [0, n) of head j and its incoming state into buffer buf
+  auto stage_x = [&](int j, int buf, int n, int n_pad) {
+    stage_rows<HD, HD, XP>(xs_of(buf), xb + j * HD, x_row, n, n_pad, vec);
+  };
+  auto stage_h = [&](int j, int buf) {
+    float* hs = hs_of(buf);
+    const float* src = hb + (size_t)j * HD * DS;
+    for (int e = tid; e < HD * DS / 4; e += THREADS) {
+      const int p = e / (DS / 4), v = e % (DS / 4);
+      cp_async16(hs + p * HP + v * 4, src + p * DS + v * 4);
+    }
+    if (DSK > DS) {
+      for (int e = tid; e < HD * (DSK - DS); e += THREADS)
+        hs[(e / (DSK - DS)) * HP + DS + e % (DSK - DS)] = 0.f;
+    }
+  };
+
+  chunk_decays(dt, A, row0, nh, n0, nbh, nv, q16, DT, L);
+  bool waited = false;
+  for (int t0 = 0; t0 < nv; t0 += TT) {
+    const int t_end = min(nv, t0 + TT), e16 = r16(t_end);
+    const int sl0 = t0 / 16, sl1 = e16 / 16;  // the tile's slabs
+    const int base = sl0 * (sl0 + 1);         // C.B^T tile offset of sl0
+    __syncthreads();  // the last t-tile is done with Cs and U
+    stage_rows<DS, DSK, CP>(Cs, Cm + (row0 + t0) * c_row, c_row, t_end - t0,
+                            e16 - t0, vec);
+    stage_rows<DS, DSK, CP>(Bs, Bm + row0 * b_row, b_row, t_end, e16, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // C.B^T, units of 16 rows (slab i) by 16 columns (kp <= i) dealt to
+    // the warps in turn; fragments stored as the mma leaves them
+    int unit = 0;
+    for (int i = sl0; i < sl1; ++i) {
+      for (int kp = 0; kp <= i; ++kp, ++unit) {
+        if (unit % WARPS != warp) continue;
+        float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int k0 = 0; k0 < DSK; k0 += 16) {
+          uint32_t a[4], bb[4];
+          ldsm_x4(a, Cs + ((i - sl0) * 16 + lane % 8 + 8 * ((lane / 8) % 2)) *
+                              CP + k0 + 8 * (lane / 16));
+          ldsm_x4(bb, Bs + (kp * 16 + lane % 8 + 8 * (lane / 16)) * CP + k0 +
+                              8 * ((lane / 8) % 2));
+          mma_bf16(d0, a, bb[0], bb[1]);
+          mma_bf16(d1, a, bb[2], bb[3]);
+        }
+        float* dst = CB + (i * (i + 1) - base + 2 * kp) * 128 + lane * 4;
+        *reinterpret_cast<float4*>(dst) = make_float4(d0[0], d0[1], d0[2], d0[3]);
+        *reinterpret_cast<float4*>(dst + 128) =
+            make_float4(d1[0], d1[1], d1[2], d1[3]);
+      }
+    }
+    __syncthreads();  // C.B^T stored; the B rows are no longer needed
+    stage_x(0, 0, t_end, e16);
+    cp_async_commit();
+    if (!waited) {
+      wait_for_predecessor();  // the state pass has written the slots
+      waited = true;
+    }
+    stage_h(0, 0);
+    cp_async_commit();
+
+    for (int j = 0; j < nbh; ++j) {
+      const int buf = nbuf == 2 ? j & 1 : 0;
+      if (nbuf == 2 && j + 1 < nbh) {
+        stage_x(j + 1, buf ^ 1, t_end, e16);
+        stage_h(j + 1, buf ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // x and the state of head j in
+      const bf16* xs = xs_of(buf);
+      const float* hs = hs_of(buf);
+      const float* Lj = L + j * q16;
+      const float* Dj = DT + j * q16;
+      const int col0 = (warp / 4) * (HD / 2);  // the warp's half of hd
+#pragma unroll 1
+      for (int side = 0; side < 2; ++side) {
+        const int i = sl0 + (side == 0 ? warp % 4 : 7 - warp % 4);
+        if (i >= sl1) continue;
+        const int ta = i * 16 + g, tb = ta + 8;  // the thread's rows
+        const bf16* crow =
+            Cs + ((i - sl0) * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * CP +
+            8 * (lane / 16);
+        float acc[NTH][4];
+#pragma unroll
+        for (int q = 0; q < NTH; ++q)
+          acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
+        // the carried state: (C_t . h) exp(L_t)
+#pragma unroll
+        for (int k0 = 0; k0 < DSK; k0 += 16) {
+          uint32_t a[4];
+          ldsm_x4(a, crow + k0);
+#pragma unroll
+          for (int q = 0; q < NTH; ++q) {
+            const float* hp = hs + (col0 + q * 8 + g) * HP + k0 + 2 * t4;
+            const float2 v0 = *reinterpret_cast<const float2*>(hp);
+            const float2 v1 = *reinterpret_cast<const float2*>(hp + 8);
+            uint32_t h0, l0, h1, l1;
+            split2(v0.x, v0.y, h0, l0);
+            split2(v1.x, v1.y, h1, l1);
+            mma_bf16(acc[q], a, h0, h1);
+            mma_bf16(acc[q], a, l0, l1);
+          }
+        }
+        const float la = Lj[ta], lb = Lj[tb];
+        const float ea = decay(la), eb = decay(lb);
+#pragma unroll
+        for (int q = 0; q < NTH; ++q) {
+          acc[q][0] *= ea;
+          acc[q][1] *= ea;
+          acc[q][2] *= eb;
+          acc[q][3] *= eb;
+        }
+        // the quadratic form: W = C.B^T o exp(L_t - L_s) o causal, dt_s
+        // folded in, times x
+        const float* cb = CB + (i * (i + 1) - base) * 128 + lane * 4;
+        for (int kp = 0; kp <= i; ++kp) {
+          const float4 w0 = *reinterpret_cast<const float4*>(cb + 2 * kp * 128);
+          const float4 w1 =
+              *reinterpret_cast<const float4*>(cb + (2 * kp + 1) * 128);
+          const int s = kp * 16 + 2 * t4;
+          const float2 ls0 = *reinterpret_cast<const float2*>(Lj + s);
+          const float2 ls1 = *reinterpret_cast<const float2*>(Lj + s + 8);
+          const float2 ds0 = *reinterpret_cast<const float2*>(Dj + s);
+          const float2 ds1 = *reinterpret_cast<const float2*>(Dj + s + 8);
+          float v[8] = {w0.x * decay(la - ls0.x) * ds0.x,
+                        w0.y * decay(la - ls0.y) * ds0.y,
+                        w0.z * decay(lb - ls0.x) * ds0.x,
+                        w0.w * decay(lb - ls0.y) * ds0.y,
+                        w1.x * decay(la - ls1.x) * ds1.x,
+                        w1.y * decay(la - ls1.y) * ds1.y,
+                        w1.z * decay(lb - ls1.x) * ds1.x,
+                        w1.w * decay(lb - ls1.y) * ds1.y};
+          if (kp == i) {  // the diagonal block: s <= t only
+            if (s > ta) v[0] = 0.f;
+            if (s + 1 > ta) v[1] = 0.f;
+            if (s > tb) v[2] = 0.f;
+            if (s + 1 > tb) v[3] = 0.f;
+            if (s + 8 > ta) v[4] = 0.f;
+            if (s + 9 > ta) v[5] = 0.f;
+            if (s + 8 > tb) v[6] = 0.f;
+            if (s + 9 > tb) v[7] = 0.f;
+          }
+          uint32_t ah[4], al[4];
+          split2(v[0], v[1], ah[0], al[0]);
+          split2(v[2], v[3], ah[1], al[1]);
+          split2(v[4], v[5], ah[2], al[2]);
+          split2(v[6], v[7], ah[3], al[3]);
+#pragma unroll
+          for (int q = 0; q < NTH; ++q) {
+            uint32_t b0, b1;
+            ldmatrix_x2_trans(b0, b1, xs + (kp * 16 + lane % 16) * XP + col0 +
+                                          q * 8);
+            mma_bf16(acc[q], ah, b0, b1);
+            mma_bf16(acc[q], al, b0, b1);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < NTH; ++q) {
+          const int p = col0 + q * 8 + 2 * t4;
+          if (ta < nv)
+            *reinterpret_cast<float2*>(
+                y + ((row0 + ta) * nh + n0 + j) * HD + p) =
+                make_float2(acc[q][0], acc[q][1]);
+          if (tb < nv)
+            *reinterpret_cast<float2*>(
+                y + ((row0 + tb) * nh + n0 + j) * HD + p) =
+                make_float2(acc[q][2], acc[q][3]);
+        }
+      }
+      __syncthreads();  // the buffers of head j are free
+      if (nbuf == 1 && j + 1 < nbh) {
+        stage_x(j + 1, 0, t_end, e16);
+        stage_h(j + 1, 0);
+        cp_async_commit();
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
+// Raise a kernel's shared-memory ceiling to `bytes` once per size seen
+// (`allowed`: the largest set so far for this kernel).
+template <typename F>
+cudaError_t ensure_smem(F* kern, int bytes, int& allowed) {
+  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
+  if (bytes > allowed) {
+    const cudaError_t err = allow_smem(kern, bytes);
+    if (err != cudaSuccess) return err;
+    allowed = bytes;
+  }
+  return cudaSuccess;
+}
+
+// A programmatic dependent launch of `kern` on `st`: it may start while
+// the launch before it on the stream runs, and waits for it inside
+// (wait_for_predecessor).
+template <typename... Params, typename... Args>
+cudaError_t launch_pdl(void (*kern)(Params...), dim3 grid, int smem,
+                             cudaStream_t st, Args... args) {
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+struct Args {
+  const void *x, *Bm, *Cm;
+  const float *dt, *A, *h0;
+  float *y, *hout, *states, *lq;
+  int B, S, nh, chunk, x_row, b_row, c_row, heads;
+  cudaStream_t st;
+};
+
+// Launch (b), then (c) of either path.
+cudaError_t state_pass(const Args& a, int hdds) {
+  const int nc = (a.S + a.chunk - 1) / a.chunk;
+  const long long n4 = (long long)a.B * a.nh * hdds / 4;
+  return launch_pdl(ssd_state_pass, dim3((unsigned)((n4 + THREADS - 1) / THREADS)), 0,
+                          a.st, a.states, (const float*)a.lq, a.h0, a.hout,
+                          a.B, nc, a.nh, hdds);
+}
+
+template <int HD, int DS>
+cudaError_t launch_fma(const Args& a) {
+  using namespace fp32;
+  const float *x = (const float*)a.x, *Bm = (const float*)a.Bm,
+              *Cm = (const float*)a.Cm;
+  const int nc = (a.S + a.chunk - 1) / a.chunk;
+  const dim3 grid(nc, a.nh, a.B);
+  auto* ka = ssd_chunk_states_fma<HD, DS>;
+  auto* kc = ssd_chunk_scan_fma<HD, DS>;
+  static int allowed_a = 48 << 10, allowed_c = 48 << 10;
+  const int smem_a = states_floats(HD, DS, a.chunk) * 4;
+  const int smem_c = scan_floats(HD, DS, a.chunk) * 4;
+  cudaError_t err = ensure_smem(ka, smem_a, allowed_a);
+  if (err == cudaSuccess) err = ensure_smem(kc, smem_c, allowed_c);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(nh, B), THREADS, bytes, st>>>(
-      (const T*)x, dt, A, (const T*)Bm, (const T*)Cm, h0, y, hout, S, nh,
-      chunk, x_row, b_row, c_row);
-  return cudaGetLastError();
+  ka<<<grid, THREADS, smem_a, a.st>>>(x, a.dt, a.A, Bm, a.states, a.lq, a.S,
+                                       a.nh, a.chunk, a.x_row, a.b_row);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = state_pass(a, HD * DS);
+  if (err != cudaSuccess) return err;
+  return launch_pdl(kc, grid, smem_c, a.st, x, a.dt, a.A, Bm, Cm,
+                          (const float*)a.states, a.y, a.S, a.nh, a.chunk,
+                          a.x_row, a.b_row, a.c_row);
 }
 
-template <typename T, int HD>
-cudaError_t dispatch_ds(int ds, const void* x, const float* dt,
-                        const float* A, const void* Bm, const void* Cm,
-                        const float* h0, float* y, float* hout, int B, int S,
-                        int nh, int chunk, int x_row, int b_row, int c_row,
-                        cudaStream_t st) {
-#define SSD_DS(D)                                                          \
-  case D:                                                                  \
-    return launch<T, HD, D>(x, dt, A, Bm, Cm, h0, y, hout, B, S, nh, chunk, \
-                            x_row, b_row, c_row, st);
+template <int HD, int DS>
+cudaError_t launch_mma(const Args& a) {
+  using namespace tc;
+  using T = __nv_bfloat16;
+  const T *x = (const T*)a.x, *Bm = (const T*)a.Bm, *Cm = (const T*)a.Cm;
+  if (a.heads < 1) return cudaErrorInvalidValue;
+  const int nc = (a.S + a.chunk - 1) / a.chunk;
+  const dim3 grid(nc, (a.nh + a.heads - 1) / a.heads, a.B);
+  // 16-byte copies when every row of x, B and C starts 16-byte aligned
+  const int vec = ((uintptr_t)a.x | (uintptr_t)a.Bm | (uintptr_t)a.Cm) % 16 ==
+                      0 &&
+                  (a.x_row | a.b_row | a.c_row) % 8 == 0;
+  // two buffers (the next head's loads beside this head's products) where
+  // they fit
+  const int nbuf_a =
+      states_bytes<HD, DS>(a.chunk, a.heads, 2) <= MAX_SMEM ? 2 : 1;
+  const int nbuf_c = scan_bytes<HD, DS>(a.chunk, a.heads, 2) <= MAX_SMEM ? 2 : 1;
+  const int smem_a = states_bytes<HD, DS>(a.chunk, a.heads, nbuf_a);
+  const int smem_c = scan_bytes<HD, DS>(a.chunk, a.heads, nbuf_c);
+  auto* ka = ssd_chunk_states_mma<HD, DS>;
+  auto* kc = ssd_chunk_scan_mma<HD, DS>;
+  static int allowed_a = 48 << 10, allowed_c = 48 << 10;
+  cudaError_t err = ensure_smem(ka, smem_a, allowed_a);
+  if (err == cudaSuccess) err = ensure_smem(kc, smem_c, allowed_c);
+  if (err != cudaSuccess) return err;
+  ka<<<grid, THREADS, smem_a, a.st>>>(x, a.dt, a.A, Bm, a.states, a.lq, a.S,
+                                       a.nh, a.chunk, a.x_row, a.b_row,
+                                       a.heads, nbuf_a, vec);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = state_pass(a, HD * DS);
+  if (err != cudaSuccess) return err;
+  return launch_pdl(kc, grid, smem_c, a.st, x, a.dt, a.A, Bm, Cm,
+                          (const float*)a.states, a.y, a.S, a.nh, a.chunk,
+                          a.x_row, a.b_row, a.c_row, a.heads, nbuf_c, vec);
+}
+
+template <int HD, int DS>
+cudaError_t launch(int dtype, const Args& a) {
+  if (dtype == DTYPE_F32) return launch_fma<HD, DS>(a);
+  if (dtype == DTYPE_BF16) return launch_mma<HD, DS>(a);
+  return cudaErrorInvalidValue;
+}
+
+template <int HD>
+cudaError_t dispatch_ds(int ds, int dtype, const Args& a) {
   switch (ds) {
-    SSD_DS(8)
-    SSD_DS(16)
-    SSD_DS(32)
-    SSD_DS(64)
-    SSD_DS(128)
-    default: return cudaErrorInvalidValue;
-  }
-#undef SSD_DS
-}
-
-template <typename T>
-cudaError_t dispatch_hd(int hd, int ds, const void* x, const float* dt,
-                        const float* A, const void* Bm, const void* Cm,
-                        const float* h0, float* y, float* hout, int B, int S,
-                        int nh, int chunk, int x_row, int b_row, int c_row,
-                        cudaStream_t st) {
-  switch (hd) {
-    case 16: return dispatch_ds<T, 16>(ds, x, dt, A, Bm, Cm, h0, y, hout, B, S, nh, chunk, x_row, b_row, c_row, st);
-    case 32: return dispatch_ds<T, 32>(ds, x, dt, A, Bm, Cm, h0, y, hout, B, S, nh, chunk, x_row, b_row, c_row, st);
-    case 64: return dispatch_ds<T, 64>(ds, x, dt, A, Bm, Cm, h0, y, hout, B, S, nh, chunk, x_row, b_row, c_row, st);
+    case 8: return launch<HD, 8>(dtype, a);
+    case 16: return launch<HD, 16>(dtype, a);
+    case 32: return launch<HD, 32>(dtype, a);
+    case 64: return launch<HD, 64>(dtype, a);
+    case 128: return launch<HD, 128>(dtype, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -338,21 +1004,28 @@ cudaError_t dispatch_hd(int hd, int ds, const void* x, const float* dt,
 }  // namespace
 
 // x/Bm/Cm in `dtype` (DTYPE_F32 or DTYPE_BF16) with row strides x_row,
-// b_row, c_row (elements); dt, A, h0 (nullable), y, hout f32.  hd in {16,
-// 32, 64}, ds in {8, 16, 32, 64, 128}, 1 <= chunk <= 256.  Returns
-// cudaGetLastError() after launch.
+// b_row, c_row (elements); dt, A, h0 (nullable), y, hout f32; states (B,
+// nc, nh, hd, ds) and lq (B, nc, nh) f32 scratch, nc = ceil(S / chunk).
+// hd in {16, 32, 64}, ds in {8, 16, 32, 64, 128}, 1 <= chunk <= 256; in
+// bf16 `heads` >= 1 heads share a CTA of launches (a) and (c) (float32:
+// one, whatever `heads` says).  Three launches on `stream`; returns the
+// first error.
 extern "C" int ssd_scan(const void* x, const void* dt, const void* A,
                         const void* Bm, const void* Cm, const void* h0,
-                        void* y, void* hout, int B, int S, int nh, int hd,
-                        int ds, int chunk, int x_row, int b_row, int c_row,
-                        int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const float *dtf = (const float*)dt, *Af = (const float*)A,
-              *h0f = (const float*)h0;
-  float *yf = (float*)y, *hf = (float*)hout;
-  if (dtype == DTYPE_F32)
-    return dispatch_hd<float>(hd, ds, x, dtf, Af, Bm, Cm, h0f, yf, hf, B, S, nh, chunk, x_row, b_row, c_row, st);
-  if (dtype == DTYPE_BF16)
-    return dispatch_hd<__nv_bfloat16>(hd, ds, x, dtf, Af, Bm, Cm, h0f, yf, hf, B, S, nh, chunk, x_row, b_row, c_row, st);
-  return cudaErrorInvalidValue;
+                        void* y, void* hout, void* states, void* lq, int B,
+                        int S, int nh, int hd, int ds, int chunk, int x_row,
+                        int b_row, int c_row, int heads, int dtype,
+                        void* stream) {
+  if (chunk < 1 || chunk > MAX_CHUNK || S < 1 || B < 1 || nh < 1)
+    return cudaErrorInvalidValue;
+  const Args a{x, Bm, Cm, (const float*)dt, (const float*)A,
+               (const float*)h0, (float*)y, (float*)hout, (float*)states,
+               (float*)lq, B, S, nh, chunk, x_row, b_row, c_row, heads,
+               (cudaStream_t)stream};
+  switch (hd) {
+    case 16: return dispatch_ds<16>(ds, dtype, a);
+    case 32: return dispatch_ds<32>(ds, dtype, a);
+    case 64: return dispatch_ds<64>(ds, dtype, a);
+    default: return cudaErrorInvalidValue;
+  }
 }

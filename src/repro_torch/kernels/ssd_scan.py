@@ -1,13 +1,17 @@
 """Mamba-2 SSD chunked scan on the card (``csrc/ssd_scan.cu``).
 
-The Hopper port of the JAX package's ``ssd_scan_pallas``: per (batch,
-head) the (hd, ds) state is carried across chunks of ``chunk`` rows in
-shared memory, inside one CTA.  Unlike the Pallas kernel it takes any
-sequence length (a ragged last chunk is exact, as the plain version's
-zero padding), any head count and any chunk of 1..256 rows.  x, B and C
-may be views whose rows are strided (the model's conv output split three
-ways), as long as each row's own elements are contiguous.  Plain version:
-``ref.ssd_scan_chunked``.
+The Hopper port of the JAX package's ``ssd_scan_pallas``, chunk-parallel
+in three launches on the stream: (a) every chunk's own state contribution
+into a float32 scratch (B, nc, nh, hd, ds), (b) the state pass, which
+walks the chunks in order and leaves in each slot the state entering that
+chunk, (c) every chunk's output from its rows and that state.  bf16 runs
+the products on tensor cores with ``head_block`` heads per CTA of (a) and
+(c); float32 keeps CUDA-core arithmetic, one head per CTA.  Unlike the
+Pallas kernel it takes any sequence length (a ragged last chunk is exact,
+as the plain version's zero padding), any head count and any chunk of
+1..256 rows.  x, B and C may be views whose rows are strided (the model's
+conv output split three ways), as long as each row's own elements are
+contiguous.  Plain version: ``ref.ssd_scan_chunked``.
 """
 
 from __future__ import annotations
@@ -18,12 +22,17 @@ import torch
 
 from repro_torch.kernels import build
 
-#: kernel launches since the last reset (``ops.reset_launch_counts``)
+#: calls since the last reset (``ops.reset_launch_counts``), three CUDA
+#: launches each
 launches = 0
 
 _HD = (16, 32, 64)
 _DS = (8, 16, 32, 64, 128)
 _MAX_CHUNK = 256
+#: threads of a CTA of the state pass (launch (b)), 4 state elements each
+PASS_THREADS = 256
+#: the most heads one CTA of launches (a) and (c) takes (bf16)
+MAX_HEADS = 8
 
 
 def _row_stride(t: torch.Tensor, name: str) -> int:
@@ -38,6 +47,29 @@ def _row_stride(t: torch.Tensor, name: str) -> int:
         raise ValueError(f"ssd_scan kernel: {name} must have contiguous rows "
                          f"and a batch stride of S rows, got strides {st}")
     return row
+
+
+def head_block(B: int, S: int, nh: int, chunk: int, sms: int) -> int:
+    """Heads per CTA of launches (a) and (c) in bf16: the most, up to
+    ``MAX_HEADS``, that still give each of the ``sms`` SMs two CTAs (the
+    block's CTA forms C.B^T once for all its heads), else 1."""
+    ctas = -(-S // chunk) * B
+    for heads in (MAX_HEADS, 4, 2):
+        if ctas * -(-nh // heads) >= 2 * sms:
+            return heads
+    return 1
+
+
+def grids(B: int, S: int, nh: int, hd: int, ds: int, chunk: int, dtype,
+          sms: int) -> tuple:
+    """The grids of the three launches: (a) and (c) (chunks, head blocks,
+    B), one head a block in float32; (b) (CTAs of ``PASS_THREADS``, 1,
+    1)."""
+    heads = head_block(B, S, nh, chunk, sms) if dtype == torch.bfloat16 \
+        else 1
+    per_chunk = (-(-S // chunk), -(-nh // heads), B)
+    return (per_chunk, (-(-B * nh * hd * ds // (4 * PASS_THREADS)), 1, 1),
+            per_chunk)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -83,13 +115,22 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("ssd_scan kernel takes contiguous dt, A and state")
     x_row = _row_stride(x, "x")
     b_row, c_row = _row_stride(Bm, "B"), _row_stride(Cm, "C")
-    y = torch.empty((B, S, nh, hd), dtype=torch.float32, device=x.device)
-    hout = torch.empty((B, nh, hd, ds), dtype=torch.float32, device=x.device)
+    dev = x.device
+    heads = (head_block(B, S, nh, chunk, build.sm_count(dev))
+             if x.dtype == torch.bfloat16 else 1)
+    nc = -(-S // chunk)
+    y = torch.empty((B, S, nh, hd), dtype=torch.float32, device=dev)
+    hout = torch.empty((B, nh, hd, ds), dtype=torch.float32, device=dev)
+    # launch (a) writes every chunk state and L_Q: no memset
+    scratch = torch.empty(B * nc * nh * (hd * ds + 1), dtype=torch.float32,
+                          device=dev)
+    n_states = B * nc * nh * hd * ds
     err = build.library("ssd_scan")(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), build.ptr(initial_state), y.data_ptr(),
-        hout.data_ptr(), B, S, nh, hd, ds, chunk, x_row, b_row, c_row,
-        build.DTYPE_CODES[x.dtype], build.stream_ptr())
+        hout.data_ptr(), scratch.data_ptr(),
+        scratch[n_states:].data_ptr(), B, S, nh, hd, ds, chunk, x_row, b_row,
+        c_row, heads, build.DTYPE_CODES[x.dtype], build.stream_ptr())
     build.check(err, "ssd_scan")
     launches += 1
     return y, hout

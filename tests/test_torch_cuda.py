@@ -23,12 +23,13 @@ bitwise kernel 1's, each (sequence, head) row of masses within 2^-16 of
 that row's largest plain mass (the same float32 logits and exponentials,
 summed over the rows in another order), exact zeros where the plain
 masses are, and every row of masses summing to the number of counted
-rows within 1e-4 of it.  The SSD scan (kernel 8), float32 throughout on
-both sides: each output row of y (one row of one head) within 2^-12 of
-that row's largest plain magnitude, the final state within 2^-12 of its
-largest plain magnitude (the two prefix sums of the log-decays take
-other orders, and near-diagonal decays exp(L_t - L_s) of large L inherit
-their ~1e-5 absolute difference; 2^-12 leaves a margin of ~25x).
+rows within 1e-4 of it.  The SSD scan (kernel 8): each output row of y
+(one row of one head) within 2^-12 of that row's largest plain
+magnitude, the final state within 2^-12 of its largest plain magnitude
+(the plain version is float32; in bf16 the kernel's tensor cores take
+every float32 operand as bf16 hi + lo, ~2^-17 of it, and the two prefix
+sums of the log-decays take other orders, so near-diagonal decays
+exp(L_t - L_s) of large L inherit their ~1e-5 absolute difference).
 """
 
 import numpy as np
@@ -623,6 +624,12 @@ def _assert_ssd_close(got, want):
     (1, 200, 3, 64, 128, 64),  # mamba2's d_state
     (1, 96, 4, 32, 32, 32),
     (1, 80, 2, 16, 64, 16),
+    (4, 2048, 50, 64, 16, 128),  # 50 heads in blocks of 8: a ragged block
+    (8, 2048, 13, 64, 16, 128),  # 13 heads in blocks of 4
+    (2, 4096, 8, 64, 128, 128),  # 32 chunks through the state pass
+    (2, 64, 8, 32, 16, 1),  # chunk 1
+    (2, 300, 6, 64, 8, 128),  # d_state 8 at hd 64
+    (1, 600, 3, 64, 128, 256),  # chunk 256 at d_state 128 (one buffer)
 ])
 @pytest.mark.parametrize("with_state", [False, True])
 def test_ssd_scan_matches_plain(dev, dtype, case, with_state):
@@ -661,6 +668,46 @@ def test_ssd_scan_at_model_shapes_on_strided_views(dev, B, S, nh, hd, ds,
     torch.cuda.synchronize()
     _assert_ssd_close(got, ref.ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=chunk,
                                                 initial_state=h0))
+
+
+@pytest.mark.parametrize("heads", [1, 2, 3, 4, 8])
+def test_ssd_scan_head_blocks_match_plain(dev, heads, monkeypatch):
+    """bf16 with ``heads`` heads forced into each CTA of launches (a) and
+    (c): 13 heads leave a ragged last block at every size but 1."""
+    monkeypatch.setattr(sk, "head_block", lambda *a, **kw: heads)
+    g = torch.Generator(device=dev).manual_seed(11)
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(g, 2, 300, 13, 64, 16,
+                                       torch.bfloat16, dev)
+    got = sk.ssd_scan(x, dt, A, Bm, Cm, chunk=128, initial_state=h0)
+    torch.cuda.synchronize()
+    _assert_ssd_close(got, ref.ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=128,
+                                                initial_state=h0))
+
+
+def test_ssd_scan_is_three_launches(dev):
+    """One wrapper call is one count and three CUDA launches: chunk
+    states, the state pass, the chunk scan (the tensor-core kernels in bf16
+    at hymba-1.5b's shape, the FMA kernels in float32)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    B, S, nh, hd, ds, chunk = 4, 2048, 50, 64, 16, 128
+    for dtype, part in ((torch.bfloat16, "mma"), (torch.float32, "fma")):
+        x, dt, A, Bm, Cm, h0 = _ssd_inputs(g, B, S, nh, hd, ds, dtype, dev)
+        sk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)  # built and warm
+        before = sk.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=h0)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 3, names
+        for name, want in zip(names, (f"ssd_chunk_states_{part}",
+                                      "ssd_state_pass",
+                                      f"ssd_chunk_scan_{part}")):
+            assert want in name, names
+        assert sk.launches == before + 1
 
 
 def test_ssd_scan_refuses_what_it_does_not_take(dev):
