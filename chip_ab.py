@@ -52,6 +52,14 @@ and 1, 2, 4 and 8 key tiles per CTA of launch (b)
 2, 4 and 8 heads per CTA of launches (a) and (c) (``ssd_scan.head_block``);
 one line per shape, the rule's pick marked with a *.
 
+    python3 chip_ab.py --ssd .
+
+times kernel 8 alone: its head-block sweep (as in ``--splits``), then its
+three launches apart at the rule's pick, from the profiler's trace of 10
+calls, each on a cold L2: launch (a)'s span, and how much later than the
+launch before it (b) and (c) end (they are programmatic dependent
+launches, so each may start before its predecessor ends).
+
     python3 chip_ab.py --marks .
 
 times a one-element ``add_`` (the floor of every time taken this way),
@@ -372,6 +380,49 @@ def time_head_blocks(root: str, torch, chip_smoke) -> None:
               flush=True)
 
 
+def time_launch_split(root: str, torch, chip_smoke) -> None:
+    """Kernel 8's launches (a), (b) and (c) apart, from the trace's kernel
+    start and end times (us, the mean of 10 calls on a cold L2)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ssd_scan as sk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    scrub = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    trace = Path(root).resolve() / "build" / "ssd_launches.json"
+    for B, S, nh, hd, ds, chunk, carried, label in SSD:
+        x, dt, A, Bm, Cm, h0 = ssd_inputs(torch, g, B, S, nh, hd, ds,
+                                          carried)
+        call = lambda: sk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                                   initial_state=h0)
+        call()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                scrub.zero_()
+                torch.cuda._sleep(10_000_000)
+                call()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        evs = sorted((e for e in json.loads(trace.read_text())["traceEvents"]
+                      if e.get("cat") == "kernel" and "ssd_" in e["name"]),
+                     key=lambda e: e["ts"])
+        trace.unlink()
+        calls = [evs[i:i + 3] for i in range(0, len(evs), 3)]
+        end = [[e["ts"] + e["dur"] for e in c] for c in calls]
+        parts = (sum(c[0]["dur"] for c in calls) / len(calls),
+                 sum(t[1] - t[0] for t in end) / len(calls),
+                 sum(t[2] - t[1] for t in end) / len(calls),
+                 sum(t[2] - c[0]["ts"] for t, c in zip(end, calls))
+                 / len(calls))
+        print(f"{root}: kernel 8, {label}: (a) {parts[0]:.1f} us, (b) ends "
+              f"{parts[1]:.1f} us later, (c) {parts[2]:.1f} us after (b); "
+              f"{parts[3]:.1f} us from (a)'s start to (c)'s end "
+              f"({len(calls)} calls)", flush=True)
+
+
 def time_row_splits(root: str, torch, chip_smoke) -> None:
     """Kernels 4 and 5 with 1, 2, 4 and 8 CTAs per (sequence, kv head)."""
     from repro_torch.kernels import build
@@ -531,6 +582,15 @@ def main() -> None:
         return
     if len(sys.argv) > 2 and sys.argv[1] == "--marks":
         time_marks(sys.argv[2])
+        print(card())
+        return
+    if len(sys.argv) > 2 and sys.argv[1] == "--ssd":
+        sys.path.insert(0, str(ROOT))
+        import chip_smoke
+
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
+        time_head_blocks(sys.argv[2], torch, chip_smoke)
+        time_launch_split(sys.argv[2], torch, chip_smoke)
         print(card())
         return
     if len(sys.argv) > 2 and sys.argv[1] == "--splits":

@@ -44,13 +44,16 @@
 //   - (a): dh_c^T = (x_s exp(L_Q - L_s) dt_s)^T . B, an (hd x chunk) by
 //     (chunk x ds) product; the scaled x is float32, so it enters as two
 //     bf16 operands, hi = bf16(v) and lo = bf16(v - hi), and the two
-//     products are summed (residual ~2^-17 of v); B is exact in bf16.
+//     products are summed (residual at most 2^-16 of v); B is exact.
 //   - (c): C.B^T once per CTA for all its heads (B and C are shared), 16
 //     rows by 16 columns a unit, the causal blocks only, kept in shared
 //     memory in fragment order; then per head W = C.B^T o exp(L_t - L_s)
 //     o causal with dt_s folded in, built from those fragments in
-//     registers, split hi/lo, times x (exact); the carried term C . h^T
-//     with the incoming state split hi/lo, each row scaled by exp(L_t).
+//     registers, split hi/lo, times x (exact); the carried term C . h^T,
+//     each row scaled by exp(L_t), with the incoming state split in
+//     three, hi, mid and lo (residual 2^-24): a row at a chunk's start
+//     can be small against |C| |h|, and there hi/lo put a few rows of
+//     mamba2-130m's prefill past the 2^-12 tolerance.
 //     A warp takes one 16-row slab from the top of the 128-row tile and
 //     the one mirrored from the bottom (causal work 1 + 8, 2 + 7, ...) and
 //     half of the head dim, so its eight warps are busy alike; per head x
@@ -465,13 +468,22 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
 }
 
 // Two k-adjacent float32 values as two bf16 operands: hi = bf16(v), lo =
-// bf16(v - hi); hi + lo is v to ~2^-17 of v.
+// bf16(v - hi); hi + lo is v to 2^-16 of v (bf16 keeps 8 bits).
 __device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
                                        uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   const float2 hf = __bfloat1622float2(h);
   hi = as_u32(h);
   lo = as_u32(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+}
+
+// ... as three: hi, then the rest split as above; to 2^-24 of v.
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  split2(a - hf.x, b - hf.y, mid, lo);
 }
 
 // The bf16 pair in `v` times (r.x, r.y), split hi/lo.
@@ -786,10 +798,11 @@ __global__ void __launch_bounds__(THREADS)
             const float* hp = hs + (col0 + q * 8 + g) * HP + k0 + 2 * t4;
             const float2 v0 = *reinterpret_cast<const float2*>(hp);
             const float2 v1 = *reinterpret_cast<const float2*>(hp + 8);
-            uint32_t h0, l0, h1, l1;
-            split2(v0.x, v0.y, h0, l0);
-            split2(v1.x, v1.y, h1, l1);
+            uint32_t h0, m0, l0, h1, m1, l1;
+            split3(v0.x, v0.y, h0, m0, l0);
+            split3(v1.x, v1.y, h1, m1, l1);
             mma_bf16(acc[q], a, h0, h1);
+            mma_bf16(acc[q], a, m0, m1);
             mma_bf16(acc[q], a, l0, l1);
           }
         }
