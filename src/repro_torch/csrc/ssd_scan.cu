@@ -21,9 +21,10 @@
 // s) and batch stride S * x_row; B/C (B, S, 1, ds) with row strides b_row /
 // c_row (the model passes views of its conv output); dt (B, S, nh) f32;
 // A (nh,) f32; initial state (B, nh, hd, ds) f32 or null (zeros).  Outputs
-// y (B, S, nh, hd) f32 and the final state (B, nh, hd, ds) f32.  Scratch:
-// the chunk states (B, nc, nh, hd, ds) f32 and L_Q (B, nc, nh) f32, both
-// written in full by launch (a), so the wrapper needs no memset.
+// y (B, S, nh, hd) f32 and the final state (B, nh, hd, ds) f32.  Scratch,
+// written in full by launch (a), so the wrapper needs no memset: the
+// chunk states (B, nc, nh, hd, ds) f32, L_Q (B, nc, nh) f32 and, in bf16,
+// each chunk's C.B^T.
 //
 // Design: Mamba-2's own GPU split, three launches on the stream, (b) and
 // (c) programmatic dependent launches:
@@ -36,29 +37,33 @@
 //   (c) chunk scan, grid (chunks, head blocks, B): y from the chunk's own
 //       rows and the state entering it.
 // Every chunk is a CTA of its own, so the chunks run side by side
-// (3,200 CTAs of one head at hymba-1.5b's prefill, 200 before) and only
-// the state pass walks them in order, 4 elements a thread.
+// (hymba-1.5b's prefill: 448 CTAs of 8 heads, 200 CTAs before) and only
+// the state pass walks them in order, 4 elements a thread.  L is summed
+// in row order, as the plain version's cumsum.
 //
-// bf16 inputs (the served models) take mma.sync m16n8k16 for every product,
-// float32 accumulators, 8 warps:
+// bf16 inputs (the served models) take mma.sync m16n8k16, float32
+// accumulators, 8 warps, for the products with heads:
 //   - (a): dh_c^T = (x_s exp(L_Q - L_s) dt_s)^T . B, an (hd x chunk) by
 //     (chunk x ds) product; the scaled x is float32, so it enters as two
 //     bf16 operands, hi = bf16(v) and lo = bf16(v - hi), and the two
 //     products are summed (residual at most 2^-16 of v); B is exact.
-//   - (c): C.B^T once per CTA for all its heads (B and C are shared), 16
-//     rows by 16 columns a unit, the causal blocks only, kept in shared
-//     memory in fragment order; then per head W = C.B^T o exp(L_t - L_s)
-//     o causal with dt_s folded in, built from those fragments in
-//     registers, split hi/lo, times x (exact); the carried term C . h^T,
-//     each row scaled by exp(L_t), with the incoming state split in
-//     three, hi, mid and lo (residual 2^-24): a row at a chunk's start
-//     can be small against |C| |h|, and there hi/lo put a few rows of
-//     mamba2-130m's prefill past the 2^-12 tolerance.
-//     A warp takes one 16-row slab from the top of the 128-row tile and
-//     the one mirrored from the bottom (causal work 1 + 8, 2 + 7, ...) and
-//     half of the head dim, so its eight warps are busy alike; per head x
-//     and the incoming state go through two cp.async buffers.
-//   d_state 8 pads the k depth of C.B^T and C.h^T to 16 with zeros.
+//   - (c): per head W = C.B^T o exp(L_t - L_s) o causal with dt_s folded
+//     in, built in registers from C.B^T's mma fragments, split hi/lo,
+//     times x (exact); the carried term C . h^T, each row scaled by
+//     exp(L_t), with the incoming state split in three, hi, mid and lo
+//     (residual 2^-24): a row at a chunk's start can be small against
+//     |C| |h|, and there hi/lo put a few rows of mamba2-130m's prefill past
+//     the 2^-12 tolerance.  A warp takes one 16-row slab of the 128-row
+//     tile and the whole head dim, so each weight is formed once; per head
+//     x and the incoming state go through two cp.async buffers.
+// C.B^T is shared by the heads (one group): (a)'s CTAs of a chunk share it
+// out, 16 rows by 16 columns a unit, the causal blocks only, and store it
+// in mma fragment order for (c).  It runs on float32 FMA over d in order,
+// not on tensor cores: where C_t.B_t cancels (|C_t.B_t| ~ 5e-5 of
+// sum_d |C_t,d B_t,d|) and carries its row of y, a tensor-core sum's
+// truncation put the row past the tolerance on the card, and this order
+// rounds as the plain version does.  d_state 8 pads the k depth of C.h^T
+// to 16 with zeros.
 // float32 inputs (the smoke configs) keep CUDA-core FMA arithmetic in the
 // same three launches, one head per CTA: a tensor-core product of float32
 // inputs would round them.
@@ -67,12 +72,12 @@
 // is ~160 MB at hymba-1.5b's lockstep prefill (B 4 x S 2048 x 50 heads of
 // 64, d_state 16: ~0.048 ms) and ~84 MB at mamba2-130m's (24 heads,
 // d_state 128: ~0.025 ms); on tensor cores the operations take a few us.
-// This design moves more: x and B are read by (a) and (c), and the chunk
-// states are written by (a), read and written by (b) and read by (c):
-// ~265 MB at hymba's shape, ~312 MB at mamba2's, 201 MB of it chunk
-// states (d_state 128), more than the 50 MB L2 holds.  A one-launch form
-// that chains the states from chunk CTA to chunk CTA (L2 flags or
-// distributed shared memory) would keep them on chip.
+// This design moves more: x is read by (a) and (c), and the chunk states
+// are written by (a), read and written by (b) and read by (c): ~265 MB at
+// hymba's shape, ~312 MB at mamba2's, 201 MB of it chunk states (d_state
+// 128), more than the 50 MB L2 holds.  A one-launch form that chains the
+// states from chunk CTA to chunk CTA (L2 flags or distributed shared
+// memory) would keep them on chip.
 #include "common.cuh"
 
 namespace {
@@ -86,7 +91,51 @@ __device__ __forceinline__ float decay(float x) {
   return expf(fminf(fmaxf(x, -60.f), 0.f));
 }
 
+// The same through the approximate exponential (ex2.approx of x log2 e,
+// within ~2^-21 of expf over the clipped range): the weights of launch (c)
+// take one for each (t, s) pair of every head and chunk.
+__device__ __forceinline__ float fast_decay(float x) {
+  return __expf(fminf(fmaxf(x, -60.f), 0.f));
+}
+
 __host__ __device__ constexpr int r16(int n) { return (n + 15) / 16 * 16; }
+
+// dt of the nbh heads n0 .. n0 + nbh - 1 for the chunk's rows into sdt[j *
+// q16 + r] (zeros past nv up to r16(nv)), then, one thread a head, the
+// inclusive prefix sum of the log-decays A dt in row order into L[j * q16
+// + r] up to r16(nv) (past nv it stays at its last real value).  Products
+// and sums are rounded one by one, as the plain version's cumsum of A * dt
+// takes them: near the diagonal exp(L_t - L_s) of two large L is only as
+// good as their float32 rounding, so the two sides round alike.  Ends in
+// a barrier.
+__device__ __forceinline__ void chunk_decays(const float* dt, const float* A,
+                                             size_t row0, int nh, int n0,
+                                             int nbh, int nv, int q16,
+                                             float* sdt, float* L) {
+  const int n16 = r16(nv);
+  for (int e = threadIdx.x; e < nbh * n16; e += THREADS) {
+    const int r = e / nbh, j = e % nbh;
+    sdt[j * q16 + r] = r < nv ? dt[(row0 + r) * nh + n0 + j] : 0.f;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < nbh; j += THREADS) {
+    const float a = A[n0 + j];
+    const float* sj = sdt + j * q16;
+    float* lj = L + j * q16;
+    float v = 0.f;
+    for (int r0 = 0; r0 < n16; r0 += 16) {
+      float d[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) d[u] = sj[r0 + u];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        v = __fadd_rn(v, __fmul_rn(a, d[u]));
+        lj[r0 + u] = v;
+      }
+    }
+  }
+  __syncthreads();
+}
 
 // ---------------------------------------------------------------------------
 // launch (b): the state pass
@@ -144,40 +193,15 @@ namespace fp32 {
 constexpr int TILE = 64;        // rows of a t- or s-tile inside a chunk
 constexpr int WP = TILE + 1;    // row stride of the weight tile
 
-// Shared memory of one CTA, in floats: (a) u, a B tile, L, dt, exp(L_Q -
-// L_s) and the prefix sum's warp totals; (c) also the state, a C tile and
-// the weights.
+// Shared memory of one CTA, in floats: (a) u, a B tile, L and dt (rows
+// padded to 16), exp(L_Q - L_s); (c) also the state, a C tile and the
+// weights.
 __host__ __device__ constexpr int states_floats(int hd, int ds, int chunk) {
-  return chunk * (hd + 1) + TILE * (ds + 1) + 3 * chunk + WARPS;
+  return chunk * (hd + 1) + TILE * (ds + 1) + 2 * r16(chunk) + chunk;
 }
 __host__ __device__ constexpr int scan_floats(int hd, int ds, int chunk) {
   return hd * (ds + 1) + chunk * (hd + 1) + 2 * TILE * (ds + 1) + TILE * WP +
-         2 * chunk + WARPS;
-}
-
-// The chunk's log-decays a_s = A dt_s and their inclusive prefix sum L
-// (one row a thread), dt into sdt.  Ends in a barrier.
-__device__ __forceinline__ void prefix_sum(const float* dt, float a_n,
-                                           size_t row0, int nh, int n, int nv,
-                                           float* L, float* sdt,
-                                           float* wsum) {
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  float dtv = 0.f;
-  if (tid < nv) dtv = dt[(row0 + tid) * nh + n];
-  float v = a_n * dtv;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float t = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += t;
-  }
-  if (lane == 31) wsum[warp] = v;
-  __syncthreads();
-  for (int i = 0; i < warp; ++i) v += wsum[i];
-  if (tid < nv) {
-    L[tid] = v;
-    sdt[tid] = dtv;
-  }
-  __syncthreads();
+         2 * r16(chunk);
 }
 
 // u = dt x for the chunk's rows (row stride HD + 1)
@@ -221,17 +245,16 @@ __global__ void __launch_bounds__(THREADS)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* u = reinterpret_cast<float*>(smem_raw);  // chunk x HDP
   float* bt = u + chunk * HDP;                      // TILE x DSP
-  float* L = bt + TILE * DSP;                       // chunk
-  float* sdt = L + chunk;                           // chunk
-  float* rem = sdt + chunk;                         // chunk
-  float* wsum = rem + chunk;                        // WARPS
+  float* L = bt + TILE * DSP;                       // r16(chunk)
+  float* sdt = L + r16(chunk);                      // r16(chunk)
+  float* rem = sdt + r16(chunk);                    // chunk
 
   launch_dependents();
   const int c = blockIdx.x, n = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int nc = gridDim.x, nv = min(chunk, S - c * chunk);
   const int sx = tid % DX, sy = tid / DX;
   const size_t row0 = (size_t)b * S + (size_t)c * chunk;
-  prefix_sum(dt, A[n], row0, nh, n, nv, L, sdt, wsum);
+  chunk_decays(dt, A, row0, nh, n, 1, nv, r16(chunk), sdt, L);
   const float l_last = L[nv - 1];
   if (tid < nv) rem[tid] = decay(l_last - L[tid]);
   stage_u<HD>(u, x, sdt, row0, x_row, n, nv);
@@ -300,15 +323,14 @@ __global__ void __launch_bounds__(THREADS)
   float* ct = u + chunk * HDP;                      // TILE x DSP
   float* bt = ct + TILE * DSP;                      // TILE x DSP
   float* w = bt + TILE * DSP;                       // TILE x WP
-  float* L = w + TILE * WP;                         // chunk
-  float* sdt = L + chunk;                           // chunk
-  float* wsum = sdt + chunk;                        // WARPS
+  float* L = w + TILE * WP;                         // r16(chunk)
+  float* sdt = L + r16(chunk);                      // r16(chunk)
 
   const int c = blockIdx.x, n = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int nc = gridDim.x, nv = min(chunk, S - c * chunk);
   const int ty = tid / 16, tx = tid % 16;
   const size_t row0 = (size_t)b * S + (size_t)c * chunk;
-  prefix_sum(dt, A[n], row0, nh, n, nv, L, sdt, wsum);
+  chunk_decays(dt, A, row0, nh, n, 1, nv, r16(chunk), sdt, L);
   stage_u<HD>(u, x, sdt, row0, x_row, n, nv);
   wait_for_predecessor();  // the state pass has written slot c
   const float* hin = states + (((size_t)b * nc + c) * nh + n) * HD * DS;
@@ -424,18 +446,23 @@ struct Shape {
   // (rows 16 bytes apart in banks: conflict-free ldmatrix and float2 loads)
 };
 
-// Launch (a)'s shared memory: B rows, L and the weights of the block's
-// heads, nbuf x tiles.
+// Launch (a)'s shared memory: B and C rows, L and the weights of the
+// block's heads, nbuf x tiles.
 template <int HD, int DS>
 __host__ __device__ constexpr int states_bytes(int chunk, int heads,
                                                int nbuf) {
   using S = Shape<HD, DS>;
-  return r16(chunk) * (S::CP * 2 + 2 * heads * 4 + nbuf * S::XP * 2);
+  return r16(chunk) * (2 * S::CP * 2 + 2 * heads * 4 + nbuf * S::XP * 2);
 }
 
-// n8 tiles of C.B^T launch (c) keeps for its largest t-tile: slab i (rows
-// 16i .. 16i + 15 of the chunk) keeps columns 0 .. 16i + 15, 2i + 2 tiles,
-// at tile offset i (i + 1) - a (a + 1) in the t-tile whose first slab is a.
+// C.B^T of a chunk in n8 tiles of mma fragments: slab i (rows 16i .. 16i +
+// 15) keeps columns 0 .. 16i + 15, 2i + 2 tiles, from tile i (i + 1) on.
+__host__ __device__ constexpr int chunk_tiles(int chunk) {
+  return (chunk + 15) / 16 * ((chunk + 15) / 16 + 1);
+}
+
+// n8 tiles of C.B^T launch (c) keeps for its largest t-tile: the slabs i
+// of the t-tile whose first slab is a, at offset i (i + 1) - a (a + 1).
 __host__ __device__ constexpr int cb_tiles(int chunk) {
   int best = 0;
   const int n_sl = (chunk + 15) / 16;
@@ -447,8 +474,7 @@ __host__ __device__ constexpr int cb_tiles(int chunk) {
 }
 
 // Launch (c)'s shared memory: the C tile, C.B^T, L and dt of the block's
-// heads, then a region that first holds the B rows and then nbuf x (x
-// tile, state tile).
+// heads, nbuf x (x tile, state tile).
 template <int HD, int DS>
 __host__ __device__ constexpr int scan_buffer_bytes(int chunk) {
   using S = Shape<HD, DS>;
@@ -457,10 +483,8 @@ __host__ __device__ constexpr int scan_buffer_bytes(int chunk) {
 template <int HD, int DS>
 __host__ __device__ constexpr int scan_bytes(int chunk, int heads, int nbuf) {
   using S = Shape<HD, DS>;
-  const int b_rows = r16(chunk) * S::CP * 2;
-  const int bufs = nbuf * scan_buffer_bytes<HD, DS>(chunk);
-  return TT * S::CP * 2 + cb_tiles(chunk) * 128 * 4 + 2 * heads * r16(chunk) * 4 +
-         (b_rows > bufs ? b_rows : bufs);
+  return TT * S::CP * 2 + cb_tiles(chunk) * 128 * 4 +
+         2 * heads * r16(chunk) * 4 + nbuf * scan_buffer_bytes<HD, DS>(chunk);
 }
 
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
@@ -523,51 +547,26 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
   }
 }
 
-// dt of the block's nbh heads for the chunk's rows into sdt[j * q16 + r]
-// (zeros past nv up to q16), then one warp per head writes the inclusive
-// prefix sum of A dt into L[j * q16 + r] (past nv it stays at its last
-// real value).  Ends in a barrier.
-__device__ __forceinline__ void chunk_decays(const float* dt, const float* A,
-                                             size_t row0, int nh, int n0,
-                                             int nbh, int nv, int q16,
-                                             float* sdt, float* L) {
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  for (int e = tid; e < nbh * q16; e += THREADS) {
-    const int r = e / nbh, j = e % nbh;
-    sdt[j * q16 + r] = r < nv ? dt[(row0 + r) * nh + n0 + j] : 0.f;
-  }
-  __syncthreads();
-  for (int j = warp; j < nbh; j += WARPS) {
-    const float a = A[n0 + j];
-    float carry = 0.f;
-    for (int r0 = 0; r0 < q16; r0 += 32) {
-      const int r = r0 + lane;
-      float v = r < q16 ? a * sdt[j * q16 + r] : 0.f;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float t = __shfl_up_sync(0xffffffffu, v, o);
-        if (lane >= o) v += t;
-      }
-      v += carry;
-      if (r < q16) L[j * q16 + r] = v;
-      carry = __shfl_sync(0xffffffffu, v, 31);
-    }
-  }
-  __syncthreads();
+// Two bf16 of shared memory as floats.
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // (a): dh_c of each head of the block.  Warp w takes the 16 hd rows mi = w
 // % (HD / 16) and a run of the ds columns' n8 tiles; k runs over the
-// chunk's rows, 16 at a time.
+// chunk's rows, 16 at a time.  The CTAs of a chunk also share out its
+// C.B^T (``chunk_tiles``) for launch (c).
 template <int HD, int DS>
 __global__ void __launch_bounds__(THREADS)
     ssd_chunk_states_mma(const bf16* __restrict__ x,
                          const float* __restrict__ dt,
                          const float* __restrict__ A,
                          const bf16* __restrict__ Bm,
+                         const bf16* __restrict__ Cm,
                          float* __restrict__ states, float* __restrict__ lq,
-                         int S, int nh, int chunk, int x_row, int b_row,
-                         int heads, int nbuf, int vec) {
+                         float* __restrict__ cb, int S, int nh, int chunk,
+                         int x_row, int b_row, int c_row, int heads, int nbuf,
+                         int vec) {
   using Sh = Shape<HD, DS>;
   constexpr int CP = Sh::CP, XP = Sh::XP;
   constexpr int MT = HD / 16, NT = DS / 8;
@@ -583,12 +582,14 @@ __global__ void __launch_bounds__(THREADS)
   const int nv = min(chunk, S - c * chunk), n16 = r16(nv), q16 = r16(chunk);
   const size_t row0 = (size_t)b * S + (size_t)c * chunk;
   bf16* Bs = reinterpret_cast<bf16*>(smem_raw);              // q16 x CP
-  float* L = reinterpret_cast<float*>(Bs + q16 * CP);        // heads x q16
+  bf16* Cs = Bs + q16 * CP;                                   // q16 x CP
+  float* L = reinterpret_cast<float*>(Cs + q16 * CP);        // heads x q16
   float* R = L + heads * q16;  // heads x q16: dt, then exp(L_Q - L_s) dt_s
   bf16* Xs = reinterpret_cast<bf16*>(R + heads * q16);       // nbuf x q16 x XP
   const bf16* xb = x + row0 * x_row + (size_t)n0 * HD;
 
   stage_rows<DS, DS, CP>(Bs, Bm + row0 * b_row, b_row, nv, n16, vec);
+  stage_rows<DS, DS, CP>(Cs, Cm + row0 * c_row, c_row, nv, n16, vec);
   stage_rows<HD, HD, XP>(Xs, xb, x_row, nv, n16, vec);
   cp_async_commit();
   chunk_decays(dt, A, row0, nh, n0, nbh, nv, q16, R, L);
@@ -597,6 +598,44 @@ __global__ void __launch_bounds__(THREADS)
     for (int r = lane; r < n16; r += 32)
       R[j * q16 + r] *= decay(l_last - L[j * q16 + r]);
     if (lane == 0) lq[((size_t)b * nc + c) * nh + n0 + j] = l_last;
+  }
+
+  // This CTA's share of the chunk's C.B^T: the units (slab i, 16 columns
+  // kp <= i) u with u % gridDim.y == blockIdx.y, a unit a warp, each lane
+  // the 8 entries its mma fragments hold, stored in that order.  Float32
+  // FMA over d in order, not tensor cores: where C_t.B_s cancels to a small
+  // value and carries a row of y, a tensor-core sum's truncation puts the
+  // row past the tolerance and this order rounds as the plain version.
+  cp_async_wait<0>();
+  __syncthreads();
+  float* cbc = cb + ((size_t)b * nc + c) * chunk_tiles(chunk) * 128;
+  for (int i = 0, u = 0; i < n16 / 16; ++i) {
+    for (int kp = 0; kp <= i; ++kp, ++u) {
+      if (u % gridDim.y != blockIdx.y || u / gridDim.y % WARPS != warp)
+        continue;
+      const bf16* c0 = Cs + (16 * i + g) * CP;
+      const bf16* bs = Bs + (16 * kp + 2 * t4) * CP;  // rows s, s + 1
+      float e[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int d = 0; d < DS; d += 2) {
+        const float2 ca = ld2(c0 + d), cc = ld2(c0 + 8 * CP + d);
+        const float2 b0 = ld2(bs + d), b1 = ld2(bs + CP + d);
+        const float2 b8 = ld2(bs + 8 * CP + d), b9 = ld2(bs + 9 * CP + d);
+        // tile 2kp: (g, s), (g, s + 1), (g + 8, s), (g + 8, s + 1); tile
+        // 2kp + 1 the same 8 columns on
+        e[0] = fmaf(ca.y, b0.y, fmaf(ca.x, b0.x, e[0]));
+        e[1] = fmaf(ca.y, b1.y, fmaf(ca.x, b1.x, e[1]));
+        e[2] = fmaf(cc.y, b0.y, fmaf(cc.x, b0.x, e[2]));
+        e[3] = fmaf(cc.y, b1.y, fmaf(cc.x, b1.x, e[3]));
+        e[4] = fmaf(ca.y, b8.y, fmaf(ca.x, b8.x, e[4]));
+        e[5] = fmaf(ca.y, b9.y, fmaf(ca.x, b9.x, e[5]));
+        e[6] = fmaf(cc.y, b8.y, fmaf(cc.x, b8.x, e[6]));
+        e[7] = fmaf(cc.y, b9.y, fmaf(cc.x, b9.x, e[7]));
+      }
+      float* dst = cbc + (i * (i + 1) + 2 * kp) * 128 + lane * 4;
+      *reinterpret_cast<float4*>(dst) = make_float4(e[0], e[1], e[2], e[3]);
+      *reinterpret_cast<float4*>(dst + 128) =
+          make_float4(e[4], e[5], e[6], e[7]);
+    }
   }
 
   const int mi = warp % MT, nt0 = (warp / MT) * NTW;
@@ -664,15 +703,14 @@ __global__ void __launch_bounds__(THREADS)
     ssd_chunk_scan_mma(const bf16* __restrict__ x,
                        const float* __restrict__ dt,
                        const float* __restrict__ A,
-                       const bf16* __restrict__ Bm,
                        const bf16* __restrict__ Cm,
+                       const float* __restrict__ cb,
                        const float* __restrict__ states,
                        float* __restrict__ y, int S, int nh, int chunk,
-                       int x_row, int b_row, int c_row, int heads, int nbuf,
-                       int vec) {
+                       int x_row, int c_row, int heads, int nbuf, int vec) {
   using Sh = Shape<HD, DS>;
   constexpr int DSK = Sh::DSK, CP = Sh::CP, XP = Sh::XP, HP = Sh::HP;
-  constexpr int NTH = HD / 16;  // n8 tiles of half the head dim
+  constexpr int NT8 = HD / 8;  // n8 tiles of the head dim
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int c = blockIdx.x, n0 = blockIdx.y * heads, b = blockIdx.z;
@@ -686,7 +724,6 @@ __global__ void __launch_bounds__(THREADS)
   float* L = CB + cb_tiles(chunk) * 128;                    // heads x q16
   float* DT = L + heads * q16;                              // heads x q16
   unsigned char* U = reinterpret_cast<unsigned char*>(DT + heads * q16);
-  bf16* Bs = reinterpret_cast<bf16*>(U);                    // q16 x CP
   const int buf_bytes = scan_buffer_bytes<HD, DS>(chunk);
   auto xs_of = [&](int buf) {
     return reinterpret_cast<bf16*>(U + buf * buf_bytes);
@@ -696,6 +733,7 @@ __global__ void __launch_bounds__(THREADS)
   };
   const bf16* xb = x + row0 * x_row + (size_t)n0 * HD;
   const float* hb = states + (((size_t)b * nc + c) * nh + n0) * HD * DS;
+  const float* cbc = cb + ((size_t)b * nc + c) * chunk_tiles(chunk) * 128;
 
   // x rows [0, n) of head j and its incoming state into buffer buf
   auto stage_x = [&](int j, int buf, int n, int n_pad) {
@@ -723,40 +761,16 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();  // the last t-tile is done with Cs and U
     stage_rows<DS, DSK, CP>(Cs, Cm + (row0 + t0) * c_row, c_row, t_end - t0,
                             e16 - t0, vec);
-    stage_rows<DS, DSK, CP>(Bs, Bm + row0 * b_row, b_row, t_end, e16, vec);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    // C.B^T, units of 16 rows (slab i) by 16 columns (kp <= i) dealt to
-    // the warps in turn; fragments stored as the mma leaves them
-    int unit = 0;
-    for (int i = sl0; i < sl1; ++i) {
-      for (int kp = 0; kp <= i; ++kp, ++unit) {
-        if (unit % WARPS != warp) continue;
-        float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int k0 = 0; k0 < DSK; k0 += 16) {
-          uint32_t a[4], bb[4];
-          ldsm_x4(a, Cs + ((i - sl0) * 16 + lane % 8 + 8 * ((lane / 8) % 2)) *
-                              CP + k0 + 8 * (lane / 16));
-          ldsm_x4(bb, Bs + (kp * 16 + lane % 8 + 8 * (lane / 16)) * CP + k0 +
-                              8 * ((lane / 8) % 2));
-          mma_bf16(d0, a, bb[0], bb[1]);
-          mma_bf16(d1, a, bb[2], bb[3]);
-        }
-        float* dst = CB + (i * (i + 1) - base + 2 * kp) * 128 + lane * 4;
-        *reinterpret_cast<float4*>(dst) = make_float4(d0[0], d0[1], d0[2], d0[3]);
-        *reinterpret_cast<float4*>(dst + 128) =
-            make_float4(d1[0], d1[1], d1[2], d1[3]);
-      }
-    }
-    __syncthreads();  // C.B^T stored; the B rows are no longer needed
     stage_x(0, 0, t_end, e16);
     cp_async_commit();
     if (!waited) {
-      wait_for_predecessor();  // the state pass has written the slots
+      // the state pass has written the slots (and launch (a) C.B^T)
+      wait_for_predecessor();
       waited = true;
     }
+    // C.B^T of the tile's slabs, in the fragment order launch (a) left
+    for (int e = tid; e < (sl1 * (sl1 + 1) - base) * 32; e += THREADS)
+      cp_async16(CB + e * 4, cbc + base * 128 + e * 4);
     stage_h(0, 0);
     cp_async_commit();
 
@@ -775,18 +789,15 @@ __global__ void __launch_bounds__(THREADS)
       const float* hs = hs_of(buf);
       const float* Lj = L + j * q16;
       const float* Dj = DT + j * q16;
-      const int col0 = (warp / 4) * (HD / 2);  // the warp's half of hd
-#pragma unroll 1
-      for (int side = 0; side < 2; ++side) {
-        const int i = sl0 + (side == 0 ? warp % 4 : 7 - warp % 4);
-        if (i >= sl1) continue;
+      const int i = sl0 + warp;  // the warp's slab
+      if (i < sl1) {
         const int ta = i * 16 + g, tb = ta + 8;  // the thread's rows
         const bf16* crow =
             Cs + ((i - sl0) * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * CP +
             8 * (lane / 16);
-        float acc[NTH][4];
+        float acc[NT8][4];
 #pragma unroll
-        for (int q = 0; q < NTH; ++q)
+        for (int q = 0; q < NT8; ++q)
           acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
         // the carried state: (C_t . h) exp(L_t)
 #pragma unroll
@@ -794,8 +805,8 @@ __global__ void __launch_bounds__(THREADS)
           uint32_t a[4];
           ldsm_x4(a, crow + k0);
 #pragma unroll
-          for (int q = 0; q < NTH; ++q) {
-            const float* hp = hs + (col0 + q * 8 + g) * HP + k0 + 2 * t4;
+          for (int q = 0; q < NT8; ++q) {
+            const float* hp = hs + (q * 8 + g) * HP + k0 + 2 * t4;
             const float2 v0 = *reinterpret_cast<const float2*>(hp);
             const float2 v1 = *reinterpret_cast<const float2*>(hp + 8);
             uint32_t h0, m0, l0, h1, m1, l1;
@@ -809,7 +820,7 @@ __global__ void __launch_bounds__(THREADS)
         const float la = Lj[ta], lb = Lj[tb];
         const float ea = decay(la), eb = decay(lb);
 #pragma unroll
-        for (int q = 0; q < NTH; ++q) {
+        for (int q = 0; q < NT8; ++q) {
           acc[q][0] *= ea;
           acc[q][1] *= ea;
           acc[q][2] *= eb;
@@ -827,14 +838,14 @@ __global__ void __launch_bounds__(THREADS)
           const float2 ls1 = *reinterpret_cast<const float2*>(Lj + s + 8);
           const float2 ds0 = *reinterpret_cast<const float2*>(Dj + s);
           const float2 ds1 = *reinterpret_cast<const float2*>(Dj + s + 8);
-          float v[8] = {w0.x * decay(la - ls0.x) * ds0.x,
-                        w0.y * decay(la - ls0.y) * ds0.y,
-                        w0.z * decay(lb - ls0.x) * ds0.x,
-                        w0.w * decay(lb - ls0.y) * ds0.y,
-                        w1.x * decay(la - ls1.x) * ds1.x,
-                        w1.y * decay(la - ls1.y) * ds1.y,
-                        w1.z * decay(lb - ls1.x) * ds1.x,
-                        w1.w * decay(lb - ls1.y) * ds1.y};
+          float v[8] = {w0.x * fast_decay(la - ls0.x) * ds0.x,
+                        w0.y * fast_decay(la - ls0.y) * ds0.y,
+                        w0.z * fast_decay(lb - ls0.x) * ds0.x,
+                        w0.w * fast_decay(lb - ls0.y) * ds0.y,
+                        w1.x * fast_decay(la - ls1.x) * ds1.x,
+                        w1.y * fast_decay(la - ls1.y) * ds1.y,
+                        w1.z * fast_decay(lb - ls1.x) * ds1.x,
+                        w1.w * fast_decay(lb - ls1.y) * ds1.y};
           if (kp == i) {  // the diagonal block: s <= t only
             if (s > ta) v[0] = 0.f;
             if (s + 1 > ta) v[1] = 0.f;
@@ -850,18 +861,23 @@ __global__ void __launch_bounds__(THREADS)
           split2(v[2], v[3], ah[1], al[1]);
           split2(v[4], v[5], ah[2], al[2]);
           split2(v[6], v[7], ah[3], al[3]);
+          // x of rows 16 kp .. 16 kp + 15, two n8 tiles a load
+          const bf16* xrow =
+              xs + (kp * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * XP +
+              8 * (lane / 16);
 #pragma unroll
-          for (int q = 0; q < NTH; ++q) {
-            uint32_t b0, b1;
-            ldmatrix_x2_trans(b0, b1, xs + (kp * 16 + lane % 16) * XP + col0 +
-                                          q * 8);
-            mma_bf16(acc[q], ah, b0, b1);
-            mma_bf16(acc[q], al, b0, b1);
+          for (int q = 0; q < NT8; q += 2) {
+            uint32_t b[4];
+            ldsm_x4_trans(b, xrow + q * 8);
+            mma_bf16(acc[q], ah, b[0], b[1]);
+            mma_bf16(acc[q], al, b[0], b[1]);
+            mma_bf16(acc[q + 1], ah, b[2], b[3]);
+            mma_bf16(acc[q + 1], al, b[2], b[3]);
           }
         }
 #pragma unroll
-        for (int q = 0; q < NTH; ++q) {
-          const int p = col0 + q * 8 + 2 * t4;
+        for (int q = 0; q < NT8; ++q) {
+          const int p = q * 8 + 2 * t4;
           if (ta < nv)
             *reinterpret_cast<float2*>(
                 y + ((row0 + ta) * nh + n0 + j) * HD + p) =
@@ -920,7 +936,7 @@ cudaError_t launch_pdl(void (*kern)(Params...), dim3 grid, int smem,
 struct Args {
   const void *x, *Bm, *Cm;
   const float *dt, *A, *h0;
-  float *y, *hout, *states, *lq;
+  float *y, *hout, *states, *lq, *cb;
   int B, S, nh, chunk, x_row, b_row, c_row, heads;
   cudaStream_t st;
 };
@@ -984,15 +1000,17 @@ cudaError_t launch_mma(const Args& a) {
   cudaError_t err = ensure_smem(ka, smem_a, allowed_a);
   if (err == cudaSuccess) err = ensure_smem(kc, smem_c, allowed_c);
   if (err != cudaSuccess) return err;
-  ka<<<grid, THREADS, smem_a, a.st>>>(x, a.dt, a.A, Bm, a.states, a.lq, a.S,
-                                       a.nh, a.chunk, a.x_row, a.b_row,
-                                       a.heads, nbuf_a, vec);
+  ka<<<grid, THREADS, smem_a, a.st>>>(x, a.dt, a.A, Bm, Cm, a.states, a.lq,
+                                       a.cb, a.S, a.nh, a.chunk, a.x_row,
+                                       a.b_row, a.c_row, a.heads, nbuf_a,
+                                       vec);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = state_pass(a, HD * DS);
   if (err != cudaSuccess) return err;
-  return launch_pdl(kc, grid, smem_c, a.st, x, a.dt, a.A, Bm, Cm,
-                          (const float*)a.states, a.y, a.S, a.nh, a.chunk,
-                          a.x_row, a.b_row, a.c_row, a.heads, nbuf_c, vec);
+  return launch_pdl(kc, grid, smem_c, a.st, x, a.dt, a.A, Cm,
+                          (const float*)a.cb, (const float*)a.states, a.y,
+                          a.S, a.nh, a.chunk, a.x_row, a.c_row, a.heads,
+                          nbuf_c, vec);
 }
 
 template <int HD, int DS>
@@ -1018,14 +1036,17 @@ cudaError_t dispatch_ds(int ds, int dtype, const Args& a) {
 
 // x/Bm/Cm in `dtype` (DTYPE_F32 or DTYPE_BF16) with row strides x_row,
 // b_row, c_row (elements); dt, A, h0 (nullable), y, hout f32; states (B,
-// nc, nh, hd, ds) and lq (B, nc, nh) f32 scratch, nc = ceil(S / chunk).
+// nc, nh, hd, ds) and lq (B, nc, nh) f32 scratch, nc = ceil(S / chunk),
+// and in bf16 cb, (B, nc, chunk_tiles(chunk) x 128) f32 scratch for C.B^T
+// (float32 takes none).
 // hd in {16, 32, 64}, ds in {8, 16, 32, 64, 128}, 1 <= chunk <= 256; in
 // bf16 `heads` >= 1 heads share a CTA of launches (a) and (c) (float32:
 // one, whatever `heads` says).  Three launches on `stream`; returns the
 // first error.
 extern "C" int ssd_scan(const void* x, const void* dt, const void* A,
                         const void* Bm, const void* Cm, const void* h0,
-                        void* y, void* hout, void* states, void* lq, int B,
+                        void* y, void* hout, void* states, void* lq, void* cb,
+                        int B,
                         int S, int nh, int hd, int ds, int chunk, int x_row,
                         int b_row, int c_row, int heads, int dtype,
                         void* stream) {
@@ -1033,7 +1054,8 @@ extern "C" int ssd_scan(const void* x, const void* dt, const void* A,
     return cudaErrorInvalidValue;
   const Args a{x, Bm, Cm, (const float*)dt, (const float*)A,
                (const float*)h0, (float*)y, (float*)hout, (float*)states,
-               (float*)lq, B, S, nh, chunk, x_row, b_row, c_row, heads,
+               (float*)lq, (float*)cb, B, S, nh, chunk, x_row, b_row, c_row,
+               heads,
                (cudaStream_t)stream};
   switch (hd) {
     case 16: return dispatch_ds<16>(ds, dtype, a);

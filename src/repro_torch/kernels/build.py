@@ -51,7 +51,7 @@ SIGNATURES = {
     "paged_decode_attention": [_P] * 8 + [_I] * 9 + [_P],
     "paged_decode_masses": [_P] * 9 + [_I] * 9 + [_P],
     "decode_attention": [_P] * 5 + [_I] * 8 + [_P],
-    "ssd_scan": [_P] * 10 + [_I] * 11 + [_P],
+    "ssd_scan": [_P] * 11 + [_I] * 11 + [_P],
 }
 # the entry point a source's library offers by default
 _ENTRY = {"chunk_attention": "chunk_attention",

@@ -2,9 +2,10 @@
 
 The Hopper port of the JAX package's ``ssd_scan_pallas``, chunk-parallel
 in three launches on the stream: (a) every chunk's own state contribution
-into a float32 scratch (B, nc, nh, hd, ds), (b) the state pass, which
-walks the chunks in order and leaves in each slot the state entering that
-chunk, (c) every chunk's output from its rows and that state.  bf16 runs
+into a float32 scratch (B, nc, nh, hd, ds) and, in bf16, the chunk's
+C.B^T, (b) the state pass, which walks the chunks in order and leaves in
+each slot the state entering that chunk, (c) every chunk's output from its
+rows and that state.  bf16 runs
 the products on tensor cores with ``head_block`` heads per CTA of (a) and
 (c); float32 keeps CUDA-core arithmetic, one head per CTA.  Unlike the
 Pallas kernel it takes any sequence length (a ragged last chunk is exact,
@@ -47,6 +48,13 @@ def _row_stride(t: torch.Tensor, name: str) -> int:
         raise ValueError(f"ssd_scan kernel: {name} must have contiguous rows "
                          f"and a batch stride of S rows, got strides {st}")
     return row
+
+
+def _chunk_tiles(chunk: int) -> int:
+    """n8 tiles of mma fragments of one chunk's C.B^T (``csrc/ssd_scan.cu``:
+    ``chunk_tiles``): slab i of 16 rows keeps 2i + 2."""
+    n_sl = -(-chunk // 16)
+    return n_sl * (n_sl + 1)
 
 
 def head_block(B: int, S: int, nh: int, chunk: int, sms: int) -> int:
@@ -121,16 +129,23 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     nc = -(-S // chunk)
     y = torch.empty((B, S, nh, hd), dtype=torch.float32, device=dev)
     hout = torch.empty((B, nh, hd, ds), dtype=torch.float32, device=dev)
-    # launch (a) writes every chunk state and L_Q: no memset
-    scratch = torch.empty(B * nc * nh * (hd * ds + 1), dtype=torch.float32,
+    # launch (a) writes every chunk state, (bf16) C.B^T and L_Q: no
+    # memset; the states and C.B^T are read 16 bytes at a time
+    n_states, n_lq = B * nc * nh * hd * ds, B * nc * nh
+    n_cb = (B * nc * _chunk_tiles(chunk) * 128
+            if x.dtype == torch.bfloat16 else 0)
+    scratch = torch.empty(n_states + n_cb + n_lq, dtype=torch.float32,
                           device=dev)
-    n_states = B * nc * nh * hd * ds
+    if initial_state is not None and initial_state.data_ptr() % 16:
+        initial_state = initial_state.clone()
     err = build.library("ssd_scan")(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), build.ptr(initial_state), y.data_ptr(),
         hout.data_ptr(), scratch.data_ptr(),
-        scratch[n_states:].data_ptr(), B, S, nh, hd, ds, chunk, x_row, b_row,
-        c_row, heads, build.DTYPE_CODES[x.dtype], build.stream_ptr())
+        scratch[n_states + n_cb:].data_ptr(),
+        scratch[n_states:].data_ptr() if n_cb else None, B, S, nh, hd, ds,
+        chunk, x_row, b_row, c_row, heads, build.DTYPE_CODES[x.dtype],
+        build.stream_ptr())
     build.check(err, "ssd_scan")
     launches += 1
     return y, hout

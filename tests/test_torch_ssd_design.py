@@ -111,7 +111,7 @@ def three_pass(x, dt, A, Bm, Cm, *, chunk, initial_state=None,
         states[:, c] = h
         h = _decay(lq[:, c])[..., None, None] * h + dh
 
-    # (c) y = W x + exp(L_t) C_t . h_in; C.B^T exact from bf16 inputs
+    # (c) y = W x + exp(L_t) C_t . h_in; C.B^T in float32
     cb = torch.einsum("bctd,bcsd->bcts", cc, bc)
     causal = torch.tril(torch.ones((chunk, chunk)))
     w = (cb[..., None] * _decay(L[:, :, :, None] - L[:, :, None, :])
