@@ -100,8 +100,8 @@ __device__ __forceinline__ float fast_decay(float x) {
 
 __host__ __device__ constexpr int r16(int n) { return (n + 15) / 16 * 16; }
 
-// dt of the nbh heads n0 .. n0 + nbh - 1 for the chunk's rows into sdt[j *
-// q16 + r] (zeros past nv up to r16(nv)), then, one thread a head, the
+// dt of the nbh heads n0 + j hstep (j < nbh) for the chunk's rows into
+// sdt[j * q16 + r] (zeros past nv up to r16(nv)), then, one thread a head, the
 // inclusive prefix sum of the log-decays A dt in row order into L[j * q16
 // + r] up to r16(nv) (past nv it stays at its last real value).  Products
 // and sums are rounded one by one, as the plain version's cumsum of A * dt
@@ -110,16 +110,16 @@ __host__ __device__ constexpr int r16(int n) { return (n + 15) / 16 * 16; }
 // a barrier.
 __device__ __forceinline__ void chunk_decays(const float* dt, const float* A,
                                              size_t row0, int nh, int n0,
-                                             int nbh, int nv, int q16,
-                                             float* sdt, float* L) {
+                                             int hstep, int nbh, int nv,
+                                             int q16, float* sdt, float* L) {
   const int n16 = r16(nv);
   for (int e = threadIdx.x; e < nbh * n16; e += THREADS) {
     const int r = e / nbh, j = e % nbh;
-    sdt[j * q16 + r] = r < nv ? dt[(row0 + r) * nh + n0 + j] : 0.f;
+    sdt[j * q16 + r] = r < nv ? dt[(row0 + r) * nh + n0 + j * hstep] : 0.f;
   }
   __syncthreads();
   for (int j = threadIdx.x; j < nbh; j += THREADS) {
-    const float a = A[n0 + j];
+    const float a = A[n0 + j * hstep];
     const float* sj = sdt + j * q16;
     float* lj = L + j * q16;
     float v = 0.f;
@@ -254,7 +254,7 @@ __global__ void __launch_bounds__(THREADS)
   const int nc = gridDim.x, nv = min(chunk, S - c * chunk);
   const int sx = tid % DX, sy = tid / DX;
   const size_t row0 = (size_t)b * S + (size_t)c * chunk;
-  chunk_decays(dt, A, row0, nh, n, 1, nv, r16(chunk), sdt, L);
+  chunk_decays(dt, A, row0, nh, n, 1, 1, nv, r16(chunk), sdt, L);
   const float l_last = L[nv - 1];
   if (tid < nv) rem[tid] = decay(l_last - L[tid]);
   stage_u<HD>(u, x, sdt, row0, x_row, n, nv);
@@ -330,7 +330,7 @@ __global__ void __launch_bounds__(THREADS)
   const int nc = gridDim.x, nv = min(chunk, S - c * chunk);
   const int ty = tid / 16, tx = tid % 16;
   const size_t row0 = (size_t)b * S + (size_t)c * chunk;
-  chunk_decays(dt, A, row0, nh, n, 1, nv, r16(chunk), sdt, L);
+  chunk_decays(dt, A, row0, nh, n, 1, 1, nv, r16(chunk), sdt, L);
   stage_u<HD>(u, x, sdt, row0, x_row, n, nv);
   wait_for_predecessor();  // the state pass has written slot c
   const float* hin = states + (((size_t)b * nc + c) * nh + n) * HD * DS;
@@ -531,8 +531,8 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
     for (int e = threadIdx.x; e < n_pad * V; e += THREADS) {
       const int r = e / V, v = e % V;
       const bool ok = r < n;
-      cp_async16(dst + r * P + v * 8, src + (size_t)(ok ? r : 0) * stride + v * 8,
-                 ok);
+      cp_async16(dst + r * P + v * 8,
+                 src + (size_t)(ok ? r : 0) * stride + v * 8, ok);
     }
   } else {
     for (int e = threadIdx.x; e < n_pad * W; e += THREADS) {
@@ -575,10 +575,13 @@ __global__ void __launch_bounds__(THREADS)
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   launch_dependents();  // the state pass may be scheduled
-  const int c = blockIdx.x, n0 = blockIdx.y * heads, b = blockIdx.z;
+  // heads n0 + j hstep, j < nbh <= heads: the CTAs of a chunk take heads in
+  // turn, so at each step they read neighbouring heads of the same rows
+  const int c = blockIdx.x, n0 = blockIdx.y, hstep = gridDim.y;
+  const int b = blockIdx.z;
   const int nc = gridDim.x, tid = threadIdx.x, lane = tid % 32;
   const int warp = tid / 32, g = lane / 4, t4 = lane % 4;
-  const int nbh = min(heads, nh - n0);
+  const int nbh = (nh - n0 + hstep - 1) / hstep;
   const int nv = min(chunk, S - c * chunk), n16 = r16(nv), q16 = r16(chunk);
   const size_t row0 = (size_t)b * S + (size_t)c * chunk;
   bf16* Bs = reinterpret_cast<bf16*>(smem_raw);              // q16 x CP
@@ -592,12 +595,12 @@ __global__ void __launch_bounds__(THREADS)
   stage_rows<DS, DS, CP>(Cs, Cm + row0 * c_row, c_row, nv, n16, vec);
   stage_rows<HD, HD, XP>(Xs, xb, x_row, nv, n16, vec);
   cp_async_commit();
-  chunk_decays(dt, A, row0, nh, n0, nbh, nv, q16, R, L);
+  chunk_decays(dt, A, row0, nh, n0, hstep, nbh, nv, q16, R, L);
   for (int j = warp; j < nbh; j += WARPS) {
     const float l_last = L[j * q16 + nv - 1];
     for (int r = lane; r < n16; r += 32)
       R[j * q16 + r] *= decay(l_last - L[j * q16 + r]);
-    if (lane == 0) lq[((size_t)b * nc + c) * nh + n0 + j] = l_last;
+    if (lane == 0) lq[((size_t)b * nc + c) * nh + n0 + j * hstep] = l_last;
   }
 
   // This CTA's share of the chunk's C.B^T: the units (slab i, 16 columns
@@ -642,7 +645,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int j = 0; j < nbh; ++j) {
     const int buf = nbuf == 2 ? j & 1 : 0;
     if (nbuf == 2 && j + 1 < nbh) {
-      stage_rows<HD, HD, XP>(Xs + (buf ^ 1) * q16 * XP, xb + (j + 1) * HD,
+      stage_rows<HD, HD, XP>(Xs + (buf ^ 1) * q16 * XP,
+                             xb + (size_t)(j + 1) * hstep * HD,
                              x_row, nv, n16, vec);
       cp_async_commit();
       cp_async_wait<1>();
@@ -678,7 +682,8 @@ __global__ void __launch_bounds__(THREADS)
         }
       }
     }
-    float* out = states + (((size_t)b * nc + c) * nh + n0 + j) * HD * DS;
+    float* out =
+        states + (((size_t)b * nc + c) * nh + n0 + j * hstep) * HD * DS;
 #pragma unroll
     for (int i = 0; i < NTW; ++i) {
       if (nt0 + i < NT) {
@@ -691,7 +696,8 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();  // the buffer of head j is free
     if (nbuf == 1 && j + 1 < nbh) {
-      stage_rows<HD, HD, XP>(Xs, xb + (j + 1) * HD, x_row, nv, n16, vec);
+      stage_rows<HD, HD, XP>(Xs, xb + (size_t)(j + 1) * hstep * HD, x_row,
+                             nv, n16, vec);
       cp_async_commit();
     }
   }
@@ -713,10 +719,12 @@ __global__ void __launch_bounds__(THREADS)
   constexpr int NT8 = HD / 8;  // n8 tiles of the head dim
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int c = blockIdx.x, n0 = blockIdx.y * heads, b = blockIdx.z;
+  // heads n0 + j hstep, j < nbh <= heads, as in launch (a)
+  const int c = blockIdx.x, n0 = blockIdx.y, hstep = gridDim.y;
+  const int b = blockIdx.z;
   const int nc = gridDim.x, tid = threadIdx.x, lane = tid % 32;
   const int warp = tid / 32, g = lane / 4, t4 = lane % 4;
-  const int nbh = min(heads, nh - n0);
+  const int nbh = (nh - n0 + hstep - 1) / hstep;
   const int nv = min(chunk, S - c * chunk), q16 = r16(chunk);
   const size_t row0 = (size_t)b * S + (size_t)c * chunk;
   bf16* Cs = reinterpret_cast<bf16*>(smem_raw);            // TT x CP
@@ -737,11 +745,12 @@ __global__ void __launch_bounds__(THREADS)
 
   // x rows [0, n) of head j and its incoming state into buffer buf
   auto stage_x = [&](int j, int buf, int n, int n_pad) {
-    stage_rows<HD, HD, XP>(xs_of(buf), xb + j * HD, x_row, n, n_pad, vec);
+    stage_rows<HD, HD, XP>(xs_of(buf), xb + (size_t)j * hstep * HD, x_row, n,
+                           n_pad, vec);
   };
   auto stage_h = [&](int j, int buf) {
     float* hs = hs_of(buf);
-    const float* src = hb + (size_t)j * HD * DS;
+    const float* src = hb + (size_t)j * hstep * HD * DS;
     for (int e = tid; e < HD * DS / 4; e += THREADS) {
       const int p = e / (DS / 4), v = e % (DS / 4);
       cp_async16(hs + p * HP + v * 4, src + p * DS + v * 4);
@@ -752,7 +761,7 @@ __global__ void __launch_bounds__(THREADS)
     }
   };
 
-  chunk_decays(dt, A, row0, nh, n0, nbh, nv, q16, DT, L);
+  chunk_decays(dt, A, row0, nh, n0, hstep, nbh, nv, q16, DT, L);
   bool waited = false;
   for (int t0 = 0; t0 < nv; t0 += TT) {
     const int t_end = min(nv, t0 + TT), e16 = r16(t_end);
@@ -880,11 +889,11 @@ __global__ void __launch_bounds__(THREADS)
           const int p = q * 8 + 2 * t4;
           if (ta < nv)
             *reinterpret_cast<float2*>(
-                y + ((row0 + ta) * nh + n0 + j) * HD + p) =
+                y + ((row0 + ta) * nh + n0 + j * hstep) * HD + p) =
                 make_float2(acc[q][0], acc[q][1]);
           if (tb < nv)
             *reinterpret_cast<float2*>(
-                y + ((row0 + tb) * nh + n0 + j) * HD + p) =
+                y + ((row0 + tb) * nh + n0 + j * hstep) * HD + p) =
                 make_float2(acc[q][2], acc[q][3]);
         }
       }
@@ -945,9 +954,9 @@ struct Args {
 cudaError_t state_pass(const Args& a, int hdds) {
   const int nc = (a.S + a.chunk - 1) / a.chunk;
   const long long n4 = (long long)a.B * a.nh * hdds / 4;
-  return launch_pdl(ssd_state_pass, dim3((unsigned)((n4 + THREADS - 1) / THREADS)), 0,
-                          a.st, a.states, (const float*)a.lq, a.h0, a.hout,
-                          a.B, nc, a.nh, hdds);
+  const dim3 grid((unsigned)((n4 + THREADS - 1) / THREADS));
+  return launch_pdl(ssd_state_pass, grid, 0, a.st, a.states,
+                    (const float*)a.lq, a.h0, a.hout, a.B, nc, a.nh, hdds);
 }
 
 template <int HD, int DS>
@@ -991,7 +1000,8 @@ cudaError_t launch_mma(const Args& a) {
   // they fit
   const int nbuf_a =
       states_bytes<HD, DS>(a.chunk, a.heads, 2) <= MAX_SMEM ? 2 : 1;
-  const int nbuf_c = scan_bytes<HD, DS>(a.chunk, a.heads, 2) <= MAX_SMEM ? 2 : 1;
+  const int nbuf_c =
+      scan_bytes<HD, DS>(a.chunk, a.heads, 2) <= MAX_SMEM ? 2 : 1;
   const int smem_a = states_bytes<HD, DS>(a.chunk, a.heads, nbuf_a);
   const int smem_c = scan_bytes<HD, DS>(a.chunk, a.heads, nbuf_c);
   auto* ka = ssd_chunk_states_mma<HD, DS>;
