@@ -446,13 +446,21 @@ struct Shape {
   // (rows 16 bytes apart in banks: conflict-free ldmatrix and float2 loads)
 };
 
-// Launch (a)'s shared memory: B and C rows, L and the weights of the
-// block's heads, nbuf x tiles.
+// Launch (a)'s shared memory: B rows; C rows, then (d_state 64 and up) a
+// head's dh_c on its way out (``out_bytes``); L and the weights of the
+// block's heads; nbuf x tiles.
+template <int HD, int DS>
+__host__ __device__ constexpr int out_bytes(int chunk) {
+  return DS < 64 || r16(chunk) * Shape<HD, DS>::CP * 2 > HD * (DS + 8) * 4
+             ? r16(chunk) * Shape<HD, DS>::CP * 2
+             : HD * (DS + 8) * 4;
+}
 template <int HD, int DS>
 __host__ __device__ constexpr int states_bytes(int chunk, int heads,
                                                int nbuf) {
   using S = Shape<HD, DS>;
-  return r16(chunk) * (2 * S::CP * 2 + 2 * heads * 4 + nbuf * S::XP * 2);
+  return r16(chunk) * (S::CP * 2 + 2 * heads * 4 + nbuf * S::XP * 2) +
+         out_bytes<HD, DS>(chunk);
 }
 
 // C.B^T of a chunk in n8 tiles of mma fragments: slab i (rows 16i .. 16i +
@@ -585,8 +593,10 @@ __global__ void __launch_bounds__(THREADS)
   const int nv = min(chunk, S - c * chunk), n16 = r16(nv), q16 = r16(chunk);
   const size_t row0 = (size_t)b * S + (size_t)c * chunk;
   bf16* Bs = reinterpret_cast<bf16*>(smem_raw);              // q16 x CP
-  bf16* Cs = Bs + q16 * CP;                                   // q16 x CP
-  float* L = reinterpret_cast<float*>(Cs + q16 * CP);        // heads x q16
+  bf16* Cs = Bs + q16 * CP;  // q16 x CP; then dh_c, HD x (DS + 8) floats
+  float* O = reinterpret_cast<float*>(Cs);
+  float* L = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(Cs) +
+                                      out_bytes<HD, DS>(chunk));  // heads x q16
   float* R = L + heads * q16;  // heads x q16: dt, then exp(L_Q - L_s) dt_s
   bf16* Xs = reinterpret_cast<bf16*>(R + heads * q16);       // nbuf x q16 x XP
   const bf16* xb = x + row0 * x_row + (size_t)n0 * HD;
@@ -682,19 +692,30 @@ __global__ void __launch_bounds__(THREADS)
         }
       }
     }
+    // dh_c out: rows of 64 or more floats through shared memory, in whole
+    // 16-byte pieces (the fragments' 8-byte stores scattered over rows
+    // held back the next head's loads at mamba2-130m's d_state 128);
+    // narrower rows straight from the fragments
     float* out =
         states + (((size_t)b * nc + c) * nh + n0 + j * hstep) * HD * DS;
+    float* o = DS >= 64 ? O : out;
+    constexpr int OP = DS >= 64 ? DS + 8 : DS;  // o's row pitch
 #pragma unroll
     for (int i = 0; i < NTW; ++i) {
       if (nt0 + i < NT) {
         const int p = mi * 16 + g, d = (nt0 + i) * 8 + 2 * t4;
-        *reinterpret_cast<float2*>(out + p * DS + d) =
+        *reinterpret_cast<float2*>(o + p * OP + d) =
             make_float2(acc[i][0], acc[i][1]);
-        *reinterpret_cast<float2*>(out + (p + 8) * DS + d) =
+        *reinterpret_cast<float2*>(o + (p + 8) * OP + d) =
             make_float2(acc[i][2], acc[i][3]);
       }
     }
-    __syncthreads();  // the buffer of head j is free
+    __syncthreads();  // the buffer of head j is free (and dh_c staged)
+    if (DS >= 64) {
+      for (int e = tid; e < HD * DS / 4; e += THREADS)
+        reinterpret_cast<float4*>(out)[e] = *reinterpret_cast<const float4*>(
+            O + (e / (DS / 4)) * OP + e % (DS / 4) * 4);
+    }
     if (nbuf == 1 && j + 1 < nbh) {
       stage_rows<HD, HD, XP>(Xs, xb + (size_t)(j + 1) * hstep * HD, x_row,
                              nv, n16, vec);
