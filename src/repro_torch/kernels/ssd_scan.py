@@ -5,12 +5,11 @@ in three launches on the stream: (a) every chunk's own state contribution
 into a float32 scratch (B, nc, nh, hd, ds) and, in bf16, the chunk's
 C.B^T, (b) the state pass, which walks the chunks in order and leaves in
 each slot the state entering that chunk, (c) every chunk's output from its
-rows and that state.  bf16 runs
-the products on tensor cores with ``head_block`` heads per CTA of (a) and
-(c); float32 keeps CUDA-core arithmetic, one head per CTA.  Unlike the
-Pallas kernel it takes any sequence length (a ragged last chunk is exact,
-as the plain version's zero padding), any head count and any chunk of
-1..256 rows.  x, B and C may be views whose rows are strided (the model's
+rows and that state.  bf16 runs the products with heads on tensor cores,
+``head_block`` heads per CTA of (a) and (c); float32 keeps CUDA-core
+arithmetic, one head per CTA.  Unlike the Pallas kernel it takes any
+sequence length (a ragged last chunk is exact, as the plain version's
+zero padding), any head count and any chunk of 1..256 rows.  x, B and C may be views whose rows are strided (the model's
 conv output split three ways), as long as each row's own elements are
 contiguous.  Plain version: ``ref.ssd_scan_chunked``.
 """
@@ -59,8 +58,9 @@ def _chunk_tiles(chunk: int) -> int:
 
 def head_block(B: int, S: int, nh: int, chunk: int, sms: int) -> int:
     """Heads per CTA of launches (a) and (c) in bf16: the most, up to
-    ``MAX_HEADS``, that still give each of the ``sms`` SMs two CTAs (the
-    block's CTA forms C.B^T once for all its heads), else 1."""
+    ``MAX_HEADS``, that still give each of the ``sms`` SMs two CTAs (a CTA
+    stages its chunk's B and C, and in (c) its C.B^T, once for all its
+    heads), else 1."""
     ctas = -(-S // chunk) * B
     for heads in (MAX_HEADS, 4, 2):
         if ctas * -(-nh // heads) >= 2 * sms:
@@ -68,14 +68,17 @@ def head_block(B: int, S: int, nh: int, chunk: int, sms: int) -> int:
     return 1
 
 
+def _heads(B: int, S: int, nh: int, chunk: int, dtype, sms: int) -> int:
+    return head_block(B, S, nh, chunk, sms) if dtype == torch.bfloat16 else 1
+
+
 def grids(B: int, S: int, nh: int, hd: int, ds: int, chunk: int, dtype,
           sms: int) -> tuple:
     """The grids of the three launches: (a) and (c) (chunks, head blocks,
     B), one head a block in float32; (b) (CTAs of ``PASS_THREADS``, 1,
     1)."""
-    heads = head_block(B, S, nh, chunk, sms) if dtype == torch.bfloat16 \
-        else 1
-    per_chunk = (-(-S // chunk), -(-nh // heads), B)
+    per_chunk = (-(-S // chunk), -(-nh // _heads(B, S, nh, chunk, dtype,
+                                                   sms)), B)
     return (per_chunk, (-(-B * nh * hd * ds // (4 * PASS_THREADS)), 1, 1),
             per_chunk)
 
@@ -124,8 +127,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     x_row = _row_stride(x, "x")
     b_row, c_row = _row_stride(Bm, "B"), _row_stride(Cm, "C")
     dev = x.device
-    heads = (head_block(B, S, nh, chunk, build.sm_count(dev))
-             if x.dtype == torch.bfloat16 else 1)
+    heads = _heads(B, S, nh, chunk, x.dtype, build.sm_count(dev))
     nc = -(-S // chunk)
     y = torch.empty((B, S, nh, hd), dtype=torch.float32, device=dev)
     hout = torch.empty((B, nh, hd, ds), dtype=torch.float32, device=dev)
