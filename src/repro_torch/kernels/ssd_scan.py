@@ -9,9 +9,10 @@ rows and that state.  bf16 runs the products with heads on tensor cores,
 ``head_block`` heads per CTA of (a) and (c); float32 keeps CUDA-core
 arithmetic, one head per CTA.  Unlike the Pallas kernel it takes any
 sequence length (a ragged last chunk is exact, as the plain version's
-zero padding), any head count and any chunk of 1..256 rows.  x, B and C may be views whose rows are strided (the model's
-conv output split three ways), as long as each row's own elements are
-contiguous.  Plain version: ``ref.ssd_scan_chunked``.
+zero padding), any head count and any chunk of 1..256 rows.  x, B and C
+may be views whose rows are strided (the model's conv output split three
+ways), as long as each row's own elements are contiguous.  Plain
+version: ``ref.ssd_scan_chunked``.
 """
 
 from __future__ import annotations
