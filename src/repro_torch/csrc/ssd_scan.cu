@@ -59,7 +59,7 @@
 // C.B^T is shared by the heads (one group): (a)'s CTAs of a chunk share it
 // out, 16 rows by 16 columns a unit, the causal blocks only, and store it
 // in mma fragment order for (c).  It runs on float32 FMA over d in order,
-// not on tensor cores: where C_t.B_t cancels (|C_t.B_t| ~ 5e-5 of
+// not on tensor cores: where C_t.B_t cancels (to a small fraction of
 // sum_d |C_t,d B_t,d|) and carries its row of y, a tensor-core sum's
 // truncation put the row past the tolerance on the card, and this order
 // rounds as the plain version does.  d_state 8 pads the k depth of C.h^T
