@@ -518,18 +518,24 @@ def phase_kernels(torch, mods) -> list:
             torch.cuda.synchronize()
         trace = mods["build"].BUILD_DIR / "launch_trace.json"
         prof.export_chrome_trace(str(trace))
-        out = [(ev.get("name", ""), ev.get("args", {}).get("grid"))
-               for ev in json.loads(trace.read_text())["traceEvents"]
-               if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        events = json.loads(trace.read_text())["traceEvents"]
         trace.unlink()
-        return out
+        # device work that began before this profile's first CPU op is an
+        # earlier profile's, which the profiler can deliver late
+        t0 = min((ev["ts"] for ev in events if ev.get("cat") == "cpu_op"),
+                 default=None)
+        return [(ev.get("name", ""), ev.get("args", {}).get("grid"))
+                for ev in events
+                if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                and (t0 is None or ev.get("ts", t0) >= t0)]
 
     def check_launches(fn, parts, grids):
         """``fn`` makes exactly one CUDA launch of a kernel named
         ``parts[i]`` on the grid ``grids[i]`` for each i, in order (the
         grids where the trace records them).  A trace with other launches
         is taken again, up to three times in all, before the phase fails:
-        the profiler has given a kernel-8 call an empty trace."""
+        the profiler has given a kernel-8 call an empty trace, its events
+        delivered in the next profile."""
         for attempt in (1, 2, 3):
             got = traced_launches(fn)
             names = [n for n, _ in got]
