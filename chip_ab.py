@@ -14,7 +14,9 @@ buffer, 32 q / 8 kv heads of 128) and its 32-row observation pass (at
 4000); kernel 2 (``chunk_attention_masses``) on that chunk with n_total
 4000; kernel 7 (``flash_attention``) on llama3-8b's lockstep prefill (B 4,
 S 2080, causal) and hymba-1.5b's (25 q / 5 kv heads of 64, window 1024
-and global); kernels 4 (``paged_decode_attention``, 19 blocks of 16) and
+and global), and under its key mask on 3k's padded group (B 4, S 1024,
+true lengths 512 / 700 / 900 / 1024; a checkout whose kernel takes no
+mask prints so); kernels 4 (``paged_decode_attention``, 19 blocks of 16) and
 5 (``paged_decode_masses``, 20 blocks) at phase 1's paged decode shape
 (4 slots, 32 q / 8 kv heads of 128), with all slots live and with one
 live slot of four; kernel 6 (``decode_attention``) at phase 1's dense
@@ -69,6 +71,18 @@ never loaded by the port) and prints, for phase 1's paged shapes at
 ``row_splits``' split with live and with null tables, the event time,
 the time before the first CTA starts and the mean per-CTA time of each
 phase.
+
+    python3 chip_ab.py --prefill .
+
+times ``transformer.prefill`` of llama3-8b at full width (bf16, random
+weights and lookahead modules from seed 0, budget 256) on 4 prompts of
+2048 tokens under the passes that 3b, 3i and 3j run before their first
+token: lookaheadkv, lookaheadkv with its lookahead rows but without
+their LoRA, snapkv (LAQ's first pass), gt_oracle over 2048 + 8 rows (the
+rescoring pass of LAQ and SpecKV), full, and no policy (no scoring, no
+cache).  Host clock around each call, which ends in a device sync; the
+cases run in turns, 7 rounds, the first 2 dropped; prints each case's
+median, min and max.
 """
 
 from __future__ import annotations
@@ -212,6 +226,7 @@ def time_checkout(root: str) -> None:
         ms = chip_smoke.time_ms(
             torch, lambda: fk.flash_attention(q, k, v, window=window))
         print(f"{root}: kernel 7, {label}: {ms:.4f} ms", flush=True)
+    time_masked_flash(root, torch, chip_smoke, fk, g)
     for nb, one_live in ((19, False), (19, True), (20, False), (20, True)):
         args = paged_inputs(torch, g, nb, one_live)
         fn = pk.paged_decode_attention if nb == 19 else pk.paged_decode_masses
@@ -237,6 +252,74 @@ def time_checkout(root: str) -> None:
         ms = chip_smoke.time_ms(torch, lambda: sk.ssd_scan(
             x, dt, A, Bm, Cm, chunk=chunk, initial_state=h0))
         print(f"{root}: kernel 8, {label}: {ms:.4f} ms", flush=True)
+
+
+def time_masked_flash(root: str, torch, chip_smoke, fk, g) -> None:
+    """Kernel 7 under its key mask at 3k's padded group (a checkout whose
+    wrapper takes no ``kv_mask`` prints so)."""
+    import inspect
+
+    if "kv_mask" not in inspect.signature(fk.flash_attention).parameters:
+        print(f"{root}: kernel 7 masked: no key mask in this checkout",
+              flush=True)
+        return
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((4, 1024, 32, 128), (4, 1024, 8, 128),
+                             (4, 1024, 8, 128)))
+    lens = torch.tensor([512, 700, 900, 1024], device=dev)
+    mask = (torch.arange(1024, device=dev) < lens[:, None]).contiguous()
+    ms = chip_smoke.time_ms(
+        torch, lambda: fk.flash_attention(q, k, v, kv_mask=mask))
+    print(f"{root}: kernel 7 masked, 3k's padded group 4 x 1024: "
+          f"{ms:.4f} ms", flush=True)
+
+
+def time_prefill(root: str, torch) -> None:
+    """The passes before the first token of 3b, 3i and 3j, each a whole
+    ``transformer.prefill`` at full width (module docstring)."""
+    import time
+
+    from repro_torch.common.config import EvictionConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.lookahead import init_lookahead_params
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device("cuda")
+    cfg = get_config("llama3-8b")
+    params = tf.init_params(cfg, seed=0, device=dev)
+    lkv = init_lookahead_params(torch.Generator(device=dev).manual_seed(1),
+                                cfg, params["layers"])
+    g = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g,
+                           device=dev, dtype=torch.int32)
+    xy = torch.randint(0, cfg.vocab_size, (4, 2056), generator=g,
+                       device=dev, dtype=torch.int32)
+    evict = EvictionConfig(budget=256, draft_len=8)
+    cases = {
+        "lookaheadkv": (tokens, dict(policy="lookaheadkv", lkv_params=lkv)),
+        "lookaheadkv, rows without LoRA": (tokens, dict(
+            policy="lookaheadkv", lkv_params={"emb": lkv["emb"]})),
+        "snapkv": (tokens, dict(policy="snapkv")),
+        "gt_oracle, 2048 + 8 rows": (xy, dict(policy="gt_oracle",
+                                              gt_boundary=2048)),
+        "full": (tokens, dict(policy="full")),
+        "no policy": (tokens, {}),
+    }
+    times = {label: [] for label in cases}
+    for _ in range(7):
+        for label, (toks, kw) in cases.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tf.prefill(params, cfg, toks, evict=evict, extra_slots=33, **kw)
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+    for label, t in times.items():
+        kept = sorted(t[2:])
+        print(f"{root}: prefill 4 x 2048, {label}: "
+              f"{kept[len(kept) // 2] * 1e3:.1f} ms (median of "
+              f"{len(kept)}; {kept[0] * 1e3:.1f} - {kept[-1] * 1e3:.1f})",
+              flush=True)
 
 
 def time_splits(root: str) -> None:
@@ -591,6 +674,11 @@ def main() -> None:
         sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
         time_head_blocks(sys.argv[2], torch, chip_smoke)
         time_launch_split(sys.argv[2], torch, chip_smoke)
+        print(card())
+        return
+    if len(sys.argv) > 2 and sys.argv[1] == "--prefill":
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
+        time_prefill(sys.argv[2], torch)
         print(card())
         return
     if len(sys.argv) > 2 and sys.argv[1] == "--splits":

@@ -10,7 +10,8 @@ kernel's plain version):
    sm_90a into ``build/repro_torch/`` (one nvcc per source, all at once;
    rebuilt when a source's hash changes), and check with ``cuobjdump
    -sass`` that each instantiation of the Hopper tile
-   (``attention_sm90.cuh``: kernel 7's four, kernel 1's and kernel 2's
+   (``attention_sm90.cuh``: kernel 7's eight, with and without its key
+   mask, kernel 1's and kernel 2's
    first launch at hd 64 and 128, kernel 2's ``column_masses_sm90``)
    holds HGMMA (wgmma) and UTMALDG (TMA loads), and with nvcc's
    ``-Xptxas -v`` that none of them, nor kernels 1's and 2's merges of a
@@ -59,7 +60,14 @@ kernel's plain version):
    ones; kernel 7 timed there too, against SDPA with ``is_causal`` and
    with an explicit window mask); kernel 7 at the edges of its 128-row,
    128-key tile (S of 1, 64, 127, 128, 129; windows of 1, 64, 100, 128,
-   1024; GQA ratios 1 and 5; B = 3).  Kernel 8 (the SSD scan: chunk
+   1024; GQA ratios 1 and 5; B = 3); the unmasked call at its main shape
+   within 2.5% of its recorded time (``FLASH_UNMASKED_MS``).  Kernel 7
+   under a key mask (the bucket-padded prefill: B 4 x S 1024, true
+   lengths 512/700/900/1024, timed beside the unmasked call at that
+   shape and SDPA with the masks as one boolean mask), and with the
+   first 200 keys or key 0 of a sequence masked, float32, hd 64 and 32,
+   observation rows after the padding, lengths around a tile; every
+   output finite.  Kernel 8 (the SSD scan: chunk
    states, state pass, chunk scan; bf16 on tensor cores) at hymba-1.5b's
    prefill (B 4 x S 2048, 50 heads of 64, d_state 16, chunk 128, bf16;
    a ragged last head block) and its 32-row lookahead segment carrying
@@ -81,9 +89,13 @@ kernel's plain version):
    decode-time eviction, the paged engine under h2o, snapkv, pyramidkv,
    tova, streaming_llm, random (seeded requests) and lookaheadkv with
    adaptive head budgets, the dense engine under h2o, and the lockstep
-   engine under h2o, snapkv and full; greedy tokens, admission and
-   retirement kept sets, and the counts of sweeps, reclaimed blocks and
-   preemptions must be identical.  Then the SSM archs: hymba-smoke's
+   engine under h2o, snapkv, full, laq and speckv (draft model
+   tiny-llama-smoke), and ``BucketedEngine`` under lookaheadkv, full and
+   laq on prompts of 40, 50, 64 and 23 tokens (a padded group at bucket
+   64); greedy tokens, admission and retirement kept sets, and the counts
+   of sweeps, reclaimed blocks, preemptions and prefill groups must be
+   identical, and the padded lookaheadkv tokens must equal each
+   request's batch-1 lockstep run on the card.  Then the SSM archs: hymba-smoke's
    lockstep engine under lookaheadkv and h2o, and mamba2-smoke's prefill
    and 8 decode steps; greedy tokens identical, kernel 8 launched.
 3. Serve llama3-8b at full width (random weights and lookahead modules
@@ -115,7 +127,20 @@ kernel's plain version):
    h. mamba2-130m through the model functions (no engine serves an
       attention-free arch): prefill(want_ssm_cache=True) of 4 x 2048
       tokens and 32 greedy decode steps; kernel 8 once per layer (24), no
-      attention kernel.
+      attention kernel;
+   i. lockstep laq: (b) with --policy laq (draft_len 8): kernels 7, 3
+      and 6 exactly 64, 64 and 1,280 times, run just after (b) and 4b;
+   j. lockstep speckv through ``ServingEngine`` on (i)'s weights with
+      tiny-llama (12 layers, d 768) as the draft model, prompt ids below
+      its 32,000-token vocabulary: kernels 7, 3, 6 exactly 44, 32,
+      1,120; then the TTFT of (b), (i) and (j) side by side with their
+      ratios, host-clock sightings: of each first serve, and of a second
+      serve on the same engine (4b's profiler-off batch for (b));
+   k. bucketed continuous full: --continuous --policy full --slots 4
+      --prompt-lens 512,700,900,1024 (BucketedEngine: 512 fills its
+      bucket, the other three one group padded to 1024): two prefill
+      groups, kernel 7 exactly 64 times (32 under the key mask) and
+      kernel 6 992, no kernel 1, 2 or 3.
 4. Where the time goes, with torch.profiler: (a) one more 2048-token
    request on the engine of 3a, then one decode chunk alone; (b) one
    more lockstep batch on the engine of 3b; (c) on the engine of 3d,
@@ -232,6 +257,10 @@ PAGED_EDGES = (
 )
 #: split counts forced on kernels 4, 5 and 6 in phase 1 (None: the rule's)
 PAGED_SPLITS = (None, 1, 2, 4, 8)
+#: kernel 7's time at its main shape (B 4 x S 2080, 32/8 heads of 128,
+#: causal, bf16) before the key mask (PERF.md, PR 17; NVIDIA H100 80GB
+#: HBM3, 700 W): an unmasked call must stay within 2.5% of it
+FLASH_UNMASKED_MS = 0.3455
 #: phase-1 times recorded in PERF.md (ms; NVIDIA H100 80GB HBM3, 700 W),
 #: printed beside this run's: kernels 6 and 3 on their earlier designs
 #: (kernel 6's tile routine, kernel 3's scalar-FMA kernels) and kernel 8
@@ -949,6 +978,90 @@ def phase_kernels(torch, mods) -> list:
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/attention_sm90.cuh",
         replaces="src/repro/kernels/flash_attention.py:71", **main7))
+    # an unmasked call runs the code it ran before the key mask came
+    check(main7["ms"] <= FLASH_UNMASKED_MS * 1.025, f"unmasked kernel 7 "
+          f"{main7['ms']:.4f} ms, more than 2.5% over its recorded "
+          f"{FLASH_UNMASKED_MS} ms")
+
+    # -- kernel 7 under a key mask: the bucket-padded prefill ---------------
+    # the tile's MASKED instantiations: two bits per 128-key tile (a valid
+    # key, a masked key) in shared memory, a tile without a valid key
+    # skipped, in-register masking only on a tile that holds a masked key
+    def masked_flash_case(B, S, lens, label, *, heads=(H, KV, hd),
+                          dtype=bf16, causal=True, n_obs=0, lead=0,
+                          timed=False):
+        Hs, KVs, hds = heads
+        q, k, v = (randn(B, S, Hs, hds).to(dtype),
+                   randn(B, S, KVs, hds).to(dtype),
+                   randn(B, S, KVs, hds).to(dtype))
+        j = torch.arange(S, device=dev)
+        mask = (j < torch.as_tensor(lens, device=dev)[:, None]) \
+            | (j >= S - n_obs)
+        mask[0, :lead] = False
+        mask = mask.contiguous()
+        kw = dict(causal=causal, kv_mask=mask)
+        got = fk.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()),
+              f"masked flash_attention {label}: a non-finite output")
+        want = ref.flash_attention(q, k, v, **kw)
+        # float32 runs the FMA kernel: float32 throughout, another order
+        err = check_rows(torch, got, want,
+                         REL_CHUNK if dtype == bf16 else 2 ** -13,
+                         f"masked flash_attention {label}")
+        if not timed:
+            return None
+        ms = time_ms(torch, lambda: fk.flash_attention(q, k, v, **kw))
+        unmasked = time_ms(torch, lambda: fk.flash_attention(
+            q, k, v, causal=causal))
+        plain = time_ms(torch, lambda: ref.flash_attention(q, k, v, **kw),
+                        iters=3)
+        # SDPA with the causal and key masks as one boolean mask, built
+        # outside the timed call
+        pos = torch.arange(S, device=dev)
+        vis = (pos[:, None] >= pos[None, :]) if causal else \
+            torch.ones((S, S), dtype=torch.bool, device=dev)
+        vis = vis[None] & mask[:, None, :]  # (B, S, S)
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(Hs // KVs, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(Hs // KVs, dim=2).transpose(1, 2)
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=vis[:, None]))
+        # operations over the valid visible (row, key) pairs only
+        n_ops = 4 * hds * Hs * int(vis.sum())
+        n_bytes = itemsize * (2 * B * S * Hs * hds + 2 * B * S * KVs * hds) \
+            + B * S
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+        print(f"  masked flash_attention {label}: {ms:.4f} ms (unmasked "
+              f"{unmasked:.4f} ms, {ms / unmasked - 1:+.1%}), plain "
+              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}, {int(vis.sum())} valid visible pairs of "
+              f"{B * S * (S + 1) // 2})")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib, unmasked_ms=unmasked)
+
+    lens3k = (512, 700, 900, 1024)  # 3k's prompts
+    main7m = masked_flash_case(4, 1024, lens3k, "B=4 S=1024 lengths "
+                               "512/700/900/1024", timed=True)
+    # key 0 masked in sequence 1 with every key visible (each row keeps a
+    # valid key), and the first 200 keys of sequence 0: a key tile with
+    # no valid key, then rows whose running max is -inf when the next
+    # tile arrives
+    masked_flash_case(2, 600, (600, 600), "non-causal, keys 0-199 of seq 0 "
+                      "masked", causal=False, lead=200)
+    masked_flash_case(2, 300, (300, 300), "non-causal, key 0 of seq 0 "
+                      "masked", causal=False, lead=1)
+    masked_flash_case(4, 1024, lens3k, "float32", dtype=torch.float32)
+    masked_flash_case(4, 1024, lens3k, "hd 64", heads=(8, 2, 64))
+    masked_flash_case(2, 1056, (100, 1024), "32 observation rows after the "
+                      "padding", n_obs=32)
+    masked_flash_case(3, 260, (127, 128, 129), "lengths around a tile",
+                      heads=(8, 2, 128))
+    masked_flash_case(2, 300, (17, 300), "hd 32", heads=(4, 2, 32))
+    results.append(dict(
+        name="flash_attention masked", route="cuda",
+        source="src/repro_torch/csrc/attention_sm90.cuh",
+        replaces="src/repro/kernels/ops.py:77", **main7m))
 
     # -- kernel 6: dense decode attention, rows split over a cluster ---------
     def decode_case(label, kind, timed=False, timed_kernel=None,
@@ -1191,6 +1304,12 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
     burst = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
              for n in (40, 27, 33, 45, 29, 36)]
     batch = rng.integers(0, cfg.vocab_size, (3, 41)).astype(np.int32)
+    mixed = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+             for n in (40, 50, 64, 23)]
+    evict_draft = mods["EvictionConfig"](budget=16, draft_len=8)
+    dcfg = dataclasses.replace(
+        mods["configs"].get_smoke_config("tiny-llama"), dtype="float32")
+    dparams = tf.init_params(dcfg, seed=SEED + 2, device="cpu")
 
     def kept(mask, pos):  # (L, rows, KV) -> {(layer, head): positions}
         return {(lyr, h): frozenset(pos[lyr, mask[lyr, :, h], h].tolist())
@@ -1233,6 +1352,10 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
     def lockstep(device, policy="lookaheadkv"):
         p = _move(params, device)
         lk = _move(lkv, device) if policy == "lookaheadkv" else None
+        # speckv's draft model: tiny-llama-smoke (the same 512 vocabulary)
+        draft = (dict(draft_params=_move(dparams, device), draft_cfg=dcfg)
+                 if policy == "speckv" else {})
+        ev = evict_draft if policy in ("laq", "speckv") else evict
         reqs = [sv.Request(uid=i, prompt=row, max_new_tokens=8,
                            seed=2000 + i) for i, row in enumerate(batch)]
         # the kept sets of the batch's prefill, then the engine's tokens
@@ -1240,16 +1363,31 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
                                 dtype=torch.int32, device=device)
         res = pol.run_eviction(policy, p, cfg,
                                torch.as_tensor(batch, device=device),
-                               evict=evict, lkv_params=lk, extra_slots=9,
-                               seeds=seeds)
-        eng = sv.ServingEngine(p, cfg, policy=policy, evict=evict,
+                               evict=ev, lkv_params=lk, extra_slots=9,
+                               seeds=seeds, **draft)
+        eng = sv.ServingEngine(p, cfg, policy=policy, evict=ev,
                                lkv_params=lk, max_new_tokens=8, eos_id=-1,
-                               device=device)
+                               device=device, **draft)
         done = eng.serve(reqs)
         adm = {k: res.cache["attn"][k].cpu().numpy() for k in ("mask", "pos")}
         return {r.uid: (r.out_tokens, {"admission": kept(
             adm["mask"][:, r.uid], adm["pos"][:, r.uid])})
             for r in done}, {}
+
+    def bucketed(device, policy):
+        """``BucketedEngine`` on mixed lengths: 40, 50 and 64 in one
+        padded group at bucket 64 (laq: groups of one exact length), 23
+        alone at bucket 32."""
+        eng = sv.BucketedEngine(
+            _move(params, device), cfg, policy=policy,
+            evict=evict_draft if policy == "laq" else evict,
+            lkv_params=(_move(lkv, device) if policy == "lookaheadkv"
+                        else None),
+            num_slots=4, max_new_tokens=8, eos_id=-1, device=device)
+        done = eng.run([sv.Request(uid=i, prompt=p, max_new_tokens=8)
+                        for i, p in enumerate(mixed)])
+        return {r.uid: (r.out_tokens, {}) for r in done}, {
+            "prefill_groups": eng.counts["prefill_groups"]}
 
     evict_cfg = sv.DecodeEvictionConfig(enabled=True, interval=8)
     runs = (
@@ -1281,7 +1419,9 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
                 budget=16, head_alloc="adaptive"))),
         ("dense-slot continuous h2o", lambda d: continuous(d, policy="h2o")),
         *((f"lockstep {pol_}", lambda d, pol_=pol_: lockstep(d, pol_))
-          for pol_ in ("h2o", "snapkv", "full")),
+          for pol_ in ("h2o", "snapkv", "full", "laq", "speckv")),
+        *((f"bucketed {pol_}", lambda d, pol_=pol_: bucketed(d, pol_))
+          for pol_ in ("lookaheadkv", "full", "laq")),
     )
     for label, run in runs:
         (got, got_counts), (want, want_counts) = (run(d) for d in devices)
@@ -1308,6 +1448,22 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
         if label == "paged optimistic admission":
             check(want_counts["preemptions"] > 0,
                   f"{label}: the pool never ran dry (no preemption)")
+        if label == "bucketed lookaheadkv":
+            # bucket padding is exact for lookaheadkv: each request's
+            # tokens are a batch-1 lockstep run's, on the card
+            eng = sv.ServingEngine(
+                _move(params, devices[0]), cfg, evict=evict,
+                lkv_params=_move(lkv, devices[0]), max_new_tokens=8,
+                eos_id=-1, device=devices[0])
+            for uid, p in enumerate(mixed):
+                alone = eng.serve([sv.Request(uid=uid, prompt=p,
+                                              max_new_tokens=8)])[0]
+                check(alone.out_tokens == got[uid][0], f"{label}: uid {uid} "
+                      f"padded {got[uid][0]} != batch-1 lockstep "
+                      f"{alone.out_tokens}")
+            print(f"  {label}: every request's tokens equal its batch-1 "
+                  f"lockstep run's on the card ({len(mixed)} requests, "
+                  f"{got_counts['prefill_groups']} prefill groups)")
 
 
 def phase_ssm_parity(torch, mods, devices=("cuda", "cpu")) -> None:
@@ -1428,18 +1584,63 @@ ROUTES = {
          "ssd_scan"),
         ("chunk_attention", "chunk_attention_masses",
          "paged_decode_attention", "paged_decode_masses")),
+    # LAQ (the paper's draft-based baseline) on 3b's shape: a snapkv
+    # prefill, an 8-token draft over its compressed cache, a gt_oracle
+    # prefill over prompt + draft, then 32 decode steps
+    "lockstep laq": (
+        ["--requests", "4", "--n-in", "2048", "--policy", "laq"], 32,
+        ("flash_attention", "lookahead_score", "decode_attention"),
+        ("chunk_attention", "chunk_attention_masses",
+         "paged_decode_attention", "paged_decode_masses", "ssd_scan")),
+    # --continuous --policy full: BucketedEngine.  512 fills its bucket
+    # (an exact group, unmasked kernel 7); 700, 900 and 1024 are one
+    # group padded to bucket 1024 (kernel 7 under its key mask)
+    "bucketed continuous full": (
+        ["--continuous", "--policy", "full", "--slots", "4",
+         "--prompt-lens", "512,700,900,1024"], 32,
+        ("flash_attention", "decode_attention"),
+        ("chunk_attention", "chunk_attention_masses", "lookahead_score",
+         "paged_decode_attention", "paged_decode_masses", "ssd_scan")),
+}
+#: exact launches per kernel in the cells that add them (32 layers of
+#: llama3-8b, 12 of the tiny-llama draft; 32 new tokens): 3i runs kernels 7
+#: and 3 in both prefills, kernel 6 for 8 draft and 32 serving steps; 3j
+#: kernel 7 in the draft's prefill (12) and the target's rescoring prefill
+#: (32), kernel 3 in the latter, kernel 6 for 8 draft steps of 12 layers
+#: and 32 serving steps; 3k kernel 7 in two prefill groups and kernel 6 for
+#: 31 decode steps (the first token comes from the prefill)
+EXACT_LAUNCHES = {
+    "lockstep laq": {"flash_attention": 2 * 32, "lookahead_score": 2 * 32,
+                     "decode_attention": 32 * (8 + 32)},
+    "lockstep speckv": {"flash_attention": 12 + 32, "lookahead_score": 32,
+                        "decode_attention": 12 * 8 + 32 * 32},
+    "bucketed continuous full": {"flash_attention": 2 * 32,
+                                 "decode_attention": 32 * 31},
 }
 
 
 def phase_serve(torch, mods, route: str) -> tuple:
     """Serve one route of the launcher at full width; the launch counts are
     set to 0 just before the run and read just after it."""
-    ops = mods["ops"]
+    ops, fk = mods["ops"], mods["fk"]
     extra, new_tokens, need, forbid = ROUTES[route]
-    ops.reset_launch_counts()
-    res = mods["serve"].run(COMMON + extra)
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    # kernel 7's calls under a key mask, counted apart here (the wrapper
+    # has one counter for both forms)
+    masked, unwrapped = [0], fk.flash_attention
+
+    def counting(*args, **kw):
+        masked[0] += kw.get("kv_mask") is not None
+        return unwrapped(*args, **kw)
+
+    fk.flash_attention = counting
+    try:
+        ops.reset_launch_counts()
+        res = mods["serve"].run(COMMON + extra)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        fk.flash_attention = unwrapped
+    res["masked_flash"] = masked[0]
     eng, done = res["engine"], res["done"]
     check(len(done) == 4, f"{route}: not every request finished")
     for r in sorted(done, key=lambda r: r.uid):
@@ -1460,6 +1661,23 @@ def phase_serve(torch, mods, route: str) -> tuple:
               f"{eng.max_new_tokens} steps of the batch in {dec_s:.2f} s "
               f"({dec_s / eng.max_new_tokens * 1e3:.1f} ms/step) = "
               f"{dec_tokens / dec_s:.1f} tokens/s")
+    elif "bucketed" in route:
+        c = eng.counts
+        print(f"  wall {res['wall_s']:.2f} s; prefill {c['prefill_groups']} "
+              f"groups in {c['prefill_s']:.2f} s; decode "
+              f"{c['decode_steps']} steps in {c['decode_chunks']} chunks "
+              f"({dec_tokens} tokens) in {c['decode_s']:.2f} s "
+              f"({c['decode_s'] / c['decode_steps'] * 1e3:.1f} ms/step) = "
+              f"{dec_tokens / c['decode_s']:.1f} tokens/s; peak "
+              f"concurrency {c['max_concurrency']}; kernel 7 calls under "
+              f"the key mask {res['masked_flash']}")
+        check(c["prefill_groups"] == 2, f"{route}: {c['prefill_groups']} "
+              "prefill groups, expected 2 (512 exact, 700/900/1024 padded)")
+        check(res["masked_flash"] == res["cfg"].num_layers, f"{route}: "
+              f"{res['masked_flash']} masked kernel 7 calls, expected one "
+              "per layer of the padded group")
+        check(c["max_concurrency"] == 4, f"{route}: peak concurrency "
+              f"{c['max_concurrency']}, expected 4")
     else:
         c = eng.counts
         print(f"  wall {res['wall_s']:.2f} s; prefill {c['prefill_chunks']} "
@@ -1521,6 +1739,8 @@ def phase_serve(torch, mods, route: str) -> tuple:
         got = {k: counts[k] for k in want}
         print(f"  launches {got}, predicted {want}: {got == want}")
         check(got == want, f"{route}: launches {got}, expected {want}")
+    if route in EXACT_LAUNCHES:
+        check_exact_launches(route, counts)
     if route == "paged decode-evict":
         c = eng.counts
         check(c["decode_evict_sweeps"] >= 8, f"{route}: "
@@ -1530,6 +1750,64 @@ def phase_serve(torch, mods, route: str) -> tuple:
         check(c["max_concurrency"] >= 2, f"{route}: requests never "
               "overlapped (max concurrency 1)")
     return counts, res
+
+
+def check_exact_launches(label: str, counts: dict) -> None:
+    """Every kernel launched exactly ``EXACT_LAUNCHES[label]`` times, and
+    every other kernel not at all."""
+    want = {k: EXACT_LAUNCHES[label].get(k, 0) for k in counts}
+    print(f"  launches {counts}, predicted {want}: {counts == want}")
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+
+
+def phase_speckv(torch, mods, res) -> tuple:
+    """3j: SpecKV through ``ServingEngine`` on 3i's llama3-8b weights (not
+    built again), with tiny-llama at its registry width (12 layers, d 768,
+    12/4 heads of 64, bf16; random weights from the seed) as the draft
+    model, draft_len 8, budget 256, 4 prompts of 2048 tokens, 32 new.
+    tiny-llama's vocabulary is 32,000 against llama3-8b's 128,256, so the
+    prompts draw token ids below 32,000 (the draft's tokens are below it
+    too).  The launch counts are set to 0 just before the serve and read
+    just after.  Returns (counts, TTFT seconds, the TTFT of a second
+    serve)."""
+    import numpy as np
+
+    tf, sv, ops = mods["tf"], mods["serving"], mods["ops"]
+    cfg, params, dev = res["cfg"], res["engine"].params, res["engine"].device
+    dcfg = mods["configs"].get_config("tiny-llama")
+    dparams = tf.init_params(dcfg, seed=SEED, device=dev)
+    prompts = np.random.default_rng(SEED + 9).integers(
+        0, dcfg.vocab_size, (4, 2048)).astype(np.int32)
+    eng = sv.ServingEngine(
+        params, cfg, policy="speckv",
+        evict=mods["EvictionConfig"](budget=256, draft_len=8),
+        draft_params=dparams, draft_cfg=dcfg, max_new_tokens=32, eos_id=-1,
+        device=dev)
+    reqs = [sv.Request(uid=i, prompt=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for r in done:
+        check(len(r.out_tokens) == 32, f"3j: uid {r.uid} emitted "
+              f"{len(r.out_tokens)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+              f"3j: uid {r.uid} emitted a token outside the vocab")
+        print(f"  uid {r.uid}: prompt {len(r.prompt)} ttft "
+              f"{r.ttft_s * 1e3:.1f} ms, first tokens {r.out_tokens[:6]}")
+    ttft = done[0].ttft_s
+    dec_s = wall - ttft
+    print(f"  wall {wall:.2f} s; prefill (= TTFT: draft prefill, 8 draft "
+          f"steps, rescoring prefill) {ttft * 1e3:.1f} ms for 4 x 2048 "
+          f"tokens; decode 32 steps in {dec_s:.2f} s "
+          f"({dec_s / 32 * 1e3:.1f} ms/step)")
+    print(f"  kernel launches in this run: {counts}")
+    check_exact_launches("lockstep speckv", counts)
+    return counts, ttft, warm_ttft(torch, mods, eng, dcfg.vocab_size)
 
 
 def phase_mamba(torch, mods) -> dict:
@@ -1974,14 +2252,16 @@ def profile_evict(torch, mods, res, base_per_step) -> None:
               f"(runs {t[False]} / {t[True]})")
 
 
-def profile_lockstep(torch, mods, res) -> None:
+def profile_lockstep(torch, mods, res) -> float:
     """One more lockstep batch (4 x 2048 tokens, 32 new) on the engine of
-    3b (llama3-8b) or of 3g (hymba-1.5b)."""
+    3b (llama3-8b) or of 3g (hymba-1.5b).  Returns the TTFT of its first
+    serve, which runs with the profiler off on a warm engine."""
     import numpy as np
 
     eng, cfg = res["engine"], res["cfg"]
     prompts = np.random.default_rng(SEED + 8).integers(
         0, cfg.vocab_size, (4, 2048)).astype(np.int32)
+    ttfts = []
 
     def serve_once():
         reqs = [mods["serving"].Request(uid=i, prompt=p, max_new_tokens=32)
@@ -1990,11 +2270,30 @@ def profile_lockstep(torch, mods, res) -> None:
         t0 = time.perf_counter()
         eng.serve(reqs)
         torch.cuda.synchronize()
+        ttfts.append(reqs[0].ttft_s)
         return time.perf_counter() - t0
 
     phase_profile(torch, mods["ops"], f"{cfg.name} lockstep, one batch of "
                   "4 x 2048 tokens", serve_once,
                   lambda: 1 + eng.max_new_tokens)
+    return ttfts[0]
+
+
+def warm_ttft(torch, mods, eng, vocab: int) -> float:
+    """The TTFT of one more lockstep batch (4 x 2048 tokens, ids below
+    ``vocab``, 32 new) on an engine that has served once: the first serve
+    of a process's prefill shapes pays one-time costs (allocations, GEMM
+    kernels loaded at first use) that a second does not."""
+    import numpy as np
+
+    prompts = np.random.default_rng(SEED + 8).integers(
+        0, vocab, (4, 2048)).astype(np.int32)
+    reqs = [mods["serving"].Request(uid=i, prompt=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    eng.serve(reqs)
+    torch.cuda.synchronize()
+    return reqs[0].ttft_s
 
 
 def load_modules(torch) -> dict:
@@ -2038,7 +2337,8 @@ def phase_build(mods) -> None:
           "cached)", flush=True)
     # the Hopper tile (attention_sm90.cuh) must run on wgmma and TMA: HGMMA
     # and UTMALDG in the SASS of each of its instantiations (kernel 7's
-    # four, kernel 1's and kernel 2's first launch at hd 64 and 128, and
+    # eight: causal or not, hd 64 or 128, with or without its key mask,
+    # kernel 1's and kernel 2's first launch at hd 64 and 128, and
     # kernel 2's column_masses_sm90), and neither they nor the merges of a
     # split key range (combine_splits, kernel 1's and kernel 2's at hd 64
     # and 128, plain loads and stores) may spill.  The spills come from
@@ -2072,7 +2372,7 @@ def phase_build(mods) -> None:
         print(f"  {demangle(name)}: {what}{regs} registers, {spills} bytes "
               "spilled")
         check(not spills, f"{demangle(name)} spills registers")
-    for group, wanted in ((tiles, {"flash_attention_tag": 4,
+    for group, wanted in ((tiles, {"flash_attention_tag": 8,
                                    "chunk_attention_tag": 2,
                                    "chunk_masses_tag": 2,
                                    "column_masses_sm90": 2}),
@@ -2147,10 +2447,11 @@ def demangle(name: str) -> str:
     """A Hopper tile, decode, lookahead-score or SSD-scan instantiation's
     kernel and template arguments."""
     m = re.search(r"(flash_attention_tag|chunk_attention_tag|"
-                  r"chunk_masses_tag)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)", name)
+                  r"chunk_masses_tag)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)ELb(\d)",
+                  name)
     if m:
         return (f"attention_sm90<{m[1]}, hd {m[2]}, causal {m[3]}, "
-                f"stats {m[4]}, split {m[5]}>")
+                f"stats {m[4]}, split {m[5]}, masked {m[6]}>")
     m = re.search(r"combine_splitsI.*?(chunk_attention_tag|"
                   r"chunk_masses_tag)E?Li(\d+)E", name)
     if m:
@@ -2199,18 +2500,23 @@ def main() -> None:
     # each other policy's cell runs just before the lookaheadkv cell of
     # its route, so that no profiler phase comes between the two that are
     # compared (host times drift within a call)
-    letters = dict(zip(ROUTES, "abcdefg"))
+    letters = dict(zip(ROUTES, "abcdefgik"))
     pairs = (("paged continuous h2o", "paged continuous"),
              ("dense-slot continuous pyramidkv", "dense-slot continuous"))
     order = ("paged continuous h2o", "paged continuous", "lockstep",
-             "dense-slot continuous pyramidkv", "dense-slot continuous",
-             "paged decode-evict", "hybrid lockstep")
-    counts, base_per_step, chunk_ms = {}, None, {}
+             "lockstep laq", "dense-slot continuous pyramidkv",
+             "dense-slot continuous", "paged decode-evict",
+             "bucketed continuous full", "hybrid lockstep")
+    counts, base_per_step, chunk_ms, ttft, warm = {}, None, {}, {}, {}
     for route in order:
         arch = "hymba-1.5b" if route == "hybrid lockstep" else "llama3-8b"
         header(f"phase 3{letters[route]}: serve {arch} at full width, "
                f"{route}")
         counts[route], res = phase_serve(torch, mods, route)
+        if "lockstep" in route:
+            ttft[route] = res["done"][0].ttft_s
+        if route == "bucketed continuous full":
+            counts["masked flash"] = res["masked_flash"]
         c = getattr(res["engine"], "counts", {})
         if c.get("prefill_chunks"):
             chunk_ms[route] = c["prefill_s"] / c["prefill_chunks"] * 1e3
@@ -2225,13 +2531,28 @@ def main() -> None:
             base_per_step = profile_paged(torch, mods, res)
         elif route == "lockstep":
             header("phase 4b: where the time goes (torch.profiler)")
-            profile_lockstep(torch, mods, res)
+            warm["lockstep"] = profile_lockstep(torch, mods, res)
         elif route == "paged decode-evict":
             header("phase 4c: where the time goes (torch.profiler)")
             profile_evict(torch, mods, res, base_per_step)
         elif route == "hybrid lockstep":
             header("phase 4d: where the time goes (torch.profiler)")
             profile_lockstep(torch, mods, res)
+        elif route == "lockstep laq":
+            warm[route] = warm_ttft(torch, mods, res["engine"],
+                                    res["cfg"].vocab_size)
+            header("phase 3j: serve llama3-8b at full width, lockstep "
+                   "speckv (tiny-llama draft) on 3i's weights")
+            counts["lockstep speckv"], ttft["lockstep speckv"], \
+                warm["lockstep speckv"] = phase_speckv(torch, mods, res)
+            names = ("lockstep", "lockstep laq", "lockstep speckv")
+            for what, got in (("first serve", ttft),
+                              ("warm (a second serve)", warm)):
+                print(f"  TTFT, host clock, 4 x 2048 tokens, {what} "
+                      "(sightings, not claims): " + "; ".join(
+                          f"{name} {got[name] * 1e3:.1f} ms "
+                          f"({got[name] / got['lockstep']:.2f}x "
+                          "lookaheadkv)" for name in names))
         del res  # free this route's weights before the next one's
         torch.cuda.empty_cache()
     header("phase 3h: mamba2-130m at full width, prefill and decode")
@@ -2246,6 +2567,9 @@ def main() -> None:
                 "chunk_attention_masses": "paged continuous h2o",
                 "ssd_scan": "hybrid lockstep"}
     for k in kernels:
+        if k["name"] == "flash_attention masked":  # 3k's padded group
+            k["launches"] = counts["masked flash"]
+            continue
         k["launches"] = counts[route_of.get(k["name"],
                                             "paged continuous")][k["name"]]
     print(f"total {time.perf_counter() - t_all:.1f} s")

@@ -3,10 +3,20 @@ monolithic, ``run_eviction_chunked`` streamed), greedy decode
 (``greedy_decode`` for the lockstep engine, ``decode_chunk`` for the
 continuous one) and the chunked prefill's buffer sizing.
 
-Every single-pass policy of the JAX package is served, with greedy
-decode.  The draft-based baselines (LAQ, SpecKV: a draft, then a
-rescoring prefill over the prompt and the draft) are ROADMAP A3b, and
-sampling is A8.
+Every policy of the JAX package is served, with greedy decode
+(sampling is ROADMAP A8).  The single-pass ones call
+``transformer.prefill`` once; the draft-based baselines compose passes:
+
+* **LAQ** (Lookahead Q-Cache): a snapkv prefill, a greedy draft of
+  ``evict.draft_len`` tokens over that compressed cache, then a
+  ``gt_oracle`` prefill over [prompt; draft] that rescores the prompt's
+  keys with the draft rows as observation queries;
+* **SpecKV**: a separate draft model prefills the prompt with the
+  ``full`` policy and drafts greedily; the target model then rescores as
+  LAQ does.
+
+Both recompute the scoring prefill over [prompt; draft] (the JAX
+package's adaptation), and neither serves bucket-padded prompts.
 """
 
 from __future__ import annotations
@@ -26,20 +36,67 @@ class EvictionResult(NamedTuple):
     cache: dict  # budgeted decode cache
 
 
+def _draft_then_rescore(params: dict, cfg: ModelConfig,
+                        tokens: torch.Tensor, draft: torch.Tensor,
+                        evict: EvictionConfig,
+                        extra_slots: int) -> EvictionResult:
+    """The second half of LAQ and SpecKV: a ``gt_oracle`` prefill over
+    [tokens; draft] that evicts the prompt's KV with the draft rows as
+    observation queries.  Its logits are row ``n_in - 1``'s, the target
+    model's next-token distribution after the prompt."""
+    n_in = tokens.shape[1]
+    xy = torch.cat([tokens, draft.to(tokens.dtype)], dim=1)
+    res = tf.prefill(params, cfg, xy, policy="gt_oracle", gt_boundary=n_in,
+                     evict=evict, extra_slots=extra_slots,
+                     want_logits="last")
+    return EvictionResult(logits=res.logits, cache=res.cache)
+
+
 def run_eviction(policy: str, params: dict, cfg: ModelConfig,
                  tokens: torch.Tensor, *, evict: EvictionConfig,
                  lkv_params: Optional[dict] = None,
+                 draft_params: Optional[dict] = None,
+                 draft_cfg: Optional[ModelConfig] = None,
                  extra_slots: int = 0,
+                 prompt_lens: Optional[torch.Tensor] = None,
                  seeds: Optional[torch.Tensor] = None) -> EvictionResult:
-    """Prefill + evict under a single-pass ``policy``: the next-token
-    logits and the budgeted decode cache (``transformer.prefill``).
-    ``lkv_params`` is read by ``lookaheadkv`` only, ``seeds`` (B,) by
-    ``random`` only.  The draft-based policies raise (ROADMAP A3b)."""
-    res = tf.prefill(
-        params, cfg, tokens, policy=policy, evict=evict,
-        lkv_params=lkv_params if policy == "lookaheadkv" else None,
-        extra_slots=extra_slots, seeds=seeds)
-    return EvictionResult(logits=res.logits, cache=res.cache)
+    """Prefill + evict under ``policy``: the next-token logits and the
+    budgeted decode cache.  A single-pass policy is one
+    ``transformer.prefill`` (``prompt_lens``: bucket-padded rows);
+    ``laq`` and ``speckv`` draft ``evict.draft_len`` tokens and rescore
+    (module docstring; ``speckv`` drafts with ``draft_params`` /
+    ``draft_cfg``, a model of the same vocabulary).  ``lkv_params`` is
+    read by ``lookaheadkv`` only, ``seeds`` (B,) by ``random`` only."""
+    if policy in SINGLE_PASS:
+        res = tf.prefill(
+            params, cfg, tokens, policy=policy, evict=evict,
+            lkv_params=lkv_params if policy == "lookaheadkv" else None,
+            extra_slots=extra_slots, prompt_lens=prompt_lens, seeds=seeds)
+        return EvictionResult(logits=res.logits, cache=res.cache)
+    if policy not in MULTI_PASS:
+        raise ValueError(f"unknown policy {policy}; known: {ALL_POLICIES}")
+    if prompt_lens is not None:
+        raise ValueError(
+            f"{policy} (multi-pass) cannot serve bucket-padded prompts; "
+            "group its requests by exact length instead")
+    if policy == "laq":
+        # a cheap snapkv eviction, then a draft over the compressed cache
+        # (the pseudo future)
+        res1 = tf.prefill(params, cfg, tokens, policy="snapkv", evict=evict,
+                          extra_slots=evict.draft_len + 1)
+        first = torch.argmax(res1.logits, dim=-1)[:, None].to(torch.int32)
+        draft, _ = greedy_decode(params, cfg, first, res1.cache,
+                                 evict.draft_len)
+    else:
+        if draft_params is None or draft_cfg is None:
+            raise ValueError("speckv needs a draft model")
+        dres = tf.prefill(draft_params, draft_cfg, tokens, policy="full",
+                          extra_slots=evict.draft_len + 1)
+        first = torch.argmax(dres.logits, dim=-1)[:, None].to(torch.int32)
+        draft, _ = greedy_decode(draft_params, draft_cfg, first, dres.cache,
+                                 evict.draft_len)
+    return _draft_then_rescore(params, cfg, tokens, draft, evict,
+                               extra_slots)
 
 
 def decode_one(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -120,7 +177,11 @@ def run_eviction_chunked(
     with online scores, one eviction at prompt end; the same kept cache
     and next-token logits as ``run_eviction`` for every single-pass
     policy (the serving engine drives the same two steps itself, to
-    interleave decode between chunks)."""
+    interleave decode between chunks).  The draft-based policies cannot
+    stream and raise."""
+    if policy in MULTI_PASS:
+        raise ValueError(f"{policy} cannot stream (multi-pass): run it "
+                         "through run_eviction")
     n_tokens = tokens.shape[1]
     n = gt_boundary if gt_boundary is not None else n_tokens
     obs_tokens = tokens[:, n:] if gt_boundary is not None else None

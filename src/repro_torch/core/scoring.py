@@ -56,7 +56,7 @@ OBS_POLICIES = FINAL_OBS + STREAMING_WINDOW + STREAMING_CUMULATIVE
 # attention-free, scored by ``eviction.position_scores``
 POSITION_POLICIES = ("full", "random", "streaming_llm")
 # one prefill pass each (the JAX package's order), and the draft-based
-# policies of several passes (ROADMAP A3b)
+# policies of several passes (``policies.run_eviction``)
 SINGLE_PASS = POSITION_POLICIES + STREAMING_WINDOW + STREAMING_CUMULATIVE \
     + FINAL_OBS
 MULTI_PASS = ("laq", "speckv")

@@ -37,8 +37,22 @@
 //   descriptor (K-major: hd contiguous in both Q and K), hd/16 k-steps.
 // * Mask in registers (only on tiles that need it: the causal diagonal,
 //   the window's edge, the ragged key tail, whose zero-filled keys would
-//   give logit 0), then the online softmax in f32 with exp2 and the scale
-//   times log2(e) folded in.  P is rounded to bf16 in registers.
+//   give logit 0, and with a key mask a tile that holds a masked key),
+//   then the online softmax in f32 with exp2 and the scale times log2(e)
+//   folded in.  P is rounded to bf16 in registers.
+// * Key mask (MASKED, kernel 7's bucket-padded prefill: kv_mask (B, K)
+//   bytes, nonzero = a valid key).  Before the roles split, each warp of
+//   the CTA reads the mask bytes of some of the CTA's key tiles and sets
+//   two bits per tile in shared memory: "holds a valid key" and "holds a
+//   masked key".  A consumer skips both products of a tile with no valid
+//   key (it still arrives on the tile's `empty` barrier, so the ring's
+//   phases are those of the unmasked kernel) and masks in registers only
+//   on a tile that holds a masked key.  Masked logits are -inf.  A row may
+//   now meet a tile while its running max is still -inf (key 0 masked):
+//   the max then stays -inf, its rescale factor and probabilities are
+//   exp2(-inf) = 0 against a zero offset, and a row that never sees a
+//   valid key stores zeros (l = 0 under L_FLOOR), never NaN.  The
+//   instantiations without MASKED compile none of this.
 // * O += P.V: wgmma m64n{hd}k16 with A = P from registers (the S
 //   accumulator layout is the A-fragment layout of the next product: pack
 //   adjacent pairs to bf16x2) and B = V read as MN-major from shared
@@ -50,7 +64,9 @@
 //
 // Bound on the H100 (989 TFLOP/s bf16): operations, 4*hd*H*sum_i(visible
 // keys of row i), ~0.14 ms for llama3-8b's 4 x 2080-row causal prefill,
-// ~0.017 ms for its 256-row chunk at offset 3840 of a 4096-deep buffer.
+// ~0.017 ms for its 256-row chunk at offset 3840 of a 4096-deep buffer;
+// under a key mask only the valid visible keys count (~0.032 ms for the
+// padded 4 x 1024 group of prompts of 512 / 700 / 900 / 1024 tokens).
 // What it leaves: the softmax of a tile does not overlap its own
 // warpgroup's products (no ping-pong between the two warpgroups, no next
 // S issued before this P.V), a warpgroup computes whole 128-key tiles on
@@ -319,7 +335,12 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk,
 // same for 16 columns: (row g, cols 2t..), (g + 8, 2t..), (g, 8 + 2t..),
 // (g + 8, 8 + 2t..), so the S registers 8kk..8kk+7, packed in pairs, are
 // P's A fragment of k-step kk.
-template <typename Entry, int HD, bool CAUSAL, bool STATS, bool SPLIT>
+// Key tiles a masked call may span: 2048 tiles of 128, K <= 262,144
+// (kernels/flash_attention.py checks it).
+constexpr int MASK_WORDS = 64;
+
+template <typename Entry, int HD, bool CAUSAL, bool STATS, bool SPLIT,
+          bool MASKED>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_sm90(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -327,8 +348,9 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
                __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
                float* __restrict__ l_out, float* __restrict__ o_part,
                float* __restrict__ m_part, float* __restrict__ l_part,
-               int n_split_arg, int C, int H, int K, int KV, int q_offset,
-               int window, float scale_log2) {
+               const uint8_t* __restrict__ kv_mask, int n_split_arg, int C,
+               int H, int K, int KV, int q_offset, int window,
+               float scale_log2) {
   static_assert(HD == 64 || HD == 128, "head dims 64 and 128");
   constexpr int TILE = (HD / 64) * HALF;  // bytes of one Q, K or V tile
   // an instantiation without SPLIT (kernel 7's) compiles the split away
@@ -337,6 +359,9 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
   extern __shared__ unsigned char smem_raw[];
   // q, full[STAGES], empty[STAGES]
   __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  // MASKED: bit i of word i / 32 of the first MASK_WORDS: this CTA's key
+  // tile i holds a valid key; of the next MASK_WORDS: it holds a masked one
+  __shared__ uint32_t tile_bits[MASKED ? 2 * MASK_WORDS : 1];
   // TMA destinations with the 128-byte swizzle need 1024-byte alignment
   // stage s: K at sQ + (1 + 2s) TILE, V right after it
   const uint32_t sQ = (saddr(smem_raw) + 1023) & ~1023u;
@@ -374,6 +399,28 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
       mbar_init(empty(s), CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (MASKED) {
+    for (int i = tid; i < 2 * MASK_WORDS; i += THREADS) tile_bits[i] = 0;
+    __syncthreads();
+    // one warp per key tile: 4 mask bytes a lane, keys past K ignored
+    const uint8_t* mb = kv_mask + (size_t)b * K;
+    for (int i = tid >> 5; i < n_tiles; i += THREADS / 32) {
+      const int kt = k_begin + (it0 + i) * BN;
+      bool valid = false, masked = false;
+      for (int c = lane; c < BN; c += 32) {
+        if (kt + c < K) {
+          if (mb[kt + c]) valid = true;
+          else masked = true;
+        }
+      }
+      valid = __any_sync(0xffffffffu, valid);
+      masked = __any_sync(0xffffffffu, masked);
+      if (lane == 0) {
+        if (valid) atomicOr(&tile_bits[i >> 5], 1u << (i & 31));
+        if (masked) atomicOr(&tile_bits[MASK_WORDS + (i >> 5)], 1u << (i & 31));
+      }
+    }
   }
   __syncthreads();  // the last barrier of all 384 threads: the roles split
 
@@ -419,8 +466,13 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
     const int k0 = k_begin + (it0 + it) * BN;
     mbar_wait(full(s), phase);
     // does any row of this warpgroup see a key of this tile?
-    const bool vis = wg_live && (!CAUSAL || k0 <= wr0 + 63) &&
-                     (window <= 0 || wr0 - (k0 + BN - 1) < window);
+    bool vis = wg_live && (!CAUSAL || k0 <= wr0 + 63) &&
+               (window <= 0 || wr0 - (k0 + BN - 1) < window);
+    bool some_masked = false;
+    if constexpr (MASKED) {
+      vis = vis && ((tile_bits[it >> 5] >> (it & 31)) & 1u);
+      some_masked = (tile_bits[MASK_WORDS + (it >> 5)] >> (it & 31)) & 1u;
+    }
     if (vis) {
       float sc[64];
 #pragma unroll
@@ -437,16 +489,26 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
 
       // mask only where some (row, key) pair of the tile is hidden
       const bool edge = (CAUSAL && k0 + BN - 1 > wr0) || k0 + BN > K ||
-                        (window > 0 && wr0 + 63 - k0 >= window);
+                        (window > 0 && wr0 + 63 - k0 >= window) ||
+                        some_masked;
       if (edge) {
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
+          // the two keys of this lane in column block j, and their bytes
+          bool key_ok[2] = {true, true};
+          if constexpr (MASKED) {
+            const uint8_t* mb = kv_mask + (size_t)b * K;
+            const int kp0 = k0 + 8 * j + 2 * t;
+            key_ok[0] = kp0 < K && mb[kp0];
+            key_ok[1] = kp0 + 1 < K && mb[kp0 + 1];
+          }
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int kp = k0 + 8 * j + 2 * t + (e & 1);
             const int qp = e < 2 ? qp_lo : qp_hi;
             const bool ok = kp < K && (!CAUSAL || kp <= qp) &&
-                            (window <= 0 || qp - kp < window);
+                            (window <= 0 || qp - kp < window) &&
+                            key_ok[e & 1];
             if (!ok) sc[4 * j + e] = -INFINITY;
           }
         }
@@ -462,7 +524,9 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
         mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o2));
         mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o2));
       }
-      // a row that has seen nothing yet keeps exact zeros (exp2(-inf) = 0)
+      // a row that has seen nothing yet (its max still -inf: no key so
+      // far, or only masked ones) keeps exact zeros: it rescales by
+      // exp2(-inf - 0) = 0 and its probabilities are exp2(-inf) = 0
       const float ms_lo = mx_lo == -INFINITY ? 0.f : mx_lo * scale_log2;
       const float ms_hi = mx_hi == -INFINITY ? 0.f : mx_hi * scale_log2;
       const float c_lo = ex2(m_lo * scale_log2 - ms_lo);
@@ -668,16 +732,18 @@ combine_splits(const float* __restrict__ o_part,
 // m_out, l_out.  With SPLIT, n_split > 1 runs each query tile's key range
 // on n_split CTAs that store float32 partials into o_part (n_split, B, H,
 // C, HD) and m_part, l_part (n_split, B, H, C), then merges them
-// (combine_splits).
+// (combine_splits).  With MASKED, kv_mask (B, K) bytes hide the keys
+// whose byte is 0 from every row (K <= 262,144).
 // Returns the first error (map encoding or launch).
 template <typename Entry, int HD, bool CAUSAL, bool STATS = false,
-          bool SPLIT = false>
+          bool SPLIT = false, bool MASKED = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int C, int H, int K, int KV, int q_offset,
                    int window, cudaStream_t stream, float* m_out = nullptr,
                    float* l_out = nullptr, int n_split = 1,
                    float* o_part = nullptr, float* m_part = nullptr,
-                   float* l_part = nullptr) {
+                   float* l_part = nullptr,
+                   const uint8_t* kv_mask = nullptr) {
   CUtensorMap tq, tk, tv;
   cudaError_t err = tensor_map(&tq, q, HD, H, C, B);
   if (err == cudaSuccess) err = tensor_map(&tk, k, HD, KV, K, B);
@@ -685,15 +751,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   // the alignment pad, Q, STAGES x (K, V)
   const int smem = 1024 + (1 + 2 * STAGES) * (HD / 64) * HALF;
-  auto* kern = attention_sm90<Entry, HD, CAUSAL, STATS, SPLIT>;
+  auto* kern = attention_sm90<Entry, HD, CAUSAL, STATS, SPLIT, MASKED>;
   err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   if (n_split < 1 || (n_split > 1 && (!SPLIT || o_part == nullptr)))
     return cudaErrorInvalidValue;
+  if (MASKED != (kv_mask != nullptr) ||
+      (MASKED && K > MASK_WORDS * 32 * BN))
+    return cudaErrorInvalidValue;
   dim3 grid((C + BM - 1) / BM * n_split, H, B);
   kern<<<grid, THREADS, smem, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)out, m_out, l_out, o_part, m_part, l_part,
-      n_split, C, H, K, KV, q_offset, window, log2e_scale(HD));
+      kv_mask, n_split, C, H, K, KV, q_offset, window, log2e_scale(HD));
   if constexpr (SPLIT) {  // kernel 7 never splits: no merge instantiated
     if (n_split == 1) return cudaGetLastError();
     err = cudaGetLastError();

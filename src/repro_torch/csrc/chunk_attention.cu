@@ -42,6 +42,15 @@
 // out (B, C, H, hd) in q's type.  GQA: query head h reads kv head
 // h / (H / KV).
 //
+// Key mask (the entry flash_attention only): kv_mask (B, K) bytes, 0 for a
+// key that no row may see (the bucket-padded rows of a padded prefill;
+// the JAX package sends such a call to its jnp attention, not to Pallas,
+// so this form replaces no Pallas kernel).  A null kv_mask runs the
+// unmasked kernels unchanged: the Hopper tile's MASKED instantiations are
+// separate, and this file's kernels test the pointer.  Contract: each row
+// sees at least one valid key (a row that sees none gets zeros; the plain
+// version's softmax over -1e30 logits would give the mean of V).
+//
 // Each entry instantiates the kernels with a tag type of its own name
 // (attention_sm90<chunk_attention_tag, ...> against
 // attention_sm90<flash_attention_tag, ...>, and the merge of a split key
@@ -110,8 +119,9 @@ template <typename Entry, typename T, int HD, bool CAUSAL, bool STATS>
 __global__ void __launch_bounds__(THREADS)
 attention_fma(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ out,
-              float* __restrict__ m_out, float* __restrict__ l_out, int C,
-              int H, int K, int KV, int q_offset, int window, float scale) {
+              float* __restrict__ m_out, float* __restrict__ l_out,
+              const uint8_t* __restrict__ kv_mask, int C, int H, int K,
+              int KV, int q_offset, int window, float scale) {
   extern __shared__ float smem[];
   float* sQ = smem;                  // BQ x (HD + 1)
   float* sK = sQ + BQ * (HD + 1);    // BK x (HD + 1)
@@ -179,7 +189,8 @@ attention_fma(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NJ; ++j) {
       const int kpos = k0 + c4 + 4 * j;
       const bool ok = row_ok && kpos < K && (!CAUSAL || kpos <= qpos) &&
-                      (window <= 0 || qpos - kpos < window);
+                      (window <= 0 || qpos - kpos < window) &&
+                      (kv_mask == nullptr || kv_mask[(size_t)b * K + kpos]);
       s[j] = ok ? s[j] * scale : NEG_INF;
       okbits |= (unsigned)ok << j;
       tmax = fmaxf(tmax, s[j]);
@@ -245,8 +256,9 @@ attention_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
               __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
-              float* __restrict__ l_out, int C, int H, int K, int KV,
-              int q_offset, int window, float scale) {
+              float* __restrict__ l_out, const uint8_t* __restrict__ kv_mask,
+              int C, int H, int K, int KV, int q_offset, int window,
+              float scale) {
   constexpr int LD = HD + 8;  // row stride (halves): conflict-free fragments
   constexpr int CH = HD / 8;  // 16-byte chunks per row
   constexpr int NT = BK / 8;  // n8 tiles of S per warp
@@ -354,9 +366,11 @@ attention_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int kp = k0 + 8 * j + 2 * t + i;
-        const bool a = r_lo < C && kp < K && (!CAUSAL || kp <= qp_lo) &&
+        const bool key_ok =
+            kp < K && (kv_mask == nullptr || kv_mask[(size_t)b * K + kp]);
+        const bool a = r_lo < C && key_ok && (!CAUSAL || kp <= qp_lo) &&
                        (window <= 0 || qp_lo - kp < window);
-        const bool c = r_hi < C && kp < K && (!CAUSAL || kp <= qp_hi) &&
+        const bool c = r_hi < C && key_ok && (!CAUSAL || kp <= qp_hi) &&
                        (window <= 0 || qp_hi - kp < window);
         s[j][i] = a ? s[j][i] * scale : NEG_INF;
         s[j][2 + i] = c ? s[j][2 + i] * scale : NEG_INF;
@@ -682,7 +696,7 @@ template <typename Entry, typename T, int HD, bool CAUSAL, bool STATS = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int C, int H, int K, int KV, int q_offset,
                    int window, cudaStream_t stream, float* m_out = nullptr,
-                   float* l_out = nullptr) {
+                   float* l_out = nullptr, const uint8_t* kv_mask = nullptr) {
   dim3 grid((C + BQ - 1) / BQ, H, B);
   const float scale = 1.f / sqrtf((float)HD);
   if constexpr (sizeof(T) == 2) {  // bf16: tensor cores
@@ -692,16 +706,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     if (err != cudaSuccess) return err;
     kern<<<grid, MTHREADS, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, m_out, l_out, C, H, K,
-        KV, q_offset, window, scale);
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, m_out, l_out, kv_mask,
+        C, H, K, KV, q_offset, window, scale);
   } else {  // fp32: CUDA cores
     const int smem = (BQ * (HD + 1) + BK * (HD + 1) + BK * HD) * sizeof(float);
     auto* kern = attention_fma<Entry, T, HD, CAUSAL, STATS>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
     kern<<<grid, THREADS, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)out, m_out, l_out, C, H,
-        K, KV, q_offset, window, scale);
+        (const T*)q, (const T*)k, (const T*)v, (T*)out, m_out, l_out,
+        kv_mask, C, H, K, KV, q_offset, window, scale);
   }
   return cudaGetLastError();
 }
@@ -787,25 +801,33 @@ cudaError_t dispatch_masses(int dtype, int hd, const void* q, const void* k,
 
 // Kernels 1 and 7: bf16 at hd 64 and 128 on the Hopper tile, everything
 // else on this file's kernels (which take no split).  Kernel 7 (SPLIT
-// false) fills the card with query tiles and never splits.
+// false) fills the card with query tiles and never splits; its key mask
+// (kv_mask not null) runs the tile's MASKED instantiations.
 template <typename Entry, bool CAUSAL, bool SPLIT>
 cudaError_t dispatch(int dtype, int hd, const void* q, const void* k,
                      const void* v, void* out, int B, int C, int H, int K,
                      int KV, int q_offset, int window, Split sp,
-                     cudaStream_t s) {
+                     cudaStream_t s, const uint8_t* kv_mask = nullptr) {
   const bool sm90 = dtype == DTYPE_BF16 && (hd == 64 || hd == 128);
   if (sp.n != 1 && !(sm90 && SPLIT)) return cudaErrorInvalidValue;
+  if (kv_mask != nullptr && SPLIT) return cudaErrorInvalidValue;
   if (dtype == DTYPE_F32) {
     switch (hd) {
-      case 32: return launch<Entry, float, 32, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s);
-      case 64: return launch<Entry, float, 64, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s);
-      case 128: return launch<Entry, float, 128, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s);
+      case 32: return launch<Entry, float, 32, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, kv_mask);
+      case 64: return launch<Entry, float, 64, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, kv_mask);
+      case 128: return launch<Entry, float, 128, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, kv_mask);
       default: return cudaErrorInvalidValue;
     }
   }
   if (dtype != DTYPE_BF16) return cudaErrorInvalidValue;
+  if constexpr (!SPLIT) {
+    if (kv_mask != nullptr && hd == 64)
+      return sm90::launch<Entry, 64, CAUSAL, false, false, true>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, 1, nullptr, nullptr, nullptr, kv_mask);
+    if (kv_mask != nullptr && hd == 128)
+      return sm90::launch<Entry, 128, CAUSAL, false, false, true>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, 1, nullptr, nullptr, nullptr, kv_mask);
+  }
   switch (hd) {
-    case 32: return launch<Entry, __nv_bfloat16, 32, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s);
+    case 32: return launch<Entry, __nv_bfloat16, 32, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, kv_mask);
     case 64: return sm90::launch<Entry, 64, CAUSAL, false, SPLIT>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, sp.n, sp.o, sp.m, sp.l);
     case 128: return sm90::launch<Entry, 128, CAUSAL, false, SPLIT>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, sp.n, sp.o, sp.m, sp.l);
     default: return cudaErrorInvalidValue;
@@ -831,17 +853,19 @@ extern "C" int chunk_attention(const void* q, const void* k, const void* v,
 
 // Self-attention of a whole sequence: q (B, S, H, hd), k/v (B, S, KV, hd).
 // causal != 0: row i sees keys 0..i; causal == 0: every key.  window <= 0
-// means no window.  Returns cudaGetLastError() after launch.
+// means no window.  kv_mask (B, S) bytes or null: a key whose byte is 0 is
+// hidden from every row.  Returns cudaGetLastError() after launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int B, int S, int H, int KV, int hd,
-                               int causal, int window, int dtype,
-                               void* stream) {
+                               const void* kv_mask, void* out, int B, int S,
+                               int H, int KV, int hd, int causal, int window,
+                               int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   using tag = flash_attention_tag;
   const Split one{1, nullptr, nullptr, nullptr};
+  const uint8_t* mask = (const uint8_t*)kv_mask;
   if (causal)
-    return dispatch<tag, true, false>(dtype, hd, q, k, v, out, B, S, H, S, KV, 0, window, one, s);
-  return dispatch<tag, false, false>(dtype, hd, q, k, v, out, B, S, H, S, KV, 0, window, one, s);
+    return dispatch<tag, true, false>(dtype, hd, q, k, v, out, B, S, H, S, KV, 0, window, one, s, mask);
+  return dispatch<tag, false, false>(dtype, hd, q, k, v, out, B, S, H, S, KV, 0, window, one, s, mask);
 }
 
 // Chunk attention plus the column masses of the rows below n_total (h2o):

@@ -53,19 +53,22 @@ def reset_launch_counts() -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window=None) -> torch.Tensor:
+                    causal: bool = True, window=None,
+                    kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention of a whole sequence: q (B, S, H, hd), k/v (B, S, KV,
-    hd), causal or (``causal=False``) over every key.  There is no key
-    mask: that and Sq != Sk are the bucket-padded prefill of the JAX
-    package's ``BucketedEngine``, which the port does not serve yet; Sq !=
-    Sk raises on every device."""
+    hd), causal or (``causal=False``) over every key, with an optional
+    window and key mask ``kv_mask`` (B, S) bool (the bucket-padded
+    prefill's valid keys; every row must keep a valid key).  Sq != Sk (the
+    JAX package's cross-attention of whisper) raises on every device."""
     if q.shape[1] != k.shape[1]:
         raise NotImplementedError(
-            "flash_attention with Sq != Sk (bucket-padded prefill, "
-            "BucketedEngine): not ported yet: ROADMAP A3b")
+            "flash_attention with Sq != Sk (encoder cross-attention): not "
+            "ported yet: ROADMAP A10")
     if _on_card(q):
-        return _fk.flash_attention(q, k, v, causal=causal, window=window)
-    return ref.flash_attention(q, k, v, causal=causal, window=window)
+        return _fk.flash_attention(q, k, v, causal=causal, window=window,
+                                   kv_mask=kv_mask)
+    return ref.flash_attention(q, k, v, causal=causal, window=window,
+                               kv_mask=kv_mask)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

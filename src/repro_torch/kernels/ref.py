@@ -45,11 +45,12 @@ def attention(
     causal: bool = True,
     window=None,
     q_pos: Optional[torch.Tensor] = None,
+    kv_mask: Optional[torch.Tensor] = None,  # (B, Sk) valid keys
 ) -> torch.Tensor:
     """Naive (optionally causal and windowed) softmax attention of queries
     at absolute positions ``q_pos`` (B, Sq) (default: the last Sq of the Sk
-    positions) over keys at positions 0..Sk-1.  Returns (B, Sq, H, hd) in
-    q.dtype."""
+    positions) over keys at positions 0..Sk-1; ``kv_mask`` hides the keys
+    it marks False from every row.  Returns (B, Sq, H, hd) in q.dtype."""
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     dev = q.device
@@ -64,22 +65,27 @@ def attention(
         ok &= k_pos <= q_pos[:, :, None]
     if window is not None:
         ok &= (q_pos[:, :, None] - k_pos) < window
+    if kv_mask is not None:
+        ok &= kv_mask[:, None, :]
     logits = torch.where(ok[:, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
     return out.to(q.dtype)
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window=None) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention of a whole sequence (Sq == Sk): causal, or with
     ``causal=False`` a full softmax over every key; an optional window
-    hides keys with ``q_pos - k_pos >= window``.  Every row sees at least
-    its own key, so no row is empty."""
+    hides keys with ``q_pos - k_pos >= window``, and ``kv_mask`` (B, S)
+    the keys it marks False.  Without a mask every row sees at least its
+    own key; with one, a row that sees no key is the mean of V (softmax
+    over ``NEG_INF`` logits, as the JAX reference), which the kernel does
+    not reproduce (it gives zeros): callers keep every row a valid key."""
     if q.shape[1] != k.shape[1]:
         raise ValueError(f"flash_attention needs Sq == Sk, got {q.shape[1]} "
                          f"and {k.shape[1]}")
-    return attention(q, k, v, causal=causal, window=window)
+    return attention(q, k, v, causal=causal, window=window, kv_mask=kv_mask)
 
 
 def chunk_attention(q, k, v, *, q_offset: int, window=None) -> torch.Tensor:

@@ -19,10 +19,18 @@ for the same command line.
         --decode-evict-interval 64 --budget 256 --chunk 256 --slots 4 \
         --prompt-lens 1024,2048,3072,4000 --max-new 192
     # another policy: h2o, snapkv, pyramidkv, tova, streaming_llm, random
-    # on every route, full on the lockstep route
+    # on every route
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --continuous --kv-pool-mb 256 --policy h2o --budget 256 \
         --chunk 256 --slots 4 --prompt-lens 1024,2048,3072,4000 --max-new 32
+    # the draft-based LAQ on the lockstep route
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --policy laq --budget 256 --requests 4 --n-in 2048 --max-new 32
+    # --continuous with full, laq or speckv: the bucket-padded
+    # BucketedEngine (one padded group at bucket 1024 here)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --continuous --policy full --budget 256 --slots 4 \
+        --prompt-lens 512,700,900,1024 --max-new 32
     # the hybrid hymba-1.5b (attention and Mamba-2 heads): lockstep only
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --budget 256 --requests 4 --n-in 2048 --max-new 32
@@ -31,9 +39,13 @@ Weights (and, for ``lookaheadkv`` only, lookahead modules) are drawn at
 random from ``--seed`` (fine for plumbing and speed; quality needs trained
 modules, ROADMAP A9).  The flags are those of the JAX launcher; the ones
 whose feature the port does not serve yet raise ``NotImplementedError``
-naming their ROADMAP item: the draft-based policies ``laq``/``speckv`` on
-every route, and ``--continuous`` with ``full``, which the JAX launcher
-serves through its ``BucketedEngine`` (ROADMAP A3b).
+naming their ROADMAP item.  Both routes evict with ``EvictionConfig(
+budget, draft_len=8)``, as the JAX launcher's do.  ``--continuous`` with
+``full``, ``laq`` or ``speckv`` builds a ``BucketedEngine`` (those
+policies cannot stream) and ignores ``--kv-pool-mb`` with the JAX
+launcher's note.  Neither launcher passes a draft model, so ``--policy
+speckv`` fails on every route with "speckv needs a draft model" when the
+first prefill runs, where the JAX launcher's assert does.
 As in the JAX launcher, ``--decode-evict`` acts on the continuous routes
 only (the lockstep route does not take it), and the SSM archs have no
 continuous route: ``--continuous`` raises for hymba-1.5b, and the
@@ -53,11 +65,13 @@ import torch
 
 from repro_torch.common.config import EvictionConfig
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import policies
 from repro_torch.core.lookahead import init_lookahead_params
 from repro_torch.models import transformer as tf
-from repro_torch.serving import (ChunkingConfig, ContinuousEngine,
-                                 DecodeEvictionConfig, KVBlockPool, Request,
-                                 ServingConfig, ServingEngine)
+from repro_torch.serving import (BucketedEngine, ChunkingConfig,
+                                 ContinuousEngine, DecodeEvictionConfig,
+                                 KVBlockPool, Request, ServingConfig,
+                                 ServingEngine)
 
 # flag -> (value meaning "off", ROADMAP item of the feature)
 _UNPORTED = {
@@ -124,16 +138,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def _streamable(args) -> bool:
+    """Whether the arguments select the chunked ``ContinuousEngine``."""
+    return (args.continuous and args.policy not in policies.MULTI_PASS
+            and args.policy != "full")
+
+
 def build_engine(args, cfg, params, lkv):
     """The engine the JAX launcher builds for these arguments: lockstep
     ``ServingEngine`` without ``--continuous`` (which, as in JAX, does not
-    take ``--decode-evict``), else ``ContinuousEngine`` over the paged
-    pool (``--kv-pool-mb``) or over dense slot caches."""
-    evict = EvictionConfig(budget=args.budget)
+    take ``--decode-evict``); with it, ``BucketedEngine`` for the policies
+    that cannot stream (``full``, ``laq``, ``speckv``; it takes neither
+    ``--kv-pool-mb`` nor ``--decode-evict``), else ``ContinuousEngine``
+    over the paged pool (``--kv-pool-mb``) or over dense slot caches."""
+    evict = EvictionConfig(budget=args.budget, draft_len=8)
     if not args.continuous:
         return ServingEngine(params, cfg, policy=args.policy, evict=evict,
                              lkv_params=lkv, max_new_tokens=args.max_new,
                              eos_id=-1, device=args.device)
+    if not _streamable(args):
+        return BucketedEngine(params, cfg, policy=args.policy, evict=evict,
+                              lkv_params=lkv, num_slots=args.slots,
+                              max_new_tokens=args.max_new, eos_id=-1,
+                              device=args.device)
     pool = None
     if args.kv_pool_mb:
         pool = KVBlockPool(cfg, block_size=args.kv_block_size,
@@ -162,6 +189,10 @@ def run(argv=None) -> dict:
             "and no lookahead module applies and no engine serves it; run "
             "it through transformer.prefill(want_ssm_cache=True) and "
             "decode_step")
+    if args.kv_pool_mb and not _streamable(args):
+        print("note: --kv-pool-mb requires the chunked continuous engine "
+              "(--continuous with a streamable policy); ignoring it")
+        args.kv_pool_mb = 0
     params = tf.init_params(cfg, seed=args.seed, device=args.device)
     lkv = None
     if args.policy == "lookaheadkv":
@@ -219,7 +250,7 @@ def main(argv=None) -> None:
     c = eng.counts
     print(f"peak concurrency {c['max_concurrency']}; decode "
           f"{c['decode_steps']} steps in {c['decode_s']:.3f}s")
-    if eng.pool is not None:
+    if getattr(eng, "pool", None) is not None:
         s = eng.pool.stats()
         print(f"kv pool: {s['blocks_total']} x {s['block_size']}-row blocks "
               f"({s['bytes_total'] / 1e6:.2f} MB), high water "

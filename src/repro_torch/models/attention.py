@@ -93,13 +93,16 @@ def prefill_attention(
     lora: Optional[dict] = None,
     lora_scale: float = 1.0,
     rope_tables: Optional[tuple] = None,
+    kv_mask: Optional[torch.Tensor] = None,  # (B, S) valid keys
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Causal self-attention of the whole sequence (``ops.flash_attention``,
-    optional sliding window).  Returns (out (B, S, D), q, k, v); the
+    optional sliding window); ``kv_mask`` hides keys (the bucket-padded
+    prompt rows) from every query.  Returns (out (B, S, D), q, k, v); the
     caller scores and evicts from q and k."""
     q, k, v = qkv(p, a, h, positions, lookahead_mask=lookahead_mask,
                   lora=lora, lora_scale=lora_scale, rope_tables=rope_tables)
-    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              kv_mask=kv_mask)
     B, S = h.shape[:2]
     out = linear(out.reshape(B, S, a.q_dim), p["wo"],
                  lora=_lora_for(lora, "wo"), lora_mask=lookahead_mask,

@@ -8,7 +8,9 @@ attention-free mamba2 and the hybrid hymba) and every single-pass
 eviction policy of the JAX package (``lookaheadkv``, ``gt_oracle``, the
 window policies ``snapkv``/``pyramidkv``/``tova``, ``h2o`` and the
 position policies ``streaming_llm``/``random``/``full``), with uniform,
-pyramid or Ada-KV adaptive budgets.  Eviction applies to the attention
+pyramid or Ada-KV adaptive budgets, and the bucket-padded monolithic
+prefill (``prompt_lens``); the draft-based policies compose these passes
+in ``policies.run_eviction``.  Eviction applies to the attention
 KV; the SSM's recurrent state is constant-size.  The streaming prefill
 and the paged and slot-batched caches serve attention-only archs
 (``chunkable``), as in the JAX package.  Per-layer parameters are
@@ -128,11 +130,12 @@ def is_global_flags(cfg: ModelConfig) -> Optional[np.ndarray]:
 
 def check_policy(policy: Optional[str]) -> None:
     """Raise for a policy the prefill functions do not serve: the
-    draft-based ones (not ported) and unknown names."""
+    draft-based ones, which compose several passes
+    (``policies.run_eviction``), and unknown names."""
     if policy in scoring.MULTI_PASS:
-        raise NotImplementedError(
-            f"not ported yet: policy {policy!r} (draft-based, several "
-            "passes): ROADMAP A3b")
+        raise ValueError(
+            f"policy {policy!r} is draft-based (a draft, then a rescoring "
+            "prefill): run it through policies.run_eviction")
     if policy not in (None,) + scoring.SINGLE_PASS:
         raise ValueError(f"unknown policy {policy!r}")
 
@@ -234,12 +237,26 @@ def prefill(
     holds "ssm": {conv (L, B, cw - 1, conv_dim), state (L, B, nh, hd, ds)
     float32}, whenever a policy evicts or ``want_ssm_cache`` is set.
     Without attention (mamba2) nothing is evicted: the cache has no
-    "attn" and no "cursor"."""
+    "attn" and no "cursor".
+
+    ``prompt_lens`` (B,) enables bucket-padded prefill (the continuous
+    engine's ``BucketedEngine``): ``inputs`` are right-padded to a shared
+    length, and every consumer of the padded rows is masked: they are
+    invalid attention keys (kernel 7's key mask, kernel 3's ``kv_mask``),
+    score ``-1e30`` and never enter the decode cache.  Appended
+    observation rows take positions after each row's true length, so
+    lookaheadkv is exact under padding; the window policies' observation
+    rows overlap the padding and are approximate there, as in the JAX
+    package.  Attention-only archs, and not with ``gt_boundary``."""
     _check_arch(cfg)
     check_policy(policy)
+    if prompt_lens is not None:
+        if cfg.uses_ssm or cfg.is_encoder_decoder:
+            raise ValueError("bucket-padded prefill supports attention-only "
+                             "archs")
+        if gt_boundary is not None:
+            raise ValueError("prompt_lens and gt_boundary are exclusive")
     unported = [
-        (prompt_lens is not None,
-         "bucket-padded prefill (prompt_lens, BucketedEngine): ROADMAP A3b"),
         (capture_scores, "score capture for training: ROADMAP A9"),
         (mrope_positions is not None or encoder_embeds is not None,
          "M-RoPE and encoder inputs: ROADMAP A10"),
@@ -265,7 +282,17 @@ def prefill(
         h, lmask = append_lookahead(h, lkv_params)
     S = h.shape[1]
     dev = h.device
-    positions = torch.arange(S, device=dev).expand(B, S)
+    col = torch.arange(S, device=dev)
+    positions = col.expand(B, S)
+    key_valid = None  # (B, S) valid keys under bucket padding
+    if prompt_lens is not None:
+        pl = prompt_lens.to(device=dev, dtype=torch.long)
+        # observation rows sit right after each row's true prompt, not
+        # after the padding, so their rotary positions are the unpadded
+        # prefill's
+        positions = torch.where(col < n_real, positions,
+                                pl[:, None] + (col - n_real))
+        key_valid = (col < pl[:, None]) | (col >= n_real)
     tables = (rope_tables(positions, a.head_dim, a.rope_theta)
               if cfg.uses_attention else None)
     do_evict = policy is not None and cfg.uses_attention
@@ -312,7 +339,7 @@ def prefill(
                 lp["attn"], a, u, positions, window=window,
                 lookahead_mask=lmask,
                 lora=None if lora_l is None else lora_l.get("attn"),
-                lora_scale=ls, rope_tables=tables)
+                lora_scale=ls, rope_tables=tables, kv_mask=key_valid)
         if cfg.uses_ssm:
             s_out, ssm_cache = _ssm_prefill(lp["ssm"], cfg, u, ssm_split,
                                             lora_l=lora_l, ls=ls)
@@ -327,7 +354,7 @@ def prefill(
             if policy in scoring.OBS_POLICIES:
                 s_kv = scoring.postprocess(
                     _observation_scores(policy, q, k, boundary, n_keys,
-                                        window),
+                                        window, key_valid),
                     a.num_kv_heads, pool_kernel)
                 if policy in scoring.STREAMING_WINDOW:
                     # scored keys cover [0, boundary): the window's
@@ -337,12 +364,22 @@ def prefill(
                     s_kv = ev.keep_window(s_kv, S - boundary)
             else:
                 s_kv = pos_scores
-            hb = (ev.adaptive_head_budgets(s_kv, evict.budget, capacity)
+            prompt_valid = (None if key_valid is None
+                            else key_valid[:, :n_keys])
+            s_mass = s_kv
+            if prompt_valid is not None:
+                # padded keys rank last (the max-pool may have spread real
+                # neighbours' mass onto them) and stay out of the cache
+                s_kv = torch.where(prompt_valid[:, None, :], s_kv, -1e30)
+                # the -1e30 sentinels would corrupt the head-mass totals
+                s_mass = s_kv.clamp(min=0.0)
+            hb = (ev.adaptive_head_budgets(s_mass, evict.budget, capacity)
                   if adaptive else None)
             layers.append(ev.evict_layer(
                 s_kv, k[:, :n_keys], v[:, :n_keys], capacity,
                 layer_budget=None if adaptive else budgets[layer],
-                head_budgets=hb, extra_slots=extra_slots))
+                head_budgets=hb, extra_slots=extra_slots,
+                key_mask=prompt_valid))
         q = k = v = None  # only one layer's full K/V is alive at a time
     # gt_oracle: the "current" position is the X|Y boundary, not the end
     # of the response rows
@@ -357,10 +394,14 @@ def prefill(
         if ssm_caches:
             cache["ssm"] = {f: torch.stack([c[f] for c in ssm_caches])
                             for f in ("conv", "state")}
-        cache["next_pos"] = torch.full((B, 1), n_pos, dtype=torch.int32,
-                                       device=dev)
+        cache["next_pos"] = (
+            torch.full((B, 1), n_pos, dtype=torch.int32, device=dev)
+            if prompt_lens is None else pl[:, None].to(torch.int32))
     logits = None
-    if want_logits == "last":
+    if want_logits == "last" and prompt_lens is not None:
+        # the last *real* row of each sequence
+        logits = unembed(params, cfg, h[torch.arange(B, device=dev), pl - 1])
+    elif want_logits == "last":
         logits = unembed(params, cfg, h[:, n_pos - 1])
     elif want_logits == "all":
         logits = unembed(params, cfg, h[:, :n_real])
@@ -390,20 +431,27 @@ def _ssm_prefill(p: dict, cfg: ModelConfig, u: torch.Tensor,
 
 
 def _observation_scores(policy: str, q: torch.Tensor, k: torch.Tensor,
-                        boundary: int, n_keys: int, window) -> torch.Tensor:
+                        boundary: int, n_keys: int, window,
+                        key_valid: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """One layer's per-q-head scores (B, H, n_scored) in the monolithic
     prefill: h2o scores every row at ``q_offset=0`` over the ``n_keys``
     prompt keys; the others score the rows ``[boundary, S)`` over every
     key, on the first ``boundary`` (none when the window is the whole
-    prompt).  The kernel takes contiguous rows."""
+    prompt).  ``key_valid`` (B, S) masks the bucket padding out of the
+    scored keys.  The kernel takes contiguous rows."""
     if policy == "h2o":
-        return scoring.observation_scores(q.contiguous(), k, n_keys,
-                                          window=window, q_offset=0)
+        return scoring.observation_scores(
+            q.contiguous(), k, n_keys, window=window, q_offset=0,
+            kv_mask=None if key_valid is None
+            else key_valid[:, :n_keys].contiguous())
     if boundary == 0:
         B, _, H, _ = q.shape
         return torch.zeros((B, H, 0), dtype=torch.float32, device=q.device)
-    return scoring.observation_scores(q[:, boundary:].contiguous(), k,
-                                      boundary, window=window)
+    return scoring.observation_scores(
+        q[:, boundary:].contiguous(), k, boundary, window=window,
+        kv_mask=None if key_valid is None
+        else key_valid[:, :boundary].contiguous())
 
 
 # ---------------------------------------------------------------------------

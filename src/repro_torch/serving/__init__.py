@@ -1,12 +1,14 @@
-"""Serving stack of the port: the continuous-batching engine (paged pool or
-dense slot caches) and the lockstep engine."""
+"""Serving stack of the port: the chunked continuous-batching engine (paged
+pool or dense slot caches), the bucket-padded continuous engine and the
+lockstep engine."""
 
 from repro_torch.serving.config import (ChunkingConfig, DecodeEvictionConfig,
                                         ServingConfig)
-from repro_torch.serving.engine import ContinuousEngine, ServingEngine
+from repro_torch.serving.engine import (BucketedEngine, ContinuousEngine,
+                                        ServingEngine)
 from repro_torch.serving.kv_pool import KVBlockPool
 from repro_torch.serving.scheduler import Request, RequestState, SlotScheduler
 
-__all__ = ["ChunkingConfig", "ContinuousEngine", "DecodeEvictionConfig",
+__all__ = ["BucketedEngine", "ChunkingConfig", "ContinuousEngine", "DecodeEvictionConfig",
            "KVBlockPool", "Request", "RequestState", "ServingConfig",
            "ServingEngine", "SlotScheduler"]

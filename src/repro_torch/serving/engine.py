@@ -1,5 +1,6 @@
 """Serving engines of the port: the chunked continuous-batching engine
-(on the paged KV pool or on dense slot caches) and the lockstep engine.
+(on the paged KV pool or on dense slot caches), the bucket-padded
+continuous engine and the lockstep engine.
 
 ``ContinuousEngine`` streams each prompt in fixed-size chunks and
 interleaves them with a slot-batched greedy decode loop under a
@@ -47,20 +48,28 @@ lightest row once the ``margin`` rows are full
 
 This is the JAX package's ``ContinuousEngine`` with greedy decode,
 under every single-pass policy it takes (not ``gt_oracle``, which needs
-the response, nor ``full``, whose caches are not shape-uniform).  Every
-other setting raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.  PyTorch runs eagerly, so there is no compile cache; on the
-card the attention kernels run through ``kernels/ops.py``.
+the response, nor ``full`` and the draft-based ``laq``/``speckv``, which
+cannot stream and go to ``BucketedEngine``).  Every other setting raises
+``NotImplementedError`` naming the ROADMAP item that brings it.  PyTorch
+runs eagerly, so there is no compile cache; on the card the attention
+kernels run through ``kernels/ops.py``.
+
+``BucketedEngine`` (the JAX package's deprecated pad-to-bucket engine)
+admits groups of one prompt-length bucket, prefills each group
+monolithically with the padding masked (``prompt_lens``) and decodes
+dense slots with the same slot loop (``_SlotDecodeMixin``); it serves
+every policy but ``gt_oracle``, including ``full`` and the draft-based
+ones.
 
 ``ServingEngine`` is the JAX package's lockstep engine (deprecated there,
 kept as the paper-shaped baseline): one batch of same-length prompts,
 monolithic prefill with eviction, then greedy decode of the whole batch;
-it takes every single-pass policy but ``gt_oracle``.  It is the one
-engine of the hybrid arch (hymba: the SSM's conv tail and state ride the
-decode cache beside the evicted attention KV); ``ContinuousEngine``
-refuses the SSM archs, as the JAX one does, and neither serves the
-attention-free mamba2 (no KV to evict).  ``random`` draws
-per request from ``Request.eviction_seed`` on both engines.
+it takes every policy but ``gt_oracle`` (``speckv`` with a draft model).
+It is the one engine of the hybrid arch (hymba: the SSM's conv tail and
+state ride the decode cache beside the evicted attention KV); the
+continuous engines refuse the SSM archs, as the JAX ones do, and none
+serves the attention-free mamba2 (no KV to evict).  ``random`` draws
+per request from ``Request.eviction_seed`` on every engine.
 """
 
 from __future__ import annotations
@@ -76,12 +85,14 @@ from repro_torch.core import policies
 from repro_torch.core.eviction import select_topk
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import transformer as tf
+from repro_torch.serving.batching import (DEFAULT_BUCKETS, _batch_bucket,
+                                          _bucket_for, _pad_to_bucket)
 from repro_torch.serving.config import DecodeEvictionConfig, ServingConfig
 from repro_torch.serving.scheduler import (Request, RequestState,
                                            SlotScheduler, plan_step)
 
-__all__ = ["ContinuousEngine", "Request", "ServingConfig", "ServingEngine",
-           "cache_bytes", "paged_sweep"]
+__all__ = ["BucketedEngine", "ContinuousEngine", "Request", "ServingConfig",
+           "ServingEngine", "cache_bytes", "paged_sweep"]
 
 
 def cache_bytes(cfg: ModelConfig, capacity: int, n_in: int) -> dict:
@@ -104,22 +115,24 @@ def _sync(device: torch.device) -> None:
 
 
 def _check_policy(policy: str, *, streaming: bool) -> None:
-    """Raise for a policy the engine does not serve: the draft-based ones
-    (``transformer.check_policy``); ``gt_oracle``, which scores from the
-    true response a server does not have; and on the chunked engine
-    ``full``, whose caches are as deep as each prompt (the JAX launcher
-    sends it to ``BucketedEngine``, not ported)."""
-    tf.check_policy(policy)
+    """Raise for a policy the engine does not serve: unknown names;
+    ``gt_oracle``, which scores from the true response a server does not
+    have; and on the chunked engine the draft-based policies, which cannot
+    stream, and ``full``, whose caches are as deep as each prompt (both go
+    to ``BucketedEngine``, as the JAX engine's asserts say)."""
     if policy is None:
         raise ValueError("an engine needs an eviction policy")
+    if policy not in policies.ALL_POLICIES:
+        raise ValueError(f"unknown policy {policy!r}")
     if policy == "gt_oracle":
         raise ValueError("policy 'gt_oracle' scores from the true response "
                          "rows, which a server does not have")
+    if streaming and policy in policies.MULTI_PASS:
+        raise ValueError("multi-pass policies (and gt_oracle) cannot "
+                         "stream; use BucketedEngine for those baselines")
     if streaming and policy == "full":
-        raise NotImplementedError(
-            "not ported yet: policy 'full' keeps whole prompts, so its "
-            "caches are not shape-uniform; the JAX launcher serves it "
-            "through BucketedEngine: ROADMAP A3b")
+        raise ValueError("policy 'full' caches whole prompts: its decode "
+                         "cache is not shape-uniform; use BucketedEngine")
 
 
 def _seeds(reqs, device) -> torch.Tensor:
@@ -198,7 +211,9 @@ class ServingEngine:
 
     ``serve`` runs ``policies.run_eviction`` (the monolithic prefill with
     scoring and eviction under ``policy``, kernels 7 and 3 on the card,
-    and kernel 8 for a hybrid arch's SSM)
+    and kernel 8 for a hybrid arch's SSM; ``laq`` and ``speckv`` draft
+    ``evict.draft_len`` tokens, kernel 6, and rescore, ``speckv`` with
+    the draft model ``draft_params``/``draft_cfg``)
     and then ``policies.greedy_decode`` over the evicted dense cache
     (kernel 6), ``max_new_tokens`` steps with one shared cursor.  With
     ``decode_evict`` (a bool or a ``DecodeEvictionConfig``) the cache keeps
@@ -209,6 +224,8 @@ class ServingEngine:
                  policy: str = "lookaheadkv",
                  evict: Optional[EvictionConfig] = None,
                  lkv_params: Optional[dict] = None,
+                 draft_params: Optional[dict] = None,
+                 draft_cfg: Optional[ModelConfig] = None,
                  max_new_tokens: int = 64, eos_id: int = 0,
                  decode_evict=False, device="cuda"):
         _check_policy(policy, streaming=False)
@@ -221,6 +238,7 @@ class ServingEngine:
             raise ValueError("lookaheadkv serving needs lookahead modules "
                              "(lkv_params)")
         self.params, self.cfg, self.lkv_params = params, cfg, lkv_params
+        self.draft_params, self.draft_cfg = draft_params, draft_cfg
         self.policy = policy
         self.evict = evict if evict is not None else EvictionConfig()
         self.max_new_tokens = max_new_tokens
@@ -243,7 +261,8 @@ class ServingEngine:
         t0 = time.perf_counter()
         res = policies.run_eviction(
             self.policy, self.params, self.cfg, tokens, evict=self.evict,
-            lkv_params=self.lkv_params, extra_slots=self.decode_margin,
+            lkv_params=self.lkv_params, draft_params=self.draft_params,
+            draft_cfg=self.draft_cfg, extra_slots=self.decode_margin,
             seeds=_seeds(requests, self.device))
         _sync(self.device)  # the first-token logits are on the device
         ttft = time.perf_counter() - t0
@@ -306,7 +325,69 @@ class _InflightPrefill:
         self.logits: Optional[torch.Tensor] = None
 
 
-class ContinuousEngine:
+class _SlotDecodeMixin:
+    """The slot-batched greedy decode loop of both continuous engines:
+    chunks of 1/2/4/... steps over per-slot cursors with an active mask.
+    Expects ``self.params``, ``cfg``, ``eos_id``, ``_chunks``, ``_tok``
+    (slots, 1) and ``counts``; the engines hook retirement through
+    ``_on_retire`` and ``_release_slot``."""
+
+    #: decode chunk lengths the loop picks from
+    _CHUNK_SIZES = (1, 2, 4, 8, 16)
+
+    def _pick_chunk(self, remaining, active) -> int:
+        """Largest decode chunk no bigger than the longest remaining
+        stream; slots finishing mid-chunk have their surplus tokens
+        truncated at collect time (greedy decode is prefix-stable)."""
+        room = max(int(remaining[active].max()), 1)
+        return max(c for c in self._chunks if c <= room)
+
+    def _decode_steps(self, cache: dict, steps: int, active,
+                      paged_depth: Optional[int] = None
+                      ) -> tuple[dict, np.ndarray]:
+        """``steps`` greedy decode steps of every slot from ``self._tok``
+        (inactive slots keep their token and cache); returns (the cache,
+        the new tokens (slots, steps) on the host) and counts the chunk."""
+        t_dec = time.perf_counter()
+        self._tok, cache, toks = policies.decode_chunk(
+            self.params, self.cfg, self._tok, cache, steps,
+            active=torch.as_tensor(np.array(active), device=self.device),
+            paged_depth=paged_depth)
+        toks_np = toks.cpu().numpy()  # device sync: the tokens landed
+        self.counts["decode_s"] += time.perf_counter() - t_dec
+        self.counts["decode_chunks"] += 1
+        self.counts["decode_steps"] += steps
+        return cache, toks_np
+
+    def _collect(self, toks, steps, sched, active, remaining, last_emit, t0):
+        now = time.perf_counter() - t0
+        for slot in np.nonzero(active)[0]:
+            r = sched.running[slot]
+            r.max_gap_s = max(r.max_gap_s, now - last_emit[slot])
+            last_emit[slot] = now
+            take = min(steps, int(remaining[slot]))  # drop overshoot tokens
+            finished = False
+            for t in toks[slot, :take].tolist():
+                r.out_tokens.append(int(t))
+                if int(t) == self.eos_id:
+                    finished = True
+                    break
+            remaining[slot] -= steps
+            if finished or remaining[slot] <= 0:
+                sched.retire(r, now=now)
+                active[slot] = False
+                self._on_retire(slot, r)
+                self._release_slot(slot)
+
+    def _on_retire(self, slot: int, req: Request) -> None:
+        """Retirement hook, called while the slot's cache still exists."""
+
+    def _release_slot(self, slot: int) -> None:
+        """Retirement hook: return what the slot holds (the paged
+        engine's blocks); a dense slot has nothing to free."""
+
+
+class ContinuousEngine(_SlotDecodeMixin):
     """Chunked continuous-batching engine over a ``KVBlockPool``
     (``config.kv_pool``) or over dense slot caches (no pool).
 
@@ -315,9 +396,6 @@ class ContinuousEngine:
     or ``bridge.to_torch``); the pool, when there is one, lives there
     too.  ``run(requests)`` serves them to completion.
     """
-
-    #: decode chunk lengths the loop picks from
-    _CHUNK_SIZES = (1, 2, 4, 8, 16)
 
     def __init__(self, params: dict, cfg: ModelConfig,
                  config: Optional[ServingConfig] = None, *,
@@ -488,7 +566,7 @@ class ContinuousEngine:
             # a failed run must not leak blocks into the next one (a clean
             # run has already freed every slot at retirement)
             for s in range(self.num_slots):
-                self._free_slot_blocks(s)
+                self._release_slot(s)
         return sched.finished
 
     def _run_loop(self, sched, active, remaining, last_emit, t0) -> None:
@@ -534,13 +612,6 @@ class ContinuousEngine:
                 if wait > 0:
                     time.sleep(min(wait, 0.05))
 
-    def _pick_chunk(self, remaining, active) -> int:
-        """Largest decode chunk no bigger than the longest remaining
-        stream; slots finishing mid-chunk have their surplus tokens
-        truncated at collect time (greedy decode is prefix-stable)."""
-        room = max(int(remaining[active].max()), 1)
-        return max(c for c in self._chunks if c <= room)
-
     def _decode(self, sched, active, remaining, last_emit, t0) -> None:
         """One decode chunk of the live slots.  On the pool, in the JAX
         engine's order: the decode-eviction sweep first, then the chunk
@@ -569,15 +640,8 @@ class ContinuousEngine:
                      "next_pos": self._to_dev(self._npos_h[:, None])}
         else:
             cache = self._live  # written in place, gated by `active`
-        t_dec = time.perf_counter()
-        self._tok, cache, toks = policies.decode_chunk(
-            self.params, self.cfg, self._tok, cache, steps,
-            active=self._to_dev(active),
-            paged_depth=self._depth if paged else None)
-        toks_np = toks.cpu().numpy()  # device sync: the tokens landed
-        self.counts["decode_s"] += time.perf_counter() - t_dec
-        self.counts["decode_chunks"] += 1
-        self.counts["decode_steps"] += steps
+        cache, toks_np = self._decode_steps(
+            cache, steps, active, paged_depth=self._depth if paged else None)
         if paged:
             # mirror the device advance rule: slots active at dispatch move
             # `steps`, cursors clamp at the depth
@@ -587,26 +651,6 @@ class ContinuousEngine:
         else:
             self._live = cache
         self._collect(toks_np, steps, sched, active, remaining, last_emit, t0)
-
-    def _collect(self, toks, steps, sched, active, remaining, last_emit, t0):
-        now = time.perf_counter() - t0
-        for slot in np.nonzero(active)[0]:
-            r = sched.running[slot]
-            r.max_gap_s = max(r.max_gap_s, now - last_emit[slot])
-            last_emit[slot] = now
-            take = min(steps, int(remaining[slot]))  # drop overshoot tokens
-            finished = False
-            for t in toks[slot, :take].tolist():
-                r.out_tokens.append(int(t))
-                if int(t) == self.eos_id:
-                    finished = True
-                    break
-            remaining[slot] -= steps
-            if finished or remaining[slot] <= 0:
-                sched.retire(r, now=now)
-                active[slot] = False
-                self._on_retire(slot, r)
-                self._free_slot_blocks(slot)
 
     # -- prefill and admission ------------------------------------------------
     def _begin_prefill(self, req: Request) -> _InflightPrefill:
@@ -669,7 +713,7 @@ class ContinuousEngine:
         if first == self.eos_id or r.max_new_tokens <= 1:
             sched.retire(r, now=now)
             self._on_retire(slot, r)
-            self._free_slot_blocks(slot)
+            self._release_slot(slot)
         else:
             active[slot] = True
             remaining[slot] = r.max_new_tokens - 1
@@ -875,12 +919,12 @@ class ContinuousEngine:
         r.out_tokens = []  # rebuilt, identical, by the re-serve
         r.preempt_emit_s = last_emit[slot]  # the stall starts here
         r.admission_cache = None
-        self._free_slot_blocks(slot)
+        self._release_slot(slot)
         active[slot] = False
         remaining[slot] = 0
         self.counts["preemptions"] += 1
 
-    def _free_slot_blocks(self, slot: int) -> None:
+    def _release_slot(self, slot: int) -> None:
         """Return a retired slot's blocks and unredeemed reservation (a
         dense slot has nothing to free).  The device table row stays stale
         until the next admission overwrites it — harmless: the slot is
@@ -896,3 +940,190 @@ class ContinuousEngine:
             self.pool.unreserve(int(self._slot_reserved[slot]))
             self._slot_reserved[slot] = 0
         self._table_h[slot] = 0
+
+
+class BucketedEngine(_SlotDecodeMixin):
+    """Continuous-batching engine with bucket-padded monolithic prefill
+    (the JAX package's deprecated ``BucketedEngine``, kept there as the
+    baseline the chunked engine is measured against, and the engine its
+    launcher sends ``full``, ``laq`` and ``speckv`` to).
+
+    Arrived requests are admitted in groups of one prompt-length bucket
+    (``SlotScheduler.next_prefill_group``: the FCFS head's bucket, up to
+    the free slots and ``max_prefill_batch``); a group is right-padded to
+    its bucket and to a power-of-two batch (``batching``) and prefilled in
+    one ``policies.run_eviction`` with ``prompt_lens`` when any prompt is
+    shorter than the bucket (kernel 7 under its key mask, kernel 3's
+    ``kv_mask``).  Each request's evicted cache lands in a dense slot
+    (``transformer.insert_request_cache``) and the slots decode together
+    (``_SlotDecodeMixin``, kernel 6), every live slot stalling for the
+    whole prefill of a group.  Prompts beyond the largest bucket take the
+    next power of two, except under ``full``, whose slots are as deep as
+    the largest bucket.  The draft-based policies cannot mask padding, so
+    their groups share an exact prompt length.
+
+    Exactness: tokens equal isolated lockstep serving for ``lookaheadkv``
+    and the position policies under padding; the window policies are
+    exact when a prompt fills its bucket and approximate otherwise (their
+    observation windows overlap the padding), as in the JAX package.
+    ``decode_evict`` caps each slot at ``margin`` append rows, evicting
+    per step as the dense slots of ``ContinuousEngine`` do."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, *,
+                 policy: str = "lookaheadkv",
+                 evict: Optional[EvictionConfig] = None,
+                 lkv_params: Optional[dict] = None,
+                 draft_params: Optional[dict] = None,
+                 draft_cfg: Optional[ModelConfig] = None,
+                 num_slots: int = 4, buckets: tuple = DEFAULT_BUCKETS,
+                 max_prefill_batch: Optional[int] = None,
+                 max_new_tokens: int = 64, eos_id: int = 0,
+                 decode_evict=False, decode_chunk: int = 8, device="cuda"):
+        _check_policy(policy, streaming=False)
+        if not tf.chunkable(cfg):
+            raise ValueError(f"{cfg.name}: continuous batching serves "
+                             "attention-only decoder archs")
+        if policy == "lookaheadkv" and lkv_params is None:
+            raise ValueError("lookaheadkv serving needs lookahead modules "
+                             "(lkv_params)")
+        self.params, self.cfg, self.lkv_params = params, cfg, lkv_params
+        self.draft_params, self.draft_cfg = draft_params, draft_cfg
+        self.policy = policy
+        self.evict = evict if evict is not None else EvictionConfig()
+        self.num_slots = num_slots
+        self.buckets = tuple(sorted(buckets))
+        self.max_prefill_batch = max_prefill_batch or num_slots
+        self.max_new_tokens = max_new_tokens
+        self.eos_id = eos_id
+        self.device = torch.device(device)
+        self.decode_evict = DecodeEvictionConfig.coerce(decode_evict)
+        self.decode_margin = self.decode_evict.margin_rows(max_new_tokens)
+        self._chunks = tuple(c for c in self._CHUNK_SIZES
+                             if c <= decode_chunk)
+        # the draft-based policies draft over a compressed cache and cannot
+        # mask padding: their groups share an exact prompt length
+        self._exact_only = policy in policies.MULTI_PASS
+        self.capacity = tf.decode_cache_capacity(
+            cfg, policy, self.evict, n_keys_max=max(self.buckets))
+        self._tok = torch.zeros((num_slots, 1), dtype=torch.int32,
+                                device=self.device)
+        #: per-run counters (prefill groups, decode chunks and steps,
+        #: seconds, peak concurrency)
+        self.counts: dict = {}
+
+    # -- geometry ------------------------------------------------------------
+    def _bucket(self, n: int) -> int:
+        if self._exact_only:
+            return n
+        b = _bucket_for(n, self.buckets)
+        if self.policy == "full" and b > max(self.buckets):
+            raise ValueError(
+                f"policy 'full' caches whole prompts; len {n} exceeds the "
+                f"largest bucket {max(self.buckets)}")
+        return b
+
+    def cache_bytes(self, n_in: int) -> dict:
+        return cache_bytes(self.cfg, self.capacity + self.decode_margin, n_in)
+
+    def kv_device_bytes(self) -> int:
+        """K+V bytes of the dense live slot cache."""
+        return self.num_slots * (self.capacity + self.decode_margin) \
+            * _kv_row_bytes(self.cfg)
+
+    # -- serving loop --------------------------------------------------------
+    def run(self, requests: list[Request]) -> list[Request]:
+        """Serve ``requests`` to completion; returns them in finish order.
+        ``arrival_s`` offsets count on the wall clock from the call; a
+        request's TTFT runs from its arrival to its group's first-token
+        logits."""
+        sched = SlotScheduler(self.num_slots, bucket_for=self._bucket,
+                              max_prefill_batch=self.max_prefill_batch)
+        for r in requests:
+            if r.max_new_tokens > self.max_new_tokens:
+                raise ValueError("request exceeds the engine's "
+                                 "max_new_tokens cache margin")
+            if len(r.prompt) == 0:
+                raise ValueError(f"request {r.uid} has an empty prompt")
+            self._bucket(len(r.prompt))  # raises for an unservable length
+            sched.submit(r)
+        self.counts = {"prefill_groups": 0, "prefill_s": 0.0,
+                       "decode_chunks": 0, "decode_steps": 0,
+                       "decode_s": 0.0, "max_concurrency": 0}
+        live = tf.init_decode_cache(
+            self.cfg, self.num_slots, self.capacity + self.decode_margin,
+            per_slot_cursor=True, device=self.device)
+        if self.decode_evict.enabled:
+            live = tf.add_decode_eviction_scores(live)
+        active = np.zeros(self.num_slots, bool)
+        remaining = np.zeros(self.num_slots, np.int64)
+        last_emit = np.zeros(self.num_slots, np.float64)
+        t0 = time.perf_counter()
+        while sched.has_work():
+            # fill the free slots, one bucket group per prefill; ``now``
+            # refreshes so requests that arrived during a prefill are
+            # admissible at once
+            while True:
+                group = sched.next_prefill_group(time.perf_counter() - t0)
+                if not group:
+                    break
+                self._admit(group, sched, live, active, remaining,
+                            last_emit, t0)
+            self.counts["max_concurrency"] = max(
+                self.counts["max_concurrency"], len(sched.running))
+            if active.any():
+                steps = self._pick_chunk(remaining, active)
+                live, toks = self._decode_steps(live, steps, active)
+                self._collect(toks, steps, sched, active, remaining,
+                              last_emit, t0)
+            else:
+                nxt = sched.next_arrival()
+                if nxt is None:
+                    break
+                wait = nxt - (time.perf_counter() - t0)
+                if wait > 0:
+                    time.sleep(min(wait, 0.05))
+        return sched.finished
+
+    def _admit(self, group, sched, live, active, remaining, last_emit,
+               t0) -> None:
+        """Prefill one bucket group (padded when a prompt is shorter than
+        the bucket) and land each request's cache in a free slot."""
+        lens = [len(r.prompt) for r in group]
+        bucket = self._bucket(max(lens))
+        padded = any(n != bucket for n in lens)
+        nb = _batch_bucket(len(group), self.max_prefill_batch)
+        tokens, lens_arr = _pad_to_bucket([r.prompt for r in group], bucket,
+                                          nb)
+        seeds = np.zeros((nb,), np.int32)
+        seeds[:len(group)] = [r.eviction_seed for r in group]
+        t_pf = time.perf_counter()
+        res = policies.run_eviction(
+            self.policy, self.params, self.cfg,
+            torch.as_tensor(tokens, device=self.device), evict=self.evict,
+            lkv_params=self.lkv_params, draft_params=self.draft_params,
+            draft_cfg=self.draft_cfg, extra_slots=self.decode_margin,
+            prompt_lens=(torch.as_tensor(lens_arr, device=self.device)
+                         if padded else None),
+            seeds=torch.as_tensor(seeds, device=self.device))
+        cache = res.cache
+        if self.decode_evict.enabled:
+            cache = tf.add_decode_eviction_scores(cache)
+        first = torch.argmax(res.logits, dim=-1).cpu().numpy()  # a sync
+        self.counts["prefill_groups"] += 1
+        self.counts["prefill_s"] += time.perf_counter() - t_pf
+        now = time.perf_counter() - t0
+        for i, r in enumerate(group):
+            slot = sched.place(r)
+            tf.insert_request_cache(live, tf.extract_request_cache(cache, i),
+                                    slot)
+            self._tok[slot, 0] = int(first[i])
+            r.out_tokens = [int(first[i])]
+            r.first_token_s = now
+            r.ttft_s = now - r.enqueue_s
+            last_emit[slot] = now
+            if r.out_tokens[-1] == self.eos_id or r.max_new_tokens <= 1:
+                sched.retire(r, now=now)
+                active[slot] = False
+            else:
+                active[slot] = True
+                remaining[slot] = r.max_new_tokens - 1

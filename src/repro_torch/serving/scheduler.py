@@ -17,7 +17,9 @@ as many prefill chunks of the in-flight prompt as the leftover budget
 covers (``plan_step``).  Decode therefore advances every iteration — a
 16k prompt streams through in chunk-sized slices between decode chunks
 instead of stalling every live slot for its whole forward pass.
-``next_request`` hands the engine the FCFS head once a slot is free.
+``next_request`` hands the engine the FCFS head once a slot is free;
+``next_prefill_group`` hands ``BucketedEngine`` the head and every other
+arrived request of its prompt-length bucket.
 
 Timing is per-request: TTFT is measured from the moment a request
 becomes schedulable (its arrival) to its first emitted token, TPOT is
@@ -105,16 +107,24 @@ class Request:
 
 class SlotScheduler:
     """Fixed decode slots + FCFS arrival queue, with an optional admission
-    gate (the paged engine's free-block check)."""
+    gate (the paged engine's free-block check) and, for the bucket-padded
+    engine, bucket-grouped admission: ``bucket_for`` maps a prompt length
+    to its bucket, and a group is the queue head plus every other arrived
+    request of the head's bucket, capped by the free slots and
+    ``max_prefill_batch``."""
 
     def __init__(
         self,
         num_slots: int,
         *,
+        bucket_for: Optional[Callable[[int], int]] = None,
+        max_prefill_batch: Optional[int] = None,
         admission_gate: Optional[Callable[[Request], bool]] = None,
     ):
         assert num_slots > 0
         self.num_slots = num_slots
+        self._bucket_for = bucket_for
+        self.max_prefill_batch = max_prefill_batch or num_slots
         # paged-KV admission: with a block pool bound, a free slot is no
         # longer sufficient — the gate checks the pool can cover the FCFS
         # head's worst-case block need before the engine starts its prefill
@@ -191,6 +201,24 @@ class SlotScheduler:
         self.preemptions += 1
         self._queue.insert(0, req)
         return slot
+
+    def next_prefill_group(self, now: float) -> Optional[list[Request]]:
+        """The next same-bucket admission group (``bucket_for``), or None
+        when nothing is admissible (no arrived request, or no free
+        slot)."""
+        if self._bucket_for is None:
+            raise ValueError("next_prefill_group needs bucket_for")
+        self.poll_arrivals(now)
+        if not self._queue or not self._free:
+            return None
+        cap = min(len(self._free), self.max_prefill_batch)
+        head_bucket = self._bucket_for(len(self._queue[0].prompt))
+        group = [r for r in self._queue
+                 if self._bucket_for(len(r.prompt)) == head_bucket][:cap]
+        for r in group:
+            self._queue.remove(r)
+            r.state = RequestState.PREFILL
+        return group
 
     def place(self, req: Request) -> int:
         slot = self._free.pop()

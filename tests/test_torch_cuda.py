@@ -453,6 +453,97 @@ def test_flash_attention_matches_plain(dev, dtype, B, S, H, KV, hd, causal,
     _assert_rows_close(got, want, dtype, 2 ** -5)
 
 
+def _key_mask(B, S, lens, n_obs, dev, lead=0):
+    """(B, S) bool: keys below each row's true length valid, the last
+    ``n_obs`` keys (observation rows after the padding) valid, and the
+    first ``lead`` keys of sequence 0 masked."""
+    j = torch.arange(S, device=dev)
+    lens = torch.as_tensor(lens, device=dev)
+    mask = (j < lens[:, None]) | (j >= S - n_obs)
+    mask[0, :lead] = False
+    return mask.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,lens,n_obs,causal,lead", [
+    # the padded prefill of llama3-8b (phase 1's shape), hd 64 and 32
+    (4, 1024, 32, 8, 128, (512, 700, 900, 1024), 0, True, 0),
+    (4, 1024, 8, 2, 64, (512, 700, 900, 1024), 0, True, 0),
+    (2, 300, 4, 2, 32, (17, 300), 0, True, 0),
+    # observation rows after the padding (lookaheadkv's 32): key tiles
+    # with no valid key between the prompt and them
+    (2, 1056, 8, 2, 128, (100, 1024), 32, True, 0),
+    (2, 700, 8, 2, 64, (1, 600), 32, True, 0),
+    # tile edges: lengths at and around 128, B = 3, GQA 5
+    (3, 260, 8, 2, 128, (127, 128, 129), 0, True, 0),
+    (1, 333, 10, 2, 64, (200,), 5, True, 0),
+    # every key visible: the first 200 keys of sequence 0 masked (a tile
+    # with no valid key, then rows whose running max is -inf when the
+    # next tile arrives), key 0 of sequence 1 masked
+    (2, 600, 8, 2, 128, (600, 600), 0, False, 200),
+    (2, 300, 4, 2, 32, (300, 299), 1, False, 1),
+])
+def test_flash_attention_masked_matches_plain(dev, dtype, B, S, H, KV, hd,
+                                              lens, n_obs, causal, lead):
+    """Kernel 7 under a key mask (every row keeps a valid key) against
+    its plain version."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = _randn(g, (B, S, H, hd), dtype, dev)
+    k = _randn(g, (B, S, KV, hd), dtype, dev)
+    v = _randn(g, (B, S, KV, hd), dtype, dev)
+    mask = _key_mask(B, S, lens, n_obs, dev, lead)
+    if not causal:
+        mask[1, 0] = False
+    got = fk.flash_attention(q, k, v, causal=causal, kv_mask=mask)
+    torch.cuda.synchronize()
+    want = ref.flash_attention(q, k, v, causal=causal, kv_mask=mask)
+    assert bool(torch.isfinite(got.float()).all())
+    _assert_rows_close(got, want, dtype, 2 ** -5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_attention_masked_key0_stays_finite(dev, dtype, hd):
+    """Key 0 masked under the causal mask: row 0 sees no valid key (outside
+    the contract) and comes out as exact zeros, never NaN; every other
+    row matches the plain version."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    B, S, H, KV = 2, 300, 8, 2
+    q = _randn(g, (B, S, H, hd), dtype, dev)
+    k = _randn(g, (B, S, KV, hd), dtype, dev)
+    v = _randn(g, (B, S, KV, hd), dtype, dev)
+    mask = torch.ones((B, S), dtype=torch.bool, device=dev)
+    mask[0, 0] = False
+    got = fk.flash_attention(q, k, v, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool((got[0, 0] == 0).all())
+    want = ref.flash_attention(q, k, v, kv_mask=mask)
+    _assert_rows_close(got[0, 1:], want[0, 1:], dtype, 2 ** -5)
+    _assert_rows_close(got[1], want[1], dtype, 2 ** -5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mask_all_valid_is_unmasked(dev, dtype):
+    """An all-true mask gives the unmasked call's result (bf16: the same
+    tile with every key tile unmasked, bitwise); one launch per call."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    q = _randn(g, (2, 333, 8, 2 * 64), dtype, dev)
+    k = _randn(g, (2, 333, 2, 128), dtype, dev)
+    v = _randn(g, (2, 333, 2, 128), dtype, dev)
+    before = fk.launches
+    got = fk.flash_attention(q, k, v, kv_mask=torch.ones(
+        (2, 333), dtype=torch.bool, device=dev))
+    want = fk.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fk.launches == before + 2
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="kv_mask"):
+        fk.flash_attention(q, k, v, kv_mask=torch.ones(
+            (2, 333), dtype=torch.uint8, device=dev))
+    assert fk.launches == before + 2
+
+
 @pytest.mark.parametrize("hd", [64, 128])
 def test_flash_attention_sm90_counts_one_launch(dev, hd):
     """The bf16 tile at hd 64 and 128 is one launch per call."""

@@ -110,11 +110,19 @@ def test_prefill_without_policy_all_logits_match_jax(model):
 
 def test_prefill_refuses_unported_options(model):
     tok = torch.zeros((1, 8), dtype=torch.int32)
-    for kw, item in ((dict(policy="laq"), "A3b"),
-                     (dict(prompt_lens=torch.ones(1)), "A3b"),
-                     (dict(capture_scores=True), "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            ttf.prefill(model["tp"], model["tcfg"], tok, **kw)
+    # the draft-based policies compose passes: policies.run_eviction
+    with pytest.raises(ValueError, match="policies.run_eviction"):
+        ttf.prefill(model["tp"], model["tcfg"], tok, policy="laq")
+    # bucket-padded prefill is served: a row padded past its true length
+    # gives the logits of its unpadded prefill
+    tok = torch.from_numpy(
+        np.random.default_rng(3).integers(0, 512, (1, 8)).astype(np.int32))
+    padded = ttf.prefill(model["tp"], model["tcfg"], tok,
+                         prompt_lens=torch.tensor([5]))
+    exact = ttf.prefill(model["tp"], model["tcfg"], tok[:, :5])
+    torch.testing.assert_close(padded.logits, exact.logits, **TOL)
+    with pytest.raises(NotImplementedError, match="A9"):
+        ttf.prefill(model["tp"], model["tcfg"], tok, capture_scores=True)
 
 
 def test_monolithic_prefill_matches_chunked(model):

@@ -91,13 +91,20 @@ def test_flash_attention_plain_matches_jax_ref_at_ragged_lengths(
 
 
 def test_flash_attention_refuses_masks_and_cross_lengths():
-    """Bucket-padded prefill (a key mask, or Sq != Sk) is not ported: the
-    entry takes no key mask, and Sq != Sk raises on every device instead
-    of taking another path."""
+    """A key mask (the bucket-padded prefill) is served: masked keys are
+    hidden as in the JAX reference.  Sq != Sk (encoder cross-attention)
+    raises on every device instead of taking another path (ROADMAP
+    A10)."""
+    rng = np.random.default_rng(7)
+    q, k, v = _qkv(rng, 2, 8, 8, 2, 2, 16)
+    mask = np.ones((2, 8), bool)
+    mask[0, 5:] = False
+    got = ops.flash_attention(_t(q), _t(k), _t(v), kv_mask=_t(mask))
+    want = jref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          kv_mask=jnp.asarray(mask))
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
     q = torch.zeros((1, 8, 2, 16))
-    with pytest.raises(TypeError, match="kv_mask"):
-        ops.flash_attention(q, q, q, kv_mask=torch.ones((1, 8), dtype=bool))
-    with pytest.raises(NotImplementedError, match="A3b"):
+    with pytest.raises(NotImplementedError, match="A10"):
         ops.flash_attention(q, torch.zeros((1, 9, 2, 16)),
                             torch.zeros((1, 9, 2, 16)))
 

@@ -420,13 +420,22 @@ def test_monolithic_and_chunked_keep_the_same_rows(model):
 
 def test_policies_refuse_what_is_not_ported(model):
     tok = torch.zeros((1, 40), dtype=torch.int32)
+    # the draft-based policies: served monolithically (speckv with a draft
+    # model, here the target itself), never streamed
     for policy in ("laq", "speckv"):
-        with pytest.raises(NotImplementedError, match="A3b"):
-            tpol.run_eviction(policy, model["tp"], model["tcfg"], tok,
-                              evict=TEvict())
-        with pytest.raises(NotImplementedError, match="A3b"):
+        res = tpol.run_eviction(policy, model["tp"], model["tcfg"], tok,
+                                evict=TEvict(budget=8, draft_len=3),
+                                draft_params=model["tp"],
+                                draft_cfg=model["tcfg"])
+        assert res.logits.shape == (1, model["tcfg"].padded_vocab)
+        assert int(res.cache["attn"]["mask"].sum(2).max()) == 8
+        assert res.cache["next_pos"].tolist() == [[40]]
+        with pytest.raises(ValueError, match="cannot stream"):
             tpol.run_eviction_chunked(policy, model["tp"], model["tcfg"],
                                       tok, chunk=16, evict=TEvict())
+    with pytest.raises(ValueError, match="speckv needs a draft model"):
+        tpol.run_eviction("speckv", model["tp"], model["tcfg"], tok,
+                          evict=TEvict())
     with pytest.raises(ValueError, match="unknown policy"):
         tpol.run_eviction("nope", model["tp"], model["tcfg"], tok,
                           evict=TEvict())

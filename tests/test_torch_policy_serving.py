@@ -16,10 +16,13 @@ through both packages:
 
 under h2o, snapkv, pyramidkv, tova, streaming_llm and random (and, on
 the paged engine, lookaheadkv with adaptive head budgets; on the lockstep
-engine, full).  Then what the engines and the launcher refuse: gt_oracle
-on both engines, full on the continuous engine, the draft-based
-policies everywhere (ROADMAP A3b).  Tokens, kept sets and counts must be
-identical.
+engine, full).  Then what the engines refuse: gt_oracle on both
+engines, and on the chunked engine full and the draft-based policies,
+which go to ``BucketedEngine`` (with the JAX engine's words); the
+lockstep engine serves the draft-based policies; the launcher sends
+``--continuous`` with full or laq to ``BucketedEngine``, and speckv,
+which has no draft model there, fails as in the JAX launcher.  Tokens,
+kept sets and counts must be identical.
 """
 
 import dataclasses
@@ -215,10 +218,10 @@ def test_lockstep_engine_matches_jax(model, policy):
 
 @pytest.mark.parametrize("policy,exc,item", [
     ("gt_oracle", ValueError, "response"),
-    ("full", NotImplementedError, "A3b"),
+    ("full", ValueError, "use BucketedEngine"),
     (None, ValueError, "needs an eviction policy"),
-    ("laq", NotImplementedError, "A3b"),
-    ("speckv", NotImplementedError, "A3b"),
+    ("laq", ValueError, "cannot stream; use BucketedEngine"),
+    ("speckv", ValueError, "cannot stream; use BucketedEngine"),
     ("no-such-policy", ValueError, "unknown policy"),
 ])
 def test_continuous_engine_refuses(policy, exc, item):
@@ -230,13 +233,40 @@ def test_continuous_engine_refuses(policy, exc, item):
 
 @pytest.mark.parametrize("policy,exc,item", [
     ("gt_oracle", ValueError, "response"),
-    ("laq", NotImplementedError, "A3b"),
-    ("speckv", NotImplementedError, "A3b"),
+    # the draft-based policies are served (speckv with a draft model, here
+    # the target model itself; without one it fails at the first prefill)
+    ("laq", None, None),
+    ("speckv", ValueError, "speckv needs a draft model"),
 ])
-def test_lockstep_engine_refuses(policy, exc, item):
-    cfg = dataclasses.replace(get_smoke_config("llama3-8b"), dtype="float32")
-    with pytest.raises(exc, match=item):
-        ServingEngine({}, cfg, policy=policy, device="cpu")
+def test_lockstep_engine_refuses(model, policy, exc, item):
+    cfg = model["tcfg"]
+    if policy == "gt_oracle":
+        with pytest.raises(exc, match=item):
+            ServingEngine({}, cfg, policy=policy, device="cpu")
+        return
+    prompts = _prompts(17, [30, 30])
+    evict = EvictionConfig(budget=8, draft_len=4)
+    jevict = JEvict(budget=8, draft_len=4)
+
+    def reqs(cls):
+        return [cls(uid=i, prompt=p, max_new_tokens=5)
+                for i, p in enumerate(prompts)]
+
+    if exc is not None:
+        with pytest.raises(exc, match=item):
+            ServingEngine(model["tp"], cfg, policy=policy, evict=evict,
+                          max_new_tokens=5, device="cpu").serve(reqs(Request))
+    draft = dict(draft_params=model["tp"], draft_cfg=cfg)
+    got = ServingEngine(model["tp"], cfg, policy=policy, evict=evict,
+                        max_new_tokens=5, eos_id=-1, device="cpu",
+                        **draft).serve(reqs(Request))
+    with warnings.catch_warnings():  # the JAX lockstep engine is deprecated
+        warnings.simplefilter("ignore", DeprecationWarning)
+        want = JLockstep(model["jp"], model["jcfg"], policy=policy,
+                         evict=jevict, max_new_tokens=5, eos_id=-1,
+                         draft_params=model["jp"],
+                         draft_cfg=model["jcfg"]).serve(reqs(JRequest))
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
 
 
 @pytest.mark.parametrize("argv", [
@@ -246,9 +276,18 @@ def test_lockstep_engine_refuses(policy, exc, item):
     ["--policy", "speckv"],
 ])
 def test_launcher_refuses_what_the_jax_launcher_sends_to_bucketed(argv):
-    with pytest.raises(NotImplementedError, match="A3b"):
-        serve.run(["--arch", "tiny-llama", "--smoke", "--device", "cpu",
-                   *argv])
+    """What the JAX launcher sends to its ``BucketedEngine`` the port's
+    now serves there too; ``--policy speckv`` gets no draft model from
+    either launcher and fails at its first prefill."""
+    run = ["--arch", "tiny-llama", "--smoke", "--device", "cpu",
+           "--requests", "2", "--n-in", "40", "--max-new", "3", *argv]
+    if "speckv" in argv:
+        with pytest.raises(ValueError, match="speckv needs a draft model"):
+            serve.run(run)
+        return
+    res = serve.run(run)
+    assert type(res["engine"]).__name__ == "BucketedEngine"
+    assert [len(r.out_tokens) for r in res["done"]] == [3, 3]
 
 
 @pytest.mark.parametrize("route", [[], ["--continuous"],

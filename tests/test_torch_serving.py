@@ -198,20 +198,21 @@ def test_engine_matches_jax_paged_engine():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(policy="laq"), "A3b"),
-    (dict(harvest=object()), "A9"),
-    (dict(policy="speckv"), "A3b"),
-    (dict(lkv_checkpoint="lookahead.npz"), "A9"),
-    (dict(prefix_cache=object()), "A7"),
-    (dict(sampling=object()), "A8"),
-    (dict(mesh=object()), "A11"),
-    (dict(trace=object()), "A12"),
+@pytest.mark.parametrize("change,exc,item", [
+    # the draft-based policies cannot stream: the JAX engine's words
+    (dict(policy="laq"), ValueError, "cannot stream; use BucketedEngine"),
+    (dict(harvest=object()), NotImplementedError, "A9"),
+    (dict(policy="speckv"), ValueError, "cannot stream; use BucketedEngine"),
+    (dict(lkv_checkpoint="lookahead.npz"), NotImplementedError, "A9"),
+    (dict(prefix_cache=object()), NotImplementedError, "A7"),
+    (dict(sampling=object()), NotImplementedError, "A8"),
+    (dict(mesh=object()), NotImplementedError, "A11"),
+    (dict(trace=object()), NotImplementedError, "A12"),
 ])
-def test_engine_refuses_unported_settings(change, item):
+def test_engine_refuses_unported_settings(change, exc, item):
     cfg = _cfg()
     sc = ServingConfig(kv_pool=KVBlockPool(cfg, num_blocks=64, device="cpu"))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=item):
         ContinuousEngine({}, cfg, sc.replace(**change), lkv_params={},
                          device="cpu")
 
