@@ -2308,13 +2308,431 @@ def warm_ttft(torch, mods, eng, vocab: int) -> float:
     return reqs[0].ttft_s
 
 
+# ---------------------------------------------------------------------------
+# phase 2 (the learning loop) and phase 5: the learning loop
+# ---------------------------------------------------------------------------
+
+
+def same_bits(torch, a: dict, b: dict) -> bool:
+    """Whether two flat {path: tensor} dicts hold the same bits."""
+    def bits(t):
+        return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+    return list(a) == list(b) and all(
+        a[k].dtype == b[k].dtype and torch.equal(bits(a[k]), bits(b[k]))
+        for k in a)
+
+
+#: card-vs-CPU tolerance of the lkv leaves after three float32 training
+#: steps: each leaf within this fraction of its own largest magnitude
+#: (Adam's normalised steps carry the gradients' rounding into every leaf)
+LOOP_LEAF_REL = 1e-3
+
+
+def phase_loop_parity(torch, mods, devices=("cuda", "cpu")) -> None:
+    """The learning loop on ``devices[0]`` (the card) against
+    ``devices[1]`` (the CPU), llama3-8b smoke in float32: three
+    ``make_train_step`` steps on the same three synthetic batches (B 2 x
+    (64 + 12)) from the same modules; losses within 1e-4 relative, every
+    lkv leaf within ``LOOP_LEAF_REL`` of its largest magnitude, kernels 7
+    and 3 once per layer per step on the card (the GT pass).  Then on the
+    card, ``launch/train.py`` killed after step 2 (``--stop-after 2``,
+    the ``--ckpt-every 2`` save) and resumed (``--resume``) must end with
+    the straight run's checkpoint and losses, bit for bit."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    tf, ops, adam = mods["tf"], mods["ops"], mods["adam"]
+    cfg = dataclasses.replace(mods["configs"].get_smoke_config("llama3-8b"),
+                              dtype="float32")
+    params = tf.init_params(cfg, seed=SEED, device="cpu")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    lkv = mods["lookahead"].init_lookahead_params(gen, cfg, params["layers"])
+    it = mods["synthetic"].MixtureIterator(cfg, 2, 64, 12, seed=SEED)
+    batches = [next(it) for _ in range(3)]
+    step = mods["steps"].make_train_step(
+        cfg, mods["TrainConfig"](steps=10, lr=1e-3))
+
+    def run(device):
+        p, lv = _move(params, device), _move(lkv, device)
+        opt, losses = adam.init(lv), []
+        for b in batches:
+            batch = {"x": torch.as_tensor(b.x, device=device),
+                     "xy": torch.as_tensor(np.concatenate([b.x, b.y], 1),
+                                           device=device)}
+            lv, opt, loss, _ = step(p, lv, opt, batch)
+            losses.append(float(loss))
+        return losses, adam.leaves(_move(lv, "cpu"))
+
+    ops.reset_launch_counts()
+    got, got_leaves = run(devices[0])
+    counts = ops.launch_counts()
+    want, want_leaves = run(devices[1])
+    worst = max(float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(got_leaves, want_leaves))
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    print(f"  three train steps: losses cuda {got} cpu {want} (largest "
+          f"relative difference {rel:.2e}); lkv leaves: largest difference "
+          f"{worst:.2e} of the leaf's largest magnitude (tolerance "
+          f"{LOOP_LEAF_REL}); kernel launches on the card {counts}")
+    check(rel <= 1e-4, f"loop parity: losses differ by {rel:.2e} relative")
+    check(worst <= LOOP_LEAF_REL, f"loop parity: an lkv leaf differs by "
+          f"{worst:.2e} of its largest magnitude")
+    L = cfg.num_layers
+    want_counts = {k: 0 for k in counts}
+    want_counts.update(flash_attention=3 * L, lookahead_score=3 * L)
+    check(counts == want_counts, f"loop parity: launches {counts}, "
+          f"expected {want_counts} (the GT pass only)")
+
+    common = ["--arch", "llama3-8b", "--smoke", "--device", devices[0],
+              "--steps", "6", "--batch", "2", "--ckpt-every", "2",
+              "--seed", "1"]
+    train, ckpt = mods["train"], mods["ckpt"]
+    with tempfile.TemporaryDirectory() as d:
+        straight, killed = f"{d}/straight.npz", f"{d}/killed.npz"
+        full = train.main(common + ["--ckpt", straight])
+        part = train.main(common + ["--ckpt", killed, "--stop-after", "2"])
+        rest = train.main(common + ["--ckpt", killed, "--resume"])
+        exact = same_bits(torch, ckpt.load(straight), ckpt.load(killed))
+        meta = ckpt.metadata(killed)
+    print(f"  --stop-after 2, --resume on the card (smoke, bf16): losses "
+          f"{full['losses']} straight, {part['losses']} + {rest['losses']} "
+          f"killed and resumed; checkpoints bit-identical: {exact}")
+    check(part["losses"] + rest["losses"] == full["losses"],
+          "resume: losses differ from the straight run")
+    check(exact and meta["step"] == 6,
+          "resume: the resumed checkpoint differs from the straight run's")
+
+
+#: 5a: ``make_prefix_trace`` at chunk 256 gives prompts of 256 to 589
+#: tokens (one or two chunks of prefix, then a suffix of 0, 1 or 77)
+HARVEST = dict(requests=8, policy="h2o", budget=256, chunk=256, max_new=16,
+               max_obs=16, num_slots=4, seed=SEED)
+TRAIN = ["--arch", "llama3-8b", "--seed", str(SEED), "--device", "cuda"]
+#: 5b: the synthetic mixture, B 1 x (1024 + 64) tokens
+ONLINE = ["--steps", "4", "--batch", "1", "--n-in", "1024", "--n-out", "64"]
+#: 5d: the lockstep route serving 5b's checkpoint
+SERVE_CKPT = ["--arch", "llama3-8b", "--seed", str(SEED), "--budget", "256",
+              "--requests", "4", "--n-in", "1024", "--max-new", "8",
+              "--device", "cuda"]
+#: 5e, per (layer, head) row of L1-normalised GT scores, plain p against
+#: kernels q: KL(p || q) at most GT_KL in every row; max |p - q| at most
+#: GT_DP0 of the row's largest p in layer 0 (whose inputs are the same on
+#: both routes: kernel 3 against its plain version) and GT_DP in the
+#: layers after it (bf16 hidden states drift apart through 32 layers once
+#: kernel 7 rounds P to bf16 and the plain attention does not)
+GT_KL = 1e-3
+GT_DP0 = 2 ** -7
+GT_DP = 2 ** -3
+
+
+def phase_harvest(torch, mods, params, cfg, out_dir: str) -> int:
+    """5a: ``harvest_trace`` (``HARVEST``) on the card: the trace served
+    by ``ContinuousEngine`` on dense slots under h2o, then the GT pass
+    over every record.  Exact launches: kernel 2 once per layer per
+    prefill chunk, kernel 6 once per layer per decode step, kernels 7 and
+    3 once per layer per record, nothing else.  Returns the records."""
+    import numpy as np
+
+    hv, sv, ops = mods["harvest"], mods["serving"], mods["ops"]
+    engines, gt_s = [], [0.0]
+    real_engine, real_gt = sv.ContinuousEngine, hv.HarvestWriter.gt_record
+
+    class Recorded(real_engine):  # keeps the engine for its counts
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            engines.append(self)
+
+    def timed_gt(self, x, y):
+        t = time.perf_counter()
+        out = real_gt(self, x, y)  # a host array: the pass has ended
+        gt_s[0] += time.perf_counter() - t
+        return out
+
+    sv.ContinuousEngine, hv.HarvestWriter.gt_record = Recorded, timed_gt
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        w = hv.harvest_trace(params, cfg, out_dir=out_dir, **HARVEST)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        sv.ContinuousEngine, hv.HarvestWriter.gt_record = real_engine, \
+            real_gt
+    eng, L = engines[0], cfg.num_layers
+    lens = [len(p) for p, _ in mods["synthetic"].make_prefix_trace(
+        SEED, HARVEST["requests"], cfg.vocab_size, chunk=HARVEST["chunk"])]
+    chunks = sum(-(-n // HARVEST["chunk"]) for n in lens)
+    n = w.records_written
+    want = {k: 0 for k in counts}
+    want.update(chunk_attention_masses=chunks * L,
+                decode_attention=eng.counts["decode_steps"] * L,
+                flash_attention=n * L, lookahead_score=n * L)
+    print(f"  {n} records of prompts {lens}; serve {wall - gt_s[0]:.2f} s "
+          f"({eng.counts['prefill_chunks']} prefill chunks, "
+          f"{eng.counts['decode_steps']} decode steps); GT pass "
+          f"{gt_s[0] / n * 1e3:.1f} ms per record (host clock, synchronised"
+          f"; {sum(lens) / n + HARVEST['max_new']:.0f} tokens on average)")
+    print(f"  launches {counts}, predicted {want}: {counts == want}")
+    check(n == HARVEST["requests"], f"5a: {n} records")
+    check(eng.counts["prefill_chunks"] == chunks,
+          f"5a: {eng.counts['prefill_chunks']} prefill chunks, expected "
+          f"{chunks}")
+    check(counts == want, f"5a: launches {counts}, expected {want}")
+    records = hv.load_records(out_dir)
+    H = cfg.attn.num_heads
+    for r in records:
+        check(r["s"].shape == (L, H, len(r["x"])) and len(r["y"]) ==
+              HARVEST["max_obs"], f"5a: record shapes {r['s'].shape}")
+        check(bool(np.isfinite(r["s"]).all()),
+              "5a: non-finite gt scores")
+    return records
+
+
+def phase_gt_plain(torch, mods, params, cfg, records) -> None:
+    """5e: the GT pass on kernels 7 and 3 against the same pass on the
+    plain versions (``reference_mode()``) on the card, on two of 5a's
+    records, per (layer, head) row of L1-normalised scores (``GT_KL``,
+    ``GT_DP0``, ``GT_DP``)."""
+    import numpy as np
+
+    obj, ops, sc = mods["objective"], mods["ops"], mods["scoring"]
+    L = cfg.num_layers
+    worst = {"kl": 0.0, "dp0": 0.0, "dp": 0.0}
+    for r in records[:2]:
+        xy = torch.as_tensor(np.concatenate([r["x"], r["y"]]),
+                             device="cuda")[None]
+        n = len(r["x"])
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        q = obj.gt_scores(params, cfg, xy, n)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts = ops.launch_counts()
+        with ops.reference_mode():
+            p = obj.gt_scores(params, cfg, xy, n)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(ops.launch_counts() == counts, "5e: the plain pass launched "
+              "a kernel")
+        check(counts["flash_attention"] == L and
+              counts["lookahead_score"] == L,
+              f"5e: kernel pass launches {counts}")
+        p, q = sc.normalize_l1(p[:, 0]), sc.normalize_l1(q[:, 0])  # (L, H, n)
+        kl = obj.kl_divergence(p, q)  # (L, H)
+        dp = (p - q).abs().amax(-1) / p.amax(-1)
+        worst["kl"] = max(worst["kl"], float(kl.max()))
+        worst["dp0"] = max(worst["dp0"], float(dp[0].max()))
+        worst["dp"] = max(worst["dp"], float(dp[1:].max()))
+        li = int(kl.amax(-1).argmax())
+        print(f"  record of {n} + {len(r['y'])} tokens: GT pass on kernels "
+              f"{(t1 - t0) * 1e3:.1f} ms, plain {(t2 - t1) * 1e3:.1f} ms; "
+              f"KL max {float(kl.max()):.2e} (layer {li}), max |dp| / row "
+              f"max: layer 0 {float(dp[0].max()):.2e}, later layers "
+              f"{float(dp[1:].max()):.2e} (layer "
+              f"{int(dp[1:].amax(-1).argmax()) + 1})")
+    print(f"  worst over both records: KL {worst['kl']:.2e} (<= {GT_KL}), "
+          f"layer 0 max |dp| {worst['dp0']:.2e} of the row max (<= "
+          f"{GT_DP0:.2e}), later layers {worst['dp']:.2e} (<= {GT_DP:.2e})")
+    check(worst["kl"] <= GT_KL and worst["dp0"] <= GT_DP0
+          and worst["dp"] <= GT_DP, "5e: the GT pass on kernels is out of "
+          "tolerance of its plain version")
+
+
+def phase_fixed_batch(torch, mods, params, cfg, lkv0) -> None:
+    """5b, first half: each pass's launches apart (the GT pass kernels 7
+    and 3 once per layer; the lookahead pass, forward and backward, none),
+    then three ``make_train_step`` calls on one fixed batch (B 1 x (1024 +
+    64)) from the trainer's initial modules must lower that batch's
+    loss."""
+    import numpy as np
+
+    obj, ops, steps = mods["objective"], mods["ops"], mods["steps"]
+    b = next(mods["synthetic"].MixtureIterator(cfg, 1, 1024, 64, seed=SEED))
+    batch = {"x": torch.as_tensor(b.x, device="cuda"),
+             "xy": torch.as_tensor(np.concatenate([b.x, b.y], 1),
+                                   device="cuda")}
+    L = cfg.num_layers
+    ops.reset_launch_counts()
+    obj.gt_scores(params, cfg, batch["xy"], 1024)
+    gt = ops.launch_counts()
+    ops.reset_launch_counts()
+    steps.value_and_grad(lambda lv: obj.lookahead_scores(
+        params, cfg, lv, batch["x"]).sum(), lkv0)
+    torch.cuda.synchronize()
+    la = ops.launch_counts()
+    want_gt = {k: 0 for k in gt}
+    want_gt.update(flash_attention=L, lookahead_score=L)
+    print(f"  launches: GT pass {gt}; lookahead pass with its backward {la}")
+    check(gt == want_gt, f"5b: GT pass launches {gt}, expected {want_gt}")
+    check(sum(la.values()) == 0, f"5b: the lookahead pass launched {la}")
+    step = steps.make_train_step(cfg, mods["TrainConfig"](
+        steps=4, lr=1e-3, batch_size=1, n_in=1024, n_out=64, seed=SEED))
+    lv, opt, losses = lkv0, mods["adam"].init(lkv0), []
+    for _ in range(3):
+        lv, opt, loss, _ = step(params, lv, opt, batch)
+        losses.append(float(loss))
+    with torch.no_grad():
+        after = float(obj.lkv_loss(params, cfg, lv, batch["x"], batch["xy"],
+                                   1024)[0])
+    print(f"  one fixed batch: loss {losses} at the three steps, {after} "
+          f"after the third update: falls {after < losses[0]}")
+    check(all(math.isfinite(x) for x in losses + [after]),
+          "5b: a non-finite loss on the fixed batch")
+    check(after < losses[0], f"5b: the fixed batch's loss did not fall "
+          f"({losses[0]} -> {after})")
+
+
+def phase_train(torch, mods, cfg, lkv0, ckpt_path: str) -> dict:
+    """5b, second half: ``launch/train.py`` on the synthetic mixture
+    (``ONLINE``): kernels 7 and 3 exactly once per layer per step, no other
+    launch; finite losses, finite nonzero gradient norms, every lkv leaf
+    moved, and the final checkpoint round-trips bit for bit.  Returns
+    train.main's result."""
+    ops, ckpt = mods["ops"], mods["ckpt"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = mods["train"].main(TRAIN + ONLINE + ["--ckpt", ckpt_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L, n = cfg.num_layers, len(res["losses"])
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=n * L, lookahead_score=n * L)
+    st = res["step_s"]
+    print(f"  {n} steps in {wall:.2f} s with the model's init; ms per step "
+          f"{[round(s * 1e3, 1) for s in st]} (host clock, synchronised; "
+          f"steps 2-{n}: {sum(st[1:]) / (n - 1) * 1e3:.1f} ms); losses "
+          f"{res['losses']}; grad norms {res['grad_norms']}; peak "
+          f"torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB")
+    print(f"  launches {counts}, predicted {want}: {counts == want}")
+    check(counts == want, f"5b: launches {counts}, expected {want}")
+    check(all(math.isfinite(x) for x in res["losses"] + res["grad_norms"]),
+          "5b: a non-finite loss or gradient norm")
+    check(all(g > 0 for g in res["grad_norms"]), "5b: a zero gradient norm")
+    moved = [not torch.equal(a, b) for a, b in zip(
+        mods["adam"].leaves(lkv0), mods["adam"].leaves(res["lkv"]))]
+    check(all(moved), f"5b: {moved.count(False)} lkv leaves did not move")
+    tree = {"lkv": res["lkv"], "opt": res["opt"]}
+    back = ckpt.load(ckpt_path, like=tree, device="cuda")
+    exact = same_bits(torch, ckpt._flatten(tree), ckpt._flatten(back))
+    print(f"  every lkv leaf moved; checkpoint round-trips bit-exactly: "
+          f"{exact}")
+    check(exact and ckpt.metadata(ckpt_path)["step"] == n,
+          "5b: the checkpoint does not round-trip")
+    res["peak"] = peak
+    return res
+
+
+def phase_distill(torch, mods, harvest_dir: str, ckpt_path: str) -> None:
+    """5c: ``launch/train.py --harvest`` on 5a's records (B 2, 4 steps):
+    finite losses, and no kernel launch at all (the lookahead pass runs
+    the plain versions)."""
+    ops = mods["ops"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = mods["train"].main(TRAIN + ["--harvest", harvest_dir, "--steps",
+                                      "4", "--batch", "2", "--ckpt",
+                                      ckpt_path])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    st = res["step_s"]
+    print(f"  losses {res['losses']}; ms per step "
+          f"{[round(s * 1e3, 1) for s in st]}; peak "
+          f"torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{counts}")
+    check(all(math.isfinite(x) for x in res["losses"]),
+          "5c: a non-finite loss")
+    check(sum(counts.values()) == 0, f"5c: kernels launched: {counts}")
+
+
+def phase_serve_ckpt(torch, mods, cfg, ckpt_path: str, lkv) -> None:
+    """5d: ``serve --lkv-ckpt`` with 5b's checkpoint on the lockstep route
+    (4 x 1024, budget 256, 8 new tokens): kernels 7 and 3 once per layer,
+    kernel 6 once per layer per step, nothing else; then a
+    ``ServingEngine`` on the same weights given 5b's in-memory modules
+    must emit the same greedy tokens."""
+    ops, sv = mods["ops"], mods["serving"]
+    ops.reset_launch_counts()
+    res = mods["serve"].run(SERVE_CKPT + ["--lkv-ckpt", ckpt_path])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    L = cfg.num_layers
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=L, lookahead_score=L,
+                decode_attention=8 * L)
+    print(f"  launches {counts}, predicted {want}: {counts == want}")
+    check(counts == want, f"5d: launches {counts}, expected {want}")
+    done = sorted(res["done"], key=lambda r: r.uid)
+    eng = sv.ServingEngine(res["engine"].params, cfg,
+                           evict=mods["EvictionConfig"](budget=256,
+                                                        draft_len=8),
+                           lkv_params=lkv, max_new_tokens=8, eos_id=-1,
+                           device="cuda")
+    again = eng.serve([sv.Request(uid=r.uid, prompt=r.prompt,
+                                  max_new_tokens=8) for r in done])
+    same = [a.out_tokens == b.out_tokens for a, b in zip(done, again)]
+    print(f"  TTFT {done[0].ttft_s * 1e3:.1f} ms; tokens "
+          f"{[r.out_tokens for r in done]}; identical to the in-memory "
+          f"modules' serve: {same}")
+    check(all(same), "5d: --lkv-ckpt tokens differ from the in-memory "
+          "modules'")
+    check(all(len(r.out_tokens) == 8 for r in done), "5d: a short request")
+
+
+def phase_learning_loop(torch, mods, header) -> None:
+    """Phase 5 on llama3-8b at full width (32 layers, d 4096, 32/8 heads
+    of 128, bf16, random weights from the seed, modules from
+    ``init_lookahead_params``): 5a, 5e and the first half of 5b on one set
+    of weights, then 5b's trainer, 5c and 5d, which build their own."""
+    import tempfile
+
+    cfg = mods["configs"].get_config("llama3-8b")
+    with tempfile.TemporaryDirectory() as d:
+        header("phase 5a: harvest a trace at full width (h2o, dense slots)")
+        params = mods["tf"].init_params(cfg, seed=SEED, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        lkv0 = mods["lookahead"].init_lookahead_params(gen, cfg,
+                                                       params["layers"])
+        records = phase_harvest(torch, mods, params, cfg, f"{d}/harvest")
+        header("phase 5e: the GT pass on kernels 7 and 3 against its plain "
+               "version")
+        phase_gt_plain(torch, mods, params, cfg, records)
+        header("phase 5b: train at full width: each pass's launches and a "
+               "fixed batch")
+        phase_fixed_batch(torch, mods, params, cfg, lkv0)
+        del params
+        torch.cuda.empty_cache()
+        header("phase 5b: launch/train.py on the synthetic mixture")
+        trained = phase_train(torch, mods, cfg, lkv0, f"{d}/lkv.npz")
+        torch.cuda.empty_cache()
+        header("phase 5c: launch/train.py --harvest (5a's records)")
+        phase_distill(torch, mods, f"{d}/harvest", f"{d}/distill.npz")
+        torch.cuda.empty_cache()
+        header("phase 5d: serve --lkv-ckpt (5b's checkpoint), lockstep")
+        phase_serve_ckpt(torch, mods, cfg, f"{d}/lkv.npz", trained["lkv"])
+        torch.cuda.empty_cache()
+
+
 def load_modules(torch) -> dict:
     """The port's modules this script drives (from ``src/`` beside it)."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch import serving
     from repro_torch.common.config import EvictionConfig
-    from repro_torch.core import lookahead, policies, scoring
+    from repro_torch.checkpoint import io as ckpt
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.core import lookahead, objective, policies, scoring
+    from repro_torch.data import harvest, synthetic
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import chunk_attention as ck
     from repro_torch.kernels import decode_attention as dk
@@ -2322,8 +2740,9 @@ def load_modules(torch) -> dict:
     from repro_torch.kernels import lookahead_score as lk
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.kernels import ssd_scan as sk
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, steps, train
     from repro_torch.models import transformer as tf
+    from repro_torch.optim import adam
     from repro_torch.serving import engine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2332,7 +2751,9 @@ def load_modules(torch) -> dict:
                 policies=policies, scoring=scoring, engine=engine,
                 EvictionConfig=EvictionConfig, ops=ops,
                 build=build, ref=ref, ck=ck, lk=lk, pk=pk, fk=fk, dk=dk,
-                sk=sk, serve=serve, tf=tf)
+                sk=sk, serve=serve, tf=tf, ckpt=ckpt, TrainConfig=TrainConfig,
+                objective=objective, harvest=harvest, synthetic=synthetic,
+                steps=steps, train=train, adam=adam)
 
 
 def phase_build(mods) -> None:
@@ -2508,6 +2929,9 @@ def main() -> None:
     header("phase 2: the SSM archs on the card vs on the CPU (hymba-smoke, "
            "mamba2-smoke, float32)")
     phase_ssm_parity(torch, mods)
+    header("phase 2: the learning loop on the card vs on the CPU "
+           "(llama3-8b smoke, float32), and a resumed run on the card")
+    phase_loop_parity(torch, mods)
 
     # each other policy's cell runs just before the lookaheadkv cell of
     # its route, so that no profiler phase comes between the two that are
@@ -2569,6 +2993,8 @@ def main() -> None:
         torch.cuda.empty_cache()
     header("phase 3h: mamba2-130m at full width, prefill and decode")
     counts["mamba2"] = phase_mamba(torch, mods)
+    torch.cuda.empty_cache()
+    phase_learning_loop(torch, mods, header)
     # launches on the main path: kernels 1, 3, 4 from the paged route,
     # kernels 7 and 6 from the lockstep route, kernel 5 from the
     # decode-eviction route, kernel 2 from the h2o route, kernel 8 from

@@ -44,6 +44,31 @@ def init_lookahead_params(gen: torch.Generator, cfg: ModelConfig,
     return {"emb": emb, "lora": build(layer_params)}
 
 
+def lookahead_count(lkv_params: dict) -> int:
+    """Number of trainable lookahead parameters (every leaf's size)."""
+    return sum(lookahead_count(v) if isinstance(v, dict) else int(v.numel())
+               for v in lkv_params.values())
+
+
+def load_lookahead_params(path: str, cfg: ModelConfig, layer_params: dict,
+                          *, device="cpu") -> dict:
+    """Load trained lookahead modules from a checkpoint onto ``device``.
+
+    Takes both layouts the trainer writes (``launch/train.py``, in either
+    package): a bare lkv tree (the final export) and the trainer state
+    ``{"lkv": tree, "opt": AdamState}`` (a periodic ``--ckpt-every``
+    save)."""
+    from repro_torch.checkpoint import io as ckpt
+
+    like = init_lookahead_params(torch.Generator().manual_seed(0), cfg,
+                                 layer_params)
+    flat = ckpt.load(path, device=device)
+    if any(k.startswith("lkv/") for k in flat):
+        flat = {k[len("lkv/"):]: v
+                for k, v in flat.items() if k.startswith("lkv/")}
+    return ckpt.unflatten(flat, like)
+
+
 def append_lookahead(h: torch.Tensor, lkv_params: dict
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Concatenate the learned lookahead rows after the embedded prompt

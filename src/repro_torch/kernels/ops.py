@@ -4,10 +4,20 @@ Dispatch depends only on where the tensors lie: a CUDA tensor goes to the
 hand-written kernel (which launches or raises), a CPU tensor to the plain
 PyTorch version in ``ref.py``.  There is no environment switch and no
 fallback from a failed kernel to the plain version.
+
+One exception, for gradients: the kernels are forward-only (no backward),
+so code that must differentiate through a forward pass (the lookahead
+pass of the distillation objective, ``core/objective.py``) runs it inside
+``reference_mode()``, where CUDA tensors take the plain versions too, as
+in the JAX package's ``ops.reference_mode``.  Outside it, a kernel entry
+point given a CUDA tensor that requires a gradient, with autograd on,
+raises: the kernel's result would carry no ``grad_fn`` and the gradient
+would be lost without a word.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -33,12 +43,42 @@ KERNEL_COUNTERS = {
 }
 
 
-def _on_card(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
-        return True
+# Set only inside ``reference_mode()``: CUDA tensors take the plain
+# versions (the JAX package's ``_REFERENCE_ONLY``).
+_REFERENCE_ONLY = False
+
+
+@contextlib.contextmanager
+def reference_mode():
+    """Send every entry point to its plain version, CUDA tensors included,
+    so that autograd can differentiate through it.  The one exception to
+    dispatch by device; the distillation objective's lookahead pass and
+    ``lm_loss`` run inside it."""
+    global _REFERENCE_ONLY
+    prev = _REFERENCE_ONLY
+    _REFERENCE_ONLY = True
+    try:
+        yield
+    finally:
+        _REFERENCE_ONLY = prev
+
+
+def _on_card(t: torch.Tensor, *grad_inputs: Optional[torch.Tensor]) -> bool:
+    """Whether ``t``'s call goes to the kernel.  ``grad_inputs`` are the
+    call's float tensors: on the card, outside ``reference_mode()``, one
+    that requires a gradient under autograd raises."""
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"no kernel or plain version for device {t.device}")
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel or plain version for device {t.device}")
+    if _REFERENCE_ONLY:
+        return False
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (t,) + grad_inputs):
+        raise RuntimeError(
+            "the CUDA kernels have no backward: differentiate through "
+            "the plain versions inside ops.reference_mode()")
+    return True
 
 
 def launch_counts() -> dict:
@@ -64,7 +104,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError(
             "flash_attention with Sq != Sk (encoder cross-attention): not "
             "ported yet: ROADMAP A10")
-    if _on_card(q):
+    if _on_card(q, k, v):
         return _fk.flash_attention(q, k, v, causal=causal, window=window,
                                    kv_mask=kv_mask)
     return ref.flash_attention(q, k, v, causal=causal, window=window,
@@ -75,7 +115,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One query token per sequence (B, H, hd) over a dense (B, C, KV, hd)
     cache, mask None, (B, C) or per kv head (B, C, KV)."""
-    if _on_card(q):
+    if _on_card(q, k, v):
         return _dk.decode_attention(q, k, v, kv_mask=kv_mask)
     return ref.decode_attention(q, k, v, kv_mask=kv_mask)
 
@@ -93,7 +133,7 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     chunk.  ``out`` is the ``score_masses=False`` result on both routes:
     kernel 2's is bitwise kernel 1's, and the plain route reuses the
     unscored attention."""
-    if _on_card(q):
+    if _on_card(q, k, v):
         if not score_masses:
             return _ck.chunk_attention(q, k, v, q_offset=q_offset,
                                        window=window)
@@ -119,7 +159,7 @@ def lookahead_score(q_obs: torch.Tensor, k: torch.Tensor, n_prompt: int, *,
                     row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-q-head importance scores of the first ``n_prompt`` keys:
     (B, H, n_prompt) float32."""
-    if _on_card(q_obs):
+    if _on_card(q_obs, k):
         return _lk.lookahead_score(q_obs, k, n_prompt, kv_mask=kv_mask,
                                    window=window, q_offset=q_offset,
                                    row_valid=row_valid)
@@ -148,7 +188,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     attention.  ``depth`` changes nothing else: the engine masks every row
     past it."""
     kw = dict(pos_pool=pos_pool, new_pos=new_pos, window=window)
-    if _on_card(q):
+    if _on_card(q, k_pool, v_pool):
         if not score_masses:
             return _pk.paged_decode_attention(q, k_pool, v_pool, mask_pool,
                                               table, **kw)
@@ -171,7 +211,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (nh,), Bm/Cm (B, S, 1, ds), initial_state (B, nh, hd, ds) or None ->
     (y (B, S, nh, hd), final state (B, nh, hd, ds)), both float32.  Any S
     (a ragged last chunk is exact) and any nh, on both routes."""
-    if _on_card(x):
+    if _on_card(x, dt, A, Bm, Cm, initial_state):
         return _sk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
                             initial_state=initial_state)
     return ref.ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=chunk,

@@ -36,8 +36,15 @@ for the same command line.
         --budget 256 --requests 4 --n-in 2048 --max-new 32
 
 Weights (and, for ``lookaheadkv`` only, lookahead modules) are drawn at
-random from ``--seed`` (fine for plumbing and speed; quality needs trained
-modules, ROADMAP A9).  The flags are those of the JAX launcher; the ones
+random from ``--seed`` (fine for plumbing and speed); ``--lkv-ckpt``
+loads trained modules instead, on every route (a checkpoint of either
+package's trainer, ``launch/train.py``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --lkv-ckpt experiments/ckpt/train_lkv.npz --budget 256 \
+        --requests 4 --n-in 1024 --max-new 8
+
+The flags are those of the JAX launcher; the ones
 whose feature the port does not serve yet raise ``NotImplementedError``
 naming their ROADMAP item.  Both routes evict with ``EvictionConfig(
 budget, draft_len=8)``, as the JAX launcher's do.  ``--continuous`` with
@@ -66,7 +73,8 @@ import torch
 from repro_torch.common.config import EvictionConfig
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import policies
-from repro_torch.core.lookahead import init_lookahead_params
+from repro_torch.core.lookahead import (init_lookahead_params,
+                                        load_lookahead_params)
 from repro_torch.models import transformer as tf
 from repro_torch.serving import (BucketedEngine, ChunkingConfig,
                                  ContinuousEngine, DecodeEvictionConfig,
@@ -78,7 +86,6 @@ _UNPORTED = {
     "prefix_cache_mb": (0, "prefix cache: ROADMAP A7"),
     "shared_prefix": (0, "shared-prefix traffic: ROADMAP A7"),
     "mesh_model": (1, "a device mesh: ROADMAP A11"),
-    "lkv_ckpt": ("", "lookahead checkpoints: ROADMAP A9"),
     "metrics_json": ("", "metrics: ROADMAP A12"),
     "prom_snapshot": ("", "metrics: ROADMAP A12"),
     "trace_out": ("", "tracing: ROADMAP A12"),
@@ -195,7 +202,11 @@ def run(argv=None) -> dict:
         args.kv_pool_mb = 0
     params = tf.init_params(cfg, seed=args.seed, device=args.device)
     lkv = None
-    if args.policy == "lookaheadkv":
+    if args.lkv_ckpt and cfg.technique_applies and cfg.lookahead:
+        lkv = load_lookahead_params(args.lkv_ckpt, cfg, params["layers"],
+                                    device=args.device)
+        print(f"loaded lookahead modules from {args.lkv_ckpt}")
+    elif args.policy == "lookaheadkv":
         gen = torch.Generator(device=args.device).manual_seed(args.seed + 1)
         lkv = init_lookahead_params(gen, cfg, params["layers"])
 

@@ -189,7 +189,7 @@ def _ffn_residual(h, lp, cfg: ModelConfig, *, lora_l=None, lora_mask=None,
 class PrefillResult(NamedTuple):
     logits: Optional[torch.Tensor]  # (B, V) last-real-row logits, or (B, S, V)
     cache: Optional[dict]  # decode cache, or None without a policy
-    scores: Optional[torch.Tensor]  # captured scores (ROADMAP A9): None
+    scores: Optional[torch.Tensor]  # (L, B, H, n_keys) f32 with capture_scores
     aux: torch.Tensor  # MoE load-balance loss: 0 for the dense archs
 
 
@@ -247,7 +247,15 @@ def prefill(
     observation rows take positions after each row's true length, so
     lookaheadkv is exact under padding; the window policies' observation
     rows overlap the padding and are approximate there, as in the JAX
-    package.  Attention-only archs, and not with ``gt_boundary``."""
+    package.  Attention-only archs, and not with ``gt_boundary``.
+
+    ``capture_scores`` (training, ``core/objective.py``) returns every
+    layer's per-q-head observation scores of the scored keys, before
+    pooling, stacked as ``scores`` (L, B, H, n_keys) float32: those of
+    ``policy`` when it is attention-scored, else of ``gt_oracle`` when
+    ``gt_boundary`` is given (the GT pass over [X; Y]) and of
+    ``lookaheadkv`` otherwise (the lookahead pass: ``lkv_params``' rows are
+    appended whatever the policy)."""
     _check_arch(cfg)
     check_policy(policy)
     if prompt_lens is not None:
@@ -257,7 +265,6 @@ def prefill(
         if gt_boundary is not None:
             raise ValueError("prompt_lens and gt_boundary are exclusive")
     unported = [
-        (capture_scores, "score capture for training: ROADMAP A9"),
         (mrope_positions is not None or encoder_embeds is not None,
          "M-RoPE and encoder inputs: ROADMAP A10"),
         (want_logits not in ("last", "all", "none"),
@@ -271,7 +278,17 @@ def prefill(
     a = cfg.attn
     lk = cfg.lookahead
     evict = evict or EvictionConfig()
-    use_lookahead = policy == "lookaheadkv"
+    # the policy whose observation scores are computed (for eviction, for
+    # capture, or both)
+    obs_policy = policy if policy in scoring.OBS_POLICIES else None
+    if capture_scores and obs_policy is None:
+        if gt_boundary is None and lkv_params is None:
+            raise ValueError("capture_scores needs gt_boundary (the GT "
+                             "pass) or lkv_params (the lookahead pass)")
+        obs_policy = "gt_oracle" if gt_boundary is not None \
+            else "lookaheadkv"
+    use_lookahead = policy == "lookaheadkv" or (
+        capture_scores and lkv_params is not None and gt_boundary is None)
     h = embed(params, cfg, inputs)
     B, n_real = h.shape[:2]
     lmask = None
@@ -298,18 +315,19 @@ def prefill(
     do_evict = policy is not None and cfg.uses_attention
     # hybrid archs need their recurrent state whenever a cache is built
     want_ssm_cache = want_ssm_cache or (do_evict and cfg.uses_ssm)
+    # score geometry: the observation rows are [boundary, S); eviction
+    # keeps rows of the first n_keys
+    window_size = lk.window_size if lk else 32
+    boundary = {"lookaheadkv": n_real, "gt_oracle": gt_boundary,
+                "snapkv": S - window_size, "pyramidkv": S - window_size,
+                "tova": S - 1}.get(obs_policy, S)
+    if boundary < 0:
+        raise ValueError(f"{obs_policy}: a prompt of {S} tokens is shorter "
+                         f"than its {window_size}-row observation window")
+    n_keys = boundary if obs_policy in scoring.FINAL_OBS else n_real
+    score_layers = cfg.uses_attention and obs_policy is not None and (
+        capture_scores or do_evict)
     if do_evict:
-        # score geometry: the observation rows are [boundary, S); eviction
-        # keeps rows of the first n_keys
-        window_size = lk.window_size if lk else 32
-        boundary = {"lookaheadkv": n_real, "gt_oracle": gt_boundary,
-                    "snapkv": S - window_size, "pyramidkv": S - window_size,
-                    "tova": S - 1}.get(policy, S)
-        if boundary < 0:
-            raise ValueError(f"{policy}: a prompt of {S} tokens is shorter "
-                             f"than its {window_size}-row observation "
-                             "window")
-        n_keys = boundary if policy in scoring.FINAL_OBS else n_real
         adaptive = evict.head_alloc == "adaptive" and policy != "full"
         budgets, _ = _policy_budget_schedule(
             cfg, policy, evict.budget if policy != "full" else n_keys,
@@ -328,7 +346,7 @@ def prefill(
     ls = lora_scale(cfg) if use_lookahead else 1.0
     lora_tree = lkv_params.get("lora") if use_lookahead else None
     pool_kernel = lk.pool_kernel if lk else 7
-    layers, ssm_caches = [], []
+    layers, ssm_caches, captured = [], [], []
     for layer, window in enumerate(_windows(cfg)):
         lp = layer_slice(params["layers"], layer)
         lora_l = layer_slice(lora_tree, layer)
@@ -350,12 +368,14 @@ def prefill(
             delta = delta * 0.5
         h = _ffn_residual(h + delta, lp, cfg, lora_l=lora_l, lora_mask=lmask,
                           ls=ls)
+        if score_layers:
+            s_qh = _observation_scores(obs_policy, q, k, boundary, n_keys,
+                                       window, key_valid)
+            if capture_scores:
+                captured.append(s_qh)
         if do_evict:
             if policy in scoring.OBS_POLICIES:
-                s_kv = scoring.postprocess(
-                    _observation_scores(policy, q, k, boundary, n_keys,
-                                        window, key_valid),
-                    a.num_kv_heads, pool_kernel)
+                s_kv = scoring.postprocess(s_qh, a.num_kv_heads, pool_kernel)
                 if policy in scoring.STREAMING_WINDOW:
                     # scored keys cover [0, boundary): the window's
                     # columns are zero-padded and force-kept
@@ -406,7 +426,8 @@ def prefill(
     elif want_logits == "all":
         logits = unembed(params, cfg, h[:, :n_real])
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    return PrefillResult(logits=logits, cache=cache, scores=None, aux=aux)
+    scores = torch.stack(captured) if captured else None
+    return PrefillResult(logits=logits, cache=cache, scores=scores, aux=aux)
 
 
 def _ssm_prefill(p: dict, cfg: ModelConfig, u: torch.Tensor,

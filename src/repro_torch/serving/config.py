@@ -102,7 +102,11 @@ class ServingConfig:
     reserve_appends: bool = True  # guarantee admitted requests' growth
     capture_admission: bool = False  # stash mask/pos on each Request
     mesh: Any = None
+    # trained lookahead modules to load (``launch/train.py`` writes them);
+    # the serve half of the harvest -> distill -> serve loop
     lkv_checkpoint: Optional[str] = None
+    # gt_oracle capture hook (``data.harvest.HarvestWriter`` or None),
+    # called with every retired request
     harvest: Any = None
     trace: Any = None
     drift: Any = None

@@ -49,7 +49,10 @@ lightest row once the ``margin`` rows are full
 This is the JAX package's ``ContinuousEngine`` with greedy decode,
 under every single-pass policy it takes (not ``gt_oracle``, which needs
 the response, nor ``full`` and the draft-based ``laq``/``speckv``, which
-cannot stream and go to ``BucketedEngine``).  Every other setting raises
+cannot stream and go to ``BucketedEngine``).  ``config.lkv_checkpoint``
+loads trained lookahead modules (``core.lookahead.load_lookahead_params``)
+and ``config.harvest`` (a ``data.harvest.HarvestWriter``) is called with
+every retired request.  Every other setting raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.  PyTorch
 runs eagerly, so there is no compile cache; on the card the attention
 kernels run through ``kernels/ops.py``.
@@ -83,6 +86,7 @@ import torch
 from repro_torch.common.config import EvictionConfig, ModelConfig
 from repro_torch.core import policies
 from repro_torch.core.eviction import select_topk
+from repro_torch.core.lookahead import load_lookahead_params
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import transformer as tf
 from repro_torch.serving.batching import (DEFAULT_BUCKETS, _batch_bucket,
@@ -302,8 +306,6 @@ def _reject_unported(config: ServingConfig) -> None:
     unported = [
         (config.prefix_cache is not None, "prefix cache: ROADMAP A7"),
         (config.sampling is not None, "sampling: ROADMAP A8"),
-        (config.harvest is not None or config.lkv_checkpoint is not None,
-         "harvest and lookahead checkpoints: ROADMAP A9"),
         (config.mesh is not None, "a device mesh: ROADMAP A11"),
         (config.trace is not None or config.drift is not None
          or config.sync_timers is not None,
@@ -377,6 +379,12 @@ class _SlotDecodeMixin:
                 sched.retire(r, now=now)
                 active[slot] = False
                 self._on_retire(slot, r)
+                # gt_oracle harvest: the retired request carries the very
+                # future the oracle policy needs (its generated tokens);
+                # engines without the hook have no ``harvest``
+                h = getattr(self, "harvest", None)
+                if h is not None:
+                    h.on_retire(r)
                 self._release_slot(slot)
 
     def _on_retire(self, slot: int, req: Request) -> None:
@@ -407,16 +415,26 @@ class ContinuousEngine(_SlotDecodeMixin):
                              "serves attention-only decoder archs; serve "
                              "the SSM and hybrid archs through the lockstep "
                              "ServingEngine")
+        self.device = torch.device(device)
+        if config.lkv_checkpoint:
+            if lkv_params is not None:
+                raise ValueError("pass trained modules either as lkv_params "
+                                 "or as config.lkv_checkpoint, not both")
+            lkv_params = load_lookahead_params(
+                config.lkv_checkpoint, cfg, params["layers"],
+                device=self.device)
         if config.policy == "lookaheadkv" and lkv_params is None:
             raise ValueError("lookaheadkv serving needs lookahead modules "
                              "(lkv_params)")
-        self.device = torch.device(device)
         pool = config.kv_pool
         if pool is not None and pool.device != self.device:
             raise ValueError(f"kv pool on {pool.device}, engine on "
                              f"{self.device}")
         self.config = config
         self.params, self.cfg, self.lkv_params = params, cfg, lkv_params
+        # gt_oracle capture hook (the harvest half of the learning loop,
+        # ``data/harvest.py``): called per retired request in ``_collect``
+        self.harvest = config.harvest
         self.policy = config.policy
         self.evict = config.evict
         self.num_slots = config.num_slots

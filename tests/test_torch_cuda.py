@@ -865,3 +865,65 @@ def test_wrappers_count_launches(dev):
     bc = _randn(g, (1, 40, 1, 16), torch.float32, dev)
     ops.ssd_scan(x, dt, A, bc, bc, chunk=32)
     assert ops.launch_counts()["ssd_scan"] == after["ssd_scan"] + 1
+
+
+# ---------------------------------------------------------------------------
+# the learning loop on the card: the gradient guard, reference_mode and a
+# checkpoint round trip
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("entry", ["flash", "lookahead", "chunk", "decode"])
+def test_requires_grad_on_the_card_raises_outside_reference_mode(dev, entry):
+    """A kernel has no backward: an entry point given a CUDA tensor that
+    requires a gradient raises (its result would drop the gradient) and
+    launches nothing; under ``reference_mode()`` the plain version runs
+    and the gradient arrives; under ``torch.no_grad()`` the kernel runs."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = _randn(g, (1, 40, 4, 32), torch.float32, dev).requires_grad_(True)
+    k = _randn(g, (1, 40, 2, 32), torch.float32, dev)
+    call = {
+        "flash": lambda q: ops.flash_attention(q, k, k),
+        "lookahead": lambda q: ops.lookahead_score(q[:, 32:], k, 32),
+        "chunk": lambda q: ops.chunk_attention(q[:, :8], k, k, q_offset=4),
+        "decode": lambda q: ops.decode_attention(q[:, 0], k, k),
+    }[entry]
+    before = ops.launch_counts()
+    with pytest.raises(RuntimeError, match="reference_mode"):
+        call(q)
+    assert ops.launch_counts() == before
+    with ops.reference_mode():
+        out = call(q)
+    assert ops.launch_counts() == before
+    (grad,) = torch.autograd.grad(out.float().sum(), q)
+    assert torch.isfinite(grad).all() and bool(grad.abs().sum() > 0)
+    with torch.no_grad():
+        call(q)
+    assert sum(ops.launch_counts().values()) == sum(before.values()) + 1
+
+
+def test_checkpoint_round_trips_on_the_card(dev, tmp_path):
+    """bf16, float32 and int32 leaves and an AdamState written from the
+    card and loaded back onto it, bit for bit."""
+    from repro_torch.checkpoint import io as ckpt
+    from repro_torch.optim import adam
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    lkv = {"emb": _randn(g, (8, 64), torch.float32, dev),
+           "lora": {"wq": {"a": _randn(g, (2, 64, 4), torch.bfloat16, dev),
+                           "b": _randn(g, (2, 4, 64), torch.float32, dev)}}}
+    st = adam.init(lkv)._replace(step=torch.tensor(7, dtype=torch.int32,
+                                                   device=dev))
+    tree = {"lkv": lkv, "opt": st}
+    p = str(tmp_path / "state.npz")
+    ckpt.save(p, tree, metadata={"step": 7})
+    back = ckpt.load(p, like=tree, device=dev)
+    want, got = ckpt._flatten(tree), ckpt._flatten(back)
+    assert list(want) == list(got)
+    for name in want:
+        a, b = want[name], got[name]
+        assert b.device.type == "cuda" and a.dtype == b.dtype, name
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8)), name
+    assert isinstance(back["opt"], adam.AdamState)
+    assert ckpt.metadata(p) == {"step": 7}

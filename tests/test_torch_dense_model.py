@@ -18,8 +18,12 @@ leaf for leaf) and the same numpy-seeded inputs go through both packages:
 * the slot surgery (``pad_cache_capacity``, ``insert_request_cache``,
   ``extract_request_cache``, ``select_cache_slots``).
 
-Tolerances: logits and K/V 1e-4 (float32, other summation orders); kept
-sets, positions, masks and cursors identical.
+* ``capture_scores`` (the GT pass, the lookahead pass, a policy's own
+  scores under eviction): the stacked per-layer scores.
+
+Tolerances: logits and K/V 1e-4 (float32, other summation orders),
+captured scores 1e-4 of each row's largest; kept sets, positions, masks
+and cursors identical.
 """
 
 import dataclasses
@@ -121,8 +125,56 @@ def test_prefill_refuses_unported_options(model):
                          prompt_lens=torch.tensor([5]))
     exact = ttf.prefill(model["tp"], model["tcfg"], tok[:, :5])
     torch.testing.assert_close(padded.logits, exact.logits, **TOL)
-    with pytest.raises(NotImplementedError, match="A9"):
+    # score capture is served (next test); without an observation source
+    # it has nothing to score, and encoder inputs are ROADMAP A10
+    with pytest.raises(ValueError, match="capture_scores needs"):
         ttf.prefill(model["tp"], model["tcfg"], tok, capture_scores=True)
+    with pytest.raises(NotImplementedError, match="A10"):
+        ttf.prefill(model["tp"], model["tcfg"], tok, capture_scores=True,
+                    gt_boundary=4, encoder_embeds=torch.zeros(1, 2, 128))
+
+
+@pytest.mark.parametrize("kind", ["gt_oracle", "lookaheadkv", "snapkv"])
+def test_prefill_capture_scores_match_jax(model, kind):
+    """``capture_scores``: every layer's per-q-head scores (L, B, H, n)
+    equal JAX's: the GT pass (``gt_boundary``, no policy), the lookahead
+    pass (``lkv_params``, no policy) and a policy's own scores under
+    eviction (snapkv, logits and cache as without capture)."""
+    rng = np.random.default_rng(17)
+    tokens = rng.integers(0, 512, (2, 44)).astype(np.int32)
+    kw = {"gt_oracle": dict(gt_boundary=36),
+          "lookaheadkv": dict(lkv_params=True),
+          "snapkv": dict(policy="snapkv", extra_slots=3)}[kind]
+
+    def run(pkg, params, cfg, lkv, evict):
+        args = dict(kw)
+        if "lkv_params" in args:
+            args["lkv_params"] = lkv
+        if "policy" in args:
+            args["evict"] = evict(budget=16)
+        return pkg.prefill(params, cfg, tokens if pkg is jtf else
+                           torch.from_numpy(tokens), capture_scores=True,
+                           **args)
+
+    jr = run(jtf, model["jp"], model["jcfg"], model["jl"], JEvict)
+    tr = run(ttf, model["tp"], model["tcfg"], model["tl"], TEvict)
+    want = np.asarray(jr.scores)
+    n = {"gt_oracle": 36, "lookaheadkv": 44, "snapkv": 44 - 8}[kind]
+    assert tr.scores.shape == want.shape == (2, 2, 4, n)
+    assert tr.scores.dtype == torch.float32
+    # each score within 1e-4 of its (layer, batch, head) row's largest
+    # (the file's float32 tolerance; the lookahead rows' LoRA amplifies
+    # layer 0's rounding into a 2e-5 difference on one row of layer 1)
+    err = np.abs(tr.scores.numpy() - want)
+    assert np.all(err <= 1e-4 * np.abs(want).max(-1, keepdims=True))
+    if kind == "snapkv":
+        plain = ttf.prefill(model["tp"], model["tcfg"],
+                            torch.from_numpy(tokens), policy="snapkv",
+                            evict=TEvict(budget=16), extra_slots=3)
+        assert plain.scores is None
+        torch.testing.assert_close(tr.logits, plain.logits, rtol=0, atol=0)
+        for f in ("mask", "pos"):
+            assert torch.equal(tr.cache["attn"][f], plain.cache["attn"][f])
 
 
 def test_monolithic_prefill_matches_chunked(model):

@@ -1,9 +1,10 @@
 """Import hygiene of the PyTorch port, and its copy of the configs.
 
-The port imports ``torch`` and numpy, never ``jax`` and nothing of the
-JAX package ``repro`` (not even its stdlib-only config modules): a fresh
-interpreter that imports every module of ``repro_torch``, ``chip_smoke``
-and ``chip_ab`` must end with neither in ``sys.modules``.  The port keeps
+The port imports ``torch`` and numpy, never ``jax``, ``ml_dtypes`` or
+anything of the JAX package ``repro`` (not even its stdlib-only config
+modules): a fresh interpreter that imports every module of
+``repro_torch`` (the learning loop's among them), ``chip_smoke`` and
+``chip_ab`` must end with none of them in ``sys.modules``.  The port keeps
 its own copy of the configs instead, which must equal the JAX package's
 field by field.
 """
@@ -31,21 +32,30 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 import chip_smoke
 import chip_ab
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if n.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 print("MODULES", len([n for n in sys.modules if n.startswith("repro_torch")]))
 print("BAD", bad)
+print("MISSING", sorted(set(LEARNING_LOOP) - set(sys.modules)))
 """
+
+# the learning loop's modules (ROADMAP A9), which the sweep must reach
+LEARNING_LOOP = ("repro_torch.checkpoint.io", "repro_torch.core.objective",
+                 "repro_torch.optim.adam", "repro_torch.data.synthetic",
+                 "repro_torch.data.harvest", "repro_torch.launch.steps",
+                 "repro_torch.launch.train")
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
-    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+    probe = f"LEARNING_LOOP = {LEARNING_LOOP!r}\n" + _PROBE
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     lines = dict(line.split(" ", 1) for line in res.stdout.splitlines())
     assert int(lines["MODULES"]) >= 20
     assert lines["BAD"] == "[]", lines["BAD"]
+    assert lines["MISSING"] == "[]", lines["MISSING"]
 
 
 def test_port_sources_name_no_jax_import():
@@ -55,6 +65,7 @@ def test_port_sources_name_no_jax_import():
         for line in f.read_text().splitlines():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax",
+                                     "import ml_dtypes", "from ml_dtypes",
                                      "import repro.", "from repro.",
                                      "from repro import")), f"{f}: {s}"
 

@@ -1,6 +1,9 @@
 """The port's serving stack on the CPU: the block-pool allocator, the
 paged continuous-batching engine end to end against the JAX package's
-paged ``ContinuousEngine``, and the settings the port refuses.
+paged ``ContinuousEngine``, the learning loop's two engine settings (the
+harvest hook writes a record per retired request, a lookahead checkpoint
+serves like the same modules in memory), and the settings the port
+refuses.
 
 End to end: the same float32 smoke model (JAX parameters bridged) serves
 the same mixed-length trace — prompts shorter than the budget, not
@@ -15,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from conftest import sweep_cases
 from repro.common.config import EvictionConfig as JEvict
@@ -27,9 +31,13 @@ from repro.serving import KVBlockPool as JPool
 from repro.serving import Request as JRequest
 from repro.serving import ServingConfig as JServing
 from repro_torch import bridge
+from repro_torch.checkpoint import io as tckpt
 from repro_torch.common.config import EvictionConfig
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.lookahead import init_lookahead_params
+from repro_torch.data.harvest import HarvestConfig, HarvestWriter, load_records
 from repro_torch.launch import serve
+from repro_torch.models import transformer as ttf
 from repro_torch.serving import (ChunkingConfig, ContinuousEngine,
                                  KVBlockPool, Request, ServingConfig)
 
@@ -201,9 +209,7 @@ def test_engine_matches_jax_paged_engine():
 @pytest.mark.parametrize("change,exc,item", [
     # the draft-based policies cannot stream: the JAX engine's words
     (dict(policy="laq"), ValueError, "cannot stream; use BucketedEngine"),
-    (dict(harvest=object()), NotImplementedError, "A9"),
     (dict(policy="speckv"), ValueError, "cannot stream; use BucketedEngine"),
-    (dict(lkv_checkpoint="lookahead.npz"), NotImplementedError, "A9"),
     (dict(prefix_cache=object()), NotImplementedError, "A7"),
     (dict(sampling=object()), NotImplementedError, "A8"),
     (dict(mesh=object()), NotImplementedError, "A11"),
@@ -215,6 +221,71 @@ def test_engine_refuses_unported_settings(change, exc, item):
     with pytest.raises(exc, match=item):
         ContinuousEngine({}, cfg, sc.replace(**change), lkv_params={},
                          device="cpu")
+
+
+def _smoke_model(seed=0):
+    cfg = _cfg()
+    params = ttf.init_params(cfg, seed=seed, device="cpu")
+    lkv = init_lookahead_params(torch.Generator().manual_seed(seed + 1), cfg,
+                                params["layers"])
+    # LoRA b starts at zero; draw it so that the modules matter
+    gen = torch.Generator().manual_seed(seed + 2)
+    for ad in lkv["lora"]["attn"].values():
+        ad["b"] = torch.randn(ad["b"].shape, generator=gen) * 0.05
+    return cfg, params, lkv
+
+
+def _smoke_requests(cfg, lens=(37, 11, 50), max_new=4):
+    rng = np.random.default_rng(4)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(
+        np.int32), max_new_tokens=max_new) for i, n in enumerate(lens)]
+
+
+def test_engine_harvest_hook_writes_a_record_per_request(tmp_path):
+    """``ServingConfig.harvest``: a ``HarvestWriter`` receives every
+    retired request and writes one gt_oracle record for it (prompt, the
+    tokens served, the oracle scores over them)."""
+    cfg, params, lkv = _smoke_model()
+    writer = HarvestWriter(params, cfg, HarvestConfig(out_dir=str(tmp_path),
+                                                      max_obs=3))
+    sc = ServingConfig(evict=EvictionConfig(budget=16),
+                       chunking=ChunkingConfig(chunk=16, max_context=64),
+                       num_slots=2, max_new_tokens=4, eos_id=-1,
+                       harvest=writer)
+    reqs = _smoke_requests(cfg)
+    done = ContinuousEngine(params, cfg, sc, lkv_params=lkv,
+                            device="cpu").run(reqs)
+    writer.flush()
+    records = load_records(str(tmp_path))
+    assert writer.records_written == len(records) == len(done) == 3
+    by_prompt = {r.prompt.tobytes(): r for r in done}
+    for rec in records:
+        r = by_prompt[rec["x"].tobytes()]
+        assert rec["y"].tolist() == r.out_tokens[:3]
+        assert rec["s"].shape == (cfg.num_layers, cfg.attn.num_heads,
+                                  len(r.prompt))
+        assert np.isfinite(rec["s"]).all()
+
+
+def test_engine_lkv_checkpoint_serves_like_lkv_params(tmp_path):
+    """``ServingConfig.lkv_checkpoint``: modules saved by the port's
+    checkpoint writer serve the tokens the same modules give as
+    ``lkv_params``; passing both raises."""
+    cfg, params, lkv = _smoke_model()
+    path = str(tmp_path / "lkv.npz")
+    tckpt.save(path, lkv)
+    sc = ServingConfig(evict=EvictionConfig(budget=16),
+                       chunking=ChunkingConfig(chunk=16, max_context=64),
+                       num_slots=2, max_new_tokens=5, eos_id=-1)
+    want = ContinuousEngine(params, cfg, sc, lkv_params=lkv,
+                            device="cpu").run(_smoke_requests(cfg, max_new=5))
+    got = ContinuousEngine(params, cfg, sc.replace(lkv_checkpoint=path),
+                           device="cpu").run(_smoke_requests(cfg, max_new=5))
+    assert {r.uid: r.out_tokens for r in got} == {
+        r.uid: r.out_tokens for r in want}
+    with pytest.raises(ValueError, match="not both"):
+        ContinuousEngine(params, cfg, sc.replace(lkv_checkpoint=path),
+                         lkv_params=lkv, device="cpu")
 
 
 def test_serve_launcher_on_cpu(capsys):
