@@ -2543,12 +2543,23 @@ def phase_gt_plain(torch, mods, params, cfg, records) -> None:
           "tolerance of its plain version")
 
 
+#: 5b's fixed-batch check: one step from the trainer's initial modules at
+#: each of these rates, then three steps at the largest one whose step
+#: lowered the loss.  Adam's first step moves every element by the rate
+#: (a sign step): at 1e-3, the trainer's default, the first step raised
+#: the loss 4x at full width (call 1), while a rate much below 1e-4 moves
+#: the LoRA's output below the bf16 resolution of the projections.
+FIXED_BATCH_LRS = (1e-3, 1e-4, 1e-5)
+
+
 def phase_fixed_batch(torch, mods, params, cfg, lkv0) -> None:
     """5b, first half: each pass's launches apart (the GT pass kernels 7
     and 3 once per layer; the lookahead pass, forward and backward, none),
-    then three ``make_train_step`` calls on one fixed batch (B 1 x (1024 +
-    64)) from the trainer's initial modules must lower that batch's
-    loss."""
+    then on one fixed batch (B 1 x (1024 + 64)) from the trainer's initial
+    modules: one ``make_train_step`` call at each rate of
+    ``FIXED_BATCH_LRS``, then three calls at the largest rate whose one
+    step lowered the loss must lower it (a correct gradient lowers it at
+    some small enough rate)."""
     import numpy as np
 
     obj, ops, steps = mods["objective"], mods["ops"], mods["steps"]
@@ -2570,19 +2581,28 @@ def phase_fixed_batch(torch, mods, params, cfg, lkv0) -> None:
     print(f"  launches: GT pass {gt}; lookahead pass with its backward {la}")
     check(gt == want_gt, f"5b: GT pass launches {gt}, expected {want_gt}")
     check(sum(la.values()) == 0, f"5b: the lookahead pass launched {la}")
-    step = steps.make_train_step(cfg, mods["TrainConfig"](
-        steps=4, lr=1e-3, batch_size=1, n_in=1024, n_out=64, seed=SEED))
-    lv, opt, losses = lkv0, mods["adam"].init(lkv0), []
-    for _ in range(3):
-        lv, opt, loss, _ = step(params, lv, opt, batch)
-        losses.append(float(loss))
-    with torch.no_grad():
-        after = float(obj.lkv_loss(params, cfg, lv, batch["x"], batch["xy"],
-                                   1024)[0])
-    print(f"  one fixed batch: loss {losses} at the three steps, {after} "
-          f"after the third update: falls {after < losses[0]}")
-    check(all(math.isfinite(x) for x in losses + [after]),
-          "5b: a non-finite loss on the fixed batch")
+    def train(lr, n):
+        step = steps.make_train_step(cfg, mods["TrainConfig"](
+            steps=4, lr=lr, batch_size=1, n_in=1024, n_out=64, seed=SEED))
+        lv, opt, losses = lkv0, mods["adam"].init(lkv0), []
+        for _ in range(n):
+            lv, opt, loss, _ = step(params, lv, opt, batch)
+            losses.append(float(loss))
+        with torch.no_grad():
+            after = float(obj.lkv_loss(params, cfg, lv, batch["x"],
+                                       batch["xy"], 1024)[0])
+        check(all(math.isfinite(x) for x in losses + [after]),
+              "5b: a non-finite loss on the fixed batch")
+        return losses, after
+
+    one = {lr: train(lr, 1) for lr in FIXED_BATCH_LRS}
+    print("  one fixed batch, one step from the initial modules: " + "; ".join(
+        f"lr {lr:g}: {b[0][0]:.6f} -> {b[1]:.6f}" for lr, b in one.items()))
+    falls = [lr for lr, (b, after) in one.items() if after < b[0]]
+    check(bool(falls), "5b: no rate's step lowered the fixed batch's loss")
+    losses, after = train(max(falls), 3)
+    print(f"  three steps at lr {max(falls):g}: loss {losses}, {after} after "
+          f"the third update: falls {after < losses[0]}")
     check(after < losses[0], f"5b: the fixed batch's loss did not fall "
           f"({losses[0]} -> {after})")
 
