@@ -98,7 +98,13 @@ kernel's plain version):
    identical, and the padded lookaheadkv tokens must equal each
    request's batch-1 lockstep run on the card.  Then the SSM archs: hymba-smoke's
    lockstep engine under lookaheadkv and h2o, and mamba2-smoke's prefill
-   and 8 decode steps; greedy tokens identical, kernel 8 launched.
+   and 8 decode steps; greedy tokens identical, kernel 8 launched.  Then
+   the learning loop at llama3-8b smoke width in float32: three
+   ``make_train_step`` steps on the same synthetic batches on the card
+   and on the CPU (losses within 1e-4 relative, lkv leaves within
+   ``LOOP_LEAF_REL`` of their largest magnitude, kernels 7 and 3 only in
+   the GT pass), and ``launch/train.py`` killed after step 2 and resumed
+   on the card, bit-exact against the straight run.
 3. Serve llama3-8b at full width (random weights and lookahead modules
    from the seed; policy lookaheadkv unless named, budget 256) through
    ``repro_torch.launch.serve`` by each of its routes, with the launch
@@ -155,6 +161,30 @@ kernel's plain version):
    launches per call (kernels 2 and 3 two, kernel 8 three, the others
    one; a merge of split keys apart); on a mismatch (a trace that lost
    events) the work is profiled again once, then the phase fails.
+
+5. The learning loop on llama3-8b at full width (random weights and
+   lookahead modules from the seed; ``phase_learning_loop``):
+   a. ``harvest_trace`` of 8 requests (prompts of 257-589 tokens, h2o,
+      budget 256, chunk 256, 16 new, 4 dense slots), then the GT pass
+      per record: kernel 2 once per layer per prefill chunk, kernel 6 per
+      layer per decode step, kernels 7 and 3 per layer per record,
+      exactly; serve seconds and GT ms per record;
+   e. on two of its records, the GT pass on kernels 7 and 3 against the
+      same pass on the plain versions (``reference_mode()``), per (layer,
+      head) row of L1-normalised scores (``GT_KL``, ``GT_DP0``,
+      ``GT_DP``);
+   b. each pass's launches apart (GT: kernels 7 and 3 per layer; the
+      lookahead pass and its backward: none), a fixed batch's loss
+      lowered by three steps (``FIXED_BATCH_LRS``), then
+      ``launch/train.py`` for 4 steps of B 1 x (1024 + 64): exactly 32
+      launches each of kernels 7 and 3 per step, finite losses, nonzero
+      gradient norms, every lkv leaf moved, the checkpoint bit-exact on
+      reload; ms per step and peak memory;
+   c. ``launch/train.py --harvest`` on (a)'s records, 4 steps of B 2: no
+      kernel launch;
+   d. ``serve --lkv-ckpt`` with (b)'s checkpoint, lockstep 4 x 1024, 8 new:
+      kernels 7, 3 and 6 exactly 32, 32 and 256 times, and the tokens of
+      a ``ServingEngine`` given (b)'s modules in memory.
 
 Output: per-phase lines, then a JSON line of per-kernel numbers, the
 card's name and power limit, and as the last line

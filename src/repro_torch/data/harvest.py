@@ -224,7 +224,8 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = tf.init_params(cfg, seed=args.seed, device=args.device)
     lkv = None
-    if args.policy == "lookaheadkv" and cfg.technique_applies and cfg.lookahead:
+    if (args.policy == "lookaheadkv" and cfg.technique_applies
+            and cfg.lookahead):
         gen = torch.Generator(device=args.device).manual_seed(args.seed + 1)
         lkv = init_lookahead_params(gen, cfg, params["layers"])
     w = harvest_trace(params, cfg, out_dir=args.out, requests=args.requests,

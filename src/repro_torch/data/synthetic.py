@@ -120,9 +120,9 @@ class MixtureIterator:
 
     When ``gen_params`` are given, Y is generated by the target model
     (greedily; a temperature above 0 raises, ROADMAP A8) as in the paper,
-    and the stream still spends the JAX package's key draw; otherwise the synthetic answers
-    (padded/truncated to n_out) are used — the paper's §D "source response"
-    ablation setting.
+    and the stream still spends the JAX package's key draw; otherwise
+    the synthetic answers (padded/truncated to n_out) are used — the
+    paper's §D "source response" ablation setting.
     """
 
     def __init__(

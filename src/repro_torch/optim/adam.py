@@ -47,12 +47,12 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
 
 
 def init(params: Any) -> AdamState:
-    zeros = lambda t: _map(  # noqa: E731
-        lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device),
-        t)
+    def zeros(x):
+        return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+
     dev = leaves(params)[0].device
     return AdamState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                     mu=zeros(params), nu=zeros(params))
+                     mu=_map(zeros, params), nu=_map(zeros, params))
 
 
 def cosine_lr(step: torch.Tensor, tc: TrainConfig) -> torch.Tensor:
@@ -98,14 +98,6 @@ def update(params: Any, grads: Any, state: AdamState, tc: TrainConfig
         new_p = p.to(torch.float32) - lr * mhat / (_sqrt(vhat) + eps)
         return new_p.to(p.dtype), m, v
 
-    out = _map(upd, params, grads, state.mu, state.nu)
-    return _pick(out, 0), AdamState(step + 1, _pick(out, 1),
-                                    _pick(out, 2)), {
-        "lr": lr, "grad_norm": gnorm}
-
-
-def _pick(tree, i: int):
-    """Field ``i`` of every (param, mu, nu) leaf tuple of ``tree``."""
-    if isinstance(tree, dict):
-        return {k: _pick(v, i) for k, v in tree.items()}
-    return tree[i]
+    out = _map(upd, params, grads, state.mu, state.nu)  # (p, m, v) leaves
+    p, m, v = (_map(lambda o, i=i: o[i], out) for i in range(3))
+    return p, AdamState(step + 1, m, v), {"lr": lr, "grad_norm": gnorm}

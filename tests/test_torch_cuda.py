@@ -30,6 +30,11 @@ magnitude, the final state within 2^-12 of its largest plain magnitude
 every float32 operand as bf16 hi + lo, ~2^-17 of it, and the two prefix
 sums of the log-decays take other orders, so near-diagonal decays
 exp(L_t - L_s) of large L inherit their ~1e-5 absolute difference).
+
+The learning loop's card cases: a kernel entry given a CUDA tensor that
+requires a gradient raises and launches nothing, ``reference_mode()``
+runs the plain version with its gradient, and a checkpoint written from
+the card loads back onto it bit for bit.
 """
 
 import numpy as np

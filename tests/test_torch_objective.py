@@ -44,7 +44,6 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import objective as tobj
 from repro_torch.kernels import ops
 from repro_torch.launch import steps
-from repro_torch.models import transformer as ttf
 from repro_torch.optim import adam as tadam
 
 N_IN, N_OUT, B = 40, 8, 2
