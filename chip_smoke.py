@@ -2470,10 +2470,9 @@ def phase_harvest(torch, mods, params, cfg, out_dir: str) -> int:
     engines, gt_s = [], [0.0]
     real_engine, real_gt = sv.ContinuousEngine, hv.HarvestWriter.gt_record
 
-    class Recorded(real_engine):  # keeps the engine for its counts
-        def __init__(self, *args, **kw):
-            super().__init__(*args, **kw)
-            engines.append(self)
+    def recorded(*args, **kw):  # keeps the engine for its counts
+        engines.append(real_engine(*args, **kw))
+        return engines[-1]
 
     def timed_gt(self, x, y):
         t = time.perf_counter()
@@ -2481,7 +2480,7 @@ def phase_harvest(torch, mods, params, cfg, out_dir: str) -> int:
         gt_s[0] += time.perf_counter() - t
         return out
 
-    sv.ContinuousEngine, hv.HarvestWriter.gt_record = Recorded, timed_gt
+    sv.ContinuousEngine, hv.HarvestWriter.gt_record = recorded, timed_gt
     try:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -2744,6 +2743,7 @@ def phase_learning_loop(torch, mods, header) -> None:
     of 128, bf16, random weights from the seed, modules from
     ``init_lookahead_params``): 5a, 5e and the first half of 5b on one set
     of weights, then 5b's trainer, 5c and 5d, which build their own."""
+    import gc
     import tempfile
 
     cfg = mods["configs"].get_config("llama3-8b")
@@ -2760,7 +2760,10 @@ def phase_learning_loop(torch, mods, header) -> None:
         header("phase 5b: train at full width: each pass's launches and a "
                "fixed batch")
         phase_fixed_batch(torch, mods, params, cfg, lkv0)
+        # 5b's peak must not count these weights: free them now, not at
+        # the collector's next pass
         del params
+        gc.collect()
         torch.cuda.empty_cache()
         header("phase 5b: launch/train.py on the synthetic mixture")
         trained = phase_train(torch, mods, cfg, lkv0, f"{d}/lkv.npz")
