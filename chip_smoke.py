@@ -2576,8 +2576,8 @@ def phase_gt_plain(torch, mods, params, cfg, records) -> None:
 #: each of these rates, then three steps at the largest one whose step
 #: lowered the loss.  Adam's first step moves every element by the rate
 #: (a sign step): at 1e-3, the trainer's default, the first step raised
-#: the loss 4x at full width (call 1), while a rate much below 1e-4 moves
-#: the LoRA's output below the bf16 resolution of the projections.
+#: the loss 4x at full width on an H100, while a rate much below 1e-4
+#: moves the LoRA's output below the bf16 resolution of the projections.
 FIXED_BATCH_LRS = (1e-3, 1e-4, 1e-5)
 
 

@@ -1,6 +1,6 @@
 """The port's distillation objective and optimizer against the JAX
 package's, on the CPU, below the JAX trainer's ``train.main`` (which
-fails on this box under its host mesh).
+fails on a CPU host under its host mesh).
 
 The same float32 llama3-8b smoke model (JAX parameters bridged, LoRA ``b``
 drawn so that every leaf has a gradient) and the same numpy-seeded

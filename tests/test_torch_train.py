@@ -1,6 +1,6 @@
 """The port's trainer and the serve half of the learning loop, on the CPU.
 
-The JAX trainer's ``train.main`` fails on this box under its host mesh,
+The JAX trainer's ``train.main`` fails on a CPU host under its host mesh,
 so it is not the oracle here: the port's ``launch/train.py`` is held to
 its own gates (the loss falls, checkpoints round-trip, a killed and
 resumed run is bit-exact), and the serve half is held to the JAX
