@@ -6,9 +6,10 @@ file written by either package loads in the other bit for bit: a
 (stored as their uint16 bits, no ``ml_dtypes`` in the port), keys that
 hold ``__`` or look like the sentinels, metadata, and the trainer state
 ``{"lkv", "opt": AdamState}`` (the NamedTuple as the tuple of its
-fields).  A tree that does not match the file raises, and
-``load_lookahead_params`` takes both layouts the trainers write.  No JAX
-compile: only ``jax.numpy`` arrays and the JAX checkpoint module.
+fields).  A tree that does not match the file raises, a file of the
+older mangled-key layout loads, and ``load_lookahead_params`` takes both
+layouts the trainers write.  No JAX compile: only ``jax.numpy`` arrays
+and the JAX checkpoint module.
 """
 
 import dataclasses
@@ -173,3 +174,29 @@ def test_load_lookahead_params_both_layouts(tmp_path):
     assert a["emb"].device.type == "cpu"
     assert lookahead_count(a) == sum(int(x.size)
                                      for x in jax.tree.leaves(lkv))
+
+
+def test_legacy_layout_loads(tmp_path):
+    """A file of the older layout (path keys mangled "/" -> "__" into the
+    member names, no ``__keys__`` manifest, no metadata) loads by its
+    unmangled paths, bf16 included."""
+    import json
+
+    w = np.arange(6, dtype=np.float32).reshape(2, 3)
+    bf = bridge.to_torch({"x": np.asarray(jnp.asarray(w, jnp.bfloat16))},
+                         device="cpu")["x"]
+    arrays = {"lora__wq__a": w,
+              "emb": bf.view(torch.int16).numpy().view(np.uint16),
+              "__dtypes__": np.frombuffer(json.dumps(
+                  {"lora/wq/a": "float32", "emb": "bfloat16"}).encode(),
+                  dtype=np.uint8)}
+    p = str(tmp_path / "legacy.npz")
+    np.savez(p, **arrays)
+    flat = tckpt.load(p)
+    assert set(flat) == {"lora/wq/a", "emb"}
+    back = tckpt.load(p, like={"emb": torch.zeros(2, 3),
+                               "lora": {"wq": {"a": torch.zeros(2, 3)}}})
+    assert back["emb"].dtype == torch.bfloat16
+    assert torch.equal(back["emb"].view(torch.int16), bf.view(torch.int16))
+    np.testing.assert_array_equal(back["lora"]["wq"]["a"].numpy(), w)
+    assert tckpt.metadata(p) == {}
