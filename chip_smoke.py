@@ -55,7 +55,9 @@ kernel's plain version):
    attention and for the row masses, over the whole result for the
    scores.  Kernel 5's output must be bitwise kernel 4's, kernel 2's
    kernel 1's, and kernel 2's column masses must sum to the counted
-   rows.  Kernels 3, 6 and 7 also at hymba-1.5b's attention shape (25 q /
+   rows and be exactly +0.0 in every column no counted row reaches (the
+   prefix cache's snapshot of h2o's accumulator relies on it; also at a
+   chunk before the last, C 256 at 768 of 4096).  Kernels 3, 6 and 7 also at hymba-1.5b's attention shape (25 q /
    5 kv heads of 64, window 1024 on its local layers, none on its global
    ones; kernel 7 timed there too, against SDPA with ``is_causal`` and
    with an explicit window mask); kernel 7 at the edges of its 128-row,
@@ -104,7 +106,17 @@ kernel's plain version):
    and on the CPU (losses within 1e-4 relative, lkv leaves within
    ``LOOP_LEAF_REL`` of their largest magnitude, kernels 7 and 3 only in
    the GT pass), and ``launch/train.py`` killed after step 2 and resumed
-   on the card, bit-exact against the straight run.
+   on the card, bit-exact against the straight run.  The prefix cache
+   and sampling (``phase_prefix_sampling_parity``, run after the engines):
+   four requests sharing a 2-chunk prefix through the paged engine with
+   a pool-pinned cache and the dense engine with private copies, under
+   lookaheadkv and h2o (tokens, kept sets and hit counts identical card /
+   CPU, and equal to the card's run without the cache); a pool tight
+   enough that cached blocks are reclaimed (the count printed, > 0); the
+   paged engine sampling with ``SAMPLING`` (card tokens equal CPU tokens,
+   a difference allowed only where the card's top two perturbed logits
+   lie within ``SAMPLE_LOGIT_TOL``); and sampled on a pool small enough
+   to preempt, the tokens of the unpreempted run.
 3. Serve llama3-8b at full width (random weights and lookahead modules
    from the seed; policy lookaheadkv unless named, budget 256) through
    ``repro_torch.launch.serve`` by each of its routes, with the launch
@@ -147,7 +159,22 @@ kernel's plain version):
       --prompt-lens 512,700,900,1024 (BucketedEngine: 512 fills its
       bucket, the other three one group padded to 1024): two prefill
       groups, kernel 7 exactly 64 times (32 under the key mask) and
-      kernel 6 992, no kernel 1, 2 or 3.
+      kernel 6 992, no kernel 1, 2 or 3;
+   l. paged continuous prefix (``PREFIX_CELL``): --kv-pool-mb 2048
+      --prefix-cache-mb 1024 --shared-prefix 1024 --prompt-lens
+      1024,2048,2048,3008 --n-in 4096 (prompts of 2048-4032 tokens, all
+      in the 4096 rung), served with the cache and then without it: 3
+      hits of depth 1024, kernel 1 exactly 384 (3 x 4 chunks x 32 layers)
+      times fewer, kernel 3 as often, tokens and admission kept sets
+      identical; TTFT per request, hits and misses marked, and of one
+      more request alone on each engine (host clock); run after 3g;
+   m. paged continuous sampled: 3a's engine shape, weights and prompts
+      through ``ContinuousEngine`` under ``Sampling(0.7, 50, 0.9)``
+      (the launcher has no sampling flag), seeded requests, served twice:
+      3a's launches exactly, identical tokens, some request's tokens not
+      3a's greedy ones; its decode ms/step beside 3a's (run after 4a),
+      and (4m) one sampled decode chunk alone under the profiler, its
+      launches per step beside 4a's.
 4. Where the time goes, with torch.profiler: (a) one more 2048-token
    request on the engine of 3a, then one decode chunk alone; (b) one
    more lockstep batch on the engine of 3b; (c) on the engine of 3d,
@@ -536,7 +563,11 @@ def phase_kernels(torch, mods) -> list:
         logits and exponentials, a few float32 ulps apart, and sum them
         over rows in other orders); exact zeros where the plain masses
         are; every row summing to the number of counted rows within
-        1e-4 of it."""
+        1e-4 of it; and every column no counted row reaches (from
+        ``min(off + C, n_total)`` on) exactly +0.0, sign bit clear: the
+        prefix cache snapshots h2o's accumulator at a chunk boundary and
+        restores it with +0.0 padding, which is sound only if no chunk
+        adds anything else there."""
         KVs, hds = kv_hd
         mk = (lambda *shape: torch.randn(shape, generator=g,
                                          device=dev).to(dtype))
@@ -554,6 +585,12 @@ def phase_kernels(torch, mods) -> list:
                          f"chunk_attention_masses {label} masses")
         check(bool(torch.all(m_got[m_want == 0] == 0)),
               f"chunk_attention_masses {label}: an unseen key has mass")
+        past = m_got[..., min(off + C, n_total):]
+        check(bool(torch.all((past == 0) & ~torch.signbit(past))),
+              f"chunk_attention_masses {label}: a column past the causal "
+              "range is not exactly +0.0")
+        print(f"  chunk_attention_masses {label}: {past.shape[-1]} columns "
+              "past the causal range, every one +0.0")
         n_rows = float(rv[0].sum())
         dev_sum = float((m_got.sum(-1) - n_rows).abs().max())
         print(f"  chunk_attention_masses {label}: out bitwise kernel 1's; "
@@ -593,6 +630,10 @@ def phase_kernels(torch, mods) -> list:
                               "C=256 K=4096 off=3840 n_total=4000",
                               timed=True)
     masses_chunk_case(1, 256, 4096, 0, 4000, None, "first chunk off=0")
+    # a chunk before the last at 3l's shape: the boundary the prefix cache
+    # snapshots, 3072 columns still untouched
+    masses_chunk_case(1, 256, 4096, 768, 4032, None,
+                      "chunk before the last off=768 n_total=4032")
     masses_chunk_case(2, 100, 1000, 700, 790, None, "K=1000 (ragged tile)")
     masses_chunk_case(1, 256, 1000, 500, 1000, 96, "window 96")
     masses_chunk_case(1, 64, 300, 200, 260, None, "G=1 (H=8)", Hq=8)
@@ -1557,6 +1598,186 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
                   f"{got_counts['prefill_groups']} prefill groups)")
 
 
+#: phase 2's sampling settings and its logit tolerance: a sampled token
+#: may differ between card and CPU only where the top two perturbed logits
+#: (Gumbel noise plus filtered logits over the temperature) of its draw lie
+#: closer than this on the card
+SAMPLING = (0.7, 50, 0.9)
+SAMPLE_LOGIT_TOL = 1e-3
+
+
+def recorded_draws(pol, ev):
+    """Wrap ``policies.fold_keys`` and ``policies.sample_logits`` so that
+    each draw is recorded as {(seed, position): (id, gap between its top
+    two perturbed logits)}, the first draw of a pair kept.  Returns (the
+    record, a function that unwraps)."""
+    draws, last = {}, {}
+    fold, sample = pol.fold_keys, pol.sample_logits
+
+    def fold_keys(seeds, positions):
+        last["pairs"] = list(zip(seeds.tolist(), positions.tolist()))
+        return fold(seeds, positions)
+
+    def sample_logits(logits, keys, *, temperature=1.0, top_k=0, top_p=1.0):
+        ids = sample(logits, keys, temperature=temperature, top_k=top_k,
+                     top_p=top_p)
+        x = pol.filter_logits(logits.float() / temperature, top_k=top_k,
+                              top_p=top_p)
+        noisy = ev.gumbel(keys, tuple(x.shape[1:])) + x
+        top2 = noisy.topk(2, dim=-1).values
+        for pair, i, gap in zip(last["pairs"], ids.tolist(),
+                                (top2[:, 0] - top2[:, 1]).tolist()):
+            draws.setdefault(pair, (i, gap))
+        return ids
+
+    def unwrap():
+        pol.fold_keys, pol.sample_logits = fold, sample
+
+    pol.fold_keys, pol.sample_logits = fold_keys, sample_logits
+    return draws, unwrap
+
+
+def phase_prefix_sampling_parity(torch, mods, devices=("cuda", "cpu")
+                                 ) -> None:
+    """The prefix cache and sampling on the llama3-8b smoke model in
+    float32, ``devices[0]`` (the card) against ``devices[1]`` (the CPU).
+    Four requests share a 2-chunk (64-token) prefix, one of them being
+    exactly the prefix: the paged engine with a pool-pinned cache and the
+    dense engine with private copies, under lookaheadkv and h2o, must give
+    identical tokens, kept sets and cache counts on both, and on the card
+    the tokens and kept sets of the same engine without the cache.  A pool
+    too small for the cached prefixes and the live requests must reclaim
+    cached blocks (count > 0).  Sampled (``SAMPLING``, seeded requests):
+    card tokens equal CPU tokens, a difference allowed only at a draw
+    whose top two perturbed logits lie within ``SAMPLE_LOGIT_TOL`` on the
+    card; and on a pool small enough to preempt, the card replays the
+    tokens of its unpreempted run."""
+    import dataclasses
+
+    import numpy as np
+
+    cfg = dataclasses.replace(mods["configs"].get_smoke_config("llama3-8b"),
+                              dtype="float32")
+    tf, sv, pol = mods["tf"], mods["serving"], mods["policies"]
+    params = tf.init_params(cfg, seed=SEED, device="cpu")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    lkv = mods["lookahead"].init_lookahead_params(gen, cfg, params["layers"])
+    rng = np.random.default_rng(SEED + 3)
+    shared = rng.integers(0, cfg.vocab_size, 64).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32)]) for n in (23, 40, 0, 57)]
+    burst = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+             for n in (40, 27, 33, 45, 29, 36)]
+    sampling = sv.Sampling(*SAMPLING)
+
+    def kept(adm):  # (L, 1, C, KV) -> {(layer, head): positions}
+        m, p = adm["mask"][:, 0], adm["pos"][:, 0]
+        return {(lyr, h): frozenset(p[lyr, m[lyr, :, h], h].tolist())
+                for lyr in range(m.shape[0]) for h in range(m.shape[2])}
+
+    def serve(device, *, policy="lookaheadkv", cache=None, pool_blocks=48,
+              block_size=16, reqs=prompts, max_new=8, budget=16, chunk=32,
+              max_context=160, decode_chunk=8, slots=2, **config):
+        pool = (sv.KVBlockPool(cfg, block_size=block_size,
+                               num_blocks=pool_blocks, device=device)
+                if pool_blocks else None)
+        pc = (sv.PrefixCache(chunk=chunk, max_bytes=1 << 30,
+                             pool=pool if cache == "pool" else None)
+              if cache else None)
+        sc = sv.ServingConfig(
+            policy=policy, evict=mods["EvictionConfig"](budget=budget),
+            chunking=sv.ChunkingConfig(chunk=chunk, max_context=max_context,
+                                       decode_chunk=decode_chunk),
+            num_slots=slots, max_new_tokens=max_new, eos_id=-1,
+            kv_pool=pool, prefix_cache=pc, capture_admission=True, **config)
+        eng = sv.ContinuousEngine(
+            _move(params, device), cfg, sc,
+            lkv_params=(_move(lkv, device) if policy == "lookaheadkv"
+                        else None),
+            device=device)
+        done = eng.run([sv.Request(uid=i, prompt=p, max_new_tokens=max_new,
+                                   seed=1000 + 17 * i)
+                        for i, p in enumerate(reqs)])
+        out = {r.uid: (r.out_tokens, kept(r.admission_cache)) for r in done}
+        counts = {k: eng.counts[k] for k in (
+            "prefix_hits", "prefix_misses", "prefix_tokens_skipped",
+            "prefix_blocks_reclaimed", "preemptions")}
+        return out, counts
+
+    card, cpu = devices
+    for policy in ("lookaheadkv", "h2o"):
+        for cache, pooled in (("pool", "paged, pool-pinned"),
+                              ("dense", "dense slots, private copies")):
+            blocks = 48 if cache == "pool" else None
+            (got, gc), (want, wc) = (
+                serve(d, policy=policy, cache=cache, pool_blocks=blocks)
+                for d in devices)
+            off, _ = serve(card, policy=policy, pool_blocks=blocks)
+            label = f"prefix cache {policy} ({pooled})"
+            print(f"  {label}: counts card {gc} cpu {wc}")
+            check(got == want, f"{label}: tokens or kept sets differ "
+                  "between card and CPU")
+            check(gc == wc, f"{label}: counts differ between card and CPU")
+            check(got == off, f"{label}: the card's tokens or kept sets "
+                  "differ from its run without the cache")
+            check(gc["prefix_hits"] == 3 and gc["prefix_misses"] == 1,
+                  f"{label}: expected 3 hits and 1 miss")
+            print(f"  {label}: tokens and kept sets identical card / CPU / "
+                  f"card without the cache for {len(want)} requests")
+    # a pool too small for both: admissions reclaim cached blocks
+    (got, gc), (want, wc) = (serve(d, cache="pool", pool_blocks=8,
+                                   max_new=6) for d in devices)
+    off, _ = serve(card, pool_blocks=8, max_new=6)
+    print(f"  prefix cache on a tight pool: counts card {gc} cpu {wc}; "
+          f"blocks reclaimed from the cache {gc['prefix_blocks_reclaimed']}")
+    check(got == want and gc == wc, "prefix cache on a tight pool: card "
+          "and CPU differ")
+    check(got == off, "prefix cache on a tight pool: the card's tokens or "
+          "kept sets differ from its run without the cache")
+    check(gc["prefix_blocks_reclaimed"] > 0, "prefix cache on a tight pool: "
+          "no cached block was reclaimed")
+    # sampled decode, card against CPU, each draw recorded on the card
+    draws, unwrap = recorded_draws(pol, mods["eviction"])
+    try:
+        got, _ = serve(card, sampling=sampling)
+    finally:
+        unwrap()
+    want, _ = serve(cpu, sampling=sampling)
+    greedy, _ = serve(card)
+    for uid, (toks, sets) in want.items():
+        g_toks, g_sets = got[uid]
+        check(g_sets == sets, f"sampled uid {uid}: kept sets differ")
+        t = next((i for i, (a, b) in enumerate(zip(g_toks, toks))
+                  if a != b), None)
+        print(f"  sampled uid {uid}: cuda {g_toks} cpu {toks}")
+        if t is None:
+            continue
+        pos = len(prompts[uid]) + t
+        gap = draws[(1000 + 17 * uid, pos)][1]
+        print(f"  sampled uid {uid}: first difference at token {t} "
+              f"(position {pos}), top-two perturbed logit gap on the card "
+              f"{gap:.3e} (tolerance {SAMPLE_LOGIT_TOL:.0e})")
+        check(gap < SAMPLE_LOGIT_TOL, f"sampled uid {uid}: tokens differ "
+              f"at token {t} with a gap of {gap:.3e}")
+    check(got != greedy, "sampled tokens equal the greedy ones")
+    gaps = [g for _, g in draws.values()]
+    print(f"  sampled: {len(draws)} draws recorded on the card, smallest "
+          f"top-two gap {min(gaps):.3e}")
+    # sampled replay under preemption (optimistic admission, 7 blocks of 4
+    # rows for 3 slots), on the card
+    opt = dict(pool_blocks=7, block_size=4, reqs=burst, budget=8, chunk=16,
+               max_context=45, decode_chunk=1, slots=3, max_new=8,
+               sampling=sampling)
+    got, gc = serve(card, reserve_appends=False, **opt)
+    want, _ = serve(card, **dict(opt, pool_blocks=64))
+    print(f"  sampled with preemption: {gc['preemptions']} preemptions; "
+          f"tokens equal to the unpreempted run: {got == want}")
+    check(gc["preemptions"] > 0, "sampled with preemption: the pool never "
+          "ran dry")
+    check(got == want, "sampled with preemption: the replayed tokens "
+          "differ from the unpreempted run")
+
+
 def phase_ssm_parity(torch, mods, devices=("cuda", "cpu")) -> None:
     """The SSM archs on ``devices[0]`` (the card) against ``devices[1]``
     (the CPU), float32 smoke configs: the hybrid hymba-smoke through the
@@ -1849,6 +2070,195 @@ def check_exact_launches(label: str, counts: dict) -> None:
     want = {k: EXACT_LAUNCHES[label].get(k, 0) for k in counts}
     print(f"  launches {counts}, predicted {want}: {counts == want}")
     check(counts == want, f"{label}: launches {counts}, expected {want}")
+
+
+#: 3l: a 1024-token system prompt shared by four requests (tails of 1024,
+#: 2048, 2048 and 3008 tokens), every prompt in the 4096 rung (--n-in),
+#: the prefix cache pinned in a 2 GB pool
+PREFIX_CELL = ["--continuous", "--chunk", "256", "--slots", "4",
+               "--kv-block-size", "16", "--kv-pool-mb", "2048",
+               "--prefix-cache-mb", "1024", "--shared-prefix", "1024",
+               "--prompt-lens", "1024,2048,2048,3008", "--n-in", "4096"]
+#: 3l's expected hits: requests 1-3 resume at the shared prefix's end, each
+#: skipping 4 chunks, so kernel 1 runs 3 x 4 x 32 times fewer
+PREFIX_HITS, PREFIX_DEPTH = 3, 1024
+
+
+def phase_prefix_cell(torch, mods) -> dict:
+    """3l: ``PREFIX_CELL`` through the launcher with the prefix cache, then
+    with it off (``--prefix-cache-mb 0``), the launch counts set to 0
+    before and read after each run.  Every request must sit in the 4096
+    rung; the cached run must hit ``PREFIX_HITS`` times at depth
+    ``PREFIX_DEPTH`` and launch kernel 1 exactly 3 x 4 x 32 times fewer,
+    every other prefill kernel as often; tokens and admission kept sets
+    must be identical.  Then one more request (the shared prefix and a
+    fresh 1024-token tail) alone on each engine: its TTFT unqueued, a
+    hit with the cache and a miss without (host clock, a sighting).
+    Returns the cached run's launch counts."""
+    import numpy as np
+
+    serve, ops = mods["serve"], mods["ops"]
+    build = serve.build_engine
+
+    def capturing(*args, **kw):  # keep each admission's kept set
+        eng = build(*args, **kw)
+        eng.capture_admission = True
+        return eng
+
+    def kept(adm):
+        m, p = adm["mask"][:, 0], adm["pos"][:, 0]
+        return {(lyr, h): frozenset(p[lyr, m[lyr, :, h], h].tolist())
+                for lyr in range(m.shape[0]) for h in range(m.shape[2])}
+
+    runs = {}
+    serve.build_engine = capturing
+    try:
+        for label, extra in (("cache on", []),
+                             ("cache off", ["--prefix-cache-mb", "0"])):
+            ops.reset_launch_counts()
+            res = serve.run(COMMON + PREFIX_CELL + extra)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            eng, done = res["engine"], sorted(res["done"],
+                                              key=lambda r: r.uid)
+            c = eng.counts
+            print(f"  {label}: wall {res['wall_s']:.2f} s; prefill "
+                  f"{c['prefill_chunks']} chunks in {c['prefill_s']:.2f} s; "
+                  f"decode {c['decode_steps']} steps "
+                  f"({c['decode_s'] / c['decode_steps'] * 1e3:.1f} ms/step); "
+                  f"hits {c['prefix_hits']}, misses {c['prefix_misses']}, "
+                  f"prompt tokens skipped {c['prefix_tokens_skipped']}")
+            for r in done:
+                rung = eng._request_context(len(r.prompt))
+                hit = (f"hit {r.cached_prefix_tokens}"
+                       if r.cached_prefix_tokens else "miss")
+                print(f"    uid {r.uid}: prompt {len(r.prompt)}, rung "
+                      f"{rung}, {hit}, TTFT {r.ttft_s * 1e3:.1f} ms (host "
+                      f"clock), first tokens {r.out_tokens[:6]}")
+                check(rung == 4096, f"3l {label}: uid {r.uid} in rung "
+                      f"{rung}, not 4096")
+                check(len(r.out_tokens) == 32, f"3l {label}: uid {r.uid} "
+                      f"emitted {len(r.out_tokens)} tokens")
+            if eng.prefix_cache is not None:
+                print(f"  {label}: cache {eng.prefix_cache.stats()}; pool "
+                      f"{eng.pool.stats()['blocks_pinned_prefix']} blocks "
+                      "pinned")
+            print(f"  {label}: kernel launches {counts}")
+            tail = np.random.default_rng(SEED + 9).integers(
+                0, res["cfg"].vocab_size, 1024).astype(np.int32)
+            alone = mods["serving"].Request(
+                uid=9, prompt=np.concatenate([done[0].prompt[:1024], tail]),
+                max_new_tokens=32)
+            eng.run([alone])
+            print(f"  {label}: one more 2048-token request alone: TTFT "
+                  f"{alone.ttft_s * 1e3:.1f} ms (host clock), "
+                  f"{alone.cached_prefix_tokens} prompt tokens from the "
+                  "cache")
+            L = res["cfg"].num_layers
+            runs[label] = (counts, dict(c), {
+                r.uid: (r.out_tokens, kept(r.admission_cache),
+                        r.cached_prefix_tokens) for r in done})
+            del res, eng, done
+            torch.cuda.empty_cache()
+    finally:
+        serve.build_engine = build
+    (on, c_on, t_on), (off, c_off, t_off) = runs["cache on"], \
+        runs["cache off"]
+    fewer = off["chunk_attention"] - on["chunk_attention"]
+    want = PREFIX_HITS * (PREFIX_DEPTH // 256) * L
+    print(f"  kernel 1: {off['chunk_attention']} launches without the cache, "
+          f"{on['chunk_attention']} with it: {fewer} fewer, predicted {want}")
+    check(c_on["prefix_hits"] == PREFIX_HITS and c_on[
+        "prefix_tokens_skipped"] == PREFIX_HITS * PREFIX_DEPTH,
+          f"3l: {c_on['prefix_hits']} hits skipping "
+          f"{c_on['prefix_tokens_skipped']} tokens, expected {PREFIX_HITS} "
+          f"of {PREFIX_DEPTH}")
+    check(fewer == want, f"3l: kernel 1 launched {fewer} times fewer, "
+          f"expected {want}")
+    check(on["lookahead_score"] == off["lookahead_score"],
+          "3l: kernel 3 launched a different number of times")
+    for name in ("chunk_attention_masses", "paged_decode_masses",
+                 "flash_attention", "decode_attention", "ssd_scan"):
+        check(on[name] == off[name] == 0, f"3l: kernel {name} launched")
+    same_toks = all(t_on[u][0] == t_off[u][0] for u in t_off)
+    same_kept = all(t_on[u][1] == t_off[u][1] for u in t_off)
+    print(f"  tokens identical with and without the cache: {same_toks}; "
+          f"admission kept sets identical: {same_kept}")
+    check(same_toks and same_kept, "3l: the cache changed tokens or kept "
+          "sets")
+    return on
+
+
+def phase_sampled_cell(torch, mods, res, counts_3a, step_ms_3a,
+                       base_per_step) -> dict:
+    """3m: 3a's engine shape, weights and prompts through a new
+    ``ContinuousEngine`` (its own 256 MB pool) under
+    ``Sampling(*SAMPLING)``, requests seeded 7000 + uid, served twice.
+    The first run's launches must equal 3a's exactly (sampling adds no
+    kernel launch of the port's), the two runs' tokens must be identical,
+    and at least one request's tokens must differ from 3a's greedy ones.
+    Then 4m: one decode chunk of a 300-token request alone under the
+    profiler, its launches per step beside 4a's greedy ``base_per_step``.
+    Returns the first run's launch counts."""
+    sv, ops = mods["serving"], mods["ops"]
+    eng0, cfg = res["engine"], res["cfg"]
+    pool = sv.KVBlockPool(cfg, block_size=16, pool_mb=256, device="cuda")
+    eng = sv.ContinuousEngine(
+        eng0.params, cfg, eng0.config.replace(
+            kv_pool=pool, sampling=sv.Sampling(*SAMPLING)),
+        lkv_params=eng0.lkv_params, device="cuda")
+    greedy = {r.uid: r.out_tokens for r in res["done"]}
+    prompts = {r.uid: r.prompt for r in res["done"]}
+
+    def serve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run([sv.Request(uid=u, prompt=p, max_new_tokens=32,
+                                   seed=7000 + u)
+                        for u, p in sorted(prompts.items())])
+        torch.cuda.synchronize()
+        c = eng.counts
+        print(f"  wall {time.perf_counter() - t0:.2f} s; decode "
+              f"{c['decode_steps']} steps in {c['decode_chunks']} chunks, "
+              f"{c['decode_s'] / c['decode_steps'] * 1e3:.1f} ms/step "
+              f"(3a greedy: {step_ms_3a:.1f} ms/step; host clock)")
+        return {r.uid: r.out_tokens for r in done}
+
+    ops.reset_launch_counts()
+    first = serve()
+    counts = ops.launch_counts()
+    second = serve()
+    for uid in sorted(first):
+        print(f"  uid {uid}: sampled {first[uid][:8]}..., greedy "
+              f"{greedy[uid][:8]}...")
+        check(len(first[uid]) == 32 and all(
+            0 <= t < cfg.vocab_size for t in first[uid]),
+              f"3m: uid {uid} emitted bad tokens")
+    print(f"  launches {counts}; 3a's {counts_3a}: {counts == counts_3a}")
+    check(counts == counts_3a, "3m: launches differ from 3a's")
+    check(first == second, "3m: the second serve sampled other tokens")
+    check(any(first[u] != greedy[u] for u in first), "3m: every request's "
+          "sampled tokens equal 3a's greedy ones")
+    print("  two serves gave identical tokens; "
+          f"{sum(first[u] != greedy[u] for u in first)} of {len(first)} "
+          "requests differ from the greedy ones")
+    boxes = []
+
+    def take():
+        req = sv.Request(uid=101, prompt=prompts[0][:300], max_new_tokens=24,
+                         seed=7101)
+        with profiled_call(torch, ops, mods["policies"], "decode_chunk",
+                           nth=2) as box:
+            eng.run([req])
+        check("prof" in box, "4m: the profiled decode chunk never ran")
+        boxes.append(box)
+        return [(box["prof"], box["counts"])]
+
+    checked_trace(torch, "paged continuous sampled, one decode chunk", take)
+    per_step, _ = decode_window(torch, boxes[-1], "paged continuous sampled")
+    print(f"  launches per decode step: {per_step:.0f} sampled against "
+          f"{base_per_step:.0f} greedy (4a), +{per_step - base_per_step:.0f}")
+    return counts
 
 
 def phase_speckv(torch, mods, res) -> tuple:
@@ -2836,7 +3246,8 @@ def load_modules(torch) -> dict:
     from repro_torch.common.config import EvictionConfig
     from repro_torch.checkpoint import io as ckpt
     from repro_torch.common.config import TrainConfig
-    from repro_torch.core import lookahead, objective, policies, scoring
+    from repro_torch.core import (eviction, lookahead, objective, policies,
+                                  scoring)
     from repro_torch.data import harvest, synthetic
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import chunk_attention as ck
@@ -2854,6 +3265,7 @@ def load_modules(torch) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     return dict(configs=configs, serving=serving, lookahead=lookahead,
                 policies=policies, scoring=scoring, engine=engine,
+                eviction=eviction,
                 EvictionConfig=EvictionConfig, ops=ops,
                 build=build, ref=ref, ck=ck, lk=lk, pk=pk, fk=fk, dk=dk,
                 sk=sk, serve=serve, tf=tf, ckpt=ckpt, TrainConfig=TrainConfig,
@@ -3031,6 +3443,9 @@ def main() -> None:
     header("phase 2: engines on the card vs on the CPU (llama3-8b smoke, "
            "float32)")
     phase_engine_parity(torch, mods)
+    header("phase 2: the prefix cache and sampling on the card vs on the "
+           "CPU (llama3-8b smoke, float32)")
+    phase_prefix_sampling_parity(torch, mods)
     header("phase 2: the SSM archs on the card vs on the CPU (hymba-smoke, "
            "mamba2-smoke, float32)")
     phase_ssm_parity(torch, mods)
@@ -3068,8 +3483,14 @@ def main() -> None:
                       f"{chunk_ms[base]:.1f} for lookaheadkv "
                       f"(3{letters[base]}), run one after the other")
         if route == "paged continuous":
+            c = res["engine"].counts
+            step_ms_3a = c["decode_s"] / c["decode_steps"] * 1e3
             header("phase 4a: where the time goes (torch.profiler)")
             base_per_step = profile_paged(torch, mods, res)
+            header("phase 3m: serve llama3-8b at full width, paged "
+                   "continuous sampled (3a's engine shape and weights)")
+            counts["paged continuous sampled"] = phase_sampled_cell(
+                torch, mods, res, counts[route], step_ms_3a, base_per_step)
         elif route == "lockstep":
             header("phase 4b: where the time goes (torch.profiler)")
             warm["lockstep"] = profile_lockstep(torch, mods, res)
@@ -3096,6 +3517,10 @@ def main() -> None:
                           "lookaheadkv)" for name in names))
         del res  # free this route's weights before the next one's
         torch.cuda.empty_cache()
+    header("phase 3l: serve llama3-8b at full width, paged continuous "
+           "prefix (a 1024-token shared prefix, the cache on, then off)")
+    counts["paged continuous prefix"] = phase_prefix_cell(torch, mods)
+    torch.cuda.empty_cache()
     header("phase 3h: mamba2-130m at full width, prefill and decode")
     counts["mamba2"] = phase_mamba(torch, mods)
     torch.cuda.empty_cache()

@@ -10,7 +10,9 @@ Position policies (StreamingLLM's sink + recent, random, full) are
 synthetic score vectors (``position_scores``), so one top-k path serves
 every policy.  ``random`` draws JAX's own numbers: ``threefry2x32`` below
 is the ``jax.random`` block cipher, so the port keeps the same random
-positions as the JAX package for the same seeds.
+positions as the JAX package for the same seeds.  The sampled decode of
+``policies`` draws from the same stream (``PRNGKey``, ``split``,
+``categorical``), so it samples the JAX package's tokens.
 
 Tie rule: ``jax.lax.top_k`` breaks ties toward the lower index, and the
 scores reach it after max-pooling, whose plateaus are exact ties.
@@ -64,6 +66,13 @@ def threefry2x32(key: tuple, count: tuple) -> tuple:
     return x0, x1
 
 
+def PRNGKey(seed) -> tuple:
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed (an int or an int
+    tensor, broadcast): the raw key (0, seed mod 2^32)."""
+    s = torch.as_tensor(seed, dtype=torch.int64) & _MASK32
+    return torch.zeros_like(s), s
+
+
 def fold_in(key: tuple, data) -> tuple:
     """``jax.random.fold_in`` on a raw (key1, key2) key: ``data`` is a
     uint32 (an int64 tensor, masked to 32 bits), broadcast."""
@@ -71,13 +80,74 @@ def fold_in(key: tuple, data) -> tuple:
     return threefry2x32(key, (torch.zeros_like(d), d))
 
 
-def uniform(key: tuple) -> torch.Tensor:
-    """``jax.random.uniform(key)`` (one float32 in [0, 1) per key, with
-    ``jax_threefry_partitionable``): the XOR of the cipher's two words of
-    counter 0, its top 23 bits as a mantissa of [1, 2), minus 1."""
-    b1, b2 = threefry2x32(key, (0, 0))
-    bits = ((b1 ^ b2) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+def _counters(n: int, device) -> tuple:
+    """The flat iota 0..n-1 as (high, low) uint32 words (JAX's
+    ``iota_2x32_shape``)."""
+    c = torch.arange(n, dtype=torch.int64, device=device)
+    return c >> 32, c & _MASK32
+
+
+def split(key: tuple, num: int) -> tuple:
+    """``jax.random.split(key, num)`` (``jax_threefry_partitionable``):
+    key ``i`` is the cipher of counter ``i``, returned as two (num,)
+    words, one key per index."""
+    k1, k2 = (torch.as_tensor(x, dtype=torch.int64) for x in key)
+    return threefry2x32((k1, k2), _counters(num, k1.device))
+
+
+def random_bits(key: tuple, shape: tuple) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` as uint32 values in int64 (the
+    partitionable stream: element ``i`` of the flattened shape is the XOR
+    of the cipher's two words of counter ``i``).  The key's words may
+    carry a batch shape K, one key per index; the result is K + shape."""
+    k1, k2 = (torch.as_tensor(x, dtype=torch.int64) for x in key)
+    n = 1
+    for d in shape:
+        n *= d
+    hi, lo = (c.reshape(shape) for c in _counters(n, k1.device))
+    lead = k1.shape + (1,) * len(shape)
+    b1, b2 = threefry2x32((k1.reshape(lead), k2.reshape(lead)), (hi, lo))
+    return b1 ^ b2
+
+
+def uniform(key: tuple, shape: tuple = (), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the
+    top 23 bits of ``random_bits`` as a mantissa of [1, 2), minus 1,
+    scaled into [minval, maxval) and floored at ``minval``.  XLA fuses
+    the scale and shift into one multiply-add, rounded once: the float64
+    product here is exact and its sum rounds to float32 as that does.
+    With the default ``shape`` one number per key (counter 0)."""
+    bits = random_bits(key, shape)
+    f = (((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+         - 1.0)
+    # float32 bounds as host scalars: no tensor is copied to the device
+    lo = float(np.float32(minval))
+    scale = float(np.float32(maxval) - np.float32(lo))
+    return torch.clamp((f.double() * scale + lo).float(), min=lo)
+
+
+_TINY32 = float(torch.finfo(torch.float32).tiny)
+
+
+def gumbel(key: tuple, shape: tuple) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default "low"
+    mode: ``-log(-log(u))`` of a uniform ``u`` in [tiny, 1).  The bits
+    are JAX's exactly; the two logs may differ from XLA's by an ulp."""
+    return -torch.log(-torch.log(uniform(key, shape, minval=_TINY32,
+                                         maxval=1.0)))
+
+
+def categorical(key: tuple, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical`` over the last axis (the Gumbel-max
+    trick, ties to the lower index as ``argmax``).  One key for the whole
+    array draws its Gumbel noise over ``logits.shape``; keys with a batch
+    shape K (``jax.vmap`` over rows) draw over ``logits.shape[len(K):]``
+    each."""
+    key = tuple(torch.as_tensor(x, dtype=torch.int64, device=logits.device)
+                for x in key)
+    noise = gumbel(key, tuple(logits.shape[key[0].dim():]))
+    return torch.argmax(noise + logits, dim=-1)
 
 
 def position_scores(

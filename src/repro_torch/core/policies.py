@@ -3,8 +3,9 @@ monolithic, ``run_eviction_chunked`` streamed), greedy decode
 (``greedy_decode`` for the lockstep engine, ``decode_chunk`` for the
 continuous one) and the chunked prefill's buffer sizing.
 
-Every policy of the JAX package is served, with greedy decode
-(sampling is ROADMAP A8).  The single-pass ones call
+Every policy of the JAX package is served, with greedy decode or with
+temperature / top-k / top-p sampling (``Sampling``) on the JAX
+package's random stream.  The single-pass ones call
 ``transformer.prefill`` once; the draft-based baselines compose passes:
 
 * **LAQ** (Lookahead Q-Cache): a snapkv prefill, a greedy draft of
@@ -26,14 +27,70 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.common.config import EvictionConfig, ModelConfig
+from repro_torch.core.eviction import (PRNGKey, categorical, fold_in,
+                                       split)
 from repro_torch.core.scoring import (  # noqa: F401  (re-exported)
     ALL_POLICIES, MULTI_PASS, SINGLE_PASS)
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import transformer as tf
 
 
 class EvictionResult(NamedTuple):
     logits: torch.Tensor  # (B, V) next-token logits after the prompt
     cache: dict  # budgeted decode cache
+
+
+class Sampling(NamedTuple):
+    """Sampling settings of the decode loop.  ``temperature <= 0`` is
+    greedy argmax (the filters are then ignored); ``top_k = 0`` and
+    ``top_p = 1.0`` disable their filters."""
+
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+
+
+def filter_logits(logits: torch.Tensor, *, top_k: int = 0,
+                  top_p: float = 1.0) -> torch.Tensor:
+    """Top-k / nucleus (top-p) filtering over the last axis: logits outside
+    the kept set drop to -1e30, kept ones pass unchanged.  Top-k keeps the
+    k largest and every tie at the k-th value; top-p keeps the descending
+    prefix whose mass before each token is below ``top_p`` (always at
+    least the argmax).  Both are the identity when disabled."""
+    V = logits.shape[-1]
+    if top_k and top_k < V:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    if top_p < 1.0:
+        srt = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = (cum - probs) < top_p  # the mass before each token < p
+        thr = torch.where(keep, srt, float("inf")).amin(dim=-1, keepdim=True)
+        logits = torch.where(logits < thr, NEG_INF, logits)
+    return logits
+
+
+def fold_keys(seeds: torch.Tensor, positions: torch.Tensor) -> tuple:
+    """Per-row keys ``fold_in(PRNGKey(seeds[b]), positions[b])``, as the two
+    (B,) words of a raw key.  Keyed on the absolute position of the
+    sampled token, so a preempted request that replays the same positions
+    samples the same tokens."""
+    return fold_in(PRNGKey(seeds), positions)
+
+
+def sample_logits(logits: torch.Tensor, keys: tuple, *,
+                  temperature: float = 1.0, top_k: int = 0,
+                  top_p: float = 1.0) -> torch.Tensor:
+    """(B,) ids from (B, V) logits: argmax at ``temperature <= 0``, else
+    the float32 logits over ``temperature``, filtered, then one
+    categorical draw per row with its key (``fold_keys``).  Everything
+    stays on the logits' device."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    x = logits.to(torch.float32) / temperature
+    x = filter_logits(x, top_k=top_k, top_p=top_p)
+    return categorical(keys, x)
 
 
 def _draft_then_rescore(params: dict, cfg: ModelConfig,
@@ -101,15 +158,30 @@ def run_eviction(policy: str, params: dict, cfg: ModelConfig,
 
 def decode_one(params: dict, cfg: ModelConfig, token: torch.Tensor,
                cache: dict, *, active: Optional[torch.Tensor] = None,
-               paged_depth: Optional[int] = None
+               paged_depth: Optional[int] = None,
+               sampling: Optional[Sampling] = None,
+               seeds: Optional[torch.Tensor] = None
                ) -> tuple[torch.Tensor, dict]:
-    """One greedy decode step.  Returns (next token (B, 1), new cache);
+    """One decode step.  Returns (next token (B, 1), new cache);
     inactive slots keep their token, and their cache, which
     ``decode_step`` never writes for them (the JAX package rolls a dense
-    cache back with ``select_cache_slots`` instead)."""
+    cache back with ``select_cache_slots`` instead).  The token is the
+    argmax, or with ``sampling`` at a temperature above 0 a draw under
+    the key of each row's seed (``seeds`` (B,)) folded with the sampled
+    token's position, one past the input token's ``next_pos``."""
+    positions = cache["next_pos"][:, 0]
     logits, cache = tf.decode_step(params, cfg, token, cache, active=active,
                                    paged_depth=paged_depth)
-    nxt = torch.argmax(logits, dim=-1)[:, None].to(token.dtype)
+    if sampling is not None and sampling.temperature > 0.0:
+        if seeds is None:
+            raise ValueError("sampling needs per-request seeds")
+        keys = fold_keys(seeds, positions + 1)
+        nxt = sample_logits(
+            logits, keys, temperature=sampling.temperature,
+            top_k=sampling.top_k, top_p=sampling.top_p)
+    else:
+        nxt = torch.argmax(logits, dim=-1)
+    nxt = nxt[:, None].to(token.dtype)
     if active is not None:
         nxt = torch.where(active[:, None], nxt, token)
     return nxt, cache
@@ -132,20 +204,53 @@ def greedy_decode(params: dict, cfg: ModelConfig, first_token: torch.Tensor,
 def decode_chunk(params: dict, cfg: ModelConfig, token: torch.Tensor,
                  cache: dict, steps: int, *,
                  active: Optional[torch.Tensor] = None,
-                 paged_depth: Optional[int] = None
+                 paged_depth: Optional[int] = None,
+                 sampling: Optional[Sampling] = None,
+                 seeds: Optional[torch.Tensor] = None
                  ) -> tuple[torch.Tensor, dict, torch.Tensor]:
-    """``steps`` greedy decode steps after ``token``.  Returns (last token
-    (B, 1), cache, new tokens (B, steps)); the input token is not among
-    the emitted ones.  A decode-eviction ``score`` leaf (in the dense
-    ``cache["attn"]`` or the paged ``cache["pool"]``) rides the cache
-    through every step like its other leaves; the attention steps add to
-    it in place."""
+    """``steps`` decode steps after ``token`` (greedy, or sampled as
+    ``decode_one`` says).  Returns (last token (B, 1), cache, new tokens
+    (B, steps)); the input token is not among the emitted ones.  No step
+    reads anything back to the host.  A decode-eviction ``score`` leaf (in
+    the dense ``cache["attn"]`` or the paged ``cache["pool"]``) rides the
+    cache through every step like its other leaves; the attention steps
+    add to it in place."""
     toks = []
     for _ in range(steps):
         token, cache = decode_one(params, cfg, token, cache, active=active,
-                                  paged_depth=paged_depth)
+                                  paged_depth=paged_depth, sampling=sampling,
+                                  seeds=seeds)
         toks.append(token[:, 0])
     return token, cache, torch.stack(toks, dim=1)
+
+
+def sample_decode(params: dict, cfg: ModelConfig, first_logits: torch.Tensor,
+                  cache: dict, steps: int, *, temperature: float = 0.0,
+                  top_k: int = 0, top_p: float = 1.0,
+                  key: Optional[tuple] = None) -> tuple[torch.Tensor, dict]:
+    """``steps`` tokens after the prefill's logits (B, V), greedy at
+    ``temperature <= 0`` (the filters are then ignored), else sampled:
+    ``split(key, steps)`` gives one key per token, shared by the batch's
+    rows, the first token drawn with ``keys[0]``.  Returns (tokens (B,
+    steps), cache)."""
+    if temperature <= 0.0:
+        first = torch.argmax(first_logits, dim=-1)[:, None].to(torch.int32)
+        return greedy_decode(params, cfg, first, cache, steps)
+    if key is None:
+        raise ValueError("sampling needs a key")
+    k1, k2 = split(key, steps)
+
+    def pick(logits, i):
+        x = filter_logits(logits / temperature, top_k=top_k, top_p=top_p)
+        return categorical((k1[i], k2[i]), x)[:, None].to(torch.int32)
+
+    tok = pick(first_logits, 0)
+    toks = [tok[:, 0]]
+    for i in range(1, steps):
+        logits, cache = tf.decode_step(params, cfg, tok, cache)
+        tok = pick(logits, i)
+        toks.append(tok[:, 0])
+    return torch.stack(toks, dim=1), cache
 
 
 def chunk_capacity_for(cfg: ModelConfig, policy: str, n_prompt: int,

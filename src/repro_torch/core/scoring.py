@@ -34,8 +34,9 @@ one:
   pass) through the same scoring primitive.
 
 Decode-time eviction adds each decode step's masses (kernel 5) to a
-cumulative per-row score (``decode_mass_update``).  The prefix cache's
-``snapshot``/``restore`` of the state are not ported (ROADMAP A7).
+cumulative per-row score (``decode_mass_update``).  The prefix cache
+keeps the state at chunk boundaries (``ScoreState.snapshot`` /
+``restore``).
 """
 
 from __future__ import annotations
@@ -67,11 +68,50 @@ class ScoreState(NamedTuple):
     """Streaming score state of a chunked prefill; the fields a policy
     does not use are None.  The tensors carry a leading layer axis L and
     are updated in place by each chunk (the JAX package threads updated
-    copies)."""
+    copies).
+
+    At a chunk boundary ``n`` covered by full chunks the state is a pure
+    function of the first ``n`` prompt tokens: no chunk reads rows past
+    the boundary, the accumulator's columns at or past ``n`` are exact
+    +0.0 (no query has attended to them) and per-request randomness
+    enters only at finalize.  ``snapshot``/``restore`` keep it across
+    requests (the prefix cache)."""
 
     acc: Optional[torch.Tensor] = None  # (L, B, H, K) f32 column-mass sums
     cnt: Optional[float] = None  # prompt rows scored so far
     qbuf: Optional[torch.Tensor] = None  # (L, B, W, H, hd) newest W queries
+
+    def snapshot(self, n: int) -> "ScoreState":
+        """Capacity-independent copy at chunk boundary ``n``: the
+        accumulator's first ``n`` key columns and the query window.  A
+        copy, not a view: the donor's next chunk adds its masses into
+        columns below ``n`` and rolls its window in place."""
+        return ScoreState(
+            acc=None if self.acc is None else self.acc[..., :n].clone(),
+            cnt=self.cnt,
+            qbuf=None if self.qbuf is None else self.qbuf.clone())
+
+    def restore(self, capacity: int) -> "ScoreState":
+        """Fresh tensors for a ``capacity``-deep key buffer: the
+        accumulator right-padded with +0.0, which is bitwise the untouched
+        tail of a freshly streamed one, and a copy of the window (the
+        resumed request updates both in place)."""
+        acc = None
+        if self.acc is not None:
+            pad = capacity - self.acc.shape[-1]
+            if pad < 0:
+                raise ValueError(f"snapshot wider ({self.acc.shape[-1]}) "
+                                 f"than capacity {capacity}")
+            acc = torch.nn.functional.pad(self.acc, (0, pad))
+        return ScoreState(
+            acc=acc, cnt=self.cnt,
+            qbuf=None if self.qbuf is None else self.qbuf.clone())
+
+    def nbytes(self) -> int:
+        """Bytes held, counting the row count as the float32 scalar it is
+        in the JAX package."""
+        return sum(t.numel() * t.element_size() for t in (self.acc, self.qbuf)
+                   if t is not None) + (0 if self.cnt is None else 4)
 
 
 def stream_window(policy: str, window_size: int) -> int:

@@ -10,8 +10,9 @@ dependency structure is known:
   End-task accuracy after eviction is measurable exactly (RULER-style).
 * ``copy``    — the prompt contains a delimited span to be echoed.
 * ``completion`` — plain random-walk "text"; Y is generated *by the target
-  model itself* (greedily in the port: sampling is ROADMAP A8), as the
-  paper generates its training responses.
+  model itself* (greedy, or sampled at a temperature above 0 on the JAX
+  package's random stream), as the paper generates its training
+  responses.
 
 All batches are fixed-shape (n_in, n_out).  Vocabulary layout: ids
 [0, reserved) are structural markers; the rest is filler.
@@ -119,8 +120,9 @@ class MixtureIterator:
     instruction-style (needle/copy) + completion data, fixed (n_in, n_out).
 
     When ``gen_params`` are given, Y is generated by the target model
-    (greedily; a temperature above 0 raises, ROADMAP A8) as in the paper,
-    and the stream still spends the JAX package's key draw; otherwise
+    (``policies.sample_decode`` at ``temperature``, keyed by
+    ``PRNGKey`` of one draw of the stream, as the JAX package's) as in
+    the paper; otherwise
     the synthetic answers (padded/truncated to n_out) are used — the
     paper's §D "source response" ablation setting.
     """
@@ -160,10 +162,8 @@ class MixtureIterator:
             x = make_completion_prompts(self.rng, self.batch, self.n_in, v)
             b = Batch(x=x, y=np.zeros((self.batch, self.n_out), np.int32))
         if self._gen is not None:
-            # the JAX package draws a sampling key here; the draw is kept
-            # so that the stream stays the JAX package's draw for draw
-            self.rng.integers(1 << 31)
-            y = self._gen(self.gen_params, b.x)
+            y = self._gen(self.gen_params, b.x,
+                          int(self.rng.integers(1 << 31)))
             b = Batch(x=b.x, y=y.astype(np.int32), answer_pos=b.answer_pos)
         else:
             reps = -(-self.n_out // max(b.y.shape[1], 1))
@@ -173,22 +173,22 @@ class MixtureIterator:
 
 
 def _make_generator(cfg: ModelConfig, n_out: int, temperature: float):
-    """Full-cache prefill, then ``n_out`` greedy tokens from the target
-    model (on the device of its parameters); host arrays in and out."""
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "not ported yet: sampled responses (temperature > 0): ROADMAP A8")
+    """Full-cache prefill, then ``n_out`` tokens from the target model (on
+    the device of its parameters) through ``policies.sample_decode`` at
+    ``temperature`` with the key ``PRNGKey(seed)``; host arrays in and
+    out."""
     from repro_torch.core import policies
+    from repro_torch.core.eviction import PRNGKey
     from repro_torch.models import transformer as tf
 
-    def gen(params, x: np.ndarray) -> np.ndarray:
+    def gen(params, x: np.ndarray, seed: int) -> np.ndarray:
         dev = params["embed"].device
         with torch.no_grad():
             res = tf.prefill(params, cfg, torch.as_tensor(x, device=dev),
                              policy="full", extra_slots=n_out + 1)
-            first = torch.argmax(res.logits, dim=-1)[:, None].to(torch.int32)
-            toks, _ = policies.greedy_decode(params, cfg, first, res.cache,
-                                             n_out)
+            toks, _ = policies.sample_decode(
+                params, cfg, res.logits, res.cache, n_out,
+                temperature=temperature, key=PRNGKey(seed))
         return toks.cpu().numpy()
 
     return gen

@@ -31,6 +31,12 @@ for the same command line.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --continuous --policy full --budget 256 --slots 4 \
         --prompt-lens 512,700,900,1024 --max-new 32
+    # a 1024-token system prompt shared by every request, served from the
+    # radix-trie prefix cache (pinned in the pool; hits skip its chunks)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --continuous --kv-pool-mb 2048 --prefix-cache-mb 1024 \
+        --shared-prefix 1024 --budget 256 --chunk 256 --slots 4 \
+        --prompt-lens 1024,2048,2048,3008 --n-in 4096 --max-new 32
     # the hybrid hymba-1.5b (attention and Mamba-2 heads): lockstep only
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --budget 256 --requests 4 --n-in 2048 --max-new 32
@@ -46,7 +52,15 @@ package's trainer, ``launch/train.py``):
 
 The flags are those of the JAX launcher; the ones
 whose feature the port does not serve yet raise ``NotImplementedError``
-naming their ROADMAP item.  Both routes evict with ``EvictionConfig(
+naming their ROADMAP item.  ``--shared-prefix N`` plants one random
+system prompt of N tokens, rounded down to whole chunks, before every
+``--continuous`` prompt (drawn before the prompt lengths, as the JAX
+launcher draws it; with ``--prompt-lens``, the port's own flag, the
+listed lengths are the tails after it); ``--prefix-cache-mb`` gives the
+chunked ``ContinuousEngine`` a ``PrefixCache`` of that budget, pinned in
+the pool under ``--kv-pool-mb``.  Both print the JAX launcher's notes
+where the route does not take them.  The JAX launcher has no sampling
+flag, and neither has this one (``ServingConfig(sampling=...)``).  Both routes evict with ``EvictionConfig(
 budget, draft_len=8)``, as the JAX launcher's do.  ``--continuous`` with
 ``full``, ``laq`` or ``speckv`` builds a ``BucketedEngine`` (those
 policies cannot stream) and ignores ``--kv-pool-mb`` with the JAX
@@ -78,13 +92,11 @@ from repro_torch.core.lookahead import (init_lookahead_params,
 from repro_torch.models import transformer as tf
 from repro_torch.serving import (BucketedEngine, ChunkingConfig,
                                  ContinuousEngine, DecodeEvictionConfig,
-                                 KVBlockPool, Request, ServingConfig,
-                                 ServingEngine)
+                                 KVBlockPool, PrefixCache, Request,
+                                 ServingConfig, ServingEngine)
 
 # flag -> (value meaning "off", ROADMAP item of the feature)
 _UNPORTED = {
-    "prefix_cache_mb": (0, "prefix cache: ROADMAP A7"),
-    "shared_prefix": (0, "shared-prefix traffic: ROADMAP A7"),
     "mesh_model": (1, "a device mesh: ROADMAP A11"),
     "metrics_json": ("", "metrics: ROADMAP A12"),
     "prom_snapshot": ("", "metrics: ROADMAP A12"),
@@ -103,8 +115,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="lockstep: every prompt's length; continuous: "
                          "prompt lengths are drawn from [n_in/2, n_in]")
     ap.add_argument("--prompt-lens", default="",
-                    help="continuous: comma-separated prompt lengths "
-                         "(overrides --requests/--n-in)")
+                    help="continuous: comma-separated prompt lengths, "
+                         "after the shared prefix (overrides "
+                         "--requests/--n-in)")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--continuous", action="store_true",
@@ -118,8 +131,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "slot caches)")
     ap.add_argument("--kv-block-size", type=int, default=16)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--prefix-cache-mb", type=int, default=0)
-    ap.add_argument("--shared-prefix", type=int, default=0)
+    ap.add_argument("--prefix-cache-mb", type=int, default=0,
+                    help="radix-trie prompt-cache budget in MB (chunked "
+                         "continuous engine; 0 disables prefix reuse)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="tokens of a shared system-prompt prefix planted "
+                         "in every continuous request (rounded down to "
+                         "whole chunks)")
     ap.add_argument("--decode-evict", action="store_true",
                     help="continuous: decoding-stage eviction; with "
                          "--kv-pool-mb sweeps re-evict each cache to the "
@@ -172,6 +190,13 @@ def build_engine(args, cfg, params, lkv):
     if args.kv_pool_mb:
         pool = KVBlockPool(cfg, block_size=args.kv_block_size,
                            pool_mb=args.kv_pool_mb, device=args.device)
+    prefix_cache = None
+    if args.prefix_cache_mb:
+        # with a pool, cached prefixes pin pool blocks (one copy, shared
+        # with decode) instead of holding a second device copy
+        prefix_cache = PrefixCache(chunk=args.chunk,
+                                   max_bytes=args.prefix_cache_mb << 20,
+                                   pool=pool)
     sc = ServingConfig(
         policy=args.policy, evict=evict,
         chunking=ChunkingConfig(chunk=args.chunk,
@@ -179,7 +204,7 @@ def build_engine(args, cfg, params, lkv):
         decode_evict=DecodeEvictionConfig(
             enabled=args.decode_evict, interval=args.decode_evict_interval),
         num_slots=args.slots, max_new_tokens=args.max_new, eos_id=-1,
-        kv_pool=pool)
+        kv_pool=pool, prefix_cache=prefix_cache)
     return ContinuousEngine(params, cfg, sc, lkv_params=lkv,
                             device=args.device)
 
@@ -196,6 +221,13 @@ def run(argv=None) -> dict:
             "and no lookahead module applies and no engine serves it; run "
             "it through transformer.prefill(want_ssm_cache=True) and "
             "decode_step")
+    if args.prefix_cache_mb and not _streamable(args):
+        print("note: --prefix-cache-mb requires the chunked continuous "
+              "engine (--continuous with a streamable policy); ignoring it")
+        args.prefix_cache_mb = 0
+    if args.shared_prefix and not args.continuous:
+        print("note: --shared-prefix shapes --continuous traffic only; "
+              "ignoring it")
     if args.kv_pool_mb and not _streamable(args):
         print("note: --kv-pool-mb requires the chunked continuous engine "
               "(--continuous with a streamable policy); ignoring it")
@@ -210,7 +242,13 @@ def run(argv=None) -> dict:
         gen = torch.Generator(device=args.device).manual_seed(args.seed + 1)
         lkv = init_lookahead_params(gen, cfg, params["layers"])
 
+    # the JAX launcher's draws: on the continuous route the system prompt
+    # first (a zero-length draw leaves the stream as it is), then the
+    # lengths, then each prompt's own tokens
     rng = np.random.default_rng(args.seed)
+    shared = (args.shared_prefix // args.chunk) * args.chunk \
+        if args.continuous else 0
+    system = rng.integers(0, cfg.vocab_size, shared).astype(np.int32)
     if not args.continuous:
         lens = [args.n_in] * args.requests
     elif args.prompt_lens:
@@ -219,8 +257,8 @@ def run(argv=None) -> dict:
         lens = rng.integers(args.n_in // 2, args.n_in + 1,
                             args.requests).tolist()
     reqs = [Request(uid=i,
-                    prompt=rng.integers(0, cfg.vocab_size,
-                                        int(n)).astype(np.int32),
+                    prompt=np.concatenate([system, rng.integers(
+                        0, cfg.vocab_size, int(n)).astype(np.int32)]),
                     max_new_tokens=args.max_new)
             for i, n in enumerate(lens)]
     eng = build_engine(args, cfg, params, lkv)
@@ -261,12 +299,22 @@ def main(argv=None) -> None:
     c = eng.counts
     print(f"peak concurrency {c['max_concurrency']}; decode "
           f"{c['decode_steps']} steps in {c['decode_s']:.3f}s")
+    if getattr(eng, "prefix_cache", None) is not None:
+        p = eng.prefix_cache.stats()
+        prompt_tokens = sum(len(r.prompt) for r in done)
+        print(f"prefix cache: hit-rate "
+              f"{p['hits'] / max(p['hits'] + p['misses'], 1):.2f}, "
+              f"{p['tokens_hit']}/{prompt_tokens} prompt tokens "
+              f"served from shared prefixes, "
+              f"{p['bytes'] / 1e6:.2f} MB resident")
     if getattr(eng, "pool", None) is not None:
         s = eng.pool.stats()
         print(f"kv pool: {s['blocks_total']} x {s['block_size']}-row blocks "
               f"({s['bytes_total'] / 1e6:.2f} MB), high water "
               f"{s['high_water_blocks']} blocks, peak concurrency "
-              f"{c['max_concurrency']}, {c['preemptions']} preemptions")
+              f"{c['max_concurrency']}, {c['preemptions']} preemptions, "
+              f"{s['blocks_pinned_prefix']} blocks pinned by the prefix "
+              f"cache")
         if eng.decode_evict.enabled:
             print(f"decode eviction: {c['decode_evict_sweeps']} sweeps "
                   f"reclaimed {s['blocks_reclaimed_decode']} blocks "

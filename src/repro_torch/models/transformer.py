@@ -514,6 +514,42 @@ def init_chunk_state(cfg: ModelConfig, policy: str, batch: int,
     return ChunkState(k=k, v=torch.zeros_like(k), score=score, pos=0)
 
 
+def snapshot_chunk_state(state: ChunkState, n: int) -> ChunkState:
+    """Chunk-boundary snapshot of a streaming prefill: K/V columns
+    ``[:n]`` and the trimmed ``ScoreState``, everything a later request
+    sharing this ``n``-token prefix needs to resume at ``pos = n``.
+
+    Contiguous copies: the donor's buffers are written in place by its
+    next chunks, and a view of them would pin the whole capacity-deep
+    buffer out of sight of the prefix cache's byte budget.  Sound because
+    every ``prefill_chunk`` quantity at a boundary covered by full chunks
+    is a function of the prefix tokens alone (causal attention; rows past
+    ``n_total`` gated; seeds enter at finalize), so the snapshot is bitwise
+    what another request with this prefix computes at the same buffer
+    capacity."""
+    if n > state.k.shape[2]:
+        raise ValueError("snapshot deeper than the KV buffer")
+    return ChunkState(k=state.k[:, :, :n].clone(),
+                      v=state.v[:, :, :n].clone(),
+                      score=state.score.snapshot(n), pos=n)
+
+
+def resume_chunk_state(snap: ChunkState, capacity: int) -> ChunkState:
+    """Inverse of ``snapshot_chunk_state``: new ``capacity``-deep buffers
+    holding the snapshot's columns and zeros after them (bitwise a fresh
+    buffer streamed to ``pos = n``), resuming at ``pos = n``.  New
+    tensors, since the resumed request writes them in place."""
+    n = snap.k.shape[2]
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} < snapshot depth {n}")
+    shape = (snap.k.shape[:2] + (capacity,) + tuple(snap.k.shape[3:]))
+    k = torch.zeros(shape, dtype=snap.k.dtype, device=snap.k.device)
+    v = torch.zeros_like(k)
+    k[:, :, :n] = snap.k
+    v[:, :, :n] = snap.v
+    return ChunkState(k=k, v=v, score=snap.score.restore(capacity), pos=n)
+
+
 def prefill_chunk(
     params: dict,
     cfg: ModelConfig,

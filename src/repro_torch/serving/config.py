@@ -4,6 +4,8 @@ the JAX package's field names and grouping.
 * ``evict``        — prefill eviction (``common.config.EvictionConfig``)
 * ``decode_evict`` — decoding-stage eviction (``DecodeEvictionConfig``)
 * ``chunking``     — prefill chunk geometry and the token-budget step
+* ``sampling``     — ``core.policies.Sampling`` (None: greedy)
+* ``prefix_cache`` — ``serving.prefix_cache.PrefixCache`` (None: off)
 
 Fields the port's engine does not serve yet stay in the schema and make
 ``ContinuousEngine`` raise ``NotImplementedError`` naming their ROADMAP
@@ -96,9 +98,9 @@ class ServingConfig:
     num_slots: int = 4
     max_new_tokens: int = 64  # per-request cap (sizes the cache margin)
     eos_id: int = 0
-    sampling: Any = None  # None = greedy
+    sampling: Any = None  # core.policies.Sampling | None (None = greedy)
     kv_pool: Any = None  # serving.kv_pool.KVBlockPool
-    prefix_cache: Any = None
+    prefix_cache: Any = None  # serving.prefix_cache.PrefixCache | None
     reserve_appends: bool = True  # guarantee admitted requests' growth
     capture_admission: bool = False  # stash mask/pos on each Request
     mesh: Any = None

@@ -3,8 +3,8 @@
 continuous engine and the lockstep engine.
 
 ``ContinuousEngine`` streams each prompt in fixed-size chunks and
-interleaves them with a slot-batched greedy decode loop under a
-token-budget step (vLLM-style mixed steps):
+interleaves them with a slot-batched decode loop under a token-budget
+step (vLLM-style mixed steps):
 
     arrivals ──> FCFS queue ──> chunked prefill ──> finalize ──> decode slots
                                 (prefill_chunk)     (lookahead     (paged pool
@@ -46,12 +46,29 @@ mid-generation.  On the dense caches the step itself overwrites the
 lightest row once the ``margin`` rows are full
 (``attention.decode_attention_step_evicting``).
 
-This is the JAX package's ``ContinuousEngine`` with greedy decode,
-under every single-pass policy it takes (not ``gt_oracle``, which needs
-the response, nor ``full`` and the draft-based ``laq``/``speckv``, which
-cannot stream and go to ``BucketedEngine``).  ``config.lkv_checkpoint``
-loads trained lookahead modules (``core.lookahead.load_lookahead_params``)
-and ``config.harvest`` (a ``data.harvest.HarvestWriter``) is called with
+Sampling (``config.sampling``, a ``policies.Sampling``): the first token
+and every decode step draw on the device under the key
+``fold_in(PRNGKey(seed), position)`` of the request's seed
+(``Request.eviction_seed``) and the sampled token's absolute position,
+the JAX package's stream, so a preempted request replays its tokens.
+
+Prefix cache (``config.prefix_cache``, a ``serving.prefix_cache.
+PrefixCache``): admission looks the prompt up in a radix trie of
+chunk-boundary (KV, ``ScoreState``) snapshots taken by earlier requests
+under the same KV-buffer rung; a hit resumes streaming at the cached
+prefix's end, skipping its attention and its score accumulation, and a
+prompt that is exactly a cached prefix admits with no prefill chunk.  The
+resumed state is bitwise the one the request would have streamed, so
+tokens and kept sets are those of a serve without the cache.  On the
+pool the cache pins runs of pool blocks, and live requests reclaim
+unpinned ones when the pool runs dry.
+
+This is the JAX package's ``ContinuousEngine`` under every single-pass
+policy it takes (not ``gt_oracle``, which needs the response, nor
+``full`` and the draft-based ``laq``/``speckv``, which cannot stream and
+go to ``BucketedEngine``).  ``config.lkv_checkpoint`` loads trained
+lookahead modules (``core.lookahead.load_lookahead_params``) and
+``config.harvest`` (a ``data.harvest.HarvestWriter``) is called with
 every retired request.  Every other setting raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.  PyTorch
 runs eagerly, so there is no compile cache; on the card the attention
@@ -60,13 +77,14 @@ kernels run through ``kernels/ops.py``.
 ``BucketedEngine`` (the JAX package's deprecated pad-to-bucket engine)
 admits groups of one prompt-length bucket, prefills each group
 monolithically with the padding masked (``prompt_lens``) and decodes
-dense slots with the same slot loop (``_SlotDecodeMixin``); it serves
-every policy but ``gt_oracle``, including ``full`` and the draft-based
-ones.
+dense slots greedily with the same slot loop (``_SlotDecodeMixin``); it
+serves every policy but ``gt_oracle``, including ``full`` and the
+draft-based ones.
 
 ``ServingEngine`` is the JAX package's lockstep engine (deprecated there,
 kept as the paper-shaped baseline): one batch of same-length prompts,
-monolithic prefill with eviction, then greedy decode of the whole batch;
+monolithic prefill with eviction, then greedy decode of the whole batch
+(it takes no sampling, as the JAX one);
 it takes every policy but ``gt_oracle`` (``speckv`` with a draft model).
 It is the one engine of the hybrid arch (hymba: the SSM's conv tail and
 state ride the decode cache beside the evicted attention KV); the
@@ -92,6 +110,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.serving.batching import (DEFAULT_BUCKETS, _batch_bucket,
                                           _bucket_for, _pad_to_bucket)
 from repro_torch.serving.config import DecodeEvictionConfig, ServingConfig
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import (Request, RequestState,
                                            SlotScheduler, plan_step)
 
@@ -304,8 +323,6 @@ def _reject_unported(config: ServingConfig) -> None:
     item, instead of serving it differently from the JAX engine."""
     _check_policy(config.policy, streaming=True)
     unported = [
-        (config.prefix_cache is not None, "prefix cache: ROADMAP A7"),
-        (config.sampling is not None, "sampling: ROADMAP A8"),
         (config.mesh is not None, "a device mesh: ROADMAP A11"),
         (config.trace is not None or config.drift is not None
          or config.sync_timers is not None,
@@ -317,22 +334,27 @@ def _reject_unported(config: ServingConfig) -> None:
 
 
 class _InflightPrefill:
-    """Host-side cursor of the one streaming prefill in flight."""
+    """Host-side cursor of the one streaming prefill in flight.  ``tip``
+    is the deepest pinned prefix-cache entry along its prompt (the resume
+    point on a hit, then each boundary it inserts)."""
 
-    __slots__ = ("req", "state", "n", "s", "logits")
+    __slots__ = ("req", "state", "n", "s", "logits", "tip")
 
     def __init__(self, req: Request, state: tf.ChunkState, n: int):
         self.req, self.state, self.n = req, state, n
         self.s = 0
         self.logits: Optional[torch.Tensor] = None
+        self.tip = None
 
 
 class _SlotDecodeMixin:
-    """The slot-batched greedy decode loop of both continuous engines:
-    chunks of 1/2/4/... steps over per-slot cursors with an active mask.
-    Expects ``self.params``, ``cfg``, ``eos_id``, ``_chunks``, ``_tok``
-    (slots, 1) and ``counts``; the engines hook retirement through
-    ``_on_retire`` and ``_release_slot``."""
+    """The slot-batched decode loop of both continuous engines: chunks of
+    1/2/4/... steps over per-slot cursors with an active mask, greedy or
+    under ``self.sampling`` with per-slot seeds ``self._seeds_h`` (the
+    bucketed engine has neither and decodes greedily).  Expects
+    ``self.params``, ``cfg``, ``eos_id``, ``_chunks``, ``_tok`` (slots, 1)
+    and ``counts``; the engines hook retirement through ``_on_retire`` and
+    ``_release_slot``."""
 
     #: decode chunk lengths the loop picks from
     _CHUNK_SIZES = (1, 2, 4, 8, 16)
@@ -340,21 +362,27 @@ class _SlotDecodeMixin:
     def _pick_chunk(self, remaining, active) -> int:
         """Largest decode chunk no bigger than the longest remaining
         stream; slots finishing mid-chunk have their surplus tokens
-        truncated at collect time (greedy decode is prefix-stable)."""
+        truncated at collect time (decode is prefix-stable: a sampled
+        token's key depends on its position only)."""
         room = max(int(remaining[active].max()), 1)
         return max(c for c in self._chunks if c <= room)
 
     def _decode_steps(self, cache: dict, steps: int, active,
                       paged_depth: Optional[int] = None
                       ) -> tuple[dict, np.ndarray]:
-        """``steps`` greedy decode steps of every slot from ``self._tok``
+        """``steps`` decode steps of every slot from ``self._tok``
         (inactive slots keep their token and cache); returns (the cache,
-        the new tokens (slots, steps) on the host) and counts the chunk."""
+        the new tokens (slots, steps) on the host, read once for the
+        chunk) and counts the chunk."""
+        sampling = getattr(self, "sampling", None)
+        seeds = None
+        if sampling is not None:
+            seeds = torch.as_tensor(self._seeds_h.copy(), device=self.device)
         t_dec = time.perf_counter()
         self._tok, cache, toks = policies.decode_chunk(
             self.params, self.cfg, self._tok, cache, steps,
             active=torch.as_tensor(np.array(active), device=self.device),
-            paged_depth=paged_depth)
+            paged_depth=paged_depth, sampling=sampling, seeds=seeds)
         toks_np = toks.cpu().numpy()  # device sync: the tokens landed
         self.counts["decode_s"] += time.perf_counter() - t_dec
         self.counts["decode_chunks"] += 1
@@ -402,7 +430,8 @@ class ContinuousEngine(_SlotDecodeMixin):
     ``params`` and ``lkv_params`` are dicts of tensors on ``device``
     (``transformer.init_params``, ``core.lookahead.init_lookahead_params``
     or ``bridge.to_torch``); the pool, when there is one, lives there
-    too.  ``run(requests)`` serves them to completion.
+    too, and a pool-backed prefix cache must be bound to that pool.
+    ``run(requests)`` serves them to completion.
     """
 
     def __init__(self, params: dict, cfg: ModelConfig,
@@ -430,6 +459,9 @@ class ContinuousEngine(_SlotDecodeMixin):
         if pool is not None and pool.device != self.device:
             raise ValueError(f"kv pool on {pool.device}, engine on "
                              f"{self.device}")
+        pc = config.prefix_cache
+        if pc is not None and pc.pool is not None and pc.pool is not pool:
+            raise ValueError("prefix cache bound to a different block pool")
         self.config = config
         self.params, self.cfg, self.lkv_params = params, cfg, lkv_params
         # gt_oracle capture hook (the harvest half of the learning loop,
@@ -465,6 +497,14 @@ class ContinuousEngine(_SlotDecodeMixin):
         self._base_cap = self._rung(max(config.chunking.max_context,
                                         self.capacity))
         self.pool = pool
+        # sampling (None or temperature 0: greedy), keyed per slot by the
+        # request's seed
+        self.sampling = config.sampling
+        self._seeds_h = np.zeros(self.num_slots, np.int32)
+        # chunk-boundary snapshots shared across requests (prefix_cache.py)
+        self.prefix_cache: Optional[PrefixCache] = pc
+        if pc is not None:
+            pc.bind(chunk=self.chunk, policy=self.policy, model=self.params)
         # rows of every slot's decode cache: kept rows, then appends
         self._depth = self.capacity + self.decode_margin
         S = self.num_slots
@@ -474,7 +514,8 @@ class ContinuousEngine(_SlotDecodeMixin):
         #: decode-eviction scores on the pool: (L, slots, depth, KV) f32
         self._score: Optional[torch.Tensor] = None
         #: per-run counters (prefill/decode chunks and steps, seconds,
-        #: preemptions, sweeps, bounced admissions)
+        #: preemptions, sweeps, bounced admissions, prefix-cache hits,
+        #: misses, skipped prompt tokens and pool blocks reclaimed from it)
         self.counts: dict = {}
         if pool is None:
             return
@@ -533,8 +574,10 @@ class ContinuousEngine(_SlotDecodeMixin):
             out["pool"] = s
             peak = self.counts.get("max_concurrency", 0)
             if peak:
-                out["evicted"] = max(s["bytes_high_water"],
-                                     s["block_bytes"]) // peak
+                # prefix-cache pins are shared, not a request's cost
+                out["evicted"] = max(
+                    s["bytes_high_water"] - s["bytes_pinned_prefix"],
+                    s["block_bytes"]) // peak
                 out["ratio"] = out["full"] / max(out["evicted"], 1)
         return out
 
@@ -565,7 +608,9 @@ class ContinuousEngine(_SlotDecodeMixin):
                        "decode_chunks": 0, "decode_steps": 0,
                        "decode_s": 0.0, "max_concurrency": 0,
                        "preemptions": 0, "decode_evict_sweeps": 0,
-                       "admission_blocked": 0}
+                       "admission_blocked": 0, "prefix_hits": 0,
+                       "prefix_misses": 0, "prefix_tokens_skipped": 0,
+                       "prefix_blocks_reclaimed": 0}
         active = np.zeros(self.num_slots, bool)
         remaining = np.zeros(self.num_slots, np.int64)
         last_emit = np.zeros(self.num_slots, np.float64)
@@ -585,50 +630,58 @@ class ContinuousEngine(_SlotDecodeMixin):
             # run has already freed every slot at retirement)
             for s in range(self.num_slots):
                 self._release_slot(s)
+        if self.prefix_cache is not None:
+            self.counts["prefix"] = sched.prefix_stats()
         return sched.finished
 
     def _run_loop(self, sched, active, remaining, last_emit, t0) -> None:
         pf: Optional[_InflightPrefill] = None
-        while sched.has_work() or pf is not None:
-            now = time.perf_counter() - t0
-            if pf is None:
-                req = sched.next_request(now)
-                if req is not None:
-                    pf = self._begin_prefill(req)
-            if pf is not None:
-                steps = (self._pick_chunk(remaining, active) if active.any()
-                         else max(self._chunks))
-                _, n_chunks = plan_step(
-                    token_budget=self.token_budget, chunk=self.chunk,
-                    n_active=int(active.sum()), decode_steps=steps,
-                    prefill_pending=True)
-                for _ in range(n_chunks):
-                    if pf.s < pf.n:
-                        self._prefill_step(pf)
-                    if pf.s >= pf.n:
-                        self._admit(pf, sched, active, remaining, last_emit,
-                                    t0)
-                        pf = None
+        try:
+            while sched.has_work() or pf is not None:
+                now = time.perf_counter() - t0
+                if pf is None:
+                    req = sched.next_request(now)
+                    if req is not None:
+                        pf = self._begin_prefill(req)
+                if pf is not None:
+                    steps = (self._pick_chunk(remaining, active)
+                             if active.any() else max(self._chunks))
+                    _, n_chunks = plan_step(
+                        token_budget=self.token_budget, chunk=self.chunk,
+                        n_active=int(active.sum()), decode_steps=steps,
+                        prefill_pending=True)
+                    for _ in range(n_chunks):
+                        if pf.s < pf.n:  # a full prefix hit has no chunk
+                            self._prefill_step(pf)
+                        if pf.s >= pf.n:
+                            self._admit(pf, sched, active, remaining,
+                                        last_emit, t0)
+                            pf = None
+                            break
+                self.counts["max_concurrency"] = max(
+                    self.counts["max_concurrency"], len(sched.running))
+                if active.any():
+                    self._decode(sched, active, remaining, last_emit, t0)
+                elif pf is None:
+                    now2 = time.perf_counter() - t0
+                    if sched.has_arrived(now2):
+                        if self.pool is not None and not sched.running:
+                            # nothing can retire to free blocks: reclaim
+                            # prefix-cache pins or fail with a sizing error
+                            self._reclaim_for_head(sched)
+                        continue  # a request is admissible right now
+                    nxt = sched.next_arrival()
+                    if nxt is None:
                         break
-            self.counts["max_concurrency"] = max(
-                self.counts["max_concurrency"], len(sched.running))
-            if active.any():
-                self._decode(sched, active, remaining, last_emit, t0)
-            elif pf is None:
-                now2 = time.perf_counter() - t0
-                if sched.has_arrived(now2):
-                    if self.pool is not None and not sched.running and \
-                            not self._admission_gate(sched._queue[0]):
-                        raise RuntimeError(
-                            "kv pool too small for the queue head; raise "
-                            "--kv-pool-mb")
-                    continue  # a request is admissible right now
-                nxt = sched.next_arrival()
-                if nxt is None:
-                    break
-                wait = nxt - (time.perf_counter() - t0)
-                if wait > 0:
-                    time.sleep(min(wait, 0.05))
+                    wait = nxt - (time.perf_counter() - t0)
+                    if wait > 0:
+                        time.sleep(min(wait, 0.05))
+        finally:
+            # a failed run must not leak a trie pin: the cache outlives
+            # runs, and a leaked ref would pin its entry forever
+            if pf is not None and pf.tip is not None:
+                self.prefix_cache.release(pf.tip)
+                pf.tip = None
 
     def _decode(self, sched, active, remaining, last_emit, t0) -> None:
         """One decode chunk of the live slots.  On the pool, in the JAX
@@ -673,8 +726,27 @@ class ContinuousEngine(_SlotDecodeMixin):
     # -- prefill and admission ------------------------------------------------
     def _begin_prefill(self, req: Request) -> _InflightPrefill:
         n = len(req.prompt)
-        state = tf.init_chunk_state(self.cfg, self.policy, 1,
-                                    self._request_context(n),
+        cap = self._request_context(n)
+        pc = self.prefix_cache
+        if pc is not None:
+            # only snapshots streamed under this request's rung match: the
+            # condition for a bitwise resume
+            entry = pc.lookup(req.prompt, capacity=cap)
+            if entry is not None:
+                # materialize before pinning: if it raises, no pin is left
+                # that the run loop could not release
+                state, logits = pc.materialize(entry, cap)
+                pc.acquire(entry)
+                pf = _InflightPrefill(req, state, n)
+                pf.s = entry.depth
+                pf.logits = logits  # the boundary chunk's logits
+                pf.tip = entry
+                req.cached_prefix_tokens = entry.depth
+                self.counts["prefix_hits"] += 1
+                self.counts["prefix_tokens_skipped"] += entry.depth
+                return pf
+            self.counts["prefix_misses"] += 1
+        state = tf.init_chunk_state(self.cfg, self.policy, 1, cap,
                                     device=self.device)
         return _InflightPrefill(req, state, n)
 
@@ -689,6 +761,17 @@ class ContinuousEngine(_SlotDecodeMixin):
         pf.s += self.chunk
         self.counts["prefill_chunks"] += 1
         self.counts["prefill_s"] += time.perf_counter() - t_pf
+        # cache the boundary just crossed (whole chunks only: a partial
+        # final chunk holds pad rows)
+        pc = self.prefix_cache
+        if pc is not None and pf.s <= pf.n:
+            entry = pc.insert(pf.req.prompt[:pf.s], state=pf.state,
+                              logits=pf.logits, parent=pf.tip)
+            if entry is not None:
+                pc.acquire(entry)
+                if pf.tip is not None:  # the parent link keeps it now
+                    pc.release(pf.tip)
+                pf.tip = entry
 
     def _admit(self, pf, sched, active, remaining, last_emit, t0) -> None:
         r = pf.req
@@ -696,6 +779,9 @@ class ContinuousEngine(_SlotDecodeMixin):
             self.params, self.cfg, pf.state, pf.n, policy=self.policy,
             evict=self.evict, lkv_params=self.lkv_params,
             extra_slots=self.decode_margin, seeds=_seeds([r], self.device))
+        if pf.tip is not None:
+            self.prefix_cache.release(pf.tip)
+            pf.tip = None
         if self.decode_evict.enabled:
             cache = tf.add_decode_eviction_scores(cache)
         if self.capture_admission:
@@ -714,7 +800,8 @@ class ContinuousEngine(_SlotDecodeMixin):
                 self.counts["admission_blocked"] += 1
                 sched.push_front(r)
                 return
-        first = int(torch.argmax(pf.logits[0]))
+        self._seeds_h[slot] = r.eviction_seed
+        first = self._first_token(pf.logits, r.eviction_seed, pf.n)
         self._tok[slot, 0] = first
         r.out_tokens = [first]
         now = time.perf_counter() - t0
@@ -735,6 +822,20 @@ class ContinuousEngine(_SlotDecodeMixin):
         else:
             active[slot] = True
             remaining[slot] = r.max_new_tokens - 1
+
+    def _first_token(self, logits: torch.Tensor, seed: int, pos: int) -> int:
+        """The admission token: the argmax, or under ``sampling`` a draw
+        with the decode steps' key for (seed, position ``pos``)."""
+        s = self.sampling
+        if s is None or s.temperature <= 0.0:
+            return int(torch.argmax(logits[0]))
+        dev = logits.device
+        keys = policies.fold_keys(
+            torch.tensor([seed], dtype=torch.int32, device=dev),
+            torch.tensor([pos], dtype=torch.int32, device=dev))
+        return int(policies.sample_logits(
+            logits, keys, temperature=s.temperature, top_k=s.top_k,
+            top_p=s.top_p)[0])
 
     # -- paged-KV internals ----------------------------------------------------
     #
@@ -761,10 +862,62 @@ class ContinuousEngine(_SlotDecodeMixin):
         """The FCFS head admits only when the pool can cover its
         worst-case kept rows plus, under ``reserve_appends``, its whole
         future decode growth; optimistic admission asks one append
-        block."""
+        block.  Blocks the prefix cache could give back count as free:
+        the engine reclaims them on demand."""
         data, appends = self._request_blocks(len(req.prompt))
         need = data + (appends if self.reserve_appends else 1)
-        return self.pool.available_blocks() >= need
+        free = self.pool.available_blocks()
+        if self._pool_cache() is not None:
+            free += self.prefix_cache.evictable_pool_blocks()
+        return free >= need
+
+    def _pool_cache(self) -> Optional[PrefixCache]:
+        """The prefix cache when it pins blocks of this engine's pool."""
+        pc = self.prefix_cache
+        return pc if pc is not None and pc.pool is not None else None
+
+    def _reclaim(self, need: int) -> bool:
+        """Evict unpinned prefix-cache entries until ``need`` pool blocks
+        came back (``counts["prefix_blocks_reclaimed"]`` adds what did);
+        True iff they did."""
+        pc = self._pool_cache()
+        if pc is None:
+            return False
+        before = self.pool.pinned_blocks
+        ok = pc.evict_pool_blocks(need)
+        self.counts["prefix_blocks_reclaimed"] += \
+            before - self.pool.pinned_blocks
+        return ok
+
+    def _alloc_blocks(self, n: int) -> Optional[np.ndarray]:
+        """``pool.alloc`` that reclaims prefix-cache blocks when the pool
+        is short: live requests outrank cached prefixes.  The shortfall
+        counts against the available blocks (ordinary allocs may not dip
+        into reservations)."""
+        ids = self.pool.alloc(n)
+        if ids is None and self._reclaim(n - self.pool.available_blocks()):
+            ids = self.pool.alloc(n)
+        return ids
+
+    def _reserve_blocks(self, n: int) -> bool:
+        """``pool.reserve`` with ``_alloc_blocks``' reclaim: without it the
+        gate, which counts evictable prefix blocks as free, would admit
+        and the reserve refuse forever."""
+        if self.pool.reserve(n):
+            return True
+        if self._reclaim(n - self.pool.available_blocks()):
+            return self.pool.reserve(n)
+        return False
+
+    def _reclaim_for_head(self, sched) -> None:
+        """Nothing runs, yet the queue head is gated: every missing block
+        is pinned by the prefix cache.  Reclaim until the gate passes, or
+        fail with a sizing error instead of spinning."""
+        while sched._queue and not self._admission_gate(sched._queue[0]):
+            if not self._reclaim(1):
+                raise RuntimeError(
+                    "kv pool too small for the queue head even with the "
+                    "prefix cache emptied; raise --kv-pool-mb")
 
     def _paged_place(self, sched, r: Request, cache: dict) -> Optional[int]:
         """Write the admitted cache's kept rows into freshly allocated
@@ -774,7 +927,7 @@ class ContinuousEngine(_SlotDecodeMixin):
         mask = cache["attn"]["mask"]  # (L, 1, C, KV)
         rows = torch.arange(mask.shape[2], device=mask.device)[:, None]
         used = int(torch.where(mask, rows, 0).max()) + 1
-        ids = self.pool.alloc(self.pool.blocks_for(used))
+        ids = self._alloc_blocks(self.pool.blocks_for(used))
         if ids is None:
             return None
         if self._score is not None:
@@ -784,7 +937,7 @@ class ContinuousEngine(_SlotDecodeMixin):
         else:
             outstanding = sum(1 for jb in self._append_jbs
                               if jb >= len(ids))
-        if self.reserve_appends and not self.pool.reserve(outstanding):
+        if self.reserve_appends and not self._reserve_blocks(outstanding):
             self.pool.free(ids)  # the promise cannot be kept: no admission
             return None
         self.pool.write_cache(cache["attn"], ids)
@@ -820,7 +973,7 @@ class ContinuousEngine(_SlotDecodeMixin):
             ids = self.pool.alloc(1, from_reserved=True)
             self._slot_reserved[slot] -= 1
         else:
-            ids = self.pool.alloc(1)
+            ids = self._alloc_blocks(1)
         while ids is None:
             victim = self._latest_admitted_active(active)
             if victim is None:
@@ -828,7 +981,7 @@ class ContinuousEngine(_SlotDecodeMixin):
             self._preempt(victim, sched, active, remaining, last_emit)
             if not active[slot]:
                 return False  # this slot was its own latest admission
-            ids = self.pool.alloc(1)
+            ids = self._alloc_blocks(1)
         # a reallocated block may carry its previous owner's validity rows:
         # invalidate before the table exposes it (the sweep gathers through
         # the table before its scatter overwrites them)
@@ -930,12 +1083,14 @@ class ContinuousEngine(_SlotDecodeMixin):
                  last_emit) -> None:
         """Preempt-to-queue: abandon a running slot's decode state, free
         its blocks and push its request back to the queue head for a
-        re-serve from scratch (greedy decode gives the same tokens).  Its
+        re-serve from scratch (decode keyed on positions gives the same
+        tokens, greedy or sampled).  Its
         first-token stamps stay; the stall shows in ``max_gap_s``."""
         r = sched.running[slot]
         sched.requeue(r)
         r.out_tokens = []  # rebuilt, identical, by the re-serve
         r.preempt_emit_s = last_emit[slot]  # the stall starts here
+        r.cached_prefix_tokens = 0
         r.admission_cache = None
         self._release_slot(slot)
         active[slot] = False

@@ -20,6 +20,10 @@ as a cache whose missing rows are masked.
 Allocation is host-side (a free list + per-block refcounts).  Device
 writes go straight into the pool tensors, in place (the JAX package runs
 jitted functional scatters and rebinds the arrays).
+
+The prefix cache (``serving/prefix_cache.py``) pins runs of blocks for
+cached prompt prefixes (``write_span``, ``note_pinned``): they are
+allocated, but no decode slot owns them.
 """
 
 from __future__ import annotations
@@ -84,6 +88,8 @@ class KVBlockPool:
         self.high_water = 0  # peak blocks in use over the pool's lifetime
         # tail blocks that decode-eviction sweeps returned mid-generation
         self.blocks_reclaimed_decode = 0
+        # blocks pinned by resident prefix-cache entries
+        self.pinned_blocks = 0
 
     # -- geometry ---------------------------------------------------------
     @property
@@ -137,6 +143,12 @@ class KVBlockPool:
         assert 0 <= n <= self.reserved
         self.reserved -= n
 
+    def incref(self, ids) -> None:
+        """Share blocks: one more owner per block."""
+        ids = np.asarray(ids, np.int32)
+        assert (self._refs[ids] > 0).all(), "incref of an unallocated block"
+        self._refs[ids] += 1
+
     def free(self, ids) -> None:
         """Drop one reference per block; blocks return to the free list at
         refcount zero.  Double-frees and the null block fail loudly."""
@@ -155,6 +167,12 @@ class KVBlockPool:
         ids = np.asarray(ids, np.int32)
         self.free(ids)
         self.blocks_reclaimed_decode += len(ids)
+
+    def note_pinned(self, delta: int) -> None:
+        """Prefix-cache accounting: blocks pinned by resident prompt-prefix
+        entries (allocated, but owned by no decode slot)."""
+        self.pinned_blocks += delta
+        assert self.pinned_blocks >= 0
 
     # -- device views -----------------------------------------------------
     def tree(self) -> dict:
@@ -181,6 +199,21 @@ class KVBlockPool:
             x = x[:, :rows].reshape((x.shape[0], n, self.block_size)
                                     + tuple(x.shape[2:]))
             pool[:, idx] = x.to(pool.dtype)  # in place
+
+    def write_span(self, k: torch.Tensor, v: torch.Tensor,
+                   ids: np.ndarray) -> None:
+        """Store a prefix-cache span, streaming-prefill K/V columns (L, 1,
+        span, KV, hd) with span = len(ids)·bs, into blocks ``ids``, in
+        place.  K/V only: prefix blocks never enter a slot's block table,
+        so their pos/mask rows are never read."""
+        n = len(ids)
+        assert n > 0 and k.shape[2] == n * self.block_size
+        idx = torch.as_tensor(np.asarray(ids), dtype=torch.long,
+                              device=self.device)
+        for pool, x in ((self.k, k), (self.v, v)):
+            x = x[:, 0]
+            pool[:, idx] = x.reshape((x.shape[0], n, self.block_size)
+                                     + tuple(x.shape[2:])).to(pool.dtype)
 
     def zero_mask(self, ids) -> None:
         """Invalidate every row of blocks ``ids`` — required when a freed
@@ -211,9 +244,11 @@ class KVBlockPool:
             "blocks_used": used,
             "blocks_free": len(self._free),
             "blocks_reserved": self.reserved,
+            "blocks_pinned_prefix": self.pinned_blocks,
             "high_water_blocks": self.high_water,
             "bytes_total": self.usable_blocks * self.block_bytes,
             "bytes_used": used * self.block_bytes,
+            "bytes_pinned_prefix": self.pinned_blocks * self.block_bytes,
             "bytes_high_water": self.high_water * self.block_bytes,
             "metadata_bytes": (self.pos.numel() * 4 + self.mask.numel()),
             "blocks_reclaimed_decode": self.blocks_reclaimed_decode,

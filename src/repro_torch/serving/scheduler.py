@@ -94,6 +94,7 @@ class Request:
     # client-visible stall (preempt -> re-admission re-emit) still lands
     # in ``max_gap_s`` even though the request changes slots
     preempt_emit_s: Optional[float] = None
+    cached_prefix_tokens: int = 0  # prompt tokens resumed from a cache hit
     admission_cache: Optional[dict] = None  # mask/pos of the admitted cache
     # (engine's ``capture_admission`` debug flag; the parity tests compare
     # kept sets through this)
@@ -226,6 +227,22 @@ class SlotScheduler:
         req.state = RequestState.DECODE
         self.running[slot] = req
         return slot
+
+    def prefix_stats(self) -> dict:
+        """Prefix reuse over the finished requests: how many admissions
+        hit the prompt cache and what share of all prompt tokens came
+        from cached prefixes."""
+        total = sum(len(r.prompt) for r in self.finished)
+        cached = sum(r.cached_prefix_tokens for r in self.finished)
+        hits = sum(1 for r in self.finished if r.cached_prefix_tokens > 0)
+        return {
+            "requests": len(self.finished),
+            "prefix_hits": hits,
+            "hit_rate": hits / len(self.finished) if self.finished else 0.0,
+            "cached_tokens": cached,
+            "prompt_tokens": total,
+            "cached_token_frac": cached / total if total else 0.0,
+        }
 
     def retire(self, req: Request, *, now: float) -> int:
         """Free the request's slot; returns it for the engine to reuse."""

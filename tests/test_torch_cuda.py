@@ -932,3 +932,75 @@ def test_checkpoint_round_trips_on_the_card(dev, tmp_path):
                            b.reshape(-1).view(torch.uint8)), name
     assert isinstance(back["opt"], adam.AdamState)
     assert ckpt.metadata(p) == {"step": 7}
+
+
+def test_random_stream_on_the_card_equals_the_cpu(dev):
+    """The sampler's random stream on the card: keys, bits, uniforms and
+    Gumbel noise of a (4, V) draw per row key, and the sampled ids, equal
+    the CPU's (the bits exactly; the logs within an ulp of the CPU's)."""
+    from repro_torch.core import eviction as ev
+    from repro_torch.core import policies
+
+    seeds = torch.tensor([0, 7, 2**31 - 1, 123], dtype=torch.int32)
+    pos = torch.tensor([1, 4096, 77, 100000], dtype=torch.int32)
+    V = 128256
+    keys = {d: policies.fold_keys(seeds.to(d), pos.to(d))
+            for d in ("cpu", dev)}
+    for a, b in zip(keys["cpu"], keys[dev]):
+        assert torch.equal(a, b.cpu())
+    bits = [ev.random_bits(keys[d], (V,)).cpu() for d in ("cpu", dev)]
+    assert torch.equal(*bits)
+    tiny = float(torch.finfo(torch.float32).tiny)
+    u = [ev.uniform(keys[d], (V,), minval=tiny).cpu() for d in ("cpu", dev)]
+    assert torch.equal(u[0].view(torch.int32), u[1].view(torch.int32))
+    g = [ev.gumbel(keys[d], (V,)).cpu() for d in ("cpu", dev)]
+    ulp = torch.finfo(torch.float32).eps * g[0].abs().clamp(min=1.0)
+    assert bool(((g[0] - g[1]).abs() <= 2 * ulp).all())
+    k1, k2 = ev.split(ev.PRNGKey(11), 9)
+    c1, c2 = ev.split((ev.PRNGKey(11)[0].to(dev), ev.PRNGKey(11)[1].to(dev)),
+                      9)
+    assert torch.equal(k1, c1.cpu()) and torch.equal(k2, c2.cpu())
+    logits = torch.randn((4, V), generator=torch.Generator().manual_seed(3))
+    ids = [policies.sample_logits(logits.to(d), keys[d], temperature=0.7,
+                                  top_k=50, top_p=0.9).cpu()
+           for d in ("cpu", dev)]
+    assert torch.equal(*ids)
+
+
+@pytest.mark.parametrize("pooled", [False, True])
+def test_prefix_cache_round_trip_on_the_card(dev, pooled):
+    """Insert two chunk boundaries of a streamed h2o prefill into a prefix
+    cache on the card (private copies, or pinned pool blocks), then
+    materialize: K/V, the accumulator and the count are bitwise the
+    streamed state, with a zero tail."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import KVBlockPool, PrefixCache
+
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"), dtype="bfloat16")
+    params = tf.init_params(cfg, seed=0, device=dev)
+    pool = (KVBlockPool(cfg, block_size=16, num_blocks=32, device=dev)
+            if pooled else None)
+    cache = PrefixCache(chunk=32, max_bytes=1 << 30, pool=pool)
+    toks = torch.randint(0, cfg.vocab_size, (1, 96),
+                         generator=torch.Generator().manual_seed(4))
+    state = tf.init_chunk_state(cfg, "h2o", 1, 128, device=dev)
+    tip = None
+    for s in (0, 32):
+        state, logits = tf.prefill_chunk(params, cfg, state,
+                                         toks[:, s:s + 32].to(dev), 96,
+                                         policy="h2o")
+        tip = cache.insert(toks[0, :s + 32].numpy(), state=state,
+                           logits=logits, parent=tip)
+    got, got_logits = cache.materialize(tip, 128)
+    assert got.pos == 64 and torch.equal(got_logits, logits)
+    for a, b in ((got.k, state.k), (got.v, state.v),
+                 (got.score.acc, state.score.acc)):
+        assert torch.equal(a[..., :64, :, :] if a.dim() == 5 else a[..., :64],
+                           b[..., :64, :, :] if b.dim() == 5 else b[..., :64])
+    assert not got.k[:, :, 64:].any() and not got.score.acc[..., 64:].any()
+    assert got.score.cnt == state.score.cnt == 64
+    if pooled:
+        assert pool.pinned_blocks == 4

@@ -2,10 +2,10 @@
 the CPU: the synthetic training mixture, the prefix-shared serving trace
 and the trace harvest.
 
-* ``MixtureIterator`` (synthetic answers, and answers generated greedily
-  by the model) and ``make_prefix_trace`` give arrays equal to JAX's for
-  the same seed: the numpy streams are kept draw for draw, including the
-  key JAX draws for its sampler;
+* ``MixtureIterator`` (synthetic answers, and answers generated by the
+  model, greedy and sampled) and ``make_prefix_trace`` give arrays equal
+  to JAX's for the same seed: the numpy streams are kept draw for draw,
+  including the key the sampler draws;
 * ``harvest_trace`` on the float32 llama3-8b smoke model (JAX parameters
   bridged) serves the same trace through the port's ``ContinuousEngine``
   under h2o and writes the same records: ``x`` and ``y`` exactly, every
@@ -82,17 +82,18 @@ def test_mixture_matches_jax_with_synthetic_answers(model):
 
 
 def test_mixture_matches_jax_with_generated_answers(model):
-    """Y decoded greedily by the model on each side; the streams stay in
-    step after JAX's key draw (the next batch's prompts agree too)."""
-    j = jsyn.MixtureIterator(model["jcfg"], 2, 24, 4, seed=6,
-                             gen_params=model["jp"])
-    t = tsyn.MixtureIterator(model["tcfg"], 2, 24, 4, seed=6,
-                             gen_params=model["tp"])
-    for _ in range(3):
-        _assert_batches_equal(next(j), next(t))
-    with pytest.raises(NotImplementedError, match="A8"):
-        tsyn.MixtureIterator(model["tcfg"], 2, 24, 4, gen_params=model["tp"],
-                             temperature=0.7)
+    """Y decoded by the model on each side, greedily and sampled at
+    temperature 0.7 from the key JAX draws from the stream; the streams
+    stay in step (the next batch's prompts agree too)."""
+    for temperature in (0.0, 0.7):
+        j = jsyn.MixtureIterator(model["jcfg"], 2, 24, 4, seed=6,
+                                 gen_params=model["jp"],
+                                 temperature=temperature)
+        t = tsyn.MixtureIterator(model["tcfg"], 2, 24, 4, seed=6,
+                                 gen_params=model["tp"],
+                                 temperature=temperature)
+        for _ in range(3):
+            _assert_batches_equal(next(j), next(t))
 
 
 @pytest.mark.parametrize("kw", [{}, dict(chunk=256),

@@ -35,7 +35,7 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 print("MODULES", len([n for n in sys.modules if n.startswith("repro_torch")]))
 print("BAD", bad)
-print("MISSING", sorted(set(LEARNING_LOOP) - set(sys.modules)))
+print("MISSING", sorted(set(MUST_REACH) - set(sys.modules)))
 """
 
 # the learning loop's modules (ROADMAP A9), which the sweep must reach
@@ -43,12 +43,14 @@ LEARNING_LOOP = ("repro_torch.checkpoint.io", "repro_torch.core.objective",
                  "repro_torch.optim.adam", "repro_torch.data.synthetic",
                  "repro_torch.data.harvest", "repro_torch.launch.steps",
                  "repro_torch.launch.train")
+# ... and the rest the sweep must reach: the prefix cache (ROADMAP A7)
+MUST_REACH = LEARNING_LOOP + ("repro_torch.serving.prefix_cache",)
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
-    probe = f"LEARNING_LOOP = {LEARNING_LOOP!r}\n" + _PROBE
+    probe = f"MUST_REACH = {MUST_REACH!r}\n" + _PROBE
     res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

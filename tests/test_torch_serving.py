@@ -39,7 +39,8 @@ from repro_torch.data.harvest import HarvestConfig, HarvestWriter, load_records
 from repro_torch.launch import serve
 from repro_torch.models import transformer as ttf
 from repro_torch.serving import (ChunkingConfig, ContinuousEngine,
-                                 KVBlockPool, Request, ServingConfig)
+                                 KVBlockPool, PrefixCache, Request, Sampling,
+                                 ServingConfig)
 
 
 def _cfg():
@@ -210,17 +211,59 @@ def test_engine_matches_jax_paged_engine():
     # the draft-based policies cannot stream: the JAX engine's words
     (dict(policy="laq"), ValueError, "cannot stream; use BucketedEngine"),
     (dict(policy="speckv"), ValueError, "cannot stream; use BucketedEngine"),
-    (dict(prefix_cache=object()), NotImplementedError, "A7"),
-    (dict(sampling=object()), NotImplementedError, "A8"),
+    # the prefix cache (A7) and sampling (A8) are served: no refusal
+    (dict(prefix_cache="pool"), None, "A7"),
+    (dict(sampling=Sampling(temperature=0.7, top_k=50, top_p=0.9)), None,
+     "A8"),
     (dict(mesh=object()), NotImplementedError, "A11"),
     (dict(trace=object()), NotImplementedError, "A12"),
-])
+], ids=[  # the ids of the former refusal table, kept
+    "change0-ValueError-cannot stream; use BucketedEngine",
+    "change1-ValueError-cannot stream; use BucketedEngine",
+    "change2-NotImplementedError-A7", "change3-NotImplementedError-A8",
+    "change4-NotImplementedError-A11", "change5-NotImplementedError-A12"])
 def test_engine_refuses_unported_settings(change, exc, item):
+    """The settings still unported raise naming their ROADMAP item; the
+    prefix cache and sampling serve: on a smoke model with a shared
+    16-token prefix, the cache hits and changes no token, and sampled
+    tokens replay across runs and differ from the greedy ones."""
     cfg = _cfg()
-    sc = ServingConfig(kv_pool=KVBlockPool(cfg, num_blocks=64, device="cpu"))
-    with pytest.raises(exc, match=item):
-        ContinuousEngine({}, cfg, sc.replace(**change), lkv_params={},
-                         device="cpu")
+    if exc is not None:
+        sc = ServingConfig(kv_pool=KVBlockPool(cfg, num_blocks=64,
+                                               device="cpu"))
+        with pytest.raises(exc, match=item):
+            ContinuousEngine({}, cfg, sc.replace(**change), lkv_params={},
+                             device="cpu")
+        return
+    cfg, params, lkv = _smoke_model()
+    shared = np.random.default_rng(8).integers(0, cfg.vocab_size, 16)
+    reqs = _smoke_requests(cfg, max_new=5)
+    for r in reqs:
+        r.prompt = np.concatenate([shared, r.prompt]).astype(np.int32)
+
+    def serve(**config):
+        pool = KVBlockPool(cfg, block_size=8, num_blocks=48, device="cpu")
+        if config.get("prefix_cache") == "pool":
+            config["prefix_cache"] = PrefixCache(chunk=16, max_bytes=1 << 30,
+                                                 pool=pool)
+        sc = ServingConfig(evict=EvictionConfig(budget=16),
+                           chunking=ChunkingConfig(chunk=16, max_context=80),
+                           num_slots=2, max_new_tokens=5, eos_id=-1,
+                           kv_pool=pool, **config)
+        eng = ContinuousEngine(params, cfg, sc, lkv_params=lkv, device="cpu")
+        done = eng.run([Request(uid=r.uid, prompt=r.prompt,
+                                max_new_tokens=5) for r in reqs])
+        return {r.uid: r.out_tokens for r in done}, eng
+
+    plain, _ = serve()
+    got, eng = serve(**change)
+    if item == "A7":
+        assert got == plain
+        assert eng.counts["prefix_hits"] == 2
+        assert eng.counts["prefix_tokens_skipped"] == 32
+    else:
+        assert got == serve(**change)[0] != plain
+        assert all(len(t) == 5 for t in got.values())
 
 
 def _smoke_model(seed=0):
@@ -295,8 +338,17 @@ def test_serve_launcher_on_cpu(capsys):
                 "--prompt-lens", "40,70,9", "--max-new", "4"])
     out = capsys.readouterr().out
     assert "requests=3" in out and out.count("4 tokens") == 3
-    with pytest.raises(NotImplementedError, match="A7"):
-        serve.parse_args(["--kv-pool-mb", "1", "--prefix-cache-mb", "8"])
+    # --prefix-cache-mb and --shared-prefix serve (ROADMAP A7): the second
+    # and third requests resume from the first's 64-token prefix
+    serve.main(["--arch", "tiny-llama", "--smoke", "--device", "cpu",
+                "--continuous", "--kv-pool-mb", "1", "--prefix-cache-mb", "1",
+                "--shared-prefix", "70", "--budget", "16", "--chunk", "32",
+                "--prompt-lens", "40,70,9", "--n-in", "160", "--max-new",
+                "4"])
+    out = capsys.readouterr().out
+    assert "requests=3" in out and out.count("4 tokens") == 3
+    assert "prefix cache: hit-rate 0.67, 128/311 prompt tokens served " \
+        "from shared prefixes" in out
     with pytest.raises(KeyError, match="A10"):
         serve.run(["--arch", "gemma3-1b", "--smoke", "--kv-pool-mb", "1",
                    "--device", "cpu"])
