@@ -418,11 +418,11 @@ def time_key_splits(root: str, torch, chip_smoke) -> None:
                                           window=window)
         for rule_name, counts, picked in (
                 ("key_splits", (1, 2, 4, 8, 16, 24, 32),
-                 lk.key_splits(B, n_obs, H, KV, visible, sms)),
+                 lk.key_splits(B, n_obs, H, KV, visible, sms, hd)),
                 ("column_tiles", (1, 2, 4, 8),
                  lk.column_tiles(B, n_obs, H, KV, hd, n_prompt,
                                  lk.key_splits(B, n_obs, H, KV, visible,
-                                               sms), sms))):
+                                               sms, hd), sms))):
             rule = getattr(lk, rule_name)
             times = []
             for n in counts:

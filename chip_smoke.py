@@ -10,18 +10,20 @@ kernel's plain version):
    sm_90a into ``build/repro_torch/`` (one nvcc per source, all at once;
    rebuilt when a source's hash changes), and check with ``cuobjdump
    -sass`` that each instantiation of the Hopper tile
-   (``attention_sm90.cuh``: kernel 7's eight, with and without its key
+   (``attention_sm90.cuh``: kernel 7's twelve, with and without its key
    mask, kernel 1's and kernel 2's
-   first launch at hd 64 and 128, kernel 2's ``column_masses_sm90``)
+   first launch at hd 64, 128 and 256, kernel 2's ``column_masses_sm90``)
    holds HGMMA (wgmma) and UTMALDG (TMA loads), and with nvcc's
    ``-Xptxas -v`` that none of them, nor kernels 1's and 2's merges of a
    split key range (``combine_splits``), spills; print their registers
    (a ``chunk_attention`` library left by an earlier run is built again
-   for that report); likewise each of the 12 instantiations of kernels 4
+   for that report); likewise each of the 16 instantiations of kernels 4
    and 5 (``decode_split.cuh``: 2 kernels x float32 / bf16 x hd 32, 64,
-   128), the 6 of kernel 6 on the same routine (float32 / bf16 x 3 hd)
-   and the 6 of kernel 3's tensor-core kernels (launches (a) and (b),
-   bf16, 3 hd) must have a ``-Xptxas -v`` entry and spill nothing.
+   128, 256), the 8 of kernel 6 on the same routine (float32 / bf16 x 4
+   hd) and the 8 of kernel 3's tensor-core kernels (launches (a) and (b),
+   bf16, 4 hd) must have a ``-Xptxas -v`` entry and spill nothing; and
+   every one of the 24 instantiations at head dim 256 (the float32
+   kernels of kernels 1, 2 and 3 too) spills nothing.
 1. Hold each kernel against its plain PyTorch version on the card, in
    bfloat16, at the shapes of the main paths (llama3-8b: H=32, KV=8,
    hd=128; chunk 256 and the 32-row observation pass over a 4096-deep
@@ -83,6 +85,17 @@ kernel's plain version):
    (the two timed shapes).
    Time kernel, plain version and, where one PyTorch call computes the
    same function, that call (library_ms), each call on a cold L2.
+   Then every attention kernel (1-7, 7m) at head dim 256
+   (``phase_kernels_hd256``), at gemma3-1b's main-path shapes (4 query
+   heads, 1 kv head): kernel 1 at C 256 of 3840 of 4096 with window 512
+   and without, and the 32-row observation pass; kernel 2 on that chunk;
+   kernel 3 on 32 rows at 4000 of 4096, window 512 and none; kernels 4
+   and 5 over 4 slots x 19 and 20 blocks of 16 with window 512; kernel 6
+   over 4 x 289 rows under a per-kv-head mask; kernel 7 over 4 x 2080,
+   causal and window 512; 7m over 3k's padded 4 x 1024; each timed
+   beside its bound and SDPA where one call computes it, and each also
+   in float32 and at its edges (ragged C, K and S, windows below a
+   64-key tile, a GQA group of 8, forced cluster splits).
 2. Serve through the port's engines on the llama3-8b smoke config in
    float32, once on the card and once on the CPU: the paged and the dense
    continuous engine (3 requests each), the lockstep engine (a batch of
@@ -101,6 +114,9 @@ kernel's plain version):
    request's batch-1 lockstep run on the card.  Then the SSM archs: hymba-smoke's
    lockstep engine under lookaheadkv and h2o, and mamba2-smoke's prefill
    and 8 decode steps; greedy tokens identical, kernel 8 launched.  Then
+   gemma3's smoke config at head dim 256 (window 16 on layer 0, layer 1
+   global) through the paged, dense-slot and lockstep engines, and
+   qwen2's through the paged engine (``phase_dense_arch_parity``).  Then
    the learning loop at llama3-8b smoke width in float32: three
    ``make_train_step`` steps on the same synthetic batches on the card
    and on the CPU (losses within 1e-4 relative, lkv leaves within
@@ -175,6 +191,15 @@ kernel's plain version):
       3a's greedy ones; its decode ms/step beside 3a's (run after 4a),
       and (4m) one sampled decode chunk alone under the profiler, its
       launches per step beside 4a's.
+   n-s. the dense archs at full width (``phase_dense_archs``, after 3h),
+      one model on the card at a time, each with the launches
+      ``EXACT_LAUNCHES`` predicts: n. gemma3-1b paged continuous (3a's
+      traffic: kernels 1, 3, 4 at hd 256, each layer its own window);
+      r. gemma3-1b paged h2o with decode-time eviction (kernels 2 and 5
+      at hd 256); o. gemma3-1b lockstep 4 x 2048 (kernels 7, 3, 6); s.
+      gemma3-1b bucketed full (3k's traffic: 7m); p. qwen2-1.5b paged
+      continuous (3a's traffic); q. smollm-135m, then minitron-8b,
+      lockstep 4 x 2048.
 4. Where the time goes, with torch.profiler: (a) one more 2048-token
    request on the engine of 3a, then one decode chunk alone; (b) one
    more lockstep batch on the engine of 3b; (c) on the engine of 3d,
@@ -337,6 +362,14 @@ RECORDED_MS = {
     "flash_attention hymba global": 0.2297,
     "decode_attention": 0.0328, "decode_attention hymba local": 0.0208,
     "ssd_scan": 0.6453, "ssd_scan mamba2": 1.2862,
+    # head dim 256 at gemma3-1b's shapes (the first full run that timed them)
+    "chunk_attention hd256 window": 0.0198, "chunk_attention hd256": 0.0407,
+    "chunk_attention hd256 obs pass": 0.0302,
+    "chunk_attention_masses hd256": 0.0296,
+    "lookahead_score hd256 window": 0.0245, "lookahead_score hd256": 0.0313,
+    "paged_decode_attention hd256": 0.0138,
+    "paged_decode_masses hd256": 0.0188, "decode_attention hd256": 0.0130,
+    "flash_attention hd256": 0.1208, "flash_attention hd256 window": 0.0600,
 }
 
 
@@ -385,8 +418,11 @@ def calls_of_trace(events: list, n_calls: int) -> list:
 
 
 def versus(key: str, ms: float) -> str:
-    """This run's time beside the recorded one."""
-    rec = RECORDED_MS[key]
+    """This run's time beside the recorded one (none yet for a shape
+    first timed in this script's newest phase-1 cases)."""
+    rec = RECORDED_MS.get(key)
+    if rec is None:
+        return f"{ms:.4f} ms (no recorded time)"
     return f"{ms:.4f} ms (recorded {rec:.4f}, {ms / rec - 1:+.1%})"
 
 
@@ -487,6 +523,9 @@ def phase_kernels(torch, mods) -> list:
     # throughout (float32 eps 2^-23, logits of a few units through exp):
     # 2^-16
     REL_CHUNK, REL_PAGED, REL_SCORE = 2 ** -5, 2 ** -7, 2 ** -16
+    # float32 attention on the FMA kernels: float32 throughout, sums in
+    # another order than the plain version's
+    REL_F32 = 2 ** -13
     H, KV, hd = 32, 8, 128
     HYMBA_HEADS = (25, 5, 64)  # hymba-1.5b's attention: q heads, kv, hd
     G = H // KV
@@ -502,14 +541,17 @@ def phase_kernels(torch, mods) -> list:
     # at a general q_offset: 128-row query tiles, 128-key tiles aligned to
     # position 0, the causal diagonal at q_offset + row
     def chunk_case(B, C, K, off, window, label, timed=None,
-                   heads=(H, KV, hd)):
+                   heads=(H, KV, hd), dtype=bf16):
         Hs, KVs, hds = heads
-        q, k, v = (randn(B, C, Hs, hds), randn(B, K, KVs, hds),
-                   randn(B, K, KVs, hds))
+        q, k, v = (randn(B, C, Hs, hds).to(dtype),
+                   randn(B, K, KVs, hds).to(dtype),
+                   randn(B, K, KVs, hds).to(dtype))
         got = ck.chunk_attention(q, k, v, q_offset=off, window=window)
         torch.cuda.synchronize()
         want = ref.chunk_attention(q, k, v, q_offset=off, window=window)
-        err = check_rows(torch, got, want, REL_CHUNK,
+        # float32 runs the FMA kernel: float32 throughout, another order
+        err = check_rows(torch, got, want,
+                         REL_CHUNK if dtype == bf16 else REL_F32,
                          f"chunk_attention {label}")
         if not timed:
             return None
@@ -525,12 +567,17 @@ def phase_kernels(torch, mods) -> list:
         qpos = off + torch.arange(C, device=dev)
         kpos = torch.arange(K, device=dev)
         mask = kpos[None, :] <= qpos[:, None]
+        if window:
+            mask &= qpos[:, None] - kpos[None, :] < window
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask))
-        vis = torch.clamp(qpos + 1, max=K).sum().item()
+        vis = int(mask.sum())  # visible (row, key) pairs of one head
         n_ops = 4 * hds * Hs * B * vis
+        # the keys some row sees, each read once
+        n_keys = min(K, off + C) - (max(0, off - window + 1) if window
+                                    else 0)
         n_bytes = itemsize * (2 * B * C * Hs * hds
-                              + 2 * B * min(K, off + C) * KVs * hds)
+                              + 2 * B * n_keys * KVs * hds)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
         splits = ck.key_splits(
             B, C, Hs, K, hds, q.dtype, q_offset=off, window=window,
@@ -610,17 +657,23 @@ def phase_kernels(torch, mods) -> list:
         kt = k.repeat_interleave(Hq // KVs, dim=2).transpose(1, 2)
         vt = v.repeat_interleave(Hq // KVs, dim=2).transpose(1, 2)
         qpos = off + torch.arange(C, device=dev)
-        mask = torch.arange(K, device=dev)[None, :] <= qpos[:, None]
+        kpos = torch.arange(K, device=dev)
+        mask = kpos[None, :] <= qpos[:, None]
+        if window:
+            mask &= qpos[:, None] - kpos[None, :] < window
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask))
-        vis = torch.clamp(qpos + 1, max=K).sum().item()
+        vis = int(mask.sum())  # visible (row, key) pairs of one head
         n_ops = 4 * hds * Hq * B * vis  # Q.K^T and P.V once each
+        n_keys = min(K, off + C) - (max(0, off - window + 1) if window
+                                    else 0)
         n_bytes = (itemsize * (2 * B * C * Hq * hds
-                               + 2 * B * min(K, off + C) * KVs * hds)
+                               + 2 * B * n_keys * KVs * hds)
                    + 4 * B * Hq * K)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+        key = timed if isinstance(timed, str) else "chunk_attention_masses"
         print(f"  chunk_attention_masses {label}: "
-              f"{versus('chunk_attention_masses', ms)}, plain {plain:.4f} "
+              f"{versus(key, ms)}, plain {plain:.4f} "
               f"ms, sdpa (out half) {lib:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by})")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -731,7 +784,7 @@ def phase_kernels(torch, mods) -> list:
         want = ref.lookahead_score(q, k, n_prompt, **kw)
         err, tol = max_err(got, want), tolerance(want, REL_SCORE)
         n_split = lk.key_splits(B, n_obs, Hs, KVs, min(
-            Sk, (n_prompt if off is None else off) + n_obs), sms)
+            Sk, (n_prompt if off is None else off) + n_obs), sms, hds)
         print(f"  lookahead_score {label}: max_abs_err {err:.3e} "
               f"(tol {tol:.3e} = 2^-16 max|plain|); {n_split} key "
               "split(s)")
@@ -755,9 +808,11 @@ def phase_kernels(torch, mods) -> list:
         ms = time_ms(torch, call)
         plain = time_ms(torch, lambda: ref.lookahead_score(q, k, n_prompt,
                                                            **kw), iters=5)
-        vis_keys = min(Sk, off + n_obs)
-        n_ops = 2 * hds * Hs * B * sum(min(Sk, off + i + 1)
-                                       for i in range(n_obs))
+        first = max(0, off - window + 1) if window else 0
+        vis_keys = min(Sk, off + n_obs) - first
+        n_ops = 2 * hds * Hs * B * sum(
+            min(Sk, off + i + 1) - (max(0, off + i - window + 1) if window
+                                    else 0) for i in range(n_obs))
         n_bytes = (itemsize * (B * n_obs * Hs * hds
                                + B * vis_keys * KVs * hds)
                    + 4 * B * Hs * n_prompt)
@@ -835,8 +890,10 @@ def phase_kernels(torch, mods) -> list:
 
 
     def paged_case(label, window, timed=False, edge=False, one_live=False,
-                   splits=None):
+                   splits=None, heads=(H, KV, hd), key=None):
         B, bs, nb, N = 4, 16, 19, 129
+        H, KV, hd = heads
+        G = H // KV
         q = randn(B, H, hd)
         kp, vp = randn(N, bs, KV, hd), randn(N, bs, KV, hd)
         pos = torch.randint(0, 4100, (N, bs, KV), generator=g, device=dev,
@@ -891,12 +948,17 @@ def phase_kernels(torch, mods) -> list:
         qd = q[:, :, None, :]
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=md), iters=50)
-        rows_valid = int(ref.gather_paged(mask, table).sum())  # (row, kv head)
+        live = ref.gather_paged(mask, table)  # (row, kv head) pairs
+        if window:
+            live &= (new_pos[:, None, None]
+                     - ref.gather_paged(pos, table)) < window
+        rows_valid = int(live.sum())
         n_ops = 4 * hd * G * rows_valid
         n_bytes = (itemsize * (2 * rows_valid * hd + 2 * B * H * hd)
                    + B * S * KV + 4 * B * nb)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        key = "paged_decode_attention" + (" one live" if one_live else "")
+        key = key or ("paged_decode_attention"
+                      + (" one live" if one_live else ""))
         print(f"  paged_decode_attention {label}: {versus(key, ms)}, "
               f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} "
               f"ms ({b_by}, {rows_valid} valid rows of {B * S * KV})")
@@ -916,7 +978,8 @@ def phase_kernels(torch, mods) -> list:
         replaces="src/repro/kernels/paged_attention.py:101", **main4))
 
     def masses_case(label, *, heads=(H, KV, hd), bs=16, nb=20, window=None,
-                    layout=None, dtype="bfloat16", splits=None, timed=False):
+                    layout=None, dtype="bfloat16", splits=None, timed=False,
+                    key=None):
         """Kernels 5 and 4 on one input at the decode-eviction route's
         shape (4 slots, a window of capacity 256 + interval 64 = 20 blocks
         of 16) or an edge of ``PAGED_EDGES``: kernel 5's ``out`` must be
@@ -997,12 +1060,16 @@ def phase_kernels(torch, mods) -> list:
             ref.paged_decode_attention(q, kp, vp, mask, table, **kw),
             ref.paged_decode_masses(q, kp, mask, table, **kw)), iters=10)
         S = nb * bs
-        rows_valid = int(ref.gather_paged(mask, table).sum())
+        live = ref.gather_paged(mask, table)
+        if window:
+            live &= (new_pos[:, None, None]
+                     - ref.gather_paged(pos, table)) < window
+        rows_valid = int(live.sum())
         n_ops = 4 * hdq * Gq * rows_valid
         n_bytes = (itemsize * (2 * rows_valid * hdq + 2 * B * Hq * hdq)
                    + B * S * KVq + 4 * B * nb + 4 * B * Hq * S)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        key = "paged_decode_masses" + (" one live" if layout else "")
+        key = key or ("paged_decode_masses" + (" one live" if layout else ""))
         print(f"  paged_decode_masses {label}: {versus(key, ms)}, plain "
               f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {rows_valid} "
               f"valid rows of {B * S * KVq}); no single library call "
@@ -1027,15 +1094,17 @@ def phase_kernels(torch, mods) -> list:
     # its edges are 128-row query tiles of two 64-row warpgroups and
     # 128-key K/V tiles
     def flash_case(B, S, causal, window, label, timed=None,
-                   heads=(H, KV, hd)):
+                   heads=(H, KV, hd), dtype=bf16):
         Hs, KVs, hds = heads
-        q, k, v = (randn(B, S, Hs, hds), randn(B, S, KVs, hds),
-                   randn(B, S, KVs, hds))
+        q, k, v = (randn(B, S, Hs, hds).to(dtype),
+                   randn(B, S, KVs, hds).to(dtype),
+                   randn(B, S, KVs, hds).to(dtype))
         kw = dict(causal=causal, window=window)
         got = fk.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         want = ref.flash_attention(q, k, v, **kw)
-        err = check_rows(torch, got, want, REL_CHUNK,
+        err = check_rows(torch, got, want,
+                         REL_CHUNK if dtype == bf16 else REL_F32,
                          f"flash_attention {label}")
         if not timed:
             return None
@@ -1135,7 +1204,7 @@ def phase_kernels(torch, mods) -> list:
         want = ref.flash_attention(q, k, v, **kw)
         # float32 runs the FMA kernel: float32 throughout, another order
         err = check_rows(torch, got, want,
-                         REL_CHUNK if dtype == bf16 else 2 ** -13,
+                         REL_CHUNK if dtype == bf16 else REL_F32,
                          f"masked flash_attention {label}")
         if not timed:
             return None
@@ -1198,7 +1267,7 @@ def phase_kernels(torch, mods) -> list:
     # -- kernel 6: dense decode attention, rows split over a cluster ---------
     def decode_case(label, kind, timed=False, timed_kernel=None,
                     heads=(H, KV, hd), window=None, C=289, splits=None,
-                    dtype=bf16):
+                    dtype=bf16, key="decode_attention"):
         B = 4  # C: budget 256 + 33 append rows
         Hs, KVs, hds = heads
         Gs = Hs // KVs
@@ -1263,7 +1332,7 @@ def phase_kernels(torch, mods) -> list:
         n_bytes = (itemsize * (2 * rows_valid * hds + 2 * B * Hs * hds)
                    + B * C * KVs)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        print(f"  decode_attention {label}: {versus('decode_attention', ms)}"
+        print(f"  decode_attention {label}: {versus(key, ms)}"
               f", plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}, {rows_valid} valid rows of "
               f"{B * C * KVs})")
@@ -1408,7 +1477,173 @@ def phase_kernels(torch, mods) -> list:
         name="ssd_scan", route="cuda",
         source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:75", **main8))
+    results += phase_kernels_hd256(
+        torch, chunk_case, masses_chunk_case, score_case, paged_case,
+        masses_case, decode_case, flash_case, masked_flash_case)
     return results
+
+
+#: gemma3-1b's attention (4 query heads, 1 kv head of 256; window 512 on
+#: 22 of its 26 layers) and the heads of a G 8 group at hd 256 (two row
+#: blocks of kernel 3)
+GEMMA_HEADS = (4, 1, 256)
+GEMMA_WINDOW = 512
+
+
+def phase_kernels_hd256(torch, chunk_case, masses_chunk_case, score_case,
+                        paged_case, masses_case, decode_case, flash_case,
+                        masked_flash_case) -> list:
+    """Phase 1 at head dim 256: every attention kernel at gemma3-1b's
+    main-path shapes in bf16, with its local layers' window 512 and
+    without (its global layers), timed beside its plain version, its
+    bound and SDPA where one call computes the same function; each also
+    in float32 and at its edges (ragged C and K, a window below a key
+    tile, rows and keys around a tile, a GQA group of 8).  The cases are
+    phase 1's own, with gemma3's heads; returns the timed main cases."""
+    f32 = torch.float32
+    gh, w = GEMMA_HEADS, GEMMA_WINDOW
+    out = []
+
+    def entry(name, source, replaces, res):
+        out.append(dict(name=name, route="cuda", source=source,
+                        replaces=replaces, **res))
+
+    sm90 = "src/repro_torch/csrc/attention_sm90.cuh"
+    print("  -- head dim 256 (gemma3-1b: 4 query heads, 1 kv head) --")
+    # kernel 1: the prefill chunk of a local and of a global layer, and the
+    # observation pass
+    k1w = chunk_case(1, 256, 4096, 3840, w, "hd256 C=256 off=3840 window "
+                     "512", timed="chunk_attention hd256 window", heads=gh)
+    k1 = chunk_case(1, 256, 4096, 3840, None, "hd256 C=256 off=3840",
+                    timed="chunk_attention hd256", heads=gh)
+    k1o = chunk_case(1, 32, 4096, 4000, None, "hd256 obs pass C=32 "
+                     "off=4000", timed="chunk_attention hd256 obs pass",
+                     heads=gh)
+    chunk_case(1, 32, 4096, 4000, w, "hd256 obs pass window 512", heads=gh)
+    for args in ((1, 1, 100, 0, None, "C=1 K=100"),
+                 (1, 129, 1000, 100, None, "C=129 off=100 K=1000"),
+                 (1, 256, 1000, 700, None, "K=1000 (ragged key tile)"),
+                 (1, 256, 4096, 3840, 32, "window 32 (below a key tile)"),
+                 (1, 200, 1000, 650, 100, "window 100 mid-tile"),
+                 (3, 129, 1000, 100, None, "B=3"),
+                 (1, 1024, 1024, 0, None, "2 key splits, one empty")):
+        chunk_case(*args[:5], "hd256 edge " + args[5], heads=gh)
+    chunk_case(1, 100, 1000, 700, None, "hd256 G 8", heads=(8, 1, 256))
+    chunk_case(1, 129, 1000, 100, 48, "hd256 float32 window 48", heads=gh,
+               dtype=f32)
+    chunk_case(1, 256, 4096, 3840, w, "hd256 float32 C=256 window 512",
+               heads=gh, dtype=f32)
+    entry("chunk_attention hd256", sm90,
+          "src/repro/kernels/chunk_attention.py:95", k1w)
+    for tag, res in ((" global layer", k1), (" obs pass", k1o)):
+        print(f"  chunk_attention hd256{tag}: {res['ms']:.4f} ms, bound "
+              f"{res['bound_ms']:.4f} ms, sdpa {res['library_ms']:.4f} ms")
+
+    # kernel 2: the h2o chunk
+    kw2 = dict(Hq=gh[0], kv_hd=gh[1:])
+    k2 = masses_chunk_case(1, 256, 4096, 3840, 4000, w, "hd256 C=256 "
+                           "off=3840 n_total=4000 window 512",
+                           timed="chunk_attention_masses hd256", **kw2)
+    masses_chunk_case(1, 256, 4096, 3840, 4000, None, "hd256 C=256 "
+                      "off=3840 n_total=4000", **kw2)
+    masses_chunk_case(1, 256, 4096, 768, 4032, w, "hd256 chunk before the "
+                      "last, window 512", **kw2)
+    masses_chunk_case(1, 129, 1000, 100, 229, 32, "hd256 C=129 window 32",
+                      **kw2)
+    masses_chunk_case(2, 100, 1000, 700, 790, None, "hd256 K=1000 B=2",
+                      **kw2)
+    masses_chunk_case(1, 129, 1000, 100, 200, 100, "hd256 float32 window "
+                      "100", dtype=f32, **kw2)
+    entry("chunk_attention_masses hd256", sm90,
+          "src/repro/kernels/chunk_attention.py:216", k2)
+
+    # kernel 3: 32 lookahead rows at 4000 of 4096
+    k3w = score_case(1, 32, 4096, 4096, 4000, w, False, "hd256 n_obs=32 "
+                     "off=4000 window 512", timed="lookahead_score hd256 "
+                     "window", heads=gh)
+    k3 = score_case(1, 32, 4096, 4096, 4000, None, False, "hd256 n_obs=32 "
+                    "off=4000", timed="lookahead_score hd256", heads=gh)
+    score_case(4, 32, 2080, 2048, None, w, False, "hd256 lockstep B=4 "
+               "window 512", heads=gh)
+    score_case(2, 40, 700, 700, 640, 96, True, "hd256 window 96, masks",
+               heads=gh)
+    score_case(1, 17, 500, 483, None, None, False, "hd256 n_obs 17",
+               heads=gh)
+    score_case(1, 32, 4096, 4096, 4000, None, False, "hd256 G 8: two row "
+               "blocks", heads=(8, 1, 256))
+    score_case(2, 32, 1000, 968, None, 200, True, "hd256 float32, masks, "
+               "window", heads=gh, dtype=f32)
+    entry("lookahead_score hd256", "src/repro_torch/csrc/lookahead_score.cu",
+          "src/repro/kernels/lookahead_score.py:87", k3w)
+    print(f"  lookahead_score hd256 global layer: {k3['ms']:.4f} ms, bound "
+          f"{k3['bound_ms']:.4f} ms")
+
+    # kernels 4 and 5: 4 slots, 19 and 20 blocks of 16, a window that cuts
+    k4 = paged_case("hd256 B=4 bs=16 nb=19 window 512", w, timed=True,
+                    heads=gh, key="paged_decode_attention hd256")
+    paged_case("hd256 B=4 bs=16 nb=19", None, heads=gh)
+    paged_case("hd256 one live slot, window 512", w, one_live=True,
+               heads=gh)
+    entry("paged_decode_attention hd256",
+          "src/repro_torch/csrc/paged_attention.cu",
+          "src/repro/kernels/paged_attention.py:101", k4)
+    k5 = masses_case("hd256 B=4 bs=16 nb=20 window 512", heads=gh, window=w,
+                     timed=True, key="paged_decode_masses hd256")
+    for n in (None, 1, 2, 4, 8):
+        masses_case("hd256 ragged, window 96", heads=gh, window=96,
+                    layout="ragged", splits=n)
+        masses_case("hd256 float32 ragged", heads=gh, layout="ragged",
+                    dtype="float32", splits=n)
+    masses_case("hd256 G 8 dead split", heads=(8, 1, 256),
+                layout="dead split")
+    entry("paged_decode_masses hd256",
+          "src/repro_torch/csrc/paged_attention.cu",
+          "src/repro/kernels/paged_attention.py:266", k5)
+
+    # kernel 6: 4 x 289 rows under a per-kv-head mask (a local layer's
+    # window folded in, as the decode step does)
+    k6 = decode_case("hd256 B=4 C=289 per-head mask", "head", timed=True,
+                     heads=gh, key="decode_attention hd256")
+    decode_case("hd256 per-head mask, window 512", "head", heads=gh,
+                window=w)
+    for n in (None, 1, 2, 4, 8):
+        decode_case("hd256 float32 dead head and sequence", "head-edge",
+                    heads=gh, C=150, splits=n, dtype=f32)
+        decode_case("hd256 C=3", "head-edge", heads=gh, C=3, splits=n)
+    decode_case("hd256 G 8 (B, C) mask", "row", heads=(8, 1, 256), C=200)
+    entry("decode_attention hd256", "src/repro_torch/csrc/decode_attention.cu",
+          "src/repro/kernels/decode_attention.py:56", k6)
+
+    # kernel 7: the lockstep prefill of 4 x 2080 rows, causal and window
+    # 512 (64-key tiles: a window of 512 spans 9 of them)
+    k7 = flash_case(4, 2080, True, None, "hd256 B=4 S=2080 causal",
+                    timed="flash_attention hd256", heads=gh)
+    k7w = flash_case(4, 2080, True, w, "hd256 B=4 S=2080 window 512",
+                     timed="flash_attention hd256 window", heads=gh)
+    for S in (1, 63, 64, 65, 129):
+        flash_case(1, S, True, None, f"hd256 S={S}", heads=gh)
+    flash_case(1, 700, True, 32, "hd256 S=700 window 32", heads=gh)
+    flash_case(2, 300, False, None, "hd256 S=300 non-causal", heads=gh)
+    flash_case(1, 333, True, None, "hd256 G 8", heads=(8, 1, 256))
+    flash_case(1, 300, True, 100, "hd256 float32 window 100", heads=gh,
+               dtype=f32)
+    entry("flash_attention hd256", sm90,
+          "src/repro/kernels/flash_attention.py:71", k7)
+    print(f"  flash_attention hd256 window 512: {k7w['ms']:.4f} ms, bound "
+          f"{k7w['bound_ms']:.4f} ms, sdpa {k7w['library_ms']:.4f} ms")
+
+    # kernel 7 under a key mask: 3k's padded group at gemma3's heads
+    lens = (512, 700, 900, 1024)
+    k7m = masked_flash_case(4, 1024, lens, "hd256 B=4 S=1024 lengths "
+                            "512/700/900/1024", heads=gh, timed=True)
+    masked_flash_case(4, 1024, lens, "hd256 float32", heads=gh, dtype=f32)
+    masked_flash_case(2, 600, (600, 600), "hd256 non-causal, keys 0-199 "
+                      "of seq 0 masked", heads=gh, causal=False, lead=200)
+    masked_flash_case(3, 260, (63, 64, 65), "hd256 lengths around a key "
+                      "tile", heads=gh)
+    entry("flash_attention masked hd256", sm90, "src/repro/kernels/ops.py:77",
+          k7m)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1416,15 +1651,18 @@ def phase_kernels(torch, mods) -> list:
 # ---------------------------------------------------------------------------
 
 
-def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
+def phase_engine_parity(torch, mods, devices=("cuda", "cpu"), cfg=None,
+                        only=None) -> None:
     """Each engine on ``devices[0]`` (the card) against ``devices[1]``
-    (the CPU)."""
+    (the CPU), on ``cfg`` (default: llama3-8b's smoke config in float32);
+    ``only`` names the runs to make (default: all)."""
     import dataclasses
 
     import numpy as np
 
-    cfg = dataclasses.replace(mods["configs"].get_smoke_config("llama3-8b"),
-                              dtype="float32")
+    if cfg is None:
+        cfg = dataclasses.replace(
+            mods["configs"].get_smoke_config("llama3-8b"), dtype="float32")
     tf, sv, pol = mods["tf"], mods["serving"], mods["policies"]
     params = tf.init_params(cfg, seed=SEED, device="cpu")
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
@@ -1556,6 +1794,9 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
           for pol_ in ("lookaheadkv", "full", "laq")),
     )
     for label, run in runs:
+        if only is not None and label not in only:
+            continue
+        label = f"{cfg.name} {label}" if only is not None else label
         (got, got_counts), (want, want_counts) = (run(d) for d in devices)
         same = {}
         for uid, (toks, sets) in want.items():
@@ -1573,14 +1814,14 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
               "CPU")
         check(got_counts == want_counts, f"engine parity ({label}): counts "
               "differ between card and CPU")
-        if label == "paged decode-evict":
+        if label.endswith("paged decode-evict"):
             check(want_counts["decode_evict_sweeps"] > 0
                   and want_counts["blocks_reclaimed_decode"] > 0,
                   f"{label}: no sweep fired or no block was reclaimed")
-        if label == "paged optimistic admission":
+        if label.endswith("paged optimistic admission"):
             check(want_counts["preemptions"] > 0,
                   f"{label}: the pool never ran dry (no preemption)")
-        if label == "bucketed lookaheadkv":
+        if label.endswith("bucketed lookaheadkv"):
             # bucket padding is exact for lookaheadkv: each request's
             # tokens are a batch-1 lockstep run's, on the card
             eng = sv.ServingEngine(
@@ -1596,6 +1837,25 @@ def phase_engine_parity(torch, mods, devices=("cuda", "cpu")) -> None:
             print(f"  {label}: every request's tokens equal its batch-1 "
                   f"lockstep run's on the card ({len(mixed)} requests, "
                   f"{got_counts['prefill_groups']} prefill groups)")
+
+
+def phase_dense_arch_parity(torch, mods, devices=("cuda", "cpu")) -> None:
+    """gemma3's smoke config at head dim 256 (2 layers: layer 0 local with
+    window 16, layer 1 global) through the paged, dense-slot and lockstep
+    engines, and qwen2's (qkv bias, G 2) through the paged engine, on the
+    card against the CPU: tokens and kept sets identical."""
+    import dataclasses
+
+    get = mods["configs"].get_smoke_config
+    gemma = get("gemma3-1b")
+    gemma = dataclasses.replace(
+        gemma, dtype="float32",
+        attn=dataclasses.replace(gemma.attn, head_dim=256))
+    phase_engine_parity(torch, mods, devices, cfg=gemma, only=(
+        "paged continuous", "dense-slot continuous", "lockstep"))
+    qwen = dataclasses.replace(get("qwen2-1.5b"), dtype="float32")
+    phase_engine_parity(torch, mods, devices, cfg=qwen,
+                        only=("paged continuous",))
 
 
 #: phase 2's sampling settings and its logit tolerance: a sampled token
@@ -1914,6 +2174,42 @@ ROUTES = {
         ("chunk_attention", "chunk_attention_masses", "lookahead_score",
          "paged_decode_attention", "paged_decode_masses", "ssd_scan")),
 }
+# the dense archs at full width (ROADMAP A10's dense half): gemma3-1b (26
+# layers, 22 local with window 512, 4 / 1 heads of 256) on 3a's, 3b's and
+# 3k's traffic and under h2o with decode-time eviction (its hd-256 kernels
+# 2 and 5), qwen2-1.5b (28 layers, qkv bias, 12 / 2 heads of 128) on 3a's,
+# smollm-135m (30 layers, 9 / 3 heads of 64) and minitron-8b (32 layers,
+# 32 / 8 heads of 128, d_ff 16,384, vocab 256,000) on 3b's
+LOCKSTEP = ["--requests", "4", "--n-in", "2048"]
+DENSE_ARCH_ROUTES = {
+    "gemma3 paged continuous": (
+        ["--arch", "gemma3-1b"] + PAGED, 32,
+        ("chunk_attention", "lookahead_score", "paged_decode_attention"),
+        ()),
+    "gemma3 paged h2o decode-evict": (
+        ["--arch", "gemma3-1b"] + PAGED + [
+            "--policy", "h2o", "--decode-evict", "--decode-evict-interval",
+            "64"], 32,
+        ("chunk_attention_masses", "paged_decode_masses"), ()),
+    "gemma3 lockstep": (
+        ["--arch", "gemma3-1b"] + LOCKSTEP, 32,
+        ("flash_attention", "lookahead_score", "decode_attention"), ()),
+    "gemma3 bucketed full": (
+        ["--arch", "gemma3-1b", "--continuous", "--policy", "full",
+         "--slots", "4", "--prompt-lens", "512,700,900,1024"], 32,
+        ("flash_attention", "decode_attention"), ()),
+    "qwen2 paged continuous": (
+        ["--arch", "qwen2-1.5b"] + PAGED, 32,
+        ("chunk_attention", "lookahead_score", "paged_decode_attention"),
+        ()),
+    "smollm lockstep": (
+        ["--arch", "smollm-135m"] + LOCKSTEP, 32,
+        ("flash_attention", "lookahead_score", "decode_attention"), ()),
+    "minitron lockstep": (
+        ["--arch", "minitron-8b"] + LOCKSTEP, 32,
+        ("flash_attention", "lookahead_score", "decode_attention"), ()),
+}
+ROUTES.update(DENSE_ARCH_ROUTES)
 #: exact launches per kernel in the cells that add them (32 layers of
 #: llama3-8b, 12 of the tiny-llama draft; 32 new tokens): 3i runs kernels 7
 #: and 3 in both prefills, kernel 6 for 8 draft and 32 serving steps; 3j
@@ -1928,7 +2224,57 @@ EXACT_LAUNCHES = {
                         "decode_attention": 12 * 8 + 32 * 32},
     "bucketed continuous full": {"flash_attention": 2 * 32,
                                  "decode_attention": 32 * 31},
+    # the dense archs, from 3a's, 3b's and 3k's schedules (PERF.md's
+    # prediction): per paged cell 44 kernel-1 passes (40 prefill chunks, 4
+    # observation passes; 40 kernel-2 chunks under h2o), 4 kernel-3 calls
+    # and 124 decode steps (128 under decode-time eviction: 3d's decode
+    # chunks of 8), each once per layer; per lockstep cell one prefill and
+    # 32 decode steps; 3s as 3k
+    "gemma3 paged continuous": {"chunk_attention": 44 * 26,
+                                "lookahead_score": 4 * 26,
+                                "paged_decode_attention": 124 * 26},
+    "gemma3 paged h2o decode-evict": {"chunk_attention_masses": 40 * 26,
+                                      "paged_decode_masses": 128 * 26},
+    "gemma3 lockstep": {"flash_attention": 26, "lookahead_score": 26,
+                        "decode_attention": 32 * 26},
+    "gemma3 bucketed full": {"flash_attention": 2 * 26,
+                             "decode_attention": 26 * 31},
+    "qwen2 paged continuous": {"chunk_attention": 44 * 28,
+                               "lookahead_score": 4 * 28,
+                               "paged_decode_attention": 124 * 28},
+    "smollm lockstep": {"flash_attention": 30, "lookahead_score": 30,
+                        "decode_attention": 32 * 30},
+    "minitron lockstep": {"flash_attention": 32, "lookahead_score": 32,
+                          "decode_attention": 32 * 32},
 }
+
+
+#: the gemma3-1b cell whose launches each hd-256 kernel reports
+HD256_CELL = {
+    "chunk_attention hd256": "gemma3 paged continuous",
+    "lookahead_score hd256": "gemma3 paged continuous",
+    "paged_decode_attention hd256": "gemma3 paged continuous",
+    "chunk_attention_masses hd256": "gemma3 paged h2o decode-evict",
+    "paged_decode_masses hd256": "gemma3 paged h2o decode-evict",
+    "flash_attention hd256": "gemma3 lockstep",
+    "decode_attention hd256": "gemma3 lockstep",
+}
+
+
+def phase_dense_archs(torch, mods, header, counts: dict) -> None:
+    """Phase 3n-3s: the dense archs at full width through the launcher,
+    one model on the card at a time (each freed before the next is
+    built), each cell's launches exactly as ``EXACT_LAUNCHES`` predicts."""
+    letters = dict(zip(DENSE_ARCH_ROUTES, "nrospqq"))
+    for route in DENSE_ARCH_ROUTES:
+        arch = DENSE_ARCH_ROUTES[route][0][1]
+        header(f"phase 3{letters[route]}: serve {arch} at full width, "
+               f"{route.split(' ', 1)[1]}")
+        counts[route], res = phase_serve(torch, mods, route)
+        if route == "gemma3 bucketed full":
+            counts["gemma3 masked flash"] = res["masked_flash"]
+        del res
+        torch.cuda.empty_cache()
 
 
 def phase_serve(torch, mods, route: str) -> tuple:
@@ -3322,12 +3668,12 @@ def phase_build(mods) -> None:
         print(f"  {demangle(name)}: {what}{regs} registers, {spills} bytes "
               "spilled")
         check(not spills, f"{demangle(name)} spills registers")
-    for group, wanted in ((tiles, {"flash_attention_tag": 8,
-                                   "chunk_attention_tag": 2,
-                                   "chunk_masses_tag": 2,
-                                   "column_masses_sm90": 2}),
-                          (merges, {"chunk_attention_tag": 2,
-                                    "chunk_masses_tag": 2})):
+    for group, wanted in ((tiles, {"flash_attention_tag": 12,
+                                   "chunk_attention_tag": 3,
+                                   "chunk_masses_tag": 3,
+                                   "column_masses_sm90": 3}),
+                          (merges, {"chunk_attention_tag": 3,
+                                    "chunk_masses_tag": 3})):
         for part, n in wanted.items():
             got = sum(part in name for name in group)
             check(got == n, f"{got} instantiations of the Hopper tile name "
@@ -3335,14 +3681,14 @@ def phase_build(mods) -> None:
         check(len(group) == sum(wanted.values()), f"{len(group)} Hopper "
               f"instantiations in the SASS, expected {sum(wanted.values())}")
     # kernels 4 and 5 (decode_split.cuh; 2 kernels x 2 types x hd 32 / 64 /
-    # 128), kernel 6 on the same routine (2 types x 3 hd), kernel 3's
-    # tensor-core kernels (launches (a) and (b), bf16, 3 hd) and kernel 8's
+    # 128 / 256), kernel 6 on the same routine (2 types x 4 hd), kernel 3's
+    # tensor-core kernels (launches (a) and (b), bf16, 4 hd) and kernel 8's
     # (launches (a) and (c), bf16, 3 hd x 5 d_state): every
     # instantiation of these kernels' names in the source's -Xptxas -v
     # report must be one of these, each of these must be there, and none
     # may spill; a library built by an earlier run is built again for the
     # report
-    hds = (32, 64, 128)
+    hds = (32, 64, 128, 256)
     for source, kernels, wanted in (
             ("paged_attention", ("paged_decode_kernel",
                                  "paged_masses_kernel"),
@@ -3375,6 +3721,25 @@ def phase_build(mods) -> None:
             regs, spills = ptxas[found[label]]
             print(f"  {label}: {regs} registers, {spills} bytes spilled")
             check(not spills, f"{label} spills registers")
+    # every instantiation at head dim 256 (template argument 256: the
+    # Hopper tile's and its merges above, the float32 kernels of kernels 1,
+    # 2 and 3, kernels 3-6 above) has a -Xptxas -v entry and spills nothing
+    hd256 = {}
+    for source in ("chunk_attention", "lookahead_score", "paged_attention",
+                   "decode_attention"):
+        for name, (regs, spills) in ptxas_report(report[source][1]).items():
+            if "Li256E" in name:
+                hd256[name] = (source, regs, spills)
+    print(f"  hd 256: {len(hd256)} instantiations (registers, bytes "
+          "spilled): " + "; ".join(
+              f"{demangle(n)} {r}, {sp}"
+              for n, (_, r, sp) in sorted(hd256.items())))
+    spilled = [demangle(n) for n, (_, _, sp) in hd256.items() if sp]
+    check(not spilled, f"hd-256 instantiations that spill: {spilled}")
+    # chunk_attention 14 (the tile's 7 and 2 merges, 5 float32), kernel 3
+    # 4 (2 tensor-core, 2 float32), kernels 4 and 5 4, kernel 6 2
+    check(len(hd256) == 24, f"{len(hd256)} hd-256 instantiations in the "
+          "-Xptxas -v reports, expected 24")
 
 
 def ptxas_report(log: str) -> dict:
@@ -3418,6 +3783,12 @@ def demangle(name: str) -> str:
                   r"(\d+)E", name)
     if m:
         return f"{m[1]}<hd {m[2]}, ds {m[3]}>"
+    m = re.search(r"(attention_fma|column_masses_fma|obs_row_stats|"
+                  r"obs_column_means)I(?:NS_\d+(\w+?_tag)E)?fLi(\d+)E",
+                  name)
+    if m:  # the float32 CUDA-core kernels
+        tag = f"{m[2]}, " if m[2] else ""
+        return f"{m[1]}<{tag}float, hd {m[3]}>"
     m = re.search(r"column_masses_sm90ILi(\d+)E", name)
     return f"column_masses_sm90<hd {m[1]}>" if m else name
 
@@ -3449,6 +3820,9 @@ def main() -> None:
     header("phase 2: the SSM archs on the card vs on the CPU (hymba-smoke, "
            "mamba2-smoke, float32)")
     phase_ssm_parity(torch, mods)
+    header("phase 2: the dense archs on the card vs on the CPU (gemma3-smoke "
+           "at head dim 256, qwen2-smoke; float32)")
+    phase_dense_arch_parity(torch, mods)
     header("phase 2: the learning loop on the card vs on the CPU "
            "(llama3-8b smoke, float32), and a resumed run on the card")
     phase_loop_parity(torch, mods)
@@ -3524,6 +3898,7 @@ def main() -> None:
     header("phase 3h: mamba2-130m at full width, prefill and decode")
     counts["mamba2"] = phase_mamba(torch, mods)
     torch.cuda.empty_cache()
+    phase_dense_archs(torch, mods, header, counts)
     phase_learning_loop(torch, mods, header)
     # launches on the main path: kernels 1, 3, 4 from the paged route,
     # kernels 7 and 6 from the lockstep route, kernel 5 from the
@@ -3537,6 +3912,15 @@ def main() -> None:
     for k in kernels:
         if k["name"] == "flash_attention masked":  # 3k's padded group
             k["launches"] = counts["masked flash"]
+            continue
+        if k["name"] == "flash_attention masked hd256":  # 3s's padded group
+            k["launches"] = counts["gemma3 masked flash"]
+            continue
+        if k["name"].endswith(" hd256"):  # gemma3-1b's cells
+            k["launches"] = counts[HD256_CELL[k["name"]]][
+                k["name"].split()[0]]
+            check(k["launches"] > 0, f"{k['name']}: never launched in its "
+                  "cell")
             continue
         k["launches"] = counts[route_of.get(k["name"],
                                             "paged continuous")][k["name"]]

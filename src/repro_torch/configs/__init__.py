@@ -1,10 +1,12 @@
 """Architecture registry of the port: ``get_config(arch_id)`` /
 ``get_smoke_config(arch_id)``.
 
-The port serves the paper's llama family and the SSM archs (the hybrid
-hymba-1.5b, the attention-free mamba2-130m).  Every other architecture of
-the JAX package's registry raises ``KeyError`` naming the ROADMAP item
-that brings it to the port.
+The port serves the paper's llama family, the other dense archs
+(smollm-135m, qwen2-1.5b with its qkv bias, minitron-8b, and gemma3-1b
+with its 5:1 local:global layers and head dim 256) and the SSM archs (the
+hybrid hymba-1.5b, the attention-free mamba2-130m).  The MoE, VLM and
+audio archs of the JAX package's registry raise ``KeyError`` naming the
+ROADMAP item that brings them to the port.
 """
 
 from __future__ import annotations
@@ -18,14 +20,14 @@ _MODULES = {
     "tiny-llama": "tiny_llama",
     "hymba-1.5b": "hymba_1_5b",
     "mamba2-130m": "mamba2_130m",
+    "smollm-135m": "smollm_135m",
+    "qwen2-1.5b": "qwen2_1_5b",
+    "minitron-8b": "minitron_8b",
+    "gemma3-1b": "gemma3_1b",
 }
 
 # arch id -> ROADMAP item that ports it
 _LATER = {
-    "smollm-135m": "ROADMAP A10 (other dense archs)",
-    "qwen2-1.5b": "ROADMAP A10 (other dense archs)",
-    "minitron-8b": "ROADMAP A10 (other dense archs)",
-    "gemma3-1b": "ROADMAP A10 (sliding-window archs)",
     "deepseek-moe-16b": "ROADMAP A10 (MoE archs)",
     "phi3.5-moe-42b-a6.6b": "ROADMAP A10 (MoE archs)",
     "qwen2-vl-72b": "ROADMAP A10 (VLM and audio archs)",

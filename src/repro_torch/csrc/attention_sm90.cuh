@@ -1,12 +1,12 @@
 // Attention tile for Hopper (sm_90a): wgmma for both products, a TMA +
-// mbarrier ring for K/V.  bf16 in, f32 accumulate, bf16 out; head dims 64
-// and 128.
+// mbarrier ring for K/V.  bf16 in, f32 accumulate, bf16 out; head dims 64,
+// 128 and 256.
 //
 // Computes C query rows at absolute positions q_offset.. attending over a
 // K-deep key/value buffer whose column j holds position j; earlier columns
 // are visible, the rows are causal among themselves (CAUSAL), and an
 // optional window hides keys with q_pos - k_pos >= window.  Three entries
-// of chunk_attention.cu run it at bf16 with head dims 64 and 128:
+// of chunk_attention.cu run it at bf16 with head dims 64, 128 and 256:
 // * chunk_attention (kernel 1, the port of chunk_attention_pallas of
 //   src/repro/kernels/chunk_attention.py): a prefill chunk or the 32-row
 //   observation pass at q_offset over the buffer;
@@ -29,12 +29,15 @@
 //   sequence's rows.  Every tile is stored with the 128-byte swizzle in
 //   64-column halves (a TMA box with that swizzle is at most 128 bytes
 //   wide): 128 rows x 128 bytes = 16 KB per half, 1024-byte aligned.  Q
-//   comes in once; 128-key tiles of K and V go through a 3-stage ring
-//   (225 KB of shared memory at hd 128, 113 KB at hd 64), each stage with
-//   a `full` mbarrier that the TMA transaction completes and an `empty`
-//   one that the 256 consumer threads arrive on once done with it.
-// * S = Q.K^T: wgmma m64n128k16, both operands read from shared memory by
-//   descriptor (K-major: hd contiguous in both Q and K), hd/16 k-steps.
+//   comes in once; tiles of K and V go through a ring (Geom): 128 keys
+//   and 3 stages at hd 64 and 128 (113 and 225 KB of shared memory), 64
+//   keys and 2 stages at hd 256 (193 KB; 128-key tiles in 3 stages would
+//   take 449 KB of the card's 227), each stage with a `full` mbarrier that
+//   the TMA transaction completes and an `empty` one that the 256 consumer
+//   threads arrive on once done with it.
+// * S = Q.K^T: wgmma m64n128k16 (m64n64k16 on hd 256's 64-key tiles), both
+//   operands read from shared memory by descriptor (K-major: hd contiguous
+//   in both Q and K), hd/16 k-steps.
 // * Mask in registers (only on tiles that need it: the causal diagonal,
 //   the window's edge, the ragged key tail, whose zero-filled keys would
 //   give logit 0, and with a key mask a tile that holds a masked key),
@@ -56,7 +59,10 @@
 // * O += P.V: wgmma m64n{hd}k16 with A = P from registers (the S
 //   accumulator layout is the A-fragment layout of the next product: pack
 //   adjacent pairs to bf16x2) and B = V read as MN-major from shared
-//   memory (V is key-major with hd contiguous: transpose flag 1).
+//   memory (V is key-major with hd contiguous: transpose flag 1).  At hd
+//   256 two m64n128k16 products per k-step, one per 128-column half of O;
+//   O is then 128 float32 registers a consumer thread, S 32 (64 keys) and
+//   P 16, under the 240 that setmaxnreg gives.
 // * Epilogue: O / max(l, L_FLOOR) to bf16, rows < C only.  With STATS,
 //   lane t == 0 of each row also stores the row's raw logit max m (not
 //   scaled) and l in this tile's units: l = sum_j exp2(s_j * scale_log2 -
@@ -89,7 +95,10 @@
 // tiles 128-aligned from position 0, the same swizzled halves), and S
 // comes from the same wgmma calls in the same k-step order, so each logit
 // is bitwise the one the attention tile's softmax saw; p = exp2(s *
-// scale_log2 - m * scale_log2) / max(l, L_FLOOR) is then at most ~1.
+// scale_log2 - m * scale_log2) / max(l, L_FLOOR) is then at most ~1.  At
+// hd 256 this launch keeps 128-key tiles (K 64 KB, two 64 KB Q stages, 193
+// KB): its m64n128k16 products run the tile's k-steps in the same order
+// over twice the tile's m64n64k16 width.
 // Column sums go over the lane's two rows and its Q tiles in registers,
 // then the 8 row lanes by shuffles, then the 8 warps through shared memory,
 // each in a fixed order: no atomics, deterministic masses.
@@ -103,12 +112,28 @@
 namespace sm90 {
 
 constexpr int BM = 128;       // query rows per CTA (two warpgroups of 64)
-constexpr int BN = 128;       // keys per K/V tile
+constexpr int BN = 128;       // keys per tile of column_masses_sm90
 constexpr int CONSUMERS = 256;  // two warpgroups: the products and softmax
 constexpr int THREADS = CONSUMERS + 128;  // a third warpgroup loads
-constexpr int STAGES = 3;     // K/V ring depth
 constexpr int QSTAGES = 2;    // Q ring depth of column_masses_sm90
-constexpr int HALF = BM * 128;  // bytes of one 64-column half of a tile
+constexpr int HALF = BM * 128;  // bytes of one 64-column half of a Q tile
+
+// The attention tile's K/V budget per head dim: keys per K/V tile and ring
+// depth.  hd 64 and 128: 128-key tiles through 3 stages (113 and 225 KB
+// with Q); hd 256: 64-key tiles through 2 stages, Q 64 KB and the ring
+// 2 x (K + V) x 32 KB, 193 KB (3 stages of 128 keys would take 449 KB).
+template <int HD>
+struct Geom {
+  static_assert(HD == 64 || HD == 128 || HD == 256, "head dims 64-256");
+  static constexpr int BN = HD == 256 ? 64 : 128;
+  static constexpr int STAGES = HD == 256 ? 2 : 3;
+  static constexpr int QTILE = (HD / 64) * HALF;  // bytes of the Q tile
+  static constexpr int KHALF = BN * 128;  // one 64-column half of K or V
+  static constexpr int KTILE = (HD / 64) * KHALF;  // bytes of a K or V tile
+  // the alignment pad, Q, STAGES x (K, V)
+  static constexpr int SMEM = 1024 + QTILE + 2 * STAGES * KTILE;
+  static_assert(SMEM <= 232448, "a CTA's shared memory");
+};
 
 // softmax scale times log2(e), the same float in both launches of kernel 2
 inline float log2e_scale(int hd) {
@@ -247,12 +272,35 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db));
 }
 
-// D (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, shared,
-// MN-major: N contiguous).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
+// D (64 x 64, f32) += A (64 x 16, shared, K-major) . B (64 x 16, shared,
+// K-major): S of a 64-key tile (hd 256).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, 1, 1, 1, 0, 0;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db));
+}
 
+// D (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, shared,
+// MN-major: N contiguous), D being registers OFF.. OFF + 63 of d: at hd 256
+// the O accumulator's two 128-column halves (OFF 0 and 64) take one each.
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N],
+                                             const uint32_t (&a)[4],
                                              uint64_t db) {
+  static_assert(OFF + 64 <= N, "accumulator range");
   asm volatile(
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
@@ -264,19 +312,28 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       " %48, %49, %50, %51, %52, %53, %54, %55, "
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]),
+        "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+        "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]),
+        "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]),
+        "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31]), "+f"(d[OFF + 32]),
+        "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
+        "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]),
+        "+f"(d[OFF + 39]), "+f"(d[OFF + 40]), "+f"(d[OFF + 41]),
+        "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]),
+        "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]),
+        "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]),
+        "+f"(d[OFF + 54]), "+f"(d[OFF + 55]), "+f"(d[OFF + 56]),
+        "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+        "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]),
+        "+f"(d[OFF + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
@@ -320,12 +377,12 @@ template <int HD>
 __device__ __forceinline__ void load_kv(const CUtensorMap* tk,
                                         const CUtensorMap* tv, uint32_t dk,
                                         uint32_t bar, int kvh, int k0, int b) {
-  constexpr int TILE = (HD / 64) * HALF;
-  mbar_expect_tx(bar, 2 * TILE);  // whole boxes, the zero fill included
+  using G = Geom<HD>;
+  mbar_expect_tx(bar, 2 * G::KTILE);  // whole boxes, the zero fill included
 #pragma unroll
   for (int hf = 0; hf < HD / 64; ++hf) {
-    tma_load(dk + hf * HALF, tk, bar, 64 * hf, kvh, k0, b);
-    tma_load(dk + TILE + hf * HALF, tv, bar, 64 * hf, kvh, k0, b);
+    tma_load(dk + hf * G::KHALF, tk, bar, 64 * hf, kvh, k0, b);
+    tma_load(dk + G::KTILE + hf * G::KHALF, tv, bar, 64 * hf, kvh, k0, b);
   }
 }
 
@@ -335,8 +392,8 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk,
 // same for 16 columns: (row g, cols 2t..), (g + 8, 2t..), (g, 8 + 2t..),
 // (g + 8, 8 + 2t..), so the S registers 8kk..8kk+7, packed in pairs, are
 // P's A fragment of k-step kk.
-// Key tiles a masked call may span: 2048 tiles of 128, K <= 262,144
-// (kernels/flash_attention.py checks it).
+// Key tiles a masked call may span: 2048 tiles, K <= 262,144 at hd 64 and
+// 128 and 131,072 at hd 256 (kernels/flash_attention.py checks it).
 constexpr int MASK_WORDS = 64;
 
 template <typename Entry, int HD, bool CAUSAL, bool STATS, bool SPLIT,
@@ -351,8 +408,9 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
                const uint8_t* __restrict__ kv_mask, int n_split_arg, int C,
                int H, int K, int KV, int q_offset, int window,
                float scale_log2) {
-  static_assert(HD == 64 || HD == 128, "head dims 64 and 128");
-  constexpr int TILE = (HD / 64) * HALF;  // bytes of one Q, K or V tile
+  using G = Geom<HD>;
+  constexpr int BN = G::BN, STAGES = G::STAGES;  // keys per tile, ring depth
+  constexpr int KTILE = G::KTILE;
   // an instantiation without SPLIT (kernel 7's) compiles the split away
   const int n_split = SPLIT ? n_split_arg : 1;
   constexpr int NO = HD / 2;              // O registers per thread
@@ -363,10 +421,10 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
   // tile i holds a valid key; of the next MASK_WORDS: it holds a masked one
   __shared__ uint32_t tile_bits[MASKED ? 2 * MASK_WORDS : 1];
   // TMA destinations with the 128-byte swizzle need 1024-byte alignment
-  // stage s: K at sQ + (1 + 2s) TILE, V right after it
+  // stage s: K at sQ + QTILE + 2s KTILE, V right after it
   const uint32_t sQ = (saddr(smem_raw) + 1023) & ~1023u;
   const uint32_t bar_q = saddr(&bars[0]);
-  auto sK = [=](int s) { return sQ + (1 + 2 * s) * TILE; };
+  auto sK = [=](int s) { return sQ + G::QTILE + 2 * s * KTILE; };
   auto full = [=](int s) { return bar_q + 8 * (1 + s); };
   auto empty = [=](int s) { return bar_q + 8 * (1 + STAGES + s); };
 
@@ -427,7 +485,7 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
   if (wg == 2) {  // producer: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (tid == CONSUMERS) {
-      mbar_expect_tx(bar_q, TILE);
+      mbar_expect_tx(bar_q, G::QTILE);
 #pragma unroll
       for (int hf = 0; hf < HD / 64; ++hf)
         tma_load(sQ + hf * HALF, &tq, bar_q, 64 * hf, h, q0, b);
@@ -474,14 +532,20 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
       some_masked = (tile_bits[MASK_WORDS + (it >> 5)] >> (it & 31)) & 1u;
     }
     if (vis) {
-      float sc[64];
+      float sc[BN / 2];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t off = (kk >> 2) * HALF + (kk & 3) * 32;
-        wgmma_ss_n128(sc, dq + (off >> 4), desc_sw128(sK(s) + off, 16, 1024));
+        // k-step kk: 16 columns into the 64-column half kk / 4 of Q and K
+        const uint32_t qoff = (kk >> 2) * HALF + (kk & 3) * 32;
+        const uint64_t dk =
+            desc_sw128(sK(s) + (kk >> 2) * G::KHALF + (kk & 3) * 32, 16, 1024);
+        if constexpr (BN == 128)
+          wgmma_ss_n128(sc, dq + (qoff >> 4), dk);
+        else
+          wgmma_ss_n64(sc, dq + (qoff >> 4), dk);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -561,12 +625,18 @@ attention_sm90(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
-        const uint64_t dv =
-            desc_sw128(sK(s) + TILE + kk * 16 * 128, HALF, 1024);
-        if constexpr (HD == 128)
-          wgmma_rs_n128(o, pa[kk], dv);
-        else
+        // V's 16 keys of k-step kk, N over its 64-column halves (LBO)
+        const uint32_t va = sK(s) + KTILE + kk * 16 * 128;
+        const uint64_t dv = desc_sw128(va, G::KHALF, 1024);
+        if constexpr (HD == 256) {  // two 128-column products
+          wgmma_rs_n128<0>(o, pa[kk], dv);
+          wgmma_rs_n128<64>(o, pa[kk],
+                            desc_sw128(va + 2 * G::KHALF, G::KHALF, 1024));
+        } else if constexpr (HD == 128) {
+          wgmma_rs_n128<0>(o, pa[kk], dv);
+        } else {
           wgmma_rs_n64(o, pa[kk], dv);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -662,10 +732,10 @@ static EncodeTiled encode_tiled() {
 }
 
 // A (B, rows, heads, hd) bf16 tensor as a 4-D map (hd, heads, rows, B) with
-// boxes of 64 columns x 1 head x 128 rows x 1 sequence, 128-byte swizzle;
-// rows past `rows` read as zeros.
+// boxes of 64 columns x 1 head x box_rows rows x 1 sequence, 128-byte
+// swizzle; rows past `rows` read as zeros.
 static cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int hd,
-                              int heads, int rows, int B) {
+                              int heads, int rows, int B, int box_rows) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
@@ -673,7 +743,7 @@ static cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int hd,
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
                                  (cuuint64_t)heads * hd * 2,
                                  (cuuint64_t)rows * heads * hd * 2};
-  const cuuint32_t box[4] = {64, 1, BM, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -744,20 +814,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* o_part = nullptr, float* m_part = nullptr,
                    float* l_part = nullptr,
                    const uint8_t* kv_mask = nullptr) {
+  using G = Geom<HD>;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = tensor_map(&tq, q, HD, H, C, B);
-  if (err == cudaSuccess) err = tensor_map(&tk, k, HD, KV, K, B);
-  if (err == cudaSuccess) err = tensor_map(&tv, v, HD, KV, K, B);
+  cudaError_t err = tensor_map(&tq, q, HD, H, C, B, BM);
+  if (err == cudaSuccess) err = tensor_map(&tk, k, HD, KV, K, B, G::BN);
+  if (err == cudaSuccess) err = tensor_map(&tv, v, HD, KV, K, B, G::BN);
   if (err != cudaSuccess) return err;
-  // the alignment pad, Q, STAGES x (K, V)
-  const int smem = 1024 + (1 + 2 * STAGES) * (HD / 64) * HALF;
+  const int smem = G::SMEM;
   auto* kern = attention_sm90<Entry, HD, CAUSAL, STATS, SPLIT, MASKED>;
   err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   if (n_split < 1 || (n_split > 1 && (!SPLIT || o_part == nullptr)))
     return cudaErrorInvalidValue;
   if (MASKED != (kv_mask != nullptr) ||
-      (MASKED && K > MASK_WORDS * 32 * BN))
+      (MASKED && K > MASK_WORDS * 32 * G::BN))
     return cudaErrorInvalidValue;
   dim3 grid((C + BM - 1) / BM * n_split, H, B);
   kern<<<grid, THREADS, smem, stream>>>(
@@ -789,8 +859,8 @@ column_masses_sm90(const __grid_constant__ CUtensorMap tq,
                    const float* __restrict__ l_in,
                    float* __restrict__ masses, int C, int H, int K, int KV,
                    int q_offset, int n_total, int window, float scale_log2) {
-  static_assert(HD == 64 || HD == 128, "head dims 64 and 128");
-  constexpr int TILE = (HD / 64) * HALF;
+  static_assert(HD == 64 || HD == 128 || HD == 256, "head dims 64-256");
+  constexpr int TILE = (HD / 64) * HALF;  // a 128-row Q or K tile
   extern __shared__ unsigned char smem_raw[];
   // k, full[QSTAGES], empty[QSTAGES]
   __shared__ __align__(8) uint64_t bars[1 + 2 * QSTAGES];
@@ -943,10 +1013,10 @@ cudaError_t launch_column_masses(const void* q, const void* k,
                                  int KV, int q_offset, int n_total,
                                  int window, cudaStream_t stream) {
   CUtensorMap tq, tk;
-  cudaError_t err = tensor_map(&tq, q, HD, H, C, B);
-  if (err == cudaSuccess) err = tensor_map(&tk, k, HD, KV, K, B);
+  cudaError_t err = tensor_map(&tq, q, HD, H, C, B, BM);
+  if (err == cudaSuccess) err = tensor_map(&tk, k, HD, KV, K, B, BN);
   if (err != cudaSuccess) return err;
-  // the alignment pad, K, QSTAGES x Q
+  // the alignment pad, K, QSTAGES x Q: 193 KB at hd 256
   const int smem = 1024 + (1 + QSTAGES) * (HD / 64) * HALF;
   auto* kern = column_masses_sm90<HD>;
   err = allow_smem(kern, smem);

@@ -57,10 +57,11 @@
 // range, combine_splits<chunk_attention_tag, ...>), so a profile reads
 // them apart.
 //
-// * bf16 at head dims 64 and 128 (the serving path of every entry): the
-//   Hopper tile of attention_sm90.cuh, wgmma for both products and a TMA +
-//   mbarrier ring on 128-row query tiles and 128-key K/V tiles; kernel 2's
-//   (b) is its column_masses_sm90.  Those shapes reach nothing else.
+// * bf16 at head dims 64, 128 and 256 (the serving path of every entry):
+//   the Hopper tile of attention_sm90.cuh, wgmma for both products and a
+//   TMA + mbarrier ring on 128-row query tiles and K/V tiles of 128 keys
+//   (64 at hd 256); kernel 2's (b) is its column_masses_sm90.  Those shapes
+//   reach nothing else.
 // * bf16 at head dim 32: this file's mma.sync tiles (attention_mma,
 //   column_masses_mma): 4 warps of 16 query rows, 64-key tiles through a
 //   double-buffered cp.async ring, FlashAttention-2 style: a warp keeps its
@@ -68,7 +69,9 @@
 //   the S fragment layout as P's A operand after rounding P to bf16 (m, l
 //   and the rescale stay f32); V's B fragments come from ldmatrix.trans.
 // * fp32 (the float32 configs): this file's CUDA-core kernels
-//   (attention_fma, column_masses_fma), 256 threads, 4 lanes per query row.
+//   (attention_fma, column_masses_fma), 256 threads, 4 lanes per query row;
+//   at hd 256 a lane keeps 64 accumulators and a CTA 193 KB of shared
+//   memory (Q, K and V tiles of 64 rows in float32).
 // The tiles of this file put one CTA on each (64-row query tile, head,
 // batch).  The TPU grid's sequential key axis becomes a loop inside the
 // CTA over key tiles, with the online-softmax (m, l, acc) recurrence in
@@ -764,7 +767,7 @@ struct Split {
   float* l;
 };
 
-// Kernel 2: bf16 at hd 64 and 128 on the Hopper tile (attention_sm90 with
+// Kernel 2: bf16 at hd 64, 128 and 256 on the Hopper tile (attention_sm90 with
 // STATS, its split combine if any, then column_masses_sm90), everything
 // else on this file's kernels (which take no split).
 cudaError_t dispatch_masses(int dtype, int hd, const void* q, const void* k,
@@ -773,7 +776,8 @@ cudaError_t dispatch_masses(int dtype, int hd, const void* q, const void* k,
                             int K, int KV, int q_offset, int n_total,
                             int window, Split sp, cudaStream_t s) {
   using tag = chunk_masses_tag;
-  const bool sm90 = dtype == DTYPE_BF16 && (hd == 64 || hd == 128);
+  const bool sm90 =
+      dtype == DTYPE_BF16 && (hd == 64 || hd == 128 || hd == 256);
   if (sp.n != 1 && !sm90) return cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == DTYPE_F32) {
@@ -781,6 +785,7 @@ cudaError_t dispatch_masses(int dtype, int hd, const void* q, const void* k,
       case 32: return launch_masses<float, 32>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
       case 64: return launch_masses<float, 64>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
       case 128: return launch_masses<float, 128>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
+      case 256: return launch_masses<float, 256>(q, k, v, out, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -795,11 +800,15 @@ cudaError_t dispatch_masses(int dtype, int hd, const void* q, const void* k,
       err = sm90::launch<tag, 128, true, true, true>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, m_buf, l_buf, sp.n, sp.o, sp.m, sp.l);
       if (err != cudaSuccess) return err;
       return sm90::launch_column_masses<128>(q, k, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
+    case 256:
+      err = sm90::launch<tag, 256, true, true, true>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, m_buf, l_buf, sp.n, sp.o, sp.m, sp.l);
+      if (err != cudaSuccess) return err;
+      return sm90::launch_column_masses<256>(q, k, m_buf, l_buf, masses, B, C, H, K, KV, q_offset, n_total, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Kernels 1 and 7: bf16 at hd 64 and 128 on the Hopper tile, everything
+// Kernels 1 and 7: bf16 at hd 64, 128 and 256 on the Hopper tile, everything
 // else on this file's kernels (which take no split).  Kernel 7 (SPLIT
 // false) fills the card with query tiles and never splits; its key mask
 // (kv_mask not null) runs the tile's MASKED instantiations.
@@ -808,7 +817,8 @@ cudaError_t dispatch(int dtype, int hd, const void* q, const void* k,
                      const void* v, void* out, int B, int C, int H, int K,
                      int KV, int q_offset, int window, Split sp,
                      cudaStream_t s, const uint8_t* kv_mask = nullptr) {
-  const bool sm90 = dtype == DTYPE_BF16 && (hd == 64 || hd == 128);
+  const bool sm90 =
+      dtype == DTYPE_BF16 && (hd == 64 || hd == 128 || hd == 256);
   if (sp.n != 1 && !(sm90 && SPLIT)) return cudaErrorInvalidValue;
   if (kv_mask != nullptr && SPLIT) return cudaErrorInvalidValue;
   if (dtype == DTYPE_F32) {
@@ -816,6 +826,7 @@ cudaError_t dispatch(int dtype, int hd, const void* q, const void* k,
       case 32: return launch<Entry, float, 32, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, kv_mask);
       case 64: return launch<Entry, float, 64, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, kv_mask);
       case 128: return launch<Entry, float, 128, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, kv_mask);
+      case 256: return launch<Entry, float, 256, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, kv_mask);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -825,18 +836,21 @@ cudaError_t dispatch(int dtype, int hd, const void* q, const void* k,
       return sm90::launch<Entry, 64, CAUSAL, false, false, true>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, 1, nullptr, nullptr, nullptr, kv_mask);
     if (kv_mask != nullptr && hd == 128)
       return sm90::launch<Entry, 128, CAUSAL, false, false, true>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, 1, nullptr, nullptr, nullptr, kv_mask);
+    if (kv_mask != nullptr && hd == 256)
+      return sm90::launch<Entry, 256, CAUSAL, false, false, true>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, 1, nullptr, nullptr, nullptr, kv_mask);
   }
   switch (hd) {
     case 32: return launch<Entry, __nv_bfloat16, 32, CAUSAL>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, kv_mask);
     case 64: return sm90::launch<Entry, 64, CAUSAL, false, SPLIT>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, sp.n, sp.o, sp.m, sp.l);
     case 128: return sm90::launch<Entry, 128, CAUSAL, false, SPLIT>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, sp.n, sp.o, sp.m, sp.l);
+    case 256: return sm90::launch<Entry, 256, CAUSAL, false, SPLIT>(q, k, v, out, B, C, H, K, KV, q_offset, window, s, nullptr, nullptr, sp.n, sp.o, sp.m, sp.l);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// window <= 0 means no window.  n_split > 1 (bf16 at hd 64 and 128 only)
+// window <= 0 means no window.  n_split > 1 (bf16 at hd 64-256 only)
 // splits each query tile's key range over n_split CTAs, with the float32
 // scratch of Split.  Returns cudaGetLastError() after the last launch.
 extern "C" int chunk_attention(const void* q, const void* k, const void* v,

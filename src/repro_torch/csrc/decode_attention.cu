@@ -105,6 +105,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, mask, out, B, H, KV, C, kind, n_split, st);
     case 64: return launch<T, 64>(q, k, v, mask, out, B, H, KV, C, kind, n_split, st);
     case 128: return launch<T, 128>(q, k, v, mask, out, B, H, KV, C, kind, n_split, st);
+    case 256: return launch<T, 256>(q, k, v, mask, out, B, H, KV, C, kind, n_split, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -8,7 +8,9 @@
 // contiguous logical row range [c0, c1) its kernel gives it.  Inside a
 // CTA the rows are cut into WARPS contiguous runs, one per warp, and a
 // warp takes RPS rows per step: LPR = HD / VEC lanes per row, each lane
-// holding VEC consecutive dimensions (one 16-byte load of K and of V).
+// holding VEC consecutive dimensions (one 16-byte load of K and of V; two
+// for float32 at hd 256, whose 64 pieces a row would otherwise need more
+// lanes than a warp has).
 // Every lane keeps its slice of the group's query heads in registers and
 // its own online-softmax state (m, l, acc) per head, so a K/V row read
 // once serves all G heads; a dot product is reduced with xor shuffles
@@ -123,6 +125,20 @@ __device__ __forceinline__ void widen(const uint4& raw, float (&x)[8]) {
   }
 }
 
+// A lane's VEC values from its 16-byte pieces, 32 slots apart in the ring.
+template <typename T, int VEC>
+__device__ __forceinline__ void widen_slots(const uint4* slot,
+                                            float (&x)[VEC]) {
+  constexpr int PIECE = 16 / sizeof(T);
+#pragma unroll
+  for (int p = 0; p < VEC / PIECE; ++p) {
+    float y[PIECE];
+    widen(slot[32 * p], y);
+#pragma unroll
+    for (int e = 0; e < PIECE; ++e) x[p * PIECE + e] = y[e];
+  }
+}
+
 // Merge this lane's state (m, l, acc) with a partner lane's (mb, lb,
 // accb), the lower lane's state first, so both lanes end with the same
 // bits.
@@ -147,7 +163,11 @@ __device__ __forceinline__ void merge(bool first, float& m, float& l,
 // device).
 template <typename T, int HD, bool MASSES>
 struct Shape {
-  static constexpr int VEC = 16 / sizeof(T);  // values per 16-byte load
+  static constexpr int PIECE = 16 / sizeof(T);  // values per 16-byte load
+  // 16-byte loads of K (and of V) a lane makes per row: one, or as many as
+  // keep a row within a warp (float32 at hd 256: two)
+  static constexpr int PIECES = HD / PIECE > 32 ? HD / PIECE / 32 : 1;
+  static constexpr int VEC = PIECE * PIECES;  // values per lane
   static constexpr int LPR = HD / VEC;        // lanes per row
   static constexpr int RPS = 32 / LPR;        // rows per warp step
   static constexpr int SPB = 32 / RPS;        // steps per 32-row batch
@@ -163,9 +183,10 @@ struct Shape {
   // a rank's share of the G x HD outputs is a multiple of VEC, so n_split
   // shares hold at most GP * HD + MAX_SPLITS * VEC values
   static constexpr int ACC = WARPS * (GP * HD + MAX_SPLITS * VEC);
-  // byte offsets: the K/V ring, received partials (acc, m, l), the merge
-  // weights, final (m, 1 / l), the logits
-  static constexpr int RING_B = WARPS * NST * 64 * 16;
+  // byte offsets: the K/V ring (a stage holds each lane's K pieces, then
+  // its V pieces, 32 slots of 16 bytes apart), received partials (acc, m,
+  // l), the merge weights, final (m, 1 / l), the logits
+  static constexpr int RING_B = WARPS * NST * 64 * PIECES * 16;
   static constexpr int ACC_B = RING_B;
   static constexpr int M_B = ACC_B + ACC * 4;
   static constexpr int L_B = M_B + PARTS * GP * 4;
@@ -174,8 +195,8 @@ struct Shape {
   static constexpr int LG_B = FIN_B + 2 * GP * 4;
   static constexpr int BYTES =
       LG_B + (MASSES ? WARPS * LCAP * RPS * GP * 4 : 0);
-  static_assert(LPR <= 32 && CH >= 2 && NST % CH == 0 && SPB % CH == 0 &&
-                    PARTS % 32 == 0,
+  static_assert(LPR <= 32 && HD % VEC == 0 && CH >= 2 && NST % CH == 0 &&
+                    SPB % CH == 0 && PARTS % 32 == 0,
                 "shape");
 };
 
@@ -205,6 +226,8 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
   using S = Shape<T, HD, MASSES>;
   constexpr int VEC = S::VEC, LPR = S::LPR, RPS = S::RPS, SPB = S::SPB;
   constexpr int CH = S::CH, NST = S::NST, LCAP = S::LCAP, PARTS = S::PARTS;
+  constexpr int PIECE = S::PIECE, PIECES = S::PIECES;
+  constexpr int STAGE = 64 * PIECES;  // ring slots of one step
   float* r_acc = reinterpret_cast<float*>(smem + S::ACC_B);
   float* r_m = reinterpret_cast<float*>(smem + S::M_B);  // [part][GP]
   float* r_l = reinterpret_cast<float*>(smem + S::L_B);
@@ -218,9 +241,9 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int slot = lane / LPR, sub = lane % LPR, d0 = sub * VEC;
   const float qscale = scale * LOG2E;
-  // this lane's K slot of stage i is ring[i * 64], its V slot ring[i * 64
-  // + 32]
-  uint4* ring = reinterpret_cast<uint4*>(smem) + warp * NST * 64 + lane;
+  // this lane's K pieces of stage i are ring[i * STAGE + 32 p], its V
+  // pieces ring[i * STAGE + 32 (PIECES + p)]
+  uint4* ring = reinterpret_cast<uint4*>(smem) + warp * NST * STAGE + lane;
 
   // this warp's run of rows, a whole number of steps
   int per = (c1 - c0 + WARPS - 1) / WARPS;
@@ -242,8 +265,15 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
 #pragma unroll
     for (int h = 0; h < GP; ++h) {
       if (h < ng) {  // padded heads score zeros and are never stored
-        widen(*reinterpret_cast<const uint4*>(q + (h0 + h) * HD + d0),
-              qf[h]);
+#pragma unroll
+        for (int p = 0; p < PIECES; ++p) {
+          float y[PIECE];
+          widen(*reinterpret_cast<const uint4*>(q + (h0 + h) * HD + d0 +
+                                                p * PIECE),
+                y);
+#pragma unroll
+          for (int e = 0; e < PIECE; ++e) qf[h][p * PIECE + e] = y[e];
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) qf[h][e] = 0.f;
@@ -276,9 +306,12 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
       const int r = __shfl_sync(FULL, mine, (t % SPB) * RPS + slot);
       if (t < steps && r >= 0 && rows.stored(r)) {
         const size_t o = ((size_t)r * KV + kvh) * HD + d0;
-        uint4* st = ring + (t % NST) * 64;
-        cp_async16(st, k + o);
-        cp_async16(st + 32, v + o);
+        uint4* st = ring + (t % NST) * STAGE;
+#pragma unroll
+        for (int p = 0; p < PIECES; ++p) {
+          cp_async16(st + 32 * p, k + o + p * PIECE);
+          cp_async16(st + 32 * (PIECES + p), v + o + p * PIECE);
+        }
       }
       cp_async_commit();
     };
@@ -305,7 +338,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
         const int t = t0 + u;
         ok[u] = __shfl_sync(FULL, rid, (t % SPB) * RPS + slot) >= 0;
         float kf[VEC];
-        widen(ring[(t % NST) * 64], kf);
+        widen_slots<T>(ring + (t % NST) * STAGE, kf);
 #pragma unroll
         for (int h = 0; h < GP; ++h) {
           sc[u][h] = 0.f;
@@ -371,7 +404,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
 #pragma unroll
       for (int u = 0; u < CH; ++u) {
         float vf[VEC];
-        widen(ring[((t0 + u) % NST) * 64 + 32], vf);
+        widen_slots<T>(ring + ((t0 + u) % NST) * STAGE + 32 * PIECES, vf);
 #pragma unroll
         for (int e = 0; e < VEC; ++e)  // a dead row's V may hold anything
           vf[e] = ok[u] ? vf[e] : 0.f;

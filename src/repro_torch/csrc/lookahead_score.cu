@@ -23,7 +23,9 @@
 // visible key (q_offset + n_obs - 1) write exact zeros without reading K.
 // Layout: q_obs (B, n_obs, H, hd), k (B, Sk, KV, hd) contiguous.
 //
-// bf16 (namespace tc): tensor cores, the GQA group packed into one tile.
+// bf16 (namespace tc): tensor cores, the GQA group packed into one tile
+// (at hd 256 the A fragments are read from shared memory per k-step, not
+// held in registers for the whole row: QFrags).
 // A CTA takes all G query heads of one kv head over a block of
 // observation rows: each head's rows are padded to 16, and a row block is
 // 8 such 16-row fragments in (row fragment, head) order (llama3-8b's 4
@@ -84,9 +86,10 @@ __device__ __forceinline__ bool key_ok(int kpos, int qpos, int Sk,
 }
 
 // Stage NROWS rows of HD elements into shared memory as float (row stride
-// HD + 1): every thread issues all its 16-byte loads before converting and
-// storing, so the loads are in flight together.  Rows at or past `limit`
-// are zeros.
+// HD + 1): every thread issues its 16-byte loads (up to BATCH of them: 8,
+// or 4 at hd 256, whose float32 key tile's 16 would spill: the kernels
+// keep to 64 registers) before converting and storing, so the loads are
+// in flight together.  Rows at or past `limit` are zeros.
 template <typename T, int HD, int NROWS>
 __device__ __forceinline__ void stage_rows(float* dst, const T* src,
                                            size_t row_stride, int row0,
@@ -95,25 +98,30 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src,
   constexpr int PER_ROW = HD / VEC;
   constexpr int N = NROWS * PER_ROW;
   constexpr int ITERS = (N + THREADS - 1) / THREADS;
-  uint4 buf[ITERS];
+  constexpr int MAXB = HD == 256 ? 4 : 8;
+  constexpr int BATCH = ITERS < MAXB ? ITERS : MAXB;
 #pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int i = threadIdx.x + it * THREADS;
-    const int r = i / PER_ROW, c = i % PER_ROW;
-    buf[it] = (i < N && row0 + r < limit)
-                  ? *reinterpret_cast<const uint4*>(
-                        src + (size_t)(row0 + r) * row_stride + c * VEC)
-                  : make_uint4(0, 0, 0, 0);
-  }
+  for (int it0 = 0; it0 < ITERS; it0 += BATCH) {
+    uint4 buf[BATCH];
 #pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int i = threadIdx.x + it * THREADS;
-    if (i < N) {
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = threadIdx.x + (it0 + u) * THREADS;
       const int r = i / PER_ROW, c = i % PER_ROW;
-      const T* e = reinterpret_cast<const T*>(&buf[it]);
+      buf[u] = (i < N && row0 + r < limit)
+                   ? *reinterpret_cast<const uint4*>(
+                         src + (size_t)(row0 + r) * row_stride + c * VEC)
+                   : make_uint4(0, 0, 0, 0);
+    }
 #pragma unroll
-      for (int j = 0; j < VEC; ++j)
-        dst[r * (HD + 1) + c * VEC + j] = to_f32(e[j]);
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = threadIdx.x + (it0 + u) * THREADS;
+      if (i < N) {
+        const int r = i / PER_ROW, c = i % PER_ROW;
+        const T* e = reinterpret_cast<const T*>(&buf[u]);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          dst[r * (HD + 1) + c * VEC + j] = to_f32(e[j]);
+      }
     }
   }
 }
@@ -351,28 +359,55 @@ __device__ __forceinline__ void stage_k(bf16* sK, const bf16* k, int b,
   }
 }
 
-// This warp's FPW A fragments (every k-step) from sQ.
+// This warp's FPW A fragments of the packed rows in sQ, k-step by k-step.
+// At hd <= 128 every k-step's fragments stay in registers once read (FPW x
+// HD / 16 x 4 of them: 64 at hd 128); at hd 256 that would be 128, beside
+// the 64 logits, so each k-step's are read from sQ when the product needs
+// them (sQ stays put while they are used).
 template <int HD>
-__device__ __forceinline__ void load_q(uint32_t (&qa)[FPW][HD / 16][4],
-                                       const bf16* sQ) {
-  using S = Shape<HD>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+struct QFrags {
+  static constexpr bool REG = HD <= 128;
+  static constexpr int LD = Shape<HD>::LD;
+  uint32_t qa[REG ? FPW : 1][REG ? HD / 16 : 1][4];
+  // hd 256: the shared-memory address of this lane's ldmatrix row of
+  // fragment 0 (fragment f's is 16 f rows further), 32 bits
+  uint32_t base;
+
+  __device__ __forceinline__ void load(const bf16* sQ) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const bf16* row = sQ + (warp * FPW * 16 + (lane & 7) +
+                            ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+    if constexpr (REG) {
 #pragma unroll
-  for (int f = 0; f < FPW; ++f) {
-    const bf16* row = sQ + ((warp * FPW + f) * 16 + (lane & 7) +
-                            ((lane >> 3) & 1) * 8) * S::LD + (lane >> 4) * 8;
+      for (int f = 0; f < FPW; ++f)
 #pragma unroll
-    for (int ks = 0; ks < S::KS; ++ks) ldsm_x4(qa[f][ks], row + ks * 16);
+        for (int ks = 0; ks < HD / 16; ++ks)
+          ldsm_x4(qa[f][ks], row + f * 16 * LD + ks * 16);
+    } else {
+      base = smem_addr(row);
+    }
   }
-}
+  // fragment f's A registers of k-step ks
+  __device__ __forceinline__ void get(int f, int ks, uint32_t (&a)[4]) const {
+    if constexpr (REG) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qa[f][ks][i];
+    } else {
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+          "[%4];\n"
+          : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+          : "r"(base + 2 * (f * 16 * LD + ks * 16)));
+    }
+  }
+};
 
 // S = Q K^T of this warp's fragments over the BK keys of sK: s[f][n][e] is
 // (packed row 16 (warp FPW + f) + lane / 4 + 8 (e / 2), key 8 n + 2 (lane
 // % 4) + e % 2).  Both launches call this, so each logit is the same MMAs
 // (k-steps in order, from zero) in each.
 template <int HD>
-__device__ __forceinline__ void logits(const uint32_t (&qa)[FPW][HD / 16][4],
-                                       const bf16* sK,
+__device__ __forceinline__ void logits(const QFrags<HD>& qf, const bf16* sK,
                                        float (&s)[FPW][NF][4]) {
   using S = Shape<HD>;
   const int lane = threadIdx.x & 31;
@@ -386,15 +421,47 @@ __device__ __forceinline__ void logits(const uint32_t (&qa)[FPW][HD / 16][4],
                     ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int ks = 0; ks < S::KS; ++ks) {
+    uint32_t qa[FPW][4];
+#pragma unroll
+    for (int f = 0; f < FPW; ++f) qf.get(f, ks, qa[f]);
 #pragma unroll
     for (int np = 0; np < NF / 2; ++np) {  // keys 16 np .. 16 np + 15
       uint32_t bk[4];
       ldsm_x4(bk, row + np * 16 * S::LD + ks * 16);
 #pragma unroll
       for (int f = 0; f < FPW; ++f) {
-        mma_bf16(s[f][2 * np], qa[f][ks], bk[0], bk[1]);
-        mma_bf16(s[f][2 * np + 1], qa[f][ks], bk[2], bk[3]);
+        mma_bf16(s[f][2 * np], qa[f], bk[0], bk[1]);
+        mma_bf16(s[f][2 * np + 1], qa[f], bk[2], bk[3]);
       }
+    }
+  }
+}
+
+// The logits of fragment f alone, as logits<HD> forms them (its MMAs
+// depend on no other fragment's), for launch (b) at hd 256: 32 logit
+// registers instead of 64.
+template <int HD>
+__device__ __forceinline__ void logits_of(const QFrags<HD>& qf, int f,
+                                          const bf16* sK,
+                                          float (&s)[NF][4]) {
+  using S = Shape<HD>;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < NF; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  const bf16* row = sK + ((lane & 7) + (lane >> 4) * 8) * S::LD +
+                    ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int ks = 0; ks < S::KS; ++ks) {
+    uint32_t qa[4];
+    qf.get(f, ks, qa);
+#pragma unroll
+    for (int np = 0; np < NF / 2; ++np) {
+      uint32_t bk[4];
+      ldsm_x4(bk, row + np * 16 * S::LD + ks * 16);
+      mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+      mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
     }
   }
 }
@@ -572,11 +639,11 @@ obs_row_stats_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         stage_k<HD>(sK + t * BK * S::LD, k, b, k_begin + t * BK, Sk, KV, kvh);
       cp_async_commit();
     }
-    uint32_t qa[FPW][S::KS][4];
+    QFrags<HD> qa;
     for (int t = 0; t < n_t; ++t) {
       cp_async_wait<NST - 2>();  // tile t (and the Q rows) landed
       __syncthreads();           // ... for every thread; tile t - 1 is read
-      if (t == 0) load_q<HD>(qa, sQ);
+      if (t == 0) qa.load(sQ);
       const int tn = t + NST - 1;  // refill the stage tile t - 1 held
       if (tn < n_t)
         stage_k<HD>(sK + (tn % NST) * BK * S::LD, k, b, k_begin + tn * BK,
@@ -724,15 +791,19 @@ obs_column_means_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     __syncthreads();  // tile j and the rows' (m, 1 / l) ready
-    uint32_t qa[FPW][S::KS][4];
-    load_q<HD>(qa, sQ + slot * ROWS * S::LD);
-    float s[FPW][NF][4];
-    logits<HD>(qa, sK + kslot(j) * BK * S::LD, s);
+    QFrags<HD> qa;
+    qa.load(sQ + slot * ROWS * S::LD);
+    // hd 256 forms one fragment's logits at a time, inside the loop below
+    constexpr bool ONE = !QFrags<HD>::REG;
+    const bf16* tile = sK + kslot(j) * BK * S::LD;
+    float s[ONE ? 1 : FPW][NF][4];
+    if constexpr (!ONE) logits<HD>(qa, tile, s);
     const bool open = open_tile(k0, blk.row_lo, blk.row_hi, q_offset,
                                 window, Sk, n_prompt, kvm != nullptr);
     const unsigned kb = open ? 0u : key_bits(k0, Sk, n_prompt, kvm);
 #pragma unroll
     for (int f = 0; f < FPW; ++f) {
+      if constexpr (ONE) logits_of<HD>(qa, f, tile, s[0]);
       const int fi = blk.f0 + warp * FPW + f;
       float mr[2], inv[2];
       int qpos[2];
@@ -745,11 +816,11 @@ obs_column_means_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       float col[NF][2];
       if (open)
-        column_weights<false>(s[f], col, mr, inv, qpos, k0, 0u, window,
-                              qscale);
+        column_weights<false>(s[ONE ? 0 : f], col, mr, inv, qpos, k0, 0u,
+                              window, qscale);
       else
-        column_weights<true>(s[f], col, mr, inv, qpos, k0, kb, window,
-                             qscale);
+        column_weights<true>(s[ONE ? 0 : f], col, mr, inv, qpos, k0, kb,
+                             window, qscale);
 #pragma unroll
       for (int n = 0; n < NF; ++n)
 #pragma unroll
@@ -824,7 +895,7 @@ cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (t_per < 1) return cudaErrorInvalidValue;
   const int G = H / KV;
   const int n_rb = ((n_obs + 15) / 16 * G + MAXF - 1) / MAXF;
-  const int qstages = n_rb > 1 ? 2 : 1;
+  const int qstages = n_rb > 1 ? 2 : 1;  // one row block: nothing to prefetch
   const float qscale = 1.f / sqrtf((float)HD) * LOG2E;
   constexpr int smem1 = (ROWS + NST * BK) * S::LD * 2;
   const int smem2 = (2 * BK + qstages * ROWS) * S::LD * 2 +
@@ -908,6 +979,7 @@ extern "C" int lookahead_score(const void* q, const void* k,
     case 32: return dispatch<32>(dtype, q, k, km, rv, mb, lb, o, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, t_per, st);
     case 64: return dispatch<64>(dtype, q, k, km, rv, mb, lb, o, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, t_per, st);
     case 128: return dispatch<128>(dtype, q, k, km, rv, mb, lb, o, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, t_per, st);
+    case 256: return dispatch<256>(dtype, q, k, km, rv, mb, lb, o, B, n_obs, H, Sk, KV, n_prompt, q_offset, window, n_split, t_per, st);
     default: return cudaErrorInvalidValue;
   }
 }

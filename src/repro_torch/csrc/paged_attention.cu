@@ -175,6 +175,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k_pool,
     case 32: return launch<T, 32>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
     case 64: return launch<T, 64>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
     case 128: return launch<T, 128>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
+    case 256: return launch<T, 256>(q, k_pool, v_pool, mask_pool, pos_pool, table, new_pos, out, masses, B, H, KV, bs, nb, window, n_split, st);
     default: return cudaErrorInvalidValue;
   }
 }

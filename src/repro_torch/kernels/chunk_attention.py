@@ -12,10 +12,11 @@ h2o chunk): the same attention, bitwise, plus the summed softmax column
 masses of the rows below ``n_total``.  Plain version: ``ref.chunk_attention``
 and ``ref.chunk_column_masses``.
 
-bfloat16 at head dims 64 and 128 (the served models) runs the wgmma + TMA
-tile of ``csrc/attention_sm90.cuh`` for both (kernel 2: the tile storing
-each row's (m, l), then its ``column_masses_sm90`` over 128-key tiles);
-float32 and head dim 32 run the kernels of ``csrc/chunk_attention.cu``.
+bfloat16 at head dims 64, 128 and 256 (the served models) runs the wgmma
++ TMA tile of ``csrc/attention_sm90.cuh`` for both (kernel 2: the tile
+storing each row's (m, l), then its ``column_masses_sm90`` over 128-key
+tiles); float32 and head dim 32 run the kernels of
+``csrc/chunk_attention.cu``.
 A short chunk makes few of the tile's CTAs (one per 128-row query tile
 and head), so ``key_splits`` spreads each one's key range over up to 4
 CTAs when the card has SMs to spare; the kernels merge the float32
@@ -50,14 +51,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (B, K, KV, hd) or v.shape != k.shape or H % KV:
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
-    if hd not in (32, 64, 128):
-        raise ValueError(f"head_dim {hd} not built (32, 64, 128)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not built {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("chunk_attention kernel takes contiguous tensors")
     check_offset(q_offset, C, K)
 
 
-#: the Hopper tile's query rows and keys per tile (csrc/attention_sm90.cuh)
+#: head dims the kernels are built for (every entry of csrc/*.cu but kernel 8)
+HEAD_DIMS = (32, 64, 128, 256)
+#: the Hopper tile's query rows per tile (csrc/attention_sm90.cuh)
 TILE = 128
 #: at most this many CTAs share one query tile's key range ...
 MAX_SPLITS = 4
@@ -65,20 +68,27 @@ MAX_SPLITS = 4
 MIN_TILES_PER_SPLIT = 4
 
 
+def key_tile(hd: int) -> int:
+    """Keys per K/V tile of the Hopper tile (``Geom``): 128, or 64 at hd
+    256, whose shared memory holds two stages of 64-key tiles."""
+    return 64 if hd == 256 else 128
+
+
 def key_splits(B: int, C: int, H: int, K: int, hd: int, dtype, *,
                q_offset: int, window, sms: int) -> int:
     """CTAs per (query tile, head, sequence) of the Hopper tile: 1 unless
-    the tile runs (bfloat16 at hd 64 or 128) and its B * H * ceil(C / 128)
-    CTAs leave SMs idle; then as many as fill the ``sms`` SMs, at most
-    ``MAX_SPLITS``, with at least ``MIN_TILES_PER_SPLIT`` of the 128-key
-    tiles the chunk's first row visits each."""
-    if dtype != torch.bfloat16 or hd not in (64, 128):
+    the tile runs (bfloat16 at hd 64, 128 or 256) and its B * H * ceil(C /
+    128) CTAs leave SMs idle; then as many as fill the ``sms`` SMs, at most
+    ``MAX_SPLITS``, with at least ``MIN_TILES_PER_SPLIT`` of the key tiles
+    (``key_tile``) the chunk's first row visits each."""
+    if dtype != torch.bfloat16 or hd not in (64, 128, 256):
         return 1
     ctas = B * H * -(-C // TILE)
+    kt = key_tile(hd)
     k_lo = 0
     if window:
-        k_lo = max(0, q_offset - int(window) + 1) // TILE * TILE
-    n_tiles = -(-(min(K, q_offset + C) - k_lo) // TILE)
+        k_lo = max(0, q_offset - int(window) + 1) // kt * kt
+    n_tiles = -(-(min(K, q_offset + C) - k_lo) // kt)
     return max(1, min(MAX_SPLITS, sms // ctas,
                       n_tiles // MIN_TILES_PER_SPLIT))
 

@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, paged_attention
+from repro_torch.kernels.chunk_attention import HEAD_DIMS
 
 #: kernel launches since the last reset (``ops.reset_launch_counts``)
 launches = 0
@@ -50,8 +51,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or not 1 <= H // KV <= 32:
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
-    if hd not in (32, 64, 128):
-        raise ValueError(f"head_dim {hd} not built (32, 64, 128)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not built {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attention kernel takes contiguous tensors")
     kind = 0

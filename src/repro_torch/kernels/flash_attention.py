@@ -5,10 +5,11 @@ The Hopper port of the JAX package's ``flash_attention_pallas``: GQA
 self-attention of a whole sequence (Sq == Sk), causal or, with
 ``causal=False``, over every key, with an optional sliding window: the
 chunk attention with ``q_offset = 0`` and the chunk spanning the buffer.
-bfloat16 at head dims 64 and 128 (the served models) runs the wgmma + TMA
-tile of ``csrc/attention_sm90.cuh`` (128-row query tiles of two consumer
-warpgroups, a producer warpgroup feeding a three-stage TMA ring of 128-key
-K/V tiles); float32 and head dim 32 run the chunk-attention kernels of
+bfloat16 at head dims 64, 128 and 256 (the served models) runs the wgmma +
+TMA tile of ``csrc/attention_sm90.cuh`` (128-row query tiles of two
+consumer warpgroups, a producer warpgroup feeding a three-stage TMA ring of
+128-key K/V tiles, at hd 256 a two-stage ring of 64-key tiles); float32
+and head dim 32 run the chunk-attention kernels of
 ``csrc/chunk_attention.cu``.  This wrapper has its own entry point and
 launch counter.  Any S: the ragged last tile is masked (the Pallas kernel
 asserts block multiples).  Plain version: ``ref.flash_attention``.
@@ -29,14 +30,20 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.chunk_attention import HEAD_DIMS, key_tile
 
 #: kernel launches since the last reset (``ops.reset_launch_counts``)
 launches = 0
 
 
-#: the longest key axis a masked call takes (2048 key tiles of 128: the
-#: Hopper tile keeps two bits per tile in shared memory)
-MAX_MASKED_S = 262_144
+#: key tiles a masked call may span (the Hopper tile keeps two bits per
+#: tile in shared memory): S up to 262,144 at hd 64 and 128, 131,072 at 256
+MAX_MASKED_TILES = 2048
+
+
+def max_masked_s(hd: int) -> int:
+    """The longest key axis a masked call takes at head dim ``hd``."""
+    return MAX_MASKED_TILES * key_tile(hd)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -60,8 +67,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape != (B, S, KV, hd) or v.shape != k.shape or H % KV:
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} (Sq == Sk)")
-    if hd not in (32, 64, 128):
-        raise ValueError(f"head_dim {hd} not built (32, 64, 128)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not built {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous tensors")
     if kv_mask is not None:
@@ -71,9 +78,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"kv_mask must be a contiguous bool (B, S) "
                              f"tensor on {q.device}, got {kv_mask.dtype} "
                              f"{tuple(kv_mask.shape)} on {kv_mask.device}")
-        if S > MAX_MASKED_S:
-            raise ValueError(f"a masked call takes S <= {MAX_MASKED_S}, "
-                             f"got {S}")
+        if S > max_masked_s(hd):
+            raise ValueError(f"a masked call takes S <= {max_masked_s(hd)} "
+                             f"at head_dim {hd}, got {S}")
     out = torch.empty_like(q)
     err = build.library("chunk_attention", "flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), build.ptr(kv_mask),

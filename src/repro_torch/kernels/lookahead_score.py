@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.chunk_attention import HEAD_DIMS
 
 #: wrapper calls that launched the kernel pair since the last reset
 launches = 0
@@ -45,17 +46,22 @@ def row_blocks(n_obs: int, group: int) -> int:
 
 
 def key_splits(B: int, n_obs: int, H: int, KV: int, n_visible: int,
-               sms: int) -> int:
+               sms: int, hd: int) -> int:
     """Key splits of launch (a): as many as give each at least
     ``MIN_TILES_PER_SPLIT`` of the ``n_visible`` keys' tiles, at most
     ``MAX_SPLITS``, and no more than fit ``CTAS_PER_SM`` CTAs of all
     (sequence, kv head, row block)s on each of the ``sms`` SMs: at
     llama3-8b's finalize (B 1, 8 kv heads, 4032 visible keys) 16 splits
-    of ~4 tiles, 128 CTAs."""
+    of ~4 tiles, 128 CTAs.  Launch (b) stages every split's partials, so
+    no more than leave a CTA of it room for one key tile
+    (``column_smem``; it binds only at hd 256 with two row blocks)."""
     tiles = -(-max(n_visible, 1) // _TILE)
     ctas = B * KV * row_blocks(n_obs, H // KV)
-    return max(1, min(MAX_SPLITS, -(-tiles // MIN_TILES_PER_SPLIT),
-                      CTAS_PER_SM * sms // ctas))
+    n = max(1, min(MAX_SPLITS, -(-tiles // MIN_TILES_PER_SPLIT),
+                   CTAS_PER_SM * sms // ctas))
+    while n > 1 and column_smem(n_obs, H // KV, hd, n, 1) > MAX_SMEM:
+        n -= 1
+    return n
 
 
 def column_smem(n_obs: int, G: int, hd: int, n_split: int,
@@ -115,8 +121,8 @@ def lookahead_score(q_obs: torch.Tensor, k: torch.Tensor, n_prompt: int, *,
     if k.shape != (B, Sk, KV, hd) or H % KV or not 0 < n_prompt <= Sk:
         raise ValueError(f"shape mismatch q_obs {tuple(q_obs.shape)} k "
                          f"{tuple(k.shape)} n_prompt {n_prompt}")
-    if hd not in (32, 64, 128):
-        raise ValueError(f"head_dim {hd} not built (32, 64, 128)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not built {HEAD_DIMS}")
     if not (q_obs.is_contiguous() and k.is_contiguous()):
         raise ValueError("lookahead_score kernel takes contiguous tensors")
     km = _mask_arg(kv_mask, (B, n_prompt), q_obs.device)
@@ -124,7 +130,7 @@ def lookahead_score(q_obs: torch.Tensor, k: torch.Tensor, n_prompt: int, *,
     dev = q_obs.device
     off = n_prompt if q_offset is None else int(q_offset)
     sms = build.sm_count(dev)
-    n_split = key_splits(B, n_obs, H, KV, min(Sk, off + n_obs), sms)
+    n_split = key_splits(B, n_obs, H, KV, min(Sk, off + n_obs), sms, hd)
     m_buf = torch.empty((B, H, n_split, n_obs), dtype=torch.float32,
                         device=dev)
     l_buf = torch.empty_like(m_buf)

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.chunk_attention import HEAD_DIMS
 
 #: launches of kernel 4 (``paged_decode_attention``) and kernel 5
 #: (``paged_decode_masses``) since the last reset (``ops.reset_launch_counts``)
@@ -74,7 +75,7 @@ def _check(q, k_pool, v_pool, mask_pool, table, pos_pool, new_pos,
         raise ValueError("paged decode kernels take CUDA tensors")
     if q.dtype not in build.DTYPE_CODES:
         raise ValueError(f"unsupported dtype {q.dtype}")
-    if H % KV or not 1 <= H // KV <= 32 or hd not in (32, 64, 128):
+    if H % KV or not 1 <= H // KV <= 32 or hd not in HEAD_DIMS:
         raise ValueError(f"unsupported heads H={H} KV={KV} hd={hd}")
     _need(q, "q", q.dtype, (B, H, hd), dev)
     _need(k_pool, "k_pool", q.dtype, (N, bs, KV, hd), dev)

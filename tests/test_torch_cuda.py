@@ -110,6 +110,17 @@ def _randn(gen, shape, dtype, dev):
     (1, 100, 1000, 16, 2, 128, 700, None),  # GQA ratio 8
     (3, 129, 1000, 8, 2, 128, 100, None),  # B = 3
     (1, 1024, 1024, 8, 2, 64, 0, None),  # 2 key splits, one of them empty
+    # hd 256 (gemma3-1b: 4 / 1 heads; the tile's 64-key K/V tiles)
+    (1, 256, 4096, 4, 1, 256, 3840, 512),  # a local layer's chunk
+    (1, 256, 4096, 4, 1, 256, 3840, None),  # a global layer's chunk
+    (1, 32, 4096, 4, 1, 256, 4000, 512),  # the observation pass
+    (1, 1, 100, 4, 1, 256, 0, None),  # one row
+    (1, 129, 1000, 4, 1, 256, 100, None),  # ragged C and K
+    (1, 256, 4096, 4, 1, 256, 3840, 32),  # a window below a key tile
+    (1, 200, 1000, 4, 1, 256, 650, 100),  # a window across key tiles
+    (1, 100, 1000, 8, 1, 256, 700, None),  # G 8
+    (3, 129, 1000, 4, 1, 256, 100, None),  # B = 3
+    (1, 1024, 1024, 4, 1, 256, 0, None),  # key splits
 ])
 def test_chunk_attention_matches_plain(dev, dtype, B, C, K, H, KV, hd, off,
                                        window):
@@ -146,6 +157,13 @@ def test_chunk_attention_matches_plain(dev, dtype, B, C, K, H, KV, hd, off,
     (1, 100, 1000, 10, 2, 64, 700, 790, None),  # GQA ratio 5
     (3, 129, 1000, 8, 2, 128, 100, 200, None),  # B = 3
     (1, 1024, 1024, 8, 2, 128, 0, 1000, None),  # a key split left empty
+    # hd 256 (gemma3-1b): column masses over 128-key tiles beside the
+    # attention tile's 64-key ones
+    (1, 256, 4096, 4, 1, 256, 3840, 4000, 512),  # a local layer's h2o chunk
+    (1, 256, 4096, 4, 1, 256, 3840, 4000, None),  # a global layer's
+    (1, 129, 1000, 4, 1, 256, 100, 229, 32),  # a window below a key tile
+    (2, 100, 1000, 4, 1, 256, 700, 790, None),  # K ragged, B = 2
+    (1, 1024, 1024, 4, 1, 256, 0, 1000, None),  # key splits
 ])
 def test_chunk_attention_masses_matches_plain(dev, dtype, B, C, K, H, KV,
                                               hd, off, n_total, window):
@@ -173,9 +191,9 @@ def test_chunk_attention_masses_matches_plain(dev, dtype, B, C, K, H, KV,
         masses[..., 0], n_rows), atol=1e-4 * n_rows, rtol=0)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_chunk_attention_sm90_counts_one_launch(dev, hd):
-    """Kernel 1 on the bf16 tile at hd 64 and 128 counts one launch per
+    """Kernel 1 on the bf16 tile at hd 64, 128 and 256 counts one launch per
     call, kernel 2 one per call, whatever launches the call makes inside
     (the combine of a split key range, kernel 2's column masses)."""
     g = torch.Generator(device=dev).manual_seed(10)
@@ -183,8 +201,9 @@ def test_chunk_attention_sm90_counts_one_launch(dev, hd):
     k = _randn(g, (1, 1000, 2, hd), torch.bfloat16, dev)
     v = _randn(g, (1, 1000, 2, hd), torch.bfloat16, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # 932 visible keys: 8 tiles of 128, or 15 of 64 at hd 256
     assert ck.key_splits(1, 32, 8, 1000, hd, q.dtype, q_offset=900,
-                         window=None, sms=sms) == 2
+                         window=None, sms=sms) == (3 if hd == 256 else 2)
     before = ops.launch_counts()
     ops.chunk_attention(q, k, v, q_offset=900)
     assert ck.launches == before["chunk_attention"] + 1
@@ -220,6 +239,13 @@ def test_chunk_attention_sm90_counts_one_launch(dev, hd):
     (2, 20, 400, 8, 2, 32, 380, None, None, "dead"),  # every row invalid
     # 16 x 32k prompts: launch (b)'s key ranges capped by shared memory
     (16, 32, 32800, 32, 8, 128, 32768, None, None, False),
+    # hd 256 (gemma3-1b): A fragments read from shared memory per k-step
+    (1, 32, 4096, 4, 1, 256, 4096, 4000, 512, False),  # a local finalize
+    (1, 32, 4096, 4, 1, 256, 4096, 4000, None, False),  # a global one
+    (4, 32, 2080, 4, 1, 256, 2048, None, 512, False),  # lockstep prefill
+    (2, 40, 700, 4, 1, 256, 700, 640, 96, True),  # masks, a window
+    (1, 17, 500, 4, 1, 256, 483, None, None, False),  # n_obs 17
+    (1, 32, 4096, 8, 1, 256, 4096, 4000, None, False),  # two row blocks
 ])
 def test_lookahead_score_matches_plain(dev, dtype, B, n_obs, Sk, H, KV, hd,
                                        n_prompt, off, window, masks):
@@ -252,7 +278,8 @@ def test_lookahead_score_is_two_launches(dev):
 
     g = torch.Generator(device=dev).manual_seed(12)
     B, n_obs, Sk, H, KV, hd = 1, 32, 4096, 32, 8, 128
-    assert lk.key_splits(B, n_obs, H, KV, 4032, build.sm_count(dev)) > 1
+    assert lk.key_splits(B, n_obs, H, KV, 4032, build.sm_count(dev),
+                         hd) > 1
     for dtype, part in ((torch.bfloat16, "_mma"), (torch.float32, "")):
         q = _randn(g, (B, n_obs, H, hd), dtype, dev)
         k = _randn(g, (B, Sk, KV, hd), dtype, dev)
@@ -325,6 +352,11 @@ def test_paged_decode_matches_plain(dev, dtype, window, splits, monkeypatch):
     (32, 8, 128, None, 16, 20, "a split all null or masked"),
     (32, 8, 64, None, 16, 3, "ragged"),  # fewer blocks than splits
     (32, 8, 128, 40, 7, 20, "ragged"),  # a block size other than 16
+    # hd 256 (gemma3-1b: 4 / 1 heads; float32 lanes load two pieces)
+    (4, 1, 256, None, 16, 20, "ragged"),
+    (4, 1, 256, 40, 16, 20, "ragged"),
+    (4, 1, 256, 40, 16, 20, "one live slot"),
+    (8, 1, 256, None, 16, 20, "a split all null or masked"),
 ])
 def test_paged_decode_masses_matches_plain(dev, dtype, H, KV, hd, window,
                                            bs, nb, layout, splits,
@@ -445,6 +477,15 @@ def test_paged_decode_is_one_cluster_launch(dev, monkeypatch):
     (2, 300, 8, 2, 128, False, None),  # every key visible, ragged tail
     (1, 333, 8, 2, 64, False, 100),  # window without the causal mask
     (3, 260, 8, 2, 128, True, None),  # B = 3
+    # hd 256 (gemma3-1b: 4 / 1 heads; 64-key K/V tiles in 2 stages)
+    (4, 2080, 4, 1, 256, True, None),  # a global layer's lockstep prefill
+    (4, 2080, 4, 1, 256, True, 512),  # a local layer's
+    (1, 1, 4, 1, 256, True, None),  # one row
+    (1, 65, 4, 1, 256, True, None),  # one key past a key tile
+    (1, 129, 4, 1, 256, True, None),  # one row past a query tile
+    (1, 700, 4, 1, 256, True, 32),  # a window below a key tile
+    (2, 300, 4, 1, 256, False, None),  # every key visible
+    (1, 333, 8, 1, 256, True, None),  # G 8
 ])
 def test_flash_attention_matches_plain(dev, dtype, B, S, H, KV, hd, causal,
                                        window):
@@ -487,6 +528,11 @@ def _key_mask(B, S, lens, n_obs, dev, lead=0):
     # next tile arrives), key 0 of sequence 1 masked
     (2, 600, 8, 2, 128, (600, 600), 0, False, 200),
     (2, 300, 4, 2, 32, (300, 299), 1, False, 1),
+    # hd 256 (gemma3-1b): 3k's padded group, lengths around a key tile of
+    # 64, masked keys spanning whole key tiles
+    (4, 1024, 4, 1, 256, (512, 700, 900, 1024), 0, True, 0),
+    (3, 260, 4, 1, 256, (63, 64, 65), 0, True, 0),
+    (2, 600, 4, 1, 256, (600, 600), 0, False, 200),
 ])
 def test_flash_attention_masked_matches_plain(dev, dtype, B, S, H, KV, hd,
                                               lens, n_obs, causal, lead):
@@ -507,7 +553,7 @@ def test_flash_attention_masked_matches_plain(dev, dtype, B, S, H, KV, hd,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_flash_attention_masked_key0_stays_finite(dev, dtype, hd):
     """Key 0 masked under the causal mask: row 0 sees no valid key (outside
     the contract) and comes out as exact zeros, never NaN; every other
@@ -549,9 +595,9 @@ def test_flash_attention_mask_all_valid_is_unmasked(dev, dtype):
     assert fk.launches == before + 2
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_flash_attention_sm90_counts_one_launch(dev, hd):
-    """The bf16 tile at hd 64 and 128 is one launch per call."""
+    """The bf16 tile at hd 64, 128 and 256 is one launch per call."""
     g = torch.Generator(device=dev).manual_seed(9)
     q = _randn(g, (2, 200, 8, hd), torch.bfloat16, dev)
     k = _randn(g, (2, 200, 2, hd), torch.bfloat16, dev)
@@ -594,6 +640,10 @@ def _force_dense_splits(monkeypatch, n):
     (200, 2, (64, 8, 128)),  # G 8
     (150, 3, (32, 2, 32)),  # G 16 at hd 32
     (150, 0, (64, 2, 64)),  # G 32
+    # hd 256 (gemma3-1b): float32 lanes load two 16-byte pieces a row
+    (289, 3, (4, 1, 256)),
+    (3, 3, (4, 1, 256)),
+    (200, 2, (8, 1, 256)),  # G 8
 ])
 def test_decode_attention_matches_plain(dev, dtype, C, mask_kind, heads,
                                         splits, monkeypatch):

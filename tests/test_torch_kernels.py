@@ -113,6 +113,11 @@ def test_chunk_attention_plain_matches_pallas_at_tile_edges(B, C, K, H, KV,
     (4, 2080, 32, 2080, 128, torch.bfloat16, 0, None, 1),  # fills the card
     (1, 256, 32, 4096, 128, torch.bfloat16, 3840, 100, 1),  # 3 key tiles
     (1, 32, 8, 1000, 64, torch.bfloat16, 900, None, 2),  # 8 key tiles
+    # gemma3-1b at hd 256 (4 heads; the tile's 64-key K/V tiles)
+    (1, 256, 4, 4096, 256, torch.bfloat16, 3840, None, 4),  # 8 CTAs
+    (1, 256, 4, 4096, 256, torch.bfloat16, 3840, 512, 3),  # 12 key tiles
+    (1, 32, 4, 4096, 256, torch.bfloat16, 4000, None, 4),  # obs pass
+    (4, 2080, 4, 2080, 256, torch.bfloat16, 0, None, 1),  # 272 CTAs
 ])
 def test_key_splits(B, C, H, K, hd, dtype, off, window, want):
     """How many CTAs share a query tile's key range on a 132-SM card."""
@@ -163,6 +168,13 @@ def test_dense_row_splits(B, C, KV, want):
         (1, 17, 8, 2, 128, 500, 483, 1, 2, 1),  # n_obs 17: heads padded
         # 16 x 32k prompts: launch (b)'s key ranges capped by shared memory
         (16, 32, 32, 8, 128, 32800, 32768, 1, 2, 154),
+        # gemma3-1b at hd 256: its finalize and lockstep calls, then G 8
+        # and 16: two and four row blocks, whose double-buffered Q rows
+        # leave launch (b) room for 12 splits' partials, not 16
+        (1, 32, 4, 1, 256, 4032, 4096, 1, 16, 1),
+        (4, 32, 4, 1, 256, 2080, 2048, 1, 9, 1),
+        (1, 32, 8, 1, 256, 4032, 4096, 2, 12, 1),
+        (1, 64, 16, 2, 256, 4032, 4096, 4, 12, 1),
     ])
 def test_lookahead_key_splits(B, n_obs, H, KV, hd, n_visible, n_prompt,
                               blocks, splits, tiles):
@@ -171,7 +183,7 @@ def test_lookahead_key_splits(B, n_obs, H, KV, hd, n_visible, n_prompt,
     the key tiles each CTA of launch (b) takes, within a CTA's shared
     memory."""
     assert _lk.row_blocks(n_obs, H // KV) == blocks
-    assert _lk.key_splits(B, n_obs, H, KV, n_visible, 132) == splits
+    assert _lk.key_splits(B, n_obs, H, KV, n_visible, 132, hd) == splits
     assert _lk.column_tiles(B, n_obs, H, KV, hd, n_prompt, splits,
                             132) == tiles
     assert _lk.column_smem(n_obs, H // KV, hd, splits, tiles) \

@@ -350,5 +350,5 @@ def test_serve_launcher_on_cpu(capsys):
     assert "prefix cache: hit-rate 0.67, 128/311 prompt tokens served " \
         "from shared prefixes" in out
     with pytest.raises(KeyError, match="A10"):
-        serve.run(["--arch", "gemma3-1b", "--smoke", "--kv-pool-mb", "1",
+        serve.run(["--arch", "whisper-small", "--smoke", "--kv-pool-mb", "1",
                    "--device", "cpu"])
