@@ -3,10 +3,12 @@
 
 The port serves the paper's llama family, the other dense archs
 (smollm-135m, qwen2-1.5b with its qkv bias, minitron-8b, and gemma3-1b
-with its 5:1 local:global layers and head dim 256) and the SSM archs (the
-hybrid hymba-1.5b, the attention-free mamba2-130m).  The MoE, VLM and
-audio archs of the JAX package's registry raise ``KeyError`` naming the
-ROADMAP item that brings them to the port.
+with its 5:1 local:global layers and head dim 256), the MoE archs
+(deepseek-moe-16b, phi3.5-moe-42b-a6.6b), qwen2-vl-72b's language
+backbone (M-RoPE, embedding inputs) and the SSM archs (the hybrid
+hymba-1.5b, the attention-free mamba2-130m).  The audio arch of the JAX
+package's registry (whisper-small) raises ``KeyError`` naming the
+ROADMAP item that brings it to the port.
 """
 
 from __future__ import annotations
@@ -24,13 +26,13 @@ _MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
     "minitron-8b": "minitron_8b",
     "gemma3-1b": "gemma3_1b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
 # arch id -> ROADMAP item that ports it
 _LATER = {
-    "deepseek-moe-16b": "ROADMAP A10 (MoE archs)",
-    "phi3.5-moe-42b-a6.6b": "ROADMAP A10 (MoE archs)",
-    "qwen2-vl-72b": "ROADMAP A10 (VLM and audio archs)",
     "whisper-small": "ROADMAP A10 (VLM and audio archs)",
 }
 

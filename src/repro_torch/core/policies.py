@@ -115,6 +115,7 @@ def run_eviction(policy: str, params: dict, cfg: ModelConfig,
                  draft_params: Optional[dict] = None,
                  draft_cfg: Optional[ModelConfig] = None,
                  extra_slots: int = 0,
+                 mrope_positions: Optional[torch.Tensor] = None,
                  prompt_lens: Optional[torch.Tensor] = None,
                  seeds: Optional[torch.Tensor] = None) -> EvictionResult:
     """Prefill + evict under ``policy``: the next-token logits and the
@@ -123,12 +124,18 @@ def run_eviction(policy: str, params: dict, cfg: ModelConfig,
     ``laq`` and ``speckv`` draft ``evict.draft_len`` tokens and rescore
     (module docstring; ``speckv`` drafts with ``draft_params`` /
     ``draft_cfg``, a model of the same vocabulary).  ``lkv_params`` is
-    read by ``lookaheadkv`` only, ``seeds`` (B,) by ``random`` only."""
+    read by ``lookaheadkv`` only, ``seeds`` (B,) by ``random`` only.
+    ``tokens`` may be embeddings (B, n_in, D) for an ``embeds_in`` arch;
+    ``mrope_positions`` (3, B, n_in) go to the single-pass prefill and to
+    the first prefill of ``laq`` / ``speckv`` (their draft and rescoring
+    passes take the text stream), as in the JAX package."""
+    kw = dict(mrope_positions=mrope_positions)
     if policy in SINGLE_PASS:
         res = tf.prefill(
             params, cfg, tokens, policy=policy, evict=evict,
             lkv_params=lkv_params if policy == "lookaheadkv" else None,
-            extra_slots=extra_slots, prompt_lens=prompt_lens, seeds=seeds)
+            extra_slots=extra_slots, prompt_lens=prompt_lens, seeds=seeds,
+            **kw)
         return EvictionResult(logits=res.logits, cache=res.cache)
     if policy not in MULTI_PASS:
         raise ValueError(f"unknown policy {policy}; known: {ALL_POLICIES}")
@@ -140,7 +147,7 @@ def run_eviction(policy: str, params: dict, cfg: ModelConfig,
         # a cheap snapkv eviction, then a draft over the compressed cache
         # (the pseudo future)
         res1 = tf.prefill(params, cfg, tokens, policy="snapkv", evict=evict,
-                          extra_slots=evict.draft_len + 1)
+                          extra_slots=evict.draft_len + 1, **kw)
         first = torch.argmax(res1.logits, dim=-1)[:, None].to(torch.int32)
         draft, _ = greedy_decode(params, cfg, first, res1.cache,
                                  evict.draft_len)
@@ -148,7 +155,7 @@ def run_eviction(policy: str, params: dict, cfg: ModelConfig,
         if draft_params is None or draft_cfg is None:
             raise ValueError("speckv needs a draft model")
         dres = tf.prefill(draft_params, draft_cfg, tokens, policy="full",
-                          extra_slots=evict.draft_len + 1)
+                          extra_slots=evict.draft_len + 1, **kw)
         first = torch.argmax(dres.logits, dim=-1)[:, None].to(torch.int32)
         draft, _ = greedy_decode(draft_params, draft_cfg, first, dres.cache,
                                  evict.draft_len)

@@ -40,6 +40,11 @@ for the same command line.
     # the hybrid hymba-1.5b (attention and Mamba-2 heads): lockstep only
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --budget 256 --requests 4 --n-in 2048 --max-new 32
+    # the MoE deepseek-moe-16b (every route; phi3.5-moe-42b-a6.6b too)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-moe-16b --continuous --kv-pool-mb 512 \
+        --budget 256 --chunk 256 --slots 4 \
+        --prompt-lens 1024,2048,3072,4000 --max-new 32
 
 Weights (and, for ``lookaheadkv`` only, lookahead modules) are drawn at
 random from ``--seed`` (fine for plumbing and speed); ``--lkv-ckpt``
@@ -72,7 +77,9 @@ only (the lockstep route does not take it), and the SSM archs have no
 continuous route: ``--continuous`` raises for hymba-1.5b, and the
 attention-free mamba2-130m, which has no KV cache to evict, raises on
 every route (its path is ``transformer.prefill(want_ssm_cache=True)`` and
-``decode_step``).  ``--device cpu`` runs the plain PyTorch versions of
+``decode_step``).  The chunked continuous routes raise for the M-RoPE
+qwen2-vl-72b, which the lockstep and the bucketed routes serve, as in
+JAX.  ``--device cpu`` runs the plain PyTorch versions of
 the kernels.
 """
 

@@ -51,7 +51,7 @@ def qkv(
     lookahead_mask: Optional[torch.Tensor] = None,  # (B, S, 1)
     lora: Optional[dict] = None,
     lora_scale: float = 1.0,
-    rope_tables: Optional[tuple] = None,  # rope.rope_tables(positions, ...)
+    rope_tables: Optional[tuple] = None,  # rope_tables or mrope_tables
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Project + rotate.  Returns q (B,S,H,hd), k/v (B,S,KV,hd).  A caller
     running many layers at the same positions passes ``rope_tables`` once."""

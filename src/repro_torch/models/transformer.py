@@ -3,8 +3,10 @@ prefill (``prefill``), the streaming prefill (``prefill_chunk`` /
 ``prefill_finalize``), the dense decode cache and its slot surgery, and
 the decode step over a dense cache or the paged pool.
 
-The port covers the attention-only llama family, the SSM archs (the
-attention-free mamba2 and the hybrid hymba) and every single-pass
+The port covers the attention-only llama family, the MoE archs
+(deepseek-moe, phi3.5-moe), qwen2-vl's language backbone (M-RoPE
+positions, embedding inputs), the SSM archs (the attention-free mamba2
+and the hybrid hymba) and every single-pass
 eviction policy of the JAX package (``lookaheadkv``, ``gt_oracle``, the
 window policies ``snapkv``/``pyramidkv``/``tova``, ``h2o`` and the
 position policies ``streaming_llm``/``random``/``full``), with uniform,
@@ -19,10 +21,13 @@ depth is a Python loop over layer slices, which are views of the
 stacked tensors.
 
 Block, by arch type:
-    dense  : h += attn(u);              h += mlp(rms_norm(h, ln2))
+    dense / vlm : h += attn(u);         h += mlp(rms_norm(h, ln2))
+    moe    : h += attn(u);              h += moe(rms_norm(h, ln2))
     ssm    : h += ssd(u)                (no MLP when d_ff == 0)
     hybrid : h += (attn(u) + ssd(u)) / 2;  h += mlp(rms_norm(h, ln2))
-with u = rms_norm(h, ln1).
+with u = rms_norm(h, ln1).  The MoE block's load-balance loss (``aux``)
+is summed over the layers by ``prefill`` and dropped elsewhere, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -41,10 +46,12 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import layer_window
 from repro_torch.models.layers import dense_init, embed_init, rms_norm
-from repro_torch.models.rope import rope_tables
+from repro_torch.models.rope import (rope_tables, tables_for,
+                                     text_mrope_positions)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -55,12 +62,13 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _check_arch(cfg: ModelConfig) -> None:
     a = cfg.attn
-    if (cfg.moe is not None or cfg.encoder is not None or cfg.embeds_in
-            or (a is not None and a.mrope)
-            or not (cfg.uses_ssm or (a is not None and cfg.d_ff > 0))):
+    ffn = cfg.d_ff > 0 or cfg.moe is not None
+    if cfg.encoder is not None or not (
+            cfg.uses_ssm or (a is not None and ffn)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense decoders and the SSM archs "
-            "(ssm, hybrid); other archs are ROADMAP A10")
+            f"{cfg.name}: the port serves decoders (dense, MoE, the VLM "
+            "backbone) and the SSM archs (ssm, hybrid); encoder-decoder "
+            "archs are ROADMAP A10")
 
 
 def chunkable(cfg: ModelConfig) -> bool:
@@ -91,7 +99,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         layers["attn"] = attn_mod.init(gen, cfg, dtype, lead=(L,))
     if cfg.uses_ssm:
         layers["ssm"] = ssm_mod.init(gen, cfg, dtype, lead=(L,))
-    if cfg.d_ff > 0:
+    if cfg.moe is not None:
+        layers["moe"] = moe_mod.init(gen, cfg, dtype, lead=(L,))
+        layers["ln2"] = torch.zeros((L, d), dtype=dtype, device=dev)
+    elif cfg.d_ff > 0:
         layers["ln2"] = torch.zeros((L, d), dtype=dtype, device=dev)
         layers["mlp"] = mlp_mod.init(gen, cfg, dtype, lead=(L,))
     params = {
@@ -154,8 +165,13 @@ def _windows(cfg: ModelConfig) -> list:
 # ---------------------------------------------------------------------------
 
 
-def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+def embed(params: dict, cfg: ModelConfig, inputs: torch.Tensor) -> torch.Tensor:
+    """Token ids (B, S) through the embedding table; an ``embeds_in``
+    arch also takes float embeddings (B, S, D) (qwen2-vl's projected
+    patches), cast to the model dtype."""
+    if cfg.embeds_in and inputs.is_floating_point():
+        return inputs.to(torch_dtype(cfg))
+    return params["embed"][inputs.long()]
 
 
 def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -173,12 +189,26 @@ def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 def _ffn_residual(h, lp, cfg: ModelConfig, *, lora_l=None, lora_mask=None,
                   ls: float = 1.0):
+    """The post-attention half of a block: (h + ffn(rms_norm(h, ln2)),
+    aux), the MoE (``cfg.moe.dispatch`` picks ``moe.apply`` or
+    ``apply_sparse``; its LoRA is the shared experts') or the MLP; aux is
+    the MoE load-balance loss, None without MoE."""
+    if cfg.moe is not None:
+        u = rms_norm(h, lp["ln2"], cfg.norm_eps)
+        moe_lora = None
+        if lora_l is not None and lora_l.get("moe"):
+            moe_lora = lora_l["moe"].get("shared")
+        apply = (moe_mod.apply_sparse if cfg.moe.dispatch == "sparse"
+                 else moe_mod.apply)
+        mo, aux = apply(lp["moe"], cfg, u, lora=moe_lora,
+                        lora_mask=lora_mask, lora_scale=ls)
+        return h + mo, aux
     if cfg.d_ff <= 0:  # mamba2: Mamba-2 blocks only
-        return h
+        return h, None
     u = rms_norm(h, lp["ln2"], cfg.norm_eps)
     mlp_lora = None if lora_l is None else lora_l.get("mlp")
     return h + mlp_mod.apply(lp["mlp"], cfg, u, lora=mlp_lora,
-                             lora_mask=lora_mask, lora_scale=ls)
+                             lora_mask=lora_mask, lora_scale=ls), None
 
 
 # ---------------------------------------------------------------------------
@@ -190,13 +220,13 @@ class PrefillResult(NamedTuple):
     logits: Optional[torch.Tensor]  # (B, V) last-real-row logits, or (B, S, V)
     cache: Optional[dict]  # decode cache, or None without a policy
     scores: Optional[torch.Tensor]  # (L, B, H, n_keys) f32 with capture_scores
-    aux: torch.Tensor  # MoE load-balance loss: 0 for the dense archs
+    aux: torch.Tensor  # MoE load-balance loss over layers: 0 without MoE
 
 
 def prefill(
     params: dict,
     cfg: ModelConfig,
-    inputs: torch.Tensor,  # (B, S) int tokens
+    inputs: torch.Tensor,  # (B, S) int tokens, or (B, S, D) embeddings
     *,
     lkv_params: Optional[dict] = None,
     policy: Optional[str] = None,  # eviction policy; None => no cache
@@ -204,7 +234,7 @@ def prefill(
     extra_slots: int = 0,  # empty tail rows for decode appends
     capture_scores: bool = False,
     gt_boundary: Optional[int] = None,  # gt_oracle: X|Y boundary in inputs
-    mrope_positions: Optional[torch.Tensor] = None,
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, S) M-RoPE
     encoder_embeds: Optional[torch.Tensor] = None,
     want_logits: str = "last",  # "last" | "all" | "none"
     want_ssm_cache: bool = False,  # the SSM's decode cache, even unevicted
@@ -249,6 +279,13 @@ def prefill(
     rows overlap the padding and are approximate there, as in the JAX
     package.  Attention-only archs, and not with ``gt_boundary``.
 
+    M-RoPE archs (qwen2-vl) rotate by ``mrope_positions`` (3, B, S); the
+    lookahead rows appended after them take each stream's own maximum +
+    1 + i, and without given positions every row takes the text stream
+    (t == h == w == its position).  An ``embeds_in`` arch takes float
+    ``inputs`` (B, S, D) as the embedded prompt.  MoE archs sum each
+    layer's load-balance loss into ``aux``.
+
     ``capture_scores`` (training, ``core/objective.py``) returns every
     layer's per-q-head observation scores of the scored keys, before
     pooling, stacked as ``scores`` (L, B, H, n_keys) float32: those of
@@ -265,8 +302,7 @@ def prefill(
         if gt_boundary is not None:
             raise ValueError("prompt_lens and gt_boundary are exclusive")
     unported = [
-        (mrope_positions is not None or encoder_embeds is not None,
-         "M-RoPE and encoder inputs: ROADMAP A10"),
+        (encoder_embeds is not None, "encoder inputs: ROADMAP A10"),
         (want_logits not in ("last", "all", "none"),
          f"want_logits {want_logits!r}"),
     ]
@@ -310,7 +346,20 @@ def prefill(
         positions = torch.where(col < n_real, positions,
                                 pl[:, None] + (col - n_real))
         key_valid = (col < pl[:, None]) | (col >= n_real)
-    tables = (rope_tables(positions, a.head_dim, a.rope_theta)
+    mrope = None
+    if cfg.uses_attention and a.mrope:
+        if mrope_positions is None:
+            mrope = text_mrope_positions(positions)
+        elif mrope_positions.shape[2] < S:  # extend for the lookahead rows
+            given = mrope_positions.to(device=dev)
+            extra = S - given.shape[2]
+            mx = given.amax(dim=2, keepdim=True)
+            ext = mx + 1 + torch.arange(extra, device=dev,
+                                        dtype=given.dtype)
+            mrope = torch.cat([given, ext], dim=2)
+        else:
+            mrope = mrope_positions.to(device=dev)
+    tables = (tables_for(a, positions, mrope)
               if cfg.uses_attention else None)
     do_evict = policy is not None and cfg.uses_attention
     # hybrid archs need their recurrent state whenever a cache is built
@@ -346,7 +395,7 @@ def prefill(
     ls = lora_scale(cfg) if use_lookahead else 1.0
     lora_tree = lkv_params.get("lora") if use_lookahead else None
     pool_kernel = lk.pool_kernel if lk else 7
-    layers, ssm_caches, captured = [], [], []
+    layers, ssm_caches, captured, auxes = [], [], [], []
     for layer, window in enumerate(_windows(cfg)):
         lp = layer_slice(params["layers"], layer)
         lora_l = layer_slice(lora_tree, layer)
@@ -366,8 +415,10 @@ def prefill(
                 ssm_caches.append(ssm_cache)
         if cfg.hybrid:
             delta = delta * 0.5
-        h = _ffn_residual(h + delta, lp, cfg, lora_l=lora_l, lora_mask=lmask,
-                          ls=ls)
+        h, aux_l = _ffn_residual(h + delta, lp, cfg, lora_l=lora_l,
+                                 lora_mask=lmask, ls=ls)
+        if aux_l is not None:
+            auxes.append(aux_l)
         if score_layers:
             s_qh = _observation_scores(obs_policy, q, k, boundary, n_keys,
                                        window, key_valid)
@@ -425,7 +476,8 @@ def prefill(
         logits = unembed(params, cfg, h[:, n_pos - 1])
     elif want_logits == "all":
         logits = unembed(params, cfg, h[:, :n_real])
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    aux = (torch.stack(auxes).sum() if auxes
+           else torch.zeros((), dtype=torch.float32, device=dev))
     scores = torch.stack(captured) if captured else None
     return PrefillResult(logits=logits, cache=cache, scores=scores, aux=aux)
 
@@ -582,7 +634,7 @@ def prefill_chunk(
             lp["attn"], a, u, positions, state.k[layer], state.v[layer],
             q_offset=s, window=window, score_masses=want_masses,
             n_total=n_total, rope_tables=tables)
-        h = _ffn_residual(h + out, lp, cfg)
+        h, _ = _ffn_residual(h + out, lp, cfg)
         scoring.update_layer_scores(
             policy, None if score.acc is None else score.acc[layer],
             None if score.qbuf is None else score.qbuf[layer], q,
@@ -638,8 +690,8 @@ def _chunk_observation_pass(params: dict, cfg: ModelConfig, state: ChunkState,
             q_offset=n_total, window=window, lookahead_mask=lmask,
             lora=None if lora_l is None else lora_l.get("attn"),
             lora_scale=ls, rope_tables=tables)
-        h = _ffn_residual(h + out, lp, cfg, lora_l=lora_l, lora_mask=lmask,
-                          ls=ls)
+        h, _ = _ffn_residual(h + out, lp, cfg, lora_l=lora_l,
+                             lora_mask=lmask, ls=ls)
         masses.append(ops.lookahead_score(q, state.k[layer], K,
                                           q_offset=n_total, window=window))
     return torch.stack(masses)
@@ -882,11 +934,12 @@ def select_cache_slots(active: torch.Tensor, new_cache: dict,
 def decode_step(
     params: dict,
     cfg: ModelConfig,
-    token: torch.Tensor,  # (B, 1) tokens
+    token: torch.Tensor,  # (B, 1) tokens, or (B, 1, D) embeddings
     cache: dict,
     *,
     active: Optional[torch.Tensor] = None,  # (B,) live slots
     paged_depth: Optional[int] = None,
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, 1) M-RoPE
 ) -> tuple[torch.Tensor, dict]:
     """One decode step.  Returns (logits (B, V) float32, new cache).
 
@@ -906,6 +959,10 @@ def decode_step(
     shared pool the same way and rolls a dense cache back with
     ``select_cache_slots``).
 
+    M-RoPE archs rotate by ``mrope_positions`` (3, B, 1) when given, else
+    by the text stream of ``next_pos`` (as the JAX step: not each
+    stream's maximum + 1).
+
     SSM archs carry ``cache["ssm"]`` (conv, state), which the recurrent
     step rewrites in place for every row: they are served by the lockstep
     engine only, which decodes the whole batch.  A cache without
@@ -919,7 +976,12 @@ def decode_step(
     attend = cfg.uses_attention and (paged or "attn" in cache)
     if attend:
         cursor = cache["cursor"]
-        tables = rope_tables(positions, a.head_dim, a.rope_theta)
+        mrope = None
+        if a.mrope:
+            mrope = (text_mrope_positions(positions)
+                     if mrope_positions is None
+                     else mrope_positions.to(device=h.device))
+        tables = tables_for(a, positions, mrope)
     if attend and paged:
         if paged_depth is None:
             raise ValueError("paged decode needs paged_depth")
@@ -960,7 +1022,7 @@ def decode_step(
             delta = s_out if delta is None else delta + s_out
         if cfg.hybrid:
             delta = delta * 0.5
-        h = _ffn_residual(h + delta, lp, cfg)
+        h, _ = _ffn_residual(h + delta, lp, cfg)
     logits = unembed(params, cfg, h[:, 0])
     new_cache = dict(cache)
     adv_p = positions + 1

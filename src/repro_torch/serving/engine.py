@@ -441,9 +441,11 @@ class ContinuousEngine(_SlotDecodeMixin):
         _reject_unported(config)
         if not tf.chunkable(cfg):
             raise ValueError(f"{cfg.name}: chunked continuous batching "
-                             "serves attention-only decoder archs; serve "
-                             "the SSM and hybrid archs through the lockstep "
-                             "ServingEngine")
+                             "serves attention-only decoder archs with "
+                             "RoPE and token inputs; serve the SSM, hybrid "
+                             "and M-RoPE archs through the lockstep "
+                             "ServingEngine (M-RoPE also through "
+                             "BucketedEngine)")
         self.device = torch.device(device)
         if config.lkv_checkpoint:
             if lkv_params is not None:
@@ -1153,7 +1155,7 @@ class BucketedEngine(_SlotDecodeMixin):
                  max_new_tokens: int = 64, eos_id: int = 0,
                  decode_evict=False, decode_chunk: int = 8, device="cuda"):
         _check_policy(policy, streaming=False)
-        if not tf.chunkable(cfg):
+        if not cfg.uses_attention or cfg.uses_ssm or cfg.is_encoder_decoder:
             raise ValueError(f"{cfg.name}: continuous batching serves "
                              "attention-only decoder archs")
         if policy == "lookaheadkv" and lkv_params is None:

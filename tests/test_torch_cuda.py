@@ -121,6 +121,9 @@ def _randn(gen, shape, dtype, dev):
     (1, 100, 1000, 8, 1, 256, 700, None),  # G 8
     (3, 129, 1000, 4, 1, 256, 100, None),  # B = 3
     (1, 1024, 1024, 4, 1, 256, 0, None),  # key splits
+    # deepseek-moe-16b: MHA, 16 / 16 heads of 128 (G 1)
+    (1, 256, 4096, 16, 16, 128, 3840, None),  # a deep chunk
+    (1, 32, 4096, 16, 16, 128, 4000, None),  # the observation pass
 ])
 def test_chunk_attention_matches_plain(dev, dtype, B, C, K, H, KV, hd, off,
                                        window):
@@ -164,6 +167,8 @@ def test_chunk_attention_matches_plain(dev, dtype, B, C, K, H, KV, hd, off,
     (1, 129, 1000, 4, 1, 256, 100, 229, 32),  # a window below a key tile
     (2, 100, 1000, 4, 1, 256, 700, 790, None),  # K ragged, B = 2
     (1, 1024, 1024, 4, 1, 256, 0, 1000, None),  # key splits
+    # deepseek-moe-16b's h2o chunk (G 1 at hd 128)
+    (1, 256, 4096, 16, 16, 128, 3840, 4000, None),
 ])
 def test_chunk_attention_masses_matches_plain(dev, dtype, B, C, K, H, KV,
                                               hd, off, n_total, window):
@@ -246,6 +251,11 @@ def test_chunk_attention_sm90_counts_one_launch(dev, hd):
     (2, 40, 700, 4, 1, 256, 700, 640, 96, True),  # masks, a window
     (1, 17, 500, 4, 1, 256, 483, None, None, False),  # n_obs 17
     (1, 32, 4096, 8, 1, 256, 4096, 4000, None, False),  # two row blocks
+    # deepseek-moe-16b (G 1: one head per 16-row fragment) and the
+    # qwen2-vl-72b backbone (G 8, 64 / 8 heads of 128)
+    (1, 32, 4096, 16, 16, 128, 4096, 4000, None, False),  # finalize
+    (4, 32, 2080, 16, 16, 128, 2048, None, None, False),  # lockstep
+    (4, 32, 2080, 64, 8, 128, 2048, None, None, False),  # qwen2-vl lockstep
 ])
 def test_lookahead_score_matches_plain(dev, dtype, B, n_obs, Sk, H, KV, hd,
                                        n_prompt, off, window, masks):
@@ -357,6 +367,9 @@ def test_paged_decode_matches_plain(dev, dtype, window, splits, monkeypatch):
     (4, 1, 256, 40, 16, 20, "ragged"),
     (4, 1, 256, 40, 16, 20, "one live slot"),
     (8, 1, 256, None, 16, 20, "a split all null or masked"),
+    # deepseek-moe-16b (G 1 at hd 128: a pass holds one head of four)
+    (16, 16, 128, None, 16, 19, "ragged"),
+    (16, 16, 128, None, 16, 20, "one live slot"),
 ])
 def test_paged_decode_masses_matches_plain(dev, dtype, H, KV, hd, window,
                                            bs, nb, layout, splits,
@@ -486,6 +499,9 @@ def test_paged_decode_is_one_cluster_launch(dev, monkeypatch):
     (1, 700, 4, 1, 256, True, 32),  # a window below a key tile
     (2, 300, 4, 1, 256, False, None),  # every key visible
     (1, 333, 8, 1, 256, True, None),  # G 8
+    # deepseek-moe-16b (MHA, G 1) and the qwen2-vl-72b backbone (64 / 8)
+    (4, 2080, 16, 16, 128, True, None),
+    (4, 2080, 64, 8, 128, True, None),
 ])
 def test_flash_attention_matches_plain(dev, dtype, B, S, H, KV, hd, causal,
                                        window):
@@ -644,6 +660,10 @@ def _force_dense_splits(monkeypatch, n):
     (289, 3, (4, 1, 256)),
     (3, 3, (4, 1, 256)),
     (200, 2, (8, 1, 256)),  # G 8
+    # deepseek-moe-16b (G 1 at hd 128) and the qwen2-vl-72b backbone
+    (289, 3, (16, 16, 128)),
+    (289, 2, (16, 16, 128)),
+    (289, 3, (64, 8, 128)),
 ])
 def test_decode_attention_matches_plain(dev, dtype, C, mask_kind, heads,
                                         splits, monkeypatch):

@@ -74,7 +74,9 @@ def test_port_sources_name_no_jax_import():
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "tiny-llama", "hymba-1.5b",
                                   "mamba2-130m", "gemma3-1b", "qwen2-1.5b",
-                                  "smollm-135m", "minitron-8b"])
+                                  "smollm-135m", "minitron-8b",
+                                  "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b",
+                                  "qwen2-vl-72b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_copy_equals_jax_config(arch, smoke):
     get_j = jconfigs.get_smoke_config if smoke else jconfigs.get_config
@@ -97,8 +99,6 @@ def test_config_dataclasses_have_the_same_fields():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("deepseek-moe-16b", "MoE archs"), ("phi3.5-moe-42b-a6.6b", "MoE archs"),
-    ("qwen2-vl-72b", "VLM and audio archs"),
     ("whisper-small", "VLM and audio archs")])
 def test_moe_vlm_and_audio_archs_still_refuse(arch, item):
     for get in (tconfigs.get_config, tconfigs.get_smoke_config):
@@ -108,6 +108,6 @@ def test_moe_vlm_and_audio_archs_still_refuse(arch, item):
 
 def test_unported_arch_names_its_roadmap_item():
     with pytest.raises(KeyError, match="ROADMAP A10"):
-        tconfigs.get_config("deepseek-moe-16b")
+        tconfigs.get_config("whisper-small")
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_config("no-such-arch")
