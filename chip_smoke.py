@@ -104,7 +104,16 @@ kernel's plain version):
    x 2080 causal (kernels 2 and 5 checked on the same shapes, untimed),
    and kernels 7 and 3 at qwen2-vl-72b's 64 / 8 heads (4 x 2080); each
    timed beside its bound and SDPA where one call computes it, with
-   edges at G 1.
+   edges at G 1.  Then (``phase_kernels_whisper``) whisper-small's
+   shapes (12 / 12 heads of 64): kernel 7 non-causal over the encoder's
+   4 x 1,500 frames and causal over the decoder's 4 x 2,080 rows; kernel
+   7 at Sq != Sk (the cross-attention of 2,080 rows over 1,500 frames,
+   with and without a frame mask; ragged, Sq > Sk, hd 128 and 256,
+   float32 at hd 32) through ``ops.flash_attention``, one launch each;
+   one query row over the frames (a decode step's cross-attention),
+   which that entry sends to kernel 6; kernel 3 on 32 rows over the
+   frames at q_offset 1,500 (the cross-KV eviction's scores); kernel 6
+   over 4 x 256 kept frames under a per-kv-head mask.
 2. Serve through the port's engines on the llama3-8b smoke config in
    float32, once on the card and once on the CPU: the paged and the dense
    continuous engine (3 requests each), the lockstep engine (a batch of
@@ -134,7 +143,11 @@ kernel's plain version):
    is printed), ``moe.apply_sparse`` at a capacity that drops tokens,
    qwen2-vl-smoke through the lockstep engine, and its ``tf.prefill``
    from float embeddings with three position streams that differ and 3
-   ``decode_step`` calls at given streams.  Then
+   ``decode_step`` calls at given streams.  Then whisper-smoke
+   (``phase_whisper_parity``) through ``run_eviction`` + ``greedy_decode``
+   under lookaheadkv, snapkv and h2o with cross budgets 0 and 8, and with
+   decode-time eviction scores: logits within 1e-4, tokens and kept sets
+   (self and cross) identical.  Then
    the learning loop at llama3-8b smoke width in float32: three
    ``make_train_step`` steps on the same synthetic batches on the card
    and on the CPU (losses within 1e-4 relative, lkv leaves within
@@ -229,6 +242,15 @@ kernel's plain version):
       the qwen2-vl-72b backbone (32 of its 80 layers, text tokens: the
       text M-RoPE stream) lockstep 4 x 2048 through ``ServingEngine``
       (the launcher has no depth flag).
+   x-y. whisper-small at full width and depth (``phase_whisper``, after
+      3t-3w; 12 encoder and 12 decoder layers) through the model
+      functions (the launcher refuses it, as the JAX launcher fails):
+      4 requests of 2,048 tokens and 1,500 frame embeddings each,
+      lookaheadkv at budget 256, 32 greedy decode steps; x keeps the
+      encoder K/V whole, y evicts it to 256 frames per kv head; launches
+      exactly ``WHISPER_CELLS`` (kernel 7 36, kernel 3 12 / 24, kernel 6
+      768); TTFT with the encoder's part, decode ms/step, peak memory
+      and the cross cache's bytes.
 4. Where the time goes, with torch.profiler: (a) one more 2048-token
    request on the engine of 3a, then one decode chunk alone; (b) one
    more lockstep batch on the engine of 3b; (c) on the engine of 3d,
@@ -1521,6 +1543,8 @@ def phase_kernels(torch, mods) -> list:
     results += phase_kernels_moe_vlm(
         torch, chunk_case, masses_chunk_case, score_case, paged_case,
         masses_case, decode_case, flash_case)
+    results += phase_kernels_whisper(torch, mods, score_case, decode_case,
+                                     flash_case)
     return results
 
 
@@ -1791,6 +1815,159 @@ def phase_kernels_moe_vlm(torch, chunk_case, masses_chunk_case, score_case,
                heads=qw)
     entry("lookahead_score 64/8", "src/repro_torch/csrc/lookahead_score.cu",
           "src/repro/kernels/lookahead_score.py:87", k3q)
+    return out
+
+
+#: whisper-small's attention: 12 query and 12 kv heads of 64 (MHA), its
+#: 1,500 encoder frames, and the cross budget of cell 3y
+WHISPER_HEADS = (12, 12, 64)
+WHISPER_FRAMES = 1500
+WHISPER_CROSS_BUDGET = 256
+
+
+def phase_kernels_whisper(torch, mods, score_case, decode_case,
+                          flash_case) -> list:
+    """Phase 1 at whisper-small's shapes (12 / 12 heads of 64, bf16): the
+    encoder's kernel 7, non-causal over B 4 x 1,500 frames; the decoder's
+    causal 4 x 2,080; kernel 7 at Sq != Sk (7x), the cross-attention of
+    the 2,080 prefill rows over the 1,500 frames, with and without a (B,
+    Sk) frame mask; the cross-attention of a decode step (one query row)
+    through ``ops.flash_attention``, which sends it to kernel 6; kernel 3
+    on 32 observation rows over the frames at ``q_offset`` 1,500 (the
+    cross-KV eviction's scores); kernel 6 over 4 x 256 kept frames under a
+    per-kv-head mask (the evicted cross decode).  Each timed beside its
+    plain version, its bound and SDPA where one call computes the same
+    function, with edges (ragged Sq and Sk, Sq > Sk, a masked key tile,
+    float32 at whisper-smoke's hd 32).  Returns the timed main cases."""
+    import torch.nn.functional as F
+
+    ops, ref = mods["ops"], mods["ref"]
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device=dev).manual_seed(SEED + 27)
+    REL_CHUNK, REL_PAGED, REL_F32 = 2 ** -5, 2 ** -7, 2 ** -13
+    wh, Fr = WHISPER_HEADS, WHISPER_FRAMES
+    sm90 = "src/repro_torch/csrc/attention_sm90.cuh"
+    out = []
+
+    def entry(name, source, replaces, res):
+        out.append(dict(name=name, route="cuda", source=source,
+                        replaces=replaces, **res))
+
+    def cross_case(B, Sq, Sk, label, *, lens=None, timed=None, heads=wh,
+                   dtype=bf16):
+        """``ops.flash_attention(causal=False)`` of Sq rows over Sk keys
+        (``lens``: each sequence's valid frames, a (B, Sk) mask), the
+        route the model takes: kernel 7, or kernel 6 for one row; exactly
+        one launch of it, held row by row against the plain version."""
+        Hs, KVs, hds = heads
+        q = torch.randn((B, Sq, Hs, hds), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((B, Sk, KVs, hds), generator=g,
+                            device=dev).to(dtype) for _ in range(2))
+        mask = None
+        if lens is not None:
+            j = torch.arange(Sk, device=dev)
+            mask = (j < torch.as_tensor(lens, device=dev)[:, None])
+            mask = mask.contiguous()
+        kw = dict(causal=False, kv_mask=mask)
+        kernel = "decode_attention" if Sq == 1 else "flash_attention"
+        before = ops.launch_counts()
+        got = ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        diff = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+        check(diff == {kernel: 1}, f"cross attention {label}: launches "
+              f"{diff}, expected one of {kernel}")
+        want = ref.flash_attention(q, k, v, **kw)
+        rel = REL_F32 if dtype == f32 else (REL_PAGED if Sq == 1
+                                            else REL_CHUNK)
+        err = check_rows(torch, got, want, rel,
+                         f"cross attention ({kernel}) {label}")
+        if not timed:
+            return None
+        call = lambda: ops.flash_attention(q, k, v, **kw)
+        ms = time_ms(torch, call, iters=50 if Sq == 1 else 20)
+        plain = time_ms(torch, lambda: ref.flash_attention(q, k, v, **kw),
+                        iters=3)
+        # SDPA on kv heads expanded outside the timed call, the frame mask
+        # as a boolean (B, 1, 1, Sk) mask
+        G = Hs // KVs
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+        am = None if mask is None else mask[:, None, None, :]
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=am), iters=50 if Sq == 1 else 20)
+        n_valid = B * Sk if mask is None else int(mask.sum())
+        n_ops = 4 * hds * Hs * Sq * n_valid  # valid (row, key) pairs
+        n_bytes = q.element_size() * (2 * B * Sq * Hs * hds
+                                      + 2 * B * Sk * KVs * hds) + (
+            0 if mask is None else B * Sk)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, str(dtype).split(".")[-1])
+        print(f"  cross attention ({kernel}) {label}: {versus(timed, ms)}, "
+              f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib)
+
+    print("  -- whisper-small: 12 / 12 heads of 64, 1,500 frames --")
+    k7e = flash_case(4, Fr, False, None, "whisper encoder B=4 S=1500 "
+                     "non-causal", timed="flash_attention whisper encoder",
+                     heads=wh)
+    k7d = flash_case(4, 2080, True, None, "whisper decoder B=4 S=2080 "
+                     "causal", timed="flash_attention whisper decoder",
+                     heads=wh)
+    flash_case(2, 16, False, None, "whisper-smoke encoder float32",
+               heads=(4, 4, 32), dtype=f32)
+    entry("flash_attention whisper encoder", sm90,
+          "src/repro/kernels/flash_attention.py:71", k7e)
+    entry("flash_attention whisper decoder", sm90,
+          "src/repro/kernels/flash_attention.py:71", k7d)
+
+    k7x = cross_case(4, 2080, Fr, "prefill B=4 Sq=2080 Sk=1500",
+                     timed="flash_attention cross")
+    k7xm = cross_case(4, 2080, Fr, "prefill B=4 Sq=2080 Sk=1500, frames "
+                      "1500/1400/1000/1499 valid",
+                      lens=(1500, 1400, 1000, 1499),
+                      timed="flash_attention cross masked")
+    cross_case(2, 333, 1000, "ragged Sq=333 Sk=1000")
+    cross_case(1, 700, 100, "Sq=700 > Sk=100")
+    cross_case(2, 300, 600, "a masked key tile, Sk=600 hd 128",
+               lens=(100, 600), heads=(8, 2, 128))
+    cross_case(2, 129, 65, "hd 256 Sq=129 Sk=65", heads=(4, 1, 256))
+    cross_case(2, 40, 16, "whisper-smoke float32", heads=(4, 4, 32),
+               dtype=f32)
+    cross_case(2, 40, 300, "hd 32 masked", lens=(17, 300),
+               heads=(4, 2, 32))
+    entry("flash_attention cross", sm90, "src/repro/kernels/ops.py:97", k7x)
+    # the frame mask is off the main path (whisper's frames are all valid):
+    # timed and printed, not an entry of the kernels line
+    print(f"  cross attention masked: {k7xm['ms']:.4f} ms against "
+          f"{k7x['ms']:.4f} ms unmasked ({k7xm['ms'] / k7x['ms'] - 1:+.1%})")
+
+    k6x = cross_case(4, 1, Fr, "decode B=4 Sq=1 Sk=1500",
+                     timed="decode_attention cross")
+    cross_case(4, 1, Fr, "decode, frames masked", lens=(1500, 1400, 1000, 1))
+    cross_case(2, 1, 16, "decode whisper-smoke float32", heads=(4, 4, 32),
+               dtype=f32)
+    entry("decode_attention cross", "src/repro_torch/csrc/decode_attention.cu",
+          "src/repro/kernels/decode_attention.py:56", k6x)
+
+    k3x = score_case(4, 32, Fr, Fr, Fr, None, False, "whisper cross scores "
+                     "B=4 n_obs=32 over Sk=1500 at q_offset 1500",
+                     timed="lookahead_score whisper cross", heads=wh)
+    score_case(2, 8, 16, 16, 16, None, False, "whisper-smoke cross scores "
+               "float32", heads=(4, 4, 32), dtype=f32)
+    entry("lookahead_score whisper cross",
+          "src/repro_torch/csrc/lookahead_score.cu",
+          "src/repro/kernels/lookahead_score.py:87", k3x)
+
+    k6k = decode_case("whisper kept frames B=4 C=256 per-head mask", "head",
+                      timed=True, heads=wh, C=WHISPER_CROSS_BUDGET,
+                      key="decode_attention whisper kept frames")
+    entry("decode_attention whisper kept frames",
+          "src/repro_torch/csrc/decode_attention.cu",
+          "src/repro/kernels/decode_attention.py:56", k6k)
     return out
 
 
@@ -2144,6 +2321,92 @@ def phase_moe_vlm_parity(torch, mods, devices=("cuda", "cpu")) -> None:
           "differ between card and CPU")
     check(same_tok and same_kept, "qwen2-vl prefill/decode: tokens or "
           "kept sets differ between card and CPU")
+
+
+def phase_whisper_parity(torch, mods, devices=("cuda", "cpu")) -> None:
+    """whisper-smoke in float32 (2 encoder and 2 decoder layers, 4 / 4
+    heads of 32, 16 frames; the port's random weights and lookahead
+    modules from the seed, LoRA ``b`` drawn so that it matters) on the
+    card against the CPU, through the model functions (no engine serves
+    whisper): ``run_eviction`` + ``greedy_decode`` (8 steps) under
+    lookaheadkv, snapkv and h2o with ``cross_budget`` 0 and 8, and under
+    lookaheadkv with cross budget 8 and decode-time eviction scores on the
+    cache; prefill logits within 1e-4 of the largest magnitude, greedy
+    tokens and kept sets (self and cross: positions and masks) identical,
+    and kernels 7, 3 and 6 launched on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    tf, pol, ops = mods["tf"], mods["policies"], mods["ops"]
+    cfg = dataclasses.replace(
+        mods["configs"].get_smoke_config("whisper-small"), dtype="float32")
+    params = tf.init_params(cfg, seed=SEED, device="cpu")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    lkv = mods["lookahead"].init_lookahead_params(gen, cfg, params["layers"])
+
+    def draw_b(tree):
+        return {k: draw_b(v) if isinstance(v, dict) else (
+            torch.randn(v.shape, generator=gen) * 0.05 if k == "b" else v)
+            for k, v in tree.items()}
+
+    lkv = draw_b(lkv)
+    rng = np.random.default_rng(SEED + 5)
+    B, n = 3, 45
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, n))
+                              .astype(np.int32))
+    frames = torch.from_numpy(rng.normal(size=(B, cfg.encoder.num_frames,
+                                               cfg.d_model))
+                              .astype(np.float32))
+
+    def run(device, policy, cross_budget, decode_evict):
+        p = _move(params, device)
+        res = pol.run_eviction(
+            policy, p, cfg, tokens.to(device),
+            evict=mods["EvictionConfig"](budget=16,
+                                         cross_budget=cross_budget),
+            lkv_params=_move(lkv, device), extra_slots=9,
+            encoder_embeds=frames.to(device))
+        cache = res.cache
+        # copies: the decode steps write the self-attention cache in place
+        kept = {f"{g}/{k}": cache[g][k].cpu().numpy().copy()
+                for g in ("attn", "cross") for k in ("pos", "mask")
+                if k in cache[g]}
+        if decode_evict:
+            cache = tf.add_decode_eviction_scores(cache)
+        first = torch.argmax(res.logits, dim=-1)[:, None].to(torch.int32)
+        toks, cache = pol.greedy_decode(p, cfg, first, cache, 8)
+        kept.update({f"after/{k}": cache["attn"][k].cpu().numpy()
+                     for k in ("pos", "mask")})
+        return res.logits.cpu(), toks.cpu().tolist(), kept
+
+    for policy, cb, de in (("lookaheadkv", 0, False), ("lookaheadkv", 8,
+                                                       False),
+                           ("snapkv", 0, False), ("snapkv", 8, False),
+                           ("h2o", 0, False), ("h2o", 8, False),
+                           ("lookaheadkv", 8, True)):
+        ops.reset_launch_counts()
+        lc, tc, kc = run(devices[0], policy, cb, de)
+        n = ops.launch_counts()
+        lp, tp, kp = run(devices[1], policy, cb, de)
+        err = float((lc - lp).abs().max())
+        scale = float(lp.abs().max())
+        same_kept = set(kc) == set(kp) and all(
+            np.array_equal(kc[k], kp[k]) for k in kc)
+        label = (f"whisper-smoke {policy} cross_budget {cb}"
+                 + (", decode-time eviction" if de else ""))
+        print(f"  {label}: logits max_abs_err {err:.3e} (max|cpu| "
+              f"{scale:.3e}); tokens identical {tc == tp}, kept sets "
+              f"identical {same_kept}; card launches of kernels 7 / 3 / 6: "
+              f"{n['flash_attention']} / {n['lookahead_score']} / "
+              f"{n['decode_attention']}")
+        check(err <= 1e-4 * max(1.0, scale), f"{label}: logits differ "
+              "between card and CPU")
+        check(tc == tp and same_kept, f"{label}: tokens or kept sets "
+              "differ between card and CPU")
+        check(n["flash_attention"] > 0 and n["decode_attention"] > 0
+              and n["lookahead_score"] > 0, f"{label}: kernel 7, 3 or 6 "
+              "never launched on the card")
 
 
 #: phase 2's sampling settings and its logit tolerance: a sampled token
@@ -3163,6 +3426,197 @@ def phase_mamba(torch, mods) -> dict:
     print(f"  kernel 8 launches {counts['ssd_scan']} = {want} layers; no "
           "attention kernel")
     return counts
+
+
+#: 3x / 3y: cross budget, and exact launches per kernel (12 decoder and
+#: 12 encoder layers; one prefill of 4 x 2,048 tokens with the 32
+#: lookahead rows, then 32 decode steps): kernel 7 in each encoder layer
+#: (non-causal over the 1,500 frames), each decoder layer's causal
+#: self-attention over 2,080 rows and its cross-attention of them over
+#: the frames; kernel 3 once per decoder layer, and in 3y once more for
+#: the frames' scores; kernel 6 per decoder layer and step for the
+#: self-attention and for the cross-attention (one query row: the route
+#: of ops.flash_attention, or over the kept frames in 3y)
+WHISPER_CELLS = {
+    "whisper": (0, {"flash_attention": 36, "lookahead_score": 12,
+                    "decode_attention": 24 * 32}),
+    "whisper cross-evicted": (WHISPER_CROSS_BUDGET, {
+        "flash_attention": 36, "lookahead_score": 24,
+        "decode_attention": 24 * 32}),
+}
+#: the calls of each form in 3x / 3y, counted apart by the wrappers below
+#: (one counter per kernel): (cell, form) per phase-1 entry
+WHISPER_FORM = {
+    "flash_attention whisper encoder": ("whisper", "encoder"),
+    "flash_attention whisper decoder": ("whisper", "decoder"),
+    "flash_attention cross": ("whisper", "cross"),
+    "decode_attention cross": ("whisper", "cross decode"),
+    "lookahead_score whisper cross": ("whisper cross-evicted",
+                                      "cross scores"),
+    "decode_attention whisper kept frames": ("whisper cross-evicted",
+                                             "kept frames"),
+}
+
+
+@contextlib.contextmanager
+def whisper_forms(mods):
+    """Count kernel 7's, 6's and 3's calls in whisper by form (the wrapper
+    has one counter per kernel): kernel 7 self-attention non-causal (the
+    encoder) or causal (the decoder), or cross (Sq != Sk, with or without
+    the frame mask); kernel 6 over the full frames (one row, no mask), over
+    the kept frames (3y's cross cache of ``WHISPER_CROSS_BUDGET`` rows) or
+    the self-attention cache; kernel 3 at ``q_offset == Sk`` (the frames'
+    scores) or the decoder's."""
+    fk, dk, lk = mods["fk"], mods["dk"], mods["lk"]
+    forms = {}
+    orig = fk.flash_attention, dk.decode_attention, lk.lookahead_score
+
+    def bump(name):
+        forms[name] = forms.get(name, 0) + 1
+
+    def flash(q, k, v, **kw):
+        if q.shape[1] != k.shape[1]:
+            bump("cross masked" if kw.get("kv_mask") is not None
+                 else "cross")
+        else:
+            bump("decoder" if kw.get("causal", True) else "encoder")
+        return orig[0](q, k, v, **kw)
+
+    def decode(q, k, v, **kw):
+        if kw.get("kv_mask") is None:
+            bump("cross decode")
+        elif k.shape[1] == WHISPER_CROSS_BUDGET:
+            bump("kept frames")
+        else:
+            bump("self decode")
+        return orig[1](q, k, v, **kw)
+
+    def score(q, k, n_prompt, **kw):
+        bump("cross scores" if kw.get("q_offset") == k.shape[1]
+             else "decoder scores")
+        return orig[2](q, k, n_prompt, **kw)
+
+    fk.flash_attention, dk.decode_attention, lk.lookahead_score = \
+        flash, decode, score
+    try:
+        yield forms
+    finally:
+        fk.flash_attention, dk.decode_attention, lk.lookahead_score = orig
+
+
+def phase_whisper(torch, mods, header) -> dict:
+    """Phase 3x / 3y: whisper-small at full width and depth (12 encoder
+    and 12 decoder layers, d 768, 12 heads of 64, bf16; random weights and
+    lookahead modules from the seed) through the model functions (no
+    engine passes frames: the launcher refuses whisper, as the JAX
+    launcher fails there): 4 requests of 2,048 text tokens and 1,500
+    frame embeddings each (``np.random.default_rng(SEED)``),
+    ``run_eviction`` under lookaheadkv at budget 256, then 32 greedy
+    decode steps; 3x keeps the encoder K/V whole, 3y evicts it to
+    ``WHISPER_CROSS_BUDGET`` frames per kv head.  The launch counts are
+    set to 0 just before each cell and read just after: exactly
+    ``WHISPER_CELLS``.  Prints TTFT (the batch's prefill, the encoder's
+    part apart), decode ms per step and tokens/s, peak memory and the
+    cross cache's bytes.  Returns {cell: {"counts", "forms"}}."""
+    import numpy as np
+
+    tf, pol, ops = mods["tf"], mods["policies"], mods["ops"]
+    cfg = mods["configs"].get_config("whisper-small")
+    params = tf.init_params(cfg, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    lkv = mods["lookahead"].init_lookahead_params(gen, cfg, params["layers"])
+    rng = np.random.default_rng(SEED)
+    B, n_in, steps = 4, 2048, 32
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, n_in))
+                             .astype(np.int32), device="cuda")
+    frames = torch.as_tensor(rng.standard_normal(
+        (B, WHISPER_FRAMES, cfg.d_model), dtype=np.float32), device="cuda")
+    enc_s, unwrapped = [0.0], tf.encode
+
+    def timed_encode(*args):  # the encoder's part of the prefill
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        h = unwrapped(*args)
+        torch.cuda.synchronize()
+        enc_s[0] += time.perf_counter() - t
+        return h
+
+    out = {}
+    for letter, (cell, (cross_budget, want)) in zip(
+            "xy", WHISPER_CELLS.items()):
+        header(f"phase 3{letter}: whisper-small at full width and depth "
+               f"through the model functions, cross_budget {cross_budget}")
+        evict = mods["EvictionConfig"](budget=256, cross_budget=cross_budget)
+        enc_s[0] = 0.0
+        tf.encode = timed_encode
+        try:
+            with whisper_forms(mods) as forms:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                res = pol.run_eviction(
+                    "lookaheadkv", params, cfg, tokens, evict=evict,
+                    lkv_params=lkv, extra_slots=steps + 1,
+                    encoder_embeds=frames)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                first = torch.argmax(res.logits, dim=-1)[:, None].to(
+                    torch.int32)
+                toks, cache = pol.greedy_decode(params, cfg, first,
+                                                res.cache, steps)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                counts = ops.launch_counts()
+        finally:
+            tf.encode = unwrapped
+        peak = torch.cuda.max_memory_allocated()
+        cross = cache["cross"]
+        Fk = WHISPER_FRAMES if cross_budget == 0 else min(
+            cross_budget, WHISPER_FRAMES)
+        L, a = cfg.num_layers, cfg.attn
+        check(tuple(cross["k"].shape) == (L, B, Fk, a.num_kv_heads,
+                                          a.head_dim),
+              f"3{letter}: cross K {tuple(cross['k'].shape)}")
+        check(("mask" in cross) == (cross_budget > 0),
+              f"3{letter}: cross cache leaves {sorted(cross)}")
+        if cross_budget:
+            pos = cross["pos"]
+            check(bool(cross["mask"].all()) and bool(
+                ((pos >= 0) & (pos < WHISPER_FRAMES)).all()) and bool(
+                (pos[:, :, 1:] > pos[:, :, :-1]).all()), f"3{letter}: kept "
+                "frames not valid, in range and in order")
+        check(tuple(toks.shape) == (B, steps), f"3{letter}: tokens "
+              f"{tuple(toks.shape)}")
+        check(bool(torch.isfinite(res.logits[:, :cfg.vocab_size]).all()),
+              f"3{letter}: non-finite prefill logits")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"3{letter}: a token outside the vocab")
+        cross_bytes = sum(t.numel() * t.element_size()
+                          for t in cross.values())
+        pre, dec = t1 - t0, t2 - t1
+        dec_tokens = B * (steps - 1)
+        print(f"  TTFT (the batch's prefill, host clock) {pre * 1e3:.1f} "
+              f"ms for 4 x 2048 tokens and 4 x {WHISPER_FRAMES} frames: "
+              f"encoder "
+              f"{enc_s[0] * 1e3:.1f} ms, decoder {(pre - enc_s[0]) * 1e3:.1f}"
+              f" ms; decode {steps} steps in {dec:.2f} s "
+              f"({dec / steps * 1e3:.1f} ms/step) = "
+              f"{dec_tokens / dec:.1f} tokens/s; peak "
+              f"torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; "
+              f"cross cache {cross_bytes} bytes ({Fk} of "
+              f"{WHISPER_FRAMES} frames); first tokens "
+              f"{toks[:, :6].tolist()}")
+        print(f"  calls by form: {forms}")
+        want_all = {k: want.get(k, 0) for k in counts}
+        print(f"  launches {counts}, predicted {want_all}: "
+              f"{counts == want_all}")
+        check(counts == want_all, f"3{letter}: launches {counts}, "
+              f"expected {want_all}")
+        out[cell] = {"counts": counts, "forms": forms}
+        del res, cache, toks, cross
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4282,6 +4736,9 @@ def main() -> None:
     header("phase 2: the MoE and VLM archs on the card vs on the CPU "
            "(deepseek-smoke, phi35-smoke, qwen2-vl-smoke; float32)")
     phase_moe_vlm_parity(torch, mods)
+    header("phase 2: whisper on the card vs on the CPU (whisper-smoke, "
+           "float32)")
+    phase_whisper_parity(torch, mods)
     header("phase 2: the learning loop on the card vs on the CPU "
            "(llama3-8b smoke, float32), and a resumed run on the card")
     phase_loop_parity(torch, mods)
@@ -4359,6 +4816,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_dense_archs(torch, mods, header, counts)
     phase_moe_vlm_cells(torch, mods, header, counts)
+    whisper = phase_whisper(torch, mods, header)
+    torch.cuda.empty_cache()
     phase_learning_loop(torch, mods, header)
     # launches on the main path: kernels 1, 3, 4 from the paged route,
     # kernels 7 and 6 from the lockstep route, kernel 5 from the
@@ -4370,6 +4829,12 @@ def main() -> None:
                 "chunk_attention_masses": "paged continuous h2o",
                 "ssd_scan": "hybrid lockstep"}
     for k in kernels:
+        if k["name"] in WHISPER_FORM:  # 3x's and 3y's calls of that form
+            cell, form = WHISPER_FORM[k["name"]]
+            k["launches"] = whisper[cell]["forms"].get(form, 0)
+            check(k["launches"] > 0, f"{k['name']}: never launched in its "
+                  "cell")
+            continue
         if k["name"] == "flash_attention masked":  # 3k's padded group
             k["launches"] = counts["masked flash"]
             continue

@@ -5,10 +5,10 @@ The port serves the paper's llama family, the other dense archs
 (smollm-135m, qwen2-1.5b with its qkv bias, minitron-8b, and gemma3-1b
 with its 5:1 local:global layers and head dim 256), the MoE archs
 (deepseek-moe-16b, phi3.5-moe-42b-a6.6b), qwen2-vl-72b's language
-backbone (M-RoPE, embedding inputs) and the SSM archs (the hybrid
-hymba-1.5b, the attention-free mamba2-130m).  The audio arch of the JAX
-package's registry (whisper-small) raises ``KeyError`` naming the
-ROADMAP item that brings it to the port.
+backbone (M-RoPE, embedding inputs), the SSM archs (the hybrid
+hymba-1.5b, the attention-free mamba2-130m) and the encoder-decoder
+whisper-small (stubbed frame embeddings, cross-attention): every arch of
+the JAX package's registry.
 """
 
 from __future__ import annotations
@@ -29,17 +29,11 @@ _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
     "qwen2-vl-72b": "qwen2_vl_72b",
-}
-
-# arch id -> ROADMAP item that ports it
-_LATER = {
-    "whisper-small": "ROADMAP A10 (VLM and audio archs)",
+    "whisper-small": "whisper_small",
 }
 
 
 def _module(arch_id: str):
-    if arch_id in _LATER:
-        raise KeyError(f"arch '{arch_id}' is not ported yet: {_LATER[arch_id]}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch '{arch_id}'; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")

@@ -115,6 +115,7 @@ def run_eviction(policy: str, params: dict, cfg: ModelConfig,
                  draft_params: Optional[dict] = None,
                  draft_cfg: Optional[ModelConfig] = None,
                  extra_slots: int = 0,
+                 encoder_embeds: Optional[torch.Tensor] = None,
                  mrope_positions: Optional[torch.Tensor] = None,
                  prompt_lens: Optional[torch.Tensor] = None,
                  seeds: Optional[torch.Tensor] = None) -> EvictionResult:
@@ -128,8 +129,12 @@ def run_eviction(policy: str, params: dict, cfg: ModelConfig,
     ``tokens`` may be embeddings (B, n_in, D) for an ``embeds_in`` arch;
     ``mrope_positions`` (3, B, n_in) go to the single-pass prefill and to
     the first prefill of ``laq`` / ``speckv`` (their draft and rescoring
-    passes take the text stream), as in the JAX package."""
-    kw = dict(mrope_positions=mrope_positions)
+    passes take the text stream), as in the JAX package.
+    ``encoder_embeds`` (B, F, D) are an encoder-decoder arch's frames
+    (whisper), for the single-pass policies; ``laq`` and ``speckv`` raise
+    ``NotImplementedError`` for such an arch (the JAX package's rescoring
+    prefill drops the frames and fails there)."""
+    kw = dict(encoder_embeds=encoder_embeds, mrope_positions=mrope_positions)
     if policy in SINGLE_PASS:
         res = tf.prefill(
             params, cfg, tokens, policy=policy, evict=evict,
@@ -139,6 +144,11 @@ def run_eviction(policy: str, params: dict, cfg: ModelConfig,
         return EvictionResult(logits=res.logits, cache=res.cache)
     if policy not in MULTI_PASS:
         raise ValueError(f"unknown policy {policy}; known: {ALL_POLICIES}")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{policy} on {cfg.name}: the draft-based policies have no "
+            "encoder-decoder path (the JAX package's rescoring prefill "
+            "drops the frames and fails)")
     if prompt_lens is not None:
         raise ValueError(
             f"{policy} (multi-pass) cannot serve bucket-padded prompts; "

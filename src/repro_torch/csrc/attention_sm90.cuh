@@ -11,7 +11,10 @@
 //   src/repro/kernels/chunk_attention.py): a prefill chunk or the 32-row
 //   observation pass at q_offset over the buffer;
 // * flash_attention (kernel 7, flash_attention_pallas of
-//   src/repro/kernels/flash_attention.py): q_offset 0 and C == K;
+//   src/repro/kernels/flash_attention.py): q_offset 0 and C == K, or
+//   non-causal with C != K (whisper's cross-attention: the Q and O maps
+//   span C rows, the K/V maps K keys, every query tile runs all key
+//   tiles and the ragged last one is masked);
 // * chunk_attention_masses (kernel 2, chunk_attention_masses_pallas): the
 //   tile with STATS, which adds only a store of each row's final (m, l),
 //   so its out is bitwise kernel 1's, then column_masses_sm90 below.

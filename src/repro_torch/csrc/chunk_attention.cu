@@ -10,7 +10,8 @@
 // (pallas_call at :99), through the entry flash_attention: monolithic
 // self-attention of a whole sequence (Sq == Sk), which is the causal chunk
 // with q_offset = 0 and C = K, or with CAUSAL false every key visible
-// (the window still applies).
+// (the window still applies); and, non-causal with C = Sq != K = Sk and
+// no window, whisper's cross-attention (no Pallas counterpart).
 //
 // Also replaces src/repro/kernels/chunk_attention.py,
 // chunk_attention_masses_pallas (pallas_call at :289), through the entry
@@ -865,21 +866,29 @@ extern "C" int chunk_attention(const void* q, const void* k, const void* v,
                                                    (cudaStream_t)stream);
 }
 
-// Self-attention of a whole sequence: q (B, S, H, hd), k/v (B, S, KV, hd).
-// causal != 0: row i sees keys 0..i; causal == 0: every key.  window <= 0
-// means no window.  kv_mask (B, S) bytes or null: a key whose byte is 0 is
-// hidden from every row.  Returns cudaGetLastError() after launch.
+// Attention of a whole sequence: q (B, Sq, H, hd), k/v (B, Sk, KV, hd).
+// Self-attention (Sq == Sk): causal != 0: row i sees keys 0..i; causal ==
+// 0: every key.  window <= 0 means no window.  Cross-attention (Sq != Sk:
+// whisper's decoder rows over its encoder frames; the JAX package
+// computes it in jnp, ops.py:97-113, so this form replaces no Pallas
+// kernel) takes causal == 0 and no window: every row sees every key, the
+// query tiles cover Sq rows and the key loop Sk keys, the ragged last key
+// tile masked as in self-attention.  kv_mask (B, Sk) bytes or null: a key
+// whose byte is 0 is hidden from every row.  Returns cudaGetLastError()
+// after launch (cudaErrorInvalidValue, with no launch, for Sq != Sk under
+// a causal mask or a window).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               const void* kv_mask, void* out, int B, int S,
-                               int H, int KV, int hd, int causal, int window,
-                               int dtype, void* stream) {
+                               const void* kv_mask, void* out, int B, int Sq,
+                               int Sk, int H, int KV, int hd, int causal,
+                               int window, int dtype, void* stream) {
+  if (Sq != Sk && (causal || window > 0)) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   using tag = flash_attention_tag;
   const Split one{1, nullptr, nullptr, nullptr};
   const uint8_t* mask = (const uint8_t*)kv_mask;
   if (causal)
-    return dispatch<tag, true, false>(dtype, hd, q, k, v, out, B, S, H, S, KV, 0, window, one, s, mask);
-  return dispatch<tag, false, false>(dtype, hd, q, k, v, out, B, S, H, S, KV, 0, window, one, s, mask);
+    return dispatch<tag, true, false>(dtype, hd, q, k, v, out, B, Sq, H, Sk, KV, 0, window, one, s, mask);
+  return dispatch<tag, false, false>(dtype, hd, q, k, v, out, B, Sq, H, Sk, KV, 0, window, one, s, mask);
 }
 
 // Chunk attention plus the column masses of the rows below n_total (h2o):

@@ -46,7 +46,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "chunk_attention": [_P] * 7 + [_I] * 10 + [_P],
     "chunk_attention_masses": [_P] * 10 + [_I] * 11 + [_P],
-    "flash_attention": [_P] * 5 + [_I] * 8 + [_P],
+    "flash_attention": [_P] * 5 + [_I] * 9 + [_P],
     "lookahead_score": [_P] * 7 + [_I] * 12 + [_P],
     "paged_decode_attention": [_P] * 8 + [_I] * 9 + [_P],
     "paged_decode_masses": [_P] * 9 + [_I] * 9 + [_P],

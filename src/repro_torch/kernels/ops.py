@@ -95,16 +95,24 @@ def reset_launch_counts() -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None,
                     kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Self-attention of a whole sequence: q (B, S, H, hd), k/v (B, S, KV,
-    hd), causal or (``causal=False``) over every key, with an optional
-    window and key mask ``kv_mask`` (B, S) bool (the bucket-padded
-    prefill's valid keys; every row must keep a valid key).  Sq != Sk (the
-    JAX package's cross-attention of whisper) raises on every device."""
-    if q.shape[1] != k.shape[1]:
-        raise NotImplementedError(
-            "flash_attention with Sq != Sk (encoder cross-attention): not "
-            "ported yet: ROADMAP A10")
+    """Attention of a whole sequence: q (B, Sq, H, hd) over k/v (B, Sk,
+    KV, hd), causal or (``causal=False``) over every key, with an optional
+    window and key mask ``kv_mask`` (B, Sk) bool (the bucket-padded
+    prefill's valid keys; every row must keep a valid key).  Sq == Sk is
+    self-attention; Sq != Sk is whisper's cross-attention (decoder rows
+    over encoder frames), which takes ``causal=False`` and no window and
+    raises otherwise, on every device.
+
+    On the card a non-causal, unwindowed call with one query row (the
+    cross-attention of a decode step) goes to kernel 6
+    (``decode_attention``, counted as its launch), which computes the
+    same function without a 128-row query tile for one live row; every
+    other call goes to kernel 7."""
+    ref.check_cross(q.shape[1], k.shape[1], causal, window)
     if _on_card(q, k, v):
+        if q.shape[1] == 1 and not causal and window is None:
+            return _dk.decode_attention(q[:, 0], k, v,
+                                        kv_mask=kv_mask)[:, None]
         return _fk.flash_attention(q, k, v, causal=causal, window=window,
                                    kv_mask=kv_mask)
     return ref.flash_attention(q, k, v, causal=causal, window=window,

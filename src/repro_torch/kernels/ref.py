@@ -32,6 +32,14 @@ def check_offset(q_offset: int, C: int, K: int) -> None:
                          f"fit a {K}-deep key buffer")
 
 
+def check_cross(Sq: int, Sk: int, causal: bool, window) -> None:
+    """Queries and keys of different lengths take no positions: raise
+    unless the call is non-causal and unwindowed."""
+    if Sq != Sk and (causal or window is not None):
+        raise ValueError(f"flash_attention with Sq {Sq} != Sk {Sk} takes "
+                         "causal=False and no window")
+
+
 def _expand_gqa(x: torch.Tensor, group: int) -> torch.Tensor:
     """(B, S, KV, hd) -> (B, S, KV*G, hd) by repeating each kv head."""
     return torch.repeat_interleave(x, group, dim=2)
@@ -77,14 +85,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention of a whole sequence (Sq == Sk): causal, or with
     ``causal=False`` a full softmax over every key; an optional window
-    hides keys with ``q_pos - k_pos >= window``, and ``kv_mask`` (B, S)
+    hides keys with ``q_pos - k_pos >= window``, and ``kv_mask`` (B, Sk)
     the keys it marks False.  Without a mask every row sees at least its
     own key; with one, a row that sees no key is the mean of V (softmax
     over ``NEG_INF`` logits, as the JAX reference), which the kernel does
-    not reproduce (it gives zeros): callers keep every row a valid key."""
-    if q.shape[1] != k.shape[1]:
-        raise ValueError(f"flash_attention needs Sq == Sk, got {q.shape[1]} "
-                         f"and {k.shape[1]}")
+    not reproduce (it gives zeros): callers keep every row a valid key.
+
+    Sq != Sk (whisper's cross-attention: decoder rows over encoder
+    frames) only with ``causal=False`` and no window, where positions do
+    not enter; it raises otherwise (the JAX package has no such
+    caller)."""
+    check_cross(q.shape[1], k.shape[1], causal, window)
     return attention(q, k, v, causal=causal, window=window, kv_mask=kv_mask)
 
 

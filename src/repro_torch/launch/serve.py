@@ -228,6 +228,13 @@ def run(argv=None) -> dict:
             "and no lookahead module applies and no engine serves it; run "
             "it through transformer.prefill(want_ssm_cache=True) and "
             "decode_step")
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder arch: no engine passes its "
+            "frame embeddings (the JAX launcher asserts 'whisper needs "
+            "frame embeddings' here); run it through "
+            "policies.run_eviction(..., encoder_embeds=frames) and "
+            "greedy_decode, or transformer.prefill and decode_step")
     if args.prefix_cache_mb and not _streamable(args):
         print("note: --prefix-cache-mb requires the chunked continuous "
               "engine (--continuous with a streamable policy); ignoring it")

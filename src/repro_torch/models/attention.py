@@ -1,6 +1,8 @@
 """Grouped-query attention block: projections with RoPE and lookahead-LoRA
-hooks, the monolithic and the streaming prefill attention, and the decode
-steps over a dense cache and over the paged pool.
+hooks, the monolithic and the streaming prefill attention, the decode
+steps over a dense cache and over the paged pool, and whisper's
+cross-attention (decoder rows over the encoder frames' K/V, evicted or
+not).
 
 Single-layer params (stacked along L by transformer.py):
 
@@ -29,6 +31,9 @@ from repro_torch.models.layers import dense_init, linear
 
 def init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, *,
          lead=()) -> dict:
+    """The four projections.  The JAX package's qkv biases (zeros, and
+    none on a cross-attention block) are left out: a missing bias is a
+    zero one (``linear``), and bridged JAX trees carry their own."""
     a = cfg.attn
     return {
         "wq": dense_init(gen, cfg.d_model, a.q_dim, dtype, lead=lead),
@@ -52,6 +57,7 @@ def qkv(
     lora: Optional[dict] = None,
     lora_scale: float = 1.0,
     rope_tables: Optional[tuple] = None,  # rope_tables or mrope_tables
+    rotary: bool = True,  # False: whisper's encoder (no positions)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Project + rotate.  Returns q (B,S,H,hd), k/v (B,S,KV,hd).  A caller
     running many layers at the same positions passes ``rope_tables`` once."""
@@ -66,6 +72,8 @@ def qkv(
     q = q.reshape(B, S, a.num_heads, a.head_dim)
     k = k.reshape(B, S, a.num_kv_heads, a.head_dim)
     v = v.reshape(B, S, a.num_kv_heads, a.head_dim)
+    if not rotary:
+        return q, k, v
     if rope_tables is None:
         rope_tables = rope.rope_tables(positions, a.head_dim, a.rope_theta)
     return rope.rotate(q, rope_tables), rope.rotate(k, rope_tables), v
@@ -94,20 +102,80 @@ def prefill_attention(
     lora_scale: float = 1.0,
     rope_tables: Optional[tuple] = None,
     kv_mask: Optional[torch.Tensor] = None,  # (B, S) valid keys
+    causal: bool = True,
+    rotary: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Causal self-attention of the whole sequence (``ops.flash_attention``,
-    optional sliding window); ``kv_mask`` hides keys (the bucket-padded
-    prompt rows) from every query.  Returns (out (B, S, D), q, k, v); the
-    caller scores and evicts from q and k."""
+    """Self-attention of the whole sequence (``ops.flash_attention``):
+    causal with an optional sliding window, or (``causal=False``, the
+    window then ignored) bidirectional, as whisper's encoder runs it with
+    ``rotary=False``.  ``kv_mask`` hides keys (the bucket-padded prompt
+    rows) from every query.  Returns (out (B, S, D), q, k, v); the caller
+    scores and evicts from q and k."""
     q, k, v = qkv(p, a, h, positions, lookahead_mask=lookahead_mask,
-                  lora=lora, lora_scale=lora_scale, rope_tables=rope_tables)
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                  lora=lora, lora_scale=lora_scale, rope_tables=rope_tables,
+                  rotary=rotary)
+    out = ops.flash_attention(q, k, v, causal=causal,
+                              window=window if causal else None,
                               kv_mask=kv_mask)
     B, S = h.shape[:2]
     out = linear(out.reshape(B, S, a.q_dim), p["wo"],
                  lora=_lora_for(lora, "wo"), lora_mask=lookahead_mask,
                  lora_scale=lora_scale)
     return out, q, k, v
+
+
+def cross_attention(
+    p: dict,
+    a: AttentionConfig,
+    h: torch.Tensor,  # (B, Sq, D) decoder hidden states
+    enc_k: torch.Tensor,  # (B, Se, KV, hd) the encoder frames' keys
+    enc_v: torch.Tensor,
+    *,
+    enc_mask: Optional[torch.Tensor] = None,  # (B, Se) valid frames
+    lora: Optional[dict] = None,
+    lora_mask: Optional[torch.Tensor] = None,  # (B, Sq, 1)
+    lora_scale: float = 1.0,
+) -> torch.Tensor:
+    """Whisper's decoder-to-encoder attention (no positions): the rows'
+    queries over every frame (``ops.flash_attention`` with Sq != Sk,
+    non-causal), the lookahead LoRA on ``wq`` and ``wo`` only, as in the
+    JAX package.  Returns (B, Sq, D)."""
+    B, Sq, _ = h.shape
+    q = linear(h, p["wq"], p.get("bq"), lora=_lora_for(lora, "wq"),
+               lora_mask=lora_mask, lora_scale=lora_scale)
+    q = q.reshape(B, Sq, a.num_heads, a.head_dim)
+    out = ops.flash_attention(q, enc_k, enc_v, causal=False,
+                              kv_mask=enc_mask)
+    return linear(out.reshape(B, Sq, a.q_dim), p["wo"],
+                  lora=_lora_for(lora, "wo"), lora_mask=lora_mask,
+                  lora_scale=lora_scale)
+
+
+def cross_attention_decode_evicted(
+    p: dict,
+    a: AttentionConfig,
+    h1: torch.Tensor,  # (B, 1, D)
+    cross_cache: dict,  # k/v (B, Cc, KV, hd), mask (B, Cc, KV)
+) -> torch.Tensor:
+    """One token's cross-attention over an evicted encoder cache (each kv
+    head keeps its own frames, so the mask is per head: kernel 6), no
+    LoRA.  Returns (B, 1, D)."""
+    B = h1.shape[0]
+    q = linear(h1, p["wq"], p.get("bq")).reshape(B, a.num_heads, a.head_dim)
+    out = ops.decode_attention(q, cross_cache["k"], cross_cache["v"],
+                               kv_mask=cross_cache["mask"])
+    return linear(out.reshape(B, 1, a.q_dim), p["wo"])
+
+
+def encode_kv(p: dict, a: AttentionConfig, h_enc: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The encoder states (B, Se, D) projected once into one decoder
+    layer's cross-attention K/V (B, Se, KV, hd), no LoRA."""
+    B, Se, _ = h_enc.shape
+    k = linear(h_enc, p["wk"], p.get("bk"))
+    v = linear(h_enc, p["wv"], p.get("bv"))
+    return (k.reshape(B, Se, a.num_kv_heads, a.head_dim),
+            v.reshape(B, Se, a.num_kv_heads, a.head_dim))
 
 
 def chunk_prefill_attention(

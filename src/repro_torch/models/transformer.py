@@ -6,7 +6,9 @@ the decode step over a dense cache or the paged pool.
 The port covers the attention-only llama family, the MoE archs
 (deepseek-moe, phi3.5-moe), qwen2-vl's language backbone (M-RoPE
 positions, embedding inputs), the SSM archs (the attention-free mamba2
-and the hybrid hymba) and every single-pass
+and the hybrid hymba), the encoder-decoder whisper (``encode`` over
+stubbed frame embeddings, cross-attention in every decoder block, and
+optionally a cross-KV eviction) and every single-pass
 eviction policy of the JAX package (``lookaheadkv``, ``gt_oracle``, the
 window policies ``snapkv``/``pyramidkv``/``tova``, ``h2o`` and the
 position policies ``streaming_llm``/``random``/``full``), with uniform,
@@ -25,6 +27,10 @@ Block, by arch type:
     moe    : h += attn(u);              h += moe(rms_norm(h, ln2))
     ssm    : h += ssd(u)                (no MLP when d_ff == 0)
     hybrid : h += (attn(u) + ssd(u)) / 2;  h += mlp(rms_norm(h, ln2))
+    audio  : encoder blocks: h += attn(u) (bidirectional, no rotary);
+             h += mlp(rms_norm(h, ln2));
+             decoder blocks: h += attn(u);
+             h += cross(rms_norm(h, ln_cross));  h += mlp(rms_norm(h, ln2))
 with u = rms_norm(h, ln1).  The MoE block's load-balance loss (``aux``)
 is summed over the layers by ``prefill`` and dropped elsewhere, as in the
 JAX package.
@@ -49,7 +55,8 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import layer_window
-from repro_torch.models.layers import dense_init, embed_init, rms_norm
+from repro_torch.models.layers import (dense_init, embed_init, linear,
+                                      rms_norm)
 from repro_torch.models.rope import (rope_tables, tables_for,
                                      text_mrope_positions)
 
@@ -63,12 +70,11 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 def _check_arch(cfg: ModelConfig) -> None:
     a = cfg.attn
     ffn = cfg.d_ff > 0 or cfg.moe is not None
-    if cfg.encoder is not None or not (
-            cfg.uses_ssm or (a is not None and ffn)):
+    if not (cfg.uses_ssm or (a is not None and ffn)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoders (dense, MoE, the VLM "
-            "backbone) and the SSM archs (ssm, hybrid); encoder-decoder "
-            "archs are ROADMAP A10")
+            f"{cfg.name}: the port serves attention blocks with an FFN "
+            "(dense, MoE, the VLM backbone, whisper's encoder-decoder) and "
+            "the SSM archs (ssm, hybrid)")
 
 
 def chunkable(cfg: ModelConfig) -> bool:
@@ -105,6 +111,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     elif cfg.d_ff > 0:
         layers["ln2"] = torch.zeros((L, d), dtype=dtype, device=dev)
         layers["mlp"] = mlp_mod.init(gen, cfg, dtype, lead=(L,))
+    if cfg.is_encoder_decoder:
+        layers["cross"] = attn_mod.init(gen, cfg, dtype, lead=(L,))
+        layers["ln_cross"] = torch.zeros((L, d), dtype=dtype, device=dev)
     params = {
         "embed": embed_init(gen, cfg.padded_vocab, d, dtype),
         "layers": layers,
@@ -112,6 +121,20 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, d, cfg.padded_vocab, dtype)
+    if cfg.is_encoder_decoder:
+        Le, F = cfg.encoder.num_layers, cfg.encoder.num_frames
+        params["encoder"] = {
+            "layers": {
+                "ln1": torch.zeros((Le, d), dtype=dtype, device=dev),
+                "attn": attn_mod.init(gen, cfg, dtype, lead=(Le,)),
+                "ln2": torch.zeros((Le, d), dtype=dtype, device=dev),
+                "mlp": mlp_mod.init(gen, cfg, dtype, lead=(Le,)),
+            },
+            # drawn in float32, then cast (the JAX package's init)
+            "pos_emb": (torch.randn((F, d), generator=gen, device=dev,
+                                    dtype=torch.float32) * 0.02).to(dtype),
+            "final_norm": torch.zeros((d,), dtype=dtype, device=dev),
+        }
     return params
 
 
@@ -212,6 +235,70 @@ def _ffn_residual(h, lp, cfg: ModelConfig, *, lora_l=None, lora_mask=None,
 
 
 # ---------------------------------------------------------------------------
+# Whisper encoder
+# ---------------------------------------------------------------------------
+
+
+def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """Whisper's bidirectional encoder: frames (B, F, D), the stubbed
+    frontend's embeddings, cast to the model dtype plus ``pos_emb``,
+    through the encoder blocks (non-causal attention without rotary:
+    kernel 7 on the card; then the MLP) and a final ``rms_norm``.
+    Returns (B, F, D)."""
+    enc = params["encoder"]
+    h = frames.to(torch_dtype(cfg)) + enc["pos_emb"][None]
+    B, F, _ = h.shape
+    positions = torch.arange(F, device=h.device).expand(B, F)
+    for layer in range(cfg.encoder.num_layers):
+        lp = layer_slice(enc["layers"], layer)
+        u = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        out, *_ = attn_mod.prefill_attention(lp["attn"], cfg.attn, u,
+                                             positions, causal=False,
+                                             rotary=False)
+        h = h + out
+        u = rms_norm(h, lp["ln2"], cfg.norm_eps)
+        h = h + mlp_mod.apply(lp["mlp"], cfg, u)
+    return rms_norm(h, enc["final_norm"], cfg.norm_eps)
+
+
+def encode_cross_kv(params: dict, cfg: ModelConfig, h_enc: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every decoder layer's cross-attention K/V of the encoder states:
+    stacked (L, B, Se, KV, hd) each."""
+    kv = [attn_mod.encode_kv(layer_slice(params["layers"]["cross"], i),
+                             cfg.attn, h_enc)
+          for i in range(cfg.num_layers)]
+    return (torch.stack([k for k, _ in kv]),
+            torch.stack([v for _, v in kv]))
+
+
+def _cross_evicted(lp: dict, cfg: ModelConfig, u_cross: torch.Tensor,
+                   ck: torch.Tensor, cv: torch.Tensor, boundary: int,
+                   cross_budget: int) -> ev.EvictedKV:
+    """One layer's encoder KV evicted to ``min(cross_budget, Se)`` frames
+    per kv head (beyond-paper), scored by the observation rows' queries
+    ``[boundary:]`` projected with the cross block's ``wq`` and no LoRA,
+    every frame visible (kernel 3 with ``q_offset = Se``).  h2o's rows
+    ``[S:]`` are none: every frame then scores alike and the first are
+    kept, as the JAX package's mean over no rows (NaN everywhere) ranks
+    them."""
+    a = cfg.attn
+    B, Se = u_cross.shape[0], ck.shape[1]
+    qc = linear(u_cross[:, boundary:], lp["cross"]["wq"],
+                lp["cross"].get("bq"))
+    qc = qc.reshape(B, -1, a.num_heads, a.head_dim)
+    if qc.shape[1]:
+        sc = scoring.observation_scores(qc, ck, Se, q_offset=Se)
+    else:
+        sc = torch.zeros((B, a.num_heads, Se), dtype=torch.float32,
+                         device=ck.device)
+    lk = cfg.lookahead
+    sc = scoring.postprocess(sc, a.num_kv_heads, lk.pool_kernel if lk else 7)
+    return ev.evict_layer(sc, ck, cv, min(cross_budget, Se))
+
+
+# ---------------------------------------------------------------------------
 # Monolithic prefill
 # ---------------------------------------------------------------------------
 
@@ -286,6 +373,18 @@ def prefill(
     ``inputs`` (B, S, D) as the embedded prompt.  MoE archs sum each
     layer's load-balance loss into ``aux``.
 
+    Encoder-decoder archs (whisper) need ``encoder_embeds`` (B, F, D),
+    the stubbed frontend's frames (ValueError without them; any other
+    arch raises ValueError when given them): ``encode`` runs once, every
+    decoder layer's cross K/V are projected from it, and each block adds
+    its cross-attention (the lookahead LoRA on its ``wq`` and ``wo`` on
+    the lookahead rows) between the self-attention and the FFN.  The
+    cache then holds "cross": the full encoder K/V {k, v (L, B, F, KV,
+    hd)}, or with ``evict.cross_budget > 0`` under an evicting policy
+    that has observation rows, each layer's frames evicted to
+    ``min(cross_budget, F)`` per kv head {k, v, pos, mask}, scored by
+    the observation rows' plain cross queries (``_cross_evicted``).
+
     ``capture_scores`` (training, ``core/objective.py``) returns every
     layer's per-q-head observation scores of the scored keys, before
     pooling, stacked as ``scores`` (L, B, H, n_keys) float32: those of
@@ -301,14 +400,15 @@ def prefill(
                              "archs")
         if gt_boundary is not None:
             raise ValueError("prompt_lens and gt_boundary are exclusive")
-    unported = [
-        (encoder_embeds is not None, "encoder inputs: ROADMAP A10"),
-        (want_logits not in ("last", "all", "none"),
-         f"want_logits {want_logits!r}"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if want_logits not in ("last", "all", "none"):
+        raise NotImplementedError(f"not ported yet: want_logits "
+                                  f"{want_logits!r}")
+    if cfg.is_encoder_decoder and encoder_embeds is None:
+        raise ValueError(f"{cfg.name} needs frame embeddings "
+                         "(encoder_embeds (B, F, D))")
+    if encoder_embeds is not None and not cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name} has no encoder: encoder_embeds "
+                         "apply to encoder-decoder archs only")
     if policy == "gt_oracle" and gt_boundary is None:
         raise ValueError("gt_oracle needs gt_boundary")
     a = cfg.attn
@@ -374,6 +474,7 @@ def prefill(
         raise ValueError(f"{obs_policy}: a prompt of {S} tokens is shorter "
                          f"than its {window_size}-row observation window")
     n_keys = boundary if obs_policy in scoring.FINAL_OBS else n_real
+    n_obs = S if obs_policy == "h2o" else S - boundary
     score_layers = cfg.uses_attention and obs_policy is not None and (
         capture_scores or do_evict)
     if do_evict:
@@ -395,6 +496,13 @@ def prefill(
     ls = lora_scale(cfg) if use_lookahead else 1.0
     lora_tree = lkv_params.get("lora") if use_lookahead else None
     pool_kernel = lk.pool_kernel if lk else 7
+    cross_kv = cross_layers = None
+    if cfg.is_encoder_decoder:
+        # the encoder runs once; every decoder layer's cross K/V from it
+        cross_kv = encode_cross_kv(params, cfg,
+                                   encode(params, cfg, encoder_embeds))
+        evict_cross = do_evict and evict.cross_budget > 0 and n_obs > 0
+        cross_layers = [] if evict_cross else None
     layers, ssm_caches, captured, auxes = [], [], [], []
     for layer, window in enumerate(_windows(cfg)):
         lp = layer_slice(params["layers"], layer)
@@ -415,7 +523,18 @@ def prefill(
                 ssm_caches.append(ssm_cache)
         if cfg.hybrid:
             delta = delta * 0.5
-        h, aux_l = _ffn_residual(h + delta, lp, cfg, lora_l=lora_l,
+        h = h + delta
+        if cross_kv is not None:
+            ck, cv = cross_kv[0][layer], cross_kv[1][layer]
+            u_cross = rms_norm(h, lp["ln_cross"], cfg.norm_eps)
+            h = h + attn_mod.cross_attention(
+                lp["cross"], a, u_cross, ck, cv,
+                lora=None if lora_l is None else lora_l.get("cross"),
+                lora_mask=lmask, lora_scale=ls)
+            if cross_layers is not None:
+                cross_layers.append(_cross_evicted(
+                    lp, cfg, u_cross, ck, cv, boundary, evict.cross_budget))
+        h, aux_l = _ffn_residual(h, lp, cfg, lora_l=lora_l,
                                  lora_mask=lmask, ls=ls)
         if aux_l is not None:
             auxes.append(aux_l)
@@ -465,6 +584,12 @@ def prefill(
         if ssm_caches:
             cache["ssm"] = {f: torch.stack([c[f] for c in ssm_caches])
                             for f in ("conv", "state")}
+        if cross_layers:
+            cache["cross"] = {f: torch.stack([getattr(e, f)
+                                              for e in cross_layers])
+                              for f in ev.EvictedKV._fields}
+        elif cross_kv is not None:
+            cache["cross"] = {"k": cross_kv[0], "v": cross_kv[1]}
         cache["next_pos"] = (
             torch.full((B, 1), n_pos, dtype=torch.int32, device=dev)
             if prompt_lens is None else pl[:, None].to(torch.int32))
@@ -817,7 +942,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
     slot) its own append cursor, a (batch,) tensor; otherwise the cursor is
     one int for the batch (lockstep).  SSM archs add "ssm": {conv (L,
     batch, cw - 1, conv_dim), state (L, batch, nh, hd, ds) float32} zeros;
-    without attention there is no "attn" and no cursor."""
+    without attention there is no "attn" and no cursor.  Encoder-decoder
+    archs add "cross": {k, v (L, batch, F, KV, hd)} zeros, the unevicted
+    encoder K/V."""
     _check_arch(cfg)
     a = cfg.attn
     L = cfg.num_layers
@@ -839,6 +966,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
     if cfg.uses_ssm:
         cache["ssm"] = ssm_mod.init_cache(cfg, batch, torch_dtype(cfg),
                                           lead=(L,), device=device)
+    if cfg.is_encoder_decoder:
+        k = torch.zeros((L, batch, cfg.encoder.num_frames, a.num_kv_heads,
+                         a.head_dim), dtype=torch_dtype(cfg), device=device)
+        cache["cross"] = {"k": k, "v": torch.zeros_like(k)}
     cache["next_pos"] = torch.zeros((batch, 1), dtype=torch.int32,
                                     device=device)
     return cache
@@ -967,7 +1098,13 @@ def decode_step(
     step rewrites in place for every row: they are served by the lockstep
     engine only, which decodes the whole batch.  A cache without
     attention leaves (mamba2, or a hybrid prefilled without a policy)
-    runs no attention, as in the JAX package."""
+    runs no attention, as in the JAX package.
+
+    Encoder-decoder archs carry ``cache["cross"]``, read only: each
+    block's cross-attention of the token over the full encoder K/V
+    (``ops.flash_attention`` with one query row: kernel 6 on the card),
+    or with a ``mask`` leaf (a ``cross_budget`` eviction) over its kept
+    frames under the per-kv-head mask (``ops.decode_attention``)."""
     a = cfg.attn
     h = embed(params, cfg, token)
     B = h.shape[0]
@@ -996,6 +1133,7 @@ def decode_step(
         if not evicting:
             rows = attn_mod.dense_append_rows(cursor, depth, B, h.device,
                                               active)
+    cross = cache.get("cross") if cfg.is_encoder_decoder else None
     for layer, window in enumerate(_windows(cfg)):
         lp = layer_slice(params["layers"], layer)
         u = rms_norm(h, lp["ln1"], cfg.norm_eps)
@@ -1022,7 +1160,16 @@ def decode_step(
             delta = s_out if delta is None else delta + s_out
         if cfg.hybrid:
             delta = delta * 0.5
-        h, _ = _ffn_residual(h + delta, lp, cfg)
+        h = h + delta
+        if cross is not None:
+            u = rms_norm(h, lp["ln_cross"], cfg.norm_eps)
+            if "mask" in cross:
+                h = h + attn_mod.cross_attention_decode_evicted(
+                    lp["cross"], a, u, layer_slice(cross, layer))
+            else:
+                h = h + attn_mod.cross_attention(
+                    lp["cross"], a, u, cross["k"][layer], cross["v"][layer])
+        h, _ = _ffn_residual(h, lp, cfg)
     logits = unembed(params, cfg, h[:, 0])
     new_cache = dict(cache)
     adv_p = positions + 1

@@ -256,6 +256,10 @@ def test_chunk_attention_sm90_counts_one_launch(dev, hd):
     (1, 32, 4096, 16, 16, 128, 4096, 4000, None, False),  # finalize
     (4, 32, 2080, 16, 16, 128, 2048, None, None, False),  # lockstep
     (4, 32, 2080, 64, 8, 128, 2048, None, None, False),  # qwen2-vl lockstep
+    # whisper-small's cross-KV eviction: 32 rows over 1,500 frames, every
+    # frame visible (n_prompt == Sk, q_offset = Sk: no observation keys)
+    (4, 32, 1500, 12, 12, 64, 1500, 1500, None, False),
+    (2, 8, 16, 4, 4, 32, 16, 16, None, False),  # whisper-smoke's
 ])
 def test_lookahead_score_matches_plain(dev, dtype, B, n_obs, Sk, H, KV, hd,
                                        n_prompt, off, window, masks):
@@ -502,13 +506,29 @@ def test_paged_decode_is_one_cluster_launch(dev, monkeypatch):
     # deepseek-moe-16b (MHA, G 1) and the qwen2-vl-72b backbone (64 / 8)
     (4, 2080, 16, 16, 128, True, None),
     (4, 2080, 64, 8, 128, True, None),
+    # whisper-small (MHA, 12 / 12 heads of 64): the encoder over 1,500
+    # frames, then S = (Sq, Sk): the cross-attention of 2,080 decoder rows
+    # over them, and of one row (a decode step's, on kernel 7 itself)
+    (4, 1500, 12, 12, 64, False, None),
+    (4, (2080, 1500), 12, 12, 64, False, None),
+    (4, (1, 1500), 12, 12, 64, False, None),
+    # Sq != Sk at the other head dims, ragged both ways, Sq > Sk, and
+    # whisper-smoke's hd 32 (float32 and bf16 on this file's kernels)
+    (2, (333, 1000), 8, 2, 128, False, None),
+    (1, (129, 127), 8, 2, 128, False, None),
+    (1, (700, 100), 8, 2, 64, False, None),
+    (2, (129, 65), 4, 1, 256, False, None),
+    (2, (40, 16), 4, 4, 32, False, None),
+    (2, (1, 16), 4, 4, 32, False, None),
 ])
 def test_flash_attention_matches_plain(dev, dtype, B, S, H, KV, hd, causal,
                                        window):
+    """``S`` is the sequence (self-attention) or (Sq, Sk)."""
+    Sq, Sk = (S, S) if isinstance(S, int) else S
     g = torch.Generator(device=dev).manual_seed(4)
-    q = _randn(g, (B, S, H, hd), dtype, dev)
-    k = _randn(g, (B, S, KV, hd), dtype, dev)
-    v = _randn(g, (B, S, KV, hd), dtype, dev)
+    q = _randn(g, (B, Sq, H, hd), dtype, dev)
+    k = _randn(g, (B, Sk, KV, hd), dtype, dev)
+    v = _randn(g, (B, Sk, KV, hd), dtype, dev)
     got = fk.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     want = ref.flash_attention(q, k, v, causal=causal, window=window)
@@ -549,16 +569,24 @@ def _key_mask(B, S, lens, n_obs, dev, lead=0):
     (4, 1024, 4, 1, 256, (512, 700, 900, 1024), 0, True, 0),
     (3, 260, 4, 1, 256, (63, 64, 65), 0, True, 0),
     (2, 600, 4, 1, 256, (600, 600), 0, False, 200),
+    # cross-attention under a (B, Sk) frame mask, S = (Sq, Sk): whisper's
+    # shape, hd 32, one query row, a whole key tile masked at hd 128
+    (4, (2080, 1500), 12, 12, 64, (1500, 1400, 1000, 1499), 0, False, 0),
+    (2, (40, 300), 4, 2, 32, (17, 300), 0, False, 0),
+    (2, (1, 300), 4, 2, 32, (170, 300), 0, False, 0),
+    (2, (300, 600), 8, 2, 128, (600, 600), 0, False, 200),
+    (2, (129, 65), 4, 1, 256, (64, 65), 0, False, 1),
 ])
 def test_flash_attention_masked_matches_plain(dev, dtype, B, S, H, KV, hd,
                                               lens, n_obs, causal, lead):
     """Kernel 7 under a key mask (every row keeps a valid key) against
-    its plain version."""
+    its plain version; ``S`` is the sequence or (Sq, Sk)."""
+    Sq, Sk = (S, S) if isinstance(S, int) else S
     g = torch.Generator(device=dev).manual_seed(11)
-    q = _randn(g, (B, S, H, hd), dtype, dev)
-    k = _randn(g, (B, S, KV, hd), dtype, dev)
-    v = _randn(g, (B, S, KV, hd), dtype, dev)
-    mask = _key_mask(B, S, lens, n_obs, dev, lead)
+    q = _randn(g, (B, Sq, H, hd), dtype, dev)
+    k = _randn(g, (B, Sk, KV, hd), dtype, dev)
+    v = _randn(g, (B, Sk, KV, hd), dtype, dev)
+    mask = _key_mask(B, Sk, lens, n_obs, dev, lead)
     if not causal:
         mask[1, 0] = False
     got = fk.flash_attention(q, k, v, causal=causal, kv_mask=mask)
@@ -613,7 +641,11 @@ def test_flash_attention_mask_all_valid_is_unmasked(dev, dtype):
 
 @pytest.mark.parametrize("hd", [64, 128, 256])
 def test_flash_attention_sm90_counts_one_launch(dev, hd):
-    """The bf16 tile at hd 64, 128 and 256 is one launch per call."""
+    """The bf16 tile at hd 64, 128 and 256 is one launch per call, a
+    cross-attention (Sq != Sk) too; ``ops.flash_attention`` sends one
+    non-causal query row (a decode step's cross-attention) to kernel 6,
+    one launch of it, and that route matches the plain version; Sq != Sk
+    under a causal mask raises before any launch."""
     g = torch.Generator(device=dev).manual_seed(9)
     q = _randn(g, (2, 200, 8, hd), torch.bfloat16, dev)
     k = _randn(g, (2, 200, 2, hd), torch.bfloat16, dev)
@@ -622,11 +654,24 @@ def test_flash_attention_sm90_counts_one_launch(dev, hd):
     ops.flash_attention(q, k, v)
     assert fk.launches == before["flash_attention"] + 1
     ops.flash_attention(q, k, v, causal=False, window=64)
+    kx, vx = k[:, :150].contiguous(), v[:, :150].contiguous()
+    ops.flash_attention(q, kx, vx, causal=False)
     torch.cuda.synchronize()
     after = ops.launch_counts()
-    assert after["flash_attention"] == before["flash_attention"] + 2
+    assert after["flash_attention"] == before["flash_attention"] + 3
     assert {n: c for n, c in after.items() if n != "flash_attention"} == \
         {n: c for n, c in before.items() if n != "flash_attention"}
+    q1 = q[:, :1].contiguous()
+    got = ops.flash_attention(q1, k, v, causal=False)
+    torch.cuda.synchronize()
+    want = ref.flash_attention(q1, k, v, causal=False)
+    _assert_rows_close(got, want, torch.bfloat16, 2 ** -7)
+    with pytest.raises(ValueError, match="Sq 200 != Sk 150"):
+        ops.flash_attention(q, kx, vx)
+    last = ops.launch_counts()
+    assert last["decode_attention"] == after["decode_attention"] + 1
+    assert {n: c for n, c in last.items() if n != "decode_attention"} == \
+        {n: c for n, c in after.items() if n != "decode_attention"}
 
 
 #: split counts forced on kernel 6 (None: ``row_splits``' pick)

@@ -126,10 +126,10 @@ def test_prefill_refuses_unported_options(model):
     exact = ttf.prefill(model["tp"], model["tcfg"], tok[:, :5])
     torch.testing.assert_close(padded.logits, exact.logits, **TOL)
     # score capture is served (next test); without an observation source
-    # it has nothing to score, and encoder inputs are ROADMAP A10
+    # it has nothing to score, and a decoder-only arch takes no frames
     with pytest.raises(ValueError, match="capture_scores needs"):
         ttf.prefill(model["tp"], model["tcfg"], tok, capture_scores=True)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="has no encoder"):
         ttf.prefill(model["tp"], model["tcfg"], tok, capture_scores=True,
                     gt_boundary=4, encoder_embeds=torch.zeros(1, 2, 128))
 

@@ -92,9 +92,9 @@ def test_flash_attention_plain_matches_jax_ref_at_ragged_lengths(
 
 def test_flash_attention_refuses_masks_and_cross_lengths():
     """A key mask (the bucket-padded prefill) is served: masked keys are
-    hidden as in the JAX reference.  Sq != Sk (encoder cross-attention)
-    raises on every device instead of taking another path (ROADMAP
-    A10)."""
+    hidden as in the JAX reference.  Sq != Sk (whisper's cross-attention)
+    is served non-causally, as the JAX reference computes it; under a
+    causal mask or a window it raises (no caller has positions there)."""
     rng = np.random.default_rng(7)
     q, k, v = _qkv(rng, 2, 8, 8, 2, 2, 16)
     mask = np.ones((2, 8), bool)
@@ -103,10 +103,14 @@ def test_flash_attention_refuses_masks_and_cross_lengths():
     want = jref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                           kv_mask=jnp.asarray(mask))
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
-    q = torch.zeros((1, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="A10"):
-        ops.flash_attention(q, torch.zeros((1, 9, 2, 16)),
-                            torch.zeros((1, 9, 2, 16)))
+    q, k, v = _qkv(rng, 2, 8, 9, 2, 2, 16)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=False)
+    want = jref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=False)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    for kw in (dict(causal=True), dict(causal=False, window=4)):
+        with pytest.raises(ValueError, match="Sq 8 != Sk 9"):
+            ops.flash_attention(_t(q), _t(k), _t(v), **kw)
 
 
 # ---------------------------------------------------------------------------

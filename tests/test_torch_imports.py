@@ -76,7 +76,7 @@ def test_port_sources_name_no_jax_import():
                                   "mamba2-130m", "gemma3-1b", "qwen2-1.5b",
                                   "smollm-135m", "minitron-8b",
                                   "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b",
-                                  "qwen2-vl-72b"])
+                                  "qwen2-vl-72b", "whisper-small"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_copy_equals_jax_config(arch, smoke):
     get_j = jconfigs.get_smoke_config if smoke else jconfigs.get_config
@@ -98,16 +98,8 @@ def test_config_dataclasses_have_the_same_fields():
         assert got == want, name
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("whisper-small", "VLM and audio archs")])
-def test_moe_vlm_and_audio_archs_still_refuse(arch, item):
-    for get in (tconfigs.get_config, tconfigs.get_smoke_config):
-        with pytest.raises(KeyError, match=f"ROADMAP A10 \\({item}\\)"):
-            get(arch)
-
-
 def test_unported_arch_names_its_roadmap_item():
-    with pytest.raises(KeyError, match="ROADMAP A10"):
-        tconfigs.get_config("whisper-small")
+    """Every arch of the JAX registry is ported: only an unknown name
+    raises."""
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_config("no-such-arch")

@@ -270,10 +270,11 @@ def test_continuous_routes_refuse_mrope(model, pool):
 
 def test_training_and_encoder_inputs_stay_refused(model):
     """VLM training is ROADMAP A10 (the JAX trainer has no synthetic VLM
-    batch); encoder inputs too."""
+    batch); frame embeddings raise ValueError (qwen2-vl has no encoder:
+    the port refuses what the JAX package ignores)."""
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         steps.make_train_step(model["tcfg"], TrainConfig(steps=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(ValueError, match="has no encoder"):
         ttf.prefill(model["tp"], model["tcfg"], torch.zeros((1, 8),
                                                             dtype=torch.long),
                     encoder_embeds=torch.zeros((1, 4, 128)))
