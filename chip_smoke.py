@@ -251,6 +251,24 @@ kernel's plain version):
       exactly ``WHISPER_CELLS`` (kernel 7 36, kernel 3 12 / 24, kernel 6
       768); TTFT with the encoder's part, decode ms/step, peak memory
       and the cross cache's bytes.
+   z. paged continuous observed (``phase_obs_cell``, after the routes):
+      3a's route and traffic served untraced (``set_trace(None)``), then
+      through the launcher with --trace-out, --metrics-json and
+      --prom-snapshot and a ``DriftMonitor`` (budget 256, ring 4, every
+      4 retirements, 16 observed tokens) attached through the captured
+      ``serve.build_engine``: the same tokens; ``validate_trace``, every
+      request's spans in JAX's order, the Chrome file's sync_timers, the
+      Prometheus lines, the JSON snapshot equal to ``metrics.snapshot()``;
+      the serve's launches the untraced run's and ``EXACT_LAUNCHES``',
+      and the registry's counters against them (kernel 1's chunk passes =
+      prefill chunks x 32, its observation passes and kernel 3 = finalizes
+      x 32, kernel 4 = decode steps x 32); the prefill_chunk spans summing
+      to serving_prefill_seconds_total within 1%; one drift evaluation of
+      four records launching kernels 7 and 3 256 times each and nothing
+      else, its wall time and peak memory printed, one record's oracle and
+      predictor scores against the same passes on the plain versions
+      (5e's tolerances), the overlap gauge in [0, 1]; the untraced and
+      traced walls side by side (a sighting).
 4. Where the time goes, with torch.profiler: (a) one more 2048-token
    request on the engine of 3a, then one decode chunk alone; (b) one
    more lockstep batch on the engine of 3b; (c) on the engine of 3d,
@@ -884,6 +902,13 @@ def phase_kernels(torch, mods) -> list:
 
     main3 = score_case(1, 32, 4096, 4096, 4000, None, False,
                        "n_obs=32 Sk=4096 off=4000", timed="lookahead_score")
+    # the drift monitor's passes (3z) over a 4000-token prompt, B = 1: the
+    # oracle's 16 response rows, the predictor's 32 lookahead rows
+    drift3 = score_case(1, 16, 4016, 4000, None, None, False,
+                        "drift oracle: 16 rows after 4000",
+                        timed="lookahead_score drift")
+    score_case(1, 32, 4032, 4000, None, None, False,
+               "drift predictor: 32 rows after 4000")
     # the lockstep prefill's call: 32 observation rows after 2048 prompt
     # rows of each of 4 sequences, scored on the prompt (q_offset None)
     score_case(4, 32, 2080, 2048, None, None, False,
@@ -927,6 +952,10 @@ def phase_kernels(torch, mods) -> list:
         name="lookahead_score", route="cuda",
         source="src/repro_torch/csrc/lookahead_score.cu",
         replaces="src/repro/kernels/lookahead_score.py:87", **main3))
+    results.append(dict(
+        name="lookahead_score drift", route="cuda",
+        source="src/repro_torch/csrc/lookahead_score.cu",
+        replaces="src/repro/kernels/lookahead_score.py:87", **drift3))
 
     # -- kernels 4 and 5: paged decode, rows split over a cluster -----------
     @contextlib.contextmanager
@@ -1203,6 +1232,11 @@ def phase_kernels(torch, mods) -> list:
 
     main7 = flash_case(4, 2080, True, None, "B=4 S=2080 causal",
                        timed="flash_attention")
+    # the drift monitor's passes (3z), B = 1: the oracle's prompt of 4000
+    # tokens and its 16 response rows, the predictor's 32 lookahead rows
+    drift7 = flash_case(1, 4016, True, None, "drift oracle: S=4016 causal",
+                        timed="flash_attention drift")
+    flash_case(1, 4032, True, None, "drift predictor: S=4032 causal")
     flash_case(1, 1000, True, None, "S=1000 (ragged tile)")
     flash_case(2, 300, False, None, "S=300 non-causal")
     flash_case(1, 700, True, 128, "S=700 window 128")
@@ -1231,6 +1265,10 @@ def phase_kernels(torch, mods) -> list:
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/attention_sm90.cuh",
         replaces="src/repro/kernels/flash_attention.py:71", **main7))
+    results.append(dict(
+        name="flash_attention drift", route="cuda",
+        source="src/repro_torch/csrc/attention_sm90.cuh",
+        replaces="src/repro/kernels/flash_attention.py:71", **drift7))
     # an unmasked call runs the code it ran before the key mask came: the
     # best of three timings (each the mean of 20 calls) within 2.5%
     print(f"  flash_attention unmasked: best of three {main7['best_ms']:.4f} "
@@ -2837,6 +2875,14 @@ EXACT_LAUNCHES = {
                             "decode_attention": 32 * 16},
     "qwen2-vl lockstep": {"flash_attention": 32, "lookahead_score": 32,
                           "decode_attention": 32 * 32},
+    # 3z (PERF.md's prediction): the traced serve launches what 3a does;
+    # its drift evaluation re-scores 4 records with an oracle and a
+    # predictor prefill each, kernels 7 and 3 once per layer per pass
+    "paged continuous observed": {"chunk_attention": 44 * 32,
+                                  "lookahead_score": 4 * 32,
+                                  "paged_decode_attention": 124 * 32},
+    "drift evaluation": {"flash_attention": 2 * 4 * 32,
+                         "lookahead_score": 2 * 4 * 32},
 }
 
 
@@ -3322,6 +3368,253 @@ def phase_sampled_cell(torch, mods, res, counts_3a, step_ms_3a,
     print(f"  launches per decode step: {per_step:.0f} sampled against "
           f"{base_per_step:.0f} greedy (4a), +{per_step - base_per_step:.0f}")
     return counts
+
+
+#: 3z's drift monitor: every prompt of 3a's traffic exceeds the budget,
+#: so the fourth retirement evaluates a ring of four records
+DRIFT = dict(budget=256, ring_size=4, eval_every=4, max_obs=16)
+#: a sample line of the Prometheus text exposition format
+PROM_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="[^"]*",?)*\})? '
+    r'(\S+)$')
+
+
+def score_gaps(torch, mods, plain, got) -> tuple:
+    """Per (layer, head) row of L1-normalised (L, H, n) scores, the plain
+    pass's against the kernels': the largest KL, and the largest |dp|
+    over the row's largest plain score in layer 0 and in the later
+    layers (5e's measures)."""
+    obj, sc = mods["objective"], mods["scoring"]
+    p, q = sc.normalize_l1(plain), sc.normalize_l1(got)
+    kl = obj.kl_divergence(p, q)  # (L, H)
+    dp = (p - q).abs().amax(-1) / p.amax(-1)
+    return float(kl.max()), float(dp[0].max()), float(dp[1:].max())
+
+
+def phase_obs_cell(torch, mods) -> tuple:
+    """3z: 3a's route and traffic through the launcher, untraced
+    (``set_trace(None)``: no timer syncs), then traced with --trace-out,
+    --metrics-json and --prom-snapshot and a ``DriftMonitor(**DRIFT)``
+    attached through the captured ``serve.build_engine``; the launch
+    counts set to 0 before and read after each run, the drift
+    evaluation's read around it.  Returns (the traced serve's launches,
+    the drift evaluation's)."""
+    import tempfile
+
+    import numpy as np
+
+    serve, ops, obs, ck = (mods[n] for n in ("serve", "ops", "obs", "ck"))
+    build, evals, passes = serve.build_engine, [], {}
+
+    def untraced(*args, **kw):
+        eng = build(*args, **kw)
+        eng.set_trace(None)
+        return eng
+
+    def with_drift(args, cfg, params, lkv):
+        eng = build(args, cfg, params, lkv)
+        mon = obs.DriftMonitor(params, cfg, lkv, **DRIFT)
+        real = mon.evaluate
+
+        def measured():  # the evaluation's launches, wall and peak
+            torch.cuda.synchronize()
+            before = ops.launch_counts()
+            peak0 = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = real()
+            torch.cuda.synchronize()
+            evals.append(dict(
+                s=time.perf_counter() - t, peak0=peak0,
+                peak=torch.cuda.max_memory_allocated(),
+                counts={k: v - before[k]
+                        for k, v in ops.launch_counts().items()}))
+            return out
+
+        mon.evaluate = measured
+        eng.drift = mon
+        eng.set_trace(eng.trace)  # binds the monitor to registry and trace
+        return eng
+
+    unwrapped = ck.chunk_attention
+
+    def by_rows(q, *args, **kw):  # kernel 1's chunk and observation passes
+        key = "chunk" if q.shape[1] == 256 else "obs"
+        passes[key] = passes.get(key, 0) + 1
+        return unwrapped(q, *args, **kw)
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        files = {"trace": f"{d}/trace.json", "metrics": f"{d}/metrics.json",
+                 "prom": f"{d}/metrics.prom"}
+        flags = ["--trace-out", files["trace"], "--metrics-json",
+                 files["metrics"], "--prom-snapshot", files["prom"]]
+        try:
+            for label, capture, extra in (("untraced", untraced, []),
+                                          ("traced", with_drift, flags)):
+                serve.build_engine, ck.chunk_attention = capture, by_rows
+                passes.clear()
+                ops.reset_launch_counts()
+                res = serve.run(COMMON + PAGED + extra)
+                torch.cuda.synchronize()
+                runs[label] = (res, ops.launch_counts(), dict(passes))
+                if label == "untraced":
+                    del res  # free its weights before the traced run
+                    runs["untraced"][0]["engine"] = None
+                    torch.cuda.empty_cache()
+        finally:
+            serve.build_engine, ck.chunk_attention = build, unwrapped
+        res, counts_t, passes_t = runs["traced"]
+        eng, cfg, done = res["engine"], res["cfg"], res["done"]
+        m, tr, L = eng.metrics, eng.trace, res["cfg"].num_layers
+        with open(files["metrics"]) as f:
+            snap_file = json.load(f)
+        with open(files["trace"]) as f:
+            chrome = json.load(f)
+        with open(files["prom"]) as f:
+            prom = f.read().splitlines()
+    res_u, counts_u, passes_u = runs["untraced"]
+    toks_u = {r.uid: r.out_tokens for r in res_u["done"]}
+    toks_t = {r.uid: r.out_tokens for r in done}
+    print(f"  tokens traced = untraced: {toks_t == toks_u}; first tokens "
+          f"{[toks_t[u][:4] for u in sorted(toks_t)]}")
+    check(toks_t == toks_u and len(toks_t) == 4, "3z: tracing changed "
+          "tokens")
+
+    # the trace and the files
+    summary = obs.validate_trace(tr)
+    bad = []
+    for r in done:
+        n = -(-len(r.prompt) // 256)
+        want = ([("B", "request")] + [("B", "prefill_chunk"),
+                                      ("E", "prefill_chunk")] * n
+                + [("B", "finalize"), ("E", "finalize"), ("i", "first_token"),
+                   ("B", "decode"), ("E", "decode"), ("i", "retire"),
+                   ("E", "request")])
+        got = [(e["ph"], e["name"]) for e in tr.events
+               if e["tid"] == f"req:{r.uid}"]
+        if got != want:
+            bad.append(r.uid)
+    print(f"  trace: {summary}; every request's spans in JAX's order: "
+          f"{not bad}; Chrome file sync_timers "
+          f"{chrome['otherData']['sync_timers']}, "
+          f"{len(chrome['traceEvents'])} events")
+    check(not bad, f"3z: requests {bad} have spans out of JAX's order")
+    check(chrome["otherData"]["sync_timers"] is True and
+          len(chrome["traceEvents"]) > len(tr.events),
+          "3z: the Chrome trace file is not the synced trace")
+    samples = [line for line in prom if not line.startswith("# ")]
+    unparsed = [line for line in samples if not PROM_SAMPLE.match(line)]
+    for line in samples:
+        if PROM_SAMPLE.match(line):
+            try:
+                float(PROM_SAMPLE.match(line).group(3))
+            except ValueError:
+                unparsed.append(line)
+    print(f"  Prometheus text: {len(samples)} samples, {len(unparsed)} "
+          f"that do not parse; JSON snapshot = metrics.snapshot(): "
+          f"{snap_file == m.snapshot()}")
+    check(samples and not unparsed, f"3z: Prometheus lines {unparsed[:3]}")
+    check(snap_file == m.snapshot(), "3z: the JSON snapshot differs from "
+          "metrics.snapshot()")
+
+    # the serve's launches, and the registry's counters against them
+    ev = evals[0] if len(evals) == 1 else None
+    check(ev is not None, f"3z: {len(evals)} drift evaluations, expected 1")
+    serve_t = {k: v - ev["counts"][k] for k, v in counts_t.items()}
+    v = m.value
+    finalizes = int(v("serving_requests_retired_total")
+                    + v("serving_admission_blocked_total")
+                    + v("serving_preemptions_total"))
+    chunks, steps = (int(v("serving_prefill_chunks_total")),
+                     int(v("serving_decode_steps_total")))
+    ident = {"kernel 1 chunk passes = prefill chunks x L":
+                 (passes_t.get("chunk", 0), chunks * L),
+             "kernel 1 observation passes = finalizes x L":
+                 (passes_t.get("obs", 0), finalizes * L),
+             "kernel 1 = (prefill chunks + finalizes) x L":
+                 (serve_t["chunk_attention"], (chunks + finalizes) * L),
+             "kernel 3 outside drift = finalizes x L":
+                 (serve_t["lookahead_score"], finalizes * L),
+             "kernel 4 = decode steps x L":
+                 (serve_t["paged_decode_attention"], steps * L),
+             "kernel 7 outside drift = 0": (serve_t["flash_attention"], 0)}
+    for what, (got, want) in ident.items():
+        print(f"  {what}: {got} = {want}: {got == want}")
+    check(all(a == b for a, b in ident.values()), "3z: a counter does not "
+          "match the launches")
+    print(f"  untraced launches {counts_u}; traced serve's {serve_t}: "
+          f"{serve_t == counts_u}; kernel 1 passes {passes_u} / {passes_t}")
+    check(serve_t == counts_u and passes_t == passes_u, "3z: tracing "
+          "changed the serve's launches")
+    check_exact_launches("paged continuous observed", serve_t)
+
+    # timers against spans
+    def span_s(name):
+        return sum(node["dur_us"] for r in done
+                   for tree in obs.request_span_trees(tr, r.uid)
+                   for node in _walk(tree) if node["name"] == name) / 1e6
+
+    pf_span = span_s("prefill_chunk")
+    pf_s = float(v("serving_prefill_seconds_total"))
+    dec_span = sum(e2["ts"] - e1["ts"] for e1, e2 in zip(
+        [e for e in tr.events if e["name"] == "decode_chunk"
+         and e["ph"] == "B"],
+        [e for e in tr.events if e["name"] == "decode_chunk"
+         and e["ph"] == "E"])) / 1e6
+    dec_s = float(v("serving_decode_seconds_total"))
+    print(f"  prefill_chunk spans {pf_span:.4f} s, "
+          f"serving_prefill_seconds_total {pf_s:.4f} s "
+          f"({pf_span / pf_s - 1:+.3%}; limit 1%); decode_chunk spans "
+          f"{dec_span:.4f} s, serving_decode_seconds_total {dec_s:.4f} s "
+          f"({dec_span / dec_s - 1:+.3%})")
+    check(abs(pf_span - pf_s) <= 0.01 * pf_s, "3z: prefill spans and timer "
+          "disagree")
+
+    # the drift evaluation
+    mon = eng.drift
+    gauge = v("lookahead_drift_overlap")
+    print(f"  drift evaluation: {len(mon._ring)} records of prompts "
+          f"{[len(x) for x, _ in mon._ring]} + {DRIFT['max_obs']} tokens; "
+          f"{ev['s'] * 1e3:.1f} ms (host clock, synchronised); peak "
+          f"{ev['peak'] / 2**30:.2f} GiB (the serve's before it "
+          f"{ev['peak0'] / 2**30:.2f} GiB); overlap {gauge:.4f}; evals "
+          f"{v('lookahead_drift_evals')}")
+    check_exact_launches("drift evaluation", ev["counts"])
+    check(v("lookahead_drift_evals") == 1 and 0.0 <= gauge <= 1.0
+          and len(mon._ring) == 4, "3z: the drift gauges are off")
+    x, y = min(mon._ring, key=lambda rec: len(rec[0]))
+    with torch.no_grad():
+        got = [torch.from_numpy(mon.gt_head_scores(x, y)),
+               torch.from_numpy(mon.pred_head_scores(x))]
+        with ops.reference_mode():
+            plain = [torch.from_numpy(mon.gt_head_scores(x, y)),
+                     torch.from_numpy(mon.pred_head_scores(x))]
+    for what, p, q in zip(("oracle", "predictor"), plain, got):
+        kl, dp0, dp = score_gaps(torch, mods, p, q)
+        print(f"  {what} scores of the {len(x)}-token record, kernels "
+              f"against plain: KL max {kl:.2e} (<= {GT_KL}), layer 0 max "
+              f"|dp| {dp0:.2e} of the row max (<= {GT_DP0:.2e}), later "
+              f"layers {dp:.2e} (<= {GT_DP:.2e})")
+        check(kl <= GT_KL and dp0 <= GT_DP0 and dp <= GT_DP, f"3z: the "
+              f"{what} pass on kernels is out of tolerance of its plain "
+              "version")
+    over = mods["obs"].kept_overlaps
+    print(f"  that record's overlap: kernels "
+          f"{np.mean(over(got[1].numpy(), got[0].numpy(), 256)):.4f}, "
+          f"plain {np.mean(over(plain[1].numpy(), plain[0].numpy(), 256)):.4f}")
+    wall_t = res["wall_s"] - ev["s"]
+    print(f"  wall (host clock, a sighting): untraced "
+          f"{res_u['wall_s']:.3f} s, traced {res['wall_s']:.3f} s, of which "
+          f"the drift evaluation {ev['s']:.3f} s: traced serve "
+          f"{wall_t:.3f} s ({wall_t / res_u['wall_s'] - 1:+.1%})")
+    return serve_t, ev["counts"]
+
+
+def _walk(node):
+    yield node
+    for c in node["children"]:
+        yield from _walk(c)
 
 
 def phase_speckv(torch, mods, res) -> tuple:
@@ -4246,7 +4539,7 @@ def phase_gt_plain(torch, mods, params, cfg, records) -> None:
     ``GT_DP0``, ``GT_DP``)."""
     import numpy as np
 
-    obj, ops, sc = mods["objective"], mods["ops"], mods["scoring"]
+    obj, ops = mods["objective"], mods["ops"]
     L = cfg.num_layers
     worst = {"kl": 0.0, "dp0": 0.0, "dp": 0.0}
     for r in records[:2]:
@@ -4268,19 +4561,14 @@ def phase_gt_plain(torch, mods, params, cfg, records) -> None:
         check(counts["flash_attention"] == L and
               counts["lookahead_score"] == L,
               f"5e: kernel pass launches {counts}")
-        p, q = sc.normalize_l1(p[:, 0]), sc.normalize_l1(q[:, 0])  # (L, H, n)
-        kl = obj.kl_divergence(p, q)  # (L, H)
-        dp = (p - q).abs().amax(-1) / p.amax(-1)
-        worst["kl"] = max(worst["kl"], float(kl.max()))
-        worst["dp0"] = max(worst["dp0"], float(dp[0].max()))
-        worst["dp"] = max(worst["dp"], float(dp[1:].max()))
-        li = int(kl.amax(-1).argmax())
+        kl, dp0, dp = score_gaps(torch, mods, p[:, 0], q[:, 0])  # (L, H, n)
+        worst["kl"] = max(worst["kl"], kl)
+        worst["dp0"] = max(worst["dp0"], dp0)
+        worst["dp"] = max(worst["dp"], dp)
         print(f"  record of {n} + {len(r['y'])} tokens: GT pass on kernels "
               f"{(t1 - t0) * 1e3:.1f} ms, plain {(t2 - t1) * 1e3:.1f} ms; "
-              f"KL max {float(kl.max()):.2e} (layer {li}), max |dp| / row "
-              f"max: layer 0 {float(dp[0].max()):.2e}, later layers "
-              f"{float(dp[1:].max()):.2e} (layer "
-              f"{int(dp[1:].amax(-1).argmax()) + 1})")
+              f"KL max {kl:.2e}, max |dp| / row max: layer 0 {dp0:.2e}, "
+              f"later layers {dp:.2e}")
     print(f"  worst over both records: KL {worst['kl']:.2e} (<= {GT_KL}), "
           f"layer 0 max |dp| {worst['dp0']:.2e} of the row max (<= "
           f"{GT_DP0:.2e}), later layers {worst['dp']:.2e} (<= {GT_DP:.2e})")
@@ -4514,6 +4802,7 @@ def load_modules(torch) -> dict:
     from repro_torch.launch import serve, steps, train
     from repro_torch.models import moe, rope
     from repro_torch.models import transformer as tf
+    from repro_torch import obs
     from repro_torch.optim import adam
     from repro_torch.serving import engine
 
@@ -4526,7 +4815,8 @@ def load_modules(torch) -> dict:
                 build=build, ref=ref, ck=ck, lk=lk, pk=pk, fk=fk, dk=dk,
                 sk=sk, serve=serve, tf=tf, ckpt=ckpt, TrainConfig=TrainConfig,
                 objective=objective, harvest=harvest, synthetic=synthetic,
-                steps=steps, train=train, adam=adam, moe=moe, rope=rope)
+                steps=steps, train=train, adam=adam, moe=moe, rope=rope,
+                obs=obs)
 
 
 def phase_build(mods) -> None:
@@ -4807,6 +5097,13 @@ def main() -> None:
                           "lookaheadkv)" for name in names))
         del res  # free this route's weights before the next one's
         torch.cuda.empty_cache()
+    header("phase 3z: serve llama3-8b at full width, paged continuous "
+           "observed (3a untraced, then traced through the launcher's "
+           "--trace-out, --metrics-json, --prom-snapshot, with a drift "
+           "monitor)")
+    counts["paged continuous observed"], counts["drift evaluation"] = \
+        phase_obs_cell(torch, mods)
+    torch.cuda.empty_cache()
     header("phase 3l: serve llama3-8b at full width, paged continuous "
            "prefix (a 1024-token shared prefix, the cache on, then off)")
     counts["paged continuous prefix"] = phase_prefix_cell(torch, mods)
@@ -4834,6 +5131,9 @@ def main() -> None:
             k["launches"] = whisper[cell]["forms"].get(form, 0)
             check(k["launches"] > 0, f"{k['name']}: never launched in its "
                   "cell")
+            continue
+        if k["name"].endswith(" drift"):  # 3z's drift evaluation
+            k["launches"] = counts["drift evaluation"][k["name"].split()[0]]
             continue
         if k["name"] == "flash_attention masked":  # 3k's padded group
             k["launches"] = counts["masked flash"]

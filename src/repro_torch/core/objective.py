@@ -16,7 +16,8 @@ traces it under ``reference_mode()`` only because ``jax.value_and_grad``
 cannot cross a ``pallas_call``; no gradient is taken through it).  The
 lookahead pass and ``lm_loss`` run under ``ops.reference_mode()``: the
 kernels are forward-only, and these are the passes gradients flow
-through.
+through.  ``predictor_scores`` is the lookahead pass without a gradient,
+on the kernels (the drift monitor's, ``obs/quality.py``).
 """
 
 from __future__ import annotations
@@ -79,6 +80,21 @@ def lookahead_scores(
             params, cfg, x_tokens, lkv_params=lkv_params,
             capture_scores=True, want_logits="none",
             encoder_embeds=encoder_embeds, mrope_positions=mrope_positions)
+    return res.scores
+
+
+def predictor_scores(
+    params: dict,
+    cfg: ModelConfig,
+    lkv_params: dict,
+    x_tokens: torch.Tensor,  # (B, n_in)
+) -> torch.Tensor:
+    """``lookahead_scores`` without a gradient: the same prefill through
+    the device dispatch, kernels 7 and 3 on the card (the serving
+    predictor's scores, which the drift monitor reads)."""
+    with torch.no_grad():
+        res = tf.prefill(params, cfg, x_tokens, lkv_params=lkv_params,
+                         capture_scores=True, want_logits="none")
     return res.scores
 
 

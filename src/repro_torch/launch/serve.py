@@ -55,9 +55,20 @@ package's trainer, ``launch/train.py``):
         --lkv-ckpt experiments/ckpt/train_lkv.npz --budget 256 \
         --requests 4 --n-in 1024 --max-new 8
 
-The flags are those of the JAX launcher; the ones
-whose feature the port does not serve yet raise ``NotImplementedError``
-naming their ROADMAP item.  ``--shared-prefix N`` plants one random
+The flags are those of the JAX launcher; ``--mesh-model``, whose
+feature the port does not serve yet, raises ``NotImplementedError``
+naming its ROADMAP item.  As in the JAX launcher, the chunked continuous
+route always serves traced (a ``TraceRecorder``, so its timers are
+device-synced) and prints the per-request phase table;
+``--metrics-json``, ``--prom-snapshot`` and ``--trace-out`` (``.jsonl``:
+raw events, else Chrome trace-event JSON) write the engine's registry
+and trace there, and print the JAX launcher's note on the other routes:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --continuous --kv-pool-mb 256 --budget 256 --chunk 256 --slots 4 \
+        --prompt-lens 1024,2048,3072,4000 --max-new 32 \
+        --metrics-json m.json --prom-snapshot m.prom --trace-out t.json
+  ``--shared-prefix N`` plants one random
 system prompt of N tokens, rounded down to whole chunks, before every
 ``--continuous`` prompt (drawn before the prompt lengths, as the JAX
 launcher draws it; with ``--prompt-lens``, the port's own flag, the
@@ -97,6 +108,7 @@ from repro_torch.core import policies
 from repro_torch.core.lookahead import (init_lookahead_params,
                                         load_lookahead_params)
 from repro_torch.models import transformer as tf
+from repro_torch.obs import TraceRecorder, phase_table
 from repro_torch.serving import (BucketedEngine, ChunkingConfig,
                                  ContinuousEngine, DecodeEvictionConfig,
                                  KVBlockPool, PrefixCache, Request,
@@ -105,10 +117,26 @@ from repro_torch.serving import (BucketedEngine, ChunkingConfig,
 # flag -> (value meaning "off", ROADMAP item of the feature)
 _UNPORTED = {
     "mesh_model": (1, "a device mesh: ROADMAP A11"),
-    "metrics_json": ("", "metrics: ROADMAP A12"),
-    "prom_snapshot": ("", "metrics: ROADMAP A12"),
-    "trace_out": ("", "tracing: ROADMAP A12"),
 }
+
+
+def _print_phase_table(trace, done) -> None:
+    """Per-request phase-latency breakdown from the span trace: where
+    each request's TTFT went (the JAX launcher's table)."""
+    rows = phase_table(trace, [r.uid for r in done])
+    print(f"{'uid':>4s} {'pfx_skip':>8s} {'prefill_ms':>10s} "
+          f"{'first_tok_ms':>12s} {'decode_ms':>9s} {'sweeps':>6s} "
+          f"{'sweep_ms':>8s} {'replays':>7s} {'outcome':>9s}")
+    for row in rows:
+        if row["outcome"] == "missing":
+            print(f"{row['uid']:4d} {'never admitted':>14s}")
+            continue
+        ft = (f"{row['first_token_ms']:12.1f}"
+              if row["first_token_ms"] is not None else f"{'n/a':>12s}")
+        print(f"{row['uid']:4d} {row['prefix_skip_tokens']:8d} "
+              f"{row['prefill_ms']:10.1f} {ft} {row['decode_ms']:9.1f} "
+              f"{row['sweeps']:6d} {row['sweep_ms']:8.1f} "
+              f"{row['replays']:7d} {row['outcome']:>9s}")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -156,9 +184,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(paged pool)")
     ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--lkv-ckpt", default="")
-    ap.add_argument("--metrics-json", default="")
-    ap.add_argument("--prom-snapshot", default="")
-    ap.add_argument("--trace-out", default="")
+    ap.add_argument("--metrics-json", default="",
+                    help="write the engine's typed-metrics registry as a "
+                         "JSON snapshot to this path after the run "
+                         "(chunked continuous engine)")
+    ap.add_argument("--prom-snapshot", default="",
+                    help="write the registry in Prometheus text exposition "
+                         "format to this path after the run")
+    ap.add_argument("--trace-out", default="",
+                    help="write the per-request span trace here: a .jsonl "
+                         "path gets raw events, anything else Chrome "
+                         "trace-event JSON (open in https://ui.perfetto.dev)")
     args = ap.parse_args(argv)
     for name, (off, what) in _UNPORTED.items():
         if getattr(args, name) != off:
@@ -182,7 +218,8 @@ def build_engine(args, cfg, params, lkv):
     take ``--decode-evict``); with it, ``BucketedEngine`` for the policies
     that cannot stream (``full``, ``laq``, ``speckv``; it takes neither
     ``--kv-pool-mb`` nor ``--decode-evict``), else ``ContinuousEngine``
-    over the paged pool (``--kv-pool-mb``) or over dense slot caches."""
+    over the paged pool (``--kv-pool-mb``) or over dense slot caches,
+    always traced (its ``trace``, a fresh ``TraceRecorder``)."""
     evict = EvictionConfig(budget=args.budget, draft_len=8)
     if not args.continuous:
         return ServingEngine(params, cfg, policy=args.policy, evict=evict,
@@ -211,15 +248,52 @@ def build_engine(args, cfg, params, lkv):
         decode_evict=DecodeEvictionConfig(
             enabled=args.decode_evict, interval=args.decode_evict_interval),
         num_slots=args.slots, max_new_tokens=args.max_new, eos_id=-1,
-        kv_pool=pool, prefix_cache=prefix_cache)
+        kv_pool=pool, prefix_cache=prefix_cache,
+        # span tracing is always on for the chunked engine: it is the
+        # per-request latency attribution this launcher reports
+        trace=TraceRecorder())
     return ContinuousEngine(params, cfg, sc, lkv_params=lkv,
                             device=args.device)
 
 
+def write_artifacts(args, eng) -> None:
+    """``--metrics-json``, ``--prom-snapshot`` and ``--trace-out``: the
+    chunked continuous engine's registry and trace (the deprecated
+    engines predate both: the JAX launcher's notes)."""
+    metrics = getattr(eng, "metrics", None)
+    trace = getattr(eng, "trace", None)
+    if args.metrics_json:
+        if metrics is None:
+            print("note: --metrics-json needs the chunked continuous "
+                  "engine; skipped")
+        else:
+            metrics.to_json(args.metrics_json)
+            print(f"metrics snapshot -> {args.metrics_json}")
+    if args.prom_snapshot:
+        if metrics is None:
+            print("note: --prom-snapshot needs the chunked continuous "
+                  "engine; skipped")
+        else:
+            with open(args.prom_snapshot, "w") as f:
+                f.write(metrics.prometheus_text())
+            print(f"prometheus snapshot -> {args.prom_snapshot}")
+    if args.trace_out:
+        if trace is None:
+            print("note: --trace-out needs the chunked continuous "
+                  "engine; skipped")
+        elif args.trace_out.endswith(".jsonl"):
+            trace.to_jsonl(args.trace_out)
+            print(f"span trace (jsonl) -> {args.trace_out}")
+        else:
+            trace.to_chrome(args.trace_out)
+            print(f"span trace (perfetto) -> {args.trace_out}")
+
+
 def run(argv=None) -> dict:
     """Build the model and engine from the command line, serve the
-    requests and return {"args", "cfg", "engine", "done", "wall_s",
-    "peak_bytes"}."""
+    requests, write the ``--metrics-json`` / ``--prom-snapshot`` /
+    ``--trace-out`` files and return {"args", "cfg", "engine", "done",
+    "wall_s", "peak_bytes"}."""
     args = parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if not cfg.uses_attention:
@@ -286,6 +360,7 @@ def run(argv=None) -> dict:
     if on_card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    write_artifacts(args, eng)
     return {"args": args, "cfg": cfg, "engine": eng, "done": done,
             "wall_s": wall,
             # peak device bytes while serving (weights included)
@@ -310,6 +385,9 @@ def main(argv=None) -> None:
               f"{r.out_tokens[:8]}...")
     if isinstance(eng, ServingEngine):
         return
+    if getattr(eng, "trace", None) is not None:
+        # where each request's latency went, phase by phase
+        _print_phase_table(eng.trace, done)
     c = eng.counts
     print(f"peak concurrency {c['max_concurrency']}; decode "
           f"{c['decode_steps']} steps in {c['decode_s']:.3f}s")

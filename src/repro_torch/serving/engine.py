@@ -69,10 +69,20 @@ policy it takes (not ``gt_oracle``, which needs the response, nor
 go to ``BucketedEngine``).  ``config.lkv_checkpoint`` loads trained
 lookahead modules (``core.lookahead.load_lookahead_params``) and
 ``config.harvest`` (a ``data.harvest.HarvestWriter``) is called with
-every retired request.  Every other setting raises
-``NotImplementedError`` naming the ROADMAP item that brings it.  PyTorch
-runs eagerly, so there is no compile cache; on the card the attention
-kernels run through ``kernels/ops.py``.
+every retired request.  A device mesh raises ``NotImplementedError``
+naming ROADMAP A11.  PyTorch runs eagerly, so there is no compile cache;
+on the card the attention kernels run through ``kernels/ops.py``.
+
+Observability (``repro_torch.obs``), as in the JAX engine: the engine's
+record is one typed ``MetricsRegistry`` (``engine.metrics``: counters and
+histograms reset at each ``run()``, the pool's, prefix cache's and
+scheduler's callback gauges mirror their state); ``config.trace`` (a
+``TraceRecorder``) receives per-request spans and ``config.drift`` (a
+``DriftMonitor``) every retired request.  ``sync_timers`` (traced, or
+``config.sync_timers``) synchronises the device before each chunk's
+timer and span close, so they time the work rather than its launch.
+``counts`` is a read-only view over the registry under the port's
+earlier keys, ``stats`` the JAX engine's deprecated one.
 
 ``BucketedEngine`` (the JAX package's deprecated pad-to-bucket engine)
 admits groups of one prompt-length bucket, prefills each group
@@ -96,6 +106,8 @@ per request from ``Request.eviction_seed`` on every engine.
 from __future__ import annotations
 
 import time
+import warnings
+from collections.abc import Mapping
 from typing import Optional
 
 import numpy as np
@@ -107,6 +119,8 @@ from repro_torch.core.eviction import select_topk
 from repro_torch.core.lookahead import load_lookahead_params
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import transformer as tf
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import request_track
 from repro_torch.serving.batching import (DEFAULT_BUCKETS, _batch_bucket,
                                           _bucket_for, _pad_to_bucket)
 from repro_torch.serving.config import DecodeEvictionConfig, ServingConfig
@@ -322,15 +336,9 @@ def _reject_unported(config: ServingConfig) -> None:
     """Raise for every setting the port does not serve, naming its ROADMAP
     item, instead of serving it differently from the JAX engine."""
     _check_policy(config.policy, streaming=True)
-    unported = [
-        (config.mesh is not None, "a device mesh: ROADMAP A11"),
-        (config.trace is not None or config.drift is not None
-         or config.sync_timers is not None,
-         "metrics and tracing: ROADMAP A12"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if config.mesh is not None:
+        raise NotImplementedError("not ported yet: a device mesh: "
+                                  "ROADMAP A11")
 
 
 class _InflightPrefill:
@@ -352,9 +360,11 @@ class _SlotDecodeMixin:
     1/2/4/... steps over per-slot cursors with an active mask, greedy or
     under ``self.sampling`` with per-slot seeds ``self._seeds_h`` (the
     bucketed engine has neither and decodes greedily).  Expects
-    ``self.params``, ``cfg``, ``eos_id``, ``_chunks``, ``_tok`` (slots, 1)
-    and ``counts``; the engines hook retirement through ``_on_retire`` and
-    ``_release_slot``."""
+    ``self.params``, ``cfg``, ``eos_id``, ``_chunks`` and ``_tok`` (slots,
+    1); each engine records a decode chunk in ``_record_decode`` and hooks
+    retirement through ``_on_retire`` and ``_release_slot``.  The chunked
+    engine's ``trace``, ``_sync_timers``, ``harvest`` and ``drift`` are
+    read with ``getattr`` (the bucketed engine has none of them)."""
 
     #: decode chunk lengths the loop picks from
     _CHUNK_SIZES = (1, 2, 4, 8, 16)
@@ -373,20 +383,28 @@ class _SlotDecodeMixin:
         """``steps`` decode steps of every slot from ``self._tok``
         (inactive slots keep their token and cache); returns (the cache,
         the new tokens (slots, steps) on the host, read once for the
-        chunk) and counts the chunk."""
+        chunk) and records the chunk (a ``decode_chunk`` span on the
+        engine track when traced)."""
         sampling = getattr(self, "sampling", None)
         seeds = None
         if sampling is not None:
             seeds = torch.as_tensor(self._seeds_h.copy(), device=self.device)
+        tr = getattr(self, "trace", None)
+        if tr is not None:
+            tr.begin("decode_chunk", tr.ENGINE, steps=steps,
+                     slots=int(active.sum()))
         t_dec = time.perf_counter()
         self._tok, cache, toks = policies.decode_chunk(
             self.params, self.cfg, self._tok, cache, steps,
             active=torch.as_tensor(np.array(active), device=self.device),
             paged_depth=paged_depth, sampling=sampling, seeds=seeds)
+        if getattr(self, "_sync_timers", False):
+            _sync(self.device)  # the whole chunk ran, not just the tokens
         toks_np = toks.cpu().numpy()  # device sync: the tokens landed
-        self.counts["decode_s"] += time.perf_counter() - t_dec
-        self.counts["decode_chunks"] += 1
-        self.counts["decode_steps"] += steps
+        dt = time.perf_counter() - t_dec
+        if tr is not None:
+            tr.end("decode_chunk", tr.ENGINE)
+        self._record_decode(steps, dt)
         return cache, toks_np
 
     def _collect(self, toks, steps, sched, active, remaining, last_emit, t0):
@@ -407,12 +425,30 @@ class _SlotDecodeMixin:
                 sched.retire(r, now=now)
                 active[slot] = False
                 self._on_retire(slot, r)
+                m = getattr(self, "_m_retired", None)
+                if m is not None:
+                    m.inc()
+                tr = getattr(self, "trace", None)
+                tid = request_track(r.uid)
+                if tr is not None:
+                    tr.end("decode", tid)
                 # gt_oracle harvest: the retired request carries the very
                 # future the oracle policy needs (its generated tokens);
                 # engines without the hook have no ``harvest``
                 h = getattr(self, "harvest", None)
                 if h is not None:
+                    if tr is not None:
+                        tr.begin("harvest", tid)
                     h.on_retire(r)
+                    if tr is not None:
+                        tr.end("harvest", tid)
+                # the drift monitor: same moment, same reason
+                d = getattr(self, "drift", None)
+                if d is not None:
+                    d.on_retire(r)
+                if tr is not None:
+                    tr.instant("retire", tid, tokens=len(r.out_tokens))
+                    tr.end("request", tid, outcome="done")
                 self._release_slot(slot)
 
     def _on_retire(self, slot: int, req: Request) -> None:
@@ -421,6 +457,108 @@ class _SlotDecodeMixin:
     def _release_slot(self, slot: int) -> None:
         """Retirement hook: return what the slot holds (the paged
         engine's blocks); a dense slot has nothing to free."""
+
+
+class _RegistryView(Mapping):
+    """Read-only mapping computed from a ``ContinuousEngine``'s metrics
+    registry at each read; empty before the first ``run()``."""
+
+    __slots__ = ("_eng",)
+
+    def __init__(self, eng: "ContinuousEngine"):
+        self._eng = eng
+
+    def _as_dict(self) -> dict:
+        raise NotImplementedError
+
+    def __getitem__(self, key):
+        return self._as_dict()[key]
+
+    def __iter__(self):
+        return iter(self._as_dict())
+
+    def __len__(self):
+        return len(self._as_dict())
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self._as_dict()!r})"
+
+
+class _CountsView(_RegistryView):
+    """``ContinuousEngine.counts``: the port's per-run counters under
+    their earlier keys, read from the registry.  ``prefix_blocks_reclaimed``
+    (pool blocks taken back from the prefix cache) has no JAX metric and
+    is the engine's own tally; ``prefix`` (the scheduler's
+    ``prefix_stats()``) is present when the prefix cache is on."""
+
+    __slots__ = ()
+
+    def _as_dict(self) -> dict:
+        e = self._eng
+        if not e._run_started:
+            return {}
+        v = e.metrics.value
+        d = {"prefill_chunks": int(v("serving_prefill_chunks_total")),
+             "prefill_s": float(v("serving_prefill_seconds_total")),
+             "decode_chunks": int(v("serving_decode_chunks_total")),
+             "decode_steps": int(v("serving_decode_steps_total")),
+             "decode_s": float(v("serving_decode_seconds_total")),
+             "max_concurrency": int(v("serving_max_concurrency")),
+             "preemptions": int(v("serving_preemptions_total")),
+             "decode_evict_sweeps":
+                 int(v("serving_decode_evict_sweeps_total")),
+             "admission_blocked": int(v("serving_admission_blocked_total")),
+             "prefix_hits": int(v("serving_prefix_hits_total")),
+             "prefix_misses": int(v("serving_prefix_misses_total")),
+             "prefix_tokens_skipped":
+                 int(v("serving_prefix_tokens_skipped_total")),
+             "prefix_blocks_reclaimed": e._prefix_blocks_reclaimed}
+        if e.prefix_cache is not None:
+            d["prefix"] = e._last_sched.prefix_stats()
+        return d
+
+
+class _LegacyStatsView(_RegistryView):
+    """``ContinuousEngine.stats``: the JAX engine's deprecated per-run
+    dict (same keys, same conditional presence), computed from the
+    registry; the component dicts (``prefix_cache``, ``prefix``,
+    ``kv_pool``) are read live."""
+
+    __slots__ = ()
+
+    def _as_dict(self) -> dict:
+        e = self._eng
+        if not e._run_started:
+            return {}
+        v = e.metrics.value
+        d = {
+            "prefill_chunks": int(v("serving_prefill_chunks_total")),
+            "decode_chunks": int(v("serving_decode_chunks_total")),
+            "decode_steps": int(v("serving_decode_steps_total")),
+            "decode_time_s": float(v("serving_decode_seconds_total")),
+            "max_prefill_between_decode":
+                int(v("serving_max_prefill_between_decode")),
+            "max_concurrency": int(v("serving_max_concurrency")),
+        }
+        d.update(e._run_info)
+        sched = e._last_sched
+        if e.prefix_cache is not None:
+            d["prefix_hits"] = int(v("serving_prefix_hits_total"))
+            d["prefix_misses"] = int(v("serving_prefix_misses_total"))
+            d["prefix_tokens_skipped"] = \
+                int(v("serving_prefix_tokens_skipped_total"))
+            d["prefix_cache"] = e.prefix_cache.stats()
+            d["prefix"] = sched.prefix_stats()
+        if e.pool is not None:
+            d["preemptions"] = int(v("serving_preemptions_total"))
+            d["admission_blocked"] = \
+                int(v("serving_admission_blocked_total"))
+            if e._score is not None:
+                d["decode_evict_sweeps"] = \
+                    int(v("serving_decode_evict_sweeps_total"))
+            d["kv_pool"] = dict(e.pool.stats(), queued=len(sched._queue),
+                                preemptions=sched.preemptions)
+        return d
 
 
 class ContinuousEngine(_SlotDecodeMixin):
@@ -515,10 +653,26 @@ class ContinuousEngine(_SlotDecodeMixin):
         self._live: Optional[dict] = None
         #: decode-eviction scores on the pool: (L, slots, depth, KV) f32
         self._score: Optional[torch.Tensor] = None
-        #: per-run counters (prefill/decode chunks and steps, seconds,
-        #: preemptions, sweeps, bounced admissions, prefix-cache hits,
-        #: misses, skipped prompt tokens and pool blocks reclaimed from it)
-        self.counts: dict = {}
+        # -- observability (repro_torch.obs) ----------------------------
+        # one typed registry is the engine's record; the components mirror
+        # their state through callback gauges, the tracer (when attached)
+        # receives per-request spans
+        self.metrics = MetricsRegistry()
+        self.drift = config.drift
+        self.trace = None
+        self._sync_timers = False
+        self._run_started = False  # the views: {} before the first run()
+        self._last_sched: Optional[SlotScheduler] = None
+        self._run_info: dict = {}
+        self._uid_seq: dict = {}  # uid -> first admission_seq (replay link)
+        self._serve_seq = 0
+        self._prefix_blocks_reclaimed = 0  # port-only: no JAX metric
+        self._register_metrics()
+        if pool is not None:
+            pool.bind_metrics(self.metrics)
+        if pc is not None:
+            pc.bind_metrics(self.metrics)
+        self.set_trace(config.trace)
         if pool is None:
             return
         if self.decode_evict.enabled:
@@ -550,6 +704,118 @@ class ContinuousEngine(_SlotDecodeMixin):
     def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.array(arr), device=self.device)
 
+    # -- observability ---------------------------------------------------
+    def _register_metrics(self) -> None:
+        m = self.metrics
+        sync_note = (
+            "Host perf_counter timer; whether it measures synced execution "
+            "(the engine blocks on the chunk's output arrays before "
+            "stamping) or async dispatch plus the token sync is recorded "
+            "in serving_build's sync_timers key.")
+        self._m_prefill_chunks = m.counter(
+            "serving_prefill_chunks_total",
+            "Prefill chunk programs dispatched.")
+        self._m_prefill_seconds = m.counter(
+            "serving_prefill_seconds_total",
+            "Wall seconds spent in prefill chunk programs. " + sync_note)
+        self._m_prefill_chunk_hist = m.histogram(
+            "serving_prefill_chunk_seconds",
+            "Per-prefill-chunk wall time distribution. " + sync_note)
+        self._m_decode_chunks = m.counter(
+            "serving_decode_chunks_total",
+            "Slot-batched decode chunk programs dispatched.")
+        self._m_decode_steps = m.counter(
+            "serving_decode_steps_total",
+            "Decode steps advanced (chunk dispatches x chunk length).")
+        self._m_decode_seconds = m.counter(
+            "serving_decode_seconds_total",
+            "Wall seconds spent in decode chunks (the legacy "
+            "stats['decode_time_s']). " + sync_note)
+        self._m_decode_chunk_hist = m.histogram(
+            "serving_decode_chunk_seconds",
+            "Per-decode-chunk wall time distribution. " + sync_note)
+        self._m_ttft = m.histogram(
+            "serving_ttft_seconds",
+            "Time to first token per request, from schedulability to the "
+            "first emitted token (re-admissions keep the original stamp).")
+        self._m_max_prefill_between_decode = m.gauge(
+            "serving_max_prefill_between_decode",
+            "Worst count of prefill chunks run between two decode chunks "
+            "while slots were live — the decode-stall bound the "
+            "token-budget step enforces.")
+        self._m_max_concurrency = m.gauge(
+            "serving_max_concurrency",
+            "High-water mark of concurrently running requests.")
+        self._m_requests = m.counter(
+            "serving_requests_total", "Requests submitted to run().")
+        self._m_retired = m.counter(
+            "serving_requests_retired_total",
+            "Requests retired (finished) across admission and decode.")
+        self._m_prefix_hits = m.counter(
+            "serving_prefix_hits_total",
+            "Admissions resumed from a prefix-cache snapshot.")
+        self._m_prefix_misses = m.counter(
+            "serving_prefix_misses_total",
+            "Admissions that probed the prefix cache and missed.")
+        self._m_prefix_tokens_skipped = m.counter(
+            "serving_prefix_tokens_skipped_total",
+            "Prompt tokens whose prefill (attention and score "
+            "accumulation) was skipped via prefix-cache hits.")
+        self._m_preemptions = m.counter(
+            "serving_preemptions_total",
+            "Running requests preempted to the queue (paged pool dry).")
+        self._m_admission_blocked = m.counter(
+            "serving_admission_blocked_total",
+            "Prefilled admissions bounced back to the queue head because "
+            "the pool could not place their kept rows.")
+        self._m_sweeps = m.counter(
+            "serving_decode_evict_sweeps_total",
+            "Decode-time evict-and-compact sweeps on the paged pool.")
+        self._m_build = m.info(
+            "serving_build",
+            "Engine build facts: score/decode dispatch path, device mesh, "
+            "and whether timers are device-synced (sync_timers).")
+
+    def set_trace(self, trace) -> None:
+        """Attach (or detach, with ``None``) an ``obs.trace.TraceRecorder``.
+
+        Resolves the timer-sync mode: ``config.sync_timers`` when set,
+        else sync exactly when tracing, so untraced serving adds no
+        synchronisation; and hands the recorder to the drift monitor."""
+        self.trace = trace
+        st = self.config.sync_timers
+        self._sync_timers = bool(trace is not None if st is None else st)
+        if trace is not None:
+            trace.sync = self._sync_timers
+        if self.drift is not None:
+            self.drift.bind(metrics=self.metrics, trace=trace)
+
+    @property
+    def counts(self) -> _CountsView:
+        """The per-run counters under the port's earlier keys (prefill and
+        decode chunks, steps and seconds, peak concurrency, preemptions,
+        sweeps, bounced admissions, prefix hits, misses, skipped tokens and
+        reclaimed blocks): a read-only view of ``metrics``."""
+        return _CountsView(self)
+
+    @property
+    def stats(self) -> _LegacyStatsView:
+        """Deprecated: the JAX engine's historical per-run ``stats`` dict,
+        as a read-only view computed from the metrics registry.  Read
+        ``engine.metrics`` (``value()`` / ``snapshot()`` /
+        ``prometheus_text()``) instead."""
+        warnings.warn(
+            "ContinuousEngine.stats is deprecated; read the typed metrics "
+            "registry at engine.metrics (see the README's stats() -> "
+            "registry migration table)", DeprecationWarning, stacklevel=2)
+        return _LegacyStatsView(self)
+
+    def _record_decode(self, steps: int, dt: float) -> None:
+        self._m_decode_chunks.inc()
+        self._m_decode_steps.inc(steps)
+        self._m_decode_seconds.inc(dt)
+        self._m_decode_chunk_hist.observe(dt)
+
     # -- geometry ------------------------------------------------------------
     def _rung(self, need: int) -> int:
         """Smallest chunk * 2^k >= ``need``."""
@@ -574,7 +840,7 @@ class ContinuousEngine(_SlotDecodeMixin):
         if self.pool is not None:
             s = self.pool.stats()
             out["pool"] = s
-            peak = self.counts.get("max_concurrency", 0)
+            peak = int(self.metrics.value("serving_max_concurrency"))
             if peak:
                 # prefix-cache pins are shared, not a request's cost
                 out["evicted"] = max(
@@ -606,13 +872,25 @@ class ContinuousEngine(_SlotDecodeMixin):
             if len(r.prompt) == 0:
                 raise ValueError(f"request {r.uid} has an empty prompt")
             sched.submit(r)
-        self.counts = {"prefill_chunks": 0, "prefill_s": 0.0,
-                       "decode_chunks": 0, "decode_steps": 0,
-                       "decode_s": 0.0, "max_concurrency": 0,
-                       "preemptions": 0, "decode_evict_sweeps": 0,
-                       "admission_blocked": 0, "prefix_hits": 0,
-                       "prefix_misses": 0, "prefix_tokens_skipped": 0,
-                       "prefix_blocks_reclaimed": 0}
+        # a fresh collection epoch per run; callback gauges mirror live
+        # component state and are untouched
+        self.metrics.reset()
+        self._run_started = True
+        self._last_sched = sched
+        self._uid_seq = {}
+        self._prefix_blocks_reclaimed = 0
+        sched.bind_metrics(self.metrics)
+        path = "cuda-kernel" if self.device.type == "cuda" else "torch-plain"
+        self._run_info = {
+            # where the attention and scoring of prefill run: the kernels
+            # on a CUDA device, their plain versions on the CPU
+            "score_path": path,
+            # the decode cache (paged pool or dense slots) and its path
+            "decode_path": f"{'paged' if paged else 'dense'}-{path}",
+            "mesh": None,  # single device (meshes: ROADMAP A11)
+        }
+        self._m_build.set(sync_timers=self._sync_timers, **self._run_info)
+        self._m_requests.inc(len(requests))
         active = np.zeros(self.num_slots, bool)
         remaining = np.zeros(self.num_slots, np.int64)
         last_emit = np.zeros(self.num_slots, np.float64)
@@ -632,12 +910,11 @@ class ContinuousEngine(_SlotDecodeMixin):
             # run has already freed every slot at retirement)
             for s in range(self.num_slots):
                 self._release_slot(s)
-        if self.prefix_cache is not None:
-            self.counts["prefix"] = sched.prefix_stats()
         return sched.finished
 
     def _run_loop(self, sched, active, remaining, last_emit, t0) -> None:
         pf: Optional[_InflightPrefill] = None
+        since_decode = 0
         try:
             while sched.has_work() or pf is not None:
                 now = time.perf_counter() - t0
@@ -655,14 +932,17 @@ class ContinuousEngine(_SlotDecodeMixin):
                     for _ in range(n_chunks):
                         if pf.s < pf.n:  # a full prefix hit has no chunk
                             self._prefill_step(pf)
+                            if active.any():  # only live slots can stall
+                                since_decode += 1
                         if pf.s >= pf.n:
                             self._admit(pf, sched, active, remaining,
                                         last_emit, t0)
                             pf = None
                             break
-                self.counts["max_concurrency"] = max(
-                    self.counts["max_concurrency"], len(sched.running))
+                self._m_max_concurrency.max(len(sched.running))
                 if active.any():
+                    self._m_max_prefill_between_decode.max(since_decode)
+                    since_decode = 0
                     self._decode(sched, active, remaining, last_emit, t0)
                 elif pf is None:
                     now2 = time.perf_counter() - t0
@@ -729,8 +1009,24 @@ class ContinuousEngine(_SlotDecodeMixin):
     def _begin_prefill(self, req: Request) -> _InflightPrefill:
         n = len(req.prompt)
         cap = self._request_context(n)
+        tr = self.trace
+        tid = request_track(req.uid)
+        if tr is not None:
+            # one "request" span per serve attempt; a re-serve (preemption
+            # replay, or an admission bounced off a dry pool) opens a new
+            # span whose replay_of carries the original admission_seq
+            seq = self._serve_seq
+            self._serve_seq += 1
+            args = {"uid": req.uid, "admission_seq": seq, "n_prompt": n}
+            if req.uid in self._uid_seq:
+                args["replay_of"] = self._uid_seq[req.uid]
+            else:
+                self._uid_seq[req.uid] = seq
+            tr.begin("request", tid, **args)
         pc = self.prefix_cache
         if pc is not None:
+            if tr is not None:
+                tr.begin("prefix_probe", tid)
             # only snapshots streamed under this request's rung match: the
             # condition for a bitwise resume
             entry = pc.lookup(req.prompt, capacity=cap)
@@ -744,10 +1040,14 @@ class ContinuousEngine(_SlotDecodeMixin):
                 pf.logits = logits  # the boundary chunk's logits
                 pf.tip = entry
                 req.cached_prefix_tokens = entry.depth
-                self.counts["prefix_hits"] += 1
-                self.counts["prefix_tokens_skipped"] += entry.depth
+                self._m_prefix_hits.inc()
+                self._m_prefix_tokens_skipped.inc(entry.depth)
+                if tr is not None:
+                    tr.end("prefix_probe", tid, hit=True, depth=entry.depth)
                 return pf
-            self.counts["prefix_misses"] += 1
+            self._m_prefix_misses.inc()
+            if tr is not None:
+                tr.end("prefix_probe", tid, hit=False, depth=0)
         state = tf.init_chunk_state(self.cfg, self.policy, 1, cap,
                                     device=self.device)
         return _InflightPrefill(req, state, n)
@@ -756,13 +1056,23 @@ class ContinuousEngine(_SlotDecodeMixin):
         blk = np.zeros((1, self.chunk), np.int32)
         seg = pf.req.prompt[pf.s:pf.s + self.chunk]
         blk[0, :len(seg)] = seg
+        tr = self.trace
+        if tr is not None:
+            tr.begin("prefill_chunk", request_track(pf.req.uid), s=pf.s)
         t_pf = time.perf_counter()
         pf.state, pf.logits = tf.prefill_chunk(
             self.params, self.cfg, pf.state, self._to_dev(blk), pf.n,
             policy=self.policy)
+        if self._sync_timers:
+            # without it the stamp below times the launches only
+            _sync(self.device)
+        dt = time.perf_counter() - t_pf
+        if tr is not None:
+            tr.end("prefill_chunk", request_track(pf.req.uid))
         pf.s += self.chunk
-        self.counts["prefill_chunks"] += 1
-        self.counts["prefill_s"] += time.perf_counter() - t_pf
+        self._m_prefill_chunks.inc()
+        self._m_prefill_seconds.inc(dt)
+        self._m_prefill_chunk_hist.observe(dt)
         # cache the boundary just crossed (whole chunks only: a partial
         # final chunk holds pad rows)
         pc = self.prefix_cache
@@ -777,6 +1087,10 @@ class ContinuousEngine(_SlotDecodeMixin):
 
     def _admit(self, pf, sched, active, remaining, last_emit, t0) -> None:
         r = pf.req
+        tr = self.trace
+        tid = request_track(r.uid)
+        if tr is not None:
+            tr.begin("finalize", tid)
         cache = tf.prefill_finalize(
             self.params, self.cfg, pf.state, pf.n, policy=self.policy,
             evict=self.evict, lkv_params=self.lkv_params,
@@ -790,6 +1104,10 @@ class ContinuousEngine(_SlotDecodeMixin):
             r.admission_cache = {key: val.cpu().numpy()
                                  for key, val in cache["attn"].items()
                                  if key in ("mask", "pos", "score")}
+        if self._sync_timers:
+            _sync(self.device)
+        if tr is not None:
+            tr.end("finalize", tid)
         if self.pool is None:
             slot = sched.place(r)
             tf.insert_request_cache(self._live, cache, slot)
@@ -799,19 +1117,24 @@ class ContinuousEngine(_SlotDecodeMixin):
                 # running slots' appends ate the gate's headroom while this
                 # request prefilled: back to the queue head, re-prefilled
                 # when blocks free (FCFS order and tokens unchanged)
-                self.counts["admission_blocked"] += 1
+                self._m_admission_blocked.inc()
                 sched.push_front(r)
+                if tr is not None:
+                    tr.end("request", tid, outcome="admission_blocked")
                 return
         self._seeds_h[slot] = r.eviction_seed
         first = self._first_token(pf.logits, r.eviction_seed, pf.n)
         self._tok[slot, 0] = first
         r.out_tokens = [first]
+        if tr is not None:
+            tr.instant("first_token", tid, token=first)
         now = time.perf_counter() - t0
         if r.first_token_s is None:
             # a re-admitted (preempted) request keeps its first stamps: the
             # client had its first token then, and the replay is identical
             r.first_token_s = now
             r.ttft_s = now - r.enqueue_s
+            self._m_ttft.observe(r.ttft_s)
         if r.preempt_emit_s is not None:
             # the client-visible stall spans preemption to this re-emit
             r.max_gap_s = max(r.max_gap_s, now - r.preempt_emit_s)
@@ -821,9 +1144,15 @@ class ContinuousEngine(_SlotDecodeMixin):
             sched.retire(r, now=now)
             self._on_retire(slot, r)
             self._release_slot(slot)
+            self._m_retired.inc()
+            if tr is not None:
+                tr.instant("retire", tid, tokens=len(r.out_tokens))
+                tr.end("request", tid, outcome="done")
         else:
             active[slot] = True
             remaining[slot] = r.max_new_tokens - 1
+            if tr is not None:
+                tr.begin("decode", tid)
 
     def _first_token(self, logits: torch.Tensor, seed: int, pos: int) -> int:
         """The admission token: the argmax, or under ``sampling`` a draw
@@ -887,8 +1216,7 @@ class ContinuousEngine(_SlotDecodeMixin):
             return False
         before = self.pool.pinned_blocks
         ok = pc.evict_pool_blocks(need)
-        self.counts["prefix_blocks_reclaimed"] += \
-            before - self.pool.pinned_blocks
+        self._prefix_blocks_reclaimed += before - self.pool.pinned_blocks
         return ok
 
     def _alloc_blocks(self, n: int) -> Optional[np.ndarray]:
@@ -1035,6 +1363,10 @@ class ContinuousEngine(_SlotDecodeMixin):
             if not all(self._grow(slot, jb, sched, active, remaining,
                                   last_emit) for jb in gaps):
                 continue  # this slot was preempted
+            tr = self.trace
+            tid = request_track(sched.running[slot].uid)
+            if tr is not None:
+                tr.begin("paged_sweep", tid)
             self._table_dev = self._to_dev(self._table_h)
             paged_sweep(self.pool.tree(), self._score, self._table_dev, slot,
                         capacity=self.capacity, depth=self._depth,
@@ -1053,7 +1385,11 @@ class ContinuousEngine(_SlotDecodeMixin):
                 self._slot_reserved[slot] += len(freed)
             self._cursor_h[slot] = self.capacity
             self._table_dev = self._to_dev(self._table_h)
-            self.counts["decode_evict_sweeps"] += 1
+            if self._sync_timers:
+                _sync(self.device)
+            if tr is not None:
+                tr.end("paged_sweep", tid, blocks_freed=len(freed))
+            self._m_sweeps.inc()
 
     def _on_retire(self, slot: int, req: Request) -> None:
         """Under ``capture_admission`` on the pool, stash the retiring
@@ -1089,6 +1425,12 @@ class ContinuousEngine(_SlotDecodeMixin):
         tokens, greedy or sampled).  Its
         first-token stamps stay; the stall shows in ``max_gap_s``."""
         r = sched.running[slot]
+        tr = self.trace
+        if tr is not None:
+            tid = request_track(r.uid)
+            tr.instant("preempt", tid, emitted=len(r.out_tokens))
+            tr.end("decode", tid)
+            tr.end("request", tid, outcome="preempted")
         sched.requeue(r)
         r.out_tokens = []  # rebuilt, identical, by the re-serve
         r.preempt_emit_s = last_emit[slot]  # the stall starts here
@@ -1097,7 +1439,7 @@ class ContinuousEngine(_SlotDecodeMixin):
         self._release_slot(slot)
         active[slot] = False
         remaining[slot] = 0
-        self.counts["preemptions"] += 1
+        self._m_preemptions.inc()
 
     def _release_slot(self, slot: int) -> None:
         """Return a retired slot's blocks and unredeemed reservation (a
@@ -1183,8 +1525,14 @@ class BucketedEngine(_SlotDecodeMixin):
         self._tok = torch.zeros((num_slots, 1), dtype=torch.int32,
                                 device=self.device)
         #: per-run counters (prefill groups, decode chunks and steps,
-        #: seconds, peak concurrency)
+        #: seconds, peak concurrency); the JAX package's deprecated
+        #: engines keep a plain dict too, not a registry
         self.counts: dict = {}
+
+    def _record_decode(self, steps: int, dt: float) -> None:
+        self.counts["decode_s"] += dt
+        self.counts["decode_chunks"] += 1
+        self.counts["decode_steps"] += steps
 
     # -- geometry ------------------------------------------------------------
     def _bucket(self, n: int) -> int:

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models.transformer import torch_dtype
+from repro_torch.obs.metrics import bind_stat_gauges
 
 __all__ = ["KVBlockPool"]
 
@@ -253,3 +254,8 @@ class KVBlockPool:
             "metadata_bytes": (self.pos.numel() * 4 + self.mask.numel()),
             "blocks_reclaimed_decode": self.blocks_reclaimed_decode,
         }
+
+    def bind_metrics(self, registry) -> None:
+        """Mirror ``stats()`` as ``kv_pool_*`` callback gauges on the
+        engine's registry (collection-time reads, no hot-path writes)."""
+        bind_stat_gauges(registry, "kv_pool", self.stats)

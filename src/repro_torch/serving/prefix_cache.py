@@ -42,7 +42,6 @@ reclaims unpinned entries when live requests need the blocks.
 The port of the JAX package's ``serving/prefix_cache.py``.  PyTorch runs
 eagerly, so ``materialize`` has no compiled programs to cache (the JAX
 package's ``_mat_fns``): ``stats()["materialize_programs"]`` stays 0.
-The metrics binding (``bind_metrics``) is ROADMAP A12's.
 """
 
 from __future__ import annotations
@@ -54,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer as tf
+from repro_torch.obs.metrics import bind_stat_gauges
 
 __all__ = ["PrefixCache", "PrefixEntry"]
 
@@ -437,3 +437,8 @@ class PrefixCache:
             "evictions": self.evictions,
             "tokens_hit": self.tokens_hit,
         }
+
+    def bind_metrics(self, registry) -> None:
+        """Mirror ``stats()`` as ``prefix_cache_*`` callback gauges on the
+        engine's registry (collection-time reads, no hot-path writes)."""
+        bind_stat_gauges(registry, "prefix_cache", self.stats)

@@ -244,6 +244,29 @@ class SlotScheduler:
             "cached_token_frac": cached / total if total else 0.0,
         }
 
+    def bind_metrics(self, registry) -> None:
+        """Mirror scheduler occupancy as ``scheduler_*`` callback gauges.
+        The engine builds a fresh scheduler per ``run()`` and re-binds it;
+        ``set_fn`` re-binding hands the series to the new instance."""
+        registry.gauge(
+            "scheduler_queue_depth",
+            "Arrived requests awaiting admission (FCFS queue)."
+        ).set_fn(lambda: len(self._queue))
+        registry.gauge(
+            "scheduler_pending",
+            "Submitted requests whose arrival offset is in the future."
+        ).set_fn(lambda: len(self._pending))
+        registry.gauge(
+            "scheduler_running",
+            "Requests currently occupying a decode slot."
+        ).set_fn(lambda: len(self.running))
+        registry.gauge(
+            "scheduler_free_slots", "Decode slots with no request placed."
+        ).set_fn(lambda: len(self._free))
+        registry.gauge(
+            "scheduler_finished", "Requests retired so far this run."
+        ).set_fn(lambda: len(self.finished))
+
     def retire(self, req: Request, *, now: float) -> int:
         """Free the request's slot; returns it for the engine to reuse."""
         slot = req.slot

@@ -1119,3 +1119,74 @@ def test_prefix_cache_round_trip_on_the_card(dev, pooled):
     assert got.score.cnt == state.score.cnt == 64
     if pooled:
         assert pool.pinned_blocks == 4
+
+
+def test_traced_engine_syncs_and_drift_runs_kernels(dev, monkeypatch):
+    """Observability on the card: a traced ``ContinuousEngine`` serves the
+    untraced tokens, synchronises its device once per prefill chunk,
+    finalize and decode chunk (an untraced one never), and records
+    ``sync_timers`` and the kernel paths in ``serving_build``; the drift
+    monitor's oracle and predictor passes each launch kernels 7 and 3
+    once per layer and nothing else."""
+    import dataclasses
+
+    from repro_torch.common.config import EvictionConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.lookahead import init_lookahead_params
+    from repro_torch.models import transformer as tf
+    from repro_torch.obs import DriftMonitor, TraceRecorder, validate_trace
+    from repro_torch.serving import (ChunkingConfig, ContinuousEngine,
+                                     KVBlockPool, Request, ServingConfig)
+    from repro_torch.serving import engine as engine_mod
+
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"), dtype="bfloat16")
+    params = tf.init_params(cfg, seed=0, device=dev)
+    lkv = init_lookahead_params(torch.Generator(device=dev).manual_seed(1),
+                                cfg, params["layers"])
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (70, 45)]
+    syncs = [0]
+    real_sync = engine_mod._sync
+
+    def counting(device):
+        syncs[0] += 1
+        real_sync(device)
+
+    monkeypatch.setattr(engine_mod, "_sync", counting)
+
+    def serve(trace):
+        sc = ServingConfig(
+            evict=EvictionConfig(budget=16),
+            chunking=ChunkingConfig(chunk=32, max_context=96),
+            num_slots=2, max_new_tokens=6, eos_id=-1, trace=trace,
+            kv_pool=KVBlockPool(cfg, block_size=16, num_blocks=32,
+                                device=dev))
+        eng = ContinuousEngine(params, cfg, sc, lkv_params=lkv, device=dev)
+        syncs[0] = 0
+        done = eng.run([Request(uid=i, prompt=p, max_new_tokens=6)
+                        for i, p in enumerate(prompts)])
+        return {r.uid: r.out_tokens for r in done}, eng, syncs[0]
+
+    plain, eng0, n0 = serve(None)
+    got, eng, n = serve(TraceRecorder())
+    assert got == plain and n0 == 0
+    c = eng.counts
+    assert n == c["prefill_chunks"] + len(prompts) + c["decode_chunks"]
+    assert eng.metrics.value("serving_build") == {
+        "sync_timers": "True", "score_path": "cuda-kernel",
+        "decode_path": "paged-cuda-kernel", "mesh": "None"}
+    assert eng0.metrics.value("serving_build")["sync_timers"] == "False"
+    validate_trace(eng.trace)
+    mon = DriftMonitor(params, cfg, lkv, budget=16)
+    x, y = prompts[0], np.asarray(plain[0], np.int32)
+    L = cfg.num_layers
+    for fn in (lambda: mon.gt_head_scores(x, y),
+               lambda: mon.pred_head_scores(x)):
+        ops.reset_launch_counts()
+        s = fn()
+        want = {k: 0 for k in ops.launch_counts()}
+        want.update(flash_attention=L, lookahead_score=L)
+        assert ops.launch_counts() == want
+        assert s.shape == (L, cfg.attn.num_heads, len(x))
+        assert np.isfinite(s).all()

@@ -38,6 +38,7 @@ from repro_torch.core.lookahead import init_lookahead_params
 from repro_torch.data.harvest import HarvestConfig, HarvestWriter, load_records
 from repro_torch.launch import serve
 from repro_torch.models import transformer as ttf
+from repro_torch.obs import TraceRecorder, request_span_trees, validate_trace
 from repro_torch.serving import (ChunkingConfig, ContinuousEngine,
                                  KVBlockPool, PrefixCache, Request, Sampling,
                                  ServingConfig)
@@ -216,7 +217,8 @@ def test_engine_matches_jax_paged_engine():
     (dict(sampling=Sampling(temperature=0.7, top_k=50, top_p=0.9)), None,
      "A8"),
     (dict(mesh=object()), NotImplementedError, "A11"),
-    (dict(trace=object()), NotImplementedError, "A12"),
+    # metrics and tracing (A12) are served too
+    (dict(trace="recorder"), None, "A12"),
 ], ids=[  # the ids of the former refusal table, kept
     "change0-ValueError-cannot stream; use BucketedEngine",
     "change1-ValueError-cannot stream; use BucketedEngine",
@@ -224,9 +226,11 @@ def test_engine_matches_jax_paged_engine():
     "change4-NotImplementedError-A11", "change5-NotImplementedError-A12"])
 def test_engine_refuses_unported_settings(change, exc, item):
     """The settings still unported raise naming their ROADMAP item; the
-    prefix cache and sampling serve: on a smoke model with a shared
-    16-token prefix, the cache hits and changes no token, and sampled
-    tokens replay across runs and differ from the greedy ones."""
+    prefix cache, sampling and tracing serve: on a smoke model with a
+    shared 16-token prefix, the cache hits and changes no token, sampled
+    tokens replay across runs and differ from the greedy ones, and a
+    traced run (synced timers) gives the untraced tokens and a valid
+    trace with one closed request span per request."""
     cfg = _cfg()
     if exc is not None:
         sc = ServingConfig(kv_pool=KVBlockPool(cfg, num_blocks=64,
@@ -246,6 +250,8 @@ def test_engine_refuses_unported_settings(change, exc, item):
         if config.get("prefix_cache") == "pool":
             config["prefix_cache"] = PrefixCache(chunk=16, max_bytes=1 << 30,
                                                  pool=pool)
+        if config.get("trace") == "recorder":
+            config["trace"] = TraceRecorder()
         sc = ServingConfig(evict=EvictionConfig(budget=16),
                            chunking=ChunkingConfig(chunk=16, max_context=80),
                            num_slots=2, max_new_tokens=5, eos_id=-1,
@@ -261,6 +267,15 @@ def test_engine_refuses_unported_settings(change, exc, item):
         assert got == plain
         assert eng.counts["prefix_hits"] == 2
         assert eng.counts["prefix_tokens_skipped"] == 32
+    elif item == "A12":
+        assert got == plain
+        assert eng._sync_timers and eng.trace.sync
+        assert validate_trace(eng.trace)["tracks"] == len(reqs) + 1
+        assert [t["end_args"]["outcome"] for uid in got
+                for t in request_span_trees(eng.trace, uid)] == \
+            ["done"] * len(reqs)
+        assert eng.metrics.value("serving_requests_retired_total") == \
+            len(reqs)
     else:
         assert got == serve(**change)[0] != plain
         assert all(len(t) == 5 for t in got.values())
