@@ -3395,10 +3395,10 @@ def phase_obs_cell(torch, mods) -> tuple:
     """3z: 3a's route and traffic through the launcher, untraced
     (``set_trace(None)``: no timer syncs), then traced with --trace-out,
     --metrics-json and --prom-snapshot and a ``DriftMonitor(**DRIFT)``
-    attached through the captured ``serve.build_engine``; the launch
-    counts set to 0 before and read after each run, the drift
-    evaluation's read around it.  Returns (the traced serve's launches,
-    the drift evaluation's)."""
+    attached through the captured ``serve.build_engine``, then untraced
+    again (the host-clock sighting in turns); the launch counts set to 0
+    before and read after each run, the drift evaluation's read around
+    it.  Returns (the traced serve's launches, the drift evaluation's)."""
     import tempfile
 
     import numpy as np
@@ -3406,23 +3406,14 @@ def phase_obs_cell(torch, mods) -> tuple:
     serve, ops, obs, ck = (mods[n] for n in ("serve", "ops", "obs", "ck"))
     build, evals, passes = serve.build_engine, [], {}
 
-    def untraced(*args, **kw):
-        eng = build(*args, **kw)
-        eng.set_trace(None)
-        return eng
-
-    def with_drift(args, cfg, params, lkv):
-        eng = build(args, cfg, params, lkv)
-        mon = obs.DriftMonitor(params, cfg, lkv, **DRIFT)
-        real = mon.evaluate
-
-        def measured():  # the evaluation's launches, wall and peak
+    class MeasuredDrift(obs.DriftMonitor):
+        def evaluate(self):  # the evaluation's launches, wall and peak
             torch.cuda.synchronize()
             before = ops.launch_counts()
             peak0 = torch.cuda.max_memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
-            out = real()
+            out = super().evaluate()
             torch.cuda.synchronize()
             evals.append(dict(
                 s=time.perf_counter() - t, peak0=peak0,
@@ -3431,8 +3422,14 @@ def phase_obs_cell(torch, mods) -> tuple:
                         for k, v in ops.launch_counts().items()}))
             return out
 
-        mon.evaluate = measured
-        eng.drift = mon
+    def untraced(*args, **kw):
+        eng = build(*args, **kw)
+        eng.set_trace(None)
+        return eng
+
+    def with_drift(args, cfg, params, lkv):
+        eng = build(args, cfg, params, lkv)
+        eng.drift = MeasuredDrift(params, cfg, lkv, **DRIFT)
         eng.set_trace(eng.trace)  # binds the monitor to registry and trace
         return eng
 
@@ -3451,20 +3448,30 @@ def phase_obs_cell(torch, mods) -> tuple:
                  files["metrics"], "--prom-snapshot", files["prom"]]
         try:
             for label, capture, extra in (("untraced", untraced, []),
-                                          ("traced", with_drift, flags)):
+                                          ("traced", with_drift, flags),
+                                          ("untraced again", untraced, [])):
                 serve.build_engine, ck.chunk_attention = capture, by_rows
                 passes.clear()
                 ops.reset_launch_counts()
                 res = serve.run(COMMON + PAGED + extra)
                 torch.cuda.synchronize()
-                runs[label] = (res, ops.launch_counts(), dict(passes))
-                if label == "untraced":
-                    del res  # free its weights before the traced run
-                    runs["untraced"][0]["engine"] = None
+                # the registry as the launcher wrote it (a point read below
+                # creates the series it reads, as in JAX)
+                snap = res["engine"].metrics.snapshot()
+                c = dict(res["engine"].counts)  # holds no engine
+                runs[label] = (res, ops.launch_counts(), dict(passes), snap)
+                print(f"  {label}: wall {res['wall_s']:.3f} s; prefill "
+                      f"{c['prefill_s']:.3f} s, decode {c['decode_s']:.3f} s "
+                      f"(host clock{', synced' if label == 'traced' else ''}"
+                      f"); TTFT " + " / ".join(
+                          f"{r.ttft_s * 1e3:.0f}" for r in
+                          sorted(res["done"], key=lambda r: r.uid)) + " ms")
+                if label != "traced":
+                    res["engine"] = None  # free its weights
                     torch.cuda.empty_cache()
         finally:
             serve.build_engine, ck.chunk_attention = build, unwrapped
-        res, counts_t, passes_t = runs["traced"]
+        res, counts_t, passes_t, snap_t = runs["traced"]
         eng, cfg, done = res["engine"], res["cfg"], res["done"]
         m, tr, L = eng.metrics, eng.trace, res["cfg"].num_layers
         with open(files["metrics"]) as f:
@@ -3473,13 +3480,16 @@ def phase_obs_cell(torch, mods) -> tuple:
             chrome = json.load(f)
         with open(files["prom"]) as f:
             prom = f.read().splitlines()
-    res_u, counts_u, passes_u = runs["untraced"]
-    toks_u = {r.uid: r.out_tokens for r in res_u["done"]}
+    res_u, counts_u, passes_u, _ = runs["untraced"]
+    res_u2, counts_u2, _, _ = runs["untraced again"]
+    toks_u, toks_u2 = ({r.uid: r.out_tokens for r in rs["done"]}
+                       for rs in (res_u, res_u2))
     toks_t = {r.uid: r.out_tokens for r in done}
-    print(f"  tokens traced = untraced: {toks_t == toks_u}; first tokens "
+    print(f"  tokens traced = untraced (both runs): "
+          f"{toks_t == toks_u == toks_u2}; first tokens "
           f"{[toks_t[u][:4] for u in sorted(toks_t)]}")
-    check(toks_t == toks_u and len(toks_t) == 4, "3z: tracing changed "
-          "tokens")
+    check(toks_t == toks_u == toks_u2 and len(toks_t) == 4, "3z: tracing "
+          "changed tokens")
 
     # the trace and the files
     summary = obs.validate_trace(tr)
@@ -3513,9 +3523,9 @@ def phase_obs_cell(torch, mods) -> tuple:
                 unparsed.append(line)
     print(f"  Prometheus text: {len(samples)} samples, {len(unparsed)} "
           f"that do not parse; JSON snapshot = metrics.snapshot(): "
-          f"{snap_file == m.snapshot()}")
+          f"{snap_file == snap_t}")
     check(samples and not unparsed, f"3z: Prometheus lines {unparsed[:3]}")
-    check(snap_file == m.snapshot(), "3z: the JSON snapshot differs from "
+    check(snap_file == snap_t, "3z: the JSON snapshot differs from "
           "metrics.snapshot()")
 
     # the serve's launches, and the registry's counters against them
@@ -3544,24 +3554,16 @@ def phase_obs_cell(torch, mods) -> tuple:
     check(all(a == b for a, b in ident.values()), "3z: a counter does not "
           "match the launches")
     print(f"  untraced launches {counts_u}; traced serve's {serve_t}: "
-          f"{serve_t == counts_u}; kernel 1 passes {passes_u} / {passes_t}")
-    check(serve_t == counts_u and passes_t == passes_u, "3z: tracing "
-          "changed the serve's launches")
+          f"{serve_t == counts_u == counts_u2}; kernel 1 passes {passes_u} "
+          f"/ {passes_t}")
+    check(serve_t == counts_u == counts_u2 and passes_t == passes_u,
+          "3z: tracing changed the serve's launches")
     check_exact_launches("paged continuous observed", serve_t)
 
     # timers against spans
-    def span_s(name):
-        return sum(node["dur_us"] for r in done
-                   for tree in obs.request_span_trees(tr, r.uid)
-                   for node in _walk(tree) if node["name"] == name) / 1e6
-
-    pf_span = span_s("prefill_chunk")
+    pf_span = span_seconds(tr.events, "prefill_chunk")
     pf_s = float(v("serving_prefill_seconds_total"))
-    dec_span = sum(e2["ts"] - e1["ts"] for e1, e2 in zip(
-        [e for e in tr.events if e["name"] == "decode_chunk"
-         and e["ph"] == "B"],
-        [e for e in tr.events if e["name"] == "decode_chunk"
-         and e["ph"] == "E"])) / 1e6
+    dec_span = span_seconds(tr.events, "decode_chunk")
     dec_s = float(v("serving_decode_seconds_total"))
     print(f"  prefill_chunk spans {pf_span:.4f} s, "
           f"serving_prefill_seconds_total {pf_s:.4f} s "
@@ -3604,17 +3606,25 @@ def phase_obs_cell(torch, mods) -> tuple:
           f"{np.mean(over(got[1].numpy(), got[0].numpy(), 256)):.4f}, "
           f"plain {np.mean(over(plain[1].numpy(), plain[0].numpy(), 256)):.4f}")
     wall_t = res["wall_s"] - ev["s"]
+    wall_u = (res_u["wall_s"] + res_u2["wall_s"]) / 2
     print(f"  wall (host clock, a sighting): untraced "
-          f"{res_u['wall_s']:.3f} s, traced {res['wall_s']:.3f} s, of which "
-          f"the drift evaluation {ev['s']:.3f} s: traced serve "
-          f"{wall_t:.3f} s ({wall_t / res_u['wall_s'] - 1:+.1%})")
+          f"{res_u['wall_s']:.3f} s and {res_u2['wall_s']:.3f} s, traced "
+          f"{res['wall_s']:.3f} s, of which the drift evaluation "
+          f"{ev['s']:.3f} s: traced serve {wall_t:.3f} s "
+          f"({wall_t / wall_u - 1:+.1%} over the untraced mean)")
     return serve_t, ev["counts"]
 
 
-def _walk(node):
-    yield node
-    for c in node["children"]:
-        yield from _walk(c)
+def span_seconds(events, name: str) -> float:
+    """Summed seconds of the ``name`` spans of a trace (one track never
+    nests a span in another of its name)."""
+    began, total = {}, 0.0
+    for e in events:
+        if e["name"] == name and e["ph"] == "B":
+            began[e["tid"]] = e["ts"]
+        elif e["name"] == name and e["ph"] == "E":
+            total += e["ts"] - began.pop(e["tid"])
+    return total / 1e6
 
 
 def phase_speckv(torch, mods, res) -> tuple:

@@ -86,7 +86,10 @@ class DriftMonitor:
         self.last_overlap: Optional[float] = None
         self.evals = 0
         self.samples = 0
-        self._metrics = None
+        # the registry's two counters, not the registry: its gauges call
+        # back into the monitor, and a reference back to the registry
+        # would hold the monitor (and the model) in a reference cycle
+        self._samples_counter = self._evals_counter = None
         self._trace = None
 
     # -- engine wiring -------------------------------------------------------
@@ -95,7 +98,6 @@ class DriftMonitor:
         (a ``drift_eval`` span per evaluation on the engine track)."""
         self._trace = trace
         if metrics is not None:
-            self._metrics = metrics
             g = metrics.gauge(
                 "lookahead_drift_overlap",
                 "Mean per-(layer, head) oracle kept-set overlap of the "
@@ -108,10 +110,10 @@ class DriftMonitor:
                 "lookahead_drift_ring",
                 "Retired requests currently held in the drift ring."
             ).set_fn(lambda: len(self._ring))
-            metrics.counter(
+            self._samples_counter = metrics.counter(
                 "lookahead_drift_samples",
                 "Retired requests sampled into the drift ring.")
-            metrics.counter(
+            self._evals_counter = metrics.counter(
                 "lookahead_drift_evals",
                 "Drift evaluations performed (ring re-scorings).")
 
@@ -138,8 +140,8 @@ class DriftMonitor:
             self._ring_pos = (self._ring_pos + 1) % self.ring_size
         self.samples += 1
         self._sampled_since_eval += 1
-        if self._metrics is not None:
-            self._metrics.counter("lookahead_drift_samples").inc()
+        if self._samples_counter is not None:
+            self._samples_counter.inc()
 
     # -- scoring ---------------------------------------------------------------
     def _tokens(self, seq: np.ndarray) -> torch.Tensor:
@@ -174,8 +176,8 @@ class DriftMonitor:
             ovs.extend(kept_overlaps(pred, gt, self.budget))
         self.last_overlap = float(np.mean(ovs))
         self.evals += 1
-        if self._metrics is not None:
-            self._metrics.counter("lookahead_drift_evals").inc()
+        if self._evals_counter is not None:
+            self._evals_counter.inc()
         if tr is not None:
             tr.end("drift_eval", tr.ENGINE,
                    overlap=self.last_overlap)

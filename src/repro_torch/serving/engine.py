@@ -107,6 +107,7 @@ from __future__ import annotations
 
 import time
 import warnings
+import weakref
 from collections.abc import Mapping
 from typing import Optional
 
@@ -862,9 +863,16 @@ class ContinuousEngine(_SlotDecodeMixin):
         """Serve ``requests`` to completion; returns them in finish order.
         ``arrival_s`` offsets count on the wall clock from the call."""
         paged = self.pool is not None
-        sched = SlotScheduler(
-            self.num_slots,
-            admission_gate=self._admission_gate if paged else None)
+        gate = None
+        if paged:
+            # the scheduler outlives the run (the registry's gauges and the
+            # views read it): a weak reference keeps it from holding the
+            # engine, and its weights, in a reference cycle
+            method = weakref.WeakMethod(self._admission_gate)
+
+            def gate(req: Request) -> bool:
+                return method()(req)
+        sched = SlotScheduler(self.num_slots, admission_gate=gate)
         for r in requests:
             if r.max_new_tokens > self.max_new_tokens:
                 raise ValueError("request exceeds the engine's "

@@ -34,13 +34,16 @@
 """
 
 import dataclasses
+import gc
 import json
 import re
 import warnings
+import weakref
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.common.config import EvictionConfig as JEvict
 from repro.configs import get_smoke_config as jax_smoke
@@ -274,8 +277,6 @@ def test_validate_trace_rejects_what_jax_rejects(events):
 def test_recorder_spans_on_cpu_tensors():
     """``span(sync_on=)`` on CPU tensors records the span (nothing to wait
     for); the recorder's own events validate."""
-    import torch
-
     rec = TraceRecorder()
     with rec.span("work", rec.ENGINE, sync_on={"a": [torch.ones(2)]}, k=1):
         rec.instant("tick", rec.ENGINE)
@@ -519,6 +520,36 @@ def test_drift_gauge_matches_jax(served):
     assert 0.0 <= t("lookahead_drift_overlap") <= 1.0
     assert abs(t("lookahead_drift_overlap")
                - j("lookahead_drift_overlap")) <= tol
+
+
+def test_engine_is_freed_without_the_garbage_collector(served):
+    """Observability adds no reference cycle through the engine or the
+    drift monitor: once the last reference goes, the engine and the model
+    weights are freed at once (the card's memory with them), with the
+    cyclic collector off."""
+    cfg = served["cfg"]
+    teng = served["teng"]
+    params = {k: v.clone() if isinstance(v, torch.Tensor) else v
+              for k, v in teng.params.items()}
+    gc.disable()
+    try:
+        pool = KVBlockPool(cfg, block_size=4, num_blocks=32, device="cpu")
+        eng = ContinuousEngine(params, cfg, teng.config.replace(
+            kv_pool=pool, trace=TraceRecorder(),
+            prefix_cache=PrefixCache(chunk=CHUNK, max_bytes=1 << 20,
+                                     pool=pool),
+            drift=DriftMonitor(params, cfg, teng.lkv_params, budget=BUDGET,
+                               eval_every=1)), lkv_params=teng.lkv_params,
+            device="cpu")
+        eng.run([Request(uid=0, prompt=served["tdone"][0].prompt,
+                         max_new_tokens=4)])
+        assert eng.metrics.value("lookahead_drift_evals") == 1
+        eng.counts["prefix"], eng.metrics.prometheus_text()
+        refs = weakref.ref(eng), weakref.ref(params["embed"])
+        del eng, params, pool
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()
 
 
 # ---------------------------------------------------------------------------
