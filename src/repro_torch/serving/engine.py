@@ -81,8 +81,8 @@ scheduler's callback gauges mirror their state); ``config.trace`` (a
 ``DriftMonitor``) every retired request.  ``sync_timers`` (traced, or
 ``config.sync_timers``) synchronises the device before each chunk's
 timer and span close, so they time the work rather than its launch.
-``counts`` is a read-only view over the registry under the port's
-earlier keys, ``stats`` the JAX engine's deprecated one.
+``counts`` is a read-only mapping read from the registry under the
+port's earlier keys, ``stats`` the JAX engine's deprecated view.
 
 ``BucketedEngine`` (the JAX package's deprecated pad-to-bucket engine)
 admits groups of one prompt-length bucket, prefills each group
@@ -109,6 +109,7 @@ import time
 import warnings
 import weakref
 from collections.abc import Mapping
+from types import MappingProxyType
 from typing import Optional
 
 import numpy as np
@@ -460,72 +461,17 @@ class _SlotDecodeMixin:
         engine's blocks); a dense slot has nothing to free."""
 
 
-class _RegistryView(Mapping):
-    """Read-only mapping computed from a ``ContinuousEngine``'s metrics
-    registry at each read; empty before the first ``run()``."""
+class _LegacyStatsView(Mapping):
+    """``ContinuousEngine.stats``: the JAX engine's deprecated per-run
+    dict (same keys, same conditional presence), computed from the
+    registry at each read, empty before the first ``run()``; the
+    component dicts (``prefix_cache``, ``prefix``, ``kv_pool``) are read
+    live."""
 
     __slots__ = ("_eng",)
 
     def __init__(self, eng: "ContinuousEngine"):
         self._eng = eng
-
-    def _as_dict(self) -> dict:
-        raise NotImplementedError
-
-    def __getitem__(self, key):
-        return self._as_dict()[key]
-
-    def __iter__(self):
-        return iter(self._as_dict())
-
-    def __len__(self):
-        return len(self._as_dict())
-
-    def __repr__(self):
-        return f"{type(self).__name__}({self._as_dict()!r})"
-
-
-class _CountsView(_RegistryView):
-    """``ContinuousEngine.counts``: the port's per-run counters under
-    their earlier keys, read from the registry.  ``prefix_blocks_reclaimed``
-    (pool blocks taken back from the prefix cache) has no JAX metric and
-    is the engine's own tally; ``prefix`` (the scheduler's
-    ``prefix_stats()``) is present when the prefix cache is on."""
-
-    __slots__ = ()
-
-    def _as_dict(self) -> dict:
-        e = self._eng
-        if not e._run_started:
-            return {}
-        v = e.metrics.value
-        d = {"prefill_chunks": int(v("serving_prefill_chunks_total")),
-             "prefill_s": float(v("serving_prefill_seconds_total")),
-             "decode_chunks": int(v("serving_decode_chunks_total")),
-             "decode_steps": int(v("serving_decode_steps_total")),
-             "decode_s": float(v("serving_decode_seconds_total")),
-             "max_concurrency": int(v("serving_max_concurrency")),
-             "preemptions": int(v("serving_preemptions_total")),
-             "decode_evict_sweeps":
-                 int(v("serving_decode_evict_sweeps_total")),
-             "admission_blocked": int(v("serving_admission_blocked_total")),
-             "prefix_hits": int(v("serving_prefix_hits_total")),
-             "prefix_misses": int(v("serving_prefix_misses_total")),
-             "prefix_tokens_skipped":
-                 int(v("serving_prefix_tokens_skipped_total")),
-             "prefix_blocks_reclaimed": e._prefix_blocks_reclaimed}
-        if e.prefix_cache is not None:
-            d["prefix"] = e._last_sched.prefix_stats()
-        return d
-
-
-class _LegacyStatsView(_RegistryView):
-    """``ContinuousEngine.stats``: the JAX engine's deprecated per-run
-    dict (same keys, same conditional presence), computed from the
-    registry; the component dicts (``prefix_cache``, ``prefix``,
-    ``kv_pool``) are read live."""
-
-    __slots__ = ()
 
     def _as_dict(self) -> dict:
         e = self._eng
@@ -560,6 +506,18 @@ class _LegacyStatsView(_RegistryView):
             d["kv_pool"] = dict(e.pool.stats(), queued=len(sched._queue),
                                 preemptions=sched.preemptions)
         return d
+
+    def __getitem__(self, key):
+        return self._as_dict()[key]
+
+    def __iter__(self):
+        return iter(self._as_dict())
+
+    def __len__(self):
+        return len(self._as_dict())
+
+    def __repr__(self):
+        return f"_LegacyStatsView({self._as_dict()!r})"
 
 
 class ContinuousEngine(_SlotDecodeMixin):
@@ -662,7 +620,7 @@ class ContinuousEngine(_SlotDecodeMixin):
         self.drift = config.drift
         self.trace = None
         self._sync_timers = False
-        self._run_started = False  # the views: {} before the first run()
+        self._run_started = False  # counts / stats: {} before the first run
         self._last_sched: Optional[SlotScheduler] = None
         self._run_info: dict = {}
         self._uid_seq: dict = {}  # uid -> first admission_seq (replay link)
@@ -792,12 +750,37 @@ class ContinuousEngine(_SlotDecodeMixin):
             self.drift.bind(metrics=self.metrics, trace=trace)
 
     @property
-    def counts(self) -> _CountsView:
-        """The per-run counters under the port's earlier keys (prefill and
-        decode chunks, steps and seconds, peak concurrency, preemptions,
-        sweeps, bounced admissions, prefix hits, misses, skipped tokens and
-        reclaimed blocks): a read-only view of ``metrics``."""
-        return _CountsView(self)
+    def counts(self) -> Mapping:
+        """The per-run counters under the port's earlier keys, read from
+        ``metrics`` into a read-only mapping (empty before the first
+        ``run()``; a mapping read after one run keeps that run's values):
+        prefill and decode chunks, steps and seconds, peak concurrency,
+        preemptions, sweeps, bounced admissions, prefix hits, misses and
+        skipped tokens; ``prefix_blocks_reclaimed`` (pool blocks taken
+        back from the prefix cache) is the engine's own tally, with no
+        JAX metric; ``prefix`` (the scheduler's ``prefix_stats()``) is
+        there when the prefix cache is on."""
+        if not self._run_started:
+            return MappingProxyType({})
+        v = self.metrics.value
+        d = {"prefill_chunks": int(v("serving_prefill_chunks_total")),
+             "prefill_s": float(v("serving_prefill_seconds_total")),
+             "decode_chunks": int(v("serving_decode_chunks_total")),
+             "decode_steps": int(v("serving_decode_steps_total")),
+             "decode_s": float(v("serving_decode_seconds_total")),
+             "max_concurrency": int(v("serving_max_concurrency")),
+             "preemptions": int(v("serving_preemptions_total")),
+             "decode_evict_sweeps":
+                 int(v("serving_decode_evict_sweeps_total")),
+             "admission_blocked": int(v("serving_admission_blocked_total")),
+             "prefix_hits": int(v("serving_prefix_hits_total")),
+             "prefix_misses": int(v("serving_prefix_misses_total")),
+             "prefix_tokens_skipped":
+                 int(v("serving_prefix_tokens_skipped_total")),
+             "prefix_blocks_reclaimed": self._prefix_blocks_reclaimed}
+        if self.prefix_cache is not None:
+            d["prefix"] = self._last_sched.prefix_stats()
+        return MappingProxyType(d)
 
     @property
     def stats(self) -> _LegacyStatsView:

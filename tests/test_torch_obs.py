@@ -458,7 +458,7 @@ def test_build_info_and_counts_view(served):
     assert c["prefix"]["prefix_hits"] == sum(
         r.cached_prefix_tokens > 0 for r in served["tdone"].values())
     assert isinstance(c["prefix_blocks_reclaimed"], int)
-    with pytest.raises(TypeError):  # a view: reads only
+    with pytest.raises(TypeError):  # read-only
         c["decode_steps"] = 0
 
 
@@ -526,7 +526,8 @@ def test_engine_is_freed_without_the_garbage_collector(served):
     """Observability adds no reference cycle through the engine or the
     drift monitor: once the last reference goes, the engine and the model
     weights are freed at once (the card's memory with them), with the
-    cyclic collector off."""
+    cyclic collector off.  Also: ``counts`` read after a run keeps that
+    run's values through the next run."""
     cfg = served["cfg"]
     teng = served["teng"]
     params = {k: v.clone() if isinstance(v, torch.Tensor) else v
@@ -541,9 +542,14 @@ def test_engine_is_freed_without_the_garbage_collector(served):
             drift=DriftMonitor(params, cfg, teng.lkv_params, budget=BUDGET,
                                eval_every=1)), lkv_params=teng.lkv_params,
             device="cpu")
-        eng.run([Request(uid=0, prompt=served["tdone"][0].prompt,
-                         max_new_tokens=4)])
+        prompt = served["tdone"][0].prompt
+        eng.run([Request(uid=0, prompt=prompt, max_new_tokens=4)])
         assert eng.metrics.value("lookahead_drift_evals") == 1
+        first = eng.counts
+        eng.run([Request(uid=i, prompt=prompt, max_new_tokens=4)
+                 for i in range(2)])
+        assert first["decode_steps"] == 3
+        assert eng.counts["decode_steps"] > 3
         eng.counts["prefix"], eng.metrics.prometheus_text()
         refs = weakref.ref(eng), weakref.ref(params["embed"])
         del eng, params, pool
