@@ -1583,6 +1583,8 @@ def phase_kernels(torch, mods) -> list:
         masses_case, decode_case, flash_case)
     results += phase_kernels_whisper(torch, mods, score_case, decode_case,
                                      flash_case)
+    results += phase_kernels_tp(torch, chunk_case, masses_chunk_case,
+                                score_case, paged_case, decode_case)
     return results
 
 
@@ -1853,6 +1855,76 @@ def phase_kernels_moe_vlm(torch, chunk_case, masses_chunk_case, score_case,
                heads=qw)
     entry("lookahead_score 64/8", "src/repro_torch/csrc/lookahead_score.cu",
           "src/repro/kernels/lookahead_score.py:87", k3q)
+    return out
+
+
+#: llama3-8b's attention as one rank of a tensor-parallel mesh holds it:
+#: {model shards: (local q heads, local kv heads, head dim)}
+TP_HEADS = {2: (16, 4, 128), 4: (8, 2, 128)}
+
+
+def phase_kernels_tp(torch, chunk_case, masses_chunk_case, score_case,
+                     paged_case, decode_case) -> list:
+    """Phase 1 at the local head counts of llama3-8b's tensor-parallel
+    ranks, (16, 4) at 2 shards and (8, 2) at 4, hd 128, bf16: kernel 1 on
+    the paged route's C 256 chunk at 3840 of 4096 and its 32-row
+    observation pass, kernel 2 on the h2o chunk (n_total 4000), kernel 3
+    on 32 rows at 4000, kernel 4 over 4 slots x 19 blocks of 16, kernel 6
+    over 4 x 289 rows under a per-kv-head mask; each timed beside its
+    plain version, its bound and SDPA where one call computes the same
+    function, with the same tolerances and one-launch checks as the
+    shapes above, and an edge case each.  Returns the timed cases,
+    named ``<kernel> tp2`` / ``tp4``."""
+    out = []
+    sm90 = "src/repro_torch/csrc/attention_sm90.cuh"
+    for n, heads in TP_HEADS.items():
+        tag = f"tp{n}"
+        Hs, KVs, hds = heads
+        print(f"  -- {tag}: one rank of {n} (llama3-8b's {Hs} query heads, "
+              f"{KVs} kv heads of {hds}) --")
+        k1 = chunk_case(1, 256, 4096, 3840, None, f"{tag} C=256 off=3840",
+                        timed=f"chunk_attention {tag}", heads=heads)
+        k1o = chunk_case(1, 32, 4096, 4000, None, f"{tag} obs pass C=32 "
+                         "off=4000", timed=f"chunk_attention {tag} obs pass",
+                         heads=heads)
+        chunk_case(1, 129, 1000, 100, None, f"{tag} edge C=129 K=1000",
+                   heads=heads)
+        print(f"  chunk_attention {tag} obs pass: {k1o['ms']:.4f} ms, "
+              f"bound {k1o['bound_ms']:.4f} ms")
+        k2 = masses_chunk_case(1, 256, 4096, 3840, 4000, None,
+                               f"{tag} C=256 off=3840 n_total=4000",
+                               Hq=Hs, kv_hd=(KVs, hds),
+                               timed=f"chunk_attention_masses {tag}")
+        masses_chunk_case(2, 100, 1000, 700, 790, 96, f"{tag} window 96 "
+                          "B=2", Hq=Hs, kv_hd=(KVs, hds))
+        k3 = score_case(1, 32, 4096, 4096, 4000, None, False,
+                        f"{tag} n_obs=32 off=4000",
+                        timed=f"lookahead_score {tag}", heads=heads)
+        score_case(2, 17, 300, 300, 283, None, True, f"{tag} n_obs 17, "
+                   "masks", heads=heads)
+        k4 = paged_case(f"{tag} B=4 bs=16 nb=19", None, timed=True,
+                        heads=heads, key=f"paged_decode_attention {tag}")
+        paged_case(f"{tag} ragged, null slot, masked head", None, edge=True,
+                   heads=heads)
+        k6 = decode_case(f"{tag} B=4 C=289 per-head mask", "head",
+                         timed=True, heads=heads,
+                         key=f"decode_attention {tag}")
+        decode_case(f"{tag} dead head and sequence", "head-edge",
+                    heads=heads, C=150)
+        for name, src, rep, res in (
+                ("chunk_attention", sm90, "chunk_attention.py:95", k1),
+                ("chunk_attention_masses", sm90, "chunk_attention.py:216",
+                 k2),
+                ("lookahead_score", "src/repro_torch/csrc/lookahead_score.cu",
+                 "lookahead_score.py:87", k3),
+                ("paged_decode_attention",
+                 "src/repro_torch/csrc/paged_attention.cu",
+                 "paged_attention.py:101", k4),
+                ("decode_attention",
+                 "src/repro_torch/csrc/decode_attention.cu",
+                 "decode_attention.py:56", k6)):
+            out.append(dict(name=f"{name} {tag}", route="cuda", source=src,
+                            replaces=f"src/repro/kernels/{rep}", **res))
     return out
 
 
@@ -4791,6 +4863,236 @@ def phase_learning_loop(torch, mods, header) -> None:
         torch.cuda.empty_cache()
 
 
+#: phase 6: the smoke geometry of 6a (llama3-8b smoke rebuilt at 8 q /
+#: 4 kv heads of 32, d_model 256, so that 2 and 4 divide), its trace
+#: (prompt lengths and arrivals) and its cases (name, policy, paged,
+#: sampled); 6b's and 6c's floors on the share of tokens and of kept
+#: (layer, kv head, position) entries that agree with the one-rank run in
+#: bf16 (PERF.md's prediction, written before the first run)
+TP_SMOKE_LENS, TP_SMOKE_ARRIVALS = (100, 37, 150, 64), (0.0, 0.01, 0.02, 0.2)
+TP_SMOKE_CASES = (("paged h2o", "h2o", True, False),
+                  ("paged lookaheadkv", "lookaheadkv", True, False),
+                  ("paged lookaheadkv sampled", "lookaheadkv", True, True),
+                  ("dense-slot lookaheadkv", "lookaheadkv", False, False))
+TP_TOKEN_SHARE_MIN, TP_KEPT_SHARE_MIN = 0.2, 0.9
+#: 6b / 6c: (model shards, layers, policy, {kernel: launches per rank});
+#: the launches are 3a's and 3e's schedules (44 kernel-1 passes, 4
+#: kernel-3 calls and 124 decode steps per layer; 40 kernel-2 chunks
+#: under h2o): the heads halve on a rank, the calls do not
+TP_CELLS = {
+    "6b": (2, 32, "lookaheadkv", {"chunk_attention": 44 * 32,
+                                  "lookahead_score": 4 * 32,
+                                  "paged_decode_attention": 124 * 32}),
+    "6c": (4, 8, "h2o", {"chunk_attention_masses": 40 * 8,
+                         "paged_decode_attention": 124 * 8})}
+
+
+def tp_world(torch, mods, n: int, jobs: list) -> list:
+    """``serve_shards`` over ``jobs`` in a spawned world of ``n`` gloo
+    ranks on cuda:0 (one card: NCCL refuses two ranks on one device);
+    returns [job][rank] results.  A failing rank fails the phase."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        res = mods["mesh"].spawn_ranks(
+            mods["serve"].serve_shards, n, (jobs,),
+            init_file=str(Path(tmp) / "store"), backend="gloo",
+            timeout_s=300.0, join_s=600.0)
+    return [[res[r][i] for r in range(n)] for i in range(len(jobs))]
+
+
+def tp_kept(ranks) -> dict:
+    """{uid: {(layer, global kv head): kept positions}} of a world's
+    admission caches, rank r's local head h as global r * KV/N + h (one
+    rank's own results for a one-rank run)."""
+    import numpy as np
+
+    out = {}
+    for r in ranks[0]["done"]:
+        caches = [next(x for x in rk["done"] if x.uid == r.uid)
+                  .admission_cache for rk in ranks]
+        m = np.concatenate([c["mask"] for c in caches], -1)
+        p = np.concatenate([c["pos"] for c in caches], -1)
+        L, _, _, KV = m.shape
+        out[r.uid] = {(lyr, h): frozenset(p[lyr, 0, m[lyr, 0, :, h],
+                                            h].tolist())
+                      for lyr in range(L) for h in range(KV)}
+    return out
+
+
+def gib(n_bytes) -> str:
+    return "not measured" if n_bytes is None else f"{n_bytes / 2**30:.2f}"
+
+
+def tp_tokens(ranks) -> dict:
+    return {r.uid: list(r.out_tokens) for r in ranks[0]["done"]}
+
+
+def tp_shares(want_tok, want_kept, got_tok, got_kept) -> tuple:
+    """(share of tokens equal position by position, share of kept (layer,
+    kv head, position) entries in common) against the one-rank run."""
+    n_tok = sum(len(t) for t in want_tok.values())
+    same_tok = sum(a == b for u in want_tok
+                   for a, b in zip(want_tok[u], got_tok[u]))
+    n_kept = sum(len(v) for k in want_kept.values() for v in k.values())
+    same_kept = sum(len(v & got_kept[u][key]) for u, k in want_kept.items()
+                    for key, v in k.items())
+    return same_tok / n_tok, same_kept / n_kept
+
+
+def phase_tp(torch, mods, device: str = "cuda") -> dict:
+    """Phase 6: tensor-parallel serving, ranks spawned as processes that
+    share cuda:0 and gather through the host over gloo (NCCL refuses two
+    ranks on one device).  It proves correctness at full width and that
+    each rank launches the kernels it should; its host and wall times are
+    those of ranks sharing one card and gathering through the host, not
+    tensor-parallel speed.
+
+    6a: the llama3-8b smoke geometry rebuilt at 8 q / 4 kv heads of 32
+    (d_model 256), float32, on a staggered trace: paged h2o and
+    lookaheadkv greedy, paged lookaheadkv sampled and dense-slot
+    lookaheadkv, served by the one-rank engine on the card and on the CPU
+    and by worlds of 2 and 4 ranks on the card; tokens and kept sets (the
+    ranks' kv heads gathered) must be equal, as phase 2 requires.
+    6b: llama3-8b at full width and depth on 2 ranks, paged lookaheadkv on
+    3a's trace; 6c: at 8 of 32 layers on 4 ranks, paged h2o (kernel 2 at
+    the local (8, 2)).  Each after the one-rank engine on the same trace
+    (freed first): every rank's launches exactly ``TP_CELLS``'s, its pool
+    bytes per shard the one-rank pool's over N, and the shares of tokens
+    and of kept entries that agree with the one-rank run at least
+    ``TP_TOKEN_SHARE_MIN`` / ``TP_KEPT_SHARE_MIN``.  Returns rank 0's
+    kernel launches: {"6a tp2" / "6a tp4": over 6a's four runs, "6b",
+    "6c"}."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    cfgs, serving, tf = mods["configs"], mods["serving"], mods["tf"]
+    pol, serve = mods["policies"], mods["serve"]
+    EvictionConfig = mods["EvictionConfig"]
+    out = {}
+
+    def np_tree(t):
+        return ({k: np_tree(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.detach().cpu().numpy())
+
+    # -- 6a: exactness at small size ------------------------------------
+    base = cfgs.get_smoke_config("llama3-8b")
+    cfg = dataclasses.replace(
+        base, name="llama3-smoke-tp", d_model=256, dtype="float32",
+        attn=dataclasses.replace(base.attn, num_heads=8, num_kv_heads=4,
+                                 head_dim=32))
+    params = tf.init_params(cfg, seed=SEED, device="cpu")
+    lkv = mods["lookahead"].init_lookahead_params(
+        torch.Generator().manual_seed(SEED + 1), cfg, params["layers"])
+    rng = np.random.default_rng(SEED)
+    reqs = [serving.Request(uid=i, prompt=rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=8,
+        arrival_s=a) for i, (n, a) in enumerate(zip(TP_SMOKE_LENS,
+                                                     TP_SMOKE_ARRIVALS))]
+
+    def smoke_job(policy, paged, sampled):
+        sc = serving.ServingConfig(
+            policy=policy, evict=EvictionConfig(budget=16),
+            chunking=serving.ChunkingConfig(chunk=32, max_context=160,
+                                            decode_chunk=2),
+            num_slots=2, max_new_tokens=8, eos_id=-1,
+            capture_admission=True,
+            sampling=pol.Sampling(0.7, 50, 0.9) if sampled else None)
+        return dict(cfg=cfg, device=device, serving=sc, requests=reqs,
+                    pool=dict(block_size=16, num_blocks=64) if paged
+                    else None, params=np_tree(params),
+                    lkv=np_tree(lkv) if policy == "lookaheadkv" else None)
+
+    jobs = [smoke_job(*c[1:]) for c in TP_SMOKE_CASES]
+    t0 = time.perf_counter()
+    worlds = {n: tp_world(torch, mods, n, jobs) for n in (2, 4)}
+    t_worlds = time.perf_counter() - t0
+    for i, (name, *_rest) in enumerate(TP_SMOKE_CASES):
+        one = {dev: [serve.serve_job(jobs[i], device=dev)]
+               for dev in (device, "cpu")}
+        want_tok, want_kept = tp_tokens(one["cpu"]), tp_kept(one["cpu"])
+        check(tp_tokens(one[device]) == want_tok and
+              tp_kept(one[device]) == want_kept,
+              f"6a {name}: the one-rank engine on the card differs from "
+              "the CPU's")
+        for n, res in worlds.items():
+            ranks = res[i]
+            for rk in ranks:
+                check(tp_tokens([rk]) == want_tok, f"6a {name}, {n} ranks: "
+                      f"rank {rk['model_index']}'s tokens differ")
+                check(rk["stats"]["mesh"] == {"data": 1, "model": n},
+                      f"6a {name}: stats mesh {rk['stats']['mesh']}")
+            check(tp_kept(ranks) == want_kept, f"6a {name}, {n} ranks: kept "
+                  "sets differ from the one-rank run's")
+            total = out.setdefault(f"6a tp{n}", {})
+            for k, v in ranks[0]["launches"].items():
+                total[k] = total.get(k, 0) + v
+        print(f"  6a {name}: 1 rank card = CPU, 2 and 4 ranks = 1 rank "
+              f"(tokens and kept sets; {sum(len(t) for t in want_tok.values())}"
+              " tokens)")
+    print(f"  6a: worlds of 2 and 4 ranks, 4 runs each, {t_worlds:.1f} s "
+          "wall (process start included)")
+    del params, lkv, worlds
+
+    # -- 6b, 6c: full width ---------------------------------------------
+    full = cfgs.get_config("llama3-8b")
+    rng = np.random.default_rng(SEED)  # the launcher's draws (3a's trace)
+    trace = [serving.Request(uid=i, prompt=rng.integers(
+        0, full.vocab_size, n).astype(np.int32), max_new_tokens=32)
+        for i, n in enumerate(LENS)]
+    for cell, (n, layers, policy, predicted) in TP_CELLS.items():
+        cfg = dataclasses.replace(full, num_layers=layers)
+        sc = serving.ServingConfig(
+            policy=policy, evict=EvictionConfig(budget=256),
+            chunking=serving.ChunkingConfig(chunk=256, max_context=256),
+            num_slots=4, max_new_tokens=32, eos_id=-1,
+            capture_admission=True)
+        job = dict(cfg=cfg, device=device, serving=sc, requests=trace,
+                   pool=dict(block_size=16, pool_mb=256), seed=SEED)
+        one = serve.serve_job(job)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = tp_world(torch, mods, n, [job])[0]
+        want_tok, want_kept = tp_tokens([one]), tp_kept([one])
+        got_tok, got_kept = tp_tokens(ranks), tp_kept(ranks)
+        tok_share, kept_share = tp_shares(want_tok, want_kept, got_tok,
+                                          got_kept)
+        pool1 = one["stats"]["kv_pool"]["bytes_total_per_shard"]
+        print(f"  {cell}: llama3-8b, {layers} layers, {policy}, {n} ranks: "
+              f"one rank {one['wall_s']:.2f} s wall, peak "
+              f"{gib(one['peak_bytes'])} GiB, pool {pool1} B; "
+              f"tokens agreeing {tok_share:.4f}, kept entries agreeing "
+              f"{kept_share:.4f} (floors {TP_TOKEN_SHARE_MIN}, "
+              f"{TP_KEPT_SHARE_MIN})")
+        for rk in ranks:
+            r = rk["model_index"]
+            launched = {k: rk["launches"][k] for k in predicted}
+            print(f"    rank {r}: wall {rk['wall_s']:.2f} s (ranks sharing "
+                  f"one card, gathering through the host), peak "
+                  f"{gib(rk['peak_bytes'])} GiB, pool "
+                  f"{rk['stats']['kv_pool']['bytes_total_per_shard']} B per "
+                  f"shard, launches {launched}")
+            check(launched == predicted, f"{cell} rank {r}: launches "
+                  f"{launched}, predicted {predicted}")
+            check({k: v for k, v in rk["launches"].items() if v} ==
+                  {k: v for k, v in one["launches"].items() if v},
+                  f"{cell} rank {r}: launches differ from the one-rank "
+                  "run's")
+            check(rk["stats"]["kv_pool"]["bytes_total_per_shard"] * n
+                  == pool1, f"{cell} rank {r}: pool bytes per shard")
+            check(tp_tokens([rk]) == got_tok, f"{cell}: ranks' tokens differ")
+        check(tok_share >= TP_TOKEN_SHARE_MIN and
+              kept_share >= TP_KEPT_SHARE_MIN,
+              f"{cell}: agreement with the one-rank run below its floor")
+        out[cell] = ranks[0]["launches"]
+        del one, ranks
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def load_modules(torch) -> dict:
     """The port's modules this script drives (from ``src/`` beside it)."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -4809,7 +5111,7 @@ def load_modules(torch) -> dict:
     from repro_torch.kernels import lookahead_score as lk
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.kernels import ssd_scan as sk
-    from repro_torch.launch import serve, steps, train
+    from repro_torch.launch import mesh, serve, steps, train
     from repro_torch.models import moe, rope
     from repro_torch.models import transformer as tf
     from repro_torch import obs
@@ -4826,7 +5128,7 @@ def load_modules(torch) -> dict:
                 sk=sk, serve=serve, tf=tf, ckpt=ckpt, TrainConfig=TrainConfig,
                 objective=objective, harvest=harvest, synthetic=synthetic,
                 steps=steps, train=train, adam=adam, moe=moe, rope=rope,
-                obs=obs)
+                obs=obs, mesh=mesh)
 
 
 def phase_build(mods) -> None:
@@ -5126,6 +5428,10 @@ def main() -> None:
     whisper = phase_whisper(torch, mods, header)
     torch.cuda.empty_cache()
     phase_learning_loop(torch, mods, header)
+    header("phase 6: tensor-parallel serving, ranks sharing cuda:0 over "
+           "gloo (6a smoke exactness at 2 and 4 ranks; 6b llama3-8b full "
+           "width on 2 ranks; 6c 8 layers on 4 ranks, h2o)")
+    tp = phase_tp(torch, mods)
     # launches on the main path: kernels 1, 3, 4 from the paged route,
     # kernels 7 and 6 from the lockstep route, kernel 5 from the
     # decode-eviction route, kernel 2 from the h2o route, kernel 8 from
@@ -5136,6 +5442,16 @@ def main() -> None:
                 "chunk_attention_masses": "paged continuous h2o",
                 "ssd_scan": "hybrid lockstep"}
     for k in kernels:
+        if k["name"].endswith((" tp2", " tp4")):  # phase 6, rank 0
+            # 6b's / 6c's full-width cell where it runs the kernel, else
+            # 6a's smoke runs (kernel 6: the dense slots; kernel 2 at 2
+            # ranks and kernels 1 and 3 at 4: the other policy)
+            name, tag = k["name"].rsplit(" ", 1)
+            k["launches"] = (tp["6b" if tag == "tp2" else "6c"][name]
+                             or tp[f"6a {tag}"][name])
+            check(k["launches"] > 0, f"{k['name']}: never launched in "
+                  "phase 6")
+            continue
         if k["name"] in WHISPER_FORM:  # 3x's and 3y's calls of that form
             cell, form = WHISPER_FORM[k["name"]]
             k["launches"] = whisper[cell]["forms"].get(form, 0)

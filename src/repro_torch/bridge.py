@@ -28,3 +28,14 @@ def to_torch(tree, *, device="cuda"):
     if isinstance(tree, dict):
         return {k: to_torch(v, device=device) for k, v in tree.items()}
     return _leaf(tree, device)
+
+
+def shard_to_torch(tree, cfg, mesh, *, device="cuda", rank=None):
+    """The JAX package's full numpy parameter tree -> one rank's shard
+    (``rank``, by default the mesh's own) on ``device``, in the layout of
+    the tensor-parallel serving path (``common.sharding.serving_specs``):
+    ``to_torch``, then ``shard_tree``."""
+    from repro_torch.common.sharding import serving_specs, shard_tree
+
+    return shard_tree(to_torch(tree, device=device), serving_specs(cfg, mesh),
+                      mesh, mesh.rank if rank is None else rank)

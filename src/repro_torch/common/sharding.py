@@ -1,0 +1,293 @@
+"""Logical -> physical sharding rules, path-driven: the JAX package's
+``common/sharding.py`` with its ``PartitionSpec``s as plain tuples, entry
+for entry (``None``, an axis name, or a tuple of axis names per dim).
+
+``param_specs(cfg, mesh)`` mirrors the parameter tree:
+
+* attention q/o projections shard the head dim on "model" when the head
+  count divides the axis (GQA: k/v shard only when kv heads divide);
+* the MLP shards d_ff column -> row;
+* MoE experts shard the expert dim on "model";
+* embeddings shard vocab when divisible, else d_model, else replicate;
+* ``cfg.fsdp`` also shards the d_model dim of big weights over "data";
+* Mamba-2, norms and scalars replicate.
+
+The tensor-parallel serving path holds each rank's shard of a tree
+(``shard_tree``: each leaf's contiguous slice along its "model" dim) in
+``serving_specs``' layout.  That is ``param_specs`` but for the two
+row-parallel weights, the attention ``wo`` and the dense MLP's
+``w_down``, which it keeps column-sliced: the JAX helpers take them in
+that layout (``sharded_wo_linear`` and ``mlp.apply_sharded``'s
+``P(None, "model")`` in-specs, which re-lay the row-sharded weights out
+at every call), so that each product contracts its full input in
+single-device order.  Storing them so once costs nothing per call.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.common.pytree import tree_map, tree_map_with_path
+
+
+def _div(n: int, size: int) -> bool:
+    return size > 0 and n % size == 0
+
+
+def param_specs(cfg: ModelConfig, mesh, *,
+                embed_replicated: bool = False) -> Any:
+    """Spec tree mirroring the parameter tree (with the JAX package's qkv
+    bias leaves where ``cfg.attn.qkv_bias``).  ``embed_replicated``: the
+    dp_all variant (batch over data and model, so vocab sharding would
+    conflict at the unembed)."""
+    msize = mesh.shape["model"]
+    dsize = mesh.shape["data"]
+    a = cfg.attn
+    fsdp = "data" if (cfg.fsdp and _div(cfg.d_model, dsize)) else None
+
+    shard_q = a is not None and _div(a.num_heads, msize)
+    shard_kv = a is not None and _div(a.num_kv_heads, msize)
+    shard_ff = _div(cfg.d_ff, msize)
+    shard_exp = cfg.moe is not None and _div(cfg.moe.num_experts, msize)
+    shard_shared = (cfg.moe is not None and
+                    _div(cfg.moe.num_shared_experts * cfg.moe.d_expert,
+                         msize))
+    if embed_replicated:
+        embed_spec = (None, None)
+    elif _div(cfg.padded_vocab, msize):
+        embed_spec = ("model", None)
+    elif _div(cfg.d_model, msize):
+        embed_spec = (None, "model")
+    else:
+        embed_spec = (None, None)
+    q_ax = "model" if shard_q else None
+    kv_ax = "model" if shard_kv else None
+
+    def rule(path: str, leaf) -> tuple:
+        parts = path.split("/")
+        name = parts[-1]
+        pre = (None,) if "layers" in parts else ()  # the stacked L axis
+        if name == "embed":
+            return embed_spec
+        if name == "lm_head":
+            return embed_spec[::-1]
+        if name == "pos_emb":
+            return (None, None)
+        if name == "wq":
+            return (*pre, fsdp, q_ax)
+        if name in ("wk", "wv"):
+            return (*pre, fsdp, kv_ax)
+        if name == "wo":
+            return (*pre, q_ax, fsdp)
+        if name == "bq":
+            return (*pre, q_ax)
+        if name in ("bk", "bv"):
+            return (*pre, kv_ax)
+        if "experts" in parts:
+            e_ax = "model" if shard_exp else None
+            if name in ("w_gate", "w_up"):
+                return (*pre, e_ax, fsdp, None)
+            if name == "w_down":
+                return (*pre, e_ax, None, fsdp)
+        if name == "router":
+            return (*pre, fsdp, None)
+        if "shared" in parts:
+            s_ax = "model" if shard_shared else None
+            if name in ("w_gate", "w_up"):
+                return (*pre, fsdp, s_ax)
+            if name == "w_down":
+                return (*pre, s_ax, fsdp)
+        if name in ("w_gate", "w_up"):
+            return (*pre, fsdp, "model" if shard_ff else None)
+        if name == "w_down":
+            return (*pre, "model" if shard_ff else None, fsdp)
+        # Mamba-2, norms, scalars, anything unmatched: replicate
+        return (None,) * leaf.dim()
+
+    return tree_map_with_path(rule, _as_shaped(cfg))
+
+
+def _as_shaped(cfg: ModelConfig) -> dict:
+    """The parameter tree's shapes (the port's ``init_params`` on the meta
+    device), with the zero qkv biases the JAX package's init adds and the
+    port's leaves out (a missing bias is a zero one)."""
+    from repro_torch.models import transformer as tf
+
+    params = tf.init_params(cfg, device="meta")
+    a = cfg.attn
+    if a is not None and a.qkv_bias:
+        blocks = [params["layers"]]
+        if "encoder" in params:
+            blocks.append(params["encoder"]["layers"])
+        for blk in blocks:
+            L = blk["ln1"].shape[0]
+            for name, dim in (("bq", a.q_dim), ("bk", a.kv_dim),
+                              ("bv", a.kv_dim)):
+                blk["attn"][name] = torch.empty(
+                    (L, dim), dtype=blk["attn"]["wq"].dtype, device="meta")
+    return params
+
+
+def serving_specs(cfg: ModelConfig, mesh) -> Any:
+    """The layout of one rank's shard on the tensor-parallel serving path:
+    ``param_specs`` with ``wo`` and the dense MLP's ``w_down`` column-sliced
+    (the JAX helpers' in-specs), the MLP replicated where d_ff or d_model
+    does not divide the model axis (``mlp.apply_sharded``'s fallback), and
+    the embedding replicated unless it shards by vocab rows (the unembed
+    then contracts the full d_model).  Needs heads that divide."""
+    msize = mesh.shape["model"]
+    a = cfg.attn
+    if a is None or not (_div(a.num_heads, msize)
+                         and _div(a.num_kv_heads, msize)
+                         and _div(cfg.d_model, msize)):
+        raise ValueError(f"{cfg.name}: tensor-parallel serving over "
+                         f"{msize} model shards needs heads and d_model "
+                         "that divide it")
+    mlp_sharded = _div(cfg.d_ff, msize)
+    specs = param_specs(cfg, mesh)
+
+    def fix(path: str, _leaf) -> tuple:
+        parts = path.split("/")
+        spec = specs
+        for k in parts:
+            spec = spec[k]
+        name = parts[-1]
+        if name in ("embed", "lm_head") and "model" not in (
+                spec[0] if name == "embed" else spec[1],):
+            return (None, None)
+        if "mlp" in parts and not mlp_sharded:
+            return (None,) * len(spec)
+        if name == "wo" or (name == "w_down" and "mlp" in parts):
+            return (*spec[:-2], None, "model")
+        return spec
+
+    return tree_map_with_path(fix, _as_shaped(cfg))
+
+
+def lkv_specs(lkv_shapes: Any) -> Any:
+    """Lookahead params replicate everywhere (tiny: <0.5% of the model)."""
+    return tree_map(lambda x: (None,) * x.dim(), lkv_shapes)
+
+
+def batch_axes(mesh) -> tuple:
+    return tuple(n for n in mesh.axis_names if n != "model")
+
+
+def _entry(axes: tuple):
+    """One dim's entry as ``PartitionSpec`` normalises it: None for no
+    axis, the name for one, the tuple for several."""
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def cache_specs(cfg: ModelConfig, mesh, batch: int, capacity: int,
+                hot_slots: int = 0) -> dict:
+    """Specs of the dense decode cache: batch over the data axes; kv heads
+    on "model" when divisible, else the sequence dim (sequence-parallel
+    decode); with ``hot_slots`` the split cache's replicated hot ring."""
+    dp = batch_axes(mesh)
+    msize = mesh.shape["model"]
+    dp_total = 1
+    for x in dp:
+        dp_total *= mesh.shape[x]
+    bshard = dp if _div(batch, dp_total) else (
+        ("data",) if _div(batch, mesh.shape["data"]) else ())
+    bspec = _entry(bshard)
+    a = cfg.attn
+    specs: dict = {}
+    if a is not None:
+        if _div(a.num_kv_heads, msize):
+            kv_s, seq_s = "model", None
+        elif _div(capacity, msize):
+            kv_s, seq_s = None, "model"
+        else:
+            kv_s = seq_s = None
+        if batch == 1 and seq_s is not None:
+            # long-context decode: the cache sequence over everything
+            seq_s = _entry(tuple(list(dp) + ["model"]))
+            bspec = None
+        specs["attn"] = {
+            "k": (None, bspec, seq_s, kv_s, None),
+            "v": (None, bspec, seq_s, kv_s, None),
+            "pos": (None, bspec, seq_s, kv_s),
+            "mask": (None, bspec, seq_s, kv_s),
+        }
+        if hot_slots:
+            specs["attn"].update({
+                "hot_k": (None, bspec, None, None, None),
+                "hot_v": (None, bspec, None, None, None),
+                "hot_pos": (None, bspec, None, None),
+                "hot_mask": (None, bspec, None, None),
+            })
+        specs["cursor"] = ()
+    if cfg.uses_ssm:
+        specs["ssm"] = {"conv": (None, bspec, None, None),
+                        "state": (None, bspec, None, None, None)}
+    if cfg.is_encoder_decoder:
+        specs["cross"] = {"k": (None, bspec, None, None, None),
+                          "v": (None, bspec, None, None, None)}
+    specs["next_pos"] = (bspec, None)
+    return specs
+
+
+def pool_specs(cfg: ModelConfig, mesh) -> Optional[dict]:
+    """Specs of the paged KV block pool (L, blocks, block_size, KV[, hd]):
+    only the kv-head dim shards, on "model", so blocks are whole on every
+    shard and the host allocator and block tables stay the same on every
+    rank.  None without a "model" axis or when kv heads do not divide."""
+    a = cfg.attn
+    if a is None or mesh is None:
+        return None
+    if "model" not in getattr(mesh, "axis_names", ()):
+        return None
+    if not _div(a.num_kv_heads, mesh.shape["model"]):
+        return None
+    return {"k": (None, None, None, "model", None),
+            "v": (None, None, None, "model", None),
+            "pos": (None, None, None, "model"),
+            "mask": (None, None, None, "model")}
+
+
+def mesh_signature(mesh) -> Optional[tuple]:
+    """Hashable mesh identity, ``(("data", 4), ("model", 2))``; None for
+    no mesh or an all-1 mesh."""
+    if mesh is None:
+        return None
+    sig = tuple((n, int(mesh.shape[n])) for n in mesh.axis_names)
+    if all(s == 1 for _, s in sig):
+        return None
+    return sig
+
+
+def _model_dim(spec: tuple) -> Optional[int]:
+    for d, entry in enumerate(spec):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if "model" in names:
+            return d
+    return None
+
+
+def shard_tree(tree: Any, specs: Any, mesh, rank: int) -> Any:
+    """Shard ``rank % model`` of ``tree``: each leaf's contiguous slice
+    along the dim its spec puts on "model" (a copy, so the full leaf can
+    be freed), other leaves as they are.  Concatenating the shards of
+    every rank in rank order along that dim gives the tree back."""
+    n = mesh.shape["model"]
+    i = rank % n
+
+    def take(leaf, spec):
+        d = _model_dim(spec)
+        if d is None or n == 1:
+            return leaf
+        size = leaf.shape[d]
+        if size % n:
+            raise ValueError(f"dim {d} of size {size} does not divide "
+                             f"{n} model shards")
+        w = size // n
+        return leaf.narrow(d, i * w, w).clone()
+
+    return tree_map(take, tree, specs)

@@ -177,18 +177,21 @@ def decode_one(params: dict, cfg: ModelConfig, token: torch.Tensor,
                cache: dict, *, active: Optional[torch.Tensor] = None,
                paged_depth: Optional[int] = None,
                sampling: Optional[Sampling] = None,
-               seeds: Optional[torch.Tensor] = None
-               ) -> tuple[torch.Tensor, dict]:
+               seeds: Optional[torch.Tensor] = None,
+               mesh=None) -> tuple[torch.Tensor, dict]:
     """One decode step.  Returns (next token (B, 1), new cache);
     inactive slots keep their token, and their cache, which
     ``decode_step`` never writes for them (the JAX package rolls a dense
     cache back with ``select_cache_slots`` instead).  The token is the
     argmax, or with ``sampling`` at a temperature above 0 a draw under
     the key of each row's seed (``seeds`` (B,)) folded with the sampled
-    token's position, one past the input token's ``next_pos``."""
+    token's position, one past the input token's ``next_pos``.  Over a
+    ``mesh`` (tensor-parallel serving) the step runs on the rank's shard
+    and the sampler on the all-gathered logits, identically on every
+    rank."""
     positions = cache["next_pos"][:, 0]
     logits, cache = tf.decode_step(params, cfg, token, cache, active=active,
-                                   paged_depth=paged_depth)
+                                   paged_depth=paged_depth, mesh=mesh)
     if sampling is not None and sampling.temperature > 0.0:
         if seeds is None:
             raise ValueError("sampling needs per-request seeds")
@@ -223,8 +226,8 @@ def decode_chunk(params: dict, cfg: ModelConfig, token: torch.Tensor,
                  active: Optional[torch.Tensor] = None,
                  paged_depth: Optional[int] = None,
                  sampling: Optional[Sampling] = None,
-                 seeds: Optional[torch.Tensor] = None
-                 ) -> tuple[torch.Tensor, dict, torch.Tensor]:
+                 seeds: Optional[torch.Tensor] = None,
+                 mesh=None) -> tuple[torch.Tensor, dict, torch.Tensor]:
     """``steps`` decode steps after ``token`` (greedy, or sampled as
     ``decode_one`` says).  Returns (last token (B, 1), cache, new tokens
     (B, steps)); the input token is not among the emitted ones.  No step
@@ -236,7 +239,7 @@ def decode_chunk(params: dict, cfg: ModelConfig, token: torch.Tensor,
     for _ in range(steps):
         token, cache = decode_one(params, cfg, token, cache, active=active,
                                   paged_depth=paged_depth, sampling=sampling,
-                                  seeds=seeds)
+                                  seeds=seeds, mesh=mesh)
         toks.append(token[:, 0])
     return token, cache, torch.stack(toks, dim=1)
 

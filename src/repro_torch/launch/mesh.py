@@ -1,0 +1,183 @@
+"""Device meshes of the port: named axes over ``torch.distributed`` ranks.
+
+A ``Mesh`` is the small value the sharding rules and the tensor-parallel
+model functions read: its axis names, its shape, and, for a mesh over an
+initialised process group, this process's rank and the process group of
+its "model" axis (the ranks that hold the other shards of its model).
+A shape-only mesh (no group) feeds the sharding rules and nothing else.
+
+Ranks lie on the mesh row-major, as ``jax.make_mesh`` lays devices out:
+rank ``r`` sits at data row ``r // model`` and model column ``r % model``.
+
+* ``make_production_mesh(multi_pod=)``: the JAX package's TPU v5e shapes,
+  (16, 16) over ("data", "model") or (2, 16, 16) over ("pod", "data",
+  "model"), shape only.
+* ``make_host_mesh(model)``: the ("data", "model") mesh over the
+  initialised world (data = world // model); a single process without a
+  process group is a world of one.
+* ``spawn_ranks(fn, n, args)``: a world of ``n`` spawned processes, each
+  with its process group initialised, running ``fn(rank, *args)``;
+  returns their results in rank order and raises if any rank failed or
+  ran out of time (a rank that waits on a collective the others never
+  reach fails at the group's timeout instead of hanging).
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import queue as queue_mod
+import time
+import traceback
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+@dataclass(frozen=True, eq=False)
+class Mesh:
+    """Named mesh axes; ``group`` is this rank's "model"-axis process
+    group (None: a shape-only mesh), ``rank`` its global rank."""
+
+    axis_names: tuple
+    axis_sizes: tuple
+    group: Optional[Any] = None
+    rank: int = 0
+
+    @property
+    def shape(self) -> dict:
+        """{axis name: size}, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.axis_sizes:
+            n *= s
+        return n
+
+    @property
+    def model_index(self) -> int:
+        """This rank's place on the "model" axis: which shard it holds."""
+        return self.rank % self.shape.get("model", 1)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    if multi_pod:
+        return Mesh(("pod", "data", "model"), (2, 16, 16))
+    return Mesh(("data", "model"), (16, 16))
+
+
+def make_host_mesh(model: int = 1) -> Mesh:
+    """The ("data", "model") mesh over every rank of the initialised
+    world, each data row's ``model`` ranks one model-axis group (every
+    rank creates every row's group, as ``dist.new_group`` requires)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if model <= 0 or world % model:
+        raise ValueError(f"--mesh-model {model} does not divide the "
+                         f"{world} ranks of the world")
+    data = world // model
+    group = None
+    if dist.is_initialized():
+        if data == 1:
+            group = dist.group.WORLD
+        else:
+            for row in range(data):
+                g = dist.new_group(list(range(row * model,
+                                              (row + 1) * model)))
+                if row == rank // model:
+                    group = g
+    return Mesh(("data", "model"), (data, model), group, rank)
+
+
+def data_axes(mesh: Mesh) -> tuple:
+    """The batch-sharding axes of a mesh: ("pod", "data") or ("data",)."""
+    return tuple(n for n in mesh.axis_names if n != "model")
+
+
+def axis_size(mesh: Mesh, name: str) -> int:
+    return mesh.shape[name]
+
+
+def _rank_main(rank: int, n: int, job_file: str, backend: str,
+               init_file: str, timeout_s: float, results) -> None:
+    try:
+        with open(job_file, "rb") as f:
+            fn, args = pickle.load(f)
+        dist.init_process_group(
+            backend, init_method=f"file://{init_file}", world_size=n,
+            rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            results.put((rank, True, fn(rank, *args)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+
+
+def spawn_ranks(fn: Callable, n: int, args: tuple = (), *, init_file: str,
+                backend: str = "gloo", timeout_s: float = 60.0,
+                join_s: Optional[float] = None) -> list:
+    """Run ``fn(rank, *args)`` in ``n`` spawned processes, each in one
+    process group of world size ``n`` (``backend``, a ``file://`` store at
+    ``init_file``, which must not exist yet; collectives time out after
+    ``timeout_s``).  ``fn`` must be importable by name and its results
+    picklable; ``fn`` and ``args`` reach the ranks through a file beside
+    the store (a pipe would hold each start until its rank has read
+    them).  Waits at most ``join_s`` seconds (default: no limit) for
+    every rank, then kills what is left.  Returns the results in rank
+    order; raises ``RuntimeError`` with the failing ranks' tracebacks if
+    a rank raised, died or ran out of time."""
+    if os.path.exists(init_file):
+        raise ValueError(f"the store {init_file} exists: a stale world")
+    job_file = init_file + ".job"
+    with open(job_file, "wb") as f:
+        pickle.dump((fn, args), f)
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(r, n, job_file, backend, init_file,
+                               timeout_s, results)) for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = None if join_s is None else time.monotonic() + join_s
+    got: dict = {}
+
+    def take(timeout: float) -> bool:
+        try:
+            rank, ok, out = results.get(timeout=timeout)
+        except queue_mod.Empty:
+            return False
+        got[rank] = (ok, out)
+        return True
+
+    try:
+        while len(got) < n:
+            if take(1.0):
+                continue
+            dead = all(p.exitcode is not None
+                       for r, p in enumerate(procs) if r not in got)
+            late = deadline is not None and time.monotonic() > deadline
+            if dead or late:
+                while len(got) < n and take(0.5):  # what is still in flight
+                    pass
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=5.0 if len(got) == n else 0.1)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = [f"rank {r}: {out}" for r, (ok, out) in sorted(got.items())
+              if not ok]
+    missing = [r for r in range(n) if r not in got]
+    if missing:
+        errors.append(f"ranks {missing} gave no result (exit codes "
+                      f"{[procs[r].exitcode for r in missing]})")
+    if errors:
+        raise RuntimeError("spawned ranks failed:\n" + "\n".join(errors))
+    return [got[r][1] for r in range(n)]

@@ -55,9 +55,23 @@ package's trainer, ``launch/train.py``):
         --lkv-ckpt experiments/ckpt/train_lkv.npz --budget 256 \
         --requests 4 --n-in 1024 --max-new 8
 
-The flags are those of the JAX launcher; ``--mesh-model``, whose
-feature the port does not serve yet, raises ``NotImplementedError``
-naming its ROADMAP item.  As in the JAX launcher, the chunked continuous
+The flags are those of the JAX launcher.  ``--mesh-model N`` serves one
+model tensor-parallel over N model shards on the chunked continuous
+route: it spawns N ranks (``torch.multiprocessing``, start method
+``spawn``), over NCCL with rank r on ``cuda:r`` when there are at least N
+cards, else over gloo with every rank on ``cuda:0`` (or on the CPU with
+``--device cpu``), and prints which.  Each rank draws the seeded weights
+in turn and keeps its shard (``common.sharding.serving_specs``); rank 0
+prints the results and writes the three files below.  As in the JAX
+launcher, the flag is ignored with a note off the chunked route, heads
+that do not divide N serve on a single device, and ``--decode-evict``
+with a pool is ignored under a mesh:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --continuous --kv-pool-mb 256 --budget 256 --chunk 256 --slots 4 \
+        --prompt-lens 1024,2048,3072,4000 --max-new 32 --mesh-model 2
+
+As in the JAX launcher, the chunked continuous
 route always serves traced (a ``TraceRecorder``, so its timers are
 device-synced) and prints the per-request phase table;
 ``--metrics-json``, ``--prom-snapshot`` and ``--trace-out`` (``.jsonl``:
@@ -97,16 +111,27 @@ the kernels.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
+import os
+import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import bridge
 from repro_torch.common.config import EvictionConfig
+from repro_torch.common.sharding import serving_specs, shard_tree
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import policies
 from repro_torch.core.lookahead import (init_lookahead_params,
                                         load_lookahead_params)
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_host_mesh, spawn_ranks
 from repro_torch.models import transformer as tf
 from repro_torch.obs import TraceRecorder, phase_table
 from repro_torch.serving import (BucketedEngine, ChunkingConfig,
@@ -115,9 +140,7 @@ from repro_torch.serving import (BucketedEngine, ChunkingConfig,
                                  ServingConfig, ServingEngine)
 
 # flag -> (value meaning "off", ROADMAP item of the feature)
-_UNPORTED = {
-    "mesh_model": (1, "a device mesh: ROADMAP A11"),
-}
+_UNPORTED: dict = {}
 
 
 def _print_phase_table(trace, done) -> None:
@@ -182,7 +205,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--decode-evict-interval", type=int, default=64,
                     help="rows of decode growth between eviction sweeps "
                          "(paged pool)")
-    ap.add_argument("--mesh-model", type=int, default=1)
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="tensor-parallel shards: serve one sharded model "
+                         "over a (data, model) mesh of that many ranks "
+                         "(continuous engine; 1 = single device)")
     ap.add_argument("--lkv-ckpt", default="")
     ap.add_argument("--metrics-json", default="",
                     help="write the engine's typed-metrics registry as a "
@@ -212,7 +238,63 @@ def _streamable(args) -> bool:
             and args.policy != "full")
 
 
-def build_engine(args, cfg, params, lkv):
+def mesh_model(args, cfg, say=print) -> int:
+    """The model shards ``--mesh-model`` gives on this route, with the JAX
+    launcher's notes: 1 off the chunked continuous route or where the
+    heads do not divide it."""
+    n = args.mesh_model
+    if n <= 1:
+        return 1
+    a = cfg.attn
+    if not _streamable(args):
+        say("note: --mesh-model requires the chunked continuous engine "
+            "(--continuous with a streamable policy); ignoring it")
+        return 1
+    if a is None or a.num_kv_heads % n or a.num_heads % n:
+        heads = None if a is None else (a.num_heads, a.num_kv_heads)
+        say(f"note: --mesh-model {n} does not divide {args.arch}'s (q, kv) "
+            f"heads {heads}; serving single-device")
+        return 1
+    return n
+
+
+def mesh_backend(device: str, n: int) -> str:
+    """NCCL with one card per rank, else gloo (ranks sharing a card, or
+    the CPU), whose collectives go through the host."""
+    if torch.device(device).type == "cuda" and \
+            torch.cuda.device_count() >= n:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(device: str, rank: int, n: int) -> str:
+    """Rank r's device: ``cuda:r`` with at least n cards, else ``cuda:0``
+    for every rank (made current); the CPU as it is."""
+    if torch.device(device).type != "cuda":
+        return device
+    idx = rank if torch.cuda.device_count() >= n else 0
+    torch.cuda.set_device(idx)
+    return f"cuda:{idx}"
+
+
+def init_shard(cfg, mesh, *, seed: int, device) -> dict:
+    """This rank's shard of the seeded weights: the ranks draw the full
+    tree in turn and keep their shard, so that at most one full tree is
+    on a shared card at a time."""
+    specs = serving_specs(cfg, mesh)
+    shard = None
+    for r in range(int(mesh.shape["model"])):
+        if r == mesh.model_index:
+            full = tf.init_params(cfg, seed=seed, device=device)
+            shard = shard_tree(full, specs, mesh, mesh.rank)
+            del full
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier(group=mesh.group)
+    return shard
+
+
+def build_engine(args, cfg, params, lkv, mesh=None):
     """The engine the JAX launcher builds for these arguments: lockstep
     ``ServingEngine`` without ``--continuous`` (which, as in JAX, does not
     take ``--decode-evict``); with it, ``BucketedEngine`` for the policies
@@ -233,7 +315,8 @@ def build_engine(args, cfg, params, lkv):
     pool = None
     if args.kv_pool_mb:
         pool = KVBlockPool(cfg, block_size=args.kv_block_size,
-                           pool_mb=args.kv_pool_mb, device=args.device)
+                           pool_mb=args.kv_pool_mb, device=args.device,
+                           mesh=mesh)
     prefix_cache = None
     if args.prefix_cache_mb:
         # with a pool, cached prefixes pin pool blocks (one copy, shared
@@ -246,9 +329,11 @@ def build_engine(args, cfg, params, lkv):
         chunking=ChunkingConfig(chunk=args.chunk,
                                 max_context=max(args.n_in, args.chunk)),
         decode_evict=DecodeEvictionConfig(
-            enabled=args.decode_evict, interval=args.decode_evict_interval),
+            # decode-time eviction on the pool is single-device (JAX)
+            enabled=args.decode_evict and (pool is None or mesh is None),
+            interval=args.decode_evict_interval),
         num_slots=args.slots, max_new_tokens=args.max_new, eos_id=-1,
-        kv_pool=pool, prefix_cache=prefix_cache,
+        kv_pool=pool, prefix_cache=prefix_cache, mesh=mesh,
         # span tracing is always on for the chunked engine: it is the
         # per-request latency attribution this launcher reports
         trace=TraceRecorder())
@@ -289,11 +374,13 @@ def write_artifacts(args, eng) -> None:
             print(f"span trace (perfetto) -> {args.trace_out}")
 
 
-def run(argv=None) -> dict:
+def run(argv=None, mesh=None) -> dict:
     """Build the model and engine from the command line, serve the
     requests, write the ``--metrics-json`` / ``--prom-snapshot`` /
     ``--trace-out`` files and return {"args", "cfg", "engine", "done",
-    "wall_s", "peak_bytes"}."""
+    "wall_s", "peak_bytes"}.  With ``mesh`` (one rank of ``main``'s
+    world), the rank's shard, on the rank's device; rank 0 writes the
+    files."""
     args = parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if not cfg.uses_attention:
@@ -320,15 +407,30 @@ def run(argv=None) -> dict:
         print("note: --kv-pool-mb requires the chunked continuous engine "
               "(--continuous with a streamable policy); ignoring it")
         args.kv_pool_mb = 0
-    params = tf.init_params(cfg, seed=args.seed, device=args.device)
+    n = mesh_model(args, cfg)
+    if mesh is not None and args.kv_pool_mb and args.decode_evict:
+        print("note: decode-time eviction on the paged pool is "
+              "single-device; ignoring --decode-evict under --mesh-model")
+    if mesh is None:
+        if n > 1:
+            raise ValueError(f"--mesh-model {n} serves from {n} ranks: "
+                             "run main(), which spawns them")
+        params = tf.init_params(cfg, seed=args.seed, device=args.device)
+    else:
+        if n != mesh.shape["model"]:
+            raise ValueError(f"a mesh of {mesh.shape} for --mesh-model {n}")
+        args.device = rank_device(args.device, mesh.rank, n)
+        params = init_shard(cfg, mesh, seed=args.seed, device=args.device)
+    # the lookahead modules take the layers' shapes only
+    layers = tf.init_params(cfg, device="meta")["layers"]
     lkv = None
     if args.lkv_ckpt and cfg.technique_applies and cfg.lookahead:
-        lkv = load_lookahead_params(args.lkv_ckpt, cfg, params["layers"],
+        lkv = load_lookahead_params(args.lkv_ckpt, cfg, layers,
                                     device=args.device)
         print(f"loaded lookahead modules from {args.lkv_ckpt}")
     elif args.policy == "lookaheadkv":
         gen = torch.Generator(device=args.device).manual_seed(args.seed + 1)
-        lkv = init_lookahead_params(gen, cfg, params["layers"])
+        lkv = init_lookahead_params(gen, cfg, layers)
 
     # the JAX launcher's draws: on the continuous route the system prompt
     # first (a zero-length draw leaves the stream as it is), then the
@@ -349,7 +451,7 @@ def run(argv=None) -> dict:
                         0, cfg.vocab_size, int(n)).astype(np.int32)]),
                     max_new_tokens=args.max_new)
             for i, n in enumerate(lens)]
-    eng = build_engine(args, cfg, params, lkv)
+    eng = build_engine(args, cfg, params, lkv, mesh)
     on_card = torch.device(args.device).type == "cuda"
     if on_card:
         torch.cuda.synchronize()
@@ -360,7 +462,8 @@ def run(argv=None) -> dict:
     if on_card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    write_artifacts(args, eng)
+    if mesh is None or mesh.rank == 0:
+        write_artifacts(args, eng)
     return {"args": args, "cfg": cfg, "engine": eng, "done": done,
             "wall_s": wall,
             # peak device bytes while serving (weights included)
@@ -368,8 +471,109 @@ def run(argv=None) -> dict:
             else None}
 
 
+def serve_job(job: dict, *, mesh=None, device=None) -> dict:
+    """Serve one ``ContinuousEngine`` run in this process: ``job`` holds
+    "cfg", "device", "serving" (a ``ServingConfig`` without pool or mesh),
+    "requests", "pool" (None or ``KVBlockPool`` keywords), and the weights
+    as the JAX package's full numpy trees "params" / "lkv" (``bridge``),
+    or a "seed" to draw them from (the launcher's draws).  Over ``mesh``
+    (one rank of a world, on ``device``) the rank's shard.  Returns the
+    served requests in finish order, the engine's ``stats`` and
+    ``counts``, the kernel launches, peak device bytes and wall seconds
+    of the run."""
+    cfg, sc = job["cfg"], job["serving"]
+    device = device or job["device"]
+    if job.get("params") is not None:
+        params = (bridge.to_torch(job["params"], device=device)
+                  if mesh is None else
+                  bridge.shard_to_torch(job["params"], cfg, mesh,
+                                        device=device))
+    elif mesh is None:
+        params = tf.init_params(cfg, seed=job["seed"], device=device)
+    else:
+        params = init_shard(cfg, mesh, seed=job["seed"], device=device)
+    lkv = None
+    if sc.policy == "lookaheadkv":
+        if job.get("lkv") is not None:
+            lkv = bridge.to_torch(job["lkv"], device=device)
+        else:
+            gen = torch.Generator(device=device).manual_seed(job["seed"] + 1)
+            lkv = init_lookahead_params(
+                gen, cfg, tf.init_params(cfg, device="meta")["layers"])
+    pool = None
+    if job.get("pool") is not None:
+        pool = KVBlockPool(cfg, device=device, mesh=mesh, **job["pool"])
+    eng = ContinuousEngine(params, cfg, sc.replace(kv_pool=pool, mesh=mesh),
+                           lkv_params=lkv, device=device)
+    del params
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run([copy.deepcopy(r) for r in job["requests"]])
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        stats = dict(eng.stats)
+    return {"done": done, "stats": stats, "counts": dict(eng.counts),
+            "launches": ops.launch_counts(), "wall_s": wall,
+            "peak_bytes": (torch.cuda.max_memory_allocated()
+                           if on_card else None),
+            "model_index": 0 if mesh is None else mesh.model_index}
+
+
+def serve_shard(rank: int, job: dict) -> dict:
+    """One rank of a tensor-parallel ``serve_job``, for ``spawn_ranks``:
+    the world's ("data", "model") mesh of one data row, on the rank's
+    device (``rank_device``)."""
+    n = dist.get_world_size()
+    return serve_job(job, mesh=make_host_mesh(model=n),
+                     device=rank_device(job["device"], rank, n))
+
+
+def serve_shards(rank: int, jobs: list) -> list:
+    """``serve_shard`` over several jobs in one world, in order."""
+    return [serve_shard(rank, job) for job in jobs]
+
+
+def _cli_rank(rank: int, argv) -> None:
+    """One rank of ``main``'s world: serve on the rank's shard; only rank
+    0 prints."""
+    mesh = make_host_mesh(model=dist.get_world_size())
+    with contextlib.ExitStack() as stack:
+        if rank:
+            sink = stack.enter_context(open(os.devnull, "w"))
+            stack.enter_context(contextlib.redirect_stdout(sink))
+        report(run(argv, mesh=mesh))
+
+
 def main(argv=None) -> None:
-    res = run(argv)
+    args = parse_args(argv)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    n = mesh_model(args, cfg, say=lambda *_: None)
+    if n == 1:
+        report(run(argv))
+        return
+    backend = mesh_backend(args.device, n)
+    place = ("one card per rank" if backend == "nccl" else
+             "every rank on cuda:0" if torch.device(args.device).type
+             == "cuda" else f"every rank on {args.device}")
+    print(f"mesh: {{'data': 1, 'model': {n}}} over {n} spawned ranks "
+          f"({backend}, {place})")
+    sys.stdout.flush()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(_cli_rank, n, (argv if argv is not None
+                                   else sys.argv[1:],),
+                    init_file=os.path.join(tmp, "store"), backend=backend,
+                    timeout_s=600.0)
+
+
+def report(res: dict) -> None:
+    """Print a run's results (the JAX launcher's lines)."""
     args, eng, done = res["args"], res["engine"], res["done"]
     cb = eng.cache_bytes(args.n_in)
     print(f"{type(eng).__name__}"

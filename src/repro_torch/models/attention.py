@@ -16,6 +16,7 @@ dense decode cache and the block pool, the port writes them in place
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -47,6 +48,108 @@ def _lora_for(lora: Optional[dict], name: str) -> Optional[dict]:
     return None if lora is None else lora.get(name)
 
 
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving
+# ---------------------------------------------------------------------------
+#
+# Over a mesh (``launch/mesh.py``) every rank runs the model functions on
+# its own shard (``common/sharding.py::serving_specs``): the contiguous
+# slice of q heads, kv heads, d_ff columns, vocab rows and of ``wo`` /
+# ``w_down``'s output columns.  Activations stay replicated.  Attention
+# and its kernels run per rank on the local heads (``local_config``: H/N
+# and KV/N heads); every product contracts its full input in
+# single-device order, with the activation all-gathered first where that
+# input is sharded (the JAX helpers' ``all_gather`` inside ``shard_map``),
+# so no partial sum ever crosses ranks and the results are the
+# single-device ones bit for bit wherever a column slice of a product is.
+
+
+def model_shard_mesh(mesh, a: Optional[AttentionConfig]):
+    """The mesh when per-shard head dispatch applies, else None: kv heads
+    (and so q heads) must divide a "model" axis above 1."""
+    if a is None or mesh is None or "model" not in getattr(
+            mesh, "axis_names", ()):
+        return None
+    msize = int(mesh.shape["model"])
+    if msize == 1 or a.num_kv_heads % msize or a.num_heads % msize:
+        return None
+    return mesh
+
+
+def local_config(cfg: ModelConfig, smesh) -> ModelConfig:
+    """``cfg`` as one rank's shard sees it: H/N q heads and KV/N kv heads
+    (the head dim, the GQA group and every other field unchanged)."""
+    if smesh is None:
+        return cfg
+    n = int(smesh.shape["model"])
+    a = cfg.attn
+    return dataclasses.replace(cfg, attn=dataclasses.replace(
+        a, num_heads=a.num_heads // n, num_kv_heads=a.num_kv_heads // n))
+
+
+def all_gather(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The model-axis ranks' ``x`` concatenated along ``dim`` in rank
+    order (``jax.lax.all_gather(..., tiled=True)``).  Over NCCL (one card
+    per rank) ``all_gather_into_tensor`` on the card; over gloo (ranks
+    sharing a card, or the CPU) through the host."""
+    import torch.distributed as dist
+
+    group = mesh.group
+    if group is None:
+        raise ValueError("a shape-only mesh has no ranks to gather from")
+    n = int(mesh.shape["model"])
+    if dist.get_backend(group) == "nccl":
+        xs = x.contiguous()
+        out = torch.empty((n * xs.shape[0], *xs.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather_into_tensor(out, xs, group=group)
+        return torch.cat(out.chunk(n, dim=0), dim=dim)
+    host = x.detach().to("cpu").contiguous()
+    parts = [torch.empty_like(host) for _ in range(n)]
+    dist.all_gather(parts, host, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)
+
+
+def model_slice(x: torch.Tensor, smesh, dim: int = -1) -> torch.Tensor:
+    """This rank's contiguous slice of a replicated tensor along ``dim``."""
+    n = int(smesh.shape["model"])
+    w = x.shape[dim] // n
+    return x.narrow(dim, smesh.model_index * w, w)
+
+
+def local_lora(lora: Optional[dict], smesh) -> Optional[dict]:
+    """A replicated LoRA of a column-sliced weight as the shard applies it:
+    A in full (the delta contracts the full input), B's local columns."""
+    if lora is None or smesh is None:
+        return lora
+    return {"a": lora["a"], "b": model_slice(lora["b"], smesh).contiguous()}
+
+
+def replicated_apply(fn, smesh, *args):
+    """``fn(*args)`` computed whole on every rank: the operands are
+    replicated, so each rank runs the single-device computation (JAX
+    gathers them inside ``shard_map``; here every rank holds them)."""
+    del smesh
+    return fn(*args)
+
+
+def sharded_wo_linear(out_flat: torch.Tensor, w: torch.Tensor, smesh, *,
+                      lora: Optional[dict] = None,
+                      lm: Optional[torch.Tensor] = None,
+                      ls: float = 1.0) -> torch.Tensor:
+    """The attention out-projection with its contraction in single-device
+    order: the head-sharded output is all-gathered, each rank computes its
+    columns of d_model from the full contraction (``w`` is its column
+    slice of ``wo``), and the columns are all-gathered.  The LoRA delta
+    rides along (A in full, B column-sliced)."""
+    if smesh is None:
+        return linear(out_flat, w, lora=lora, lora_mask=lm, lora_scale=ls)
+    of = all_gather(out_flat, -1, smesh)
+    y = linear(of, w, lora=local_lora(lora, smesh), lora_mask=lm,
+               lora_scale=ls)
+    return all_gather(y, -1, smesh)
+
+
 def qkv(
     p: dict,
     a: AttentionConfig,
@@ -58,17 +161,25 @@ def qkv(
     lora_scale: float = 1.0,
     rope_tables: Optional[tuple] = None,  # rope_tables or mrope_tables
     rotary: bool = True,  # False: whisper's encoder (no positions)
+    smesh=None,  # model_shard_mesh-vetted: p holds this rank's heads
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Project + rotate.  Returns q (B,S,H,hd), k/v (B,S,KV,hd).  A caller
-    running many layers at the same positions passes ``rope_tables`` once."""
+    running many layers at the same positions passes ``rope_tables`` once.
+    Under ``smesh`` the projections are column-parallel: ``p`` holds the
+    rank's head columns (and biases), the LoRA its B columns, and ``a``
+    the local head counts."""
     B, S, _ = h.shape
     lm = lookahead_mask
-    q = linear(h, p["wq"], p.get("bq"), lora=_lora_for(lora, "wq"),
-               lora_mask=lm, lora_scale=lora_scale)
-    k = linear(h, p["wk"], p.get("bk"), lora=_lora_for(lora, "wk"),
-               lora_mask=lm, lora_scale=lora_scale)
-    v = linear(h, p["wv"], p.get("bv"), lora=_lora_for(lora, "wv"),
-               lora_mask=lm, lora_scale=lora_scale)
+
+    def lo(name):
+        return local_lora(_lora_for(lora, name), smesh)
+
+    q = linear(h, p["wq"], p.get("bq"), lora=lo("wq"), lora_mask=lm,
+               lora_scale=lora_scale)
+    k = linear(h, p["wk"], p.get("bk"), lora=lo("wk"), lora_mask=lm,
+               lora_scale=lora_scale)
+    v = linear(h, p["wv"], p.get("bv"), lora=lo("wv"), lora_mask=lm,
+               lora_scale=lora_scale)
     q = q.reshape(B, S, a.num_heads, a.head_dim)
     k = k.reshape(B, S, a.num_kv_heads, a.head_dim)
     v = v.reshape(B, S, a.num_kv_heads, a.head_dim)
@@ -194,6 +305,7 @@ def chunk_prefill_attention(
     lora: Optional[dict] = None,
     lora_scale: float = 1.0,
     rope_tables: Optional[tuple] = None,
+    smesh=None,  # tensor-parallel: the rank's heads (``a`` local)
 ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Streaming-prefill attention: project + rotate the chunk, write its
     K/V into the prompt buffer at ``q_offset`` and attend its queries over
@@ -206,7 +318,8 @@ def chunk_prefill_attention(
     raises otherwise (the JAX ``dynamic_update_slice`` would clamp the
     start silently and corrupt earlier chunks' keys)."""
     q, k, v = qkv(p, a, h, positions, lookahead_mask=lookahead_mask,
-                  lora=lora, lora_scale=lora_scale, rope_tables=rope_tables)
+                  lora=lora, lora_scale=lora_scale, rope_tables=rope_tables,
+                  smesh=smesh)
     B, C = h.shape[:2]
     check_offset(q_offset, C, k_buf.shape[1])  # before the write below
     # in place: the chunk's K/V land in the caller's buffer (JAX returns
@@ -221,9 +334,9 @@ def chunk_prefill_attention(
     else:
         out = ops.chunk_attention(q, k_buf, v_buf, q_offset=q_offset,
                                   window=window)
-    out = linear(out.reshape(B, C, a.q_dim), p["wo"],
-                 lora=_lora_for(lora, "wo"), lora_mask=lookahead_mask,
-                 lora_scale=lora_scale)
+    out = sharded_wo_linear(out.reshape(B, C, a.q_dim), p["wo"], smesh,
+                            lora=_lora_for(lora, "wo"), lm=lookahead_mask,
+                            ls=lora_scale)
     return out, q, masses
 
 
@@ -266,6 +379,7 @@ def decode_attention_step(
     rows: tuple,  # dense_append_rows(...), shared by the layers
     window: Optional[int] = None,
     rope_tables: Optional[tuple] = None,
+    smesh=None,  # tensor-parallel: the rank's heads (``a`` local)
 ) -> torch.Tensor:
     """One decode step against a dense cache: append the token's K/V at
     each sequence's row (``dense_append_rows``), then attend over the cache
@@ -291,7 +405,7 @@ def decode_attention_step(
         att_mask = att_mask & ((positions[:, :, None] - cache["pos"]) < window)
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
                                kv_mask=att_mask)
-    return linear(out.reshape(B, 1, a.q_dim), p["wo"])
+    return sharded_wo_linear(out.reshape(B, 1, a.q_dim), p["wo"], smesh)
 
 
 def append_slots(table: torch.Tensor, cursor: torch.Tensor, depth: int,
@@ -329,6 +443,7 @@ def decode_attention_step_paged(
     window: Optional[int] = None,
     rope_tables: Optional[tuple] = None,
     slots: Optional[tuple] = None,  # append_slots(...), shared by layers
+    smesh=None,  # tensor-parallel: the rank's heads (``a`` local)
 ) -> torch.Tensor:
     """One decode step against the paged cache (``serving/kv_pool.py``).
 
@@ -369,7 +484,7 @@ def decode_attention_step_paged(
             q[:, 0], pool["k"], pool["v"], pool["mask"], table, depth=depth,
             score_masses=True, **kw)
         score += decode_mass_update(masses, KV, active=write_ok)  # in place
-    return linear(out.reshape(B, 1, a.q_dim), p["wo"])
+    return sharded_wo_linear(out.reshape(B, 1, a.q_dim), p["wo"], smesh)
 
 
 def decode_attention_step_evicting(
@@ -383,6 +498,7 @@ def decode_attention_step_evicting(
     active: Optional[torch.Tensor] = None,  # (B,) live slots
     window: Optional[int] = None,
     rope_tables: Optional[tuple] = None,
+    smesh=None,  # tensor-parallel: the rank's heads (``a`` local)
 ) -> torch.Tensor:
     """Decoding-stage eviction over a dense cache (beyond-paper: the paper
     names decode eviction as future work).  The cache's ``score`` holds
@@ -442,4 +558,4 @@ def decode_attention_step_evicting(
                                < window)
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
                                kv_mask=att_mask)
-    return linear(out.reshape(B, 1, a.q_dim), p["wo"])
+    return sharded_wo_linear(out.reshape(B, 1, a.q_dim), p["wo"], smesh)

@@ -17,22 +17,33 @@ import torch
 import torch.nn.functional as F
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+def gen_device(gen: Optional[torch.Generator]) -> torch.device:
+    """Where an initialiser draws: the generator's device, or the meta
+    device for ``gen`` None (shapes and dtypes, nothing drawn)."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def dense_init(gen: Optional[torch.Generator], d_in: int, d_out: int,
                dtype: torch.dtype, *, lead=()) -> torch.Tensor:
     """N(0, 1/d_in) weights of shape (*lead, d_in, d_out), drawn one
     (d_in, d_out) matrix at a time so the float32 draw never holds more
     than one layer's matrix."""
-    out = torch.empty((*lead, d_in, d_out), dtype=dtype, device=gen.device)
+    dev = gen_device(gen)
+    out = torch.empty((*lead, d_in, d_out), dtype=dtype, device=dev)
+    if gen is None:
+        return out
     flat = out.view(-1, d_in, d_out)
     for i in range(flat.shape[0]):
-        w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
+        w = torch.randn((d_in, d_out), generator=gen, device=dev,
                         dtype=torch.float32)
         flat[i] = w.mul_(1.0 / math.sqrt(d_in))
     return out
 
 
-def embed_init(gen: torch.Generator, vocab: int, d: int,
+def embed_init(gen: Optional[torch.Generator], vocab: int, d: int,
                dtype: torch.dtype) -> torch.Tensor:
+    if gen is None:
+        return torch.empty((vocab, d), dtype=dtype, device="meta")
     w = torch.randn((vocab, d), generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (w * 0.02).to(dtype)

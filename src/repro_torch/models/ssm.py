@@ -26,7 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, linear, rms_norm
+from repro_torch.models.layers import (dense_init, gen_device, linear,
+                                      rms_norm)
 
 # B/C share a single group in every config (Mamba-2's default ngroups = 1)
 NGROUPS = 1
@@ -40,13 +41,13 @@ def dims(cfg: ModelConfig):
     return s, di, nh, di + 2 * NGROUPS * s.d_state
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, *,
+def init(gen: Optional[torch.Generator], cfg: ModelConfig, dtype: torch.dtype, *,
          lead=()) -> dict:
     """Random parameters drawn from ``gen`` (the JAX package's
     distributions): A = -uniform(a_init_range) per head, dt_bias the
     inverse softplus of dt drawn log-uniformly in [dt_min, dt_max]."""
     s, di, nh, conv_dim = dims(cfg)
-    dev = gen.device
+    dev = gen_device(gen)
     d_in_proj = 2 * di + 2 * NGROUPS * s.d_state + nh
     lo, hi = s.a_init_range
 

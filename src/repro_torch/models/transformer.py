@@ -55,8 +55,8 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import layer_window
-from repro_torch.models.layers import (dense_init, embed_init, linear,
-                                      rms_norm)
+from repro_torch.models.layers import (dense_init, embed_init, gen_device,
+                                      linear, rms_norm)
 from repro_torch.models.rope import (rope_tables, tables_for,
                                      text_mrope_positions)
 
@@ -94,12 +94,15 @@ def chunkable(cfg: ModelConfig) -> bool:
 def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device="cuda") -> dict:
     """Random parameters in the JAX tree layout, drawn on ``device`` from a
-    ``torch.Generator`` seeded with ``seed``."""
+    ``torch.Generator`` seeded with ``seed``; on the meta device, the
+    tree's shapes and dtypes with nothing drawn."""
     _check_arch(cfg)
     dtype = torch_dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = None
+    if torch.device(device).type != "meta":
+        gen = torch.Generator(device=device).manual_seed(seed)
     L, d = cfg.num_layers, cfg.d_model
-    dev = gen.device
+    dev = gen_device(gen)
     layers = {"ln1": torch.zeros((L, d), dtype=dtype, device=dev)}
     if cfg.uses_attention:
         layers["attn"] = attn_mod.init(gen, cfg, dtype, lead=(L,))
@@ -188,22 +191,44 @@ def _windows(cfg: ModelConfig) -> list:
 # ---------------------------------------------------------------------------
 
 
-def embed(params: dict, cfg: ModelConfig, inputs: torch.Tensor) -> torch.Tensor:
+def embed(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
+          smesh=None) -> torch.Tensor:
     """Token ids (B, S) through the embedding table; an ``embeds_in``
     arch also takes float embeddings (B, S, D) (qwen2-vl's projected
-    patches), cast to the model dtype."""
+    patches), cast to the model dtype.  Under ``smesh`` with the table
+    sharded by vocab rows, each rank looks up the rows it owns (zeros
+    elsewhere) and the gathered parts are summed in rank order, exactly,
+    since every token has one nonzero part."""
     if cfg.embeds_in and inputs.is_floating_point():
         return inputs.to(torch_dtype(cfg))
-    return params["embed"][inputs.long()]
+    table = params["embed"]
+    ids = inputs.long()
+    rows = table.shape[0]
+    if smesh is None or rows == cfg.padded_vocab:
+        return table[ids]
+    local = ids - smesh.model_index * rows
+    own = (local >= 0) & (local < rows)
+    part = torch.where(own[..., None], table[local.clamp(0, rows - 1)], 0)
+    parts = attn_mod.all_gather(part[None], 0, smesh)
+    out = parts[0]
+    for r in range(1, parts.shape[0]):
+        out = out + parts[r]
+    return out
 
 
-def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """Logits (float32) over the padded vocab; pad rows are -1e30."""
+def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor,
+            smesh=None) -> torch.Tensor:
+    """Logits (float32) over the padded vocab; pad rows are -1e30.  Under
+    ``smesh`` with the vocab sharded, each rank computes its vocab
+    columns and the columns are all-gathered, so every rank holds the
+    full logits."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = (h @ params["embed"].T).float()
     else:
         logits = (h @ params["lm_head"]).float()
+    if smesh is not None and logits.shape[-1] != cfg.padded_vocab:
+        logits = attn_mod.all_gather(logits, -1, smesh)
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab_size
         logits = torch.where(pad, -1e30, logits)
@@ -211,12 +236,17 @@ def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn_residual(h, lp, cfg: ModelConfig, *, lora_l=None, lora_mask=None,
-                  ls: float = 1.0):
+                  ls: float = 1.0, smesh=None):
     """The post-attention half of a block: (h + ffn(rms_norm(h, ln2)),
     aux), the MoE (``cfg.moe.dispatch`` picks ``moe.apply`` or
     ``apply_sparse``; its LoRA is the shared experts') or the MLP; aux is
-    the MoE load-balance loss, None without MoE."""
+    the MoE load-balance loss, None without MoE.  Under ``smesh`` the MLP
+    runs tensor-parallel (``mlp.apply_sharded``); an MoE arch is refused
+    there."""
     if cfg.moe is not None:
+        if smesh is not None:
+            raise NotImplementedError("not ported yet: an MoE arch under "
+                                      "a mesh: ROADMAP A11")
         u = rms_norm(h, lp["ln2"], cfg.norm_eps)
         moe_lora = None
         if lora_l is not None and lora_l.get("moe"):
@@ -230,8 +260,9 @@ def _ffn_residual(h, lp, cfg: ModelConfig, *, lora_l=None, lora_mask=None,
         return h, None
     u = rms_norm(h, lp["ln2"], cfg.norm_eps)
     mlp_lora = None if lora_l is None else lora_l.get("mlp")
-    return h + mlp_mod.apply(lp["mlp"], cfg, u, lora=mlp_lora,
-                             lora_mask=lora_mask, lora_scale=ls), None
+    return h + mlp_mod.apply_sharded(lp["mlp"], cfg, u, smesh, lora=mlp_lora,
+                                     lora_mask=lora_mask,
+                                     lora_scale=ls), None
 
 
 # ---------------------------------------------------------------------------
@@ -670,11 +701,15 @@ class ChunkState:
 
 
 def init_chunk_state(cfg: ModelConfig, policy: str, batch: int,
-                     capacity: int, *, device="cuda") -> ChunkState:
+                     capacity: int, *, device="cuda",
+                     mesh=None) -> ChunkState:
     """Fresh state with a ``capacity``-deep KV buffer, which must hold the
     prompt plus the appended observation rows, and the policy's zero
-    ``ScoreState``.  Attention-only archs (``chunkable``)."""
+    ``ScoreState``.  Attention-only archs (``chunkable``).  Over a mesh,
+    the rank's local heads."""
     _check_arch(cfg)
+    cfg = attn_mod.local_config(
+        cfg, attn_mod.model_shard_mesh(mesh, cfg.attn))
     check_policy(policy)
     if not chunkable(cfg):
         raise ValueError(f"{cfg.name}: chunked prefill serves "
@@ -735,6 +770,7 @@ def prefill_chunk(
     n_total: int,  # true prompt length
     *,
     policy: str,
+    mesh=None,  # tensor-parallel serving: the rank's shard of params
 ) -> tuple[ChunkState, torch.Tensor]:
     """Process one chunk starting at ``state.pos``: its K/V land in the
     buffer and its scores in the state (in place).  Returns (state',
@@ -743,9 +779,13 @@ def prefill_chunk(
     row, they carry no score (h2o's masses count only rows below
     ``n_total``; the query window rolls in only real rows) and finalize
     masks their columns out of the cache.  Only h2o asks the attention
-    for column masses (kernel 2 on the card; kernel 1 otherwise)."""
+    for column masses (kernel 2 on the card; kernel 1 otherwise).  Over a
+    ``mesh`` whose model axis divides the heads, ``params`` and ``state``
+    are the rank's shards and every rank returns the full logits."""
+    smesh = attn_mod.model_shard_mesh(mesh, cfg.attn)
+    cfg = attn_mod.local_config(cfg, smesh)
     a = cfg.attn
-    h = embed(params, cfg, tokens)
+    h = embed(params, cfg, tokens, smesh)
     B, C = h.shape[:2]
     s = state.pos
     positions = (s + torch.arange(C, device=h.device)).expand(B, C)
@@ -758,8 +798,8 @@ def prefill_chunk(
         out, q, masses = attn_mod.chunk_prefill_attention(
             lp["attn"], a, u, positions, state.k[layer], state.v[layer],
             q_offset=s, window=window, score_masses=want_masses,
-            n_total=n_total, rope_tables=tables)
-        h, _ = _ffn_residual(h + out, lp, cfg)
+            n_total=n_total, rope_tables=tables, smesh=smesh)
+        h, _ = _ffn_residual(h + out, lp, cfg, smesh=smesh)
         scoring.update_layer_scores(
             policy, None if score.acc is None else score.acc[layer],
             None if score.qbuf is None else score.qbuf[layer], q,
@@ -767,15 +807,15 @@ def prefill_chunk(
     if score.acc is not None:
         score = score._replace(cnt=score.cnt + min(max(n_total - s, 0), C))
     row = min(max(n_total - 1 - s, 0), C - 1)
-    logits = unembed(params, cfg, h[:, row])
+    logits = unembed(params, cfg, h[:, row], smesh)
     return ChunkState(k=state.k, v=state.v, score=score, pos=s + C), logits
 
 
 def _chunk_observation_pass(params: dict, cfg: ModelConfig, state: ChunkState,
                             n_total: int, *, policy: str,
                             lkv_params: Optional[dict] = None,
-                            obs_tokens: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            obs_tokens: Optional[torch.Tensor] = None,
+                            smesh=None) -> torch.Tensor:
     """The final-observation pass of lookaheadkv (the learned lookahead
     rows, with their selective LoRA) or gt_oracle (the response rows
     ``obs_tokens``): the rows run through the stack at positions
@@ -799,7 +839,7 @@ def _chunk_observation_pass(params: dict, cfg: ModelConfig, state: ChunkState,
         if obs_tokens is None:
             raise ValueError("gt_oracle needs the response rows "
                              "(obs_tokens)")
-        h = embed(params, cfg, obs_tokens)
+        h = embed(params, cfg, obs_tokens, smesh)
         n_obs = h.shape[1]
         lora_tree, ls, lmask = None, 1.0, None
     positions = (n_total + torch.arange(n_obs, device=h.device)).expand(
@@ -814,9 +854,9 @@ def _chunk_observation_pass(params: dict, cfg: ModelConfig, state: ChunkState,
             lp["attn"], a, u, positions, state.k[layer], state.v[layer],
             q_offset=n_total, window=window, lookahead_mask=lmask,
             lora=None if lora_l is None else lora_l.get("attn"),
-            lora_scale=ls, rope_tables=tables)
+            lora_scale=ls, rope_tables=tables, smesh=smesh)
         h, _ = _ffn_residual(h + out, lp, cfg, lora_l=lora_l,
-                             lora_mask=lmask, ls=ls)
+                             lora_mask=lmask, ls=ls, smesh=smesh)
         masses.append(ops.lookahead_score(q, state.k[layer], K,
                                           q_offset=n_total, window=window))
     return torch.stack(masses)
@@ -860,6 +900,7 @@ def prefill_finalize(
     obs_tokens: Optional[torch.Tensor] = None,  # (B, n_obs) gt_oracle only
     extra_slots: int = 0,
     seeds: Optional[torch.Tensor] = None,  # (B,) request seeds (random)
+    mesh=None,  # tensor-parallel serving: the rank's shard of params
 ) -> dict:
     """Close a streaming prefill: run the deferred observation pass (for
     lookaheadkv and gt_oracle), turn the ``ScoreState`` into eviction
@@ -868,8 +909,17 @@ def prefill_finalize(
     Returns the decode cache {"attn": {k, v (L, B, cap, KV, hd), pos, mask
     (L, B, cap, KV)}, "cursor": capacity, "next_pos": (B, 1)} with ``cap
     = capacity + extra_slots``: the kept slots of the monolithic
-    ``prefill``, with surplus slots masked invalid."""
+    ``prefill``, with surplus slots masked invalid.
+
+    Over a ``mesh``, each rank scores, pools and selects over its local kv
+    heads and returns their cache; what couples the heads is taken at the
+    global head count and sliced: the position policies' scores (the
+    random draws), and the adaptive head budgets (over the all-gathered
+    scores)."""
     check_policy(policy)
+    smesh = attn_mod.model_shard_mesh(mesh, cfg.attn)
+    kv_global = cfg.attn.num_kv_heads
+    cfg = attn_mod.local_config(cfg, smesh)
     a = cfg.attn
     lk = cfg.lookahead
     evict = evict or EvictionConfig()
@@ -879,7 +929,7 @@ def prefill_finalize(
     if policy in scoring.FINAL_OBS:
         obs = _chunk_observation_pass(params, cfg, state, n_total,
                                       policy=policy, lkv_params=lkv_params,
-                                      obs_tokens=obs_tokens)
+                                      obs_tokens=obs_tokens, smesh=smesh)
     budgets, _ = _policy_budget_schedule(
         cfg, policy, evict.budget if policy != "full" else K,
         evict.pyramid_beta)
@@ -887,10 +937,11 @@ def prefill_finalize(
     adaptive = evict.head_alloc == "adaptive" and policy != "full"
     key_mask = (torch.arange(K, device=dev) < n_total).expand(B, K)
     if policy in scoring.POSITION_POLICIES:
-        pos_scores = torch.where(
-            key_mask[:, None, :],
-            ev.position_scores(policy, K, B, a.num_kv_heads, sink=evict.sink,
-                               seeds=seeds, device=dev), NEG_INF)
+        pos = ev.position_scores(policy, K, B, kv_global, sink=evict.sink,
+                                 seeds=seeds, device=dev)
+        if smesh is not None:
+            pos = attn_mod.model_slice(pos, smesh, dim=1)
+        pos_scores = torch.where(key_mask[:, None, :], pos, NEG_INF)
     sc = state.score
     layers = []
     for layer, window in enumerate(_windows(cfg)):
@@ -905,9 +956,14 @@ def prefill_finalize(
                 window_size=lk.window_size if lk else 32, window=window)
         else:
             s_kv = pos_scores
-        hb = (ev.adaptive_head_budgets(torch.clamp(s_kv, min=0.0),
-                                       evict.budget, capacity)
-              if adaptive else None)
+        hb = None
+        if adaptive:
+            s_all = torch.clamp(s_kv, min=0.0)
+            if smesh is not None:
+                s_all = attn_mod.all_gather(s_all, 1, smesh)
+            hb = ev.adaptive_head_budgets(s_all, evict.budget, capacity)
+            if smesh is not None:
+                hb = attn_mod.model_slice(hb, smesh, dim=1)
         layers.append(ev.evict_layer(
             s_kv, state.k[layer], state.v[layer], capacity,
             layer_budget=None if adaptive else budgets[layer],
@@ -935,7 +991,8 @@ def prefill_finalize(
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
-                      per_slot_cursor: bool = False, device="cuda") -> dict:
+                      per_slot_cursor: bool = False, device="cuda",
+                      mesh=None) -> dict:
     """Fresh, empty dense decode cache: k/v (L, batch, capacity, KV, hd)
     zeros, pos (L, batch, capacity, KV) = row index, mask false, cursors
     and positions 0.  ``per_slot_cursor`` gives every batch row (serving
@@ -944,8 +1001,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
     batch, cw - 1, conv_dim), state (L, batch, nh, hd, ds) float32} zeros;
     without attention there is no "attn" and no cursor.  Encoder-decoder
     archs add "cross": {k, v (L, batch, F, KV, hd)} zeros, the unevicted
-    encoder K/V."""
+    encoder K/V.  Over a mesh, the rank's local kv heads."""
     _check_arch(cfg)
+    cfg = attn_mod.local_config(
+        cfg, attn_mod.model_shard_mesh(mesh, cfg.attn))
     a = cfg.attn
     L = cfg.num_layers
     cache = {}
@@ -1071,6 +1130,7 @@ def decode_step(
     active: Optional[torch.Tensor] = None,  # (B,) live slots
     paged_depth: Optional[int] = None,
     mrope_positions: Optional[torch.Tensor] = None,  # (3, B, 1) M-RoPE
+    mesh=None,  # tensor-parallel serving: the rank's shard of params
 ) -> tuple[torch.Tensor, dict]:
     """One decode step.  Returns (logits (B, V) float32, new cache).
 
@@ -1104,9 +1164,15 @@ def decode_step(
     block's cross-attention of the token over the full encoder K/V
     (``ops.flash_attention`` with one query row: kernel 6 on the card),
     or with a ``mask`` leaf (a ``cross_budget`` eviction) over its kept
-    frames under the per-kv-head mask (``ops.decode_attention``)."""
+    frames under the per-kv-head mask (``ops.decode_attention``).
+
+    Over a ``mesh`` whose model axis divides the heads, ``params`` and the
+    cache are the rank's shards (its kv heads), attention runs on its
+    local heads and every rank returns the full logits."""
+    smesh = attn_mod.model_shard_mesh(mesh, cfg.attn)
+    cfg = attn_mod.local_config(cfg, smesh)
     a = cfg.attn
-    h = embed(params, cfg, token)
+    h = embed(params, cfg, token, smesh)
     B = h.shape[0]
     positions = cache["next_pos"]
     paged = "pool" in cache
@@ -1143,17 +1209,18 @@ def decode_step(
                 lp["attn"], a, u, positions, layer_slice(pool, layer),
                 table=table, cursor=cursor, depth=paged_depth,
                 active=active, window=window, rope_tables=tables,
-                slots=slots)
+                slots=slots, smesh=smesh)
         elif attend and evicting:
             delta = attn_mod.decode_attention_step_evicting(
                 lp["attn"], a, u, positions,
                 layer_slice(cache["attn"], layer), cursor=cursor,
-                active=active, window=window, rope_tables=tables)
+                active=active, window=window, rope_tables=tables,
+                smesh=smesh)
         elif attend:
             delta = attn_mod.decode_attention_step(
                 lp["attn"], a, u, positions,
                 layer_slice(cache["attn"], layer), rows=rows, window=window,
-                rope_tables=tables)
+                rope_tables=tables, smesh=smesh)
         if cfg.uses_ssm:
             s_out = _ssm_decode(lp["ssm"], cfg, u,
                                 layer_slice(cache["ssm"], layer))
@@ -1169,8 +1236,8 @@ def decode_step(
             else:
                 h = h + attn_mod.cross_attention(
                     lp["cross"], a, u, cross["k"][layer], cross["v"][layer])
-        h, _ = _ffn_residual(h, lp, cfg)
-    logits = unembed(params, cfg, h[:, 0])
+        h, _ = _ffn_residual(h, lp, cfg, smesh=smesh)
+    logits = unembed(params, cfg, h[:, 0], smesh)
     new_cache = dict(cache)
     adv_p = positions + 1
     if active is not None:

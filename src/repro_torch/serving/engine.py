@@ -69,9 +69,22 @@ policy it takes (not ``gt_oracle``, which needs the response, nor
 go to ``BucketedEngine``).  ``config.lkv_checkpoint`` loads trained
 lookahead modules (``core.lookahead.load_lookahead_params``) and
 ``config.harvest`` (a ``data.harvest.HarvestWriter``) is called with
-every retired request.  A device mesh raises ``NotImplementedError``
-naming ROADMAP A11.  PyTorch runs eagerly, so there is no compile cache;
-on the card the attention kernels run through ``kernels/ops.py``.
+every retired request.  PyTorch runs eagerly, so there is no compile
+cache; on the card the attention kernels run through ``kernels/ops.py``.
+
+Tensor-parallel serving (``config.mesh``, a ``launch.mesh.Mesh`` over an
+initialised process group, one process per model shard): every rank runs
+this engine on its shard of the params (``common.sharding.serving_specs``;
+a full tree is sharded at construction, the lookahead params stay
+replicated) and its kv heads of the pool or the dense slots, the model
+functions all-gathering activations where a product's input is sharded
+(``models/attention.py``).  The host decisions are the same on every
+rank: the tokens come from the same gathered logits, the allocator and
+block tables are head-oblivious, and the arrivals are read on rank 0's
+clock, broadcast at every reading.  A data axis above 1, an MoE arch and
+the prefix cache under a mesh raise ``NotImplementedError`` naming ROADMAP
+A11; decode-time eviction on the pool under a mesh raises ``ValueError``,
+as the JAX engine asserts.
 
 Observability (``repro_torch.obs``), as in the JAX engine: the engine's
 record is one typed ``MetricsRegistry`` (``engine.metrics``: counters and
@@ -116,10 +129,13 @@ import numpy as np
 import torch
 
 from repro_torch.common.config import EvictionConfig, ModelConfig
+from repro_torch.common.sharding import (mesh_signature, serving_specs,
+                                         shard_tree)
 from repro_torch.core import policies
 from repro_torch.core.eviction import select_topk
 from repro_torch.core.lookahead import load_lookahead_params
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tf
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import request_track
@@ -338,9 +354,30 @@ def _reject_unported(config: ServingConfig) -> None:
     """Raise for every setting the port does not serve, naming its ROADMAP
     item, instead of serving it differently from the JAX engine."""
     _check_policy(config.policy, streaming=True)
-    if config.mesh is not None:
-        raise NotImplementedError("not ported yet: a device mesh: "
+    mesh = config.mesh
+    if mesh is None:
+        return
+    if any(mesh.shape[n] > 1 for n in mesh.axis_names if n != "model"):
+        raise NotImplementedError("not ported yet: a data axis above 1: "
                                   "ROADMAP A11")
+    if config.prefix_cache is not None:
+        raise NotImplementedError("not ported yet: the prefix cache under "
+                                  "a mesh: ROADMAP A11")
+
+
+def _mesh_now(t0: float, mesh) -> float:
+    """Seconds since ``t0`` on the host clock; over a mesh rank 0's
+    reading, broadcast, so that every rank takes the same arrivals."""
+    now = time.perf_counter() - t0
+    if mesh is None:
+        return now
+    import torch.distributed as dist
+
+    dev = ("cuda" if dist.get_backend(mesh.group) == "nccl" else "cpu")
+    t = torch.tensor([now], dtype=torch.float64, device=dev)
+    dist.broadcast(t, src=dist.get_global_rank(mesh.group, 0),
+                   group=mesh.group)
+    return float(t[0])
 
 
 class _InflightPrefill:
@@ -399,7 +436,8 @@ class _SlotDecodeMixin:
         self._tok, cache, toks = policies.decode_chunk(
             self.params, self.cfg, self._tok, cache, steps,
             active=torch.as_tensor(np.array(active), device=self.device),
-            paged_depth=paged_depth, sampling=sampling, seeds=seeds)
+            paged_depth=paged_depth, sampling=sampling, seeds=seeds,
+            mesh=getattr(self, "mesh", None))
         if getattr(self, "_sync_timers", False):
             _sync(self.device)  # the whole chunk ran, not just the tokens
         toks_np = toks.cpu().numpy()  # device sync: the tokens landed
@@ -561,6 +599,13 @@ class ContinuousEngine(_SlotDecodeMixin):
         pc = config.prefix_cache
         if pc is not None and pc.pool is not None and pc.pool is not pool:
             raise ValueError("prefix cache bound to a different block pool")
+        # tensor-parallel serving: the rank's shard of the params, the
+        # lookahead params replicated, the pool sharded on the same mesh
+        self.mesh = config.mesh
+        if mesh_signature(self.mesh) is None:  # no mesh, or all axes 1
+            self.mesh = None
+        else:
+            params = self._shard_params(params, cfg, config)
         self.config = config
         self.params, self.cfg, self.lkv_params = params, cfg, lkv_params
         # gt_oracle capture hook (the harvest half of the learning loop,
@@ -662,6 +707,33 @@ class ContinuousEngine(_SlotDecodeMixin):
 
     def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.array(arr), device=self.device)
+
+    @staticmethod
+    def _shard_params(params: dict, cfg: ModelConfig,
+                      config: ServingConfig) -> dict:
+        """Check a mesh config and return this rank's shard of ``params``
+        (``params`` itself when it is a shard already: its ``wq`` holds
+        the local head columns)."""
+        mesh = config.mesh
+        n = int(mesh.shape["model"])
+        if cfg.moe is not None:
+            raise NotImplementedError("not ported yet: an MoE arch under a "
+                                      "mesh: ROADMAP A11")
+        if attn_mod.model_shard_mesh(mesh, cfg.attn) is None:
+            raise ValueError(f"{cfg.name}: the model axis ({n}) must "
+                             "divide the q and kv heads to serve over a "
+                             "mesh")
+        pool = config.kv_pool
+        if pool is not None and pool.model_shards != n:
+            raise ValueError("kv pool built for a different mesh: pass the "
+                             "same mesh to KVBlockPool(..., mesh=...)")
+        if pool is not None and config.decode_evict.enabled:
+            raise ValueError("decode-time eviction on the paged pool is "
+                             "single-device (mesh-sharded serving keeps the "
+                             "dense decode_evict path)")
+        if params["layers"]["attn"]["wq"].shape[-1] != cfg.attn.q_dim:
+            return params
+        return shard_tree(params, serving_specs(cfg, mesh), mesh, mesh.rank)
 
     # -- observability ---------------------------------------------------
     def _register_metrics(self) -> None:
@@ -878,7 +950,7 @@ class ContinuousEngine(_SlotDecodeMixin):
             "score_path": path,
             # the decode cache (paged pool or dense slots) and its path
             "decode_path": f"{'paged' if paged else 'dense'}-{path}",
-            "mesh": None,  # single device (meshes: ROADMAP A11)
+            "mesh": None if self.mesh is None else dict(self.mesh.shape),
         }
         self._m_build.set(sync_timers=self._sync_timers, **self._run_info)
         self._m_requests.inc(len(requests))
@@ -890,7 +962,7 @@ class ContinuousEngine(_SlotDecodeMixin):
         if not paged:
             self._live = tf.init_decode_cache(
                 self.cfg, self.num_slots, self._depth, per_slot_cursor=True,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
             if self.decode_evict.enabled:
                 self._live = tf.add_decode_eviction_scores(self._live)
         t0 = time.perf_counter()
@@ -908,7 +980,7 @@ class ContinuousEngine(_SlotDecodeMixin):
         since_decode = 0
         try:
             while sched.has_work() or pf is not None:
-                now = time.perf_counter() - t0
+                now = _mesh_now(t0, self.mesh)
                 if pf is None:
                     req = sched.next_request(now)
                     if req is not None:
@@ -936,7 +1008,7 @@ class ContinuousEngine(_SlotDecodeMixin):
                     since_decode = 0
                     self._decode(sched, active, remaining, last_emit, t0)
                 elif pf is None:
-                    now2 = time.perf_counter() - t0
+                    now2 = _mesh_now(t0, self.mesh)
                     if sched.has_arrived(now2):
                         if self.pool is not None and not sched.running:
                             # nothing can retire to free blocks: reclaim
@@ -946,7 +1018,7 @@ class ContinuousEngine(_SlotDecodeMixin):
                     nxt = sched.next_arrival()
                     if nxt is None:
                         break
-                    wait = nxt - (time.perf_counter() - t0)
+                    wait = nxt - _mesh_now(t0, self.mesh)
                     if wait > 0:
                         time.sleep(min(wait, 0.05))
         finally:
@@ -1040,7 +1112,7 @@ class ContinuousEngine(_SlotDecodeMixin):
             if tr is not None:
                 tr.end("prefix_probe", tid, hit=False, depth=0)
         state = tf.init_chunk_state(self.cfg, self.policy, 1, cap,
-                                    device=self.device)
+                                    device=self.device, mesh=self.mesh)
         return _InflightPrefill(req, state, n)
 
     def _prefill_step(self, pf: _InflightPrefill) -> None:
@@ -1053,7 +1125,7 @@ class ContinuousEngine(_SlotDecodeMixin):
         t_pf = time.perf_counter()
         pf.state, pf.logits = tf.prefill_chunk(
             self.params, self.cfg, pf.state, self._to_dev(blk), pf.n,
-            policy=self.policy)
+            policy=self.policy, mesh=self.mesh)
         if self._sync_timers:
             # without it the stamp below times the launches only
             _sync(self.device)
@@ -1085,7 +1157,8 @@ class ContinuousEngine(_SlotDecodeMixin):
         cache = tf.prefill_finalize(
             self.params, self.cfg, pf.state, pf.n, policy=self.policy,
             evict=self.evict, lkv_params=self.lkv_params,
-            extra_slots=self.decode_margin, seeds=_seeds([r], self.device))
+            extra_slots=self.decode_margin, seeds=_seeds([r], self.device),
+            mesh=self.mesh)
         if pf.tip is not None:
             self.prefix_cache.release(pf.tip)
             pf.tip = None

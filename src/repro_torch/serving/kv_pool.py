@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.sharding import pool_specs
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.obs.metrics import bind_stat_gauges
 
@@ -54,6 +55,7 @@ class KVBlockPool:
         num_blocks: Optional[int] = None,
         pool_mb: Optional[float] = None,
         device="cuda",
+        mesh=None,
     ):
         if cfg.attn is None or block_size <= 0:
             raise ValueError("paged KV serves attention archs with "
@@ -74,6 +76,19 @@ class KVBlockPool:
             raise ValueError("pool too small for even one block")
         self.num_blocks = N = num_blocks
         self.device = torch.device(device)
+        # tensor-parallel serving: this rank holds whole blocks of its
+        # local kv heads; the host allocator below is head-oblivious, so
+        # every block id means the same rows on every rank and the free
+        # list and block tables are the same everywhere
+        self.mesh = None
+        self.model_shards = 1
+        if mesh is not None:
+            if pool_specs(cfg, mesh) is None:
+                raise ValueError(f"kv heads ({KV}) must divide the model "
+                                 f"axis ({mesh.shape}) to shard the pool")
+            self.mesh = mesh
+            self.model_shards = int(mesh.shape["model"])
+            KV //= self.model_shards
         shape = (L, N, block_size, KV)
         self.k = torch.zeros(shape + (hd,), dtype=dtype, device=device)
         self.v = torch.zeros_like(self.k)
@@ -238,7 +253,14 @@ class KVBlockPool:
 
     def stats(self) -> dict:
         used = self.used_blocks()
+        shards = self.model_shards
         return {
+            # the mesh: block counts are global (the allocator is
+            # shard-oblivious), bytes divide evenly over the kv-head shards
+            "mesh_model": shards,
+            "bytes_total_per_shard":
+                self.usable_blocks * self.block_bytes // shards,
+            "bytes_used_per_shard": used * self.block_bytes // shards,
             "block_size": self.block_size,
             "block_bytes": self.block_bytes,
             "blocks_total": self.usable_blocks,

@@ -3,9 +3,9 @@
 The port imports ``torch`` and numpy, never ``jax``, ``ml_dtypes`` or
 anything of the JAX package ``repro`` (not even its stdlib-only config
 modules): a fresh interpreter that imports every module of
-``repro_torch`` (the learning loop's and observability's among them),
-``chip_smoke`` and
-``chip_ab`` must end with none of them in ``sys.modules``.  The port keeps
+``repro_torch`` (the learning loop's, observability's and the mesh's
+among them), ``chip_smoke`` and ``chip_ab`` must end with none of them
+in ``sys.modules``.  The port keeps
 its own copy of the configs instead, which must equal the JAX package's
 field by field.
 """
@@ -44,12 +44,15 @@ LEARNING_LOOP = ("repro_torch.checkpoint.io", "repro_torch.core.objective",
                  "repro_torch.optim.adam", "repro_torch.data.synthetic",
                  "repro_torch.data.harvest", "repro_torch.launch.steps",
                  "repro_torch.launch.train")
-# ... and the rest the sweep must reach: the prefix cache (ROADMAP A7) and
-# observability (ROADMAP A12)
+# ... and the rest the sweep must reach: the prefix cache (ROADMAP A7),
+# observability (ROADMAP A12) and tensor-parallel serving (ROADMAP A11)
 MUST_REACH = LEARNING_LOOP + ("repro_torch.serving.prefix_cache",
                               "repro_torch.obs", "repro_torch.obs.metrics",
                               "repro_torch.obs.trace",
-                              "repro_torch.obs.quality")
+                              "repro_torch.obs.quality",
+                              "repro_torch.common.pytree",
+                              "repro_torch.common.sharding",
+                              "repro_torch.launch.mesh")
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

@@ -293,9 +293,8 @@ def test_recorder_spans_on_cpu_tensors():
 
 CHUNK, BUDGET, MAX_NEW = 16, 8, 12
 #: keys of the kv pool's and prefix cache's stats() only the JAX package
-#: has (the mesh: ROADMAP A11)
-ONLY_JAX = {"kv_pool_mesh_model", "kv_pool_bytes_total_per_shard",
-            "kv_pool_bytes_used_per_shard"}
+#: has (none since the pool took its mesh keys, ROADMAP A11)
+ONLY_JAX: set = set()
 #: shared keys whose values differ by design: JAX counts its compiled
 #: materialize programs, the port compiles nothing (0)
 DIFFERS = {"prefix_cache_materialize_programs"}

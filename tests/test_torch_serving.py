@@ -37,6 +37,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.lookahead import init_lookahead_params
 from repro_torch.data.harvest import HarvestConfig, HarvestWriter, load_records
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as ttf
 from repro_torch.obs import TraceRecorder, request_span_trees, validate_trace
 from repro_torch.serving import (ChunkingConfig, ContinuousEngine,
@@ -216,7 +217,9 @@ def test_engine_matches_jax_paged_engine():
     (dict(prefix_cache="pool"), None, "A7"),
     (dict(sampling=Sampling(temperature=0.7, top_k=50, top_p=0.9)), None,
      "A8"),
-    (dict(mesh=object()), NotImplementedError, "A11"),
+    # tensor-parallel serving is ported; a data axis above 1 is not
+    (dict(mesh=Mesh(("data", "model"), (2, 2))), NotImplementedError,
+     "data axis above 1: ROADMAP A11"),
     # metrics and tracing (A12) are served too
     (dict(trace="recorder"), None, "A12"),
 ], ids=[  # the ids of the former refusal table, kept
