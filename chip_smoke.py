@@ -308,6 +308,30 @@ kernel's plain version):
       kernels 7, 3 and 6 exactly 32, 32 and 256 times, and the tokens of
       a ``ServingEngine`` given (b)'s modules in memory.
 
+6. Tensor-parallel serving (``phase_tp``; ROADMAP A11's serving half):
+   worlds of ranks spawned as processes (``launch/mesh.py::spawn_ranks``,
+   each serving through ``launch/serve.py::serve_shard``) that share
+   cuda:0 and gather through the host over gloo (NCCL refuses two ranks
+   on one device): correctness and each rank's launches at full width,
+   never tensor-parallel speed.
+   a. the llama3-8b smoke geometry rebuilt at 8 q / 4 kv heads of 32
+      (d_model 256), float32, a staggered trace: paged h2o and
+      lookaheadkv, paged lookaheadkv sampled, dense-slot lookaheadkv; the
+      one-rank engine on the card equals the CPU's, and worlds of 2 and 4
+      ranks equal both (tokens, kept sets with the ranks' kv heads
+      gathered);
+   b. llama3-8b at full width and depth on 2 ranks, paged lookaheadkv on
+      3a's trace after the one-rank engine on it; c. at 8 of 32 layers on
+      4 ranks, paged h2o: every rank's launches exactly ``TP_CELLS``'
+      and the one-rank run's, its pool bytes per shard the one-rank
+      pool's over N, its peak memory printed, and the shares of tokens
+      and of kept (layer, kv head, position) entries agreeing with the
+      one-rank run at least ``TP_TOKEN_SHARE_MIN`` / ``TP_KEPT_SHARE_MIN``.
+   Phase 1 times kernels 1, 2, 3, 4 and 6 at the ranks' local heads,
+   (16, 4) and (8, 2) of 128 (``phase_kernels_tp``; entries
+   ``<kernel> tp2`` / ``tp4``, launches from 6b / 6c, or from 6a where
+   the full-width cell does not run the kernel).
+
 Output: per-phase lines, then a JSON line of per-kernel numbers, the
 card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -447,6 +471,15 @@ RECORDED_MS = {
     "paged_decode_attention G1": 0.0221, "decode_attention G1": 0.0198,
     "flash_attention G1": 0.1924, "flash_attention 64/8": 0.6649,
     "lookahead_score 64/8": 0.0889,
+    # the local heads of llama3-8b's tensor-parallel ranks, (16, 4) at 2
+    # shards and (8, 2) at 4, their first run
+    "chunk_attention tp2": 0.0300, "chunk_attention tp2 obs pass": 0.0226,
+    "chunk_attention_masses tp2": 0.0505, "lookahead_score tp2": 0.0273,
+    "paged_decode_attention tp2": 0.0126, "decode_attention tp2": 0.0119,
+    "chunk_attention tp4": 0.0280, "chunk_attention tp4 obs pass": 0.0240,
+    "chunk_attention_masses tp4": 0.0406,
+    "lookahead_score tp4": 0.0253, "paged_decode_attention tp4": 0.0121,
+    "decode_attention tp4": 0.0114,
 }
 
 
@@ -983,6 +1016,7 @@ def phase_kernels(torch, mods) -> list:
         B, bs, nb, N = 4, 16, 19, 129
         H, KV, hd = heads
         G = H // KV
+        dead = min(5, KV - 1)  # the kv head the edge case masks
         q = randn(B, H, hd)
         kp, vp = randn(N, bs, KV, hd), randn(N, bs, KV, hd)
         pos = torch.randint(0, 4100, (N, bs, KV), generator=g, device=dev,
@@ -997,7 +1031,7 @@ def phase_kernels(torch, mods) -> list:
         if edge:
             table[1, 9:] = 0  # ragged with null blocks
             table[2] = 0  # a slot between requests: exact zeros
-            mask[table[3].long(), :, 5] = False  # kv head 5 fully masked
+            mask[table[3].long(), :, dead] = False  # a kv head all masked
         if one_live:
             table[1:] = 0  # three slots between requests
         new_pos = torch.full((B,), 4032, dtype=torch.int32, device=dev)
@@ -1012,7 +1046,7 @@ def phase_kernels(torch, mods) -> list:
         if edge:
             check(bool(torch.all(got[2] == 0)),
                   "paged decode: an all-null table must give exact zeros")
-            check(bool(torch.all(got[3, 5 * G:6 * G] == 0)),
+            check(bool(torch.all(got[3, dead * G:(dead + 1) * G] == 0)),
                   "paged decode: a fully masked head must give exact zeros")
         if one_live:
             check(bool(torch.all(got[1:] == 0)),
@@ -5029,9 +5063,9 @@ def phase_tp(torch, mods, device: str = "cuda") -> dict:
             total = out.setdefault(f"6a tp{n}", {})
             for k, v in ranks[0]["launches"].items():
                 total[k] = total.get(k, 0) + v
+        n_tok = sum(len(t) for t in want_tok.values())
         print(f"  6a {name}: 1 rank card = CPU, 2 and 4 ranks = 1 rank "
-              f"(tokens and kept sets; {sum(len(t) for t in want_tok.values())}"
-              " tokens)")
+              f"(tokens and kept sets; {n_tok} tokens)")
     print(f"  6a: worlds of 2 and 4 ranks, 4 runs each, {t_worlds:.1f} s "
           "wall (process start included)")
     del params, lkv, worlds

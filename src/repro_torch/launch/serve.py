@@ -139,10 +139,6 @@ from repro_torch.serving import (BucketedEngine, ChunkingConfig,
                                  KVBlockPool, PrefixCache, Request,
                                  ServingConfig, ServingEngine)
 
-# flag -> (value meaning "off", ROADMAP item of the feature)
-_UNPORTED: dict = {}
-
-
 def _print_phase_table(trace, done) -> None:
     """Per-request phase-latency breakdown from the span trace: where
     each request's TTFT went (the JAX launcher's table)."""
@@ -222,10 +218,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "path gets raw events, anything else Chrome "
                          "trace-event JSON (open in https://ui.perfetto.dev)")
     args = ap.parse_args(argv)
-    for name, (off, what) in _UNPORTED.items():
-        if getattr(args, name) != off:
-            raise NotImplementedError(f"--{name.replace('_', '-')}: not "
-                                      f"ported yet: {what}")
     if args.prompt_lens and not args.continuous:
         raise ValueError("--prompt-lens needs --continuous: a lockstep "
                          "batch shares one prompt length (--n-in)")

@@ -21,6 +21,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.common.config import AttentionConfig, ModelConfig
 from repro_torch.core.scoring import decode_mass_update
@@ -92,8 +93,6 @@ def all_gather(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     order (``jax.lax.all_gather(..., tiled=True)``).  Over NCCL (one card
     per rank) ``all_gather_into_tensor`` on the card; over gloo (ranks
     sharing a card, or the CPU) through the host."""
-    import torch.distributed as dist
-
     group = mesh.group
     if group is None:
         raise ValueError("a shape-only mesh has no ranks to gather from")

@@ -41,8 +41,8 @@ def dims(cfg: ModelConfig):
     return s, di, nh, di + 2 * NGROUPS * s.d_state
 
 
-def init(gen: Optional[torch.Generator], cfg: ModelConfig, dtype: torch.dtype, *,
-         lead=()) -> dict:
+def init(gen: Optional[torch.Generator], cfg: ModelConfig,
+         dtype: torch.dtype, *, lead=()) -> dict:
     """Random parameters drawn from ``gen`` (the JAX package's
     distributions): A = -uniform(a_init_range) per head, dt_bias the
     inverse softplus of dt drawn log-uniformly in [dt_min, dt_max]."""

@@ -127,6 +127,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.common.config import EvictionConfig, ModelConfig
 from repro_torch.common.sharding import (mesh_signature, serving_specs,
@@ -371,8 +372,6 @@ def _mesh_now(t0: float, mesh) -> float:
     now = time.perf_counter() - t0
     if mesh is None:
         return now
-    import torch.distributed as dist
-
     dev = ("cuda" if dist.get_backend(mesh.group) == "nccl" else "cpu")
     t = torch.tensor([now], dtype=torch.float64, device=dev)
     dist.broadcast(t, src=dist.get_global_rank(mesh.group, 0),
