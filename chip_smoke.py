@@ -3533,8 +3533,8 @@ def phase_obs_cell(torch, mods) -> tuple:
         eng.set_trace(None)
         return eng
 
-    def with_drift(args, cfg, params, lkv):
-        eng = build(args, cfg, params, lkv)
+    def with_drift(args, cfg, params, lkv, *rest):
+        eng = build(args, cfg, params, lkv, *rest)
         eng.drift = MeasuredDrift(params, cfg, lkv, **DRIFT)
         eng.set_trace(eng.trace)  # binds the monitor to registry and trace
         return eng
