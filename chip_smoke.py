@@ -1895,6 +1895,8 @@ def phase_kernels_moe_vlm(torch, chunk_case, masses_chunk_case, score_case,
 #: llama3-8b's attention as one rank of a tensor-parallel mesh holds it:
 #: {model shards: (local q heads, local kv heads, head dim)}
 TP_HEADS = {2: (16, 4, 128), 4: (8, 2, 128)}
+#: deepseek-moe-16b's attention as one rank of 2 holds it (6f)
+TP_MOE_HEADS = (8, 8, 128)
 
 
 def phase_kernels_tp(torch, chunk_case, masses_chunk_case, score_case,
@@ -1907,8 +1909,10 @@ def phase_kernels_tp(torch, chunk_case, masses_chunk_case, score_case,
     over 4 x 289 rows under a per-kv-head mask; each timed beside its
     plain version, its bound and SDPA where one call computes the same
     function, with the same tolerances and one-launch checks as the
-    shapes above, and an edge case each.  Returns the timed cases,
-    named ``<kernel> tp2`` / ``tp4``."""
+    shapes above, and an edge case each.  Then kernels 1, 3 and 4 at
+    deepseek-moe-16b's local (8, 8) heads of one rank of 2 (G 1), 6f's
+    shapes.  Returns the timed cases, named ``<kernel> tp2`` / ``tp4`` /
+    ``tp2g1``."""
     out = []
     sm90 = "src/repro_torch/csrc/attention_sm90.cuh"
     for n, heads in TP_HEADS.items():
@@ -1959,6 +1963,38 @@ def phase_kernels_tp(torch, chunk_case, masses_chunk_case, score_case,
                  "decode_attention.py:56", k6)):
             out.append(dict(name=f"{name} {tag}", route="cuda", source=src,
                             replaces=f"src/repro/kernels/{rep}", **res))
+    # deepseek-moe-16b's local heads at 2 shards (8 / 8 of 128, G 1): the
+    # kernels of 6f's paged lookaheadkv serve
+    tag, heads = "tp2g1", TP_MOE_HEADS
+    print(f"  -- {tag}: one rank of 2 (deepseek-moe-16b's {heads[0]} query "
+          f"heads, {heads[1]} kv heads of {heads[2]}, G 1) --")
+    k1 = chunk_case(1, 256, 4096, 3840, None, f"{tag} C=256 off=3840",
+                    timed=f"chunk_attention {tag}", heads=heads)
+    k1o = chunk_case(1, 32, 4096, 4000, None, f"{tag} obs pass C=32 "
+                     "off=4000", timed=f"chunk_attention {tag} obs pass",
+                     heads=heads)
+    chunk_case(1, 129, 1000, 100, None, f"{tag} edge C=129 K=1000",
+               heads=heads)
+    print(f"  chunk_attention {tag} obs pass: {k1o['ms']:.4f} ms, "
+          f"bound {k1o['bound_ms']:.4f} ms")
+    k3 = score_case(1, 32, 4096, 4096, 4000, None, False,
+                    f"{tag} n_obs=32 off=4000",
+                    timed=f"lookahead_score {tag}", heads=heads)
+    score_case(2, 17, 300, 300, 283, None, True, f"{tag} n_obs 17, masks",
+               heads=heads)
+    k4 = paged_case(f"{tag} B=4 bs=16 nb=19", None, timed=True, heads=heads,
+                    key=f"paged_decode_attention {tag}")
+    paged_case(f"{tag} ragged, null slot, masked head", None, edge=True,
+               heads=heads)
+    for name, src, rep, res in (
+            ("chunk_attention", sm90, "chunk_attention.py:95", k1),
+            ("lookahead_score", "src/repro_torch/csrc/lookahead_score.cu",
+             "lookahead_score.py:87", k3),
+            ("paged_decode_attention",
+             "src/repro_torch/csrc/paged_attention.cu",
+             "paged_attention.py:101", k4)):
+        out.append(dict(name=f"{name} {tag}", route="cuda", source=src,
+                        replaces=f"src/repro/kernels/{rep}", **res))
     return out
 
 
@@ -5127,6 +5163,337 @@ def phase_tp(torch, mods, device: str = "cuda") -> dict:
     return out
 
 
+#: 6d: 6a's geometry with ZeRO storage (``fsdp``) at ("data", "model") =
+#: (2, 2) and (4, 1) (two slots over four data rows: decode on every row),
+#: deepseek-smoke under both dispatches and gemma3-smoke (4 / 1 heads,
+#: which divide nothing) at (2, 2), and the paged prefix cache at both:
+#: (name, model, policy, paged, sampled, prefix cache, model shards)
+TP_MESH_SMOKE = (
+    ("paged h2o", "tp", "h2o", True, False, False, 2),
+    ("paged lookaheadkv", "tp", "lookaheadkv", True, False, False, 2),
+    ("paged lookaheadkv sampled", "tp", "lookaheadkv", True, True, False, 2),
+    ("dense-slot lookaheadkv", "tp", "lookaheadkv", False, False, False, 2),
+    ("paged lookaheadkv", "tp", "lookaheadkv", True, False, False, 1),
+    ("dense-slot lookaheadkv", "tp", "lookaheadkv", False, False, False, 1),
+    ("paged prefix cache", "tp", "lookaheadkv", True, False, True, 2),
+    ("paged prefix cache", "tp", "lookaheadkv", True, False, True, 1),
+    ("deepseek-smoke dense dispatch", "moe-dense", "lookaheadkv", True,
+     False, False, 2),
+    ("deepseek-smoke sparse dispatch", "moe-sparse", "lookaheadkv", True,
+     False, False, 2),
+    ("gemma3-smoke dense-slot", "gemma", "lookaheadkv", False, False, False,
+     2))
+#: 6d's prefix trace: a 64-token shared prefix (two 32-token chunks) and
+#: tails of these lengths, all arriving at once
+TP_MESH_PREFIX_TAILS = (36, 50, 20)
+#: 6e, 6f, 6h: (arch, layers, world, model shards, paged, prompt lengths,
+#: new tokens, {kernel: launches per rank}, weight bytes per rank, pool
+#: bytes per shard, token and kept-entry agreement floors against the
+#: one-rank run in bf16).  PERF.md's prediction, written before the first
+#: run: the launches from a CPU rehearsal of the same schedules (prefill
+#: chunks, observation passes and decode steps per layer, which a rank
+#: runs as often as one rank does), the bytes from the serving layout's
+#: shapes.
+TP_MESH_CELLS = {
+    "6e": ("llama3-8b", 8, 4, 2, True, (512, 1024), 8,
+           {"chunk_attention": 8 * 8, "lookahead_score": 2 * 8,
+            "paged_decode_attention": 14 * 8}, 1_923_227_648, 33_554_432,
+           0.2, 0.9),
+    "6f": ("deepseek-moe-16b", 4, 2, 2, True, (256, 512), 4,
+           {"chunk_attention": 5 * 4, "lookahead_score": 2 * 4,
+            "paged_decode_attention": 6 * 4}, 2_772_471_808, 33_554_432,
+           0.2, 0.9),
+    "6h": ("gemma3-1b", 26, 2, 2, False, (1024, 2048), 16,
+           {"chunk_attention": 14 * 26, "lookahead_score": 2 * 26,
+            "decode_attention": 30 * 26}, 1_999_625_472, None, 1.0, 1.0),
+}
+#: 6g: 3l's shared prefix and prompts on 2 ranks at 8 of 32 layers, the
+#: cache on and off in one world: the hits, and kernel 1's launches fewer
+#: by the chunks that hit times the layers
+TP_PREFIX_LAYERS, TP_PREFIX_NEW = 8, 16
+
+
+def tp_row_kept(ranks, whole: bool = False) -> list:
+    """Each data row's ``tp_kept`` (its ranks in model order), or with
+    ``whole`` (heads that divide nothing: every rank holds them all) each
+    rank's own."""
+    if whole:
+        return [tp_kept([rk]) for rk in ranks]
+    rows: dict = {}
+    for rk in ranks:
+        rows.setdefault(rk["data_index"], []).append(rk)
+    return [tp_kept(sorted(rows[d], key=lambda rk: rk["model_index"]))
+            for d in sorted(rows)]
+
+
+def phase_tp_mesh(torch, mods, device: str = "cuda") -> dict:
+    """Phase 6d-6h: serving under every mesh the JAX engine takes, ranks
+    spawned as processes that share cuda:0 over gloo (as phase 6).
+
+    6d: ``TP_MESH_SMOKE`` in one world of 4 ranks, float32: tokens and
+    kept sets of every data row equal to the one-rank engine's on the CPU
+    (the MoE cases: on the card, whose kernels and GEMMs they share; the
+    CPU's router near-ties are phase 2's business), prefix-cache hits and
+    tokens skipped equal to it, ``stats["mesh"]`` the mesh, the decode
+    slots split where the data size divides them.
+    6e (llama3-8b, 8 of 32 layers, (2, 2), ZeRO), 6f (deepseek-moe-16b, 4
+    of 28 layers, (1, 2), the experts gathered whole) and 6h (gemma3-1b
+    at full depth, (1, 2), every layer whole on every rank, dense slots):
+    ``TP_MESH_CELLS``' launches on every rank, exactly, and the one-rank
+    run's; weight bytes per rank and pool bytes per shard; the shares of
+    tokens and kept entries agreeing with the one-rank run at least the
+    floors.  6g: 3l's shared prefix on 2 ranks at ``TP_PREFIX_LAYERS``,
+    cache on and off: identical tokens and kept sets, 3 hits at 1,024,
+    kernel 1 fewer by exactly 3 x 4 chunks x the layers.  6f-6h share one
+    world of 2 ranks, 6d and 6e one of 4.  Returns rank 0's launches per
+    cell."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    cfgs, serving, tf = mods["configs"], mods["serving"], mods["tf"]
+    pol, serve = mods["policies"], mods["serve"]
+    EvictionConfig = mods["EvictionConfig"]
+    out = {}
+
+    def np_tree(t):
+        return ({k: np_tree(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.detach().cpu().numpy())
+
+    def smoke_model(name):
+        if name == "tp":  # 6a's geometry, its big weights ZeRO over "data"
+            base = cfgs.get_smoke_config("llama3-8b")
+            return dataclasses.replace(
+                base, name="llama3-smoke-tp", d_model=256, dtype="float32",
+                fsdp=True, attn=dataclasses.replace(
+                    base.attn, num_heads=8, num_kv_heads=4, head_dim=32))
+        if name == "gemma":
+            return dataclasses.replace(cfgs.get_smoke_config("gemma3-1b"),
+                                       dtype="float32", fsdp=True)
+        base = cfgs.get_smoke_config("deepseek-moe-16b")
+        return dataclasses.replace(
+            base, dtype="float32", fsdp=True, moe=dataclasses.replace(
+                base.moe, dispatch=name.split("-")[1]))
+
+    rng = np.random.default_rng(SEED)
+    models = {}
+    for name in ("tp", "gemma", "moe-dense", "moe-sparse"):
+        cfg = smoke_model(name)
+        params = tf.init_params(cfg, seed=SEED, device="cpu")
+        lkv = mods["lookahead"].init_lookahead_params(
+            torch.Generator().manual_seed(SEED + 1), cfg, params["layers"])
+        models[name] = (cfg, np_tree(params), np_tree(lkv))
+    V = models["tp"][0].vocab_size
+    plain = [serving.Request(uid=i, prompt=rng.integers(
+        0, V, n).astype(np.int32), max_new_tokens=8, arrival_s=a)
+        for i, (n, a) in enumerate(zip(TP_SMOKE_LENS, TP_SMOKE_ARRIVALS))]
+    # the MoE cases' requests all arrive at once: the capacity dispatch
+    # couples the rows of a decode step, so its tokens depend on which
+    # slots decode together, which staggered arrivals leave to the clock
+    still = [dataclasses.replace(r, arrival_s=0.0) for r in plain]
+    shared = rng.integers(0, V, 64).astype(np.int32)
+    prefixed = [serving.Request(uid=i, prompt=np.concatenate(
+        [shared, rng.integers(0, V, n).astype(np.int32)]), max_new_tokens=8)
+        for i, n in enumerate(TP_MESH_PREFIX_TAILS)]
+
+    def smoke_job(model, policy, paged, sampled, prefix, shards):
+        cfg, params, lkv = models[model]
+        reqs = (prefixed if prefix else still if model.startswith("moe")
+                else plain)
+        sc = serving.ServingConfig(
+            policy=policy, evict=EvictionConfig(budget=16),
+            chunking=serving.ChunkingConfig(chunk=32, max_context=160,
+                                            decode_chunk=2),
+            num_slots=2, max_new_tokens=8, eos_id=-1,
+            capture_admission=True,
+            sampling=pol.Sampling(0.7, 50, 0.9) if sampled else None)
+        return dict(cfg=cfg, device=device, serving=sc, requests=reqs,
+                    pool=dict(block_size=16, num_blocks=64) if paged
+                    else None, params=params, lkv=lkv, mesh_model=shards,
+                    prefix_cache=dict(max_bytes=1 << 30) if prefix
+                    else None)
+
+    def full_job(arch, layers, paged, lens, new, shards):
+        cfg = dataclasses.replace(cfgs.get_config(arch), num_layers=layers)
+        r = np.random.default_rng(SEED)
+        reqs = [serving.Request(uid=i, prompt=r.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=new)
+            for i, n in enumerate(lens)]
+        sc = serving.ServingConfig(
+            policy="lookaheadkv", evict=EvictionConfig(budget=256),
+            chunking=serving.ChunkingConfig(chunk=256, max_context=256),
+            num_slots=2, max_new_tokens=new, eos_id=-1,
+            capture_admission=True)
+        return dict(cfg=cfg, device=device, serving=sc, requests=reqs,
+                    pool=dict(block_size=16, num_blocks=128) if paged
+                    else None, seed=SEED, mesh_model=shards)
+
+    def prefix_jobs():
+        """6g: the launcher's draws of 3l (the system prompt, then each
+        tail), its chunk, slots, budget, rung and pool, cache on / off."""
+        cfg = dataclasses.replace(cfgs.get_config("llama3-8b"),
+                                  num_layers=TP_PREFIX_LAYERS)
+        r = np.random.default_rng(SEED)
+        system = r.integers(0, cfg.vocab_size, PREFIX_DEPTH).astype(np.int32)
+        tails = [r.integers(0, cfg.vocab_size, n).astype(np.int32)
+                 for n in (1024, 2048, 2048, 3008)]
+        reqs = [serving.Request(uid=i, prompt=np.concatenate([system, t]),
+                                max_new_tokens=TP_PREFIX_NEW)
+                for i, t in enumerate(tails)]
+        sc = serving.ServingConfig(
+            policy="lookaheadkv", evict=EvictionConfig(budget=256),
+            chunking=serving.ChunkingConfig(chunk=256, max_context=4096),
+            num_slots=4, max_new_tokens=TP_PREFIX_NEW, eos_id=-1,
+            capture_admission=True)
+        job = dict(cfg=cfg, device=device, serving=sc, requests=reqs,
+                   pool=dict(block_size=16, pool_mb=2048), seed=SEED,
+                   mesh_model=2)
+        return [dict(job, prefix_cache=dict(max_bytes=1024 << 20)), job]
+
+    # -- one world of 4 ranks: 6d, then 6e ------------------------------
+    smoke = [smoke_job(*c[1:]) for c in TP_MESH_SMOKE]
+    cells = {name: full_job(c[0], c[1], c[4], c[5], c[6], c[3])
+             for name, c in TP_MESH_CELLS.items()}
+    t0 = time.perf_counter()
+    four = tp_world(torch, mods, 4, smoke + [cells["6e"]])
+    t4 = time.perf_counter() - t0
+    for (name, model, *_rest, shards), job, ranks in zip(
+            TP_MESH_SMOKE, smoke, four):
+        mesh = {"data": 4 // shards, "model": shards}
+        moe = model.startswith("moe")
+        one = serve.serve_job(job, device=device if moe else "cpu")
+        want_tok, want_kept = tp_tokens([one]), tp_kept([one])
+        rows = tp_row_kept(ranks, whole=model == "gemma")
+        for rk in ranks:
+            check(tp_tokens([rk]) == want_tok, f"6d {name} at {mesh}: rank "
+                  f"({rk['data_index']}, {rk['model_index']})'s tokens "
+                  "differ from the one-rank run's")
+            check(rk["stats"]["mesh"] == mesh, f"6d {name}: stats mesh "
+                  f"{rk['stats']['mesh']}")
+            split = mesh["data"] > 1 and 2 % mesh["data"] == 0 and \
+                model != "moe-sparse"
+            check((rk["decode_slots"] is not None) == split,
+                  f"6d {name} at {mesh}: decode slots "
+                  f"{rk['decode_slots']}")
+            if job["prefix_cache"] is not None:
+                got, want = rk["stats"]["prefix_cache"], \
+                    one["stats"]["prefix_cache"]
+                check(all(got[k] == want[k] for k in (
+                    "hits", "misses", "tokens_hit", "inserts", "bytes")) and
+                    want["hits"] == len(TP_MESH_PREFIX_TAILS) - 1,
+                    f"6d {name} at {mesh}: prefix cache {got}, one rank "
+                    f"{want}")
+        for d, kept in enumerate(rows):
+            check(kept == want_kept, f"6d {name} at {mesh}: data row {d}'s "
+                  "kept sets differ from the one-rank run's")
+        total = out.setdefault("6d", {})
+        for k, v in ranks[0]["launches"].items():
+            total[k] = total.get(k, 0) + v
+        print(f"  6d {name} at {mesh}: {len(ranks)} ranks = 1 rank on the "
+              f"{'card' if moe else 'CPU'} (tokens, every data row's kept "
+              f"sets{', prefix hits and bytes' if job['prefix_cache'] else ''}"
+              f"); rank 0 weights {ranks[0]['param_bytes']} B, decode slots "
+              f"{ranks[0]['decode_slots']}")
+    print(f"  6d and 6e: one world of 4 ranks, {t4:.1f} s wall (process "
+          "start included)")
+
+    def full_cell(cell, ranks):
+        arch, layers, world, shards, paged, lens, new, predicted, wbytes, \
+            pbytes, tok_min, kept_min = TP_MESH_CELLS[cell]
+        job = cells[cell]
+        one = serve.serve_job(dict(job, mesh_model=None))
+        gc.collect()
+        torch.cuda.empty_cache()
+        whole = arch == "gemma3-1b"
+        want_tok, want_kept = tp_tokens([one]), tp_kept([one])
+        tok_share = min(tp_shares(want_tok, want_kept, tp_tokens([rk]),
+                                  want_kept)[0] for rk in ranks)
+        kept_share = min(tp_shares(want_tok, want_kept, want_tok, kept)[1]
+                         for kept in tp_row_kept(ranks, whole=whole))
+        pool1 = (one["stats"]["kv_pool"]["bytes_total_per_shard"] if paged
+                 else None)
+        print(f"  {cell}: {arch}, {layers} layers, {world // shards} x "
+              f"{shards} mesh: one rank {one['wall_s']:.2f} s wall, peak "
+              f"{gib(one['peak_bytes'])} GiB, weights {one['param_bytes']} "
+              f"B; tokens agreeing {tok_share:.4f}, kept entries agreeing "
+              f"{kept_share:.4f} (floors {tok_min}, {kept_min})")
+        for rk in ranks:
+            at = (rk["data_index"], rk["model_index"])
+            launched = {k: rk["launches"][k] for k in predicted}
+            pool = (rk["stats"]["kv_pool"]["bytes_total_per_shard"] if paged
+                    else None)
+            print(f"    rank {at}: wall {rk['wall_s']:.2f} s (ranks sharing "
+                  f"one card, gathering through the host), peak "
+                  f"{gib(rk['peak_bytes'])} GiB, weights "
+                  f"{rk['param_bytes']} B, pool {pool} B per shard, decode "
+                  f"slots {rk['decode_slots']}, launches {launched}")
+            check(launched == predicted, f"{cell} rank {at}: launches "
+                  f"{launched}, predicted {predicted}")
+            check({k: v for k, v in rk["launches"].items() if v} ==
+                  {k: v for k, v in one["launches"].items() if v},
+                  f"{cell} rank {at}: launches differ from the one-rank "
+                  "run's")
+            check(wbytes is None or rk["param_bytes"] == wbytes,
+                  f"{cell} rank {at}: {rk['param_bytes']} B of weights, "
+                  f"predicted {wbytes}")
+            check(pbytes is None or pool == pbytes, f"{cell} rank {at}: "
+                  f"pool {pool} B per shard, predicted {pbytes}")
+            if paged:
+                check(pool * shards == pool1, f"{cell} rank {at}: pool "
+                      "bytes per shard")
+            check(tp_tokens([rk]) == tp_tokens(ranks[:1]),
+                  f"{cell}: ranks' tokens differ")
+        check(tok_share >= tok_min and kept_share >= kept_min,
+              f"{cell}: agreement with the one-rank run below its floor")
+        out[cell] = ranks[0]["launches"]
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    full_cell("6e", four[-1])
+    del four
+    gc.collect()
+
+    # -- one world of 2 ranks: 6f, 6g (cache on, off), 6h ---------------
+    jobs = [cells["6f"]] + prefix_jobs() + [cells["6h"]]
+    t0 = time.perf_counter()
+    two = tp_world(torch, mods, 2, jobs)
+    print(f"  6f-6h: one world of 2 ranks, {time.perf_counter() - t0:.1f} s "
+          "wall (process start included)")
+    full_cell("6f", two[0])
+    on, off = two[1], two[2]
+    L = TP_PREFIX_LAYERS
+    for rk_on, rk_off in zip(on, off):
+        c = rk_on["counts"]
+        fewer = (rk_off["launches"]["chunk_attention"]
+                 - rk_on["launches"]["chunk_attention"])
+        want = PREFIX_HITS * (PREFIX_DEPTH // 256) * L
+        at = rk_on["model_index"]
+        print(f"  6g rank {at}: cache on {rk_on['wall_s']:.2f} s, off "
+              f"{rk_off['wall_s']:.2f} s wall; hits {c['prefix_hits']}, "
+              f"tokens skipped {c['prefix_tokens_skipped']}; kernel 1 "
+              f"{rk_off['launches']['chunk_attention']} launches without "
+              f"the cache, {rk_on['launches']['chunk_attention']} with it: "
+              f"{fewer} fewer, predicted {want}; pinned "
+              f"{rk_on['stats']['kv_pool']['blocks_pinned_prefix']} blocks")
+        check(c["prefix_hits"] == PREFIX_HITS and
+              c["prefix_tokens_skipped"] == PREFIX_HITS * PREFIX_DEPTH,
+              f"6g rank {at}: {c['prefix_hits']} hits skipping "
+              f"{c['prefix_tokens_skipped']} tokens")
+        check(fewer == want, f"6g rank {at}: kernel 1 launched {fewer} "
+              f"times fewer, expected {want}")
+        check(rk_on["launches"]["lookahead_score"] ==
+              rk_off["launches"]["lookahead_score"],
+              f"6g rank {at}: kernel 3 launched a different number of times")
+    check(tp_tokens(on) == tp_tokens(off) and tp_kept(on) == tp_kept(off),
+          "6g: the cache changed tokens or kept sets")
+    print("  6g: tokens and kept sets identical with and without the cache")
+    out["6g"] = on[0]["launches"]
+    full_cell("6h", two[3])
+    return out
+
+
 def load_modules(torch) -> dict:
     """The port's modules this script drives (from ``src/`` beside it)."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -5466,6 +5833,12 @@ def main() -> None:
            "gloo (6a smoke exactness at 2 and 4 ranks; 6b llama3-8b full "
            "width on 2 ranks; 6c 8 layers on 4 ranks, h2o)")
     tp = phase_tp(torch, mods)
+    torch.cuda.empty_cache()
+    header("phase 6d-6h: every mesh the JAX engine serves (6d smoke "
+           "exactness at (2, 2) and (4, 1); 6e llama3-8b (2, 2) with ZeRO; "
+           "6f deepseek-moe-16b on 2 ranks; 6g a shared prefix on 2 ranks; "
+           "6h gemma3-1b on 2 ranks)")
+    tp.update(phase_tp_mesh(torch, mods))
     # launches on the main path: kernels 1, 3, 4 from the paged route,
     # kernels 7 and 6 from the lockstep route, kernel 5 from the
     # decode-eviction route, kernel 2 from the h2o route, kernel 8 from
@@ -5476,13 +5849,15 @@ def main() -> None:
                 "chunk_attention_masses": "paged continuous h2o",
                 "ssd_scan": "hybrid lockstep"}
     for k in kernels:
-        if k["name"].endswith((" tp2", " tp4")):  # phase 6, rank 0
-            # 6b's / 6c's full-width cell where it runs the kernel, else
-            # 6a's smoke runs (kernel 6: the dense slots; kernel 2 at 2
-            # ranks and kernels 1 and 3 at 4: the other policy)
+        if k["name"].endswith((" tp2", " tp4", " tp2g1")):  # phase 6
+            # rank 0 of 6b's / 6c's / 6f's full-width cell where it runs
+            # the kernel, else 6a's smoke runs (kernel 6: the dense slots;
+            # kernel 2 at 2 ranks and kernels 1 and 3 at 4: the other
+            # policy)
             name, tag = k["name"].rsplit(" ", 1)
-            k["launches"] = (tp["6b" if tag == "tp2" else "6c"][name]
-                             or tp[f"6a {tag}"][name])
+            cell = {"tp2": "6b", "tp4": "6c", "tp2g1": "6f"}[tag]
+            k["launches"] = tp[cell][name] or tp.get(f"6a {tag}", {}).get(
+                name, 0)
             check(k["launches"] > 0, f"{k['name']}: never launched in "
                   "phase 6")
             continue

@@ -13,18 +13,33 @@ for entry (``None``, an axis name, or a tuple of axis names per dim).
 * Mamba-2, norms and scalars replicate.
 
 The tensor-parallel serving path holds each rank's shard of a tree
-(``shard_tree``: each leaf's contiguous slice along its "model" dim) in
-``serving_specs``' layout.  That is ``param_specs`` but for the two
-row-parallel weights, the attention ``wo`` and the dense MLP's
-``w_down``, which it keeps column-sliced: the JAX helpers take them in
-that layout (``sharded_wo_linear`` and ``mlp.apply_sharded``'s
-``P(None, "model")`` in-specs, which re-lay the row-sharded weights out
-at every call), so that each product contracts its full input in
-single-device order.  Storing them so once costs nothing per call.
+(``shard_tree``: each leaf's contiguous slice along every dim its spec
+puts on a mesh axis) in ``serving_specs``' layout.  That is
+``param_specs`` but for the two row-parallel weights, the attention
+``wo`` and the dense MLP's ``w_down``, which it keeps column-sliced: the
+JAX helpers take them in that layout (``sharded_wo_linear`` and
+``mlp.apply_sharded``'s ``P(None, "model")`` in-specs, which re-lay the
+row-sharded weights out at every call), so that each product contracts
+its full input in single-device order.  Storing them so once costs
+nothing per call.  Three more rules of the serving layout:
+
+* ``cfg.fsdp``: the big weights' "data" dims of ``param_specs`` (ZeRO-3
+  storage); ``wo`` and ``w_down``, whose d_model dim holds "model", put
+  "data" on their other dim.  ``layer_gathers`` says what a layer
+  all-gathers at use: every "data" dim, so that each product runs on
+  the whole weight (a gather does no arithmetic, so it is exact).
+* MoE: the expert dim on "model" and the shared experts by their own
+  rule, as ``param_specs``; ``layer_gathers`` gathers the whole "moe"
+  subtree over "model" too, and every rank runs the layer whole (JAX's
+  ``replicated_apply``).
+* heads that do not divide the model axis: every layer runs whole on
+  every rank (JAX's ``model_shard_mesh`` fallback), so nothing is on
+  "model"; the "data" dims stay.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
@@ -131,40 +146,96 @@ def _as_shaped(cfg: ModelConfig) -> dict:
     return params
 
 
+def heads_divide(cfg: ModelConfig, msize: int) -> bool:
+    """Whether a model axis of ``msize`` shards the heads: q and kv heads
+    divide it (as ``attention.model_shard_mesh`` asks) and it is above 1."""
+    a = cfg.attn
+    return (msize > 1 and a is not None and _div(a.num_heads, msize)
+            and _div(a.num_kv_heads, msize))
+
+
 def serving_specs(cfg: ModelConfig, mesh) -> Any:
     """The layout of one rank's shard on the tensor-parallel serving path:
-    ``param_specs`` with ``wo`` and the dense MLP's ``w_down`` column-sliced
-    (the JAX helpers' in-specs), the MLP replicated where d_ff or d_model
-    does not divide the model axis (``mlp.apply_sharded``'s fallback), and
-    the embedding replicated unless it shards by vocab rows (the unembed
-    then contracts the full d_model).  Needs heads that divide."""
+    ``param_specs`` with ``wo`` and the dense MLP's ``w_down``
+    column-sliced (the JAX helpers' in-specs; under ``cfg.fsdp`` "data"
+    moves to their other dim, where it divides), the MLP replicated where
+    d_ff does not divide the model axis (``mlp.apply_sharded``'s
+    fallback), and the embedding replicated unless it shards by vocab
+    rows (the unembed then contracts the full d_model).  Where the heads
+    do not divide the model axis nothing is on "model" (the layers run
+    whole on every rank).  Heads that divide with a d_model that does not
+    raise ValueError: the column-sliced products need it."""
     msize = mesh.shape["model"]
-    a = cfg.attn
-    if a is None or not (_div(a.num_heads, msize)
-                         and _div(a.num_kv_heads, msize)
-                         and _div(cfg.d_model, msize)):
+    dsize = mesh.shape.get("data", 1)
+    tp = heads_divide(cfg, msize)
+    if tp and not _div(cfg.d_model, msize):
         raise ValueError(f"{cfg.name}: tensor-parallel serving over "
-                         f"{msize} model shards needs heads and d_model "
-                         "that divide it")
+                         f"{msize} model shards needs a d_model that "
+                         "divides it")
     mlp_sharded = _div(cfg.d_ff, msize)
     specs = param_specs(cfg, mesh)
+    shaped = _as_shaped(cfg)
 
-    def fix(path: str, _leaf) -> tuple:
+    def fix(path: str, leaf) -> tuple:
         parts = path.split("/")
         spec = specs
         for k in parts:
             spec = spec[k]
         name = parts[-1]
+        if not tp:
+            return tuple(None if e == "model" else e for e in spec)
         if name in ("embed", "lm_head") and "model" not in (
                 spec[0] if name == "embed" else spec[1],):
             return (None, None)
         if "mlp" in parts and not mlp_sharded:
-            return (None,) * len(spec)
+            return tuple("data" if e == "data" else None for e in spec)
         if name == "wo" or (name == "w_down" and "mlp" in parts):
-            return (*spec[:-2], None, "model")
+            fsdp = "data" in spec and _div(leaf.shape[-2], dsize)
+            return (*spec[:-2], "data" if fsdp else None, "model")
         return spec
 
-    return tree_map_with_path(fix, _as_shaped(cfg))
+    return tree_map_with_path(fix, shaped)
+
+
+class _ShapeMesh:
+    """A mesh's shape alone, for the cached rules below."""
+
+    def __init__(self, sig: tuple):
+        self.axis_names = tuple(n for n, _ in sig)
+        self.shape = dict(sig)
+
+
+@functools.lru_cache(maxsize=32)
+def _layer_gathers(cfg: ModelConfig, sig: tuple) -> tuple:
+    sizes = dict(sig)
+    specs = serving_specs(cfg, _ShapeMesh(sig))["layers"]
+    out = []
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            p = (*path, k)
+            if isinstance(v, dict):
+                walk(v, p)
+                continue
+            dims = tuple((d - 1, e) for d, e in enumerate(v)
+                         if (e == "data" or (e == "model" and "moe" in p))
+                         and sizes[e] > 1)
+            if dims:
+                out.append((p, dims))
+
+    walk(specs, ())
+    return tuple(out)
+
+
+def layer_gathers(cfg: ModelConfig, mesh) -> tuple:
+    """What one layer's leaves gather at use on the serving path:
+    ((path keys, ((dim of the per-layer leaf, axis), ...)), ...): every
+    "data" dim (ZeRO storage), and the "model" dims of the MoE subtree
+    (its layer runs whole on every rank).  Empty without a mesh."""
+    sig = mesh_signature(mesh)
+    if sig is None:
+        return ()
+    return _layer_gathers(cfg, sig)
 
 
 def lkv_specs(lkv_shapes: Any) -> Any:
@@ -271,23 +342,42 @@ def _model_dim(spec: tuple) -> Optional[int]:
     return None
 
 
+def axis_coords(mesh, rank: int) -> dict:
+    """{axis name: index} of global rank ``rank`` (row-major, as
+    ``jax.make_mesh`` lays devices out)."""
+    coords = {}
+    for name, size in reversed(tuple(mesh.shape.items())):
+        coords[name] = rank % size
+        rank //= size
+    return coords
+
+
 def shard_tree(tree: Any, specs: Any, mesh, rank: int) -> Any:
-    """Shard ``rank % model`` of ``tree``: each leaf's contiguous slice
-    along the dim its spec puts on "model" (a copy, so the full leaf can
-    be freed), other leaves as they are.  Concatenating the shards of
-    every rank in rank order along that dim gives the tree back."""
-    n = mesh.shape["model"]
-    i = rank % n
+    """Rank ``rank``'s shard of ``tree``: each leaf's contiguous slice
+    along every dim its spec puts on a mesh axis (several axes on one dim
+    combine row-major), a copy, so the full leaf can be freed; other
+    leaves as they are.  Concatenating the shards of the ranks along an
+    axis, in their order on it, gives back the tree sharded on the other
+    axes."""
+    at = axis_coords(mesh, rank)
 
     def take(leaf, spec):
-        d = _model_dim(spec)
-        if d is None or n == 1:
-            return leaf
-        size = leaf.shape[d]
-        if size % n:
-            raise ValueError(f"dim {d} of size {size} does not divide "
-                             f"{n} model shards")
-        w = size // n
-        return leaf.narrow(d, i * w, w).clone()
+        out = leaf
+        for d, entry in enumerate(spec):
+            names = entry if isinstance(entry, tuple) else (entry,)
+            n, i = 1, 0
+            for name in names:
+                if name is not None:
+                    n, i = n * mesh.shape[name], i * mesh.shape[name] + \
+                        at[name]
+            if n == 1:
+                continue
+            size = out.shape[d]
+            if size % n:
+                raise ValueError(f"dim {d} of size {size} does not divide "
+                                 f"{n} shards of {names}")
+            w = size // n
+            out = out.narrow(d, i * w, w)
+        return leaf if out is leaf else out.clone()
 
     return tree_map(take, tree, specs)

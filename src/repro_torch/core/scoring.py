@@ -107,11 +107,13 @@ class ScoreState(NamedTuple):
             acc=acc, cnt=self.cnt,
             qbuf=None if self.qbuf is None else self.qbuf.clone())
 
-    def nbytes(self) -> int:
+    def nbytes(self, shards: int = 1) -> int:
         """Bytes held, counting the row count as the float32 scalar it is
-        in the JAX package."""
-        return sum(t.numel() * t.element_size() for t in (self.acc, self.qbuf)
-                   if t is not None) + (0 if self.cnt is None else 4)
+        in the JAX package; with ``shards``, the global bytes of a state
+        that holds one of ``shards`` equal head shards."""
+        return shards * sum(t.numel() * t.element_size()
+                            for t in (self.acc, self.qbuf)
+                            if t is not None) + (0 if self.cnt is None else 4)
 
 
 def stream_window(policy: str, window_size: int) -> int:

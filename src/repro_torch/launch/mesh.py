@@ -2,9 +2,11 @@
 
 A ``Mesh`` is the small value the sharding rules and the tensor-parallel
 model functions read: its axis names, its shape, and, for a mesh over an
-initialised process group, this process's rank and the process group of
-its "model" axis (the ranks that hold the other shards of its model).
-A shape-only mesh (no group) feeds the sharding rules and nothing else.
+initialised process group, this process's rank, the process group of its
+"model" axis (the ranks of its data row, which hold the other shards of
+its model), the process group of its "data" axis (the ranks of its model
+column, which hold the same model shard) and the world.  A shape-only
+mesh (no group) feeds the sharding rules and nothing else.
 
 Ranks lie on the mesh row-major, as ``jax.make_mesh`` lays devices out:
 rank ``r`` sits at data row ``r // model`` and model column ``r % model``.
@@ -13,8 +15,9 @@ rank ``r`` sits at data row ``r // model`` and model column ``r % model``.
   (16, 16) over ("data", "model") or (2, 16, 16) over ("pod", "data",
   "model"), shape only.
 * ``make_host_mesh(model)``: the ("data", "model") mesh over the
-  initialised world (data = world // model); a single process without a
-  process group is a world of one.
+  initialised world (data = world // model), with every data row's
+  model-axis group and every model column's data-axis group; a single
+  process without a process group is a world of one.
 * ``spawn_ranks(fn, n, args)``: a world of ``n`` spawned processes, each
   with its process group initialised, running ``fn(rank, *args)``;
   returns their results in rank order and raises if any rank failed or
@@ -40,12 +43,16 @@ import torch.multiprocessing as mp
 @dataclass(frozen=True, eq=False)
 class Mesh:
     """Named mesh axes; ``group`` is this rank's "model"-axis process
-    group (None: a shape-only mesh), ``rank`` its global rank."""
+    group, ``data_group`` its "data"-axis group and ``world`` the whole
+    world's (each None on a shape-only mesh, and an axis's group None
+    where the axis has size 1), ``rank`` its global rank."""
 
     axis_names: tuple
     axis_sizes: tuple
     group: Optional[Any] = None
     rank: int = 0
+    data_group: Optional[Any] = None
+    world: Optional[Any] = None
 
     @property
     def shape(self) -> dict:
@@ -64,6 +71,15 @@ class Mesh:
         """This rank's place on the "model" axis: which shard it holds."""
         return self.rank % self.shape.get("model", 1)
 
+    @property
+    def data_index(self) -> int:
+        """This rank's place on the "data" axis: its data row."""
+        return self.rank // self.shape.get("model", 1)
+
+    def axis_group(self, axis: str):
+        """The process group of ``axis`` ("model" or "data")."""
+        return self.group if axis == "model" else self.data_group
+
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     if multi_pod:
@@ -73,25 +89,41 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 def make_host_mesh(model: int = 1) -> Mesh:
     """The ("data", "model") mesh over every rank of the initialised
-    world, each data row's ``model`` ranks one model-axis group (every
-    rank creates every row's group, as ``dist.new_group`` requires)."""
+    world: each data row's ``model`` ranks one model-axis group, each
+    model column's ``world // model`` ranks one data-axis group.  Every
+    rank creates every group, rows first, then columns, in the same
+    order (``dist.new_group`` requires it; a rank that did otherwise
+    would wait at the group's timeout)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     if model <= 0 or world % model:
         raise ValueError(f"--mesh-model {model} does not divide the "
                          f"{world} ranks of the world")
     data = world // model
-    group = None
-    if dist.is_initialized():
-        if data == 1:
-            group = dist.group.WORLD
-        else:
-            for row in range(data):
-                g = dist.new_group(list(range(row * model,
-                                              (row + 1) * model)))
-                if row == rank // model:
-                    group = g
-    return Mesh(("data", "model"), (data, model), group, rank)
+    if not dist.is_initialized():
+        return Mesh(("data", "model"), (data, model), None, rank)
+    everyone = dist.group.WORLD
+
+    def groups(n_groups: int, members) -> Optional[Any]:
+        """One group per index, this rank's returned; the world itself
+        for one group, None for groups of one rank."""
+        if n_groups == 1:
+            return everyone
+        mine = None
+        for i in range(n_groups):
+            ranks = members(i)
+            if len(ranks) == 1:
+                continue
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine = g
+        return mine
+
+    group = groups(data, lambda row: list(range(row * model,
+                                                (row + 1) * model)))
+    data_group = groups(model, lambda col: list(range(col, world, model)))
+    return Mesh(("data", "model"), (data, model), group, rank,
+                data_group=data_group, world=everyone)
 
 
 def data_axes(mesh: Mesh) -> tuple:

@@ -125,6 +125,7 @@ import torch.distributed as dist
 
 from repro_torch import bridge
 from repro_torch.common.config import EvictionConfig
+from repro_torch.common.pytree import tree_bytes
 from repro_torch.common.sharding import serving_specs, shard_tree
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import policies
@@ -270,19 +271,19 @@ def rank_device(device: str, rank: int, n: int) -> str:
 
 
 def init_shard(cfg, mesh, *, seed: int, device) -> dict:
-    """This rank's shard of the seeded weights: the ranks draw the full
-    tree in turn and keep their shard, so that at most one full tree is
-    on a shared card at a time."""
+    """This rank's shard of the seeded weights: the ranks of the world
+    draw the full tree in turn and keep their shard, so that at most one
+    full tree is on a shared card at a time."""
     specs = serving_specs(cfg, mesh)
     shard = None
-    for r in range(int(mesh.shape["model"])):
-        if r == mesh.model_index:
+    for r in range(mesh.size):
+        if r == mesh.rank:
             full = tf.init_params(cfg, seed=seed, device=device)
             shard = shard_tree(full, specs, mesh, mesh.rank)
             del full
             if torch.device(device).type == "cuda":
                 torch.cuda.empty_cache()
-        dist.barrier(group=mesh.group)
+        dist.barrier(group=mesh.world)
     return shard
 
 
@@ -466,13 +467,17 @@ def run(argv=None, mesh=None) -> dict:
 def serve_job(job: dict, *, mesh=None, device=None) -> dict:
     """Serve one ``ContinuousEngine`` run in this process: ``job`` holds
     "cfg", "device", "serving" (a ``ServingConfig`` without pool or mesh),
-    "requests", "pool" (None or ``KVBlockPool`` keywords), and the weights
-    as the JAX package's full numpy trees "params" / "lkv" (``bridge``),
-    or a "seed" to draw them from (the launcher's draws).  Over ``mesh``
-    (one rank of a world, on ``device``) the rank's shard.  Returns the
-    served requests in finish order, the engine's ``stats`` and
-    ``counts``, the kernel launches, peak device bytes and wall seconds
-    of the run."""
+    "requests", "pool" (None or ``KVBlockPool`` keywords), optionally
+    "prefix_cache" (``PrefixCache`` keywords but the chunk, bound to the
+    pool where there is one) and "mesh_model" (``serve_shard``), and the
+    weights as the JAX package's full numpy trees "params" / "lkv"
+    (``bridge``), or a "seed" to draw them from (the launcher's draws).
+    Over ``mesh`` (one rank of a world, on ``device``) the rank's shard.
+    Returns the served requests in finish order, the engine's ``stats``
+    and ``counts``, the kernel launches, peak device bytes and wall
+    seconds of the run, the bytes of the rank's weights, the slots its
+    data row decodes ([start, stop), or None: all of them), and the
+    rank's place on the mesh."""
     cfg, sc = job["cfg"], job["serving"]
     device = device or job["device"]
     if job.get("params") is not None:
@@ -495,7 +500,12 @@ def serve_job(job: dict, *, mesh=None, device=None) -> dict:
     pool = None
     if job.get("pool") is not None:
         pool = KVBlockPool(cfg, device=device, mesh=mesh, **job["pool"])
-    eng = ContinuousEngine(params, cfg, sc.replace(kv_pool=pool, mesh=mesh),
+    pc = None
+    if job.get("prefix_cache") is not None:
+        pc = PrefixCache(chunk=sc.chunking.chunk, pool=pool,
+                         **job["prefix_cache"])
+    eng = ContinuousEngine(params, cfg, sc.replace(kv_pool=pool, mesh=mesh,
+                                                   prefix_cache=pc),
                            lkv_params=lkv, device=device)
     del params
     on_card = torch.device(device).type == "cuda"
@@ -515,15 +525,21 @@ def serve_job(job: dict, *, mesh=None, device=None) -> dict:
             "launches": ops.launch_counts(), "wall_s": wall,
             "peak_bytes": (torch.cuda.max_memory_allocated()
                            if on_card else None),
-            "model_index": 0 if mesh is None else mesh.model_index}
+            "param_bytes": tree_bytes(eng.params),
+            "decode_slots": (None if eng._split is None else
+                             [eng._split.start, eng._split.stop]),
+            "model_index": 0 if mesh is None else mesh.model_index,
+            "data_index": 0 if mesh is None else mesh.data_index}
 
 
 def serve_shard(rank: int, job: dict) -> dict:
     """One rank of a tensor-parallel ``serve_job``, for ``spawn_ranks``:
-    the world's ("data", "model") mesh of one data row, on the rank's
+    the world's ("data", "model") mesh with ``job["mesh_model"]`` model
+    shards (by default the whole world, one data row), on the rank's
     device (``rank_device``)."""
     n = dist.get_world_size()
-    return serve_job(job, mesh=make_host_mesh(model=n),
+    return serve_job(job, mesh=make_host_mesh(model=job.get("mesh_model",
+                                                             n)),
                      device=rank_device(job["device"], rank, n))
 
 

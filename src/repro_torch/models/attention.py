@@ -88,15 +88,21 @@ def local_config(cfg: ModelConfig, smesh) -> ModelConfig:
         a, num_heads=a.num_heads // n, num_kv_heads=a.num_kv_heads // n))
 
 
-def all_gather(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
-    """The model-axis ranks' ``x`` concatenated along ``dim`` in rank
-    order (``jax.lax.all_gather(..., tiled=True)``).  Over NCCL (one card
-    per rank) ``all_gather_into_tensor`` on the card; over gloo (ranks
-    sharing a card, or the CPU) through the host."""
-    group = mesh.group
+def all_gather(x: torch.Tensor, dim: int, mesh,
+               axis: str = "model") -> torch.Tensor:
+    """The ``axis`` ranks' ``x`` concatenated along ``dim`` in rank order
+    (``jax.lax.all_gather(..., tiled=True)``): the model-axis ranks of
+    this rank's data row, or with ``axis="data"`` the data-axis ranks of
+    its model column.  Over NCCL (one card per rank)
+    ``all_gather_into_tensor`` on the card; over gloo (ranks sharing a
+    card, or the CPU) through the host."""
+    import torch.distributed as dist
+
+    group = mesh.axis_group(axis)
     if group is None:
-        raise ValueError("a shape-only mesh has no ranks to gather from")
-    n = int(mesh.shape["model"])
+        raise ValueError(f"no {axis}-axis ranks to gather from (a "
+                         "shape-only mesh, or an axis of size 1)")
+    n = int(mesh.shape[axis])
     if dist.get_backend(group) == "nccl":
         xs = x.contiguous()
         out = torch.empty((n * xs.shape[0], *xs.shape[1:]), dtype=x.dtype,

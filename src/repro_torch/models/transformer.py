@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.config import EvictionConfig, ModelConfig
+from repro_torch.common.sharding import layer_gathers
 from repro_torch.core import eviction as ev
 from repro_torch.core import scoring
 from repro_torch.core.lookahead import append_lookahead, lora_scale
@@ -149,6 +150,25 @@ def layer_slice(tree: Optional[dict], layer: int) -> Optional[dict]:
             for k, v in tree.items()}
 
 
+def _layer_params(params: dict, layer: int, gathers: tuple,
+                  mesh) -> dict:
+    """Layer ``layer`` of ``params`` as its products take it: on the
+    serving path over a mesh, every leaf ``gathers``
+    (``sharding.layer_gathers``, taken with the global config) names is
+    all-gathered along its dims (ZeRO storage over "data", the MoE's
+    shards over "model"), whole for this layer's use and dropped after."""
+    lp = layer_slice(params["layers"], layer)
+    for path, dims in gathers:
+        node = lp  # layer_slice made fresh dicts: safe to write into
+        for k in path[:-1]:
+            node = node[k]
+        x = node[path[-1]]
+        for d, axis in dims:
+            x = attn_mod.all_gather(x, d, mesh, axis)
+        node[path[-1]] = x
+    return lp
+
+
 def is_global_flags(cfg: ModelConfig) -> Optional[np.ndarray]:
     """Per-layer bool array for local:global patterns, or None if uniform
     (or without attention)."""
@@ -241,12 +261,10 @@ def _ffn_residual(h, lp, cfg: ModelConfig, *, lora_l=None, lora_mask=None,
     aux), the MoE (``cfg.moe.dispatch`` picks ``moe.apply`` or
     ``apply_sparse``; its LoRA is the shared experts') or the MLP; aux is
     the MoE load-balance loss, None without MoE.  Under ``smesh`` the MLP
-    runs tensor-parallel (``mlp.apply_sharded``); an MoE arch is refused
-    there."""
+    runs tensor-parallel (``mlp.apply_sharded``); an MoE layer runs whole
+    on every rank, on the params ``_layer_params`` gathered whole (JAX's
+    ``replicated_apply``)."""
     if cfg.moe is not None:
-        if smesh is not None:
-            raise NotImplementedError("not ported yet: an MoE arch under "
-                                      "a mesh: ROADMAP A11")
         u = rms_norm(h, lp["ln2"], cfg.norm_eps)
         moe_lora = None
         if lora_l is not None and lora_l.get("moe"):
@@ -783,6 +801,7 @@ def prefill_chunk(
     ``mesh`` whose model axis divides the heads, ``params`` and ``state``
     are the rank's shards and every rank returns the full logits."""
     smesh = attn_mod.model_shard_mesh(mesh, cfg.attn)
+    gathers = layer_gathers(cfg, mesh)
     cfg = attn_mod.local_config(cfg, smesh)
     a = cfg.attn
     h = embed(params, cfg, tokens, smesh)
@@ -793,7 +812,7 @@ def prefill_chunk(
     score = state.score
     want_masses = policy in scoring.STREAMING_CUMULATIVE
     for layer, window in enumerate(_windows(cfg)):
-        lp = layer_slice(params["layers"], layer)
+        lp = _layer_params(params, layer, gathers, mesh)
         u = rms_norm(h, lp["ln1"], cfg.norm_eps)
         out, q, masses = attn_mod.chunk_prefill_attention(
             lp["attn"], a, u, positions, state.k[layer], state.v[layer],
@@ -815,7 +834,8 @@ def _chunk_observation_pass(params: dict, cfg: ModelConfig, state: ChunkState,
                             n_total: int, *, policy: str,
                             lkv_params: Optional[dict] = None,
                             obs_tokens: Optional[torch.Tensor] = None,
-                            smesh=None) -> torch.Tensor:
+                            smesh=None, mesh=None,
+                            gathers: tuple = ()) -> torch.Tensor:
     """The final-observation pass of lookaheadkv (the learned lookahead
     rows, with their selective LoRA) or gt_oracle (the response rows
     ``obs_tokens``): the rows run through the stack at positions
@@ -823,7 +843,8 @@ def _chunk_observation_pass(params: dict, cfg: ModelConfig, state: ChunkState,
     appending their keys after the prompt so each row's softmax includes
     the observation keys as in monolithic prefill.  Returns obs masses
     (L, B, H, K): the mean over observation rows of each q head's softmax
-    mass per key."""
+    mass per key.  Over a mesh, ``cfg`` is the rank's local config and
+    ``gathers`` the global one's ``layer_gathers``."""
     a = cfg.attn
     L, B, K = state.k.shape[:3]
     if policy == "lookaheadkv":
@@ -847,7 +868,7 @@ def _chunk_observation_pass(params: dict, cfg: ModelConfig, state: ChunkState,
     tables = rope_tables(positions, a.head_dim, a.rope_theta)
     masses = []
     for layer, window in enumerate(_windows(cfg)):
-        lp = layer_slice(params["layers"], layer)
+        lp = _layer_params(params, layer, gathers, mesh)
         lora_l = layer_slice(lora_tree, layer)
         u = rms_norm(h, lp["ln1"], cfg.norm_eps)
         out, q, _ = attn_mod.chunk_prefill_attention(
@@ -919,6 +940,7 @@ def prefill_finalize(
     check_policy(policy)
     smesh = attn_mod.model_shard_mesh(mesh, cfg.attn)
     kv_global = cfg.attn.num_kv_heads
+    gathers = layer_gathers(cfg, mesh)
     cfg = attn_mod.local_config(cfg, smesh)
     a = cfg.attn
     lk = cfg.lookahead
@@ -929,7 +951,8 @@ def prefill_finalize(
     if policy in scoring.FINAL_OBS:
         obs = _chunk_observation_pass(params, cfg, state, n_total,
                                       policy=policy, lkv_params=lkv_params,
-                                      obs_tokens=obs_tokens, smesh=smesh)
+                                      obs_tokens=obs_tokens, smesh=smesh,
+                                      mesh=mesh, gathers=gathers)
     budgets, _ = _policy_budget_schedule(
         cfg, policy, evict.budget if policy != "full" else K,
         evict.pyramid_beta)
@@ -1170,6 +1193,7 @@ def decode_step(
     cache are the rank's shards (its kv heads), attention runs on its
     local heads and every rank returns the full logits."""
     smesh = attn_mod.model_shard_mesh(mesh, cfg.attn)
+    gathers = layer_gathers(cfg, mesh)
     cfg = attn_mod.local_config(cfg, smesh)
     a = cfg.attn
     h = embed(params, cfg, token, smesh)
@@ -1201,7 +1225,7 @@ def decode_step(
                                               active)
     cross = cache.get("cross") if cfg.is_encoder_decoder else None
     for layer, window in enumerate(_windows(cfg)):
-        lp = layer_slice(params["layers"], layer)
+        lp = _layer_params(params, layer, gathers, mesh)
         u = rms_norm(h, lp["ln1"], cfg.norm_eps)
         delta = None
         if attend and paged:

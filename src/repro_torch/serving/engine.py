@@ -73,18 +73,27 @@ every retired request.  PyTorch runs eagerly, so there is no compile
 cache; on the card the attention kernels run through ``kernels/ops.py``.
 
 Tensor-parallel serving (``config.mesh``, a ``launch.mesh.Mesh`` over an
-initialised process group, one process per model shard): every rank runs
+initialised process group of ("data", "model") ranks): every rank runs
 this engine on its shard of the params (``common.sharding.serving_specs``;
 a full tree is sharded at construction, the lookahead params stay
-replicated) and its kv heads of the pool or the dense slots, the model
-functions all-gathering activations where a product's input is sharded
-(``models/attention.py``).  The host decisions are the same on every
-rank: the tokens come from the same gathered logits, the allocator and
-block tables are head-oblivious, and the arrivals are read on rank 0's
-clock, broadcast at every reading.  A data axis above 1, an MoE arch and
-the prefix cache under a mesh raise ``NotImplementedError`` naming ROADMAP
-A11; decode-time eviction on the pool under a mesh raises ``ValueError``,
-as the JAX engine asserts.
+replicated) and, where the heads divide the model axis, its kv heads of
+the pool or the dense slots, the model functions all-gathering
+activations where a product's input is sharded (``models/attention.py``)
+and each layer's ZeRO-stored ("data") and MoE ("model") leaves at use
+(``transformer._layer_params``); where the heads do not divide, every
+layer runs whole on every rank.  As the JAX engine's cache specs have
+it, a prefill chunk (batch 1) runs on every data row, so every pool
+write and prefix snapshot lands on every row; decode splits the slots
+over the data rows where the data size divides them (and the MoE
+dispatch is not the capacity one, whose rows compete), else runs on
+every row, and the new tokens are exchanged over the data axis.  The
+paged pool keeps whole blocks on every row.  The host decisions are the
+same on every rank: the tokens are the same everywhere, the allocator,
+block tables and prefix trie are head-oblivious, and the arrivals are
+read on global rank 0's clock, broadcast over the world at every
+reading.  Decode-time eviction on the pool under a mesh raises
+``ValueError``, as the JAX engine asserts, and so does a pool built for
+another mesh.
 
 Observability (``repro_torch.obs``), as in the JAX engine: the engine's
 record is one typed ``MetricsRegistry`` (``engine.metrics``: counters and
@@ -355,28 +364,30 @@ def _reject_unported(config: ServingConfig) -> None:
     """Raise for every setting the port does not serve, naming its ROADMAP
     item, instead of serving it differently from the JAX engine."""
     _check_policy(config.policy, streaming=True)
-    mesh = config.mesh
-    if mesh is None:
-        return
-    if any(mesh.shape[n] > 1 for n in mesh.axis_names if n != "model"):
-        raise NotImplementedError("not ported yet: a data axis above 1: "
-                                  "ROADMAP A11")
-    if config.prefix_cache is not None:
-        raise NotImplementedError("not ported yet: the prefix cache under "
-                                  "a mesh: ROADMAP A11")
 
 
 def _mesh_now(t0: float, mesh) -> float:
-    """Seconds since ``t0`` on the host clock; over a mesh rank 0's
-    reading, broadcast, so that every rank takes the same arrivals."""
+    """Seconds since ``t0`` on the host clock; over a mesh global rank
+    0's reading, broadcast over the world, so that every rank of every
+    data row takes the same arrivals."""
     now = time.perf_counter() - t0
     if mesh is None:
         return now
-    dev = ("cuda" if dist.get_backend(mesh.group) == "nccl" else "cpu")
+    import torch.distributed as dist
+
+    dev = "cuda" if dist.get_backend(mesh.world) == "nccl" else "cpu"
     t = torch.tensor([now], dtype=torch.float64, device=dev)
-    dist.broadcast(t, src=dist.get_global_rank(mesh.group, 0),
-                   group=mesh.group)
+    dist.broadcast(t, src=0, group=mesh.world)
     return float(t[0])
+
+
+def _host_collective(mesh, axis: str):
+    """(group, device) of a small host-side collective over ``axis``: the
+    card under NCCL, else the CPU."""
+    import torch.distributed as dist
+
+    group = mesh.axis_group(axis)
+    return group, ("cuda" if dist.get_backend(group) == "nccl" else "cpu")
 
 
 class _InflightPrefill:
@@ -427,16 +438,26 @@ class _SlotDecodeMixin:
         seeds = None
         if sampling is not None:
             seeds = torch.as_tensor(self._seeds_h.copy(), device=self.device)
+        tok = self._tok
+        act = torch.as_tensor(np.array(active), device=self.device)
+        split = getattr(self, "_split", None)
+        if split is not None:  # this data row's slots only
+            tok, act = tok[split], act[split]
+            seeds = None if seeds is None else seeds[split]
         tr = getattr(self, "trace", None)
         if tr is not None:
             tr.begin("decode_chunk", tr.ENGINE, steps=steps,
                      slots=int(active.sum()))
         t_dec = time.perf_counter()
-        self._tok, cache, toks = policies.decode_chunk(
-            self.params, self.cfg, self._tok, cache, steps,
-            active=torch.as_tensor(np.array(active), device=self.device),
+        tok, cache, toks = policies.decode_chunk(
+            self.params, self.cfg, tok, cache, steps, active=act,
             paged_depth=paged_depth, sampling=sampling, seeds=seeds,
             mesh=getattr(self, "mesh", None))
+        if split is None:
+            self._tok = tok
+        else:  # every row's tokens, in slot order, on every rank
+            self._tok[split] = tok
+            toks = attn_mod.all_gather(toks, 0, self.mesh, "data")
         if getattr(self, "_sync_timers", False):
             _sync(self.device)  # the whole chunk ran, not just the tokens
         toks_np = toks.cpu().numpy()  # device sync: the tokens landed
@@ -647,10 +668,18 @@ class ContinuousEngine(_SlotDecodeMixin):
         # chunk-boundary snapshots shared across requests (prefix_cache.py)
         self.prefix_cache: Optional[PrefixCache] = pc
         if pc is not None:
-            pc.bind(chunk=self.chunk, policy=self.policy, model=self.params)
+            # under a mesh the snapshots hold this rank's kv heads: the
+            # cache counts their global bytes
+            smesh = attn_mod.model_shard_mesh(self.mesh, cfg.attn)
+            pc.bind(chunk=self.chunk, policy=self.policy, model=self.params,
+                    kv_shards=1 if smesh is None else
+                    int(smesh.shape["model"]))
         # rows of every slot's decode cache: kept rows, then appends
         self._depth = self.capacity + self.decode_margin
         S = self.num_slots
+        #: over a data axis, the slots this rank's data row decodes (a
+        #: slice of [0, S)), or None where every row decodes them all
+        self._split: Optional[slice] = self._data_split(cfg)
         self._tok = torch.zeros((S, 1), dtype=torch.int32, device=self.device)
         #: the live dense slot cache of a run without a pool
         self._live: Optional[dict] = None
@@ -711,17 +740,10 @@ class ContinuousEngine(_SlotDecodeMixin):
     def _shard_params(params: dict, cfg: ModelConfig,
                       config: ServingConfig) -> dict:
         """Check a mesh config and return this rank's shard of ``params``
-        (``params`` itself when it is a shard already: its ``wq`` holds
-        the local head columns)."""
+        (``params`` itself when it is a shard already: its ``wq`` is not
+        the whole (d_model, q_dim) weight)."""
         mesh = config.mesh
         n = int(mesh.shape["model"])
-        if cfg.moe is not None:
-            raise NotImplementedError("not ported yet: an MoE arch under a "
-                                      "mesh: ROADMAP A11")
-        if attn_mod.model_shard_mesh(mesh, cfg.attn) is None:
-            raise ValueError(f"{cfg.name}: the model axis ({n}) must "
-                             "divide the q and kv heads to serve over a "
-                             "mesh")
         pool = config.kv_pool
         if pool is not None and pool.model_shards != n:
             raise ValueError("kv pool built for a different mesh: pass the "
@@ -730,9 +752,49 @@ class ContinuousEngine(_SlotDecodeMixin):
             raise ValueError("decode-time eviction on the paged pool is "
                              "single-device (mesh-sharded serving keeps the "
                              "dense decode_evict path)")
-        if params["layers"]["attn"]["wq"].shape[-1] != cfg.attn.q_dim:
+        wq = params["layers"]["attn"]["wq"]
+        if tuple(wq.shape[-2:]) != (cfg.d_model, cfg.attn.q_dim):
             return params
         return shard_tree(params, serving_specs(cfg, mesh), mesh, mesh.rank)
+
+    def _data_split(self, cfg: ModelConfig) -> Optional[slice]:
+        """This data row's decode slots: the JAX cache specs' batch rule
+        (the slots split over "data" where its size divides them), unless
+        the MoE's capacity dispatch couples the rows of a call."""
+        mesh = self.mesh
+        rows = 1 if mesh is None else int(mesh.shape.get("data", 1))
+        sparse = cfg.moe is not None and cfg.moe.dispatch == "sparse"
+        if rows == 1 or self.num_slots % rows or sparse:
+            return None
+        w = self.num_slots // rows
+        return slice(mesh.data_index * w, (mesh.data_index + 1) * w)
+
+    def _from_row(self, row: int, *ts: torch.Tensor) -> list:
+        """``ts`` as the rank of data row ``row`` in this rank's model
+        column holds them (broadcast over the data axis)."""
+        import torch.distributed as dist
+
+        group, dev = _host_collective(self.mesh, "data")
+        src = row * int(self.mesh.shape["model"]) + self.mesh.model_index
+        out = []
+        for t in ts:
+            x = t.to(dev, torch.uint8 if t.dtype == torch.bool
+                     else t.dtype).contiguous()
+            dist.broadcast(x, src=src, group=group)
+            out.append(x.to(t.device, t.dtype))
+        return out
+
+    def _max_over_heads(self, n: int) -> int:
+        """The largest ``n`` over the model-axis ranks when they hold
+        different kv heads (a quantity of the global heads), else ``n``."""
+        if attn_mod.model_shard_mesh(self.mesh, self.cfg.attn) is None:
+            return n
+        import torch.distributed as dist
+
+        group, dev = _host_collective(self.mesh, "model")
+        t = torch.tensor([n], dtype=torch.int64, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return int(t[0])
 
     # -- observability ---------------------------------------------------
     def _register_metrics(self) -> None:
@@ -959,8 +1021,10 @@ class ContinuousEngine(_SlotDecodeMixin):
         if self._score is not None:
             self._score.zero_()  # clean tallies across runs
         if not paged:
+            slots = (self.num_slots if self._split is None
+                     else self._split.stop - self._split.start)
             self._live = tf.init_decode_cache(
-                self.cfg, self.num_slots, self._depth, per_slot_cursor=True,
+                self.cfg, slots, self._depth, per_slot_cursor=True,
                 device=self.device, mesh=self.mesh)
             if self.decode_evict.enabled:
                 self._live = tf.add_decode_eviction_scores(self._live)
@@ -1050,9 +1114,10 @@ class ContinuousEngine(_SlotDecodeMixin):
             pool = self.pool.tree()
             if self._score is not None:
                 pool["score"] = self._score  # summed into in place
-            cache = {"attn": {"table": self._table_dev}, "pool": pool,
-                     "cursor": self._to_dev(self._cursor_h),
-                     "next_pos": self._to_dev(self._npos_h[:, None])}
+            sl = self._split or slice(None)  # this data row's slots
+            cache = {"attn": {"table": self._table_dev[sl]}, "pool": pool,
+                     "cursor": self._to_dev(self._cursor_h[sl]),
+                     "next_pos": self._to_dev(self._npos_h[sl, None])}
         else:
             cache = self._live  # written in place, gated by `active`
         cache, toks_np = self._decode_steps(
@@ -1173,7 +1238,11 @@ class ContinuousEngine(_SlotDecodeMixin):
             tr.end("finalize", tid)
         if self.pool is None:
             slot = sched.place(r)
-            tf.insert_request_cache(self._live, cache, slot)
+            sl = self._split
+            if sl is None:
+                tf.insert_request_cache(self._live, cache, slot)
+            elif sl.start <= slot < sl.stop:  # a slot of this data row
+                tf.insert_request_cache(self._live, cache, slot - sl.start)
         else:
             slot = self._paged_place(sched, r, cache)
             if slot is None:
@@ -1319,7 +1388,8 @@ class ContinuousEngine(_SlotDecodeMixin):
         pool cannot cover the kept rows (or the promise) right now."""
         mask = cache["attn"]["mask"]  # (L, 1, C, KV)
         rows = torch.arange(mask.shape[2], device=mask.device)[:, None]
-        used = int(torch.where(mask, rows, 0).max()) + 1
+        used = self._max_over_heads(
+            int(torch.where(mask, rows, 0).max()) + 1)
         ids = self._alloc_blocks(self.pool.blocks_for(used))
         if ids is None:
             return None
@@ -1471,6 +1541,10 @@ class ContinuousEngine(_SlotDecodeMixin):
         pos = dense(self.pool.pos)
         horizon = len(req.prompt) + max(len(req.out_tokens) - 1, 0)
         mask = dense(self.pool.mask) & (pos < horizon)
+        sl = self._split
+        if sl is not None:  # the appends are on the slot's own data row
+            pos, mask = self._from_row(slot // (sl.stop - sl.start), pos,
+                                       mask)
         req.retirement_cache = {"pos": pos.cpu().numpy(),
                                 "mask": mask.cpu().numpy()}
 

@@ -33,6 +33,12 @@ unpinned, childless entries under a byte budget (``nbytes`` counts
 exactly what an entry holds); an insert that cannot fit by evicting
 unpinned entries is skipped (the request still serves).
 
+Under a mesh every rank holds the same trie over its own kv-head shard
+of the snapshots (dense spans and ``ScoreState``) or of the pool's
+blocks, and ``nbytes`` counts an entry's global bytes (``bind``'s
+``kv_shards`` times its sharded bytes, the logits once), so that the
+byte budget evicts as the JAX package's single-device cache does.
+
 Dense mode keeps private device copies of each span.  With a
 ``KVBlockPool`` bound (paged serving) a span is a pinned run of pool
 blocks instead: shared prefixes occupy the pool the decode caches draw
@@ -84,7 +90,7 @@ class PrefixEntry:
                  "score", "logits", "nbytes", "refs", "node", "src_capacity")
 
     def __init__(self, *, depth, start, parent, score, logits, node,
-                 src_capacity, k_block=None, v_block=None):
+                 src_capacity, k_block=None, v_block=None, kv_shards=1):
         self.depth = depth  # prefix length (chunk-aligned)
         self.start = start  # the parent's depth: the span is [start, depth)
         self.parent: Optional[PrefixEntry] = parent
@@ -100,8 +106,11 @@ class PrefixEntry:
         self.logits = logits  # (1, V) the boundary chunk's logits
         self.node = node
         self.refs = 0  # child entries + in-flight pins; evictable at 0
-        self.nbytes = _nbytes(logits) + score.nbytes() + (
-            0 if k_block is None else _nbytes(k_block) + _nbytes(v_block))
+        # global bytes: the span and the score state hold one of
+        # ``kv_shards`` head shards, the logits are whole on every rank
+        self.nbytes = _nbytes(logits) + score.nbytes(kv_shards) + (
+            0 if k_block is None
+            else kv_shards * (_nbytes(k_block) + _nbytes(v_block)))
 
 
 def _common_len(a: np.ndarray, b: np.ndarray) -> int:
@@ -131,6 +140,8 @@ class PrefixCache:
                              "size")
         # the bound params dict, held so that identity stays meaningful
         self._model = None
+        # kv-head shards of the bound engine's mesh (1: single device)
+        self.kv_shards = 1
         self._root = _Node(np.zeros(0, np.int32), 0, None)
         self._lru: OrderedDict[PrefixEntry, None] = OrderedDict()
         self.bytes = 0
@@ -141,11 +152,13 @@ class PrefixCache:
         self.tokens_hit = 0  # prefix tokens served from the cache
 
     # -- binding ---------------------------------------------------------
-    def bind(self, *, chunk: int, policy: str, model=None) -> None:
+    def bind(self, *, chunk: int, policy: str, model=None,
+             kv_shards: int = 1) -> None:
         """Adopt (or verify) the serving binding: a cache never serves two
         policies, chunk sizes or models, whose snapshots could not resume
         each other.  ``model`` is the params dict itself (engines sharing
-        one cache share one parameter object)."""
+        one cache share one parameter object); ``kv_shards`` the kv-head
+        shards of its mesh."""
         if chunk != self.chunk:
             raise ValueError(f"cache built for chunk {self.chunk}, engine "
                              f"uses {chunk}")
@@ -157,7 +170,11 @@ class PrefixCache:
             raise ValueError("cache bound to a different model's parameters"
                              ": snapshots computed under one set of weights "
                              "cannot serve another")
+        if self._lru and kv_shards != self.kv_shards:
+            raise ValueError(f"cache holds snapshots of {self.kv_shards} "
+                             f"kv-head shards, engine serves {kv_shards}")
         self.policy = policy
+        self.kv_shards = kv_shards
         if model is not None:
             self._model = model
 
@@ -237,7 +254,8 @@ class PrefixCache:
             nblk = (depth - start) // self.pool.block_size
             entry = PrefixEntry(depth=depth, start=start, parent=parent,
                                 score=score, logits=logits, node=node,
-                                src_capacity=src_capacity)
+                                src_capacity=src_capacity,
+                                kv_shards=self.kv_shards)
             entry.nbytes += nblk * self.pool.block_bytes
             if not self._make_room(entry.nbytes):
                 self._prune_node(node)
@@ -257,7 +275,8 @@ class PrefixCache:
                 depth=depth, start=start, parent=parent, score=score,
                 logits=logits, node=node, src_capacity=src_capacity,
                 k_block=state.k[:, :, start:depth].clone(),
-                v_block=state.v[:, :, start:depth].clone())
+                v_block=state.v[:, :, start:depth].clone(),
+                kv_shards=self.kv_shards)
             if not self._make_room(entry.nbytes):
                 self._prune_node(node)  # drop the entry-less leaf made
                 return None

@@ -217,9 +217,10 @@ def test_engine_matches_jax_paged_engine():
     (dict(prefix_cache="pool"), None, "A7"),
     (dict(sampling=Sampling(temperature=0.7, top_k=50, top_p=0.9)), None,
      "A8"),
-    # tensor-parallel serving is ported; a data axis above 1 is not
-    (dict(mesh=Mesh(("data", "model"), (2, 2))), NotImplementedError,
-     "data axis above 1: ROADMAP A11"),
+    # tensor-parallel serving is ported, a data axis above 1 too (A11b);
+    # the pool must be built for the engine's mesh, as JAX asserts
+    (dict(mesh=Mesh(("data", "model"), (2, 2))), ValueError,
+     "kv pool built for a different mesh"),
     # metrics and tracing (A12) are served too
     (dict(trace="recorder"), None, "A12"),
 ], ids=[  # the ids of the former refusal table, kept

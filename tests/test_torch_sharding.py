@@ -210,3 +210,68 @@ def test_shard_tree_round_trip(arch, layout):
         assert attn["layers/attn/wo"] == (None, None, "model")
         assert attn["layers/mlp/w_down"] == (None, None, "model")
         assert attn["embed"] == ("model", None)
+
+
+def _place(shards, specs, mesh, like):
+    """The full leaf rebuilt from every rank's shard: each shard written
+    at its slice of every dim its spec puts on a mesh axis."""
+    full = torch.empty_like(like)
+    for r, sh in enumerate(shards):
+        at = sharding.axis_coords(mesh, r)
+        index = []
+        for d, entry in enumerate(specs):
+            if entry is None or mesh.shape[entry] == 1:
+                index.append(slice(None))
+                continue
+            w = like.shape[d] // mesh.shape[entry]
+            index.append(slice(at[entry] * w, (at[entry] + 1) * w))
+        full[tuple(index)] = sh
+    return full
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "gemma3-1b"])
+def test_shard_tree_over_data_and_experts(arch):
+    """On a (2, 2) mesh with ``fsdp``: every rank's serving shard written
+    back at its (data, model) slice gives the full tree; the big weights
+    are stored ZeRO over "data", deepseek's experts (and shared experts)
+    on "model", and gemma3's heads (4 q / 1 kv), which divide nothing,
+    leave nothing on "model".  ``layer_gathers`` names exactly the
+    per-layer "data" dims and the MoE's "model" dims."""
+    full_np = _random_tree(arch)
+    full = _flat_port(bridge.to_torch(full_np, device="cpu"))
+    cfg = dataclasses.replace(get_smoke_config(arch), fsdp=True)
+    m = tmesh.Mesh(("data", "model"), (2, 2))
+    specs = _flat_port(sharding.serving_specs(cfg, m))
+    shards = [_flat_port(bridge.shard_to_torch(full_np, cfg, m,
+                                               device="cpu", rank=r))
+              for r in range(4)]
+    for p, x in full.items():
+        assert torch.equal(_place([s[p] for s in shards], specs[p], m, x),
+                           x), p
+    assert specs["layers/attn/wq"][1] == "data"
+    gathers = dict(sharding.layer_gathers(cfg, m))
+    if arch == "deepseek-moe-16b":
+        assert specs["layers/moe/experts/w_gate"] == (None, "model", "data",
+                                                      None)
+        assert specs["layers/moe/shared/w_down"] == (None, "model", "data")
+        assert specs["layers/attn/wq"] == (None, "data", "model")
+        # column-sliced on d_model, so ZeRO takes the q dim
+        assert specs["layers/attn/wo"] == (None, "data", "model")
+        assert gathers[("moe", "experts", "w_gate")] == ((0, "model"),
+                                                         (1, "data"))
+        assert shards[3]["layers/moe/experts/w_up"].is_contiguous()
+    else:
+        assert not any("model" in s for s in specs.values())
+        assert specs["layers/attn/wo"] == (None, None, "data")
+        assert specs["layers/mlp/w_down"] == (None, None, "data")
+    assert set(gathers) == {tuple(p.split("/")[1:]) for p, s in
+                            specs.items() if p.startswith("layers/") and
+                            ("data" in s or ("model" in s and "/moe/" in p))}
+    for path, dims in gathers.items():
+        spec = specs["layers/" + "/".join(path)]
+        assert all(spec[d + 1] == axis for d, axis in dims)
+    # an axis of size 1 gathers nothing: (1, 2) stores no ZeRO shard
+    one_row = dict(sharding.layer_gathers(cfg, tmesh.Mesh(("data", "model"),
+                                                          (1, 2))))
+    assert all(axis == "model" for dims in one_row.values()
+               for _, axis in dims)

@@ -14,7 +14,7 @@ float32, every request's tokens and its kept sets, the ranks' local kv
 heads gathered to global ones, must equal the JAX single-device engine's
 on a trace with staggered arrivals: paged h2o and lookaheadkv at 2 and 4
 ranks, dense-slot and sampled lookaheadkv at 2.  Also the mesh in the
-engine's stats, the pool's bytes per shard, every refusal, and the
+engine's stats, the pool's bytes per shard, the refusals left, and the
 launcher's ``--mesh-model``.
 """
 
@@ -40,8 +40,8 @@ from repro_torch.core.policies import Sampling
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import Mesh, spawn_ranks
 from repro_torch.serving import (ChunkingConfig, ContinuousEngine,
-                                 DecodeEvictionConfig, KVBlockPool,
-                                 PrefixCache, Request, ServingConfig)
+                                 DecodeEvictionConfig, KVBlockPool, Request,
+                                 ServingConfig)
 from trace_utils import kept_sets, make_trace_requests
 
 CHUNK, BUDGET, MAX_NEW, BLOCKS = 32, 8, 4, 64
@@ -177,25 +177,15 @@ def _engine(cfg, mesh, **change):
 
 
 @pytest.mark.parametrize("what", [
-    "data-axis", "moe", "prefix-cache", "pool-mesh", "decode-evict-pool",
-    "pool-heads", "heads", "trainer"])
+    "pool-mesh", "decode-evict-pool", "pool-heads", "trainer"])
 def test_refusals(model, what):
-    """What the port still refuses under a mesh names ROADMAP A11; what
-    the JAX engine asserts raises ValueError."""
+    """What the port still refuses under a mesh: what the JAX engine and
+    pool assert raises ValueError, the trainer's mesh names ROADMAP A11
+    (a data axis, MoE archs, the prefix cache and heads that do not
+    divide are served: ``tests/test_torch_tp_mesh.py``)."""
     cfg = model["tcfg"]
     m2 = Mesh(("data", "model"), (1, 2))
-    if what == "data-axis":
-        with pytest.raises(NotImplementedError, match="data axis.*A11"):
-            _engine(cfg, Mesh(("data", "model"), (2, 2)))
-    elif what == "moe":
-        moe = get_smoke_config("deepseek-moe-16b")
-        with pytest.raises(NotImplementedError, match="MoE.*A11"):
-            _engine(moe, m2)
-    elif what == "prefix-cache":
-        with pytest.raises(NotImplementedError, match="prefix cache.*A11"):
-            _engine(cfg, m2, prefix_cache=PrefixCache(chunk=CHUNK,
-                                                      max_bytes=1 << 20))
-    elif what == "pool-mesh":
+    if what == "pool-mesh":
         pool = KVBlockPool(cfg, num_blocks=BLOCKS, device="cpu")
         with pytest.raises(ValueError, match="different mesh"):
             _engine(cfg, m2, kv_pool=pool)
@@ -208,9 +198,6 @@ def test_refusals(model, what):
         with pytest.raises(ValueError, match="must divide the model axis"):
             KVBlockPool(cfg, num_blocks=BLOCKS, device="cpu",
                         mesh=Mesh(("data", "model"), (1, 8)))
-    elif what == "heads":
-        with pytest.raises(ValueError, match="must divide the q and kv"):
-            _engine(cfg, Mesh(("data", "model"), (1, 8)))
     else:
         from repro_torch.launch import train
         with pytest.raises(NotImplementedError, match="A11"):
