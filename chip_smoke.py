@@ -4948,11 +4948,12 @@ TP_TOKEN_SHARE_MIN, TP_KEPT_SHARE_MIN = 0.2, 0.9
 #: 6b / 6c: (model shards, layers, policy, {kernel: launches per rank});
 #: the launches are 3a's and 3e's schedules (44 kernel-1 passes, 4
 #: kernel-3 calls and 124 decode steps per layer; 40 kernel-2 chunks
-#: under h2o): the heads halve on a rank, the calls do not
+#: under h2o): the heads halve on a rank, the calls do not.  6b runs 16
+#: of 32 layers since 6d-6h joined phase 6 (the script's time)
 TP_CELLS = {
-    "6b": (2, 32, "lookaheadkv", {"chunk_attention": 44 * 32,
-                                  "lookahead_score": 4 * 32,
-                                  "paged_decode_attention": 124 * 32}),
+    "6b": (2, 16, "lookaheadkv", {"chunk_attention": 44 * 16,
+                                  "lookahead_score": 4 * 16,
+                                  "paged_decode_attention": 124 * 16}),
     "6c": (4, 8, "h2o", {"chunk_attention_masses": 40 * 8,
                          "paged_decode_attention": 124 * 8})}
 
@@ -5024,8 +5025,8 @@ def phase_tp(torch, mods, device: str = "cuda") -> dict:
     lookaheadkv, served by the one-rank engine on the card and on the CPU
     and by worlds of 2 and 4 ranks on the card; tokens and kept sets (the
     ranks' kv heads gathered) must be equal, as phase 2 requires.
-    6b: llama3-8b at full width and depth on 2 ranks, paged lookaheadkv on
-    3a's trace; 6c: at 8 of 32 layers on 4 ranks, paged h2o (kernel 2 at
+    6b: llama3-8b at full width, 16 of 32 layers, on 2 ranks, paged
+    lookaheadkv on 3a's trace; 6c: at 8 of 32 layers on 4 ranks, paged h2o (kernel 2 at
     the local (8, 2)).  Each after the one-rank engine on the same trace
     (freed first): every rank's launches exactly ``TP_CELLS``'s, its pool
     bytes per shard the one-rank pool's over N, and the shares of tokens
@@ -5195,13 +5196,13 @@ TP_MESH_PREFIX_TAILS = (36, 50, 20)
 #: runs as often as one rank does), the bytes from the serving layout's
 #: shapes.
 TP_MESH_CELLS = {
-    "6e": ("llama3-8b", 8, 4, 2, True, (512, 1024), 8,
-           {"chunk_attention": 8 * 8, "lookahead_score": 2 * 8,
-            "paged_decode_attention": 14 * 8}, 1_923_227_648, 33_554_432,
+    "6e": ("llama3-8b", 8, 4, 2, True, (256, 512), 4,
+           {"chunk_attention": 5 * 8, "lookahead_score": 2 * 8,
+            "paged_decode_attention": 6 * 8}, 1_923_227_648, 33_554_432,
            0.2, 0.9),
-    "6f": ("deepseek-moe-16b", 4, 2, 2, True, (256, 512), 4,
-           {"chunk_attention": 5 * 4, "lookahead_score": 2 * 4,
-            "paged_decode_attention": 6 * 4}, 2_772_471_808, 33_554_432,
+    "6f": ("deepseek-moe-16b", 4, 2, 2, True, (256, 256), 2,
+           {"chunk_attention": 4 * 4, "lookahead_score": 2 * 4,
+            "paged_decode_attention": 2 * 4}, 2_772_471_808, 33_554_432,
            0.2, 0.9),
     "6h": ("gemma3-1b", 26, 2, 2, False, (1024, 2048), 16,
            {"chunk_attention": 14 * 26, "lookahead_score": 2 * 26,
@@ -5210,7 +5211,7 @@ TP_MESH_CELLS = {
 #: 6g: 3l's shared prefix and prompts on 2 ranks at 8 of 32 layers, the
 #: cache on and off in one world: the hits, and kernel 1's launches fewer
 #: by the chunks that hit times the layers
-TP_PREFIX_LAYERS, TP_PREFIX_NEW = 8, 16
+TP_PREFIX_LAYERS, TP_PREFIX_NEW = 8, 8
 
 
 def tp_row_kept(ranks, whole: bool = False) -> list:
@@ -5831,7 +5832,7 @@ def main() -> None:
     phase_learning_loop(torch, mods, header)
     header("phase 6: tensor-parallel serving, ranks sharing cuda:0 over "
            "gloo (6a smoke exactness at 2 and 4 ranks; 6b llama3-8b full "
-           "width on 2 ranks; 6c 8 layers on 4 ranks, h2o)")
+           "width, 16 layers, on 2 ranks; 6c 8 layers on 4 ranks, h2o)")
     tp = phase_tp(torch, mods)
     torch.cuda.empty_cache()
     header("phase 6d-6h: every mesh the JAX engine serves (6d smoke "

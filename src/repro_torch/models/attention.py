@@ -110,9 +110,13 @@ def all_gather(x: torch.Tensor, dim: int, mesh,
         dist.all_gather_into_tensor(out, xs, group=group)
         return torch.cat(out.chunk(n, dim=0), dim=dim)
     host = x.detach().to("cpu").contiguous()
-    parts = [torch.empty_like(host) for _ in range(n)]
-    dist.all_gather(parts, host, group=group)
-    return torch.cat(parts, dim=dim).to(x.device)
+    # the parts land in one buffer, which goes to the device in one copy;
+    # they are laid along ``dim`` there (on the card, not the host)
+    parts = torch.empty((n, *host.shape), dtype=host.dtype)
+    dist.all_gather(list(parts.unbind(0)), host, group=group)
+    if n == 1 or dim % x.dim() == 0:
+        return parts.reshape(n * host.shape[0], *host.shape[1:]).to(x.device)
+    return torch.cat(parts.to(x.device).unbind(0), dim=dim)
 
 
 def model_slice(x: torch.Tensor, smesh, dim: int = -1) -> torch.Tensor:
