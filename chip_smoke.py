@@ -480,6 +480,9 @@ RECORDED_MS = {
     "chunk_attention_masses tp4": 0.0406,
     "lookahead_score tp4": 0.0253, "paged_decode_attention tp4": 0.0121,
     "decode_attention tp4": 0.0114,
+    # deepseek-moe-16b's local heads at 2 shards, (8, 8), their first run
+    "chunk_attention tp2g1": 0.0294, "chunk_attention tp2g1 obs pass": 0.0227,
+    "lookahead_score tp2g1": 0.0264, "paged_decode_attention tp2g1": 0.0142,
 }
 
 
@@ -4948,12 +4951,11 @@ TP_TOKEN_SHARE_MIN, TP_KEPT_SHARE_MIN = 0.2, 0.9
 #: 6b / 6c: (model shards, layers, policy, {kernel: launches per rank});
 #: the launches are 3a's and 3e's schedules (44 kernel-1 passes, 4
 #: kernel-3 calls and 124 decode steps per layer; 40 kernel-2 chunks
-#: under h2o): the heads halve on a rank, the calls do not.  6b runs 16
-#: of 32 layers since 6d-6h joined phase 6 (the script's time)
+#: under h2o): the heads halve on a rank, the calls do not
 TP_CELLS = {
-    "6b": (2, 16, "lookaheadkv", {"chunk_attention": 44 * 16,
-                                  "lookahead_score": 4 * 16,
-                                  "paged_decode_attention": 124 * 16}),
+    "6b": (2, 32, "lookaheadkv", {"chunk_attention": 44 * 32,
+                                  "lookahead_score": 4 * 32,
+                                  "paged_decode_attention": 124 * 32}),
     "6c": (4, 8, "h2o", {"chunk_attention_masses": 40 * 8,
                          "paged_decode_attention": 124 * 8})}
 
@@ -5025,8 +5027,8 @@ def phase_tp(torch, mods, device: str = "cuda") -> dict:
     lookaheadkv, served by the one-rank engine on the card and on the CPU
     and by worlds of 2 and 4 ranks on the card; tokens and kept sets (the
     ranks' kv heads gathered) must be equal, as phase 2 requires.
-    6b: llama3-8b at full width, 16 of 32 layers, on 2 ranks, paged
-    lookaheadkv on 3a's trace; 6c: at 8 of 32 layers on 4 ranks, paged h2o (kernel 2 at
+    6b: llama3-8b at full width and depth on 2 ranks, paged lookaheadkv on
+    3a's trace; 6c: at 8 of 32 layers on 4 ranks, paged h2o (kernel 2 at
     the local (8, 2)).  Each after the one-rank engine on the same trace
     (freed first): every rank's launches exactly ``TP_CELLS``'s, its pool
     bytes per shard the one-rank pool's over N, and the shares of tokens
@@ -5832,7 +5834,7 @@ def main() -> None:
     phase_learning_loop(torch, mods, header)
     header("phase 6: tensor-parallel serving, ranks sharing cuda:0 over "
            "gloo (6a smoke exactness at 2 and 4 ranks; 6b llama3-8b full "
-           "width, 16 layers, on 2 ranks; 6c 8 layers on 4 ranks, h2o)")
+           "width on 2 ranks; 6c 8 layers on 4 ranks, h2o)")
     tp = phase_tp(torch, mods)
     torch.cuda.empty_cache()
     header("phase 6d-6h: every mesh the JAX engine serves (6d smoke "

@@ -146,14 +146,6 @@ def _as_shaped(cfg: ModelConfig) -> dict:
     return params
 
 
-def heads_divide(cfg: ModelConfig, msize: int) -> bool:
-    """Whether a model axis of ``msize`` shards the heads: q and kv heads
-    divide it (as ``attention.model_shard_mesh`` asks) and it is above 1."""
-    a = cfg.attn
-    return (msize > 1 and a is not None and _div(a.num_heads, msize)
-            and _div(a.num_kv_heads, msize))
-
-
 def serving_specs(cfg: ModelConfig, mesh) -> Any:
     """The layout of one rank's shard on the tensor-parallel serving path:
     ``param_specs`` with ``wo`` and the dense MLP's ``w_down``
@@ -167,7 +159,9 @@ def serving_specs(cfg: ModelConfig, mesh) -> Any:
     raise ValueError: the column-sliced products need it."""
     msize = mesh.shape["model"]
     dsize = mesh.shape.get("data", 1)
-    tp = heads_divide(cfg, msize)
+    a = cfg.attn  # heads shard as ``attention.model_shard_mesh`` asks
+    tp = (msize > 1 and a is not None and _div(a.num_heads, msize)
+          and _div(a.num_kv_heads, msize))
     if tp and not _div(cfg.d_model, msize):
         raise ValueError(f"{cfg.name}: tensor-parallel serving over "
                          f"{msize} model shards needs a d_model that "
@@ -332,14 +326,6 @@ def mesh_signature(mesh) -> Optional[tuple]:
     if all(s == 1 for _, s in sig):
         return None
     return sig
-
-
-def _model_dim(spec: tuple) -> Optional[int]:
-    for d, entry in enumerate(spec):
-        names = entry if isinstance(entry, tuple) else (entry,)
-        if "model" in names:
-            return d
-    return None
 
 
 def axis_coords(mesh, rank: int) -> dict:

@@ -381,15 +381,6 @@ def _mesh_now(t0: float, mesh) -> float:
     return float(t[0])
 
 
-def _host_collective(mesh, axis: str):
-    """(group, device) of a small host-side collective over ``axis``: the
-    card under NCCL, else the CPU."""
-    import torch.distributed as dist
-
-    group = mesh.axis_group(axis)
-    return group, ("cuda" if dist.get_backend(group) == "nccl" else "cpu")
-
-
 class _InflightPrefill:
     """Host-side cursor of the one streaming prefill in flight.  ``tip``
     is the deepest pinned prefix-cache entry along its prompt (the resume
@@ -774,7 +765,8 @@ class ContinuousEngine(_SlotDecodeMixin):
         column holds them (broadcast over the data axis)."""
         import torch.distributed as dist
 
-        group, dev = _host_collective(self.mesh, "data")
+        group = self.mesh.data_group
+        dev = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
         src = row * int(self.mesh.shape["model"]) + self.mesh.model_index
         out = []
         for t in ts:
@@ -783,18 +775,6 @@ class ContinuousEngine(_SlotDecodeMixin):
             dist.broadcast(x, src=src, group=group)
             out.append(x.to(t.device, t.dtype))
         return out
-
-    def _max_over_heads(self, n: int) -> int:
-        """The largest ``n`` over the model-axis ranks when they hold
-        different kv heads (a quantity of the global heads), else ``n``."""
-        if attn_mod.model_shard_mesh(self.mesh, self.cfg.attn) is None:
-            return n
-        import torch.distributed as dist
-
-        group, dev = _host_collective(self.mesh, "model")
-        t = torch.tensor([n], dtype=torch.int64, device=dev)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
-        return int(t[0])
 
     # -- observability ---------------------------------------------------
     def _register_metrics(self) -> None:
@@ -1388,8 +1368,7 @@ class ContinuousEngine(_SlotDecodeMixin):
         pool cannot cover the kept rows (or the promise) right now."""
         mask = cache["attn"]["mask"]  # (L, 1, C, KV)
         rows = torch.arange(mask.shape[2], device=mask.device)[:, None]
-        used = self._max_over_heads(
-            int(torch.where(mask, rows, 0).max()) + 1)
+        used = int(torch.where(mask, rows, 0).max()) + 1
         ids = self._alloc_blocks(self.pool.blocks_for(used))
         if ids is None:
             return None

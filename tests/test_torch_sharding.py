@@ -163,6 +163,15 @@ def test_pytree_helpers_match_jax():
         pytree.tree_size(tp)
 
 
+def _model_dim(spec: tuple):
+    """The dim a spec puts on "model", or None."""
+    for d, entry in enumerate(spec):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if "model" in names:
+            return d
+    return None
+
+
 def _concat_shards(shards, specs):
     def cat(path, spec):
         leaves = []
@@ -171,7 +180,7 @@ def _concat_shards(shards, specs):
             for k in path.split("/"):
                 x = x[k]
             leaves.append(x)
-        d = sharding._model_dim(spec)
+        d = _model_dim(spec)
         return leaves[0] if d is None else torch.cat(leaves, dim=d)
 
     flat = _flat_port(specs)
@@ -201,7 +210,7 @@ def test_shard_tree_round_trip(arch, layout):
     n_sharded = 0
     for p, x in full.items():
         assert torch.equal(back[p], x), p
-        if sharding._model_dim(_flat_port(specs)[p]) is not None:
+        if _model_dim(_flat_port(specs)[p]) is not None:
             n_sharded += 1
             assert _flat_port(shards[1])[p].is_contiguous()
     assert n_sharded >= 6

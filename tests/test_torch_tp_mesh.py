@@ -228,9 +228,10 @@ def worlds(models, tmp_path_factory):
     return box["out"]
 
 
-def _row_kept(ranks, uid):
-    """Each data row's kept sets of ``uid``, its ranks' local kv heads
-    concatenated in model order (rank (d, m)'s head h is global
+def _row_kept(ranks, uid, field="admission_cache"):
+    """Each data row's kept sets of ``uid`` (at admission, or with
+    ``field="retirement_cache"`` at retirement), its ranks' local kv
+    heads concatenated in model order (rank (d, m)'s head h is global
     m * KV/M + h; with heads that do not divide, each rank holds all)."""
     rows: dict = {}
     for rk in ranks:
@@ -238,12 +239,19 @@ def _row_kept(ranks, uid):
     out = []
     for row in sorted(rows):
         rks = sorted(rows[row], key=lambda rk: rk["model_index"])
-        caches = [next(r for r in rk["done"] if r.uid == uid).admission_cache
+        caches = [getattr(next(r for r in rk["done"] if r.uid == uid), field)
                   for rk in rks]
-        out.append(kept_sets({f: np.concatenate([c[f] for c in caches],
-                                                axis=-1)
-                              for f in ("mask", "pos")}))
+        out.append(_kept({f: np.concatenate([c[f] for c in caches], axis=-1)
+                          for f in ("mask", "pos")}))
     return out
+
+
+def _kept(cache):
+    """``kept_sets`` of an admission cache (L, 1, rows, KV) or of a
+    retirement cache (L, rows, KV)."""
+    if cache["mask"].ndim == 3:
+        cache = {f: x[:, None] for f, x in cache.items()}
+    return kept_sets(cache)
 
 
 @pytest.mark.parametrize("case,n,m", RUNS)
@@ -267,12 +275,19 @@ def test_mesh_serving_matches_jax_single_device(models, worlds, case, n, m):
         one_row = worlds[(2, 2)]["paged-prefix"][0]["param_bytes"]
         assert ranks[0]["param_bytes"] < one_row * 0.6 * 2 / m
     whole = model == "gemma"  # 1 kv head: every rank holds it whole
+    rows_of = ranks if not whole else [dict(rk, model_index=0, data_index=i)
+                                       for i, rk in enumerate(ranks)]
+    paged = CASES[case][2]
     for uid, w in want.items():
-        for row in _row_kept(ranks if not whole else
-                             [dict(rk, model_index=0, data_index=i)
-                              for i, rk in enumerate(ranks)], uid):
-            assert row == kept_sets(w.admission_cache), \
+        for row in _row_kept(rows_of, uid):
+            assert row == _kept(w.admission_cache), \
                 f"{case} ({n // m}, {m}) uid={uid}: kept sets diverged"
+        # at retirement: the decode appends, which only the slot's own
+        # data row wrote, broadcast to every row
+        for row in (_row_kept(rows_of, uid, "retirement_cache") if paged
+                    else ()):
+            assert row == _kept(w.retirement_cache), \
+                f"{case} ({n // m}, {m}) uid={uid}: retirement sets"
     if want_pc is not None:
         for rk in ranks:
             got_pc = rk["stats"]["prefix_cache"]
