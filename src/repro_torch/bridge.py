@@ -39,3 +39,40 @@ def shard_to_torch(tree, cfg, mesh, *, device="cuda", rank=None):
 
     return shard_tree(to_torch(tree, device=device), serving_specs(cfg, mesh),
                       mesh, mesh.rank if rank is None else rank)
+
+
+def decode_cache_to_torch(tree, *, device="cuda", cfg=None, mesh=None,
+                          rank=None, hot_slots: int = 0) -> dict:
+    """The JAX package's dense decode cache (``jax.tree.map(np.asarray,
+    cache)``; a split cache with its hot ring too) -> the port's: the
+    same leaves as tensors on ``device`` and a scalar cursor as a Python
+    int, as the port's lockstep cursor.  With ``mesh`` (and ``cfg``), one
+    rank's block (``rank``, by default the mesh's own) in the layout of
+    ``init_decode_cache(mesh=)`` (``sharding.serving_cache_specs``), the
+    frozen rows' axis noted as the port's cache notes it."""
+    out = {}
+    for k, v in tree.items():
+        if k == "cursor" and np.ndim(v) == 0:
+            out[k] = int(v)
+        elif isinstance(v, dict):
+            out[k] = to_torch(v, device=device)
+        else:
+            out[k] = _leaf(v, device)
+    if mesh is None:
+        return out
+    from repro_torch.common.sharding import (frozen_rows_axis,
+                                             serving_cache_specs,
+                                             shard_tree)
+
+    rank = mesh.rank if rank is None else rank
+    k = out["attn"]["k"]
+    batch, capacity = k.shape[1], k.shape[2]
+    specs = serving_cache_specs(cfg, mesh, batch, capacity, hot_slots)
+    tensors = {n: v for n, v in out.items() if n != "cursor"}
+    local = shard_tree(tensors, {n: specs[n] for n in tensors}, mesh, rank)
+    local["cursor"] = out["cursor"]
+    axis = frozen_rows_axis(cfg, mesh, batch, capacity) if hot_slots \
+        else None
+    if axis is not None:
+        local["frozen_axis"] = axis
+    return local

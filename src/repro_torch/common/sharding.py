@@ -338,32 +338,98 @@ def axis_coords(mesh, rank: int) -> dict:
     return coords
 
 
-def shard_tree(tree: Any, specs: Any, mesh, rank: int) -> Any:
-    """Rank ``rank``'s shard of ``tree``: each leaf's contiguous slice
-    along every dim its spec puts on a mesh axis (several axes on one dim
-    combine row-major), a copy, so the full leaf can be freed; other
-    leaves as they are.  Concatenating the shards of the ranks along an
-    axis, in their order on it, gives back the tree sharded on the other
-    axes."""
+def shard_bounds(shape: tuple, spec: tuple, mesh, rank: int) -> tuple:
+    """Rank ``rank``'s block of a leaf of ``shape`` laid out by ``spec``:
+    ((start, size), ...) per dim, each dim's contiguous slice along the
+    mesh axes its spec entry names (several axes on one dim combine
+    row-major).  Raises where a sharded dim does not divide."""
     at = axis_coords(mesh, rank)
+    out = []
+    for d, size in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        names = entry if isinstance(entry, tuple) else (entry,)
+        n, i = 1, 0
+        for name in names:
+            if name is not None:
+                n, i = n * mesh.shape[name], i * mesh.shape[name] + at[name]
+        if size % n:
+            raise ValueError(f"dim {d} of size {size} does not divide "
+                             f"{n} shards of {names}")
+        w = size // n
+        out.append((i * w, w))
+    return tuple(out)
+
+
+def shard_tree(tree: Any, specs: Any, mesh, rank: int) -> Any:
+    """Rank ``rank``'s shard of ``tree``: each leaf's block
+    (``shard_bounds``), a copy, so the full leaf can be freed; leaves
+    whose spec shards nothing as they are.  Concatenating the shards of
+    the ranks along an axis, in their order on it, gives back the tree
+    sharded on the other axes."""
 
     def take(leaf, spec):
         out = leaf
-        for d, entry in enumerate(spec):
-            names = entry if isinstance(entry, tuple) else (entry,)
-            n, i = 1, 0
-            for name in names:
-                if name is not None:
-                    n, i = n * mesh.shape[name], i * mesh.shape[name] + \
-                        at[name]
-            if n == 1:
-                continue
-            size = out.shape[d]
-            if size % n:
-                raise ValueError(f"dim {d} of size {size} does not divide "
-                                 f"{n} shards of {names}")
-            w = size // n
-            out = out.narrow(d, i * w, w)
+        for d, (start, size) in enumerate(shard_bounds(
+                tuple(leaf.shape), spec, mesh, rank)):
+            if size != leaf.shape[d]:
+                out = out.narrow(d, start, size)
         return leaf if out is leaf else out.clone()
 
     return tree_map(take, tree, specs)
+
+
+def serving_cache_specs(cfg: ModelConfig, mesh, batch: int, capacity: int,
+                        hot_slots: int = 0) -> dict:
+    """The layout of one rank's dense decode cache on the port's path
+    (``transformer.init_decode_cache(mesh=)``).
+
+    * Without ``hot_slots``: the kv-head dim on "model" where the heads
+      shard (``attention.model_shard_mesh``), every other dim whole (the
+      engines split slots over data rows at decode time, not in storage).
+    * With ``hot_slots`` (the split-cache decode): ``cache_specs``, so
+      the frozen rows shard by kv heads, else by sequence over "model",
+      and the batch over the data axes; the hot ring as ``cache_specs``
+      has it but on the kv heads' axis where they shard (a rank computes
+      its own heads' K/V only, so a replicated ring would need a gather
+      every step; JAX's is replicated).
+    """
+    a = cfg.attn
+    msize = mesh.shape.get("model", 1)
+    heads = (a is not None and msize > 1 and _div(a.num_heads, msize)
+             and _div(a.num_kv_heads, msize))
+    if not hot_slots:
+        kv = "model" if heads else None
+        specs: dict = {}
+        if a is not None:
+            specs["attn"] = {"k": (None, None, None, kv, None),
+                             "v": (None, None, None, kv, None),
+                             "pos": (None, None, None, kv),
+                             "mask": (None, None, None, kv)}
+            specs["cursor"] = ()
+        if cfg.uses_ssm:
+            specs["ssm"] = {"conv": (None,) * 4, "state": (None,) * 5}
+        if cfg.is_encoder_decoder:
+            specs["cross"] = {n: (None, None, None, kv, None)
+                              for n in ("k", "v")}
+        specs["next_pos"] = (None, None)
+        return specs
+    specs = cache_specs(cfg, mesh, batch, capacity, hot_slots=hot_slots)
+    if heads:
+        for group, names in (("attn", ("hot_k", "hot_v", "hot_pos",
+                                       "hot_mask")), ("cross", ("k", "v"))):
+            for n in names if group in specs else ():
+                sp = list(specs[group][n])
+                sp[3] = "model"
+                specs[group][n] = tuple(sp)
+    return specs
+
+
+def frozen_rows_axis(cfg: ModelConfig, mesh, batch: int, capacity: int):
+    """The mesh axis (a name, or a tuple of names) that
+    ``serving_cache_specs`` lays the split cache's frozen rows along, or
+    None where each rank holds them whole (by kv heads or replicated)."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    if "attn" not in (specs := cache_specs(cfg, mesh, batch, capacity)):
+        return None
+    return specs["attn"]["k"][2]

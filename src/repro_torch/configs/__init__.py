@@ -17,6 +17,20 @@ import importlib
 
 from repro_torch.common.config import ModelConfig
 
+#: the assigned archs (the JAX package's ``ARCH_IDS``), in its order
+ARCH_IDS = (
+    "mamba2-130m",
+    "smollm-135m",
+    "deepseek-moe-16b",
+    "phi3.5-moe-42b-a6.6b",
+    "minitron-8b",
+    "qwen2-vl-72b",
+    "gemma3-1b",
+    "qwen2-1.5b",
+    "whisper-small",
+    "hymba-1.5b",
+)
+
 _MODULES = {
     "llama3-8b": "llama3_8b",
     "tiny-llama": "tiny_llama",
@@ -45,3 +59,20 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).smoke()
+
+
+def shape_applicable(arch_id: str, shape_name: str) -> tuple[bool, str]:
+    """(runs?, reason): the long_500k skip matrix.  Archs whose cache a
+    constant state or a sliding window bounds take it; pure full-attention
+    archs skip it (a 524k-token decode cache of quadratic history)."""
+    cfg = get_config(arch_id)
+    if shape_name != "long_500k":
+        return True, ""
+    if cfg.uses_ssm:  # mamba2, hymba
+        return True, "ssm/hybrid: constant state + windowed attention"
+    if cfg.attn is not None and (cfg.attn.sliding_window > 0):
+        return True, "sliding-window attention bounds per-layer cache"
+    return False, (
+        "pure full-attention arch: 524k decode cache is quadratic-history; "
+        "skipped per spec (DESIGN.md §5)"
+    )

@@ -21,12 +21,14 @@ def lora_scale(cfg: ModelConfig) -> float:
 
 
 def init_lookahead_params(gen: torch.Generator, cfg: ModelConfig,
-                          layer_params: dict) -> dict:
+                          layer_params: dict, *, device=None) -> dict:
     """Build {"emb": (n_lookahead, D) f32, "lora": mirrored tree} from the
-    stacked per-layer tree (leaves with a leading L axis)."""
+    stacked per-layer tree (leaves with a leading L axis), on ``device``
+    (default: the generator's; ``"meta"``: shapes only)."""
     lk = cfg.lookahead
+    device = gen.device if device is None else device
     emb = torch.randn((lk.n_lookahead, cfg.d_model), generator=gen,
-                      device=gen.device, dtype=torch.float32) * 0.02
+                      device=device, dtype=torch.float32) * 0.02
 
     def build(tree):
         out = {}
@@ -38,7 +40,7 @@ def init_lookahead_params(gen: torch.Generator, cfg: ModelConfig,
             elif name in lk.lora_targets and leaf.dim() == 3:
                 L, d_in, d_out = leaf.shape
                 out[name] = lora_init(gen, d_in, d_out, lk.lora_rank,
-                                      lead=(L,))
+                                      lead=(L,), device=device)
         return out
 
     return {"emb": emb, "lora": build(layer_params)}

@@ -6,6 +6,13 @@
 // folds a sliding window into this mask).  A sequence/head with no valid
 // row returns exact zeros.
 //
+// The stats entry (decode_attention_stats) is the same launch with the
+// merge's float32 partials as its output: m, l (B, H) and acc (B, H, hd),
+// in place of acc / l, for the split-cache decode, which attends over the
+// frozen prompt rows and the hot ring apart and merges the two
+// (kernels/ref.py: merge_attention_stats).  The JAX package computes them
+// in jnp (src/repro/kernels/ops.py:753, decode_attention_stats).
+//
 // Replaces: src/repro/kernels/decode_attention.py, decode_attention_pallas
 // (pallas_call at :80), which takes only the (B, C) mask; the JAX package's
 // decode step passes the per-kv-head mask and so runs its jnp reference
@@ -31,6 +38,8 @@
 // the call moves ~2 MB, so it is latency-bound: the launch, one cold round
 // trip before the first row is scored, the row steps of each warp on CUDA
 // cores, and the cluster barrier before the merge (decode_split.cuh).
+#include <type_traits>
+
 #include "decode_split.cuh"
 
 namespace {
@@ -55,27 +64,34 @@ struct DenseRows {
   __device__ bool alive(int2 w) const { return w.x != 0; }
 };
 
-// Grid (n_split, KV, B) in clusters of (n_split, 1, 1).
-template <typename T, int HD>
+// Grid (n_split, KV, B) in clusters of (n_split, 1, 1).  STATS: `out` is
+// the float32 acc (B, H, hd) and stat_m / stat_l (B, H) the merge's m and
+// l (decode_split.cuh), in place of acc / l in q's type.
+template <typename T, int HD, bool STATS>
 __global__ void __launch_bounds__(decode_split::THREADS, 1) decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const uint8_t* __restrict__ mask,
-    T* __restrict__ out, int H, int KV, int C, int kind, float scale) {
+    void* __restrict__ out, float* __restrict__ stat_m,
+    float* __restrict__ stat_l, int H, int KV, int C, int kind,
+    float scale) {
+  using O = std::conditional_t<STATS, float, T>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int kvh = blockIdx.y, b = blockIdx.z, G = H / KV;
   const int s = decode_split::cluster_rank();
   const int n_split = decode_split::cluster_size();
   const DenseRows rows{mask, kind, C, KV, kvh, b};
   const size_t head0 = (size_t)b * H + kvh * G;
-  decode_split::attend<T, HD, false>(
-      q + head0 * HD, k, v, out + head0 * HD, nullptr, KV, kvh, G, C,
-      C * s / n_split, C * (s + 1) / n_split, rows, scale, smem);
+  decode_split::attend<T, HD, false, STATS>(
+      q + head0 * HD, k, v, static_cast<O*>(out) + head0 * HD, nullptr, KV,
+      kvh, G, C, C * s / n_split, C * (s + 1) / n_split, rows, scale, smem,
+      STATS ? stat_m + head0 : nullptr, STATS ? stat_l + head0 : nullptr);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool STATS>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const uint8_t* mask, void* out, int B, int H, int KV,
-                   int C, int kind, int n_split, cudaStream_t st) {
+                   const uint8_t* mask, void* out, float* stat_m,
+                   float* stat_l, int B, int H, int KV, int C, int kind,
+                   int n_split, cudaStream_t st) {
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = n_split;
@@ -88,26 +104,48 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cfg.stream = st;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  auto* kern = decode_kernel<T, HD>;
+  auto* kern = decode_kernel<T, HD, STATS>;
   static const cudaError_t allowed = allow_smem(kern, cfg.dynamicSmemBytes);
   if (allowed != cudaSuccess) return allowed;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kern, (const T*)q, (const T*)k, (const T*)v, mask, (T*)out, H,
-      KV, C, kind, 1.f / sqrtf((float)HD));
+      &cfg, kern, (const T*)q, (const T*)k, (const T*)v, mask, out, stat_m,
+      stat_l, H, KV, C, kind, 1.f / sqrtf((float)HD));
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool STATS>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        const uint8_t* mask, void* out, int B, int H, int KV,
-                        int C, int kind, int n_split, cudaStream_t st) {
+                        const uint8_t* mask, void* out, float* stat_m,
+                        float* stat_l, int B, int H, int KV, int C, int kind,
+                        int n_split, cudaStream_t st) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, mask, out, B, H, KV, C, kind, n_split, st);
-    case 64: return launch<T, 64>(q, k, v, mask, out, B, H, KV, C, kind, n_split, st);
-    case 128: return launch<T, 128>(q, k, v, mask, out, B, H, KV, C, kind, n_split, st);
-    case 256: return launch<T, 256>(q, k, v, mask, out, B, H, KV, C, kind, n_split, st);
+    case 32: return launch<T, 32, STATS>(q, k, v, mask, out, stat_m, stat_l, B, H, KV, C, kind, n_split, st);
+    case 64: return launch<T, 64, STATS>(q, k, v, mask, out, stat_m, stat_l, B, H, KV, C, kind, n_split, st);
+    case 128: return launch<T, 128, STATS>(q, k, v, mask, out, stat_m, stat_l, B, H, KV, C, kind, n_split, st);
+    case 256: return launch<T, 256, STATS>(q, k, v, mask, out, stat_m, stat_l, B, H, KV, C, kind, n_split, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool STATS>
+int entry(const void* q, const void* k, const void* v, const void* mask,
+          void* out, float* stat_m, float* stat_l, int B, int H, int KV,
+          int C, int hd, int mask_kind, int n_split, int dtype,
+          void* stream) {
+  if (KV < 1 || H % KV || H / KV < 1 || H / KV > 32 || C < 0 ||
+      n_split < 1 || n_split > decode_split::MAX_SPLITS)
+    return cudaErrorInvalidValue;
+  if (mask_kind != MASK_NONE && mask_kind != MASK_ROW &&
+      mask_kind != MASK_HEAD)
+    return cudaErrorInvalidValue;
+  if (mask_kind != MASK_NONE && mask == nullptr) return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* m = (const uint8_t*)mask;
+  if (dtype == DTYPE_F32)
+    return dispatch_hd<float, STATS>(hd, q, k, v, m, out, stat_m, stat_l, B, H, KV, C, mask_kind, n_split, st);
+  if (dtype == DTYPE_BF16)
+    return dispatch_hd<__nv_bfloat16, STATS>(hd, q, k, v, m, out, stat_m, stat_l, B, H, KV, C, mask_kind, n_split, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -119,18 +157,19 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* mask, void* out, int B, int H,
                                 int KV, int C, int hd, int mask_kind,
                                 int n_split, int dtype, void* stream) {
-  if (KV < 1 || H % KV || H / KV < 1 || H / KV > 32 || C < 0 ||
-      n_split < 1 || n_split > decode_split::MAX_SPLITS)
-    return cudaErrorInvalidValue;
-  if (mask_kind != MASK_NONE && mask_kind != MASK_ROW &&
-      mask_kind != MASK_HEAD)
-    return cudaErrorInvalidValue;
-  if (mask_kind != MASK_NONE && mask == nullptr) return cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint8_t* m = (const uint8_t*)mask;
-  if (dtype == DTYPE_F32)
-    return dispatch_hd<float>(hd, q, k, v, m, out, B, H, KV, C, mask_kind, n_split, st);
-  if (dtype == DTYPE_BF16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, m, out, B, H, KV, C, mask_kind, n_split, st);
-  return cudaErrorInvalidValue;
+  return entry<false>(q, k, v, mask, out, nullptr, nullptr, B, H, KV, C, hd,
+                      mask_kind, n_split, dtype, stream);
+}
+
+// The same call with the merge's partials as its output (float32): m and l
+// (B, H), acc (B, H, hd); see decode_kernel.
+extern "C" int decode_attention_stats(const void* q, const void* k,
+                                      const void* v, const void* mask,
+                                      void* m, void* l, void* acc, int B,
+                                      int H, int KV, int C, int hd,
+                                      int mask_kind, int n_split, int dtype,
+                                      void* stream) {
+  if (C < 1) return cudaErrorInvalidValue;
+  return entry<true>(q, k, v, mask, acc, (float*)m, (float*)l, B, H, KV, C,
+                     hd, mask_kind, n_split, dtype, stream);
 }

@@ -67,6 +67,7 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int GP = 4;  // query heads per pass
 constexpr int MAX_SPLITS = 8;  // CTAs per cluster (the portable limit)
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // This CTA's rank in its cluster, and the cluster's size.
@@ -214,15 +215,25 @@ struct Shape {
 // clusters of (n_split, 1, 1) with Shape<T, HD, MASSES>::BYTES of
 // dynamic shared memory at `smem`; every CTA of a cluster must pass the
 // same q, out, mass and G.
-template <typename T, int HD, bool MASSES, typename Rows>
+//
+// With STATS (kernel 6's stats entry) `out` is float and receives each
+// output's merged numerator acc = sum exp(s - m) v before the divide, and
+// `stat_m` / `stat_l` (at the group's first query head) each head's m, in
+// natural-log units (the base-2 max times ln 2), and l = sum exp(s - m);
+// a head with no live row writes m = NEG_INF, l = 0 and acc = 0.
+template <typename T, int HD, bool MASSES, bool STATS = false,
+          typename Rows, typename O>
 __device__ __forceinline__ void attend(const T* __restrict__ q,
                                        const T* __restrict__ k,
                                        const T* __restrict__ v,
-                                       T* __restrict__ out,
+                                       O* __restrict__ out,
                                        float* __restrict__ mass, int KV,
                                        int kvh, int G, int n_rows, int c0,
                                        int c1, const Rows& rows, float scale,
-                                       unsigned char* smem) {
+                                       unsigned char* smem,
+                                       float* __restrict__ stat_m = nullptr,
+                                       float* __restrict__ stat_l = nullptr) {
+  static_assert(!(STATS && MASSES), "stats or masses, not both");
   using S = Shape<T, HD, MASSES>;
   constexpr int VEC = S::VEC, LPR = S::LPR, RPS = S::RPS, SPB = S::SPB;
   constexpr int CH = S::CH, NST = S::NST, LCAP = S::LCAP, PARTS = S::PARTS;
@@ -498,6 +509,10 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
       if (lane == 0) {
         s_fm[h] = mf;
         s_finv[h] = 1.f / fmaxf(lf, L_FLOOR);
+        if (STATS && rank == 0) {
+          stat_m[h0 + h] = lf > 0.f ? __fmul_rn(mf, LN2) : NEG_INF;
+          stat_l[h0 + h] = lf;
+        }
       }
     }
     __syncthreads();
@@ -518,8 +533,12 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
       }
       for (int o = 1; o < tpe; o <<= 1)
         a = __fadd_rn(a, __shfl_xor_sync(FULL, a, o));
-      if (idx < n_e && j == 0)
-        out[h0 * HD + e0 + idx] = from_f32<T>(__fmul_rn(a, s_finv[h]));
+      if (idx < n_e && j == 0) {
+        if constexpr (STATS)
+          out[h0 * HD + e0 + idx] = a;
+        else
+          out[h0 * HD + e0 + idx] = from_f32<T>(__fmul_rn(a, s_finv[h]));
+      }
     }
     if (MASSES) {
       // exp2(s - m) / l of the rows this warp scored (exp2(-inf - m) is

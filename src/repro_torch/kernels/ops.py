@@ -2,8 +2,10 @@
 
 Dispatch depends only on where the tensors lie: a CUDA tensor goes to the
 hand-written kernel (which launches or raises), a CPU tensor to the plain
-PyTorch version in ``ref.py``.  There is no environment switch and no
-fallback from a failed kernel to the plain version.
+PyTorch version in ``ref.py``, and so does a tensor on the ``meta``
+device, which carries shapes only (the dry-run's sizes and FLOP counts,
+``launch/dryrun.py``).  Any other device raises.  There is no environment
+switch and no fallback from a failed kernel to the plain version.
 
 One exception, for gradients: the kernels are forward-only (no backward),
 so code that must differentiate through a forward pass (the lookahead
@@ -39,6 +41,7 @@ KERNEL_COUNTERS = {
     "paged_decode_masses": (_pk, "mass_launches"),
     "flash_attention": (_fk, "launches"),
     "decode_attention": (_dk, "launches"),
+    "decode_attention_stats": (_dk, "stats_launches"),
     "ssd_scan": (_sk, "launches"),
 }
 
@@ -66,8 +69,9 @@ def reference_mode():
 def _on_card(t: torch.Tensor, *grad_inputs: Optional[torch.Tensor]) -> bool:
     """Whether ``t``'s call goes to the kernel.  ``grad_inputs`` are the
     call's float tensors: on the card, outside ``reference_mode()``, one
-    that requires a gradient under autograd raises."""
-    if t.device.type == "cpu":
+    that requires a gradient under autograd raises.  CPU and meta tensors
+    take the plain versions."""
+    if t.device.type in ("cpu", "meta"):
         return False
     if t.device.type != "cuda":
         raise ValueError(f"no kernel or plain version for device {t.device}")
@@ -126,6 +130,25 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _on_card(q, k, v):
         return _dk.decode_attention(q, k, v, kv_mask=kv_mask)
     return ref.decode_attention(q, k, v, kv_mask=kv_mask)
+
+
+def decode_attention_stats(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *,
+                           kv_mask: Optional[torch.Tensor] = None):
+    """``decode_attention`` without its final divide: the unnormalised
+    partials (m (B, H), l (B, H), acc (B, H, hd)), float32, of one query
+    token over one segment of a dense cache (the split-cache decode's
+    frozen rows or its hot ring), in natural-log units; an empty
+    (sequence, head) gives m = -1e30, l = 0, acc = 0.  The JAX package
+    computes them in jnp (``ops.decode_attention_stats``); the card runs
+    kernel 6's routine with the partials as its output."""
+    if _on_card(q, k, v):
+        return _dk.decode_attention_stats(q, k, v, kv_mask=kv_mask)
+    return ref.decode_attention_stats(q, k, v, kv_mask=kv_mask)
+
+
+#: plain torch on every device: a few elementwise ops on (B, H, hd)
+merge_attention_stats = ref.merge_attention_stats
 
 
 def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

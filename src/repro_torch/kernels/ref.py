@@ -137,6 +137,50 @@ def decode_attention(q, k, v, *,
     return out.to(q.dtype)
 
 
+def decode_attention_stats(q, k, v, *,
+                           kv_mask: Optional[torch.Tensor] = None):
+    """Unnormalised flash-decode partials of one query token (B, H, hd)
+    over (B, Sk, KV, hd) under ``decode_attention``'s masks: (m (B, H),
+    l (B, H), acc (B, H, hd)), all float32, with m the largest valid
+    logit, l = sum exp(s - m) and acc = sum exp(s - m) v over the valid
+    rows.  A (sequence, head) with no valid row gives m = ``NEG_INF``
+    (finite, as in the JAX package), l = 0 and acc = 0.  Disjoint row
+    segments merge exactly with ``merge_attention_stats``."""
+    B, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    group = H // KV
+    kf = _expand_gqa(k, group).float()
+    vf = _expand_gqa(v, group).float()
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), kf) / math.sqrt(hd)
+    if kv_mask is None:
+        ok = torch.ones((B, H, Sk), dtype=torch.bool, device=q.device)
+    elif kv_mask.dim() == 2:
+        ok = kv_mask[:, None, :].expand(B, H, Sk)
+    else:  # (B, Sk, KV) -> (B, H, Sk)
+        ok = torch.repeat_interleave(kv_mask.transpose(1, 2), group, dim=1)
+    s = torch.where(ok, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+    return m, p.sum(dim=-1), torch.einsum("bhk,bkhd->bhd", p, vf)
+
+
+def merge_attention_stats(parts) -> torch.Tensor:
+    """Combine [(m, l, acc), ...] partials of disjoint row segments into
+    the normalised attention output (B, H, hd) float32: rescale each to
+    the largest m, sum, divide by ``max(l, 1e-30)``, so a (sequence, head)
+    empty in every part gives zeros, never NaN (the JAX package's
+    ``merge_attention_stats``)."""
+    m = parts[0][0]
+    for mp, _, _ in parts[1:]:
+        m = torch.maximum(m, mp)
+    l = acc = 0.0
+    for mp, lp, ap in parts:
+        corr = torch.exp(mp - m)
+        l = l + lp * corr
+        acc = acc + ap * corr[..., None]
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
 def lookahead_score(
     q_obs: torch.Tensor,  # (B, n_obs, H, hd)
     k: torch.Tensor,  # (B, Sk, KV, hd) — prompt keys then obs keys
@@ -348,27 +392,33 @@ def ssd_scan_chunked(
         Bm = torch.nn.functional.pad(Bm, (0, 0, 0, 0, 0, pad))
         Cm = torch.nn.functional.pad(Cm, (0, 0, 0, 0, 0, pad))
     nc = x.shape[1] // chunk
-    x, dt, A = x.float(), dt.float(), A.float()
-    Bf = torch.repeat_interleave(Bm, nh // G, dim=2).float()
-    Cf = torch.repeat_interleave(Cm, nh // G, dim=2).float()
-    a = A[None, None, :] * dt  # (B, Sp, nh) log-decays, <= 0
+    Q = chunk
+    # every chunk's quadratic form at once; only the state carried from
+    # chunk to chunk runs in order (one multiply-add per chunk)
+    x = x.float().reshape(B, nc, Q, nh, hd)
+    dt = dt.float().reshape(B, nc, Q, nh)
+    Bf = torch.repeat_interleave(Bm, nh // G, dim=2).float().reshape(
+        B, nc, Q, nh, ds)
+    Cf = torch.repeat_interleave(Cm, nh // G, dim=2).float().reshape(
+        B, nc, Q, nh, ds)
+    L = torch.cumsum(A.float()[None, None, None, :] * dt, dim=2)  # log-decays
+    idx = torch.arange(Q, device=x.device)
+    causal = (idx[:, None] >= idx[None, :]).float()  # (t, s): s <= t
+    cb = torch.einsum("bctnd,bcsnd->bcnts", Cf, Bf)  # (B, nc, nh, Q, Q)
+    decay = _decay(L[:, :, :, None, :] - L[:, :, None, :, :])  # (.., t, s, nh)
+    w = cb * decay.permute(0, 1, 4, 2, 3) * causal
+    y_intra = torch.einsum("bcnts,bcsn,bcsnh->bctnh", w, dt, x)
+    Lq = L[:, :, -1]  # (B, nc, nh)
+    rem = _decay(Lq[:, :, None, :] - L)  # (B, nc, Q, nh)
+    dstate = torch.einsum("bcsn,bcsn,bcsnh,bcsnd->bcnhd", rem, dt, x, Bf)
+    carry = _decay(Lq)[..., None, None]  # (B, nc, nh, 1, 1)
     h = (torch.zeros((B, nh, hd, ds), dtype=torch.float32, device=x.device)
          if initial_state is None else initial_state.float())
-    idx = torch.arange(chunk, device=x.device)
-    causal = (idx[:, None] >= idx[None, :]).float()  # (t, s): s <= t
-    ys = []
+    hs = []  # the state entering each chunk
     for c in range(nc):
-        rows = slice(c * chunk, (c + 1) * chunk)
-        xc, dtc, bc, cc = x[:, rows], dt[:, rows], Bf[:, rows], Cf[:, rows]
-        L = torch.cumsum(a[:, rows], dim=1)  # (B, Q, nh)
-        cb = torch.einsum("btnd,bsnd->bnts", cc, bc)  # (B, nh, Q, Q)
-        decay = _decay(L[:, :, None, :] - L[:, None, :, :])  # (B, t, s, nh)
-        w = cb * decay.permute(0, 3, 1, 2) * causal
-        y_intra = torch.einsum("bnts,bsn,bsnh->btnh", w, dtc, xc)
-        y_inter = torch.einsum("btnd,bnhd,btn->btnh", cc, h, _decay(L))
-        Lq = L[:, -1]  # (B, nh)
-        rem = _decay(Lq[:, None, :] - L)  # (B, Q, nh)
-        dstate = torch.einsum("bsn,bsn,bsnh,bsnd->bnhd", rem, dtc, xc, bc)
-        h = h * _decay(Lq)[..., None, None] + dstate
-        ys.append(y_intra + y_inter)
-    return torch.cat(ys, dim=1)[:, :S], h
+        hs.append(h)
+        h = torch.addcmul(dstate[:, c], h, carry[:, c])
+    y_inter = torch.einsum("bctnd,bcnhd,bctn->bctnh", Cf, torch.stack(hs, 1),
+                           _decay(L))
+    y = (y_intra + y_inter).reshape(B, nc * Q, nh, hd)
+    return y[:, :S], h

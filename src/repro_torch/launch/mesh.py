@@ -213,3 +213,10 @@ def spawn_ranks(fn: Callable, n: int, args: tuple = (), *, init_file: str,
     if errors:
         raise RuntimeError("spawned ranks failed:\n" + "\n".join(errors))
     return [got[r][1] for r in range(n)]
+
+
+def run_jobs(rank: int, jobs: list) -> list:
+    """Several rank functions in one world, in order, for ``spawn_ranks``:
+    ``jobs`` holds (fn, job) pairs, each ``fn(rank, job)`` importable by
+    name (``serve.serve_shard``, ``serve.split_decode_shard``)."""
+    return [fn(rank, job) for fn, job in jobs]

@@ -126,13 +126,16 @@ import torch.distributed as dist
 from repro_torch import bridge
 from repro_torch.common.config import EvictionConfig
 from repro_torch.common.pytree import tree_bytes
-from repro_torch.common.sharding import serving_specs, shard_tree
+from repro_torch.common.sharding import (serving_cache_specs,
+                                         serving_specs, shard_bounds,
+                                         shard_tree)
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import policies
 from repro_torch.core.lookahead import (init_lookahead_params,
                                         load_lookahead_params)
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import make_host_mesh, spawn_ranks
+from repro_torch.launch.steps import make_decode_step
 from repro_torch.models import transformer as tf
 from repro_torch.obs import TraceRecorder, phase_table
 from repro_torch.serving import (BucketedEngine, ChunkingConfig,
@@ -285,6 +288,19 @@ def init_shard(cfg, mesh, *, seed: int, device) -> dict:
                 torch.cuda.empty_cache()
         dist.barrier(group=mesh.world)
     return shard
+
+
+def job_params(job: dict, cfg, mesh, device) -> dict:
+    """A job's weights on ``device``: the JAX package's numpy tree
+    "params" (the rank's shard over ``mesh``), else drawn from "seed"."""
+    if job.get("params") is not None:
+        return (bridge.to_torch(job["params"], device=device)
+                if mesh is None else
+                bridge.shard_to_torch(job["params"], cfg, mesh,
+                                      device=device))
+    if mesh is None:
+        return tf.init_params(cfg, seed=job["seed"], device=device)
+    return init_shard(cfg, mesh, seed=job["seed"], device=device)
 
 
 def build_engine(args, cfg, params, lkv, mesh=None):
@@ -480,15 +496,7 @@ def serve_job(job: dict, *, mesh=None, device=None) -> dict:
     rank's place on the mesh."""
     cfg, sc = job["cfg"], job["serving"]
     device = device or job["device"]
-    if job.get("params") is not None:
-        params = (bridge.to_torch(job["params"], device=device)
-                  if mesh is None else
-                  bridge.shard_to_torch(job["params"], cfg, mesh,
-                                        device=device))
-    elif mesh is None:
-        params = tf.init_params(cfg, seed=job["seed"], device=device)
-    else:
-        params = init_shard(cfg, mesh, seed=job["seed"], device=device)
+    params = job_params(job, cfg, mesh, device)
     lkv = None
     if sc.policy == "lookaheadkv":
         if job.get("lkv") is not None:
@@ -546,6 +554,122 @@ def serve_shard(rank: int, job: dict) -> dict:
 def serve_shards(rank: int, jobs: list) -> list:
     """``serve_shard`` over several jobs in one world, in order."""
     return [serve_shard(rank, job) for job in jobs]
+
+
+def requested_bytes(device):
+    """The bytes of this process's live tensors on the card, as their
+    callers asked for them (the caching allocator's ``requested_bytes``,
+    no rounding to its blocks); None off the card."""
+    if torch.device(device).type != "cuda":
+        return None
+    torch.cuda.init()  # the allocator reports nothing before it
+    return torch.cuda.memory_stats(device)["requested_bytes.all.current"]
+
+
+def fill_frozen_rows(cache: dict, cfg, batch: int, capacity: int, *,
+                     seed: int, mesh=None) -> dict:
+    """Fill a split cache's frozen K/V with draws from a generator seeded
+    by ``seed`` and the layer (standard normals in the cache's type), in
+    place, as a cache already holding ``capacity`` tokens: each layer's
+    full (batch, capacity, KV, hd) draw is made on the cache's device and
+    the rank keeps its block (``sharding.serving_cache_specs``), so every
+    layout of the same seed holds the same rows.  Returns ``cache``."""
+    a = cfg.attn
+    k = cache["attn"]["k"]
+    full = (batch, capacity, a.num_kv_heads, a.head_dim)
+    bounds = None
+    if mesh is not None and k.shape[1:] != full:
+        spec = serving_cache_specs(cfg, mesh, batch, capacity,
+                                   cache["attn"]["hot_k"].shape[2])
+        bounds = shard_bounds(full, spec["attn"]["k"][1:], mesh, mesh.rank)
+    gen = torch.Generator(device=k.device)
+    for layer in range(k.shape[0]):
+        for i, name in enumerate(("k", "v")):
+            gen.manual_seed(seed * 1_000_003 + 2 * layer + i)
+            x = torch.randn(full, generator=gen, device=k.device,
+                            dtype=torch.float32).to(k.dtype)
+            if bounds is not None:
+                for d, (start, size) in enumerate(bounds):
+                    x = x.narrow(d, start, size)
+            cache["attn"][name][layer].copy_(x)
+    return cache
+
+
+def split_decode_job(job: dict, *, mesh=None, device=None) -> dict:
+    """Greedy split-cache decode of ``job``: "cfg", "device", "batch",
+    "capacity" (frozen rows, all valid), "hot_slots", "steps", the first
+    "token" (batch, 1) int array, the weights as the JAX package's numpy
+    tree "params" or a "seed" to draw them from, and the frozen rows as
+    the JAX package's numpy split cache "cache" or a "cache_seed"
+    (``fill_frozen_rows``).  With "forced" (batch, steps) tokens, step
+    t + 1 takes ``forced[:, t]`` as its input in place of step t's argmax
+    (teacher forcing, so that two runs compare step by step).  Over
+    ``mesh``, the rank's shards (``serving_specs``,
+    ``serving_cache_specs``).  Returns the argmax tokens (batch, steps),
+    the float32 logits (steps, batch, V), the kernel launches, the seconds
+    of the steps, the bytes of the rank's weights and cache, and on the
+    card the bytes the caching allocator's live tensors rose by while the
+    two were built (``requested_bytes``, None off the card)."""
+    from repro_torch.launch.analysis import tensor_bytes
+
+    cfg = job["cfg"]
+    device = device or job["device"]
+    B, C, hot = job["batch"], job["capacity"], job["hot_slots"]
+    before = requested_bytes(device)
+    params = job_params(job, cfg, mesh, device)
+    if job.get("cache") is not None:
+        cache = bridge.decode_cache_to_torch(job["cache"], device=device,
+                                             cfg=cfg, mesh=mesh,
+                                             hot_slots=hot)
+    else:
+        cache = tf.init_decode_cache(cfg, B, C, fill_len=C, hot_slots=hot,
+                                     device=device, mesh=mesh)
+        fill_frozen_rows(cache, cfg, B, C, seed=job["cache_seed"],
+                         mesh=mesh)
+    alloc = None if before is None else requested_bytes(device) - before
+    token = torch.as_tensor(job["token"], dtype=torch.int32, device=device)
+    forced = job.get("forced")
+    if forced is not None:
+        forced = torch.as_tensor(forced, dtype=torch.int32, device=device)
+    if mesh is not None and token.shape[0] != cache["next_pos"].shape[0]:
+        n = cache["next_pos"].shape[0]  # this data row's batch rows
+        rows = slice(mesh.data_index * n, (mesh.data_index + 1) * n)
+        token = token[rows]
+        forced = None if forced is None else forced[rows]
+    step = make_decode_step(cfg, mesh=mesh)
+    toks, logits = [], []
+    ops.reset_launch_counts()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(job["steps"]):
+            lg, cache = step(params, token, cache)
+            token = lg.argmax(-1)[:, None].to(torch.int32)
+            toks.append(token[:, 0])
+            logits.append(lg.float())
+            if forced is not None:
+                token = forced[:, t:t + 1].contiguous()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return {"tokens": torch.stack(toks, 1).cpu().numpy(),
+            "logits": torch.stack(logits).cpu().numpy(),
+            "launches": ops.launch_counts(), "seconds": secs,
+            "param_bytes": tensor_bytes(params),
+            "cache_bytes": tensor_bytes(cache), "alloc_bytes": alloc,
+            "data_index": 0 if mesh is None else mesh.data_index,
+            "model_index": 0 if mesh is None else mesh.model_index}
+
+
+def split_decode_shard(rank: int, job: dict) -> dict:
+    """One rank of ``split_decode_job`` for ``launch.mesh.spawn_ranks``:
+    the world's ("data", "model") mesh with ``job["mesh_model"]`` model
+    shards (by default the whole world), on the rank's device."""
+    n = dist.get_world_size()
+    return split_decode_job(
+        job, mesh=make_host_mesh(model=job.get("mesh_model", n)),
+        device=rank_device(job["device"], rank, n))
 
 
 def _cli_rank(rank: int, argv) -> None:

@@ -1,5 +1,4 @@
-"""Training step functions of the port (the JAX package's
-``launch/steps.py``, training half).
+"""Step functions of the port (the JAX package's ``launch/steps.py``).
 
 * ``make_train_step``   the paper's module training (GT pass + lookahead
                         pass + KL + Adam on the lookahead modules) for the
@@ -8,15 +7,22 @@
                         to.
 * ``make_distill_step`` the same against harvested gt targets
                         (``data/harvest.py``): only the lookahead pass.
+* ``make_prefill_step`` serving prefill with in-pass lookaheadkv eviction
+                        (plain forward + state cache for the SSM arch).
+* ``make_decode_step``  one token against a cache (dense, or the split
+                        cache's frozen rows + hot ring).
+* ``*_batch_shapes``    each step's inputs as meta tensors (shapes and
+                        dtypes, nothing allocated), for the dry-run
+                        (``launch/dryrun.py``).
 
 Each step returns ``(trained tree, AdamState, loss, {"lr",
 "grad_norm"})``; the JAX steps return the first three and drop the
 optimizer's metrics.  Gradients come from ``torch.autograd.grad`` over
 the trained tree's leaves (taken as fresh leaves that require a
 gradient), and Adam returns new trees instead of updating in place.
-The dry-run half of the JAX module (``make_prefill_step``,
-``make_decode_step`` and the ``*_batch_shapes`` abstract inputs) lowers
-programs for a mesh and comes with ``launch/dryrun.py`` (ROADMAP A11).
+The JAX module's abstract inputs are ``ShapeDtypeStruct``s; the port's
+are tensors on the ``meta`` device, which the model functions take as
+they are (``kernels/ops.py`` sends them to the plain versions).
 """
 
 from __future__ import annotations
@@ -25,9 +31,41 @@ from typing import Callable
 
 import torch
 
-from repro_torch.common.config import ModelConfig, TrainConfig
+from repro_torch.common.config import (EvictionConfig, ModelConfig,
+                                      ShapeConfig, TrainConfig)
 from repro_torch.core import objective
+from repro_torch.models import transformer as tf
 from repro_torch.optim import adam
+
+# Response length for training shapes (paper: max generation length 512).
+TRAIN_N_OUT = 512
+# Serving eviction budget for prefill shapes (paper evaluates 64..2048).
+PREFILL_BUDGET = 2048
+DECODE_MARGIN = 128
+
+META = torch.device("meta")
+
+
+def train_batch_shapes(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The training step's batch: {"n_in", "n_out", "x", "xy"} (token
+    archs) or {"x" (B, n_in, D) bf16, "y", "mrope"} (embedding inputs),
+    plus "frames" for encoder-decoder archs; meta tensors."""
+    B, S = shape.global_batch, shape.seq_len
+    n_out = min(TRAIN_N_OUT, S // 8)
+    n_in = S - n_out
+    d = {"n_in": n_in, "n_out": n_out}
+    i32, bf16 = torch.int32, torch.bfloat16
+    if cfg.embeds_in:
+        d["x"] = torch.empty((B, n_in, cfg.d_model), dtype=bf16, device=META)
+        d["y"] = torch.empty((B, n_out), dtype=i32, device=META)
+        d["mrope"] = torch.empty((3, B, n_in), dtype=i32, device=META)
+    else:
+        d["x"] = torch.empty((B, n_in), dtype=i32, device=META)
+        d["xy"] = torch.empty((B, S), dtype=i32, device=META)
+    if cfg.is_encoder_decoder:
+        d["frames"] = torch.empty((B, cfg.encoder.num_frames, cfg.d_model),
+                                  dtype=bf16, device=META)
+    return d
 
 
 def _with_leaves(like, it):
@@ -107,3 +145,75 @@ def make_distill_step(cfg: ModelConfig, tc: TrainConfig):
         return lkv, opt_state, loss, metrics
 
     return distill_step
+
+
+def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
+                      budget: int = PREFILL_BUDGET):
+    """(params, lkv, batch) -> (logits, cache): the prompt under
+    lookaheadkv at ``min(budget, seq_len // 4)`` with ``DECODE_MARGIN``
+    rows for decode appends; for an arch the technique does not apply to,
+    (params, batch) -> (logits, the SSM state cache)."""
+    evict = EvictionConfig(policy="lookaheadkv",
+                           budget=min(budget, shape.seq_len // 4))
+
+    if not cfg.technique_applies:
+
+        def ssm_prefill(params, batch):
+            res = tf.prefill(params, cfg, batch["tokens"],
+                             want_ssm_cache=True)
+            return res.logits, res.cache
+
+        return ssm_prefill
+
+    def prefill_step(params, lkv, batch):
+        res = tf.prefill(
+            params, cfg, batch["tokens"], lkv_params=lkv,
+            policy="lookaheadkv", evict=evict, extra_slots=DECODE_MARGIN,
+            encoder_embeds=batch.get("frames"),
+            mrope_positions=batch.get("mrope"))
+        return res.logits, res.cache
+
+    return prefill_step
+
+
+def prefill_batch_shapes(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """{"tokens" (B, S) int32 or (B, S, D) bf16 embeddings, ["mrope"],
+    ["frames"]} as meta tensors."""
+    B, S = shape.global_batch, shape.seq_len
+    d: dict = {}
+    if cfg.embeds_in:
+        d["tokens"] = torch.empty((B, S, cfg.d_model), dtype=torch.bfloat16,
+                                  device=META)
+        d["mrope"] = torch.empty((3, B, S), dtype=torch.int32, device=META)
+    else:
+        d["tokens"] = torch.empty((B, S), dtype=torch.int32, device=META)
+    if cfg.is_encoder_decoder:
+        d["frames"] = torch.empty((B, cfg.encoder.num_frames, cfg.d_model),
+                                  dtype=torch.bfloat16, device=META)
+    return d
+
+
+def make_decode_step(cfg: ModelConfig, mesh=None):
+    """(params, token, cache) -> (logits, cache): ``transformer.
+    decode_step`` over ``mesh`` (the rank's shards), a split cache's
+    frozen partials merged over the ranks holding its rows."""
+    def decode(params, token, cache):
+        return tf.decode_step(params, cfg, token, cache, mesh=mesh)
+
+    return decode
+
+
+def decode_batch_shapes(cfg: ModelConfig, shape: ShapeConfig,
+                        hot_slots: int = 0, *, mesh=None):
+    """(token (B, 1) int32, cache) as meta tensors, for a cache holding
+    ``seq_len`` tokens: its ``seq_len - 1`` first rows valid, or with
+    ``hot_slots`` the split layout, all ``seq_len`` frozen rows valid and
+    an empty hot ring.  Over ``mesh``, the rank's block
+    (``init_decode_cache(mesh=)``)."""
+    B, S = shape.global_batch, shape.seq_len
+    token = torch.empty((B, 1), dtype=torch.int32, device=META)
+    capacity = S if cfg.uses_attention else 0
+    fill = capacity if hot_slots else max(S - 1, 0)
+    cache = tf.init_decode_cache(cfg, B, capacity, fill_len=fill,
+                                 hot_slots=hot_slots, device=META, mesh=mesh)
+    return token, cache

@@ -1,6 +1,7 @@
 """Grouped-query attention block: projections with RoPE and lookahead-LoRA
 hooks, the monolithic and the streaming prefill attention, the decode
-steps over a dense cache and over the paged pool, and whisper's
+steps over a dense cache, over a split cache (frozen rows + hot ring)
+and over the paged pool, and whisper's
 cross-attention (decoder rows over the encoder frames' K/V, evicted or
 not).
 
@@ -414,6 +415,95 @@ def decode_attention_step(
         att_mask = att_mask & ((positions[:, :, None] - cache["pos"]) < window)
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
                                kv_mask=att_mask)
+    return sharded_wo_linear(out.reshape(B, 1, a.q_dim), p["wo"], smesh)
+
+
+def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
+    """``x`` reduced by ``op`` (a ``dist.ReduceOp``) over ``group``'s
+    ranks, a new tensor on ``x``'s device (``jax.lax.pmax`` / ``psum``):
+    on the card over NCCL, else (gloo: ranks sharing a card, or the CPU)
+    through the host."""
+    if dist.get_backend(group) == "nccl":
+        out = x.clone()
+        dist.all_reduce(out, op=op, group=group)
+        return out
+    host = x.detach().to("cpu", copy=True)
+    dist.all_reduce(host, op=op, group=group)
+    return host.to(x.device)
+
+
+def frozen_rows_group(mesh, axis):
+    """The process group whose ranks hold the other slices of the split
+    cache's frozen rows (``cache["frozen_axis"]``): the model axis's, or
+    the whole world's where the rows lie over every axis."""
+    if axis is None or mesh is None:
+        return None
+    if axis == "model":
+        return mesh.axis_group("model")
+    if set(axis) != set(mesh.axis_names):
+        raise ValueError(f"frozen rows over {axis}: only 'model' or every "
+                         f"axis of {mesh.axis_names}")
+    return mesh.world
+
+
+def frozen_cache_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mask: torch.Tensor, *, group=None) -> tuple:
+    """Flash-decode partials (m, l, acc) of q (B, H, hd) over the split
+    cache's frozen rows (``ops.decode_attention_stats``).  With ``group``
+    (``frozen_rows_group``) each rank holds a slice of the rows for every
+    head: its local partials merge over the group, the max of m, then the
+    sums of l and acc rescaled to it (one all-reduce each; (B, H) and
+    (B, H, hd + 1) float32 per layer), as JAX's ``pmax`` / ``psum``."""
+    m, l, acc = ops.decode_attention_stats(q, k, v, kv_mask=mask)
+    if group is None:
+        return m, l, acc
+    gm = all_reduce(m, dist.ReduceOp.MAX, group)
+    corr = torch.exp(m - gm)
+    la = all_reduce(torch.cat([(l * corr)[..., None],
+                               acc * corr[..., None]], dim=-1),
+                    dist.ReduceOp.SUM, group)
+    return gm, la[..., 0], la[..., 1:]
+
+
+def decode_attention_step_split(
+    p: dict,
+    a: AttentionConfig,
+    h1: torch.Tensor,  # (B, 1, D) current token hidden
+    positions: torch.Tensor,  # (B, 1) the token's absolute positions
+    cache: dict,  # this layer's: k/v/pos/mask (frozen), hot_k/v/pos/mask
+    *,
+    slot: int,  # the ring row this step writes: counter % hot_slots
+    window: Optional[int] = None,
+    rope_tables: Optional[tuple] = None,
+    smesh=None,  # tensor-parallel: the rank's heads (``a`` local)
+    group=None,  # ``frozen_rows_group``: ranks holding the other rows
+) -> torch.Tensor:
+    """Split-cache decode (the JAX package's
+    ``decode_attention_step_split``): the prompt cache is frozen (read
+    only; over a mesh it may stay sliced by sequence) and the token's K/V
+    go into row ``slot`` of the hot ring, overwriting its oldest row once
+    the ring is full, as in JAX.  The two segments attend apart
+    (``ops.decode_attention_stats``, a window masking both) and their
+    partials merge (``ops.merge_attention_stats``), then ``wo``.  The
+    ring is written in place (JAX returns an updated copy).  Returns
+    (B, 1, D)."""
+    B = h1.shape[0]
+    KV = a.num_kv_heads
+    q, k_new, v_new = qkv(p, a, h1, positions, rope_tables=rope_tables)
+    new_pos = positions.to(torch.int32)[:, :, None]  # (B, 1, 1)
+    cache["hot_k"][:, slot] = k_new[:, 0]
+    cache["hot_v"][:, slot] = v_new[:, 0]
+    cache["hot_pos"][:, slot] = new_pos[:, 0].expand(B, KV)
+    cache["hot_mask"][:, slot] = True
+    froz_mask, hot_mask = cache["mask"], cache["hot_mask"]
+    if window is not None:
+        froz_mask = froz_mask & ((new_pos - cache["pos"]) < window)
+        hot_mask = hot_mask & ((new_pos - cache["hot_pos"]) < window)
+    s1 = frozen_cache_stats(q[:, 0], cache["k"], cache["v"], froz_mask,
+                            group=group)
+    s2 = ops.decode_attention_stats(q[:, 0], cache["hot_k"], cache["hot_v"],
+                                    kv_mask=hot_mask)
+    out = ops.merge_attention_stats([s1, s2]).to(h1.dtype)
     return sharded_wo_linear(out.reshape(B, 1, a.q_dim), p["wo"], smesh)
 
 

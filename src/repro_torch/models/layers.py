@@ -50,11 +50,13 @@ def embed_init(gen: Optional[torch.Generator], vocab: int, d: int,
 
 
 def lora_init(gen: torch.Generator, d_in: int, d_out: int, rank: int, *,
-              lead=()) -> dict:
-    """Standard LoRA init: a ~ N(0, 1/r), b = 0.  Stored in float32."""
-    a = torch.randn((*lead, d_in, rank), generator=gen, device=gen.device,
+              lead=(), device=None) -> dict:
+    """Standard LoRA init: a ~ N(0, 1/r), b = 0.  Stored in float32, on
+    ``device`` (default: the generator's; ``"meta"`` draws nothing)."""
+    device = gen.device if device is None else device
+    a = torch.randn((*lead, d_in, rank), generator=gen, device=device,
                     dtype=torch.float32) / math.sqrt(rank)
-    b = torch.zeros((*lead, rank, d_out), device=gen.device,
+    b = torch.zeros((*lead, rank, d_out), device=device,
                     dtype=torch.float32)
     return {"a": a, "b": b}
 

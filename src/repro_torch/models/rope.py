@@ -52,7 +52,8 @@ def mrope_tables(positions: torch.Tensor, head_dim: int, theta: float,
     dev = positions.device
     freqs = rope_freqs(head_dim, theta, dev)
     sec_ids = torch.repeat_interleave(
-        torch.arange(3, device=dev), torch.tensor(sections, device=dev))
+        torch.arange(3, device=dev), torch.tensor(sections, device=dev),
+        output_size=head_dim // 2)
     pos = positions.float()[sec_ids]  # (hd // 2, B, S): each slot's stream
     angles = pos.permute(1, 2, 0) * freqs  # (B, S, hd // 2)
     cos, sin = torch.cos(angles), torch.sin(angles)

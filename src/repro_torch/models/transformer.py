@@ -45,7 +45,9 @@ import numpy as np
 import torch
 
 from repro_torch.common.config import EvictionConfig, ModelConfig
-from repro_torch.common.sharding import layer_gathers
+from repro_torch.common.sharding import (frozen_rows_axis, layer_gathers,
+                                         mesh_signature, serving_cache_specs,
+                                         shard_bounds)
 from repro_torch.core import eviction as ev
 from repro_torch.core import scoring
 from repro_torch.core.lookahead import append_lookahead, lora_scale
@@ -1014,46 +1016,89 @@ def prefill_finalize(
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
+                      fill_len: int = 0, hot_slots: int = 0,
                       per_slot_cursor: bool = False, device="cuda",
                       mesh=None) -> dict:
-    """Fresh, empty dense decode cache: k/v (L, batch, capacity, KV, hd)
-    zeros, pos (L, batch, capacity, KV) = row index, mask false, cursors
-    and positions 0.  ``per_slot_cursor`` gives every batch row (serving
-    slot) its own append cursor, a (batch,) tensor; otherwise the cursor is
-    one int for the batch (lockstep).  SSM archs add "ssm": {conv (L,
-    batch, cw - 1, conv_dim), state (L, batch, nh, hd, ds) float32} zeros;
-    without attention there is no "attn" and no cursor.  Encoder-decoder
-    archs add "cross": {k, v (L, batch, F, KV, hd)} zeros, the unevicted
-    encoder K/V.  Over a mesh, the rank's local kv heads."""
+    """Fresh dense decode cache: k/v (L, batch, capacity, KV, hd) zeros,
+    pos (L, batch, capacity, KV) = row index, mask true on the first
+    ``fill_len`` rows (a cache already holding that many tokens, as the
+    dry-run's decode shapes model it) and false past them, the cursor and
+    positions ``fill_len``.  ``per_slot_cursor`` gives every batch row
+    (serving slot) its own append cursor, a (batch,) tensor; otherwise
+    the cursor is one int for the batch (lockstep).  SSM archs add "ssm":
+    {conv (L, batch, cw - 1, conv_dim), state (L, batch, nh, hd, ds)
+    float32} zeros; without attention there is no "attn" and no cursor.
+    Encoder-decoder archs add "cross": {k, v (L, batch, F, KV, hd)}
+    zeros, the unevicted encoder K/V.
+
+    ``hot_slots`` selects the split-cache decode's layout: the rows above
+    are the frozen prompt cache (read only), and "attn" adds the hot ring
+    hot_k/hot_v (L, batch, hot_slots, KV, hd) zeros, hot_pos (L, batch,
+    hot_slots, KV) zeros and hot_mask false, which new tokens append to;
+    the cursor becomes the ring's counter, 0 (``per_slot_cursor`` raises,
+    as the JAX package asserts).
+
+    Over a mesh, each leaf is the rank's block in the layout of
+    ``sharding.serving_cache_specs`` (its kv heads where the heads shard;
+    with ``hot_slots`` also its batch rows over the data axes, and else
+    its slice of the frozen rows over "model", which ``pos`` numbers
+    globally and ``"frozen_axis"`` names)."""
     _check_arch(cfg)
-    cfg = attn_mod.local_config(
-        cfg, attn_mod.model_shard_mesh(mesh, cfg.attn))
+    if hot_slots and per_slot_cursor:
+        raise ValueError("split-cache decode uses the shared hot-ring "
+                         "counter, not per-slot cursors")
     a = cfg.attn
     L = cfg.num_layers
+    dtype = torch_dtype(cfg)
+    if mesh is not None and mesh_signature(mesh) is not None:
+        specs = serving_cache_specs(cfg, mesh, batch, capacity, hot_slots)
+    else:
+        mesh = specs = None
+
+    def block(group: str, name: str, shape: tuple) -> tuple:
+        """(local shape, start of each dim) of a leaf."""
+        if specs is None:
+            return shape, (0,) * len(shape)
+        b = shard_bounds(shape, specs[group][name], mesh, mesh.rank)
+        return tuple(n for _, n in b), tuple(s0 for s0, _ in b)
+
     cache = {}
     if cfg.uses_attention:
-        shape = (L, batch, capacity, a.num_kv_heads)
-        rows = torch.arange(capacity, dtype=torch.int32, device=device)
-        k = torch.zeros(shape + (a.head_dim,), dtype=torch_dtype(cfg),
-                        device=device)
-        cache["attn"] = {
-            "k": k,
-            "v": torch.zeros_like(k),
-            "pos": rows[None, None, :, None].expand(shape).clone(),
-            "mask": torch.zeros(shape, dtype=torch.bool, device=device),
-        }
-        cache["cursor"] = (torch.zeros((batch,), dtype=torch.int32,
-                                       device=device)
-                           if per_slot_cursor else 0)
+        attn = {}
+        full = (L, batch, capacity, a.num_kv_heads)
+        shape, start = block("attn", "k", full + (a.head_dim,))
+        attn["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        attn["v"] = torch.zeros_like(attn["k"])
+        rows = torch.arange(start[2], start[2] + shape[2], dtype=torch.int32,
+                            device=device)
+        attn["pos"] = rows[None, None, :, None].expand(shape[:4]).clone()
+        attn["mask"] = (rows < fill_len)[None, None, :, None].expand(
+            shape[:4]).clone()
+        cache["cursor"] = (torch.full((batch,), fill_len, dtype=torch.int32,
+                                      device=device)
+                           if per_slot_cursor else fill_len)
+        cache["attn"] = attn
+    nb = batch  # the rank's batch rows (split over data with hot_slots)
+    if specs is not None:
+        nb = shard_bounds((batch, 1), specs["next_pos"], mesh,
+                          mesh.rank)[0][1]
     if cfg.uses_ssm:
-        cache["ssm"] = ssm_mod.init_cache(cfg, batch, torch_dtype(cfg),
-                                          lead=(L,), device=device)
+        cache["ssm"] = ssm_mod.init_cache(cfg, nb, dtype, lead=(L,),
+                                          device=device)
     if cfg.is_encoder_decoder:
-        k = torch.zeros((L, batch, cfg.encoder.num_frames, a.num_kv_heads,
-                         a.head_dim), dtype=torch_dtype(cfg), device=device)
+        shape, _ = block("cross", "k", (L, batch, cfg.encoder.num_frames,
+                                        a.num_kv_heads, a.head_dim))
+        k = torch.zeros(shape, dtype=dtype, device=device)
         cache["cross"] = {"k": k, "v": torch.zeros_like(k)}
-    cache["next_pos"] = torch.zeros((batch, 1), dtype=torch.int32,
-                                    device=device)
+    cache["next_pos"] = torch.full((nb, 1), fill_len, dtype=torch.int32,
+                                   device=device)
+    if not (hot_slots and cfg.uses_attention):
+        return cache
+    cache = add_hot_ring(cache, hot_slots)
+    axis = None if specs is None else frozen_rows_axis(cfg, mesh, batch,
+                                                       capacity)
+    if axis is not None:
+        cache["frozen_axis"] = axis
     return cache
 
 
@@ -1066,6 +1111,25 @@ def add_decode_eviction_scores(cache: dict) -> dict:
     out = dict(cache)
     out["attn"] = dict(cache["attn"],
                        score=cache["attn"]["mask"].to(torch.float32))
+    return out
+
+
+def add_hot_ring(cache: dict, hot_slots: int) -> dict:
+    """A dense decode cache (a prefill's, or a rank's block of one) as the
+    split-cache decode's: its rows frozen, an empty hot ring of
+    ``hot_slots`` rows beside them with the rows' batch and kv heads
+    (hot_k/hot_v zeros, hot_pos zeros, hot_mask false) and the cursor the
+    ring's counter, 0.  Returns a new dict sharing the frozen leaves."""
+    attn = cache["attn"]
+    L, B, _, KV, hd = attn["k"].shape
+    k = torch.zeros((L, B, hot_slots, KV, hd), dtype=attn["k"].dtype,
+                    device=attn["k"].device)
+    out = dict(cache, cursor=0)
+    out["attn"] = dict(attn, hot_k=k, hot_v=torch.zeros_like(k),
+                       hot_pos=torch.zeros(k.shape[:4], dtype=torch.int32,
+                                           device=k.device),
+                       hot_mask=torch.zeros(k.shape[:4], dtype=torch.bool,
+                                            device=k.device))
     return out
 
 
@@ -1189,9 +1253,17 @@ def decode_step(
     or with a ``mask`` leaf (a ``cross_budget`` eviction) over its kept
     frames under the per-kv-head mask (``ops.decode_attention``).
 
+    A split cache (``init_decode_cache(hot_slots=)``: hot_k/hot_v/hot_pos/
+    hot_mask beside the frozen rows) takes the split step in every layer
+    (``attention.decode_attention_step_split``): the token goes into the
+    hot ring at the counter modulo its rows, and the counter advances by
+    one.
+
     Over a ``mesh`` whose model axis divides the heads, ``params`` and the
     cache are the rank's shards (its kv heads), attention runs on its
-    local heads and every rank returns the full logits."""
+    local heads and every rank returns the full logits.  A split cache
+    whose frozen rows the mesh slices by sequence (``"frozen_axis"``)
+    merges each layer's frozen partials over the ranks holding them."""
     smesh = attn_mod.model_shard_mesh(mesh, cfg.attn)
     gathers = layer_gathers(cfg, mesh)
     cfg = attn_mod.local_config(cfg, smesh)
@@ -1201,6 +1273,7 @@ def decode_step(
     positions = cache["next_pos"]
     paged = "pool" in cache
     attend = cfg.uses_attention and (paged or "attn" in cache)
+    split = False
     if attend:
         cursor = cache["cursor"]
         mrope = None
@@ -1220,7 +1293,15 @@ def decode_step(
     elif attend:
         depth = cache["attn"]["k"].shape[2]
         evicting = "score" in cache["attn"]
-        if not evicting:
+        split = "hot_k" in cache["attn"]
+        if split:
+            if active is not None:
+                raise ValueError("the split-cache decode steps the whole "
+                                 "batch (no active mask)")
+            slot = int(cursor) % cache["attn"]["hot_k"].shape[2]
+            group = attn_mod.frozen_rows_group(mesh,
+                                               cache.get("frozen_axis"))
+        elif not evicting:
             rows = attn_mod.dense_append_rows(cursor, depth, B, h.device,
                                               active)
     cross = cache.get("cross") if cfg.is_encoder_decoder else None
@@ -1234,6 +1315,11 @@ def decode_step(
                 table=table, cursor=cursor, depth=paged_depth,
                 active=active, window=window, rope_tables=tables,
                 slots=slots, smesh=smesh)
+        elif attend and split:
+            delta = attn_mod.decode_attention_step_split(
+                lp["attn"], a, u, positions,
+                layer_slice(cache["attn"], layer), slot=slot, window=window,
+                rope_tables=tables, smesh=smesh, group=group)
         elif attend and evicting:
             delta = attn_mod.decode_attention_step_evicting(
                 lp["attn"], a, u, positions,
@@ -1269,7 +1355,9 @@ def decode_step(
     new_cache["next_pos"] = adv_p
     if not attend:
         return logits, new_cache
-    if isinstance(cursor, torch.Tensor) and cursor.dim() == 1:
+    if split:  # the hot ring's counter
+        adv_c = int(cursor) + 1
+    elif isinstance(cursor, torch.Tensor) and cursor.dim() == 1:
         adv_c = torch.clamp(cursor + 1, max=depth)
         if active is not None:
             adv_c = torch.where(active, adv_c, cursor)

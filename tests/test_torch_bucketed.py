@@ -17,6 +17,7 @@ the CPU.
 Float32 smoke config; prompts from numpy seeds; tokens compared exactly.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 import warnings
 

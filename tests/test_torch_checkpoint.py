@@ -12,6 +12,7 @@ layouts the trainers write.  No JAX compile: only ``jax.numpy`` arrays
 and the JAX checkpoint module.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 
 import jax

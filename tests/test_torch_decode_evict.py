@@ -20,6 +20,7 @@ cursors, the sweep's pool and score bit-equal (the sweep only moves
 values).
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 import warnings
 

@@ -23,6 +23,7 @@ Tolerances: logits and k/v 1e-4 (float32, other summation orders); kept
 sets, positions, masks, cursors and tokens identical.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 import warnings
 

@@ -26,6 +26,7 @@ captured scores 1e-4 of each row's largest; kept sets, positions, masks
 and cursors identical.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 
 import jax

@@ -8,6 +8,7 @@ identical, and for the continuous engine also the admission kept (layer,
 head, position) sets.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 import warnings
 

@@ -22,6 +22,7 @@ outputs 1e-5 (float32, other summation orders), logits 1e-4 (a few
 layers of them); kept sets, draft tokens and positions identical.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 
 import jax

@@ -19,6 +19,7 @@ Inputs come from a numpy seed; tolerance 1e-5 (float32).  The
 interpret-mode grids stay small (B <= 2, H <= 4, S <= 256).
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import jax.numpy as jnp
 import numpy as np
 import pytest

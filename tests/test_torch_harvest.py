@@ -15,6 +15,7 @@ and the trace harvest.
   port (``launch/train.py --harvest``).
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 import shutil
 

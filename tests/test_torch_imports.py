@@ -10,6 +10,7 @@ its own copy of the configs instead, which must equal the JAX package's
 field by field.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 import os
 import subprocess
@@ -52,7 +53,10 @@ MUST_REACH = LEARNING_LOOP + ("repro_torch.serving.prefix_cache",
                               "repro_torch.obs.quality",
                               "repro_torch.common.pytree",
                               "repro_torch.common.sharding",
-                              "repro_torch.launch.mesh")
+                              "repro_torch.launch.mesh",
+                              "repro_torch.launch.analysis",
+                              "repro_torch.launch.dryrun",
+                              "repro_torch.launch.dryrun_all")
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

@@ -14,6 +14,7 @@ Also the pieces between the kernels that decide kept sets: GQA reduce,
 max-pool and the top-k tie rule (lower index first on equal scores).
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import jax.numpy as jnp
 import numpy as np
 import pytest

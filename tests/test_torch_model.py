@@ -15,6 +15,7 @@ Tolerances: logits and activations 1e-4 (float32, different summation
 orders); kept sets identical.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 
 import jax

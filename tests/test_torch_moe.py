@@ -28,6 +28,7 @@ Tolerances: float32 1e-4 (other summation orders); kept sets, positions,
 masks, cursors and tokens identical.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 import warnings
 

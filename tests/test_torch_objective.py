@@ -24,6 +24,7 @@ tokens go through both packages:
   the peak rate on the cosine (the two float32 cosines differ by an ulp).
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 
 import jax

@@ -33,6 +33,7 @@
   files that parse; the lockstep route prints JAX's note.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 import gc
 import json

@@ -25,6 +25,7 @@ kept (layer, kv head, position) sets, budgets and random scores
 identical.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 
 import jax

@@ -25,6 +25,7 @@ which has no draft model there, fails as in the JAX launcher.  Tokens,
 kept sets and counts must be identical.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 import warnings
 

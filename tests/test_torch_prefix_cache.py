@@ -21,6 +21,7 @@
    parameters bridged): the same tokens, hits, misses and tokens skipped.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 
 import jax

@@ -17,6 +17,7 @@
   and a sampled request preempted on a dry pool replays its tokens.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 
 import jax

@@ -12,6 +12,7 @@ Per request, the greedy tokens and the admission kept (layer, head,
 position) sets must be identical.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 
 import jax

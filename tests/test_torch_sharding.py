@@ -16,6 +16,7 @@ package's (ROADMAP A11).
 * ``make_host_mesh`` refuses a model axis that does not divide the world.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 
 import jax

@@ -25,6 +25,7 @@ state split in two instead of three leaves rows ~10x nearer the
 tolerance.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import jax.numpy as jnp
 import numpy as np
 import pytest

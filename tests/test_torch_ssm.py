@@ -25,6 +25,7 @@ decay products round differently; the JAX package's own test takes 2e-3);
 model outputs, caches and logits 1e-4 (float32); tokens identical.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 
 import jax

@@ -18,6 +18,7 @@ engine's stats, the pool's bytes per shard, the refusals left, and the
 launcher's ``--mesh-model``.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 import math
 

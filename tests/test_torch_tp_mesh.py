@@ -8,7 +8,8 @@ single-device engine.  Here the port's ranks are processes: one world of
 4 gloo ranks and one of 2 are spawned for the module (a ``file://``
 store in ``tmp_path``, collectives timing out after 60 s, each rank on
 one CPU thread) and each serves every job of its world in that spawn
-(``launch.serve.serve_shards``; a job's "mesh_model" picks its mesh),
+(``launch.mesh.run_jobs`` over ``launch.serve.serve_shard``; a job's
+"mesh_model" picks its mesh),
 on its shard of the JAX package's own weights (``bridge``), in float32.
 
 * (2, 2) on 4 ranks, ``fsdp=True`` on the tp geometry (smollm-smoke-tp:
@@ -28,8 +29,17 @@ single-device engine's on a trace with staggered arrivals; the MoE runs
 equal the port's one-rank engine in every field of every request and
 JAX's tokens and kept sets (``test_torch_moe.py``'s rule).  Prefix-cache
 hits, tokens skipped and bytes equal JAX's.  Also ``stats["mesh"]``.
+
+The world of 2 also runs the split-cache decode on (1, 2)
+(``serve.split_decode_shard``): gemma3-smoke, whose frozen rows each rank
+holds half of by sequence and whose partials merge over the two ranks,
+and the tp geometry, whose kv heads split; both against the port's
+one-rank split decode (float32, logits within 1e-5, the same tokens).
+The split decode itself is held against JAX in
+``test_torch_split_decode.py``.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 import threading
 
@@ -52,7 +62,7 @@ from repro_torch.common.config import EvictionConfig
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.policies import Sampling
 from repro_torch.launch import serve
-from repro_torch.launch.mesh import spawn_ranks
+from repro_torch.launch.mesh import run_jobs, spawn_ranks
 from repro_torch.serving import ChunkingConfig, Request, ServingConfig
 from trace_utils import kept_sets, make_trace_requests
 
@@ -186,15 +196,39 @@ def _job(m, case, mesh_model=None):
     return job
 
 
+#: the split-cache decode over (1, 2) (``serve.split_decode_shard``, in
+#: the world of 2): job name -> model.  gemma3-smoke's 1 kv head divides
+#: nothing, so each rank holds half the frozen rows and merges its
+#: partials with the other's; the tp geometry's 4 kv heads split 2 / 2,
+#: so each rank holds its heads' rows and merges nothing
+SPLIT_CASES = {"split-gemma": "gemma", "split-tp": "tp"}
+
+
+def _split_job(m):
+    """6 greedy steps over a 32-row frozen cache drawn from a seed, a
+    4-row hot ring (it wraps), 2 sequences."""
+    rng = np.random.default_rng(7)
+    return dict(cfg=m["tcfg"], device="cpu", batch=2, capacity=32,
+                hot_slots=4, steps=6, params=m["np_params"], cache_seed=11,
+                token=rng.integers(0, m["tcfg"].vocab_size, (2, 1)),
+                mesh_model=2)
+
+
 def _spawn_worlds(models, tmp_path_factory) -> dict:
     """{(world size, model shards): {case: per-rank results}}, one spawn
-    per world size."""
+    per world size; the world of 2 also runs the split-cache decode jobs
+    (under (2, 2), as the (1, 2) mesh's)."""
     out = {}
     for n in (4, 2):
         runs = [(c, m) for c, w, m in RUNS if w == n]
-        jobs = [_job(models[CASES[c][0]], c, m) for c, m in runs]
+        jobs = [(serve.serve_shard, _job(models[CASES[c][0]], c, m))
+                for c, m in runs]
+        if n == 2:
+            runs += [(c, 2) for c in SPLIT_CASES]
+            jobs += [(serve.split_decode_shard, _split_job(models[model]))
+                     for model in SPLIT_CASES.values()]
         store = str(tmp_path_factory.mktemp(f"world{n}") / "store")
-        res = spawn_ranks(serve.serve_shards, n, (jobs,), init_file=store,
+        res = spawn_ranks(run_jobs, n, (jobs,), init_file=store,
                           timeout_s=60.0, join_s=240.0)
         for i, (c, m) in enumerate(runs):
             out.setdefault((n, m), {})[c] = [res[r][i] for r in range(n)]
@@ -324,3 +358,29 @@ def test_moe_mesh_equals_one_rank_engine(models, worlds, case):
                     g.retirement_cache[f],
                     w.retirement_cache[f][..., i * kv:(i + 1) * kv])
     assert one["stats"]["mesh"] is None
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_decode_over_two_ranks_equals_one_rank(models, worlds, case):
+    """The split-cache decode on (1, 2) against the port's one-rank split
+    decode of the same job: the same tokens on both ranks, logits within
+    1e-5 (float32; the merged partials sum in another order where the
+    frozen rows split), and the frozen rows each rank holds: half of them
+    (gemma: a sequence slice, merged over the ranks; tp: its kv heads)."""
+    job = _split_job(models[SPLIT_CASES[case]])
+    one = serve.split_decode_job(job)
+    ranks = worlds[(2, 2)][case]
+    for rk in ranks:
+        np.testing.assert_array_equal(rk["tokens"], one["tokens"])
+        np.testing.assert_allclose(rk["logits"], one["logits"], atol=1e-5,
+                                   rtol=1e-5)
+        assert rk["launches"] == {k: 0 for k in rk["launches"]}  # CPU
+        assert rk["cache_bytes"] < one["cache_bytes"]
+    assert [rk["model_index"] for rk in ranks] == [0, 1]
+    cfg = job["cfg"]
+    a = cfg.attn
+    rows = cfg.num_layers * 2 * 32 * a.num_kv_heads  # (L, B, C, KV)
+    frozen = rows * (2 * a.head_dim * 4 + 5)  # k, v f32; pos i32, mask
+    ring = one["cache_bytes"] - frozen - 2 * 4  # next_pos
+    want = frozen // 2 + (ring if case == "split-gemma" else ring // 2) + 8
+    assert [rk["cache_bytes"] for rk in ranks] == [want, want]

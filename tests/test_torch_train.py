@@ -20,6 +20,7 @@ package's engines.
   modules give in memory.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 
 import jax

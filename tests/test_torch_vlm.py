@@ -24,6 +24,7 @@ Tolerances: float32 1e-4; kept sets, positions, masks and tokens
 identical.
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 import warnings
 

@@ -29,6 +29,7 @@ identical.  JAX compiles are few and small (the prefill and decode steps
 run unjitted).
 """
 
+import torch_test_env  # noqa: F401  (first: process settings)
 import dataclasses
 
 import jax
