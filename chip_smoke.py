@@ -1757,7 +1757,8 @@ def phase_kernels(torch, mods) -> list:
     results += phase_kernels_whisper(torch, mods, score_case, decode_case,
                                      flash_case)
     results += phase_kernels_tp(torch, chunk_case, masses_chunk_case,
-                                score_case, paged_case, decode_case)
+                                score_case, paged_case, decode_case,
+                                flash_case)
     return results
 
 
@@ -2034,12 +2035,15 @@ def phase_kernels_moe_vlm(torch, chunk_case, masses_chunk_case, score_case,
 #: llama3-8b's attention as one rank of a tensor-parallel mesh holds it:
 #: {model shards: (local q heads, local kv heads, head dim)}
 TP_HEADS = {2: (16, 4, 128), 4: (8, 2, 128)}
+#: the GT pass of phase 5b's and 8's online steps: 1,024 prompt rows and
+#: 64 response rows
+GT_PROMPT, GT_ROWS = 1024, 1024 + 64
 #: deepseek-moe-16b's attention as one rank of 2 holds it (6f)
 TP_MOE_HEADS = (8, 8, 128)
 
 
 def phase_kernels_tp(torch, chunk_case, masses_chunk_case, score_case,
-                     paged_case, decode_case) -> list:
+                     paged_case, decode_case, flash_case) -> list:
     """Phase 1 at the local head counts of llama3-8b's tensor-parallel
     ranks, (16, 4) at 2 shards and (8, 2) at 4, hd 128, bf16: kernel 1 on
     the paged route's C 256 chunk at 3840 of 4096 and its 32-row
@@ -2048,10 +2052,14 @@ def phase_kernels_tp(torch, chunk_case, masses_chunk_case, score_case,
     over 4 x 289 rows under a per-kv-head mask; each timed beside its
     plain version, its bound and SDPA where one call computes the same
     function, with the same tolerances and one-launch checks as the
-    shapes above, and an edge case each.  Then kernels 1, 3 and 4 at
-    deepseek-moe-16b's local (8, 8) heads of one rank of 2 (G 1), 6f's
-    shapes.  Returns the timed cases, named ``<kernel> tp2`` / ``tp4`` /
-    ``tp2g1``."""
+    shapes above, and an edge case each.  At the same local heads, the
+    trainer's GT pass under a mesh (phase 8, ``ONLINE``'s B 1 x (1,024 +
+    64) tokens): kernel 7 causal over the 1,088 rows and kernel 3 on the
+    64 response rows over them, scored on the 1,024 prompt keys.  Then
+    kernels 1, 3 and 4 at deepseek-moe-16b's local (8, 8) heads of one
+    rank of 2 (G 1), 6f's shapes.  Returns the timed cases, named
+    ``<kernel> tp2`` / ``tp4`` / ``tp2g1``, and ``<kernel> tp2 gt`` /
+    ``tp4 gt`` for the GT pass's."""
     out = []
     sm90 = "src/repro_torch/csrc/attention_sm90.cuh"
     for n, heads in TP_HEADS.items():
@@ -2088,6 +2096,20 @@ def phase_kernels_tp(torch, chunk_case, masses_chunk_case, score_case,
                          key=f"decode_attention {tag}")
         decode_case(f"{tag} dead head and sequence", "head-edge",
                     heads=heads, C=150)
+        k7g = flash_case(1, GT_ROWS, True, None, f"{tag} GT pass: B=1 "
+                         f"S={GT_ROWS} causal", timed=f"flash_attention "
+                         f"{tag} gt", heads=heads)
+        k3g = score_case(1, GT_ROWS - GT_PROMPT, GT_ROWS, GT_PROMPT, None,
+                         None, False, f"{tag} GT pass: {GT_ROWS - GT_PROMPT}"
+                         f" rows over {GT_ROWS}, n_prompt={GT_PROMPT}",
+                         timed=f"lookahead_score {tag} gt", heads=heads)
+        for name, src, rep, res in (
+                ("flash_attention", sm90, "flash_attention.py:71", k7g),
+                ("lookahead_score", "src/repro_torch/csrc/lookahead_score.cu",
+                 "lookahead_score.py:87", k3g)):
+            out.append(dict(name=f"{name} {tag} gt", route="cuda",
+                            source=src, replaces=f"src/repro/kernels/{rep}",
+                            **res))
         for name, src, rep, res in (
                 ("chunk_attention", sm90, "chunk_attention.py:95", k1),
                 ("chunk_attention_masses", sm90, "chunk_attention.py:216",
@@ -5034,11 +5056,12 @@ def phase_serve_ckpt(torch, mods, cfg, ckpt_path: str, lkv) -> None:
     check(all(len(r.out_tokens) == 8 for r in done), "5d: a short request")
 
 
-def phase_learning_loop(torch, mods, header) -> None:
+def phase_learning_loop(torch, mods, header) -> dict:
     """Phase 5 on llama3-8b at full width (32 layers, d 4096, 32/8 heads
     of 128, bf16, random weights from the seed, modules from
     ``init_lookahead_params``): 5a, 5e and the first half of 5b on one set
-    of weights, then 5b's trainer, 5c and 5d, which build their own."""
+    of weights, then 5b's trainer, 5c and 5d, which build their own.
+    Returns 5b's trained modules (numpy), phase 8's."""
     import gc
     import tempfile
 
@@ -5070,6 +5093,7 @@ def phase_learning_loop(torch, mods, header) -> None:
         header("phase 5d: serve --lkv-ckpt (5b's checkpoint), lockstep")
         phase_serve_ckpt(torch, mods, cfg, f"{d}/lkv.npz", trained["lkv"])
         torch.cuda.empty_cache()
+    return mods["train"]._to_host(trained["lkv"])
 
 
 #: phase 6: the smoke geometry of 6a (llama3-8b smoke rebuilt at 8 q /
@@ -5714,11 +5738,15 @@ def check_alloc(label: str, held: int, alloc: int) -> None:
     caching allocator's requested bytes while they were built, within
     ``ALLOC_SLACK``: a witness of the layout outside the code that sizes
     it."""
-    print(f"  7c {label}: the allocator's requested bytes rose by {alloc} "
-          f"while the weights and cache were built ({alloc - held:+d} "
-          f"against their {held} bytes; at most {ALLOC_SLACK})")
+    if alloc is None:
+        print(f"  {label}: the allocator's requested bytes: not measured "
+              "(no card)")
+    else:
+        print(f"  {label}: the allocator's requested bytes rose by {alloc} "
+              f"while its tensors were built ({alloc - held:+d} against "
+              f"their {held} bytes; at most {ALLOC_SLACK})")
     check(alloc is not None and abs(alloc - held) <= ALLOC_SLACK,
-          f"7c: {label}'s allocated bytes differ from the tensors'")
+          f"{label}: the allocated bytes differ from the tensors'")
 
 
 def dryrun_bytes(mods, cfg, mesh, rank: int, spec: dict) -> int:
@@ -5832,7 +5860,7 @@ def split_decode_cells(torch, mods, header, device: str, sweep,
           f"{torch.cuda.memory_allocated()} ({time.perf_counter() - t0:.1f} "
           "s to draw)")
     check(held == sized, "7c: 7a's bytes differ from the dry-run's")
-    check_alloc("7a's rank", held - 4 * B, alloc)
+    check_alloc("7c 7a's rank", held - 4 * B, alloc)
     token = torch.randint(0, cfg.vocab_size, (B, 1), generator=torch.
                           Generator(device=device).manual_seed(SEED),
                           device=device, dtype=torch.int32)
@@ -5932,7 +5960,7 @@ def split_decode_cells(torch, mods, header, device: str, sweep,
                   f"by the dry-run (cache {rk['cache_bytes']}; one rank's "
                   f"{one['cache_bytes']})")
             check(held == sized, f"7c: {label} rank {r}'s bytes differ")
-            check_alloc(f"{label} rank {r}",
+            check_alloc(f"7c {label} rank {r}",
                         rk["param_bytes"] + rk["cache_bytes"],
                         rk["alloc_bytes"])
     del cases, world
@@ -5958,6 +5986,321 @@ def split_decode_cells(torch, mods, header, device: str, sweep,
     check(not bad and "llama3-8b_decode_32k_pod_split_cache" in statuses
           and len(statuses) == 41, f"7c: dry-run files {bad or statuses}")
     return counts
+
+
+#: phase 8: the trainer under a mesh.  8a: the CPU test's cases
+#: (``tests/test_torch_train_mesh.py``) at smoke width in float32: (name,
+#: smoke arch, mesh sizes, ZeRO storage, distillation); one step each
+TRAIN_MESH_SMOKE = (
+    ("llama (1, 2)", "llama3-8b", (1, 2), False, False),
+    ("llama (2, 1)", "llama3-8b", (2, 1), False, False),
+    ("deepseek (1, 2)", "deepseek-moe-16b", (1, 2), False, False),
+    ("gemma (1, 2)", "gemma3-1b", (1, 2), False, False),
+    ("llama (2, 2) zero", "llama3-8b", (2, 2), True, False),
+    ("llama (1, 4)", "llama3-8b", (1, 4), False, False),
+    ("llama (2, 1, 2)", "llama3-8b", (2, 1, 2), False, False),
+    ("llama (2, 2) zero distill", "llama3-8b", (2, 2), True, True))
+#: 8a's tolerances against the one-rank step on the card, the CPU test's
+#: against the one-process port: loss and gradient norm (relative), each
+#: gradient, ``m`` and ``v`` leaf (of its largest one-rank value), the
+#: updated modules where the gradient is above 1e-3 of its leaf's largest
+#: (absolute; elsewhere 2 x lr)
+TRAIN_MESH_SMOKE_TOL = dict(loss=1e-5, norm=1e-5, grads=1e-5, mu=2e-5,
+                            nu=4e-5, lkv=1e-6)
+#: 8b / 8c: llama3-8b at full width, bf16, (mesh sizes, layers, global
+#: batch), two steps of ``ONLINE``'s shape from 5b's trained modules
+TRAIN_MESH_CELLS = {"8b": ((1, 2), 32, 1), "8c": ((2, 2), 4, 2)}
+#: 8b / 8c against the one-rank run on the card, in bf16 (PERF.md's
+#: prediction, written before the first run).  The first step, from the
+#: same modules: its loss within ``loss`` relative, its gradient norm
+#: within ``norm``, each gradient leaf within ``grads`` of its largest
+#: one-rank value and at cosine ``cos`` or more.  The second step starts
+#: from modules the first update moved by lr * sign(g) elementwise, so a
+#: near-zero gradient that differs in sign moves its entry 2 lr apart:
+#: its loss is held to ``loss_after`` only
+TRAIN_MESH_FLOORS = dict(loss=1e-3, norm=1e-2, grads=0.2, cos=0.99,
+                         loss_after=0.05)
+SMOKE_LR, SMOKE_SCHEDULE = 1e-3, 10
+
+
+def train_smoke_model(torch, mods, arch: str) -> dict:
+    """8a's model: the smoke config in float32 (llama3's at 6a's 8 q / 4
+    kv heads of 32, d_model 256), weights and modules drawn from the seed
+    on the CPU, the LoRA ``b`` drawn (a fresh tree has b = 0, so every
+    ``a`` gradient would be zero), B 2 x (40 + 8) tokens and the
+    distillation's targets from the one-rank GT pass; numpy trees."""
+    import dataclasses
+
+    import numpy as np
+
+    base = mods["configs"].get_smoke_config(arch)
+    cfg = dataclasses.replace(base, dtype="float32")
+    if arch == "llama3-8b":
+        cfg = dataclasses.replace(cfg, d_model=256, attn=dataclasses.replace(
+            base.attn, num_heads=8, num_kv_heads=4, head_dim=32))
+    params = mods["tf"].init_params(cfg, seed=SEED, device="cpu")
+    lkv = mods["lookahead"].init_lookahead_params(
+        torch.Generator().manual_seed(SEED + 1), cfg, params["layers"])
+    rng = np.random.default_rng(5)
+
+    def np_tree(t, name=""):
+        if isinstance(t, dict):
+            return {k: np_tree(v, k) for k, v in t.items()}
+        if name == "b":
+            return (rng.normal(size=t.shape) * 0.05).astype(np.float32)
+        return t.numpy()
+
+    toks = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 48)).astype(np.int32)
+    s_gt = mods["objective"].gt_scores(params, cfg, torch.from_numpy(toks),
+                                       40).numpy()
+    return dict(cfg=cfg, params=np_tree(params), lkv=np_tree(lkv),
+                toks=toks, s_gt=s_gt)
+
+
+def train_smoke_job(m: dict, sizes, zero: bool, distill: bool, ckpt: str,
+                    device: str) -> dict:
+    import dataclasses
+
+    toks = m["toks"]
+    batch = ({"x": toks[:, :40], "s_gt": m["s_gt"]} if distill
+             else {"x": toks[:, :40], "xy": toks})
+    return dict(cfg=dataclasses.replace(m["cfg"], fsdp=zero), device=device,
+                steps=SMOKE_SCHEDULE, batch=2, n_in=40, n_out=8,
+                lr=SMOKE_LR, ckpt=ckpt, seed=SEED, mesh=sizes,
+                params=m["params"], lkv=m["lkv"], batches=[batch],
+                stop_after=1, return_grads=True)
+
+
+def train_cell_job(mods, cell: str, lkv, ckpt: str, device: str) -> dict:
+    """8b's / 8c's job: llama3-8b at full width (8c cut to its layers),
+    ``ONLINE``'s B x (1,024 + 64) synthetic tokens, two steps, weights
+    from the seed, the modules ``lkv`` (numpy; the LoRA of the first
+    layers where the depth is cut)."""
+    import dataclasses
+
+    sizes, layers, batch = TRAIN_MESH_CELLS[cell]
+    cfg = dataclasses.replace(mods["configs"].get_config("llama3-8b"),
+                              num_layers=layers)
+
+    def first(tree):
+        return ({k: first(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree[:layers])
+
+    lkv = {"emb": lkv["emb"], "lora": first(lkv["lora"])}
+    return dict(cfg=cfg, device=device, steps=2, batch=batch,
+                n_in=GT_PROMPT, n_out=GT_ROWS - GT_PROMPT, lr=1e-3,
+                ckpt=ckpt, seed=SEED, mesh=sizes, lkv=lkv, return_grads=True)
+
+
+def _draw_b(tree, rng, name=""):
+    """``tree`` (torch) as numpy, its LoRA ``b`` leaves drawn from ``rng``
+    (8b's and 8c's modules when phase 8 runs without phase 5)."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return {k: _draw_b(v, rng, k) for k, v in tree.items()}
+    if name == "b":
+        return (rng.normal(size=tuple(tree.shape)) * 0.01).astype(np.float32)
+    return tree.detach().cpu().numpy()
+
+
+def hold_train_step(label: str, ranks: list, ref: dict, tol: dict,
+                    lr: float) -> dict:
+    """Hold a world's ranks to the one-rank run ``ref`` (``train_job``'s
+    host results) at 8a's tolerances: every rank the same losses and
+    modules bit for bit; the loss and gradient norm relative; each
+    gradient, ``m`` and ``v`` leaf within its share of the leaf's largest
+    one-rank value; the updated modules absolute where the one-rank
+    gradient is above 1e-3 of its leaf's largest, else within 2 x lr.
+    Returns the worst relative errors."""
+    import numpy as np
+
+    leaves = mods_leaves
+    r0 = ranks[0]
+    same = all(r["losses"] == r0["losses"] and all(
+        np.array_equal(a, b) for a, b in zip(leaves(r["lkv"]),
+                                             leaves(r0["lkv"])))
+        for r in ranks)
+    worst = {"loss": float(np.max(np.abs(np.array(r0["losses"])
+                                         - np.array(ref["losses"]))
+                                  / np.abs(np.array(ref["losses"])))),
+             "norm": float(np.max(np.abs(np.array(r0["grad_norms"])
+                                         - np.array(ref["grad_norms"]))
+                                  / np.array(ref["grad_norms"])))}
+    pairs = {"grads": (leaves(r0["grads"][0]), leaves(ref["grads"][0])),
+             "mu": (leaves(r0["opt"]["mu"]), leaves(ref["opt"]["mu"])),
+             "nu": (leaves(r0["opt"]["nu"]), leaves(ref["opt"]["nu"]))}
+    for what, (got, want) in pairs.items():
+        worst[what] = max(float(np.abs(a - b).max() / np.abs(b).max())
+                          for a, b in zip(got, want))
+    big, rest = 0.0, 0.0
+    for a, b, g in zip(leaves(r0["lkv"]), leaves(ref["lkv"]),
+                       leaves(ref["grads"][0])):
+        err, sel = np.abs(a - b), np.abs(g) > 1e-3 * np.abs(g).max()
+        big = max(big, float(err[sel].max()) if sel.any() else 0.0)
+        rest = max(rest, float(err.max()))
+    worst["lkv"] = big
+    print(f"  {label}: ranks identical {same}; loss {r0['losses']} (one "
+          f"rank {ref['losses']}); worst relative errors " + ", ".join(
+              f"{k} {v:.2e} (tol {tol[k]:.0e})" for k, v in worst.items())
+          + f"; elsewhere {rest:.2e} (at most {2 * lr:.0e})")
+    check(same, f"8a {label}: the ranks differ")
+    check(all(worst[k] <= tol[k] for k in worst) and rest <= 2 * lr,
+          f"8a {label}: outside its tolerance")
+    return worst
+
+
+def mods_leaves(tree) -> list:
+    """The leaves of a nested dict in sorted key order (``adam.leaves``)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in mods_leaves(tree[k])]
+    return [tree]
+
+
+def hold_train_cell(label: str, ranks: list, ref: dict, cfg,
+                    predicted_bytes: int) -> None:
+    """8b / 8c: each rank's launches (kernels 7 and 3 once per layer and
+    step, nothing else), its weight bytes (the dry-run's ``serving_specs``
+    layout) and the allocator's rise while it built them, its peak
+    memory; rank 0's losses and gradients against the one-rank run at
+    ``TRAIN_MESH_FLOORS``."""
+    import numpy as np
+
+    n_steps = len(ref["losses"])
+    L = cfg.num_layers
+    for r, res in enumerate(ranks):
+        want = {k: 0 for k in res["launches"]}
+        want.update(flash_attention=n_steps * L, lookahead_score=n_steps * L)
+        print(f"  {label} rank {r}: launches {res['launches']} (expected "
+              f"{want}); weights {res['param_bytes']} bytes (the dry-run's "
+              f"{predicted_bytes}); peak torch.cuda.max_memory_allocated "
+              f"{gib(res['peak_bytes'])} GiB; ms per step "
+              f"{[round(t * 1e3, 1) for t in res['step_s']]} (host clock)")
+        check(res["launches"] == want, f"{label} rank {r}: launches")
+        check(res["param_bytes"] == predicted_bytes,
+              f"{label} rank {r}: weight bytes differ from the dry-run's")
+        check_alloc(f"{label} rank {r}", res["param_bytes"],
+                    res["alloc_bytes"])
+    r0 = ranks[0]
+    check(all(res["losses"] == r0["losses"] for res in ranks),
+          f"{label}: the ranks' losses differ")
+    fl = TRAIN_MESH_FLOORS
+    rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"])]
+    norm = abs(r0["grad_norms"][0] - ref["grad_norms"][0]) / \
+        ref["grad_norms"][0]
+    errs, coss = [], []
+    for a, b in zip(mods_leaves(r0["grads"][0]), mods_leaves(ref["grads"][0])):
+        a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
+        errs.append(float(np.abs(a - b).max() / np.abs(b).max()))
+        coss.append(float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))))
+    print(f"  {label}: losses {r0['losses']} (one rank {ref['losses']}; "
+          f"relative {[f'{x:.2e}' for x in rel]}, floors {fl['loss']} and, "
+          f"after the first update, {fl['loss_after']}); grad norms "
+          f"{r0['grad_norms']} (one rank {ref['grad_norms']}; the first "
+          f"step's relative {norm:.2e}, floor {fl['norm']}); the first "
+          f"step's gradient leaves: worst max error {max(errs):.2e} of the "
+          f"leaf's largest (floor {fl['grads']}), worst cosine "
+          f"{min(coss):.6f} (floor {fl['cos']})")
+    check(rel[0] <= fl["loss"] and all(x <= fl["loss_after"] for x in rel)
+          and norm <= fl["norm"] and max(errs) <= fl["grads"]
+          and min(coss) >= fl["cos"], f"{label}: below its floors")
+
+
+def phase_train_mesh(torch, mods, header, lkv=None,
+                     device: str = "cuda") -> dict:
+    """Phase 8: the lookahead-module trainer under a mesh, its ranks
+    spawned as processes that share cuda:0 and gather through the host
+    over gloo (``train.train_shard``); correctness, launches and bytes,
+    not tensor-parallel speed.
+
+    8a: the CPU test's eight cases (``TRAIN_MESH_SMOKE``) in float32 at
+    smoke width, one step each, held to the one-rank step on the card
+    (``hold_train_step``).  8b: llama3-8b at full width and depth on (1,
+    2), two steps of ``ONLINE``'s shape (B 1) from ``lkv`` (5b's trained
+    modules; the seeded draw with its LoRA ``b`` drawn when phase 8 runs
+    alone); 8c: at 4 of 32 layers on (2, 2) with ZeRO storage, B 2.  Each
+    held to the one-rank run of the same job (``hold_train_cell``).  The
+    one-rank runs go first, in this process; then one world of 4 (8a's
+    4-rank cases, 8c) and one of 2 (8a's 2-rank cases, 8b).  Returns rank
+    0's launches: {"8a (1, 4)", "8b", "8c"}."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    train, dryrun = mods["train"], mods["dryrun"]
+    full = mods["configs"].get_config("llama3-8b")
+    if lkv is None:
+        lkv = _draw_b(mods["lookahead"].init_lookahead_params(
+            torch.Generator().manual_seed(SEED + 1), full,
+            mods["tf"].init_params(full, device="meta")["layers"]),
+            __import__("numpy").random.default_rng(5))
+    models = {arch: train_smoke_model(torch, mods, arch)
+              for arch in ("llama3-8b", "deepseek-moe-16b", "gemma3-1b")}
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        def ck(name):
+            return str(Path(tmp) / f"{name}.npz")
+
+        jobs = {c[0]: train_smoke_job(models[c[1]], c[2], c[3], c[4],
+                                      ck(f"s{i}"), device)
+                for i, c in enumerate(TRAIN_MESH_SMOKE)}
+        jobs.update({cell: train_cell_job(mods, cell, lkv, ck(cell), device)
+                     for cell in TRAIN_MESH_CELLS})
+        header("phase 8a-8c: the one-rank runs on the card (8a's eight "
+               "smoke steps, 8b's and 8c's two steps)")
+        refs = {}
+        for name, job in jobs.items():
+            one = dict(job, ckpt=ck(f"one {name}"))
+            refs[name] = train._to_host(train.train_job(one, device=device))
+            gc.collect()
+            if device != "cpu":
+                torch.cuda.empty_cache()
+        worlds = {}
+        for n in (4, 2):
+            names = [c[0] for c in TRAIN_MESH_SMOKE
+                     if math.prod(c[2]) == n]
+            names += [c for c, spec in TRAIN_MESH_CELLS.items()
+                      if math.prod(spec[0]) == n]
+            header(f"phase 8: a world of {n} gloo ranks on {device}: "
+                   + ", ".join(names))
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as wd:
+                res = mods["mesh"].spawn_ranks(
+                    mods["mesh"].run_jobs, n,
+                    ([(train.train_shard, jobs[k]) for k in names],),
+                    init_file=str(Path(wd) / "store"), backend="gloo",
+                    timeout_s=300.0, join_s=600.0)
+            print(f"  the world of {n}: {time.perf_counter() - t0:.1f} s "
+                  "(wall, process starts included)")
+            for i, k in enumerate(names):
+                worlds[k] = [res[r][i] for r in range(n)]
+        header("phase 8a: the CPU test's meshes at smoke width against the "
+               "one-rank step on the card (float32)")
+        for name, arch, sizes, zero, distill in TRAIN_MESH_SMOKE:
+            hold_train_step(name, worlds[name], refs[name],
+                            TRAIN_MESH_SMOKE_TOL, SMOKE_LR)
+            L = models[arch]["cfg"].num_layers
+            want = {k: 0 for k in worlds[name][0]["launches"]}
+            if not distill:
+                want.update(flash_attention=L, lookahead_score=L)
+            for r, res in enumerate(worlds[name]):
+                check(res["launches"] == want or device == "cpu",
+                      f"8a {name} rank {r}: launches {res['launches']}, "
+                      f"expected {want}")
+        out["8a (1, 4)"] = worlds["llama (1, 4)"][0]["launches"]
+        for cell, (sizes, layers, _) in TRAIN_MESH_CELLS.items():
+            header(f"phase {cell}: llama3-8b at full width, {layers} layers, "
+                   f"on {sizes} against one rank (bf16)")
+            cfg = dataclasses.replace(full, num_layers=layers)
+            names = ("data", "model") if len(sizes) == 2 else (
+                "pod", "data", "model")
+            mesh = mods["mesh"].Mesh(names, sizes)
+            predicted = dryrun._param_layouts(cfg, mesh, 0, serving=True)[
+                1]["param_bytes_per_rank"]
+            hold_train_cell(cell, worlds[cell], refs[cell], cfg, predicted)
+            out[cell] = worlds[cell][0]["launches"]
+    return out
 
 
 def load_modules(torch) -> dict:
@@ -6298,7 +6641,7 @@ def main() -> None:
     phase_moe_vlm_cells(torch, mods, header, counts)
     whisper = phase_whisper(torch, mods, header)
     torch.cuda.empty_cache()
-    phase_learning_loop(torch, mods, header)
+    trained_lkv = phase_learning_loop(torch, mods, header)
     header("phase 6: tensor-parallel serving, ranks sharing cuda:0 over "
            "gloo (6a smoke exactness at 2 and 4 ranks; 6b llama3-8b full "
            "width on 2 ranks; 6c 8 layers on 4 ranks, h2o)")
@@ -6311,6 +6654,10 @@ def main() -> None:
     tp.update(phase_tp_mesh(torch, mods))
     torch.cuda.empty_cache()
     split_counts = phase_split_decode(torch, mods, header)
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    train_counts = phase_train_mesh(torch, mods, header, trained_lkv)
+    print(f"phase 8: {time.perf_counter() - t8:.1f} s")
     # launches on the main path: kernels 1, 3, 4 from the paged route,
     # kernels 7 and 6 from the lockstep route, kernel 5 from the
     # decode-eviction route, kernel 2 from the h2o route, kernel 8 from
@@ -6321,6 +6668,14 @@ def main() -> None:
                 "chunk_attention_masses": "paged continuous h2o",
                 "ssd_scan": "hybrid lockstep"}
     for k in kernels:
+        if k["name"].endswith(" gt"):  # phase 8's GT pass, rank 0
+            # 8b's full-width (1, 2) ranks at (16, 4); the (8, 2) of a
+            # model axis of 4 only in 8a's (1, 4) smoke step
+            cell = "8b" if " tp2 " in k["name"] else "8a (1, 4)"
+            k["launches"] = train_counts[cell][k["name"].split()[0]]
+            check(k["launches"] > 0, f"{k['name']}: never launched in "
+                  "phase 8")
+            continue
         if k["name"] == "decode_attention_stats":  # 7a's split decode
             k["launches"] = split_counts[k["name"]]
             continue

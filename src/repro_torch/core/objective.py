@@ -10,6 +10,11 @@ One training iteration:
 
 Only ``lkv_params`` receive gradients; the model tree is a constant.
 
+Over a mesh (``mesh=``, the trainer's ranks: ``launch/steps.py``) each
+function runs on the rank's shard of the model and its data row's batch
+rows (``transformer.prefill(mesh=)``); the scores come back whole over
+heads, and the loss is the data row's.
+
 Dispatch: the GT pass runs under ``torch.no_grad()`` through the normal
 device dispatch, so on the card it runs kernels 7 and 3 (the JAX package
 traces it under ``reference_mode()`` only because ``jax.value_and_grad``
@@ -52,6 +57,7 @@ def gt_scores(
     *,
     encoder_embeds: Optional[torch.Tensor] = None,
     mrope_positions: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Ground-truth per-head scores (L, B, H, n_in), float32, without a
     gradient: kernels 7 and 3 on the card."""
@@ -59,7 +65,7 @@ def gt_scores(
         res = tf.prefill(
             params, cfg, xy_tokens, capture_scores=True, gt_boundary=n_in,
             want_logits="none", encoder_embeds=encoder_embeds,
-            mrope_positions=mrope_positions)
+            mrope_positions=mrope_positions, mesh=mesh)
     return res.scores
 
 
@@ -71,6 +77,7 @@ def lookahead_scores(
     *,
     encoder_embeds: Optional[torch.Tensor] = None,
     mrope_positions: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Lookahead-estimated per-head scores (L, B, H, n_in), differentiable
     with respect to ``lkv_params``: the plain versions on every device
@@ -79,7 +86,8 @@ def lookahead_scores(
         res = tf.prefill(
             params, cfg, x_tokens, lkv_params=lkv_params,
             capture_scores=True, want_logits="none",
-            encoder_embeds=encoder_embeds, mrope_positions=mrope_positions)
+            encoder_embeds=encoder_embeds, mrope_positions=mrope_positions,
+            mesh=mesh)
     return res.scores
 
 

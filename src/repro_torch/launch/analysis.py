@@ -13,9 +13,10 @@ torch counterpart; their places are taken by:
   matmul-like op counted, loops unrolled as the Python runs them);
 * ``collective_bytes`` for ``collective_bytes`` /
   ``collective_bytes_with_loops``: the step run on one rank's meta
-  shards with the port's two collectives (``attention.all_gather``,
+  shards with the port's two transports (``attention.all_gather_raw``,
   ``attention.all_reduce``) replaced by counters, so every gather and
-  merge the step makes over the mesh is counted, layers included;
+  merge the step makes over the mesh is counted, layers included, and
+  the backward's all-reduces of a training step too;
 * ``memory_dict`` for ``memory_analysis_dict``: argument and output
   bytes per rank from the tensors the rank holds (torch has no compiled
   buffer plan, so there are no temporaries);
@@ -390,11 +391,11 @@ def collective_bytes():
         counts["all-reduce"] += 1
         return torch.empty_like(x)
 
-    saved = attn_mod.all_gather, attn_mod.all_reduce
-    attn_mod.all_gather, attn_mod.all_reduce = gather, reduce
+    saved = attn_mod.all_gather_raw, attn_mod.all_reduce
+    attn_mod.all_gather_raw, attn_mod.all_reduce = gather, reduce
     try:
         yield out
     finally:
-        attn_mod.all_gather, attn_mod.all_reduce = saved
+        attn_mod.all_gather_raw, attn_mod.all_reduce = saved
         out["total"] = out["all-gather"] + out["all-reduce"]
         out["counts"] = counts

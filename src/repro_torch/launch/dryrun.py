@@ -12,19 +12,21 @@ nothing, so here each step runs once on meta tensors (shapes only):
 * globally, under ``FlopCounterMode``: the FLOP count of the whole step
   (``analysis.meta_flops``);
 * as one rank of the mesh (rank 0), on its shards in the layout the port
-  runs (``sharding.serving_specs`` for the weights of prefill and
-  decode, ``serving_cache_specs`` for the decode cache; ``param_specs``
-  for training, the layout of ROADMAP A item 3), with the port's
+  runs (``sharding.serving_specs`` for the weights,
+  ``serving_cache_specs`` for the decode cache), with the port's
   collectives counted (``analysis.collective_bytes``): the bytes each
-  gather and merge of the step moves, and the rank's argument and output
+  gather and merge of the step moves (for training: the two passes'
+  gathers, the backward's all-reduces over "model" and the gradient's
+  all-reduce over the batch axes), and the rank's argument and output
   bytes (``analysis.memory_dict``).
 
 Per combination it writes JSON with the same file name as the JAX
 dry-run's: status, chips, memory per rank, the global FLOP count, the
 analytic components and their per-rank fold, the component/counted FLOP
 ratio, collectives, the roofline terms on the H100's constants, params
-and active params.  Training has no mesh yet (ROADMAP A11), so its
-collectives are null with that reason; the (arch, train) pairs the port
+and active params.  A step the port runs on one device only has its
+collectives null with the reason (``Built.no_route``: the LM variant of
+training, the monolithic prefills); the (arch, train) pairs the port
 cannot train yet are ``"refused"`` with the trainer's message.
 """
 
@@ -61,7 +63,7 @@ def counting_mesh(mesh: Mesh, rank: int = 0) -> Mesh:
     """``mesh``'s shape as global rank ``rank`` of a world whose
     collectives ``analysis.collective_bytes`` counts."""
     return Mesh(mesh.axis_names, mesh.axis_sizes, _COUNTED, rank,
-                data_group=_COUNTED, world=_COUNTED)
+                data_group=_COUNTED, world=_COUNTED, batch_group=_COUNTED)
 
 
 def _v_moe_sparse(cfg):
@@ -177,20 +179,27 @@ def build(arch: str, shape_name: str, mesh: Mesh, variant: str = "",
         bs = steps.train_batch_shapes(cfg, shape)
         bs.pop("n_in"), bs.pop("n_out")
         params = tf.init_params(cfg, device=META)
-        mine, layout = _param_layouts(cfg, mesh, rank, serving=False,
-                                      embed_replicated=dp_all)
+        mine, layout = _param_layouts(cfg, mesh, rank, serving=True)
         local_b = sh.shard_tree(bs, batch_specs(
             mesh, bs, shape.global_batch, dp_all), mesh, rank)
         tokens = shape.global_batch * shape.seq_len
-        if cfg.technique_applies:
-            lkv = meta_lkv(cfg, params)
-            args = (params, lkv, adam.init(lkv), bs)
-            rank_args = (mine, lkv, adam.init(lkv), local_b)
+        if not cfg.technique_applies:
+            return Built(fn, (params, adam.init(params), bs), tokens,
+                         rank_args=(mine, adam.init(mine), local_b),
+                         layout=layout, no_route=(
+                             f"{cfg.name} trains the LM variant, which has "
+                             "no launcher route and takes no mesh"))
+        lkv = meta_lkv(cfg, params)
+        built = Built(fn, (params, lkv, adam.init(lkv), bs), tokens,
+                      rank_args=(mine, lkv, adam.init(lkv), local_b),
+                      layout=layout)
+        if dp_all:
+            built.no_route = ("the port's trainer shards the batch over "
+                              "the batch axes only, not over (data, model)")
         else:
-            args = (params, adam.init(params), bs)
-            rank_args = (mine, adam.init(mine), local_b)
-        return Built(fn, args, tokens, rank_args=rank_args, layout=layout,
-                     no_route="the trainer has no mesh yet (ROADMAP A11)")
+            built.rank_fn = steps.make_train_step(cfg, TrainConfig(),
+                                                  mesh=cm)
+        return built
 
     mine, layout = _param_layouts(cfg, mesh, rank, serving=True)
     params = tf.init_params(cfg, device=META)

@@ -5,19 +5,25 @@ model functions read: its axis names, its shape, and, for a mesh over an
 initialised process group, this process's rank, the process group of its
 "model" axis (the ranks of its data row, which hold the other shards of
 its model), the process group of its "data" axis (the ranks of its model
-column, which hold the same model shard) and the world.  A shape-only
-mesh (no group) feeds the sharding rules and nothing else.
+column within its pod, which hold the same model shard and the other
+ZeRO slices of it), the process group of its batch axes (its model
+column across every pod and data row: the ranks whose batch rows the
+gradient is averaged over) and the world.  A shape-only mesh (no group)
+feeds the sharding rules and nothing else.
 
 Ranks lie on the mesh row-major, as ``jax.make_mesh`` lays devices out:
-rank ``r`` sits at data row ``r // model`` and model column ``r % model``.
+rank ``r`` sits at batch row ``r // model`` (pod ``r // (data * model)``,
+data row ``(r // model) % data``) and model column ``r % model``.
 
 * ``make_production_mesh(multi_pod=)``: the JAX package's TPU v5e shapes,
   (16, 16) over ("data", "model") or (2, 16, 16) over ("pod", "data",
-  "model"), shape only.
+  "model"); shape only, or with ``over_world`` over an initialised world
+  of 256 or 512 ranks (``torchrun``: initialised from the environment).
+* ``make_mesh(sizes)``: a ("data", "model") or ("pod", "data", "model")
+  mesh of those sizes over the initialised world.
 * ``make_host_mesh(model)``: the ("data", "model") mesh over the
-  initialised world (data = world // model), with every data row's
-  model-axis group and every model column's data-axis group; a single
-  process without a process group is a world of one.
+  initialised world (data = world // model); a single process without a
+  process group is a world of one.
 * ``spawn_ranks(fn, n, args)``: a world of ``n`` spawned processes, each
   with its process group initialised, running ``fn(rank, *args)``;
   returns their results in rank order and raises if any rank failed or
@@ -43,9 +49,11 @@ import torch.multiprocessing as mp
 @dataclass(frozen=True, eq=False)
 class Mesh:
     """Named mesh axes; ``group`` is this rank's "model"-axis process
-    group, ``data_group`` its "data"-axis group and ``world`` the whole
-    world's (each None on a shape-only mesh, and an axis's group None
-    where the axis has size 1), ``rank`` its global rank."""
+    group, ``data_group`` its "data"-axis group, ``batch_group`` the group
+    of its batch axes (``data_axes``; the data group itself without a
+    "pod" axis) and ``world`` the whole world's (each None on a
+    shape-only mesh, and an axis's group None where the axis has size 1),
+    ``rank`` its global rank."""
 
     axis_names: tuple
     axis_sizes: tuple
@@ -53,6 +61,7 @@ class Mesh:
     rank: int = 0
     data_group: Optional[Any] = None
     world: Optional[Any] = None
+    batch_group: Optional[Any] = None
 
     @property
     def shape(self) -> dict:
@@ -73,45 +82,99 @@ class Mesh:
 
     @property
     def data_index(self) -> int:
-        """This rank's place on the "data" axis: its data row."""
+        """This rank's batch row: its place on the batch axes (``pod *
+        data + data row``), which batch rows it takes."""
         return self.rank // self.shape.get("model", 1)
+
+    @property
+    def batch_size(self) -> int:
+        """The number of batch rows: the product of the batch axes."""
+        return self.size // self.shape.get("model", 1)
 
     def axis_group(self, axis: str):
         """The process group of ``axis`` ("model" or "data")."""
         return self.group if axis == "model" else self.data_group
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    if multi_pod:
-        return Mesh(("pod", "data", "model"), (2, 16, 16))
-    return Mesh(("data", "model"), (16, 16))
+#: the JAX package's production meshes (TPU v5e pods): shape, axis names
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
-def make_host_mesh(model: int = 1) -> Mesh:
-    """The ("data", "model") mesh over every rank of the initialised
-    world: each data row's ``model`` ranks one model-axis group, each
-    model column's ``world // model`` ranks one data-axis group.  Every
-    rank creates every group, rows first, then columns, in the same
-    order (``dist.new_group`` requires it; a rank that did otherwise
-    would wait at the group's timeout)."""
+def make_production_mesh(*, multi_pod: bool = False,
+                         over_world: bool = False) -> Mesh:
+    """The JAX package's production mesh: shape only, or with
+    ``over_world`` over the initialised world (``torchrun``'s ranks: the
+    process group is initialised from the environment where it is not
+    yet), which must hold its 256 or 512 ranks; a world of another size
+    raises ``ValueError`` naming the count it needs, as ``jax.make_mesh``
+    fails with too few devices."""
+    sizes, names = PRODUCTION[multi_pod]
+    if not over_world:
+        return Mesh(names, sizes)
+    init_from_env()
+    need = 1
+    for s in sizes:
+        need *= s
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != need:
+        raise ValueError(
+            f"the {'multipod' if multi_pod else 'pod'} mesh {sizes} over "
+            f"{names} needs a world of {need} ranks (torchrun "
+            f"--nproc-per-node ...); this world has {world}")
+    return make_mesh(sizes)
+
+
+def init_from_env(backend: Optional[str] = None) -> None:
+    """Initialise the default process group from ``torchrun``'s
+    environment (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``) unless it is initialised already or there is no such
+    environment: NCCL when every local rank has a card of its own, else
+    gloo."""
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return
+    if backend is None:
+        import torch
+
+        local = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                   os.environ["WORLD_SIZE"]))
+        backend = ("nccl" if torch.cuda.is_available()
+                   and torch.cuda.device_count() >= local else "gloo")
+    dist.init_process_group(backend, init_method="env://")
+
+
+def make_mesh(sizes: tuple) -> Mesh:
+    """The mesh of ``sizes`` over every rank of the initialised world:
+    ("data", "model") for two sizes, ("pod", "data", "model") for three.
+    Every rank creates every group in the same order (``dist.new_group``
+    requires it; a rank that did otherwise would wait at the group's
+    timeout): the model-axis groups (one per batch row), then the
+    data-axis groups (one per pod and model column), then, with a pod
+    axis above 1, the batch groups (one per model column).  A single
+    process without a process group is a world of one."""
+    sizes = tuple(int(s) for s in sizes)
+    if len(sizes) not in (2, 3):
+        raise ValueError(f"a mesh of 2 or 3 axes, not {sizes}")
+    names = ("data", "model") if len(sizes) == 2 else ("pod", "data",
+                                                        "model")
+    pods, data, model = (1,) * (3 - len(sizes)) + sizes
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
-    if model <= 0 or world % model:
-        raise ValueError(f"--mesh-model {model} does not divide the "
-                         f"{world} ranks of the world")
-    data = world // model
+    if world != pods * data * model:
+        raise ValueError(f"the mesh {sizes} over {names} needs "
+                         f"{pods * data * model} ranks; this world has "
+                         f"{world}")
     if not dist.is_initialized():
-        return Mesh(("data", "model"), (data, model), None, rank)
+        return Mesh(names, sizes, None, rank)
     everyone = dist.group.WORLD
 
-    def groups(n_groups: int, members) -> Optional[Any]:
-        """One group per index, this rank's returned; the world itself
-        for one group, None for groups of one rank."""
-        if n_groups == 1:
+    def groups(all_ranks: list) -> Optional[Any]:
+        """One group per member list, this rank's returned; the world
+        itself for one group, None for groups of one rank."""
+        if len(all_ranks) == 1:
             return everyone
         mine = None
-        for i in range(n_groups):
-            ranks = members(i)
+        for ranks in all_ranks:
             if len(ranks) == 1:
                 continue
             g = dist.new_group(ranks)
@@ -119,11 +182,29 @@ def make_host_mesh(model: int = 1) -> Mesh:
                 mine = g
         return mine
 
-    group = groups(data, lambda row: list(range(row * model,
-                                                (row + 1) * model)))
-    data_group = groups(model, lambda col: list(range(col, world, model)))
-    return Mesh(("data", "model"), (data, model), group, rank,
-                data_group=data_group, world=everyone)
+    rows = pods * data
+    group = groups([list(range(r * model, (r + 1) * model))
+                    for r in range(rows)])
+    data_group = groups([[(p * data + d) * model + c for d in range(data)]
+                         for p in range(pods) for c in range(model)])
+    batch_group = data_group
+    if pods > 1:
+        batch_group = groups([list(range(c, world, model))
+                              for c in range(model)])
+    return Mesh(names, sizes, group, rank, data_group=data_group,
+                world=everyone, batch_group=batch_group)
+
+
+def make_host_mesh(model: int = 1) -> Mesh:
+    """The ("data", "model") mesh over every rank of the initialised
+    world: each data row's ``model`` ranks one model-axis group, each
+    model column's ``world // model`` ranks one data-axis group
+    (``make_mesh``)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if model <= 0 or world % model:
+        raise ValueError(f"--mesh-model {model} does not divide the "
+                         f"{world} ranks of the world")
+    return make_mesh((world // model, model))
 
 
 def data_axes(mesh: Mesh) -> tuple:

@@ -7,6 +7,9 @@
                         to.
 * ``make_distill_step`` the same against harvested gt targets
                         (``data/harvest.py``): only the lookahead pass.
+                        Both take a ``mesh``: the rank's shard, its data
+                        row's batch rows, the gradient averaged over the
+                        batch axes (``batch_mean``).
 * ``make_prefill_step`` serving prefill with in-pass lookaheadkv eviction
                         (plain forward + state cache for the SSM arch).
 * ``make_decode_step``  one token against a cache (dense, or the split
@@ -16,8 +19,9 @@
                         (``launch/dryrun.py``).
 
 Each step returns ``(trained tree, AdamState, loss, {"lr",
-"grad_norm"})``; the JAX steps return the first three and drop the
-optimizer's metrics.  Gradients come from ``torch.autograd.grad`` over
+"grad_norm"})``, the lookahead steps with "grads" too (the gradient Adam
+was given, before its clip); the JAX steps return the first three and
+drop the optimizer's metrics.  Gradients come from ``torch.autograd.grad`` over
 the trained tree's leaves (taken as fresh leaves that require a
 gradient), and Adam returns new trees instead of updating in place.
 The JAX module's abstract inputs are ``ShapeDtypeStruct``s; the port's
@@ -30,10 +34,13 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.common.config import (EvictionConfig, ModelConfig,
                                       ShapeConfig, TrainConfig)
+from repro_torch.common.sharding import mesh_signature
 from repro_torch.core import objective
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adam
 
@@ -89,6 +96,33 @@ def value_and_grad(loss_fn: Callable, tree: dict):
     return loss.detach(), _with_leaves(tree, grads)
 
 
+def _over_mesh(mesh) -> bool:
+    return mesh is not None and mesh_signature(mesh) is not None
+
+
+def batch_mean(loss: torch.Tensor, grads: dict, mesh) -> tuple:
+    """(loss, gradient tree) averaged over the mesh's batch axes: each
+    data row computed them over its own batch rows, so the global batch's
+    mean is the rows' mean (equal row counts), taken in one all-reduce
+    (SUM) of every leaf and the loss over the batch group, then scaled.
+    The model ranks of a row already hold the same whole gradient
+    (``models/attention.py``'s collectives), so nothing is summed over
+    "model".  As they are without a batch axis above 1."""
+    n = mesh.batch_size if _over_mesh(mesh) else 1
+    if n == 1:
+        return loss, grads
+    flat = adam.leaves(grads)
+    buf = torch.cat([loss.reshape(1).to(torch.float32)]
+                    + [g.reshape(-1).to(torch.float32) for g in flat])
+    buf = attn_mod.all_reduce(buf, dist.ReduceOp.SUM,
+                              mesh.batch_group) / n
+    out, at = [], 1
+    for g in flat:
+        out.append(buf[at:at + g.numel()].reshape(g.shape).to(g.dtype))
+        at += g.numel()
+    return buf[0].to(loss.dtype), _with_leaves(grads, iter(out))
+
+
 def _refuse_a10(cfg: ModelConfig) -> None:
     if cfg.embeds_in or cfg.is_encoder_decoder:
         raise NotImplementedError(
@@ -96,12 +130,46 @@ def _refuse_a10(cfg: ModelConfig) -> None:
             "encoder frames): ROADMAP A10")
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig):
+def make_lkv_grad(cfg: ModelConfig, mesh=None, *, distill: bool = False):
+    """(params, lkv, batch) -> (loss, gradient tree): the lookahead
+    modules' loss and gradient that ``make_train_step`` (``distill``:
+    ``make_distill_step``) hands to Adam, over ``mesh`` the global
+    batch's (``batch_mean``)."""
+    def grad(params, lkv, batch):
+        def loss_fn(lkv):
+            if distill:
+                loss, _ = objective.lkv_loss_from_targets(
+                    params, cfg, lkv, batch["x"], batch["s_gt"], mesh=mesh)
+            else:
+                loss, _ = objective.lkv_loss(
+                    params, cfg, lkv, batch["x"], batch["xy"],
+                    batch["x"].shape[1], mesh=mesh)
+            return loss
+
+        loss, grads = value_and_grad(loss_fn, lkv)
+        return batch_mean(loss, grads, mesh)
+
+    return grad
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
     """(params, lkv, opt_state, batch {"x", "xy"}) -> (lkv', opt_state',
     loss, metrics); for an arch the technique does not apply to, the LM
-    variant (params, opt_state, batch {"xy"}) -> (params', ...)."""
+    variant (params, opt_state, batch {"xy"}) -> (params', ...).
+
+    Over ``mesh`` (one rank: ``params`` its shard in ``serving_specs``'
+    layout, ``lkv`` and ``opt_state`` replicated, ``batch`` its data
+    row's rows) each data row takes ``kl.mean()`` over its own rows and
+    the gradient is averaged over the batch axes before ``adam.update``,
+    so the clip sees the global gradient's norm and every rank returns
+    the same modules, state and loss.  The LM variant has no launcher
+    route in either package and takes no mesh (``ValueError``)."""
     _refuse_a10(cfg)
     if not cfg.technique_applies:
+        if _over_mesh(mesh):
+            raise ValueError(
+                f"{cfg.name}: the LM variant (an arch the technique does "
+                "not apply to) has no launcher route and takes no mesh")
 
         def lm_step(params, opt_state, batch):
             loss, grads = value_and_grad(
@@ -112,37 +180,32 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
 
         return lm_step
 
-    def lkv_step(params, lkv, opt_state, batch):
-        def loss_fn(lkv):
-            loss, _ = objective.lkv_loss(params, cfg, lkv, batch["x"],
-                                         batch["xy"], batch["x"].shape[1])
-            return loss
+    grad = make_lkv_grad(cfg, mesh)
 
-        loss, grads = value_and_grad(loss_fn, lkv)
+    def lkv_step(params, lkv, opt_state, batch):
+        loss, grads = grad(params, lkv, batch)
         lkv, opt_state, metrics = adam.update(lkv, grads, opt_state, tc)
-        return lkv, opt_state, loss, metrics
+        return lkv, opt_state, loss, dict(metrics, grads=grads)
 
     return lkv_step
 
 
-def make_distill_step(cfg: ModelConfig, tc: TrainConfig):
+def make_distill_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
     """(params, lkv, opt_state, batch {"x": (B, n), "s_gt": (L, B, H, n)})
     -> (lkv', opt_state', loss, metrics) against harvested gt targets:
-    each step runs only the lookahead pass."""
+    each step runs only the lookahead pass.  Over ``mesh`` as
+    ``make_train_step``: ``batch`` holds the data row's rows of "x" and
+    of "s_gt"'s batch dim."""
     if not cfg.technique_applies:
         raise ValueError("distillation trains lookahead modules; "
                          f"{cfg.name} has none")
     _refuse_a10(cfg)
+    grad = make_lkv_grad(cfg, mesh, distill=True)
 
     def distill_step(params, lkv, opt_state, batch):
-        def loss_fn(lkv):
-            loss, _ = objective.lkv_loss_from_targets(
-                params, cfg, lkv, batch["x"], batch["s_gt"])
-            return loss
-
-        loss, grads = value_and_grad(loss_fn, lkv)
+        loss, grads = grad(params, lkv, batch)
         lkv, opt_state, metrics = adam.update(lkv, grads, opt_state, tc)
-        return lkv, opt_state, loss, metrics
+        return lkv, opt_state, loss, dict(metrics, grads=grads)
 
     return distill_step
 

@@ -1,4 +1,5 @@
-"""Training launcher of the port: LookaheadKV module training on one device.
+"""Training launcher of the port: LookaheadKV module training on one device
+or over a mesh of ranks.
 
     # on the CPU (the plain versions of the kernels), smoke width
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
@@ -6,6 +7,10 @@
     # on the card: llama3-8b at full width
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
         --steps 4 --batch 1 --n-in 1024 --n-out 64
+    # the production mesh: 256 ranks (512 with --mesh multipod) under
+    # torchrun, which initialises the process group from the environment
+    torchrun --nnodes 32 --nproc-per-node 8 ... -m repro_torch.launch.train \
+        --arch llama3-8b --mesh pod --batch 256
 
 Data sources:
 
@@ -21,14 +26,29 @@ through it) and the lookahead pass the plain versions under
 ``ops.reference_mode()`` (the kernels have no backward).  There is no
 fallback: ``--device cuda`` (the default) without a card raises.
 
+Meshes: ``--mesh host`` is one process (the JAX trainer's host mesh on
+one device).  ``--mesh pod|multipod`` is the JAX package's (16, 16) or
+(2, 16, 16) mesh over a world of 256 or 512 ranks; a world of another
+size raises ``ValueError`` naming the count.  ``train_shard`` runs one
+rank of any mesh for ``launch/mesh.py::spawn_ranks``.  Each rank builds
+only its shard of the frozen model (``sharding.serving_specs``' layout,
+the one-rank tree's values) and the same modules as every other rank,
+takes its data row's contiguous rows of the global batch (the JAX
+trainer's ``P(dp, None)``; harvested ``s_gt`` on its batch dim,
+``P(None, dp)``) and steps with the gradient averaged over the batch axes
+(``steps.make_train_step(mesh=)``), so every rank returns the same losses
+and modules.  A global batch the batch axes do not divide raises.
+
 Checkpointing: ``--ckpt-every N`` writes the trainer state ``{"lkv",
 "opt"}`` (modules + AdamState) every N steps; ``--resume`` picks up from
 the last save (step count, optimizer moments and data stream position all
-continue, so a killed run replays bit for bit).  The files are the JAX
-package's layout (``checkpoint/io.py``): either package loads the other's.
-``--verify`` turns the run into the train-smoke gate: the loss must
-decrease and the final checkpoint must round-trip bit-exactly.  There is
-no device mesh: ``--mesh pod|multipod`` raises (ROADMAP A11).
+continue, so a killed run replays bit for bit).  Over a mesh rank 0
+writes and the ranks meet at a barrier; every rank resumes from the file.
+The files are the JAX package's layout (``checkpoint/io.py``): either
+package loads the other's, and a checkpoint written under a mesh is the
+one-process trainer's.  ``--verify`` turns the run into the train-smoke
+gate (on rank 0 over a mesh): the loss must decrease and the final
+checkpoint must round-trip bit-exactly.
 """
 
 from __future__ import annotations
@@ -39,13 +59,20 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import bridge
 from repro_torch.checkpoint import io as ckpt
 from repro_torch.common.config import TrainConfig
+from repro_torch.common.sharding import mesh_signature
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.lookahead import init_lookahead_params
 from repro_torch.data import harvest, synthetic
+from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch import serve
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.analysis import tensor_bytes
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adam
 
@@ -54,7 +81,7 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
 
 
-def main(argv=None) -> dict:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--smoke", action="store_true")
@@ -84,105 +111,230 @@ def main(argv=None) -> dict:
     # steps, as if the process died mid-run
     ap.add_argument("--stop-after", type=int, default=0,
                     help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if not cfg.technique_applies:
         raise SystemExit(f"{args.arch}: technique inapplicable (no "
                          "lookahead modules to train)")
-    if args.mesh != "host":
-        raise NotImplementedError(f"--mesh {args.mesh}: not ported yet: a "
-                                  "device mesh: ROADMAP A11")
-    dev = torch.device(args.device)
+    job = dict(cfg=cfg, device=args.device, steps=args.steps,
+               batch=args.batch, n_in=args.n_in, n_out=args.n_out,
+               lr=args.lr, ckpt=args.ckpt, seed=args.seed,
+               harvest=args.harvest, ckpt_every=args.ckpt_every,
+               resume=args.resume, verify=args.verify,
+               stop_after=args.stop_after)
+    if args.mesh == "host":
+        return train_job(job)
+    mesh = mesh_mod.make_production_mesh(multi_pod=args.mesh == "multipod",
+                                         over_world=True)
+    device = args.device
+    if torch.device(device).type == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(device)
+    return train_job(job, mesh=mesh, device=device)
+
+
+def train_shard(rank: int, job: dict) -> dict:
+    """One rank of ``train_job`` for ``launch/mesh.py::spawn_ranks`` /
+    ``run_jobs``: the mesh of ``job["mesh"]`` (its sizes: ("data",
+    "model") or ("pod", "data", "model")) over the world, on the rank's
+    device (``serve.rank_device``).  The result's tensors come back as
+    numpy arrays (the AdamState as {"step", "mu", "nu"})."""
+    n = dist.get_world_size()
+    mesh = mesh_mod.make_mesh(tuple(job["mesh"]))
+    res = train_job(job, mesh=mesh,
+                    device=serve.rank_device(job["device"], rank, n))
+    return _to_host(res)
+
+
+def _to_host(tree):
+    if isinstance(tree, adam.AdamState):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_host(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+def _rows(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This rank's data row's contiguous rows of the global batch along
+    ``dim``."""
+    n = mesh.batch_size
+    if x.shape[dim] % n:
+        raise ValueError(f"a global batch of {x.shape[dim]} does not "
+                         f"divide the {n} rows of the batch axes "
+                         f"{mesh_mod.data_axes(mesh)}")
+    w = x.shape[dim] // n
+    return x.narrow(dim, mesh.data_index * w, w)
+
+
+def train_job(job: dict, *, mesh=None, device=None) -> dict:
+    """Train the lookahead modules in this process, one device or one rank
+    of ``mesh``.  ``job`` holds "cfg", "device", "steps", "batch" (the
+    global batch), "n_in", "n_out", "lr", "ckpt", "seed" and optionally
+    "harvest", "ckpt_every", "resume", "verify", "stop_after" (the
+    launcher's flags), the weights as the JAX package's numpy trees
+    "params" / "lkv" (``bridge``; else drawn from the seed, the modules
+    from ``seed + 1``), "batches" (global batches of numpy arrays, {"x",
+    "xy"} or {"x", "s_gt"}, in place of the data source) and
+    "return_grads" (keep each step's gradient, averaged over the batch
+    axes, as the step gave it to Adam).  Returns the losses,
+    gradient norms, seconds per step, the final modules and AdamState,
+    the checkpoint and step, the kernel launches of the steps, the peak
+    device bytes, the bytes of the rank's weights and, on the card, the
+    caching allocator's rise while they were built."""
+    cfg = job["cfg"]
+    dev = torch.device(device or job["device"])
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a card "
                            "(torch.cuda.is_available() is False); pass "
                            "--device cpu to train on the CPU")
-    tc = TrainConfig(steps=args.steps, lr=args.lr, batch_size=args.batch,
-                     n_in=args.n_in, n_out=args.n_out, seed=args.seed)
-
-    params = tf.init_params(cfg, seed=args.seed, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    lkv = init_lookahead_params(gen, cfg, params["layers"])
+    steps = job["steps"]
+    tc = TrainConfig(steps=steps, lr=job["lr"], batch_size=job["batch"],
+                     n_in=job["n_in"], n_out=job["n_out"], seed=job["seed"])
+    harvest_dir = job.get("harvest", "")
+    ckpt_path = job["ckpt"]
+    rank0 = mesh is None or mesh.rank == 0
+    before = serve.requested_bytes(dev)
+    params = serve.job_params(job, cfg, mesh, dev)
+    alloc = None if before is None else serve.requested_bytes(dev) - before
+    if job.get("lkv") is not None:
+        lkv = bridge.to_torch(job["lkv"], device=dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(job["seed"] + 1)
+        lkv = init_lookahead_params(
+            gen, cfg, tf.init_params(cfg, device="meta")["layers"],
+            device=dev)
     opt = adam.init(lkv)
 
     start = 0
-    if args.resume and os.path.exists(args.ckpt):
-        state = ckpt.load(args.ckpt, like={"lkv": lkv, "opt": opt},
+    if job.get("resume") and os.path.exists(ckpt_path):
+        state = ckpt.load(ckpt_path, like={"lkv": lkv, "opt": opt},
                           device=dev)
         lkv, opt = state["lkv"], state["opt"]
-        start = int(ckpt.metadata(args.ckpt).get("step", 0))
-        print(f"resumed {args.ckpt} at step {start}", flush=True)
+        start = int(ckpt.metadata(ckpt_path).get("step", 0))
+        if rank0:
+            print(f"resumed {ckpt_path} at step {start}", flush=True)
 
-    if args.harvest:
-        it = harvest.HarvestIterator(args.harvest, args.batch,
-                                     seed=args.seed)
-        step_fn = steps_mod.make_distill_step(cfg, tc)
+    if job.get("batches") is not None:
+        it = iter(job["batches"])
+    elif harvest_dir:
+        it = harvest.HarvestIterator(harvest_dir, job["batch"],
+                                     seed=job["seed"])
     else:
-        it = synthetic.MixtureIterator(cfg, args.batch, args.n_in,
-                                       args.n_out, seed=args.seed)
-        step_fn = steps_mod.make_train_step(cfg, tc)
+        it = synthetic.MixtureIterator(cfg, job["batch"], job["n_in"],
+                                       job["n_out"], seed=job["seed"])
+    distill = bool(harvest_dir) or (job.get("batches") is not None
+                                    and "s_gt" in job["batches"][0])
+    make = steps_mod.make_distill_step if distill else \
+        steps_mod.make_train_step
+    step_fn = make(cfg, tc, mesh=mesh)
     # both iterators are pure functions of (seed, draw index), so the
     # resumed data stream continues exactly where the killed run left it
     for _ in range(start):
         next(it)
 
     def save_state(step: int) -> None:
-        ckpt.save(args.ckpt, {"lkv": lkv, "opt": opt},
-                  metadata={"arch": cfg.name, "step": step,
-                            "steps": args.steps,
-                            "source": args.harvest or "synthetic"})
+        if rank0:
+            ckpt.save(ckpt_path, {"lkv": lkv, "opt": opt},
+                      metadata={"arch": cfg.name, "step": step,
+                                "steps": steps,
+                                "source": harvest_dir or "synthetic"})
+        if mesh is not None and mesh.world is not None:
+            dist.barrier(group=mesh.world)
 
-    losses, grad_norms, step_s = [], [], []
-    t0 = time.time()
-    for i in range(start, args.steps):
-        b = next(it)
-        if args.harvest:
+    def local(b) -> dict:
+        """The step's batch on ``dev``: this data row's rows over a
+        mesh."""
+        if isinstance(b, dict) and "s_gt" in b:
             batch = {"x": torch.as_tensor(b["x"], device=dev),
                      "s_gt": torch.as_tensor(b["s_gt"], device=dev)}
+        elif isinstance(b, dict):
+            batch = {k: torch.as_tensor(b[k], device=dev)
+                     for k in ("x", "xy")}
         else:
             xy = np.concatenate([b.x, b.y], axis=1)
             batch = {"x": torch.as_tensor(b.x, device=dev),
                      "xy": torch.as_tensor(xy, device=dev)}
+        if mesh is not None and mesh_signature(mesh) is not None:
+            batch = {k: _rows(v, 1 if k == "s_gt" else 0, mesh)
+                     for k, v in batch.items()}
+        return batch
+
+    losses, grad_norms, step_s, grads = [], [], [], []
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.time()
+
+    def result(step: int) -> dict:
+        return {"losses": losses, "grad_norms": grad_norms,
+                "step_s": step_s, "ckpt": ckpt_path, "step": step,
+                "lkv": lkv, "opt": opt, "grads": grads,
+                "launches": ops.launch_counts(),
+                "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                               if on_card else None),
+                "param_bytes": tensor_bytes(params), "alloc_bytes": alloc,
+                "model_index": 0 if mesh is None else mesh.model_index,
+                "data_index": 0 if mesh is None else mesh.data_index}
+
+    for i in range(start, steps):
+        batch = local(next(it))
         t_step = time.perf_counter()
         lkv, opt, loss, metrics = step_fn(params, lkv, opt, batch)
         losses.append(float(loss))  # waits for the step
         grad_norms.append(float(metrics["grad_norm"]))
         step_s.append(time.perf_counter() - t_step)
-        if i % 10 == 0 or i == args.steps - 1:
+        if job.get("return_grads"):
+            grads.append(metrics["grads"])
+        if rank0 and (i % 10 == 0 or i == steps - 1):
             print(f"step {i:4d}  loss {losses[-1]:.4f}  grad norm "
                   f"{grad_norms[-1]:.4g}  ({time.time() - t0:.0f}s)",
                   flush=True)
-        if (args.ckpt_every and (i + 1) % args.ckpt_every == 0
-                and (i + 1) < args.steps):
+        if (job.get("ckpt_every") and (i + 1) % job["ckpt_every"] == 0
+                and (i + 1) < steps):
             save_state(i + 1)
-        if args.stop_after and (i + 1) >= args.stop_after:
-            print(f"stopped after step {i + 1} (simulated kill)")
-            return {"losses": losses, "grad_norms": grad_norms,
-                    "step_s": step_s, "ckpt": args.ckpt, "step": i + 1,
-                    "lkv": lkv, "opt": opt}
-    save_state(args.steps)
-    print(f"saved -> {args.ckpt}")
+        if job.get("stop_after") and (i + 1) >= job["stop_after"]:
+            if rank0:
+                print(f"stopped after step {i + 1} (simulated kill)")
+            return result(i + 1)
+    out = result(steps)
+    save_state(steps)
+    if rank0:
+        print(f"saved -> {ckpt_path}")
+    if job.get("verify") and rank0:
+        verify(losses, lkv, opt, ckpt_path, steps, dev)
+    return out
 
-    if args.verify:
-        if not (len(losses) >= 2 and min(losses[1:]) < losses[0]):
-            raise AssertionError(
-                f"train-smoke: loss did not decrease ({losses[0]:.4f} -> "
-                f"{min(losses[1:]):.4f})")
-        tree = {"lkv": lkv, "opt": opt}
-        back = ckpt.load(args.ckpt, like=tree, device=dev)
-        for a, b in zip(ckpt._flatten(tree).values(),
-                        ckpt._flatten(back).values()):
-            if a.dtype != b.dtype or not torch.equal(_bits(a), _bits(b)):
-                raise AssertionError("train-smoke: the checkpoint does not "
-                                     "round-trip bit-exactly")
-        meta = ckpt.metadata(args.ckpt)
-        if meta["step"] != args.steps:
-            raise AssertionError(f"train-smoke: checkpoint metadata {meta}")
-        print(f"train-smoke verdict: PASS (loss {losses[0]:.4f} -> "
-              f"{losses[-1]:.4f}, checkpoint round-trips bit-exactly)")
-    return {"losses": losses, "grad_norms": grad_norms, "step_s": step_s,
-            "ckpt": args.ckpt, "step": args.steps, "lkv": lkv, "opt": opt}
+
+def verify(losses: list, lkv: dict, opt, ckpt_path: str, steps: int,
+           dev) -> None:
+    """The train-smoke gate: the loss fell and the checkpoint round-trips
+    bit-exactly with the step count in its metadata."""
+    if not (len(losses) >= 2 and min(losses[1:]) < losses[0]):
+        raise AssertionError(
+            f"train-smoke: loss did not decrease ({losses[0]:.4f} -> "
+            f"{min(losses[1:]):.4f})")
+    tree = {"lkv": lkv, "opt": opt}
+    back = ckpt.load(ckpt_path, like=tree, device=dev)
+    for a, b in zip(ckpt._flatten(tree).values(),
+                    ckpt._flatten(back).values()):
+        if a.dtype != b.dtype or not torch.equal(_bits(a), _bits(b)):
+            raise AssertionError("train-smoke: the checkpoint does not "
+                                 "round-trip bit-exactly")
+    meta = ckpt.metadata(ckpt_path)
+    if meta["step"] != steps:
+        raise AssertionError(f"train-smoke: checkpoint metadata {meta}")
+    print(f"train-smoke verdict: PASS (loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, checkpoint round-trips bit-exactly)")
 
 
 if __name__ == "__main__":

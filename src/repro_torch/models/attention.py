@@ -51,7 +51,7 @@ def _lora_for(lora: Optional[dict], name: str) -> Optional[dict]:
 
 
 # ---------------------------------------------------------------------------
-# Tensor-parallel serving
+# Tensor parallelism
 # ---------------------------------------------------------------------------
 #
 # Over a mesh (``launch/mesh.py``) every rank runs the model functions on
@@ -64,6 +64,30 @@ def _lora_for(lora: Optional[dict], name: str) -> Optional[dict]:
 # input is sharded (the JAX helpers' ``all_gather`` inside ``shard_map``),
 # so no partial sum ever crosses ranks and the results are the
 # single-device ones bit for bit wherever a column slice of a product is.
+#
+# The trainer differentiates through this (the lookahead pass, with
+# respect to the replicated lookahead modules), so each crossing between
+# replicated and per-rank values has a conjugate backward:
+#
+# * per-rank -> replicated (``all_gather``): the backward is the rank's
+#   own slice of the incoming gradient, with no communication.  That
+#   gradient is the same on every model rank, because everything
+#   downstream of a gather is computed replicated and every replicated
+#   value's gradient is complete (next item).
+# * replicated -> per-rank (``enter_sharded``): the identity forward; the
+#   backward sums the ranks' partial gradients over the model group (an
+#   all-reduce), since each rank's product saw only its own columns.  It
+#   marks the input of ``qkv`` at the local heads, of ``wo``'s and of
+#   ``mlp.apply_sharded``'s column slices, and the replicated LoRA ``a``
+#   and ``b`` that ``local_lora`` hands to a column slice.
+#
+# So every replicated leaf (the lookahead rows ``emb`` and every LoRA
+# ``a`` / ``b``) gets its full gradient on every model rank.  Layers that
+# run whole on every rank (the MoE, heads that divide no model axis,
+# ``replicated_apply``) cross nothing and need no sum: a blanket
+# all-reduce of the gradients over "model" would count them N times.
+# ``all_reduce`` (partials merged by the split decode) and the frozen
+# weights' gathers (``transformer._layer_params``) carry no gradient.
 
 
 def model_shard_mesh(mesh, a: Optional[AttentionConfig]):
@@ -89,23 +113,22 @@ def local_config(cfg: ModelConfig, smesh) -> ModelConfig:
         a, num_heads=a.num_heads // n, num_kv_heads=a.num_kv_heads // n))
 
 
-def all_gather(x: torch.Tensor, dim: int, mesh,
-               axis: str = "model") -> torch.Tensor:
+def all_gather_raw(x: torch.Tensor, dim: int, mesh,
+                   axis: str = "model") -> torch.Tensor:
     """The ``axis`` ranks' ``x`` concatenated along ``dim`` in rank order
     (``jax.lax.all_gather(..., tiled=True)``): the model-axis ranks of
     this rank's data row, or with ``axis="data"`` the data-axis ranks of
     its model column.  Over NCCL (one card per rank)
     ``all_gather_into_tensor`` on the card; over gloo (ranks sharing a
-    card, or the CPU) through the host."""
-    import torch.distributed as dist
-
+    card, or the CPU) through the host.  No gradient: ``all_gather``
+    carries one."""
     group = mesh.axis_group(axis)
     if group is None:
         raise ValueError(f"no {axis}-axis ranks to gather from (a "
                          "shape-only mesh, or an axis of size 1)")
     n = int(mesh.shape[axis])
     if dist.get_backend(group) == "nccl":
-        xs = x.contiguous()
+        xs = x.detach().contiguous()
         out = torch.empty((n * xs.shape[0], *xs.shape[1:]), dtype=x.dtype,
                           device=x.device)
         dist.all_gather_into_tensor(out, xs, group=group)
@@ -120,6 +143,66 @@ def all_gather(x: torch.Tensor, dim: int, mesh,
     return torch.cat(parts.to(x.device).unbind(0), dim=dim)
 
 
+class _Gather(torch.autograd.Function):
+    """per-rank -> replicated: forward ``all_gather_raw``; backward the
+    rank's own slice of the (replicated) incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.n = dim % x.dim(), int(mesh.shape["model"])
+        ctx.index = mesh.model_index
+        return all_gather_raw(x, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = g.shape[ctx.dim] // ctx.n
+        return g.narrow(ctx.dim, ctx.index * w, w), None, None
+
+
+class _EnterSharded(torch.autograd.Function):
+    """replicated -> per-rank: the identity forward; backward the sum of
+    the model ranks' partial gradients (``all_reduce`` over the model
+    group)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), dist.ReduceOp.SUM,
+                          ctx.mesh.group), None
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def all_gather(x: torch.Tensor, dim: int, mesh,
+               axis: str = "model") -> torch.Tensor:
+    """``all_gather_raw``, differentiable over "model": where ``x`` takes
+    a gradient, the backward hands this rank its own slice of the
+    replicated result's gradient (no communication; module comment
+    above).  The data rows hold different batch rows, so a gather over
+    "data" carries no gradient and refuses one."""
+    if not _differentiable(x):
+        return all_gather_raw(x, dim, mesh, axis)
+    if axis != "model":
+        raise ValueError(f"a gather over {axis!r} carries no gradient")
+    return _Gather.apply(x, dim, mesh)
+
+
+def enter_sharded(x: torch.Tensor, smesh) -> torch.Tensor:
+    """A replicated ``x`` about to enter a rank's own share of a product
+    (its head or column slice): ``x`` itself, whose gradient is summed
+    over the model group in the backward.  ``x`` as it is without a
+    mesh or a gradient."""
+    if smesh is None or not _differentiable(x):
+        return x
+    return _EnterSharded.apply(x, smesh)
+
+
 def model_slice(x: torch.Tensor, smesh, dim: int = -1) -> torch.Tensor:
     """This rank's contiguous slice of a replicated tensor along ``dim``."""
     n = int(smesh.shape["model"])
@@ -132,7 +215,9 @@ def local_lora(lora: Optional[dict], smesh) -> Optional[dict]:
     A in full (the delta contracts the full input), B's local columns."""
     if lora is None or smesh is None:
         return lora
-    return {"a": lora["a"], "b": model_slice(lora["b"], smesh).contiguous()}
+    return {"a": enter_sharded(lora["a"], smesh),
+            "b": model_slice(enter_sharded(lora["b"], smesh),
+                             smesh).contiguous()}
 
 
 def replicated_apply(fn, smesh, *args):
@@ -154,7 +239,7 @@ def sharded_wo_linear(out_flat: torch.Tensor, w: torch.Tensor, smesh, *,
     rides along (A in full, B column-sliced)."""
     if smesh is None:
         return linear(out_flat, w, lora=lora, lora_mask=lm, lora_scale=ls)
-    of = all_gather(out_flat, -1, smesh)
+    of = enter_sharded(all_gather(out_flat, -1, smesh), smesh)
     y = linear(of, w, lora=local_lora(lora, smesh), lora_mask=lm,
                lora_scale=ls)
     return all_gather(y, -1, smesh)
@@ -180,6 +265,7 @@ def qkv(
     the local head counts."""
     B, S, _ = h.shape
     lm = lookahead_mask
+    h = enter_sharded(h, smesh)
 
     def lo(name):
         return local_lora(_lora_for(lora, name), smesh)
@@ -225,23 +311,26 @@ def prefill_attention(
     kv_mask: Optional[torch.Tensor] = None,  # (B, S) valid keys
     causal: bool = True,
     rotary: bool = True,
+    smesh=None,  # tensor-parallel: the rank's heads (``a`` local)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Self-attention of the whole sequence (``ops.flash_attention``):
     causal with an optional sliding window, or (``causal=False``, the
     window then ignored) bidirectional, as whisper's encoder runs it with
     ``rotary=False``.  ``kv_mask`` hides keys (the bucket-padded prompt
     rows) from every query.  Returns (out (B, S, D), q, k, v); the caller
-    scores and evicts from q and k."""
+    scores and evicts from q and k.  Under ``smesh`` q, k and v are the
+    rank's heads and ``out`` the replicated whole
+    (``sharded_wo_linear``)."""
     q, k, v = qkv(p, a, h, positions, lookahead_mask=lookahead_mask,
                   lora=lora, lora_scale=lora_scale, rope_tables=rope_tables,
-                  rotary=rotary)
+                  rotary=rotary, smesh=smesh)
     out = ops.flash_attention(q, k, v, causal=causal,
                               window=window if causal else None,
                               kv_mask=kv_mask)
     B, S = h.shape[:2]
-    out = linear(out.reshape(B, S, a.q_dim), p["wo"],
-                 lora=_lora_for(lora, "wo"), lora_mask=lookahead_mask,
-                 lora_scale=lora_scale)
+    out = sharded_wo_linear(out.reshape(B, S, a.q_dim), p["wo"], smesh,
+                            lora=_lora_for(lora, "wo"), lm=lookahead_mask,
+                            ls=lora_scale)
     return out, q, k, v
 
 

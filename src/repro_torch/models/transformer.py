@@ -154,19 +154,23 @@ def layer_slice(tree: Optional[dict], layer: int) -> Optional[dict]:
 
 def _layer_params(params: dict, layer: int, gathers: tuple,
                   mesh) -> dict:
-    """Layer ``layer`` of ``params`` as its products take it: on the
-    serving path over a mesh, every leaf ``gathers``
-    (``sharding.layer_gathers``, taken with the global config) names is
-    all-gathered along its dims (ZeRO storage over "data", the MoE's
-    shards over "model"), whole for this layer's use and dropped after."""
+    """Layer ``layer`` of ``params`` as its products take it: over a mesh,
+    every leaf ``gathers`` (``sharding.layer_gathers``, taken with the
+    global config) names is all-gathered along its dims (ZeRO storage
+    over "data", the MoE's shards over "model"), whole for this layer's
+    use and dropped after.  These are the frozen weights: their gathers
+    carry no gradient, and a leaf that asks for one raises."""
     lp = layer_slice(params["layers"], layer)
     for path, dims in gathers:
         node = lp  # layer_slice made fresh dicts: safe to write into
         for k in path[:-1]:
             node = node[k]
         x = node[path[-1]]
+        if x.requires_grad:
+            raise ValueError(f"layer weight {'/'.join(path)} requires a "
+                             "gradient: the gathered weights are frozen")
         for d, axis in dims:
-            x = attn_mod.all_gather(x, d, mesh, axis)
+            x = attn_mod.all_gather_raw(x, d, mesh, axis)
         node[path[-1]] = x
     return lp
 
@@ -378,6 +382,7 @@ def prefill(
     want_ssm_cache: bool = False,  # the SSM's decode cache, even unevicted
     prompt_lens: Optional[torch.Tensor] = None,
     seeds: Optional[torch.Tensor] = None,  # (B,) request seeds (random)
+    mesh=None,  # the trainer's passes over a mesh: the rank's shard
 ) -> PrefillResult:
     """The whole prompt in one forward pass (``ops.flash_attention``);
     each layer, right after its pass, scores the prompt keys, pools the
@@ -442,9 +447,37 @@ def prefill(
     ``policy`` when it is attention-scored, else of ``gt_oracle`` when
     ``gt_boundary`` is given (the GT pass over [X; Y]) and of
     ``lookaheadkv`` otherwise (the lookahead pass: ``lkv_params``' rows are
-    appended whatever the policy)."""
+    appended whatever the policy).
+
+    ``mesh`` runs the objective's two passes over a mesh (the JAX package
+    has no such argument: GSPMD partitions its ``prefill``): ``params``
+    is the rank's shard (``sharding.serving_specs``) and ``inputs`` its
+    data row's batch rows.  Attention runs at the rank's heads where they
+    divide the model axis (kernels 7 and 3 on the card; the lookahead
+    rows' LoRA through ``attention.local_lora``), else whole, as serving
+    does; the frozen weights are gathered at use (``_layer_params``) and
+    the captured scores all-gathered over heads to (L, B, H, n).  Only
+    ``capture_scores`` with ``gt_boundary`` or ``lkv_params``,
+    ``want_logits="none"`` and no policy, bucket padding or encoder take
+    a mesh; any other combination raises ``ValueError`` (the monolithic
+    serving routes take none, as the JAX launcher's)."""
     _check_arch(cfg)
     check_policy(policy)
+    if mesh_signature(mesh) is None:
+        mesh = None
+    elif not (capture_scores and (gt_boundary is not None
+                                  or lkv_params is not None)
+              and want_logits == "none" and policy is None
+              and prompt_lens is None and encoder_embeds is None
+              and mrope_positions is None):
+        raise ValueError(
+            "prefill over a mesh runs the training objective's passes only "
+            "(capture_scores with gt_boundary or lkv_params, want_logits="
+            "'none', no policy, prompt_lens or encoder): the monolithic "
+            "serving routes take no mesh")
+    smesh = attn_mod.model_shard_mesh(mesh, cfg.attn)
+    gathers = layer_gathers(cfg, mesh)
+    la = attn_mod.local_config(cfg, smesh).attn
     if prompt_lens is not None:
         if cfg.uses_ssm or cfg.is_encoder_decoder:
             raise ValueError("bucket-padded prefill supports attention-only "
@@ -476,7 +509,7 @@ def prefill(
             else "lookaheadkv"
     use_lookahead = policy == "lookaheadkv" or (
         capture_scores and lkv_params is not None and gt_boundary is None)
-    h = embed(params, cfg, inputs)
+    h = embed(params, cfg, inputs, smesh)
     B, n_real = h.shape[:2]
     lmask = None
     if use_lookahead:
@@ -556,16 +589,17 @@ def prefill(
         cross_layers = [] if evict_cross else None
     layers, ssm_caches, captured, auxes = [], [], [], []
     for layer, window in enumerate(_windows(cfg)):
-        lp = layer_slice(params["layers"], layer)
+        lp = _layer_params(params, layer, gathers, mesh)
         lora_l = layer_slice(lora_tree, layer)
         u = rms_norm(h, lp["ln1"], cfg.norm_eps)
         delta = None
         if cfg.uses_attention:
             delta, q, k, v = attn_mod.prefill_attention(
-                lp["attn"], a, u, positions, window=window,
+                lp["attn"], la, u, positions, window=window,
                 lookahead_mask=lmask,
                 lora=None if lora_l is None else lora_l.get("attn"),
-                lora_scale=ls, rope_tables=tables, kv_mask=key_valid)
+                lora_scale=ls, rope_tables=tables, kv_mask=key_valid,
+                smesh=smesh)
         if cfg.uses_ssm:
             s_out, ssm_cache = _ssm_prefill(lp["ssm"], cfg, u, ssm_split,
                                             lora_l=lora_l, ls=ls)
@@ -586,12 +620,14 @@ def prefill(
                 cross_layers.append(_cross_evicted(
                     lp, cfg, u_cross, ck, cv, boundary, evict.cross_budget))
         h, aux_l = _ffn_residual(h, lp, cfg, lora_l=lora_l,
-                                 lora_mask=lmask, ls=ls)
+                                 lora_mask=lmask, ls=ls, smesh=smesh)
         if aux_l is not None:
             auxes.append(aux_l)
         if score_layers:
             s_qh = _observation_scores(obs_policy, q, k, boundary, n_keys,
                                        window, key_valid)
+            if smesh is not None:  # the rank's heads -> every head
+                s_qh = attn_mod.all_gather(s_qh, 1, smesh)
             if capture_scores:
                 captured.append(s_qh)
         if do_evict:

@@ -26,7 +26,10 @@ port's is held against the JAX functions that do run:
   the difference is the same at 2 and 3 layers, and each added layer
   costs both packages the same;
 * ``shape_applicable`` against JAX's; ``run_one`` and ``dryrun_all`` on
-  two archs, JSON files written, every status ok, skipped or refused.
+  two archs, JSON files written, every status ok, skipped or refused;
+* the sharded training step's collectives, counted per layer: the two
+  passes' gathers (ZeRO and tensor-parallel), the backward's all-reduces
+  over "model", and one gradient all-reduce over the batch axes.
 
 Tolerances: none, every comparison is exact.
 """
@@ -337,8 +340,43 @@ def test_run_one_and_dryrun_all_write_json(tmp_path):
         ("qwen2-vl-72b", "long_500k"): "skipped"}
     assert len(list(out.glob("*.json"))) == 6
     train = json.loads((out / "smollm-135m_train_4k_pod.json").read_text())
-    assert train["collectives"] is None
-    assert "ROADMAP A11" in train["collectives_reason"]
+    # smollm's 9 heads divide no model axis of 16 and it keeps no ZeRO
+    # storage: every layer runs whole on every rank, so the step's one
+    # collective is the gradient's all-reduce over the batch axes
+    assert train["collectives"]["counts"] == {"all-gather": 0,
+                                              "all-reduce": 1}
+    assert "collectives_reason" not in train
     refused = json.loads(
         (out / "qwen2-vl-72b_train_4k_pod.json").read_text())
     assert "ROADMAP A10" in refused["reason"]
+
+
+@pytest.mark.parametrize("sizes,names,zero", [
+    ((2, 2), ("data", "model"), 7), ((2, 1, 2), ("pod", "data", "model"), 0)])
+def test_train_collectives_per_layer(monkeypatch, sizes, names, zero):
+    """llama3-8b's training step on one rank of a mesh whose model axis
+    of 2 shards its heads, at 2 and 3 layers (width uncut): per layer and
+    pass, ``zero`` ZeRO gathers over "data" (the seven weights, where the
+    data axis is above 1) and five gathers over "model" (attention's
+    heads and ``wo``'s columns, the MLP's activation and columns, the
+    captured scores); per layer, the backward's 18 all-reduces over
+    "model" (``enter_sharded``: the inputs of ``qkv``, of ``wo`` and of
+    the MLP's two column slices, and the replicated LoRA ``a`` and ``b``
+    of the seven targets), but 5 in the last layer, whose ``wv``, ``wo``
+    and MLP reach no score; the vocab-sharded embedding once per pass;
+    one gradient all-reduce over the batch axes."""
+    from repro_torch.launch.mesh import Mesh
+
+    counts = {}
+    for L in (2, 3):
+        cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=L)
+        monkeypatch.setattr(dryrun, "get_config", lambda arch: cfg)
+        b = dryrun.build("llama3-8b", "train_4k", Mesh(names, sizes))
+        with analysis.collective_bytes() as coll:
+            b.rank_fn(*b.rank_args)
+        counts[L] = coll["counts"]
+    per_layer = {"all-gather": 2 * (zero + 5), "all-reduce": 18}
+    for kind, n in per_layer.items():
+        assert counts[3][kind] - counts[2][kind] == n, (kind, counts)
+    assert counts[2] == {"all-gather": 2 * 2 * (zero + 5) + 2,
+                         "all-reduce": 18 + 5 + 1}

@@ -181,9 +181,11 @@ def _engine(cfg, mesh, **change):
     "pool-mesh", "decode-evict-pool", "pool-heads", "trainer"])
 def test_refusals(model, what):
     """What the port still refuses under a mesh: what the JAX engine and
-    pool assert raises ValueError, the trainer's mesh names ROADMAP A11
-    (a data axis, MoE archs, the prefix cache and heads that do not
-    divide are served: ``tests/test_torch_tp_mesh.py``)."""
+    pool assert raises ValueError, and the trainer's production mesh in a
+    world smaller than its 256 ranks raises ValueError naming them (a
+    data axis, MoE archs, the prefix cache and heads that do not divide
+    are served: ``tests/test_torch_tp_mesh.py``; the trainer under a
+    mesh: ``tests/test_torch_train_mesh.py``)."""
     cfg = model["tcfg"]
     m2 = Mesh(("data", "model"), (1, 2))
     if what == "pool-mesh":
@@ -201,7 +203,7 @@ def test_refusals(model, what):
                         mesh=Mesh(("data", "model"), (1, 8)))
     else:
         from repro_torch.launch import train
-        with pytest.raises(NotImplementedError, match="A11"):
+        with pytest.raises(ValueError, match="256 ranks"):
             train.main(["--arch", "llama3-8b", "--smoke", "--device", "cpu",
                         "--mesh", "pod"])
 

@@ -11,8 +11,10 @@ package's engines.
   save at step 2) and resumed (``--resume``) ends with the checkpoint and
   the losses of the straight run, bit for bit, on the synthetic mixture
   and on a harvested dataset;
-* ``--mesh pod`` raises naming ROADMAP A11, and ``--device cuda`` without
-  a card raises (no fallback to the CPU);
+* ``--mesh pod`` in a world of one process raises ``ValueError`` naming
+  the 256 ranks the production mesh needs (the trainer under a mesh:
+  ``tests/test_torch_train_mesh.py``), and ``--device cuda`` without a
+  card raises (no fallback to the CPU);
 * a JAX-written checkpoint served by the port (``load_lookahead_params``
   into the lockstep ``ServingEngine``, and ``ServingConfig.lkv_checkpoint``
   into ``ContinuousEngine``) gives the greedy tokens of JAX's engines
@@ -97,8 +99,10 @@ def test_killed_and_resumed_run_is_bit_exact(source, harvest_dir, tmp_path):
 
 
 def test_trainer_refusals(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="needs a world of 256 ranks"):
         train.main(SMOKE + ["--mesh", "pod", "--steps", "1"])
+    with pytest.raises(ValueError, match="needs a world of 512 ranks"):
+        train.main(SMOKE + ["--mesh", "multipod", "--steps", "1"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         train.main(["--arch", "llama3-8b", "--smoke", "--device", "cuda",
