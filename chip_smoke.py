@@ -5093,7 +5093,7 @@ def phase_learning_loop(torch, mods, header) -> dict:
         header("phase 5d: serve --lkv-ckpt (5b's checkpoint), lockstep")
         phase_serve_ckpt(torch, mods, cfg, f"{d}/lkv.npz", trained["lkv"])
         torch.cuda.empty_cache()
-    return mods["train"]._to_host(trained["lkv"])
+    return mods["train"].to_host(trained["lkv"])
 
 
 #: phase 6: the smoke geometry of 6a (llama3-8b smoke rebuilt at 8 q /
@@ -5733,7 +5733,7 @@ def check_agreement(label: str, ref_logits, got_logits) -> tuple:
     return same, rel
 
 
-def check_alloc(label: str, held: int, alloc: int) -> None:
+def check_alloc(label: str, held: int, alloc: int, gate=None) -> None:
     """The bytes of the tensors a rank holds against the rise of the
     caching allocator's requested bytes while they were built, within
     ``ALLOC_SLACK``: a witness of the layout outside the code that sizes
@@ -5745,8 +5745,8 @@ def check_alloc(label: str, held: int, alloc: int) -> None:
         print(f"  {label}: the allocator's requested bytes rose by {alloc} "
               f"while its tensors were built ({alloc - held:+d} against "
               f"their {held} bytes; at most {ALLOC_SLACK})")
-    check(alloc is not None and abs(alloc - held) <= ALLOC_SLACK,
-          f"{label}: the allocated bytes differ from the tensors'")
+    (gate or check)(alloc is not None and abs(alloc - held) <= ALLOC_SLACK,
+                    f"{label}: the allocated bytes differ from the tensors'")
 
 
 def dryrun_bytes(mods, cfg, mesh, rank: int, spec: dict) -> int:
@@ -6106,7 +6106,7 @@ def _draw_b(tree, rng, name=""):
 
 
 def hold_train_step(label: str, ranks: list, ref: dict, tol: dict,
-                    lr: float) -> dict:
+                    lr: float, gate=check) -> dict:
     """Hold a world's ranks to the one-rank run ``ref`` (``train_job``'s
     host results) at 8a's tolerances: every rank the same losses and
     modules bit for bit; the loss and gradient norm relative; each
@@ -6145,9 +6145,9 @@ def hold_train_step(label: str, ranks: list, ref: dict, tol: dict,
           f"rank {ref['losses']}); worst relative errors " + ", ".join(
               f"{k} {v:.2e} (tol {tol[k]:.0e})" for k, v in worst.items())
           + f"; elsewhere {rest:.2e} (at most {2 * lr:.0e})")
-    check(same, f"8a {label}: the ranks differ")
-    check(all(worst[k] <= tol[k] for k in worst) and rest <= 2 * lr,
-          f"8a {label}: outside its tolerance")
+    gate(same, f"8a {label}: the ranks differ")
+    gate(all(worst[k] <= tol[k] for k in worst) and rest <= 2 * lr,
+         f"8a {label}: outside its tolerance")
     return worst
 
 
@@ -6158,13 +6158,61 @@ def mods_leaves(tree) -> list:
     return [tree]
 
 
+def grad_distance(got: list, want: list) -> dict:
+    """The distance of one gradient (numpy leaves) from another: the
+    global norms' relative difference, the worst leaf's largest error
+    over that leaf's largest value, the worst leaf's cosine."""
+    import numpy as np
+
+    errs, coss = [], []
+    for a, b in zip(got, want):
+        a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
+        errs.append(float(np.abs(a - b).max() / np.abs(b).max()))
+        coss.append(float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))))
+    na = math.sqrt(sum(float((x.astype(np.float64) ** 2).sum()) for x in got))
+    nb = math.sqrt(sum(float((x.astype(np.float64) ** 2).sum())
+                       for x in want))
+    return {"norm": abs(na - nb) / nb, "grads": max(errs), "cos": min(coss)}
+
+
+def f32_reference(torch, mods, job: dict, device: str) -> list:
+    """The first step's gradient (numpy leaves) of ``job``'s one-rank run
+    computed in float32 on the same weights (the bf16 draw, widened) and
+    batch: how far bf16 itself is from it says what agreement a bf16 run
+    can show."""
+    import dataclasses
+
+    import numpy as np
+
+    cfg = job["cfg"]
+    params = mods["tf"].init_params(cfg, seed=job["seed"], device=device)
+
+    def widen(t):
+        return ({k: widen(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.float())
+
+    params = widen(params)
+    b = next(mods["synthetic"].MixtureIterator(
+        cfg, job["batch"], job["n_in"], job["n_out"], seed=job["seed"]))
+    batch = {"x": torch.as_tensor(b.x, device=device),
+             "xy": torch.as_tensor(np.concatenate([b.x, b.y], 1),
+                                   device=device)}
+    lkv = mods["bridge"].to_torch(job["lkv"], device=device)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    _, grads = mods["steps"].make_lkv_grad(cfg32)(params, lkv, batch)
+    out = [g.cpu().numpy() for g in mods["adam"].leaves(grads)]
+    del params, grads
+    return out
+
+
 def hold_train_cell(label: str, ranks: list, ref: dict, cfg,
-                    predicted_bytes: int) -> None:
+                    predicted_bytes: int, ref32: list, gate=check) -> None:
     """8b / 8c: each rank's launches (kernels 7 and 3 once per layer and
     step, nothing else), its weight bytes (the dry-run's ``serving_specs``
     layout) and the allocator's rise while it built them, its peak
     memory; rank 0's losses and gradients against the one-rank run at
-    ``TRAIN_MESH_FLOORS``."""
+    ``TRAIN_MESH_FLOORS``, and both first-step gradients' distance from
+    the float32 one ``ref32``."""
     import numpy as np
 
     n_steps = len(ref["losses"])
@@ -6177,34 +6225,34 @@ def hold_train_cell(label: str, ranks: list, ref: dict, cfg,
               f"{predicted_bytes}); peak torch.cuda.max_memory_allocated "
               f"{gib(res['peak_bytes'])} GiB; ms per step "
               f"{[round(t * 1e3, 1) for t in res['step_s']]} (host clock)")
-        check(res["launches"] == want, f"{label} rank {r}: launches")
-        check(res["param_bytes"] == predicted_bytes,
-              f"{label} rank {r}: weight bytes differ from the dry-run's")
+        gate(res["launches"] == want, f"{label} rank {r}: launches")
+        gate(res["param_bytes"] == predicted_bytes,
+             f"{label} rank {r}: weight bytes differ from the dry-run's")
         check_alloc(f"{label} rank {r}", res["param_bytes"],
-                    res["alloc_bytes"])
+                    res["alloc_bytes"], gate)
     r0 = ranks[0]
-    check(all(res["losses"] == r0["losses"] for res in ranks),
-          f"{label}: the ranks' losses differ")
+    gate(all(res["losses"] == r0["losses"] for res in ranks),
+         f"{label}: the ranks' losses differ")
     fl = TRAIN_MESH_FLOORS
     rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"])]
-    norm = abs(r0["grad_norms"][0] - ref["grad_norms"][0]) / \
-        ref["grad_norms"][0]
-    errs, coss = [], []
-    for a, b in zip(mods_leaves(r0["grads"][0]), mods_leaves(ref["grads"][0])):
-        a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
-        errs.append(float(np.abs(a - b).max() / np.abs(b).max()))
-        coss.append(float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))))
+    mesh, one = mods_leaves(r0["grads"][0]), mods_leaves(ref["grads"][0])
+    d = grad_distance(mesh, one)
     print(f"  {label}: losses {r0['losses']} (one rank {ref['losses']}; "
           f"relative {[f'{x:.2e}' for x in rel]}, floors {fl['loss']} and, "
           f"after the first update, {fl['loss_after']}); grad norms "
-          f"{r0['grad_norms']} (one rank {ref['grad_norms']}; the first "
-          f"step's relative {norm:.2e}, floor {fl['norm']}); the first "
-          f"step's gradient leaves: worst max error {max(errs):.2e} of the "
-          f"leaf's largest (floor {fl['grads']}), worst cosine "
-          f"{min(coss):.6f} (floor {fl['cos']})")
-    check(rel[0] <= fl["loss"] and all(x <= fl["loss_after"] for x in rel)
-          and norm <= fl["norm"] and max(errs) <= fl["grads"]
-          and min(coss) >= fl["cos"], f"{label}: below its floors")
+          f"{r0['grad_norms']} (one rank {ref['grad_norms']}); the first "
+          f"step's gradient against one rank's: norm {d['norm']:.2e} "
+          f"(floor {fl['norm']}), worst leaf {d['grads']:.2e} of its "
+          f"largest (floor {fl['grads']}), worst cosine {d['cos']:.6f} "
+          f"(floor {fl['cos']})")
+    for name, got in (("one rank", one), ("the mesh", mesh)):
+        e = grad_distance(got, ref32)
+        print(f"  {label}: {name}'s bf16 first-step gradient against the "
+              f"float32 one: norm {e['norm']:.2e}, worst leaf "
+              f"{e['grads']:.2e}, worst cosine {e['cos']:.6f}")
+    gate(rel[0] <= fl["loss"] and all(x <= fl["loss_after"] for x in rel)
+         and d["norm"] <= fl["norm"] and d["grads"] <= fl["grads"]
+         and d["cos"] >= fl["cos"], f"{label}: below its floors")
 
 
 def phase_train_mesh(torch, mods, header, lkv=None,
@@ -6228,13 +6276,15 @@ def phase_train_mesh(torch, mods, header, lkv=None,
     import gc
     import tempfile
 
+    import numpy as np
+
     train, dryrun = mods["train"], mods["dryrun"]
     full = mods["configs"].get_config("llama3-8b")
     if lkv is None:
         lkv = _draw_b(mods["lookahead"].init_lookahead_params(
             torch.Generator().manual_seed(SEED + 1), full,
             mods["tf"].init_params(full, device="meta")["layers"]),
-            __import__("numpy").random.default_rng(5))
+            np.random.default_rng(5))
     models = {arch: train_smoke_model(torch, mods, arch)
               for arch in ("llama3-8b", "deepseek-moe-16b", "gemma3-1b")}
     out = {}
@@ -6248,11 +6298,15 @@ def phase_train_mesh(torch, mods, header, lkv=None,
         jobs.update({cell: train_cell_job(mods, cell, lkv, ck(cell), device)
                      for cell in TRAIN_MESH_CELLS})
         header("phase 8a-8c: the one-rank runs on the card (8a's eight "
-               "smoke steps, 8b's and 8c's two steps)")
-        refs = {}
+               "smoke steps, 8b's and 8c's two steps, and their first "
+               "step's gradient in float32)")
+        refs, refs32 = {}, {}
         for name, job in jobs.items():
             one = dict(job, ckpt=ck(f"one {name}"))
-            refs[name] = train._to_host(train.train_job(one, device=device))
+            refs[name] = train.to_host(train.train_job(one, device=device))
+            if name in TRAIN_MESH_CELLS:
+                gc.collect()
+                refs32[name] = f32_reference(torch, mods, job, device)
             gc.collect()
             if device != "cpu":
                 torch.cuda.empty_cache()
@@ -6275,19 +6329,27 @@ def phase_train_mesh(torch, mods, header, lkv=None,
                   "(wall, process starts included)")
             for i, k in enumerate(names):
                 worlds[k] = [res[r][i] for r in range(n)]
+        # every check of the phase reads before any fails it
+        failures = []
+
+        def gate(ok, msg):
+            if not ok:
+                print(f"  FAILED: {msg}", flush=True)
+                failures.append(msg)
+
         header("phase 8a: the CPU test's meshes at smoke width against the "
                "one-rank step on the card (float32)")
         for name, arch, sizes, zero, distill in TRAIN_MESH_SMOKE:
             hold_train_step(name, worlds[name], refs[name],
-                            TRAIN_MESH_SMOKE_TOL, SMOKE_LR)
+                            TRAIN_MESH_SMOKE_TOL, SMOKE_LR, gate)
             L = models[arch]["cfg"].num_layers
             want = {k: 0 for k in worlds[name][0]["launches"]}
             if not distill:
                 want.update(flash_attention=L, lookahead_score=L)
             for r, res in enumerate(worlds[name]):
-                check(res["launches"] == want or device == "cpu",
-                      f"8a {name} rank {r}: launches {res['launches']}, "
-                      f"expected {want}")
+                gate(res["launches"] == want or device == "cpu",
+                     f"8a {name} rank {r}: launches {res['launches']}, "
+                     f"expected {want}")
         out["8a (1, 4)"] = worlds["llama (1, 4)"][0]["launches"]
         for cell, (sizes, layers, _) in TRAIN_MESH_CELLS.items():
             header(f"phase {cell}: llama3-8b at full width, {layers} layers, "
@@ -6298,8 +6360,10 @@ def phase_train_mesh(torch, mods, header, lkv=None,
             mesh = mods["mesh"].Mesh(names, sizes)
             predicted = dryrun._param_layouts(cfg, mesh, 0, serving=True)[
                 1]["param_bytes_per_rank"]
-            hold_train_cell(cell, worlds[cell], refs[cell], cfg, predicted)
+            hold_train_cell(cell, worlds[cell], refs[cell], cfg, predicted,
+                            refs32[cell], gate)
             out[cell] = worlds[cell][0]["launches"]
+        check(not failures, "phase 8: " + "; ".join(failures))
     return out
 
 
@@ -6325,7 +6389,7 @@ def load_modules(torch) -> dict:
     from repro_torch.launch import analysis, dryrun, mesh, serve, steps, train
     from repro_torch.models import moe, rope
     from repro_torch.models import transformer as tf
-    from repro_torch import obs
+    from repro_torch import bridge, obs
     from repro_torch.optim import adam
     from repro_torch.serving import engine
 
@@ -6340,7 +6404,7 @@ def load_modules(torch) -> dict:
                 objective=objective, harvest=harvest, synthetic=synthetic,
                 steps=steps, train=train, adam=adam, moe=moe, rope=rope,
                 obs=obs, mesh=mesh, analysis=analysis, dryrun=dryrun,
-                ShapeConfig=ShapeConfig)
+                ShapeConfig=ShapeConfig, bridge=bridge)
 
 
 def phase_build(mods) -> None:

@@ -147,16 +147,18 @@ def train_shard(rank: int, job: dict) -> dict:
     mesh = mesh_mod.make_mesh(tuple(job["mesh"]))
     res = train_job(job, mesh=mesh,
                     device=serve.rank_device(job["device"], rank, n))
-    return _to_host(res)
+    return to_host(res)
 
 
-def _to_host(tree):
+def to_host(tree):
+    """A result tree with its tensors as numpy arrays on the host (the
+    AdamState as {"step", "mu", "nu"}), picklable across ranks."""
     if isinstance(tree, adam.AdamState):
         tree = tree._asdict()
     if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
+        return {k: to_host(v) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to_host(v) for v in tree]
+        return [to_host(v) for v in tree]
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return tree
@@ -262,7 +264,7 @@ def train_job(job: dict, *, mesh=None, device=None) -> dict:
             xy = np.concatenate([b.x, b.y], axis=1)
             batch = {"x": torch.as_tensor(b.x, device=dev),
                      "xy": torch.as_tensor(xy, device=dev)}
-        if mesh is not None and mesh_signature(mesh) is not None:
+        if mesh_signature(mesh) is not None:
             batch = {k: _rows(v, 1 if k == "s_gt" else 0, mesh)
                      for k, v in batch.items()}
         return batch

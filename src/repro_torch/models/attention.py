@@ -29,7 +29,7 @@ from repro_torch.core.scoring import decode_mass_update
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF, check_offset
 from repro_torch.models import rope
-from repro_torch.models.layers import dense_init, linear
+from repro_torch.models.layers import dense_init, linear, lora_delta
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, *,
@@ -74,12 +74,18 @@ def _lora_for(lora: Optional[dict], name: str) -> Optional[dict]:
 #   gradient is the same on every model rank, because everything
 #   downstream of a gather is computed replicated and every replicated
 #   value's gradient is complete (next item).
-# * replicated -> per-rank (``enter_sharded``): the identity forward; the
-#   backward sums the ranks' partial gradients over the model group (an
-#   all-reduce), since each rank's product saw only its own columns.  It
-#   marks the input of ``qkv`` at the local heads, of ``wo``'s and of
-#   ``mlp.apply_sharded``'s column slices, and the replicated LoRA ``a``
-#   and ``b`` that ``local_lora`` hands to a column slice.
+# * replicated -> per-rank: the backward sums the ranks' partial
+#   gradients over the model group (an all-reduce), since each rank's
+#   product saw only its own columns.  ``column_linears`` does so for a
+#   replicated input times column slices of frozen weights: each rank's
+#   partial input gradient in float32, one all-reduce for every product
+#   of that input, rounded once, as one rank's full product rounds its
+#   float32 accumulation once (summed in bf16, the partials drifted the
+#   gradient of 32 bf16 layers by ~1%).  Its LoRA sums the gradient of
+#   the rank-r intermediate ``(x * mask) @ a`` instead (``enter_sharded``,
+#   the identity forward: a few values a row), so that ``a`` and the
+#   input's LoRA gradient come out whole; ``local_lora`` marks the
+#   replicated ``b`` before it is column-sliced.
 #
 # So every replicated leaf (the lookahead rows ``emb`` and every LoRA
 # ``a`` / ``b``) gets its full gradient on every model rank.  Layers that
@@ -159,10 +165,21 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * w, w), None, None
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or as it is where its type is wider."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _model_sum(g: torch.Tensor, mesh) -> torch.Tensor:
+    """The model ranks' partial gradients ``g`` summed in float32 (or
+    wider) and rounded once to ``g``'s type."""
+    return all_reduce(_wide(g).contiguous(), dist.ReduceOp.SUM,
+                      mesh.group).to(g.dtype)
+
+
 class _EnterSharded(torch.autograd.Function):
     """replicated -> per-rank: the identity forward; backward the sum of
-    the model ranks' partial gradients (``all_reduce`` over the model
-    group)."""
+    the model ranks' partial gradients (``_model_sum``)."""
 
     @staticmethod
     def forward(ctx, x, mesh):
@@ -171,8 +188,31 @@ class _EnterSharded(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g.contiguous(), dist.ReduceOp.SUM,
-                          ctx.mesh.group), None
+        return _model_sum(g, ctx.mesh), None
+
+
+class _ColumnProducts(torch.autograd.Function):
+    """``x @ w`` for each ``w`` of ``ws``, the rank's column slices of
+    frozen weights, and a replicated ``x``.  Backward: the rank's partial
+    input gradient of every product summed in float32, then over the
+    model group in one all-reduce; the weights take none."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, *ws):
+        ctx.mesh, ctx.dtype = mesh, x.dtype
+        ctx.save_for_backward(*ws)
+        return tuple(x @ w for w in ws)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        part = None
+        for g, w in zip(gs, ctx.saved_tensors):
+            if g is None:
+                continue
+            d = _wide(g) @ _wide(w).T
+            part = d if part is None else part + d
+        grad = all_reduce(part, dist.ReduceOp.SUM, ctx.mesh.group)
+        return (grad.to(ctx.dtype), None) + (None,) * len(gs)
 
 
 def _differentiable(x: torch.Tensor) -> bool:
@@ -215,9 +255,39 @@ def local_lora(lora: Optional[dict], smesh) -> Optional[dict]:
     A in full (the delta contracts the full input), B's local columns."""
     if lora is None or smesh is None:
         return lora
-    return {"a": enter_sharded(lora["a"], smesh),
+    return {"a": lora["a"],
             "b": model_slice(enter_sharded(lora["b"], smesh),
                              smesh).contiguous()}
+
+
+def column_linears(x: torch.Tensor, ws: list, smesh, *, biases=None,
+                   loras=None, lora_mask: Optional[torch.Tensor] = None,
+                   lora_scale: float = 1.0) -> list:
+    """``linear(x, w, b, lora=...)`` for each of ``ws`` with their
+    ``biases`` and ``loras`` (replicated trees, sliced by ``local_lora``):
+    under ``smesh`` ``ws`` and ``biases`` are the rank's column slices and
+    ``x`` is replicated; the forward is ``linear``'s, and a gradient
+    through ``x`` is summed over the model group (``_ColumnProducts``;
+    the LoRA's through its rank-r intermediate)."""
+    n = len(ws)
+    biases = biases or [None] * n
+    loras = loras or [None] * n
+    if smesh is None:
+        return [linear(x, w, b, lora=lo, lora_mask=lora_mask,
+                       lora_scale=lora_scale)
+                for w, b, lo in zip(ws, biases, loras)]
+    ys = (_ColumnProducts.apply(x, smesh, *ws) if _differentiable(x)
+          else [x @ w for w in ws])
+    out = []
+    for y, b, lo in zip(ys, biases, loras):
+        if b is not None:
+            y = y + b
+        if lo is not None and lora_mask is not None:
+            y = y + lora_delta(x, local_lora(lo, smesh), lora_mask,
+                               lora_scale,
+                               enter=lambda u: enter_sharded(u, smesh))
+        out.append(y)
+    return out
 
 
 def replicated_apply(fn, smesh, *args):
@@ -239,9 +309,9 @@ def sharded_wo_linear(out_flat: torch.Tensor, w: torch.Tensor, smesh, *,
     rides along (A in full, B column-sliced)."""
     if smesh is None:
         return linear(out_flat, w, lora=lora, lora_mask=lm, lora_scale=ls)
-    of = enter_sharded(all_gather(out_flat, -1, smesh), smesh)
-    y = linear(of, w, lora=local_lora(lora, smesh), lora_mask=lm,
-               lora_scale=ls)
+    of = all_gather(out_flat, -1, smesh)
+    y, = column_linears(of, [w], smesh, loras=[lora], lora_mask=lm,
+                        lora_scale=ls)
     return all_gather(y, -1, smesh)
 
 
@@ -264,18 +334,12 @@ def qkv(
     rank's head columns (and biases), the LoRA its B columns, and ``a``
     the local head counts."""
     B, S, _ = h.shape
-    lm = lookahead_mask
-    h = enter_sharded(h, smesh)
-
-    def lo(name):
-        return local_lora(_lora_for(lora, name), smesh)
-
-    q = linear(h, p["wq"], p.get("bq"), lora=lo("wq"), lora_mask=lm,
-               lora_scale=lora_scale)
-    k = linear(h, p["wk"], p.get("bk"), lora=lo("wk"), lora_mask=lm,
-               lora_scale=lora_scale)
-    v = linear(h, p["wv"], p.get("bv"), lora=lo("wv"), lora_mask=lm,
-               lora_scale=lora_scale)
+    names = ("wq", "wk", "wv")
+    q, k, v = column_linears(
+        h, [p[n] for n in names], smesh,
+        biases=[p.get("b" + n[1]) for n in names],
+        loras=[_lora_for(lora, n) for n in names],
+        lora_mask=lookahead_mask, lora_scale=lora_scale)
     q = q.reshape(B, S, a.num_heads, a.head_dim)
     k = k.reshape(B, S, a.num_kv_heads, a.head_dim)
     v = v.reshape(B, S, a.num_kv_heads, a.head_dim)

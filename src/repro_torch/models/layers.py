@@ -85,11 +85,21 @@ def linear(
     if b is not None:
         y = y + b
     if lora is not None and lora_mask is not None:
-        xm = x * lora_mask.to(x.dtype)
-        delta = (xm @ lora["a"].to(x.dtype)) @ lora["b"].to(x.dtype)
-        y = y + delta * torch.tensor(lora_scale, dtype=x.dtype,
-                                     device=x.device)
+        y = y + lora_delta(x, lora, lora_mask, lora_scale)
     return y
+
+
+def lora_delta(x: torch.Tensor, lora: dict, lora_mask: torch.Tensor,
+               lora_scale: float, enter=None) -> torch.Tensor:
+    """The selective LoRA's ``((x * mask) @ a) @ b * scale``; ``enter``
+    (tensor-parallel: ``attention.enter_sharded``) marks the rank-r
+    intermediate before it meets a column slice of ``b``."""
+    xm = x * lora_mask.to(x.dtype)
+    u = xm @ lora["a"].to(x.dtype)
+    if enter is not None:
+        u = enter(u)
+    return (u @ lora["b"].to(x.dtype)) * torch.tensor(
+        lora_scale, dtype=x.dtype, device=x.device)
 
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:

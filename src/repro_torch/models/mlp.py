@@ -63,28 +63,23 @@ def apply_sharded(
     rank's column slice of ``w_down`` contracts the full d_ff in
     single-device order, and the output columns all-gathered.  LoRA deltas
     ride along (A in full, B column-sliced like its base weight).  The
-    replicated input and gathered activation enter the column slices
-    through ``attention.enter_sharded``, so a gradient taken through the
-    MLP is whole on every rank (``models/attention.py``'s tensor-parallel
-    comment).  Where d_ff or d_model does not divide the model axis ``p``
-    holds the whole MLP (``sharding.serving_specs``) and every rank
-    evaluates it whole."""
+    products are ``attention.column_linears``, so a gradient taken
+    through the MLP is whole on every rank (``models/attention.py``'s
+    tensor-parallel comment).  Where d_ff or d_model does not divide the
+    model axis ``p`` holds the whole MLP (``sharding.serving_specs``) and
+    every rank evaluates it whole."""
     if smesh is None or p["w_gate"].shape[-1] == cfg.d_ff:
         return attn_mod.replicated_apply(
             lambda: apply(p, cfg, h, lora=lora, lora_mask=lora_mask,
                           lora_scale=lora_scale), smesh)
 
     def _l(name):
-        return attn_mod.local_lora(None if lora is None else lora.get(name),
-                                   smesh)
+        return None if lora is None else lora.get(name)
 
-    h = attn_mod.enter_sharded(h, smesh)
-    g = linear(h, p["w_gate"], lora=_l("w_gate"), lora_mask=lora_mask,
-               lora_scale=lora_scale)
-    u = linear(h, p["w_up"], lora=_l("w_up"), lora_mask=lora_mask,
-               lora_scale=lora_scale)
-    y = attn_mod.enter_sharded(
-        attn_mod.all_gather(activation(g, cfg.act) * u, -1, smesh), smesh)
-    out = linear(y, p["w_down"], lora=_l("w_down"), lora_mask=lora_mask,
-                 lora_scale=lora_scale)
+    kw = dict(lora_mask=lora_mask, lora_scale=lora_scale)
+    g, u = attn_mod.column_linears(h, [p["w_gate"], p["w_up"]], smesh,
+                                   loras=[_l("w_gate"), _l("w_up")], **kw)
+    y = attn_mod.all_gather(activation(g, cfg.act) * u, -1, smesh)
+    out, = attn_mod.column_linears(y, [p["w_down"]], smesh,
+                                   loras=[_l("w_down")], **kw)
     return attn_mod.all_gather(out, -1, smesh)

@@ -16,22 +16,22 @@ LORA_SCALE = 2.0
 
 def two_products(x, w1, w2, lora, c, mesh=None):
     """A replicated ``x`` (B, S, D) through two column-parallel products,
-    as a layer's attention runs them: ``tanh(linear(x, w1, lora))``
-    (``w1``'s columns per rank, the LoRA's ``a`` whole and ``b``'s
-    columns, the outputs gathered), then the gathered activation times
-    ``w2``'s columns, gathered again; the loss ``sum(z * c)``.  Without
-    ``mesh`` the single-device computation, the same arithmetic."""
+    as a layer's attention runs them (``attention.column_linears``, the
+    outputs gathered): ``tanh(linear(x, w1, lora))`` (``w1``'s columns
+    per rank, the LoRA's ``a`` whole and ``b``'s columns), then the
+    gathered activation times ``w2``'s columns; the loss ``sum(z * c)``.
+    Without ``mesh`` the single-device computation, the same arithmetic."""
     mask = torch.ones(x.shape[:-1] + (1,), dtype=x.dtype)
     if mesh is None:
         y = torch.tanh(linear(x, w1, lora=lora, lora_mask=mask,
                               lora_scale=LORA_SCALE))
         return ((y @ w2) * c).sum()
-    y = linear(attn_mod.enter_sharded(x, mesh),
-               attn_mod.model_slice(w1, mesh).contiguous(),
-               lora=attn_mod.local_lora(lora, mesh), lora_mask=mask,
-               lora_scale=LORA_SCALE)
+    y, = attn_mod.column_linears(
+        x, [attn_mod.model_slice(w1, mesh).contiguous()], mesh,
+        loras=[lora], lora_mask=mask, lora_scale=LORA_SCALE)
     y = attn_mod.all_gather(torch.tanh(y), -1, mesh)
-    z = attn_mod.enter_sharded(y, mesh) @ attn_mod.model_slice(w2, mesh)
+    z, = attn_mod.column_linears(
+        y, [attn_mod.model_slice(w2, mesh).contiguous()], mesh)
     return (attn_mod.all_gather(z, -1, mesh) * c).sum()
 
 
