@@ -6001,12 +6001,15 @@ TRAIN_MESH_SMOKE = (
     ("llama (2, 1, 2)", "llama3-8b", (2, 1, 2), False, False),
     ("llama (2, 2) zero distill", "llama3-8b", (2, 2), True, True))
 #: 8a's tolerances against the one-rank step on the card, the CPU test's
-#: against the one-process port: loss and gradient norm (relative), each
-#: gradient, ``m`` and ``v`` leaf (of its largest one-rank value), the
-#: updated modules where the gradient is above 1e-3 of its leaf's largest
-#: (absolute; elsewhere 2 x lr)
-TRAIN_MESH_SMOKE_TOL = dict(loss=1e-5, norm=1e-5, grads=1e-5, mu=2e-5,
-                            nu=4e-5, lkv=1e-6)
+#: against JAX's step: loss and gradient norm (relative), each gradient,
+#: ``m`` and ``v`` leaf (of its largest one-rank value), the updated
+#: modules where the gradient is above 1e-3 of its leaf's largest
+#: (absolute; elsewhere 2 x lr).  The CPU test's tenfold tighter bounds
+#: against the one-process port held on the CPU but not here: float32
+#: column slices of a product round otherwise in cuBLAS than the whole
+#: product (PERF.md, PR 32)
+TRAIN_MESH_SMOKE_TOL = dict(loss=1e-5, norm=1e-4, grads=1e-4, mu=2e-4,
+                            nu=4e-4, lkv=1e-6)
 #: 8b / 8c: llama3-8b at full width, bf16, (mesh sizes, layers, global
 #: batch), two steps of ``ONLINE``'s shape from 5b's trained modules
 TRAIN_MESH_CELLS = {"8b": ((1, 2), 32, 1), "8c": ((2, 2), 4, 2)}

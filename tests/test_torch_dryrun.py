@@ -360,11 +360,12 @@ def test_train_collectives_per_layer(monkeypatch, sizes, names, zero):
     data axis is above 1) and five gathers over "model" (attention's
     heads and ``wo``'s columns, the MLP's activation and columns, the
     captured scores); per layer, the backward's 18 all-reduces over
-    "model" (``enter_sharded``: the inputs of ``qkv``, of ``wo`` and of
-    the MLP's two column slices, and the replicated LoRA ``a`` and ``b``
-    of the seven targets), but 5 in the last layer, whose ``wv``, ``wo``
-    and MLP reach no score; the vocab-sharded embedding once per pass;
-    one gradient all-reduce over the batch axes."""
+    "model" (``column_linears``: one for each input of the column slices,
+    ``qkv``'s, ``wo``'s, the MLP's two; and each of the seven LoRA
+    targets' rank-r intermediate and ``b``), but 5 in the last layer,
+    whose ``wv``, ``wo`` and MLP reach no score; the vocab-sharded
+    embedding once per pass; one gradient all-reduce over the batch
+    axes."""
     from repro_torch.launch.mesh import Mesh
 
     counts = {}
