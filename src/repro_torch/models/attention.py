@@ -276,6 +276,9 @@ def column_linears(x: torch.Tensor, ws: list, smesh, *, biases=None,
         return [linear(x, w, b, lora=lo, lora_mask=lora_mask,
                        lora_scale=lora_scale)
                 for w, b, lo in zip(ws, biases, loras)]
+    if any(w.requires_grad for w in ws) and torch.is_grad_enabled():
+        raise ValueError("column-sliced weights are frozen: their "
+                         "gradient is not computed")
     ys = (_ColumnProducts.apply(x, smesh, *ws) if _differentiable(x)
           else [x @ w for w in ws])
     out = []

@@ -48,7 +48,7 @@ and resumed at (2, 1) bit for bit the straight run, and a checkpoint
 written under that mesh resumed by the one-process trainer; refusals:
 ``--mesh pod`` in a world of one, a global batch the batch axes do not
 divide, the LM variant under a mesh, serving prefills under a mesh, a
-frozen weight that asks for a gradient.
+frozen weight that asks for a gradient (gathered or column-sliced).
 """
 
 import torch_test_env  # noqa: F401  (first: process settings)
@@ -76,6 +76,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import objective as tobj
 from repro_torch.launch import steps, train
 from repro_torch.launch.mesh import Mesh, run_jobs, spawn_ranks
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as ttf
 from repro_torch.optim import adam as tadam
 from torch_mesh_ranks import autograd_collectives, two_products
@@ -422,3 +423,7 @@ def test_refusals(models):
     with pytest.raises(ValueError, match="frozen"):
         ttf._layer_params(params, 0, gathers,
                           Mesh(("data", "model"), (2, 1)))
+    # and a column-sliced weight (the products' backward computes none)
+    with pytest.raises(ValueError, match="frozen"):
+        attn_mod.column_linears(torch.zeros(1, 4),
+                                [torch.zeros(4, 2, requires_grad=True)], m2)
