@@ -21,9 +21,10 @@
 Each step returns ``(trained tree, AdamState, loss, {"lr",
 "grad_norm"})``, the lookahead steps with "grads" too (the gradient Adam
 was given, before its clip); the JAX steps return the first three and
-drop the optimizer's metrics.  Gradients come from ``torch.autograd.grad`` over
-the trained tree's leaves (taken as fresh leaves that require a
-gradient), and Adam returns new trees instead of updating in place.
+drop the optimizer's metrics.  Gradients come from
+``torch.autograd.grad`` over the trained tree's leaves (taken as fresh
+leaves that require a gradient), and Adam returns new trees instead of
+updating in place.
 The JAX module's abstract inputs are ``ShapeDtypeStruct``s; the port's
 are tensors on the ``meta`` device, which the model functions take as
 they are (``kernels/ops.py`` sends them to the plain versions).
@@ -96,10 +97,6 @@ def value_and_grad(loss_fn: Callable, tree: dict):
     return loss.detach(), _with_leaves(tree, grads)
 
 
-def _over_mesh(mesh) -> bool:
-    return mesh is not None and mesh_signature(mesh) is not None
-
-
 def batch_mean(loss: torch.Tensor, grads: dict, mesh) -> tuple:
     """(loss, gradient tree) averaged over the mesh's batch axes: each
     data row computed them over its own batch rows, so the global batch's
@@ -108,7 +105,7 @@ def batch_mean(loss: torch.Tensor, grads: dict, mesh) -> tuple:
     The model ranks of a row already hold the same whole gradient
     (``models/attention.py``'s collectives), so nothing is summed over
     "model".  As they are without a batch axis above 1."""
-    n = mesh.batch_size if _over_mesh(mesh) else 1
+    n = 1 if mesh_signature(mesh) is None else mesh.batch_size
     if n == 1:
         return loss, grads
     flat = adam.leaves(grads)
@@ -166,7 +163,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
     route in either package and takes no mesh (``ValueError``)."""
     _refuse_a10(cfg)
     if not cfg.technique_applies:
-        if _over_mesh(mesh):
+        if mesh_signature(mesh) is not None:
             raise ValueError(
                 f"{cfg.name}: the LM variant (an arch the technique does "
                 "not apply to) has no launcher route and takes no mesh")
@@ -180,14 +177,18 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
 
         return lm_step
 
-    grad = make_lkv_grad(cfg, mesh)
+    return _adam_step(make_lkv_grad(cfg, mesh), tc)
 
-    def lkv_step(params, lkv, opt_state, batch):
+
+def _adam_step(grad: Callable, tc: TrainConfig):
+    """(params, lkv, opt_state, batch) -> (lkv', opt_state', loss,
+    {"lr", "grad_norm", "grads"}): ``grad``'s gradient through Adam."""
+    def step(params, lkv, opt_state, batch):
         loss, grads = grad(params, lkv, batch)
         lkv, opt_state, metrics = adam.update(lkv, grads, opt_state, tc)
         return lkv, opt_state, loss, dict(metrics, grads=grads)
 
-    return lkv_step
+    return step
 
 
 def make_distill_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
@@ -200,14 +201,7 @@ def make_distill_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
         raise ValueError("distillation trains lookahead modules; "
                          f"{cfg.name} has none")
     _refuse_a10(cfg)
-    grad = make_lkv_grad(cfg, mesh, distill=True)
-
-    def distill_step(params, lkv, opt_state, batch):
-        loss, grads = grad(params, lkv, batch)
-        lkv, opt_state, metrics = adam.update(lkv, grads, opt_state, tc)
-        return lkv, opt_state, loss, dict(metrics, grads=grads)
-
-    return distill_step
+    return _adam_step(make_lkv_grad(cfg, mesh, distill=True), tc)
 
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
