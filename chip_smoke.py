@@ -321,8 +321,8 @@ kernel's plain version):
       ranks equal both (tokens, kept sets with the ranks' kv heads
       gathered);
    b. llama3-8b at full width and depth on 2 ranks, paged lookaheadkv on
-      3a's trace after the one-rank engine on it; c. at 8 of 32 layers on
-      4 ranks, paged h2o: every rank's launches exactly ``TP_CELLS``'
+      3a's trace after the one-rank engine on it; c. at 4 of 32 layers on
+      4 ranks, paged h2o (8 until PR 32 cut it for time): every rank's launches exactly ``TP_CELLS``'
       and the one-rank run's, its pool bytes per shard the one-rank
       pool's over N, its peak memory printed, and the shares of tokens
       and of kept (layer, kv head, position) entries agreeing with the
@@ -351,8 +351,27 @@ kernel's plain version):
       launches;
    c. each rank's argument bytes as the dry-run sizes them equal what it
       holds, to the byte; ``dryrun --variant split_cache`` and
-      ``dryrun_all --mesh pod`` (started on the CPU before 7a) write only
-      ok, skipped or refused files.
+      ``dryrun_all --mesh pod`` (started on the CPU with phase 3) write
+      only ok, skipped or refused files.
+
+8. The trainer under a mesh (``phase_train_mesh``; ROADMAP A11), ranks on
+   cuda:0 over gloo, ``train.train_shard`` in a world of 4 and one of 2
+   side by side after the one-rank runs.  Phase 1 times kernels 7 and 3
+   at the GT pass's shape (B 1 x (1,024 + 64)) at the local heads
+   (entries ``<kernel> tp2 gt`` / ``tp4 gt``, launches from 8b / 8a).
+   a. the CPU test's eight cases (llama3-smoke at 8 / 4 heads of 32 on
+      (1, 2), (2, 1), (2, 2) with ZeRO, (1, 4), (2, 1, 2) and the
+      distillation at (2, 2); deepseek-smoke and gemma3-smoke on (1, 2)),
+      float32, one step each against the one-rank step on the card
+      (``TRAIN_MESH_SMOKE_TOL``), every rank the same;
+   b. llama3-8b at full width and depth on (1, 2), two steps of 5b's
+      online shape from 5b's trained modules; c. at 4 of 32 layers on
+      (2, 2) with ZeRO, B 2: kernels 7 and 3 once per layer and step on
+      every rank and no other, weight bytes per rank as the dry-run sizes
+      them and as the allocator rose, peak memory, and the first step's
+      loss and gradient against one rank's and, through a float32
+      one-rank step, against the float32 gradient
+      (``TRAIN_MESH_FLOORS``).
 
 Output: per-phase lines, then a JSON line of per-kernel numbers, the
 card's name and power limit, and as the last line
@@ -5117,8 +5136,8 @@ TP_CELLS = {
     "6b": (2, 32, "lookaheadkv", {"chunk_attention": 44 * 32,
                                   "lookahead_score": 4 * 32,
                                   "paged_decode_attention": 124 * 32}),
-    "6c": (4, 8, "h2o", {"chunk_attention_masses": 40 * 8,
-                         "paged_decode_attention": 124 * 8})}
+    "6c": (4, 4, "h2o", {"chunk_attention_masses": 40 * 4,
+                         "paged_decode_attention": 124 * 4})}
 
 
 def concurrently(*calls) -> list:
@@ -5217,7 +5236,7 @@ def phase_tp(torch, mods, device: str = "cuda") -> dict:
     and by worlds of 2 and 4 ranks on the card; tokens and kept sets (the
     ranks' kv heads gathered) must be equal, as phase 2 requires.
     6b: llama3-8b at full width and depth on 2 ranks, paged lookaheadkv on
-    3a's trace; 6c: at 8 of 32 layers on 4 ranks, paged h2o (kernel 2 at
+    3a's trace; 6c: at 4 of 32 layers on 4 ranks, paged h2o (kernel 2 at
     the local (8, 2)).  Each after the one-rank engine on the same trace
     (freed first): every rank's launches exactly ``TP_CELLS``'s, its pool
     bytes per shard the one-rank pool's over N, and the shares of tokens
@@ -5389,22 +5408,23 @@ TP_MESH_PREFIX_TAILS = (36, 50, 20)
 #: runs as often as one rank does), the bytes from the serving layout's
 #: shapes.
 TP_MESH_CELLS = {
-    "6e": ("llama3-8b", 8, 4, 2, True, (256, 512), 4,
-           {"chunk_attention": 5 * 8, "lookahead_score": 2 * 8,
-            "paged_decode_attention": 6 * 8}, 1_923_227_648, 33_554_432,
+    "6e": ("llama3-8b", 4, 4, 2, True, (256, 512), 4,
+           {"chunk_attention": 5 * 4, "lookahead_score": 2 * 4,
+            "paged_decode_attention": 6 * 4}, 1_486_954_496, 33_554_432,
            0.2, 0.9),
-    "6f": ("deepseek-moe-16b", 4, 2, 2, True, (256, 256), 2,
-           {"chunk_attention": 4 * 4, "lookahead_score": 2 * 4,
-            "paged_decode_attention": 2 * 4}, 2_772_471_808, 33_554_432,
+    "6f": ("deepseek-moe-16b", 2, 2, 2, True, (256, 256), 2,
+           {"chunk_attention": 4 * 2, "lookahead_score": 2 * 2,
+            "paged_decode_attention": 2 * 2}, 1_595_953_152, 33_554_432,
            0.2, 0.9),
     "6h": ("gemma3-1b", 26, 2, 2, False, (1024, 2048), 16,
            {"chunk_attention": 14 * 26, "lookahead_score": 2 * 26,
             "decode_attention": 30 * 26}, 1_999_625_472, None, 1.0, 1.0),
 }
-#: 6g: 3l's shared prefix and prompts on 2 ranks at 8 of 32 layers, the
-#: cache on and off in one world: the hits, and kernel 1's launches fewer
-#: by the chunks that hit times the layers
-TP_PREFIX_LAYERS, TP_PREFIX_NEW = 8, 8
+#: 6g: 3l's shared prefix and prompts on 2 ranks at 4 of 32 layers (8
+#: until PR 32 cut the host gathers' time), the cache on and off in one
+#: world: the hits, and kernel 1's launches fewer by the chunks that hit
+#: times the layers
+TP_PREFIX_LAYERS, TP_PREFIX_NEW = 4, 8
 
 
 def tp_row_kept(ranks, whole: bool = False) -> list:
@@ -5430,7 +5450,7 @@ def phase_tp_mesh(torch, mods, device: str = "cuda") -> dict:
     CPU's router near-ties are phase 2's business), prefix-cache hits and
     tokens skipped equal to it, ``stats["mesh"]`` the mesh, the decode
     slots split where the data size divides them.
-    6e (llama3-8b, 8 of 32 layers, (2, 2), ZeRO), 6f (deepseek-moe-16b, 4
+    6e (llama3-8b, 4 of 32 layers, (2, 2), ZeRO), 6f (deepseek-moe-16b, 2
     of 28 layers, (1, 2), the experts gathered whole) and 6h (gemma3-1b
     at full depth, (1, 2), every layer whole on every rank, dense slots):
     ``TP_MESH_CELLS``' launches on every rank, exactly, and the one-rank
@@ -6763,7 +6783,7 @@ def main() -> None:
     trained_lkv = phase_learning_loop(torch, mods, header)
     header("phase 6: tensor-parallel serving, ranks sharing cuda:0 over "
            "gloo (6a smoke exactness at 2 and 4 ranks; 6b llama3-8b full "
-           "width on 2 ranks; 6c 8 layers on 4 ranks, h2o)")
+           "width on 2 ranks; 6c 4 layers on 4 ranks, h2o)")
     tp = phase_tp(torch, mods)
     torch.cuda.empty_cache()
     header("phase 6d-6h: every mesh the JAX engine serves (6d smoke "
