@@ -5410,11 +5410,11 @@ TP_MESH_PREFIX_TAILS = (36, 50, 20)
 TP_MESH_CELLS = {
     "6e": ("llama3-8b", 4, 4, 2, True, (256, 512), 4,
            {"chunk_attention": 5 * 4, "lookahead_score": 2 * 4,
-            "paged_decode_attention": 6 * 4}, 1_486_954_496, 33_554_432,
+            "paged_decode_attention": 6 * 4}, 1_486_954_496, 16_777_216,
            0.2, 0.9),
     "6f": ("deepseek-moe-16b", 2, 2, 2, True, (256, 256), 2,
            {"chunk_attention": 4 * 2, "lookahead_score": 2 * 2,
-            "paged_decode_attention": 2 * 2}, 1_595_953_152, 33_554_432,
+            "paged_decode_attention": 2 * 2}, 1_595_953_152, 16_777_216,
            0.2, 0.9),
     "6h": ("gemma3-1b", 26, 2, 2, False, (1024, 2048), 16,
            {"chunk_attention": 14 * 26, "lookahead_score": 2 * 26,
