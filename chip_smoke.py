@@ -5140,32 +5140,41 @@ TP_CELLS = {
                          "paged_decode_attention": 124 * 4})}
 
 
+def in_background(call):
+    """Start the zero-argument ``call`` in a thread; returns a function
+    that waits for it and gives its result (or raises its exception)."""
+    import threading
+
+    box: dict = {}
+
+    def run():
+        try:
+            box["out"] = call()
+        except BaseException as e:  # re-raised by the waiter
+            box["err"] = e
+
+    # a daemon: a phase that fails leaves no thread for exit to wait on
+    # (its spawned ranks are daemon processes, ended at exit)
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def wait():
+        th.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return wait
+
+
 def concurrently(*calls) -> list:
     """Each zero-argument call run in a thread of its own, all at once;
     their results in order (a call's exception raised here).  The
     spawned worlds of phases 6 and 8 gather through gloo over the host,
     which one world leaves mostly idle, so two worlds side by side take
     little longer than the slower alone."""
-    import threading
-
-    box: dict = {}
-
-    def run(i, call):
-        try:
-            box[i] = (True, call())
-        except BaseException as e:  # re-raised below
-            box[i] = (False, e)
-
-    threads = [threading.Thread(target=run, args=(i, c))
-               for i, c in enumerate(calls)]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join()
-    for i in range(len(calls)):
-        if not box[i][0]:
-            raise box[i][1]
-    return [box[i][1] for i in range(len(calls))]
+    waits = [in_background(c) for c in calls]
+    return [w() for w in waits]
 
 
 def tp_world(torch, mods, n: int, jobs: list) -> list:
@@ -5221,7 +5230,7 @@ def tp_shares(want_tok, want_kept, got_tok, got_kept) -> tuple:
     return same_tok / n_tok, same_kept / n_kept
 
 
-def phase_tp(torch, mods, device: str = "cuda") -> dict:
+def phase_tp(torch, mods, device: str = "cuda") -> tuple:
     """Phase 6: tensor-parallel serving, ranks spawned as processes that
     share cuda:0 and gather through the host over gloo (NCCL refuses two
     ranks on one device).  It proves correctness at full width and that
@@ -5241,9 +5250,11 @@ def phase_tp(torch, mods, device: str = "cuda") -> dict:
     (freed first): every rank's launches exactly ``TP_CELLS``'s, its pool
     bytes per shard the one-rank pool's over N, and the shares of tokens
     and of kept entries that agree with the one-rank run at least
-    ``TP_TOKEN_SHARE_MIN`` / ``TP_KEPT_SHARE_MIN``.  Returns rank 0's
-    kernel launches: {"6a tp2" / "6a tp4": over 6a's four runs, "6b",
-    "6c"}."""
+    ``TP_TOKEN_SHARE_MIN`` / ``TP_KEPT_SHARE_MIN``.  6b's and 6c's worlds
+    run on in the background after their one-rank runs.  Returns (rank
+    0's kernel launches {"6a tp2" / "6a tp4": over 6a's four runs}, a
+    ``finish()`` that waits for 6b and 6c, holds them (``hold_tp_cell``)
+    and returns the launches with "6b" and "6c")."""
     import dataclasses
     import gc
 
@@ -5325,6 +5336,7 @@ def phase_tp(torch, mods, device: str = "cuda") -> dict:
     trace = [serving.Request(uid=i, prompt=rng.integers(
         0, full.vocab_size, n).astype(np.int32), max_new_tokens=32)
         for i, n in enumerate(LENS)]
+    pending = []
     for cell, (n, layers, policy, predicted) in TP_CELLS.items():
         cfg = dataclasses.replace(full, num_layers=layers)
         sc = serving.ServingConfig(
@@ -5337,43 +5349,60 @@ def phase_tp(torch, mods, device: str = "cuda") -> dict:
         one = serve.serve_job(job)
         gc.collect()
         torch.cuda.empty_cache()
-        ranks = tp_world(torch, mods, n, [job])[0]
-        want_tok, want_kept = tp_tokens([one]), tp_kept([one])
-        got_tok, got_kept = tp_tokens(ranks), tp_kept(ranks)
-        tok_share, kept_share = tp_shares(want_tok, want_kept, got_tok,
-                                          got_kept)
-        pool1 = one["stats"]["kv_pool"]["bytes_total_per_shard"]
-        print(f"  {cell}: llama3-8b, {layers} layers, {policy}, {n} ranks: "
-              f"one rank {one['wall_s']:.2f} s wall, peak "
-              f"{gib(one['peak_bytes'])} GiB, pool {pool1} B; "
-              f"tokens agreeing {tok_share:.4f}, kept entries agreeing "
-              f"{kept_share:.4f} (floors {TP_TOKEN_SHARE_MIN}, "
-              f"{TP_KEPT_SHARE_MIN})")
-        for rk in ranks:
-            r = rk["model_index"]
-            launched = {k: rk["launches"][k] for k in predicted}
-            print(f"    rank {r}: wall {rk['wall_s']:.2f} s (ranks sharing "
-                  f"one card, gathering through the host), peak "
-                  f"{gib(rk['peak_bytes'])} GiB, pool "
-                  f"{rk['stats']['kv_pool']['bytes_total_per_shard']} B per "
-                  f"shard, launches {launched}")
-            check(launched == predicted, f"{cell} rank {r}: launches "
-                  f"{launched}, predicted {predicted}")
-            check({k: v for k, v in rk["launches"].items() if v} ==
-                  {k: v for k, v in one["launches"].items() if v},
-                  f"{cell} rank {r}: launches differ from the one-rank "
-                  "run's")
-            check(rk["stats"]["kv_pool"]["bytes_total_per_shard"] * n
-                  == pool1, f"{cell} rank {r}: pool bytes per shard")
-            check(tp_tokens([rk]) == got_tok, f"{cell}: ranks' tokens differ")
-        check(tok_share >= TP_TOKEN_SHARE_MIN and
-              kept_share >= TP_KEPT_SHARE_MIN,
-              f"{cell}: agreement with the one-rank run below its floor")
-        out[cell] = ranks[0]["launches"]
-        del one, ranks
-        gc.collect()
-        torch.cuda.empty_cache()
-    return out
+        # the world runs on in the background, beside the next cell's
+        # one-rank run and phase 6d-6h; ``finish`` holds it
+        pending.append((cell, one, in_background(
+            lambda n=n, job=job: tp_world(torch, mods, n, [job])[0])))
+
+    def finish() -> dict:
+        """Wait for 6b's and 6c's worlds and hold them (their launches
+        into the returned counts)."""
+        for cell, one, wait in pending:
+            hold_tp_cell(cell, one, wait(), out)
+        return out
+
+    return out, finish
+
+
+def hold_tp_cell(cell: str, one: dict, ranks: list, out: dict) -> None:
+    """6b / 6c: every rank's launches exactly ``TP_CELLS``' and the
+    one-rank run's, its pool bytes per shard the one-rank pool's over N,
+    equal tokens on every rank, and the shares of tokens and kept entries
+    agreeing with the one-rank run at least the floors; rank 0's launches
+    into ``out[cell]``."""
+    n, layers, policy, predicted = TP_CELLS[cell]
+    want_tok, want_kept = tp_tokens([one]), tp_kept([one])
+    got_tok, got_kept = tp_tokens(ranks), tp_kept(ranks)
+    tok_share, kept_share = tp_shares(want_tok, want_kept, got_tok,
+                                      got_kept)
+    pool1 = one["stats"]["kv_pool"]["bytes_total_per_shard"]
+    print(f"  {cell}: llama3-8b, {layers} layers, {policy}, {n} ranks: "
+          f"one rank {one['wall_s']:.2f} s wall, peak "
+          f"{gib(one['peak_bytes'])} GiB, pool {pool1} B; "
+          f"tokens agreeing {tok_share:.4f}, kept entries agreeing "
+          f"{kept_share:.4f} (floors {TP_TOKEN_SHARE_MIN}, "
+          f"{TP_KEPT_SHARE_MIN})")
+    for rk in ranks:
+        r = rk["model_index"]
+        launched = {k: rk["launches"][k] for k in predicted}
+        print(f"    rank {r}: wall {rk['wall_s']:.2f} s (ranks sharing "
+              f"one card, gathering through the host), peak "
+              f"{gib(rk['peak_bytes'])} GiB, pool "
+              f"{rk['stats']['kv_pool']['bytes_total_per_shard']} B per "
+              f"shard, launches {launched}")
+        check(launched == predicted, f"{cell} rank {r}: launches "
+              f"{launched}, predicted {predicted}")
+        check({k: v for k, v in rk["launches"].items() if v} ==
+              {k: v for k, v in one["launches"].items() if v},
+              f"{cell} rank {r}: launches differ from the one-rank "
+              "run's")
+        check(rk["stats"]["kv_pool"]["bytes_total_per_shard"] * n
+              == pool1, f"{cell} rank {r}: pool bytes per shard")
+        check(tp_tokens([rk]) == got_tok, f"{cell}: ranks' tokens differ")
+    check(tok_share >= TP_TOKEN_SHARE_MIN and
+          kept_share >= TP_KEPT_SHARE_MIN,
+          f"{cell}: agreement with the one-rank run below its floor")
+    out[cell] = ranks[0]["launches"]
 
 
 #: 6d: 6a's geometry with ZeRO storage (``fsdp``) at ("data", "model") =
@@ -6784,13 +6813,16 @@ def main() -> None:
     header("phase 6: tensor-parallel serving, ranks sharing cuda:0 over "
            "gloo (6a smoke exactness at 2 and 4 ranks; 6b llama3-8b full "
            "width on 2 ranks; 6c 4 layers on 4 ranks, h2o)")
-    tp = phase_tp(torch, mods)
+    tp, finish_6bc = phase_tp(torch, mods)
     torch.cuda.empty_cache()
     header("phase 6d-6h: every mesh the JAX engine serves (6d smoke "
            "exactness at (2, 2) and (4, 1); 6e llama3-8b (2, 2) with ZeRO; "
            "6f deepseek-moe-16b on 2 ranks; 6g a shared prefix on 2 ranks; "
-           "6h gemma3-1b on 2 ranks)")
-    tp.update(phase_tp_mesh(torch, mods))
+           "6h gemma3-1b on 2 ranks), beside 6b's and 6c's worlds")
+    mesh_counts = phase_tp_mesh(torch, mods)
+    header("phase 6b, 6c: their worlds, run beside 6d-6h")
+    tp = finish_6bc()
+    tp.update(mesh_counts)
     torch.cuda.empty_cache()
     split_counts = phase_split_decode(torch, mods, header, sweep=sweep)
     torch.cuda.empty_cache()
