@@ -17,8 +17,8 @@ data row ``(r // model) % data``) and model column ``r % model``.
 
 * ``make_production_mesh(multi_pod=)``: the JAX package's TPU v5e shapes,
   (16, 16) over ("data", "model") or (2, 16, 16) over ("pod", "data",
-  "model"); shape only, or with ``over_world`` over an initialised world
-  of 256 or 512 ranks (``torchrun``: initialised from the environment).
+  "model"); shape only (``make_mesh`` of the same sizes over a world of
+  256 or 512 ranks, ``torchrun``'s: ``init_from_env``).
 * ``make_mesh(sizes)``: a ("data", "model") or ("pod", "data", "model")
   mesh of those sizes over the initialised world.
 * ``make_host_mesh(model)``: the ("data", "model") mesh over the
@@ -101,28 +101,11 @@ PRODUCTION = {False: ((16, 16), ("data", "model")),
               True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
-def make_production_mesh(*, multi_pod: bool = False,
-                         over_world: bool = False) -> Mesh:
-    """The JAX package's production mesh: shape only, or with
-    ``over_world`` over the initialised world (``torchrun``'s ranks: the
-    process group is initialised from the environment where it is not
-    yet), which must hold its 256 or 512 ranks; a world of another size
-    raises ``ValueError`` naming the count it needs, as ``jax.make_mesh``
-    fails with too few devices."""
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The JAX package's production mesh, shape only (``make_mesh`` of
+    ``PRODUCTION``'s sizes builds it over a world of 256 or 512 ranks)."""
     sizes, names = PRODUCTION[multi_pod]
-    if not over_world:
-        return Mesh(names, sizes)
-    init_from_env()
-    need = 1
-    for s in sizes:
-        need *= s
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    if world != need:
-        raise ValueError(
-            f"the {'multipod' if multi_pod else 'pod'} mesh {sizes} over "
-            f"{names} needs a world of {need} ranks (torchrun "
-            f"--nproc-per-node ...); this world has {world}")
-    return make_mesh(sizes)
+    return Mesh(names, sizes)
 
 
 def init_from_env(backend: Optional[str] = None) -> None:
@@ -161,8 +144,8 @@ def make_mesh(sizes: tuple) -> Mesh:
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     if world != pods * data * model:
-        raise ValueError(f"the mesh {sizes} over {names} needs "
-                         f"{pods * data * model} ranks; this world has "
+        raise ValueError(f"the mesh {sizes} over {names} needs a world "
+                         f"of {pods * data * model} ranks; this world has "
                          f"{world}")
     if not dist.is_initialized():
         return Mesh(names, sizes, None, rank)

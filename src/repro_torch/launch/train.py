@@ -128,8 +128,9 @@ def main(argv=None) -> dict:
                stop_after=args.stop_after)
     if args.mesh == "host":
         return train_job(job)
-    mesh = mesh_mod.make_production_mesh(multi_pod=args.mesh == "multipod",
-                                         over_world=True)
+    mesh_mod.init_from_env()
+    mesh = mesh_mod.make_mesh(
+        mesh_mod.PRODUCTION[args.mesh == "multipod"][0])
     device = args.device
     if torch.device(device).type == "cuda":
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
