@@ -83,6 +83,16 @@ rescoring pass of LAQ and SpecKV), full, and no policy (no scoring, no
 cache).  Host clock around each call, which ends in a device sync; the
 cases run in turns, 7 rounds, the first 2 dropped; prints each case's
 median, min and max.
+
+    python3 chip_ab.py --train-lengths build/parent .
+
+runs each checkout's ``launch/train.py`` (a process of its own, that
+checkout's ``src`` first on the path, its kernels built into
+``<root>/build/repro_torch/``) on llama3-8b at the paper's lengths:
+``--n-in 3584 --n-out 512 --batch 1 --steps 2`` (seed 0); prints per
+checkout the ms per step, the losses and the peak of
+``torch.cuda.max_memory_allocated``, or the out-of-memory error and the
+peak reached before it.
 """
 
 from __future__ import annotations
@@ -647,6 +657,30 @@ def time_marks(root: str) -> None:
                   + " us", flush=True)
 
 
+def train_lengths(root: str, torch) -> None:
+    """One checkout's trainer at the paper's lengths (module docstring)."""
+    import tempfile
+
+    from repro_torch.launch import train
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            res = train.main(["--arch", "llama3-8b", "--seed", "0",
+                              "--device", "cuda", "--n-in", "3584",
+                              "--n-out", "512", "--batch", "1", "--steps",
+                              "2", "--ckpt", f"{d}/lkv.npz"])
+        except torch.OutOfMemoryError as e:
+            print(f"{root}: train at n_in 3584, n_out 512, B 1: out of "
+                  f"memory, peak {torch.cuda.max_memory_allocated()} bytes "
+                  f"before it; {str(e).splitlines()[0]}", flush=True)
+            return
+    print(f"{root}: train at n_in 3584, n_out 512, B 1: ms per step "
+          f"{[round(s * 1e3, 1) for s in res['step_s']]}, losses "
+          f"{res['losses']}, peak {torch.cuda.max_memory_allocated()} "
+          "bytes", flush=True)
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -679,6 +713,16 @@ def main() -> None:
     if len(sys.argv) > 2 and sys.argv[1] == "--prefill":
         sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
         time_prefill(sys.argv[2], torch)
+        print(card())
+        return
+    if len(sys.argv) > 2 and sys.argv[1] == "--train-one":
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
+        train_lengths(sys.argv[2], torch)
+        return
+    if len(sys.argv) > 2 and sys.argv[1] == "--train-lengths":
+        for root in sys.argv[2:]:
+            subprocess.run([sys.executable, __file__, "--train-one", root],
+                           check=True)
         print(card())
         return
     if len(sys.argv) > 2 and sys.argv[1] == "--splits":

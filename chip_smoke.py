@@ -306,7 +306,20 @@ kernel's plain version):
       kernel launch;
    d. ``serve --lkv-ckpt`` with (b)'s checkpoint, lockstep 4 x 1024, 8 new:
       kernels 7, 3 and 6 exactly 32, 32 and 256 times, and the tokens of
-      a ``ServingEngine`` given (b)'s modules in memory.
+      a ``ServingEngine`` given (b)'s modules in memory;
+   f. ``launch/train.py`` at the paper's lengths, ``--n-in 3584 --n-out
+      512 --batch 1 --steps 2``: the lookahead pass and its backward over
+      3,592 rows on the plain route's streaming tier (``ref.ChunkedAttention``),
+      the GT pass over 4,096 rows on kernels 7 and 3 (512 response rows):
+      exactly 64 launches each of kernels 7 and 3 and no other, finite
+      losses, nonzero gradient norms, every lkv leaf moved, the peak under
+      80 GB; ms per step and the peak beside the card's name and power
+      limit.  Phase 1 holds kernels 7 and 3 at that GT pass's shapes
+      (``phase_kernels_paper_lengths``: ``<kernel> 5f``, launches from
+      5f) and the streaming attention against the direct plain form at
+      B 1 x 3,592 causal, float32 and bf16 (output and gradients within
+      ``STREAM_TOL``; forward and forward + backward ms, the bytes saved
+      for the backward, the peak rise).
 
 6. Tensor-parallel serving (``phase_tp``; ROADMAP A11's serving half):
    worlds of ranks spawned as processes (``launch/mesh.py::spawn_ranks``,
@@ -1781,6 +1794,8 @@ def phase_kernels(torch, mods) -> list:
     results += phase_kernels_tp(torch, chunk_case, masses_chunk_case,
                                 score_case, paged_case, decode_case,
                                 flash_case)
+    results += phase_kernels_paper_lengths(torch, mods, score_case,
+                                           flash_case)
     return results
 
 
@@ -2179,6 +2194,137 @@ def phase_kernels_tp(torch, chunk_case, masses_chunk_case, score_case,
         out.append(dict(name=f"{name} {tag}", route="cuda", source=src,
                         replaces=f"src/repro/kernels/{rep}", **res))
     return out
+
+
+#: phase 5f: the paper's TrainConfig lengths on llama3-8b at B 1 (the GT
+#: pass over 3,584 + 512 rows, the lookahead pass over 3,584 + 8)
+PAPER_IN, PAPER_OUT = 3584, 512
+PAPER_LENGTHS = ["--steps", "2", "--batch", "1", "--n-in", str(PAPER_IN),
+                 "--n-out", str(PAPER_OUT)]
+#: the streaming attention (the plain route above ``ref.DIRECT_SEQ``
+#: keys) against the direct plain form on the same inputs: (output, per
+#: row of its largest magnitude; each gradient, of its largest magnitude).
+#: float32: summation order alone; bf16: the output rounds once on both
+#: sides (1 ulp, 2^-8) and D = rowsum(dO O) reads the bf16 output
+STREAM_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2 ** -7, 2 ** -5)}
+
+
+def saved_bytes(torch, fn):
+    """Run ``fn`` under autograd and return (its result, the bytes of the
+    distinct storages autograd saved for the backward)."""
+    seen = {}
+
+    def pack(t):
+        s = t.untyped_storage()
+        seen[s.data_ptr()] = s.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, sum(seen.values())
+
+
+def phase_streaming_attention(torch, mods, S: int, heads=(32, 8, 128),
+                              device: str = "cuda") -> None:
+    """The plain route's streaming attention (``ops.flash_attention``
+    inside ``reference_mode()``, the lookahead pass's call: the autograd
+    Function ``ref.ChunkedAttention`` above ``ref.DIRECT_SEQ`` keys)
+    against the direct plain form (``ref.flash_attention``) at llama3-8b's
+    heads (32 / 8 of 128), B 1 x ``S`` causal, in float32 and bf16: the
+    output and the three gradients of one upstream gradient within
+    ``STREAM_TOL``; forward and forward + backward ms of each (cold L2),
+    the bytes each saves for its backward and the peak rise of the card's
+    memory over the forward + backward."""
+    ref, ops = mods["ref"], mods["ops"]
+    Hs, KVs, hds = heads
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        out_rel, grad_rel = STREAM_TOL[name]
+        q, k, v = (torch.randn((1, S, n, hds), generator=g, device=device)
+                   .to(dtype).requires_grad_() for n in (Hs, KVs, KVs))
+        up = torch.randn((1, S, Hs, hds), generator=g,
+                         device=device).to(dtype)
+
+        def streaming():
+            with ops.reference_mode():
+                return ops.flash_attention(q, k, v)
+
+        def direct():
+            return ref.flash_attention(q, k, v)
+
+        res = {}
+        for label, fn in (("streaming", streaming), ("direct", direct)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out, n_saved = saved_bytes(torch, fn)
+            grads = torch.autograd.grad(out, (q, k, v), up)
+            torch.cuda.synchronize()
+            rise = torch.cuda.max_memory_allocated() - base
+            fwd = lambda: fn()  # noqa: E731
+            with torch.no_grad():
+                fwd_ms = time_ms(torch, fwd, iters=3, warmup=1)
+
+            def both():
+                torch.autograd.grad(fn(), (q, k, v), up)
+
+            both_ms = time_ms(torch, both, iters=3, warmup=1)
+            res[label] = (out.detach(), [x.detach() for x in grads])
+            print(f"  {label} attention, {name}, B=1 S={S} causal ({Hs}/"
+                  f"{KVs} heads of {hds}): forward {fwd_ms:.3f} ms, forward + "
+                  f"backward {both_ms:.3f} ms; saved for the backward "
+                  f"{n_saved / 1e6:.1f} MB; peak rise {rise / 2**30:.2f} "
+                  "GiB")
+            del out, grads
+        (s_out, s_grads), (d_out, d_grads) = res["streaming"], res["direct"]
+        check(torch.isfinite(s_out).all() and all(
+            torch.isfinite(x).all() for x in s_grads),
+            f"streaming attention {name}: a non-finite output or gradient")
+        check_rows(torch, s_out, d_out, out_rel,
+                   f"streaming attention {name} output")
+        for x, gs, gd in zip("qkv", s_grads, d_grads):
+            err, scale = max_err(gs, gd), float(gd.float().abs().max())
+            print(f"  streaming attention {name} d{x}: max_abs_err "
+                  f"{err:.3e} of max|direct| {scale:.3e} (tol {grad_rel:g}"
+                  " of it)")
+            check(err <= grad_rel * scale, f"streaming attention {name} "
+                  f"d{x}: {err} > {grad_rel} x {scale}")
+        del res, q, k, v, up
+    torch.cuda.empty_cache()
+
+
+def phase_kernels_paper_lengths(torch, mods, score_case,
+                                flash_case) -> list:
+    """Phase 1 at the GT pass of the paper's lengths (5f: llama3-8b, B 1
+    x (3,584 + 512) rows, bf16): kernel 7 causal over the 4,096 rows and
+    kernel 3 on the 512 response rows over them, scored on the 3,584
+    prompt keys (16 row blocks of kernel 3's packed rows; its largest row
+    count elsewhere is 64), each timed beside its plain version, its bound
+    and SDPA where one call computes it; kernel 3 also at 512 rows with
+    both masks, a window and B 2.  Then the streaming attention of the
+    lookahead pass against the direct plain form
+    (``phase_streaming_attention``, at 3,584 + the config's lookahead
+    rows).  Returns the timed cases, ``<kernel> 5f``."""
+    S = PAPER_IN + PAPER_OUT
+    k7 = flash_case(1, S, True, None, f"5f GT pass: B=1 S={S} causal",
+                    timed="flash_attention 5f")
+    k3 = score_case(1, PAPER_OUT, S, PAPER_IN, None, None, False,
+                    f"5f GT pass: {PAPER_OUT} rows over {S}, "
+                    f"n_prompt={PAPER_IN}", timed="lookahead_score 5f")
+    score_case(2, PAPER_OUT, 1100, 588, None, None, True,
+               f"{PAPER_OUT} rows over 1100, masks, B=2")
+    score_case(1, PAPER_OUT, 2000, 1488, None, 256, False,
+               f"{PAPER_OUT} rows over 2000, window 256")
+    lkv = mods["configs"].get_config("llama3-8b").lookahead.n_lookahead
+    phase_streaming_attention(torch, mods, PAPER_IN + lkv)
+    return [dict(name="flash_attention 5f", route="cuda",
+                 source="src/repro_torch/csrc/attention_sm90.cuh",
+                 replaces="src/repro/kernels/flash_attention.py:71", **k7),
+            dict(name="lookahead_score 5f", route="cuda",
+                 source="src/repro_torch/csrc/lookahead_score.cu",
+                 replaces="src/repro/kernels/lookahead_score.py:87", **k3)]
 
 
 #: whisper-small's attention: 12 query and 12 kv heads of 64 (MHA), its
@@ -5078,12 +5224,63 @@ def phase_serve_ckpt(torch, mods, cfg, ckpt_path: str, lkv) -> None:
     check(all(len(r.out_tokens) == 8 for r in done), "5d: a short request")
 
 
-def phase_learning_loop(torch, mods, header) -> dict:
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_train_paper(torch, mods, cfg, lkv0, ckpt_path: str) -> dict:
+    """5f: ``launch/train.py`` at the paper's lengths (``PAPER_LENGTHS``:
+    n_in 3,584, n_out 512, B 1, two steps), which the lookahead pass's
+    backward reaches through the streaming tier: kernels 7 and 3 exactly
+    once per layer per step (the GT pass) and no other launch, finite
+    losses, nonzero gradient norms, every lkv leaf moved, and a peak of
+    ``torch.cuda.max_memory_allocated`` under the card's 80 GB; ms per
+    step and the peak printed beside the card's name and power limit.
+    Returns the launches."""
+    ops = mods["ops"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = mods["train"].main(TRAIN + PAPER_LENGTHS + ["--ckpt", ckpt_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L, n = cfg.num_layers, len(res["losses"])
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=n * L, lookahead_score=n * L)
+    print(f"  {n} steps of B 1 x ({PAPER_IN} + {PAPER_OUT}) in {wall:.2f} s "
+          f"with the model's init; ms per step "
+          f"{[round(s * 1e3, 1) for s in res['step_s']]} (host clock, "
+          f"synchronised); losses {res['losses']}; grad norms "
+          f"{res['grad_norms']}; peak torch.cuda.max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB ({peak} bytes); {card_line()}")
+    print(f"  launches {counts}, predicted {want}: {counts == want}")
+    check(counts == want, f"5f: launches {counts}, expected {want}")
+    check(all(math.isfinite(x) for x in res["losses"] + res["grad_norms"]),
+          "5f: a non-finite loss or gradient norm")
+    check(all(g > 0 for g in res["grad_norms"]), "5f: a zero gradient norm")
+    moved = [not torch.equal(a, b) for a, b in zip(
+        mods["adam"].leaves(lkv0), mods["adam"].leaves(res["lkv"]))]
+    check(all(moved), f"5f: {moved.count(False)} lkv leaves did not move")
+    check(peak < 80e9, f"5f: peak {peak} bytes, over the card's 80 GB")
+    return counts
+
+
+def phase_learning_loop(torch, mods, header, counts=None) -> dict:
     """Phase 5 on llama3-8b at full width (32 layers, d 4096, 32/8 heads
     of 128, bf16, random weights from the seed, modules from
     ``init_lookahead_params``): 5a, 5e and the first half of 5b on one set
-    of weights, then 5b's trainer, 5c and 5d, which build their own.
-    Returns 5b's trained modules (numpy), phase 8's."""
+    of weights, then 5b's trainer, 5c, 5d and 5f, which build their own.
+    Returns 5b's trained modules (numpy), phase 8's; 5f's launches go to
+    ``counts["5f"]``."""
     import gc
     import tempfile
 
@@ -5114,8 +5311,15 @@ def phase_learning_loop(torch, mods, header) -> dict:
         torch.cuda.empty_cache()
         header("phase 5d: serve --lkv-ckpt (5b's checkpoint), lockstep")
         phase_serve_ckpt(torch, mods, cfg, f"{d}/lkv.npz", trained["lkv"])
+        lkv_host = mods["train"].to_host(trained["lkv"])
+        del trained
+        header(f"phase 5f: launch/train.py at the paper's lengths (n_in "
+               f"{PAPER_IN}, n_out {PAPER_OUT}, B 1)")
+        paper = phase_train_paper(torch, mods, cfg, lkv0, f"{d}/paper.npz")
+        if counts is not None:
+            counts["5f"] = paper
         torch.cuda.empty_cache()
-    return mods["train"].to_host(trained["lkv"])
+    return lkv_host
 
 
 #: phase 6: the smoke geometry of 6a (llama3-8b smoke rebuilt at 8 q /
@@ -6814,7 +7018,7 @@ def main() -> None:
     phase_moe_vlm_cells(torch, mods, header, counts)
     whisper = phase_whisper(torch, mods, header)
     torch.cuda.empty_cache()
-    trained_lkv = phase_learning_loop(torch, mods, header)
+    trained_lkv = phase_learning_loop(torch, mods, header, counts)
     header("phase 6: tensor-parallel serving, ranks sharing cuda:0 over "
            "gloo (6a smoke exactness at 2 and 4 ranks; 6b llama3-8b full "
            "width on 2 ranks; 6c 8 layers on 4 ranks, h2o)")
@@ -6844,6 +7048,9 @@ def main() -> None:
                 "chunk_attention_masses": "paged continuous h2o",
                 "ssd_scan": "hybrid lockstep"}
     for k in kernels:
+        if k["name"].endswith(" 5f"):  # 5f's GT pass at the paper's lengths
+            k["launches"] = counts["5f"][k["name"].split()[0]]
+            continue
         if k["name"].endswith(" gt"):  # phase 8's GT pass, rank 0
             # 8b's full-width (1, 2) ranks at (16, 4), 8d's (1, 4) at (8, 2)
             cell = "8b" if " tp2 " in k["name"] else "8d"

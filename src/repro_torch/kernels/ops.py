@@ -7,6 +7,16 @@ device, which carries shapes only (the dry-run's sizes and FLOP counts,
 ``launch/dryrun.py``).  Any other device raises.  There is no environment
 switch and no fallback from a failed kernel to the plain version.
 
+The plain route has the JAX package's two tiers: at or below
+``ref.DIRECT_SEQ`` keys it forms the whole logits block; above it it
+streams over key tiles (``ref.chunked_attention``, with its gradient
+``ref.ChunkedAttention`` under autograd; ``ref.chunked_lookahead_score``;
+``ref.paged_decode_streaming``), so that the lookahead pass and its
+backward at the paper's lengths never hold a (Sq, Sk) block per head.
+The ``meta`` device keeps the direct form (it holds shapes only).
+Single-query decode (``decode_attention``, ``decode_attention_stats``)
+stays direct, as in the JAX package.
+
 One exception, for gradients: the kernels are forward-only (no backward),
 so code that must differentiate through a forward pass (the lookahead
 pass of the distillation objective, ``core/objective.py``) runs it inside
@@ -85,6 +95,22 @@ def _on_card(t: torch.Tensor, *grad_inputs: Optional[torch.Tensor]) -> bool:
     return True
 
 
+def _streams(t: torch.Tensor, n_keys: int) -> bool:
+    """Whether a plain-route call over ``n_keys`` keys takes the streaming
+    tier: above ``ref.DIRECT_SEQ``, on any device but ``meta``."""
+    return t.device.type != "meta" and n_keys > ref.DIRECT_SEQ
+
+
+def _chunked_attention(q, k, v, **kw) -> torch.Tensor:
+    """The streaming attention, through its autograd Function when a
+    gradient may be asked of it."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return ref.ChunkedAttention.apply(
+            q, k, v, kw["causal"], kw["window"], kw["q_offset"],
+            kw["kv_mask"], kw["block_q"], kw["block_k"])
+    return ref.chunked_attention(q, k, v, **kw)
+
+
 def launch_counts() -> dict:
     """{kernel name: launches since the last reset}."""
     return {name: getattr(mod, attr)
@@ -119,6 +145,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                         kv_mask=kv_mask)[:, None]
         return _fk.flash_attention(q, k, v, causal=causal, window=window,
                                    kv_mask=kv_mask)
+    if _streams(q, k.shape[1]):
+        return _chunked_attention(
+            q, k, v, causal=causal, window=window,
+            q_offset=k.shape[1] - q.shape[1], kv_mask=kv_mask, block_q=512,
+            block_k=1024)
     return ref.flash_attention(q, k, v, causal=causal, window=window,
                                kv_mask=kv_mask)
 
@@ -172,14 +203,26 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q, k, v, q_offset=q_offset,
             n_total=q_offset + q.shape[1] if n_total is None else n_total,
             window=window)
-    out = ref.chunk_attention(q, k, v, q_offset=q_offset, window=window)
+    B, C = q.shape[:2]
+    K = k.shape[1]
+    stream = _streams(q, K)
+    if stream:
+        ref.check_offset(q_offset, C, K)
+        out = _chunked_attention(q, k, v, causal=True, window=window,
+                                 q_offset=q_offset, kv_mask=None,
+                                 block_q=256, block_k=1024)
+    else:
+        out = ref.chunk_attention(q, k, v, q_offset=q_offset, window=window)
     if not score_masses:
         return out
-    B, C = q.shape[:2]
     row_valid = None
     if n_total is not None:
         row_valid = (q_offset + torch.arange(C, device=q.device)
                      < n_total).expand(B, C)
+    if stream:
+        return out, ref.chunked_lookahead_score(
+            q, k, K, window=window, q_offset=q_offset, row_valid=row_valid,
+            reduce="sum", block_k=1024)
     return out, ref.chunk_column_masses(q, k, q_offset=q_offset,
                                         window=window, row_valid=row_valid)
 
@@ -194,6 +237,11 @@ def lookahead_score(q_obs: torch.Tensor, k: torch.Tensor, n_prompt: int, *,
         return _lk.lookahead_score(q_obs, k, n_prompt, kv_mask=kv_mask,
                                    window=window, q_offset=q_offset,
                                    row_valid=row_valid)
+    if _streams(q_obs, k.shape[1]):
+        return ref.chunked_lookahead_score(
+            q_obs, k, n_prompt, kv_mask=kv_mask, window=window,
+            q_offset=q_offset, row_valid=row_valid, reduce="mean",
+            block_k=2048)
     return ref.lookahead_score(q_obs, k, n_prompt, kv_mask=kv_mask,
                                window=window, q_offset=q_offset,
                                row_valid=row_valid)
@@ -226,12 +274,45 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         out, masses = _pk.paged_decode_masses(q, k_pool, v_pool, mask_pool,
                                               table, **kw)
         return out, (masses if depth is None else masses[..., :depth])
+    if paged_decode_path(_span(table, k_pool, depth), q.device) \
+            == "fallback":
+        # rows past ``depth`` are masked in the pool, so the scan needs no
+        # slice before the masses'
+        res = ref.paged_decode_streaming(q, k_pool, v_pool, mask_pool,
+                                         table, score_masses=score_masses,
+                                         **kw)
+        if not score_masses:
+            return res
+        return res[0], (res[1] if depth is None else res[1][..., :depth])
     out = ref.paged_decode_attention(q, k_pool, v_pool, mask_pool, table,
                                      **kw)
     if not score_masses:
         return out
     return out, ref.paged_decode_masses(q, k_pool, mask_pool, table,
                                         depth=depth, **kw)
+
+
+def _span(table: torch.Tensor, k_pool: torch.Tensor,
+          depth: Optional[int]) -> int:
+    """The logical rows a paged call walks: the table's columns x the block
+    size, capped at ``depth``."""
+    span = table.shape[1] * k_pool.shape[1]
+    return span if depth is None else min(span, depth)
+
+
+def paged_decode_path(span: int, device) -> str:
+    """Which tier of ``paged_decode_attention`` serves a logical cache of
+    ``span`` rows on ``device``: ``"kernel"`` (kernels 4 and 5, a CUDA
+    device outside ``reference_mode()``), ``"gather"`` (the plain direct
+    form over the gathered block-table view; always on ``meta``) or
+    ``"fallback"`` (the plain streaming scan, above ``ref.DIRECT_SEQ``
+    rows), the JAX package's tier names."""
+    kind = torch.device(device).type
+    if kind == "cuda" and not _REFERENCE_ONLY:
+        return "kernel"
+    if kind == "meta" or span <= ref.DIRECT_SEQ:
+        return "gather"
+    return "fallback"
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -12,6 +12,13 @@ q:  (B, Sq, H, hd)       queries
 k:  (B, Sk, KV, hd)      keys   (GQA: H = KV * G, query head h reads kv head h // G)
 v:  (B, Sk, KV, hd)      values
 Masked logits are ``NEG_INF``; positions are absolute.
+
+Above ``DIRECT_SEQ`` keys the plain route streams instead
+(``ops.py``): ``chunked_attention``, ``chunked_lookahead_score`` and
+``paged_decode_streaming`` are the JAX package's memory-bounded forms
+(``ops._chunked_attention``, ``_chunked_lookahead_score``,
+``_paged_decode_streaming``), and ``ChunkedAttention`` is the streaming
+attention's gradient, which recomputes each tile's probabilities.
 """
 
 from __future__ import annotations
@@ -22,6 +29,10 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+#: keys at or below which the plain route forms the whole (Sq, Sk) logits
+#: block; above it, it streams (the JAX package's ``ops._DIRECT_SEQ``)
+DIRECT_SEQ = 2048
 
 
 def check_offset(q_offset: int, C: int, K: int) -> None:
@@ -322,6 +333,318 @@ def paged_decode_masses(
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(logits - m), 0.0)
     return p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+
+
+# ---------------------------------------------------------------------------
+# The streaming tier: bounded temporaries above DIRECT_SEQ keys
+# ---------------------------------------------------------------------------
+#
+# Query heads stay grouped by kv head, (B, rows, KV, G, hd), so that no
+# key tile is repeated G times.  A tile no row of a block may see by
+# position (wholly above the causal diagonal, or wholly before the
+# window) is skipped.  That is exact once a row's running max is finite:
+# the skipped tile's weights would be exp(NEG_INF - m) = 0.  Before that
+# (a row whose first tiles are all masked) m is NEG_INF, the masked
+# logits' exp(0) = 1 is garbage in l and acc, and the first tile with a
+# key the row sees zeroes it (corr = exp(NEG_INF - m_new) = 0), as in the
+# JAX package; skipping such a tile only leaves less garbage to zero.
+# A row that sees no key at all (every visible key masked by kv_mask) is
+# undefined here as on every route: callers keep every row a valid key.
+
+
+def _grouped(x: torch.Tensor, kv: int) -> torch.Tensor:
+    """(B, S, H, hd) -> float32 (B, S, KV, G, hd)."""
+    B, S, H, hd = x.shape
+    return x.float().reshape(B, S, kv, H // kv, hd)
+
+
+def _tile_seen(r_lo: int, r_hi: int, c_lo: int, c_hi: int, causal: bool,
+               window) -> bool:
+    """Whether some row at a position in [r_lo, r_hi] may see some key in
+    [c_lo, c_hi] by position alone (causal, window)."""
+    if causal and c_lo > r_hi:
+        return False
+    return window is None or r_lo - c_hi < window
+
+
+def _tile_ok(q_pos: torch.Tensor, k0: int, k1: int, causal: bool, window,
+             kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The (row, key) pairs a tile may use: (B or 1, rows, k1 - k0)."""
+    k_pos = torch.arange(k0, k1, device=q_pos.device)
+    ok = torch.ones((1, q_pos.shape[0], k1 - k0), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok = ok & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        ok = ok & ((q_pos[:, None] - k_pos[None, :]) < window)
+    if kv_mask is not None:
+        ok = ok & kv_mask[:, None, k0:k1]
+    return ok
+
+
+def _tile_logits(qg: torch.Tensor, kt: torch.Tensor, ok: torch.Tensor,
+                 scale: float) -> torch.Tensor:
+    """Masked logits of grouped queries (B, bq, KV, G, hd) over a key tile
+    (B, bk, KV, hd): (B, KV, G, bq, bk) float32."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kt.float()) * scale
+    return torch.where(ok[:, None, None], s, NEG_INF)
+
+
+def _chunked_attention_stats(q, k, v, *, causal, window, q_offset, kv_mask,
+                             block_q, block_k):
+    """``chunked_attention`` and each row's final running max m and
+    normaliser l, float32 (B, H, Sq)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    outs, ms, ls = [], [], []
+    for q0 in range(0, Sq, block_q):
+        q1 = min(q0 + block_q, Sq)
+        qg = _grouped(q[:, q0:q1], KV)
+        q_pos = q_offset + torch.arange(q0, q1, device=dev)
+        m = torch.full((B, KV, G, q1 - q0), NEG_INF, device=dev)
+        l = torch.zeros((B, KV, G, q1 - q0), device=dev)
+        acc = torch.zeros((B, KV, G, q1 - q0, hd), device=dev)
+        for k0 in range(0, Sk, block_k):
+            k1 = min(k0 + block_k, Sk)
+            if not _tile_seen(q_offset + q0, q_offset + q1 - 1, k0, k1 - 1,
+                              causal, window):
+                continue
+            ok = _tile_ok(q_pos, k0, k1, causal, window, kv_mask)
+            s = _tile_logits(qg, k[:, k0:k1], ok, scale)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p, v[:, k0:k1].float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q1 - q0, H, hd))
+        ms.append(m.reshape(B, H, q1 - q0))
+        ls.append(l.reshape(B, H, q1 - q0))
+    return (torch.cat(outs, dim=1).to(q.dtype), torch.cat(ms, dim=-1),
+            torch.cat(ls, dim=-1))
+
+
+def chunked_attention(q, k, v, *, causal: bool, window=None,
+                      q_offset: int = 0,
+                      kv_mask: Optional[torch.Tensor] = None,
+                      block_q: int = 512, block_k: int = 1024
+                      ) -> torch.Tensor:
+    """Online-softmax attention over (``block_q`` rows) x (``block_k``
+    keys) tiles, the JAX package's ``ops._chunked_attention``: queries at
+    ``q_offset + i`` over keys at 0..Sk-1, causal and windowed by those
+    positions, ``kv_mask`` (B, Sk) hiding keys; float32 accumulation,
+    output (B, Sq, H, hd) in q's dtype.  Sq != Sk with ``causal=False``
+    and no window is whisper's cross-attention.  No temporary is larger
+    than one tile.  Under autograd every tile's probabilities would be
+    kept for the backward: ``ChunkedAttention`` is its gradient."""
+    return _chunked_attention_stats(
+        q, k, v, causal=causal, window=window, q_offset=q_offset,
+        kv_mask=kv_mask, block_q=block_q, block_k=block_k)[0]
+
+
+class ChunkedAttention(torch.autograd.Function):
+    """``chunked_attention`` with a backward that recomputes each tile's
+    probabilities from the rows' saved (m, l).  Saved: q, k, v in their
+    own dtype, the output, and (m, l) float32 (B, H, Sq); no (Sq, Sk)
+    tensor outlives a tile.  Per tile, P = exp(S - m) / l, dP = dO V^T,
+    dS = P (dP - D) with D = rowsum(dO O); dQ += dS K / sqrt(hd), and
+    dK += dS^T Q / sqrt(hd), dV += P^T dO each summed over the kv head's
+    group of query heads, in float32.
+
+        ChunkedAttention.apply(q, k, v, causal, window, q_offset, kv_mask,
+                               block_q, block_k)
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_mask, block_q,
+                block_k):
+        out, m, l = _chunked_attention_stats(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            kv_mask=kv_mask, block_q=block_q, block_k=block_k)
+        ctx.save_for_backward(q, k, v, out, m, l, kv_mask)
+        ctx.geometry = (causal, window, q_offset, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l, kv_mask = ctx.saved_tensors
+        causal, window, q_offset, block_q, block_k = ctx.geometry
+        B, Sq, H, hd = q.shape
+        Sk, KV = k.shape[1], k.shape[2]
+        G = H // KV
+        scale = 1.0 / math.sqrt(hd)
+        dev = q.device
+        dq = torch.empty((B, Sq, KV, G, hd), device=dev)
+        dk = torch.zeros((B, Sk, KV, hd), device=dev)
+        dv = torch.zeros((B, Sk, KV, hd), device=dev)
+        for q0 in range(0, Sq, block_q):
+            q1 = min(q0 + block_q, Sq)
+            n = q1 - q0
+            qg = _grouped(q[:, q0:q1], KV)
+            dog = _grouped(dout[:, q0:q1], KV)
+            # D = rowsum(dO O): (B, KV, G, n)
+            d = (dog * _grouped(out[:, q0:q1], KV)).sum(-1).permute(
+                0, 2, 3, 1)
+            mb = m[..., q0:q1].reshape(B, KV, G, n)[..., None]
+            lb = torch.clamp(l[..., q0:q1], min=1e-30).reshape(
+                B, KV, G, n)[..., None]
+            q_pos = q_offset + torch.arange(q0, q1, device=dev)
+            dqb = torch.zeros((B, n, KV, G, hd), device=dev)
+            for k0 in range(0, Sk, block_k):
+                k1 = min(k0 + block_k, Sk)
+                if not _tile_seen(q_offset + q0, q_offset + q1 - 1, k0,
+                                  k1 - 1, causal, window):
+                    continue
+                ok = _tile_ok(q_pos, k0, k1, causal, window, kv_mask)
+                kt, vt = k[:, k0:k1].float(), v[:, k0:k1].float()
+                s = _tile_logits(qg, kt, ok, scale)
+                p = torch.where(ok[:, None, None], torch.exp(s - mb) / lb,
+                                0.0)
+                dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vt)
+                ds = p * (dp - d[..., None])
+                dqb += torch.einsum("bkgqs,bskd->bqkgd", ds, kt)
+                dk[:, k0:k1] += torch.einsum("bkgqs,bqkgd->bskd", ds,
+                                             qg) * scale
+                dv[:, k0:k1] += torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+            dq[:, q0:q1] = dqb * scale
+        return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None, None, None, None, None)
+
+
+def chunked_lookahead_score(
+    q_obs: torch.Tensor,  # (B, n_obs, H, hd)
+    k: torch.Tensor,  # (B, Sk, KV, hd)
+    n_prompt: int,
+    *,
+    kv_mask: Optional[torch.Tensor] = None,  # (B, n_prompt)
+    window=None,
+    q_offset: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,  # (B, n_obs)
+    reduce: str = "mean",
+    block_k: int = 2048,
+) -> torch.Tensor:
+    """The two-pass streaming form of ``lookahead_score`` (``reduce=
+    "mean"``) and of ``chunk_column_masses`` (``reduce="sum"``), the JAX
+    package's ``ops._chunked_lookahead_score``: pass 1 streams each row's
+    max and normaliser over ``block_k``-key tiles, pass 2 revisits each
+    tile and reduces its normalised probabilities over the rows (invalid
+    rows zeroed; the mean's denominator stays n_obs).  Returns (B, H,
+    n_prompt) float32; a key no row sees is an exact zero.  Plain
+    autograd differentiates it: its tiles total (B, H, n_obs, Sk)."""
+    B, n_obs, H, hd = q_obs.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q_obs.device
+    scale = 1.0 / math.sqrt(hd)
+    off = n_prompt if q_offset is None else int(q_offset)
+    q_pos = off + torch.arange(n_obs, device=dev)
+    full = None
+    if kv_mask is not None:
+        full = torch.cat([kv_mask, torch.ones(
+            (B, Sk - n_prompt), dtype=torch.bool, device=dev)], dim=1)
+    qg = _grouped(q_obs, KV)
+    tiles = [(k0, min(k0 + block_k, Sk)) for k0 in range(0, Sk, block_k)]
+    seen = [_tile_seen(off, off + n_obs - 1, k0, k1 - 1, True, window)
+            for k0, k1 in tiles]
+
+    def logits(k0, k1):
+        ok = _tile_ok(q_pos, k0, k1, True, window, full)
+        return _tile_logits(qg, k[:, k0:k1], ok, scale)
+
+    m = torch.full((B, KV, G, n_obs), NEG_INF, device=dev)
+    l = torch.zeros((B, KV, G, n_obs), device=dev)
+    for (k0, k1), keep in zip(tiles, seen):  # pass 1: row max, normaliser
+        if keep:
+            s = logits(k0, k1)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            l = l * torch.exp(m - m_new) + torch.exp(
+                s - m_new[..., None]).sum(dim=-1)
+            m = m_new
+    l = torch.clamp(l, min=1e-30)
+    rv = None
+    if row_valid is not None:
+        rv = row_valid.float()[:, None, None, :, None]  # (B, 1, 1, n, 1)
+    cols = []
+    for (k0, k1), keep in zip(tiles, seen):  # pass 2: the rows' mass
+        if k0 >= n_prompt:
+            break
+        if not keep:
+            cols.append(torch.zeros((B, H, k1 - k0), device=dev))
+            continue
+        p = torch.exp(logits(k0, k1) - m[..., None]) / l[..., None]
+        if rv is not None:
+            p = p * rv
+        red = p.mean(dim=3) if reduce == "mean" else p.sum(dim=3)
+        cols.append(red.reshape(B, H, k1 - k0))
+    return torch.cat(cols, dim=-1)[..., :n_prompt]
+
+
+def paged_decode_streaming(
+    q: torch.Tensor,  # (B, H, hd)
+    k_pool: torch.Tensor,  # (N, bs, KV, hd)
+    v_pool: torch.Tensor,
+    mask_pool: torch.Tensor,  # (N, bs, KV) bool
+    table: torch.Tensor,  # (B, nb) int32, 0 = null block
+    *,
+    pos_pool: Optional[torch.Tensor] = None,  # (N, bs, KV) int32
+    new_pos: Optional[torch.Tensor] = None,  # (B,) query positions
+    window=None,
+    score_masses: bool = False,
+):
+    """Decode attention over the paged pool without the dense gather, the
+    JAX package's ``ops._paged_decode_streaming``: an online-softmax scan
+    over the block table's columns, one (B, bs) K/V tile at a time.  With
+    ``score_masses`` a second scan revisits each tile with the final
+    (m, l) and returns ``(out, masses)``, masses (B, H, nb * bs) float32.
+    Masked rows weigh exactly zero (a (sequence, head) with no attendable
+    row gives zeros, as ``paged_decode_attention``)."""
+    B, H, hd = q.shape
+    KV = k_pool.shape[2]
+    G = H // KV
+    if window is not None:
+        assert pos_pool is not None and new_pos is not None, \
+            "sliding-window masking needs pos_pool and new_pos"
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.float().reshape(B, KV, G, hd)
+    cols = table.long().t()  # (nb, B)
+
+    def tile_logits(tb):
+        mb = mask_pool[tb]  # (B, bs, KV)
+        if window is not None:
+            mb = mb & ((new_pos[:, None, None] - pos_pool[tb]) < window)
+        s = torch.einsum("bkgd,bskd->bkgs", qg, k_pool[tb].float()) * scale
+        mh = mb.permute(0, 2, 1)[:, :, None, :]  # (B, KV, 1, bs)
+        return torch.where(mh, s, NEG_INF), mh
+
+    m = torch.full((B, KV, G), NEG_INF, device=q.device)
+    l = torch.zeros((B, KV, G), device=q.device)
+    acc = torch.zeros((B, KV, G, hd), device=q.device)
+    for tb in cols:
+        s, mh = tile_logits(tb)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # the where keeps a dead (sequence, head) at l == 0 (m stays
+        # NEG_INF, so exp(s - m) would be 1, not 0)
+        p = torch.where(mh, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgs,bskd->bkgd", p, v_pool[tb].float())
+        m = m_new
+    lsafe = torch.clamp(l, min=1e-30)
+    out = (acc / lsafe[..., None]).reshape(B, H, hd).to(q.dtype)
+    if not score_masses:
+        return out
+    masses = []
+    for tb in cols:
+        s, mh = tile_logits(tb)
+        p = torch.where(mh, torch.exp(s - m[..., None]), 0.0)
+        masses.append((p / lsafe[..., None]).reshape(B, H, -1))
+    return out, torch.cat(masses, dim=-1)
 
 
 # ---------------------------------------------------------------------------

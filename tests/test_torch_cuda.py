@@ -33,8 +33,9 @@ exp(L_t - L_s) of large L inherit their ~1e-5 absolute difference).
 
 The learning loop's card cases: a kernel entry given a CUDA tensor that
 requires a gradient raises and launches nothing, ``reference_mode()``
-runs the plain version with its gradient, and a checkpoint written from
-the card loads back onto it bit for bit.
+runs the plain version with its gradient (above ``ref.DIRECT_SEQ`` keys
+the streaming attention, against the direct plain form), and a
+checkpoint written from the card loads back onto it bit for bit.
 """
 
 import numpy as np
@@ -321,6 +322,11 @@ def test_chunk_attention_sm90_counts_one_launch(dev, hd):
     # frame visible (n_prompt == Sk, q_offset = Sk: no observation keys)
     (4, 32, 1500, 12, 12, 64, 1500, 1500, None, False),
     (2, 8, 16, 4, 4, 32, 16, 16, None, False),  # whisper-smoke's
+    # the GT pass at the paper's lengths: 512 response rows (16 row
+    # blocks of packed rows) over 3,584 + 512 keys; with masks, a window
+    (1, 512, 4096, 32, 8, 128, 3584, None, None, False),
+    (2, 512, 1100, 32, 8, 128, 588, None, None, True),
+    (1, 512, 2000, 32, 8, 128, 1488, None, 256, False),
 ])
 def test_lookahead_score_matches_plain(dev, dtype, B, n_obs, Sk, H, KV, hd,
                                        n_prompt, off, window, masks):
@@ -1199,6 +1205,45 @@ def test_requires_grad_on_the_card_raises_outside_reference_mode(dev, entry):
     with torch.no_grad():
         call(q)
     assert sum(ops.launch_counts().values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,KV,hd,window,masked", [
+    (ref.DIRECT_SEQ + 252, 32, 8, 128, None, False),  # llama3-8b's heads
+    (ref.DIRECT_SEQ + 100, 8, 2, 64, 700, False),  # a window
+    (ref.DIRECT_SEQ + 100, 8, 2, 64, None, True),  # a key mask
+])
+def test_streaming_attention_on_the_card_matches_direct(dev, dtype, S, H, KV,
+                                                        hd, window, masked):
+    """Above ``ref.DIRECT_SEQ`` keys ``ops.flash_attention`` inside
+    ``reference_mode()`` streams (``ref.ChunkedAttention`` under autograd)
+    and launches nothing: its output within 2e-5 (float32) or 2^-7
+    (bf16) of each row's largest direct magnitude, each gradient within
+    1e-4 (float32) or 2^-5 (bf16, D = rowsum(dO O) reads the bf16 output)
+    of its largest, against autograd through the direct plain form."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (_randn(g, (1, S, n, hd), dtype, dev).requires_grad_()
+               for n in (H, KV, KV))
+    mask = None
+    if masked:
+        mask = torch.rand((1, S), generator=g, device=dev) > 0.3
+        mask[:, 0] = True
+    up = _randn(g, (1, S, H, hd), dtype, dev)
+    before = ops.launch_counts()
+    with ops.reference_mode():
+        out = ops.flash_attention(q, k, v, window=window, kv_mask=mask)
+    got = torch.autograd.grad(out, (q, k, v), up)
+    assert ops.launch_counts() == before
+    want_out = ref.flash_attention(q, k, v, window=window, kv_mask=mask)
+    want = torch.autograd.grad(want_out, (q, k, v), up)
+    out_rel, grad_rel = (2e-5, 1e-4) if dtype == torch.float32 else \
+        (2 ** -7, 2 ** -5)
+    err = (out.float() - want_out.float()).abs().amax(-1)
+    assert bool((err <= out_rel * want_out.float().abs().amax(-1)).all())
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert float((a.float() - b.float()).abs().max()) <= \
+            grad_rel * float(b.float().abs().max())
 
 
 def test_checkpoint_round_trips_on_the_card(dev, tmp_path):
