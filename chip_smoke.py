@@ -309,7 +309,8 @@ kernel's plain version):
       a ``ServingEngine`` given (b)'s modules in memory;
    f. ``launch/train.py`` at the paper's lengths, ``--n-in 3584 --n-out
       512 --batch 1 --steps 2``: the lookahead pass and its backward over
-      3,592 rows on the plain route's streaming tier (``ref.ChunkedAttention``),
+      3,616 rows (3,584 + the config's 32 lookahead rows) on the plain
+      route's streaming tier (``ref.ChunkedAttention``),
       the GT pass over 4,096 rows on kernels 7 and 3 (512 response rows):
       exactly 64 launches each of kernels 7 and 3 and no other, finite
       losses, nonzero gradient norms, every lkv leaf moved, the peak under
@@ -317,7 +318,7 @@ kernel's plain version):
       limit.  Phase 1 holds kernels 7 and 3 at that GT pass's shapes
       (``phase_kernels_paper_lengths``: ``<kernel> 5f``, launches from
       5f) and the streaming attention against the direct plain form at
-      B 1 x 3,592 causal, float32 and bf16 (output and gradients within
+      B 1 x 3,616 causal, float32 and bf16 (output and gradients within
       ``STREAM_TOL``; forward and forward + backward ms, the bytes saved
       for the backward, the peak rise).
 
@@ -2204,8 +2205,10 @@ PAPER_LENGTHS = ["--steps", "2", "--batch", "1", "--n-in", str(PAPER_IN),
 #: the streaming attention (the plain route above ``ref.DIRECT_SEQ``
 #: keys) against the direct plain form on the same inputs: (output, per
 #: row of its largest magnitude; each gradient, of its largest magnitude).
-#: float32: summation order alone; bf16: the output rounds once on both
-#: sides (1 ulp, 2^-8) and D = rowsum(dO O) reads the bf16 output
+#: float32: summation order alone; bf16: both sides round the same
+#: float32 sums once, so an element differs by at most one ulp, which is
+#: at most 2^-7 of its row's largest magnitude, and D = rowsum(dO O)
+#: reads the bf16 output
 STREAM_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2 ** -7, 2 ** -5)}
 
 
@@ -2263,9 +2266,8 @@ def phase_streaming_attention(torch, mods, S: int, heads=(32, 8, 128),
             grads = torch.autograd.grad(out, (q, k, v), up)
             torch.cuda.synchronize()
             rise = torch.cuda.max_memory_allocated() - base
-            fwd = lambda: fn()  # noqa: E731
             with torch.no_grad():
-                fwd_ms = time_ms(torch, fwd, iters=3, warmup=1)
+                fwd_ms = time_ms(torch, fn, iters=3, warmup=1)
 
             def both():
                 torch.autograd.grad(fn(), (q, k, v), up)
@@ -7104,15 +7106,12 @@ def main() -> None:
                                             "paged continuous")][k["name"]]
     print(f"total {time.perf_counter() - t_all:.1f} s")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = card_line()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))
-    print(smi.stdout.strip().splitlines()[0])
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
