@@ -2067,6 +2067,18 @@ def phase_kernels_moe_vlm(torch, chunk_case, masses_chunk_case, score_case,
                heads=qw)
     entry("lookahead_score 64/8", "src/repro_torch/csrc/lookahead_score.cu",
           "src/repro/kernels/lookahead_score.py:87", k3q)
+    # 5g's GT pass: B 1 x (1,024 patch rows + 64 response rows)
+    k7g = flash_case(1, GT_ROWS, True, None, f"5g GT pass: 64/8 B=1 "
+                     f"S={GT_ROWS} causal", timed="flash_attention 5g",
+                     heads=qw)
+    entry("flash_attention 5g", sm90,
+          "src/repro/kernels/flash_attention.py:71", k7g)
+    k3g = score_case(1, GT_ROWS - GT_PROMPT, GT_ROWS, GT_PROMPT, None, None,
+                     False, f"5g GT pass: 64/8 {GT_ROWS - GT_PROMPT} rows "
+                     f"over {GT_ROWS}, n_prompt={GT_PROMPT}",
+                     timed="lookahead_score 5g", heads=qw)
+    entry("lookahead_score 5g", "src/repro_torch/csrc/lookahead_score.cu",
+          "src/repro/kernels/lookahead_score.py:87", k3g)
     return out
 
 
@@ -2479,6 +2491,28 @@ def phase_kernels_whisper(torch, mods, score_case, decode_case,
     entry("decode_attention whisper kept frames",
           "src/repro_torch/csrc/decode_attention.cu",
           "src/repro/kernels/decode_attention.py:56", k6k)
+
+    # 5h's GT pass, B 1: the encoder over the frames, the decoder's
+    # 3,584 + 512 rows causal and over the frames, 512 rows scored
+    S = PAPER_IN + PAPER_OUT
+    k7he = flash_case(1, Fr, False, None, f"5h GT pass: encoder B=1 S={Fr} "
+                      "non-causal", timed="flash_attention encoder 5h",
+                      heads=wh)
+    k7h = flash_case(1, S, True, None, f"5h GT pass: decoder B=1 S={S} "
+                     "causal", timed="flash_attention 5h", heads=wh)
+    k7xh = cross_case(1, S, Fr, f"5h GT pass: B=1 Sq={S} Sk={Fr}",
+                      timed="flash_attention cross 5h")
+    k3h = score_case(1, PAPER_OUT, S, PAPER_IN, None, None, False,
+                     f"5h GT pass: {PAPER_OUT} rows over {S}, "
+                     f"n_prompt={PAPER_IN}", timed="lookahead_score 5h",
+                     heads=wh)
+    for name, rep, res in (
+            ("flash_attention encoder 5h", "flash_attention.py:71", k7he),
+            ("flash_attention 5h", "flash_attention.py:71", k7h),
+            ("flash_attention cross 5h", "ops.py:97", k7xh)):
+        entry(name, sm90, f"src/repro/kernels/{rep}", res)
+    entry("lookahead_score 5h", "src/repro_torch/csrc/lookahead_score.cu",
+          "src/repro/kernels/lookahead_score.py:87", k3h)
     return out
 
 
@@ -4309,10 +4343,10 @@ def phase_whisper(torch, mods, header) -> dict:
         (B, WHISPER_FRAMES, cfg.d_model), dtype=np.float32), device="cuda")
     enc_s, unwrapped = [0.0], tf.encode
 
-    def timed_encode(*args):  # the encoder's part of the prefill
+    def timed_encode(*args, **kw):  # the encoder's part of the prefill
         torch.cuda.synchronize()
         t = time.perf_counter()
-        h = unwrapped(*args)
+        h = unwrapped(*args, **kw)
         torch.cuda.synchronize()
         enc_s[0] += time.perf_counter() - t
         return h
@@ -5274,6 +5308,250 @@ def phase_train_paper(torch, mods, cfg, lkv0, ckpt_path: str) -> dict:
     check(all(moved), f"5f: {moved.count(False)} lkv leaves did not move")
     check(peak < 80e9, f"5f: peak {peak} bytes, over the card's 80 GB")
     return counts
+
+
+#: 5g: qwen2-vl-72b at full width, cut to 16 of its 80 layers for the
+#: card's memory (~33 GB of bf16 weights), B 1 x (1,024 patch-embedding
+#: rows of a 32 x 32 grid + 64 response tokens); 5h: whisper-small at
+#: full width and depth at 5f's lengths, B 1, 1,500 frames.  Two steps
+#: each through ``train.train_job`` on explicit batches
+VLM_TRAIN_LAYERS, VLM_GRID = 16, (32, 32)
+#: the forms of phase 1's 5h entries among 5h's calls (``whisper_forms``)
+TRAIN_ARCH_FORM = {"flash_attention encoder 5h": "encoder",
+                   "flash_attention 5h": "decoder",
+                   "flash_attention cross 5h": "cross",
+                   "lookahead_score 5h": "decoder scores"}
+#: the lookahead LoRA leaves no pass applies (whisper's cross ``wk`` /
+#: ``wv``: the cross K/V are the encoder's): a zero gradient in both
+#: packages, so they never move
+UNUSED_LORA = ("lora/cross/wk/", "lora/cross/wv/")
+
+
+def mrope_grid(B: int, grid: tuple, text: int = 0):
+    """(3, B, text + rows * cols) int32 M-RoPE streams: ``text`` text
+    positions (t == h == w), then an image grid at one temporal position
+    whose patches take their row (h) and column (w) after the text
+    (Qwen2-VL's layout)."""
+    import numpy as np
+
+    rows, cols = grid
+    t = np.arange(text)
+    r, c = np.divmod(np.arange(rows * cols), cols)
+    pos = np.stack([np.concatenate([t, np.full(rows * cols, text)]),
+                    np.concatenate([t, text + r]),
+                    np.concatenate([t, text + c])])
+    return np.repeat(pos[:, None], B, axis=1).astype(np.int32)
+
+
+def vlm_train_batch(cfg, B: int, grid: tuple, n_out: int, seed: int,
+                    text: int = 0) -> dict:
+    """An ``embeds_in`` arch's train batch, numpy: {"x" (B, n_in, D)
+    patch embeddings at the embedding table's scale (N(0, 0.02^2)), "y"
+    (B, n_out) response tokens, "mrope" (``mrope_grid``)}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mrope = mrope_grid(B, grid, text)
+    n_in = mrope.shape[2]
+    return {"x": (rng.standard_normal((B, n_in, cfg.d_model),
+                                      dtype=np.float32) * 0.02),
+            "y": rng.integers(0, cfg.vocab_size, (B, n_out)).astype(
+                np.int32),
+            "mrope": mrope}
+
+
+def whisper_train_batch(cfg, B: int, n_in: int, n_out: int,
+                        seed: int) -> dict:
+    """An encoder-decoder arch's train batch, numpy: {"x" (B, n_in), "xy"
+    (B, n_in + n_out) tokens, "frames" (B, F, D)}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, n_in + n_out)).astype(
+        np.int32)
+    frames = rng.standard_normal((B, cfg.encoder.num_frames, cfg.d_model),
+                                 dtype=np.float32)
+    return {"x": toks[:, :n_in], "xy": toks, "frames": frames}
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """The paths of a nested dict's leaves ("lora/cross/wq/a") in
+    ``adam.leaves``' sorted order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def gt_launches(cfg, steps: int) -> dict:
+    """The GT pass's kernel launches over ``steps`` steps: kernel 3 once
+    per decoder layer; kernel 7 once per decoder layer, and for an
+    encoder-decoder arch once per encoder layer (non-causal) and once
+    more per decoder layer (the cross-attention at Sq != Sk)."""
+    L = cfg.num_layers
+    flash = L if not cfg.is_encoder_decoder else (
+        cfg.encoder.num_layers + 2 * L)
+    return {"flash_attention": steps * flash, "lookahead_score": steps * L}
+
+
+def phase_train_arch_parity(torch, mods, devices=("cuda", "cpu")) -> None:
+    """qwen2-vl-smoke (patch embeddings, M-RoPE streams of 8 text
+    positions and a 4 x 8 grid) and whisper-smoke (16 frames) in float32:
+    one ``make_train_step`` step on ``devices[0]`` (the card) and on
+    ``devices[1]`` (the CPU) from the same seeded weights, modules (LoRA
+    ``b`` drawn) and B 2 batch: the loss within 1e-4 relative, every
+    gradient and every updated module leaf within ``LOOP_LEAF_REL`` of
+    its largest CPU magnitude (``UNUSED_LORA``: zero gradients on both),
+    and on the card the GT pass's launches exactly (``gt_launches``)."""
+    import dataclasses
+
+    tf, ops, adam = mods["tf"], mods["ops"], mods["adam"]
+    for arch in ("qwen2-vl-72b", "whisper-small"):
+        cfg = dataclasses.replace(mods["configs"].get_smoke_config(arch),
+                                  dtype="float32")
+        params = tf.init_params(cfg, seed=SEED, device="cpu")
+        lkv = draw_b(mods["lookahead"].init_lookahead_params(
+            torch.Generator().manual_seed(SEED + 1), cfg, params["layers"]))
+        batch = (vlm_train_batch(cfg, 2, (4, 8), 8, SEED + 11, text=8)
+                 if cfg.embeds_in else
+                 whisper_train_batch(cfg, 2, 40, 8, SEED + 13))
+        step = mods["steps"].make_train_step(
+            cfg, mods["TrainConfig"](steps=10, lr=1e-3))
+        names = leaf_paths(lkv)
+
+        def run(device):
+            lv = mods["bridge"].to_torch(lkv, device=device)
+            b = {k: torch.as_tensor(v, device=device)
+                 for k, v in batch.items()}
+            lv, _, loss, m = step(_move(params, device), lv, adam.init(lv),
+                                  b)
+            return (float(loss), [x.cpu() for x in adam.leaves(m["grads"])],
+                    [x.cpu() for x in adam.leaves(lv)])
+
+        ops.reset_launch_counts()
+        got = run(devices[0])
+        counts = ops.launch_counts()
+        want = run(devices[1])
+        rel = abs(got[0] - want[0]) / abs(want[0])
+        worst, zeros = {}, True
+        for what, i in (("gradient", 1), ("module", 2)):
+            errs = []
+            for name, g, w in zip(names, got[i], want[i]):
+                if what == "gradient" and name.startswith(UNUSED_LORA):
+                    zeros &= not g.any() and not w.any()
+                    continue
+                errs.append(float((g - w).abs().max() / w.abs().max()))
+            worst[what] = max(errs)
+        want_counts = {k: 0 for k in counts}
+        want_counts.update(gt_launches(cfg, 1))
+        label = f"{cfg.name} train step"
+        print(f"  {label}: loss cuda {got[0]:.6f} cpu {want[0]:.6f} "
+              f"(relative {rel:.2e}); largest leaf differences, of the "
+              f"leaf's largest: gradient {worst['gradient']:.2e}, updated "
+              f"modules {worst['module']:.2e} (tolerance {LOOP_LEAF_REL}); "
+              f"unused LoRA zero on both: {zeros}; card launches {counts}")
+        check(rel <= 1e-4, f"{label}: losses differ by {rel:.2e}")
+        check(max(worst.values()) <= LOOP_LEAF_REL and zeros,
+              f"{label}: a leaf differs between card and CPU")
+        check(counts == want_counts, f"{label}: launches {counts}, "
+              f"expected {want_counts}")
+
+
+def phase_train_archs(torch, mods, header, device: str = "cuda") -> dict:
+    """5g and 5h: ``train.train_job`` on explicit batches, two steps each,
+    weights drawn on the card from the seed and modules from
+    ``init_lookahead_params`` (seed + 1).  5g: qwen2-vl-72b at full width
+    and ``VLM_TRAIN_LAYERS`` layers, its GT pass over [X; embed(Y)] on
+    the text stream and its lookahead pass over X with the grid's M-RoPE
+    streams; 5h: whisper-small at full width and depth, 5f's lengths, the
+    lookahead pass's 3,616 rows on the streaming tier.  Each: exactly
+    ``gt_launches`` (5h also by form: encoder, decoder, cross, scores) and
+    no other launch, finite losses, nonzero gradient norms, every lkv
+    leaf moved (``UNUSED_LORA`` unmoved), the peak under 80 GB; ms per
+    step and the peak beside the card's name and power limit.  Returns
+    {cell: launches with the forms under "forms"}."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    configs, tf = mods["configs"], mods["tf"]
+    vlm = dataclasses.replace(configs.get_config("qwen2-vl-72b"),
+                              num_layers=VLM_TRAIN_LAYERS)
+    wh = configs.get_config("whisper-small")
+    cells = (
+        ("5g", f"qwen2-vl-72b at full width, {VLM_TRAIN_LAYERS} of 80 "
+         f"layers, B 1 x ({VLM_GRID[0] * VLM_GRID[1]} patch rows of a "
+         f"{VLM_GRID[0]} x {VLM_GRID[1]} grid + {GT_ROWS - GT_PROMPT} "
+         "tokens)", vlm,
+         lambda i: vlm_train_batch(vlm, 1, VLM_GRID, GT_ROWS - GT_PROMPT,
+                                   SEED + 20 + i)),
+        ("5h", f"whisper-small at full width and depth, B 1 x ({PAPER_IN} "
+         f"+ {PAPER_OUT}) with {wh.encoder.num_frames} frames", wh,
+         lambda i: whisper_train_batch(wh, 1, PAPER_IN, PAPER_OUT,
+                                       SEED + 30 + i)))
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for cell, what, cfg, make in cells:
+            header(f"phase {cell}: train {what}, two steps")
+            batches = [make(i) for i in range(2)]
+            b0 = batches[0]
+            n_in = b0["x"].shape[1]
+            n_out = (b0["y"].shape[1] if "y" in b0
+                     else b0["xy"].shape[1] - n_in)
+            gen = torch.Generator(device=device).manual_seed(SEED + 1)
+            lkv0 = mods["lookahead"].init_lookahead_params(
+                gen, cfg, tf.init_params(cfg, device="meta")["layers"],
+                device=device)
+            job = dict(cfg=cfg, device=device, steps=2, batch=1, n_in=n_in,
+                       n_out=n_out, lr=1e-3, ckpt=f"{d}/{cell}.npz",
+                       seed=SEED, batches=batches)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with whisper_forms(mods) as forms:
+                t0 = time.perf_counter()
+                res = mods["train"].train_job(job)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            counts = res["launches"]
+            want = {k: 0 for k in counts}
+            want.update(gt_launches(cfg, 2))
+            print(f"  2 steps in {wall:.2f} s with the model's init; ms per "
+                  f"step {[round(s * 1e3, 1) for s in res['step_s']]} (host "
+                  f"clock, synchronised); losses {res['losses']}; grad norms "
+                  f"{res['grad_norms']}; peak torch.cuda.max_memory_allocated"
+                  f" {peak / 2**30:.2f} GiB ({peak} bytes); {card_line()}")
+            print(f"  launches {counts}, predicted {want}: {counts == want}; "
+                  f"by form {forms}")
+            check(counts == want, f"{cell}: launches {counts}, expected "
+                  f"{want}")
+            if cfg.is_encoder_decoder:
+                L = cfg.num_layers
+                want_forms = {"encoder": 2 * cfg.encoder.num_layers,
+                              "decoder": 2 * L, "cross": 2 * L,
+                              "decoder scores": 2 * L}
+                check(forms == want_forms, f"{cell}: launches by form "
+                      f"{forms}, expected {want_forms}")
+            check(all(math.isfinite(x)
+                      for x in res["losses"] + res["grad_norms"]),
+                  f"{cell}: a non-finite loss or gradient norm")
+            check(all(g > 0 for g in res["grad_norms"]),
+                  f"{cell}: a zero gradient norm")
+            moved = {name: not torch.equal(a, b) for name, a, b in zip(
+                leaf_paths(lkv0), mods["adam"].leaves(lkv0),
+                mods["adam"].leaves(res["lkv"]))}
+            wrong = [n for n, m in moved.items()
+                     if m == n.startswith(UNUSED_LORA)]
+            check(not wrong, f"{cell}: lkv leaves moved or not against "
+                  f"their gradient: {wrong}")
+            check(peak < 80e9, f"{cell}: peak {peak} bytes, over the card's "
+                  "80 GB")
+            out[cell] = dict(counts, forms=dict(forms))
+            del res, lkv0, batches
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
 
 
 def phase_learning_loop(torch, mods, header, counts=None) -> dict:
@@ -6277,10 +6555,12 @@ def split_decode_cells(torch, mods, header, device: str, sweep,
         statuses[f.stem] = json.loads(f.read_text())["status"]
     print(f"  {len(statuses)} files: " + ", ".join(
         f"{s} {sum(v == s for v in statuses.values())}"
-        for s in ("ok", "skipped", "refused", "error")))
-    bad = {k: v for k, v in statuses.items()
-           if v not in ("ok", "skipped", "refused")}
+        for s in ("ok", "skipped", "error")))
+    bad = {k: v for k, v in statuses.items() if v not in ("ok", "skipped")}
+    # the training steps of the embedding-input and encoder-decoder archs
+    trained = ("qwen2-vl-72b_train_4k_pod", "whisper-small_train_4k_pod")
     check(not bad and "llama3-8b_decode_32k_pod_split_cache" in statuses
+          and all(statuses.get(k) == "ok" for k in trained)
           and len(statuses) == 41, f"7c: dry-run files {bad or statuses}")
     return counts
 
@@ -6334,6 +6614,15 @@ TRAIN_MESH_FLOORS = dict(loss=1e-3, norm=1e-2, grads=0.1, cos=0.995,
 #: gradient floor, so no sign the floor allows to differ is held to 1e-6
 TRAIN_MESH_F32_TOL = dict(loss=1e-5, norm=1e-3, grads=1e-2, mu=1e-2,
                           nu=2e-2, lkv=1e-6, sel=2e-2, cos=0.9999)
+#: 8e / 8f: the embedding-input and encoder-decoder archs at full width
+#: in float32 on (1, 2), one step each against the one-rank float32 step
+#: at ``TRAIN_MESH_F32_TOL``: (arch, mesh sizes, layers (None: full
+#: depth), global batch).  8e: qwen2-vl-72b at 2 of 80 layers (17 GB of
+#: float32 weights, 10 of them the embedding and head), 5g's batch shape,
+#: the local 32 / 4 heads; 8f: whisper-small at 6 heads a rank, B 2 x
+#: (1,024 + 64) with 1,500 frames
+TRAIN_MESH_ARCH_CELLS = {"8e": ("qwen2-vl-72b", (1, 2), 2, 1),
+                         "8f": ("whisper-small", (1, 2), None, 2)}
 SMOKE_LR, SMOKE_SCHEDULE = 1e-3, 10
 
 
@@ -6398,6 +6687,30 @@ def train_cell_job(mods, cell: str, lkv, ckpt: str, device: str) -> dict:
                 ckpt=ckpt, seed=SEED, mesh=sizes, lkv=lkv, return_grads=True)
 
 
+def train_arch_job(torch, mods, cell: str, ckpt: str, device: str) -> dict:
+    """8e's / 8f's job (``TRAIN_MESH_ARCH_CELLS``): float32 weights from the
+    seed, the modules drawn (``draw_b``), one step of one batch
+    (``vlm_train_batch`` at 5g's grid, or ``whisper_train_batch``)."""
+    import dataclasses
+
+    arch, sizes, layers, B = TRAIN_MESH_ARCH_CELLS[cell]
+    cfg = dataclasses.replace(mods["configs"].get_config(arch),
+                              dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    lkv = draw_b(mods["lookahead"].init_lookahead_params(
+        torch.Generator().manual_seed(SEED + 1), cfg,
+        mods["tf"].init_params(cfg, device="meta")["layers"]))
+    n_out = GT_ROWS - GT_PROMPT
+    batch = (vlm_train_batch(cfg, B, VLM_GRID, n_out, SEED + 40)
+             if cfg.embeds_in else
+             whisper_train_batch(cfg, B, GT_PROMPT, n_out, SEED + 41))
+    return dict(cfg=cfg, device=device, steps=SMOKE_SCHEDULE, batch=B,
+                n_in=batch["x"].shape[1], n_out=n_out, lr=SMOKE_LR,
+                ckpt=ckpt, seed=SEED, mesh=sizes, lkv=lkv, batches=[batch],
+                stop_after=1, return_grads=True)
+
+
 def draw_b(lkv: dict) -> dict:
     """Lookahead modules (torch) as numpy, their LoRA ``b`` leaves drawn
     (a fresh tree has b = 0, so every ``a`` gradient would be zero), as
@@ -6443,9 +6756,11 @@ def hold_train_step(label: str, ranks: list, ref: dict, tol: dict,
     pairs = {"grads": (leaves(r0["grads"][0]), leaves(ref["grads"][0])),
              "mu": (leaves(r0["opt"]["mu"]), leaves(ref["opt"]["mu"])),
              "nu": (leaves(r0["opt"]["nu"]), leaves(ref["opt"]["nu"]))}
+    zeros = True  # leaves no pass reaches (``UNUSED_LORA``): zero in both
     for what, (got, want) in pairs.items():
         worst[what] = max(float(np.abs(a - b).max() / np.abs(b).max())
-                          for a, b in zip(got, want))
+                          for a, b in zip(got, want) if b.any())
+        zeros &= all(not a.any() for a, b in zip(got, want) if not b.any())
     big, rest = 0.0, 0.0
     for a, b, g in zip(leaves(r0["lkv"]), leaves(ref["lkv"]),
                        leaves(ref["grads"][0])):
@@ -6458,6 +6773,8 @@ def hold_train_step(label: str, ranks: list, ref: dict, tol: dict,
               f"{k} {v:.2e} (tol {tol[k]:.0e})" for k, v in worst.items())
           + f"; elsewhere {rest:.2e} (at most {2 * lr:.0e})")
     gate(same, f"{label}: the ranks differ")
+    gate(zeros, f"{label}: a leaf with a zero one-rank gradient has none "
+         "here")
     gate(all(worst[k] <= tol[k] for k in worst) and rest <= 2 * lr,
          f"{label}: outside its tolerance")
     return worst
@@ -6472,6 +6789,9 @@ def grad_distance(got: list, want: list) -> dict:
     errs, coss = [], []
     for a, b in zip(got, want):
         a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
+        if not b.any():  # a leaf no pass reaches: zero here too, or fail
+            errs.append(0.0 if not a.any() else math.inf)
+            continue
         errs.append(float(np.abs(a - b).max() / np.abs(b).max()))
         coss.append(float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))))
     na = math.sqrt(sum(float((x.astype(np.float64) ** 2).sum()) for x in got))
@@ -6482,14 +6802,13 @@ def grad_distance(got: list, want: list) -> dict:
 
 def hold_train_ranks(label: str, ranks: list, cfg, predicted_bytes: int,
                      n_steps: int, gate=check) -> None:
-    """A full-width world's ranks: each one's launches (kernels 7 and 3
-    once per layer and step, nothing else), its weight bytes (the
-    dry-run's ``serving_specs`` layout) and the allocator's rise while it
-    built them; its peak memory and step times printed."""
-    L = cfg.num_layers
+    """A full-width world's ranks: each one's launches (the GT pass's,
+    ``gt_launches``, nothing else), its weight bytes (the dry-run's
+    ``serving_specs`` layout) and the allocator's rise while it built
+    them; its peak memory and step times printed."""
     for r, res in enumerate(ranks):
         want = {k: 0 for k in res["launches"]}
-        want.update(flash_attention=n_steps * L, lookahead_score=n_steps * L)
+        want.update(gt_launches(cfg, n_steps))
         print(f"  {label} rank {r}: launches {res['launches']} (expected "
               f"{want}); weights {res['param_bytes']} bytes (the dry-run's "
               f"{predicted_bytes}); peak torch.cuda.max_memory_allocated "
@@ -6584,9 +6903,12 @@ def phase_train_mesh(torch, mods, header, lkv=None,
             jobs["8b"]["cfg"], dtype="float32"), stop_after=1,
             ckpt=ck("8b f32"))
         jobs["8b f32"] = f32
-        header("phase 8a-8d: the one-rank runs on the card (8a's eight "
-               "smoke steps, 8b's-8d's two steps, 8b's first step in "
-               "float32)")
+        jobs.update({cell: train_arch_job(torch, mods, cell, ck(cell),
+                                          device)
+                     for cell in TRAIN_MESH_ARCH_CELLS})
+        header("phase 8a-8f: the one-rank runs on the card (8a's eight "
+               "smoke steps, 8b's-8d's two steps, 8b's first step, 8e's "
+               "and 8f's in float32)")
         refs = {}
         for name, job in jobs.items():
             one = dict(job, ckpt=ck(f"one {name}"))
@@ -6597,6 +6919,7 @@ def phase_train_mesh(torch, mods, header, lkv=None,
         names = {n: [c[0] for c in TRAIN_MESH_SMOKE if math.prod(c[2]) == n]
                  + [c for c, spec in TRAIN_MESH_CELLS.items()
                     if math.prod(spec[0]) == n] for n in (4, 2)}
+        names[2].append("8f")  # whisper-small f32: ~1 GB a rank
 
         def world(n, keys):
             with tempfile.TemporaryDirectory(dir=ROOT / "build") as wd:
@@ -6618,11 +6941,14 @@ def phase_train_mesh(torch, mods, header, lkv=None,
             worlds.update(res)
         print(f"  the two worlds: {time.perf_counter() - t0:.1f} s (wall, "
               "process starts included)")
-        header(f"phase 8: 8b f32's world of 2 gloo ranks on {device}")
+        # 8e's float32 draw (17 GB, one rank at a time) after 8b f32's in
+        # the same ranks: nothing else holds the card beside them
+        header(f"phase 8: 8b f32's world of 2 gloo ranks on {device}, then "
+               "8e in it")
         t0 = time.perf_counter()
-        worlds.update(world(2, ["8b f32"]))
-        print(f"  8b f32's world: {time.perf_counter() - t0:.1f} s (wall, "
-              "process start included)")
+        worlds.update(world(2, ["8b f32", "8e"]))
+        print(f"  8b f32's and 8e's world: {time.perf_counter() - t0:.1f} s "
+              "(wall, process start included)")
         # every check of the phase reads before any fails it
         failures = []
 
@@ -6674,6 +7000,25 @@ def phase_train_mesh(torch, mods, header, lkv=None,
               f"worst cosine {d['cos']:.7f} (floor {tol['cos']})")
         gate(d["cos"] >= tol["cos"], "8b f32: a leaf's cosine below its "
              "floor")
+        for cell, (arch, sizes, _, _) in TRAIN_MESH_ARCH_CELLS.items():
+            cfg = jobs[cell]["cfg"]
+            header(f"phase {cell}: {arch} at full width, {cfg.num_layers} "
+                   f"layers, float32, on {sizes} against one rank")
+            ranks, ref = worlds[cell], refs[cell]
+            hold_train_ranks(cell, ranks, cfg, predicted(cfg, sizes), 1,
+                             gate)
+            hold_train_step(cell, ranks, ref, tol, jobs[cell]["lr"], gate)
+            d = grad_distance(leaves(ranks[0]["grads"][0]),
+                              leaves(ref["grads"][0]))
+            print(f"  {cell}: one rank's ms per step "
+                  f"{[round(t * 1e3, 1) for t in ref['step_s']]} (host "
+                  f"clock), peak torch.cuda.max_memory_allocated "
+                  f"{gib(ref['peak_bytes'])} GiB; the gradient against one "
+                  f"rank's: norm {d['norm']:.2e}, worst leaf "
+                  f"{d['grads']:.2e}, worst cosine {d['cos']:.7f} (floor "
+                  f"{tol['cos']})")
+            gate(d["cos"] >= tol["cos"], f"{cell}: a leaf's cosine below "
+                 "its floor")
         check(not failures, "phase 8: " + "; ".join(failures))
     return out
 
@@ -6933,6 +7278,9 @@ def main() -> None:
     header("phase 2: the learning loop on the card vs on the CPU "
            "(llama3-8b smoke, float32), and a resumed run on the card")
     phase_loop_parity(torch, mods)
+    header("phase 2: training qwen2-vl-smoke and whisper-smoke on the card "
+           "vs on the CPU (float32)")
+    phase_train_arch_parity(torch, mods)
 
     # phase 7c's dry-run sweep runs on the CPU from here on, beside the
     # host-bound phases 3-6 (its 4 workers, niced, are done long before 7c)
@@ -7021,6 +7369,8 @@ def main() -> None:
     whisper = phase_whisper(torch, mods, header)
     torch.cuda.empty_cache()
     trained_lkv = phase_learning_loop(torch, mods, header, counts)
+    arch_counts = phase_train_archs(torch, mods, header)
+    torch.cuda.empty_cache()
     header("phase 6: tensor-parallel serving, ranks sharing cuda:0 over "
            "gloo (6a smoke exactness at 2 and 4 ranks; 6b llama3-8b full "
            "width on 2 ranks; 6c 8 layers on 4 ranks, h2o)")
@@ -7052,6 +7402,14 @@ def main() -> None:
     for k in kernels:
         if k["name"].endswith(" 5f"):  # 5f's GT pass at the paper's lengths
             k["launches"] = counts["5f"][k["name"].split()[0]]
+            continue
+        if k["name"].endswith((" 5g", " 5h")):  # their GT passes
+            cell = k["name"][-2:]
+            form = TRAIN_ARCH_FORM.get(k["name"])
+            k["launches"] = (arch_counts[cell]["forms"].get(form, 0) if form
+                             else arch_counts[cell][k["name"].split()[0]])
+            check(k["launches"] > 0, f"{k['name']}: never launched in "
+                  f"{cell}")
             continue
         if k["name"].endswith(" gt"):  # phase 8's GT pass, rank 0
             # 8b's full-width (1, 2) ranks at (16, 4), 8d's (1, 4) at (8, 2)

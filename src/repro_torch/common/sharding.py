@@ -200,9 +200,11 @@ class _ShapeMesh:
 
 
 @functools.lru_cache(maxsize=32)
-def _layer_gathers(cfg: ModelConfig, sig: tuple) -> tuple:
+def _layer_gathers(cfg: ModelConfig, sig: tuple, stack: tuple) -> tuple:
     sizes = dict(sig)
-    specs = serving_specs(cfg, _ShapeMesh(sig))["layers"]
+    specs = serving_specs(cfg, _ShapeMesh(sig))
+    for k in stack:
+        specs = specs[k]
     out = []
 
     def walk(tree, path):
@@ -221,15 +223,18 @@ def _layer_gathers(cfg: ModelConfig, sig: tuple) -> tuple:
     return tuple(out)
 
 
-def layer_gathers(cfg: ModelConfig, mesh) -> tuple:
+def layer_gathers(cfg: ModelConfig, mesh,
+                  stack: tuple = ("layers",)) -> tuple:
     """What one layer's leaves gather at use on the serving path:
     ((path keys, ((dim of the per-layer leaf, axis), ...)), ...): every
     "data" dim (ZeRO storage), and the "model" dims of the MoE subtree
-    (its layer runs whole on every rank).  Empty without a mesh."""
+    (its layer runs whole on every rank).  ``stack`` is the stacked
+    layers' path in the tree (``("encoder", "layers")``: whisper's
+    encoder blocks).  Empty without a mesh."""
     sig = mesh_signature(mesh)
     if sig is None:
         return ()
-    return _layer_gathers(cfg, sig)
+    return _layer_gathers(cfg, sig, tuple(stack))
 
 
 def lkv_specs(lkv_shapes: Any) -> Any:

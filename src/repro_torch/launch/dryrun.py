@@ -26,8 +26,7 @@ analytic components and their per-rank fold, the component/counted FLOP
 ratio, collectives, the roofline terms on the H100's constants, params
 and active params.  A step the port runs on one device only has its
 collectives null with the reason (``Built.no_route``: the LM variant of
-training, the monolithic prefills); the (arch, train) pairs the port
-cannot train yet are ``"refused"`` with the trainer's message.
+training, the monolithic prefills).
 """
 
 from __future__ import annotations
@@ -165,9 +164,8 @@ def _param_layouts(cfg, mesh, rank: int, *, serving: bool,
 def build(arch: str, shape_name: str, mesh: Mesh, variant: str = "",
           rank: int = 0) -> Built:
     """The step of ``shape_name`` for ``arch``: its global meta inputs and
-    rank ``rank``'s (``steps.make_*_step`` and ``steps.*_batch_shapes``).
-    Raises ``NotImplementedError`` where the port cannot build the step
-    (``steps._refuse_a10``)."""
+    rank ``rank``'s (``steps.make_*_step`` and
+    ``steps.*_batch_shapes``)."""
     cfg = _variant_cfg(variant, get_config(arch))
     shape = INPUT_SHAPES[shape_name]
     opts = VARIANTS[variant]
@@ -289,13 +287,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str,
     cfg = _variant_cfg(variant, get_config(arch))
     shape = INPUT_SHAPES[shape_name]
     t0 = time.time()
-    try:
-        b = build(arch, shape_name, mesh, variant)
-    except NotImplementedError as e:
-        result.update(status="refused", reason=str(e))
-        print(f"[dryrun] REFUSED {arch} x {shape_name}: {e}")
-        _dump(result, out_dir)
-        return result
+    b = build(arch, shape_name, mesh, variant)
     with (torch.no_grad() if shape.kind != "train"
           else contextlib.nullcontext()):
         counted = analysis.meta_flops(b.fn, *b.args)
@@ -376,7 +368,7 @@ def main(argv=None) -> None:
     ap.add_argument("--variant", default="", choices=list(VARIANTS))
     args = ap.parse_args(argv)
     res = run_one(args.arch, args.shape, args.mesh, args.out, args.variant)
-    sys.exit(0 if res.get("status") in ("ok", "skipped", "refused") else 1)
+    sys.exit(0 if res.get("status") in ("ok", "skipped") else 1)
 
 
 if __name__ == "__main__":

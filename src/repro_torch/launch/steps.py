@@ -41,6 +41,7 @@ from repro_torch.common.config import (EvictionConfig, ModelConfig,
                                       ShapeConfig, TrainConfig)
 from repro_torch.common.sharding import mesh_signature
 from repro_torch.core import objective
+from repro_torch.core.scoring import normalize_l1
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adam
@@ -120,27 +121,46 @@ def batch_mean(loss: torch.Tensor, grads: dict, mesh) -> tuple:
     return buf[0].to(loss.dtype), _with_leaves(grads, iter(out))
 
 
-def _refuse_a10(cfg: ModelConfig) -> None:
-    if cfg.embeds_in or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"not ported yet: training {cfg.name} (VLM patch embeddings or "
-            "encoder frames): ROADMAP A10")
-
-
 def make_lkv_grad(cfg: ModelConfig, mesh=None, *, distill: bool = False):
     """(params, lkv, batch) -> (loss, gradient tree): the lookahead
     modules' loss and gradient that ``make_train_step`` (``distill``:
     ``make_distill_step``) hands to Adam, over ``mesh`` the global
-    batch's (``batch_mean``)."""
+    batch's (``batch_mean``).
+
+    The batch, by arch (JAX's ``lkv_step`` branches): {"x", "xy"} token
+    ids; an encoder-decoder arch also "frames" (B, F, D), its encoder's
+    input in both passes; an ``embeds_in`` arch {"x" (B, n_in, D) patch
+    embeddings, "y" (B, n_out) response tokens, optionally "mrope" (3, B,
+    n_in)}, whose GT pass runs over ``cat(x, embed(y))``.  Distillation
+    takes {"x", "s_gt"}."""
     def grad(params, lkv, batch):
+        kw = {"mesh": mesh}
+        if cfg.is_encoder_decoder and not distill:
+            kw["encoder_embeds"] = batch["frames"]
+
         def loss_fn(lkv):
             if distill:
                 loss, _ = objective.lkv_loss_from_targets(
-                    params, cfg, lkv, batch["x"], batch["s_gt"], mesh=mesh)
+                    params, cfg, lkv, batch["x"], batch["s_gt"], **kw)
+            elif cfg.embeds_in:
+                x = batch["x"]
+                smesh = attn_mod.model_shard_mesh(mesh, cfg.attn)
+                y_emb = tf.embed(params, cfg, batch["y"], smesh)
+                xy = torch.cat([x.to(y_emb.dtype), y_emb], dim=1)
+                # the GT pass runs without the M-RoPE streams (the text
+                # stream over [X; Y]), the lookahead pass with them: JAX's
+                # make_train_step does so, and the port keeps it
+                s_gt = objective.gt_scores(params, cfg, xy, x.shape[1],
+                                           mrope_positions=None, **kw)
+                s_lkv = objective.lookahead_scores(
+                    params, cfg, lkv, x, mrope_positions=batch.get("mrope"),
+                    **kw)
+                loss = objective.kl_divergence(
+                    normalize_l1(s_gt), normalize_l1(s_lkv)).mean()
             else:
                 loss, _ = objective.lkv_loss(
                     params, cfg, lkv, batch["x"], batch["xy"],
-                    batch["x"].shape[1], mesh=mesh)
+                    batch["x"].shape[1], **kw)
             return loss
 
         loss, grads = value_and_grad(loss_fn, lkv)
@@ -150,9 +170,10 @@ def make_lkv_grad(cfg: ModelConfig, mesh=None, *, distill: bool = False):
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
-    """(params, lkv, opt_state, batch {"x", "xy"}) -> (lkv', opt_state',
-    loss, metrics); for an arch the technique does not apply to, the LM
-    variant (params, opt_state, batch {"xy"}) -> (params', ...).
+    """(params, lkv, opt_state, batch) -> (lkv', opt_state', loss,
+    metrics), the batch as ``make_lkv_grad`` takes it; for an arch the
+    technique does not apply to, the LM variant (params, opt_state, batch
+    {"xy"}) -> (params', ...).
 
     Over ``mesh`` (one rank: ``params`` its shard in ``serving_specs``'
     layout, ``lkv`` and ``opt_state`` replicated, ``batch`` its data
@@ -161,7 +182,6 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
     so the clip sees the global gradient's norm and every rank returns
     the same modules, state and loss.  The LM variant has no launcher
     route in either package and takes no mesh (``ValueError``)."""
-    _refuse_a10(cfg)
     if not cfg.technique_applies:
         if mesh_signature(mesh) is not None:
             raise ValueError(
@@ -200,7 +220,11 @@ def make_distill_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
     if not cfg.technique_applies:
         raise ValueError("distillation trains lookahead modules; "
                          f"{cfg.name} has none")
-    _refuse_a10(cfg)
+    if cfg.is_encoder_decoder:
+        # JAX's distill step asserts "whisper needs frame embeddings" when
+        # it runs: harvested batches carry no frames
+        raise ValueError(f"{cfg.name} needs frame embeddings, which a "
+                         "distillation batch ({x, s_gt}) does not carry")
     return _adam_step(make_lkv_grad(cfg, mesh, distill=True), tc)
 
 

@@ -177,6 +177,17 @@ def _rows(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     return x.narrow(dim, mesh.data_index * w, w)
 
 
+def _refuse_a10(cfg) -> None:
+    """The synthetic mixture and harvested traces are token ids: neither
+    package makes a VLM (patch embeddings) or frame batch for them."""
+    if cfg.embeds_in or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"not ported yet: training {cfg.name} from the synthetic "
+            "mixture or harvested traces, which hold no patch embeddings "
+            "or encoder frames (pass explicit batches, job[\"batches\"]): "
+            "ROADMAP A10")
+
+
 def train_job(job: dict, *, mesh=None, device=None) -> dict:
     """Train the lookahead modules in this process, one device or one rank
     of ``mesh``.  ``job`` holds "cfg", "device", "steps", "batch" (the
@@ -184,8 +195,10 @@ def train_job(job: dict, *, mesh=None, device=None) -> dict:
     "harvest", "ckpt_every", "resume", "verify", "stop_after" (the
     launcher's flags), the weights as the JAX package's numpy trees
     "params" / "lkv" (``bridge``; else drawn from the seed, the modules
-    from ``seed + 1``), "batches" (global batches of numpy arrays, {"x",
-    "xy"} or {"x", "s_gt"}, in place of the data source) and
+    from ``seed + 1``), "batches" (global batches of numpy arrays in
+    place of the data source: {"x", "xy"}, with "frames" for an
+    encoder-decoder arch, {"x", "y"[, "mrope"]} for an ``embeds_in``
+    arch, or {"x", "s_gt"}; the only source of those two archs) and
     "return_grads" (keep each step's gradient, averaged over the batch
     axes, as the step gave it to Adam).  Returns the losses,
     gradient norms, seconds per step, the final modules and AdamState,
@@ -193,6 +206,8 @@ def train_job(job: dict, *, mesh=None, device=None) -> dict:
     device bytes, the bytes of the rank's weights and, on the card, the
     caching allocator's rise while they were built."""
     cfg = job["cfg"]
+    if job.get("batches") is None:
+        _refuse_a10(cfg)
     dev = torch.device(device or job["device"])
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a card "
@@ -258,15 +273,15 @@ def train_job(job: dict, *, mesh=None, device=None) -> dict:
         if isinstance(b, dict) and "s_gt" in b:
             batch = {"x": torch.as_tensor(b["x"], device=dev),
                      "s_gt": torch.as_tensor(b["s_gt"], device=dev)}
-        elif isinstance(b, dict):
+        elif isinstance(b, dict):  # {x, xy[, frames]} or {x, y[, mrope]}
             batch = {k: torch.as_tensor(b[k], device=dev)
-                     for k in ("x", "xy")}
+                     for k in ("x", "xy", "y", "mrope", "frames") if k in b}
         else:
             xy = np.concatenate([b.x, b.y], axis=1)
             batch = {"x": torch.as_tensor(b.x, device=dev),
                      "xy": torch.as_tensor(xy, device=dev)}
         if mesh_signature(mesh) is not None:
-            batch = {k: _rows(v, 1 if k == "s_gt" else 0, mesh)
+            batch = {k: _rows(v, 1 if k in ("s_gt", "mrope") else 0, mesh)
                      for k, v in batch.items()}
         return batch
 

@@ -412,20 +412,25 @@ def cross_attention(
     lora: Optional[dict] = None,
     lora_mask: Optional[torch.Tensor] = None,  # (B, Sq, 1)
     lora_scale: float = 1.0,
+    smesh=None,  # tensor-parallel: the rank's heads (``a`` local)
 ) -> torch.Tensor:
     """Whisper's decoder-to-encoder attention (no positions): the rows'
     queries over every frame (``ops.flash_attention`` with Sq != Sk,
     non-causal), the lookahead LoRA on ``wq`` and ``wo`` only, as in the
-    JAX package.  Returns (B, Sq, D)."""
+    JAX package.  Returns (B, Sq, D).  Under ``smesh`` ``p``, ``enc_k``
+    and ``enc_v`` hold the rank's heads: ``wq`` is column-parallel and
+    ``wo`` takes the gathered heads (``sharded_wo_linear``), as in
+    ``prefill_attention``."""
     B, Sq, _ = h.shape
-    q = linear(h, p["wq"], p.get("bq"), lora=_lora_for(lora, "wq"),
-               lora_mask=lora_mask, lora_scale=lora_scale)
+    q, = column_linears(h, [p["wq"]], smesh, biases=[p.get("bq")],
+                        loras=[_lora_for(lora, "wq")], lora_mask=lora_mask,
+                        lora_scale=lora_scale)
     q = q.reshape(B, Sq, a.num_heads, a.head_dim)
     out = ops.flash_attention(q, enc_k, enc_v, causal=False,
                               kv_mask=enc_mask)
-    return linear(out.reshape(B, Sq, a.q_dim), p["wo"],
-                  lora=_lora_for(lora, "wo"), lora_mask=lora_mask,
-                  lora_scale=lora_scale)
+    return sharded_wo_linear(out.reshape(B, Sq, a.q_dim), p["wo"], smesh,
+                             lora=_lora_for(lora, "wo"), lm=lora_mask,
+                             ls=lora_scale)
 
 
 def cross_attention_decode_evicted(
@@ -447,7 +452,9 @@ def cross_attention_decode_evicted(
 def encode_kv(p: dict, a: AttentionConfig, h_enc: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """The encoder states (B, Se, D) projected once into one decoder
-    layer's cross-attention K/V (B, Se, KV, hd), no LoRA."""
+    layer's cross-attention K/V (B, Se, KV, hd), no LoRA; with ``p`` a
+    rank's column slices and ``a`` its local config, the rank's kv
+    heads."""
     B, Se, _ = h_enc.shape
     k = linear(h_enc, p["wk"], p.get("bk"))
     v = linear(h_enc, p["wv"], p.get("bv"))

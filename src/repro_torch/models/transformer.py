@@ -153,14 +153,15 @@ def layer_slice(tree: Optional[dict], layer: int) -> Optional[dict]:
 
 
 def _layer_params(params: dict, layer: int, gathers: tuple,
-                  mesh) -> dict:
-    """Layer ``layer`` of ``params`` as its products take it: over a mesh,
-    every leaf ``gathers`` (``sharding.layer_gathers``, taken with the
-    global config) names is all-gathered along its dims (ZeRO storage
-    over "data", the MoE's shards over "model"), whole for this layer's
-    use and dropped after.  These are the frozen weights: their gathers
-    carry no gradient, and a leaf that asks for one raises."""
-    lp = layer_slice(params["layers"], layer)
+                  mesh, stack: Optional[dict] = None) -> dict:
+    """Layer ``layer`` of ``params`` (of ``stack``, the encoder's stacked
+    layers, when given) as its products take it: over a mesh, every leaf
+    ``gathers`` (``sharding.layer_gathers``, taken with the global config)
+    names is all-gathered along its dims (ZeRO storage over "data", the
+    MoE's shards over "model"), whole for this layer's use and dropped
+    after.  These are the frozen weights: their gathers carry no
+    gradient, and a leaf that asks for one raises."""
+    lp = layer_slice(params["layers"] if stack is None else stack, layer)
     for path, dims in gathers:
         node = lp  # layer_slice made fresh dicts: safe to write into
         for k in path[:-1]:
@@ -294,26 +295,33 @@ def _ffn_residual(h, lp, cfg: ModelConfig, *, lora_l=None, lora_mask=None,
 # ---------------------------------------------------------------------------
 
 
-def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor
-           ) -> torch.Tensor:
+def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+           mesh=None) -> torch.Tensor:
     """Whisper's bidirectional encoder: frames (B, F, D), the stubbed
     frontend's embeddings, cast to the model dtype plus ``pos_emb``,
     through the encoder blocks (non-causal attention without rotary:
     kernel 7 on the card; then the MLP) and a final ``rms_norm``.
-    Returns (B, F, D)."""
+    Returns (B, F, D).  Over ``mesh`` (the trainer's, ``prefill(mesh=)``)
+    ``params`` is the rank's shard: each block's weights are gathered at
+    use as a decoder layer's, and its attention and MLP run at the rank's
+    heads and columns where the heads divide the model axis, else
+    whole."""
     enc = params["encoder"]
+    smesh = attn_mod.model_shard_mesh(mesh, cfg.attn)
+    gathers = layer_gathers(cfg, mesh, ("encoder", "layers"))
+    la = attn_mod.local_config(cfg, smesh).attn
     h = frames.to(torch_dtype(cfg)) + enc["pos_emb"][None]
     B, F, _ = h.shape
     positions = torch.arange(F, device=h.device).expand(B, F)
     for layer in range(cfg.encoder.num_layers):
-        lp = layer_slice(enc["layers"], layer)
+        lp = _layer_params(params, layer, gathers, mesh, enc["layers"])
         u = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        out, *_ = attn_mod.prefill_attention(lp["attn"], cfg.attn, u,
-                                             positions, causal=False,
-                                             rotary=False)
+        out, *_ = attn_mod.prefill_attention(lp["attn"], la, u, positions,
+                                             causal=False, rotary=False,
+                                             smesh=smesh)
         h = h + out
         u = rms_norm(h, lp["ln2"], cfg.norm_eps)
-        h = h + mlp_mod.apply(lp["mlp"], cfg, u)
+        h = h + mlp_mod.apply_sharded(lp["mlp"], cfg, u, smesh)
     return rms_norm(h, enc["final_norm"], cfg.norm_eps)
 
 
@@ -456,11 +464,14 @@ def prefill(
     divide the model axis (kernels 7 and 3 on the card; the lookahead
     rows' LoRA through ``attention.local_lora``), else whole, as serving
     does; the frozen weights are gathered at use (``_layer_params``) and
-    the captured scores all-gathered over heads to (L, B, H, n).  Only
-    ``capture_scores`` with ``gt_boundary`` or ``lkv_params``,
-    ``want_logits="none"`` and no policy, bucket padding or encoder take
-    a mesh; any other combination raises ``ValueError`` (the monolithic
-    serving routes take none, as the JAX launcher's)."""
+    the captured scores all-gathered over heads to (L, B, H, n).  M-RoPE
+    streams are the data row's (3, B_row, S); whisper's encoder
+    (``encode(mesh=)``) and each cross-attention run at the rank's heads
+    where they divide the model axis, else whole, on the data row's
+    frames.  Only ``capture_scores`` with ``gt_boundary`` or
+    ``lkv_params``, ``want_logits="none"`` and no policy or bucket
+    padding take a mesh; any other combination raises ``ValueError``
+    (the monolithic serving routes take none, as the JAX launcher's)."""
     _check_arch(cfg)
     check_policy(policy)
     if mesh_signature(mesh) is None:
@@ -468,13 +479,12 @@ def prefill(
     elif not (capture_scores and (gt_boundary is not None
                                   or lkv_params is not None)
               and want_logits == "none" and policy is None
-              and prompt_lens is None and encoder_embeds is None
-              and mrope_positions is None):
+              and prompt_lens is None):
         raise ValueError(
             "prefill over a mesh runs the training objective's passes only "
             "(capture_scores with gt_boundary or lkv_params, want_logits="
-            "'none', no policy, prompt_lens or encoder): the monolithic "
-            "serving routes take no mesh")
+            "'none', no policy or prompt_lens): the monolithic serving "
+            "routes take no mesh")
     smesh = attn_mod.model_shard_mesh(mesh, cfg.attn)
     gathers = layer_gathers(cfg, mesh)
     la = attn_mod.local_config(cfg, smesh).attn
@@ -580,13 +590,15 @@ def prefill(
     ls = lora_scale(cfg) if use_lookahead else 1.0
     lora_tree = lkv_params.get("lora") if use_lookahead else None
     pool_kernel = lk.pool_kernel if lk else 7
-    cross_kv = cross_layers = None
+    h_enc = cross_layers = cross_kv = None
     if cfg.is_encoder_decoder:
-        # the encoder runs once; every decoder layer's cross K/V from it
-        cross_kv = encode_cross_kv(params, cfg,
-                                   encode(params, cfg, encoder_embeds))
+        # the encoder runs once; each decoder layer projects its cross K/V
+        # from it (at the rank's kv heads over a mesh)
+        h_enc = encode(params, cfg, encoder_embeds, mesh)
         evict_cross = do_evict and evict.cross_budget > 0 and n_obs > 0
         cross_layers = [] if evict_cross else None
+        if do_evict and not evict_cross:  # the cache keeps them whole
+            cross_kv = ([], [])
     layers, ssm_caches, captured, auxes = [], [], [], []
     for layer, window in enumerate(_windows(cfg)):
         lp = _layer_params(params, layer, gathers, mesh)
@@ -609,13 +621,16 @@ def prefill(
         if cfg.hybrid:
             delta = delta * 0.5
         h = h + delta
-        if cross_kv is not None:
-            ck, cv = cross_kv[0][layer], cross_kv[1][layer]
+        if h_enc is not None:
+            ck, cv = attn_mod.encode_kv(lp["cross"], la, h_enc)
+            if cross_kv is not None:
+                cross_kv[0].append(ck)
+                cross_kv[1].append(cv)
             u_cross = rms_norm(h, lp["ln_cross"], cfg.norm_eps)
             h = h + attn_mod.cross_attention(
-                lp["cross"], a, u_cross, ck, cv,
+                lp["cross"], la, u_cross, ck, cv,
                 lora=None if lora_l is None else lora_l.get("cross"),
-                lora_mask=lmask, lora_scale=ls)
+                lora_mask=lmask, lora_scale=ls, smesh=smesh)
             if cross_layers is not None:
                 cross_layers.append(_cross_evicted(
                     lp, cfg, u_cross, ck, cv, boundary, evict.cross_budget))
@@ -676,7 +691,8 @@ def prefill(
                                               for e in cross_layers])
                               for f in ev.EvictedKV._fields}
         elif cross_kv is not None:
-            cache["cross"] = {"k": cross_kv[0], "v": cross_kv[1]}
+            cache["cross"] = {"k": torch.stack(cross_kv[0]),
+                              "v": torch.stack(cross_kv[1])}
         cache["next_pos"] = (
             torch.full((B, 1), n_pos, dtype=torch.int32, device=dev)
             if prompt_lens is None else pl[:, None].to(torch.int32))

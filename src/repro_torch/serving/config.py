@@ -86,6 +86,28 @@ class ChunkingConfig:
             raise ValueError("chunk and decode_chunk must be >= 1")
 
 
+#: the old ``ContinuousEngine`` keyword -> its ServingConfig field path
+#: (the JAX package's deprecation shim, name for name)
+_LEGACY_FIELDS = {
+    "policy": "policy",
+    "evict": "evict",
+    "num_slots": "num_slots",
+    "max_new_tokens": "max_new_tokens",
+    "eos_id": "eos_id",
+    "decode_evict": "decode_evict",
+    "chunk": "chunking.chunk",
+    "max_context": "chunking.max_context",
+    "token_budget": "chunking.token_budget",
+    "decode_chunk": "chunking.decode_chunk",
+    "sampling": "sampling",
+    "kv_pool": "kv_pool",
+    "prefix_cache": "prefix_cache",
+    "reserve_appends": "reserve_appends",
+    "capture_admission": "capture_admission",
+    "mesh": "mesh",
+}
+
+
 @dataclass
 class ServingConfig:
     """Everything that shapes a ``ContinuousEngine``, in one object."""
@@ -116,6 +138,41 @@ class ServingConfig:
 
     def __post_init__(self):
         self.decode_evict = DecodeEvictionConfig.coerce(self.decode_evict)
+        if self.evict is None:
+            self.evict = EvictionConfig()
+
+    @classmethod
+    def from_legacy(cls, **kwargs) -> "ServingConfig":
+        """A config from the old ``ContinuousEngine`` keyword names (the
+        deprecation shim); an unknown name raises ``TypeError``, as the
+        old signature did."""
+        unknown = set(kwargs) - set(_LEGACY_FIELDS)
+        if unknown:
+            raise TypeError(
+                f"unknown ContinuousEngine kwargs: {sorted(unknown)}")
+        top: dict = {}
+        chunking: dict = {}
+        for name, value in kwargs.items():
+            path = _LEGACY_FIELDS[name]
+            if path.startswith("chunking."):
+                chunking[path.split(".", 1)[1]] = value
+            else:
+                top[path] = value
+        if chunking:
+            top["chunking"] = ChunkingConfig(**chunking)
+        return cls(**top)
+
+    def legacy_kwargs(self) -> dict:
+        """The old keyword dict equivalent to this config (the round trip
+        of ``from_legacy``; ``decode_evict`` stays a config, since
+        ``from_legacy`` coerces a bool and not the reverse)."""
+        out = {}
+        for name, path in _LEGACY_FIELDS.items():
+            obj: Any = self
+            for part in path.split("."):
+                obj = getattr(obj, part)
+            out[name] = obj
+        return out
 
     def replace(self, **changes) -> "ServingConfig":
         return dataclasses.replace(self, **changes)

@@ -577,12 +577,25 @@ class ContinuousEngine(_SlotDecodeMixin):
     (``transformer.init_params``, ``core.lookahead.init_lookahead_params``
     or ``bridge.to_torch``); the pool, when there is one, lives there
     too, and a pool-backed prefix cache must be bound to that pool.
-    ``run(requests)`` serves them to completion.
+    ``run(requests)`` serves them to completion.  The old keyword
+    arguments (``policy=``, ``chunk=``, ...: ``ServingConfig.
+    from_legacy``) still build the config, with a ``DeprecationWarning``;
+    given beside a config they raise ``ValueError``.
     """
 
     def __init__(self, params: dict, cfg: ModelConfig,
                  config: Optional[ServingConfig] = None, *,
-                 lkv_params: Optional[dict] = None, device="cuda"):
+                 lkv_params: Optional[dict] = None, device="cuda",
+                 **legacy):
+        if legacy:
+            if config is not None:
+                raise ValueError("pass either a ServingConfig or legacy "
+                                 "kwargs, not both")
+            warnings.warn(
+                "ContinuousEngine(**kwargs) is deprecated; build a "
+                "serving.config.ServingConfig and pass it as ``config``",
+                DeprecationWarning, stacklevel=2)
+            config = ServingConfig.from_legacy(**legacy)
         config = config or ServingConfig()
         _reject_unported(config)
         if not tf.chunkable(cfg):

@@ -26,7 +26,8 @@ port's is held against the JAX functions that do run:
   the difference is the same at 2 and 3 layers, and each added layer
   costs both packages the same;
 * ``shape_applicable`` against JAX's; ``run_one`` and ``dryrun_all`` on
-  two archs, JSON files written, every status ok, skipped or refused;
+  two archs, JSON files written, every status ok or skipped, qwen2-vl's
+  and whisper's training steps with their collectives counted;
 * the sharded training step's collectives, counted per layer: the two
   passes' gathers (ZeRO and tensor-parallel), the backward's all-reduces
   over "model", and one gradient all-reduce over the batch axes.
@@ -335,7 +336,7 @@ def test_run_one_and_dryrun_all_write_json(tmp_path):
         ("smollm-135m", "train_4k"): "ok",
         ("smollm-135m", "decode_32k"): "ok",
         ("smollm-135m", "long_500k"): "skipped",
-        ("qwen2-vl-72b", "train_4k"): "refused",
+        ("qwen2-vl-72b", "train_4k"): "ok",
         ("qwen2-vl-72b", "decode_32k"): "ok",
         ("qwen2-vl-72b", "long_500k"): "skipped"}
     assert len(list(out.glob("*.json"))) == 6
@@ -346,9 +347,30 @@ def test_run_one_and_dryrun_all_write_json(tmp_path):
     assert train["collectives"]["counts"] == {"all-gather": 0,
                                               "all-reduce": 1}
     assert "collectives_reason" not in train
-    refused = json.loads(
-        (out / "qwen2-vl-72b_train_4k_pod.json").read_text())
-    assert "ROADMAP A10" in refused["reason"]
+    vlm = json.loads((out / "qwen2-vl-72b_train_4k_pod.json").read_text())
+    # qwen2-vl's 8 kv heads divide no model axis of 16 and it keeps ZeRO
+    # storage: each of its 80 layers gathers its seven big weights over
+    # "data" in each of the two passes (the response tokens' embedding
+    # rows from a whole table), then the gradient's one all-reduce
+    layers = get_config("qwen2-vl-72b").num_layers
+    assert vlm["collectives"]["counts"] == {"all-gather": 2 * 7 * layers,
+                                            "all-reduce": 1}
+    assert "collectives_reason" not in vlm
+
+
+def test_whisper_train_shape_runs_whole_on_multipod(tmp_path):
+    """whisper-small's training step on the multipod mesh: its 12 heads
+    divide no model axis of 16 and it keeps no ZeRO storage, so the
+    encoder, the decoder and every cross-attention run whole on every
+    rank and the step's one collective is the gradient's all-reduce."""
+    res = dryrun.run_one("whisper-small", "train_4k", "multipod",
+                         str(tmp_path))
+    assert res["status"] == "ok" and res["chips"] == 512
+    assert res["collectives"]["counts"] == {"all-gather": 0,
+                                            "all-reduce": 1}
+    on_disk = json.loads(
+        (tmp_path / "whisper-small_train_4k_multipod.json").read_text())
+    assert on_disk["status"] == "ok"
 
 
 @pytest.mark.parametrize("sizes,names,zero", [

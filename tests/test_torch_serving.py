@@ -2,7 +2,8 @@
 paged continuous-batching engine end to end against the JAX package's
 paged ``ContinuousEngine``, the learning loop's two engine settings (the
 harvest hook writes a record per retired request, a lookahead checkpoint
-serves like the same modules in memory), and the settings the port
+serves like the same modules in memory), the old keyword arguments
+against JAX's ``ServingConfig.from_legacy``, and the settings the port
 refuses.
 
 End to end: the same float32 smoke model (JAX parameters bridged) serves
@@ -203,6 +204,50 @@ def test_engine_matches_jax_paged_engine():
             w.admission_cache), f"uid {uid}: kept sets diverged"
     eng.pool.check()
     assert eng.pool.used_blocks() == 0 and eng.pool.reserved == 0
+
+
+def test_legacy_kwargs_round_trip_and_match_jax():
+    """The old ``ContinuousEngine`` keywords (``ServingConfig.
+    from_legacy``) build the config JAX's ``from_legacy`` builds from the
+    same keywords, field for field; ``legacy_kwargs`` round-trips it and
+    names JAX's keys; the engine takes them with a
+    ``DeprecationWarning``, refuses them beside a config (``ValueError``)
+    and an unknown name (``TypeError``)."""
+    legacy = dict(policy="snapkv", num_slots=3, max_new_tokens=7,
+                  eos_id=-1, decode_evict=True, chunk=16, max_context=64,
+                  token_budget=48, decode_chunk=4, reserve_appends=False,
+                  capture_admission=True)
+    tsc = ServingConfig.from_legacy(evict=EvictionConfig(budget=16),
+                                    **legacy)
+    jsc = JServing.from_legacy(evict=JEvict(budget=16), **legacy)
+    got, want = tsc.legacy_kwargs(), jsc.legacy_kwargs()
+    assert list(got) == list(want)
+    for name in want:
+        g, w = got[name], want[name]
+        if dataclasses.is_dataclass(w):  # evict, decode_evict
+            assert dataclasses.asdict(g) == dataclasses.asdict(w), name
+        else:
+            assert g == w, name
+    assert dataclasses.asdict(tsc.chunking) == dataclasses.asdict(
+        jsc.chunking)
+    assert ServingConfig.from_legacy(**got) == tsc
+    assert tsc.decode_evict.enabled and not tsc.reserve_appends
+
+    cfg = _cfg()
+    params = ttf.init_params(cfg, seed=0, device="cpu")
+    lkv = init_lookahead_params(torch.Generator().manual_seed(1), cfg,
+                                params["layers"], device="cpu")
+    with pytest.warns(DeprecationWarning, match="ServingConfig"):
+        eng = ContinuousEngine(params, cfg, lkv_params=lkv, device="cpu",
+                               evict=EvictionConfig(budget=16), **legacy)
+    assert eng.config == tsc
+    with pytest.raises(ValueError, match="not both"):
+        ContinuousEngine(params, cfg, tsc, lkv_params=lkv, device="cpu",
+                         chunk=16)
+    with pytest.raises(TypeError, match="unknown ContinuousEngine kwargs"
+                       ), pytest.warns(DeprecationWarning):
+        ContinuousEngine(params, cfg, lkv_params=lkv, device="cpu",
+                         chunks=16)
 
 
 # ---------------------------------------------------------------------------

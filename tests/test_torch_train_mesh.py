@@ -19,9 +19,14 @@ Meshes: llama3-smoke at 8 q / 4 kv heads of 32, d_model 256, on (1, 2),
 (2, 1), (2, 2) with ZeRO storage (``fsdp``), (1, 4) and the pod-shaped
 (2, 1, 2); deepseek-smoke (MoE layers whole on every rank) and
 gemma3-smoke (one kv head: every layer whole) on (1, 2), where a
-gradient summed over "model" after the fact would count twice.  One
-training step each (``train.train_shard``, lr 1e-3 of a 10-step
-schedule, the first step of its warmup), held to:
+gradient summed over "model" after the fact would count twice;
+qwen2-vl-smoke (4 / 2 heads, patch embeddings with an M-RoPE grid,
+``torch_train_ref.vlm_batch``) on (1, 2) and on (2, 2) with ZeRO, its
+train and its distillation step; whisper-smoke (4 / 4 heads: the
+encoder and the cross-attention at 2 heads a rank, frames split with
+the batch rows) on (1, 2) and (2, 1).  One training step each
+(``train.train_shard``, lr 1e-3 of a 10-step schedule, the first step
+of its warmup), held to:
 
 * the loss within 1e-5 relative, the same on every rank;
 * every lkv gradient leaf within 1e-4 of that leaf's largest JAX
@@ -39,9 +44,11 @@ schedule, the first step of its warmup), held to:
 * the updated modules within 1e-6 absolute where JAX's gradient exceeds
   1e-3 of its leaf's largest, elsewhere within 2 x lr (Adam's first step
   is lr * sign(g), and a gradient near zero may take either sign); every
-  rank's modules bit for bit the same.
+  rank's modules bit for bit the same;
+* whisper's cross ``wk`` / ``wv`` LoRA, which no pass applies: zero
+  gradients and moments in both packages.
 
-Also: the distillation step at (2, 2) against ``make_distill_step`` on
+Also: the distillation steps at (2, 2) against ``make_distill_step`` on
 the same stored targets; the autograd collectives alone in the world of
 2 against the same products on one rank (float64, 1e-12); a run killed
 and resumed at (2, 1) bit for bit the straight run, and a checkpoint
@@ -64,11 +71,8 @@ import torch
 
 from repro.common.config import TrainConfig as JTrain
 from repro.configs import get_smoke_config as jax_smoke
-from repro.core import objective as jobj
 from repro.core.lookahead import init_lookahead_params as jax_init_lkv
-from repro.launch import steps as jsteps
 from repro.models import transformer as jtf
-from repro.optim import adam as jadam
 from repro_torch import bridge
 from repro_torch.checkpoint import io as tckpt
 from repro_torch.common.config import TrainConfig
@@ -80,6 +84,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as ttf
 from repro_torch.optim import adam as tadam
 from torch_mesh_ranks import autograd_collectives, two_products
+import torch_train_ref as train_ref
 
 N_IN, N_OUT, B = 40, 8, 2
 LR, SCHEDULE = 1e-3, 10
@@ -93,7 +98,14 @@ STEP_CASES = (
     ("llama (1, 4)", "llama", (1, 4), False, 4, False),
     ("llama (2, 1, 2)", "llama", (2, 1, 2), False, 4, False),
     ("llama (2, 2) zero distill", "llama", (2, 2), True, 4, True),
+    ("qwen2-vl (1, 2)", "qwen2-vl", (1, 2), False, 2, False),
+    ("qwen2-vl (2, 2) zero", "qwen2-vl", (2, 2), True, 4, False),
+    ("qwen2-vl (2, 2) zero distill", "qwen2-vl", (2, 2), True, 4, True),
+    ("whisper (1, 2)", "whisper", (1, 2), False, 2, False),
+    ("whisper (2, 1)", "whisper", (2, 1), False, 2, False),
 )
+#: the models whose distillation step is held (their JAX references)
+DISTILLED = ("llama", "qwen2-vl")
 #: the killed-and-resumed runs at (2, 1): synthetic mixture, 6 steps of
 #: B 2, a save every 2
 RESUME = dict(steps=6, batch=2, n_in=24, n_out=6, lr=LR, seed=1,
@@ -112,7 +124,8 @@ def _llama(base):
 def _config(get, name):
     if name == "llama":
         return _llama(get("llama3-8b"))
-    arch = {"deepseek": "deepseek-moe-16b", "gemma": "gemma3-1b"}[name]
+    arch = {"deepseek": "deepseek-moe-16b", "gemma": "gemma3-1b",
+            "qwen2-vl": "qwen2-vl-72b", "whisper": "whisper-small"}[name]
     return dataclasses.replace(get(arch), dtype="float32")
 
 
@@ -124,11 +137,15 @@ def _jtc():
 @pytest.fixture(scope="module")
 def models():
     """{model: JAX config and port config, JAX params and modules (LoRA
-    b drawn), their numpy trees, the tokens and the port's gt targets}."""
+    b drawn), their numpy trees, the train step's batch and, for the
+    ``DISTILLED`` models, the distillation's (the port's one-rank gt
+    targets)}: tokens for the text archs, patch embeddings with an
+    M-RoPE grid for qwen2-vl, tokens and frames for whisper
+    (``torch_train_ref``)."""
     toks = np.random.default_rng(7).integers(
         0, 512, (B, N_IN + N_OUT)).astype(np.int32)
     out = {}
-    for name in ("llama", "deepseek", "gemma"):
+    for name in ("llama", "deepseek", "gemma", "qwen2-vl", "whisper"):
         jcfg = _config(jax_smoke, name)
         tcfg = _config(get_smoke_config, name)
         jp = jtf.init_params(jax.random.PRNGKey(0), jcfg)
@@ -139,21 +156,31 @@ def models():
                                       x.dtype)
                           if str(p[-1].key) == "b" else x), jl)
         np_params = jax.tree.map(np.asarray, jp)
+        if name == "qwen2-vl":
+            batch = train_ref.vlm_batch(tcfg, B, N_OUT, seed=11)
+        elif name == "whisper":
+            batch = train_ref.whisper_batch(tcfg, B, N_IN, N_OUT, seed=13)
+        else:
+            batch = {"x": toks[:, :N_IN], "xy": toks}
         out[name] = dict(jcfg=jcfg, tcfg=tcfg, jp=jp, jl=jl, toks=toks,
-                         np_params=np_params,
+                         np_params=np_params, batch=batch,
                          np_lkv=jax.tree.map(np.asarray, jl))
-    m = out["llama"]
-    # the distillation's stored targets: the port's GT pass on one rank
-    m["s_gt"] = tobj.gt_scores(bridge.to_torch(m["np_params"], device="cpu"),
-                               m["tcfg"], torch.from_numpy(toks),
-                               N_IN).numpy()
+    for name in DISTILLED:
+        # the distillation's stored targets: the port's GT pass on one
+        # rank (over [X; embed(Y)] for qwen2-vl)
+        m = out[name]
+        tp = bridge.to_torch(m["np_params"], device="cpu")
+        x = torch.from_numpy(m["batch"]["x"])
+        xy = (torch.from_numpy(m["batch"]["xy"]) if "xy" in m["batch"]
+              else torch.cat([x, ttf.embed(tp, m["tcfg"], torch.from_numpy(
+                  m["batch"]["y"]))], dim=1))
+        s_gt = tobj.gt_scores(tp, m["tcfg"], xy, N_IN).numpy()
+        m["distill_batch"] = {"x": m["batch"]["x"], "s_gt": s_gt}
     return out
 
 
 def _step_job(m, sizes, zero, distill, ckpt):
-    toks = m["toks"]
-    batch = ({"x": toks[:, :N_IN], "s_gt": m["s_gt"]} if distill
-             else {"x": toks[:, :N_IN], "xy": toks})
+    batch = m["distill_batch"] if distill else m["batch"]
     return dict(cfg=dataclasses.replace(m["tcfg"], fsdp=zero), device="cpu",
                 steps=SCHEDULE, batch=B, n_in=N_IN, n_out=N_OUT, lr=LR,
                 ckpt=ckpt, seed=0, mesh=sizes, params=m["np_params"],
@@ -208,47 +235,17 @@ def _spawn_worlds(models, tmp) -> dict:
 
 def _jax_step(m, distill: bool) -> dict:
     """JAX's single-device loss, gradients, global norm and one step, in
-    one compiled program."""
-    jcfg, jp, toks = m["jcfg"], m["jp"], m["toks"]
-    x = jnp.asarray(toks[:, :N_IN])
-    if distill:
-        batch = {"x": x, "s_gt": jnp.asarray(m["s_gt"])}
-        step = jsteps.make_distill_step(jcfg, _jtc())
-
-        def loss(jl):
-            return jobj.lkv_loss_from_targets(jp, jcfg, jl, x,
-                                              batch["s_gt"])[0]
-    else:
-        batch = {"x": x, "xy": jnp.asarray(toks)}
-        step = jsteps.make_train_step(jcfg, _jtc())
-
-        def loss(jl):
-            return jobj.lkv_loss(jp, jcfg, jl, x, batch["xy"], N_IN)[0]
-
-    @jax.jit
-    def run(jl, opt):
-        val, grads = jax.value_and_grad(loss)(jl)
-        _, norm = jadam.clip_by_global_norm(grads, 1.0)
-        return val, grads, norm, step(jp, jl, opt, batch)
-
-    val, grads, norm, (lkv, opt, step_loss) = run(m["jl"],
-                                                  jadam.init(m["jl"]))
-    leaves = jax.tree.leaves
-    return dict(loss=float(val), step_loss=float(step_loss),
-                norm=float(norm), grads=[np.asarray(g) for g in leaves(grads)],
-                lkv=[np.asarray(g) for g in leaves(lkv)],
-                mu=[np.asarray(g) for g in leaves(opt.mu)],
-                nu=[np.asarray(g) for g in leaves(opt.nu)],
-                names=["/".join(str(k.key) for k in p) for p, _ in
-                       jax.tree_util.tree_flatten_with_path(grads)[0]])
+    one compiled program (``torch_train_ref.jax_step``)."""
+    return train_ref.jax_step(m["jcfg"], m["jp"], m["jl"],
+                              m["distill_batch"] if distill else m["batch"],
+                              _jtc())
 
 
 def _port_one_rank(m, distill: bool) -> dict:
     """The port's loss, gradients and global norm in this process, on
     the whole tree and the whole batch (no mesh)."""
-    toks = torch.from_numpy(m["toks"])
-    batch = ({"x": toks[:, :N_IN], "s_gt": torch.from_numpy(m["s_gt"])}
-             if distill else {"x": toks[:, :N_IN], "xy": toks})
+    batch = {k: torch.from_numpy(v) for k, v in (
+        m["distill_batch"] if distill else m["batch"]).items()}
     loss, grads = steps.make_lkv_grad(m["tcfg"], distill=distill)(
         bridge.to_torch(m["np_params"], device="cpu"),
         bridge.to_torch(m["np_lkv"], device="cpu"), batch)
@@ -264,7 +261,7 @@ def _port_one_rank(m, distill: bool) -> dict:
 
 @pytest.fixture(scope="module")
 def worlds(models, tmp_path_factory):
-    """(the spawned worlds' results, {model or "distill": JAX's step});
+    """(the spawned worlds' results, {(model, distill): JAX's step});
     the ranks on one CPU thread each, the JAX programs compiled
     meanwhile in this process."""
     box: dict = {}
@@ -282,11 +279,12 @@ def worlds(models, tmp_path_factory):
         th = threading.Thread(target=spawn)
         th.start()
         try:
-            for name in ("llama", "deepseek", "gemma"):
-                refs[name] = _jax_step(models[name], False)
-                refs[name]["port"] = _port_one_rank(models[name], False)
-            refs["distill"] = _jax_step(models["llama"], True)
-            refs["distill"]["port"] = _port_one_rank(models["llama"], True)
+            for name in models:
+                for distill in (False, True) if name in DISTILLED else (
+                        False,):
+                    refs[name, distill] = _jax_step(models[name], distill)
+                    refs[name, distill]["port"] = _port_one_rank(
+                        models[name], distill)
         finally:
             th.join()
     if "err" in box:
@@ -304,7 +302,7 @@ def _close_rel(got, want, rel):
 def test_sharded_step_matches_jax_single_device(worlds, case):
     out, refs, _ = worlds
     spec = next(c for c in STEP_CASES if c[0] == case)
-    want = refs["distill" if spec[5] else spec[1]]
+    want = refs[spec[1], spec[5]]
     ranks = out[case]
     r0 = ranks[0]
     assert len(r0["losses"]) == 1
@@ -324,6 +322,11 @@ def test_sharded_step_matches_jax_single_device(worlds, case):
     assert int(r0["opt"]["step"]) == 1
     for i, name in enumerate(want["names"]):
         g_want = want["grads"][i]
+        if name in train_ref.UNUSED:  # whisper's: zeros in both packages
+            for what in ("grads", "mu", "nu"):
+                assert not got[what][i].any(), (case, name, what)
+                assert not want[what][i].any(), (case, name, what)
+            continue
         scale = np.abs(g_want).max()
         assert scale > 0, f"{name}: JAX gradient is zero"
         for what, rel in (("grads", 1e-4), ("mu", 2e-4), ("nu", 4e-4)):

@@ -18,7 +18,13 @@ for leaf and LoRA ``b`` drawn:
   given positions, and ``BucketedEngine`` on a padded group, against the
   JAX engines; the launcher's lockstep and bucketed routes serve, its
   chunked continuous routes raise ``ValueError`` (as the JAX engine's
-  assert), and training stays refused (ROADMAP A10).
+  assert);
+* one train step on patch embeddings with M-RoPE streams and one
+  distillation step against ``jax.jit(make_train_step)`` /
+  ``make_distill_step`` (``torch_train_ref``: loss 1e-5 relative, each
+  gradient leaf 1e-4 of its largest, Adam's m 2e-4 and v 4e-4, the
+  updated modules 1e-6), while the launcher's trainer, whose data has
+  no patch embeddings, stays refused (ROADMAP A10).
 
 Tolerances: float32 1e-4; kept sets, positions, masks and tokens
 identical.
@@ -35,6 +41,7 @@ import pytest
 import torch
 
 from repro.common.config import EvictionConfig as JEvict
+from repro.common.config import TrainConfig as JTrain
 from repro.configs import get_smoke_config as jax_smoke
 from repro.core import policies as jpol
 from repro.core.lookahead import init_lookahead_params as jax_init_lkv
@@ -47,16 +54,23 @@ from repro_torch import bridge
 from repro_torch.common.config import EvictionConfig as TEvict
 from repro_torch.common.config import TrainConfig
 from repro_torch.configs import get_smoke_config
+from repro_torch.core import objective as tobj
 from repro_torch.core import policies as tpol
-from repro_torch.launch import serve, steps
+from repro_torch.launch import serve, steps, train
 from repro_torch.models import rope as trope
 from repro_torch.models import transformer as ttf
+from repro_torch.optim import adam as tadam
 from repro_torch.serving import (BucketedEngine, ChunkingConfig,
                                  ContinuousEngine, KVBlockPool, Request,
                                  ServingConfig, ServingEngine)
+import torch_train_ref as train_ref
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCH = "qwen2-vl-72b"
+#: the train steps' batch (B x (n_in + n_out), n_in the M-RoPE grid's 40
+#: rows) and schedule: lr 1e-3 of a 10-step schedule
+B, N_IN, N_OUT = 2, 40, 8
+LR, SCHEDULE = 1e-3, 10
 
 
 @pytest.fixture(scope="module")
@@ -269,12 +283,65 @@ def test_continuous_routes_refuse_mrope(model, pool):
         serve.main(["--arch", ARCH, "--smoke", "--device", "cpu"] + route)
 
 
+def _port_step(model, batch: dict, distill: bool) -> dict:
+    """One step of the port's ``make_train_step`` (``make_distill_step``)
+    on one device, as numpy leaves."""
+    make = steps.make_distill_step if distill else steps.make_train_step
+    step = make(model["tcfg"], TrainConfig(
+        steps=SCHEDULE, lr=LR, batch_size=B, n_in=N_IN, n_out=N_OUT))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    lkv, opt, loss, metrics = step(model["tp"], model["tl"],
+                                   tadam.init(model["tl"]), tb)
+    return {"loss": float(loss),
+            "grads": [g.numpy() for g in tadam.leaves(metrics["grads"])],
+            "mu": [g.numpy() for g in tadam.leaves(opt.mu)],
+            "nu": [g.numpy() for g in tadam.leaves(opt.nu)],
+            "lkv": [g.numpy() for g in tadam.leaves(lkv)]}
+
+
+def _jtc():
+    return JTrain(steps=SCHEDULE, lr=LR, batch_size=B, n_in=N_IN,
+                  n_out=N_OUT)
+
+
+def test_train_step_matches_jax(model):
+    """One step of the port's ``make_train_step`` on patch embeddings
+    with M-RoPE streams of a text prefix and a 4 x 8 image grid, against
+    ``jax.jit(make_train_step)`` (the GT pass over [X; embed(Y)] on the
+    text stream, as JAX's step runs it): the loss, every gradient leaf,
+    Adam's ``m`` and ``v`` and the updated modules
+    (``torch_train_ref.assert_step_matches``)."""
+    batch = train_ref.vlm_batch(model["tcfg"], B, N_OUT, seed=11)
+    want = train_ref.jax_step(model["jcfg"], model["jp"], model["jl"],
+                              batch, _jtc())
+    train_ref.assert_step_matches(_port_step(model, batch, False), want,
+                                  LR, "train")
+
+
+def test_distill_step_matches_jax(model):
+    """The distillation step on patch embeddings (no M-RoPE streams: JAX's
+    ``make_distill_step`` passes none) against stored targets, the port's
+    one-device GT pass: the same quantities as the train step."""
+    batch = train_ref.vlm_batch(model["tcfg"], B, N_OUT, seed=12)
+    x, y = torch.from_numpy(batch["x"]), torch.from_numpy(batch["y"])
+    xy = torch.cat([x, ttf.embed(model["tp"], model["tcfg"], y)], dim=1)
+    s_gt = tobj.gt_scores(model["tp"], model["tcfg"], xy, x.shape[1])
+    batch = {"x": batch["x"], "s_gt": s_gt.numpy()}
+    want = train_ref.jax_step(model["jcfg"], model["jp"], model["jl"],
+                              batch, _jtc())
+    train_ref.assert_step_matches(_port_step(model, batch, True), want,
+                                  LR, "distill")
+
+
 def test_training_and_encoder_inputs_stay_refused(model):
-    """VLM training is ROADMAP A10 (the JAX trainer has no synthetic VLM
-    batch); frame embeddings raise ValueError (qwen2-vl has no encoder:
-    the port refuses what the JAX package ignores)."""
+    """The launcher's trainer still refuses qwen2-vl (ROADMAP A10): its
+    synthetic mixture and harvested traces are token ids, with no patch
+    embeddings in either package; frame embeddings raise ValueError
+    (qwen2-vl has no encoder: the port refuses what the JAX package
+    ignores)."""
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        steps.make_train_step(model["tcfg"], TrainConfig(steps=1))
+        train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                    "--steps", "1"])
     with pytest.raises(ValueError, match="has no encoder"):
         ttf.prefill(model["tp"], model["tcfg"], torch.zeros((1, 8),
                                                             dtype=torch.long),

@@ -19,10 +19,14 @@ leaf and LoRA ``b`` drawn, so that the lookahead LoRA on the cross block's
 * the LoRA tree's keys and shapes, and a JAX-written lookahead checkpoint
   loaded by the port;
 * ``ops.flash_attention`` at Sq != Sk, with and without a key mask,
-  against ``repro.kernels.ref.attention``.
+  against ``repro.kernels.ref.attention``;
+* one train step with frames against ``jax.jit(make_train_step)``
+  (``torch_train_ref``: loss 1e-5 relative, each gradient leaf 1e-4 of
+  its largest, Adam's m 2e-4 and v 4e-4, the updated modules 1e-6).
 
 And the refusals, where the JAX package fails too: LAQ and SpecKV,
-``prompt_lens``, a missing ``encoder_embeds``, the launcher, training.
+``prompt_lens``, a missing ``encoder_embeds``, the launcher,
+distillation and the launcher's trainer.
 
 Tolerances: float32 1e-4; kept sets, positions, masks and tokens
 identical.  JAX compiles are few and small (the prefill and decode steps
@@ -40,6 +44,7 @@ import torch
 
 from repro.checkpoint import io as jckpt
 from repro.common.config import EvictionConfig as JEvict
+from repro.common.config import TrainConfig as JTrain
 from repro.configs import get_smoke_config as jax_smoke
 from repro.core import objective as jobj
 from repro.core import policies as jpol
@@ -56,10 +61,11 @@ from repro_torch.core import policies as tpol
 from repro_torch.core.lookahead import (init_lookahead_params,
                                         load_lookahead_params)
 from repro_torch.kernels import ops
-from repro_torch.launch import serve, steps
+from repro_torch.launch import serve, steps, train
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as ttf
 from repro_torch.optim import adam as tadam
+import torch_train_ref as train_ref
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCH = "whisper-small"
@@ -341,7 +347,9 @@ def test_whisper_refusals(model, what):
     """Where the JAX package fails on whisper, the port raises clearly:
     LAQ / SpecKV (the rescoring prefill drops the frames), bucket-padded
     prefill, a prefill without frames, the launcher (no engine passes
-    frames) and training (no synthetic frame batch: ROADMAP A10)."""
+    frames), distillation (``ValueError`` where JAX's step asserts: a
+    harvested batch has no frames) and the launcher's trainer (no
+    synthetic frame batch in either package: ROADMAP A10)."""
     tcfg, tp = model["tcfg"], model["tp"]
     toks = torch.from_numpy(model["toks"][:, :N_IN])
     fr = torch.from_numpy(model["frames"])
@@ -362,5 +370,32 @@ def test_whisper_refusals(model, what):
         with pytest.raises(ValueError, match="run_eviction"):
             serve.run(["--arch", ARCH, "--smoke", "--device", "cpu"])
     else:
+        with pytest.raises(ValueError, match="frame embeddings"):
+            steps.make_distill_step(tcfg, TrainConfig(steps=1))
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            steps.make_train_step(tcfg, TrainConfig(steps=1))
+            train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                        "--steps", "1"])
+
+
+def test_train_step_matches_jax(model):
+    """One step of the port's ``make_train_step`` with encoder frames in
+    both passes against ``jax.jit(make_train_step)``: the loss, every
+    gradient leaf, Adam's ``m`` and ``v`` and the updated modules
+    (``torch_train_ref.assert_step_matches``; the cross ``wk`` / ``wv``
+    LoRA zero in both)."""
+    batch = train_ref.whisper_batch(model["tcfg"], B, N_IN, N_OUT,
+                                    seed=13)
+    want = train_ref.jax_step(model["jcfg"], model["jp"], model["jl"],
+                              batch, JTrain(steps=10, lr=1e-3, batch_size=B,
+                                            n_in=N_IN, n_out=N_OUT))
+    step = steps.make_train_step(model["tcfg"], TrainConfig(
+        steps=10, lr=1e-3, batch_size=B, n_in=N_IN, n_out=N_OUT))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    lkv, opt, loss, metrics = step(model["tp"], model["tl"],
+                                   tadam.init(model["tl"]), tb)
+    got = {"loss": float(loss),
+           "grads": [g.numpy() for g in tadam.leaves(metrics["grads"])],
+           "mu": [g.numpy() for g in tadam.leaves(opt.mu)],
+           "nu": [g.numpy() for g in tadam.leaves(opt.nu)],
+           "lkv": [g.numpy() for g in tadam.leaves(lkv)]}
+    train_ref.assert_step_matches(got, want, 1e-3, "train")
