@@ -19,7 +19,11 @@ Data sources:
 * ``--harvest <dir>``: distillation against gt_oracle targets harvested
   from serving traces (``python -m repro_torch.data.harvest``, or the JAX
   package's, which writes the same shards): each step runs only the
-  lookahead pass against the stored score vectors.
+  lookahead pass against the stored score vectors;
+* ``train_job``'s explicit batches (``job["batches"]``), the only source
+  of qwen2-vl's patch embeddings and whisper's encoder frames: both
+  sources above are token ids in either package, so the launcher refuses
+  those archs (ROADMAP A10), as the JAX trainer has no batch for them.
 
 On the card the GT pass runs kernels 7 and 3 (no gradient is taken
 through it) and the lookahead pass the plain versions under

@@ -7,6 +7,10 @@ the JAX package's field names and grouping.
 * ``sampling``     — ``core.policies.Sampling`` (None: greedy)
 * ``prefix_cache`` — ``serving.prefix_cache.PrefixCache`` (None: off)
 
+``ServingConfig.from_legacy`` / ``legacy_kwargs`` map the old
+``ContinuousEngine`` keyword arguments onto the config and back (JAX's
+deprecation shim; the engine still takes them, with a warning).
+
 Fields the port's engine does not serve yet stay in the schema and make
 ``ContinuousEngine`` raise ``NotImplementedError`` naming their ROADMAP
 item, so a config written for the JAX engine fails loudly here instead of
